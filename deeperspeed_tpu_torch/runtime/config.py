@@ -1,0 +1,540 @@
+"""The "inference" config block → validated params dict.
+
+The port's counterpart of `parse_inference_block` and the sub-parsers
+it calls in `deeperspeed_tpu/runtime/config.py`: the same keys,
+defaults and `DeepSpeedConfigError` messages, so a serving config
+written for the JAX package parses to the same dict here. The training
+`DeepSpeedConfig` waits for the training slice.
+"""
+
+from . import constants as c
+from .config_utils import DeepSpeedConfigError, as_int
+
+
+def parse_inference_block(d):
+    """Parse + validate the "inference" block (the serving engine,
+    `deeperspeed_tpu_torch/inference`). A mistyped bucket ladder must
+    fail at engine init, not under live traffic.
+
+    Returns the validated params dict, or False when absent/disabled."""
+    inf = d.get(c.INFERENCE) or {}
+    known = {c.INFERENCE_ENABLED, c.INFERENCE_PAGE_SIZE,
+             c.INFERENCE_NUM_PAGES, c.INFERENCE_MAX_SEQ_LEN,
+             c.INFERENCE_MAX_BATCH_SIZE, c.INFERENCE_TOKEN_BUDGET,
+             c.INFERENCE_PREFILL_LENGTHS, c.INFERENCE_PREFILL_BATCH_SIZES,
+             c.INFERENCE_DECODE_BATCH_SIZES, c.INFERENCE_TEMPERATURE,
+             c.INFERENCE_SEED, c.INFERENCE_KERNEL, c.INFERENCE_KV_DTYPE,
+             c.INFERENCE_DRAIN_DEADLINE, c.INFERENCE_DEFAULT_PRIORITY,
+             c.INFERENCE_HANG_TIMEOUT, c.INFERENCE_ADMISSION,
+             c.INFERENCE_RETRY, c.INFERENCE_FAULT_INJECTION,
+             c.INFERENCE_PREFIX_CACHE, c.INFERENCE_SPECULATIVE,
+             c.INFERENCE_DISAGGREGATION, c.INFERENCE_ROUTER}
+    unknown = sorted(set(inf) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference' key(s) {unknown}; valid keys: "
+            f"{sorted(known)}")
+
+    enabled = inf.get(c.INFERENCE_ENABLED, c.INFERENCE_ENABLED_DEFAULT)
+    if not isinstance(enabled, bool):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_ENABLED} must be a boolean, got "
+            f"{enabled!r}")
+    if not enabled:
+        return False
+
+    ints = {}
+    for key, default, lo in (
+            (c.INFERENCE_PAGE_SIZE, c.INFERENCE_PAGE_SIZE_DEFAULT, 8),
+            (c.INFERENCE_NUM_PAGES, c.INFERENCE_NUM_PAGES_DEFAULT, 2),
+            (c.INFERENCE_MAX_BATCH_SIZE,
+             c.INFERENCE_MAX_BATCH_SIZE_DEFAULT, 1),
+            (c.INFERENCE_TOKEN_BUDGET,
+             c.INFERENCE_TOKEN_BUDGET_DEFAULT, 1),
+            (c.INFERENCE_SEED, c.INFERENCE_SEED_DEFAULT, 0)):
+        value = as_int(inf.get(key, default), f"inference.{key}")
+        if value < lo:
+            raise DeepSpeedConfigError(
+                f"inference.{key} must be >= {lo}, got {value}")
+        ints[key] = value
+    if ints[c.INFERENCE_PAGE_SIZE] % 8:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_PAGE_SIZE} must be a multiple of 8 "
+            f"(the decode kernel reads keys 8 at a time), got "
+            f"{ints[c.INFERENCE_PAGE_SIZE]}")
+
+    max_seq_len = inf.get(c.INFERENCE_MAX_SEQ_LEN,
+                          c.INFERENCE_MAX_SEQ_LEN_DEFAULT)
+    if max_seq_len is not None:
+        max_seq_len = as_int(max_seq_len,
+                             f"inference.{c.INFERENCE_MAX_SEQ_LEN}")
+        if max_seq_len < 1:
+            raise DeepSpeedConfigError(
+                f"inference.{c.INFERENCE_MAX_SEQ_LEN} must be >= 1, got "
+                f"{max_seq_len}")
+
+    def bucket_list(key, minimum=1):
+        raw = inf.get(key)
+        if raw is None:
+            return None
+        if not isinstance(raw, (list, tuple)) or not raw:
+            raise DeepSpeedConfigError(
+                f"inference.{key} must be a non-empty list of ints, got "
+                f"{raw!r}")
+        vals = [as_int(v, f"inference.{key}") for v in raw]
+        if any(v < minimum for v in vals):
+            raise DeepSpeedConfigError(
+                f"inference.{key} entries must be >= {minimum}, got "
+                f"{vals}")
+        if sorted(vals) != vals or len(set(vals)) != len(vals):
+            raise DeepSpeedConfigError(
+                f"inference.{key} must be strictly increasing, got "
+                f"{vals}")
+        return vals
+
+    prefill_lengths = bucket_list(c.INFERENCE_PREFILL_LENGTHS)
+    if prefill_lengths is not None:
+        bad = [v for v in prefill_lengths
+               if v % ints[c.INFERENCE_PAGE_SIZE]]
+        if bad:
+            raise DeepSpeedConfigError(
+                f"inference.{c.INFERENCE_PREFILL_LENGTHS} entries must "
+                f"be multiples of page_size "
+                f"{ints[c.INFERENCE_PAGE_SIZE]} (the prefill scatter "
+                f"writes whole pages), got {bad}")
+    prefill_batch_sizes = bucket_list(c.INFERENCE_PREFILL_BATCH_SIZES)
+    decode_batch_sizes = bucket_list(c.INFERENCE_DECODE_BATCH_SIZES)
+    if decode_batch_sizes is not None and \
+            decode_batch_sizes[-1] < ints[c.INFERENCE_MAX_BATCH_SIZE]:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_DECODE_BATCH_SIZES} tops out at "
+            f"{decode_batch_sizes[-1]} but max_batch_size is "
+            f"{ints[c.INFERENCE_MAX_BATCH_SIZE]}: a full continuous "
+            f"batch would have no compiled shape")
+
+    temperature = inf.get(c.INFERENCE_TEMPERATURE,
+                          c.INFERENCE_TEMPERATURE_DEFAULT)
+    if not isinstance(temperature, (int, float)) or \
+            isinstance(temperature, bool) or temperature < 0:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_TEMPERATURE} must be a number >= 0 "
+            f"(0 = greedy), got {temperature!r}")
+
+    kernel = inf.get(c.INFERENCE_KERNEL, c.INFERENCE_KERNEL_DEFAULT)
+    if kernel not in c.INFERENCE_KERNEL_CHOICES:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_KERNEL} must be one of "
+            f"{list(c.INFERENCE_KERNEL_CHOICES)}, got {kernel!r}")
+
+    kv_dtype = inf.get(c.INFERENCE_KV_DTYPE, c.INFERENCE_KV_DTYPE_DEFAULT)
+    if kv_dtype is not None:
+        # validated against the POOL dtypes the paged cache implements,
+        # not resolve_precision's full spelling table: an unsupported
+        # pool dtype must fail here with the choices listed, not as a
+        # late kernel error far from the config
+        if not isinstance(kv_dtype, str) or \
+                kv_dtype.lower() not in c.INFERENCE_KV_DTYPE_CHOICES:
+            raise DeepSpeedConfigError(
+                f"inference.{c.INFERENCE_KV_DTYPE} must be null (the "
+                f"params' compute dtype) or a supported pool precision "
+                f"{sorted(c.INFERENCE_KV_DTYPE_CHOICES)}, got "
+                f"{kv_dtype!r}")
+        kv_dtype = kv_dtype.lower()
+
+    drain_deadline = inf.get(c.INFERENCE_DRAIN_DEADLINE,
+                             c.INFERENCE_DRAIN_DEADLINE_DEFAULT)
+    if not isinstance(drain_deadline, (int, float)) or \
+            isinstance(drain_deadline, bool) or drain_deadline < 0:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_DRAIN_DEADLINE} must be a number "
+            f">= 0 (seconds; 0 = stop immediately after the current "
+            f"step), got {drain_deadline!r}")
+
+    # -- serving robustness (inference/admission.py) -------------------
+
+    from ..inference.admission import PRIORITIES
+    default_priority = inf.get(c.INFERENCE_DEFAULT_PRIORITY,
+                               c.INFERENCE_DEFAULT_PRIORITY_DEFAULT)
+    if default_priority not in PRIORITIES:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_DEFAULT_PRIORITY} must be one of "
+            f"{list(PRIORITIES)}, got {default_priority!r}")
+
+    hang_timeout = inf.get(c.INFERENCE_HANG_TIMEOUT,
+                           c.INFERENCE_HANG_TIMEOUT_DEFAULT)
+    if not isinstance(hang_timeout, (int, float)) or \
+            isinstance(hang_timeout, bool) or hang_timeout < 0:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_HANG_TIMEOUT} must be a number "
+            f">= 0 (seconds; 0 = watchdog off), got {hang_timeout!r}")
+
+    admission = _parse_inference_admission(
+        inf.get(c.INFERENCE_ADMISSION))
+    retry = _parse_inference_retry(inf.get(c.INFERENCE_RETRY))
+    prefix_cache = _parse_inference_prefix_cache(
+        inf.get(c.INFERENCE_PREFIX_CACHE))
+    speculative = _parse_inference_speculative(
+        inf.get(c.INFERENCE_SPECULATIVE))
+    disaggregation = _parse_inference_disaggregation(
+        inf.get(c.INFERENCE_DISAGGREGATION))
+    router = _parse_inference_router(inf.get(c.INFERENCE_ROUTER))
+    if disaggregation["role"] != "unified" and speculative is not None:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_DISAGGREGATION} role "
+            f"{disaggregation['role']!r} cannot combine with "
+            f"inference.{c.INFERENCE_SPECULATIVE}: the draft model's "
+            f"shadow KV pools cannot be reconstructed from a page "
+            f"handoff yet — run speculation on unified pools")
+
+    fault_spec = inf.get(c.INFERENCE_FAULT_INJECTION)
+    if fault_spec is not None:
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_FAULT_INJECTION} is not ported yet: "
+            f"the serving fault injector comes with the robustness slice")
+
+    return {
+        "page_size": ints[c.INFERENCE_PAGE_SIZE],
+        "num_pages": ints[c.INFERENCE_NUM_PAGES],
+        "max_seq_len": max_seq_len,
+        "max_batch_size": ints[c.INFERENCE_MAX_BATCH_SIZE],
+        "token_budget": ints[c.INFERENCE_TOKEN_BUDGET],
+        "prefill_lengths": prefill_lengths,
+        "prefill_batch_sizes": prefill_batch_sizes,
+        "decode_batch_sizes": decode_batch_sizes,
+        "temperature": float(temperature),
+        "seed": ints[c.INFERENCE_SEED],
+        "kernel": kernel,
+        "kv_cache_dtype": kv_dtype,
+        "drain_deadline_s": float(drain_deadline),
+        "default_priority": default_priority,
+        "hang_timeout_s": float(hang_timeout),
+        "admission": admission,
+        "retry": retry,
+        "fault_injection": fault_spec,
+        "prefix_cache": prefix_cache,
+        "speculative": speculative,
+        "disaggregation": disaggregation,
+        "router": router,
+    }
+
+
+def _parse_inference_admission(block):
+    """Validate the ``inference.admission`` sub-block -> params dict,
+    or None when absent/disabled (no admission control: the
+    pre-robustness unbounded-queue behavior)."""
+    if block is None:
+        return None
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_ADMISSION} must be an object, got "
+            f"{type(block).__name__}")
+    known = {c.INFERENCE_ADMISSION_ENABLED,
+             c.INFERENCE_ADMISSION_MAX_QUEUE_DEPTH,
+             c.INFERENCE_ADMISSION_SHED_POOL_UTIL,
+             c.INFERENCE_ADMISSION_SHED_TTFT_EMA,
+             c.INFERENCE_ADMISSION_TTFT_EMA_BETA,
+             c.INFERENCE_ADMISSION_RETRY_AFTER_CAP}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference.{c.INFERENCE_ADMISSION}' key(s) "
+            f"{unknown}; valid keys: {sorted(known)}")
+    enabled = block.get(c.INFERENCE_ADMISSION_ENABLED,
+                        c.INFERENCE_ADMISSION_ENABLED_DEFAULT)
+    if not isinstance(enabled, bool):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_ADMISSION}."
+            f"{c.INFERENCE_ADMISSION_ENABLED} must be a boolean, got "
+            f"{enabled!r}")
+    if not enabled:
+        return None
+
+    where = f"inference.{c.INFERENCE_ADMISSION}"
+    depth = as_int(block.get(c.INFERENCE_ADMISSION_MAX_QUEUE_DEPTH,
+                             c.INFERENCE_ADMISSION_MAX_QUEUE_DEPTH_DEFAULT),
+                   f"{where}.{c.INFERENCE_ADMISSION_MAX_QUEUE_DEPTH}")
+    if depth < 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_ADMISSION_MAX_QUEUE_DEPTH} must be "
+            f">= 1, got {depth}")
+
+    pool_util = block.get(c.INFERENCE_ADMISSION_SHED_POOL_UTIL,
+                          c.INFERENCE_ADMISSION_SHED_POOL_UTIL_DEFAULT)
+    if not isinstance(pool_util, (int, float)) or \
+            isinstance(pool_util, bool) or not 0 < pool_util <= 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_ADMISSION_SHED_POOL_UTIL} must be a "
+            f"number in (0, 1], got {pool_util!r}")
+
+    ttft_ms = block.get(c.INFERENCE_ADMISSION_SHED_TTFT_EMA,
+                        c.INFERENCE_ADMISSION_SHED_TTFT_EMA_DEFAULT)
+    if ttft_ms is not None and (
+            not isinstance(ttft_ms, (int, float)) or
+            isinstance(ttft_ms, bool) or ttft_ms <= 0):
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_ADMISSION_SHED_TTFT_EMA} must be a "
+            f"number > 0 (milliseconds) or null (signal off), got "
+            f"{ttft_ms!r}")
+
+    beta = block.get(c.INFERENCE_ADMISSION_TTFT_EMA_BETA,
+                     c.INFERENCE_ADMISSION_TTFT_EMA_BETA_DEFAULT)
+    if not isinstance(beta, (int, float)) or isinstance(beta, bool) or \
+            not 0 < beta < 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_ADMISSION_TTFT_EMA_BETA} must be a "
+            f"number in (0, 1), got {beta!r}")
+
+    cap = block.get(c.INFERENCE_ADMISSION_RETRY_AFTER_CAP,
+                    c.INFERENCE_ADMISSION_RETRY_AFTER_CAP_DEFAULT)
+    if not isinstance(cap, (int, float)) or isinstance(cap, bool) or \
+            cap <= 0:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_ADMISSION_RETRY_AFTER_CAP} must be a "
+            f"number > 0 (seconds), got {cap!r}")
+
+    return {"max_queue_depth": depth,
+            "shed_page_pool_util": float(pool_util),
+            "shed_ttft_ema_ms": (None if ttft_ms is None
+                                 else float(ttft_ms)),
+            "ttft_ema_beta": float(beta),
+            "retry_after_cap_s": float(cap)}
+
+
+def _parse_inference_retry(block):
+    """Validate the ``inference.retry`` sub-block -> params dict. The
+    retry/poison machinery is always on (a step failure must never kill
+    the server), so an absent block yields the defaults."""
+    if block is None:
+        block = {}
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_RETRY} must be an object, got "
+            f"{type(block).__name__}")
+    known = {c.INFERENCE_RETRY_MAX_ATTEMPTS,
+             c.INFERENCE_RETRY_BACKOFF_BASE,
+             c.INFERENCE_RETRY_BACKOFF_CAP, c.INFERENCE_RETRY_JITTER}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference.{c.INFERENCE_RETRY}' key(s) {unknown}; "
+            f"valid keys: {sorted(known)}")
+    where = f"inference.{c.INFERENCE_RETRY}"
+
+    attempts = as_int(block.get(c.INFERENCE_RETRY_MAX_ATTEMPTS,
+                                c.INFERENCE_RETRY_MAX_ATTEMPTS_DEFAULT),
+                      f"{where}.{c.INFERENCE_RETRY_MAX_ATTEMPTS}")
+    if attempts < 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_RETRY_MAX_ATTEMPTS} must be >= 1 "
+            f"(the first attempt counts), got {attempts}")
+
+    base = block.get(c.INFERENCE_RETRY_BACKOFF_BASE,
+                     c.INFERENCE_RETRY_BACKOFF_BASE_DEFAULT)
+    cap = block.get(c.INFERENCE_RETRY_BACKOFF_CAP,
+                    c.INFERENCE_RETRY_BACKOFF_CAP_DEFAULT)
+    for key, value in ((c.INFERENCE_RETRY_BACKOFF_BASE, base),
+                       (c.INFERENCE_RETRY_BACKOFF_CAP, cap)):
+        if not isinstance(value, (int, float)) or \
+                isinstance(value, bool) or value <= 0:
+            raise DeepSpeedConfigError(
+                f"{where}.{key} must be a number > 0 (milliseconds), "
+                f"got {value!r}")
+    if cap < base:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_RETRY_BACKOFF_CAP} ({cap}) must be "
+            f">= {c.INFERENCE_RETRY_BACKOFF_BASE} ({base})")
+
+    jitter = block.get(c.INFERENCE_RETRY_JITTER,
+                       c.INFERENCE_RETRY_JITTER_DEFAULT)
+    if not isinstance(jitter, (int, float)) or \
+            isinstance(jitter, bool) or not 0 <= jitter < 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_RETRY_JITTER} must be a number in "
+            f"[0, 1), got {jitter!r}")
+
+    return {"max_attempts": attempts, "backoff_base_ms": float(base),
+            "backoff_cap_ms": float(cap), "jitter": float(jitter)}
+
+
+def _parse_inference_prefix_cache(block):
+    """Validate the ``inference.prefix_cache`` sub-block -> params dict,
+    or None when absent/disabled (no cross-request KV reuse: the
+    pre-prefix-cache behavior)."""
+    if block is None:
+        return None
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_PREFIX_CACHE} must be an object, "
+            f"got {type(block).__name__}")
+    known = {c.INFERENCE_PREFIX_CACHE_ENABLED,
+             c.INFERENCE_PREFIX_CACHE_MAX_PAGES}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference.{c.INFERENCE_PREFIX_CACHE}' key(s) "
+            f"{unknown}; valid keys: {sorted(known)}")
+    enabled = block.get(c.INFERENCE_PREFIX_CACHE_ENABLED,
+                        c.INFERENCE_PREFIX_CACHE_ENABLED_DEFAULT)
+    if not isinstance(enabled, bool):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_PREFIX_CACHE}."
+            f"{c.INFERENCE_PREFIX_CACHE_ENABLED} must be a boolean, got "
+            f"{enabled!r}")
+    if not enabled:
+        return None
+
+    where = f"inference.{c.INFERENCE_PREFIX_CACHE}"
+    max_pages = block.get(c.INFERENCE_PREFIX_CACHE_MAX_PAGES,
+                          c.INFERENCE_PREFIX_CACHE_MAX_PAGES_DEFAULT)
+    if max_pages is not None:
+        max_pages = as_int(
+            max_pages, f"{where}.{c.INFERENCE_PREFIX_CACHE_MAX_PAGES}")
+        if max_pages < 1:
+            raise DeepSpeedConfigError(
+                f"{where}.{c.INFERENCE_PREFIX_CACHE_MAX_PAGES} must be "
+                f">= 1 or null (registry bounded only by the pool), got "
+                f"{max_pages}")
+
+    return {"max_pages": max_pages}
+
+
+def _parse_inference_speculative(block):
+    """Validate the ``inference.speculative`` sub-block -> params dict,
+    or None when absent/disabled (plain one-token-per-step decode)."""
+    if block is None:
+        return None
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_SPECULATIVE} must be an object, "
+            f"got {type(block).__name__}")
+    known = {c.INFERENCE_SPECULATIVE_ENABLED,
+             c.INFERENCE_SPECULATIVE_NUM_DRAFT,
+             c.INFERENCE_SPECULATIVE_DRAFT_WEIGHT_QUANT}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference.{c.INFERENCE_SPECULATIVE}' key(s) "
+            f"{unknown}; valid keys: {sorted(known)}")
+    enabled = block.get(c.INFERENCE_SPECULATIVE_ENABLED,
+                        c.INFERENCE_SPECULATIVE_ENABLED_DEFAULT)
+    if not isinstance(enabled, bool):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_SPECULATIVE}."
+            f"{c.INFERENCE_SPECULATIVE_ENABLED} must be a boolean, got "
+            f"{enabled!r}")
+    if not enabled:
+        return None
+
+    where = f"inference.{c.INFERENCE_SPECULATIVE}"
+    k = as_int(block.get(c.INFERENCE_SPECULATIVE_NUM_DRAFT,
+                         c.INFERENCE_SPECULATIVE_NUM_DRAFT_DEFAULT),
+               f"{where}.{c.INFERENCE_SPECULATIVE_NUM_DRAFT}")
+    if k < 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_SPECULATIVE_NUM_DRAFT} must be >= 1, "
+            f"got {k}")
+
+    quant = block.get(c.INFERENCE_SPECULATIVE_DRAFT_WEIGHT_QUANT,
+                      c.INFERENCE_SPECULATIVE_DRAFT_WEIGHT_QUANT_DEFAULT)
+    if quant is not None and quant not in c.QUANTIZATION_WEIGHTS_CHOICES:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_SPECULATIVE_DRAFT_WEIGHT_QUANT} must "
+            f"be null or one of {list(c.QUANTIZATION_WEIGHTS_CHOICES)}, "
+            f"got {quant!r}")
+
+    return {"num_draft_tokens": k, "draft_weight_quant": quant}
+
+
+def _parse_inference_disaggregation(block):
+    """Validate the ``inference.disaggregation`` sub-block -> params
+    dict. ALWAYS returns a dict (role "unified" when absent — today's
+    single-engine behavior), so the engine reads one shape."""
+    if block is None:
+        block = {}
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_DISAGGREGATION} must be an object, "
+            f"got {type(block).__name__}")
+    known = {c.INFERENCE_DISAGG_ROLE, c.INFERENCE_DISAGG_POOL_ID,
+             c.INFERENCE_DISAGG_HANDOFF_TIMEOUT}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference.{c.INFERENCE_DISAGGREGATION}' key(s) "
+            f"{unknown}; valid keys: {sorted(known)}")
+    where = f"inference.{c.INFERENCE_DISAGGREGATION}"
+
+    role = block.get(c.INFERENCE_DISAGG_ROLE,
+                     c.INFERENCE_DISAGG_ROLE_DEFAULT)
+    if role not in c.INFERENCE_DISAGG_ROLE_CHOICES:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_DISAGG_ROLE} must be one of "
+            f"{list(c.INFERENCE_DISAGG_ROLE_CHOICES)}, got {role!r}")
+
+    pool_id = block.get(c.INFERENCE_DISAGG_POOL_ID,
+                        c.INFERENCE_DISAGG_POOL_ID_DEFAULT)
+    if pool_id is None:
+        pool_id = f"{role}-0"
+    if not isinstance(pool_id, str) or not pool_id or \
+            any(ch in pool_id for ch in "/:"):
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_DISAGG_POOL_ID} must be a non-empty "
+            f"string without '/' or ':' (it namespaces transport "
+            f"keys), got {pool_id!r}")
+
+    timeout = block.get(c.INFERENCE_DISAGG_HANDOFF_TIMEOUT,
+                        c.INFERENCE_DISAGG_HANDOFF_TIMEOUT_DEFAULT)
+    if not isinstance(timeout, (int, float)) or \
+            isinstance(timeout, bool) or timeout <= 0:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_DISAGG_HANDOFF_TIMEOUT} must be a "
+            f"number > 0 (seconds), got {timeout!r}")
+
+    return {"role": role, "pool_id": pool_id,
+            "handoff_timeout_s": float(timeout)}
+
+
+def _parse_inference_router(block):
+    """Validate the ``inference.router`` sub-block -> params dict, or
+    None when absent (`ServeRouter` then runs on defaults)."""
+    if block is None:
+        return None
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"inference.{c.INFERENCE_ROUTER} must be an object, got "
+            f"{type(block).__name__}")
+    known = {c.INFERENCE_ROUTER_QUEUE_DEPTH_WEIGHT,
+             c.INFERENCE_ROUTER_POOL_UTIL_WEIGHT,
+             c.INFERENCE_ROUTER_TTFT_WEIGHT,
+             c.INFERENCE_ROUTER_SCALE_UP_UTIL}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown 'inference.{c.INFERENCE_ROUTER}' key(s) "
+            f"{unknown}; valid keys: {sorted(known)}")
+    where = f"inference.{c.INFERENCE_ROUTER}"
+
+    out = {}
+    for key, default in (
+            (c.INFERENCE_ROUTER_QUEUE_DEPTH_WEIGHT,
+             c.INFERENCE_ROUTER_QUEUE_DEPTH_WEIGHT_DEFAULT),
+            (c.INFERENCE_ROUTER_POOL_UTIL_WEIGHT,
+             c.INFERENCE_ROUTER_POOL_UTIL_WEIGHT_DEFAULT),
+            (c.INFERENCE_ROUTER_TTFT_WEIGHT,
+             c.INFERENCE_ROUTER_TTFT_WEIGHT_DEFAULT)):
+        value = block.get(key, default)
+        if not isinstance(value, (int, float)) or \
+                isinstance(value, bool) or value < 0:
+            raise DeepSpeedConfigError(
+                f"{where}.{key} must be a number >= 0, got {value!r}")
+        out[key] = float(value)
+
+    util = block.get(c.INFERENCE_ROUTER_SCALE_UP_UTIL,
+                     c.INFERENCE_ROUTER_SCALE_UP_UTIL_DEFAULT)
+    if not isinstance(util, (int, float)) or isinstance(util, bool) or \
+            not 0 < util <= 1:
+        raise DeepSpeedConfigError(
+            f"{where}.{c.INFERENCE_ROUTER_SCALE_UP_UTIL} must be a "
+            f"number in (0, 1], got {util!r}")
+    out[c.INFERENCE_ROUTER_SCALE_UP_UTIL] = float(util)
+    return out

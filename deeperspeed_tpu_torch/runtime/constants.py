@@ -1,0 +1,181 @@
+"""Config keys and defaults of the blocks the port parses.
+
+A subset of `deeperspeed_tpu/runtime/constants.py`: the "inference"
+block the serving engine reads, the precision spellings its
+``kv_cache_dtype`` resolves through, and the "quantization" weights key
+the engine refuses until int8 weights are ported. The values are the
+same, so one JSON config means the same thing to both packages.
+"""
+
+# Accepted precision spellings → canonical dtype names (torch dtypes are
+# resolved in precision.py; kept as strings here so this module stays
+# import-light).
+PRECISION_TYPES = {
+    "fp32": "float32",
+    "float32": "float32",
+    "float": "float32",
+    "fp16": "float16",
+    "float16": "float16",
+    "half": "float16",
+    "bfloat16": "bfloat16",
+    "bf16": "bfloat16",
+}
+
+
+# ---------------------------------------------------------------------------
+# Inference block (serving engine; deeperspeed_tpu_torch/inference)
+# ---------------------------------------------------------------------------
+INFERENCE = "inference"
+INFERENCE_ENABLED = "enabled"
+INFERENCE_ENABLED_DEFAULT = False
+# KV-cache page geometry: slots per page
+# and pool pages per layer (page 0 is the reserved trash page)
+INFERENCE_PAGE_SIZE = "page_size"
+INFERENCE_PAGE_SIZE_DEFAULT = 128
+INFERENCE_NUM_PAGES = "num_pages"
+INFERENCE_NUM_PAGES_DEFAULT = 1024
+# serving window; None = the model's max_seq_len
+INFERENCE_MAX_SEQ_LEN = "max_seq_len"
+INFERENCE_MAX_SEQ_LEN_DEFAULT = None
+# in-flight decode sequences (the continuous batch)
+INFERENCE_MAX_BATCH_SIZE = "max_batch_size"
+INFERENCE_MAX_BATCH_SIZE_DEFAULT = 8
+# per-step admission budget: a prefill costs its padded bucket length,
+# a decode costs 1 (scheduler.py)
+INFERENCE_TOKEN_BUDGET = "token_budget"
+INFERENCE_TOKEN_BUDGET_DEFAULT = 4096
+# compiled-shape bucket ladders (None = derived defaults)
+INFERENCE_PREFILL_LENGTHS = "prefill_lengths"
+INFERENCE_PREFILL_BATCH_SIZES = "prefill_batch_sizes"
+INFERENCE_DECODE_BATCH_SIZES = "decode_batch_sizes"
+# sampling: 0.0 = greedy argmax (deterministic)
+INFERENCE_TEMPERATURE = "temperature"
+INFERENCE_TEMPERATURE_DEFAULT = 0.0
+INFERENCE_SEED = "seed"
+INFERENCE_SEED_DEFAULT = 0
+# decode-attention backend: "auto" and "pallas" launch the hand-written
+# kernel on CUDA tensors (the plain version on CPU tensors); "xla" always
+# takes the plain version. The spellings are the JAX package's.
+INFERENCE_KERNEL = "kernel"
+INFERENCE_KERNEL_DEFAULT = "auto"
+INFERENCE_KERNEL_CHOICES = ("auto", "pallas", "xla")
+# KV-cache storage dtype: null = the params' compute dtype. Validated
+# at parse time against the POOL dtypes the cache actually implements —
+# any other resolve_precision spelling used to slip through and surface
+# as a late kernel error far from the config.
+INFERENCE_KV_DTYPE = "kv_cache_dtype"
+INFERENCE_KV_DTYPE_DEFAULT = None
+INFERENCE_KV_DTYPE_CHOICES = ("bfloat16", "bf16", "float16", "fp16",
+                              "half", "float32", "fp32", "float", "int8")
+
+# Graceful drain (SIGTERM): stop admissions, finish in-flight sequences
+# for at most this many seconds, flush Serve/* telemetry, exit 0.
+INFERENCE_DRAIN_DEADLINE = "drain_deadline_s"
+INFERENCE_DRAIN_DEADLINE_DEFAULT = 30.0
+
+# -- serving robustness (inference/admission.py; docs/inference.md
+#    "Serving under failure") ------------------------------------------------
+
+# priority class a submit() without an explicit `priority` gets
+INFERENCE_DEFAULT_PRIORITY = "default_priority"
+INFERENCE_DEFAULT_PRIORITY_DEFAULT = "interactive"
+
+# hang watchdog around the serving step: 0 = off
+INFERENCE_HANG_TIMEOUT = "hang_timeout_s"
+INFERENCE_HANG_TIMEOUT_DEFAULT = 0.0
+
+# admission control / load shedding sub-block (absent => no shedding,
+# the pre-robustness unbounded-queue behavior)
+INFERENCE_ADMISSION = "admission"
+INFERENCE_ADMISSION_ENABLED = "enabled"
+INFERENCE_ADMISSION_ENABLED_DEFAULT = True
+INFERENCE_ADMISSION_MAX_QUEUE_DEPTH = "max_queue_depth"
+INFERENCE_ADMISSION_MAX_QUEUE_DEPTH_DEFAULT = 256
+INFERENCE_ADMISSION_SHED_POOL_UTIL = "shed_page_pool_util"
+INFERENCE_ADMISSION_SHED_POOL_UTIL_DEFAULT = 0.95
+INFERENCE_ADMISSION_SHED_TTFT_EMA = "shed_ttft_ema_ms"
+INFERENCE_ADMISSION_SHED_TTFT_EMA_DEFAULT = None
+INFERENCE_ADMISSION_TTFT_EMA_BETA = "ttft_ema_beta"
+INFERENCE_ADMISSION_TTFT_EMA_BETA_DEFAULT = 0.9
+INFERENCE_ADMISSION_RETRY_AFTER_CAP = "retry_after_cap_s"
+INFERENCE_ADMISSION_RETRY_AFTER_CAP_DEFAULT = 60.0
+
+# step-failure retry/poison sub-block (always active; the defaults
+# apply when the block is absent)
+INFERENCE_RETRY = "retry"
+INFERENCE_RETRY_MAX_ATTEMPTS = "max_attempts"
+INFERENCE_RETRY_MAX_ATTEMPTS_DEFAULT = 3
+INFERENCE_RETRY_BACKOFF_BASE = "backoff_base_ms"
+INFERENCE_RETRY_BACKOFF_BASE_DEFAULT = 50.0
+INFERENCE_RETRY_BACKOFF_CAP = "backoff_cap_ms"
+INFERENCE_RETRY_BACKOFF_CAP_DEFAULT = 2000.0
+INFERENCE_RETRY_JITTER = "jitter"
+INFERENCE_RETRY_JITTER_DEFAULT = 0.25
+
+# serving fault injection (runtime/fault_injection.py serving kinds);
+# same schema as training_health.fault_injection
+INFERENCE_FAULT_INJECTION = "fault_injection"
+
+# prefix/radix KV-cache reuse sub-block (inference/kv_cache.PrefixCache):
+# shared-prompt prefills attach registered page chains by refcount
+INFERENCE_PREFIX_CACHE = "prefix_cache"
+INFERENCE_PREFIX_CACHE_ENABLED = "enabled"
+INFERENCE_PREFIX_CACHE_ENABLED_DEFAULT = False
+# registry size cap in pages (null = bounded only by pool pressure:
+# allocation shortfalls reclaim LRU unshared registry pages)
+INFERENCE_PREFIX_CACHE_MAX_PAGES = "max_pages"
+INFERENCE_PREFIX_CACHE_MAX_PAGES_DEFAULT = None
+
+# speculative decoding sub-block: a draft model proposes
+# num_draft_tokens per decode step; the target verifies the window in
+# one batched forward (engine arg `draft_model` supplies the drafter)
+INFERENCE_SPECULATIVE = "speculative"
+INFERENCE_SPECULATIVE_ENABLED = "enabled"
+INFERENCE_SPECULATIVE_ENABLED_DEFAULT = False
+INFERENCE_SPECULATIVE_NUM_DRAFT = "num_draft_tokens"
+INFERENCE_SPECULATIVE_NUM_DRAFT_DEFAULT = 4
+# int8 weight-only quantization for the DRAFT params (the draft step is
+# weight-bandwidth bound too); null = the target's compute dtype
+INFERENCE_SPECULATIVE_DRAFT_WEIGHT_QUANT = "draft_weight_quant"
+INFERENCE_SPECULATIVE_DRAFT_WEIGHT_QUANT_DEFAULT = None
+
+# disaggregated prefill/decode serving sub-block (docs/inference.md
+# "Disaggregated prefill/decode"): an engine's pool role — a prefill
+# pool runs admission + prefill and hands completed requests' KV pages
+# to a decode pool over the coordination-service transport; "unified"
+# (the default) is the single-engine behavior
+INFERENCE_DISAGGREGATION = "disaggregation"
+INFERENCE_DISAGG_ROLE = "role"
+INFERENCE_DISAGG_ROLE_DEFAULT = "unified"
+INFERENCE_DISAGG_ROLE_CHOICES = ("unified", "prefill", "decode")
+# pool identity: the handoff transport key namespace AND the
+# role/host labels on the Serve/* Prometheus families (null = derived
+# from the role, e.g. "prefill-0")
+INFERENCE_DISAGG_POOL_ID = "pool_id"
+INFERENCE_DISAGG_POOL_ID_DEFAULT = None
+# an offer the decode side has not acked within this window is treated
+# as rejected: pages return to the prefill pool's free list and the
+# request requeues for a fresh prefill + re-offer
+INFERENCE_DISAGG_HANDOFF_TIMEOUT = "handoff_timeout_s"
+INFERENCE_DISAGG_HANDOFF_TIMEOUT_DEFAULT = 30.0
+
+# front-end SLO router sub-block (inference/router.py): weighted
+# least-load admission across pools on the queue-depth / page-pool /
+# TTFT-EMA gauges the admission controller already maintains
+INFERENCE_ROUTER = "router"
+INFERENCE_ROUTER_QUEUE_DEPTH_WEIGHT = "queue_depth_weight"
+INFERENCE_ROUTER_QUEUE_DEPTH_WEIGHT_DEFAULT = 1.0
+INFERENCE_ROUTER_POOL_UTIL_WEIGHT = "pool_util_weight"
+INFERENCE_ROUTER_POOL_UTIL_WEIGHT_DEFAULT = 32.0
+INFERENCE_ROUTER_TTFT_WEIGHT = "ttft_weight"
+INFERENCE_ROUTER_TTFT_WEIGHT_DEFAULT = 0.01
+# advisory autoscaling threshold: when every routable pool's page-pool
+# utilization sits above this, Serve/router/advise_scale_up goes to 1
+INFERENCE_ROUTER_SCALE_UP_UTIL = "scale_up_util"
+INFERENCE_ROUTER_SCALE_UP_UTIL_DEFAULT = 0.85
+
+# "quantization" block: only the serving weights choice is read here
+QUANTIZATION = "quantization"
+QUANTIZATION_WEIGHTS = "weights"
+QUANTIZATION_WEIGHTS_DEFAULT = None
+QUANTIZATION_WEIGHTS_CHOICES = ("int8",)

@@ -1,0 +1,79 @@
+"""The port stands alone: nothing in `deeperspeed_tpu_torch/` or
+`chip_smoke.py` imports JAX, jaxlib or the JAX package, and building a
+CPU engine leaves JAX out of `sys.modules`."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "deeperspeed_tpu")
+FILES = sorted((ROOT / "deeperspeed_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import os\nfrom deeperspeed_tpu.runtime import x\n"
+                     "def f():\n    import jax.numpy as jnp\n")
+    assert [n for n in _imports(probe) if _forbidden(n)] == \
+        ["deeperspeed_tpu.runtime", "jax.numpy"]
+    assert not _forbidden("deeperspeed_tpu_torch.models")
+
+
+def test_engine_on_cpu_loads_no_jax():
+    code = (
+        "import sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig, "
+        "InferenceEngine\n"
+        "m = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
+        "e = InferenceEngine(m, config={'inference': {'enabled': True, "
+        "'page_size': 16, 'num_pages': 16}}, device='cpu')\n"
+        "out = e.generate([[1, 2, 3]], max_new_tokens=2)\n"
+        "assert len(out[0]) == 2\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeperspeed_tpu'))\n"
+        "print(bad)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_chip_smoke_alone_without_gpu_fails(tmp_path):
+    """chip_smoke.py in a directory with nothing else of the repo and no
+    visible GPU exits non-zero and prints no result line."""
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
