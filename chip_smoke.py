@@ -1,23 +1,35 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the hand-written kernels from deeperspeed_tpu_torch/csrc;
-3. kernels: each kernel against its plain PyTorch version at the serving
-   shapes, in bf16 and fp32, with its time, the plain version's time, a
-   library call's time (timed only) and its bound;
+3. kernels: each kernel against its plain PyTorch version, in bf16 and
+   fp32, with its time, the plain version's time, a library call's time
+   (timed only) and its bound: flash forward at the serving shapes and
+   at the training shape, flash backward at the training shape and on
+   ragged segments, paged decode at the serving shape, flat Adam at the
+   model's parameter count;
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted;
 5. parity: the same model in fp32 gives the same greedy tokens through
    the kernels and through the plain path;
 6. profile (only with ``--profile``): `torch.profiler` over a steady
-   window of decode steps at B=16 and over one B=4, S=512 prefill call
-   of the same bf16 model: host ms per step, device kernel ms per step,
-   the device's busy share, launches per step and the top kernels.
+   window of decode steps at B=16, over one B=4, S=512 prefill call of
+   the same bf16 model, and over one training step of phase 7: host ms
+   per step, device kernel ms per step, the device's busy share,
+   launches per step and the top kernels;
+7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
+   masters, Adam(W), WarmupLR, clipping, ZeRO-2, gas 2 x micro 16 x
+   1024 tokens, 20 steps through `initialize()` → `train_batch` on one
+   repeated batch of ids below 512, with every kernel launch counted,
+   then one `eval_batch`;
+8. training parity: the same model in fp32 (micro 2, gas 2, S 1024)
+   takes 3 steps through the kernels and 3 through the plain path; the
+   losses must agree.
 
 It prints one JSON line of kernel results, then the card line, then as
 the last line ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -40,6 +52,15 @@ import torch
 # products in both. fp32: only the summation order differs.
 TOL = {torch.bfloat16: {"out": (2e-2, 2e-2), "lse": (1e-3, 0.0)},
        torch.float32: {"out": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}}
+# flash backward: dq, dk, dv. bf16: inputs and outputs round to bf16 and
+# the kernel sums P·dO and dS·Q from fp32 tiles of them while the plain
+# version rounds nothing in between; fp32: only the summation order
+# differs.
+TOL_BWD = {torch.bfloat16: (3e-2, 3e-2), torch.float32: (1e-4, 1e-4)}
+# flat Adam: p, m, v in fp32 differ by a rounding or two (the kernel
+# fuses multiply-adds); its bf16 copy must be exactly its own new p
+# rounded to bf16 (the recast written in the same pass)
+TOL_ADAM = (1e-6, 1e-6)
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = 989e12
@@ -50,6 +71,24 @@ SERVE_CONFIG = {"inference": {
     "prefill_batch_sizes": [4], "decode_batch_sizes": [16]}}
 NEOX_125M = dict(vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024)
+# train-125M: the DeepSpeed config of bench.py's _neox_engine with the
+# training knobs the main path reads; gas 2 puts the fp32 accumulation
+# across micro-batches on the path
+TRAIN_CONFIG = {
+    "train_batch_size": 32, "train_micro_batch_size_per_gpu": 16,
+    "gradient_accumulation_steps": 2, "steps_per_print": 1000,
+    "optimizer": {"type": "Adam", "params": {
+        "lr": 6e-4, "betas": [0.9, 0.95], "eps": 1e-8,
+        "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {
+        "warmup_min_lr": 0, "warmup_max_lr": 6e-4, "warmup_num_steps": 5}},
+    "gradient_clipping": 1.0,
+    "fp16": {"enabled": True, "type": "bfloat16"},
+    "zero_optimization": {"stage": 2},
+}
+TRAIN_STEPS = 20
+TRAIN_SEQ = 1024
+TRAIN_VOCAB_USED = 512    # ids drawn from [0, 512), so the loss must fall
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
 
@@ -113,18 +152,31 @@ def prefill_case(S, dtype, gen, B=4, H=12, D=64):
     return q, k, v, seg, lens
 
 
-def prefill_bound_ms(q, seg):
-    B, S, H, D = q.shape
-    esize = q.element_size()
-    nbytes = 4 * B * S * H * D * esize + B * S * 4 + B * H * S * 4
-    # live (causal, same-segment) pairs of this run's segment ids
-    lens = seg.sum(dim=1).long().cpu().numpy()
-    pad = S - lens
-    pairs = int((lens * (lens + 1) // 2 + pad * (pad + 1) // 2).sum())
-    flops = 4 * H * D * pairs
+def bound_ms(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations")."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def live_pairs(seg, B, S):
+    """Live (causal, same-segment) (row, key) pairs of this run's inputs:
+    an id held by c tokens of a row gives c(c+1)/2 of them."""
+    if seg is None:
+        return B * S * (S + 1) // 2
+    pairs = 0
+    for row in seg.cpu().numpy():
+        _, counts = np.unique(row, return_counts=True)
+        pairs += int((counts * (counts + 1) // 2).sum())
+    return pairs
+
+
+def prefill_bound_ms(q, seg):
+    B, S, H, D = q.shape
+    esize = q.element_size()
+    seg_bytes = B * S * 4 if seg is not None else 0
+    nbytes = 4 * B * S * H * D * esize + seg_bytes + B * H * S * 4
+    return bound_ms(nbytes, 4 * H * D * live_pairs(seg, B, S))
 
 
 def check_prefill(fa, gen, report):
@@ -224,10 +276,7 @@ def decode_bound_ms(q, lengths):
     esize = q.element_size()
     tokens = int(lengths.long().sum())
     nbytes = 2 * H * tokens * D * esize + 2 * B * H * D * esize + 8 * B
-    flops = 4 * H * D * tokens
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound_ms(nbytes, 4 * H * D * tokens)
 
 
 def check_decode(da, gen, report):
@@ -291,6 +340,177 @@ def check_decode(da, gen, report):
             rows.append(row)
     report["paged_decode"] = rows
     return rows[0]
+
+
+def flash_bwd_bound_ms(q, seg):
+    """Backward bound: q, k, v, dO read and dq, dk, dv written once, lse
+    and delta read; five S×S×D products over the live pairs."""
+    B, S, H, D = q.shape
+    esize = q.element_size()
+    seg_bytes = B * S * 4 if seg is not None else 0
+    nbytes = 7 * B * S * H * D * esize + 2 * B * H * S * 4 + seg_bytes
+    return bound_ms(nbytes, 5 * 2 * H * D * live_pairs(seg, B, S))
+
+
+def check_grads(fa, q, k, v, seg, gen):
+    """Forward, then the backward kernels against the plain backward on
+    the same (out, lse, dO) → (row of errors, ok, tensors for timing)."""
+    B, S, H, D = q.shape
+    out, lse = fa.flash_attention_cuda(q, k, v, seg)
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(q.dtype)
+    delta = fa.attention_delta(out, do)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, seg)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, seg)
+    torch.cuda.synchronize()
+    row, ok = {}, True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, good = close(g, w, *TOL_BWD[q.dtype])
+        row[f"max_abs_err_{name}"] = err
+        ok = ok and good
+    return row, ok, (out, lse, do, delta)
+
+
+def check_train_kernels(fa, ad, gen, report, n_params):
+    """Phase 3 for the training path: flash forward (no segments) and
+    backward at the training attention shape, the backward on ragged
+    segments at other lengths and head dims, flat Adam at the model's
+    parameter count."""
+    import torch.nn.functional as F
+    B, S, H, D = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], \
+        TRAIN_SEQ, NEOX_125M["num_heads"], \
+        NEOX_125M["hidden_size"] // NEOX_125M["num_heads"]
+    fwd_rows, bwd_rows = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        ref_out, ref_lse = fa.flash_attention_segmented_reference(q, k, v)
+        torch.cuda.synchronize()
+        err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+        err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+        fwd = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+               "max_abs_err_out": err_o, "max_abs_err_lse": err_l,
+               "tol_out": TOL[dtype]["out"]}
+        del ref_out, ref_lse
+        row, ok, (out, lse, do, delta) = check_grads(fa, q, k, v, None, gen)
+        bwd = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+               "tol": TOL_BWD[dtype], **row}
+        print(f"  flash_fwd (train shape) {fwd}", flush=True)
+        print(f"  flash_bwd {bwd}", flush=True)
+        if not (ok_o and ok_l):
+            fail(f"flash forward kernel disagrees with its plain version "
+                 f"at the training shape: {fwd}")
+        if not ok:
+            fail(f"flash backward kernels disagree with their plain "
+                 f"version: {bwd}")
+        if dtype == torch.bfloat16:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            fwd["ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v))
+            fwd["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_segmented_reference(q, k, v))
+            with torch.no_grad():
+                fwd["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True))
+            fwd["bound_ms"], fwd["bound_by"] = prefill_bound_ms(q, None)
+            bwd["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, lse, do, delta))
+            bwd["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                         do),
+                warmup=2, iters=10)
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True)
+            do_t = do.transpose(1, 2).contiguous()
+            bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do_t, retain_graph=True))
+            bwd["bound_ms"], bwd["bound_by"] = flash_bwd_bound_ms(q, None)
+            for name, r in (("flash_fwd (train shape)", fwd),
+                            ("flash_bwd", bwd)):
+                print(f"  {name} times: kernel {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms, library "
+                      f"{r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bound_by']})",
+                      flush=True)
+            del qt, kt, vt, o_lib, do_t
+        fwd_rows.append(fwd)
+        bwd_rows.append(bwd)
+        del q, k, v, out, lse, do, delta
+        torch.cuda.empty_cache()
+    # ragged segments (pad tail), lengths no multiple of the tile, the
+    # other head dims (D = 256 runs 32-row tiles)
+    for dtype in (torch.bfloat16, torch.float32):
+        for S2, B2, H2, D2 in ((100, 2, 3, 128), (200, 1, 2, 256),
+                               (256, 2, 2, 64)):
+            q, k, v, seg, _ = prefill_case(S2, dtype, gen, B=B2, H=H2, D=D2)
+            row, ok, _ = check_grads(fa, q, k, v, seg, gen)
+            row = {"S": S2, "B": B2, "H": H2, "D": D2, "dtype": str(dtype),
+                   "segments": True, **row}
+            print(f"  flash_bwd {row}", flush=True)
+            if not ok:
+                fail(f"flash backward kernels disagree with their plain "
+                     f"version: {row}")
+            bwd_rows.append(row)
+    report["flash_fwd_train"] = fwd_rows
+    report["flash_bwd"] = bwd_rows
+    adam_rows = check_adam(ad, gen, n_params)
+    report["adam"] = adam_rows
+    return fwd_rows[0], bwd_rows[0], adam_rows[0]
+
+
+def check_adam(ad, gen, n_params):
+    hp = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01)
+    rows = []
+    for n, g_dtype in ((n_params, torch.bfloat16), (n_params, torch.float32),
+                       (1000, torch.bfloat16), (1000, torch.float32)):
+        p = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda").to(g_dtype)
+        m = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        v = 0.01 * torch.rand(n, generator=gen, device="cuda")
+        want = ad.adam_flat_reference(p, g, m, v, 6e-4, 3, **hp)
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        copy = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+        ad.adam_cuda(pk, g, mk, vk, 6e-4, 3, adam_w=True,
+                     bias_correction=True, p_out=copy, **hp)
+        torch.cuda.synchronize()
+        row, ok = {"n": n, "g_dtype": str(g_dtype)}, True
+        for name, got, ref in (("p", pk, want[0]), ("m", mk, want[1]),
+                               ("v", vk, want[2])):
+            err, good = close(got, ref, *TOL_ADAM)
+            row[f"max_abs_err_{name}"] = err
+            ok = ok and good
+        row["bf16_copy_is_recast"] = bool(torch.equal(
+            copy, pk.to(torch.bfloat16)))
+        row["tol"] = TOL_ADAM
+        print(f"  adam {row}", flush=True)
+        if not (ok and row["bf16_copy_is_recast"]):
+            fail(f"flat Adam kernel disagrees with its plain version: {row}")
+        if n == n_params and g_dtype == torch.bfloat16:
+            row["ms"] = time_ms(lambda: ad.adam_cuda(
+                pk, g, mk, vk, 6e-4, 3, adam_w=True, bias_correction=True,
+                p_out=copy, **hp))
+            row["plain_ms"] = time_ms(lambda: ad.adam_flat_reference(
+                p, g, m, v, 6e-4, 3, **hp), warmup=2, iters=10)
+            # the library yardstick: fused AdamW on one flat fp32 tensor
+            # (its grads must share the parameter's dtype)
+            lib_p = torch.nn.Parameter(p.clone())
+            lib_p.grad = g.float()
+            lib = torch.optim.AdamW([lib_p], lr=6e-4, betas=(0.9, 0.95),
+                                    eps=1e-8, weight_decay=0.01, fused=True)
+            row["library_ms"] = time_ms(lib.step)
+            # p, m, v read and written, g read, the bf16 copy written
+            nbytes = n * (3 * 8 + g.element_size() + 2)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 14 * n)
+            print(f"  adam times n={n}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']})",
+                  flush=True)
+            del lib_p, lib
+        rows.append(row)
+        del p, g, m, v, pk, mk, vk, copy, want
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +648,114 @@ def parity(report):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: training train-125M
+# ---------------------------------------------------------------------------
+
+def train(fa, ad, report, profile_step=False):
+    import deeperspeed_tpu_torch as dst
+    model = build_model(torch.float32)
+    eng, *_ = dst.initialize(model=model, config_params=TRAIN_CONFIG)
+    gas = eng.gradient_accumulation_steps()
+    micro = eng.train_micro_batch_size_per_gpu()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+    L = model.config.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    ad.launches = 0
+    losses, step_s = [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=(tokens, tokens)))
+        step_s.append(time.perf_counter() - t0)
+        print(f"  step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{step_s[-1] * 1e3:.1f} ms", flush=True)
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    want = {"flash_fwd": L * gas * TRAIN_STEPS,
+            "flash_bwd_dkv": L * gas * TRAIN_STEPS,
+            "flash_bwd_dq": L * gas * TRAIN_STEPS, "adam": TRAIN_STEPS}
+    if not all(np.isfinite(losses)):
+        fail(f"a training loss is not finite: {losses}")
+    if not losses[-1] < 0.9 * losses[0]:
+        fail(f"the loss did not fall: step 1 {losses[0]:.4f}, step "
+             f"{TRAIN_STEPS} {losses[-1]:.4f}")
+    if launches != want:
+        fail(f"training launch counts {launches} != {want} ({L} layers x "
+             f"gas {gas} x {TRAIN_STEPS} steps, one Adam a step)")
+    if eng.global_steps != TRAIN_STEPS or eng.skipped_steps:
+        fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
+    eval_loss = eng.eval_batch((tokens[0], tokens[0]))
+    if not np.isfinite(eval_loss):
+        fail(f"eval_batch loss {eval_loss} is not finite")
+
+    med = float(np.median(step_s))
+    result = {
+        "steps": TRAIN_STEPS, "gas": gas, "micro_batch": micro,
+        "seq": TRAIN_SEQ, "losses": losses, "eval_loss": eval_loss,
+        "step_ms_median": med * 1e3,
+        "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": gas * micro * TRAIN_SEQ / med,
+        "max_memory_allocated_gb": peak / 2 ** 30,
+        "num_params": eng.num_params,
+        "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS
+                              for k, v in launches.items()},
+        "dtypes": {"compute": str(eng.compute_dtype),
+                   "master": str(eng._master.dtype)},
+    }
+    if profile_step:
+        result["profile"] = profile_window(
+            lambda: eng.train_batch(batch=(tokens, tokens)), 2)
+    report["train"] = result
+    del eng, model
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training parity, kernels vs plain path, fp32
+# ---------------------------------------------------------------------------
+
+def train_parity(report):
+    import deeperspeed_tpu_torch as dst
+    conf = json.loads(json.dumps(TRAIN_CONFIG))
+    conf.update(train_batch_size=4, train_micro_batch_size_per_gpu=2,
+                fp16={"enabled": False})
+    # a warm-up floor above 0, so that every one of the 3 steps moves the
+    # weights (train-125M's second step runs at lr 0)
+    conf["scheduler"]["params"]["warmup_min_lr"] = 6e-5
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(2, 2, TRAIN_SEQ))).cuda()
+    losses = {}
+    for use_kernels in (True, False):
+        model = build_model(torch.float32, seed=1)
+        model.use_kernels = use_kernels
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        losses[use_kernels] = [eng.train_batch(batch=(tokens, tokens))
+                               for _ in range(3)]
+        del eng, model
+        torch.cuda.empty_cache()
+    fast, plain = np.array(losses[True]), np.array(losses[False])
+    rel = np.abs(fast - plain) / np.abs(plain)
+    report["train_parity"] = {"kernels": losses[True],
+                              "plain": losses[False],
+                              "max_rel_diff": float(rel.max()),
+                              "rtol": 1e-4}
+    print(f"  losses kernels {losses[True]} vs plain {losses[False]}: max "
+          f"relative difference {rel.max():.3e}", flush=True)
+    if not (np.isfinite(fast).all() and (rel <= 1e-4).all()):
+        fail(f"fp32 training losses differ between the kernel path and the "
+             f"plain path beyond rtol 1e-4: {losses}")
+
+
+# ---------------------------------------------------------------------------
 # phase 6 (--profile): where a serving step's time goes
 # ---------------------------------------------------------------------------
 
@@ -466,6 +794,17 @@ def profile_window(fn, steps):
     }
 
 
+def print_profile(name, res, card):
+    print(f"  {name}: host {res['host_ms_per_step']:.3f} ms/step, "
+          f"device {res['device_ms_per_step']:.3f} ms/step, busy share "
+          f"{res['device_busy_share']:.3f}, "
+          f"{res['kernel_launches_per_step']:.0f} launches/step on "
+          f"{card}", flush=True)
+    for k in res["top_kernels"][:6]:
+        print(f"      {k['ms_per_step']:.4f} ms "
+              f"x{k['launches_per_step']:.0f}  {k['name']}", flush=True)
+
+
 def profile(report, card):
     from deeperspeed_tpu_torch import InferenceEngine
     model = build_model(torch.bfloat16)
@@ -492,16 +831,8 @@ def profile(report, card):
                         device="cuda")
     prefill = profile_window(lambda: eng._prefill(tokens, lengths, table), 5)
     report["profile"] = {"decode_B16": decode, "prefill_B4_S512": prefill}
-    for name, res in (("decode step (B=16)", decode),
-                      ("prefill call (B=4, S=512)", prefill)):
-        print(f"  {name}: host {res['host_ms_per_step']:.3f} ms/step, "
-              f"device {res['device_ms_per_step']:.3f} ms/step, busy share "
-              f"{res['device_busy_share']:.3f}, "
-              f"{res['kernel_launches_per_step']:.0f} launches/step on "
-              f"{card}", flush=True)
-        for k in res["top_kernels"][:6]:
-            print(f"      {k['ms_per_step']:.4f} ms "
-                  f"x{k['launches_per_step']:.0f}  {k['name']}", flush=True)
+    print_profile("decode step (B=16)", decode, card)
+    print_profile("prefill call (B=4, S=512)", prefill, card)
     del eng, model
     torch.cuda.empty_cache()
 
@@ -509,7 +840,8 @@ def profile(report, card):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a decode window and a prefill call")
+                    help="also profile a decode window, a prefill call and "
+                         "a training step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -522,7 +854,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
     from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
     from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
     _build.load_library()
@@ -539,6 +873,8 @@ def main():
     print("kernels vs plain versions:", flush=True)
     fl = check_prefill(fa, gen, report)
     de = check_decode(da, gen, report)
+    n_params = GPTNeoXConfig(**NEOX_125M).num_params()
+    ft, fb, adm = check_train_kernels(fa, ad, gen, report, n_params)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -551,29 +887,77 @@ def main():
           f"launches {sv['launches']} on {card}", flush=True)
     print("parity GPT-NeoX-125M (fp32, kernels vs plain):", flush=True)
     parity(report)
+    print("training GPT-NeoX-125M (bf16, fp32 masters, ZeRO-2):", flush=True)
+    tr = train(fa, ad, report, profile_step=args.profile)
+    print(f"  {tr['steps']} steps: loss {tr['losses'][0]:.4f} -> "
+          f"{tr['losses'][-1]:.4f} (eval {tr['eval_loss']:.4f}), median "
+          f"step {tr['step_ms_median']:.1f} ms, {tr['tokens_per_s']:.0f} "
+          f"tokens/s, peak memory {tr['max_memory_allocated_gb']:.2f} GiB, "
+          f"launches per step {tr['launches_per_step']} on {card}",
+          flush=True)
+    print("training parity GPT-NeoX-125M (fp32, kernels vs plain):",
+          flush=True)
+    train_parity(report)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
+        print_profile("training step (gas 2 x micro 16 x 1024)",
+                      tr["profile"], card)
 
+    pallas = "deeperspeed_tpu/ops/pallas/"
+    train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "deeperspeed_tpu/ops/pallas/flash_attention.py:497",
-         "launches": sv["launches"]["flash_fwd"],
+         "replaces": f"{pallas}flash_attention.py:497 (_fwd_kernel); "
+                     f"{pallas}flash_attention.py:360, :378 "
+                     f"(_fwd_single_kernel, _fwd_single_mh_kernel)",
+         "launches": sv["launches"]["flash_fwd"] +
+         tr["launches"]["flash_fwd"],
+         "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
+                              "train": tr["launches"]["flash_fwd"]},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
          "shape": "B=4 S=1024 H=12 D=64 bf16, ragged segments",
-         "tolerance": fl["tol_out"]},
+         "tolerance": fl["tol_out"],
+         "train_shape": {k: ft[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "max_abs_err_out")} | {"shape": train_shape}},
         {"name": "paged_decode", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
-         "replaces": "deeperspeed_tpu/ops/pallas/decode_attention.py:84",
+         "replaces": f"{pallas}decode_attention.py:84",
          "launches": sv["launches"]["paged_decode"],
          "max_abs_err": de["max_abs_err"], "ms": de["ms"],
          "plain_ms": de["plain_ms"], "bound_ms": de["bound_ms"],
          "bound_by": de["bound_by"], "library_ms": de["library_ms"],
          "shape": "B=16 H=12 D=64 ps=64 NP=16 P=513 bf16",
          "tolerance": de["tol"]},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{pallas}flash_attention.py:736, :763 "
+                     f"(_bwd_single_kernel, _bwd_single_mh_kernel); "
+                     f"{pallas}flash_attention.py:948, :1038 "
+                     f"(_bwd_dkv_kernel, _bwd_dq_kernel)",
+         "launches": tr["launches"]["flash_bwd_dkv"],
+         "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"],
+                                "dq": tr["launches"]["flash_bwd_dq"]},
+         "max_abs_err": max(fb[f"max_abs_err_{g}"]
+                            for g in ("dq", "dk", "dv")),
+         "ms": fb["ms"], "plain_ms": fb["plain_ms"],
+         "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+         "library_ms": fb["library_ms"],
+         "shape": train_shape + " (dkv + dq kernels)",
+         "tolerance": fb["tol"]},
+        {"name": "adam", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/adam.cu",
+         "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
+         "launches": tr["launches"]["adam"],
+         "max_abs_err": adm["max_abs_err_p"], "ms": adm["ms"],
+         "plain_ms": adm["plain_ms"], "bound_ms": adm["bound_ms"],
+         "bound_by": adm["bound_by"], "library_ms": adm["library_ms"],
+         "shape": f"n={n_params} fp32 p/m/v, bf16 g, bf16 copy",
+         "tolerance": adm["tol"]},
     ]
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels

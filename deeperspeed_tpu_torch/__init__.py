@@ -2,17 +2,58 @@
 NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is tested against. This slice serves GPT-NeoX: the
-continuous-batching `InferenceEngine` over a paged KV cache, with
-hand-written CUDA kernels for the flash prefill and the paged decode
-(`ops/hopper`, sources in `csrc`). The port never imports JAX or
-`deeperspeed_tpu`.
+reference it is tested against. It serves GPT-NeoX (the continuous-
+batching `InferenceEngine` over a paged KV cache) and trains it on one
+card: `initialize()` returns a `DeepSpeedEngine` whose `train_batch` runs
+bf16 (or fp32) compute with fp32 masters, Adam(W), the LR schedules,
+gradient clipping and ZeRO stages 0-2. Hand-written CUDA kernels
+(`ops/hopper`, sources in `csrc`) carry the flash attention forward and
+backward, the paged decode and the flat Adam step. The port never
+imports JAX or `deeperspeed_tpu`.
 """
 
 from .inference import InferenceEngine
 from .models.gpt_neox import GPTNeoX, GPTNeoXConfig
+from .runtime.config import DeepSpeedConfig
+from .runtime.config_utils import DeepSpeedConfigError
+from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
+from .runtime.engine import DeepSpeedEngine
 from .utils.logging import log_dist, logger
 from .version import __version__
 
-__all__ = ["InferenceEngine", "GPTNeoX", "GPTNeoXConfig", "log_dist",
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None,
+               dist_init_required=None, collate_fn=None, config=None,
+               config_params=None):
+    """Initialize the training engine (the JAX package's `initialize`).
+
+    ``model`` is a `GPTNeoX` whose parameters are initialized or loaded;
+    it trains on their device (build it with ``device="cpu"`` to train on
+    the CPU). ``config`` is a JSON path, ``config_params`` a dict.
+
+    Returns ``(engine, engine.optimizer, engine.training_dataloader,
+    engine.lr_scheduler)``. A pipeline model and more than one
+    `torch.distributed` rank are not ported yet and raise
+    `DeepSpeedConfigError`.
+    """
+    log_dist(f"DeeperSpeed-torch info: version={__version__}", ranks=[0])
+    if type(model).__name__ == "PipelineModule":
+        raise DeepSpeedConfigError(
+            "a PipelineModule is not ported yet (it comes with the "
+            "scale-out slice; see ROADMAP.md)")
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler, mpu=mpu,
+                             dist_init_required=dist_init_required,
+                             collate_fn=collate_fn, config=config,
+                             config_params=config_params)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)
+
+
+__all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
+           "DeepSpeedConfigError", "DeepSpeedDataLoader", "RepeatingLoader",
+           "InferenceEngine", "GPTNeoX", "GPTNeoXConfig", "log_dist",
            "logger", "__version__"]

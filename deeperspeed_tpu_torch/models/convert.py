@@ -38,3 +38,24 @@ def state_dict_from_jax(params):
         else:
             out[name] = torch.from_numpy(np.array(arr))   # a writable copy
     return out
+
+
+def flat_from_jax(tree, names):
+    """A JAX pytree (numpy leaves) shaped like the params → one flat fp32
+    tensor, leaves in the order of ``names`` (the engine's flat layout,
+    `named_parameters` order)."""
+    sd = state_dict_from_jax(tree)
+    if set(sd) != set(names):
+        raise ValueError(f"pytree leaves {sorted(set(sd) ^ set(names))} do "
+                         f"not match the parameter names")
+    return torch.cat([sd[n].reshape(-1).float() for n in names])
+
+
+def adam_state_from_jax(state, names):
+    """The JAX `AdamState` (numpy leaves: call ``jax.device_get`` first)
+    → the port's flat `AdamState` (step, exp_avg, exp_avg_sq) in the
+    layout of ``names``."""
+    from ..ops.adam.fused_adam import AdamState
+    return AdamState(step=int(np.asarray(state.step)),
+                     exp_avg=flat_from_jax(state.exp_avg, names),
+                     exp_avg_sq=flat_from_jax(state.exp_avg_sq, names))

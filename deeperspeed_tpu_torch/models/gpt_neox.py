@@ -228,15 +228,46 @@ def lm_head(params, h):
     return (h @ wte.to(h.dtype).t()).float()
 
 
-def forward(cfg, params, tokens, use_kernels=True):
-    """tokens [B, S] int → logits [B, S, V] (fp32)."""
+def forward_hidden(cfg, params, tokens, use_kernels=True):
+    """tokens [B, S] int → final-norm hidden states [B, S, H]."""
     x = params["embed"]["wte"][tokens]
     cos_sin = _rotary_cache(cfg, tokens.shape[1], device=x.device)
     for bp in params["blocks"]:
         x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels)
-    x = layer_norm(x, params["final_ln"]["scale"], params["final_ln"]["bias"],
-                   cfg.layernorm_eps)
-    return lm_head(params, x)
+    return layer_norm(x, params["final_ln"]["scale"],
+                      params["final_ln"]["bias"], cfg.layernorm_eps)
+
+
+def forward(cfg, params, tokens, use_kernels=True):
+    """tokens [B, S] int → logits [B, S, V] (fp32)."""
+    return lm_head(params, forward_hidden(cfg, params, tokens, use_kernels))
+
+
+def lm_head_loss(params, x, labels, ignore_index=-100):
+    """Next-token cross entropy of the LM head over final-norm hidden
+    ``x`` [B, S, H]: predictions at x[:, :-1] against labels[:, 1:],
+    targets equal to ``ignore_index`` skipped, mean over the valid ones
+    (0 when there are none) — `gpt_neox.fused_lm_head_loss`. The logits
+    come from cuBLAS in the compute dtype and the softmax runs in fp32;
+    the JAX package tiles the same product through an XLA scan."""
+    logits = lm_head(params, x[:, :-1])
+    targets = labels[:, 1:].reshape(-1).long()
+    loss_sum = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets, ignore_index=ignore_index,
+                               reduction="sum")
+    return loss_sum / (targets != ignore_index).sum().clamp(min=1)
+
+
+def split_lm_batch(batch):
+    """(tokens, labels, segment_ids) from an engine batch: bare tokens,
+    a (tokens, labels) pair, or a packed (tokens, labels, segment_ids)
+    triple (`gpt_neox.split_lm_batch`)."""
+    if isinstance(batch, (tuple, list)):
+        if len(batch) == 3:
+            return batch[0], batch[1], batch[2]
+        tokens, labels = batch
+        return tokens, labels, None
+    return batch, batch, None
 
 
 def unflatten(flat):
@@ -265,14 +296,15 @@ def _holder(**shapes):
     m = nn.Module()
     for name, (shape, dtype, device) in shapes.items():
         m.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device),
-            requires_grad=False))
+            torch.empty(shape, dtype=dtype, device=device)))
     return m
 
 
 class GPTNeoX(nn.Module):
     """The GPT-NeoX model with the JAX package's parameter names and
-    ``[in, out]`` weight layout. Parameters are created empty on
+    ``[in, out]`` weight layout; its parameters are trainable (the
+    training engine differentiates `loss_fn`, the serving engine takes
+    detached copies). Parameters are created empty on
     ``device`` (None means the GPU, and raises without CUDA; the CPU
     must be asked for): call `init_params(seed)` or
     `load_jax_params(params)`.
@@ -352,3 +384,16 @@ class GPTNeoX(nn.Module):
         """tokens [B, S] → logits [B, S, V] (fp32)."""
         return forward(self.config, self.params_tree(), tokens,
                        use_kernels=self.use_kernels)
+
+    def loss_fn(self, params, batch):
+        """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
+        parameter tree ``params`` (`params_tree()`), differentiable in
+        it: `GPTNeoX.loss_fn` of the JAX package for the dense model."""
+        tokens, labels, seg = split_lm_batch(batch)
+        if seg is not None:
+            raise NotImplementedError(
+                "packed (tokens, labels, segment_ids) batches are not "
+                "ported yet (long-context slice)")
+        hidden = forward_hidden(self.config, params, tokens,
+                                use_kernels=self.use_kernels)
+        return lm_head_loss(params, hidden, labels)

@@ -48,6 +48,17 @@ SIGNATURES = {
     # page_size, pages per row, sm_scale, dtype, stream
     "ds_paged_decode": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _L, _P, _P,
                         _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, dout, lse, delta, seg, dk, dv, B, S, H, D, q/k/v strides
+    # (b, s, h), sm_scale, dtype, stream
+    "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    # the same with dq in place of dk, dv
+    "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    # p, g, m, v, p_out (bf16 or null), n, lr, beta1, beta2, eps,
+    # weight_decay, bias_c1, bias_c2, adam_w, g dtype, stream
+    "ds_adam": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _I,
+                _P],
 }
 
 # what the kernels are instantiated for: the dtype codes of csrc/common.cuh

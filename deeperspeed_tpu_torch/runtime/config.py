@@ -1,14 +1,217 @@
-"""The "inference" config block → validated params dict.
+"""DeepSpeed JSON configs: the training `DeepSpeedConfig` and the
+"inference" block.
 
-The port's counterpart of `parse_inference_block` and the sub-parsers
-it calls in `deeperspeed_tpu/runtime/config.py`: the same keys,
-defaults and `DeepSpeedConfigError` messages, so a serving config
-written for the JAX package parses to the same dict here. The training
-`DeepSpeedConfig` waits for the training slice.
+The port's counterpart of `deeperspeed_tpu/runtime/config.py`: the same
+keys, defaults and `DeepSpeedConfigError` messages for what it parses,
+so a config written for the JAX package means the same here. The
+training parser reads what the port's engine runs (the batch triple,
+precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
+stages 0-2); every other top-level block of the JAX config that is set
+raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
-from .config_utils import DeepSpeedConfigError, as_int
+from .config_utils import DeepSpeedConfigError, as_int, load_config_json
+from .precision import resolve_precision
+from .zero.config import DeepSpeedZeroConfig
+
+
+def _is_set(block):
+    """A top-level block counts as set unless it is absent, null, false,
+    empty, or a dict with "enabled": false."""
+    if block is None or block is False or block == {}:
+        return False
+    if isinstance(block, dict) and block.get("enabled", True) is False:
+        return False
+    return True
+
+
+class DeepSpeedConfig:
+    """Parsed, validated training config (the JAX `DeepSpeedConfig` for
+    the keys the port's engine runs). ``world_size`` is the
+    data-parallel world the batch triple resolves against: 1 on one
+    card."""
+
+    def __init__(self, json_file_or_dict, param_dict=None, world_size=1):
+        if param_dict is not None:
+            self._param_dict = dict(param_dict)
+        elif isinstance(json_file_or_dict, dict):
+            self._param_dict = dict(json_file_or_dict)
+        else:
+            self._param_dict = load_config_json(json_file_or_dict)
+        self.world_size = int(world_size)
+        self._reject_unported(self._param_dict)
+        self._initialize_params(self._param_dict)
+        self._configure_train_batch_size()
+        self._do_error_check()
+
+    @staticmethod
+    def _reject_unported(d):
+        for key, slice_name in c.NOT_PORTED_BLOCKS.items():
+            if _is_set(d.get(key)):
+                raise DeepSpeedConfigError(
+                    f"the '{key}' config block is not ported yet (it comes "
+                    f"with the {slice_name} slice; see ROADMAP.md)")
+
+    def _initialize_params(self, d):
+        self.train_batch_size = d.get(c.TRAIN_BATCH_SIZE,
+                                      c.TRAIN_BATCH_SIZE_DEFAULT)
+        self.train_micro_batch_size_per_gpu = d.get(
+            c.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+            c.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT)
+        self.gradient_accumulation_steps = d.get(
+            c.GRADIENT_ACCUMULATION_STEPS,
+            c.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
+        self.steps_per_print = as_int(
+            d.get(c.STEPS_PER_PRINT, c.STEPS_PER_PRINT_DEFAULT),
+            c.STEPS_PER_PRINT)
+        self.gradient_predivide_factor = float(
+            d.get(c.GRADIENT_PREDIVIDE_FACTOR,
+                  c.GRADIENT_PREDIVIDE_FACTOR_DEFAULT))
+
+        self.zero_config = DeepSpeedZeroConfig.from_dict(d)
+        self.zero_optimization_stage = self.zero_config.stage
+        self.zero_enabled = self.zero_config.enabled
+
+        # Mixed precision. "fp16" block carries both fp16 and bf16 (fork).
+        fp16 = d.get(c.FP16) or {}
+        self.fp16_enabled = bool(
+            fp16.get(c.FP16_ENABLED, c.FP16_ENABLED_DEFAULT))
+        self.precision = (resolve_precision(
+            fp16.get(c.FP16_TYPE, c.FP16_TYPE_DEFAULT))
+            if self.fp16_enabled else resolve_precision("float32"))
+        self.bfloat16_enabled = self.precision == resolve_precision("bf16")
+        self.loss_scale = fp16.get(c.FP16_LOSS_SCALE,
+                                   c.FP16_LOSS_SCALE_DEFAULT)
+        self.initial_dynamic_scale = 2 ** as_int(
+            fp16.get(c.FP16_INITIAL_SCALE_POWER,
+                     c.FP16_INITIAL_SCALE_POWER_DEFAULT),
+            c.FP16_INITIAL_SCALE_POWER)
+        self.dynamic_loss_scale_args = {
+            c.FP16_INITIAL_SCALE_POWER: as_int(
+                fp16.get(c.FP16_INITIAL_SCALE_POWER,
+                         c.FP16_INITIAL_SCALE_POWER_DEFAULT),
+                c.FP16_INITIAL_SCALE_POWER),
+            c.FP16_LOSS_SCALE_WINDOW: as_int(
+                fp16.get(c.FP16_LOSS_SCALE_WINDOW,
+                         c.FP16_LOSS_SCALE_WINDOW_DEFAULT),
+                c.FP16_LOSS_SCALE_WINDOW),
+            c.FP16_HYSTERESIS: as_int(
+                fp16.get(c.FP16_HYSTERESIS, c.FP16_HYSTERESIS_DEFAULT),
+                c.FP16_HYSTERESIS),
+            c.FP16_MIN_LOSS_SCALE: fp16.get(c.FP16_MIN_LOSS_SCALE,
+                                            c.FP16_MIN_LOSS_SCALE_DEFAULT),
+        } if self.fp16_enabled else None
+        # bf16/fp32 never need loss scaling even when configured.
+        self.loss_scaling_enabled = (
+            self.fp16_enabled and
+            self.precision == resolve_precision("fp16"))
+        self.min_scale_patience = as_int(
+            fp16.get(c.FP16_MIN_SCALE_PATIENCE,
+                     c.FP16_MIN_SCALE_PATIENCE_DEFAULT),
+            f"fp16.{c.FP16_MIN_SCALE_PATIENCE}")
+        if self.min_scale_patience < 0:
+            raise DeepSpeedConfigError(
+                f"fp16.{c.FP16_MIN_SCALE_PATIENCE} must be >= 0 "
+                f"(0 = warn-only), got {self.min_scale_patience}")
+        if self.min_scale_patience:
+            raise DeepSpeedConfigError(
+                f"fp16.{c.FP16_MIN_SCALE_PATIENCE} is not ported yet (the "
+                f"loss-scale floor watch comes with the robustness slice)")
+        if fp16.get(c.FP16_MASTER_WEIGHTS_AND_GRADS, False):
+            raise DeepSpeedConfigError(
+                f"fp16.{c.FP16_MASTER_WEIGHTS_AND_GRADS} is not ported yet: "
+                f"the port keeps fp32 masters")
+
+        self.gradient_clipping = float(
+            d.get(c.GRADIENT_CLIPPING, c.GRADIENT_CLIPPING_DEFAULT))
+        self.prescale_gradients = bool(
+            d.get(c.PRESCALE_GRADIENTS, c.PRESCALE_GRADIENTS_DEFAULT))
+
+        optimizer = d.get(c.OPTIMIZER)
+        if optimizer is not None:
+            self.optimizer_name = str(optimizer.get(c.TYPE, "")).lower() or None
+            self.optimizer_params = dict(optimizer.get(c.OPTIMIZER_PARAMS, {}))
+        else:
+            self.optimizer_name = c.OPTIMIZER_TYPE_DEFAULT
+            self.optimizer_params = None
+        self.zero_allow_untested_optimizer = bool(
+            d.get(c.ZERO_ALLOW_UNTESTED_OPTIMIZER,
+                  c.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT))
+
+        scheduler = d.get(c.SCHEDULER)
+        if scheduler is not None:
+            self.scheduler_name = scheduler.get(c.TYPE)
+            self.scheduler_params = dict(scheduler.get(c.SCHEDULER_PARAMS, {}))
+        else:
+            self.scheduler_name = c.SCHEDULER_TYPE_DEFAULT
+            self.scheduler_params = None
+
+        self.inference_params = parse_inference_block(d)
+
+    def _configure_train_batch_size(self):
+        """Resolve train_batch = micro_batch * grad_acc * dp_world
+        (reference `config.py:681-756`)."""
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        gas = self.gradient_accumulation_steps
+        world = self.world_size
+
+        if all(v is not None for v in (train, micro, gas)):
+            pass  # verified below
+        elif train is not None and micro is not None:
+            if train % (micro * world) != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {train} is not divisible by "
+                    f"micro_batch * world = {micro} * {world}")
+            gas = train // (micro * world)
+        elif train is not None and gas is not None:
+            if train % (gas * world) != 0:
+                raise DeepSpeedConfigError(
+                    f"train_batch_size {train} is not divisible by "
+                    f"grad_acc * world = {gas} * {world}")
+            micro = train // (gas * world)
+        elif micro is not None:
+            gas = gas if gas is not None else 1
+            train = micro * gas * world
+        elif train is not None:
+            micro = train // world
+            gas = 1
+        elif gas is not None:
+            raise DeepSpeedConfigError(
+                "gradient_accumulation_steps alone cannot determine batch "
+                "sizes; also provide train_batch_size or "
+                "train_micro_batch_size_per_gpu")
+        else:
+            raise DeepSpeedConfigError(
+                "At least one of train_batch_size or "
+                "train_micro_batch_size_per_gpu must be configured")
+
+        self.train_batch_size = as_int(train, c.TRAIN_BATCH_SIZE)
+        self.train_micro_batch_size_per_gpu = as_int(
+            micro, c.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
+        self.gradient_accumulation_steps = as_int(
+            gas, c.GRADIENT_ACCUMULATION_STEPS)
+
+    def _do_error_check(self):
+        train, micro, gas = (self.train_batch_size,
+                             self.train_micro_batch_size_per_gpu,
+                             self.gradient_accumulation_steps)
+        for name, value in ((c.TRAIN_BATCH_SIZE, train),
+                            (c.TRAIN_MICRO_BATCH_SIZE_PER_GPU, micro),
+                            (c.GRADIENT_ACCUMULATION_STEPS, gas)):
+            if value <= 0:
+                raise DeepSpeedConfigError(f"{name} must be > 0, got {value}")
+        if train != micro * gas * self.world_size:
+            raise DeepSpeedConfigError(
+                f"Check batch related parameters. "
+                f"train_batch_size ({train}) is not equal to "
+                f"micro_batch_per_gpu ({micro}) * grad_acc ({gas}) * "
+                f"world_size ({self.world_size})")
+
+    @property
+    def param_dict(self):
+        return self._param_dict
 
 
 def parse_inference_block(d):

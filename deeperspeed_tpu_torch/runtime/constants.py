@@ -1,11 +1,98 @@
 """Config keys and defaults of the blocks the port parses.
 
-A subset of `deeperspeed_tpu/runtime/constants.py`: the "inference"
-block the serving engine reads, the precision spellings its
+A subset of `deeperspeed_tpu/runtime/constants.py`: the training keys
+`DeepSpeedConfig` reads (batch triple, precision, optimizer, scheduler,
+clipping), the top-level blocks it refuses until their slices land, the
+"inference" block the serving engine reads, the precision spellings its
 ``kv_cache_dtype`` resolves through, and the "quantization" weights key
 the engine refuses until int8 weights are ported. The values are the
 same, so one JSON config means the same thing to both packages.
 """
+
+# ---------------------------------------------------------------------------
+# Training (runtime/config.py DeepSpeedConfig, runtime/engine.py)
+# ---------------------------------------------------------------------------
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
+# optimizer "type" spellings (lower-cased), as the JAX engine reads them
+ADAM_OPTIMIZER = "adam"
+LAMB_OPTIMIZER = "lamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
+DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, LAMB_OPTIMIZER,
+                        ONEBIT_ADAM_OPTIMIZER, ONEBIT_LAMB_OPTIMIZER]
+
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+# "fp16" carries fp16 and bf16 alike (the fork's "type" key)
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+FP16_TYPE = "type"
+FP16_TYPE_DEFAULT = "fp16"
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+FP16_MIN_SCALE_PATIENCE = "min_scale_patience"
+FP16_MIN_SCALE_PATIENCE_DEFAULT = 0
+FP16_MASTER_WEIGHTS_AND_GRADS = "fp16_master_weights_and_grads"
+
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+PRESCALE_GRADIENTS = "prescale_gradients"
+PRESCALE_GRADIENTS_DEFAULT = False
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
+
+# Top-level blocks of the JAX config that the port does not carry yet:
+# block → the slice that brings it (ROADMAP.md queue A). A block that is
+# set (present, and not null / false / {} / {"enabled": false}) raises
+# DeepSpeedConfigError "not ported".
+NOT_PORTED_BLOCKS = {
+    "activation_checkpointing": "activation checkpointing",
+    "progressive_layer_drop": "progressive layer drop",
+    "sparse_attention": "sparse attention",
+    "moe": "MoE",
+    "sequence_parallel": "long context",
+    "packing": "long context",
+    "pipeline": "scale-out (pipeline)",
+    "multislice": "scale-out",
+    "training_health": "robustness (sentinel, fault injection)",
+    "telemetry": "observability",
+    "monitor": "observability",
+    "tensorboard": "observability",
+    "flops_profiler": "observability",
+    "elasticity": "elasticity",
+    "checkpoint": "checkpointing",
+    "quantization": "serving-quant / quantized training",
+    "batch_size_schedule": "batch-size schedules",
+    "amp": "mixed precision through amp",
+    "aio": "offload",
+    "planner": "schedule planner",
+    "rl": "online RL",
+}
 
 # Accepted precision spellings → canonical dtype names (torch dtypes are
 # resolved in precision.py; kept as strings here so this module stays

@@ -1,0 +1,110 @@
+"""Data pipeline: the port of `deeperspeed_tpu/runtime/dataloader.py`.
+
+`DeepSpeedDataLoader` wraps any indexable dataset (torch Dataset, numpy
+arrays, lists of tuples) with rank-strided sampling, batching into numpy
+stacks, and optional infinite repeat. The training engine moves each
+batch to its device. One process trains on one card in this slice, so
+the replica count and rank default to 1 and 0; the JAX loader's resume
+position (`state_dict`) waits for the checkpoint slice.
+"""
+
+import numpy as np
+
+
+class RepeatingLoader:
+    """Wrap an iterator to restart from the beginning when exhausted
+    (reference `dataloader.py:10`; pipelines need unbounded iterators)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.data_iter = iter(self.loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self.data_iter)
+        except StopIteration:
+            self.data_iter = iter(self.loader)
+            return next(self.data_iter)
+
+
+def _stack_batch(samples):
+    """Collate a list of samples (arrays or tuples/dicts of arrays)."""
+    first = samples[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(
+            _stack_batch([s[i] for s in samples]) for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _stack_batch([s[k] for s in samples]) for k in first}
+    return np.stack([np.asarray(s) for s in samples])
+
+
+class DeepSpeedDataLoader:
+    """Batched, optionally-shuffled loader producing numpy pytrees.
+
+    `data_sampler` may be any iterable of indices; by default a
+    seeded-shuffle or sequential sampler over the local shard
+    (process-strided for multi-host, mirroring DistributedSampler).
+    """
+
+    def __init__(self, dataset, batch_size, collate_fn=None,
+                 local_rank=None, shuffle=False, seed=0, drop_last=True,
+                 data_sampler=None, num_replicas=None, rank=None,
+                 tput_timer=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn or _stack_batch
+        self.tput_timer = tput_timer
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.num_replicas = num_replicas if num_replicas is not None else 1
+        self.rank = rank if rank is not None else 0
+        # One-shot iterators (generator samplers, iter(x) is x) are
+        # consumed by the first traversal — `_num_batches()` below would
+        # exhaust them and `__iter__` would then yield zero batches.
+        # Materialize those once; re-iterable samplers (lists, torch-style
+        # sampler objects) are kept as-is so a per-epoch reshuffling
+        # sampler still yields a fresh order every epoch.
+        if data_sampler is not None and iter(data_sampler) is data_sampler:
+            data_sampler = list(data_sampler)
+        self.data_sampler = data_sampler
+        self.epoch = 0
+        self.len = self._num_batches()
+
+    def _local_indices(self):
+        n = len(self.dataset)
+        if self.data_sampler is not None:
+            return list(self.data_sampler)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            rng.shuffle(order)
+        # Process-strided split (each host loads 1/num_replicas of data).
+        return order[self.rank::self.num_replicas].tolist()
+
+    def _num_batches(self):
+        n = len(self._local_indices())
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+        self.len = self._num_batches()
+
+    def __len__(self):
+        return self.len
+
+    def __iter__(self):
+        if self.tput_timer:
+            self.tput_timer.start()
+        indices = self._local_indices()
+        for start in range(0, len(indices), self.batch_size):
+            chunk = indices[start:start + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                break
+            yield self.collate_fn([self.dataset[i] for i in chunk])
+        self.epoch += 1

@@ -1,0 +1,390 @@
+"""The training engine: `DeepSpeedEngine` on one card.
+
+The port of the training step of `deeperspeed_tpu/runtime/engine.py`
+(`_init_state`, `_loss_and_grads`, `_train_step_body`, `_apply_update`,
+`train_batch`, `eval_batch`): bf16, fp16 or fp32 compute with fp32
+masters, Adam(W), the LR schedules, gradient clipping and ZeRO stages
+0-2, which on one card are the same single-rank step.
+
+State layout. The JAX engine keeps pytrees and lets XLA fuse each
+leaf's update; eager PyTorch fuses nothing, so the port keeps the fp32
+masters, both Adam moments and the fp32 gradient accumulator as one flat
+buffer each, as the reference's ZeRO 1/2 partitions do. The model's
+parameters become views into one flat compute-dtype buffer, and their
+``.grad`` views into one flat compute-dtype gradient buffer that
+autograd adds into; with fp32 compute the parameters are the masters and
+the gradient buffer is the accumulator. An optimizer step is then one
+launch of the flat Adam kernel, which also writes the compute-dtype
+copy of the new masters (the recast).
+
+Step (`train_batch`), as in the JAX engine: for each micro-batch the
+loss (times the loss scale, fp16 only) is differentiated, and the
+micro-batch gradient is added in fp32 into the accumulator; the sum is
+divided by the accumulation steps; then unscale (fp16) → finite check
+(fp16) → global norm and clip → Adam on the masters → recast. On an
+fp16 overflow nothing changes but the loss scale and ``skipped_steps``.
+The LR is read before the step and the scheduler steps after each step
+taken.
+"""
+
+import numpy as np
+import torch
+
+from ..models.gpt_neox import split_lm_batch
+from ..ops.adam.fused_adam import FusedAdam
+from ..utils.logging import log_dist
+from ..utils.timer import ThroughputTimer
+from . import constants as c
+from .config import DeepSpeedConfig
+from .config_utils import DeepSpeedConfigError
+from .dataloader import DeepSpeedDataLoader
+from .fp16.loss_scaler import (DynamicLossScaler, create_loss_scaler,
+                               grads_finite, init_loss_scale_state,
+                               update_loss_scale)
+from .lr_schedules import get_scheduler_class
+from .utils import clip_grad_norm_
+
+
+def _not_ported(what, slice_name):
+    return DeepSpeedConfigError(
+        f"{what} is not ported yet (it comes with the {slice_name} slice; "
+        f"see ROADMAP.md)")
+
+
+def _check_single_rank():
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        raise _not_ported(
+            f"training across {dist.get_world_size()} ranks (data "
+            f"parallel / ZeRO partitions)", "data-parallel")
+
+
+class DeepSpeedEngine:
+    """Training engine with the DeepSpeed training API on one card.
+
+    ``model`` is a `models.gpt_neox.GPTNeoX` (any `torch.nn.Module` with
+    ``loss_fn(params, batch)`` and ``params_tree()``); it trains on the
+    device its parameters are on. ``config`` (a JSON path) or
+    ``config_params`` (a dict) is the DeepSpeed config.
+    """
+
+    def __init__(self, args=None, model=None, optimizer=None,
+                 model_parameters=None, training_data=None,
+                 lr_scheduler=None, mpu=None, dist_init_required=None,
+                 collate_fn=None, config=None, config_params=None):
+        if model is None:
+            raise DeepSpeedConfigError("deepspeed.initialize requires a model")
+        if not (isinstance(model, torch.nn.Module) and
+                hasattr(model, "loss_fn") and hasattr(model, "params_tree")):
+            raise DeepSpeedConfigError(
+                "model must be a torch.nn.Module exposing loss_fn(params, "
+                "batch) and params_tree() (models.gpt_neox.GPTNeoX)")
+        if model_parameters is not None:
+            raise DeepSpeedConfigError(
+                "model_parameters: the port trains the model's own "
+                "parameters; load weights into the model first "
+                "(GPTNeoX.init_params / load_jax_params)")
+        if mpu is not None:
+            raise _not_ported("a model-parallel unit (mpu)", "scale-out")
+        _check_single_rank()
+        config_arg = config if config is not None else \
+            getattr(args, "deepspeed_config", None)
+        if config_arg is None and config_params is None:
+            raise DeepSpeedConfigError(
+                "DeepSpeed requires --deepspeed_config or config_params")
+        self._config = DeepSpeedConfig(config_arg, param_dict=config_params)
+
+        self.module = model
+        self.collate_fn = collate_fn
+        self.device = next(model.parameters()).device
+        self.compute_dtype = self._config.precision
+        if self.device.type == "cuda" and \
+                self.compute_dtype == torch.float16:
+            raise _not_ported(
+                "fp16 training on the GPU (the kernels are built for fp32 "
+                "and bf16)", "fp16 kernels")
+
+        self.optimizer = self._configure_optimizer(optimizer)
+        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self._init_state()
+
+        self.loss_scaler = create_loss_scaler(self._config)
+        self.scale_state = init_loss_scale_state(
+            init_scale=self.loss_scaler.cur_scale,
+            delayed_shift=getattr(self.loss_scaler, "delayed_shift", 1),
+            static=not self.dynamic_loss_scale())
+
+        self.global_steps = 0
+        self.global_samples = 0
+        self.micro_steps = 0
+        self.skipped_steps = 0
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu(),
+            steps_per_output=self._config.steps_per_print)
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data)
+
+    # ------------------------------------------------------------------
+    # config accessors (the JAX engine's, for what the port parses)
+    # ------------------------------------------------------------------
+
+    def train_batch_size(self):
+        return self._config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self._config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self):
+        return self._config.gradient_accumulation_steps
+
+    def zero_optimization(self):
+        return self._config.zero_enabled
+
+    def zero_optimization_stage(self):
+        return self._config.zero_optimization_stage
+
+    def fp16_enabled(self):
+        return self._config.fp16_enabled
+
+    def bfloat16_enabled(self):
+        return self._config.bfloat16_enabled
+
+    def gradient_clipping(self):
+        return self._config.gradient_clipping
+
+    def steps_per_print(self):
+        return self._config.steps_per_print
+
+    def dynamic_loss_scale(self):
+        return isinstance(self.loss_scaler, DynamicLossScaler)
+
+    @property
+    def loss_scale(self):
+        return self.scale_state.cur_scale
+
+    def get_lr(self):
+        return [g["lr"] for g in self.optimizer.param_groups]
+
+    def get_mom(self):
+        return [g.get("betas") for g in self.optimizer.param_groups]
+
+    # ------------------------------------------------------------------
+    # set-up
+    # ------------------------------------------------------------------
+
+    def _configure_optimizer(self, client_optimizer):
+        if client_optimizer is not None:
+            if not isinstance(client_optimizer, FusedAdam):
+                raise _not_ported(
+                    f"a client optimizer of type "
+                    f"{type(client_optimizer).__name__} (the port steps "
+                    f"FusedAdam over its flat partition)", "optimizers")
+            log_dist("Using client optimizer", ranks=[0])
+            return client_optimizer
+        name = self._config.optimizer_name
+        params = dict(self._config.optimizer_params or {})
+        if name is None:
+            raise DeepSpeedConfigError(
+                "No optimizer supplied and none configured; add an "
+                "'optimizer' block or pass optimizer=")
+        if name not in c.DEEPSPEED_OPTIMIZERS and \
+                not self._config.zero_allow_untested_optimizer and \
+                self.zero_optimization():
+            raise DeepSpeedConfigError(
+                f"optimizer {name!r} is untested with ZeRO; set "
+                "'zero_allow_untested_optimizer': true to force")
+        params.pop("torch_adam", None)
+        if name == c.ADAM_OPTIMIZER:
+            return FusedAdam(**params)
+        if name in (c.LAMB_OPTIMIZER, c.ONEBIT_ADAM_OPTIMIZER,
+                    c.ONEBIT_LAMB_OPTIMIZER):
+            raise _not_ported(f"the {name!r} optimizer", "optimizers")
+        raise DeepSpeedConfigError(f"Unknown optimizer {name!r}")
+
+    def _configure_lr_scheduler(self, client_scheduler):
+        if client_scheduler is not None:
+            if callable(client_scheduler) and not hasattr(
+                    client_scheduler, "step"):
+                return client_scheduler(self.optimizer)
+            return client_scheduler
+        if self._config.scheduler_name is None:
+            return None
+        cls = get_scheduler_class(self._config.scheduler_name)
+        sched = cls(self.optimizer, **(self._config.scheduler_params or {}))
+        log_dist(f"Using configured LR scheduler "
+                 f"{self._config.scheduler_name}", ranks=[0])
+        return sched
+
+    def _init_state(self):
+        """Flat fp32 masters from the model's parameters; the parameters
+        become views into the flat compute-dtype buffer and their grads
+        views into the flat gradient buffer."""
+        named = list(self.module.named_parameters())
+        self.param_names = [n for n, _ in named]
+        sizes = [p.numel() for _, p in named]
+        self.num_params = int(sum(sizes))
+        dev, cdt = self.device, self.compute_dtype
+        self._master = torch.empty(self.num_params, dtype=torch.float32,
+                                   device=dev)
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        with torch.no_grad():
+            for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
+                self._master[lo:hi].copy_(p.detach().reshape(-1))
+        self._params_flat = self._master if cdt == torch.float32 else \
+            self._master.to(cdt)
+        self._grads_flat = torch.zeros(self.num_params, dtype=cdt,
+                                       device=dev)
+        self._grad_acc = self._grads_flat if cdt == torch.float32 else \
+            torch.zeros(self.num_params, dtype=torch.float32, device=dev)
+        self._grad_ptrs = []
+        for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
+            p.data = self._params_flat[lo:hi].view(p.shape)
+            p.requires_grad_(True)
+            p.grad = self._grads_flat[lo:hi].view(p.shape)
+            self._grad_ptrs.append(p.grad.data_ptr())
+        self._grads_checked = False
+        self.opt_state = self.optimizer.init_state(self._master)
+
+    def _check_grad_views(self):
+        """After the first backward: autograd added into the flat
+        gradient buffer's views and replaced none of them."""
+        for (name, p), ptr in zip(self.module.named_parameters(),
+                                  self._grad_ptrs):
+            if p.grad is None or p.grad.data_ptr() != ptr:
+                raise RuntimeError(
+                    f"autograd replaced the gradient view of {name}: the "
+                    f"flat gradient buffer no longer holds it")
+        self._grads_checked = True
+
+    def deepspeed_io(self, dataset, batch_size=None, route="train",
+                     data_sampler=None, collate_fn=None):
+        """A `DeepSpeedDataLoader` of micro-batches over ``dataset``."""
+        return DeepSpeedDataLoader(
+            dataset=dataset,
+            batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+            collate_fn=collate_fn or self.collate_fn,
+            data_sampler=data_sampler,
+            tput_timer=self.tput_timer if route == "train" else None)
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
+
+    def _to_device(self, x):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.asarray(x))
+        return t.to(device=self.device, dtype=torch.long)
+
+    def _lm_batch(self, batch):
+        tokens, labels, seg = split_lm_batch(batch)
+        if seg is not None:
+            raise _not_ported("packed (tokens, labels, segment_ids) "
+                              "batches", "long-context")
+        return self._to_device(tokens), self._to_device(labels)
+
+    def _current_lr(self):
+        return float(self.optimizer.param_groups[0]["lr"])
+
+    def train_batch(self, data_iter=None, batch=None):
+        """One optimizer step over ``gradient_accumulation_steps``
+        micro-batches: ``batch`` = (tokens, labels) (or bare tokens)
+        shaped [gas, micro, S], numpy or tensors, or ``data_iter``
+        yielding one micro-batch per ``next``. Returns the mean loss."""
+        gas = self.gradient_accumulation_steps()
+        if batch is None:
+            if data_iter is None:
+                raise ValueError("train_batch needs data_iter or batch")
+            micro = [next(data_iter) for _ in range(gas)]
+            batch = tuple(np.stack([np.asarray(m[i]) for m in micro])
+                          for i in range(len(micro[0]))) \
+                if isinstance(micro[0], (tuple, list)) else \
+                np.stack([np.asarray(m) for m in micro])
+        tokens, labels = self._lm_batch(batch)
+        if tokens.dim() != 3 or tokens.shape[0] != gas:
+            raise ValueError(f"train_batch expects [gas={gas}, micro, S] "
+                             f"batches, got {tuple(tokens.shape)}")
+        self.tput_timer.start()
+        lr = self._current_lr()
+        scale = self.scale_state.cur_scale
+        params = self.module.params_tree()
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(gas):
+            loss = self.module.loss_fn(params, (tokens[i], labels[i]))
+            (loss * scale if self._config.loss_scaling_enabled
+             else loss).backward()
+            if not self._grads_checked:
+                self._check_grad_views()
+            if self._grad_acc is not self._grads_flat:
+                self._grad_acc.add_(self._grads_flat)
+                self._grads_flat.zero_()
+            loss_sum += loss.detach().float()
+            self.micro_steps += 1
+        grads = self._grad_acc
+        if gas > 1:
+            grads.div_(gas)
+        overflow = self._apply_update(grads, lr)
+        grads.zero_()
+        self._after_step(overflow)
+        mean_loss = float(loss_sum / gas)
+        self.tput_timer.stop()
+        return mean_loss
+
+    def _apply_update(self, grads, lr):
+        """Unscale, check, clip, update the masters and recast; on an
+        fp16 overflow skip the update. Returns the overflow flag."""
+        cfg = self._config
+        if cfg.loss_scaling_enabled:
+            grads.div_(self.scale_state.cur_scale)
+        if cfg.prescale_gradients and cfg.gradient_predivide_factor != 1.0:
+            grads.div_(cfg.gradient_predivide_factor)
+        overflow = cfg.loss_scaling_enabled and \
+            not bool(grads_finite(grads))
+        if not overflow:
+            if cfg.gradient_clipping > 0:
+                clip_grad_norm_(grads, cfg.gradient_clipping)
+            self.opt_state = self.optimizer.update(
+                grads, self.opt_state, self._master, lr=lr,
+                compute_out=None if self._params_flat is self._master
+                else self._params_flat,
+                use_kernel=getattr(self.module, "use_kernels", True))
+        if self.dynamic_loss_scale():
+            scaler = self.loss_scaler
+            self.scale_state = update_loss_scale(
+                self.scale_state, overflow,
+                scale_factor=scaler.scale_factor,
+                scale_window=scaler.scale_window,
+                min_scale=scaler.min_scale,
+                delayed_shift=scaler.delayed_shift,
+                consecutive_hysteresis=scaler.consecutive_hysteresis)
+        else:
+            self.scale_state = self.scale_state._replace(
+                cur_iter=self.scale_state.cur_iter + 1)
+        return overflow
+
+    def _after_step(self, overflow):
+        if overflow:
+            self.skipped_steps += 1
+            log_dist(f"OVERFLOW! Skipping step; loss scale now "
+                     f"{self.scale_state.cur_scale}", ranks=[0])
+        self._advance_host_schedules(taken=0 if overflow else 1)
+
+    def _advance_host_schedules(self, taken):
+        self.global_steps += taken
+        self.global_samples += self.train_batch_size() * taken
+        for _ in range(taken):
+            if self.lr_scheduler is not None:
+                self.lr_scheduler.step()
+        if taken and self.global_steps % self.steps_per_print() == 0:
+            log_dist(f"step={self.global_steps}, skipped="
+                     f"{self.skipped_steps}, lr={self.get_lr()}, "
+                     f"loss_scale={self.loss_scale}", ranks=[0])
+
+    @torch.no_grad()
+    def eval_batch(self, batch):
+        """Loss of one (tokens, labels) batch [B, S] (or bare tokens),
+        without touching the training state."""
+        tokens, labels = self._lm_batch(batch)
+        return float(self.module.loss_fn(self.module.params_tree(),
+                                         (tokens, labels)))

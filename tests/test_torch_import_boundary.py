@@ -56,6 +56,14 @@ def test_engine_on_cpu_loads_no_jax():
         "'page_size': 16, 'num_pages': 16}}, device='cpu')\n"
         "out = e.generate([[1, 2, 3]], max_new_tokens=2)\n"
         "assert len(out[0]) == 2\n"
+        "from deeperspeed_tpu_torch import initialize\n"
+        "t = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
+        "eng, *_ = initialize(model=t, config_params={\n"
+        "    'train_batch_size': 2, 'gradient_accumulation_steps': 2,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}},\n"
+        "    'fp16': {'enabled': True, 'type': 'bfloat16'}})\n"
+        "x = torch.randint(0, 512, (2, 1, 16))\n"
+        "assert eng.train_batch(batch=(x, x)) > 0 and eng.global_steps == 1\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu'))\n"
         "print(bad)\n")
