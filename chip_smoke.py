@@ -10,8 +10,10 @@ Phases (any failure exits non-zero before the final line):
    fp32, with its time, the plain version's time, a library call's time
    (timed only) and its bound: flash forward at the serving shapes and
    at the training shape, flash backward at the training shape and on
-   ragged segments, paged decode at the serving shape, flat Adam at the
-   model's parameter count;
+   ragged segments (timed at B=4, S=1024), paged decode over bf16/fp32
+   and over int8 pools at the serving shape, the weight-only int8 matmul
+   at decode (M=16) and prefill (M=4096) rows, flat Adam at the model's
+   parameter count;
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted;
@@ -19,9 +21,10 @@ Phases (any failure exits non-zero before the final line):
    the kernels and through the plain path;
 6. profile (only with ``--profile``): `torch.profiler` over a steady
    window of decode steps at B=16, over one B=4, S=512 prefill call of
-   the same bf16 model, and over one training step of phase 7: host ms
-   per step, device kernel ms per step, the device's busy share,
-   launches per step and the top kernels;
+   the same bf16 model, over a decode window of each serve-quant rung of
+   phase 9, and over one training step of phase 7: host ms per step,
+   device kernel ms per step, the device's busy share, launches per step
+   and the top kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
    masters, Adam(W), WarmupLR, clipping, ZeRO-2, gas 2 x micro 16 x
    1024 tokens, 20 steps through `initialize()` → `train_batch` on one
@@ -29,7 +32,15 @@ Phases (any failure exits non-zero before the final line):
    then one `eval_batch`;
 8. training parity: the same model in fp32 (micro 2, gas 2, S 1024)
    takes 3 steps through the kernels and 3 through the plain path; the
-   losses must agree.
+   losses must agree;
+9. serving-quant: GPT-NeoX-125M (seeded bf16 weights) serves the
+   decode-heavy stream of bench.py's row_quant (16 requests x 62 prompt
+   tokens x 48 new) at three rungs, bf16, int8 weights, and int8 weights
+   with int8 KV pages, each with exact launch counts, no page leaks and
+   every request ok; plus the int8-KV capacity accounting;
+10. int8 parity: the fp32 model with int8 weights and int8 KV pages
+   gives the same greedy tokens through the kernels and through the
+   plain path.
 
 It prints one JSON line of kernel results, then the card line, then as
 the last line ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -61,10 +72,34 @@ TOL_BWD = {torch.bfloat16: (3e-2, 3e-2), torch.float32: (1e-4, 1e-4)}
 # fuses multiply-adds); its bf16 copy must be exactly its own new p
 # rounded to bf16 (the recast written in the same pass)
 TOL_ADAM = (1e-6, 1e-6)
+# weight-only int8 matmul, as a fraction of max|ref|: bf16 rounds its
+# output once and sums in another order than the plain version; fp32
+# differs only in the summation order
+TOL_QMM = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# the (K, N) of GPT-NeoX-125M's four block matmuls (qkv, out-proj,
+# mlp-in, mlp-out), checked at the rows phase 9 gives them: a decode step
+# of 16 sequences and a prefill call of 4 x 64 tokens
+QMM_BLOCK_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+QMM_PATH_ROWS = (16, 256)
+# the (K, N) also checked at serve-125M's largest bucket (M = 4096) and
+# timed at every M: mlp-in and mlp-out
+QMM_SHAPES = ((768, 3072), (3072, 768))
+# weight bytes cycled through when timing, above the 50 MB L2, so each
+# launch reads its weight from device memory as a decode step does
+QMM_COLD_BYTES = 64 << 20
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = 989e12
 
+# serve-quant-125M: the decode-heavy stream of bench.py's row_quant
+# (bench.py:2072-2124) at its three rungs
+QUANT_SERVE_CONFIG = {"inference": {
+    "enabled": True, "page_size": 64, "num_pages": 257,
+    "max_batch_size": 16, "token_budget": 2048, "prefill_lengths": [64],
+    "prefill_batch_sizes": [4], "decode_batch_sizes": [16]}}
+QUANT_RUNGS = (("bf16", None, None), ("int8w", "int8", None),
+               ("int8w_int8kv", "int8", "int8"))
+QUANT_REQUESTS, QUANT_PROMPT, QUANT_NEW = 16, 62, 48
 SERVE_CONFIG = {"inference": {
     "enabled": True, "page_size": 64, "num_pages": 513,
     "max_batch_size": 16, "token_budget": 2048,
@@ -124,6 +159,36 @@ def time_ms(fn, warmup=5, iters=25):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(fn, launches=20, replays=5):
+    """Device milliseconds of one call of ``fn`` without the host's launch
+    overhead: ``launches`` calls captured in one CUDA graph, the graph
+    replayed ``replays`` times between two CUDA events. For the kernels
+    of a decode step (tens of microseconds), where one call timed
+    between events mostly measures the Python wrapper and the launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return float(ms)
 
 
 def close(got, want, atol, rtol):
@@ -248,15 +313,10 @@ def check_prefill(fa, gen, report):
                 if r["S"] == 1024 and r["dtype"] == str(torch.bfloat16))
 
 
-def decode_case(dtype, gen, B=16, H=12, D=64, ps=64, NP=16, P=513, L=2):
-    """Pools [L, P, H, ps, D] (the kernel reads layer 1 through its
-    view), a random page permutation, lengths in [0, 1024] with 0 and
-    exact page multiples, trash page 0 past each length, and q as a
-    strided view like the engine's."""
-    k_pool = torch.randn(L, P, H, ps, D, generator=gen,
-                         device="cuda").to(dtype)
-    v_pool = torch.randn(L, P, H, ps, D, generator=gen,
-                         device="cuda").to(dtype)
+def decode_query_case(dtype, gen, B, H, D, ps, NP, P):
+    """q as a strided view like the engine's, a random page permutation,
+    lengths in [0, NP·ps] with 0 and exact page multiples, trash page 0
+    past each length."""
     qkv = torch.randn(B, H, 3 * D, generator=gen, device="cuda").to(dtype)
     q = qkv[..., :D]
     lengths = torch.randint(0, NP * ps + 1, (B,), generator=gen,
@@ -267,15 +327,46 @@ def decode_case(dtype, gen, B=16, H=12, D=64, ps=64, NP=16, P=513, L=2):
     table = perm.reshape(B, NP)
     live = (torch.arange(NP, device="cuda")[None] * ps < lengths[:, None])
     table = torch.where(live, table, torch.zeros_like(table))
-    return (q, k_pool[1], v_pool[1], table.to(torch.int32),
-            lengths.to(torch.int32))
+    return q, table.to(torch.int32), lengths.to(torch.int32)
 
 
-def decode_bound_ms(q, lengths):
+def decode_case(dtype, gen, B=16, H=12, D=64, ps=64, NP=16, P=513, L=2):
+    """Pools [L, P, H, ps, D] (the kernel reads layer 1 through its
+    view) and the query case of `decode_query_case`."""
+    k_pool = torch.randn(L, P, H, ps, D, generator=gen,
+                         device="cuda").to(dtype)
+    v_pool = torch.randn(L, P, H, ps, D, generator=gen,
+                         device="cuda").to(dtype)
+    q, table, lengths = decode_query_case(dtype, gen, B, H, D, ps, NP, P)
+    return q, k_pool[1], v_pool[1], table, lengths
+
+
+def decode_int8_case(dtype, gen, B=16, H=12, D=64, ps=64, NP=16, P=513,
+                     L=2):
+    """int8 pools [L, P, H, ps, D] and bf16 scale pools [L, P, H, ps] (the
+    kernel reads layer 1 through views), q in ``dtype``."""
+    k_pool = torch.randint(-127, 128, (L, P, H, ps, D), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    v_pool = torch.randint(-127, 128, (L, P, H, ps, D), generator=gen,
+                           device="cuda", dtype=torch.int8)
+    k_sc, v_sc = (
+        (0.005 + 0.02 * torch.rand(L, P, H, ps, generator=gen,
+                                   device="cuda")).to(torch.bfloat16)
+        for _ in range(2))
+    q, table, lengths = decode_query_case(dtype, gen, B, H, D, ps, NP, P)
+    return q, k_pool[1], v_pool[1], k_sc[1], v_sc[1], table, lengths
+
+
+def decode_bound_ms(q, lengths, kv_bytes=None, scale_bytes=0):
+    """Live K and V rows (and, for int8 pools, their bf16 scales) read
+    once, q read and the output written once, the page table and
+    lengths."""
     B, H, D = q.shape
     esize = q.element_size()
+    kv_bytes = esize if kv_bytes is None else kv_bytes
     tokens = int(lengths.long().sum())
-    nbytes = 2 * H * tokens * D * esize + 2 * B * H * D * esize + 8 * B
+    nbytes = 2 * H * tokens * (D * kv_bytes + scale_bytes) + \
+        2 * B * H * D * esize + 8 * B
     return bound_ms(nbytes, 4 * H * D * tokens)
 
 
@@ -313,11 +404,21 @@ def check_decode(da, gen, report):
                 lambda: F.scaled_dot_product_attention(
                     q4, kg, vg, attn_mask=mask))
             row["bound_ms"], row["bound_by"] = decode_bound_ms(q, lengths)
+            row["graph_ms"] = graph_ms(lambda: da.paged_decode_cuda(
+                q, kp, vp, table, lengths))
+            row["plain_graph_ms"] = graph_ms(
+                lambda: da.paged_decode_attention_reference(
+                    q, kp, vp, table, lengths), launches=5)
+            row["library_graph_ms"] = graph_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, kg, vg, attn_mask=mask))
             print(f"  paged_decode times: kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.5f} ms ({row['bound_by']})",
-                  flush=True)
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}); in a CUDA "
+                  f"graph: kernel {row['graph_ms']:.4f} ms, plain "
+                  f"{row['plain_graph_ms']:.4f} ms, library "
+                  f"{row['library_graph_ms']:.4f} ms", flush=True)
         rows.append(row)
     # the other head dims, and smaller pages
     for dtype in (torch.bfloat16, torch.float32):
@@ -340,6 +441,216 @@ def check_decode(da, gen, report):
             rows.append(row)
     report["paged_decode"] = rows
     return rows[0]
+
+
+def check_decode_int8(da, gen, report):
+    """The int8-pool kernel against the plain version at the serving
+    shape and at the other head dims, bf16 and fp32 q."""
+    import torch.nn.functional as F
+    rows = []
+    cases = [dict()] + [dict(B=B, H=H, D=D, ps=ps, NP=NP, P=P)
+                        for B, H, D, ps, NP, P in ((3, 2, 128, 16, 8, 40),
+                                                   (5, 4, 256, 32, 4, 30))]
+    for shape in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, ks, vs, table, lengths = decode_int8_case(
+                dtype, gen, **shape)
+            out = da.paged_decode_int8_cuda(q, kp, vp, ks, vs, table,
+                                            lengths)
+            ref = da.paged_decode_attention_reference(
+                q, kp, vp, table, lengths, k_scales=ks, v_scales=vs)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]["out"]
+            err, ok = close(out, ref, *tol)
+            zero_ok = bool((out[lengths == 0] == 0).all())
+            row = {"dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                   **shape}
+            print(f"  paged_decode_int8 {row}", flush=True)
+            if not (ok and zero_ok and out.dtype == dtype):
+                fail(f"int8 paged decode kernel disagrees with its plain "
+                     f"version (zero rows exact: {zero_ok}): {row}")
+            if not shape and dtype == torch.bfloat16:
+                B, H, D = q.shape
+                NP, ps = table.shape[1], kp.shape[2]
+                pt = table.long()
+                kg = (kp[pt].float() * ks[pt].float()[..., None]).to(dtype)
+                vg = (vp[pt].float() * vs[pt].float()[..., None]).to(dtype)
+                kg = kg.movedim(2, 1).reshape(B, H, NP * ps, D)
+                vg = vg.movedim(2, 1).reshape(B, H, NP * ps, D)
+                mask = (torch.arange(NP * ps, device="cuda")[None] <
+                        lengths[:, None])[:, None, None, :]
+                q4 = q.contiguous()[:, :, None, :]
+                row["ms"] = time_ms(lambda: da.paged_decode_int8_cuda(
+                    q, kp, vp, ks, vs, table, lengths))
+                row["plain_ms"] = time_ms(
+                    lambda: da.paged_decode_attention_reference(
+                        q, kp, vp, table, lengths, k_scales=ks,
+                        v_scales=vs))
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q4, kg, vg, attn_mask=mask))
+                row["bound_ms"], row["bound_by"] = decode_bound_ms(
+                    q, lengths, kv_bytes=1, scale_bytes=2)
+                row["lengths"] = lengths.tolist()
+                row["graph_ms"] = graph_ms(lambda: da.paged_decode_int8_cuda(
+                    q, kp, vp, ks, vs, table, lengths))
+                row["plain_graph_ms"] = graph_ms(
+                    lambda: da.paged_decode_attention_reference(
+                        q, kp, vp, table, lengths, k_scales=ks,
+                        v_scales=vs), launches=5)
+                row["library_graph_ms"] = graph_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q4, kg, vg, attn_mask=mask))
+                print(f"  paged_decode_int8 times: kernel {row['ms']:.4f} "
+                      f"ms, plain {row['plain_ms']:.4f} ms, library "
+                      f"{row['library_ms']:.4f} ms, bound "
+                      f"{row['bound_ms']:.5f} ms ({row['bound_by']}); in a "
+                      f"CUDA graph: kernel {row['graph_ms']:.4f} ms, plain "
+                      f"{row['plain_graph_ms']:.4f} ms, library "
+                      f"{row['library_graph_ms']:.4f} ms", flush=True)
+            rows.append(row)
+            del q, kp, vp, ks, vs
+        torch.cuda.empty_cache()
+    report["paged_decode_int8"] = rows
+    return rows[0]
+
+
+def qmm_bound_ms(x, qw):
+    """x read, the int8 weight and fp32 scales read, y written once;
+    2·M·N·K flops."""
+    M, K = x.shape
+    N = qw.qval.shape[1]
+    esize = x.element_size()
+    nbytes = M * K * esize + K * N + 4 * N + M * N * esize
+    return bound_ms(nbytes, 2 * M * N * K)
+
+
+def qmm_case(qm, gen, M, K, N, dtype):
+    """The kernel against its plain version on one (M, K, N) → (row of
+    errors, x, the quantized weight); fails the run on a disagreement."""
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    w = 0.02 * torch.randn(K, N, generator=gen, device="cuda")
+    qw = qm.quantize_weight(w.to(dtype))
+    out = qm.quant_matmul_cuda(x, qw)
+    ref = qm.quant_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    tol = TOL_QMM[dtype] * float(ref.float().abs().max())
+    err, ok = close(out, ref, tol, 0.0)
+    row = {"M": M, "K": K, "N": N, "dtype": str(dtype),
+           "k_split": qm.split_k_rows(M, N, K), "max_abs_err": err,
+           "tol": tol, "tol_rel_max": TOL_QMM[dtype]}
+    print(f"  quant_matmul {row}", flush=True)
+    if not ok or out.dtype != dtype:
+        fail(f"int8 matmul kernel disagrees with its plain version: {row}")
+    return row, x, qw
+
+
+def qmm_times(qm, gen, row, x, qw):
+    """Kernel, plain and library times of one bf16 case into ``row``:
+    distinct weights are cycled through, so each launch reads its weight
+    from device memory."""
+    M, K = x.shape
+    N = qw.qval.shape[1]
+    n_w = -(-QMM_COLD_BYTES // (K * N))
+    qws = [qw] + [qm.quantize_weight(
+        (0.02 * torch.randn(K, N, generator=gen, device="cuda")).to(x.dtype))
+        for _ in range(n_w - 1)]
+    wds = [q.dequant(x.dtype) for q in qws]
+    it = {"i": 0}
+
+    def nxt(seq):
+        it["i"] = (it["i"] + 1) % len(seq)
+        return seq[it["i"]]
+    row["ms"] = time_ms(lambda: qm.quant_matmul_cuda(x, nxt(qws)))
+    row["plain_ms"] = time_ms(
+        lambda: qm.quant_matmul_reference(x, nxt(qws)), warmup=2, iters=10)
+    row["library_ms"] = time_ms(lambda: torch.matmul(x, nxt(wds)))
+    row["bound_ms"], row["bound_by"] = qmm_bound_ms(x, qw)
+    row["weights_cycled"] = n_w
+    # one graph launch a distinct weight: all n_w of them
+    row["graph_ms"] = graph_ms(lambda: qm.quant_matmul_cuda(x, nxt(qws)),
+                               launches=n_w)
+    row["plain_graph_ms"] = graph_ms(
+        lambda: qm.quant_matmul_reference(x, nxt(qws)), launches=n_w,
+        replays=2)
+    row["library_graph_ms"] = graph_ms(lambda: torch.matmul(x, nxt(wds)),
+                                       launches=n_w)
+    print(f"  quant_matmul times M={M} K={K} N={N}: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); in a CUDA graph: kernel "
+          f"{row['graph_ms']:.4f} ms, plain {row['plain_graph_ms']:.4f} ms, "
+          f"library {row['library_graph_ms']:.4f} ms", flush=True)
+
+
+def check_quant_matmul(qm, gen, report):
+    """The weight-only int8 matmul against its plain version, bf16 and
+    fp32: all four GPT-NeoX-125M block weights at the decode (16) and
+    prefill (256) rows of phase 9, which take split-K on one and four m16
+    tiles a block, and mlp-in and mlp-out at M = 4096 (timed in bf16 at
+    every M); then ragged and strided cases, and inputs it must refuse."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in QMM_PATH_ROWS + (4096,):
+            shapes = QMM_BLOCK_SHAPES if M in QMM_PATH_ROWS else QMM_SHAPES
+            for K, N in shapes:
+                row, x, qw = qmm_case(qm, gen, M, K, N, dtype)
+                if dtype == torch.bfloat16 and (K, N) in QMM_SHAPES:
+                    qmm_times(qm, gen, row, x, qw)
+                rows.append(row)
+                del x, qw
+            torch.cuda.empty_cache()
+    # ragged M, K and N edges, rows read through a wider row stride; at
+    # column offset 3 the rows are not 16-byte aligned, which only the
+    # fp32 kernel reads (bf16 must refuse them, below); at offset 0 bf16
+    # takes the tensor-core path, with and without split-K
+    ragged = [(torch.float32, c) for c in (
+        (5, 33, 24, 3), (37, 70, 100, 3), (100, 200, 48, 3),
+        (1, 768, 2304, 3))]
+    ragged += [(dt, c) for dt in (torch.bfloat16, torch.float32) for c in (
+        (20, 104, 80, 0), (7, 3072, 768, 0), (300, 200, 96, 0),
+        (1, 768, 2304, 0))]
+    for dtype, (M, K, N, off) in ragged:
+        wide = torch.randn(M, K + 8, generator=gen, device="cuda")
+        x = wide.to(dtype)[:, off:K + off]
+        w = 0.05 * torch.randn(K, N, generator=gen, device="cuda")
+        w[:, 0] = 0.0                       # a zero column: scale 1
+        qw = qm.quantize_weight(w.to(dtype))
+        out = qm.quant_matmul_cuda(x, qw)
+        ref = qm.quant_matmul_reference(x, qw)
+        torch.cuda.synchronize()
+        tol = TOL_QMM[dtype] * float(ref.float().abs().max())
+        err, ok = close(out, ref, tol, 0.0)
+        row = {"M": M, "K": K, "N": N, "dtype": str(dtype),
+               "row_stride": x.stride(0), "column_offset": off,
+               "k_split": qm.split_k_rows(M, N, K), "max_abs_err": err,
+               "tol": tol}
+        print(f"  quant_matmul {row}", flush=True)
+        if not ok or not bool((out[:, 0] == 0).all()):
+            fail(f"int8 matmul kernel disagrees with its plain version "
+                 f"on a ragged case: {row}")
+        rows.append(row)
+    # what the kernel cannot read raises before any launch: bf16 rows 6
+    # bytes off alignment, and a contraction dim with a stride (one row
+    # and many)
+    wide = torch.randn(4, 2 * 768 + 8, generator=gen, device="cuda")
+    qw = qm.quantize_weight(
+        0.05 * torch.randn(768, 2304, generator=gen, device="cuda"))
+    before = qm.launches
+    for x in (wide.to(torch.bfloat16)[:, 3:771], wide[:1, :2 * 768:2],
+              wide[:, :2 * 768:2]):
+        try:
+            qm.quant_matmul_cuda(x, qw)
+        except ValueError as err:
+            print(f"  quant_matmul refuses {tuple(x.shape)} {x.dtype} "
+                  f"strides {tuple(x.stride())}: {err}", flush=True)
+            continue
+        fail(f"int8 matmul kernel took an input it cannot read: "
+             f"{tuple(x.shape)} {x.dtype} strides {tuple(x.stride())}")
+    if qm.launches != before:
+        fail("int8 matmul kernel launched on an input it refused")
+    report["quant_matmul"] = rows
+    return [r for r in rows if "ms" in r]
 
 
 def flash_bwd_bound_ms(q, seg):
@@ -451,11 +762,49 @@ def check_train_kernels(fa, ad, gen, report, n_params):
                 fail(f"flash backward kernels disagree with their plain "
                      f"version: {row}")
             bwd_rows.append(row)
+    seg_row = check_bwd_segments(fa, gen)
+    bwd_rows.append(seg_row)
     report["flash_fwd_train"] = fwd_rows
     report["flash_bwd"] = bwd_rows
     adam_rows = check_adam(ad, gen, n_params)
     report["adam"] = adam_rows
-    return fwd_rows[0], bwd_rows[0], adam_rows[0]
+    return fwd_rows[0], bwd_rows[0], adam_rows[0], seg_row
+
+
+def check_bwd_segments(fa, gen):
+    """The backward on the case only the tiled, segment-aware TPU
+    backward covers: B=4 S=1024 H=12 D=64 bf16 with the ragged segments
+    of the prefill check, timed against the plain backward and SDPA's
+    backward under the same bool mask."""
+    import torch.nn.functional as F
+    q, k, v, seg, _ = prefill_case(1024, torch.bfloat16, gen)
+    row, ok, (out, lse, do, delta) = check_grads(fa, q, k, v, seg, gen)
+    B, S, H, D = q.shape
+    row = {"B": B, "S": S, "H": H, "D": D, "dtype": str(q.dtype),
+           "segments": True, "tol": TOL_BWD[q.dtype], **row}
+    if not ok:
+        fail(f"flash backward kernels disagree with their plain version on "
+             f"ragged segments: {row}")
+    mask = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None] & \
+        (seg[:, :, None] == seg[:, None, :])
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    row["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, lse, do, delta, seg))
+    row["plain_ms"] = time_ms(
+        lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, seg),
+        warmup=2, iters=10)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                           attn_mask=mask[:, None])
+    do_t = do.transpose(1, 2).contiguous()
+    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    row["bound_ms"], row["bound_by"] = flash_bwd_bound_ms(q, seg)
+    row["live_pairs"] = live_pairs(seg, B, S)
+    print(f"  flash_bwd (ragged segments) {row}", flush=True)
+    del qt, kt, vt, o_lib, do_t
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_adam(ad, gen, n_params):
@@ -648,6 +997,161 @@ def parity(report):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: serving-quant, the three rungs of row_quant
+# ---------------------------------------------------------------------------
+
+def _quant_config(base, weights, kv_dtype):
+    conf = json.loads(json.dumps(base))
+    if kv_dtype:
+        conf["inference"]["kv_cache_dtype"] = kv_dtype
+    if weights:
+        conf["quantization"] = {"weights": weights}
+    return conf
+
+
+def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
+    from deeperspeed_tpu_torch import InferenceEngine
+    L = model.config.num_layers
+    eng = InferenceEngine(model, config=_quant_config(
+        QUANT_SERVE_CONFIG, weights, kv_dtype))
+    # warm both programs, then measure the decode-heavy stream
+    eng.generate([prompts[0]], max_new_tokens=2)
+    warm = dict(eng.stats)
+    torch.cuda.synchronize()
+
+    fa.launches = da.launches = da.launches_int8 = qm.launches = 0
+    prefill_calls = decode_steps = 0
+    itl, last = [], {}
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, max_new_tokens=QUANT_NEW) for p in prompts]
+    while eng.scheduler.has_work:
+        out = eng.step()
+        prefill_calls += out["prefilled"] > 0
+        decode_steps += out["decoded"] > 0
+        now = time.perf_counter()
+        for r in eng.scheduler.running:
+            k = len(r.generated)
+            prev = last.get(r.request_id)
+            if prev is None or prev[0] < k:
+                if prev is not None:
+                    itl.append(now - prev[1])
+                last[r.request_id] = (k, now)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.launches, "paged_decode": da.launches,
+                "paged_decode_int8": da.launches_int8,
+                "quant_matmul": qm.launches}
+
+    done = {r.request_id: r for r in eng.scheduler.pop_finished()}
+    if sorted(done) != sorted(ids) or any(
+            r.status != "ok" or len(r.generated) != QUANT_NEW
+            for r in done.values()):
+        fail(f"{tag}: not every request finished ok with {QUANT_NEW} "
+             f"tokens: {[(i, r.status, len(r.generated)) for i, r in done.items()]}")
+    if eng.cache.num_free != eng.cache.num_pages - 1:
+        fail(f"{tag}: pages leaked: {eng.cache.num_free} free of "
+             f"{eng.cache.num_pages - 1}")
+    want = {"flash_fwd": L * prefill_calls,
+            "paged_decode": 0 if kv_dtype else L * decode_steps,
+            "paged_decode_int8": L * decode_steps if kv_dtype else 0,
+            "quant_matmul": (4 * L * (prefill_calls + decode_steps)
+                             if weights else 0)}
+    if launches != want or not prefill_calls or not decode_steps:
+        fail(f"{tag}: launch counts {launches} != {want} ({L} layers, "
+             f"{prefill_calls} prefill calls, {decode_steps} decode steps)")
+    dtok = eng.stats["decode_tokens"] - warm["decode_tokens"]
+    dsec = eng.stats["decode_s"] - warm["decode_s"]
+    row = {"decode_tok_s": dtok / dsec, "stream_tok_s": dtok / dt,
+           "inter_token_p50_ms": float(np.percentile(itl, 50) * 1e3),
+           "wall_s": dt, "decode_tokens": dtok, "decode_s": dsec,
+           "prefill_s": eng.stats["prefill_s"] - warm["prefill_s"],
+           "prefill_calls": prefill_calls, "decode_steps": decode_steps,
+           "launches": launches, "dtypes": eng.dtypes}
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def kv_capacity(cfg):
+    """row_quant (b): bytes a token holds in the bf16 and the int8 pools
+    (scales included) and sessions of 1024 tokens in 1024 MB."""
+    from deeperspeed_tpu_torch.inference import PagedKVCache
+    pool_mb, sess_tokens = 1024, 1024
+    res = {"pool_mb": pool_mb, "session_tokens": sess_tokens}
+    for tag, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        c = PagedKVCache(num_layers=cfg.num_layers, num_pages=2,
+                         num_heads=cfg.num_heads, page_size=64,
+                         head_dim=cfg.head_dim, dtype=dtype, device="cuda")
+        res[f"bytes_per_token_{tag}"] = c.bytes_per_token()
+        res[f"sessions_{tag}"] = (pool_mb << 20) // (c.bytes_per_token() *
+                                                     sess_tokens)
+    res["bytes_ratio"] = res["bytes_per_token_bf16"] / \
+        res["bytes_per_token_int8"]
+    res["capacity_ratio"] = res["sessions_int8"] / res["sessions_bf16"]
+    if res["bytes_per_token_int8"] * 128 != res["bytes_per_token_bf16"] * 66:
+        fail(f"int8 KV accounting is not 66/128 of bf16 at D = 64: {res}")
+    return res
+
+
+def serve_quant(fa, da, qm, report):
+    model = build_model(torch.bfloat16)
+    cfg = model.config
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=QUANT_PROMPT))
+               for _ in range(QUANT_REQUESTS)]
+    rungs = {}
+    for tag, weights, kv_dtype in QUANT_RUNGS:
+        rungs[tag] = serve_quant_rung(model, prompts, tag, weights,
+                                      kv_dtype, fa, da, qm)
+    res = {"rungs": rungs, "kv_capacity": kv_capacity(cfg),
+           "int8w_decode_vs_bf16": rungs["int8w"]["decode_tok_s"] /
+           rungs["bf16"]["decode_tok_s"]}
+    report["serve_quant"] = res
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: int8 greedy parity, kernels vs plain path, fp32
+# ---------------------------------------------------------------------------
+
+def parity_int8(da, qm, report):
+    from deeperspeed_tpu_torch import InferenceEngine
+    model = build_model(torch.float32, seed=1)
+    cfg = model.config
+    rng = np.random.default_rng(1)
+    lens = [9, 64, 65, 130, 200, 300, 513, 700]
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in lens]
+    conf = _quant_config(SERVE_CONFIG, "int8", "int8")
+    model.use_kernels = True
+    qm.launches = da.launches_int8 = 0
+    fast = InferenceEngine(model, config=conf).generate(
+        prompts, max_new_tokens=16)
+    launched = {"quant_matmul": qm.launches,
+                "paged_decode_int8": da.launches_int8}
+    model.use_kernels = False
+    plain_cfg = json.loads(json.dumps(conf))
+    plain_cfg["inference"]["kernel"] = "xla"
+    qm.launches = da.launches_int8 = 0
+    plain = InferenceEngine(model, config=plain_cfg).generate(
+        prompts, max_new_tokens=16)
+    if qm.launches or da.launches_int8 or not all(launched.values()):
+        fail(f"the kernel path launched {launched}, the plain path "
+             f"{qm.launches} / {da.launches_int8}")
+    same = [a == b for a, b in zip(fast, plain)]
+    report["parity_int8"] = {"prompt_lengths": lens, "identical": same,
+                             "kernel_launches": launched}
+    print(f"  int8 parity: {sum(same)}/{len(same)} requests "
+          f"token-identical", flush=True)
+    if not all(same):
+        fail(f"int8 greedy tokens differ between the kernel path and the "
+             f"plain path: {fast} vs {plain}")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 7: training train-125M
 # ---------------------------------------------------------------------------
 
@@ -833,8 +1337,31 @@ def profile(report, card):
     report["profile"] = {"decode_B16": decode, "prefill_B4_S512": prefill}
     print_profile("decode step (B=16)", decode, card)
     print_profile("prefill call (B=4, S=512)", prefill, card)
-    del eng, model
+    del eng
+    # a decode window of each serve-quant rung, mid-stream (16 sequences of
+    # 62 prompt tokens, all prefilled)
+    for tag, weights, kv_dtype in QUANT_RUNGS:
+        eng = InferenceEngine(model, config=_quant_config(
+            QUANT_SERVE_CONFIG, weights, kv_dtype))
+        for _ in range(QUANT_REQUESTS):
+            eng.submit(list(rng.integers(1, cfg.vocab_size,
+                                         size=QUANT_PROMPT)),
+                       max_new_tokens=QUANT_NEW)
+        while eng.scheduler.waiting:
+            eng.step()
+        eng.step()
+        res = profile_window(eng.step, 10)
+        report["profile"][f"decode_quant_{tag}"] = res
+        print_profile(f"serve-quant decode step ({tag})", res, card)
+        del eng
+    del model
     torch.cuda.empty_cache()
+
+
+def graph_times(row):
+    """The CUDA-graph device times of a decode-sized kernel's row."""
+    return {k: row[k] for k in ("graph_ms", "plain_graph_ms",
+                                "library_graph_ms")}
 
 
 def main():
@@ -859,6 +1386,7 @@ def main():
     from deeperspeed_tpu_torch.ops.hopper import adam as ad
     from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
     from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
     _build.load_library()
     info = _build.BUILD_INFO
     print(f"build: {info['seconds']:.1f} s (built={info['built']}) "
@@ -873,8 +1401,10 @@ def main():
     print("kernels vs plain versions:", flush=True)
     fl = check_prefill(fa, gen, report)
     de = check_decode(da, gen, report)
+    di = check_decode_int8(da, gen, report)
+    qrows = check_quant_matmul(qm, gen, report)
     n_params = GPTNeoXConfig(**NEOX_125M).num_params()
-    ft, fb, adm = check_train_kernels(fa, ad, gen, report, n_params)
+    ft, fb, adm, fbs = check_train_kernels(fa, ad, gen, report, n_params)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -898,6 +1428,24 @@ def main():
     print("training parity GPT-NeoX-125M (fp32, kernels vs plain):",
           flush=True)
     train_parity(report)
+    print("serving-quant GPT-NeoX-125M (bf16 / int8 weights / int8 weights "
+          "+ int8 KV):", flush=True)
+    sq = serve_quant(fa, da, qm, report)
+    for tag, r in sq["rungs"].items():
+        print(f"  {tag}: decode {r['decode_tok_s']:.1f} tokens/s, stream "
+              f"{r['stream_tok_s']:.1f} tokens/s, inter-token p50 "
+              f"{r['inter_token_p50_ms']:.2f} ms, {r['prefill_calls']} "
+              f"prefill calls, {r['decode_steps']} decode steps, launches "
+              f"{r['launches']}, dtypes {r['dtypes']} on {card}", flush=True)
+    kc = sq["kv_capacity"]
+    print(f"  int8 KV capacity: {kc['bytes_per_token_bf16']} vs "
+          f"{kc['bytes_per_token_int8']} bytes a token, "
+          f"{kc['sessions_bf16']} vs {kc['sessions_int8']} sessions of "
+          f"{kc['session_tokens']} tokens in {kc['pool_mb']} MB "
+          f"(x{kc['capacity_ratio']:.3f})", flush=True)
+    print("int8 parity GPT-NeoX-125M (fp32, int8 weights + int8 KV, kernels "
+          "vs plain):", flush=True)
+    parity_int8(da, qm, report)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -932,7 +1480,7 @@ def main():
          "plain_ms": de["plain_ms"], "bound_ms": de["bound_ms"],
          "bound_by": de["bound_by"], "library_ms": de["library_ms"],
          "shape": "B=16 H=12 D=64 ps=64 NP=16 P=513 bf16",
-         "tolerance": de["tol"]},
+         "tolerance": de["tol"], **graph_times(de)},
         {"name": "flash_bwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{pallas}flash_attention.py:736, :763 "
@@ -948,7 +1496,12 @@ def main():
          "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
          "library_ms": fb["library_ms"],
          "shape": train_shape + " (dkv + dq kernels)",
-         "tolerance": fb["tol"]},
+         "tolerance": fb["tol"],
+         "segments_shape": {k: fbs[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "max_abs_err_dq", "max_abs_err_dk", "max_abs_err_dv")} | {
+             "shape": "B=4 S=1024 H=12 D=64 bf16, ragged segments "
+                      "(SDPA with the bool mask as library)"}},
         {"name": "adam", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/adam.cu",
          "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
@@ -958,6 +1511,36 @@ def main():
          "bound_by": adm["bound_by"], "library_ms": adm["library_ms"],
          "shape": f"n={n_params} fp32 p/m/v, bf16 g, bf16 copy",
          "tolerance": adm["tol"]},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": f"{pallas}quant_matmul.py:152 (_wq_kernel)",
+         "launches": sum(r["launches"]["quant_matmul"]
+                         for r in sq["rungs"].values()),
+         "launches_by_rung": {t: r["launches"]["quant_matmul"]
+                              for t, r in sq["rungs"].items()},
+         "max_abs_err": qrows[0]["max_abs_err"], "ms": qrows[0]["ms"],
+         "plain_ms": qrows[0]["plain_ms"], "bound_ms": qrows[0]["bound_ms"],
+         "bound_by": qrows[0]["bound_by"],
+         "library_ms": qrows[0]["library_ms"],
+         "shape": "M=16 K=768 N=3072 bf16 (decode rows, mlp-in weight)",
+         "tolerance": f"{TOL_QMM[torch.bfloat16]} x max|ref|",
+         **graph_times(qrows[0]),
+         "other_shapes": [{k: r[k] for k in (
+             "M", "K", "N", "ms", "plain_ms", "library_ms", "bound_ms",
+             "bound_by", "max_abs_err")} | graph_times(r)
+             for r in qrows[1:]]},
+        {"name": "paged_decode_int8", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
+         "replaces": f"{pallas}decode_attention.py:152 "
+                     f"(_decode_kernel_quant)",
+         "launches": sq["rungs"]["int8w_int8kv"]["launches"][
+             "paged_decode_int8"],
+         "max_abs_err": di["max_abs_err"], "ms": di["ms"],
+         "plain_ms": di["plain_ms"], "bound_ms": di["bound_ms"],
+         "bound_by": di["bound_by"], "library_ms": di["library_ms"],
+         "shape": "B=16 H=12 D=64 ps=64 NP=16 P=513 int8 pools, bf16 "
+                  "scales, bf16 q",
+         "tolerance": di["tol"], **graph_times(di)},
     ]
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels

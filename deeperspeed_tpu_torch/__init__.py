@@ -3,13 +3,15 @@ NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
 reference it is tested against. It serves GPT-NeoX (the continuous-
-batching `InferenceEngine` over a paged KV cache) and trains it on one
-card: `initialize()` returns a `DeepSpeedEngine` whose `train_batch` runs
-bf16 (or fp32) compute with fp32 masters, Adam(W), the LR schedules,
-gradient clipping and ZeRO stages 0-2. Hand-written CUDA kernels
-(`ops/hopper`, sources in `csrc`) carry the flash attention forward and
-backward, the paged decode and the flat Adam step. The port never
-imports JAX or `deeperspeed_tpu`.
+batching `InferenceEngine` over a paged KV cache, with int8 block
+weights and int8 KV pages as options) and trains it on one card:
+`initialize()` returns a `DeepSpeedEngine` whose `train_batch` runs bf16
+(or fp32) compute with fp32 masters, Adam(W), the LR schedules, gradient
+clipping and ZeRO stages 0-2. Hand-written CUDA kernels (`ops/hopper`,
+sources in `csrc`) carry the flash attention forward and backward, the
+paged decode over bf16/fp32 and int8 pages, the weight-only int8 matmul
+and the flat Adam step. The port never imports JAX or
+`deeperspeed_tpu`.
 """
 
 from .inference import InferenceEngine

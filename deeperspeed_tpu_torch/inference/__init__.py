@@ -1,9 +1,11 @@
 """Serving subsystem of the port: continuous batching over a paged KV
-cache, with the hand-written flash-prefill and paged-decode kernels.
+cache, with the hand-written flash-prefill, paged-decode (bf16/fp32 and
+int8 pages) and weight-only int8 matmul kernels.
 
 - `InferenceEngine` — the serving loop: bucketed prefill/decode split.
 - `PagedKVCache` — the preallocated page pool + its host-side
-  refcounting allocator.
+  refcounting allocator; `QuantizedPages` / `quantize_kv` — the int8
+  pools of ``kv_cache_dtype: "int8"``.
 - `ContinuousBatchingScheduler` / `Request` — per-step admission and
   eviction under a token + page budget (copied from the JAX package).
 """
@@ -11,10 +13,12 @@ cache, with the hand-written flash-prefill and paged-decode kernels.
 from .admission import (DeadlineExceeded, PRIORITIES, RequestFailed,
                         REQUEST_STATUSES)
 from .engine import InferenceEngine
-from .kv_cache import PagedKVCache, pages_for_tokens
+from .kv_cache import (PagedKVCache, QuantizedPages, pages_for_tokens,
+                       quantize_kv)
 from .scheduler import ContinuousBatchingScheduler, Request, StepPlan
 
-__all__ = ["InferenceEngine", "PagedKVCache", "pages_for_tokens",
+__all__ = ["InferenceEngine", "PagedKVCache", "QuantizedPages",
+           "quantize_kv", "pages_for_tokens",
            "ContinuousBatchingScheduler", "Request", "StepPlan",
            "DeadlineExceeded", "RequestFailed", "PRIORITIES",
            "REQUEST_STATUSES"]

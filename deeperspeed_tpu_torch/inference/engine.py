@@ -2,9 +2,10 @@
 
 The port of `InferenceEngine` in `deeperspeed_tpu/inference/engine.py`,
 for the GPT-NeoX family on one device. It is driven by the same
-``"inference"`` config block (`runtime.config.parse_inference_block`),
-casts weights with `module_inject.prepare_inference_params`, and runs
-the model's own block functions (`gpt_neox._block_qkv` /
+``"inference"`` config block (`runtime.config.parse_inference_block`)
+and the ``weights`` choice of the ``"quantization"`` block, casts (or
+int8-quantizes) weights with `module_inject.prepare_inference_params`,
+and runs the model's own block functions (`gpt_neox._block_qkv` /
 `_block_post_attn`), so decode cannot drift from the full forward.
 
 Execution model:
@@ -20,16 +21,23 @@ Execution model:
   compile here.
 - **State.** The page pools are updated in place; weights and the
   rotary cache are read-only.
+- **int8 serving.** ``quantization.weights: "int8"`` rests the block
+  matmul weights as int8 with per-channel scales; every block matmul
+  goes through the weight-only int8 kernel (`gpt_neox._wmat`).
+  ``inference.kv_cache_dtype: "int8"`` makes the pools `QuantizedPages`:
+  K/V quantize per (head, slot) as they are written, prefill attention
+  still runs on the fresh K/V, and decode runs the int8 paged-decode
+  kernel. ``inference.kernel`` switches both kernels with the decode
+  kernel: ``"xla"`` takes every plain version.
 
 Sampling is deterministic: temperature 0 (default) is argmax;
 temperature > 0 draws from the softmax with the engine's own
 `torch.Generator`, seeded from the config seed.
 
 Not ported yet (each raises at construction, and ROADMAP.md lists it):
-int8 KV pages, quantized weights, the prefix cache, speculative
-decoding, disaggregated roles and the router, admission control, serving
-fault injection, the hang watchdog, telemetry spans, a model-parallel
-mesh and the GPT-2 family. A prefill or decode exception propagates:
+the prefix cache, speculative decoding, disaggregated roles and the
+router, admission control, serving fault injection, the hang watchdog,
+telemetry spans, a model-parallel mesh and the GPT-2 family. A prefill or decode exception propagates:
 the quarantine/retry layer comes with the robustness slice.
 """
 
@@ -41,13 +49,14 @@ import torch
 from ..models import gpt_neox as neox
 from ..module_inject.replace_module import prepare_inference_params
 from ..ops.hopper.decode_attention import paged_decode_attention
-from ..runtime import constants as c
-from ..runtime.config import parse_inference_block
+from ..runtime.config import (parse_inference_block,
+                              parse_quantization_block)
 from ..runtime.config_utils import DeepSpeedConfigError, load_config_json
 from ..runtime.precision import resolve_kv_cache_dtype
 from ..utils.device import resolve_device
 from .admission import validate_priority
-from .kv_cache import PagedKVCache, pages_for_tokens
+from .kv_cache import (PagedKVCache, QuantizedPages, pages_for_tokens,
+                       quantize_kv)
 from .metrics import ServeRequestMetrics
 from .scheduler import RUNNING, ContinuousBatchingScheduler, Request
 
@@ -132,6 +141,7 @@ class InferenceEngine:
                 "block")
         d = config if isinstance(config, dict) else load_config_json(config)
         self.inference_params = parse_inference_block(d)
+        quantization = parse_quantization_block(d) or None
         if not self.inference_params:
             raise DeepSpeedConfigError(
                 "the 'inference' config block is required (with "
@@ -189,8 +199,14 @@ class InferenceEngine:
         kv_dtype = ip["kv_cache_dtype"]
         self.kv_cache_dtype = (resolve_kv_cache_dtype(kv_dtype)
                                if kv_dtype else self.compute_dtype)
+        self.kv_quant = self.kv_cache_dtype == torch.int8
+        # int8 block matmul weights at rest (the "quantization" block's
+        # weights choice); inference.kernel reaches their matmuls as the
+        # backend `_prefill` / `_decode` hand to the block functions
+        self.weight_quant = (quantization or {}).get("weights")
         self.params = neox.unflatten(prepare_inference_params(
-            params, self.compute_dtype, device=self.device))
+            params, self.compute_dtype, weight_quant=self.weight_quant,
+            device=self.device))
 
         # -- cache / scheduler ---------------------------------------------
         self.family = _Family(model, self.max_seq_len, self.device)
@@ -208,9 +224,10 @@ class InferenceEngine:
             decode_batch_sizes=self.decode_batch_sizes)
         self.n_pages_max = pages_for_tokens(self.max_seq_len,
                                             self.page_size)
-        self.dtypes = {"weight": str(self.compute_dtype),
+        self.dtypes = {"weight": self.weight_quant or str(self.compute_dtype),
                        "compute": str(self.compute_dtype),
-                       "kv_cache": str(self.kv_cache_dtype)}
+                       "kv_cache": ("int8" if self.kv_quant
+                                    else str(self.kv_cache_dtype))}
         self.default_priority = ip["default_priority"]
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
@@ -228,12 +245,6 @@ class InferenceEngine:
     def _reject_unported(d, ip):
         """Every serving feature this slice does not carry raises here,
         before anything is allocated."""
-        if ip["kv_cache_dtype"] == "int8":
-            raise _not_ported("inference.kv_cache_dtype \"int8\"",
-                              "serving-quant")
-        quant = d.get(c.QUANTIZATION) or {}
-        if quant.get(c.QUANTIZATION_WEIGHTS) is not None:
-            raise _not_ported("quantization.weights", "serving-quant")
         checks = (
             (ip["prefix_cache"] is not None, "inference.prefix_cache",
              "serving"),
@@ -268,8 +279,15 @@ class InferenceEngine:
         return torch.multinomial(probs, 1, generator=self._generator)[:, 0]
 
     def _attention(self, q, k_pages, v_pages, page_table, lengths):
+        """Paged decode attention; int8 pools arrive as `QuantizedPages`
+        and hand their scale pools to the int8 kernel."""
+        scales = {}
+        if isinstance(k_pages, QuantizedPages):
+            scales = {"k_scales": k_pages.scale, "v_scales": v_pages.scale}
+            k_pages, v_pages = k_pages.data, v_pages.data
         return paged_decode_attention(q, k_pages, v_pages, page_table,
-                                      lengths, backend=self._attn_backend)
+                                      lengths, backend=self._attn_backend,
+                                      **scales)
 
     @torch.no_grad()
     def _prefill(self, tokens, lengths, page_table):
@@ -289,12 +307,15 @@ class InferenceEngine:
         seg = (pos < lengths[:, None]).to(torch.int32)
         flat_pt = page_table.reshape(-1).long()
         x = fam.embed(params, tokens)
+        backend = self._attn_backend
         for layer, bp in enumerate(params["blocks"]):
-            q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H)
+            q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H,
+                                      backend=backend)
             attn = neox.causal_attention(
                 q, k, v, use_kernels=self.model.use_kernels,
                 segment_ids=seg)
-            x = neox._block_post_attn(cfg, bp, x, attn.reshape(B, S, H * D))
+            x = neox._block_post_attn(cfg, bp, x, attn.reshape(B, S, H * D),
+                                      backend=backend)
             # whole-page scatter: [B, S, H, D] → B·S/ps page tiles at the
             # page-table ids (pad rows hold table id 0, the trash page,
             # so duplicates only ever collide there)
@@ -303,7 +324,14 @@ class InferenceEngine:
                 tiles = new.reshape(B, n_pages_row, ps, H, D)
                 tiles = tiles.transpose(2, 3).reshape(B * n_pages_row, H,
                                                       ps, D)
-                pool[flat_pt] = tiles.to(pool.dtype)
+                if isinstance(pool, QuantizedPages):
+                    # int8 pages: quantize each (head, slot) vector and
+                    # scatter data and scale through the same page ids
+                    q8, sc = quantize_kv(tiles)
+                    pool.data[flat_pt] = q8
+                    pool.scale[flat_pt] = sc.to(pool.scale.dtype)
+                else:
+                    pool[flat_pt] = tiles.to(pool.dtype)
         idx = (lengths.long() - 1).clamp(0, S - 1)
         h_last = x[torch.arange(B, device=self.device), idx]
         h_last = neox.layer_norm(h_last, params["final_ln"]["scale"],
@@ -326,16 +354,27 @@ class InferenceEngine:
         cos, sin, rot_dim = fam.cos_sin_decode(pos)
         page_idx = page_table.gather(1, (pos // ps)[:, None])[:, 0].long()
         slot = pos % ps
+        backend = self._attn_backend
         for layer, bp in enumerate(params["blocks"]):
-            q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H)
+            q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H,
+                                      backend=backend)
             k_pool, v_pool = self.cache.k[layer], self.cache.v[layer]
-            # one decoded token's K and V row into its page slot
-            k_pool[page_idx, :, slot] = k[:, 0].to(k_pool.dtype)
-            v_pool[page_idx, :, slot] = v[:, 0].to(v_pool.dtype)
-            attn = self._attention(q[:, 0].to(k_pool.dtype), k_pool, v_pool,
-                                   page_table, lengths)
+            # one decoded token's K and V row into its page slot; int8
+            # pools quantize per head vector and land the scale in the
+            # page-aligned scale pool
+            for pool, vec in ((k_pool, k[:, 0]), (v_pool, v[:, 0])):
+                if isinstance(pool, QuantizedPages):
+                    q8, sc = quantize_kv(vec)
+                    pool.data[page_idx, :, slot] = q8
+                    pool.scale[page_idx, :, slot] = sc.to(pool.scale.dtype)
+                else:
+                    pool[page_idx, :, slot] = vec.to(pool.dtype)
+            # the int8 kernel reads q in the compute dtype
+            qrow = q[:, 0] if self.kv_quant else q[:, 0].to(k_pool.dtype)
+            attn = self._attention(qrow, k_pool, v_pool, page_table, lengths)
             x = neox._block_post_attn(cfg, bp, x,
-                                      attn.to(x.dtype).reshape(B, 1, H * D))
+                                      attn.to(x.dtype).reshape(B, 1, H * D),
+                                      backend=backend)
         h = neox.layer_norm(x[:, 0], params["final_ln"]["scale"],
                             params["final_ln"]["bias"], cfg.layernorm_eps)
         return self._sample(fam.head(params, h))

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.hopper.quant_matmul import QuantizedWeight, quant_matmul
 from ..utils.device import resolve_device
 
 
@@ -176,13 +177,26 @@ def causal_attention(q, k, v, use_kernels=True, segment_ids=None):
     return flash_attention_segmented_reference(q, k, v, segment_ids)[0]
 
 
-def _block_qkv(cfg, params, x, cos, sin, rot_dim, nh_local):
+def _wmat(x, w, backend=None):
+    """``x @ w`` for a plain weight or a serving-time `QuantizedWeight`
+    (int8 at rest + per-output-channel scales): the one dispatch point of
+    the four block matmuls, in prefill and in decode (`gpt_neox._wmat`).
+    Training params are never quantized, so training keeps the plain
+    matmul. ``backend`` is the serving engine's ``inference.kernel``,
+    handed down through `_block_qkv` / `_block_post_attn`: "xla" takes
+    the int8 matmul's plain version."""
+    if isinstance(w, QuantizedWeight):
+        return quant_matmul(x, w, backend=backend)
+    return x @ w.to(x.dtype)
+
+
+def _block_qkv(cfg, params, x, cos, sin, rot_dim, nh_local, backend=None):
     """ln1 + QKV projection + rotary; shared by the forward and decode.
     The QKV columns are per-head interleaved [q_h | k_h | v_h]."""
     B, S, _ = x.shape
     ln1 = layer_norm(x, params["ln_attn"]["scale"], params["ln_attn"]["bias"],
                      cfg.layernorm_eps)
-    qkv = ln1 @ params["attn"]["qkv_w"].to(x.dtype) + \
+    qkv = _wmat(ln1, params["attn"]["qkv_w"], backend) + \
         params["attn"]["qkv_b"].to(x.dtype)
     qkv = qkv.reshape(B, S, nh_local, 3 * cfg.head_dim)
     q, k, v = qkv.split(cfg.head_dim, dim=-1)
@@ -190,11 +204,11 @@ def _block_qkv(cfg, params, x, cos, sin, rot_dim, nh_local):
     return q, k, v
 
 
-def _block_post_attn(cfg, params, x, attn_flat):
+def _block_post_attn(cfg, params, x, attn_flat, backend=None):
     """Everything after the attention core: out projection, residuals,
     ln2, dense MLP. `attn_flat` is the [B, S, h] attention output."""
     out_b = params["attn"]["out_b"].to(x.dtype)
-    attn_partial = attn_flat @ params["attn"]["out_w"].to(x.dtype)
+    attn_partial = _wmat(attn_flat, params["attn"]["out_w"], backend)
     if cfg.use_parallel_residual:
         ln2_in = x
     else:
@@ -202,10 +216,10 @@ def _block_post_attn(cfg, params, x, attn_flat):
     ln2 = layer_norm(ln2_in, params["ln_mlp"]["scale"],
                      params["ln_mlp"]["bias"], cfg.layernorm_eps)
     mlp_b = params["mlp"]["out_b"].to(x.dtype)
-    hmid = ln2 @ params["mlp"]["in_w"].to(x.dtype) + \
+    hmid = _wmat(ln2, params["mlp"]["in_w"], backend) + \
         params["mlp"]["in_b"].to(x.dtype)
     hmid = F.gelu(hmid, approximate="tanh")        # jax.nn.gelu's default
-    mlp_partial = hmid @ params["mlp"]["out_w"].to(x.dtype)
+    mlp_partial = _wmat(hmid, params["mlp"]["out_w"], backend)
     if cfg.use_parallel_residual:
         return x + (attn_partial + mlp_partial) + out_b + mlp_b
     return ln2_in + mlp_partial + mlp_b

@@ -48,6 +48,15 @@ SIGNATURES = {
     # page_size, pages per row, sm_scale, dtype, stream
     "ds_paged_decode": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _L, _P, _P,
                         _I, _I, _I, _I, _I, _F, _I, _P],
+    # the same over int8 pools, with k_scales, v_scales and their strides
+    # (page, head) after the pool strides; dtype is q's
+    "ds_paged_decode_int8": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _P, _L,
+                             _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _I, _P],
+    # x, its row stride, q (int8 [K, N]), scale (fp32 [N]), y, split-K
+    # workspace (or null), M, N, K, k rows a split, dtype of x and y,
+    # stream
+    "ds_quant_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, dout, lse, delta, seg, dk, dv, B, S, H, D, q/k/v strides
     # (b, s, h), sm_scale, dtype, stream
     "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -1,0 +1,156 @@
+"""Weight-only int8 matmul: the CUDA kernel and its plain version.
+
+Replaces `_wq_kernel` of `deeperspeed_tpu/ops/pallas/quant_matmul.py`
+(launched by `quant_matmul_pallas`). The kernel is
+`csrc/quant_matmul.cu`; its header says what bounds it on the H100 and
+what the design does about that.
+
+Serving stores the block matmul weights as int8 with one fp32 scale per
+output channel (`QuantizedWeight`, made by `quantize_weight` at load):
+``y[m, n] = sum_k x[m, k] · qval[k, n] · scale[n]``, accumulated in
+fp32, written in ``x.dtype``. The per-channel scale commutes with the
+contraction, so it is applied once to the fp32 sum.
+
+``backend`` is ``inference.kernel``, handed down by the serving engine
+through the model's block functions: None/"auto" and "pallas" launch
+the kernel on CUDA tensors and take the plain version on CPU tensors;
+"xla" always takes the plain version. The delayed-scaling
+training helpers of the JAX module (`scaled_matmul`,
+`ffn_scaled_matmuls`) are not ported yet.
+"""
+
+import torch
+
+from . import _build
+
+INT8_QMAX = 127.0
+
+# split-K of the kernel's tensor-core path: blocks of 64 output columns
+# by 16 (M <= 16) or 64 rows, K in tiles of 32; below about two blocks an
+# SM the K range splits so that enough weight bytes are in flight, each
+# split at least 4 K tiles long
+MMA_BN, MMA_BK, MMA_MIN_TILES = 64, 32, 4
+TARGET_BLOCKS = 264
+
+# kernel launches since the last reset (`chip_smoke.py` reads this)
+launches = 0
+
+
+class QuantizedWeight:
+    """Int8 weight at rest + per-output-channel fp32 scales:
+    ``dequant = qval.float() * scale[None, :]``. The model's `_wmat`
+    dispatches on it."""
+
+    __slots__ = ("qval", "scale")
+
+    def __init__(self, qval, scale):
+        self.qval = qval
+        self.scale = scale
+
+    def dequant(self, dtype=torch.float32):
+        return (self.qval.float() * self.scale[..., None, :]).to(dtype)
+
+
+def quantize_weight(w, qmax=INT8_QMAX):
+    """[K, N] (or [..., K, N]) float weight → `QuantizedWeight` with
+    per-output-channel symmetric scales over the contraction dim:
+    ``scale[n] = max_k |w[k, n]| / 127`` in fp32, 1 for a zero column;
+    the values round half to even, as `jnp.round` does, so the int8
+    values and scales are bit-equal to the JAX package's."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-2)
+    scale = torch.where(amax > 0, amax / qmax, 1.0)
+    q = torch.clamp(torch.round(w32 / scale[..., None, :]), -qmax, qmax)
+    return QuantizedWeight(q.to(torch.int8), scale)
+
+
+def quant_matmul_reference(x, qw):
+    """Plain PyTorch version (`quant_matmul_xla`): widen the int8 weight,
+    contract in fp32, scale the fp32 sum, cast to ``x.dtype``."""
+    y = torch.matmul(x.float(), qw.qval.float())
+    return (y * qw.scale).to(x.dtype)
+
+
+def split_k_rows(M, N, K):
+    """K rows each block of the tensor-core path takes (a multiple of 32;
+    K or more means no split)."""
+    tiles = -(-N // MMA_BN) * -(-M // (16 if M <= 16 else 64))
+    k_tiles = -(-K // MMA_BK)
+    splits = -(-TARGET_BLOCKS // tiles)
+    return max(MMA_MIN_TILES, -(-k_tiles // splits)) * MMA_BK
+
+
+def quant_matmul_cuda(x, qw):
+    """Launch `csrc/quant_matmul.cu` on CUDA tensors: x [M, K] (rows
+    through a row stride, K contiguous) → [M, N] in ``x.dtype``. fp32 x
+    takes the FMA kernel; bf16 x takes the tensor-core kernel, which
+    reads 16-byte chunks and so needs K % 8 == 0, N % 16 == 0, a row
+    stride that is a multiple of 8 and 16-byte aligned x and weight
+    (every GPT-NeoX block matmul meets them); anything else raises."""
+    global launches
+    M, K = x.shape
+    N = qw.qval.shape[1]
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"quant matmul kernel takes float32 or bfloat16 "
+                        f"x, got {x.dtype}")
+    q, s = qw.qval, qw.scale
+    if q.dtype != torch.int8 or s.dtype != torch.float32:
+        raise TypeError(f"quant matmul kernel takes an int8 weight and "
+                        f"float32 scales, got {q.dtype}, {s.dtype}")
+    if q.device != x.device or s.device != x.device:
+        raise ValueError(f"weight on {q.device}/{s.device}, x on "
+                         f"{x.device}")
+    if not (q.is_contiguous() and s.is_contiguous()):
+        raise ValueError("quant matmul kernel needs a contiguous int8 "
+                         "weight and scale vector")
+    if K > 1 and x.stride(1) != 1:
+        raise ValueError(f"quant matmul kernel needs x's contraction dim "
+                         f"contiguous, got strides {tuple(x.stride())}")
+    ldx = x.stride(0) if M > 1 else K
+    if x.dtype == torch.bfloat16 and not (
+            K > 0 and K % 8 == 0 and N % 16 == 0 and ldx % 8 == 0
+            and x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"the bf16 quant matmul kernel reads 16-byte chunks: it needs "
+            f"K % 8 == 0 (K={K}), N % 16 == 0 (N={N}), a row stride that "
+            f"is a multiple of 8 (got {ldx}) and 16-byte aligned x and "
+            f"weight")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    k_split = split_k_rows(M, N, K)
+    ws = None
+    if x.dtype == torch.bfloat16 and k_split < K:
+        ws = torch.empty(-(-K // k_split) * M * N, dtype=torch.float32,
+                         device=x.device)
+    lib = _build.load_library()
+    err = lib.ds_quant_matmul(
+        x.data_ptr(), ldx, q.data_ptr(),
+        s.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        M, N, K, k_split, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "ds_quant_matmul")
+    launches += 1
+    return out
+
+
+def quant_matmul(x, qw, backend=None):
+    """``y[m, n] = sum_k x[m, k] · qval[k, n] · scale[n]``: weight-only
+    int8 matmul, fp32 accumulate, output in ``x.dtype``. Leading dims of
+    ``x`` are flattened and restored."""
+    if x.dim() != 2:
+        lead = x.shape[:-1]
+        y = quant_matmul(x.reshape(-1, x.shape[-1]), qw, backend=backend)
+        return y.reshape(*lead, y.shape[-1])
+    M, K = x.shape
+    Kw, N = qw.qval.shape
+    if K != Kw:
+        raise ValueError(f"x contraction dim {K} != weight rows {Kw}")
+    if tuple(qw.scale.shape) != (N,):
+        raise ValueError(f"scale shape {tuple(qw.scale.shape)} != ({N},)")
+    if backend not in (None, "auto", "pallas", "xla"):
+        raise ValueError(f"unknown quant_matmul backend {backend!r}")
+    if backend == "xla" or x.device.type == "cpu":
+        return quant_matmul_reference(x, qw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no quant matmul path for device {x.device}")
+    return quant_matmul_cuda(x, qw)

@@ -1,5 +1,5 @@
-"""DeepSpeed JSON configs: the training `DeepSpeedConfig` and the
-"inference" block.
+"""DeepSpeed JSON configs: the training `DeepSpeedConfig`, the
+"inference" block and the "quantization" block the serving engine reads.
 
 The port's counterpart of `deeperspeed_tpu/runtime/config.py`: the same
 keys, defaults and `DeepSpeedConfigError` messages for what it parses,
@@ -343,6 +343,15 @@ def parse_inference_block(d):
                 f"{sorted(c.INFERENCE_KV_DTYPE_CHOICES)}, got "
                 f"{kv_dtype!r}")
         kv_dtype = kv_dtype.lower()
+        if kv_dtype == "int8" and kernel == "pallas" and \
+                ints[c.INFERENCE_PAGE_SIZE] % 32:
+            # the JAX package's schema error (its int8 TPU kernel needs
+            # the int8 sublane tile); the CUDA kernel has no such rule,
+            # but a config must fail the same way in both packages
+            raise DeepSpeedConfigError(
+                f"inference.kernel \"pallas\" with kv_cache_dtype "
+                f"\"int8\" needs page_size % 32 == 0 (the int8 sublane "
+                f"tile), got {ints[c.INFERENCE_PAGE_SIZE]}")
 
     drain_deadline = inf.get(c.INFERENCE_DRAIN_DEADLINE,
                              c.INFERENCE_DRAIN_DEADLINE_DEFAULT)
@@ -741,3 +750,122 @@ def _parse_inference_router(block):
             f"number in (0, 1], got {util!r}")
     out[c.INFERENCE_ROUTER_SCALE_UP_UTIL] = float(util)
     return out
+
+
+def parse_quantization_block(d):
+    """Parse + validate the "quantization" block with the JAX package's
+    keys and errors. The serving engine consumes ``weights``; the
+    ``ffn`` and ``gradient_compression`` choices are validated here but
+    run by no path of the port yet (the training `DeepSpeedConfig`
+    refuses the block).
+
+    Returns {"weights": str|None, "ffn": dict|None,
+    "gradient_compression": bool, "gradient_compression_packed": bool}
+    or False when absent/disabled."""
+    qz = d.get(c.QUANTIZATION)
+    if qz is None:
+        return False
+    if not isinstance(qz, dict):
+        raise DeepSpeedConfigError(
+            f"'{c.QUANTIZATION}' must be an object, got "
+            f"{type(qz).__name__}")
+    known = {c.QUANTIZATION_ENABLED, c.QUANTIZATION_WEIGHTS,
+             c.QUANTIZATION_FFN, c.QUANTIZATION_GRAD_COMPRESSION}
+    unknown = sorted(set(qz) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown '{c.QUANTIZATION}' key(s) {unknown}; valid keys: "
+            f"{sorted(known)}")
+    enabled = qz.get(c.QUANTIZATION_ENABLED,
+                     c.QUANTIZATION_ENABLED_DEFAULT)
+    if not isinstance(enabled, bool):
+        raise DeepSpeedConfigError(
+            f"{c.QUANTIZATION}.{c.QUANTIZATION_ENABLED} must be a "
+            f"boolean, got {enabled!r}")
+    if not enabled:
+        return False
+
+    weights = qz.get(c.QUANTIZATION_WEIGHTS,
+                     c.QUANTIZATION_WEIGHTS_DEFAULT)
+    if weights is not None and \
+            weights not in c.QUANTIZATION_WEIGHTS_CHOICES:
+        raise DeepSpeedConfigError(
+            f"{c.QUANTIZATION}.{c.QUANTIZATION_WEIGHTS} must be null or "
+            f"one of {list(c.QUANTIZATION_WEIGHTS_CHOICES)}, got "
+            f"{weights!r}")
+
+    ffn = qz.get(c.QUANTIZATION_FFN)
+    if ffn is not None:
+        if not isinstance(ffn, dict):
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_FFN} must be an "
+                f"object, got {type(ffn).__name__}")
+        fknown = {c.QUANTIZATION_FFN_RECIPE, c.QUANTIZATION_FFN_HISTORY,
+                  c.QUANTIZATION_FFN_MARGIN}
+        funknown = sorted(set(ffn) - fknown)
+        if funknown:
+            raise DeepSpeedConfigError(
+                f"Unknown '{c.QUANTIZATION}.{c.QUANTIZATION_FFN}' "
+                f"key(s) {funknown}; valid keys: {sorted(fknown)}")
+        recipe = ffn.get(c.QUANTIZATION_FFN_RECIPE)
+        if recipe not in c.QUANTIZATION_FFN_RECIPE_CHOICES:
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_FFN}."
+                f"{c.QUANTIZATION_FFN_RECIPE} is required and must be "
+                f"one of {list(c.QUANTIZATION_FFN_RECIPE_CHOICES)}, got "
+                f"{recipe!r}")
+        hist = as_int(ffn.get(c.QUANTIZATION_FFN_HISTORY,
+                              c.QUANTIZATION_FFN_HISTORY_DEFAULT),
+                      f"{c.QUANTIZATION}.{c.QUANTIZATION_FFN}."
+                      f"{c.QUANTIZATION_FFN_HISTORY}")
+        if hist < 1:
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_FFN}."
+                f"{c.QUANTIZATION_FFN_HISTORY} must be >= 1, got {hist}")
+        margin = ffn.get(c.QUANTIZATION_FFN_MARGIN,
+                         c.QUANTIZATION_FFN_MARGIN_DEFAULT)
+        if not isinstance(margin, (int, float)) or \
+                isinstance(margin, bool) or margin <= 0:
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_FFN}."
+                f"{c.QUANTIZATION_FFN_MARGIN} must be a number > 0, got "
+                f"{margin!r}")
+        ffn = {"recipe": recipe, "amax_history_len": hist,
+               "margin": float(margin)}
+
+    gc = qz.get(c.QUANTIZATION_GRAD_COMPRESSION)
+    grad_compression = False
+    grad_compression_packed = False
+    if gc is not None:
+        if not isinstance(gc, dict):
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_GRAD_COMPRESSION} "
+                f"must be an object, got {type(gc).__name__}")
+        gknown = {c.QUANTIZATION_GRAD_COMPRESSION_ENABLED,
+                  c.QUANTIZATION_GRAD_COMPRESSION_PACKED}
+        gunknown = sorted(set(gc) - gknown)
+        if gunknown:
+            raise DeepSpeedConfigError(
+                f"Unknown '{c.QUANTIZATION}."
+                f"{c.QUANTIZATION_GRAD_COMPRESSION}' key(s) {gunknown}; "
+                f"valid keys: {sorted(gknown)}")
+        grad_compression = gc.get(
+            c.QUANTIZATION_GRAD_COMPRESSION_ENABLED,
+            c.QUANTIZATION_GRAD_COMPRESSION_ENABLED_DEFAULT)
+        if not isinstance(grad_compression, bool):
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_GRAD_COMPRESSION}."
+                f"{c.QUANTIZATION_GRAD_COMPRESSION_ENABLED} must be a "
+                f"boolean, got {grad_compression!r}")
+        packed = gc.get(c.QUANTIZATION_GRAD_COMPRESSION_PACKED,
+                        c.QUANTIZATION_GRAD_COMPRESSION_PACKED_DEFAULT)
+        if not isinstance(packed, bool):
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_GRAD_COMPRESSION}."
+                f"{c.QUANTIZATION_GRAD_COMPRESSION_PACKED} must be a "
+                f"boolean, got {packed!r}")
+        grad_compression_packed = grad_compression and packed
+
+    return {"weights": weights, "ffn": ffn,
+            "gradient_compression": grad_compression,
+            "gradient_compression_packed": grad_compression_packed}

@@ -261,8 +261,27 @@ INFERENCE_ROUTER_TTFT_WEIGHT_DEFAULT = 0.01
 INFERENCE_ROUTER_SCALE_UP_UTIL = "scale_up_util"
 INFERENCE_ROUTER_SCALE_UP_UTIL_DEFAULT = 0.85
 
-# "quantization" block: only the serving weights choice is read here
+# "quantization" block (`config.parse_quantization_block`): the serving
+# engine reads only ``weights``; the training ``DeepSpeedConfig`` still
+# refuses the block (the ``ffn`` and ``gradient_compression`` paths wait)
 QUANTIZATION = "quantization"
+QUANTIZATION_ENABLED = "enabled"
+QUANTIZATION_ENABLED_DEFAULT = True
+# serving weight-only quantization (module_inject.prepare_inference_params)
 QUANTIZATION_WEIGHTS = "weights"
 QUANTIZATION_WEIGHTS_DEFAULT = None
 QUANTIZATION_WEIGHTS_CHOICES = ("int8",)
+# delayed-scaling quantized FFN (training; validated, not run)
+QUANTIZATION_FFN = "ffn"
+QUANTIZATION_FFN_RECIPE = "recipe"
+QUANTIZATION_FFN_RECIPE_CHOICES = ("int8", "fp8")
+QUANTIZATION_FFN_HISTORY = "amax_history_len"
+QUANTIZATION_FFN_HISTORY_DEFAULT = 16
+QUANTIZATION_FFN_MARGIN = "margin"
+QUANTIZATION_FFN_MARGIN_DEFAULT = 1.0
+# error-feedback compressed gradients (training; validated, not run)
+QUANTIZATION_GRAD_COMPRESSION = "gradient_compression"
+QUANTIZATION_GRAD_COMPRESSION_ENABLED = "enabled"
+QUANTIZATION_GRAD_COMPRESSION_ENABLED_DEFAULT = True
+QUANTIZATION_GRAD_COMPRESSION_PACKED = "packed_wire"
+QUANTIZATION_GRAD_COMPRESSION_PACKED_DEFAULT = False

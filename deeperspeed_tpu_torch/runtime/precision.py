@@ -28,8 +28,8 @@ def resolve_precision(type_str):
 
 def resolve_kv_cache_dtype(type_str):
     """Map an "inference.kv_cache_dtype" spelling to a torch POOL dtype:
-    the float spellings plus ``"int8"`` (quantized pages, which the
-    serving engine refuses until they are ported)."""
+    the float spellings plus ``"int8"`` (quantized pages with bf16
+    per-slot scales, `inference.kv_cache.QuantizedPages`)."""
     s = str(type_str).lower()
     if s not in INFERENCE_KV_DTYPE_CHOICES:
         raise DeepSpeedConfigError(

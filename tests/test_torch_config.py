@@ -7,11 +7,14 @@ import torch
 
 from deeperspeed_tpu.runtime.config import \
     parse_inference_block as jax_parse
+from deeperspeed_tpu.runtime.config import \
+    parse_quantization_block as jax_parse_quant
 from deeperspeed_tpu.runtime.config_utils import \
     DeepSpeedConfigError as JaxConfigError
 from deeperspeed_tpu.runtime.precision import \
     resolve_kv_cache_dtype as jax_resolve_kv
-from deeperspeed_tpu_torch.runtime.config import parse_inference_block
+from deeperspeed_tpu_torch.runtime.config import (parse_inference_block,
+                                                  parse_quantization_block)
 from deeperspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError
 from deeperspeed_tpu_torch.runtime.precision import resolve_kv_cache_dtype
 
@@ -38,6 +41,10 @@ VALID = [
     {"enabled": True, "admission": {"enabled": False},
      "prefix_cache": {"enabled": False},
      "speculative": {"enabled": False}},
+    {"enabled": True, "page_size": 32, "kernel": "pallas",
+     "kv_cache_dtype": "int8"},
+    {"enabled": True, "page_size": 16, "kernel": "xla",
+     "kv_cache_dtype": "INT8"},
 ]
 
 # the rejects of tests/test_inference.py::TestInferenceConfig, plus the
@@ -62,6 +69,8 @@ INVALID = [
                                       "num_draft_tokens": 0}},
     {"enabled": True, "disaggregation": {"role": "router"}},
     {"enabled": True, "router": {"scale_up_util": 0}},
+    {"enabled": True, "page_size": 16, "kernel": "pallas",
+     "kv_cache_dtype": "int8"},
 ]
 
 
@@ -100,3 +109,54 @@ def test_kv_dtype_names(spelling):
 def test_kv_dtype_rejects():
     with pytest.raises(DeepSpeedConfigError):
         resolve_kv_cache_dtype("int4")
+
+
+def test_int8_pallas_page_size_rejects_like_jax():
+    """The JAX schema error for a forced kernel with int8 pages whose
+    page_size is no multiple of 32, with the same message in both."""
+    block = {"enabled": True, "page_size": 48, "kernel": "pallas",
+             "kv_cache_dtype": "int8"}
+    with pytest.raises(JaxConfigError) as jerr:
+        jax_parse({"inference": block})
+    with pytest.raises(DeepSpeedConfigError) as terr:
+        parse_inference_block({"inference": block})
+    assert str(terr.value) == str(jerr.value)
+    assert "page_size % 32 == 0" in str(terr.value)
+    block["kernel"] = "auto"
+    assert parse_inference_block({"inference": block}) == \
+        jax_parse({"inference": block})
+
+
+QUANT_VALID = [
+    None, {}, {"enabled": False, "weights": "int8"}, {"weights": "int8"},
+    {"weights": None, "ffn": {"recipe": "fp8", "amax_history_len": 4,
+                              "margin": 2}},
+    {"gradient_compression": {"enabled": True, "packed_wire": True}},
+    {"gradient_compression": {"enabled": False, "packed_wire": True}},
+]
+QUANT_INVALID = [
+    "int8", {"enabled": "yes"}, {"weights": "int4"}, {"weigths": "int8"},
+    {"ffn": []}, {"ffn": {"recipe": "int4"}},
+    {"ffn": {"recipe": "int8", "amax_history_len": 0}},
+    {"ffn": {"recipe": "int8", "margin": 0}},
+    {"ffn": {"recipe": "int8", "window": 3}},
+    {"gradient_compression": True},
+    {"gradient_compression": {"enabled": 1}},
+    {"gradient_compression": {"packed_wire": "no"}},
+]
+
+
+@pytest.mark.parametrize("block", QUANT_VALID)
+def test_quantization_block_same_dict(block):
+    d = {} if block is None else {"quantization": block}
+    assert parse_quantization_block(d) == jax_parse_quant(d)
+
+
+@pytest.mark.parametrize("block", QUANT_INVALID)
+def test_quantization_block_same_rejects(block):
+    d = {"quantization": block}
+    with pytest.raises(JaxConfigError) as jerr:
+        jax_parse_quant(d)
+    with pytest.raises(DeepSpeedConfigError) as terr:
+        parse_quantization_block(d)
+    assert str(terr.value) == str(jerr.value)

@@ -1,6 +1,7 @@
 """The port stands alone: nothing in `deeperspeed_tpu_torch/` or
 `chip_smoke.py` imports JAX, jaxlib or the JAX package, and building a
-CPU engine leaves JAX out of `sys.modules`."""
+CPU serving engine (bf16/fp32 and int8) and a training engine leaves JAX
+out of `sys.modules`."""
 
 import ast
 import os
@@ -56,6 +57,11 @@ def test_engine_on_cpu_loads_no_jax():
         "'page_size': 16, 'num_pages': 16}}, device='cpu')\n"
         "out = e.generate([[1, 2, 3]], max_new_tokens=2)\n"
         "assert len(out[0]) == 2\n"
+        "q = InferenceEngine(m, config={'inference': {'enabled': True, "
+        "'page_size': 16, 'num_pages': 16, 'kv_cache_dtype': 'int8'}, "
+        "'quantization': {'weights': 'int8'}}, device='cpu')\n"
+        "assert q.dtypes['weight'] == q.dtypes['kv_cache'] == 'int8'\n"
+        "assert len(q.generate([[1, 2, 3]], max_new_tokens=2)[0]) == 2\n"
         "from deeperspeed_tpu_torch import initialize\n"
         "t = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
         "eng, *_ = initialize(model=t, config_params={\n"

@@ -194,8 +194,6 @@ def test_default_device_needs_cuda(models, monkeypatch):
 
 
 UNPORTED = [
-    ({"kv_cache_dtype": "int8"}, {}),
-    ({}, {"quantization": {"weights": "int8"}}),
     ({"prefix_cache": {"enabled": True}}, {}),
     ({"speculative": {"enabled": True}}, {}),
     ({"disaggregation": {"role": "prefill"}}, {}),
