@@ -13,7 +13,12 @@ Phases (any failure exits non-zero before the final line):
    ragged segments (timed at B=4, S=1024), paged decode over bf16/fp32
    and over int8 pools at the serving shape, the weight-only int8 matmul
    at decode (M=16) and prefill (M=4096) rows, flat Adam at the model's
-   parameter count;
+   parameter count, the grouped matmul's forward and dW kernels at the
+   MoE training geometry (8 spans of 2560 rows, ragged sizes with an
+   empty expert, (K, N) = (768, 3072) and (3072, 768)) and on a LUT
+   whose weights own several spans: outputs, dx through the autograd
+   function and the fp32 dW, exact zeros on dead rows and for an empty
+   expert;
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted;
@@ -22,7 +27,8 @@ Phases (any failure exits non-zero before the final line):
 6. profile (only with ``--profile``): `torch.profiler` over a steady
    window of decode steps at B=16, over one B=4, S=512 prefill call of
    the same bf16 model, over a decode window of each serve-quant rung of
-   phase 9, and over one training step of phase 7: host ms per step,
+   phase 9, over one training step of phase 7 and one of phase 11: host
+   ms per step,
    device kernel ms per step, the device's busy share, launches per step
    and the top kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
@@ -40,7 +46,17 @@ Phases (any failure exits non-zero before the final line):
    every request ok; plus the int8-KV capacity accounting;
 10. int8 parity: the fp32 model with int8 weights and int8 KV pages
    gives the same greedy tokens through the kernels and through the
-   plain path.
+   plain path;
+11. MoE training (bench.py's row_moe on one card): the dense
+   GPT-NeoX-125M made MoE by the JSON "moe" block (8 experts, top-2,
+   capacity factor 1.25, sort dispatch; 559,080,960 parameters), phase
+   7's optimizer, schedule, clipping, bf16 and ZeRO-2 at micro 8 x gas 1
+   x 1024, 20 steps and one `eval_batch`, with exact launch counts (48
+   grouped-matmul forward-kernel and 24 dW launches a step besides 12
+   flash forward, 12 + 12 flash backward and 1 Adam);
+12. MoE training parity: the same MoE model in fp32 (micro 2, gas 2, S
+   1024) takes 3 steps through the kernels and 3 through the plain
+   path; the losses must agree.
 
 It prints one JSON line of kernel results, then the card line, then as
 the last line ``{"ok": true, "device": {...}}``. A longer report goes to
@@ -123,6 +139,30 @@ TRAIN_CONFIG = {
 }
 TRAIN_STEPS = 20
 TRAIN_SEQ = 1024
+# train-moe-125M: bench.py's row_moe on one card, a dense GPT-NeoX-125M
+# made MoE by the JSON "moe" block alone
+MOE_BLOCK = {"num_experts": 8, "top_k": 2, "capacity_factor": 1.25,
+             "dispatch": "sort"}
+MOE_TRAIN_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 8,
+                    "train_micro_batch_size_per_gpu": 8,
+                    "gradient_accumulation_steps": 1, "moe": MOE_BLOCK}
+MOE_NUM_PARAMS = 559_080_960
+# the grouped matmul at phase 11's geometry: 8 experts, span 2560 (the
+# capacity int(1.25 * 2 * 8192 / 8)), 16,384 live rows (8192 tokens x 2
+# copies) in ragged sizes with an empty expert, full spans and a size no
+# tile divides; the two FFN products
+GMM_SPAN = 2560
+GMM_SIZES = (2560, 1801, 0, 2560, 2400, 2367, 2560, 2136)
+GMM_SHAPES = ((768, 3072), (3072, 768))
+# a small case whose weights own several spans, one weight with no live
+# row, a span and an N that no tile divides
+GMM_LUT_CASE = dict(sizes=(200, 57, 0, 0, 133, 200), span=200, K=64, N=96,
+                    W=3, lut=(0, 0, 1, 1, 2, 2))
+# grouped matmul tolerances as a fraction of max|ref|: bf16 outputs (y,
+# dx) round once after an fp32 sum in another order than the plain
+# version; fp32 outputs and the fp32 dW differ only in the order
+TOL_GMM = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+TOL_GMM_DW = 1e-4
 TRAIN_VOCAB_USED = 512    # ids drawn from [0, 512), so the loss must fall
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
@@ -862,6 +902,136 @@ def check_adam(ad, gen, n_params):
     return rows
 
 
+def gmm_live_rows(sizes, span):
+    """[len(sizes) · span] bool: the live rows of a grouped buffer."""
+    sz = torch.tensor(sizes, device="cuda")
+    return (torch.arange(span, device="cuda")[None] < sz[:, None]).reshape(-1)
+
+
+def gmm_bound_ms(sizes, K, N, W, esize, dw=False):
+    """Forward: live x rows and w read, all of y written; dW: live x and
+    dy rows read, the fp32 dW written. 2·Σsizes·K·N flops either way."""
+    live, R = sum(sizes), len(sizes) * GMM_SPAN
+    if dw:
+        nbytes = live * (K + N) * esize + W * K * N * 4
+    else:
+        nbytes = live * K * esize + W * K * N * esize + R * N * esize
+    return bound_ms(nbytes, 2 * live * K * N)
+
+
+def gmm_case(gm, gen, sizes, span, K, N, W, lut, dtype):
+    """The forward kernel, dx through the autograd function and the dW
+    kernel against the plain versions on one case → (row, tensors);
+    fails the run on a disagreement, a non-zero dead row or a non-zero dW
+    of an expert without rows."""
+    R = len(sizes) * span
+    x = torch.randn(R, K, generator=gen, device="cuda").to(dtype)
+    w = (0.02 * torch.randn(W, K, N, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(R, N, generator=gen, device="cuda").to(dtype)
+    sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lut_t = tuple(range(W)) if lut is None else lut
+    dead = ~gmm_live_rows(sizes, span)
+    y = gm.grouped_matmul_cuda(x, w, sz, span, lut)
+    ref = gm.grouped_matmul_reference(x, w, sz, span, lut)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    gm.grouped_matmul(xk, wk, sz, span, lut).backward(dy)
+    xr = x.clone().requires_grad_()
+    gm.grouped_matmul_reference(xr, w, sz, span, lut).backward(dy)
+    dw = gm.grouped_matmul_dw_cuda(x, dy, sz, span, lut_t, W)
+    dw_ref = gm.grouped_matmul_dw_reference(x, dy, sz, span, lut_t, W)
+    torch.cuda.synchronize()
+    tol = TOL_GMM[dtype]
+    err_y, ok_y = close(y, ref, tol * float(ref.float().abs().max()), 0.0)
+    err_dx, ok_dx = close(xk.grad, xr.grad,
+                          tol * float(xr.grad.float().abs().max()), 0.0)
+    err_dw, ok_dw = close(dw, dw_ref,
+                          TOL_GMM_DW * float(dw_ref.abs().max()), 0.0)
+    empty = [e for e in range(W)
+             if all(s == 0 for s, l in zip(sizes, lut_t) if l == e)]
+    row = {"sizes": list(sizes), "span": span, "K": K, "N": N, "W": W,
+           "lut": list(lut_t), "dtype": str(dtype), "max_abs_err": err_y,
+           "max_abs_err_dx": err_dx, "max_abs_err_dw": err_dw,
+           "tol_rel_max": tol, "tol_dw_rel_max": TOL_GMM_DW,
+           "dead_rows_exact_zero": bool(
+               torch.equal(y[dead], torch.zeros_like(y[dead])) and
+               torch.equal(xk.grad[dead], torch.zeros_like(xk.grad[dead]))),
+           "empty_experts": empty,
+           "empty_dw_exact_zero": all(
+               torch.equal(dw[e], torch.zeros_like(dw[e])) for e in empty),
+           # the autograd function's dW is the kernel's fp32 dW cast, and
+           # the kernel sums in a fixed order: bit-equal across calls
+           "dw_grad_is_kernel_cast": bool(torch.equal(wk.grad,
+                                                      dw.to(dtype)))}
+    print(f"  grouped_matmul {row}", flush=True)
+    if not (ok_y and ok_dx and ok_dw and row["dead_rows_exact_zero"] and
+            row["empty_dw_exact_zero"] and row["dw_grad_is_kernel_cast"]
+            and y.dtype == dtype):
+        fail(f"grouped matmul kernels disagree with their plain versions: "
+             f"{row}")
+    return row, (x, w, dy, sz)
+
+
+def gmm_times(gm, row, x, w, dy, sz):
+    """Event and CUDA-graph times of the forward (and the dx product) and
+    of the dW kernel, their plain versions and one torch.bmm over the
+    padded [E, span, ·] buffers, into ``row``."""
+    R, K = x.shape
+    W, _, N = w.shape
+    sizes = row["sizes"]
+    lut = tuple(range(W))
+    xb, dyb = x.view(W, GMM_SPAN, K), dy.view(W, GMM_SPAN, N)
+    row["ms"] = time_ms(lambda: gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN))
+    row["graph_ms"] = graph_ms(
+        lambda: gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN), launches=10,
+        replays=3)
+    row["dx_ms"] = time_ms(lambda: gm.grouped_matmul_cuda(
+        dy, w, sz, GMM_SPAN, transpose_w=True))
+    row["plain_ms"] = time_ms(
+        lambda: gm.grouped_matmul_reference(x, w, sz, GMM_SPAN), warmup=2,
+        iters=10)
+    row["library_ms"] = time_ms(lambda: torch.bmm(xb, w))
+    row["bound_ms"], row["bound_by"] = gmm_bound_ms(sizes, K, N, W,
+                                                    x.element_size())
+    row["dw_ms"] = time_ms(lambda: gm.grouped_matmul_dw_cuda(
+        x, dy, sz, GMM_SPAN, lut, W))
+    row["dw_graph_ms"] = graph_ms(lambda: gm.grouped_matmul_dw_cuda(
+        x, dy, sz, GMM_SPAN, lut, W), launches=10, replays=3)
+    row["dw_plain_ms"] = time_ms(lambda: gm.grouped_matmul_dw_reference(
+        x, dy, sz, GMM_SPAN, lut, W), warmup=2, iters=10)
+    row["dw_library_ms"] = time_ms(lambda: torch.bmm(xb.transpose(1, 2),
+                                                     dyb))
+    row["dw_bound_ms"], row["dw_bound_by"] = gmm_bound_ms(
+        sizes, K, N, W, x.element_size(), dw=True)
+    print(f"  grouped_matmul times K={K} N={N}: forward {row['ms']:.4f} ms "
+          f"(graph {row['graph_ms']:.4f}, dx {row['dx_ms']:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); dW "
+          f"{row['dw_ms']:.4f} ms (graph {row['dw_graph_ms']:.4f}), plain "
+          f"{row['dw_plain_ms']:.4f} ms, torch.bmm "
+          f"{row['dw_library_ms']:.4f} ms, bound {row['dw_bound_ms']:.5f} "
+          f"ms ({row['dw_bound_by']})", flush=True)
+
+
+def check_grouped_matmul(gm, gen, report):
+    """Phase 3 for the MoE path: both grouped-matmul kernels against
+    their plain versions at phase 11's geometry in bf16 and fp32 (timed
+    in bf16), and on the small many-spans-per-weight LUT case."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, N in GMM_SHAPES:
+            row, (x, w, dy, sz) = gmm_case(gm, gen, GMM_SIZES, GMM_SPAN, K,
+                                           N, len(GMM_SIZES), None, dtype)
+            if dtype == torch.bfloat16:
+                gmm_times(gm, row, x, w, dy, sz)
+            rows.append(row)
+            del x, w, dy, sz
+            torch.cuda.empty_cache()
+        row, _ = gmm_case(gm, gen, dtype=dtype, **GMM_LUT_CASE)
+        rows.append(row)
+    report["grouped_matmul"] = rows
+    return [r for r in rows if "ms" in r]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serving at full width
 # ---------------------------------------------------------------------------
@@ -1155,10 +1325,20 @@ def parity_int8(da, qm, report):
 # phase 7: training train-125M
 # ---------------------------------------------------------------------------
 
-def train(fa, ad, report, profile_step=False):
+def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
+          key="train"):
+    """Phase 7, and with ``gm`` (the grouped-matmul module) and the MoE
+    config phase 11: the model made MoE by the JSON block alone, with
+    the grouped-matmul launches counted too."""
     import deeperspeed_tpu_torch as dst
     model = build_model(torch.float32)
-    eng, *_ = dst.initialize(model=model, config_params=TRAIN_CONFIG)
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    if gm is not None and not (
+            model.config.moe_num_experts == MOE_BLOCK["num_experts"] and
+            model.config.moe_dispatch == MOE_BLOCK["dispatch"] and
+            eng.num_params == model.config.num_params() == MOE_NUM_PARAMS):
+        fail(f"the moe block did not make the model MoE as configured: "
+             f"{model.config}, {eng.num_params} parameters")
     gas = eng.gradient_accumulation_steps()
     micro = eng.train_micro_batch_size_per_gpu()
     rng = np.random.default_rng(0)
@@ -1170,6 +1350,8 @@ def train(fa, ad, report, profile_step=False):
 
     fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     ad.launches = 0
+    if gm is not None:
+        gm.launches = gm.dw_launches = 0
     losses, step_s = [], []
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1179,11 +1361,18 @@ def train(fa, ad, report, profile_step=False):
               f"{step_s[-1] * 1e3:.1f} ms", flush=True)
     launches = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
                 "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches}
-    peak = torch.cuda.max_memory_allocated()
-
     want = {"flash_fwd": L * gas * TRAIN_STEPS,
             "flash_bwd_dkv": L * gas * TRAIN_STEPS,
             "flash_bwd_dq": L * gas * TRAIN_STEPS, "adam": TRAIN_STEPS}
+    if gm is not None:
+        # each layer: two forward products and their two dx products on the
+        # forward kernel, two dW products
+        launches.update(grouped_matmul=gm.launches,
+                        grouped_matmul_dw=gm.dw_launches)
+        want.update(grouped_matmul=4 * L * gas * TRAIN_STEPS,
+                    grouped_matmul_dw=2 * L * gas * TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+
     if not all(np.isfinite(losses)):
         fail(f"a training loss is not finite: {losses}")
     if not losses[-1] < 0.9 * losses[0]:
@@ -1215,8 +1404,9 @@ def train(fa, ad, report, profile_step=False):
     }
     if profile_step:
         result["profile"] = profile_window(
-            lambda: eng.train_batch(batch=(tokens, tokens)), 2)
-    report["train"] = result
+            lambda: eng.train_batch(batch=(tokens, tokens)),
+            1 if gm is not None else 2)
+    report[key] = result
     del eng, model
     torch.cuda.empty_cache()
     return result
@@ -1226,11 +1416,12 @@ def train(fa, ad, report, profile_step=False):
 # phase 8: training parity, kernels vs plain path, fp32
 # ---------------------------------------------------------------------------
 
-def train_parity(report):
+def train_parity(report, conf=TRAIN_CONFIG, key="train_parity"):
+    """Phase 8, and with the MoE config phase 12."""
     import deeperspeed_tpu_torch as dst
-    conf = json.loads(json.dumps(TRAIN_CONFIG))
+    conf = json.loads(json.dumps(conf))
     conf.update(train_batch_size=4, train_micro_batch_size_per_gpu=2,
-                fp16={"enabled": False})
+                gradient_accumulation_steps=2, fp16={"enabled": False})
     # a warm-up floor above 0, so that every one of the 3 steps moves the
     # weights (train-125M's second step runs at lr 0)
     conf["scheduler"]["params"]["warmup_min_lr"] = 6e-5
@@ -1248,10 +1439,8 @@ def train_parity(report):
         torch.cuda.empty_cache()
     fast, plain = np.array(losses[True]), np.array(losses[False])
     rel = np.abs(fast - plain) / np.abs(plain)
-    report["train_parity"] = {"kernels": losses[True],
-                              "plain": losses[False],
-                              "max_rel_diff": float(rel.max()),
-                              "rtol": 1e-4}
+    report[key] = {"kernels": losses[True], "plain": losses[False],
+                   "max_rel_diff": float(rel.max()), "rtol": 1e-4}
     print(f"  losses kernels {losses[True]} vs plain {losses[False]}: max "
           f"relative difference {rel.max():.3e}", flush=True)
     if not (np.isfinite(fast).all() and (rel <= 1e-4).all()):
@@ -1358,6 +1547,11 @@ def profile(report, card):
     torch.cuda.empty_cache()
 
 
+def gmm_shape(row):
+    return (f"R=20480 (8 spans of {GMM_SPAN}, {sum(GMM_SIZES)} live rows) "
+            f"K={row['K']} N={row['N']} bf16")
+
+
 def graph_times(row):
     """The CUDA-graph device times of a decode-sized kernel's row."""
     return {k: row[k] for k in ("graph_ms", "plain_graph_ms",
@@ -1386,6 +1580,7 @@ def main():
     from deeperspeed_tpu_torch.ops.hopper import adam as ad
     from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
     from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
     from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
     _build.load_library()
     info = _build.BUILD_INFO
@@ -1405,6 +1600,7 @@ def main():
     qrows = check_quant_matmul(qm, gen, report)
     n_params = GPTNeoXConfig(**NEOX_125M).num_params()
     ft, fb, adm, fbs = check_train_kernels(fa, ad, gen, report, n_params)
+    gmm = check_grouped_matmul(gm, gen, report)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -1446,11 +1642,26 @@ def main():
     print("int8 parity GPT-NeoX-125M (fp32, int8 weights + int8 KV, kernels "
           "vs plain):", flush=True)
     parity_int8(da, qm, report)
+    print("MoE training GPT-NeoX-125M (8 experts, top-2, sort dispatch; bf16, "
+          "fp32 masters, ZeRO-2):", flush=True)
+    tm = train(fa, ad, report, profile_step=args.profile,
+               conf=MOE_TRAIN_CONFIG, gm=gm, key="train_moe")
+    print(f"  {tm['steps']} steps: loss {tm['losses'][0]:.4f} -> "
+          f"{tm['losses'][-1]:.4f} (eval {tm['eval_loss']:.4f}), median "
+          f"step {tm['step_ms_median']:.1f} ms, {tm['tokens_per_s']:.0f} "
+          f"tokens/s, peak memory {tm['max_memory_allocated_gb']:.2f} GiB, "
+          f"{tm['num_params']} parameters, launches per step "
+          f"{tm['launches_per_step']} on {card}", flush=True)
+    print("MoE training parity GPT-NeoX-125M (fp32, kernels vs plain):",
+          flush=True)
+    train_parity(report, conf=MOE_TRAIN_CONFIG, key="train_moe_parity")
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
         print_profile("training step (gas 2 x micro 16 x 1024)",
                       tr["profile"], card)
+        print_profile("MoE training step (micro 8 x 1024, 8 experts top-2)",
+                      tm["profile"], card)
 
     pallas = "deeperspeed_tpu/ops/pallas/"
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
@@ -1461,9 +1672,10 @@ def main():
                      f"{pallas}flash_attention.py:360, :378 "
                      f"(_fwd_single_kernel, _fwd_single_mh_kernel)",
          "launches": sv["launches"]["flash_fwd"] +
-         tr["launches"]["flash_fwd"],
+         tr["launches"]["flash_fwd"] + tm["launches"]["flash_fwd"],
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
-                              "train": tr["launches"]["flash_fwd"]},
+                              "train": tr["launches"]["flash_fwd"],
+                              "train_moe": tm["launches"]["flash_fwd"]},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
@@ -1487,9 +1699,14 @@ def main():
                      f"(_bwd_single_kernel, _bwd_single_mh_kernel); "
                      f"{pallas}flash_attention.py:948, :1038 "
                      f"(_bwd_dkv_kernel, _bwd_dq_kernel)",
-         "launches": tr["launches"]["flash_bwd_dkv"],
-         "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"],
-                                "dq": tr["launches"]["flash_bwd_dq"]},
+         "launches": tr["launches"]["flash_bwd_dkv"] +
+         tm["launches"]["flash_bwd_dkv"],
+         "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"] +
+                                tm["launches"]["flash_bwd_dkv"],
+                                "dq": tr["launches"]["flash_bwd_dq"] +
+                                tm["launches"]["flash_bwd_dq"]},
+         "launches_by_path": {"train": tr["launches"]["flash_bwd_dkv"],
+                              "train_moe": tm["launches"]["flash_bwd_dkv"]},
          "max_abs_err": max(fb[f"max_abs_err_{g}"]
                             for g in ("dq", "dk", "dv")),
          "ms": fb["ms"], "plain_ms": fb["plain_ms"],
@@ -1505,7 +1722,9 @@ def main():
         {"name": "adam", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/adam.cu",
          "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
-         "launches": tr["launches"]["adam"],
+         "launches": tr["launches"]["adam"] + tm["launches"]["adam"],
+         "launches_by_path": {"train": tr["launches"]["adam"],
+                              "train_moe": tm["launches"]["adam"]},
          "max_abs_err": adm["max_abs_err_p"], "ms": adm["ms"],
          "plain_ms": adm["plain_ms"], "bound_ms": adm["bound_ms"],
          "bound_by": adm["bound_by"], "library_ms": adm["library_ms"],
@@ -1541,6 +1760,42 @@ def main():
          "shape": "B=16 H=12 D=64 ps=64 NP=16 P=513 int8 pools, bf16 "
                   "scales, bf16 q",
          "tolerance": di["tol"], **graph_times(di)},
+        {"name": "grouped_matmul", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": f"{pallas}grouped_matmul.py:121 (_fwd_kernel, via "
+                     f"_gmm_pallas :142; also the dx product)",
+         "launches": tm["launches"]["grouped_matmul"],
+         "max_abs_err": gmm[0]["max_abs_err"], "ms": gmm[0]["ms"],
+         "graph_ms": gmm[0]["graph_ms"], "dx_ms": gmm[0]["dx_ms"],
+         "plain_ms": gmm[0]["plain_ms"], "bound_ms": gmm[0]["bound_ms"],
+         "bound_by": gmm[0]["bound_by"],
+         "library_ms": gmm[0]["library_ms"],
+         "shape": gmm_shape(gmm[0]),
+         "tolerance": f"{TOL_GMM[torch.bfloat16]} x max|ref|",
+         "other_shapes": [{k: r[k] for k in (
+             "K", "N", "ms", "graph_ms", "dx_ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "max_abs_err")} for r in gmm[1:]]},
+        {"name": "grouped_matmul_dw", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": f"{pallas}grouped_matmul.py:174 (_dw_kernel, via "
+                     f"_dw_pallas :204)",
+         "launches": tm["launches"]["grouped_matmul_dw"],
+         "max_abs_err": gmm[0]["max_abs_err_dw"], "ms": gmm[0]["dw_ms"],
+         "graph_ms": gmm[0]["dw_graph_ms"],
+         "plain_ms": gmm[0]["dw_plain_ms"],
+         "bound_ms": gmm[0]["dw_bound_ms"],
+         "bound_by": gmm[0]["dw_bound_by"],
+         "library_ms": gmm[0]["dw_library_ms"],
+         "shape": gmm_shape(gmm[0]) + ", fp32 dW",
+         "tolerance": f"{TOL_GMM_DW} x max|ref|",
+         "other_shapes": [{"K": r["K"], "N": r["N"], "ms": r["dw_ms"],
+                           "graph_ms": r["dw_graph_ms"],
+                           "plain_ms": r["dw_plain_ms"],
+                           "library_ms": r["dw_library_ms"],
+                           "bound_ms": r["dw_bound_ms"],
+                           "bound_by": r["dw_bound_by"],
+                           "max_abs_err": r["max_abs_err_dw"]}
+                          for r in gmm[1:]]},
     ]
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels

@@ -7,15 +7,18 @@ batching `InferenceEngine` over a paged KV cache, with int8 block
 weights and int8 KV pages as options) and trains it on one card:
 `initialize()` returns a `DeepSpeedEngine` whose `train_batch` runs bf16
 (or fp32) compute with fp32 masters, Adam(W), the LR schedules, gradient
-clipping and ZeRO stages 0-2. Hand-written CUDA kernels (`ops/hopper`,
+clipping and ZeRO stages 0-2, with a dense or an MoE FFN (`moe`, driven
+by the JSON "moe" block). Hand-written CUDA kernels (`ops/hopper`,
 sources in `csrc`) carry the flash attention forward and backward, the
-paged decode over bf16/fp32 and int8 pages, the weight-only int8 matmul
-and the flat Adam step. The port never imports JAX or
-`deeperspeed_tpu`.
+paged decode over bf16/fp32 and int8 pages, the weight-only int8 matmul,
+the grouped expert matmul (forward and dW) and the flat Adam step. The
+port never imports JAX or `deeperspeed_tpu`.
 """
 
+from . import moe
 from .inference import InferenceEngine
 from .models.gpt_neox import GPTNeoX, GPTNeoXConfig
+from .moe import MoELayer
 from .runtime.config import DeepSpeedConfig
 from .runtime.config_utils import DeepSpeedConfigError
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -57,5 +60,5 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
            "DeepSpeedConfigError", "DeepSpeedDataLoader", "RepeatingLoader",
-           "InferenceEngine", "GPTNeoX", "GPTNeoXConfig", "log_dist",
-           "logger", "__version__"]
+           "InferenceEngine", "GPTNeoX", "GPTNeoXConfig", "MoELayer", "moe",
+           "log_dist", "logger", "__version__"]

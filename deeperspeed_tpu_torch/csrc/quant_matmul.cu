@@ -133,22 +133,10 @@ __global__ void __launch_bounds__(TL_NT) qmm_tiled_kernel(
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;   // 0: zero fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using ds::cp_async16;
+using ds::cp_async_commit;
+using ds::cp_async_wait;
+using ds::mma_bf16;
 
 // two int8 weights -> packed bf16x2 (exact), the lower k in the low half
 __device__ __forceinline__ unsigned pack_bf16x2(signed char lo,
@@ -156,15 +144,6 @@ __device__ __forceinline__ unsigned pack_bf16x2(signed char lo,
   const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo),
                                                  static_cast<float>(hi));
   return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // MT m16 tiles a block (MT * 16 rows) x 64 columns; blockIdx.z takes the

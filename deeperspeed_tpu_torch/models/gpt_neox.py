@@ -16,8 +16,14 @@ The block body is written as plain functions on a parameter tree
 (nested dicts and a ``blocks`` list, like the JAX pytree): the serving
 engine runs prefill and decode through the same `_block_qkv` /
 `_block_post_attn`, so the paths cannot drift from the full forward.
+
+With ``moe_num_experts`` the FFN of every block is the MoE layer
+(`moe/layer.py`, parameters ``blocks.{i}.mlp.{gate,w_in,b_in,w_out,
+b_out}``), its load-balancing loss added to the LM loss; the JSON "moe"
+block turns a dense model into one (`GPTNeoX.apply_ds_config`).
 """
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -26,8 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..moe.layer import moe_ffn_dense
 from ..ops.hopper.quant_matmul import QuantizedWeight, quant_matmul
 from ..utils.device import resolve_device
+from ..utils.logging import logger
 
 
 @dataclass(frozen=True)
@@ -45,10 +53,11 @@ class GPTNeoXConfig:
     tie_word_embeddings: bool = False
     param_dtype: object = torch.float32
     # The remaining fields mirror the JAX config so one config object
-    # describes one model in both packages. The port builds the dense
-    # model only: an MoE FFN, the sparse attention engine, packed
-    # segment ids in training and the quantized FFN wait for their
-    # slices, and the serving engine refuses a config that asks for them.
+    # describes one model in both packages. `GPTNeoX` builds the dense
+    # and the MoE FFN (the serving engine refuses an MoE model); the
+    # sparse attention engine, packed segment ids, the MoE routing
+    # statistics and the quantized FFN wait for their slices, and
+    # `GPTNeoX` refuses a config that asks for them.
     moe_num_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -204,9 +213,13 @@ def _block_qkv(cfg, params, x, cos, sin, rot_dim, nh_local, backend=None):
     return q, k, v
 
 
-def _block_post_attn(cfg, params, x, attn_flat, backend=None):
+def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
+                     use_kernels=True):
     """Everything after the attention core: out projection, residuals,
-    ln2, dense MLP. `attn_flat` is the [B, S, h] attention output."""
+    ln2, MLP (dense or MoE). `attn_flat` is the [B, S, h] attention
+    output. With MoE the return is (out, aux_load_balance_loss); ``rng``
+    (a `torch.Generator`) feeds the gate jitter and ``use_kernels`` the
+    grouped matmul's kernel switch."""
     out_b = params["attn"]["out_b"].to(x.dtype)
     attn_partial = _wmat(attn_flat, params["attn"]["out_w"], backend)
     if cfg.use_parallel_residual:
@@ -215,6 +228,19 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None):
         ln2_in = x + (attn_partial + out_b)
     ln2 = layer_norm(ln2_in, params["ln_mlp"]["scale"],
                      params["ln_mlp"]["bias"], cfg.layernorm_eps)
+    if cfg.moe_num_experts:
+        B, S, h = ln2.shape
+        y, aux = moe_ffn_dense(
+            params["mlp"], ln2.reshape(B * S, h),
+            capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
+            rng=rng, jitter_eps=cfg.moe_jitter_eps,
+            groups=cfg.moe_num_groups, dispatch=cfg.moe_dispatch,
+            renorm_kept_choices=cfg.moe_renorm_kept_choices,
+            use_kernels=use_kernels)
+        moe_out = y.reshape(ln2.shape)
+        if cfg.use_parallel_residual:
+            return x + attn_partial + out_b + moe_out, aux
+        return ln2_in + moe_out, aux
     mlp_b = params["mlp"]["out_b"].to(x.dtype)
     hmid = _wmat(ln2, params["mlp"]["in_w"], backend) + \
         params["mlp"]["in_b"].to(x.dtype)
@@ -226,14 +252,16 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None):
 
 
 def block_forward(cfg, params, x, cos_sin, use_kernels=True,
-                  segment_ids=None):
-    """One GPT-NeoX block: x + attn(ln1(x)) + ffn(ln2(x))."""
+                  segment_ids=None, rng=None):
+    """One GPT-NeoX block: x + attn(ln1(x)) + ffn(ln2(x)); with MoE the
+    return is (out, aux_loss)."""
     B, S, h = x.shape
     cos, sin, rot_dim = cos_sin
     q, k, v = _block_qkv(cfg, params, x, cos, sin, rot_dim, cfg.num_heads)
     attn = causal_attention(q, k, v, use_kernels=use_kernels,
                             segment_ids=segment_ids)
-    return _block_post_attn(cfg, params, x, attn.reshape(B, S, h))
+    return _block_post_attn(cfg, params, x, attn.reshape(B, S, h), rng=rng,
+                            use_kernels=use_kernels)
 
 
 def lm_head(params, h):
@@ -242,19 +270,30 @@ def lm_head(params, h):
     return (h @ wte.to(h.dtype).t()).float()
 
 
-def forward_hidden(cfg, params, tokens, use_kernels=True):
-    """tokens [B, S] int → final-norm hidden states [B, S, H]."""
+def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None):
+    """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
+    (out, the blocks' aux losses summed). The blocks draw their gate
+    jitter from ``rng`` in turn."""
     x = params["embed"]["wte"][tokens]
     cos_sin = _rotary_cache(cfg, tokens.shape[1], device=x.device)
+    aux_total = None
     for bp in params["blocks"]:
-        x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels)
-    return layer_norm(x, params["final_ln"]["scale"],
-                      params["final_ln"]["bias"], cfg.layernorm_eps)
+        x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
+                          rng=rng)
+        if cfg.moe_num_experts:
+            x, aux = x
+            aux_total = aux if aux_total is None else aux_total + aux
+    out = layer_norm(x, params["final_ln"]["scale"],
+                     params["final_ln"]["bias"], cfg.layernorm_eps)
+    return (out, aux_total) if cfg.moe_num_experts else out
 
 
 def forward(cfg, params, tokens, use_kernels=True):
     """tokens [B, S] int → logits [B, S, V] (fp32)."""
-    return lm_head(params, forward_hidden(cfg, params, tokens, use_kernels))
+    x = forward_hidden(cfg, params, tokens, use_kernels)
+    if cfg.moe_num_experts:
+        x, _ = x
+    return lm_head(params, x)
 
 
 def lm_head_loss(params, x, labels, ignore_index=-100):
@@ -304,6 +343,26 @@ def unflatten(flat):
 # the module
 # ---------------------------------------------------------------------------
 
+def _refuse_unported(cfg):
+    """Raise on config fields whose paths are not ported yet, instead of
+    training without them."""
+    if cfg.attention_engine != "dense":
+        raise NotImplementedError(
+            "the sparse attention engine is not ported yet (sparse slice)")
+    if cfg.use_segment_ids:
+        raise NotImplementedError(
+            "packed segment ids (use_segment_ids) are not ported yet "
+            "(long-context slice)")
+    if cfg.moe_num_experts and cfg.moe_observability:
+        raise NotImplementedError(
+            "the MoE routing statistics (moe_observability) are not "
+            "ported yet (observability slice)")
+    if cfg.ffn_quant_recipe is not None:
+        raise NotImplementedError(
+            "the delayed-scaling quantized FFN (ffn_quant_recipe) is not "
+            "ported yet (quantized training slice)")
+
+
 def _holder(**shapes):
     """A parameter-only submodule, so the dotted names follow the JAX
     pytree paths (``blocks.0.attn.qkv_w``)."""
@@ -312,6 +371,36 @@ def _holder(**shapes):
         m.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device)))
     return m
+
+
+def _mlp_holder(cfg, device):
+    """A block's FFN parameters with the JAX shapes (`_init_ffn_params`):
+    dense ``in_w``/``in_b``/``out_w``/``out_b``, or with experts the gate
+    [h, E] and the stacked ``w_in`` [E, h, i], ``b_in``, ``w_out`` [E, i,
+    h], ``b_out``."""
+    h, i, E, dt = (cfg.hidden_size, cfg.intermediate_size,
+                   cfg.moe_num_experts, cfg.param_dtype)
+    if not E:
+        return _holder(in_w=((h, i), dt, device), in_b=((i,), dt, device),
+                       out_w=((i, h), dt, device), out_b=((h,), dt, device))
+    return _holder(gate=((h, E), dt, device), w_in=((E, h, i), dt, device),
+                   b_in=((E, i), dt, device), w_out=((E, i, h), dt, device),
+                   b_out=((E, h), dt, device))
+
+
+def _init_param(cfg, name, param, gen):
+    """`GPTNeoX.init_params`'s rule for one leaf: ones for norm scales,
+    zeros for biases (the experts' [E, ·] ones too), normal × 0.02 for
+    the rest, × 0.02/√(2L) for the two out-projections."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "scale":
+        param.fill_(1.0)
+    elif leaf in ("bias", "b_in", "b_out") or leaf.endswith("_b"):
+        param.zero_()
+    else:
+        scale = 0.02 / math.sqrt(2 * cfg.num_layers) \
+            if leaf in ("out_w", "w_out") else 0.02
+        param.normal_(0.0, scale, generator=gen)
 
 
 class GPTNeoX(nn.Module):
@@ -330,17 +419,12 @@ class GPTNeoX(nn.Module):
     def __init__(self, config=None, use_kernels=True, device=None, **kwargs):
         super().__init__()
         cfg = config or GPTNeoXConfig(**kwargs)
-        if cfg.moe_num_experts:
-            raise NotImplementedError(
-                "GPT-NeoX with an MoE FFN is not ported yet (MoE slice)")
-        if cfg.attention_engine != "dense":
-            raise NotImplementedError(
-                "the sparse attention engine is not ported yet (sparse "
-                "slice)")
+        _refuse_unported(cfg)
         device = resolve_device(device, "GPTNeoX")
         self.config = cfg
         self.use_kernels = use_kernels
-        h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+        self._init_seed = 0
+        h, v = cfg.hidden_size, cfg.vocab_size
         dt = cfg.param_dtype
 
         def p(*shape):
@@ -354,8 +438,7 @@ class GPTNeoX(nn.Module):
             blk.ln_mlp = _holder(scale=p(h), bias=p(h))
             blk.attn = _holder(qkv_w=p(h, 3 * h), qkv_b=p(3 * h),
                                out_w=p(h, h), out_b=p(h))
-            blk.mlp = _holder(in_w=p(h, i), in_b=p(i), out_w=p(i, h),
-                              out_b=p(h))
+            blk.mlp = _mlp_holder(cfg, device)
             self.blocks.append(blk)
         self.final_ln = _holder(scale=p(h), bias=p(h))
         if not cfg.tie_word_embeddings:
@@ -370,17 +453,54 @@ class GPTNeoX(nn.Module):
         package's numbers; tests carry JAX weights over instead."""
         device = next(self.parameters()).device
         gen = torch.Generator(device=device).manual_seed(int(seed))
-        out_scale = 0.02 / math.sqrt(2 * self.config.num_layers)
         for name, param in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if param.dim() >= 2:
-                scale = out_scale if leaf == "out_w" else 0.02
-                param.normal_(0.0, scale, generator=gen)
-            elif leaf == "scale":
-                param.fill_(1.0)
-            else:
-                param.zero_()
+            _init_param(self.config, name, param, gen)
+        self._init_seed = int(seed)
         return self
+
+    @torch.no_grad()
+    def apply_ds_config(self, ds_config):
+        """Wire the JSON "moe" block into the model (`GPTNeoX.
+        apply_ds_config` of the JAX package); the training engine calls
+        it before it builds its flat state. The config takes the block's
+        values; each block's FFN holder whose shapes differ from the new
+        config's (a dense model made MoE) is rebuilt and its leaves drawn
+        with `init_params`' rule from a generator seeded with the last
+        `init_params` seed, and one whose shapes match keeps its weights.
+        The other blocks the JAX method wires are refused by
+        `DeepSpeedConfig` until their slices."""
+        moe = getattr(ds_config, "moe_params", None)
+        if not moe:
+            return
+        self.config = dataclasses.replace(
+            self.config,
+            moe_num_experts=moe["num_experts"],
+            moe_top_k=moe["top_k"],
+            moe_capacity_factor=moe["capacity_factor"],
+            moe_jitter_eps=moe["jitter_eps"],
+            moe_aux_loss_coef=moe["aux_loss_coef"],
+            moe_num_groups=moe.get("num_groups", 1),
+            moe_dispatch=moe.get("dispatch", "einsum"),
+            moe_a2a_overlap_chunks=moe.get("a2a_overlap_chunks", 1),
+            moe_renorm_kept_choices=moe.get("renorm_kept_choices", False),
+            moe_observability=moe.get("observability", False))
+        _refuse_unported(self.config)
+        if self.config.moe_a2a_overlap_chunks > 1:
+            logger.warning(
+                "moe.a2a_overlap_chunks > 1 has no effect on the GPT-NeoX "
+                "MoE path on one card; it applies to the expert-parallel "
+                "exchange (moe_ffn_expert_parallel), not ported yet")
+        device = self.embed.wte.device
+        gen = torch.Generator(device=device).manual_seed(self._init_seed)
+        for i, blk in enumerate(self.blocks):
+            mlp = _mlp_holder(self.config, device)
+            if {n: p.shape for n, p in mlp.named_parameters()} == \
+                    {n: p.shape for n, p in blk.mlp.named_parameters()}:
+                continue
+            for name, param in mlp.named_parameters():
+                _init_param(self.config, f"blocks.{i}.mlp.{name}", param,
+                            gen)
+            blk.mlp = mlp
 
     def load_jax_params(self, params):
         """Load the JAX package's natural params pytree (numpy leaves —
@@ -399,15 +519,22 @@ class GPTNeoX(nn.Module):
         return forward(self.config, self.params_tree(), tokens,
                        use_kernels=self.use_kernels)
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, rng=None):
         """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
         parameter tree ``params`` (`params_tree()`), differentiable in
-        it: `GPTNeoX.loss_fn` of the JAX package for the dense model."""
+        it: `GPTNeoX.loss_fn` of the JAX package. With MoE it adds
+        ``moe_aux_loss_coef`` times the blocks' mean aux loss; ``rng`` (a
+        `torch.Generator` on the model's device) feeds the gate jitter."""
         tokens, labels, seg = split_lm_batch(batch)
         if seg is not None:
             raise NotImplementedError(
                 "packed (tokens, labels, segment_ids) batches are not "
                 "ported yet (long-context slice)")
-        hidden = forward_hidden(self.config, params, tokens,
-                                use_kernels=self.use_kernels)
-        return lm_head_loss(params, hidden, labels)
+        cfg = self.config
+        hidden = forward_hidden(cfg, params, tokens,
+                                use_kernels=self.use_kernels, rng=rng)
+        if not cfg.moe_num_experts:
+            return lm_head_loss(params, hidden, labels)
+        hidden, aux = hidden
+        return lm_head_loss(params, hidden, labels) + \
+            cfg.moe_aux_loss_coef * aux / max(cfg.num_layers, 1)

@@ -68,6 +68,12 @@ SIGNATURES = {
     # weight_decay, bias_c1, bias_c2, adam_w, g dtype, stream
     "ds_adam": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _I,
                 _P],
+    # x, its row stride, w, w read transposed (0/1), sizes, lut (int32),
+    # y, R, K, N, span, dtype, stream
+    "ds_grouped_matmul": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _P],
+    # x, dy, sizes, lut, dw (fp32), R, K, N, span, n_weights, dtype, stream
+    "ds_grouped_matmul_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 # what the kernels are instantiated for: the dtype codes of csrc/common.cuh

@@ -6,8 +6,9 @@ keys, defaults and `DeepSpeedConfigError` messages for what it parses,
 so a config written for the JAX package means the same here. The
 training parser reads what the port's engine runs (the batch triple,
 precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
-stages 0-2); every other top-level block of the JAX config that is set
-raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
+stages 0-2) and the "moe" block the model reads (`GPTNeoX.apply_ds_config`);
+every other top-level block of the JAX config that is set raises "not
+ported" (`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
@@ -148,6 +149,123 @@ class DeepSpeedConfig:
             self.scheduler_params = None
 
         self.inference_params = parse_inference_block(d)
+        self._parse_moe_block(d)
+
+    def _parse_moe_block(self, d):
+        """Parse + validate the "moe" block with the JAX package's keys,
+        defaults and messages. ``observability: true`` is refused: the
+        port has no monitor to drain the routing statistics into."""
+        moe = d.get(c.MOE) or {}
+        known = {c.MOE_ENABLED, c.MOE_NUM_EXPERTS, c.MOE_TOP_K,
+                 c.MOE_CAPACITY_FACTOR, c.MOE_JITTER_EPS,
+                 c.MOE_AUX_LOSS_COEF, c.MOE_NUM_GROUPS, c.MOE_DISPATCH,
+                 c.MOE_A2A_OVERLAP_CHUNKS, c.MOE_RENORM_KEPT_CHOICES,
+                 c.MOE_OBSERVABILITY}
+        unknown = sorted(set(moe) - known)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown 'moe' key(s) {unknown}; valid keys: "
+                f"{sorted(known)}")
+
+        self.moe_enabled = bool(moe.get(c.MOE_ENABLED,
+                                        moe.get(c.MOE_NUM_EXPERTS, 0)))
+        if not self.moe_enabled:
+            self.moe_params = False
+            return
+
+        num_experts = as_int(moe.get(c.MOE_NUM_EXPERTS, 0),
+                             f"moe.{c.MOE_NUM_EXPERTS}")
+        if num_experts <= 0:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_NUM_EXPERTS} must be a positive int, got "
+                f"{moe.get(c.MOE_NUM_EXPERTS)!r}")
+        top_k = as_int(moe.get(c.MOE_TOP_K, c.MOE_TOP_K_DEFAULT),
+                       f"moe.{c.MOE_TOP_K}")
+        if top_k not in c.MOE_TOP_K_CHOICES:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_TOP_K} must be one of "
+                f"{list(c.MOE_TOP_K_CHOICES)} (1 = Switch, 2 = GShard), "
+                f"got {top_k}")
+
+        def as_float(key, default):
+            try:
+                return float(moe.get(key, default))
+            except (TypeError, ValueError):
+                raise DeepSpeedConfigError(
+                    f"moe.{key} must be a number, got {moe.get(key)!r}")
+
+        capacity_factor = as_float(c.MOE_CAPACITY_FACTOR,
+                                   c.MOE_CAPACITY_FACTOR_DEFAULT)
+        if not capacity_factor > 0:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_CAPACITY_FACTOR} must be > 0, got "
+                f"{capacity_factor}")
+        jitter_eps = as_float(c.MOE_JITTER_EPS, c.MOE_JITTER_EPS_DEFAULT)
+        if jitter_eps < 0:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_JITTER_EPS} must be >= 0, got {jitter_eps}")
+        aux_loss_coef = as_float(c.MOE_AUX_LOSS_COEF,
+                                 c.MOE_AUX_LOSS_COEF_DEFAULT)
+        if aux_loss_coef < 0:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_AUX_LOSS_COEF} must be >= 0 (a negative "
+                f"coefficient actively unbalances experts), got "
+                f"{aux_loss_coef}")
+        num_groups = as_int(moe.get(c.MOE_NUM_GROUPS,
+                                    c.MOE_NUM_GROUPS_DEFAULT),
+                            f"moe.{c.MOE_NUM_GROUPS}")
+        if num_groups < 0:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_NUM_GROUPS} must be >= 0 (0 = auto), got "
+                f"{num_groups}")
+        dispatch = str(moe.get(c.MOE_DISPATCH, c.MOE_DISPATCH_DEFAULT))
+        if dispatch not in c.MOE_DISPATCH_MODES:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_DISPATCH} must be one of "
+                f"{list(c.MOE_DISPATCH_MODES)}, got {dispatch!r}")
+        a2a_chunks = as_int(moe.get(c.MOE_A2A_OVERLAP_CHUNKS,
+                                    c.MOE_A2A_OVERLAP_CHUNKS_DEFAULT),
+                            f"moe.{c.MOE_A2A_OVERLAP_CHUNKS}")
+        if a2a_chunks < 1:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_A2A_OVERLAP_CHUNKS} must be >= 1, got "
+                f"{a2a_chunks}")
+        renorm = moe.get(c.MOE_RENORM_KEPT_CHOICES,
+                         c.MOE_RENORM_KEPT_CHOICES_DEFAULT)
+        if not isinstance(renorm, bool):
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_RENORM_KEPT_CHOICES} must be a boolean, "
+                f"got {renorm!r}")
+        observability = moe.get(c.MOE_OBSERVABILITY,
+                                c.MOE_OBSERVABILITY_DEFAULT)
+        if not isinstance(observability, bool):
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_OBSERVABILITY} must be a boolean, got "
+                f"{observability!r}")
+        if observability and dispatch != "sort":
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_OBSERVABILITY} requires moe.dispatch="
+                f"\"sort\": the expert-load / capacity-drop statistics "
+                f"come from the sort engine's position-in-expert "
+                f"bookkeeping (got dispatch={dispatch!r})")
+        if observability:
+            raise DeepSpeedConfigError(
+                f"moe.{c.MOE_OBSERVABILITY} is not ported (observability "
+                f"slice): the port has no monitor to drain the Train/MoE "
+                f"routing statistics into")
+
+        self.moe_params = {
+            "num_experts": num_experts,
+            "top_k": top_k,
+            "capacity_factor": capacity_factor,
+            "jitter_eps": jitter_eps,
+            "aux_loss_coef": aux_loss_coef,
+            "num_groups": num_groups,
+            "dispatch": dispatch,
+            "a2a_overlap_chunks": a2a_chunks,
+            "renorm_kept_choices": renorm,
+            "observability": observability,
+        }
 
     def _configure_train_batch_size(self):
         """Resolve train_batch = micro_batch * grad_acc * dp_world

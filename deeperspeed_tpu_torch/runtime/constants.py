@@ -3,10 +3,10 @@
 A subset of `deeperspeed_tpu/runtime/constants.py`: the training keys
 `DeepSpeedConfig` reads (batch triple, precision, optimizer, scheduler,
 clipping), the top-level blocks it refuses until their slices land, the
-"inference" block the serving engine reads, the precision spellings its
-``kv_cache_dtype`` resolves through, and the "quantization" weights key
-the engine refuses until int8 weights are ported. The values are the
-same, so one JSON config means the same thing to both packages.
+"moe" block the model reads, the "inference" block the serving engine
+reads, the precision spellings its ``kv_cache_dtype`` resolves through,
+and the "quantization" block. The values are the same, so one JSON
+config means the same thing to both packages.
 """
 
 # ---------------------------------------------------------------------------
@@ -74,7 +74,6 @@ NOT_PORTED_BLOCKS = {
     "activation_checkpointing": "activation checkpointing",
     "progressive_layer_drop": "progressive layer drop",
     "sparse_attention": "sparse attention",
-    "moe": "MoE",
     "sequence_parallel": "long context",
     "packing": "long context",
     "pipeline": "scale-out (pipeline)",
@@ -93,6 +92,39 @@ NOT_PORTED_BLOCKS = {
     "planner": "schedule planner",
     "rl": "online RL",
 }
+
+# ---------------------------------------------------------------------------
+# MoE block (`config._parse_moe_block`, read by `GPTNeoX.apply_ds_config`)
+# ---------------------------------------------------------------------------
+MOE = "moe"
+MOE_ENABLED = "enabled"
+MOE_NUM_EXPERTS = "num_experts"
+MOE_TOP_K = "top_k"
+MOE_TOP_K_DEFAULT = 1
+MOE_TOP_K_CHOICES = (1, 2)
+MOE_CAPACITY_FACTOR = "capacity_factor"
+MOE_CAPACITY_FACTOR_DEFAULT = 1.25
+MOE_JITTER_EPS = "jitter_eps"
+MOE_JITTER_EPS_DEFAULT = 0.0
+MOE_AUX_LOSS_COEF = "aux_loss_coef"
+MOE_AUX_LOSS_COEF_DEFAULT = 0.01
+# 1 = global capacity (reference numerics); 0 opts in to auto-sized groups
+MOE_NUM_GROUPS = "num_groups"
+MOE_NUM_GROUPS_DEFAULT = 1
+# dispatch engine: "einsum" = the one-hot [T, E, C] einsum pair;
+# "sort" = sorted token permutation + the grouped-matmul kernels
+MOE_DISPATCH = "dispatch"
+MOE_DISPATCH_DEFAULT = "einsum"
+MOE_DISPATCH_MODES = ("einsum", "sort")
+# expert-parallel all_to_all/compute pipeline depth (no effect on one card)
+MOE_A2A_OVERLAP_CHUNKS = "a2a_overlap_chunks"
+MOE_A2A_OVERLAP_CHUNKS_DEFAULT = 1
+# renormalize top-2 combine weights over capacity-surviving choices
+MOE_RENORM_KEPT_CHOICES = "renorm_kept_choices"
+MOE_RENORM_KEPT_CHOICES_DEFAULT = False
+# routing statistics (validated; not ported: no monitor drains them)
+MOE_OBSERVABILITY = "observability"
+MOE_OBSERVABILITY_DEFAULT = False
 
 # Accepted precision spellings → canonical dtype names (torch dtypes are
 # resolved in precision.py; kept as strings here so this module stays

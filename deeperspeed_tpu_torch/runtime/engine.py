@@ -25,6 +25,12 @@ divided by the accumulation steps; then unscale (fp16) → finite check
 fp16 overflow nothing changes but the loss scale and ``skipped_steps``.
 The LR is read before the step and the scheduler steps after each step
 taken.
+
+MoE: a "moe" config block is handed to the model's `apply_ds_config`
+before the flat state is built, so the flat buffers hold the expert
+weights and autograd adds their dW into the flat gradient views like any
+other leaf. The gate jitter draws from one `torch.Generator` on the
+training device, seeded once and passed to every micro-step's loss.
 """
 
 import numpy as np
@@ -64,9 +70,10 @@ class DeepSpeedEngine:
     """Training engine with the DeepSpeed training API on one card.
 
     ``model`` is a `models.gpt_neox.GPTNeoX` (any `torch.nn.Module` with
-    ``loss_fn(params, batch)`` and ``params_tree()``); it trains on the
-    device its parameters are on. ``config`` (a JSON path) or
-    ``config_params`` (a dict) is the DeepSpeed config.
+    ``loss_fn(params, batch, rng=None)`` and ``params_tree()``, and
+    ``apply_ds_config(config)`` where the config has a "moe" block); it
+    trains on the device its parameters are on. ``config`` (a JSON path)
+    or ``config_params`` (a dict) is the DeepSpeed config.
     """
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -104,6 +111,16 @@ class DeepSpeedEngine:
             raise _not_ported(
                 "fp16 training on the GPU (the kernels are built for fp32 "
                 "and bf16)", "fp16 kernels")
+
+        if self._config.moe_enabled:
+            if not hasattr(model, "apply_ds_config"):
+                raise DeepSpeedConfigError(
+                    "config enables moe but the model does not implement "
+                    "apply_ds_config(config) (models.gpt_neox.GPTNeoX "
+                    "does)")
+            model.apply_ds_config(self._config)
+        # the gate jitter's generator (the JAX engine's base key 1234)
+        self._rng = torch.Generator(device=self.device).manual_seed(1234)
 
         self.optimizer = self._configure_optimizer(optimizer)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -311,7 +328,8 @@ class DeepSpeedEngine:
         params = self.module.params_tree()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
-            loss = self.module.loss_fn(params, (tokens[i], labels[i]))
+            loss = self.module.loss_fn(params, (tokens[i], labels[i]),
+                                       rng=self._rng)
             (loss * scale if self._config.loss_scaling_enabled
              else loss).backward()
             if not self._grads_checked:
@@ -384,7 +402,10 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_batch(self, batch):
         """Loss of one (tokens, labels) batch [B, S] (or bare tokens),
-        without touching the training state."""
+        without touching the training state; the gate jitter, where on,
+        draws from a fresh generator seeded 0 (the JAX engine's eval key
+        is ``PRNGKey(0)``)."""
         tokens, labels = self._lm_batch(batch)
+        rng = torch.Generator(device=self.device).manual_seed(0)
         return float(self.module.loss_fn(self.module.params_tree(),
-                                         (tokens, labels)))
+                                         (tokens, labels), rng=rng))

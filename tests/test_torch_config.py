@@ -1,10 +1,11 @@
-"""The port's "inference" config parser against the JAX package's: the
-same blocks give equal dicts, and the same bad blocks raise
-`DeepSpeedConfigError`."""
+"""The port's "inference", "quantization" and "moe" config parsers
+against the JAX package's: the same blocks give equal dicts, and the
+same bad blocks raise `DeepSpeedConfigError`."""
 
 import pytest
 import torch
 
+from deeperspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
 from deeperspeed_tpu.runtime.config import \
     parse_inference_block as jax_parse
 from deeperspeed_tpu.runtime.config import \
@@ -13,7 +14,8 @@ from deeperspeed_tpu.runtime.config_utils import \
     DeepSpeedConfigError as JaxConfigError
 from deeperspeed_tpu.runtime.precision import \
     resolve_kv_cache_dtype as jax_resolve_kv
-from deeperspeed_tpu_torch.runtime.config import (parse_inference_block,
+from deeperspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
+                                                  parse_inference_block,
                                                   parse_quantization_block)
 from deeperspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError
 from deeperspeed_tpu_torch.runtime.precision import resolve_kv_cache_dtype
@@ -160,3 +162,64 @@ def test_quantization_block_same_rejects(block):
     with pytest.raises(DeepSpeedConfigError) as terr:
         parse_quantization_block(d)
     assert str(terr.value) == str(jerr.value)
+
+
+MOE_VALID = [
+    None, {}, {"enabled": False}, {"enabled": False, "num_experts": 8},
+    {"num_experts": 8},
+    {"num_experts": 8, "top_k": 2, "capacity_factor": 1.25,
+     "dispatch": "sort"},
+    {"enabled": True, "num_experts": 4, "top_k": 1, "capacity_factor": 2,
+     "jitter_eps": 0.1, "aux_loss_coef": 0.0, "num_groups": 0,
+     "dispatch": "einsum", "a2a_overlap_chunks": 2,
+     "renorm_kept_choices": True, "observability": False},
+]
+MOE_INVALID = [
+    {"num_experts": 8, "topk": 2},
+    {"enabled": True},
+    {"enabled": True, "num_experts": -1},
+    {"num_experts": "many"},
+    {"num_experts": 8, "top_k": 3},
+    {"num_experts": 8, "capacity_factor": 0},
+    {"num_experts": 8, "capacity_factor": "big"},
+    {"num_experts": 8, "jitter_eps": -0.1},
+    {"num_experts": 8, "aux_loss_coef": -1},
+    {"num_experts": 8, "num_groups": -1},
+    {"num_experts": 8, "dispatch": "scatter"},
+    {"num_experts": 8, "a2a_overlap_chunks": 0},
+    {"num_experts": 8, "renorm_kept_choices": "yes"},
+    {"num_experts": 8, "observability": 1},
+    {"num_experts": 8, "observability": True},      # needs dispatch "sort"
+]
+
+
+def _moe_conf(block):
+    conf = {"train_batch_size": 4}
+    if block is not None:
+        conf["moe"] = block
+    return conf
+
+
+@pytest.mark.parametrize("block", MOE_VALID)
+def test_moe_block_same_params(block):
+    ours = DeepSpeedConfig(_moe_conf(block))
+    ref = JaxConfig(_moe_conf(block), world_size=1)
+    assert ours.moe_enabled == ref.moe_enabled
+    assert ours.moe_params == ref.moe_params
+
+
+@pytest.mark.parametrize("block", MOE_INVALID)
+def test_moe_block_same_rejects(block):
+    with pytest.raises(JaxConfigError) as jerr:
+        JaxConfig(_moe_conf(block), world_size=1)
+    with pytest.raises(DeepSpeedConfigError) as terr:
+        DeepSpeedConfig(_moe_conf(block))
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_moe_observability_is_not_ported():
+    block = {"num_experts": 8, "dispatch": "sort", "observability": True}
+    assert JaxConfig(_moe_conf(block), world_size=1).moe_params[
+        "observability"]
+    with pytest.raises(DeepSpeedConfigError, match="not ported"):
+        DeepSpeedConfig(_moe_conf(block))

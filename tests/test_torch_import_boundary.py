@@ -1,7 +1,7 @@
 """The port stands alone: nothing in `deeperspeed_tpu_torch/` or
 `chip_smoke.py` imports JAX, jaxlib or the JAX package, and building a
-CPU serving engine (bf16/fp32 and int8) and a training engine leaves JAX
-out of `sys.modules`."""
+CPU serving engine (bf16/fp32 and int8) and a dense and an MoE training
+engine leaves JAX out of `sys.modules`."""
 
 import ast
 import os
@@ -70,6 +70,12 @@ def test_engine_on_cpu_loads_no_jax():
         "    'fp16': {'enabled': True, 'type': 'bfloat16'}})\n"
         "x = torch.randint(0, 512, (2, 1, 16))\n"
         "assert eng.train_batch(batch=(x, x)) > 0 and eng.global_steps == 1\n"
+        "m = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
+        "eng, *_ = initialize(model=m, config_params={\n"
+        "    'train_batch_size': 2, 'gradient_accumulation_steps': 2,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}},\n"
+        "    'moe': {'num_experts': 4, 'top_k': 2, 'dispatch': 'sort'}})\n"
+        "assert eng.train_batch(batch=(x, x)) > 0 and m.config.moe_top_k == 2\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu'))\n"
         "print(bad)\n")

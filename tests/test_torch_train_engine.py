@@ -331,6 +331,16 @@ def test_disabled_blocks_and_lamb(weights):
             "train_batch_size": 4, "optimizer": {"type": "Lamb"}})
 
 
+def test_unported_model_fields_raise():
+    """A config field whose path is not ported raises at model build
+    instead of training without it (the JAX model would use it)."""
+    for field, match in (({"use_segment_ids": True}, "long-context"),
+                         ({"ffn_quant_recipe": "fp8"}, "not ported"),
+                         ({"attention_engine": "sparse"}, "sparse")):
+        with pytest.raises(NotImplementedError, match=match):
+            neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, **field), device="cpu")
+
+
 def test_engine_defaults_to_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
