@@ -18,7 +18,15 @@ Phases (any failure exits non-zero before the final line):
    empty expert, (K, N) = (768, 3072) and (3072, 768)) and on a LUT
    whose weights own several spans: outputs, dx through the autograd
    function and the fp32 dW, exact zeros on dead rows and for an empty
-   expert;
+   expert; the block-sparse forward, dk/dv and dq kernels at phase 13's
+   attention shape (B=2, S=16384, H=12, D=64, fixed l16g1 causal) with
+   dq, dk, dv also through the autograd function, and on a bidirectional
+   layout with a dead row at head dims 64, 128 and 256; the layout-masked
+   flash forward and backward at phase 14(a)'s shape (B=16, S=1024,
+   l4g1) and on the dead-row layout; each timed beside SDPA under the
+   token mask, the port's dense causal flash and the other sparse arm;
+   and both sparse arms timed on four layouts of density 0.12-0.53 at
+   B=8, S=2048, where they cross;
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted;
@@ -27,8 +35,8 @@ Phases (any failure exits non-zero before the final line):
 6. profile (only with ``--profile``): `torch.profiler` over a steady
    window of decode steps at B=16, over one B=4, S=512 prefill call of
    the same bf16 model, over a decode window of each serve-quant rung of
-   phase 9, over one training step of phase 7 and one of phase 11: host
-   ms per step,
+   phase 9, over one training step of phase 7, one of phase 11 and one
+   of phase 13: host ms per step,
    device kernel ms per step, the device's busy share, launches per step
    and the top kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
@@ -56,11 +64,24 @@ Phases (any failure exits non-zero before the final line):
    flash forward, 12 + 12 flash backward and 1 Adam);
 12. MoE training parity: the same MoE model in fp32 (micro 2, gas 2, S
    1024) takes 3 steps through the kernels and 3 through the plain
-   path; the losses must agree.
+   path; the losses must agree;
+13. sparse training (bench.py's row_longseq sparse rung on one card):
+   GPT-NeoX-125M's widths and depth with an 8192 vocabulary at 16,384
+   tokens, the JSON "sparse_attention" block (fixed, 16 local + 1 global
+   128-blocks, causal; density 0.094) through `initialize()` →
+   `train_batch`, Adam lr 1e-4, bf16, ZeRO-2, micro 2, 10 steps and one
+   `eval_batch`, with exact launch counts (12 block-sparse forward, 12
+   dk/dv and 12 dq launches a step, no dense or masked flash launch);
+14. sparse training parity, fp32, 3 steps through the kernels and 3
+   through the plain versions of the same arm: (a) the masked flash arm
+   on phase 8's GPT-NeoX-125M (S 1024, micro 2 x gas 2, l4g1), (b) the
+   block-sparse arm on phase 13's model at S 8192 (micro 1, l16g1); the
+   losses must agree within rtol 1e-4.
 
-It prints one JSON line of kernel results, then the card line, then as
-the last line ``{"ok": true, "device": {...}}``. A longer report goes to
-build/reports/chip_smoke_report.json. It imports nothing of JAX.
+It prints its wall seconds, one JSON line of kernel results, then the
+card line, then as the last line ``{"ok": true, "device": {...}}``. A
+longer report goes to build/reports/chip_smoke_report.json. It imports
+nothing of JAX.
 """
 
 import argparse
@@ -164,6 +185,24 @@ GMM_LUT_CASE = dict(sizes=(200, 57, 0, 0, 133, 200), span=200, K=64, N=96,
 TOL_GMM = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 TOL_GMM_DW = 1e-4
 TRAIN_VOCAB_USED = 512    # ids drawn from [0, 512), so the loss must fall
+# train-sparse-125M-16k: bench.py's row_longseq sparse rung on one card
+# (bench.py:696-737), the _neox_engine JSON (bench.py:204-220) with the
+# fixed pattern of 16 local and 1 global 128-blocks a window, causal
+SPARSE_L16G1 = {"mode": "fixed", "block": 128, "num_local_blocks": 16,
+                "num_global_blocks": 1, "attention": "unidirectional"}
+SPARSE_L4G1 = dict(SPARSE_L16G1, num_local_blocks=4)
+SPARSE_MODEL = dict(vocab_size=8192, hidden_size=768, num_layers=12,
+                    num_heads=12, max_seq_len=16384)
+SPARSE_TRAIN_CONFIG = {
+    "train_batch_size": 2, "train_micro_batch_size_per_gpu": 2,
+    "gradient_accumulation_steps": 1, "steps_per_print": 10_000,
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+    "fp16": {"enabled": True, "type": "bfloat16"},
+    "zero_optimization": {"stage": 2},
+    "sparse_attention": SPARSE_L16G1,
+}
+SPARSE_SEQ = 16384
+SPARSE_STEPS = 10
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
 
@@ -1033,6 +1072,411 @@ def check_grouped_matmul(gm, gen, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the block-sparse and layout-masked flash kernels
+# ---------------------------------------------------------------------------
+
+def sparse_layout(block, S, H=12):
+    from deeperspeed_tpu_torch.ops.sparse_attention import \
+        sparsity_config_from_dict
+    return sparsity_config_from_dict(dict(block, num_heads=H)).make_layout(S)
+
+
+def sparse_live_pairs(layout, causal, B):
+    """Live (row, key) pairs of a 128-grain layout: an active block gives
+    128·128 of them, a diagonal one under causal 128·129/2, one above the
+    diagonal under causal none."""
+    lay = np.asarray(layout) != 0
+    n, g = lay.shape[1], 128
+    if not causal:
+        return int(B * lay.sum() * g * g)
+    diag = int(lay[:, np.arange(n), np.arange(n)].sum())
+    lower = int(np.tril(lay, -1).sum())
+    return B * (lower * g * g + diag * g * (g + 1) // 2)
+
+
+def attn_bound_ms(q, pairs, part, extra_bytes=0):
+    """Bound of one attention pass over ``pairs`` live pairs: "fwd" reads
+    q, k, v and writes out and lse (4·D flops a pair); "dkv" reads q, k,
+    v, dO, lse, delta and writes dk, dv (8·D); "dq" the same, writing dq
+    (6·D); "bwd" is dkv and dq together (10·D)."""
+    B, S, H, D = q.shape
+    t = B * S * H * D * q.element_size()
+    row = B * H * S * 4
+    nbytes, flops = {"fwd": (4 * t + row, 4 * D),
+                     "dkv": (6 * t + 2 * row, 8 * D),
+                     "dq": (5 * t + 2 * row, 6 * D),
+                     "bwd": (7 * t + 2 * row, 10 * D)}[part]
+    return bound_ms(nbytes + extra_bytes, flops * pairs)
+
+
+def sdpa_times(q, k, v, do, mask):
+    """The library yardstick: SDPA forward and backward under the boolean
+    token mask [1, H, S, S] (timed only). Returns (fwd ms, bwd ms, the
+    batch it ran at): the whole batch, or its first row where the mask's
+    float bias for all of it does not fit."""
+    import torch.nn.functional as F
+    for b in (q.shape[0], 1):
+        try:
+            qt, kt, vt = (t[:b].transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            do_t = do[:b].transpose(1, 2).contiguous()
+            with torch.no_grad():
+                fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), warmup=2, iters=5)
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            bwd = time_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), do_t, retain_graph=True), warmup=2,
+                iters=5)
+            return fwd, bwd, b
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    fail("SDPA with the sparse token mask does not fit at batch 1")
+
+
+def token_mask(layout, causal):
+    """[1, H, S, S] bool: the layout's blocks, ANDed with causal."""
+    from deeperspeed_tpu_torch.ops.sparse_attention import \
+        layout_to_token_mask
+    mask = torch.as_tensor(layout_to_token_mask(layout, 128),
+                           device="cuda")[None]
+    if causal:
+        mask &= torch.ones(mask.shape[-1], mask.shape[-1], dtype=torch.bool,
+                           device="cuda").tril()
+    return mask
+
+
+def check_sparse_grads(bsa, fa, q, k, v, luts, causal, out, lse, gen):
+    """The block-sparse backward kernels against the plain backward on the
+    same (out, lse, dO), and dq, dk, dv through the autograd function
+    against the plain versions' → (row, ok, (do, delta))."""
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    delta = fa.attention_delta(out, do)
+    dk, dv = bsa.block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta,
+                                                 luts, causal)
+    dq = bsa.block_sparse_attention_dq_cuda(q, k, v, lse, do, delta, luts,
+                                            causal)
+    want = bsa.block_sparse_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    luts, causal)
+    att = bsa.BlockSparseAttention(luts.layout, causal=causal)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    att(*leaves).backward(do)
+    torch.cuda.synchronize()
+    row, ok = {}, True
+    for name, g, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves,
+                             want):
+        err, good = close(g, w, *TOL_BWD[q.dtype])
+        err_a, good_a = close(a.grad, w, *TOL_BWD[q.dtype])
+        row[f"max_abs_err_{name}"] = max(err, err_a)
+        ok = ok and good and good_a
+    return row, ok, (do, delta)
+
+
+def check_block_sparse(bsa, fa, gen, report):
+    """Phase 3 for the block-sparse kernels: at phase 13's attention shape
+    (B=2, S=16384, H=12, D=64, l16g1 causal) in bf16 and fp32, forward
+    and backward against the plain versions, timed in bf16 beside the
+    plain versions, SDPA under the token mask, the port's dense causal
+    flash and the masked flash kernel on the same layout; then a small
+    bidirectional layout with a dead row at every head dim."""
+    B, S, H, D = 2, SPARSE_SEQ, 12, 64
+    layout = sparse_layout(SPARSE_L16G1, S)
+    luts = bsa.LayoutLuts(layout)
+    pairs = sparse_live_pairs(layout, True, B)
+    lut_bytes = sum(a.nbytes for a in luts.fwd + luts.bwd)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+        out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, True)
+        ref_out, ref_lse = bsa.block_sparse_attention_reference(q, k, v,
+                                                                luts, True)
+        torch.cuda.synchronize()
+        err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+        err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+        del ref_out, ref_lse
+        grads, ok_g, (do, delta) = check_sparse_grads(bsa, fa, q, k, v, luts,
+                                                      True, out, lse, gen)
+        row = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+               "layout": "fixed l16g1 causal", "density":
+               float(np.asarray(layout, bool).mean()), "live_pairs": pairs,
+               "max_abs_err_out": err_o, "max_abs_err_lse": err_l,
+               "tol_out": TOL[dtype]["out"], "tol_bwd": TOL_BWD[dtype],
+               **grads}
+        print(f"  block_sparse {row}", flush=True)
+        if not (ok_o and ok_l and ok_g):
+            fail(f"block-sparse kernels disagree with their plain versions: "
+                 f"{row}")
+        if dtype == torch.bfloat16:
+            row["fwd_ms"] = time_ms(lambda: bsa.block_sparse_attention_cuda(
+                q, k, v, luts, True), warmup=2, iters=10)
+            row["dkv_ms"] = time_ms(
+                lambda: bsa.block_sparse_attention_dkv_cuda(
+                    q, k, v, lse, do, delta, luts, True), warmup=2, iters=10)
+            row["dq_ms"] = time_ms(
+                lambda: bsa.block_sparse_attention_dq_cuda(
+                    q, k, v, lse, do, delta, luts, True), warmup=2, iters=10)
+            row["plain_fwd_ms"] = time_ms(
+                lambda: bsa.block_sparse_attention_reference(q, k, v, luts,
+                                                             True),
+                warmup=1, iters=3)
+            row["plain_bwd_ms"] = time_ms(
+                lambda: bsa.block_sparse_attention_bwd_reference(
+                    q, k, v, out, lse, do, luts, True), warmup=1, iters=3)
+            for part in ("fwd", "dkv", "dq"):
+                row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = \
+                    attn_bound_ms(q, pairs, part, lut_bytes)
+            # the same layout through the masked flash kernel (the other
+            # arm), and the port's dense causal flash: the crossover
+            lay_t = torch.as_tensor(np.asarray(layout) != 0,
+                                    dtype=torch.int32, device="cuda")
+            row["masked_fwd_ms"] = time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, None, None, lay_t, True), warmup=2, iters=10)
+            row["masked_bwd_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, lse, do, delta, None, None, lay_t, True),
+                warmup=2, iters=5)
+            d_out, d_lse = fa.flash_attention_cuda(q, k, v)
+            row["dense_flash_fwd_ms"] = time_ms(
+                lambda: fa.flash_attention_cuda(q, k, v), warmup=1, iters=3)
+            d_delta = fa.attention_delta(d_out, do)
+            row["dense_flash_bwd_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_cuda(q, k, v, d_lse, do,
+                                                    d_delta),
+                warmup=1, iters=3)
+            del d_out, d_lse, d_delta
+            mask = token_mask(layout, True)
+            row["library_fwd_ms"], row["library_bwd_ms"], \
+                row["library_batch"] = sdpa_times(q, k, v, do, mask)
+            del mask
+            print(f"  block_sparse times (bf16): forward {row['fwd_ms']:.4f} "
+                  f"ms, dk/dv {row['dkv_ms']:.4f} ms, dq {row['dq_ms']:.4f} "
+                  f"ms; plain {row['plain_fwd_ms']:.4f} / "
+                  f"{row['plain_bwd_ms']:.4f} ms; SDPA (bool mask, B="
+                  f"{row['library_batch']}) {row['library_fwd_ms']:.4f} / "
+                  f"{row['library_bwd_ms']:.4f} ms; masked flash "
+                  f"{row['masked_fwd_ms']:.4f} / {row['masked_bwd_ms']:.4f} "
+                  f"ms; dense causal flash {row['dense_flash_fwd_ms']:.4f} / "
+                  f"{row['dense_flash_bwd_ms']:.4f} ms; bounds "
+                  f"{row['fwd_bound_ms']:.5f} / {row['dkv_bound_ms']:.5f} / "
+                  f"{row['dq_bound_ms']:.5f} ms ({row['fwd_bound_by']})",
+                  flush=True)
+        rows.append(row)
+        del q, k, v, out, lse, do, delta
+        torch.cuda.empty_cache()
+    rows += check_sparse_dead_rows(bsa, fa, gen)
+    report["block_sparse"] = rows
+    return rows[0]
+
+
+def check_sparse_dead_rows(bsa, fa, gen):
+    """A bidirectional layout (causal=False) with an empty layout row, at
+    each head dim: both kernels' outputs and gradients against their
+    plain versions, and the dead rows exactly 0 with lse = +1e30."""
+    rows = []
+    S, B, H = 512, 2, 3
+    n = S // 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128, 256):
+            layout = (torch.rand(H, n, n, generator=gen, device="cuda") <
+                      0.5).cpu().numpy().astype(np.int32)
+            layout[:, np.arange(n), np.arange(n)] = 1
+            layout[1, 2] = 0                       # head 1, rows 256-383
+            luts = bsa.LayoutLuts(layout)
+            lay_t = torch.as_tensor(layout, device="cuda")
+            q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+            row = {"S": S, "B": B, "H": H, "D": D, "dtype": str(dtype),
+                   "causal": False, "dead_row": True}
+            ok = True
+            for name, fwd, ref in (
+                    ("block_sparse", lambda: bsa.block_sparse_attention_cuda(
+                        q, k, v, luts, False),
+                     lambda: bsa.block_sparse_attention_reference(
+                         q, k, v, luts, False)),
+                    ("masked", lambda: fa.flash_attention_cuda(
+                        q, k, v, None, None, lay_t, False),
+                     lambda: fa.flash_attention_segmented_reference(
+                         q, k, v, None, None, lay_t, False))):
+                out, lse = fwd()
+                ref_out, ref_lse = ref()
+                err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+                err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+                dead = bool((out[:, 256:384, 1] == 0).all()) and \
+                    bool((lse.view(B, H, S)[:, 1, 256:384] == 1e30).all())
+                if name == "block_sparse":
+                    g, ok_g, _ = check_sparse_grads(bsa, fa, q, k, v, luts,
+                                                    False, out, lse, gen)
+                else:
+                    do = torch.randn(q.shape, generator=gen,
+                                     device="cuda").to(dtype)
+                    delta = fa.attention_delta(out, do)
+                    got = fa.flash_attention_bwd_cuda(
+                        q, k, v, lse, do, delta, None, None, lay_t, False)
+                    want = fa.flash_attention_bwd_reference(
+                        q, k, v, out, lse, do, None, None, lay_t, False)
+                    g, ok_g = {}, True
+                    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+                        err, good = close(a, w, *TOL_BWD[dtype])
+                        g[f"max_abs_err_{gname}"] = err
+                        ok_g = ok_g and good
+                    dead = dead and bool((got[0][:, 256:384, 1] == 0).all())
+                row[name] = {"max_abs_err_out": err_o,
+                             "max_abs_err_lse": err_l, "dead_rows_zero": dead,
+                             **g}
+                ok = ok and ok_o and ok_l and ok_g and dead
+            print(f"  sparse dead rows {row}", flush=True)
+            if not ok:
+                fail(f"a sparse kernel disagrees with its plain version on a "
+                     f"layout with a dead row: {row}")
+            rows.append(row)
+    return rows
+
+
+def check_masked_flash(bsa, fa, gen, report):
+    """Phase 3 for the layout mask on the flash kernels: phase 14(a)'s
+    attention shape (B=16, S=1024, H=12, D=64, l4g1 causal) in bf16 and
+    fp32 against the plain version, timed in bf16 beside it, SDPA under
+    the token mask, the port's dense causal flash and the block-sparse
+    kernels on the same layout."""
+    B, S, H, D = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], TRAIN_SEQ, \
+        12, 64
+    layout = sparse_layout(SPARSE_L4G1, S)
+    lay_t = torch.as_tensor(np.asarray(layout) != 0, dtype=torch.int32,
+                            device="cuda")
+    pairs = sparse_live_pairs(layout, True, B)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+        out, lse = fa.flash_attention_cuda(q, k, v, None, None, lay_t, True)
+        ref_out, ref_lse = fa.flash_attention_segmented_reference(
+            q, k, v, None, None, lay_t, True)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        delta = fa.attention_delta(out, do)
+        got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, None, None,
+                                          lay_t, True)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, None,
+                                                None, lay_t, True)
+        torch.cuda.synchronize()
+        err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+        err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+        row = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+               "layout": "fixed l4g1 causal",
+               "density": float(np.asarray(layout, bool).mean()),
+               "live_pairs": pairs, "max_abs_err_out": err_o,
+               "max_abs_err_lse": err_l, "tol_out": TOL[dtype]["out"],
+               "tol_bwd": TOL_BWD[dtype]}
+        ok = ok_o and ok_l
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err, good = close(g, w, *TOL_BWD[dtype])
+            row[f"max_abs_err_{name}"] = err
+            ok = ok and good
+        del ref_out, ref_lse, want
+        print(f"  flash_masked {row}", flush=True)
+        if not ok:
+            fail(f"masked flash kernels disagree with their plain versions: "
+                 f"{row}")
+        if dtype == torch.bfloat16:
+            row["fwd_ms"] = time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, None, None, lay_t, True))
+            row["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, lse, do, delta, None, None, lay_t, True))
+            row["plain_fwd_ms"] = time_ms(
+                lambda: fa.flash_attention_segmented_reference(
+                    q, k, v, None, None, lay_t, True), warmup=2, iters=10)
+            row["plain_bwd_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do, None, None, lay_t, True),
+                warmup=2, iters=10)
+            for part in ("fwd", "bwd"):
+                row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = \
+                    attn_bound_ms(q, pairs, part, lay_t.numel() * 4)
+            luts = bsa.LayoutLuts(layout)
+            row["block_sparse_fwd_ms"] = time_ms(
+                lambda: bsa.block_sparse_attention_cuda(q, k, v, luts, True))
+            row["block_sparse_bwd_ms"] = time_ms(
+                lambda: bsa.block_sparse_attention_bwd_cuda(
+                    q, k, v, lse, do, delta, luts, True))
+            d_out, d_lse = fa.flash_attention_cuda(q, k, v)
+            row["dense_flash_fwd_ms"] = time_ms(
+                lambda: fa.flash_attention_cuda(q, k, v))
+            d_delta = fa.attention_delta(d_out, do)
+            row["dense_flash_bwd_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_cuda(q, k, v, d_lse, do,
+                                                    d_delta))
+            del d_out, d_lse, d_delta
+            row["library_fwd_ms"], row["library_bwd_ms"], \
+                row["library_batch"] = sdpa_times(q, k, v, do,
+                                                  token_mask(layout, True))
+            print(f"  flash_masked times (bf16): forward {row['fwd_ms']:.4f} "
+                  f"ms, backward {row['bwd_ms']:.4f} ms; plain "
+                  f"{row['plain_fwd_ms']:.4f} / {row['plain_bwd_ms']:.4f} ms; "
+                  f"SDPA (bool mask, B={row['library_batch']}) "
+                  f"{row['library_fwd_ms']:.4f} / {row['library_bwd_ms']:.4f}"
+                  f" ms; block-sparse {row['block_sparse_fwd_ms']:.4f} / "
+                  f"{row['block_sparse_bwd_ms']:.4f} ms; dense causal flash "
+                  f"{row['dense_flash_fwd_ms']:.4f} / "
+                  f"{row['dense_flash_bwd_ms']:.4f} ms; bounds "
+                  f"{row['fwd_bound_ms']:.5f} / {row['bwd_bound_ms']:.5f} ms "
+                  f"({row['fwd_bound_by']})", flush=True)
+        rows.append(row)
+        del q, k, v, out, lse, do, delta, got
+        torch.cuda.empty_cache()
+    report["flash_masked"] = rows
+    return rows[0]
+
+
+def check_sparse_crossover(bsa, fa, gen, report):
+    """Where the two kernel arms cross on this card: the masked flash
+    kernels and the block-sparse kernels, forward + backward in bf16, on
+    four layouts at B=8, S=2048, H=12, D=64 whose densities lie on both
+    sides of the routing's 0.25, beside the dense causal flash (timed
+    only; the arm `SparseSelfAttention` picks is unchanged)."""
+    B, S, H, D = 8, 2048, 12, 64
+    q, k, v, _, _ = prefill_case(S, torch.bfloat16, gen, B=B, H=H, D=D)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+
+    def fwd_bwd_ms(fwd, bwd):
+        out, lse = fwd()
+        delta = fa.attention_delta(out, do)
+        return time_ms(fwd) + time_ms(lambda: bwd(lse, delta))
+
+    rows = [{"layout": "dense causal flash", "density": None,
+             "dense_flash_ms": fwd_bwd_ms(
+                 lambda: fa.flash_attention_cuda(q, k, v),
+                 lambda lse, delta: fa.flash_attention_bwd_cuda(
+                     q, k, v, lse, do, delta))}]
+    for name, block in (
+            ("variable w1 g0", {"mode": "variable", "block": 128,
+                                "local_window_blocks": [1],
+                                "global_block_indices": [0],
+                                "attention": "unidirectional"}),
+            ("fixed l4g1", SPARSE_L4G1),
+            ("fixed l8g1", dict(SPARSE_L4G1, num_local_blocks=8)),
+            ("fixed l16g1 (dense causal)",
+             dict(SPARSE_L4G1, num_local_blocks=16))):
+        layout = sparse_layout(block, S)
+        luts = bsa.LayoutLuts(layout)
+        lay_t = torch.as_tensor(np.asarray(layout) != 0, dtype=torch.int32,
+                                device="cuda")
+        row = {"layout": name,
+               "density": float(np.asarray(layout, bool).mean())}
+        row["masked_flash_ms"] = fwd_bwd_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, None, None, lay_t, True),
+            lambda lse, delta: fa.flash_attention_bwd_cuda(
+                q, k, v, lse, do, delta, None, None, lay_t, True))
+        row["block_sparse_ms"] = fwd_bwd_ms(
+            lambda: bsa.block_sparse_attention_cuda(q, k, v, luts, True),
+            lambda lse, delta: bsa.block_sparse_attention_bwd_cuda(
+                q, k, v, lse, do, delta, luts, True))
+        rows.append(row)
+    for row in rows:
+        print(f"  sparse crossover B={B} S={S} (forward + backward, bf16) "
+              f"{row}", flush=True)
+    report["sparse_crossover"] = rows
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving at full width
 # ---------------------------------------------------------------------------
 
@@ -1449,13 +1893,171 @@ def train_parity(report, conf=TRAIN_CONFIG, key="train_parity"):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training train-sparse-125M-16k
+# ---------------------------------------------------------------------------
+
+def reset_attention_counts(fa, bsa):
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.masked_launches = fa.masked_bwd_dkv_launches = 0
+    fa.masked_bwd_dq_launches = 0
+    bsa.launches = bsa.dkv_launches = bsa.dq_launches = 0
+
+
+def attention_counts(fa, bsa):
+    return {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+            "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_masked_fwd": fa.masked_launches,
+            "flash_masked_bwd_dkv": fa.masked_bwd_dkv_launches,
+            "flash_masked_bwd_dq": fa.masked_bwd_dq_launches,
+            "block_sparse_fwd": bsa.launches,
+            "block_sparse_dkv": bsa.dkv_launches,
+            "block_sparse_dq": bsa.dq_launches}
+
+
+def train_sparse(fa, bsa, ad, report, profile_step=False):
+    """Phase 13: GPT-NeoX-125M's widths and depth with an 8192 vocabulary
+    at 16,384 tokens, the JSON "sparse_attention" block (fixed l16g1)
+    through `initialize()` → `train_batch`, 10 bf16 steps on one repeated
+    batch and one `eval_batch`, every attention launch counted: the
+    block-sparse arm only."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    model = GPTNeoX(GPTNeoXConfig(**SPARSE_MODEL), device="cuda")
+    model.init_params(5)
+    eng, *_ = dst.initialize(model=model, config_params=SPARSE_TRAIN_CONFIG)
+    cfg = model.config
+    arm = model.sparse_self_attention.arm(SPARSE_SEQ, cfg.head_dim)
+    layout = model.sparse_self_attention.get_layout(SPARSE_SEQ)[0]
+    density = float(np.asarray(layout, bool).mean())
+    if cfg.attention_engine != "sparse" or arm != "block_sparse":
+        fail(f"the sparse_attention block did not route train-sparse-125M-16k "
+             f"to the block-sparse kernels: engine {cfg.attention_engine}, "
+             f"arm {arm}, density {density}")
+    micro = eng.train_micro_batch_size_per_gpu()
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, micro, SPARSE_SEQ))).cuda()
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts(fa, bsa)
+    ad.launches = 0
+    losses, step_s = [], []
+    for step in range(SPARSE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=(tokens, tokens)))
+        step_s.append(time.perf_counter() - t0)
+        print(f"  step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{step_s[-1] * 1e3:.1f} ms", flush=True)
+    launches = dict(attention_counts(fa, bsa), adam=ad.launches)
+    want = {k: 0 for k in launches}
+    want.update(block_sparse_fwd=L * SPARSE_STEPS,
+                block_sparse_dkv=L * SPARSE_STEPS,
+                block_sparse_dq=L * SPARSE_STEPS, adam=SPARSE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"a sparse training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the sparse training loss did not fall: step 1 "
+             f"{losses[0]:.4f}, step {SPARSE_STEPS} {losses[-1]:.4f}")
+    if launches != want:
+        fail(f"sparse training launch counts {launches} != {want} ({L} "
+             f"layers x {SPARSE_STEPS} steps, no dense or masked flash)")
+    if eng.global_steps != SPARSE_STEPS or eng.skipped_steps:
+        fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
+    eval_loss = eng.eval_batch((tokens[0], tokens[0]))
+    if not np.isfinite(eval_loss):
+        fail(f"eval_batch loss {eval_loss} is not finite")
+    med = float(np.median(step_s))
+    result = {
+        "steps": SPARSE_STEPS, "micro_batch": micro, "seq": SPARSE_SEQ,
+        "layout": "fixed l16g1 causal", "density": density, "arm": arm,
+        "losses": losses, "eval_loss": eval_loss,
+        "step_ms_median": med * 1e3, "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": micro * SPARSE_SEQ / med,
+        "max_memory_allocated_gb": peak / 2 ** 30,
+        "num_params": eng.num_params, "launches": launches,
+        "launches_per_step": {k: v / SPARSE_STEPS
+                              for k, v in launches.items()},
+        "activation_checkpointing": False,
+    }
+    if profile_step:
+        result["profile"] = profile_window(
+            lambda: eng.train_batch(batch=(tokens, tokens)), 1,
+            share_of="block_sparse")
+    report["train_sparse"] = result
+    del eng, model
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 14: sparse training parity, kernels vs plain path, fp32
+# ---------------------------------------------------------------------------
+
+def sparse_parity(fa, bsa, report, key, block, model_kw, seq, micro, gas,
+                  arm):
+    """3 fp32 steps of a sparse GPT-NeoX through the kernels and 3 through
+    the plain versions of the same arm; the losses must agree within rtol
+    1e-4, the arm must be ``arm``, and the kernel run must launch that
+    arm's kernels and no other attention kernel."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    conf = json.loads(json.dumps(TRAIN_CONFIG))
+    conf.update(train_batch_size=micro * gas,
+                train_micro_batch_size_per_gpu=micro,
+                gradient_accumulation_steps=gas, fp16={"enabled": False},
+                sparse_attention=block)
+    conf["scheduler"]["params"]["warmup_min_lr"] = 6e-5
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, seq))).cuda()
+    losses, counts = {}, {}
+    for use_kernels in (True, False):
+        model = GPTNeoX(GPTNeoXConfig(**model_kw), device="cuda")
+        model.init_params(1)
+        model.use_kernels = use_kernels
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        got_arm = model.sparse_self_attention.arm(seq,
+                                                  model.config.head_dim)
+        if got_arm != arm:
+            fail(f"{key}: the sparse block took the {got_arm} arm, not {arm}")
+        reset_attention_counts(fa, bsa)
+        losses[use_kernels] = [eng.train_batch(batch=(tokens, tokens))
+                               for _ in range(3)]
+        counts[use_kernels] = attention_counts(fa, bsa)
+        del eng, model
+        torch.cuda.empty_cache()
+    fast, plain = np.array(losses[True]), np.array(losses[False])
+    rel = np.abs(fast - plain) / np.abs(plain)
+    prefix = "flash_masked" if arm == "masked_flash" else "block_sparse"
+    used = {k: v for k, v in counts[True].items() if v}
+    report[key] = {"arm": arm, "seq": seq, "micro": micro, "gas": gas,
+                   "kernels": losses[True], "plain": losses[False],
+                   "max_rel_diff": float(rel.max()), "rtol": 1e-4,
+                   "launches": counts[True]}
+    print(f"  {arm}: losses kernels {losses[True]} vs plain "
+          f"{losses[False]}: max relative difference {rel.max():.3e}; "
+          f"launches {used}", flush=True)
+    if not (np.isfinite(fast).all() and (rel <= 1e-4).all()):
+        fail(f"{key}: fp32 sparse training losses differ between the kernel "
+             f"path and the plain path beyond rtol 1e-4: {losses}")
+    if not used or any(not k.startswith(prefix) for k in used) or \
+            any(counts[False].values()):
+        fail(f"{key}: the kernel run launched {used}, the plain run "
+             f"{counts[False]}; want only the {arm} kernels, and none")
+    return report[key]
+
+
+# ---------------------------------------------------------------------------
 # phase 6 (--profile): where a serving step's time goes
 # ---------------------------------------------------------------------------
 
-def profile_window(fn, steps):
+def profile_window(fn, steps, share_of=None):
     """Run ``fn`` ``steps`` times under the profiler: host ms per step,
     device kernel ms per step, busy share, launches per step and the
-    kernels that take the most device time."""
+    kernels that take the most device time; with ``share_of``, the share
+    of device time of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -1475,7 +2077,12 @@ def profile_window(fn, steps):
         by_name[e.name] = (tot + us, n + 1)
     busy_us = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {
+    extra = {}
+    if share_of is not None:
+        extra["device_share_" + share_of] = sum(
+            t for name, (t, _) in by_name.items() if share_of in name) / \
+            max(busy_us, 1e-9)
+    return {**extra,
         "steps": steps,
         "host_ms_per_step": wall * 1e3 / steps,
         "device_ms_per_step": busy_us / 1e3 / steps,
@@ -1562,8 +2169,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a decode window, a prefill call and "
-                         "a training step")
+                         "the training steps")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", flush=True)
@@ -1578,6 +2186,7 @@ def main():
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
     from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
     from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
     from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
     from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
@@ -1601,6 +2210,9 @@ def main():
     n_params = GPTNeoXConfig(**NEOX_125M).num_params()
     ft, fb, adm, fbs = check_train_kernels(fa, ad, gen, report, n_params)
     gmm = check_grouped_matmul(gm, gen, report)
+    bs = check_block_sparse(bsa, fa, gen, report)
+    fm = check_masked_flash(bsa, fa, gen, report)
+    check_sparse_crossover(bsa, fa, gen, report)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -1655,6 +2267,22 @@ def main():
     print("MoE training parity GPT-NeoX-125M (fp32, kernels vs plain):",
           flush=True)
     train_parity(report, conf=MOE_TRAIN_CONFIG, key="train_moe_parity")
+    print("sparse training train-sparse-125M-16k (fixed l16g1, bf16, fp32 "
+          "masters, ZeRO-2):", flush=True)
+    ts = train_sparse(fa, bsa, ad, report, profile_step=args.profile)
+    print(f"  {ts['steps']} steps: loss {ts['losses'][0]:.4f} -> "
+          f"{ts['losses'][-1]:.4f} (eval {ts['eval_loss']:.4f}), median "
+          f"step {ts['step_ms_median']:.1f} ms, {ts['tokens_per_s']:.0f} "
+          f"tokens/s, peak memory {ts['max_memory_allocated_gb']:.2f} GiB, "
+          f"density {ts['density']:.4f}, launches per step "
+          f"{ts['launches_per_step']} on {card}", flush=True)
+    print("sparse training parity (fp32, kernels vs plain):", flush=True)
+    pm = sparse_parity(fa, bsa, report, "train_sparse_parity_masked",
+                       SPARSE_L4G1, dict(NEOX_125M), TRAIN_SEQ, 2, 2,
+                       "masked_flash")
+    pb = sparse_parity(fa, bsa, report, "train_sparse_parity_block_sparse",
+                       SPARSE_L16G1, SPARSE_MODEL, 8192, 1, 1,
+                       "block_sparse")
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -1662,9 +2290,16 @@ def main():
                       tr["profile"], card)
         print_profile("MoE training step (micro 8 x 1024, 8 experts top-2)",
                       tm["profile"], card)
+        print_profile("sparse training step (micro 2 x 16384, l16g1)",
+                      ts["profile"], card)
+        print(f"  block-sparse kernels' share of device time: "
+              f"{ts['profile']['device_share_block_sparse']:.3f}",
+              flush=True)
 
     pallas = "deeperspeed_tpu/ops/pallas/"
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
+    sparse_shape = "B=2 S=16384 H=12 D=64 bf16, fixed l16g1 causal"
+    masked_shape = "B=16 S=1024 H=12 D=64 bf16, fixed l4g1 causal"
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
@@ -1796,12 +2431,96 @@ def main():
                            "bound_by": r["dw_bound_by"],
                            "max_abs_err": r["max_abs_err_dw"]}
                           for r in gmm[1:]]},
+        {"name": "block_sparse_fwd", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/block_sparse_attention.cu",
+         "replaces": f"{pallas}block_sparse_attention.py:140 "
+                     f"(_sparse_fwd_kernel, via sparse_attention_fwd :213)",
+         "launches": ts["launches"]["block_sparse_fwd"] +
+         pb["launches"]["block_sparse_fwd"],
+         "launches_by_path": {"train_sparse": ts["launches"][
+             "block_sparse_fwd"], "train_sparse_parity": pb["launches"][
+             "block_sparse_fwd"]},
+         "max_abs_err": max(bs["max_abs_err_out"], bs["max_abs_err_lse"]),
+         "ms": bs["fwd_ms"], "plain_ms": bs["plain_fwd_ms"],
+         "bound_ms": bs["fwd_bound_ms"], "bound_by": bs["fwd_bound_by"],
+         "library_ms": bs["library_fwd_ms"],
+         "library": f"SDPA under the bool token mask, B="
+                    f"{bs['library_batch']}",
+         "masked_flash_ms": bs["masked_fwd_ms"],
+         "dense_flash_ms": bs["dense_flash_fwd_ms"],
+         "shape": sparse_shape, "tolerance": bs["tol_out"]},
+        {"name": "block_sparse_dkv", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/block_sparse_attention.cu",
+         "replaces": f"{pallas}block_sparse_attention.py:281 "
+                     f"(_sparse_dkv_kernel, via sparse_attention_bwd :393)",
+         "launches": ts["launches"]["block_sparse_dkv"] +
+         pb["launches"]["block_sparse_dkv"],
+         "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
+         "ms": bs["dkv_ms"], "plain_ms": bs["plain_bwd_ms"],
+         "plain": "the plain backward (dq, dk, dv together)",
+         "bound_ms": bs["dkv_bound_ms"], "bound_by": bs["dkv_bound_by"],
+         "library_ms": bs["library_bwd_ms"],
+         "library": f"SDPA backward (dq, dk, dv) under the bool token "
+                    f"mask, B={bs['library_batch']}",
+         "masked_flash_bwd_ms": bs["masked_bwd_ms"],
+         "dense_flash_bwd_ms": bs["dense_flash_bwd_ms"],
+         "shape": sparse_shape, "tolerance": bs["tol_bwd"]},
+        {"name": "block_sparse_dq", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/block_sparse_attention.cu",
+         "replaces": f"{pallas}block_sparse_attention.py:343 "
+                     f"(_sparse_dq_kernel, via sparse_attention_bwd :393)",
+         "launches": ts["launches"]["block_sparse_dq"] +
+         pb["launches"]["block_sparse_dq"],
+         "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
+         "plain_ms": bs["plain_bwd_ms"],
+         "plain": "the plain backward (dq, dk, dv together)",
+         "bound_ms": bs["dq_bound_ms"], "bound_by": bs["dq_bound_by"],
+         "library_ms": bs["library_bwd_ms"],
+         "library": f"SDPA backward (dq, dk, dv) under the bool token "
+                    f"mask, B={bs['library_batch']}",
+         "shape": sparse_shape, "tolerance": bs["tol_bwd"]},
+        {"name": "flash_masked_fwd", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": f"{pallas}flash_attention.py:209 (_apply_layout_mask) "
+                     f"on :497 (_fwd_kernel), via make_masked_flash_attention "
+                     f":1482",
+         "launches": pm["launches"]["flash_masked_fwd"],
+         "max_abs_err": max(fm["max_abs_err_out"], fm["max_abs_err_lse"]),
+         "ms": fm["fwd_ms"], "plain_ms": fm["plain_fwd_ms"],
+         "bound_ms": fm["fwd_bound_ms"], "bound_by": fm["fwd_bound_by"],
+         "library_ms": fm["library_fwd_ms"],
+         "library": f"SDPA under the bool token mask, B="
+                    f"{fm['library_batch']}",
+         "block_sparse_ms": fm["block_sparse_fwd_ms"],
+         "dense_flash_ms": fm["dense_flash_fwd_ms"],
+         "shape": masked_shape, "tolerance": fm["tol_out"]},
+        {"name": "flash_masked_bwd", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{pallas}flash_attention.py:209 (_apply_layout_mask) "
+                     f"on :948, :1038 (_bwd_dkv_kernel, _bwd_dq_kernel), "
+                     f"via make_masked_flash_attention :1482",
+         "launches": pm["launches"]["flash_masked_bwd_dkv"],
+         "launches_by_kernel": {
+             "dkv": pm["launches"]["flash_masked_bwd_dkv"],
+             "dq": pm["launches"]["flash_masked_bwd_dq"]},
+         "max_abs_err": max(fm[f"max_abs_err_{g}"]
+                            for g in ("dq", "dk", "dv")),
+         "ms": fm["bwd_ms"], "plain_ms": fm["plain_bwd_ms"],
+         "bound_ms": fm["bwd_bound_ms"], "bound_by": fm["bwd_bound_by"],
+         "library_ms": fm["library_bwd_ms"],
+         "library": f"SDPA backward under the bool token mask, B="
+                    f"{fm['library_batch']}",
+         "block_sparse_ms": fm["block_sparse_bwd_ms"],
+         "dense_flash_ms": fm["dense_flash_bwd_ms"],
+         "shape": masked_shape + " (dkv + dq kernels)",
+         "tolerance": fm["tol_bwd"]},
     ]
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),
               "w") as f:
         json.dump(report, f, indent=1)
+    print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

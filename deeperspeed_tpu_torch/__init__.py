@@ -8,11 +8,14 @@ weights and int8 KV pages as options) and trains it on one card:
 `initialize()` returns a `DeepSpeedEngine` whose `train_batch` runs bf16
 (or fp32) compute with fp32 masters, Adam(W), the LR schedules, gradient
 clipping and ZeRO stages 0-2, with a dense or an MoE FFN (`moe`, driven
-by the JSON "moe" block). Hand-written CUDA kernels (`ops/hopper`,
-sources in `csrc`) carry the flash attention forward and backward, the
-paged decode over bf16/fp32 and int8 pages, the weight-only int8 matmul,
-the grouped expert matmul (forward and dW) and the flat Adam step. The
-port never imports JAX or `deeperspeed_tpu`.
+by the JSON "moe" block) and dense or block-sparse attention
+(`ops/sparse_attention`, driven by the JSON "sparse_attention" block).
+Hand-written CUDA kernels (`ops/hopper`, sources in `csrc`) carry the
+flash attention forward and backward (with an optional block-layout
+mask), the block-sparse attention forward and backward, the paged
+decode over bf16/fp32 and int8 pages, the weight-only int8 matmul, the
+grouped expert matmul (forward and dW) and the flat Adam step. The port
+never imports JAX or `deeperspeed_tpu`.
 """
 
 from . import moe

@@ -1,10 +1,14 @@
-// Causal flash-attention backward with optional segment ids, for sm_90a.
+// Causal flash-attention backward with optional segment ids and an
+// optional 128-grain layout mask, for sm_90a.
 //
 // Replaces the TPU kernels of deeperspeed_tpu/ops/pallas/flash_attention.py
 // that `_bwd` reaches: `_bwd_single_kernel` / `_bwd_single_mh_kernel` (one
 // block holds the whole sequence, S <= 1024, no segments) and the tiled
 // `_bwd_dkv_kernel` / `_bwd_dq_kernel` (longer sequences, segmented
-// calls). They compute one function, so one pair of kernels covers both:
+// calls, and the layout-masked calls of `make_masked_flash_attention`,
+// where a tile of an inactive 128 x 128 block is skipped and, optionally,
+// every key attends). They compute one function, so one pair of kernels
+// covers them all:
 //
 //   P  = exp(s * scale - lse) on live (causal, same-segment) pairs, else 0
 //   dP = dO V^T,  dS = P * (dP - delta) * scale
@@ -33,147 +37,52 @@
 // - q, k and v are read through (batch, seq, head) strides, so the views
 //   split out of the fused QKV projection need no copy; dO is contiguous
 //   [B, S, H, D]; dq, dk, dv are written [B, S, H, D] contiguous.
+// - The tile steps (load, P and dS, the dK/dV and dQ sums, the stores)
+//   are attention_tiles.cuh's, shared with the block-sparse backward.
 #include <climits>
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block (16 x 16 micro-tile grid)
-
-// rows per tile (q rows and keys alike): 64, or 32 where D = 256 would
-// not fit four fp32 tiles in shared memory
-template <int D>
-__host__ __device__ constexpr int tile_rows() {
-  return D <= 128 ? 64 : 32;
-}
-
-template <int D>
-constexpr size_t bwd_smem_bytes() {
-  constexpr int B = tile_rows<D>();
-  return sizeof(float) * (4 * B * (D + 1) + 2 * B * (B + 1) + 2 * B) +
-         sizeof(int) * 2 * B;
-}
-
-struct Strides {
-  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
-};
-
-// rows [r0, r0 + B) of one head of x (read through its strides) into
-// smem [B][D + 1] as fp32; rows at or past S read as 0
-template <typename T, int D, int B>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int S, long long row_stride) {
-  for (int i = threadIdx.x; i < B * D; i += NT) {
-    const int r = i / D, d = i % D, row = r0 + r;
-    dst[r * (D + 1) + d] =
-        row < S ? ds::to_float(src[row * row_stride + d]) : 0.f;
-  }
-}
+using ds::attn::BwdSmem;
+using ds::attn::NT;
+using ds::attn::Strides;
 
 // any live (causal, same-segment) pair between q rows [q0, q0 + B) and
 // keys [k0, k0 + B)? Called by every thread of the block.
 template <int B>
 __device__ __forceinline__ bool tile_live(const int* seg_q, const int* seg_k,
-                                          int q0, int k0, int S) {
+                                          int q0, int k0, int S, int causal) {
   int hit = 0;
   for (int i = threadIdx.x; i < B * B; i += NT) {
     const int r = i / B, c = i % B;
     const int row = q0 + r, key = k0 + c;
-    hit |= (row < S && key <= row && seg_q[r] == seg_k[c]);
+    hit |= (row < S && key < S && (!causal || key <= row) &&
+            seg_q[r] == seg_k[c]);
   }
   return __syncthreads_or(hit);
 }
 
-// P and dS of one (q tile, key tile) pair into Ps / dSs [B][B + 1]:
-// thread (ty, tx) computes rows ty + 16i and keys tx + 16j.
-template <int D, int B>
-__device__ __forceinline__ void p_and_ds(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* row_lse, const float* row_delta, const int* seg_q,
-    const int* seg_k, bool use_seg, int q0, int k0, int S, float sm_scale,
-    float* Ps, float* dSs) {
-  constexpr int R = B / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[R][R], dp[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float qv[R], dov[R], kv[R], vv[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-      dov[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-      vv[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      const int row = q0 + r, key = k0 + c;
-      bool live = key <= row && row < S && key < S;
-      if (use_seg) live = live && seg_q[r] == seg_k[c];
-      const float p =
-          live ? __expf(s[i][j] * sm_scale - row_lse[r]) : 0.f;
-      Ps[r * (B + 1) + c] = p;
-      dSs[r * (B + 1) + c] = p * (dp[i][j] - row_delta[r]) * sm_scale;
-    }
-  }
+// segment ids of rows [r0, r0 + B) into dst; rows at or past S get INT_MIN
+template <int B>
+__device__ __forceinline__ void load_seg(int* dst, const int* seg_b, int r0,
+                                         int S) {
+  for (int i = threadIdx.x; i < B; i += NT)
+    dst[i] = r0 + i < S ? seg_b[r0 + i] : INT_MIN;
 }
 
-// the shared-memory carve-up of both kernels
-template <int D>
-struct Smem {
-  static constexpr int B = tile_rows<D>();
-  float *Qs, *dOs, *Ks, *Vs, *Ps, *dSs, *row_lse, *row_delta;
-  int *seg_q, *seg_k;
-  __device__ explicit Smem(float* base) {
-    Qs = base;
-    dOs = Qs + B * (D + 1);
-    Ks = dOs + B * (D + 1);
-    Vs = Ks + B * (D + 1);
-    Ps = Vs + B * (D + 1);
-    dSs = Ps + B * (B + 1);
-    row_lse = dSs + B * (B + 1);
-    row_delta = row_lse + B;
-    seg_q = reinterpret_cast<int*>(row_delta + B);
-    seg_k = seg_q + B;
+// the live pairs of a flash tile: in range, causal (when asked), same
+// segment (when segmented)
+struct FlashLive {
+  const int *seg_q, *seg_k;
+  int q0, k0, S, causal;
+  __device__ bool operator()(int r, int c) const {
+    const int row = q0 + r, key = k0 + c;
+    return row < S && key < S && (!causal || key <= row) &&
+           (seg_q == nullptr || seg_q[r] == seg_k[c]);
   }
 };
-
-// q rows [q0, q0 + B): Q and dO tiles, their lse and delta, segment ids
-template <typename T, int D>
-__device__ __forceinline__ void load_q_side(Smem<D>& sm, const T* qb,
-                                            const T* db, const float* lse_bh,
-                                            const float* delta_bh,
-                                            const int* seg_b, int q0, int S,
-                                            int H, long long qss) {
-  constexpr int B = Smem<D>::B;
-  load_tile<T, D, B>(sm.Qs, qb, q0, S, qss);
-  load_tile<T, D, B>(sm.dOs, db, q0, S, (long long)H * D);
-  for (int i = threadIdx.x; i < B; i += NT) {
-    const bool ok = q0 + i < S;
-    sm.row_lse[i] = ok ? lse_bh[q0 + i] : -ds::NEG_INF;
-    sm.row_delta[i] = ok ? delta_bh[q0 + i] : 0.f;
-    if (seg_b != nullptr) sm.seg_q[i] = ok ? seg_b[q0 + i] : INT_MIN;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
@@ -181,18 +90,17 @@ __global__ void __launch_bounds__(NT)
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         const int* __restrict__ seg, T* __restrict__ dk,
+                         const int* __restrict__ seg,
+                         const int* __restrict__ layout, T* __restrict__ dk,
                          T* __restrict__ dv, int S, int H, Strides st,
-                         float sm_scale) {
-  constexpr int B = tile_rows<D>();
-  constexpr int R = B / 16;   // keys per thread
-  constexpr int DJ = D / 16;  // head dims per thread
+                         float sm_scale, int causal) {
+  constexpr int B = ds::attn::bwd_rows<D>();
   extern __shared__ float smem[];
-  Smem<D> sm(smem);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  BwdSmem<D> sm(smem);
   const int kt = blockIdx.x;  // key tile 0 (the most q tiles) first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = kt * B;
+  const int nb = S / 128;  // layout blocks a row (layout calls only)
   const T* qb = q + b * st.qsb + h * st.qsh;
   const T* kb = k + b * st.ksb + h * st.ksh;
   const T* vb = v + b * st.vsb + h * st.vsh;
@@ -201,69 +109,39 @@ __global__ void __launch_bounds__(NT)
   const float* delta_bh = delta + (long long)bh * S;
   const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
 
-  load_tile<T, D, B>(sm.Ks, kb, k0, S, st.kss);
-  load_tile<T, D, B>(sm.Vs, vb, k0, S, st.vss);
-  if (seg_b != nullptr)
-    for (int i = threadIdx.x; i < B; i += NT)
-      sm.seg_k[i] = k0 + i < S ? seg_b[k0 + i] : INT_MIN;
+  ds::attn::bwd_load_tile<T, D, B>(sm.Ks, kb, k0, S, st.kss);
+  ds::attn::bwd_load_tile<T, D, B>(sm.Vs, vb, k0, S, st.vss);
+  if (seg_b != nullptr) load_seg<B>(sm.seg_k, seg_b, k0, S);
 
-  float acc_k[R][DJ], acc_v[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  float acc_k[B / 16][D / 16], acc_v[B / 16][D / 16];
+  ds::attn::zero(acc_k);
+  ds::attn::zero(acc_v);
 
   const int n_qt = (S + B - 1) / B;
-  for (int qt = kt; qt < n_qt; ++qt) {  // q tiles before kt are all masked
+  // with causal, q tiles before kt are all masked
+  for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
     const int q0 = qt * B;
+    if (layout != nullptr &&
+        layout[((long long)h * nb + q0 / 128) * nb + k0 / 128] == 0)
+      continue;  // inactive layout block
     __syncthreads();  // the previous tile's readers are done
     if (seg_b != nullptr) {
-      for (int i = threadIdx.x; i < B; i += NT)
-        sm.seg_q[i] = q0 + i < S ? seg_b[q0 + i] : INT_MIN;
+      load_seg<B>(sm.seg_q, seg_b, q0, S);
       __syncthreads();
-      if (!tile_live<B>(sm.seg_q, sm.seg_k, q0, k0, S)) continue;
+      if (!tile_live<B>(sm.seg_q, sm.seg_k, q0, k0, S, causal)) continue;
     }
-    load_q_side<T, D>(sm, qb, db, lse_bh, delta_bh, seg_b, q0, S, H, st.qss);
+    ds::attn::bwd_load_q_side<T, D>(sm, qb, db, lse_bh, delta_bh, q0, S, H,
+                                    st.qss);
     __syncthreads();
-    p_and_ds<D, B>(sm.Qs, sm.dOs, sm.Ks, sm.Vs, sm.row_lse, sm.row_delta,
-                   sm.seg_q, sm.seg_k, seg_b != nullptr, q0, k0, S, sm_scale,
-                   sm.Ps, sm.dSs);
+    ds::attn::bwd_p_and_ds<D>(
+        sm, sm_scale,
+        FlashLive{seg_b != nullptr ? sm.seg_q : nullptr, sm.seg_k, q0, k0, S,
+                  causal});
     __syncthreads();
-    // dV += P^T dO, dK += dS^T Q for keys ty + 16i, dims tx + 16j
-#pragma unroll 4
-    for (int r = 0; r < B; ++r) {
-      float pv[R], dsv[R], dov[DJ], qv[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pv[i] = sm.Ps[r * (B + 1) + ty + 16 * i];
-        dsv[i] = sm.dSs[r * (B + 1) + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        dov[j] = sm.dOs[r * (D + 1) + tx + 16 * j];
-        qv[j] = sm.Qs[r * (D + 1) + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          acc_v[i][j] = fmaf(pv[i], dov[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv[j], acc_k[i][j]);
-        }
-    }
+    ds::attn::bwd_acc_dkv<D>(sm, acc_k, acc_v);
   }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= S) continue;
-    const long long o = (((long long)b * S + key) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[o + tx + 16 * j] = ds::from_float<T>(acc_k[i][j]);
-      dv[o + tx + 16 * j] = ds::from_float<T>(acc_v[i][j]);
-    }
-  }
+  ds::attn::bwd_store<T, D>(dk, acc_k, b, h, k0, S, H);
+  ds::attn::bwd_store<T, D>(dv, acc_v, b, h, k0, S, H);
 }
 
 template <typename T, int D>
@@ -272,148 +150,122 @@ __global__ void __launch_bounds__(NT)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        const int* __restrict__ seg, T* __restrict__ dq,
-                        int S, int H, Strides st, float sm_scale) {
-  constexpr int B = tile_rows<D>();
-  constexpr int R = B / 16;   // q rows per thread
-  constexpr int DJ = D / 16;  // head dims per thread
+                        const int* __restrict__ seg,
+                        const int* __restrict__ layout, T* __restrict__ dq,
+                        int S, int H, Strides st, float sm_scale,
+                        int causal) {
+  constexpr int B = ds::attn::bwd_rows<D>();
   extern __shared__ float smem[];
-  Smem<D> sm(smem);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  BwdSmem<D> sm(smem);
   const int qt = gridDim.x - 1 - blockIdx.x;  // the most keys first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = qt * B;
+  const int nb = S / 128;  // layout blocks a row (layout calls only)
+  const int* lrow =
+      layout != nullptr ? layout + ((long long)h * nb + q0 / 128) * nb
+                        : nullptr;
   const T* qb = q + b * st.qsb + h * st.qsh;
   const T* kb = k + b * st.ksb + h * st.ksh;
   const T* vb = v + b * st.vsb + h * st.vsh;
   const T* db = dout + ((long long)b * S * H + h) * D;
   const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
 
-  load_q_side<T, D>(sm, qb, db, lse + (long long)bh * S,
-                    delta + (long long)bh * S, seg_b, q0, S, H, st.qss);
+  ds::attn::bwd_load_q_side<T, D>(sm, qb, db, lse + (long long)bh * S,
+                                  delta + (long long)bh * S, q0, S, H,
+                                  st.qss);
+  if (seg_b != nullptr) load_seg<B>(sm.seg_q, seg_b, q0, S);
 
-  float acc[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  float acc[B / 16][D / 16];
+  ds::attn::zero(acc);
 
-  const int last_key = min(S - 1, q0 + B - 1);  // causal limit of the tile
+  // causal limit of the tile, or every key
+  const int last_key = causal ? min(S - 1, q0 + B - 1) : S - 1;
   const int n_kt = last_key / B + 1;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * B;
+    if (lrow != nullptr && lrow[k0 / 128] == 0) continue;  // inactive block
     __syncthreads();  // the previous tile's readers are done
     if (seg_b != nullptr) {
-      for (int i = threadIdx.x; i < B; i += NT)
-        sm.seg_k[i] = k0 + i < S ? seg_b[k0 + i] : INT_MIN;
+      load_seg<B>(sm.seg_k, seg_b, k0, S);
       __syncthreads();
-      if (!tile_live<B>(sm.seg_q, sm.seg_k, q0, k0, S)) continue;
+      if (!tile_live<B>(sm.seg_q, sm.seg_k, q0, k0, S, causal)) continue;
     }
-    load_tile<T, D, B>(sm.Ks, kb, k0, S, st.kss);
-    load_tile<T, D, B>(sm.Vs, vb, k0, S, st.vss);
+    ds::attn::bwd_load_tile<T, D, B>(sm.Ks, kb, k0, S, st.kss);
+    ds::attn::bwd_load_tile<T, D, B>(sm.Vs, vb, k0, S, st.vss);
     __syncthreads();
-    p_and_ds<D, B>(sm.Qs, sm.dOs, sm.Ks, sm.Vs, sm.row_lse, sm.row_delta,
-                   sm.seg_q, sm.seg_k, seg_b != nullptr, q0, k0, S, sm_scale,
-                   sm.Ps, sm.dSs);
+    ds::attn::bwd_p_and_ds<D>(
+        sm, sm_scale,
+        FlashLive{seg_b != nullptr ? sm.seg_q : nullptr, sm.seg_k, q0, k0, S,
+                  causal});
     __syncthreads();
-    // dQ += dS K for rows ty + 16i, dims tx + 16j
-#pragma unroll 4
-    for (int c = 0; c < B; ++c) {
-      float dsv[R], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) dsv[i] = sm.dSs[(ty + 16 * i) * (B + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = sm.Ks[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+    ds::attn::bwd_acc_dq<D>(sm, acc);
   }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const long long o = (((long long)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      dq[o + tx + 16 * j] = ds::from_float<T>(acc[i][j]);
-  }
+  ds::attn::bwd_store<T, D>(dq, acc, b, h, q0, S, H);
 }
 
 // which of the two kernels a call launches
 enum class Part { kDKV, kDQ };
 
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int *seg, *layout;
+  void *g1, *g2;
+  int B, S, H;
+  Strides st;
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
+
 template <typename T, int D>
-cudaError_t launch(Part part, const void* q, const void* k, const void* v,
-                   const void* dout, const float* lse, const float* delta,
-                   const int* seg, void* g1, void* g2, int B, int S, int H,
-                   const Strides& st, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<D>();
-  constexpr int rows = tile_rows<D>();
-  const dim3 grid((S + rows - 1) / rows, B * H);
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* td = static_cast<const T*>(dout);
+cudaError_t launch(Part part, const Args& a) {
+  constexpr size_t smem = ds::attn::bwd_smem_bytes<D>();
+  constexpr int rows = ds::attn::bwd_rows<D>();
+  const dim3 grid((a.S + rows - 1) / rows, a.B * a.H);
+  const T* tq = static_cast<const T*>(a.q);
+  const T* tk = static_cast<const T*>(a.k);
+  const T* tv = static_cast<const T*>(a.v);
+  const T* td = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (part == Part::kDKV) {
     auto kernel = flash_bwd_dkv_kernel<T, D>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, stream>>>(tq, tk, tv, td, lse, delta, seg,
-                                       static_cast<T*>(g1),
-                                       static_cast<T*>(g2), S, H, st,
-                                       sm_scale);
+    kernel<<<grid, NT, smem, a.stream>>>(
+        tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout,
+        static_cast<T*>(a.g1), static_cast<T*>(a.g2), a.S, a.H, a.st,
+        a.sm_scale, a.causal);
   } else {
     auto kernel = flash_bwd_dq_kernel<T, D>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, stream>>>(tq, tk, tv, td, lse, delta, seg,
-                                       static_cast<T*>(g1), S, H, st,
-                                       sm_scale);
+    kernel<<<grid, NT, smem, a.stream>>>(
+        tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout,
+        static_cast<T*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, Part part, const void* q, const void* k,
-                       const void* v, const void* dout, const float* lse,
-                       const float* delta, const int* seg, void* g1, void* g2,
-                       int B, int S, int H, const Strides& st, float sm_scale,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(int D, Part part, const Args& a) {
   switch (D) {
     case 64:
-      return launch<T, 64>(part, q, k, v, dout, lse, delta, seg, g1, g2, B,
-                           S, H, st, sm_scale, stream);
+      return launch<T, 64>(part, a);
     case 128:
-      return launch<T, 128>(part, q, k, v, dout, lse, delta, seg, g1, g2, B,
-                            S, H, st, sm_scale, stream);
+      return launch<T, 128>(part, a);
     case 256:
-      return launch<T, 256>(part, q, k, v, dout, lse, delta, seg, g1, g2, B,
-                            S, H, st, sm_scale, stream);
+      return launch<T, 256>(part, a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int run(Part part, const void* q, const void* k, const void* v,
-        const void* dout, const void* lse, const void* delta, const void* seg,
-        void* g1, void* g2, int B, int S, int H, int D, const Strides& st,
-        float sm_scale, int dtype, void* stream) {
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const int* s = static_cast<const int*>(seg);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (dtype == ds::DTYPE_F32)
-    return dispatch_d<float>(D, part, q, k, v, dout, l, dl, s, g1, g2, B, S,
-                             H, st, sm_scale, cs);
-  if (dtype == ds::DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(D, part, q, k, v, dout, l, dl, s, g1,
-                                     g2, B, S, H, st, sm_scale, cs);
+int run(Part part, const Args& a, int D, int dtype) {
+  if (dtype == ds::DTYPE_F32) return dispatch_d<float>(D, part, a);
+  if (dtype == ds::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, part, a);
   return cudaErrorInvalidValue;
 }
 
@@ -421,32 +273,41 @@ int run(Part part, const void* q, const void* k, const void* v,
 
 // q, k, v: [B, S, H, D] read through (batch, seq, head) strides, head dim
 // contiguous; dout: [B, S, H, D] contiguous; lse, delta: [B·H, S] fp32;
-// seg: [B, S] int32 contiguous or null (plain causal). ds_flash_bwd_dkv
-// writes dk, dv and ds_flash_bwd_dq writes dq, each [B, S, H, D]
-// contiguous in q's dtype. Each returns cudaGetLastError() after its
-// launch.
+// seg: [B, S] int32 contiguous or null; layout: [H, S/128, S/128] int32
+// contiguous or null (S a multiple of 128 when set); causal: 0 attends
+// every key (layout calls only). ds_flash_bwd_dkv writes dk, dv and
+// ds_flash_bwd_dq writes dq, each [B, S, H, D] contiguous in q's dtype.
+// Each returns cudaGetLastError() after its launch.
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, const void* seg, void* dk,
-                                void* dv, int B, int S, int H, int D,
-                                long long qsb, long long qss, long long qsh,
-                                long long ksb, long long kss, long long ksh,
-                                long long vsb, long long vss, long long vsh,
-                                float sm_scale, int dtype, void* stream) {
-  const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  return run(Part::kDKV, q, k, v, dout, lse, delta, seg, dk, dv, B, S, H, D,
-             st, sm_scale, dtype, stream);
+                                const void* delta, const void* seg,
+                                const void* layout, void* dk, void* dv, int B,
+                                int S, int H, int D, long long qsb,
+                                long long qss, long long qsh, long long ksb,
+                                long long kss, long long ksh, long long vsb,
+                                long long vss, long long vsh, float sm_scale,
+                                int causal, int dtype, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), static_cast<const int*>(seg),
+               static_cast<const int*>(layout), dk, dv, B, S, H,
+               Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
+               sm_scale, causal, static_cast<cudaStream_t>(stream)};
+  return run(Part::kDKV, a, D, dtype);
 }
 
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, const void* seg, void* dq,
-                               int B, int S, int H, int D, long long qsb,
-                               long long qss, long long qsh, long long ksb,
-                               long long kss, long long ksh, long long vsb,
-                               long long vss, long long vsh, float sm_scale,
+                               const void* delta, const void* seg,
+                               const void* layout, void* dq, int B, int S,
+                               int H, int D, long long qsb, long long qss,
+                               long long qsh, long long ksb, long long kss,
+                               long long ksh, long long vsb, long long vss,
+                               long long vsh, float sm_scale, int causal,
                                int dtype, void* stream) {
-  const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  return run(Part::kDQ, q, k, v, dout, lse, delta, seg, dq, nullptr, B, S,
-             H, D, st, sm_scale, dtype, stream);
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), static_cast<const int*>(seg),
+               static_cast<const int*>(layout), dq, nullptr, B, S, H,
+               Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
+               sm_scale, causal, static_cast<cudaStream_t>(stream)};
+  return run(Part::kDQ, a, D, dtype);
 }

@@ -20,7 +20,10 @@ engine runs prefill and decode through the same `_block_qkv` /
 With ``moe_num_experts`` the FFN of every block is the MoE layer
 (`moe/layer.py`, parameters ``blocks.{i}.mlp.{gate,w_in,b_in,w_out,
 b_out}``), its load-balancing loss added to the LM loss; the JSON "moe"
-block turns a dense model into one (`GPTNeoX.apply_ds_config`).
+block turns a dense model into one (`GPTNeoX.apply_ds_config`). With
+``attention_engine="sparse"`` (or the JSON "sparse_attention" block) the
+attention core is a `SparseSelfAttention` over the block's pattern
+(`make_sparse_attention`).
 """
 
 import dataclasses
@@ -54,10 +57,10 @@ class GPTNeoXConfig:
     param_dtype: object = torch.float32
     # The remaining fields mirror the JAX config so one config object
     # describes one model in both packages. `GPTNeoX` builds the dense
-    # and the MoE FFN (the serving engine refuses an MoE model); the
-    # sparse attention engine, packed segment ids, the MoE routing
-    # statistics and the quantized FFN wait for their slices, and
-    # `GPTNeoX` refuses a config that asks for them.
+    # and the MoE FFN and the dense or sparse attention engine (the
+    # serving engine refuses MoE and sparse models); packed segment ids,
+    # the MoE routing statistics and the quantized FFN wait for their
+    # slices, and `GPTNeoX` refuses a config that asks for them.
     moe_num_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -252,14 +255,19 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
 
 
 def block_forward(cfg, params, x, cos_sin, use_kernels=True,
-                  segment_ids=None, rng=None):
+                  segment_ids=None, rng=None, attn_fn=None):
     """One GPT-NeoX block: x + attn(ln1(x)) + ffn(ln2(x)); with MoE the
-    return is (out, aux_loss)."""
+    return is (out, aux_loss). ``attn_fn`` (the sparse engine of
+    `make_sparse_attention`) replaces `causal_attention` as the core."""
     B, S, h = x.shape
     cos, sin, rot_dim = cos_sin
     q, k, v = _block_qkv(cfg, params, x, cos, sin, rot_dim, cfg.num_heads)
-    attn = causal_attention(q, k, v, use_kernels=use_kernels,
-                            segment_ids=segment_ids)
+    if attn_fn is not None:
+        attn = attn_fn(q, k, v, segment_ids=segment_ids,
+                       use_kernels=use_kernels)
+    else:
+        attn = causal_attention(q, k, v, use_kernels=use_kernels,
+                                segment_ids=segment_ids)
     return _block_post_attn(cfg, params, x, attn.reshape(B, S, h), rng=rng,
                             use_kernels=use_kernels)
 
@@ -270,16 +278,18 @@ def lm_head(params, h):
     return (h @ wte.to(h.dtype).t()).float()
 
 
-def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None):
+def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
+                   attn_fn=None):
     """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
     (out, the blocks' aux losses summed). The blocks draw their gate
-    jitter from ``rng`` in turn."""
+    jitter from ``rng`` in turn; ``attn_fn`` is their attention core
+    when set (`block_forward`)."""
     x = params["embed"]["wte"][tokens]
     cos_sin = _rotary_cache(cfg, tokens.shape[1], device=x.device)
     aux_total = None
     for bp in params["blocks"]:
         x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
-                          rng=rng)
+                          rng=rng, attn_fn=attn_fn)
         if cfg.moe_num_experts:
             x, aux = x
             aux_total = aux if aux_total is None else aux_total + aux
@@ -288,9 +298,9 @@ def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None):
     return (out, aux_total) if cfg.moe_num_experts else out
 
 
-def forward(cfg, params, tokens, use_kernels=True):
+def forward(cfg, params, tokens, use_kernels=True, attn_fn=None):
     """tokens [B, S] int → logits [B, S, V] (fp32)."""
-    x = forward_hidden(cfg, params, tokens, use_kernels)
+    x = forward_hidden(cfg, params, tokens, use_kernels, attn_fn=attn_fn)
     if cfg.moe_num_experts:
         x, _ = x
     return lm_head(params, x)
@@ -343,12 +353,64 @@ def unflatten(flat):
 # the module
 # ---------------------------------------------------------------------------
 
+def make_sparse_attention(cfg, sparse_params=None):
+    """The config-selectable block-sparse attention engine
+    (`cfg.attention_engine == "sparse"`, `gpt_neox.make_sparse_attention`
+    of the JAX package): a `SparseSelfAttention` over the JSON
+    "sparse_attention" block's pattern, used as the blocks' attention
+    core.
+
+    A causal LM needs a unidirectional pattern: `attention` defaults to
+    "unidirectional" here (the reference's block default is
+    bidirectional, which would leak future tokens into the LM loss), and
+    an explicitly bidirectional pattern, or the dense mode (which cannot
+    express a direction), raises ValueError.
+
+    Returns ``attn_fn(q, k, v, segment_ids=None, use_kernels=True)`` for
+    `forward_hidden(attn_fn=...)`; ``use_kernels=False`` takes the plain
+    versions of the arm's kernels."""
+    d = dict(sparse_params or {})
+    d.setdefault("mode", "fixed")
+    d.setdefault("block", 128)
+    d["num_heads"] = cfg.num_heads
+    if d.get("attention") is None:
+        # the JSON parse leaves an unset `attention` as None, so "unset"
+        # and "asked for bidirectional" differ; only the latter is an
+        # error on a causal LM
+        d["attention"] = "unidirectional"
+    from ..ops.sparse_attention import (SparseSelfAttention,
+                                        sparsity_config_from_dict)
+    sc = sparsity_config_from_dict(d)
+    # a config class without an `attention` attribute (dense) cannot
+    # express directionality, and `get_layout` reads a missing attribute
+    # as bidirectional
+    if getattr(sc, "attention", "bidirectional") != "unidirectional":
+        raise ValueError(
+            f"attention_engine 'sparse' on a causal LM needs a "
+            f"unidirectional sparsity pattern; mode {d['mode']!r} with "
+            f"attention={getattr(sc, 'attention', None)!r} attends "
+            f"bidirectionally (future-token leak). Use mode 'fixed' or "
+            f"'variable' with attention='unidirectional'")
+    sp = SparseSelfAttention(sc, max_seq_length=cfg.max_seq_len)
+
+    def attn_fn(q, k, v, segment_ids=None, use_kernels=True):
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "the block-sparse attention engine is not segment-aware; "
+                "packed batches need attention_engine='dense'")
+        return sp(q, k, v, use_kernels=use_kernels)
+
+    attn_fn.sparse_self_attention = sp
+    return attn_fn
+
+
 def _refuse_unported(cfg):
     """Raise on config fields whose paths are not ported yet, instead of
     training without them."""
-    if cfg.attention_engine != "dense":
-        raise NotImplementedError(
-            "the sparse attention engine is not ported yet (sparse slice)")
+    if cfg.attention_engine not in ("dense", "sparse"):
+        raise ValueError(
+            f"attention_engine must be 'dense' or 'sparse', got "
+            f"{cfg.attention_engine!r}")
     if cfg.use_segment_ids:
         raise NotImplementedError(
             "packed segment ids (use_segment_ids) are not ported yet "
@@ -424,6 +486,10 @@ class GPTNeoX(nn.Module):
         self.config = cfg
         self.use_kernels = use_kernels
         self._init_seed = 0
+        # the sparse engine: set by apply_ds_config, or built lazily for
+        # attention_engine="sparse" set on the config
+        self._attn_fn = None
+        self._sparse_params = None
         h, v = cfg.hidden_size, cfg.vocab_size
         dt = cfg.param_dtype
 
@@ -458,20 +524,48 @@ class GPTNeoX(nn.Module):
         self._init_seed = int(seed)
         return self
 
+    def _attention_fn(self):
+        """The attention core `forward_hidden` uses: the sparse engine
+        when configured (built here for ``attention_engine="sparse"`` set
+        on the config without a JSON block), else None (dense)."""
+        if self._attn_fn is None and \
+                self.config.attention_engine == "sparse":
+            self._attn_fn = make_sparse_attention(self.config,
+                                                  self._sparse_params)
+        return self._attn_fn
+
+    @property
+    def sparse_self_attention(self):
+        """The sparse engine's `SparseSelfAttention` (its layouts and the
+        arm each sequence length takes), or None with dense attention."""
+        fn = self._attention_fn()
+        return None if fn is None else fn.sparse_self_attention
+
     @torch.no_grad()
     def apply_ds_config(self, ds_config):
-        """Wire the JSON "moe" block into the model (`GPTNeoX.
-        apply_ds_config` of the JAX package); the training engine calls
-        it before it builds its flat state. The config takes the block's
-        values; each block's FFN holder whose shapes differ from the new
-        config's (a dense model made MoE) is rebuilt and its leaves drawn
-        with `init_params`' rule from a generator seeded with the last
-        `init_params` seed, and one whose shapes match keeps its weights.
-        The other blocks the JAX method wires are refused by
+        """Wire the JSON "moe" and "sparse_attention" blocks into the
+        model (`GPTNeoX.apply_ds_config` of the JAX package); the training
+        engine calls it before it builds its flat state. "moe": the
+        config takes the block's values; each block's FFN holder whose
+        shapes differ from the new config's (a dense model made MoE) is
+        rebuilt and its leaves drawn with `init_params`' rule from a
+        generator seeded with the last `init_params` seed, and one whose
+        shapes match keeps its weights. "sparse_attention": the attention
+        core becomes the sparse engine over the block's pattern (the same
+        parameters). The other blocks the JAX method wires are refused by
         `DeepSpeedConfig` until their slices."""
         moe = getattr(ds_config, "moe_params", None)
-        if not moe:
-            return
+        if moe:
+            self._apply_moe(moe)
+        sparse = getattr(ds_config, "sparse_attention", None)
+        if sparse:
+            self.config = dataclasses.replace(self.config,
+                                              attention_engine="sparse")
+            self._sparse_params = dict(sparse)
+            self._attn_fn = make_sparse_attention(self.config,
+                                                  self._sparse_params)
+
+    def _apply_moe(self, moe):
         self.config = dataclasses.replace(
             self.config,
             moe_num_experts=moe["num_experts"],
@@ -517,7 +611,8 @@ class GPTNeoX(nn.Module):
     def forward(self, tokens):
         """tokens [B, S] → logits [B, S, V] (fp32)."""
         return forward(self.config, self.params_tree(), tokens,
-                       use_kernels=self.use_kernels)
+                       use_kernels=self.use_kernels,
+                       attn_fn=self._attention_fn())
 
     def loss_fn(self, params, batch, rng=None):
         """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
@@ -532,7 +627,8 @@ class GPTNeoX(nn.Module):
                 "ported yet (long-context slice)")
         cfg = self.config
         hidden = forward_hidden(cfg, params, tokens,
-                                use_kernels=self.use_kernels, rng=rng)
+                                use_kernels=self.use_kernels, rng=rng,
+                                attn_fn=self._attention_fn())
         if not cfg.moe_num_experts:
             return lm_head_loss(params, hidden, labels)
         hidden, aux = hidden

@@ -11,13 +11,21 @@ are one function too, computed by `csrc/flash_bwd.cu`. The headers of the
 sources say what bounds each kernel on the H100 and what its design does
 about that.
 
+The layout-mask flag (`make_masked_flash_attention`, the dense-ish arm of
+`SparseSelfAttention`) replaces `_apply_layout_mask` on the same TPU
+kernels: the kernels take an ``[H, S/128, S/128]`` int32 block map and
+skip every tile of an inactive 128×128 block, which gives what the
+TPU kernel's additive -1e30 penalty gives. Those launches are counted
+apart (``masked_*``), so a run can tell the two arms apart.
+
 Contract (the JAX package's):
 
 - q, k, v ``[B, S, H, D]`` in, out ``[B, S, H, D]`` in q's dtype; lse
   ``[B·H, S]`` fp32 (the JAX package's ``[B·H, 1, S]`` residual,
   squeezed);
-- causal, with ``segment_ids`` ``[B, S]`` int (optional) ANDed into the
-  mask; masked scores are -1e30;
+- causal (or, with a layout, optionally not), with ``segment_ids``
+  ``[B, S]`` int (optional) and the layout's blocks ANDed into the mask;
+  masked scores are -1e30;
 - a row with no live key gives zero output, lse = +1e30 and zero
   gradients;
 - ``sm_scale`` defaults to 1/√D;
@@ -35,16 +43,23 @@ every length goes through the kernels here.
 
 import math
 
+import numpy as np
 import torch
 
 from . import _build
 
 NEG_INF = -1e30
 
-# kernel launches since the last reset (`chip_smoke.py` reads these)
+MASK_GRAIN = 128  # layout-mask granularity (one sparsity block)
+
+# kernel launches since the last reset (`chip_smoke.py` reads these):
+# plain causal / segmented calls, and calls with a layout mask
 launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
+masked_launches = 0
+masked_bwd_dkv_launches = 0
+masked_bwd_dq_launches = 0
 
 
 def _acc(t):
@@ -53,25 +68,41 @@ def _acc(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _live_mask(S, segment_ids, device):
-    """Causal mask [1 or B, S, S], ANDed with segment equality."""
-    mask = torch.ones(S, S, dtype=torch.bool, device=device).tril()[None]
+def layout_token_mask(layout, S):
+    """[H, S/128, S/128] block map → [H, S, S] bool token mask."""
+    mask = layout.to(torch.bool)
+    return mask.repeat_interleave(S // mask.shape[1], dim=1) \
+        .repeat_interleave(S // mask.shape[2], dim=2)
+
+
+def _live_mask(S, segment_ids, device, layout=None, causal=True):
+    """Live (row, key) pairs [1 or B, 1 or H, S, S]: causal (or all),
+    ANDed with segment equality and the layout's blocks."""
+    mask = torch.ones(S, S, dtype=torch.bool, device=device)
+    if causal:
+        mask = mask.tril()
+    mask = mask[None, None]
     if segment_ids is not None:
-        mask = mask & (segment_ids[:, :, None] == segment_ids[:, None, :])
+        mask = mask & (segment_ids[:, None, :, None] ==
+                       segment_ids[:, None, None, :])
+    if layout is not None:
+        mask = mask & layout_token_mask(layout.to(device), S)[None]
     return mask
 
 
 def flash_attention_segmented_reference(q, k, v, segment_ids=None,
-                                        sm_scale=None):
+                                        sm_scale=None, layout=None,
+                                        causal=True):
     """Plain PyTorch version: `causal_attention`'s XLA branch
-    (`gpt_neox.py:355-364`) plus the lse, on any device. Returns
-    (out [B, S, H, D] in v's dtype, lse [B·H, S] fp32)."""
+    (`gpt_neox.py:355-364`) plus the lse, on any device; with a
+    ``layout``, dense attention under its token mask (the JAX package's
+    `dense_masked_attention`). Returns (out [B, S, H, D] in v's dtype,
+    lse [B·H, S] fp32)."""
     B, S, H, D = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     logits = torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k)) * scale
-    mask = _live_mask(S, segment_ids, q.device)
-    logits = torch.where(mask[:, None], logits,
-                         torch.full_like(logits, NEG_INF))
+    mask = _live_mask(S, segment_ids, q.device, layout, causal)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     p = torch.where(logits <= NEG_INF * 0.5, torch.zeros_like(p), p)
@@ -99,9 +130,9 @@ def _check(q, k, v, segment_ids):
                          f"{tuple(q.shape[:2])}")
 
 
-def _kernel_args(q, k, v, segment_ids, what):
-    """Check what the kernels take → (int32 segment ids or None, dtype
-    code, sm_scale default)."""
+def _kernel_args(q, k, v, segment_ids, what, layout=None):
+    """Check what the kernels take → (int32 segment ids or None, int32
+    layout or None, dtype code, sm_scale default)."""
     B, S, H, D = q.shape
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
@@ -120,7 +151,18 @@ def _kernel_args(q, k, v, segment_ids, what):
         if segment_ids.device != q.device:
             raise ValueError("segment_ids must be on q's device")
         seg = segment_ids.to(torch.int32).contiguous()
-    return seg, _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D)
+    lay = None
+    if layout is not None:
+        n = S // MASK_GRAIN
+        if S % MASK_GRAIN or tuple(layout.shape) != (H, n, n):
+            raise ValueError(f"{what} kernel needs S a multiple of "
+                             f"{MASK_GRAIN} and the layout [H, S/128, "
+                             f"S/128] = {(H, n, n)}, got S = {S} and "
+                             f"{tuple(layout.shape)}")
+        if layout.device != q.device:
+            raise ValueError("layout must be on q's device")
+        lay = layout.to(torch.int32).contiguous()
+    return seg, lay, _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D)
 
 
 def _strides(q, k, v):
@@ -129,12 +171,14 @@ def _strides(q, k, v):
             v.stride(0), v.stride(1), v.stride(2))
 
 
-def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None):
-    """Launch `csrc/flash_fwd.cu` on CUDA tensors → (out, lse)."""
-    global launches
+def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None,
+                         layout=None, causal=True):
+    """Launch `csrc/flash_fwd.cu` on CUDA tensors → (out, lse). Without a
+    ``layout`` the call is causal."""
+    global launches, masked_launches
     B, S, H, D = q.shape
-    seg, code, default_scale = _kernel_args(q, k, v, segment_ids,
-                                            "flash attention forward")
+    seg, lay, code, default_scale = _kernel_args(
+        q, k, v, segment_ids, "flash attention forward", layout)
     scale = sm_scale if sm_scale is not None else default_scale
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
@@ -142,10 +186,15 @@ def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None):
     err = lib.ds_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         seg.data_ptr() if seg is not None else None,
+        lay.data_ptr() if lay is not None else None,
         out.data_ptr(), lse.data_ptr(), B, S, H, D, *_strides(q, k, v),
-        float(scale), code, _build.stream_ptr(q))
+        float(scale), int(causal or lay is None), code,
+        _build.stream_ptr(q))
     _build.check(err, "ds_flash_fwd")
-    launches += 1
+    if lay is None:
+        launches += 1
+    else:
+        masked_launches += 1
     return out, lse
 
 
@@ -158,7 +207,7 @@ def attention_delta(out, do):
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, segment_ids=None,
-                                  sm_scale=None):
+                                  sm_scale=None, layout=None, causal=True):
     """Plain PyTorch backward from the saved (out, lse), by the explicit
     formulas (no autograd): P = exp(s·scale − lse) on live pairs, dS =
     P ∘ (dP − delta) · scale, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K, every
@@ -168,7 +217,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, segment_ids=None,
     qf, kf, vf, dof = _acc(q), _acc(k), _acc(v), _acc(do)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     lse4 = lse.reshape(B, H, S, 1).to(s.dtype)
-    live = _live_mask(S, segment_ids, q.device)[:, None]
+    live = _live_mask(S, segment_ids, q.device, layout, causal)
     p = torch.where(live, torch.exp(s - lse4), torch.zeros_like(s))
     delta = attention_delta(out, do).reshape(B, H, S, 1).to(s.dtype)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -180,14 +229,16 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, segment_ids=None,
 
 
 def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
-                             sm_scale=None):
+                             sm_scale=None, layout=None, causal=True):
     """Launch the two kernels of `csrc/flash_bwd.cu` on CUDA tensors →
     (dq, dk, dv), [B, S, H, D] contiguous in q's dtype. ``do`` is made
-    contiguous; ``delta`` is `attention_delta` [B·H, S] fp32."""
+    contiguous; ``delta`` is `attention_delta` [B·H, S] fp32. Without a
+    ``layout`` the call is causal."""
     global bwd_dkv_launches, bwd_dq_launches
+    global masked_bwd_dkv_launches, masked_bwd_dq_launches
     B, S, H, D = q.shape
-    seg, code, default_scale = _kernel_args(q, k, v, segment_ids,
-                                            "flash attention backward")
+    seg, lay, code, default_scale = _kernel_args(
+        q, k, v, segment_ids, "flash attention backward", layout)
     scale = sm_scale if sm_scale is not None else default_scale
     do = do.to(q.dtype).contiguous()
     for name, t in (("lse", lse), ("delta", delta)):
@@ -201,45 +252,58 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
     dv = torch.empty_like(dq)
     lib = _build.load_library()
     stream = _build.stream_ptr(q)
-    common = (B, S, H, D, *_strides(q, k, v), float(scale), code, stream)
+    common = (B, S, H, D, *_strides(q, k, v), float(scale),
+              int(causal or lay is None), code, stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(),
-           seg.data_ptr() if seg is not None else None)
+           seg.data_ptr() if seg is not None else None,
+           lay.data_ptr() if lay is not None else None)
     err = lib.ds_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dkv")
-    bwd_dkv_launches += 1
+    if lay is None:
+        bwd_dkv_launches += 1
+    else:
+        masked_bwd_dkv_launches += 1
     err = lib.ds_flash_bwd_dq(*ins, dq.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dq")
-    bwd_dq_launches += 1
+    if lay is None:
+        bwd_dq_launches += 1
+    else:
+        masked_bwd_dq_launches += 1
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernels (CUDA tensors) or the plain versions (CPU tensors) in
-    both directions; segment ids and the scale take no gradient."""
+    """The kernels (CUDA tensors, ``use_kernels``) or the plain versions
+    in both directions; segment ids, the layout and the scale take no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, sm_scale):
-        if q.device.type == "cuda":
-            out, lse = flash_attention_cuda(q, k, v, segment_ids, sm_scale)
+    def forward(ctx, q, k, v, segment_ids, sm_scale, layout=None,
+                causal=True, use_kernels=True):
+        kernels = use_kernels and q.device.type == "cuda"
+        if kernels:
+            out, lse = flash_attention_cuda(q, k, v, segment_ids, sm_scale,
+                                            layout, causal)
         else:
             out, lse = flash_attention_segmented_reference(
-                q, k, v, segment_ids, sm_scale)
-        ctx.save_for_backward(q, k, v, out, lse, segment_ids)
-        ctx.sm_scale = sm_scale
+                q, k, v, segment_ids, sm_scale, layout, causal)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids, layout)
+        ctx.args = (sm_scale, causal, kernels)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, segment_ids = ctx.saved_tensors
-        if q.device.type == "cuda":
+        q, k, v, out, lse, segment_ids, layout = ctx.saved_tensors
+        sm_scale, causal, kernels = ctx.args
+        if kernels:
             dq, dk, dv = flash_attention_bwd_cuda(
                 q, k, v, lse, do, attention_delta(out, do), segment_ids,
-                ctx.sm_scale)
+                sm_scale, layout, causal)
         else:
             dq, dk, dv = flash_attention_bwd_reference(
-                q, k, v, out, lse, do, segment_ids, ctx.sm_scale)
-        return dq, dk, dv, None, None
+                q, k, v, out, lse, do, segment_ids, sm_scale, layout, causal)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_segmented(q, k, v, segment_ids=None, sm_scale=None):
@@ -249,4 +313,42 @@ def flash_attention_segmented(q, k, v, segment_ids=None, sm_scale=None):
     _check(q, k, v, segment_ids)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash attention path for device {q.device}")
-    return _FlashAttention.apply(q, k, v, segment_ids, sm_scale)
+    return _FlashAttention.apply(q, k, v, segment_ids, sm_scale, None,
+                                 True, True)
+
+
+def make_masked_flash_attention(layout128, causal=False, sm_scale=None):
+    """Flash attention honoring a static 128-grain block layout (the JAX
+    package's `make_masked_flash_attention`, the high-density arm of
+    `SparseSelfAttention`): the exact block-sparse pattern semantics,
+    with the kernels skipping the tiles of inactive blocks.
+
+    layout128: [H, S/128, S/128] numpy bool/int block-activity mask.
+    Returns fn(q, k, v, use_kernels=True) on [B, S, H, D], differentiable
+    in q, k, v: the CUDA kernels for CUDA tensors, the plain versions for
+    CPU tensors or with ``use_kernels=False``."""
+    layout = torch.as_tensor(np.asarray(layout128) != 0, dtype=torch.int32)
+    on_device = {}
+
+    def fn(q, k, v, use_kernels=True):
+        h, s = q.shape[2], q.shape[1]
+        if h != layout.shape[0]:
+            raise ValueError(
+                f"got {h} heads, layout has {layout.shape[0]}")
+        if s != layout.shape[1] * MASK_GRAIN:
+            raise ValueError(
+                f"got seq {s}, layout covers "
+                f"{layout.shape[1] * MASK_GRAIN}")
+        _check(q, k, v, None)
+        if q.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no flash attention path for device "
+                             f"{q.device}")
+        key = str(q.device)
+        if key not in on_device:
+            on_device[key] = layout.to(q.device)
+        return _FlashAttention.apply(q, k, v, None, sm_scale,
+                                     on_device[key], causal, use_kernels)
+
+    fn.layout = layout
+    fn.causal = causal
+    return fn

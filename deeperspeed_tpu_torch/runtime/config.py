@@ -6,13 +6,14 @@ keys, defaults and `DeepSpeedConfigError` messages for what it parses,
 so a config written for the JAX package means the same here. The
 training parser reads what the port's engine runs (the batch triple,
 precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
-stages 0-2) and the "moe" block the model reads (`GPTNeoX.apply_ds_config`);
-every other top-level block of the JAX config that is set raises "not
-ported" (`constants.NOT_PORTED_BLOCKS`).
+stages 0-2) and the "moe" and "sparse_attention" blocks the model reads
+(`GPTNeoX.apply_ds_config`); every other top-level block of the JAX
+config that is set raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
-from .config_utils import DeepSpeedConfigError, as_int, load_config_json
+from .config_utils import (DeepSpeedConfigError, as_int, get_scalar_param,
+                           load_config_json)
 from .precision import resolve_precision
 from .zero.config import DeepSpeedZeroConfig
 
@@ -25,6 +26,102 @@ def _is_set(block):
     if isinstance(block, dict) and block.get("enabled", True) is False:
         return False
     return True
+
+
+def _parse_sparse_attention(param_dict):
+    """Parse the "sparse_attention" block into a plain dict of knobs
+    (reference `config.py:213-383`)."""
+    sparsity = param_dict.get(c.SPARSE_ATTENTION)
+    if sparsity is None:
+        return None
+    mode = get_scalar_param(sparsity, c.SPARSE_MODE, c.SPARSE_MODE_DEFAULT)
+
+    common = {
+        c.SPARSE_MODE: mode,
+        c.SPARSE_BLOCK: get_scalar_param(sparsity, c.SPARSE_BLOCK,
+                                         c.SPARSE_BLOCK_DEFAULT),
+        c.SPARSE_DIFFERENT_LAYOUT_PER_HEAD: get_scalar_param(
+            sparsity, c.SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+            c.SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT),
+    }
+    if mode == c.SPARSE_DENSE_MODE:
+        return common
+    if mode == c.SPARSE_FIXED_MODE:
+        extra = {
+            c.SPARSE_NUM_LOCAL_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_LOCAL_BLOCKS,
+                c.SPARSE_NUM_LOCAL_BLOCKS_DEFAULT),
+            c.SPARSE_NUM_GLOBAL_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_GLOBAL_BLOCKS,
+                c.SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT),
+            # unset stays None: the consumer picks its default —
+            # the SparsityConfig constructors keep the reference's
+            # bidirectional, the causal-LM sparse engine (gpt_neox.
+            # make_sparse_attention) needs unidirectional and must be
+            # able to tell "user asked for bidirectional" apart
+            c.SPARSE_ATTENTION_TYPE: get_scalar_param(
+                sparsity, c.SPARSE_ATTENTION_TYPE, None),
+            c.SPARSE_HORIZONTAL_GLOBAL_ATTENTION: get_scalar_param(
+                sparsity, c.SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+                c.SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT),
+            c.SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS,
+                c.SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT),
+        }
+    elif mode == c.SPARSE_VARIABLE_MODE:
+        extra = {
+            c.SPARSE_NUM_RANDOM_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_RANDOM_BLOCKS,
+                c.SPARSE_NUM_RANDOM_BLOCKS_DEFAULT),
+            c.SPARSE_LOCAL_WINDOW_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_LOCAL_WINDOW_BLOCKS,
+                c.SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT),
+            c.SPARSE_GLOBAL_BLOCK_INDICES: get_scalar_param(
+                sparsity, c.SPARSE_GLOBAL_BLOCK_INDICES,
+                c.SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT),
+            c.SPARSE_GLOBAL_BLOCK_END_INDICES: get_scalar_param(
+                sparsity, c.SPARSE_GLOBAL_BLOCK_END_INDICES,
+                c.SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT),
+            # unset stays None: the consumer picks its default —
+            # the SparsityConfig constructors keep the reference's
+            # bidirectional, the causal-LM sparse engine (gpt_neox.
+            # make_sparse_attention) needs unidirectional and must be
+            # able to tell "user asked for bidirectional" apart
+            c.SPARSE_ATTENTION_TYPE: get_scalar_param(
+                sparsity, c.SPARSE_ATTENTION_TYPE, None),
+            c.SPARSE_HORIZONTAL_GLOBAL_ATTENTION: get_scalar_param(
+                sparsity, c.SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+                c.SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT),
+        }
+    elif mode == c.SPARSE_BIGBIRD_MODE:
+        extra = {
+            c.SPARSE_NUM_RANDOM_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_RANDOM_BLOCKS,
+                c.SPARSE_NUM_RANDOM_BLOCKS_DEFAULT),
+            c.SPARSE_NUM_SLIDING_WINDOW_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+                c.SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT),
+            c.SPARSE_NUM_GLOBAL_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_GLOBAL_BLOCKS,
+                c.SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT),
+        }
+    elif mode == c.SPARSE_BSLONGFORMER_MODE:
+        extra = {
+            c.SPARSE_NUM_SLIDING_WINDOW_BLOCKS: get_scalar_param(
+                sparsity, c.SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+                c.SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT),
+            c.SPARSE_GLOBAL_BLOCK_INDICES: get_scalar_param(
+                sparsity, c.SPARSE_GLOBAL_BLOCK_INDICES,
+                c.SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT),
+            c.SPARSE_GLOBAL_BLOCK_END_INDICES: get_scalar_param(
+                sparsity, c.SPARSE_GLOBAL_BLOCK_END_INDICES,
+                c.SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT),
+        }
+    else:
+        raise DeepSpeedConfigError(
+            f"Invalid sparse_attention mode {mode!r}")
+    common.update(extra)
+    return common
 
 
 class DeepSpeedConfig:
@@ -149,6 +246,7 @@ class DeepSpeedConfig:
             self.scheduler_params = None
 
         self.inference_params = parse_inference_block(d)
+        self.sparse_attention = _parse_sparse_attention(d)
         self._parse_moe_block(d)
 
     def _parse_moe_block(self, d):

@@ -27,6 +27,7 @@ The LR is read before the step and the scheduler steps after each step
 taken.
 
 MoE: a "moe" config block is handed to the model's `apply_ds_config`
+(as is a "sparse_attention" block, which swaps the attention core)
 before the flat state is built, so the flat buffers hold the expert
 weights and autograd adds their dW into the flat gradient views like any
 other leaf. The gate jitter draws from one `torch.Generator` on the
@@ -71,9 +72,10 @@ class DeepSpeedEngine:
 
     ``model`` is a `models.gpt_neox.GPTNeoX` (any `torch.nn.Module` with
     ``loss_fn(params, batch, rng=None)`` and ``params_tree()``, and
-    ``apply_ds_config(config)`` where the config has a "moe" block); it
-    trains on the device its parameters are on. ``config`` (a JSON path)
-    or ``config_params`` (a dict) is the DeepSpeed config.
+    ``apply_ds_config(config)`` where the config has a "moe" or a
+    "sparse_attention" block); it trains on the device its parameters
+    are on. ``config`` (a JSON path) or ``config_params`` (a dict) is the
+    DeepSpeed config.
     """
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -112,12 +114,12 @@ class DeepSpeedEngine:
                 "fp16 training on the GPU (the kernels are built for fp32 "
                 "and bf16)", "fp16 kernels")
 
-        if self._config.moe_enabled:
+        if self._config.moe_enabled or self._config.sparse_attention:
             if not hasattr(model, "apply_ds_config"):
                 raise DeepSpeedConfigError(
-                    "config enables moe but the model does not implement "
-                    "apply_ds_config(config) (models.gpt_neox.GPTNeoX "
-                    "does)")
+                    "config enables moe/sparse_attention but the model "
+                    "does not implement apply_ds_config(config) "
+                    "(models.gpt_neox.GPTNeoX does)")
             model.apply_ds_config(self._config)
         # the gate jitter's generator (the JAX engine's base key 1234)
         self._rng = torch.Generator(device=self.device).manual_seed(1234)
@@ -155,6 +157,12 @@ class DeepSpeedEngine:
 
     def gradient_accumulation_steps(self):
         return self._config.gradient_accumulation_steps
+
+    def sparse_attention_config(self):
+        """The parsed "sparse_attention" block (reference engine
+        accessor); build the pattern object with
+        `ops.sparse_attention.sparsity_config_from_dict`."""
+        return self._config.sparse_attention
 
     def zero_optimization(self):
         return self._config.zero_enabled

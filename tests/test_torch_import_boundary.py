@@ -1,7 +1,7 @@
 """The port stands alone: nothing in `deeperspeed_tpu_torch/` or
 `chip_smoke.py` imports JAX, jaxlib or the JAX package, and building a
-CPU serving engine (bf16/fp32 and int8) and a dense and an MoE training
-engine leaves JAX out of `sys.modules`."""
+CPU serving engine (bf16/fp32 and int8) and a dense, an MoE and a
+block-sparse training engine leaves JAX out of `sys.modules`."""
 
 import ast
 import os
@@ -76,6 +76,15 @@ def test_engine_on_cpu_loads_no_jax():
         "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}},\n"
         "    'moe': {'num_experts': 4, 'top_k': 2, 'dispatch': 'sort'}})\n"
         "assert eng.train_batch(batch=(x, x)) > 0 and m.config.moe_top_k == 2\n"
+        "sp = GPTNeoX(GPTNeoXConfig(vocab_size=512, hidden_size=128,\n"
+        "    num_layers=1, num_heads=2), device='cpu').init_params(0)\n"
+        "eng, *_ = initialize(model=sp, config_params={\n"
+        "    'train_batch_size': 1,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}},\n"
+        "    'sparse_attention': {'mode': 'fixed', 'block': 128}})\n"
+        "x = torch.randint(0, 512, (1, 1, 256))\n"
+        "assert eng.train_batch(batch=(x, x)) > 0\n"
+        "assert sp.config.attention_engine == 'sparse'\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu'))\n"
         "print(bad)\n")

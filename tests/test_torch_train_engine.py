@@ -335,8 +335,7 @@ def test_unported_model_fields_raise():
     """A config field whose path is not ported raises at model build
     instead of training without it (the JAX model would use it)."""
     for field, match in (({"use_segment_ids": True}, "long-context"),
-                         ({"ffn_quant_recipe": "fp8"}, "not ported"),
-                         ({"attention_engine": "sparse"}, "sparse")):
+                         ({"ffn_quant_recipe": "fp8"}, "not ported")):
         with pytest.raises(NotImplementedError, match=match):
             neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, **field), device="cpu")
 
