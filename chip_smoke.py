@@ -26,7 +26,11 @@ Phases (any failure exits non-zero before the final line):
    l4g1) and on the dead-row layout; each timed beside SDPA under the
    token mask, the port's dense causal flash and the other sparse arm;
    and both sparse arms timed on four layouts of density 0.12-0.53 at
-   B=8, S=2048, where they cross;
+   B=8, S=2048, where they cross; the flash forward and backward with
+   the key-bias and dropout flags at BERT-large's shape (B=20, S=512,
+   H=16, D=64, not causal), rates 0 and 0.1, exact zeros on an
+   all-masked batch row, timed beside SDPA under the float mask, and the
+   fused and materialized attention paths timed at S = 128 and 512;
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted;
@@ -35,8 +39,8 @@ Phases (any failure exits non-zero before the final line):
 6. profile (only with ``--profile``): `torch.profiler` over a steady
    window of decode steps at B=16, over one B=4, S=512 prefill call of
    the same bf16 model, over a decode window of each serve-quant rung of
-   phase 9, over one training step of phase 7, one of phase 11 and one
-   of phase 13: host ms per step,
+   phase 9, over one training step of phase 7, one of phase 11, one of
+   phase 13 and one of phase 15: host ms per step,
    device kernel ms per step, the device's busy share, launches per step
    and the top kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
@@ -76,7 +80,18 @@ Phases (any failure exits non-zero before the final line):
    through the plain versions of the same arm: (a) the masked flash arm
    on phase 8's GPT-NeoX-125M (S 1024, micro 2 x gas 2, l4g1), (b) the
    block-sparse arm on phase 13's model at S 8192 (micro 1, l16g1); the
-   losses must agree within rtol 1e-4.
+   losses must agree within rtol 1e-4;
+15. BERT training (bench.py's row_bert512 on one card): BERT-large
+   (336,232,258 parameters) through `initialize()` → `train_batch`,
+   Adam lr 1e-4, bf16, ZeRO-2, dropout 0.1, micro 20 x 512 tokens with
+   an all-ones mask and 15% MLM labels, 10 steps and one `eval_batch`,
+   with exact launch counts (24 flash forward, 24 dk/dv and 24 dq
+   launches a step, all with the key-bias and dropout flags, 1 Adam)
+   and peak memory below 80 GB;
+16. BERT training parity, fp32: BERT-large's widths at 4 layers (S 512,
+   micro 2 x gas 2, dropout 0.1, a ragged mask), 3 steps through the
+   kernels and 3 through the plain versions from generators seeded
+   alike; the losses must agree within rtol 1e-4.
 
 It prints its wall seconds, one JSON line of kernel results, then the
 card line, then as the last line ``{"ok": true, "device": {...}}``. A
@@ -85,6 +100,7 @@ nothing of JAX.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -203,6 +219,28 @@ SPARSE_TRAIN_CONFIG = {
 }
 SPARSE_SEQ = 16384
 SPARSE_STEPS = 10
+# train-bert-large-512: bench.py's row_bert512 on one card (bench.py:520,
+# _bert_row :463-516): BERT-large at full width and depth, Adam lr 1e-4,
+# bf16, ZeRO-2, micro 20 x gas 1 at 512 tokens, dropout 0.1, an all-ones
+# mask (a zero key bias), 15% MLM labels
+BERT_SEQ = 512
+BERT_MICRO = 20
+BERT_STEPS = 10
+BERT_NUM_PARAMS = 336_232_258
+BERT_TRAIN_CONFIG = {
+    "train_batch_size": BERT_MICRO,
+    "steps_per_print": 10_000,
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+    "fp16": {"enabled": True, "type": "bfloat16"},
+    "zero_optimization": {"stage": 2},
+}
+BERT_DROPOUT_SEED = 123457
+# the flash kernels' key-bias / dropout flags against their plain
+# versions: bf16 as the flash checks above; fp32 differs only in the
+# summation order, and one flipped keep bit moves an output by about
+# p / (1 - rate), some 1e-3 at S = 512, so 1e-5 catches it
+TOL_FLAGS = {torch.bfloat16: {"out": (2e-2, 2e-2), "bwd": (3e-2, 3e-2)},
+             torch.float32: {"out": (1e-5, 1e-5), "bwd": (1e-5, 1e-5)}}
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
 
@@ -1477,6 +1515,162 @@ def check_sparse_crossover(bsa, fa, gen, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the key-bias and dropout flags of the flash kernels (BERT)
+# ---------------------------------------------------------------------------
+
+def bert_attention_case(dtype, gen, B=BERT_MICRO, S=BERT_SEQ, H=16, D=64):
+    """q, k, v as the fused layer hands them over (views split out of one
+    [B, S, 3·H·D] projection), a ragged key bias whose last batch row is
+    all masked, dO, the seed and the live keys of each batch row."""
+    qkv = torch.randn(B, S, 3 * H * D, generator=gen, device="cuda").to(
+        dtype)
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+    lens = torch.randint(S // 4, S + 1, (B,), generator=gen, device="cuda")
+    lens[0], lens[-1] = S, 0
+    kbias = torch.where(torch.arange(S, device="cuda")[None] < lens[:, None],
+                        0.0, -1e30)
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    seed = torch.tensor([BERT_DROPOUT_SEED], dtype=torch.int32,
+                        device="cuda")
+    return q, k, v, kbias, do, seed, lens
+
+
+def materialized_attention(q, k, v, kbias, seed, rate):
+    """The fused layer's materialized path on [B, S, H, D] (short S):
+    fp32 scores plus the key bias, softmax, the hash dropout on the
+    probabilities, P·V in the input dtype."""
+    from deeperspeed_tpu_torch.ops.transformer.transformer import _dropout
+    scale = 1.0 / q.shape[-1] ** 0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(logits + kbias[:, None, None, :], dim=-1)
+    probs = _dropout(probs.to(q.dtype), rate, seed.reshape(()), False)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def check_bert_attention(fa, gen, report):
+    """Phase 3 for the fused BERT layer's attention: the flash forward and
+    backward with the key-bias and dropout flags at BERT-large's shape
+    (B=20, S=512, H=16, D=64, not causal), bf16 and fp32, rates 0 and
+    0.1, against their plain versions, with exact zeros (lse +1e30) on
+    the all-masked batch row; in bf16 each timed beside its plain
+    version, SDPA under the float mask with dropout_p = rate (timed
+    only) and its bound; then the kernel path and the materialized path
+    (forward + backward, rate 0.1) at S = 128 and 512, where the layer
+    switches between them."""
+    import torch.nn.functional as F
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, kbias, do, seed, lens = bert_attention_case(dtype, gen)
+        B, S, H, D = q.shape
+        pairs = int(lens.sum()) * S * H
+        for rate in (0.0, 0.1):
+            flags = (None, None, None, False, kbias, seed, rate)
+            out, lse = fa.flash_attention_cuda(q, k, v, *flags)
+            ref_out, ref_lse = fa.flash_attention_segmented_reference(
+                q, k, v, *flags)
+            delta = fa.attention_delta(out, do)
+            got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta,
+                                              *flags)
+            want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    *flags)
+            torch.cuda.synchronize()
+            row = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+                   "rate": rate, "live_pairs": pairs,
+                   "tol_out": TOL_FLAGS[dtype]["out"],
+                   "tol_bwd": TOL_FLAGS[dtype]["bwd"]}
+            row["max_abs_err_out"], ok = close(out, ref_out,
+                                               *TOL_FLAGS[dtype]["out"])
+            row["max_abs_err_lse"], ok_l = close(lse, ref_lse,
+                                                 *TOL[dtype]["lse"])
+            ok = ok and ok_l
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                row[f"max_abs_err_{name}"], good = close(
+                    g, w, *TOL_FLAGS[dtype]["bwd"])
+                ok = ok and good
+            dead = bool((out[-1] == 0).all()) and \
+                bool((lse[-H:] == 1e30).all()) and \
+                all(bool((g[-1] == 0).all()) for g in got)
+            print(f"  flash kbias/dropout {row}, dead row exact: {dead}",
+                  flush=True)
+            if not ok:
+                fail(f"flash kernels with the key-bias/dropout flags "
+                     f"disagree with their plain versions: {row}")
+            if not dead:
+                fail(f"the all-masked batch row is not exactly zero (lse "
+                     f"+1e30) through the flagged flash kernels: {row}")
+            del ref_out, ref_lse, want
+            if dtype == torch.bfloat16:
+                row["ms"] = time_ms(lambda: fa.flash_attention_cuda(
+                    q, k, v, *flags))
+                row["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, lse, do, delta, *flags))
+                row["plain_ms"] = time_ms(
+                    lambda: fa.flash_attention_segmented_reference(
+                        q, k, v, *flags), warmup=2, iters=10)
+                row["plain_bwd_ms"] = time_ms(
+                    lambda: fa.flash_attention_bwd_reference(
+                        q, k, v, out, lse, do, *flags), warmup=2, iters=10)
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              .requires_grad_() for t in (q, k, v))
+                mask = kbias[:, None, None, :].to(dtype)
+                with torch.no_grad():
+                    row["library_ms"] = time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, dropout_p=rate))
+                o_lib = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, dropout_p=rate)
+                do_t = do.transpose(1, 2).contiguous()
+                row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                    o_lib, (qt, kt, vt), do_t, retain_graph=True))
+                row["library"] = (f"SDPA, float mask [B, 1, 1, S], "
+                                  f"dropout_p={rate}")
+                row["bound_ms"], row["bound_by"] = attn_bound_ms(
+                    q, pairs, "fwd", extra_bytes=B * S * 4)
+                row["bwd_bound_ms"], row["bwd_bound_by"] = attn_bound_ms(
+                    q, pairs, "bwd", extra_bytes=B * S * 4)
+                print(f"  flash kbias/dropout rate {rate} times: forward "
+                      f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+                      f"SDPA {row['library_ms']:.4f}, bound "
+                      f"{row['bound_ms']:.5f} {row['bound_by']}), backward "
+                      f"{row['bwd_ms']:.4f} ms (plain "
+                      f"{row['plain_bwd_ms']:.4f}, SDPA "
+                      f"{row['library_bwd_ms']:.4f}, bound "
+                      f"{row['bwd_bound_ms']:.5f} {row['bwd_bound_by']})",
+                      flush=True)
+                del qt, kt, vt, o_lib, do_t
+            rows.append(row)
+            del out, lse, got, delta
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    # where the layer switches paths: fused kernels vs materialized
+    switch = []
+    for S in (128, BERT_SEQ):
+        q, k, v, kbias, do, seed, _ = bert_attention_case(torch.bfloat16,
+                                                          gen, S=S)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+        def fused():
+            o = fa.flash_attention_train(qg, kg, vg, kbias, seed,
+                                         dropout_rate=0.1)
+            torch.autograd.grad(o, (qg, kg, vg), do)
+
+        def materialized():
+            o = materialized_attention(qg, kg, vg, kbias, seed, 0.1)
+            torch.autograd.grad(o, (qg, kg, vg), do)
+
+        r = {"S": S, "B": BERT_MICRO, "kernel_ms": time_ms(fused),
+             "materialized_ms": time_ms(materialized, warmup=2, iters=10)}
+        print(f"  fused vs materialized attention, forward + backward, "
+              f"rate 0.1, S={S}: kernels {r['kernel_ms']:.4f} ms, "
+              f"materialized {r['materialized_ms']:.4f} ms", flush=True)
+        switch.append(r)
+        del q, k, v, qg, kg, vg, do
+        torch.cuda.empty_cache()
+    report["bert_attention"] = {"rows": rows, "path_switch": switch}
+    return rows, switch
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving at full width
 # ---------------------------------------------------------------------------
 
@@ -1900,18 +2094,23 @@ def reset_attention_counts(fa, bsa):
     fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
     fa.masked_launches = fa.masked_bwd_dkv_launches = 0
     fa.masked_bwd_dq_launches = 0
+    fa.reset_flag_launches()
     bsa.launches = bsa.dkv_launches = bsa.dq_launches = 0
 
 
 def attention_counts(fa, bsa):
-    return {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
-            "flash_bwd_dq": fa.bwd_dq_launches,
-            "flash_masked_fwd": fa.masked_launches,
-            "flash_masked_bwd_dkv": fa.masked_bwd_dkv_launches,
-            "flash_masked_bwd_dq": fa.masked_bwd_dq_launches,
-            "block_sparse_fwd": bsa.launches,
-            "block_sparse_dkv": bsa.dkv_launches,
-            "block_sparse_dq": bsa.dq_launches}
+    counts = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+              "flash_bwd_dq": fa.bwd_dq_launches,
+              "flash_masked_fwd": fa.masked_launches,
+              "flash_masked_bwd_dkv": fa.masked_bwd_dkv_launches,
+              "flash_masked_bwd_dq": fa.masked_bwd_dq_launches,
+              "block_sparse_fwd": bsa.launches,
+              "block_sparse_dkv": bsa.dkv_launches,
+              "block_sparse_dq": bsa.dq_launches}
+    for kernel, by_flags in fa.flag_launches.items():
+        for flags, n in by_flags.items():
+            counts[f"flash_{kernel}_{flags}"] = n
+    return counts
 
 
 def train_sparse(fa, bsa, ad, report, profile_step=False):
@@ -2047,6 +2246,195 @@ def sparse_parity(fa, bsa, report, key, block, model_kw, seq, micro, gas,
         fail(f"{key}: the kernel run launched {used}, the plain run "
              f"{counts[False]}; want only the {arm} kernels, and none")
     return report[key]
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training train-bert-large-512
+# ---------------------------------------------------------------------------
+
+def bert_batch(gas, micro, seq, vocab, seed=2, ragged=False):
+    """bench.py _bert_row's batch (:491-495) as [gas, micro, ...] device
+    tensors: ids from numpy rng ``seed``, an all-ones mask (with
+    ``ragged``, each row keeps a random prefix), 15% MLM labels, NSP
+    labels."""
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, vocab, (gas, micro, seq), np.int32)
+    mask = np.ones((gas, micro, seq), np.float32)
+    labels = np.where(r.random((gas, micro, seq)) < 0.15, ids,
+                      -1).astype(np.int32)
+    nsp = r.integers(0, 2, (gas, micro), np.int32)
+    if ragged:
+        lens = r.integers(seq // 4, seq + 1, (gas, micro))
+        mask = (np.arange(seq) < lens[..., None]).astype(np.float32)
+    batch = {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
+             "attention_mask": mask, "masked_lm_labels": labels,
+             "next_sentence_label": nsp}
+    return {key: torch.from_numpy(val).cuda() for key, val in batch.items()}
+
+
+def bert_ftok(cfg, seq):
+    """bench.py _bert_row's model flops a token (:502-504)."""
+    H, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    return 6 * (L * 12 * H * H + H * H + H * V) + 12 * L * H * seq
+
+
+def train_bert(fa, bsa, ad, report, profile_step=False):
+    """Phase 15: BERT-large pretraining (bench.py's row_bert512) through
+    `initialize()` → `train_batch`, 10 bf16 steps on one batch and one
+    `eval_batch`, every attention launch counted: each of the 24 layers
+    a step takes the flash forward, dk/dv and dq kernels with both the
+    key-bias and dropout flags, and nothing else."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import BertConfig, BertForPreTraining
+    cfg = BertConfig.large()
+    model = BertForPreTraining(cfg, device="cuda").init_params(1)
+    eng, *_ = dst.initialize(model=model, config_params=BERT_TRAIN_CONFIG)
+    if not eng.num_params == cfg.num_params() == BERT_NUM_PARAMS:
+        fail(f"BERT-large has {eng.num_params} parameters, not "
+             f"{BERT_NUM_PARAMS}")
+    micro = eng.train_micro_batch_size_per_gpu()
+    batch = bert_batch(1, micro, BERT_SEQ, cfg.vocab_size)
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts(fa, bsa)
+    ad.launches = 0
+    losses, step_s = [], []
+    for step in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        step_s.append(time.perf_counter() - t0)
+        print(f"  step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{step_s[-1] * 1e3:.1f} ms", flush=True)
+    launches = dict(attention_counts(fa, bsa), adam=ad.launches)
+    want = {k: 0 for k in launches}
+    want.update({f"flash_{kernel}_kbias_dropout": L * BERT_STEPS
+                 for kernel in ("fwd", "dkv", "dq")}, adam=BERT_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"a BERT training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the BERT training loss did not fall: step 1 {losses[0]:.4f}, "
+             f"step {BERT_STEPS} {losses[-1]:.4f}")
+    if launches != want:
+        fail(f"BERT training launch counts {launches} != {want} ({L} layers "
+             f"x {BERT_STEPS} steps, flash with the key-bias and dropout "
+             f"flags only)")
+    if peak >= 80e9:
+        fail(f"BERT training peak memory {peak / 2 ** 30:.2f} GiB")
+    if eng.global_steps != BERT_STEPS or eng.skipped_steps:
+        fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
+    eval_loss = eng.eval_batch({k: v[0] for k, v in batch.items()})
+    if not np.isfinite(eval_loss):
+        fail(f"eval_batch loss {eval_loss} is not finite")
+    med = float(np.median(step_s))
+    tokens_per_s = micro * BERT_SEQ / med
+    result = {
+        "steps": BERT_STEPS, "micro_batch": micro, "seq": BERT_SEQ,
+        "losses": losses, "eval_loss": eval_loss,
+        "step_ms_median": med * 1e3, "step_ms": [t * 1e3 for t in step_s],
+        "tokens_per_s": tokens_per_s,
+        "model_flops_share": tokens_per_s * bert_ftok(cfg, BERT_SEQ) /
+        PEAK_FLOPS_S,
+        "max_memory_allocated_gb": peak / 2 ** 30,
+        "num_params": eng.num_params, "launches": launches,
+        "launches_per_step": {k: v / BERT_STEPS
+                              for k, v in launches.items()},
+        "timer_tokens_per_s": eng.tput_timer.avg_tokens_per_sec(),
+    }
+    if profile_step:
+        result["profile"] = profile_window(
+            lambda: eng.train_batch(batch=batch), 1, share_of="flash")
+    report["train_bert"] = result
+    del eng, model
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 16: BERT training parity, kernels vs plain path, fp32
+# ---------------------------------------------------------------------------
+
+def bert_parity(fa, bsa, report):
+    """3 fp32 steps of BERT-large's widths at 4 layers (S 512, micro 2 x
+    gas 2, dropout 0.1, a ragged mask) through the kernels and 3 through
+    the plain versions, each engine's generator seeded alike, so both
+    draw the same dropout masks: the losses must agree within rtol
+    1e-4. The first step's gradient (both micro-batches, dropout drawn
+    from a generator seeded as the engine's) must agree element by
+    element within rtol 1e-4 (atol 1e-4 of its largest magnitude): the
+    direct check of dq, dk and dv through the model. The fp32 masters
+    after step 3 must agree within atol = rtol = 1e-4, as
+    tests/test_torch_bert.py holds them against the JAX engine."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import BertConfig, BertForPreTraining
+    cfg = dataclasses.replace(BertConfig.large(), num_layers=4)
+    conf = json.loads(json.dumps(BERT_TRAIN_CONFIG))
+    conf.update(train_batch_size=4, train_micro_batch_size_per_gpu=2,
+                gradient_accumulation_steps=2, fp16={"enabled": False})
+    batch = bert_batch(2, 2, BERT_SEQ, cfg.vocab_size, seed=3, ragged=True)
+    losses, grads, masters, launches = {}, {}, {}, None
+    for use_kernels in (True, False):
+        model = BertForPreTraining(cfg, use_kernels=use_kernels,
+                                   device="cuda").init_params(7)
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        loss = sum(model.loss_fn(model.params_tree(),
+                                 {k: v[i] for k, v in batch.items()},
+                                 rng=gen) for i in range(2)) / 2
+        grads[use_kernels] = torch.cat([
+            g.reshape(-1) for g in torch.autograd.grad(
+                loss, list(model.parameters()))])
+        reset_attention_counts(fa, bsa)
+        losses[use_kernels] = [eng.train_batch(batch=batch)
+                               for _ in range(3)]
+        masters[use_kernels] = eng._master.detach().clone()
+        if use_kernels:
+            launches = attention_counts(fa, bsa)
+        del eng, model
+        torch.cuda.empty_cache()
+    fast, plain = np.array(losses[True]), np.array(losses[False])
+    rel = np.abs(fast - plain) / np.abs(plain)
+    g_diff = (grads[True] - grads[False]).abs()
+    g_max = float(grads[False].abs().max())
+    g_off = int((g_diff > 1e-4 * (g_max + grads[False].abs())).sum())
+    diff = (masters[True] - masters[False]).abs()
+    n_off = int((diff > 1e-4 + 1e-4 * masters[False].abs()).sum())
+    n = cfg.num_layers * 2 * 3
+    report["train_bert_parity"] = {"kernels": losses[True],
+                                   "plain": losses[False],
+                                   "max_rel_diff": float(rel.max()),
+                                   "rtol": 1e-4,
+                                   "grad_max_abs_diff": float(g_diff.max()),
+                                   "grad_max_abs": g_max,
+                                   "grads_outside_tol": g_off,
+                                   "master_max_abs_diff": float(diff.max()),
+                                   "masters_outside_tol": n_off,
+                                   "master_atol_rtol": 1e-4,
+                                   "launches": launches}
+    print(f"  losses kernels {losses[True]} vs plain {losses[False]}: max "
+          f"relative difference {rel.max():.3e}; step-1 gradient max abs "
+          f"difference {float(g_diff.max()):.3e} of max {g_max:.3e}, "
+          f"{g_off} outside tolerance; masters max abs difference "
+          f"{float(diff.max()):.3e}, {n_off} outside atol = rtol = 1e-4",
+          flush=True)
+    flagged = {f"flash_{kernel}_kbias_dropout": n
+               for kernel in ("fwd", "dkv", "dq")}
+    if any(launches[k] != v for k, v in flagged.items()):
+        fail(f"BERT parity run launched {launches}, not {n} flagged flash "
+             f"forward, dk/dv and dq calls each")
+    if not (np.isfinite(fast).all() and (rel <= 1e-4).all()):
+        fail(f"fp32 BERT training losses differ between the kernel path and "
+             f"the plain path beyond rtol 1e-4: {losses}")
+    if g_off or not torch.isfinite(grads[True]).all():
+        fail(f"{g_off} elements of the fp32 step-1 gradient differ between "
+             f"the kernel path and the plain path beyond rtol 1e-4 (max abs "
+             f"difference {float(g_diff.max()):.3e} of max {g_max:.3e})")
+    if n_off or not torch.isfinite(masters[True]).all():
+        fail(f"{n_off} fp32 masters differ between the kernel path and the "
+             f"plain path after 3 steps beyond atol = rtol = 1e-4 (max abs "
+             f"difference {float(diff.max()):.3e})")
+    return report["train_bert_parity"]
 
 
 # ---------------------------------------------------------------------------
@@ -2213,6 +2601,7 @@ def main():
     bs = check_block_sparse(bsa, fa, gen, report)
     fm = check_masked_flash(bsa, fa, gen, report)
     check_sparse_crossover(bsa, fa, gen, report)
+    bert_rows, _ = check_bert_attention(fa, gen, report)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -2283,6 +2672,20 @@ def main():
     pb = sparse_parity(fa, bsa, report, "train_sparse_parity_block_sparse",
                        SPARSE_L16G1, SPARSE_MODEL, 8192, 1, 1,
                        "block_sparse")
+    print("BERT training train-bert-large-512 (bf16, fp32 masters, ZeRO-2, "
+          "dropout 0.1):", flush=True)
+    tb = train_bert(fa, bsa, ad, report, profile_step=args.profile)
+    print(f"  {tb['steps']} steps: loss {tb['losses'][0]:.4f} -> "
+          f"{tb['losses'][-1]:.4f} (eval {tb['eval_loss']:.4f}), median "
+          f"step {tb['step_ms_median']:.1f} ms, {tb['tokens_per_s']:.0f} "
+          f"tokens/s, model-flops share of the bf16 peak "
+          f"{tb['model_flops_share']:.4f}, peak memory "
+          f"{tb['max_memory_allocated_gb']:.2f} GiB, launches per step "
+          f"{ {k: v for k, v in tb['launches_per_step'].items() if v} } on "
+          f"{card}", flush=True)
+    print("BERT training parity (fp32, 4 layers, kernels vs plain):",
+          flush=True)
+    bp = bert_parity(fa, bsa, report)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -2295,6 +2698,10 @@ def main():
         print(f"  block-sparse kernels' share of device time: "
               f"{ts['profile']['device_share_block_sparse']:.3f}",
               flush=True)
+        print_profile("BERT training step (micro 20 x 512, BERT-large)",
+                      tb["profile"], card)
+        print(f"  flash kernels' share of device time: "
+              f"{tb['profile']['device_share_flash']:.3f}", flush=True)
 
     pallas = "deeperspeed_tpu/ops/pallas/"
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
@@ -2514,6 +2921,55 @@ def main():
          "dense_flash_ms": fm["dense_flash_bwd_ms"],
          "shape": masked_shape + " (dkv + dq kernels)",
          "tolerance": fm["tol_bwd"]},
+    ]
+    bert_shape = "B=20 S=512 H=16 D=64 bf16, not causal, ragged key bias " \
+        "(one batch row all masked), rate 0.1"
+    bert_row = next(r for r in bert_rows if r["dtype"] == str(torch.bfloat16)
+                    and r["rate"] == 0.1)
+    bert_fp32 = [r for r in bert_rows if r["dtype"] == str(torch.float32)]
+    kernels += [
+        {"name": "flash_fwd_kbias_dropout", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": f"{pallas}flash_attention.py:360, :378, :497 "
+                     f"(_fwd_single_kernel, _fwd_single_mh_kernel, "
+                     f"_fwd_kernel with use_bias, dropout_rate), via "
+                     f"flash_attention_kbias :1374 and flash_attention_train "
+                     f":1421 (_dropout_keep :231)",
+         "launches": tb["launches"]["flash_fwd_kbias_dropout"],
+         "launches_by_path": {"train_bert": tb["launches"][
+             "flash_fwd_kbias_dropout"], "train_bert_parity": bp[
+             "launches"]["flash_fwd_kbias_dropout"]},
+         "max_abs_err": max(bert_row["max_abs_err_out"],
+                            bert_row["max_abs_err_lse"]),
+         "max_abs_err_fp32": max(r["max_abs_err_out"] for r in bert_fp32),
+         "ms": bert_row["ms"], "plain_ms": bert_row["plain_ms"],
+         "bound_ms": bert_row["bound_ms"], "bound_by": bert_row["bound_by"],
+         "library_ms": bert_row["library_ms"],
+         "library": bert_row["library"], "shape": bert_shape,
+         "tolerance": bert_row["tol_out"],
+         "tolerance_fp32": TOL_FLAGS[torch.float32]["out"]},
+        {"name": "flash_bwd_kbias_dropout", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{pallas}flash_attention.py:736, :763, :948, :1038 "
+                     f"(_bwd_single_kernel, _bwd_single_mh_kernel, "
+                     f"_bwd_dkv_kernel, _bwd_dq_kernel with use_bias, "
+                     f"dropout_rate), via the vjps :1402-1418, :1457-1479",
+         "launches": tb["launches"]["flash_dkv_kbias_dropout"],
+         "launches_by_kernel": {
+             "dkv": tb["launches"]["flash_dkv_kbias_dropout"],
+             "dq": tb["launches"]["flash_dq_kbias_dropout"]},
+         "max_abs_err": max(bert_row[f"max_abs_err_{g}"]
+                            for g in ("dq", "dk", "dv")),
+         "max_abs_err_fp32": max(r[f"max_abs_err_{g}"] for r in bert_fp32
+                                 for g in ("dq", "dk", "dv")),
+         "ms": bert_row["bwd_ms"], "plain_ms": bert_row["plain_bwd_ms"],
+         "bound_ms": bert_row["bwd_bound_ms"],
+         "bound_by": bert_row["bwd_bound_by"],
+         "library_ms": bert_row["library_bwd_ms"],
+         "library": bert_row["library"] + " (backward)",
+         "shape": bert_shape + " (dkv + dq kernels)",
+         "tolerance": bert_row["tol_bwd"],
+         "tolerance_fp32": TOL_FLAGS[torch.float32]["bwd"]},
     ]
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels

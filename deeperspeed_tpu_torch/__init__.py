@@ -4,24 +4,30 @@ NVIDIA H100.
 The port grows slice by slice beside the JAX package, which stays the
 reference it is tested against. It serves GPT-NeoX (the continuous-
 batching `InferenceEngine` over a paged KV cache, with int8 block
-weights and int8 KV pages as options) and trains it on one card:
-`initialize()` returns a `DeepSpeedEngine` whose `train_batch` runs bf16
-(or fp32) compute with fp32 masters, Adam(W), the LR schedules, gradient
-clipping and ZeRO stages 0-2, with a dense or an MoE FFN (`moe`, driven
-by the JSON "moe" block) and dense or block-sparse attention
-(`ops/sparse_attention`, driven by the JSON "sparse_attention" block).
+weights and int8 KV pages as options) and trains GPT-NeoX and BERT on
+one card: `initialize()` returns a `DeepSpeedEngine` whose `train_batch`
+runs bf16 (or fp32) compute with fp32 masters, Adam(W), the LR
+schedules, gradient clipping and ZeRO stages 0-2. GPT-NeoX takes a
+dense or an MoE FFN (`moe`, driven by the JSON "moe" block) and dense
+or block-sparse attention (`ops/sparse_attention`, driven by the JSON
+"sparse_attention" block); BERT (`BertForPreTraining`,
+`BertForQuestionAnswering`) stacks the fused `DeepSpeedTransformerLayer`.
 Hand-written CUDA kernels (`ops/hopper`, sources in `csrc`) carry the
 flash attention forward and backward (with an optional block-layout
-mask), the block-sparse attention forward and backward, the paged
-decode over bf16/fp32 and int8 pages, the weight-only int8 matmul, the
-grouped expert matmul (forward and dW) and the flat Adam step. The port
-never imports JAX or `deeperspeed_tpu`.
+mask, key bias and dropout), the block-sparse attention forward and
+backward, the paged decode over bf16/fp32 and int8 pages, the
+weight-only int8 matmul, the grouped expert matmul (forward and dW) and
+the flat Adam step. The port never imports JAX or `deeperspeed_tpu`.
 """
 
 from . import moe
 from .inference import InferenceEngine
+from .models.bert import (BertConfig, BertForPreTraining,
+                          BertForQuestionAnswering, BertModel)
 from .models.gpt_neox import GPTNeoX, GPTNeoXConfig
 from .moe import MoELayer
+from .ops.transformer import (DeepSpeedTransformerConfig,
+                              DeepSpeedTransformerLayer)
 from .runtime.config import DeepSpeedConfig
 from .runtime.config_utils import DeepSpeedConfigError
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
@@ -36,9 +42,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                config_params=None):
     """Initialize the training engine (the JAX package's `initialize`).
 
-    ``model`` is a `GPTNeoX` whose parameters are initialized or loaded;
-    it trains on their device (build it with ``device="cpu"`` to train on
-    the CPU). ``config`` is a JSON path, ``config_params`` a dict.
+    ``model`` is a `GPTNeoX`, a `BertForPreTraining` or a
+    `BertForQuestionAnswering` whose parameters are initialized or
+    loaded; it trains on their device (build it with ``device="cpu"`` to
+    train on the CPU). ``config`` is a JSON path, ``config_params`` a dict.
 
     Returns ``(engine, engine.optimizer, engine.training_dataloader,
     engine.lr_scheduler)``. A pipeline model and more than one
@@ -64,4 +71,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
            "DeepSpeedConfigError", "DeepSpeedDataLoader", "RepeatingLoader",
            "InferenceEngine", "GPTNeoX", "GPTNeoXConfig", "MoELayer", "moe",
-           "log_dist", "logger", "__version__"]
+           "BertConfig", "BertModel", "BertForPreTraining",
+           "BertForQuestionAnswering", "DeepSpeedTransformerConfig",
+           "DeepSpeedTransformerLayer", "log_dist", "logger",
+           "__version__"]

@@ -12,7 +12,14 @@
 // memory as fp32 with rows padded by one word against bank conflicts;
 // all products are fp32 FMA on register micro-tiles (thread (ty, tx) of
 // a 16 x 16 grid owns rows ty + 16i and columns tx + 16j).
+//
+// The flash kernels' BERT flags ride the same steps as two functors: a
+// per-key additive bias (`KeyBias`) and dropout on P (`Dropout`). Their
+// defaults (`NoBias`, `NoDropout`) are compile-time no-ops, so every
+// caller that passes neither keeps its code.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -26,6 +33,91 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
+// the flags: key bias and dropout
+// ---------------------------------------------------------------------------
+
+// no key bias
+struct NoBias {
+  static constexpr bool kOn = false;
+  __device__ float operator()(int) const { return 0.f; }
+};
+
+// the additive bias of the key tile's keys, staged in shared memory by
+// the kernel (`flash_attention_kbias`: 0 keeps a key, -1e30 masks it);
+// added after the scale, as the TPU kernels add it
+struct KeyBias {
+  static constexpr bool kOn = true;
+  const float* tile;  // [keys of the tile]
+  __device__ float operator()(int c) const { return tile[c]; }
+};
+
+// `_dropout_keep` of deeperspeed_tpu/ops/pallas/flash_attention.py:231: a
+// 2-round avalanche hash of (seed, b·H + h, absolute row, absolute key),
+// kept when its low 31 bits reach `thresh`. The TPU kernel computes it in
+// wrapping int32; unsigned arithmetic wraps the same way, and its logical
+// shifts equal the int32 `(x >> 16) & 0xFFFF`, `(x >> 15) & 0x1FFFF`.
+// `mix` is seed + pid * 0xC2B2AE35. The last multiplier is the TPU code's
+// -2073452917, that is 0x84699E8B (its comment names 0x846CA68B, another
+// number; the code is what the masks follow).
+__device__ __forceinline__ bool dropout_keep(unsigned mix, int row, int col,
+                                             int thresh) {
+  unsigned x = static_cast<unsigned>(row) * 0x9E3779B9u ^
+               static_cast<unsigned>(col) * 0x85EBCA6Bu;
+  x ^= mix;
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x84699E8Bu;
+  x ^= x >> 16;
+  return static_cast<int>(x & 0x7FFFFFFFu) >= thresh;
+}
+
+__device__ __forceinline__ unsigned dropout_mix(const int* seed, int pid) {
+  return static_cast<unsigned>(seed[0]) +
+         static_cast<unsigned>(pid) * 0xC2B2AE35u;
+}
+
+// no dropout
+struct NoDropout {
+  static constexpr bool kOn = false;
+  float inv = 1.f;
+  __device__ bool keep(int, int) const { return true; }
+};
+
+// dropout on P for the tile at (row0, col0): a dropped p is 0, a kept
+// one scaled by inv = 1 / (1 - rate); thresh and inv come from the host
+// (computed in double as the JAX package does)
+struct Dropout {
+  static constexpr bool kOn = true;
+  float inv;
+  unsigned mix;
+  int row0, col0, thresh;
+  __device__ bool keep(int r, int c) const {
+    return dropout_keep(mix, row0 + r, col0 + c, thresh);
+  }
+};
+
+// the flags' functors for the (q tile, key tile) pair at (q0, k0): the
+// key tile's bias staged at kb_tile, the dropout mix, threshold and scale
+template <bool BIAS, bool DROP>
+struct Flags {
+  using Bias = std::conditional_t<BIAS, KeyBias, NoBias>;
+  using Drop = std::conditional_t<DROP, Dropout, NoDropout>;
+  Bias bias{};
+  Drop drop{};
+  __device__ Flags(const float* kb_tile, unsigned mix, int q0, int k0,
+                   int thresh, float inv_keep) {
+    if constexpr (BIAS) bias.tile = kb_tile;
+    if constexpr (DROP) drop = {inv_keep, mix, q0, k0, thresh};
+  }
+};
+
+// the bias of keys [k0, k0 + n) into dst; keys at or past S read 0
+__device__ __forceinline__ void load_bias(float* dst, const float* kbias_b,
+                                          int k0, int n, int S) {
+  for (int i = threadIdx.x; i < n; i += NT)
+    dst[i] = k0 + i < S ? kbias_b[k0 + i] : 0.f;
+}
+
+// ---------------------------------------------------------------------------
 // forward: a 64-row q tile against 64-key tiles, online softmax
 // ---------------------------------------------------------------------------
 
@@ -33,7 +125,7 @@ constexpr int FWD_BQ = 64;  // q rows per block
 constexpr int FWD_BK = 64;  // keys per tile
 
 template <int D>
-constexpr size_t fwd_smem_bytes() {
+__host__ __device__ constexpr size_t fwd_smem_bytes() {
   return sizeof(float) * (FWD_BQ * (D + 1) + FWD_BK * (D + 1) + FWD_BK * D +
                           FWD_BQ * (FWD_BK + 1) + 3 * FWD_BQ) +
          sizeof(int) * (FWD_BQ + FWD_BK);
@@ -93,12 +185,18 @@ __device__ __forceinline__ void fwd_load_q(FwdSmem<D>& sm, const T* qb,
 // Keys [k0, k0 + BK): load K and V, score the q tile against them, mask
 // the pairs `live` rejects to -1e30, and fold the tile into the online
 // softmax. The caller syncs before (the previous tile's readers are
-// done); keys at or past S are dead whatever `live` says.
-template <typename T, int D, typename Live>
+// done); keys at or past S are dead whatever `live` says. `bias(c)` is
+// added to live scores after the scale; `drop` zeroes or scales p in the
+// P V operand only, so the running sum l counts the undropped p
+// (`_apply_dropout`: torch's dropout(softmax(s))).
+template <typename T, int D, typename Live, typename Bias = NoBias,
+          typename Drop = NoDropout>
 __device__ __forceinline__ void fwd_tile(FwdSmem<D>& sm, FwdState<D>& st,
                                          const T* kb, const T* vb,
                                          long long kss, long long vss, int k0,
-                                         int S, float sm_scale, Live live) {
+                                         int S, float sm_scale, Live live,
+                                         Bias bias = Bias{},
+                                         Drop drop = Drop{}) {
   constexpr int DJ = D / 16;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -136,7 +234,9 @@ __device__ __forceinline__ void fwd_tile(FwdSmem<D>& sm, FwdState<D>& st,
     for (int j = 0; j < 4; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
       const bool ok = k0 + c < S && live(r, c);
-      sm.Ps[r * (FWD_BK + 1) + c] = ok ? s[i][j] * sm_scale : NEG_INF;
+      float sc = s[i][j] * sm_scale;
+      if constexpr (Bias::kOn) sc += bias(c);
+      sm.Ps[r * (FWD_BK + 1) + c] = ok ? sc : NEG_INF;
     }
   }
   __syncthreads();
@@ -159,7 +259,10 @@ __device__ __forceinline__ void fwd_tile(FwdSmem<D>& sm, FwdState<D>& st,
       const int c = part + 4 * jj;
       const float sv = prow[c];
       const float p = sv <= 0.5f * NEG_INF ? 0.f : __expf(sv - m_new);
-      prow[c] = p;
+      if constexpr (Drop::kOn)
+        prow[c] = drop.keep(sr, c) ? p * drop.inv : 0.f;
+      else
+        prow[c] = p;
       sum += p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -239,7 +342,7 @@ __host__ __device__ constexpr int bwd_rows() {
 }
 
 template <int D>
-constexpr size_t bwd_smem_bytes() {
+__host__ __device__ constexpr size_t bwd_smem_bytes() {
   constexpr int B = bwd_rows<D>();
   return sizeof(float) * (4 * B * (D + 1) + 2 * B * (B + 1) + 2 * B) +
          sizeof(int) * 2 * B;
@@ -293,10 +396,15 @@ __device__ __forceinline__ void bwd_load_q_side(BwdSmem<D>& sm, const T* qb,
 }
 
 // P and dS of the staged (q tile, key tile) pair into Ps / dSs [B][B + 1];
-// `live(r, c)` decides which pairs count. Called between two syncs.
-template <int D, typename Live>
+// `live(r, c)` decides which pairs count. Called between two syncs. With
+// a key bias P = exp(s * scale + bias(c) - lse); with dropout the kept
+// mask M scales P for dV and dP for dS (`_bwd_dkv_kernel`):
+//   Ps = M ? P / keep : 0,  dS = P * ((M ? dP / keep : 0) - delta) * scale
+template <int D, typename Live, typename Bias = NoBias,
+          typename Drop = NoDropout>
 __device__ __forceinline__ void bwd_p_and_ds(BwdSmem<D>& sm, float sm_scale,
-                                             Live live) {
+                                             Live live, Bias bias = Bias{},
+                                             Drop drop = Drop{}) {
   constexpr int B = BwdSmem<D>::B;
   constexpr int R = B / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -331,10 +439,17 @@ __device__ __forceinline__ void bwd_p_and_ds(BwdSmem<D>& sm, float sm_scale,
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
-      const float p =
-          live(r, c) ? __expf(s[i][j] * sm_scale - sm.row_lse[r]) : 0.f;
-      sm.Ps[r * (B + 1) + c] = p;
-      sm.dSs[r * (B + 1) + c] = p * (dp[i][j] - sm.row_delta[r]) * sm_scale;
+      float sc = s[i][j] * sm_scale;
+      if constexpr (Bias::kOn) sc += bias(c);
+      const float p = live(r, c) ? __expf(sc - sm.row_lse[r]) : 0.f;
+      float pv = p, dpv = dp[i][j];
+      if constexpr (Drop::kOn) {
+        const bool keep = drop.keep(r, c);
+        pv = keep ? p * drop.inv : 0.f;
+        dpv = keep ? dpv * drop.inv : 0.f;
+      }
+      sm.Ps[r * (B + 1) + c] = pv;
+      sm.dSs[r * (B + 1) + c] = p * (dpv - sm.row_delta[r]) * sm_scale;
     }
   }
 }

@@ -1,5 +1,6 @@
-// Causal flash-attention backward with optional segment ids and an
-// optional 128-grain layout mask, for sm_90a.
+// Flash-attention backward, causal or not, with optional segment ids, an
+// optional 128-grain layout mask, an optional per-key bias and optional
+// dropout on the probabilities, for sm_90a.
 //
 // Replaces the TPU kernels of deeperspeed_tpu/ops/pallas/flash_attention.py
 // that `_bwd` reaches: `_bwd_single_kernel` / `_bwd_single_mh_kernel` (one
@@ -17,6 +18,15 @@
 // with delta = rowsum(dO * out) from the caller and lse from the forward
 // kernel (csrc/flash_fwd.cu). A row with no live key has lse = +1e30, so
 // its P is 0 and its gradients are 0.
+//
+// The key-bias and dropout flags (`flash_attention_kbias` /
+// `flash_attention_train`, the BERT encoder layer's path through the same
+// TPU kernels) recompute P = exp(s * scale + bias - lse) and regenerate
+// the forward's keep-mask M from the hash of (seed, b·H + h, absolute row,
+// absolute key): dV = (M ? P / keep : 0)^T dO and
+// dS = P * ((M ? dP / keep : 0) - delta) * scale, with delta from the
+// dropped output. Both flags are template parameters, so the kernels of
+// the other paths are unchanged.
 //
 // Bound on the H100: at the training shape (B=16, H=12, S=1024, D=64) the
 // bytes (q, k, v, dO, lse, delta in; dq, dk, dv out) take a few tens of
@@ -84,19 +94,24 @@ struct FlashLive {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const int* __restrict__ seg,
-                         const int* __restrict__ layout, T* __restrict__ dk,
+                         const int* __restrict__ layout,
+                         const float* __restrict__ kbias,
+                         const int* __restrict__ seed, T* __restrict__ dk,
                          T* __restrict__ dv, int S, int H, Strides st,
-                         float sm_scale, int causal) {
+                         float sm_scale, int causal, int thresh,
+                         float inv_keep) {
   constexpr int B = ds::attn::bwd_rows<D>();
   extern __shared__ float smem[];
   BwdSmem<D> sm(smem);
+  // the key tile's bias, after the shared tiles (BIAS calls only)
+  float* kb_tile = smem + ds::attn::bwd_smem_bytes<D>() / sizeof(float);
   const int kt = blockIdx.x;  // key tile 0 (the most q tiles) first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = kt * B;
@@ -112,6 +127,8 @@ __global__ void __launch_bounds__(NT)
   ds::attn::bwd_load_tile<T, D, B>(sm.Ks, kb, k0, S, st.kss);
   ds::attn::bwd_load_tile<T, D, B>(sm.Vs, vb, k0, S, st.vss);
   if (seg_b != nullptr) load_seg<B>(sm.seg_k, seg_b, k0, S);
+  if constexpr (BIAS) ds::attn::load_bias(kb_tile, kbias + (long long)b * S, k0, B, S);
+  const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
 
   float acc_k[B / 16][D / 16], acc_v[B / 16][D / 16];
   ds::attn::zero(acc_k);
@@ -133,10 +150,12 @@ __global__ void __launch_bounds__(NT)
     ds::attn::bwd_load_q_side<T, D>(sm, qb, db, lse_bh, delta_bh, q0, S, H,
                                     st.qss);
     __syncthreads();
+    const ds::attn::Flags<BIAS, DROP> fl(kb_tile, mix, q0, k0, thresh, inv_keep);
     ds::attn::bwd_p_and_ds<D>(
         sm, sm_scale,
         FlashLive{seg_b != nullptr ? sm.seg_q : nullptr, sm.seg_k, q0, k0, S,
-                  causal});
+                  causal},
+        fl.bias, fl.drop);
     __syncthreads();
     ds::attn::bwd_acc_dkv<D>(sm, acc_k, acc_v);
   }
@@ -144,19 +163,23 @@ __global__ void __launch_bounds__(NT)
   ds::attn::bwd_store<T, D>(dv, acc_v, b, h, k0, S, H);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const int* __restrict__ seg,
-                        const int* __restrict__ layout, T* __restrict__ dq,
-                        int S, int H, Strides st, float sm_scale,
-                        int causal) {
+                        const int* __restrict__ layout,
+                        const float* __restrict__ kbias,
+                        const int* __restrict__ seed, T* __restrict__ dq,
+                        int S, int H, Strides st, float sm_scale, int causal,
+                        int thresh, float inv_keep) {
   constexpr int B = ds::attn::bwd_rows<D>();
   extern __shared__ float smem[];
   BwdSmem<D> sm(smem);
+  // the key tile's bias, after the shared tiles (BIAS calls only)
+  float* kb_tile = smem + ds::attn::bwd_smem_bytes<D>() / sizeof(float);
   const int qt = gridDim.x - 1 - blockIdx.x;  // the most keys first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = qt * B;
@@ -174,6 +197,7 @@ __global__ void __launch_bounds__(NT)
                                   delta + (long long)bh * S, q0, S, H,
                                   st.qss);
   if (seg_b != nullptr) load_seg<B>(sm.seg_q, seg_b, q0, S);
+  const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
 
   float acc[B / 16][D / 16];
   ds::attn::zero(acc);
@@ -192,11 +216,15 @@ __global__ void __launch_bounds__(NT)
     }
     ds::attn::bwd_load_tile<T, D, B>(sm.Ks, kb, k0, S, st.kss);
     ds::attn::bwd_load_tile<T, D, B>(sm.Vs, vb, k0, S, st.vss);
+    if constexpr (BIAS)
+      ds::attn::load_bias(kb_tile, kbias + (long long)b * S, k0, B, S);
     __syncthreads();
+    const ds::attn::Flags<BIAS, DROP> fl(kb_tile, mix, q0, k0, thresh, inv_keep);
     ds::attn::bwd_p_and_ds<D>(
         sm, sm_scale,
         FlashLive{seg_b != nullptr ? sm.seg_q : nullptr, sm.seg_k, q0, k0, S,
-                  causal});
+                  causal},
+        fl.bias, fl.drop);
     __syncthreads();
     ds::attn::bwd_acc_dq<D>(sm, acc);
   }
@@ -210,18 +238,22 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   const int *seg, *layout;
+  const float* kbias;
+  const int* seed;
   void *g1, *g2;
   int B, S, H;
   Strides st;
   float sm_scale;
-  int causal;
+  int causal, thresh;
+  float inv_keep;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS, bool DROP>
 cudaError_t launch(Part part, const Args& a) {
-  constexpr size_t smem = ds::attn::bwd_smem_bytes<D>();
   constexpr int rows = ds::attn::bwd_rows<D>();
+  constexpr size_t smem =
+      ds::attn::bwd_smem_bytes<D>() + (BIAS ? rows * sizeof(float) : 0);
   const dim3 grid((a.S + rows - 1) / rows, a.B * a.H);
   const T* tq = static_cast<const T*>(a.q);
   const T* tk = static_cast<const T*>(a.k);
@@ -229,35 +261,45 @@ cudaError_t launch(Part part, const Args& a) {
   const T* td = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (part == Part::kDKV) {
-    auto kernel = flash_bwd_dkv_kernel<T, D>;
+    auto kernel = flash_bwd_dkv_kernel<T, D, BIAS, DROP>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, NT, smem, a.stream>>>(
-        tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout,
+        tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
         static_cast<T*>(a.g1), static_cast<T*>(a.g2), a.S, a.H, a.st,
-        a.sm_scale, a.causal);
+        a.sm_scale, a.causal, a.thresh, a.inv_keep);
   } else {
-    auto kernel = flash_bwd_dq_kernel<T, D>;
+    auto kernel = flash_bwd_dq_kernel<T, D, BIAS, DROP>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, NT, smem, a.stream>>>(
-        tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout,
-        static_cast<T*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal);
+        tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
+        static_cast<T*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal,
+        a.thresh, a.inv_keep);
   }
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dispatch_flags(Part part, const Args& a) {
+  const bool bias = a.kbias != nullptr, drop = a.seed != nullptr;
+  if (bias && drop) return launch<T, D, true, true>(part, a);
+  if (bias) return launch<T, D, true, false>(part, a);
+  if (drop) return launch<T, D, false, true>(part, a);
+  return launch<T, D, false, false>(part, a);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, Part part, const Args& a) {
   switch (D) {
     case 64:
-      return launch<T, 64>(part, a);
+      return dispatch_flags<T, 64>(part, a);
     case 128:
-      return launch<T, 128>(part, a);
+      return dispatch_flags<T, 128>(part, a);
     case 256:
-      return launch<T, 256>(part, a);
+      return dispatch_flags<T, 256>(part, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -274,40 +316,52 @@ int run(Part part, const Args& a, int D, int dtype) {
 // q, k, v: [B, S, H, D] read through (batch, seq, head) strides, head dim
 // contiguous; dout: [B, S, H, D] contiguous; lse, delta: [B·H, S] fp32;
 // seg: [B, S] int32 contiguous or null; layout: [H, S/128, S/128] int32
-// contiguous or null (S a multiple of 128 when set); causal: 0 attends
-// every key (layout calls only). ds_flash_bwd_dkv writes dk, dv and
-// ds_flash_bwd_dq writes dq, each [B, S, H, D] contiguous in q's dtype.
-// Each returns cudaGetLastError() after its launch.
+// contiguous or null (S a multiple of 128 when set); kbias: [B, S] fp32
+// contiguous or null; seed: the forward's int32 on the device, or null
+// for no dropout, with the forward's thresh and inv_keep; causal: 0
+// attends every key. ds_flash_bwd_dkv writes dk, dv and ds_flash_bwd_dq
+// writes dq, each [B, S, H, D] contiguous in q's dtype. Each returns
+// cudaGetLastError() after its launch.
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* seg,
-                                const void* layout, void* dk, void* dv, int B,
+                                const void* layout, const void* kbias,
+                                const void* seed, void* dk, void* dv, int B,
                                 int S, int H, int D, long long qsb,
                                 long long qss, long long qsh, long long ksb,
                                 long long kss, long long ksh, long long vsb,
                                 long long vss, long long vsh, float sm_scale,
-                                int causal, int dtype, void* stream) {
+                                int causal, int thresh, float inv_keep,
+                                int dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), static_cast<const int*>(seg),
-               static_cast<const int*>(layout), dk, dv, B, S, H,
+               static_cast<const int*>(layout),
+               static_cast<const float*>(kbias),
+               static_cast<const int*>(seed), dk, dv, B, S, H,
                Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
-               sm_scale, causal, static_cast<cudaStream_t>(stream)};
+               sm_scale, causal, thresh, inv_keep,
+               static_cast<cudaStream_t>(stream)};
   return run(Part::kDKV, a, D, dtype);
 }
 
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* seg,
-                               const void* layout, void* dq, int B, int S,
+                               const void* layout, const void* kbias,
+                               const void* seed, void* dq, int B, int S,
                                int H, int D, long long qsb, long long qss,
                                long long qsh, long long ksb, long long kss,
                                long long ksh, long long vsb, long long vss,
                                long long vsh, float sm_scale, int causal,
-                               int dtype, void* stream) {
+                               int thresh, float inv_keep, int dtype,
+                               void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
                static_cast<const float*>(delta), static_cast<const int*>(seg),
-               static_cast<const int*>(layout), dq, nullptr, B, S, H,
+               static_cast<const int*>(layout),
+               static_cast<const float*>(kbias),
+               static_cast<const int*>(seed), dq, nullptr, B, S, H,
                Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
-               sm_scale, causal, static_cast<cudaStream_t>(stream)};
+               sm_scale, causal, thresh, inv_keep,
+               static_cast<cudaStream_t>(stream)};
   return run(Part::kDQ, a, D, dtype);
 }

@@ -1,5 +1,6 @@
-// Causal flash-attention forward with optional segment ids and an
-// optional 128-grain layout mask, for sm_90a.
+// Flash-attention forward, causal or not, with optional segment ids, an
+// optional 128-grain layout mask, an optional per-key bias and optional
+// dropout on the probabilities, for sm_90a.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // deeperspeed_tpu/ops/pallas/flash_attention.py (reached through `_fwd`
@@ -12,6 +13,18 @@
 // TPU kernel's additive -1e30 penalty `_apply_layout_mask` gives), and
 // the survivors masked to -1e30 element by element. Rows with no live
 // key give zero output and lse = +1e30.
+//
+// The key-bias and dropout flags replace those of the TPU kernels
+// `_fwd_kernel`, `_fwd_single_kernel` and `_fwd_single_mh_kernel` as
+// `flash_attention_kbias` / `flash_attention_train` reach them (the BERT
+// encoder layer): a [B, S] fp32 bias, staged a key tile at a time in
+// shared memory, is added to every row's scores after the scale (a key
+// at -1e30 gets p = 0 exactly, so a row whose keys are all masked gives
+// zeros and lse = +1e30); dropout keeps p by the hash of (seed, b·H + h,
+// row, key) at absolute coordinates, so the 64 x 64 tiles here draw the
+// same mask as the TPU's larger blocks, and the sum l counts the
+// undropped p. Both flags are template parameters: without them the
+// kernel is the one the other paths had.
 //
 // Bound on the H100: at the serving prefill shapes (B=4, H=12, D=64,
 // S <= 1024) the bytes (q, k, v, seg in, out, lse out) take a few
@@ -42,15 +55,19 @@ using ds::attn::FWD_BQ;
 using ds::attn::NT;
 using ds::attn::Strides;
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seg,
-                     const int* __restrict__ layout, T* __restrict__ out,
+                     const int* __restrict__ layout,
+                     const float* __restrict__ kbias,
+                     const int* __restrict__ seed, T* __restrict__ out,
                      float* __restrict__ lse, int S, int H, Strides st,
-                     float sm_scale, int causal) {
+                     float sm_scale, int causal, int thresh, float inv_keep) {
   extern __shared__ float smem[];
   ds::attn::FwdSmem<D> sm(smem);
+  // the key tile's bias, after the shared tiles (BIAS calls only)
+  float* kb_tile = smem + ds::attn::fwd_smem_bytes<D>() / sizeof(float);
   const int tid = threadIdx.x;
   const int qt = gridDim.x - 1 - blockIdx.x;  // the most keys first
   const int bh = blockIdx.y;
@@ -65,6 +82,8 @@ __global__ void __launch_bounds__(NT)
   const T* qb = q + b * st.qsb + h * st.qsh;
   const T* kb = k + b * st.ksb + h * st.ksh;
   const T* vb = v + b * st.vsb + h * st.vsh;
+  const float* kbias_b = BIAS ? kbias + (long long)b * S : nullptr;
+  const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
 
   ds::attn::fwd_load_q<T, D>(sm, qb, st.qss, q0, S);
   if (seg != nullptr) {
@@ -81,6 +100,7 @@ __global__ void __launch_bounds__(NT)
     const int k0 = kt * FWD_BK;
     if (lrow != nullptr && lrow[k0 / 128] == 0) continue;  // inactive block
     __syncthreads();  // the previous tile's readers are done
+    if constexpr (BIAS) ds::attn::load_bias(kb_tile, kbias_b, k0, FWD_BK, S);
     if (seg != nullptr) {
       for (int i = tid; i < FWD_BK; i += NT)
         sm.seg_k[i] = k0 + i < S ? seg[(long long)b * S + k0 + i] : INT_MIN;
@@ -97,12 +117,14 @@ __global__ void __launch_bounds__(NT)
     }
     const int* sq = sm.seg_q;
     const int* sk = sm.seg_k;
-    ds::attn::fwd_tile<T, D>(
-        sm, state, kb, vb, st.kss, st.vss, k0, S, sm_scale,
-        [=](int r, int c) {
-          return (!causal || k0 + c <= q0 + r) &&
-                 (seg == nullptr || sq[r] == sk[c]);
-        });
+    auto live = [=](int r, int c) {
+      return (!causal || k0 + c <= q0 + r) &&
+             (seg == nullptr || sq[r] == sk[c]);
+    };
+    const ds::attn::Flags<BIAS, DROP> fl(kb_tile, mix, q0, k0, thresh,
+                                         inv_keep);
+    ds::attn::fwd_tile<T, D>(sm, state, kb, vb, st.kss, st.vss, k0, S,
+                             sm_scale, live, fl.bias, fl.drop);
   }
   ds::attn::fwd_store<T, D>(sm, state, out, lse, b, h, S, H, q0);
 }
@@ -110,39 +132,53 @@ __global__ void __launch_bounds__(NT)
 struct Args {
   const void *q, *k, *v;
   const int *seg, *layout;
+  const float* kbias;
+  const int* seed;
   void* out;
   float* lse;
   int B, S, H;
   Strides st;
   float sm_scale;
-  int causal;
+  int causal, thresh;
+  float inv_keep;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool BIAS, bool DROP>
 cudaError_t launch(const Args& a) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  constexpr size_t smem = ds::attn::fwd_smem_bytes<D>();
+  auto kernel = flash_fwd_kernel<T, D, BIAS, DROP>;
+  constexpr size_t smem =
+      ds::attn::fwd_smem_bytes<D>() + (BIAS ? FWD_BK * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + FWD_BQ - 1) / FWD_BQ, a.B * a.H);
   kernel<<<grid, NT, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.seg, a.layout, static_cast<T*>(a.out),
-      a.lse, a.S, a.H, a.st, a.sm_scale, a.causal);
+      static_cast<const T*>(a.v), a.seg, a.layout, a.kbias, a.seed,
+      static_cast<T*>(a.out), a.lse, a.S, a.H, a.st, a.sm_scale, a.causal,
+      a.thresh, a.inv_keep);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dispatch_flags(const Args& a) {
+  const bool bias = a.kbias != nullptr, drop = a.seed != nullptr;
+  if (bias && drop) return launch<T, D, true, true>(a);
+  if (bias) return launch<T, D, true, false>(a);
+  if (drop) return launch<T, D, false, true>(a);
+  return launch<T, D, false, false>(a);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const Args& a) {
   switch (D) {
     case 64:
-      return launch<T, 64>(a);
+      return dispatch_flags<T, 64>(a);
     case 128:
-      return launch<T, 128>(a);
+      return dispatch_flags<T, 128>(a);
     case 256:
-      return launch<T, 256>(a);
+      return dispatch_flags<T, 256>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -153,22 +189,28 @@ cudaError_t dispatch_d(int D, const Args& a) {
 // q, k, v: [B, S, H, D] read through (batch, seq, head) strides, with the
 // head dim contiguous; seg: [B, S] int32 contiguous or null; layout: [H,
 // S/128, S/128] int32 contiguous or null (S a multiple of 128 when set);
-// causal: 0 attends every key (layout calls only); out: [B, S, H, D]
-// contiguous; lse: [B·H, S] fp32. Returns cudaGetLastError() after the
-// launch.
+// kbias: [B, S] fp32 contiguous or null; seed: one int32 on the device,
+// or null for no dropout, with thresh = int(rate * 2147483647) and
+// inv_keep = 1 / (1 - rate) from the host; causal: 0 attends every key;
+// out: [B, S, H, D] contiguous; lse: [B·H, S] fp32. Returns
+// cudaGetLastError() after the launch.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
-                            const void* seg, const void* layout, void* out,
+                            const void* seg, const void* layout,
+                            const void* kbias, const void* seed, void* out,
                             void* lse, int B, int S, int H, int D,
                             long long qsb, long long qss, long long qsh,
                             long long ksb, long long kss, long long ksh,
                             long long vsb, long long vss, long long vsh,
-                            float sm_scale, int causal, int dtype,
-                            void* stream) {
+                            float sm_scale, int causal, int thresh,
+                            float inv_keep, int dtype, void* stream) {
   const Args a{q, k, v, static_cast<const int*>(seg),
-               static_cast<const int*>(layout), out,
+               static_cast<const int*>(layout),
+               static_cast<const float*>(kbias),
+               static_cast<const int*>(seed), out,
                static_cast<float*>(lse), B, S, H,
                Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
-               sm_scale, causal, static_cast<cudaStream_t>(stream)};
+               sm_scale, causal, thresh, inv_keep,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == ds::DTYPE_F32) return dispatch_d<float>(D, a);
   if (dtype == ds::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, a);
   return cudaErrorInvalidValue;

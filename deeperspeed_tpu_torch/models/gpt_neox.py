@@ -334,8 +334,9 @@ def split_lm_batch(batch):
 
 
 def unflatten(flat):
-    """Dotted names → the natural tree: nested dicts, with ``blocks`` a
-    list indexed by layer (the JAX params pytree's structure)."""
+    """Dotted names → the natural tree: nested dicts, with a level whose
+    keys are layer indices (``blocks``, BERT's ``layers``) a list (the
+    JAX params pytree's structure)."""
     tree = {}
     for name, value in flat.items():
         node = tree
@@ -343,10 +344,16 @@ def unflatten(flat):
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = value
-    if "blocks" in tree:
-        blocks = tree["blocks"]
-        tree["blocks"] = [blocks[str(i)] for i in range(len(blocks))]
-    return tree
+    return _listify(tree)
+
+
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 # ---------------------------------------------------------------------------

@@ -39,9 +39,11 @@ _F = ctypes.c_float
 
 # C signatures: name → argtypes (restype is int: a cudaError_t)
 SIGNATURES = {
-    # q, k, v, seg, layout, out, lse, B, S, H, D, q/k/v strides (b, s,
-    # h), sm_scale, causal, dtype (0 fp32, 1 bf16), stream
-    "ds_flash_fwd": [_P] * 7 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P],
+    # q, k, v, seg, layout, kbias, seed, out, lse, B, S, H, D, q/k/v
+    # strides (b, s, h), sm_scale, causal, dropout thresh, 1 / keep,
+    # dtype (0 fp32, 1 bf16), stream
+    "ds_flash_fwd": [_P] * 9 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _F, _I,
+                                                      _P],
     # q, q strides (b, h), k_pages, v_pages, pool strides (page, head,
     # slot), page_table, its row stride, lengths, out, B, H, D,
     # page_size, pages per row, sm_scale, dtype, stream
@@ -56,11 +58,14 @@ SIGNATURES = {
     # workspace (or null), M, N, K, k rows a split, dtype of x and y,
     # stream
     "ds_quant_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, dout, lse, delta, seg, layout, dk, dv, B, S, H, D, q/k/v
-    # strides (b, s, h), sm_scale, causal, dtype, stream
-    "ds_flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P],
+    # q, k, v, dout, lse, delta, seg, layout, kbias, seed, dk, dv, B, S,
+    # H, D, q/k/v strides (b, s, h), sm_scale, causal, dropout thresh,
+    # 1 / keep, dtype, stream
+    "ds_flash_bwd_dkv": [_P] * 12 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _F,
+                                                           _I, _P],
     # the same with dq in place of dk, dv
-    "ds_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P],
+    "ds_flash_bwd_dq": [_P] * 11 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _F,
+                                                          _I, _P],
     # q, k, v, lut, counts, order, max_active, out, lse, B, S, H, D,
     # q/k/v strides (b, s, h), sm_scale, causal, dtype, stream
     "ds_block_sparse_fwd": [_P] * 6 + [_I] + [_P] * 2 + [_I] * 4 +

@@ -1,5 +1,5 @@
-"""Segmented causal flash attention, forward and backward: the CUDA
-kernels and their plain versions.
+"""Flash attention, forward and backward: the CUDA kernels and their
+plain versions.
 
 Replaces the TPU kernels of `deeperspeed_tpu/ops/pallas/flash_attention.py`
 that `flash_attention` / `flash_attention_segmented` reach: the forward
@@ -18,22 +18,34 @@ skip every tile of an inactive 128×128 block, which gives what the
 TPU kernel's additive -1e30 penalty gives. Those launches are counted
 apart (``masked_*``), so a run can tell the two arms apart.
 
+The key-bias and dropout flags (`flash_attention_kbias`,
+`flash_attention_train`: the fused BERT encoder layer's attention)
+replace those flags of the same TPU kernels (`use_bias`,
+`dropout_rate`): a ``[B, S]`` fp32 bias added to every row's scores
+after the scale, and dropout on the probabilities by the keep-mask of
+`_dropout_keep` (`dropout_keep` here), a hash of (seed, b·H + h,
+absolute row, absolute key) that the backward regenerates. Their
+launches are counted apart by flag combination (`flag_launches`).
+
 Contract (the JAX package's):
 
 - q, k, v ``[B, S, H, D]`` in, out ``[B, S, H, D]`` in q's dtype; lse
   ``[B·H, S]`` fp32 (the JAX package's ``[B·H, 1, S]`` residual,
   squeezed);
-- causal (or, with a layout, optionally not), with ``segment_ids``
-  ``[B, S]`` int (optional) and the layout's blocks ANDed into the mask;
-  masked scores are -1e30;
+- causal or not, with ``segment_ids`` ``[B, S]`` int (optional) and the
+  layout's blocks ANDed into the mask; masked scores are -1e30, and the
+  key bias is added to them;
+- dropout: the softmax sum counts the undropped probabilities, a kept
+  one is scaled by 1 / (1 - rate) (torch's dropout(softmax(s)));
 - a row with no live key gives zero output, lse = +1e30 and zero
   gradients;
 - ``sm_scale`` defaults to 1/√D;
 - the backward takes delta = rowsum(dO ∘ out) as one plain reduction, as
   the JAX package does (`_bwd`).
 
-`flash_attention_segmented` is a `torch.autograd.Function`: on CUDA
-tensors its forward launches the forward kernel and its backward the two
+`flash_attention_segmented`, `flash_attention_kbias` and
+`flash_attention_train` are a `torch.autograd.Function`: on CUDA tensors
+its forward launches the forward kernel and its backward the two
 backward kernels; on CPU tensors both directions take the plain
 versions. An unsupported dtype or head dim on a CUDA tensor raises.
 Unlike the JAX package, which sends a sequence that no 128-multiple
@@ -60,6 +72,73 @@ bwd_dq_launches = 0
 masked_launches = 0
 masked_bwd_dkv_launches = 0
 masked_bwd_dq_launches = 0
+# calls with the key-bias or dropout flags, by kernel ("fwd", "dkv",
+# "dq") and flag combination
+FLAG_COMBOS = ("kbias", "dropout", "kbias_dropout")
+flag_launches = {kernel: dict.fromkeys(FLAG_COMBOS, 0)
+                 for kernel in ("fwd", "dkv", "dq")}
+
+
+def reset_flag_launches():
+    for counts in flag_launches.values():
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def _flag_combo(kbias, dropout):
+    """The `flag_launches` key of a call, or None without flags."""
+    return "_".join(name for name, on in (("kbias", kbias is not None),
+                                          ("dropout", dropout)) if on) or None
+
+
+def check_dropout_rate(rate):
+    """Refuse a rate outside [0, 1): 1 / (1 - rate) is inf or NaN at 1
+    and a negative rate keeps everything (`_check_dropout_rate`)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+
+
+def dropout_threshold(rate):
+    """The keep threshold on the hash's low 31 bits, in double on the
+    host as the JAX package computes it."""
+    return int(min(max(rate, 0.0), 1.0) * 2147483647)
+
+
+def dropout_keep(seed, pid, row0, col0, shape, rate):
+    """`_dropout_keep`'s keep-mask, in plain torch: the 2-round int32
+    avalanche hash of (seed, pid = b·H + h, row0 + row, col0 + col) over
+    a ``shape`` = (rows, cols) tile, kept where its low 31 bits reach
+    `dropout_threshold`. int32 products wrap and ``>>`` is arithmetic,
+    as in the TPU kernel. ``seed`` and ``pid`` are ints or int32 tensors
+    (a ``pid`` of shape [B, H, 1, 1] gives a [B, H, rows, cols] mask)."""
+    device = seed.device if isinstance(seed, torch.Tensor) else None
+    seed = torch.as_tensor(seed, dtype=torch.int32, device=device)
+    pid = torch.as_tensor(pid, dtype=torch.int32, device=device)
+    rows = torch.arange(shape[0], dtype=torch.int32,
+                        device=device)[:, None] + row0
+    cols = torch.arange(shape[1], dtype=torch.int32,
+                        device=device)[None, :] + col0
+    x = (rows * -1640531527) ^ (cols * -2048144789)   # 0x9E3779B9/0x85EBCA6B
+    x = x ^ (seed + pid * -1028477387)                # 0xC2B2AE35
+    x = (x ^ ((x >> 16) & 0xFFFF)) * 0x7FEB352D
+    x = (x ^ ((x >> 15) & 0x1FFFF)) * -2073452917     # 0x84699E8B
+    x = x ^ ((x >> 16) & 0xFFFF)
+    return (x & 0x7FFFFFFF) >= dropout_threshold(rate)
+
+
+def _keep_mask(seed, B, H, S, rate, device):
+    """The keep-mask of every (b, h) of a call, [B, H, S, S]."""
+    pid = torch.arange(B * H, dtype=torch.int32,
+                       device=device).reshape(B, H, 1, 1)
+    return dropout_keep(seed.to(device).reshape(()), pid, 0, 0, (S, S), rate)
+
+
+def flash_attention_supported(shape):
+    """The shapes the JAX package's flash kernels take (S divisible by a
+    128-multiple block of at most 1024, head dim 64, 128 or 256); its
+    callers send the rest to the materialized path, and so does the
+    port's transformer layer, so that both take the same path."""
+    _, s, _, d = shape
+    return s % 128 == 0 and s >= 128 and d in (64, 128, 256)
 
 
 def _acc(t):
@@ -92,22 +171,31 @@ def _live_mask(S, segment_ids, device, layout=None, causal=True):
 
 def flash_attention_segmented_reference(q, k, v, segment_ids=None,
                                         sm_scale=None, layout=None,
-                                        causal=True):
+                                        causal=True, kbias=None, seed=None,
+                                        dropout_rate=0.0):
     """Plain PyTorch version: `causal_attention`'s XLA branch
     (`gpt_neox.py:355-364`) plus the lse, on any device; with a
     ``layout``, dense attention under its token mask (the JAX package's
-    `dense_masked_attention`). Returns (out [B, S, H, D] in v's dtype,
-    lse [B·H, S] fp32)."""
+    `dense_masked_attention`); ``kbias`` [B, S] is added to the masked
+    scores and ``dropout_rate`` > 0 drops probabilities by
+    `dropout_keep` at ``seed`` (int32 [1]) after the sum. Returns (out
+    [B, S, H, D] in v's dtype, lse [B·H, S] fp32)."""
     B, S, H, D = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     logits = torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k)) * scale
     mask = _live_mask(S, segment_ids, q.device, layout, causal)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    if kbias is not None:
+        logits = logits + kbias.to(logits.dtype)[:, None, None, :]
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     p = torch.where(logits <= NEG_INF * 0.5, torch.zeros_like(p), p)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    if dropout_rate > 0.0:
+        keep = _keep_mask(seed, B, H, S, dropout_rate, q.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)),
+                        torch.zeros_like(p))
     probs = (p / l_safe).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     lse = torch.where(l == 0, torch.full_like(l, -NEG_INF),
@@ -128,6 +216,33 @@ def _check(q, k, v, segment_ids):
     if segment_ids is not None and tuple(segment_ids.shape) != q.shape[:2]:
         raise ValueError(f"segment_ids shape {tuple(segment_ids.shape)} != "
                          f"{tuple(q.shape[:2])}")
+
+
+def _check_kbias(q, kbias):
+    if kbias is not None and tuple(kbias.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"kbias shape {tuple(kbias.shape)} != "
+                         f"{tuple(q.shape[:2])} ([B, S])")
+
+
+def _flag_args(q, kbias, seed, dropout_rate, what):
+    """Check the flags the kernels take → (fp32 [B, S] kbias or None,
+    int32 [1] seed or None, thresh, 1 / keep); the seed is passed only
+    when dropout is on."""
+    kb = None
+    if kbias is not None:
+        _check_kbias(q, kbias)
+        if kbias.device != q.device:
+            raise ValueError("kbias must be on q's device")
+        kb = kbias.to(torch.float32).contiguous()
+    if dropout_rate <= 0.0:
+        return kb, None, 0, 1.0
+    check_dropout_rate(dropout_rate)
+    if not (isinstance(seed, torch.Tensor) and seed.dtype == torch.int32
+            and seed.numel() == 1 and seed.device == q.device):
+        raise ValueError(f"{what} kernel needs the dropout seed as one "
+                         f"int32 on q's device")
+    return kb, seed.reshape(1), dropout_threshold(dropout_rate), \
+        1.0 / (1.0 - dropout_rate)
 
 
 def _kernel_args(q, k, v, segment_ids, what, layout=None):
@@ -171,27 +286,36 @@ def _strides(q, k, v):
             v.stride(0), v.stride(1), v.stride(2))
 
 
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None,
-                         layout=None, causal=True):
-    """Launch `csrc/flash_fwd.cu` on CUDA tensors → (out, lse). Without a
-    ``layout`` the call is causal."""
+                         layout=None, causal=True, kbias=None, seed=None,
+                         dropout_rate=0.0):
+    """Launch `csrc/flash_fwd.cu` on CUDA tensors → (out, lse). ``kbias``
+    is [B, S] (any float dtype, added in fp32); ``seed`` an int32 [1] on
+    the device, read when ``dropout_rate`` > 0."""
     global launches, masked_launches
     B, S, H, D = q.shape
     seg, lay, code, default_scale = _kernel_args(
         q, k, v, segment_ids, "flash attention forward", layout)
+    kb, sd, thresh, inv = _flag_args(q, kbias, seed, dropout_rate,
+                                     "flash attention forward")
     scale = sm_scale if sm_scale is not None else default_scale
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     err = lib.ds_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        seg.data_ptr() if seg is not None else None,
-        lay.data_ptr() if lay is not None else None,
-        out.data_ptr(), lse.data_ptr(), B, S, H, D, *_strides(q, k, v),
-        float(scale), int(causal or lay is None), code,
-        _build.stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(seg), _ptr(lay),
+        _ptr(kb), _ptr(sd), out.data_ptr(), lse.data_ptr(), B, S, H, D,
+        *_strides(q, k, v), float(scale), int(causal), thresh, float(inv),
+        code, _build.stream_ptr(q))
     _build.check(err, "ds_flash_fwd")
-    if lay is None:
+    combo = _flag_combo(kb, sd is not None)
+    if combo is not None:
+        flag_launches["fwd"][combo] += 1
+    elif lay is None:
         launches += 1
     else:
         masked_launches += 1
@@ -207,38 +331,53 @@ def attention_delta(out, do):
 
 
 def flash_attention_bwd_reference(q, k, v, out, lse, do, segment_ids=None,
-                                  sm_scale=None, layout=None, causal=True):
+                                  sm_scale=None, layout=None, causal=True,
+                                  kbias=None, seed=None, dropout_rate=0.0):
     """Plain PyTorch backward from the saved (out, lse), by the explicit
-    formulas (no autograd): P = exp(s·scale − lse) on live pairs, dS =
-    P ∘ (dP − delta) · scale, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K, every
+    formulas (no autograd): P = exp(s·scale + kbias − lse) on live
+    pairs, dS = P ∘ (dP' − delta) · scale, dV = P'ᵀ dO, dK = dSᵀ Q, dQ =
+    dS K, where with dropout P' and dP' are P and dP kept by the
+    forward's mask and scaled by 1 / (1 − rate) (else P and dP), every
     sum in fp32 → (dq, dk, dv) [B, S, H, D] in q's dtype."""
     B, S, H, D = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     qf, kf, vf, dof = _acc(q), _acc(k), _acc(v), _acc(do)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if kbias is not None:
+        s = s + kbias.to(s.dtype)[:, None, None, :]
     lse4 = lse.reshape(B, H, S, 1).to(s.dtype)
     live = _live_mask(S, segment_ids, q.device, layout, causal)
     p = torch.where(live, torch.exp(s - lse4), torch.zeros_like(s))
     delta = attention_delta(out, do).reshape(B, H, S, 1).to(s.dtype)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    p_v = p
+    if dropout_rate > 0.0:
+        keep = _keep_mask(seed, B, H, S, dropout_rate, q.device)
+        inv = 1.0 / (1.0 - dropout_rate)
+        p_v = torch.where(keep, p * inv, torch.zeros_like(p))
+        dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
     ds = p * (dp - delta) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_v, dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
-                             sm_scale=None, layout=None, causal=True):
+                             sm_scale=None, layout=None, causal=True,
+                             kbias=None, seed=None, dropout_rate=0.0):
     """Launch the two kernels of `csrc/flash_bwd.cu` on CUDA tensors →
     (dq, dk, dv), [B, S, H, D] contiguous in q's dtype. ``do`` is made
-    contiguous; ``delta`` is `attention_delta` [B·H, S] fp32. Without a
-    ``layout`` the call is causal."""
+    contiguous; ``delta`` is `attention_delta` [B·H, S] fp32; ``kbias``,
+    ``seed`` and ``dropout_rate`` are the forward's."""
     global bwd_dkv_launches, bwd_dq_launches
     global masked_bwd_dkv_launches, masked_bwd_dq_launches
     B, S, H, D = q.shape
     seg, lay, code, default_scale = _kernel_args(
         q, k, v, segment_ids, "flash attention backward", layout)
+    kb, sd, thresh, inv = _flag_args(q, kbias, seed, dropout_rate,
+                                     "flash attention backward")
+    combo = _flag_combo(kb, sd is not None)
     scale = sm_scale if sm_scale is not None else default_scale
     do = do.to(q.dtype).contiguous()
     for name, t in (("lse", lse), ("delta", delta)):
@@ -252,21 +391,24 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
     dv = torch.empty_like(dq)
     lib = _build.load_library()
     stream = _build.stream_ptr(q)
-    common = (B, S, H, D, *_strides(q, k, v), float(scale),
-              int(causal or lay is None), code, stream)
+    common = (B, S, H, D, *_strides(q, k, v), float(scale), int(causal),
+              thresh, float(inv), code, stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(),
-           seg.data_ptr() if seg is not None else None,
-           lay.data_ptr() if lay is not None else None)
+           lse.data_ptr(), delta.data_ptr(), _ptr(seg), _ptr(lay), _ptr(kb),
+           _ptr(sd))
     err = lib.ds_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dkv")
-    if lay is None:
+    if combo is not None:
+        flag_launches["dkv"][combo] += 1
+    elif lay is None:
         bwd_dkv_launches += 1
     else:
         masked_bwd_dkv_launches += 1
     err = lib.ds_flash_bwd_dq(*ins, dq.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dq")
-    if lay is None:
+    if combo is not None:
+        flag_launches["dq"][combo] += 1
+    elif lay is None:
         bwd_dq_launches += 1
     else:
         masked_bwd_dq_launches += 1
@@ -275,35 +417,43 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
 
 class _FlashAttention(torch.autograd.Function):
     """The kernels (CUDA tensors, ``use_kernels``) or the plain versions
-    in both directions; segment ids, the layout and the scale take no
-    gradient."""
+    in both directions; segment ids, the layout, the scale and the seed
+    take no gradient, the key bias a zero one (it is a mask, as in the
+    JAX package)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale, layout=None,
-                causal=True, use_kernels=True):
+                causal=True, use_kernels=True, kbias=None, seed=None,
+                dropout_rate=0.0):
         kernels = use_kernels and q.device.type == "cuda"
+        flags = (kbias, seed, dropout_rate)
         if kernels:
             out, lse = flash_attention_cuda(q, k, v, segment_ids, sm_scale,
-                                            layout, causal)
+                                            layout, causal, *flags)
         else:
             out, lse = flash_attention_segmented_reference(
-                q, k, v, segment_ids, sm_scale, layout, causal)
-        ctx.save_for_backward(q, k, v, out, lse, segment_ids, layout)
-        ctx.args = (sm_scale, causal, kernels)
+                q, k, v, segment_ids, sm_scale, layout, causal, *flags)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids, layout, kbias,
+                              seed)
+        ctx.args = (sm_scale, causal, kernels, dropout_rate)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse, segment_ids, layout = ctx.saved_tensors
-        sm_scale, causal, kernels = ctx.args
+        q, k, v, out, lse, segment_ids, layout, kbias, seed = \
+            ctx.saved_tensors
+        sm_scale, causal, kernels, dropout_rate = ctx.args
+        flags = (kbias, seed, dropout_rate)
         if kernels:
             dq, dk, dv = flash_attention_bwd_cuda(
                 q, k, v, lse, do, attention_delta(out, do), segment_ids,
-                sm_scale, layout, causal)
+                sm_scale, layout, causal, *flags)
         else:
             dq, dk, dv = flash_attention_bwd_reference(
-                q, k, v, out, lse, do, segment_ids, sm_scale, layout, causal)
-        return dq, dk, dv, None, None, None, None, None
+                q, k, v, out, lse, do, segment_ids, sm_scale, layout, causal,
+                *flags)
+        dkbias = torch.zeros_like(kbias) if ctx.needs_input_grad[8] else None
+        return dq, dk, dv, None, None, None, None, None, dkbias, None, None
 
 
 def flash_attention_segmented(q, k, v, segment_ids=None, sm_scale=None):
@@ -311,10 +461,48 @@ def flash_attention_segmented(q, k, v, segment_ids=None, sm_scale=None):
     differentiable in q, k, v: the CUDA kernels for CUDA tensors, the
     plain versions for CPU tensors."""
     _check(q, k, v, segment_ids)
+    _check_device(q)
+    return _FlashAttention.apply(q, k, v, segment_ids, sm_scale, None,
+                                 True, True, None, None, 0.0)
+
+
+def _check_device(q):
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no flash attention path for device {q.device}")
-    return _FlashAttention.apply(q, k, v, segment_ids, sm_scale, None,
-                                 True, True)
+
+
+def flash_attention_kbias(q, k, v, kbias, causal=False, sm_scale=None,
+                          use_kernels=True):
+    """Flash attention with an additive per-key bias (the JAX package's
+    `flash_attention_kbias`): ``kbias`` [B, S] (0 keeps a key, -1e30
+    masks it; finite values act as biases) is added to every query row's
+    scores after the scale. A row whose keys are all masked gives zeros
+    and zero gradients. Differentiable in q, k, v; the bias gets a zero
+    gradient. The CUDA kernels for CUDA tensors (``use_kernels``), the
+    plain versions for CPU tensors."""
+    _check(q, k, v, None)
+    _check_device(q)
+    _check_kbias(q, kbias)
+    return _FlashAttention.apply(q, k, v, None, sm_scale, None, causal,
+                                 use_kernels, kbias, None, 0.0)
+
+
+def flash_attention_train(q, k, v, kbias, seed, causal=False,
+                          sm_scale=None, dropout_rate=0.0, use_kernels=True):
+    """Training-mode flash attention (the JAX package's
+    `flash_attention_train`): the optional per-key bias of
+    `flash_attention_kbias` and dropout on the probabilities, by the
+    keep-mask `dropout_keep` at ``seed`` (an int32 [1] tensor on q's
+    device: the backward regenerates the forward's mask from it). The
+    softmax sum counts the undropped probabilities and a kept one is
+    scaled by 1 / (1 − rate). ``dropout_rate`` outside [0, 1) raises."""
+    check_dropout_rate(dropout_rate)
+    _check(q, k, v, None)
+    _check_device(q)
+    _check_kbias(q, kbias)
+    return _FlashAttention.apply(q, k, v, None, sm_scale, None, causal,
+                                 use_kernels, kbias, seed,
+                                 float(dropout_rate))
 
 
 def make_masked_flash_attention(layout128, causal=False, sm_scale=None):
@@ -340,14 +528,13 @@ def make_masked_flash_attention(layout128, causal=False, sm_scale=None):
                 f"got seq {s}, layout covers "
                 f"{layout.shape[1] * MASK_GRAIN}")
         _check(q, k, v, None)
-        if q.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"no flash attention path for device "
-                             f"{q.device}")
+        _check_device(q)
         key = str(q.device)
         if key not in on_device:
             on_device[key] = layout.to(q.device)
         return _FlashAttention.apply(q, k, v, None, sm_scale,
-                                     on_device[key], causal, use_kernels)
+                                     on_device[key], causal, use_kernels,
+                                     None, None, 0.0)
 
     fn.layout = layout
     fn.causal = causal

@@ -30,14 +30,20 @@ MoE: a "moe" config block is handed to the model's `apply_ds_config`
 (as is a "sparse_attention" block, which swaps the attention core)
 before the flat state is built, so the flat buffers hold the expert
 weights and autograd adds their dW into the flat gradient views like any
-other leaf. The gate jitter draws from one `torch.Generator` on the
-training device, seeded once and passed to every micro-step's loss.
+other leaf. The gate jitter and BERT's dropout seeds draw from one
+`torch.Generator` on the training device, seeded once and passed to
+every micro-step's loss.
+
+Batches: bare tokens, a tuple of arrays (GPT-NeoX's (tokens, labels))
+or a dict (BERT's), each leaf moved to the device with its kind kept
+(integer ids as long, a float mask as it is) and handed to ``loss_fn``
+one micro-batch at a time, as the JAX engine splits its batch pytree;
+each model's ``loss_fn`` unpacks its own micro-batch.
 """
 
 import numpy as np
 import torch
 
-from ..models.gpt_neox import split_lm_batch
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.logging import log_dist
 from ..utils.timer import ThroughputTimer
@@ -70,12 +76,12 @@ def _check_single_rank():
 class DeepSpeedEngine:
     """Training engine with the DeepSpeed training API on one card.
 
-    ``model`` is a `models.gpt_neox.GPTNeoX` (any `torch.nn.Module` with
-    ``loss_fn(params, batch, rng=None)`` and ``params_tree()``, and
-    ``apply_ds_config(config)`` where the config has a "moe" or a
-    "sparse_attention" block); it trains on the device its parameters
-    are on. ``config`` (a JSON path) or ``config_params`` (a dict) is the
-    DeepSpeed config.
+    ``model`` is a `models.gpt_neox.GPTNeoX` or a `models.bert` model
+    (any `torch.nn.Module` with ``loss_fn(params, batch, rng=None)`` and
+    ``params_tree()``, and ``apply_ds_config(config)`` where the config
+    has a "moe" or a "sparse_attention" block); it trains on the device
+    its parameters are on. ``config`` (a JSON path) or ``config_params``
+    (a dict) is the DeepSpeed config.
     """
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -121,7 +127,8 @@ class DeepSpeedEngine:
                     "does not implement apply_ds_config(config) "
                     "(models.gpt_neox.GPTNeoX does)")
             model.apply_ds_config(self._config)
-        # the gate jitter's generator (the JAX engine's base key 1234)
+        # the generator of the gate jitter and the dropout seeds (the JAX
+        # engine's base key 1234)
         self._rng = torch.Generator(device=self.device).manual_seed(1234)
 
         self.optimizer = self._configure_optimizer(optimizer)
@@ -298,16 +305,34 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
 
     def _to_device(self, x):
+        """One batch leaf on the training device with its kind kept:
+        integers as long, floats as they are."""
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.asarray(x))
-        return t.to(device=self.device, dtype=torch.long)
+        return t.to(device=self.device,
+                    dtype=None if t.is_floating_point() else torch.long)
 
-    def _lm_batch(self, batch):
-        tokens, labels, seg = split_lm_batch(batch)
-        if seg is not None:
-            raise _not_ported("packed (tokens, labels, segment_ids) "
-                              "batches", "long-context")
-        return self._to_device(tokens), self._to_device(labels)
+    @staticmethod
+    def _map(batch, fn):
+        """``fn`` on every leaf of a dict, a tuple or a bare batch (a
+        leaf of None stays None)."""
+        if isinstance(batch, dict):
+            return {k: None if v is None else fn(v) for k, v in batch.items()}
+        if isinstance(batch, (tuple, list)):
+            return tuple(None if v is None else fn(v) for v in batch)
+        return fn(batch)
+
+    def _device_batch(self, batch):
+        """The batch on the device, every leaf with its kind kept; each
+        model's ``loss_fn`` unpacks its own micro-batch."""
+        return self._map(batch, self._to_device)
+
+    @staticmethod
+    def _input_ids(batch):
+        """The token ids of a batch (``input_ids``, or the first leaf)."""
+        if isinstance(batch, dict):
+            return batch["input_ids"]
+        return batch[0] if isinstance(batch, tuple) else batch
 
     def _current_lr(self):
         return float(self.optimizer.param_groups[0]["lr"])
@@ -315,18 +340,25 @@ class DeepSpeedEngine:
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over ``gradient_accumulation_steps``
         micro-batches: ``batch`` = (tokens, labels) (or bare tokens)
-        shaped [gas, micro, S], numpy or tensors, or ``data_iter``
-        yielding one micro-batch per ``next``. Returns the mean loss."""
+        shaped [gas, micro, S] for GPT-NeoX, a dict or tuple of
+        [gas, micro, ...] arrays for BERT, numpy or tensors; or
+        ``data_iter`` yielding one micro-batch per ``next``. Returns the
+        mean loss."""
         gas = self.gradient_accumulation_steps()
         if batch is None:
             if data_iter is None:
                 raise ValueError("train_batch needs data_iter or batch")
             micro = [next(data_iter) for _ in range(gas)]
-            batch = tuple(np.stack([np.asarray(m[i]) for m in micro])
-                          for i in range(len(micro[0]))) \
-                if isinstance(micro[0], (tuple, list)) else \
-                np.stack([np.asarray(m) for m in micro])
-        tokens, labels = self._lm_batch(batch)
+            if isinstance(micro[0], dict):
+                batch = {k: np.stack([np.asarray(m[k]) for m in micro])
+                         for k in micro[0]}
+            elif isinstance(micro[0], (tuple, list)):
+                batch = tuple(np.stack([np.asarray(m[i]) for m in micro])
+                              for i in range(len(micro[0])))
+            else:
+                batch = np.stack([np.asarray(m) for m in micro])
+        batch = self._device_batch(batch)
+        tokens = self._input_ids(batch)
         if tokens.dim() != 3 or tokens.shape[0] != gas:
             raise ValueError(f"train_batch expects [gas={gas}, micro, S] "
                              f"batches, got {tuple(tokens.shape)}")
@@ -336,7 +368,8 @@ class DeepSpeedEngine:
         params = self.module.params_tree()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
-            loss = self.module.loss_fn(params, (tokens[i], labels[i]),
+            loss = self.module.loss_fn(params,
+                                       self._map(batch, lambda v: v[i]),
                                        rng=self._rng)
             (loss * scale if self._config.loss_scaling_enabled
              else loss).backward()
@@ -354,7 +387,7 @@ class DeepSpeedEngine:
         grads.zero_()
         self._after_step(overflow)
         mean_loss = float(loss_sum / gas)
-        self.tput_timer.stop()
+        self.tput_timer.stop(tokens=tokens.numel())
         return mean_loss
 
     def _apply_update(self, grads, lr):
@@ -409,11 +442,13 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
-        """Loss of one (tokens, labels) batch [B, S] (or bare tokens),
-        without touching the training state; the gate jitter, where on,
-        draws from a fresh generator seeded 0 (the JAX engine's eval key
-        is ``PRNGKey(0)``)."""
-        tokens, labels = self._lm_batch(batch)
+        """Loss of one batch [B, ...] (GPT-NeoX: (tokens, labels) or bare
+        tokens; BERT: a dict or tuple), without touching the training
+        state. The gate jitter and BERT's dropout, where on, draw from a
+        fresh generator seeded 0: the JAX engine's eval key is
+        ``PRNGKey(0)``, and a BERT loss given a key runs dropout, so its
+        eval loss includes dropout."""
         rng = torch.Generator(device=self.device).manual_seed(0)
         return float(self.module.loss_fn(self.module.params_tree(),
-                                         (tokens, labels), rng=rng))
+                                         self._device_batch(batch),
+                                         rng=rng))

@@ -1,7 +1,8 @@
 """Throughput timer: the port of `ThroughputTimer` of
 `deeperspeed_tpu/utils/timer.py`.
 
-Samples per second with a warm-up skip. The device is fenced with
+Samples per second with a warm-up skip, and tokens per second where the
+caller counts them (`stop(tokens=)`). The device is fenced with
 `torch.cuda.synchronize` (the JAX version drains XLA's async dispatch).
 The JAX timer's ``monitor_memory`` option reads host memory through
 `psutil`, which the card's machine does not have; it is not ported.
@@ -36,6 +37,7 @@ class ThroughputTimer:
         self.micro_step_count = 0
         self.global_step_count = 0
         self.total_elapsed_time = 0
+        self.total_tokens = 0
         self.steps_per_output = steps_per_output
         self.logging = logging_fn or logger.info
         self.initialized = False
@@ -54,7 +56,9 @@ class ThroughputTimer:
             _device_barrier()
             self.start_time = time.monotonic()
 
-    def stop(self, report_speed=True):
+    def stop(self, report_speed=True, tokens=None):
+        """End a step; ``tokens`` (the step's token count) is summed over
+        the timed steps for `avg_tokens_per_sec`."""
         if not self.started:
             return
         self.started = False
@@ -65,6 +69,7 @@ class ThroughputTimer:
             self.end_time = time.monotonic()
             duration = self.end_time - self.start_time
             self.total_elapsed_time += duration
+            self.total_tokens += tokens or 0
             if report_speed and \
                     self.global_step_count % self.steps_per_output == 0:
                 avg = self.avg_samples_per_sec()
@@ -83,4 +88,10 @@ class ThroughputTimer:
             total_step_offset = self.global_step_count - self.start_step
             avg_time_per_step = self.total_elapsed_time / total_step_offset
             return samples / avg_time_per_step
+        return 0.0
+
+    def avg_tokens_per_sec(self):
+        """Tokens over the timed steps' seconds (0.0 before any)."""
+        if self.total_elapsed_time > 0:
+            return self.total_tokens / self.total_elapsed_time
         return 0.0

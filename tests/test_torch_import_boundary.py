@@ -1,7 +1,8 @@
 """The port stands alone: nothing in `deeperspeed_tpu_torch/` or
 `chip_smoke.py` imports JAX, jaxlib or the JAX package, and building a
-CPU serving engine (bf16/fp32 and int8) and a dense, an MoE and a
-block-sparse training engine leaves JAX out of `sys.modules`."""
+CPU serving engine (bf16/fp32 and int8), a dense, an MoE and a
+block-sparse GPT-NeoX training engine and a BERT training engine leaves
+JAX out of `sys.modules`."""
 
 import ast
 import os
@@ -85,6 +86,17 @@ def test_engine_on_cpu_loads_no_jax():
         "x = torch.randint(0, 512, (1, 1, 256))\n"
         "assert eng.train_batch(batch=(x, x)) > 0\n"
         "assert sp.config.attention_engine == 'sparse'\n"
+        "from deeperspeed_tpu_torch import BertConfig, BertForPreTraining\n"
+        "bm = BertForPreTraining(BertConfig.tiny(), device='cpu')\n"
+        "eng, *_ = initialize(model=bm.init_params(0), config_params={\n"
+        "    'train_batch_size': 2,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}}})\n"
+        "ids = torch.randint(0, 512, (1, 2, 32))\n"
+        "b = {'input_ids': ids, 'token_type_ids': torch.zeros_like(ids),\n"
+        "     'attention_mask': torch.ones(1, 2, 32),\n"
+        "     'masked_lm_labels': ids, 'next_sentence_label': "
+        "torch.zeros(1, 2, dtype=torch.long)}\n"
+        "assert eng.train_batch(batch=b) > 0 and eng.global_steps == 1\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu'))\n"
         "print(bad)\n")
