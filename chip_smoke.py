@@ -30,10 +30,17 @@ Phases (any failure exits non-zero before the final line):
    the key-bias and dropout flags at BERT-large's shape (B=20, S=512,
    H=16, D=64, not causal), rates 0 and 0.1, exact zeros on an
    all-masked batch row, timed beside SDPA under the float mask, and the
-   fused and materialized attention paths timed at S = 128 and 512;
+   fused and materialized attention paths timed at S = 128 and 512; the
+   keep-mask the bf16 forward and dk/dv kernels draw at that shape, read
+   out of their outputs (q = k = 0, a one-hot v or dO, S/D calls each)
+   and held bit for bit against `dropout_keep`; two bf16 backward calls
+   on the same inputs compared bit for bit (training and BERT shapes);
+   the bf16 flash kernels at D = 64 and 128 are the tensor-core design,
+   fp32 and D = 256 the FMA one;
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
-   launch counted;
+   launch counted (every flash launch of phases 4, 7, 11 and 15 on the
+   tensor-core design, by the wrapper's per-design counter);
 5. parity: the same model in fp32 gives the same greedy tokens through
    the kernels and through the plain path;
 6. profile (only with ``--profile``): `torch.profiler` over a steady
@@ -103,6 +110,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -306,6 +314,64 @@ def graph_ms(fn, launches=20, replays=5):
     ms = start.elapsed_time(end) / (replays * launches)
     del graph
     return float(ms)
+
+
+def kernel_name(mangled):
+    """A kernel's name from its mangled symbol, with its template
+    arguments spelled out: flash_fwd_mma_kernel<64, false, true>."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    i, name = 0, mangled
+    while i < len(s) and s[i].isdigit():      # length-prefixed components
+        j = i
+        while s[j].isdigit():
+            j += 1
+        n = int(s[i:j])
+        name, i = s[j:j + n], j + n
+    args = []
+    if i < len(s) and s[i] == "I":
+        i += 1
+        while i < len(s) and s[i] != "E":
+            if s.startswith("13__nv_bfloat16", i):
+                args.append("bf16")
+                i += len("13__nv_bfloat16")
+            elif s[i] == "f":
+                args.append("float")
+                i += 1
+            elif s[i] == "L":                 # literal: L<type><value>E
+                j = s.index("E", i)
+                kind, value = s[i + 1], s[i + 2:j]
+                args.append({"0": "false", "1": "true"}[value] if kind == "b"
+                            else value)
+                i = j + 1
+            else:
+                break
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_summary(log):
+    """One row per compiled kernel of nvcc's ``-Xptxas -v`` report: its
+    source, name (template arguments spelled out), registers a thread and
+    spill stores and loads in bytes."""
+    rows, src, cur = [], None, None
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"source": src, "kernel": kernel_name(m.group(1)),
+                   "spill_stores": 0, "spill_loads": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            rows.append(cur)
+            cur = None
+    return rows
 
 
 def close(got, want, atol, rtol):
@@ -1671,6 +1737,138 @@ def check_bert_attention(fa, gen, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: what the bf16 tolerances cannot see: the keep-mask the kernels
+# draw, and run-to-run identity of the backward
+# ---------------------------------------------------------------------------
+
+def readout_kernels(fa):
+    """(forward, dV) of the flagged flash kernels, not causal, for
+    `dropout_readout`."""
+    def fwd(q, k, v, kbias, seed, rate):
+        return fa.flash_attention_cuda(q, k, v, None, None, None, False,
+                                       kbias, seed, rate)
+
+    def dv(q, k, v, out, lse, do, kbias, seed, rate):
+        return fa.flash_attention_bwd_cuda(
+            q, k, v, lse, do, fa.attention_delta(out, do), None, None, None,
+            False, kbias, seed, rate)[2]
+    return fwd, dv
+
+
+def readout_plain(fa):
+    """The same pair through the plain versions."""
+    def fwd(q, k, v, kbias, seed, rate):
+        return fa.flash_attention_segmented_reference(
+            q, k, v, None, None, None, False, kbias, seed, rate)
+
+    def dv(q, k, v, out, lse, do, kbias, seed, rate):
+        return fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, None, None, None, False, kbias, seed,
+            rate)[2]
+    return fwd, dv
+
+
+def dropout_readout(fwd, dv_fn, B, S, H, D, rate, seed, dtype, device):
+    """The keep-masks [B, H, S, S] that a forward and a dV computation
+    draw, read out of their outputs. q = k = 0 and a zero key bias make P
+    uniform (1/S on every key), so a kept probability is nonzero and a
+    dropped one exactly 0. Forward: v one-hot on one key per column
+    (column d of call c carries key c·D + d), so out[b, row, h, d] != 0
+    exactly where (row, c·D + d) is kept. dV: dO one-hot on one row per
+    column, so dv[b, key, h, d] != 0 exactly where (c·D + d, key) is
+    kept. S / D calls of each cover every key and every row."""
+    zeros = torch.zeros(B, S, H, D, dtype=dtype, device=device)
+    kbias = torch.zeros(B, S, dtype=torch.float32, device=device)
+    fwd_mask = torch.empty(B, H, S, S, dtype=torch.bool, device=device)
+    dv_mask = torch.empty_like(fwd_mask)
+    cols = torch.arange(D, device=device)
+    for c in range(S // D):
+        sel = torch.zeros(S, D, dtype=dtype, device=device)
+        sel[c * D + cols, cols] = 1
+        onehot = sel[None, :, None, :].expand(B, S, H, D).contiguous()
+        out, lse = fwd(zeros, zeros, onehot, kbias, seed, rate)
+        fwd_mask[..., c * D:(c + 1) * D] = (out != 0).permute(0, 2, 1, 3)
+        dv = dv_fn(zeros, zeros, zeros, out, lse, onehot, kbias, seed, rate)
+        dv_mask[:, :, c * D:(c + 1) * D, :] = (dv != 0).permute(0, 2, 3, 1)
+    return fwd_mask, dv_mask
+
+
+def check_dropout_readout(fa, report):
+    """The keep-mask of the bf16 forward and dk/dv kernels at BERT-large's
+    shape (B=20, S=512, H=16, D=64, rate 0.1), read out by
+    `dropout_readout`, must equal `dropout_keep` bit for bit: a mask
+    drawn at wrong coordinates moves a bf16 output by about 0.015,
+    inside the (2e-2, 2e-2) tolerance of the value checks."""
+    B, S, H, D, rate = BERT_MICRO, BERT_SEQ, 16, 64, 0.1
+    seed = torch.tensor([BERT_DROPOUT_SEED], dtype=torch.int32,
+                        device="cuda")
+    fa.reset_design_launches()
+    fwd_mask, dv_mask = dropout_readout(*readout_kernels(fa), B, S, H, D,
+                                        rate, seed, torch.bfloat16, "cuda")
+    want = fa._keep_mask(seed, B, H, S, rate, "cuda")
+    row = {"B": B, "S": S, "H": H, "D": D, "rate": rate,
+           "calls": S // D, "kept_share": float(want.float().mean()),
+           "forward_mismatches": int((fwd_mask != want).sum()),
+           "dv_mismatches": int((dv_mask != want).sum()),
+           "design_launches": {k: dict(v)
+                               for k, v in fa.design_launches.items()}}
+    print(f"  dropout mask readout {row}", flush=True)
+    if row["forward_mismatches"] or row["dv_mismatches"]:
+        fail(f"the keep-mask read out of the bf16 flash kernels is not "
+             f"dropout_keep's: {row}")
+    if row["design_launches"]["fwd"]["mma"] != S // D or \
+            row["design_launches"]["dkv"]["mma"] != S // D:
+        fail(f"the mask readout did not run the tensor-core kernels: {row}")
+    report["dropout_readout"] = row
+    return row
+
+
+def check_bwd_identity(fa, gen, report):
+    """Two bf16 backward calls on the same inputs give the same bits (no
+    atomics): at the training shape (causal) and at BERT-large's shape
+    with the key bias and dropout 0.1."""
+    B, S, H, D = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], \
+        TRAIN_SEQ, NEOX_125M["num_heads"], \
+        NEOX_125M["hidden_size"] // NEOX_125M["num_heads"]
+    q, k, v, _, _ = prefill_case(S, torch.bfloat16, gen, B=B, H=H, D=D)
+    cases = [("train shape, causal", (q, k, v), (None, None, None, True))]
+    bq, bk, bv, kbias, _, seed, _ = bert_attention_case(torch.bfloat16, gen)
+    cases.append(("BERT shape, key bias + dropout 0.1", (bq, bk, bv),
+                  (None, None, None, False, kbias, seed, 0.1)))
+    rows = []
+    for name, (q, k, v), flags in cases:
+        out, lse = fa.flash_attention_cuda(q, k, v, *flags)
+        do = torch.randn(out.shape, generator=gen, device="cuda").to(q.dtype)
+        delta = fa.attention_delta(out, do)
+        first = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, *flags)
+        second = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, *flags)
+        torch.cuda.synchronize()
+        same = {g: bool(torch.equal(a, b))
+                for g, a, b in zip(("dq", "dk", "dv"), first, second)}
+        rows.append({"case": name, "shape": list(q.shape),
+                     "bit_identical": same})
+        print(f"  flash backward run to run ({name}): {same}", flush=True)
+        if not all(same.values()):
+            fail(f"two bf16 flash backward calls on the same inputs differ "
+                 f"({name}): {same}")
+        del out, lse, do, delta, first, second
+    torch.cuda.empty_cache()
+    report["flash_bwd_identity"] = rows
+    return rows
+
+
+def check_design(fa, what, want_mma):
+    """Fail unless every flash launch since the last reset took the bf16
+    tensor-core kernels: ``want_mma`` {kernel: launches} of the path."""
+    got = {k: dict(v) for k, v in fa.design_launches.items()}
+    want = {k: {"mma": want_mma.get(k, 0), "fma": 0} for k in got}
+    if got != want:
+        fail(f"{what}: flash launches by design {got} != {want} (every "
+             f"bf16 flash launch on the tensor-core kernels)")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving at full width
 # ---------------------------------------------------------------------------
 
@@ -1699,6 +1897,7 @@ def serve(fa, da, report):
     torch.cuda.synchronize()
 
     fa.launches = 0
+    fa.reset_design_launches()
     da.launches = 0
     prefill_calls = decode_steps = 0
     submit_at, last, seen, itl, ttft = {}, {}, {}, [], []
@@ -1745,6 +1944,8 @@ def serve(fa, da, report):
             not prefill_calls or not decode_steps:
         fail(f"launch counts {launches} != {L} x ({prefill_calls} prefill "
              f"calls, {decode_steps} decode steps)")
+    design = check_design(fa, "serving",
+                          {"fwd": launches["flash_fwd"]})
     with torch.no_grad():
         logits = model(torch.tensor([prompts[0]], device="cuda"))
     if logits.shape != (1, len(prompts[0]), cfg.vocab_size) or \
@@ -1768,7 +1969,8 @@ def serve(fa, da, report):
         "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
         "steps": stats["steps"], "evictions": stats["evictions"],
         "prefill_calls": prefill_calls, "decode_steps": decode_steps,
-        "launches": launches, "dtypes": eng.dtypes,
+        "launches": launches, "design_launches": design,
+        "dtypes": eng.dtypes,
     }
     report["serve"] = result
     del eng, model
@@ -1987,6 +2189,7 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     torch.cuda.reset_peak_memory_stats()
 
     fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.reset_design_launches()
     ad.launches = 0
     if gm is not None:
         gm.launches = gm.dw_launches = 0
@@ -2019,6 +2222,9 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     if launches != want:
         fail(f"training launch counts {launches} != {want} ({L} layers x "
              f"gas {gas} x {TRAIN_STEPS} steps, one Adam a step)")
+    design = check_design(fa, key, {
+        "fwd": launches["flash_fwd"], "dkv": launches["flash_bwd_dkv"],
+        "dq": launches["flash_bwd_dq"]})
     if eng.global_steps != TRAIN_STEPS or eng.skipped_steps:
         fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
     eval_loss = eng.eval_batch((tokens[0], tokens[0]))
@@ -2034,7 +2240,7 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
         "tokens_per_s": gas * micro * TRAIN_SEQ / med,
         "max_memory_allocated_gb": peak / 2 ** 30,
         "num_params": eng.num_params,
-        "launches": launches,
+        "launches": launches, "design_launches": design,
         "launches_per_step": {k: v / TRAIN_STEPS
                               for k, v in launches.items()},
         "dtypes": {"compute": str(eng.compute_dtype),
@@ -2043,7 +2249,7 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     if profile_step:
         result["profile"] = profile_window(
             lambda: eng.train_batch(batch=(tokens, tokens)),
-            1 if gm is not None else 2)
+            1 if gm is not None else 2, share_of="flash")
     report[key] = result
     del eng, model
     torch.cuda.empty_cache()
@@ -2095,6 +2301,7 @@ def reset_attention_counts(fa, bsa):
     fa.masked_launches = fa.masked_bwd_dkv_launches = 0
     fa.masked_bwd_dq_launches = 0
     fa.reset_flag_launches()
+    fa.reset_design_launches()
     bsa.launches = bsa.dkv_launches = bsa.dq_launches = 0
 
 
@@ -2320,6 +2527,9 @@ def train_bert(fa, bsa, ad, report, profile_step=False):
         fail(f"BERT training launch counts {launches} != {want} ({L} layers "
              f"x {BERT_STEPS} steps, flash with the key-bias and dropout "
              f"flags only)")
+    design = check_design(fa, "train_bert", {
+        kernel: launches[f"flash_{kernel}_kbias_dropout"]
+        for kernel in ("fwd", "dkv", "dq")})
     if peak >= 80e9:
         fail(f"BERT training peak memory {peak / 2 ** 30:.2f} GiB")
     if eng.global_steps != BERT_STEPS or eng.skipped_steps:
@@ -2338,6 +2548,7 @@ def train_bert(fa, bsa, ad, report, profile_step=False):
         PEAK_FLOPS_S,
         "max_memory_allocated_gb": peak / 2 ** 30,
         "num_params": eng.num_params, "launches": launches,
+        "design_launches": design,
         "launches_per_step": {k: v / BERT_STEPS
                               for k, v in launches.items()},
         "timer_tokens_per_s": eng.tput_timer.avg_tokens_per_sec(),
@@ -2517,10 +2728,13 @@ def profile(report, card):
                            device="cuda")
     table = torch.zeros((4, S // eng.page_size), dtype=torch.int32,
                         device="cuda")
-    prefill = profile_window(lambda: eng._prefill(tokens, lengths, table), 5)
+    prefill = profile_window(lambda: eng._prefill(tokens, lengths, table), 5,
+                             share_of="flash")
     report["profile"] = {"decode_B16": decode, "prefill_B4_S512": prefill}
     print_profile("decode step (B=16)", decode, card)
     print_profile("prefill call (B=4, S=512)", prefill, card)
+    print(f"  flash kernels' share of device time: "
+          f"{prefill['device_share_flash']:.3f}", flush=True)
     del eng
     # a decode window of each serve-quant rung, mid-stream (16 sequences of
     # 62 prompt tokens, all prefilled)
@@ -2583,12 +2797,16 @@ def main():
     info = _build.BUILD_INFO
     print(f"build: {info['seconds']:.1f} s (built={info['built']}) "
           f"{info['path']}", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"  {line.strip()}", flush=True)
+    ptxas = ptxas_summary(info["log"])
+    for row in ptxas:
+        print(f"  ptxas {row['source']}: {row['kernel']}: {row['registers']} "
+              f"registers, spill stores {row['spill_stores']} B, loads "
+              f"{row['spill_loads']} B", flush=True)
 
     report = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
+              "cuda": torch.version.cuda,
+              "build": {"seconds": info["seconds"], "built": info["built"],
+                        "ptxas": ptxas}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("kernels vs plain versions:", flush=True)
     fl = check_prefill(fa, gen, report)
@@ -2602,6 +2820,8 @@ def main():
     fm = check_masked_flash(bsa, fa, gen, report)
     check_sparse_crossover(bsa, fa, gen, report)
     bert_rows, _ = check_bert_attention(fa, gen, report)
+    check_dropout_readout(fa, report)
+    check_bwd_identity(fa, gen, report)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -2691,8 +2911,12 @@ def main():
         profile(report, card)
         print_profile("training step (gas 2 x micro 16 x 1024)",
                       tr["profile"], card)
+        print(f"  flash kernels' share of device time: "
+              f"{tr['profile']['device_share_flash']:.3f}", flush=True)
         print_profile("MoE training step (micro 8 x 1024, 8 experts top-2)",
                       tm["profile"], card)
+        print(f"  flash kernels' share of device time: "
+              f"{tm['profile']['device_share_flash']:.3f}", flush=True)
         print_profile("sparse training step (micro 2 x 16384, l16g1)",
                       ts["profile"], card)
         print(f"  block-sparse kernels' share of device time: "
@@ -2718,6 +2942,12 @@ def main():
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "train_moe": tm["launches"]["flash_fwd"]},
+         "design": "bf16 at D 64/128: tensor cores (mma.sync, "
+                   "csrc/attention_mma.cuh); fp32, D 256: FMA tile steps",
+         "design_launches_by_path": {
+             "serve": sv["design_launches"]["fwd"],
+             "train": tr["design_launches"]["fwd"],
+             "train_moe": tm["design_launches"]["fwd"]},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
@@ -2749,6 +2979,10 @@ def main():
                                 tm["launches"]["flash_bwd_dq"]},
          "launches_by_path": {"train": tr["launches"]["flash_bwd_dkv"],
                               "train_moe": tm["launches"]["flash_bwd_dkv"]},
+         "design_launches_by_path": {
+             "train": {k: tr["design_launches"][k] for k in ("dkv", "dq")},
+             "train_moe": {k: tm["design_launches"][k]
+                           for k in ("dkv", "dq")}},
          "max_abs_err": max(fb[f"max_abs_err_{g}"]
                             for g in ("dq", "dk", "dv")),
          "ms": fb["ms"], "plain_ms": fb["plain_ms"],
@@ -2939,6 +3173,7 @@ def main():
          "launches_by_path": {"train_bert": tb["launches"][
              "flash_fwd_kbias_dropout"], "train_bert_parity": bp[
              "launches"]["flash_fwd_kbias_dropout"]},
+         "design_launches": tb["design_launches"]["fwd"],
          "max_abs_err": max(bert_row["max_abs_err_out"],
                             bert_row["max_abs_err_lse"]),
          "max_abs_err_fp32": max(r["max_abs_err_out"] for r in bert_fp32),
@@ -2958,6 +3193,8 @@ def main():
          "launches_by_kernel": {
              "dkv": tb["launches"]["flash_dkv_kbias_dropout"],
              "dq": tb["launches"]["flash_dq_kbias_dropout"]},
+         "design_launches": {k: tb["design_launches"][k]
+                             for k in ("dkv", "dq")},
          "max_abs_err": max(bert_row[f"max_abs_err_{g}"]
                             for g in ("dq", "dk", "dv")),
          "max_abs_err_fp32": max(r[f"max_abs_err_{g}"] for r in bert_fp32

@@ -31,7 +31,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// -- the tensor-core kernels' pieces (quant_matmul.cu, grouped_matmul.cu) --
+// -- the tensor-core kernels' pieces (quant_matmul.cu, grouped_matmul.cu,
+// the bf16 flash kernels) --
 
 // 16-byte global -> shared copy; pred false copies nothing and zero-fills
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -42,6 +43,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(n));
 }
 
+// 4-byte global -> shared copy (fp32 rows of lse, delta, key bias); pred
+// false copies nothing and zero-fills
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(n));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -49,6 +60,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x by the special-function unit (what __expf uses after its scale)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // c += a * b on one m16n8k16 tile: bf16 A (row) and B (col), fp32 c

@@ -28,29 +28,46 @@
 // dropped output. Both flags are template parameters, so the kernels of
 // the other paths are unchanged.
 //
-// Bound on the H100: at the training shape (B=16, H=12, S=1024, D=64) the
-// bytes (q, k, v, dO, lse, delta in; dq, dk, dv out) take a few tens of
-// microseconds at 3.35 TB/s and the 5 S*S*D products over the causal
-// half about 0.1 ms at the bf16 tensor-core peak. This first kernel does
-// its products with fp32 FMA and is bound by their throughput. Design:
+// Bound on the H100: at the training shape (B=16, H=12, S=1024, D=64,
+// causal) the bytes (q, k, v, dO, lse, delta in; dq, dk, dv out) take
+// about 0.05 ms at 3.35 TB/s and the five S·S·D products over the causal
+// half 0.065 ms at the bf16 tensor-core peak: operations bound it. With
+// two kernels and no atomics, S and dP are computed twice (seven
+// products), so the reachable floor is about 0.09 ms of tensor-core time.
 //
-// - Two kernels, no atomics, so the result is deterministic. dK/dV: one
-//   block per (b*h, key tile) loops over the q tiles from the causal
-//   start to S, keeping dK and dV in registers. dQ: one block per (b*h,
-//   q tile) loops over the key tiles up to the causal limit. Both
-//   recompute P and dP; tiles with no live pair are skipped.
-// - The TPU kernel's fusion of one head's whole sequence in VMEM
-//   (`_head_bwd`) does not fit: at S = 1024 one head's q/k/v/dO alone
-//   take 512 KB in bf16 against 227 KB of shared memory. Tiles are 64
-//   rows (32 at D = 256), staged in shared memory as fp32 with rows
-//   padded by one word against bank conflicts.
+// What held the first (FMA) design back, which fp32 and D = 256 still
+// take (the tile steps of attention_tiles.cuh, shared with the
+// block-sparse backward): fp32 FMA on the CUDA cores for all five
+// products, fp32 tiles in shared memory converted from synchronous 2-byte
+// loads, P and dS written to and read back from shared memory behind
+// three barriers a tile, and 100.9 KB of shared memory a block (2 blocks
+// an SM). It ran the row-3 backward in 4.6-4.9 ms.
+//
+// This design (bf16 at D = 64 and 128; the C dispatch picks it at compile
+// time):
+//
+// - Two kernels, no atomics, so the result is deterministic, as before.
+//   dK/dV (`flash_bwd_dkv_mma_kernel`): one block of 4 warps per (b·h,
+//   64-key tile), each warp 16 keys; K and V stay in shared memory, Q and
+//   dO tiles of 64 rows stream through a 2-stage cp.async ring from the
+//   causal start to S. dQ (`flash_bwd_dq_mma_kernel`): one block per
+//   (b·h, 64-row q tile), each warp 16 q rows; Q and dO stay as A
+//   fragments, K and V stream through the ring up to the causal limit.
+//   Tiles of inactive layout blocks or without a live same-segment pair
+//   are skipped.
+// - Every product is mma.sync m16n8k16 with fp32 accumulators and
+//   ldmatrix fragments from bf16 tiles (rows padded by 16 bytes). The
+//   dK/dV kernel computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, forms Pᵀ and dSᵀ in
+//   registers (the keep-mask drawn at the transposed coordinates) and
+//   uses them, rounded to bf16, as the A operands of dV += Pᵀ·dO and
+//   dK += dSᵀ·Q; the dQ kernel forms dS and runs dQ += dS·K the same
+//   way. Nothing but the load ring goes through shared memory.
 // - q, k and v are read through (batch, seq, head) strides, so the views
 //   split out of the fused QKV projection need no copy; dO is contiguous
 //   [B, S, H, D]; dq, dk, dv are written [B, S, H, D] contiguous.
-// - The tile steps (load, P and dS, the dK/dV and dQ sums, the stores)
-//   are attention_tiles.cuh's, shared with the block-sparse backward.
 #include <climits>
 
+#include "attention_mma.cuh"
 #include "attention_tiles.cuh"
 
 namespace {
@@ -231,6 +248,338 @@ __global__ void __launch_bounds__(NT)
   ds::attn::bwd_store<T, D>(dq, acc, b, h, q0, S, H);
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 tensor-core kernels (D = 64, 128)
+// ---------------------------------------------------------------------------
+
+namespace mm = ds::mma_attn;
+
+// Pᵀ (or P) and dS of one accumulator element, from the fp32 score s and
+// dP at (row, key), with off2 = (bias − lse)·log2 e: P = 2^(s·scale2 +
+// off2) = exp(s·scale + bias − lse) on live pairs; with dropout the
+// forward's keep-mask M scales P for dV and dP for dS:
+//   pv = M ? P / keep : 0,  ds = P · ((M ? dP / keep : 0) − delta) · scale
+template <bool DROP>
+__device__ __forceinline__ void p_and_ds(float& s_io, float& dp_io, bool live,
+                                         float scale2, float off2,
+                                         float delta_r, float sm_scale,
+                                         unsigned mix, int row, int key,
+                                         int thresh, float inv_keep) {
+  const float p = live ? ds::ex2(fmaf(s_io, scale2, off2)) : 0.f;
+  float pv = p, dpv = dp_io;
+  if constexpr (DROP) {
+    const bool keep = ds::attn::dropout_keep(mix, row, key, thresh);
+    pv = keep ? p * inv_keep : 0.f;
+    dpv = keep ? dpv * inv_keep : 0.f;
+  }
+  s_io = pv;
+  dp_io = p * (dpv - delta_r) * sm_scale;
+}
+
+// dK/dV (the design above). The lse and delta rows ride the Q/dO ring,
+// one barrier a tile. A tile is taken in slices of W q rows, each its
+// own Sᵀ, dPᵀ, Pᵀ, dSᵀ and two products, so that a thread stays within
+// 168 registers at D = 64 and three blocks share an SM.
+template <int D, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
+    flash_bwd_dkv_mma_kernel(
+        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
+        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const int* __restrict__ seg, const int* __restrict__ layout,
+        const float* __restrict__ kbias, const int* __restrict__ seed,
+        mm::bf16* __restrict__ dk, mm::bf16* __restrict__ dv, int S, int H,
+        Strides st, float sm_scale, int causal, int thresh,
+        float inv_keep) {
+  constexpr int TILE = mm::tile_elems<D>();
+  constexpr int LD = mm::ld<D>();
+  constexpr int KS = D / 16;
+  // q rows a slice: narrow enough that dK and dV (2·D/2 accumulators a
+  // lane) and the slice's Sᵀ and dPᵀ fit 168 registers without a spill
+  constexpr int W = D == 64 ? 16 : 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mm::bf16* Ks = reinterpret_cast<mm::bf16*>(smem_raw);
+  mm::bf16* Vs = Ks + TILE;
+  mm::bf16* Qs = Vs + TILE;       // [2][64][LD]
+  mm::bf16* dOs = Qs + 2 * TILE;  // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][64]
+  float* dl_s = lse_s + 2 * mm::BN;                          // [2][64]
+  int* own_seg = reinterpret_cast<int*>(dl_s + 2 * mm::BN);  // [64]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int kt = blockIdx.x;  // key tile 0 (the most q tiles) first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = kt * mm::BM;
+  const int nb = S / 128;  // layout blocks a row (layout calls only)
+  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
+  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
+  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const float* lse_bh = lse + (long long)bh * S;
+  const float* delta_bh = delta + (long long)bh * S;
+  const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
+  const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
+  const float scale2 = sm_scale * mm::LOG2E;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  float kb2[2] = {0.f, 0.f};  // the keys' bias, times log2 e
+  if constexpr (BIAS)
+    for (int r = 0; r < 2; ++r)
+      kb2[r] = keys[r] < S ? kbias[(long long)b * S + keys[r]] * mm::LOG2E
+                           : 0.f;
+  int segk[2] = {0, 0};
+  if (seg_b != nullptr) {
+    for (int r = 0; r < 2; ++r)
+      segk[r] = keys[r] < S ? seg_b[keys[r]] : INT_MIN;
+    mm::load_own_seg(own_seg, seg_b, k0, S);
+    __syncthreads();
+  }
+
+  const int n_qt = (S + mm::BN - 1) / mm::BN;
+  // the next q tile from qt on that is not skipped; uniform over the block
+  auto next_tile = [&](int qt) {
+    for (; qt < n_qt; ++qt) {
+      if (layout != nullptr &&
+          layout[((long long)h * nb + qt * mm::BN / 128) * nb + k0 / 128] ==
+              0)
+        continue;
+      if (seg_b == nullptr ||
+          mm::tile_live(own_seg, seg_b, k0, qt * mm::BN, false, S, causal))
+        break;
+    }
+    return qt;
+  };
+  auto load_q_side = [&](int qt, int stage) {
+    const int q0 = qt * mm::BN;
+    mm::load_tile<D>(Qs + stage * TILE, qb, st.qss, q0, S);
+    mm::load_tile<D>(dOs + stage * TILE, db, (long long)H * D, q0, S);
+    mm::load_vec(lse_s + stage * mm::BN, lse_bh, q0, S, 0);
+    mm::load_vec(dl_s + stage * mm::BN, delta_bh, q0, S, mm::BN);
+  };
+
+  mm::load_tile<D>(Ks, kb, st.kss, k0, S);
+  mm::load_tile<D>(Vs, vb, st.vss, k0, S);
+  // with causal, q tiles before kt are all masked
+  int qt = next_tile(causal ? kt : 0);
+  if (qt < n_qt) load_q_side(qt, 0);
+  ds::cp_async_commit();
+  ds::cp_async_wait<0>();
+  __syncthreads();
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+  mm::zero(acc_k);
+  mm::zero(acc_v);
+  int stage = 0;
+  while (qt < n_qt) {
+    const int nxt = next_tile(qt + 1);
+    if (nxt < n_qt) load_q_side(nxt, stage ^ 1);  // overlaps this tile
+    ds::cp_async_commit();
+    const int q0 = qt * mm::BN;
+    const mm::bf16* Qt = Qs + stage * TILE;
+    const mm::bf16* dOt = dOs + stage * TILE;
+    const float* lse_t = lse_s + stage * mm::BN;
+    const float* dl_t = dl_s + stage * mm::BN;
+    const bool masked = seg_b != nullptr || q0 + mm::BN > S ||
+                        (causal && k0 + warp * 16 + 15 > q0);
+#pragma unroll 1  // one slice's registers at a time
+    for (int c0 = 0; c0 < mm::BN; c0 += W) {
+      float s[W / 8][4], dp[W / 8][4];
+      mm::zero(s);
+      mm::zero(dp);
+      mm::mma_abt<KS, W>(s, mm::SmemA<D>{Ks, warp * 16}, Qt + c0 * LD, LD);
+      mm::mma_abt<KS, W>(dp, mm::SmemA<D>{Vs, warp * 16}, dOt + c0 * LD,
+                          LD);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = c0 + 8 * j + 2 * qd + c, row = q0 + col;
+          const float nlse2 = -lse_t[col] * mm::LOG2E, dl = dl_t[col];
+          const int segq = masked && seg_b != nullptr && row < S
+                               ? __ldg(seg_b + row) : 0;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            bool live = true;
+            if (masked)
+              live = row < S && keys[r] < S &&
+                     (!causal || keys[r] <= row) &&
+                     (seg_b == nullptr || segq == segk[r]);
+            p_and_ds<DROP>(s[j][2 * r + c], dp[j][2 * r + c], live, scale2,
+                           nlse2 + kb2[r], dl, sm_scale, mix, row, keys[r],
+                           thresh, inv_keep);
+          }
+        }
+      }
+      unsigned pa[W / 16][4], da[W / 16][4];
+      mm::pack_a<W / 16>(pa, s);
+      mm::pack_a<W / 16>(da, dp);
+      mm::mma_ab<W / 16, D>(acc_v, pa, dOt + c0 * LD, LD);
+      mm::mma_ab<W / 16, D>(acc_k, da, Qt + c0 * LD, LD);
+    }
+    ds::cp_async_wait<0>();  // tile nxt landed
+    __syncthreads();         // ... for every warp, and this stage is free
+    stage ^= 1;
+    qt = nxt;
+  }
+  const float one[2] = {1.f, 1.f};
+  const long long off = ((long long)b * S * H + h) * D;
+  mm::store_rows<D>(dk + off, (long long)H * D, acc_k, keys, S, one);
+  mm::store_rows<D>(dv + off, (long long)H * D, acc_v, keys, S, one);
+}
+
+// dQ (the design above). Q and dO are A fragments in registers at D = 64
+// and read from shared memory at each step at D = 128, to stay within
+// the registers; the key bias rides the K/V ring, one barrier a tile; a
+// tile is taken in two halves of 32 keys.
+template <int D, bool BIAS, bool DROP>
+__global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
+    flash_bwd_dq_mma_kernel(
+        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
+        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const int* __restrict__ seg, const int* __restrict__ layout,
+        const float* __restrict__ kbias, const int* __restrict__ seed,
+        mm::bf16* __restrict__ dq, int S, int H, Strides st, float sm_scale,
+        int causal, int thresh, float inv_keep) {
+  constexpr int TILE = mm::tile_elems<D>();
+  constexpr int LD = mm::ld<D>();
+  constexpr int KS = D / 16;
+  constexpr bool A_REGS = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
+  mm::bf16* dOs = Qs + TILE;
+  mm::bf16* Ks = dOs + TILE;     // [2][64][LD]
+  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  float* kb_s = reinterpret_cast<float*>(Vs + 2 * TILE);       // [2][64]
+  int* own_seg = reinterpret_cast<int*>(kb_s + 4 * mm::BN);    // [64]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the most keys first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = qt * mm::BM;
+  const int nb = S / 128;  // layout blocks a row (layout calls only)
+  const int* lrow =
+      layout != nullptr ? layout + ((long long)h * nb + q0 / 128) * nb
+                        : nullptr;
+  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
+  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
+  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
+  const float* kbias_b = BIAS ? kbias + (long long)b * S : nullptr;
+  const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
+  const float scale2 = sm_scale * mm::LOG2E;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float nlse2[2], delta_r[2];  // −lse·log2 e and delta of the two rows
+  int segq[2] = {0, 0};
+  for (int r = 0; r < 2; ++r) {
+    const bool in = rows[r] < S;
+    nlse2[r] = in ? -lse[(long long)bh * S + rows[r]] * mm::LOG2E
+                  : ds::NEG_INF;
+    delta_r[r] = in ? delta[(long long)bh * S + rows[r]] : 0.f;
+  }
+  if (seg_b != nullptr) {
+    for (int r = 0; r < 2; ++r)
+      segq[r] = rows[r] < S ? seg_b[rows[r]] : INT_MIN;
+    mm::load_own_seg(own_seg, seg_b, q0, S);
+    __syncthreads();
+  }
+
+  const int last_key = causal ? min(S - 1, q0 + mm::BM - 1) : S - 1;
+  const int n_kt = last_key / mm::BN + 1;
+  auto next_tile = [&](int kt) {
+    for (; kt < n_kt; ++kt) {
+      if (lrow != nullptr && lrow[kt * mm::BN / 128] == 0) continue;
+      if (seg_b == nullptr ||
+          mm::tile_live(own_seg, seg_b, q0, kt * mm::BN, true, S, causal))
+        break;
+    }
+    return kt;
+  };
+  auto load_kv = [&](int kt, int stage) {
+    mm::load_tile<D>(Ks + stage * TILE, kb, st.kss, kt * mm::BN, S);
+    mm::load_tile<D>(Vs + stage * TILE, vb, st.vss, kt * mm::BN, S);
+    if constexpr (BIAS)
+      mm::load_vec(kb_s + stage * mm::BN, kbias_b, kt * mm::BN, S);
+  };
+
+  mm::load_tile<D>(Qs, qb, st.qss, q0, S);
+  mm::load_tile<D>(dOs, db, (long long)H * D, q0, S);
+  int kt = next_tile(0);
+  if (kt < n_kt) load_kv(kt, 0);
+  ds::cp_async_commit();
+  ds::cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[A_REGS ? KS : 1][4], df[A_REGS ? KS : 1][4];
+  if constexpr (A_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      mm::a_frag<D>(qf[kk], Qs, warp * 16, kk);
+      mm::a_frag<D>(df[kk], dOs, warp * 16, kk);
+    }
+  }
+
+  float acc[D / 8][4];
+  mm::zero(acc);
+  int stage = 0;
+  while (kt < n_kt) {
+    const int nxt = next_tile(kt + 1);
+    if (nxt < n_kt) load_kv(nxt, stage ^ 1);  // overlaps this tile
+    ds::cp_async_commit();
+    const int k0 = kt * mm::BN;
+    const mm::bf16* Kt = Ks + stage * TILE;
+    const mm::bf16* Vt = Vs + stage * TILE;
+    const float* kb_t = kb_s + stage * mm::BN;
+    const bool masked = seg_b != nullptr || k0 + mm::BN > S ||
+                        (causal && k0 + mm::BN - 1 > q0 + warp * 16);
+#pragma unroll 1  // one half's registers at a time
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;
+      float s[4][4], dp[4][4];
+      mm::zero(s);
+      mm::zero(dp);
+      if constexpr (A_REGS) {
+        mm::mma_abt<KS, 32>(s, mm::RegA<KS>{qf}, Kt + c0 * LD, LD);
+        mm::mma_abt<KS, 32>(dp, mm::RegA<KS>{df}, Vt + c0 * LD, LD);
+      } else {
+        mm::mma_abt<KS, 32>(s, mm::SmemA<D>{Qs, warp * 16}, Kt + c0 * LD,
+                            LD);
+        mm::mma_abt<KS, 32>(dp, mm::SmemA<D>{dOs, warp * 16}, Vt + c0 * LD,
+                            LD);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = c0 + 8 * j + 2 * qd + c, key = k0 + col;
+          const float kbv = BIAS ? kb_t[col] * mm::LOG2E : 0.f;
+          const int segk = masked && seg_b != nullptr && key < S
+                               ? __ldg(seg_b + key) : 0;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            bool live = true;
+            if (masked)
+              live = key < S && (!causal || key <= rows[r]) &&
+                     (seg_b == nullptr || segq[r] == segk);
+            p_and_ds<DROP>(s[j][2 * r + c], dp[j][2 * r + c], live, scale2,
+                           nlse2[r] + kbv, delta_r[r], sm_scale, mix,
+                           rows[r], key, thresh, inv_keep);
+          }
+        }
+      }
+      unsigned da[2][4];
+      mm::pack_a<2>(da, dp);
+      mm::mma_ab<2, D>(acc, da, Kt + c0 * LD, LD);
+    }
+    ds::cp_async_wait<0>();  // tile nxt landed
+    __syncthreads();         // ... for every warp, and this stage is free
+    stage ^= 1;
+    kt = nxt;
+  }
+  const float one[2] = {1.f, 1.f};
+  mm::store_rows<D>(dq + ((long long)b * S * H + h) * D, (long long)H * D,
+                    acc, rows, S, one);
+}
+
 // which of the two kernels a call launches
 enum class Part { kDKV, kDQ };
 
@@ -249,37 +598,77 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, bool BIAS, bool DROP>
-cudaError_t launch(Part part, const Args& a) {
-  constexpr int rows = ds::attn::bwd_rows<D>();
-  constexpr size_t smem =
-      ds::attn::bwd_smem_bytes<D>() + (BIAS ? rows * sizeof(float) : 0);
-  const dim3 grid((a.S + rows - 1) / rows, a.B * a.H);
-  const T* tq = static_cast<const T*>(a.q);
-  const T* tk = static_cast<const T*>(a.k);
-  const T* tv = static_cast<const T*>(a.v);
-  const T* td = static_cast<const T*>(a.dout);
+template <int D, bool BIAS, bool DROP>
+cudaError_t launch_mma(Part part, const Args& a) {
+  // dk/dv: K, V and a 2-stage Q, dO ring with its lse and delta; dq: Q,
+  // dO and a 2-stage K, V ring with its key bias (room for four 64-float
+  // rows either way); and the block's segment ids
+  constexpr size_t smem = 6 * mm::tile_elems<D>() * sizeof(mm::bf16) +
+                          4 * mm::BN * sizeof(float) + mm::BM * sizeof(int);
+  const dim3 grid((a.S + mm::BM - 1) / mm::BM, a.B * a.H);
+  const auto* tq = static_cast<const mm::bf16*>(a.q);
+  const auto* tk = static_cast<const mm::bf16*>(a.k);
+  const auto* tv = static_cast<const mm::bf16*>(a.v);
+  const auto* td = static_cast<const mm::bf16*>(a.dout);
   cudaError_t err;
   if (part == Part::kDKV) {
-    auto kernel = flash_bwd_dkv_kernel<T, D, BIAS, DROP>;
+    auto kernel = flash_bwd_dkv_mma_kernel<D, BIAS, DROP>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, a.stream>>>(
+    kernel<<<grid, mm::NTM, smem, a.stream>>>(
         tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
-        static_cast<T*>(a.g1), static_cast<T*>(a.g2), a.S, a.H, a.st,
-        a.sm_scale, a.causal, a.thresh, a.inv_keep);
+        static_cast<mm::bf16*>(a.g1), static_cast<mm::bf16*>(a.g2), a.S,
+        a.H, a.st, a.sm_scale, a.causal, a.thresh, a.inv_keep);
   } else {
-    auto kernel = flash_bwd_dq_kernel<T, D, BIAS, DROP>;
+    auto kernel = flash_bwd_dq_mma_kernel<D, BIAS, DROP>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, NT, smem, a.stream>>>(
+    kernel<<<grid, mm::NTM, smem, a.stream>>>(
         tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
-        static_cast<T*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal,
+        static_cast<mm::bf16*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal,
         a.thresh, a.inv_keep);
   }
   return cudaGetLastError();
+}
+
+// the tile step is chosen here, at compile time, by dtype and head dim
+template <typename T, int D, bool BIAS, bool DROP>
+cudaError_t launch(Part part, const Args& a) {
+  if constexpr (mm::takes_mma<T, D>()) {
+    return launch_mma<D, BIAS, DROP>(part, a);
+  } else {
+    constexpr int rows = ds::attn::bwd_rows<D>();
+    constexpr size_t smem =
+        ds::attn::bwd_smem_bytes<D>() + (BIAS ? rows * sizeof(float) : 0);
+    const dim3 grid((a.S + rows - 1) / rows, a.B * a.H);
+    const T* tq = static_cast<const T*>(a.q);
+    const T* tk = static_cast<const T*>(a.k);
+    const T* tv = static_cast<const T*>(a.v);
+    const T* td = static_cast<const T*>(a.dout);
+    cudaError_t err;
+    if (part == Part::kDKV) {
+      auto kernel = flash_bwd_dkv_kernel<T, D, BIAS, DROP>;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, NT, smem, a.stream>>>(
+          tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
+          static_cast<T*>(a.g1), static_cast<T*>(a.g2), a.S, a.H, a.st,
+          a.sm_scale, a.causal, a.thresh, a.inv_keep);
+    } else {
+      auto kernel = flash_bwd_dq_kernel<T, D, BIAS, DROP>;
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, NT, smem, a.stream>>>(
+          tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
+          static_cast<T*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal,
+          a.thresh, a.inv_keep);
+    }
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>

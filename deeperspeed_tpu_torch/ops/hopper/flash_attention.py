@@ -9,7 +9,13 @@ by `csrc/flash_fwd.cu` at every S; the backward `_bwd_single_kernel` /
 `_bwd_single_mh_kernel` and the tiled `_bwd_dkv_kernel` / `_bwd_dq_kernel`
 are one function too, computed by `csrc/flash_bwd.cu`. The headers of the
 sources say what bounds each kernel on the H100 and what its design does
-about that.
+about that. Each source holds two designs, chosen by dtype and head dim
+in its C dispatch (`flash_design` mirrors the choice): bf16 at D = 64
+and 128 runs tensor-core kernels (`mma.sync`, `ldmatrix`, `cp.async`;
+`csrc/attention_mma.cuh`), which need each bf16 operand 16-byte aligned
+(`check_alignment`); fp32 and D = 256 run the FMA tile steps of
+`csrc/attention_tiles.cuh`. Launches are counted by design too
+(`design_launches`).
 
 The layout-mask flag (`make_masked_flash_attention`, the dense-ish arm of
 `SparseSelfAttention`) replaces `_apply_layout_mask` on the same TPU
@@ -79,9 +85,45 @@ flag_launches = {kernel: dict.fromkeys(FLAG_COMBOS, 0)
                  for kernel in ("fwd", "dkv", "dq")}
 
 
+# the head dims at which bf16 takes the tensor-core kernels (`takes_mma`
+# in csrc/attention_mma.cuh), and the launches by kernel and design
+MMA_HEAD_DIMS = (64, 128)
+DESIGNS = ("mma", "fma")
+design_launches = {kernel: dict.fromkeys(DESIGNS, 0)
+                   for kernel in ("fwd", "dkv", "dq")}
+
+
 def reset_flag_launches():
     for counts in flag_launches.values():
         counts.update(dict.fromkeys(counts, 0))
+
+
+def reset_design_launches():
+    for counts in design_launches.values():
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def flash_design(dtype, head_dim):
+    """"mma" (the bf16 tensor-core kernels) or "fma" (the FMA tile steps)
+    for a call on ``dtype`` at ``head_dim``."""
+    return "mma" if dtype == torch.bfloat16 and \
+        head_dim in MMA_HEAD_DIMS else "fma"
+
+
+def check_alignment(tensors, what):
+    """Raise unless each (name, tensor) has its base pointer and the
+    strides of its batch, sequence and head dims (where they exceed 1)
+    on 16-byte multiples: the tensor-core kernels load rows by 16-byte
+    cp.async copies."""
+    for name, t in tensors:
+        steps = [st * t.element_size()
+                 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 16 for st in steps):
+            raise ValueError(
+                f"{what} kernel ({t.dtype}, tensor-core design) needs "
+                f"{name}'s base pointer and its row strides on 16-byte "
+                f"multiples, got the pointer at {t.data_ptr() % 16} mod 16 "
+                f"and strides {tuple(t.stride())}")
 
 
 def _flag_combo(kbias, dropout):
@@ -303,6 +345,10 @@ def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None,
     kb, sd, thresh, inv = _flag_args(q, kbias, seed, dropout_rate,
                                      "flash attention forward")
     scale = sm_scale if sm_scale is not None else default_scale
+    design = flash_design(q.dtype, D)
+    if design == "mma":
+        check_alignment((("q", q), ("k", k), ("v", v)),
+                        "flash attention forward")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
@@ -312,6 +358,7 @@ def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None,
         *_strides(q, k, v), float(scale), int(causal), thresh, float(inv),
         code, _build.stream_ptr(q))
     _build.check(err, "ds_flash_fwd")
+    design_launches["fwd"][design] += 1
     combo = _flag_combo(kb, sd is not None)
     if combo is not None:
         flag_launches["fwd"][combo] += 1
@@ -380,6 +427,10 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
     combo = _flag_combo(kb, sd is not None)
     scale = sm_scale if sm_scale is not None else default_scale
     do = do.to(q.dtype).contiguous()
+    design = flash_design(q.dtype, D)
+    if design == "mma":
+        check_alignment((("q", q), ("k", k), ("v", v), ("do", do)),
+                        "flash attention backward")
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B * H, S) or \
                 not t.is_contiguous():
@@ -398,6 +449,7 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
            _ptr(sd))
     err = lib.ds_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dkv")
+    design_launches["dkv"][design] += 1
     if combo is not None:
         flag_launches["dkv"][combo] += 1
     elif lay is None:
@@ -406,6 +458,7 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
         masked_bwd_dkv_launches += 1
     err = lib.ds_flash_bwd_dq(*ins, dq.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dq")
+    design_launches["dq"][design] += 1
     if combo is not None:
         flag_launches["dq"][combo] += 1
     elif lay is None:

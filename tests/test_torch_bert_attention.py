@@ -13,7 +13,14 @@ hash dropout, against the JAX package on the CPU.
   fp32, rtol 1e-5 with an absolute floor of 1e-5 × max|ref| (the two
   sum the same products in other orders);
 - the dropout-rate refusals (same messages), the dispatch rule
-  `flash_attention_supported`, and the key bias's zero gradient.
+  `flash_attention_supported`, and the key bias's zero gradient;
+- `chip_smoke.dropout_readout`, the probe that reads the keep-mask out
+  of the bf16 kernels on the card, gives back `dropout_keep` bit for bit
+  through the plain flagged forward and backward, so a mismatch there is
+  the kernel's;
+- the wrapper's choice of tile design by dtype and head dim (as the C
+  dispatch's `takes_mma` makes it), its 16-byte alignment check on the
+  tensor-core design, and its launch counts by design.
 """
 
 import importlib
@@ -223,6 +230,106 @@ def test_kbias_shape_is_checked():
     t = torch.zeros(2, 128, 2, 64)
     with pytest.raises(ValueError, match=r"kbias shape"):
         fa.flash_attention_kbias(t, t, t, torch.zeros(2, 64))
+
+
+# ---------------------------------------------------------------------------
+# the chip's mask readout, the tile design and its alignment check
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_readout_probe_gives_keep_mask(dtype, rate):
+    import chip_smoke
+    S = 128
+    seed = torch.tensor([SEED], dtype=torch.int32)
+    fwd_mask, dv_mask = chip_smoke.dropout_readout(
+        *chip_smoke.readout_plain(fa), B, S, H, D, rate, seed, dtype, "cpu")
+    want = fa._keep_mask(seed, B, H, S, rate, "cpu")
+    assert 0 < int(want.sum()) < want.numel()
+    assert torch.equal(fwd_mask, want)
+    assert torch.equal(dv_mask, want)
+
+
+@pytest.mark.parametrize("dtype,head_dim,design", [
+    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 256, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"), (torch.float32, 256, "fma")])
+def test_flash_design_by_dtype_and_head_dim(dtype, head_dim, design):
+    assert fa.flash_design(dtype, head_dim) == design
+
+
+def test_flash_design_matches_the_c_dispatch():
+    import pathlib
+    import re
+    src = (pathlib.Path(fa.__file__).resolve().parents[2] / "csrc" /
+           "attention_mma.cuh").read_text()
+    body = src[src.index("constexpr bool takes_mma()"):]
+    body = body[:body.index("}")]
+    assert "bf16" in body
+    assert tuple(int(d) for d in re.findall(r"D == (\d+)", body)) == \
+        fa.MMA_HEAD_DIMS
+
+
+def _fake_library(monkeypatch):
+    """A library whose entry points launch nothing and succeed, so the
+    wrappers' checks and counters run on the CPU; the module's launch
+    counters are put back afterwards."""
+    lib = types.SimpleNamespace(ds_flash_fwd=lambda *a: 0,
+                                ds_flash_bwd_dkv=lambda *a: 0,
+                                ds_flash_bwd_dq=lambda *a: 0)
+    monkeypatch.setattr(fa._build, "load_library", lambda: lib)
+    monkeypatch.setattr(fa._build, "stream_ptr", lambda t: None)
+    for name in ("launches", "bwd_dkv_launches", "bwd_dq_launches",
+                 "masked_launches", "masked_bwd_dkv_launches",
+                 "masked_bwd_dq_launches"):
+        monkeypatch.setattr(fa, name, getattr(fa, name))
+    for name in ("flag_launches", "design_launches"):
+        monkeypatch.setattr(fa, name, {k: dict(v) for k, v in
+                                       getattr(fa, name).items()})
+
+
+@pytest.mark.parametrize("case", ["pointer", "head_stride", "seq_stride"])
+def test_tensor_core_design_refuses_misaligned_bf16(case, monkeypatch):
+    _fake_library(monkeypatch)
+    S = 64
+    if case == "pointer":           # base 2 bytes past a 16-byte boundary
+        q = torch.zeros(1, S, 2, D + 8, dtype=torch.bfloat16)[..., 1:D + 1]
+    elif case == "head_stride":     # heads 68 elements (136 bytes) apart
+        q = torch.zeros(1, S, 2, D + 4, dtype=torch.bfloat16)[..., :D]
+    else:                           # rows 2·68 elements apart
+        q = torch.zeros(1, S, 2 * D + 4, dtype=torch.bfloat16)[
+            ..., :2 * D].unflatten(-1, (2, D))
+    ok = torch.zeros(1, S, 2, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.check_alignment((("q", q),), "test")
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_cuda(q, ok, ok)
+    lse = torch.zeros(2, S)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_bwd_cuda(ok, q, ok, lse, ok, lse)
+    # fp32 takes the FMA steps, which read element by element
+    fa.flash_attention_cuda(q.float(), ok.float(), ok.float())
+
+
+def test_launches_are_counted_by_design(monkeypatch):
+    _fake_library(monkeypatch)
+    fa.reset_design_launches()
+    S = 64
+    # the split QKV views of the main paths are aligned
+    qkv = torch.zeros(1, S, 2, 3 * D, dtype=torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    fa.flash_attention_bwd_cuda(q, k, v, lse, out, lse)
+    big = torch.zeros(1, S, 1, 256, dtype=torch.bfloat16)
+    fa.flash_attention_cuda(big, big, big)
+    f32 = q.float()
+    fa.flash_attention_bwd_cuda(f32, f32, f32, lse, f32, lse)
+    assert fa.design_launches == {"fwd": {"mma": 1, "fma": 1},
+                                  "dkv": {"mma": 1, "fma": 1},
+                                  "dq": {"mma": 1, "fma": 1}}
+    fa.reset_design_launches()
+    assert all(n == 0 for c in fa.design_launches.values()
+               for n in c.values())
 
 
 # ---------------------------------------------------------------------------
