@@ -12,13 +12,18 @@ Phases (any failure exits non-zero before the final line):
    at the training shape, flash backward at the training shape and on
    ragged segments (timed at B=4, S=1024), paged decode over bf16/fp32
    and over int8 pools at the serving shape, the weight-only int8 matmul
-   at decode (M=16) and prefill (M=4096) rows, flat Adam at the model's
-   parameter count, the grouped matmul's forward and dW kernels at the
-   MoE training geometry (8 spans of 2560 rows, ragged sizes with an
-   empty expert, (K, N) = (768, 3072) and (3072, 768)) and on a LUT
-   whose weights own several spans: outputs, dx through the autograd
-   function and the fp32 dW, exact zeros on dead rows and for an empty
-   expert; the block-sparse forward, dk/dv and dq kernels at phase 13's
+   (bf16: the wgmma kernel) at M = 16, 256 and 4096 for the four block
+   weights, its int8 widening read out bit for bit (one-hot x over all
+   256 int8 values), two calls bit-identical, and the wrapper's host
+   microseconds a call at M = 16, flat Adam at the model's
+   parameter count, the grouped matmul's forward (bf16: the wgmma
+   kernel, also dx) and dW kernels at the MoE training geometry (8 spans
+   of 2560 rows, ragged sizes with an empty expert, (K, N) = (768, 3072)
+   and (3072, 768)) and on a LUT whose weights own several spans:
+   outputs, dx through the autograd function and the fp32 dW, exact
+   zeros on dead rows and for an empty expert, two forward and dx calls
+   bit-identical, and spans no 128-row tile divides with NaN-filled
+   dead rows; the block-sparse forward, dk/dv and dq kernels at phase 13's
    attention shape (B=2, S=16384, H=12, D=64, fixed l16g1 causal) with
    dq, dk, dv also through the autograd function, and on a bidirectional
    layout with a dead row at head dims 64, 128 and 256; the layout-masked
@@ -36,7 +41,8 @@ Phases (any failure exits non-zero before the final line):
    and held bit for bit against `dropout_keep`; two bf16 backward calls
    on the same inputs compared bit for bit (training and BERT shapes);
    the bf16 flash kernels at D = 64 and 128 are the tensor-core design,
-   fp32 and D = 256 the FMA one;
+   fp32 and D = 256 the FMA one; phase 2 prints every kernel's registers
+   and spills (`-Xptxas -v`);
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted (every flash launch of phases 4, 7, 11 and 15 on the
@@ -61,8 +67,9 @@ Phases (any failure exits non-zero before the final line):
 9. serving-quant: GPT-NeoX-125M (seeded bf16 weights) serves the
    decode-heavy stream of bench.py's row_quant (16 requests x 62 prompt
    tokens x 48 new) at three rungs, bf16, int8 weights, and int8 weights
-   with int8 KV pages, each with exact launch counts, no page leaks and
-   every request ok; plus the int8-KV capacity accounting;
+   with int8 KV pages, each with exact launch counts (every int8 matmul
+   launch on the wgmma design), no page leaks and every request ok; plus
+   the int8-KV capacity accounting;
 10. int8 parity: the fp32 model with int8 weights and int8 KV pages
    gives the same greedy tokens through the kernels and through the
    plain path;
@@ -71,8 +78,9 @@ Phases (any failure exits non-zero before the final line):
    capacity factor 1.25, sort dispatch; 559,080,960 parameters), phase
    7's optimizer, schedule, clipping, bf16 and ZeRO-2 at micro 8 x gas 1
    x 1024, 20 steps and one `eval_batch`, with exact launch counts (48
-   grouped-matmul forward-kernel and 24 dW launches a step besides 12
-   flash forward, 12 + 12 flash backward and 1 Adam);
+   grouped-matmul forward-kernel launches a step, all on the wgmma
+   design, and 24 dW besides 12 flash forward, 12 + 12 flash backward
+   and 1 Adam);
 12. MoE training parity: the same MoE model in fp32 (micro 2, gas 2, S
    1024) takes 3 steps through the kernels and 3 through the plain
    path; the losses must agree;
@@ -350,7 +358,9 @@ def kernel_name(mangled):
 
 def ptxas_summary(log):
     """One row per compiled kernel of nvcc's ``-Xptxas -v`` report: its
-    source, name (template arguments spelled out), registers a thread and
+    source, name (template arguments spelled out), registers a thread,
+    named barriers, static shared memory bytes (dynamic shared memory,
+    which the wgmma and mma.sync kernels take, is set at launch) and
     spill stores and loads in bytes."""
     rows, src, cur = [], None, None
     for line in log.splitlines():
@@ -369,6 +379,10 @@ def ptxas_summary(log):
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+            b = re.search(r"used (\d+) barriers", line)
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["barriers"] = int(b.group(1)) if b else 0
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
             rows.append(cur)
             cur = None
     return rows
@@ -720,7 +734,7 @@ def qmm_case(qm, gen, M, K, N, dtype):
     tol = TOL_QMM[dtype] * float(ref.float().abs().max())
     err, ok = close(out, ref, tol, 0.0)
     row = {"M": M, "K": K, "N": N, "dtype": str(dtype),
-           "k_split": qm.split_k_rows(M, N, K), "max_abs_err": err,
+           "plan": qm.launch_plan(M, N, K), "max_abs_err": err,
            "tol": tol, "tol_rel_max": TOL_QMM[dtype]}
     print(f"  quant_matmul {row}", flush=True)
     if not ok or out.dtype != dtype:
@@ -766,27 +780,81 @@ def qmm_times(qm, gen, row, x, qw):
           f"library {row['library_graph_ms']:.4f} ms", flush=True)
 
 
+def qmm_readout(qm, gen, M, K=768, N=3072):
+    """One-hot rows of x over an int8 weight that holds all 256 values:
+    y[m, n] = bf16(q[m % K, n] · scale[n]) exactly, so the bf16 kernel's
+    int8 → bf16 widening must give the plain version bit for bit →
+    mismatches."""
+    q = (torch.arange(K * N, device="cuda") % 256 - 128).to(
+        torch.int8).reshape(K, N)
+    scale = torch.rand(N, generator=gen, device="cuda") + 0.5
+    qw = qm.QuantizedWeight(q, scale)
+    x = torch.zeros(M, K, dtype=torch.bfloat16, device="cuda")
+    x[torch.arange(M), torch.arange(M) % K] = 1.0
+    got = qm.quant_matmul_cuda(x, qw)
+    want = qm.quant_matmul_reference(x, qw)
+    torch.cuda.synchronize()
+    return int((got != want).sum())
+
+
+def qmm_host_us(qm, gen, M=16, K=768, N=3072, calls=2000):
+    """The wrapper's host microseconds a call at decode rows: ``calls``
+    calls on the host clock with no synchronization in between (the
+    device's few microseconds a call hide behind them)."""
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    qw = qm.quantize_weight(
+        (0.02 * torch.randn(K, N, generator=gen, device="cuda")).to(
+            torch.bfloat16))
+    for _ in range(50):
+        qm.quant_matmul_cuda(x, qw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        qm.quant_matmul_cuda(x, qw)
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
 def check_quant_matmul(qm, gen, report):
     """The weight-only int8 matmul against its plain version, bf16 and
     fp32: all four GPT-NeoX-125M block weights at the decode (16) and
-    prefill (256) rows of phase 9, which take split-K on one and four m16
-    tiles a block, and mlp-in and mlp-out at M = 4096 (timed in bf16 at
-    every M); then ragged and strided cases, and inputs it must refuse."""
+    prefill (256) rows of phase 9 and at serve-125M's top bucket (4096),
+    mlp-in and mlp-out timed in bf16 at every M; the bf16 kernel's int8
+    widening read out bit for bit and two calls compared bit for bit (the
+    cluster's K reduction); the wrapper's host microseconds a call; then
+    ragged and strided cases, and inputs it must refuse."""
     rows = []
+    identical = True
     for dtype in (torch.bfloat16, torch.float32):
         for M in QMM_PATH_ROWS + (4096,):
-            shapes = QMM_BLOCK_SHAPES if M in QMM_PATH_ROWS else QMM_SHAPES
-            for K, N in shapes:
+            for K, N in QMM_BLOCK_SHAPES:
                 row, x, qw = qmm_case(qm, gen, M, K, N, dtype)
-                if dtype == torch.bfloat16 and (K, N) in QMM_SHAPES:
-                    qmm_times(qm, gen, row, x, qw)
+                if dtype == torch.bfloat16:
+                    again = qm.quant_matmul_cuda(x, qw)
+                    row["bit_identical"] = bool(torch.equal(
+                        qm.quant_matmul_cuda(x, qw), again))
+                    identical &= row["bit_identical"]
+                    if (K, N) in QMM_SHAPES:
+                        qmm_times(qm, gen, row, x, qw)
                 rows.append(row)
                 del x, qw
             torch.cuda.empty_cache()
+    readout = {M: qmm_readout(qm, gen, M) for M in QMM_PATH_ROWS + (4096,)}
+    host_us = qmm_host_us(qm, gen)
+    print(f"  quant_matmul int8 widening readout mismatches {readout}; two "
+          f"calls bit-identical: {identical}; host {host_us:.2f} us a call "
+          f"at M=16", flush=True)
+    if any(readout.values()) or not identical:
+        fail(f"int8 matmul kernel: readout mismatches {readout}, two calls "
+             f"bit-identical {identical}")
+    report["quant_matmul_readout"] = {"mismatches": readout,
+                                      "bit_identical": identical,
+                                      "host_us_per_call_M16": host_us}
     # ragged M, K and N edges, rows read through a wider row stride; at
     # column offset 3 the rows are not 16-byte aligned, which only the
     # fp32 kernel reads (bf16 must refuse them, below); at offset 0 bf16
-    # takes the tensor-core path, with and without split-K
+    # takes the wgmma kernel, with and without a cluster
     ragged = [(torch.float32, c) for c in (
         (5, 33, 24, 3), (37, 70, 100, 3), (100, 200, 48, 3),
         (1, 768, 2304, 3))]
@@ -806,7 +874,7 @@ def check_quant_matmul(qm, gen, report):
         err, ok = close(out, ref, tol, 0.0)
         row = {"M": M, "K": K, "N": N, "dtype": str(dtype),
                "row_stride": x.stride(0), "column_offset": off,
-               "k_split": qm.split_k_rows(M, N, K), "max_abs_err": err,
+               "plan": qm.launch_plan(M, N, K), "max_abs_err": err,
                "tol": tol}
         print(f"  quant_matmul {row}", flush=True)
         if not ok or not bool((out[:, 0] == 0).all()):
@@ -1129,10 +1197,21 @@ def gmm_times(gm, row, x, w, dy, sz):
         replays=3)
     row["dx_ms"] = time_ms(lambda: gm.grouped_matmul_cuda(
         dy, w, sz, GMM_SPAN, transpose_w=True))
+    row["dx_graph_ms"] = graph_ms(lambda: gm.grouped_matmul_cuda(
+        dy, w, sz, GMM_SPAN, transpose_w=True), launches=10, replays=3)
+    wt = w.transpose(1, 2)
+    row["dx_library_ms"] = time_ms(lambda: torch.bmm(dyb, wt))
+    row["dx_library_graph_ms"] = graph_ms(lambda: torch.bmm(dyb, wt),
+                                          launches=10, replays=3)
+    # dx: live dy rows and w read, all of dx written, the same flops
+    row["dx_bound_ms"], row["dx_bound_by"] = gmm_bound_ms(
+        sizes, N, K, W, x.element_size())
     row["plain_ms"] = time_ms(
         lambda: gm.grouped_matmul_reference(x, w, sz, GMM_SPAN), warmup=2,
         iters=10)
     row["library_ms"] = time_ms(lambda: torch.bmm(xb, w))
+    row["library_graph_ms"] = graph_ms(lambda: torch.bmm(xb, w),
+                                       launches=10, replays=3)
     row["bound_ms"], row["bound_by"] = gmm_bound_ms(sizes, K, N, W,
                                                     x.element_size())
     row["dw_ms"] = time_ms(lambda: gm.grouped_matmul_dw_cuda(
@@ -1146,25 +1225,78 @@ def gmm_times(gm, row, x, w, dy, sz):
     row["dw_bound_ms"], row["dw_bound_by"] = gmm_bound_ms(
         sizes, K, N, W, x.element_size(), dw=True)
     print(f"  grouped_matmul times K={K} N={N}: forward {row['ms']:.4f} ms "
-          f"(graph {row['graph_ms']:.4f}, dx {row['dx_ms']:.4f}), plain "
-          f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); dW "
+          f"(graph {row['graph_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+          f"torch.bmm {row['library_ms']:.4f} ms (graph "
+          f"{row['library_graph_ms']:.4f}), bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); dx {row['dx_ms']:.4f} ms (graph "
+          f"{row['dx_graph_ms']:.4f}), torch.bmm(dy, wᵀ) "
+          f"{row['dx_library_ms']:.4f} ms (graph "
+          f"{row['dx_library_graph_ms']:.4f}), bound "
+          f"{row['dx_bound_ms']:.5f} ms ({row['dx_bound_by']}); dW "
           f"{row['dw_ms']:.4f} ms (graph {row['dw_graph_ms']:.4f}), plain "
           f"{row['dw_plain_ms']:.4f} ms, torch.bmm "
           f"{row['dw_library_ms']:.4f} ms, bound {row['dw_bound_ms']:.5f} "
           f"ms ({row['dw_bound_by']})", flush=True)
 
 
+def gmm_nan_dead_rows(gm, gen, K, N, sizes=(200, 57, 0, 133), span=200):
+    """The bf16 forward and dx on spans that no 128-row tile divides, dead
+    rows of x and dy filled with NaN: the last tile of a span reads the
+    next span's rows, and no bit of a dead row may reach a live one →
+    (max relative error of the live rows, dead rows exact zeros)."""
+    R, W = len(sizes) * span, len(sizes)
+    dead = ~gmm_live_rows(sizes, span)
+    x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(R, N, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(W, K, N, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    sz = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    xn, dyn = x.clone(), dy.clone()
+    xn[dead] = float("nan")
+    dyn[dead] = float("nan")
+    x[dead] = 0
+    dy[dead] = 0
+    outs = (gm.grouped_matmul_cuda(xn, w, sz, span),
+            gm.grouped_matmul_cuda(dyn, w, sz, span, transpose_w=True))
+    refs = (gm.grouped_matmul_reference(x, w, sz, span),
+            gm.grouped_matmul_reference(dy, w.transpose(1, 2), sz, span))
+    torch.cuda.synchronize()
+    err = max(float((o[~dead].float() - r[~dead].float()).abs().max()) /
+              float(r[~dead].float().abs().max()) for o, r in zip(outs, refs))
+    zero = all(bool((o[dead] == 0).all()) for o in outs)
+    return err, zero
+
+
 def check_grouped_matmul(gm, gen, report):
     """Phase 3 for the MoE path: both grouped-matmul kernels against
     their plain versions at phase 11's geometry in bf16 and fp32 (timed
-    in bf16), and on the small many-spans-per-weight LUT case."""
+    in bf16; two bf16 forward and dx calls compared bit for bit), on the
+    small many-spans-per-weight LUT case, and the bf16 forward and dx on
+    spans no 128-row tile divides with NaN-filled dead rows."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for K, N in GMM_SHAPES:
             row, (x, w, dy, sz) = gmm_case(gm, gen, GMM_SIZES, GMM_SPAN, K,
                                            N, len(GMM_SIZES), None, dtype)
             if dtype == torch.bfloat16:
+                row["bit_identical"] = bool(
+                    torch.equal(gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN),
+                                gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN))
+                    and torch.equal(
+                        gm.grouped_matmul_cuda(dy, w, sz, GMM_SPAN,
+                                               transpose_w=True),
+                        gm.grouped_matmul_cuda(dy, w, sz, GMM_SPAN,
+                                               transpose_w=True)))
+                err, zero = gmm_nan_dead_rows(gm, gen, K, N)
+                row["nan_dead_rows"] = {"max_rel_err": err,
+                                        "dead_rows_exact_zero": zero}
+                print(f"  grouped_matmul K={K} N={N}: two calls "
+                      f"bit-identical {row['bit_identical']}; spans of 200 "
+                      f"with NaN dead rows: rel err {err:.2e}, dead rows "
+                      f"exact zero {zero}", flush=True)
+                if not (row["bit_identical"] and zero and
+                        err <= TOL_GMM[dtype]):
+                    fail(f"grouped matmul forward/dx kernel: {row}")
                 gmm_times(gm, row, x, w, dy, sz)
             rows.append(row)
             del x, w, dy, sz
@@ -2030,6 +2162,7 @@ def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
     torch.cuda.synchronize()
 
     fa.launches = da.launches = da.launches_int8 = qm.launches = 0
+    qm.reset_design_launches()
     prefill_calls = decode_steps = 0
     itl, last = [], {}
     t0 = time.perf_counter()
@@ -2069,6 +2202,11 @@ def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
     if launches != want or not prefill_calls or not decode_steps:
         fail(f"{tag}: launch counts {launches} != {want} ({L} layers, "
              f"{prefill_calls} prefill calls, {decode_steps} decode steps)")
+    # every bf16 int8 matmul launch on the path is the wgmma design
+    design = dict(qm.design_launches)
+    if design != {"wgmma": launches["quant_matmul"], "fma": 0}:
+        fail(f"{tag}: int8 matmul launches by design {design}, want all "
+             f"{launches['quant_matmul']} on wgmma")
     dtok = eng.stats["decode_tokens"] - warm["decode_tokens"]
     dsec = eng.stats["decode_s"] - warm["decode_s"]
     row = {"decode_tok_s": dtok / dsec, "stream_tok_s": dtok / dt,
@@ -2076,7 +2214,8 @@ def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
            "wall_s": dt, "decode_tokens": dtok, "decode_s": dsec,
            "prefill_s": eng.stats["prefill_s"] - warm["prefill_s"],
            "prefill_calls": prefill_calls, "decode_steps": decode_steps,
-           "launches": launches, "dtypes": eng.dtypes}
+           "launches": launches, "quant_matmul_design_launches": design,
+           "dtypes": eng.dtypes}
     del eng
     torch.cuda.empty_cache()
     return row
@@ -2193,6 +2332,7 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     ad.launches = 0
     if gm is not None:
         gm.launches = gm.dw_launches = 0
+        gm.reset_design_launches()
     losses, step_s = [], []
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2225,6 +2365,14 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     design = check_design(fa, key, {
         "fwd": launches["flash_fwd"], "dkv": launches["flash_bwd_dkv"],
         "dq": launches["flash_bwd_dq"]})
+    if gm is not None:
+        # every grouped forward / dx launch on the path is the wgmma design
+        design["grouped_matmul"] = dict(gm.design_launches)
+        if design["grouped_matmul"] != {"wgmma": launches["grouped_matmul"],
+                                        "fma": 0}:
+            fail(f"{key}: grouped matmul launches by design "
+                 f"{design['grouped_matmul']}, want all "
+                 f"{launches['grouped_matmul']} on wgmma")
     if eng.global_steps != TRAIN_STEPS or eng.skipped_steps:
         fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
     eval_loss = eng.eval_batch((tokens[0], tokens[0]))
@@ -2800,8 +2948,9 @@ def main():
     ptxas = ptxas_summary(info["log"])
     for row in ptxas:
         print(f"  ptxas {row['source']}: {row['kernel']}: {row['registers']} "
-              f"registers, spill stores {row['spill_stores']} B, loads "
-              f"{row['spill_loads']} B", flush=True)
+              f"registers, {row['barriers']} barriers, static shared "
+              f"{row['static_smem']} B, spill stores {row['spill_stores']} "
+              f"B, loads {row['spill_loads']} B", flush=True)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda,
@@ -3013,6 +3162,12 @@ def main():
                          for r in sq["rungs"].values()),
          "launches_by_rung": {t: r["launches"]["quant_matmul"]
                               for t, r in sq["rungs"].items()},
+         "design": "bf16: wgmma fed by TMA through an mbarrier ring, the "
+                   "int8 tile widened to bf16 in shared memory, K split "
+                   "over a cluster (csrc/hopper_gemm.cuh); fp32: FMA tiles",
+         "design_launches_by_rung": {
+             t: r["quant_matmul_design_launches"]
+             for t, r in sq["rungs"].items()},
          "max_abs_err": qrows[0]["max_abs_err"], "ms": qrows[0]["ms"],
          "plain_ms": qrows[0]["plain_ms"], "bound_ms": qrows[0]["bound_ms"],
          "bound_by": qrows[0]["bound_by"],
@@ -3020,9 +3175,11 @@ def main():
          "shape": "M=16 K=768 N=3072 bf16 (decode rows, mlp-in weight)",
          "tolerance": f"{TOL_QMM[torch.bfloat16]} x max|ref|",
          **graph_times(qrows[0]),
+         "host_us_per_call_M16": report["quant_matmul_readout"][
+             "host_us_per_call_M16"],
          "other_shapes": [{k: r[k] for k in (
-             "M", "K", "N", "ms", "plain_ms", "library_ms", "bound_ms",
-             "bound_by", "max_abs_err")} | graph_times(r)
+             "M", "K", "N", "plan", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "max_abs_err")} | graph_times(r)
              for r in qrows[1:]]},
         {"name": "paged_decode_int8", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
@@ -3041,16 +3198,24 @@ def main():
          "replaces": f"{pallas}grouped_matmul.py:121 (_fwd_kernel, via "
                      f"_gmm_pallas :142; also the dx product)",
          "launches": tm["launches"]["grouped_matmul"],
+         "design": "bf16: wgmma m64n256k16 fed by TMA through an mbarrier "
+                   "ring (csrc/hopper_gemm.cuh); fp32: FMA tiles",
+         "design_launches": tm["design_launches"]["grouped_matmul"],
          "max_abs_err": gmm[0]["max_abs_err"], "ms": gmm[0]["ms"],
-         "graph_ms": gmm[0]["graph_ms"], "dx_ms": gmm[0]["dx_ms"],
-         "plain_ms": gmm[0]["plain_ms"], "bound_ms": gmm[0]["bound_ms"],
-         "bound_by": gmm[0]["bound_by"],
+         "graph_ms": gmm[0]["graph_ms"], "plain_ms": gmm[0]["plain_ms"],
+         "bound_ms": gmm[0]["bound_ms"], "bound_by": gmm[0]["bound_by"],
          "library_ms": gmm[0]["library_ms"],
+         "library_graph_ms": gmm[0]["library_graph_ms"],
          "shape": gmm_shape(gmm[0]),
          "tolerance": f"{TOL_GMM[torch.bfloat16]} x max|ref|",
+         "dx": [{k: r[k] for k in (
+             "K", "N", "dx_ms", "dx_graph_ms", "dx_library_ms",
+             "dx_library_graph_ms", "dx_bound_ms", "dx_bound_by",
+             "max_abs_err_dx")} for r in gmm],
          "other_shapes": [{k: r[k] for k in (
-             "K", "N", "ms", "graph_ms", "dx_ms", "plain_ms", "library_ms",
-             "bound_ms", "bound_by", "max_abs_err")} for r in gmm[1:]]},
+             "K", "N", "ms", "graph_ms", "plain_ms", "library_ms",
+             "library_graph_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for r in gmm[1:]]},
         {"name": "grouped_matmul_dw", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
          "replaces": f"{pallas}grouped_matmul.py:174 (_dw_kernel, via "

@@ -31,7 +31,7 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// -- the tensor-core kernels' pieces (quant_matmul.cu, grouped_matmul.cu,
+// -- the mma.sync kernels' pieces (the grouped dW of grouped_matmul.cu,
 // the bf16 flash kernels) --
 
 // 16-byte global -> shared copy; pred false copies nothing and zero-fills

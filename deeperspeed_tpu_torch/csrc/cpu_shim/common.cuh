@@ -1,0 +1,102 @@
+// CPU shim copy of csrc/common.cuh: the pieces quant_matmul.cu and
+// grouped_matmul.cu use, emulated. cp.async copies at once (so the shim
+// cannot see a missing wait); ldmatrix and mma.sync exchange their
+// operands through a per-warp buffer between two warp barriers, then each
+// lane computes its own fragment by the m16n8k16 / 8x8 layouts.
+#pragma once
+
+#include "cuda_shim.h"
+
+namespace ds {
+
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+
+inline void cp_async16(void* smem, const void* gmem, bool pred) {
+  if (reinterpret_cast<uintptr_t>(smem) % 16 ||
+      (pred && reinterpret_cast<uintptr_t>(gmem) % 16))
+    shim_fail("cp.async.cg needs 16-byte aligned addresses");
+  if (pred)
+    std::memcpy(smem, gmem, 16);
+  else
+    std::memset(smem, 0, 16);
+}
+
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+
+inline uint64_t* warp_buffer() {
+  return shim::self.block->xchg[threadIdx.x / 32].data();
+}
+
+inline float bf16_lo(unsigned v) {
+  return __uint_as_float((v & 0xFFFFu) << 16);
+}
+inline float bf16_hi(unsigned v) { return __uint_as_float(v & 0xFFFF0000u); }
+
+// lane l's row address goes to slot l; lane l reads 2 halves of each of
+// the 4 matrices: plain (row l/4, cols 2(l%4), +1), trans (rows 2(l%4), +1
+// of col l/4)
+inline void ldmatrix_x4_any(unsigned* r, const void* smem, bool trans) {
+  uint64_t* buf = warp_buffer();
+  const int l = threadIdx.x % 32;
+  if (reinterpret_cast<uintptr_t>(smem) % 16)
+    shim_fail("ldmatrix row address not 16-byte aligned");
+  __syncwarp();
+  buf[l] = reinterpret_cast<uintptr_t>(smem);
+  __syncwarp();
+  for (int m = 0; m < 4; ++m) {
+    uint16_t h[2];
+    for (int e = 0; e < 2; ++e) {
+      const int row = trans ? 2 * (l % 4) + e : l / 4;
+      const int col = trans ? l / 4 : 2 * (l % 4) + e;
+      const auto* p = reinterpret_cast<const uint16_t*>(buf[8 * m + row]);
+      h[e] = p[col];
+    }
+    r[m] = h[0] | (static_cast<unsigned>(h[1]) << 16);
+  }
+  __syncwarp();
+}
+
+inline void ldmatrix_x4(unsigned* r, const void* smem) {
+  ldmatrix_x4_any(r, smem, false);
+}
+inline void ldmatrix_x4_trans(unsigned* r, const void* smem) {
+  ldmatrix_x4_any(r, smem, true);
+}
+
+// c += a * b on one m16n8k16 tile: bf16 A (row) and B (col), fp32 c
+inline void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  uint64_t* buf = warp_buffer();
+  const int l = threadIdx.x % 32;
+  __syncwarp();
+  buf[l * 8 + 0] = a[0];
+  buf[l * 8 + 1] = a[1];
+  buf[l * 8 + 2] = a[2];
+  buf[l * 8 + 3] = a[3];
+  buf[l * 8 + 4] = b0;
+  buf[l * 8 + 5] = b1;
+  __syncwarp();
+  auto A = [&](int row, int col) {   // row 0..15, col (k) 0..15
+    const int lane = (row % 8) * 4 + (col % 8) / 2;
+    const int reg = (row >= 8 ? 1 : 0) + (col >= 8 ? 2 : 0);
+    const unsigned v = static_cast<unsigned>(buf[lane * 8 + reg]);
+    return col % 2 ? bf16_hi(v) : bf16_lo(v);
+  };
+  auto B = [&](int k, int col) {     // k 0..15, col 0..7
+    const int lane = col * 4 + (k % 8) / 2;
+    const unsigned v = static_cast<unsigned>(buf[lane * 8 + 4 + (k >= 8)]);
+    return k % 2 ? bf16_hi(v) : bf16_lo(v);
+  };
+  const int g = l / 4, t = l % 4;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + (e >= 2 ? 8 : 0), col = 2 * t + (e & 1);
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k) s = std::fma(A(row, k), B(k, col), s);
+    c[e] += s;
+  }
+  __syncwarp();
+}
+
+}  // namespace ds

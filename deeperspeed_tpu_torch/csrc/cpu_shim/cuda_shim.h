@@ -1,0 +1,273 @@
+// A CPU stand-in for the CUDA built-ins the kernels of csrc/ use, so that
+// g++ can compile a kernel source and run it on host memory: one
+// std::thread per CUDA thread, the CTAs of one cluster at a time, shared
+// memory as a per-CTA buffer. Warp- and warpgroup-wide instructions are
+// emulated in this directory's copies of common.cuh and hopper_gemm.cuh.
+// It checks a kernel's indexing, tiling, ring and layout logic against the
+// plain PyTorch version; it says nothing of speed, and only nvcc can say
+// whether a source compiles for sm_90a. `rehearse.py` drives it.
+#pragma once
+
+#include <algorithm>
+#include <barrier>
+#include <chrono>
+#include <condition_variable>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __grid_constant__
+#define __align__(n) __attribute__((aligned(n)))
+// static __shared__ arrays (the FMA kernels) compile but are not per-CTA:
+// rehearse only kernels whose shared memory is dynamic
+#define __shared__ static
+
+using std::max;
+using std::min;
+
+[[noreturn]] inline void shim_fail(const char* what) {
+  std::fprintf(stderr, "cuda shim: %s\n", what);
+  std::fflush(stderr);
+  std::abort();
+}
+
+// ---------------------------------------------------------------------------
+// types
+// ---------------------------------------------------------------------------
+
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
+inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+
+struct __nv_bfloat16 { uint16_t bits; };
+struct alignas(4) __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = static_cast<uint32_t>(h.bits) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {   // round to nearest even
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return {0x7FC0};
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return {static_cast<uint16_t>(u >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16(a), __float2bfloat16(b)};
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = (static_cast<uint64_t>(y) << 32) | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= static_cast<uint32_t>((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF)
+         << (8 * i);
+  return r;
+}
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+
+// ---------------------------------------------------------------------------
+// runtime
+// ---------------------------------------------------------------------------
+
+using cudaError_t = int;
+using cudaStream_t = void*;
+constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorInvalidValue = 1;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int bytes) {
+  return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// three SMs, so that a persistent kernel's CTAs each walk several tiles
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return cudaSuccess;
+}
+
+inline thread_local uint3 threadIdx, blockIdx;
+inline thread_local dim3 blockDim, gridDim;
+
+namespace shim {
+
+struct MBar;
+
+// one CTA: its shared memory, barriers and (named) bar.sync barriers
+struct Block {
+  std::vector<unsigned char> raw;
+  unsigned char* smem = nullptr;
+  size_t bytes = 0;
+  std::unique_ptr<std::barrier<>> sync;
+  std::vector<std::unique_ptr<std::barrier<>>> warps;   // one per warp
+  std::unique_ptr<std::barrier<>> named[16];
+  std::mutex mu;
+  std::vector<std::unique_ptr<MBar>> mbars;             // by offset / 8
+  // per-warp exchange buffers of the warp collectives
+  std::vector<std::vector<uint64_t>> xchg;
+};
+
+struct Cluster {
+  std::vector<Block*> blocks;
+  std::unique_ptr<std::barrier<>> sync;
+};
+
+struct Thread {
+  unsigned rank = 0, csize = 1;
+  Block* block = nullptr;
+  Cluster* cluster = nullptr;
+};
+
+inline thread_local Thread self;
+
+inline std::barrier<>& named_barrier(int id, int count) {
+  Block& b = *self.block;
+  std::lock_guard<std::mutex> lock(b.mu);
+  if (!b.named[id]) b.named[id] = std::make_unique<std::barrier<>>(count);
+  return *b.named[id];
+}
+
+template <typename K, typename... A>
+void run_grid(dim3 grid, dim3 block, size_t smem, unsigned cx, K kernel,
+              A... args) {
+  const unsigned nt = block.x * block.y * block.z;
+  if (grid.x % cx) shim_fail("grid.x is not a multiple of the cluster");
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx0 = 0; bx0 < grid.x; bx0 += cx) {
+        Cluster cl;
+        std::vector<std::unique_ptr<Block>> blocks;
+        for (unsigned r = 0; r < cx; ++r) {
+          auto b = std::make_unique<Block>();
+          b->raw.assign(smem + 2048, 0xA5);   // garbage, as on the card
+          const uintptr_t base = reinterpret_cast<uintptr_t>(b->raw.data());
+          b->smem = b->raw.data() + ((1024 - base % 1024) % 1024);
+          b->bytes = smem;
+          b->sync = std::make_unique<std::barrier<>>(nt);
+          for (unsigned w = 0; w < (nt + 31) / 32; ++w)
+            b->warps.push_back(std::make_unique<std::barrier<>>(
+                std::min(32u, nt - 32 * w)));
+          b->mbars.resize(smem / 8 + 1);
+          b->xchg.assign((nt + 31) / 32, std::vector<uint64_t>(32 * 8));
+          cl.blocks.push_back(b.get());
+          blocks.push_back(std::move(b));
+        }
+        cl.sync = std::make_unique<std::barrier<>>(nt * cx);
+        std::vector<std::thread> threads;
+        for (unsigned r = 0; r < cx; ++r)
+          for (unsigned t = 0; t < nt; ++t)
+            threads.emplace_back([&, r, t] {
+              threadIdx = {t % block.x, (t / block.x) % block.y,
+                           t / (block.x * block.y)};
+              blockIdx = {bx0 + r, by, bz};
+              blockDim = block;
+              gridDim = grid;
+              self.rank = r;
+              self.csize = cx;
+              self.block = cl.blocks[r];
+              self.cluster = &cl;
+              kernel(args...);
+            });
+        for (auto& th : threads) th.join();
+      }
+}
+
+struct Launcher {
+  dim3 grid, block;
+  size_t smem;
+  Launcher(dim3 g, dim3 b, size_t s = 0, cudaStream_t = nullptr)
+      : grid(g), block(b), smem(s) {}
+  template <typename K, typename... A>
+  void run(K kernel, A... args) {
+    run_grid(grid, block, smem, 1, kernel, args...);
+  }
+};
+
+}  // namespace shim
+
+
+inline void __syncthreads() { shim::self.block->sync->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  shim::self.block->warps[threadIdx.x / 32]->arrive_and_wait();
+}
+
+// a shared-memory address is the offset into the CTA's buffer
+inline size_t __cvta_generic_to_shared(const void* p) {
+  const unsigned char* c = static_cast<const unsigned char*>(p);
+  shim::Block& b = *shim::self.block;
+  if (c < b.smem || c >= b.smem + b.bytes + 64)
+    shim_fail("shared address outside the CTA's dynamic shared memory");
+  return static_cast<size_t>(c - b.smem);
+}
+
+template <typename... E, typename... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(E...), A&&... args) {
+  unsigned cx = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      cx = cfg->attrs[i].val.clusterDim.x;
+      if (cfg->attrs[i].val.clusterDim.y != 1 ||
+          cfg->attrs[i].val.clusterDim.z != 1 || cx < 1 || cx > 8)
+        return cudaErrorInvalidValue;
+    }
+  shim::run_grid(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cx,
+                 kernel, static_cast<E>(args)...);
+  return cudaSuccess;
+}
+
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : "invalid argument";
+}

@@ -20,19 +20,30 @@
 // pass is 77 GFLOP on about 70 MB, some 1,100 flops a byte: the tensor
 // cores bound it. Design:
 //
-// - bf16: mma.sync m16n8k16 with fp32 accumulators (the tensor-core path of
-//   quant_matmul.cu, with ldmatrix in place of its scalar fragment
-//   building). A block of 8 warps owns a 128 x 128 output tile, each warp
+// - bf16 forward and dx: `gmm_fwd_wgmma_kernel` (csrc/hopper_gemm.cuh),
+//   persistent: one CTA an SM walks output tiles of 128 rows of one span
+//   by 256 columns. One producer thread keeps a 3-stage ring of TMA loads
+//   in flight, running on into the next tile's loads while the consumers
+//   store the last one: the x tile (box 128
+//   rows x 64 k through ldx, 128-byte swizzle) and the weight tile of
+//   lut[g] through a 3-D map [W][K][N] (forward: four [64 k][64 n] boxes,
+//   the MN-major B) or [W][N][K] (dx = dy @ w^T read in place: one [256
+//   n][64 k] box, the K-major B), so a tile never reads another weight's
+//   rows and the K edge is zero-filled. Two consumer warpgroups run wgmma
+//   m64n256k16 on each stage as it lands (fp32 accumulators in registers,
+//   one group kept in flight) and release it through its empty barrier;
+//   each warpgroup stages its 64 output rows in shared memory and stores
+//   them as 16-byte chunks. A tile wholly past the span's size is stored
+//   as zeros and issues no loads.
+//   The 128-row box of a span's last tile may read the next span's rows:
+//   each output row depends only on its own input row, and dead rows are
+//   stored as zeros by a select, so no bits of a dead row (Inf, NaN) reach
+//   a live one; stores stop at the span's end.
+// - dW (bf16): mma.sync m16n8k16 with fp32 accumulators and ldmatrix
+//   fragments. A block of 8 warps owns a 128 x 128 output tile, each warp
 //   64 x 32; the contraction runs in slices of 32 through a 4-stage
 //   cp.async ring in dynamic shared memory (16-byte copies, zero fill past
 //   the edges and past the span's size, so dead rows cost no reads).
-//   ldmatrix (.trans where the stored tile is k-major for the operand)
-//   builds every fragment, so one kernel body serves the three operand
-//   layouts: x [r][k] and w [k][n] (forward), x and w read as [n][k]
-//   (dx = dy @ w^T, no transposed copy of w is made), x^T and dy (dW).
-// - Forward blocks own (row tile of one span, column tile): a tile wholly
-//   past the size writes zeros and returns; a partial tile writes exact
-//   zeros on its dead rows.
 // - dW blocks own (weight, K tile, N tile) and walk that weight's spans in
 //   order, slice by slice up to each size: one fp32 sum in registers, a
 //   fixed order, no atomics, and every tile written once, zeros included.
@@ -42,8 +53,11 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
+
+namespace hp = ds::hopper;
 
 using bf16 = __nv_bfloat16;
 using ds::cp_async16;
@@ -53,7 +67,7 @@ using ds::ldmatrix_x4;
 using ds::ldmatrix_x4_trans;
 using ds::mma_bf16;
 
-// tensor-core path
+// dW tensor-core path
 constexpr int MM_BM = 128;
 constexpr int MM_BN = 128;
 constexpr int MM_BK = 32;
@@ -66,12 +80,10 @@ constexpr int MM_MT = MM_WM / 16;                     // m16 tiles a warp
 constexpr int MM_NT8 = MM_WN / 8;                     // n8 tiles a warp
 constexpr int MM_STAGES = 4;
 constexpr int MM_PAD = 8;   // 16 bytes: ldmatrix rows fall in distinct banks
-// row strides (elements) of the three stored tile shapes
-constexpr int LD_K = MM_BK + MM_PAD;     // [128][32]: x rows, w as [n][k]
-constexpr int LD_M = MM_BM + MM_PAD;     // [32][128]: x^T slice (dW)
-constexpr int LD_N = MM_BN + MM_PAD;     // [32][128]: w [k][n], dy
-constexpr int OPERAND_ELEMS = MM_BM * LD_K > MM_BK * LD_N
-                                  ? MM_BM * LD_K : MM_BK * LD_N;
+// row strides (elements) of the stored dW tiles
+constexpr int LD_M = MM_BM + MM_PAD;     // [32][128]: x^T slice
+constexpr int LD_N = MM_BN + MM_PAD;     // [32][128]: dy
+constexpr int OPERAND_ELEMS = MM_BM * (MM_BK + MM_PAD);   // 10 KB a slot
 constexpr int STAGE_ELEMS = 2 * OPERAND_ELEMS;
 constexpr int MM_SMEM_BYTES = MM_STAGES * STAGE_ELEMS * 2;   // 80 KB
 
@@ -86,9 +98,8 @@ __device__ __forceinline__ int live_size(const int* sizes, int g, int span) {
   return min(max(sizes[g], 0), span);
 }
 
-// One 32-deep slice of the block tile. A is stored [m][k] (A_KMAJOR false)
-// or [k][m]; B is stored [k][n] (B_NMAJOR false) or [n][k].
-template <bool A_KMAJOR, bool B_NMAJOR>
+// One 32-deep slice of the dW block tile: A stored [k][m] (x^T), B stored
+// [k][n] (dy).
 __device__ __forceinline__ void mma_slice(float (&acc)[MM_MT][MM_NT8][4],
                                           const bf16* As, const bf16* Bs,
                                           int wm, int wn, int lane) {
@@ -99,24 +110,16 @@ __device__ __forceinline__ void mma_slice(float (&acc)[MM_MT][MM_NT8][4],
 #pragma unroll
     for (int i = 0; i < MM_MT; ++i) {
       const int m0 = wm * MM_WM + i * 16;
-      if (!A_KMAJOR)
-        ldmatrix_x4(a[i], As + (m0 + r + 8 * (mat % 2)) * LD_K + ks +
-                              8 * (mat / 2));
-      else
-        ldmatrix_x4_trans(a[i], As + (ks + r + 8 * (mat / 2)) * LD_M + m0 +
-                                    8 * (mat % 2));
+      ldmatrix_x4_trans(a[i], As + (ks + r + 8 * (mat / 2)) * LD_M + m0 +
+                                  8 * (mat % 2));
     }
     unsigned b[MM_NT8][2];
 #pragma unroll
     for (int j = 0; j < MM_NT8; j += 2) {
       const int n0 = wn * MM_WN + j * 8;
       unsigned t[4];
-      if (!B_NMAJOR)
-        ldmatrix_x4_trans(t, Bs + (ks + r + 8 * (mat % 2)) * LD_N + n0 +
-                                 8 * (mat / 2));
-      else
-        ldmatrix_x4(t, Bs + (n0 + r + 8 * (mat / 2)) * LD_K + ks +
-                           8 * (mat % 2));
+      ldmatrix_x4_trans(t, Bs + (ks + r + 8 * (mat % 2)) * LD_N + n0 +
+                               8 * (mat / 2));
       b[j][0] = t[0];
       b[j][1] = t[1];
       b[j + 1][0] = t[2];
@@ -138,98 +141,198 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MM_MT][MM_NT8][4]) {
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 }
 
-// Forward: blockIdx.x = column tile, blockIdx.y = (span, row tile) with
-// tps row tiles a span. TRANS_W reads w stored [W, N, K] (the dx product).
+// wgmma forward
+constexpr int GW_BM = 128;
+constexpr int GW_BN = 256;
+constexpr int GW_BK = 64;                       // one 128-byte bf16 line
+constexpr int GW_STAGES = 3;
+constexpr int GW_CONSUMERS = 256;               // two warpgroups
+constexpr int GW_THREADS = 384;                 // + the producer warpgroup
+constexpr int GW_A_BYTES = GW_BM * GW_BK * 2;   // x: [128 rows][64 k]
+constexpr int GW_B_BYTES = GW_BK * GW_BN * 2;   // w: 4 x [64 k][64 n] or [256 n][64 k]
+constexpr int GW_STAGE = GW_A_BYTES + GW_B_BYTES;
+constexpr int GW_OUT_LD = GW_BN + 8;            // a staged bf16 output row
+constexpr int GW_OUT_OFF = GW_STAGES * GW_STAGE;
+constexpr int GW_BARS = GW_OUT_OFF + GW_BM * GW_OUT_LD * 2;
+constexpr int GW_SMEM = 1024 + GW_BARS + 2 * GW_STAGES * 8;
+
+// An output tile: a 128-row tile of span g (row0 within the span, rows
+// of them in the span, live of those below its size) by 256 columns.
+struct GwTile {
+  int n0, g, row0, rows, live;
+  long long grow0;
+};
+
+// The tiles are listed live first: the row tiles holding a live row, span
+// by span, each by its n_tiles column tiles; then the wholly dead ones.
+// Tile t of one list (live: the first, else the second).
+__device__ __forceinline__ GwTile gw_tile(int t, bool live_list, int n_tiles,
+                                          int tps, int span, int G,
+                                          const int* sizes) {
+  GwTile w;
+  int rt = t / n_tiles;
+  w.n0 = (t % n_tiles) * GW_BN;
+  int size = 0, lt = 0;
+  for (w.g = 0; w.g < G; ++w.g) {
+    size = live_size(sizes, w.g, span);
+    lt = (size + GW_BM - 1) / GW_BM;
+    const int cnt = live_list ? lt : tps - lt;
+    if (rt < cnt) break;
+    rt -= cnt;
+  }
+  w.row0 = (live_list ? rt : lt + rt) * GW_BM;
+  w.rows = min(GW_BM, span - w.row0);
+  w.live = max(0, min(size - w.row0, w.rows));
+  w.grow0 = (long long)w.g * span + w.row0;
+  return w;
+}
+
+// the number of live tiles
+__device__ __forceinline__ int gw_live_tiles(int n_tiles, int span, int G,
+                                             const int* sizes) {
+  int n = 0;
+  for (int g = 0; g < G; ++g)
+    n += (live_size(sizes, g, span) + GW_BM - 1) / GW_BM;
+  return n * n_tiles;
+}
+
+// Forward, persistent: CTA b takes live tiles b, b + gridDim.x, ... (so
+// every CTA gets as many products, whatever the sizes), then dead tiles
+// the same way; the row tiles are tps a span. The producer runs ahead
+// into the next tile's loads while the consumers store the last one.
+// TRANS_W: wmap reads w stored [W, N, K] (the dx product); otherwise
+// [W, K, N].
 template <bool TRANS_W>
-__global__ void __launch_bounds__(MM_NT) gmm_fwd_mma_kernel(
-    const bf16* __restrict__ x, long long ldx, const bf16* __restrict__ w,
-    const int* __restrict__ sizes, const int* __restrict__ lut,
-    bf16* __restrict__ y, int K, int N, int span, int tps) {
+__global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap wmap, const int* __restrict__ sizes,
+    const int* __restrict__ lut, bf16* __restrict__ y, int K, int N, int span,
+    int G, int tps, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GW_BARS);
+  uint64_t* empty = full + GW_STAGES;
   const int tid = threadIdx.x;
-  const int g = blockIdx.y / tps;
-  const int row0 = (blockIdx.y % tps) * MM_BM;            // within the span
-  const int rows = min(MM_BM, span - row0);                // span rows here
-  const int live = max(0, min(live_size(sizes, g, span) - row0, rows));
-  const long long grow0 = (long long)g * span + row0;
-  const int n0 = blockIdx.x * MM_BN;
-  bf16* yt = y + grow0 * N;
-  if (live == 0) {
-    for (int c = tid; c < rows * (MM_BN / 8); c += MM_NT) {
-      const int r = c / (MM_BN / 8), n = n0 + (c % (MM_BN / 8)) * 8;
-      if (n < N)
-        *reinterpret_cast<int4*>(yt + (long long)r * N + n) =
-            make_int4(0, 0, 0, 0);
+  const int k_tiles = (K + GW_BK - 1) / GW_BK;
+  const int live_tiles = gw_live_tiles(n_tiles, span, G, sizes);
+  if (tid == 0) {
+    for (int s = 0; s < GW_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], GW_CONSUMERS);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= GW_CONSUMERS) {
+    // producer warpgroup: one thread issues the loads of every live tile
+    hp::setmaxnreg_dec<40>();
+    if (tid == GW_CONSUMERS) {
+      hp::RingPos<GW_STAGES> pos;
+      for (int t = blockIdx.x; t < live_tiles; t += gridDim.x) {
+        const GwTile w = gw_tile(t, true, n_tiles, tps, span, G, sizes);
+        const int e = lut[w.g];
+        for (int i = 0; i < k_tiles; ++i, pos.advance()) {
+          if (pos.round > 0)
+            hp::mbar_wait(&empty[pos.stage], pos.parity() ^ 1);
+          unsigned char* st = smem + pos.stage * GW_STAGE;
+          uint64_t* bar = &full[pos.stage];
+          hp::mbar_arrive_expect_tx(bar, GW_STAGE);
+          const int k = i * GW_BK;
+          hp::tma_load_2d(st, &xmap, bar, k, static_cast<int>(w.grow0));
+          if (TRANS_W) {
+            hp::tma_load_3d(st + GW_A_BYTES, &wmap, bar, k, w.n0, e);
+          } else {
+#pragma unroll
+            for (int b = 0; b < GW_BN / 64; ++b)
+              hp::tma_load_3d(st + GW_A_BYTES + b * GW_BK * 128, &wmap, bar,
+                              w.n0 + 64 * b, k, e);
+          }
+        }
+      }
     }
     return;
   }
-  const bf16* xt = x + grow0 * ldx;
-  const bf16* we = w + (long long)lut[g] * K * N;
-  const int ktiles = (K + MM_BK - 1) / MM_BK;
 
-  auto load_tile = [&](int kt, int stage) {
-    bf16* As = smem + stage * STAGE_ELEMS;
-    bf16* Bs = As + OPERAND_ELEMS;
-    const int k0 = kt * MM_BK;
-    for (int c = tid; c < MM_BM * (MM_BK / 8); c += MM_NT) {
-      const int r = c / (MM_BK / 8), kc = (c % (MM_BK / 8)) * 8;
-      const bool ok = r < live && k0 + kc < K;
-      cp_async16(As + r * LD_K + kc,
-                 ok ? xt + (long long)r * ldx + k0 + kc : x, ok);
-    }
-    if (!TRANS_W) {
-      for (int c = tid; c < MM_BK * (MM_BN / 8); c += MM_NT) {
-        const int kr = c / (MM_BN / 8), nc = (c % (MM_BN / 8)) * 8;
-        const bool ok = k0 + kr < K && n0 + nc < N;
-        cp_async16(Bs + kr * LD_N + nc,
-                   ok ? we + (long long)(k0 + kr) * N + n0 + nc : w, ok);
-      }
-    } else {
-      for (int c = tid; c < MM_BN * (MM_BK / 8); c += MM_NT) {
-        const int nr = c / (MM_BK / 8), kc = (c % (MM_BK / 8)) * 8;
-        const bool ok = n0 + nr < N && k0 + kc < K;
-        cp_async16(Bs + nr * LD_K + kc,
-                   ok ? we + (long long)(n0 + nr) * K + k0 + kc : w, ok);
-      }
-    }
-  };
-
-  float acc[MM_MT][MM_NT8][4];
-  zero_acc(acc);
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / MM_WARPS_N, wn = warp % MM_WARPS_N;
-#pragma unroll
-  for (int s = 0; s < MM_STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<MM_STAGES - 2>();
-    __syncthreads();   // slice kt has landed; slice kt-1's stage is free
-    const int nxt = kt + MM_STAGES - 1;
-    if (nxt < ktiles) load_tile(nxt, nxt % MM_STAGES);
-    cp_async_commit();
-    const bf16* As = smem + (kt % MM_STAGES) * STAGE_ELEMS;
-    mma_slice<false, TRANS_W>(acc, As, As + OPERAND_ELEMS, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-
+  // consumer warpgroups: rows 64 cw .. 64 cw + 63 of each tile
+  hp::setmaxnreg_inc<232>();
+  const int cw = tid / 128, t = tid % 128;
+  const int wi = t / 32, lane = t % 32;
   const int gq = lane / 4, tq = lane % 4;
+  bf16* out = reinterpret_cast<bf16*>(smem + GW_OUT_OFF) + cw * 64 * GW_OUT_LD;
+  hp::RingPos<GW_STAGES> pos;
+  for (int tile = blockIdx.x; tile < live_tiles; tile += gridDim.x) {
+    const GwTile w = gw_tile(tile, true, n_tiles, tps, span, G, sizes);
+    bf16* yt = y + w.grow0 * N;
+    float acc[GW_BN / 2];
 #pragma unroll
-  for (int i = 0; i < MM_MT; ++i)
+    for (int i = 0; i < GW_BN / 2; ++i) acc[i] = 0.f;
+    hp::fence_operand(acc);
+    int prev = -1;
+    for (int i = 0; i < k_tiles; ++i, pos.advance()) {
+      hp::mbar_wait(&full[pos.stage], pos.parity());
+      const unsigned char* st = smem + pos.stage * GW_STAGE;
+      hp::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < MM_NT8; ++j)
+      for (int kk = 0; kk < GW_BK / 16; ++kk) {
+        const uint64_t da =
+            hp::sw128_desc(st + cw * 64 * 128 + kk * 32, 0, 1024);
+        if (TRANS_W) {
+          const uint64_t db =
+              hp::sw128_desc(st + GW_A_BYTES + kk * 32, 0, 1024);
+          hp::wgmma<GW_BN, 0, 0>(acc, da, db);
+        } else {
+          const uint64_t db = hp::sw128_desc(st + GW_A_BYTES + kk * 2048,
+                                             GW_BK * 128, 1024);
+          hp::wgmma<GW_BN, 0, 1>(acc, da, db);
+        }
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();        // the previous stage's products are done
+      if (prev >= 0) hp::mbar_arrive(&empty[prev]);
+      prev = pos.stage;
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_operand(acc);
+    hp::mbar_arrive(&empty[prev]);
+
+    // stage this warpgroup's 64 rows as bf16 (dead rows as zeros) and store
+    // them as 16-byte chunks of whole rows
+    hp::named_bar_sync(2 + cw, 128);   // the last tile's rows are stored
+#pragma unroll
+    for (int j = 0; j < GW_BN / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = wm * MM_WM + i * 16 + gq + 8 * h;
-        const int n = n0 + wn * MM_WN + j * 8 + 2 * tq;
-        if (r >= rows || n >= N) continue;
-        const bool dead = r >= live;
-        *reinterpret_cast<__nv_bfloat162*>(yt + (long long)r * N + n) =
-            __floats2bfloat162_rn(dead ? 0.f : acc[i][j][2 * h],
-                                  dead ? 0.f : acc[i][j][2 * h + 1]);
+        const int r = wi * 16 + gq + 8 * h;
+        const bool dead = cw * 64 + r >= w.live;
+        *reinterpret_cast<__nv_bfloat162*>(out + r * GW_OUT_LD + j * 8 +
+                                           2 * tq) =
+            __floats2bfloat162_rn(dead ? 0.f : acc[4 * j + 2 * h],
+                                  dead ? 0.f : acc[4 * j + 2 * h + 1]);
       }
+    hp::named_bar_sync(2 + cw, 128);
+    for (int it = t; it < 64 * (GW_BN / 8); it += 128) {
+      const int r = it / (GW_BN / 8), c = (it % (GW_BN / 8)) * 8;
+      const int row = cw * 64 + r, n = w.n0 + c;
+      if (row < w.rows && n < N)
+        *reinterpret_cast<int4*>(yt + (long long)row * N + n) =
+            *reinterpret_cast<const int4*>(out + r * GW_OUT_LD + c);
+    }
+  }
+  // wholly dead tiles: zeros, no loads
+  const int dead_tiles = (G * tps) * n_tiles - live_tiles;
+  for (int tile = blockIdx.x; tile < dead_tiles; tile += gridDim.x) {
+    const GwTile w = gw_tile(tile, false, n_tiles, tps, span, G, sizes);
+    bf16* yt = y + w.grow0 * N;
+    for (int it = t; it < 64 * (GW_BN / 8); it += 128) {
+      const int r = cw * 64 + it / (GW_BN / 8);
+      const int n = w.n0 + (it % (GW_BN / 8)) * 8;
+      if (r < w.rows && n < N)
+        *reinterpret_cast<int4*>(yt + (long long)r * N + n) =
+            make_int4(0, 0, 0, 0);
+    }
+  }
 }
 
 // dW: blockIdx.x = column tile of N, blockIdx.y = row tile of K, blockIdx.z
@@ -300,7 +403,7 @@ __global__ void __launch_bounds__(MM_NT) gmm_dw_mma_kernel(
     if (nxt < ktiles) load_tile(nxt % MM_STAGES);
     cp_async_commit();
     const bf16* As = smem + (kt % MM_STAGES) * STAGE_ELEMS;
-    mma_slice<true, false>(acc, As, As + OPERAND_ELEMS, wm, wn, lane);
+    mma_slice(acc, As, As + OPERAND_ELEMS, wm, wn, lane);
   }
   cp_async_wait<0>();
 
@@ -456,12 +559,55 @@ __global__ void __launch_bounds__(FM_NT) gmm_dw_fma_kernel(
 }
 
 template <typename F>
-cudaError_t allow_smem(F* kernel, bool* done) {
+cudaError_t allow_smem(F* kernel, int bytes, bool* done) {
   if (*done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MM_SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   *done = err == cudaSuccess;
   return err;
+}
+
+// the bf16 forward: x [R, K] through ldx and the weight as a 3-D map
+// (innermost first: [N, K, W], or [K, N, W] when w is stored [W, N, K])
+template <bool TRANS_W>
+cudaError_t launch_fwd_wgmma(const bf16* x, long long ldx, const bf16* w,
+                             const int* sizes, const int* lut, bf16* y, int R,
+                             int K, int N, int W, int span,
+                             cudaStream_t stream) {
+  CUtensorMap xm, wm;
+  const uint64_t xd[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(R)};
+  const uint64_t xs[1] = {static_cast<uint64_t>(ldx) * 2};
+  const uint32_t xb[2] = {GW_BK, GW_BM};
+  cudaError_t err = hp::tensor_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                   2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const uint64_t inner = TRANS_W ? K : N, outer = TRANS_W ? N : K;
+  const uint64_t wd[3] = {inner, outer, static_cast<uint64_t>(W)};
+  const uint64_t ws[2] = {inner * 2, inner * outer * 2};
+  const uint32_t wb[3] = {64, static_cast<uint32_t>(TRANS_W ? GW_BN : GW_BK),
+                          1};
+  err = hp::tensor_map(&wm, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wd, ws, wb,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  static bool ready = false;
+  err = allow_smem(gmm_fwd_wgmma_kernel<TRANS_W>, GW_SMEM, &ready);
+  if (err != cudaSuccess) return err;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int tps = (span + GW_BM - 1) / GW_BM;
+  const int n_tiles = (N + GW_BN - 1) / GW_BN;
+  const int G = R / span;
+  gmm_fwd_wgmma_kernel<TRANS_W><<<min(G * tps * n_tiles, sms), GW_THREADS,
+                                  GW_SMEM, stream>>>(xm, wm, sizes, lut, y, K,
+                                                     N, span, G, tps,
+                                                     n_tiles);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -470,14 +616,15 @@ cudaError_t allow_smem(F* kernel, bool* done) {
 // contiguous) with w: [W, K, N] contiguous, or with w_transposed = 1 the
 // [W, N, K] tensor read as its transpose (dx = dy @ w^T). sizes [G] and
 // lut [G] are int32 on the device, G = R / span. bf16 (dtype 1) needs K % 8
-// == 0, N % 8 == 0, ldx % 8 == 0 and 16-byte aligned x and w; fp32 (dtype
-// 0) takes any shape. Returns cudaGetLastError() after the launch.
+// == 0, N % 8 == 0, ldx % 8 == 0 and 16-byte aligned x, w and y; fp32
+// (dtype 0) takes any shape. Returns cudaGetLastError() after the launch.
 extern "C" int ds_grouped_matmul(const void* x, long long ldx, const void* w,
                                  int w_transposed, const void* sizes,
                                  const void* lut, void* y, int R, int K,
-                                 int N, int span, int dtype, void* stream) {
+                                 int N, int W, int span, int dtype,
+                                 void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || K <= 0 || N <= 0 || span <= 0 || R % span)
+  if (R <= 0 || K <= 0 || N <= 0 || W <= 0 || span <= 0 || R % span)
     return cudaErrorInvalidValue;
   const int G = R / span;
   const int* sz = static_cast<const int*>(sizes);
@@ -501,25 +648,14 @@ extern "C" int ds_grouped_matmul(const void* x, long long ldx, const void* w,
       reinterpret_cast<uintptr_t>(w) % 16 ||
       reinterpret_cast<uintptr_t>(y) % 16)
     return cudaErrorInvalidValue;
-  const int tps = (span + MM_BM - 1) / MM_BM;
-  const dim3 grid((N + MM_BN - 1) / MM_BN, G * tps);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* yb = static_cast<bf16*>(y);
-  static bool ready[2] = {false, false};
-  cudaError_t err;
-  if (w_transposed) {
-    err = allow_smem(gmm_fwd_mma_kernel<true>, &ready[1]);
-    if (err != cudaSuccess) return err;
-    gmm_fwd_mma_kernel<true><<<grid, MM_NT, MM_SMEM_BYTES, cs>>>(
-        xb, ldx, wb, sz, lt, yb, K, N, span, tps);
-  } else {
-    err = allow_smem(gmm_fwd_mma_kernel<false>, &ready[0]);
-    if (err != cudaSuccess) return err;
-    gmm_fwd_mma_kernel<false><<<grid, MM_NT, MM_SMEM_BYTES, cs>>>(
-        xb, ldx, wb, sz, lt, yb, K, N, span, tps);
-  }
-  return cudaGetLastError();
+  if (w_transposed)
+    return launch_fwd_wgmma<true>(xb, ldx, wb, sz, lt, yb, R, K, N, W, span,
+                                  cs);
+  return launch_fwd_wgmma<false>(xb, ldx, wb, sz, lt, yb, R, K, N, W, span,
+                                 cs);
 }
 
 // dw [n_weights, K, N] fp32 = for each weight e, the sum over the spans s
@@ -552,7 +688,8 @@ extern "C" int ds_grouped_matmul_dw(const void* x, const void* dy,
       reinterpret_cast<uintptr_t>(dw) % 8)
     return cudaErrorInvalidValue;
   static bool ready = false;
-  const cudaError_t err = allow_smem(gmm_dw_mma_kernel, &ready);
+  const cudaError_t err =
+      allow_smem(gmm_dw_mma_kernel, MM_SMEM_BYTES, &ready);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + MM_BN - 1) / MM_BN, (K + MM_BM - 1) / MM_BM, n_weights);
   gmm_dw_mma_kernel<<<grid, MM_NT, MM_SMEM_BYTES, cs>>>(

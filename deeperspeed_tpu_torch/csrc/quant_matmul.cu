@@ -6,7 +6,7 @@
 // `quant_matmul_pallas`). As there, the int8 weight crosses device memory
 // at one byte an element and is widened on chip, and the per-channel
 // scale, which commutes with the contraction, multiplies the fp32 sum
-// once in the epilogue. int8 -> fp32 and bf16 -> fp32 are exact, so the
+// once in the epilogue. int8 -> bf16 and bf16 -> fp32 are exact, so the
 // products are exact and only the summation order differs from the plain
 // version.
 //
@@ -15,27 +15,40 @@
 // which the tensor cores would become the limit, so the weight bytes
 // bound it; at a large prefill (M = 4096) it is the flops. Design:
 //
-// - Tensor-core path (bf16 x, 16-byte aligned rows, N % 16 == 0, K % 8 ==
-//   0): mma.sync m16n8k16 bf16 with fp32 accumulators. A block of 4 warps
-//   owns 16 (M <= 16) or 64 rows x 64 columns; K runs in tiles of 32
-//   through a 4-stage cp.async ring in shared memory (x tile and int8
-//   weight tile, 16-byte copies, zero fill past the edges). The weight
-//   bytes are widened to bf16 (exact) as the B fragments are built. At
-//   decode the output has only 12-48 tiles of 64 columns, too few to keep
-//   enough weight bytes in flight, so the wrapper splits K over up to
-//   ~264 blocks (split-K): each writes its fp32 partial tile to a
-//   workspace and a second small kernel sums the splits in a fixed order
-//   (deterministic), applies the scale and casts.
+// - bf16 x (16-byte aligned rows, N % 16 == 0, K % 8 == 0): one launch of
+//   `qmm_wgmma_kernel` (csrc/hopper_gemm.cuh), which computes yᵀ: a CTA
+//   owns 128 weight columns by a tile of 16, 32, 64, 128 or 256 token
+//   rows (the wrapper's plan). One producer thread keeps a ring of up to
+//   8 stages of TMA loads in flight (the x tile, bf16, 128-byte swizzle,
+//   and the int8 weight tile [64 k][128 n]). Each of two consumer
+//   warpgroups widens its 64 columns of every int8 tile into a swizzled
+//   bf16 tile in shared memory (byte permutes into fp32 words with the
+//   exponent of 2^23, one subtraction, the high halves packed: exact for
+//   -128..127; double-buffered), fences it for the async proxy and runs
+//   wgmma m64nTk16 with that tile as the MN-major A and the x tile as the
+//   K-major B, fp32 accumulators in registers. So 16 decode rows are
+//   wgmma's N and waste nothing.
+// - Too few output tiles to fill the card (decode, prefill; N = 768): the
+//   K range is split over a thread-block cluster of up to 8 CTAs in the
+//   same launch. Rank r reduces token rows r of the tile: every rank
+//   pushes its fp32 partial of those rows into its own slot of rank r's
+//   buffer through distributed shared memory, one cluster barrier, then
+//   rank r sums the slots in rank order (bit-identical from call to
+//   call), scales, casts and stores. No workspace, no second kernel: one
+//   launch a call. A lone CTA scales and casts in registers and stores
+//   its tile through shared memory as 16-byte chunks.
 // - FMA path for fp32 x (exact fp32 products, as the plain version):
 //   64 x 64 tiles, K in steps of 32 staged in shared memory (the weight
 //   tile read with 16-byte loads where N allows, widened once), 4 x 4
 //   outputs a thread.
-// - Ragged M, N and K edges are masked; x is read through its row stride.
-//   bf16 inputs the tensor-core path cannot read are refused (the wrapper
-//   raises first); every GPT-NeoX block matmul meets its conditions.
+// - TMA zero-fills the ragged M, N and K edges; stores are bounded by M
+//   and N. bf16 inputs that TMA cannot read (unaligned base, row stride
+//   or N) are refused (the wrapper raises first); every GPT-NeoX block
+//   matmul meets the conditions.
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -45,14 +58,6 @@ constexpr int TL_BM = 64;
 constexpr int TL_BN = 64;
 constexpr int TL_BK = 32;
 constexpr int TL_PAD = 4;                 // keeps float4 rows aligned
-
-// tensor-core path
-constexpr int MMA_NT = 128;               // 4 warps
-constexpr int MMA_BN = 64;                // 16 columns a warp
-constexpr int MMA_BK = 32;                // two k16 steps a tile
-constexpr int MMA_STAGES = 4;
-constexpr int MMA_XS = MMA_BK + 8;        // padded bf16 row: 80 bytes
-constexpr int MMA_WS = MMA_BN + 16;       // padded int8 row: 80 bytes
 
 __device__ __forceinline__ float byte_at(int w, int i) {
   return static_cast<float>(static_cast<signed char>(w >> (8 * i)));
@@ -133,164 +138,317 @@ __global__ void __launch_bounds__(TL_NT) qmm_tiled_kernel(
   }
 }
 
-using ds::cp_async16;
-using ds::cp_async_commit;
-using ds::cp_async_wait;
-using ds::mma_bf16;
+namespace hp = ds::hopper;
+using bf16 = __nv_bfloat16;
 
-// two int8 weights -> packed bf16x2 (exact), the lower k in the low half
-__device__ __forceinline__ unsigned pack_bf16x2(signed char lo,
-                                                signed char hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo),
-                                                 static_cast<float>(hi));
-  return *reinterpret_cast<const unsigned*>(&v);
+// wgmma path
+constexpr int QW_BK = 64;            // k a stage: one 128-byte bf16 line
+constexpr int QW_WN = 128;           // weight columns a CTA: 64 a warpgroup
+constexpr int QW_CONSUMERS = 256;    // two warpgroups
+constexpr int QW_THREADS = 384;      // + the producer warpgroup
+constexpr int QW_P_LD = QW_WN + 4;   // fp32 partial row stride
+constexpr int QW_SMEM_MAX = 232448;  // the H100's shared memory a block
+
+// Shared memory of the kernel for a token tile of TN rows: two buffers of
+// the widened bf16 weight tile (each warpgroup's 64 columns an MN-major
+// [64 k][64] block), then the ring, a stage holding the x tile [TN][64 k]
+// (K-major) and the int8 staging tile [64 k][128 n], as many stages as
+// fit up to 8; then, for a tile that a cluster shares (TN <= 128), the
+// fp32 partial buffer [cluster][TN / cluster][128] that the ranks push
+// into. The bf16 output tile of a lone CTA reuses the ring.
+template <int TN>
+struct QwLayout {
+  static constexpr int W_BYTES = QW_BK * QW_WN * 2;      // one buffer
+  static constexpr int RING_OFF = 2 * W_BYTES;
+  static constexpr int X_BYTES = TN * QW_BK * 2;
+  static constexpr int Q_OFF = X_BYTES;
+  static constexpr int Q_BYTES = QW_BK * QW_WN;
+  static constexpr int STAGE = X_BYTES + Q_BYTES;
+  static constexpr bool CLUSTER = TN <= 128;
+  static constexpr int P_BYTES = CLUSTER ? TN * QW_P_LD * 4 : 0;
+  static constexpr int FIT =
+      (QW_SMEM_MAX - 1024 - 256 - RING_OFF - P_BYTES) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int P_OFF = RING_OFF + STAGES * STAGE;
+  static constexpr int BARS = P_OFF + P_BYTES;
+  static constexpr int SMEM = 1024 + BARS + 2 * STAGES * 8;
+  static constexpr int OUT_LD = 64 + 8;                  // bf16 tile row
+  static_assert(X_BYTES % 1024 == 0 && STAGE % 1024 == 0, "1 KB tiles");
+  static_assert(SMEM <= QW_SMEM_MAX, "shared memory");
+  static_assert(2 * TN * OUT_LD * 2 <= STAGES * STAGE, "output tile");
+};
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// MT m16 tiles a block (MT * 16 rows) x 64 columns; blockIdx.z takes the
-// K range [z * k_split, (z + 1) * k_split). With gridDim.z == 1 the block
-// writes y; otherwise its fp32 partial goes to ws[z] for the reduction.
-template <int MT>
-__global__ void __launch_bounds__(MMA_NT) qmm_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, long long ldx,
-    const int8_t* __restrict__ q, const float* __restrict__ scale,
-    __nv_bfloat16* __restrict__ y, float* __restrict__ ws, int M, int N,
-    int K, int k_split) {
-  constexpr int BM = 16 * MT;
-  __shared__ __align__(16) __nv_bfloat16 xs[MMA_STAGES][BM][MMA_XS];
-  __shared__ __align__(16) signed char wsm[MMA_STAGES][MMA_BK][MMA_WS];
+// four int8 (one word, the lower k or n in the low byte) -> two bf16x2
+// words: each byte, offset to unsigned, becomes the low byte of the fp32
+// word 0x4B0000uu = 2^23 + uu; subtracting 2^23 + 128 gives the integer
+// exactly, and an integer of at most 8 significant bits has a zero low
+// half, so the high half is its exact bf16
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | i)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
+}
+
+// warpgroup cw's 64 columns of the int8 stage [64 k][128 n] -> its bf16
+// block [k][64] of w, each 128-byte k line swizzled; t is the thread's
+// index in the warpgroup
+__device__ __forceinline__ void widen_half(const unsigned char* q,
+                                           unsigned char* w, int cw, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int it = t + 128 * i;
+    const int r = it >> 2, c = (it & 3) * 16;     // k line, first column
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(q + r * QW_WN + cw * 64 + c);
+    uint4 a, b;
+    widen4(v.x, a.x, a.y);
+    widen4(v.y, a.z, a.w);
+    widen4(v.z, b.x, b.y);
+    widen4(v.w, b.z, b.w);
+    const int ch = c >> 3;
+    unsigned char* line = w + cw * (QW_BK * 128) + r * 128;
+    *reinterpret_cast<uint4*>(line + ((ch ^ (r & 7)) << 4)) = a;
+    *reinterpret_cast<uint4*>(line + (((ch + 1) ^ (r & 7)) << 4)) = b;
+  }
+}
+
+// One CTA: yᵀ for 128 weight columns (n0) by TN token rows (m0), over the
+// k tiles of its cluster rank. Warpgroup cw's A is its 64 widened weight
+// columns (MN-major), the B of both is the x tile (K-major, TMA): wgmma
+// m64nTNk16.
+template <int TN>
+__global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap qmap, const float* __restrict__ scale,
+    bf16* __restrict__ y, int M, int N, int K, int k_per_rank) {
+  using L = QwLayout<TN>;
+  constexpr int S = L::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = smem + L::RING_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + S;
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * MMA_BN;
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(K, k_begin + k_split);
-  const int ktiles = (k_end - k_begin + MMA_BK - 1) / MMA_BK;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = k_begin + kt * MMA_BK;
-    // x tile: BM rows x 32 k = BM * 4 chunks of 8 bf16
-    for (int c = tid; c < BM * (MMA_BK / 8); c += MMA_NT) {
-      const int r = c / (MMA_BK / 8), kc = (c % (MMA_BK / 8)) * 8;
-      const bool ok = m0 + r < M && k0 + kc < k_end;
-      const __nv_bfloat16* src = ok ? x + (long long)(m0 + r) * ldx + k0 + kc
-                                    : x;
-      cp_async16(&xs[stage][r][kc], src, ok);
+  const uint32_t cs = hp::cluster_size(), rank = hp::cluster_rank();
+  const int n0 = (blockIdx.x / cs) * QW_WN;
+  const int m0 = blockIdx.y * TN;
+  const int k_tiles = (K + QW_BK - 1) / QW_BK;
+  const int kt0 = rank * k_per_rank;
+  const int nk = max(0, min(k_tiles, kt0 + k_per_rank) - kt0);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], QW_CONSUMERS);
     }
-    // weight tile: 32 k rows x 64 columns = 128 chunks of 16 int8
-    for (int c = tid; c < MMA_BK * (MMA_BN / 16); c += MMA_NT) {
-      const int r = c / (MMA_BN / 16), nc = (c % (MMA_BN / 16)) * 16;
-      const bool ok = k0 + r < k_end && n0 + nc < N;
-      const int8_t* src = ok ? q + (long long)(k0 + r) * N + n0 + nc : q;
-      cp_async16(&wsm[stage][r][nc], src, ok);
-    }
-  };
-
-  float acc[MT][2][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < MMA_STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
+    hp::mbar_fence_init();
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<MMA_STAGES - 2>();
-    __syncthreads();   // tile kt has landed; tile kt-1's stage is free
-    const int nxt = kt + MMA_STAGES - 1;
-    if (nxt < ktiles) load_tile(nxt, nxt % MMA_STAGES);
-    cp_async_commit();
-    const int st = kt % MMA_STAGES;
-#pragma unroll
-    for (int ks = 0; ks < MMA_BK; ks += 16) {
-      unsigned b[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = warp * 16 + j * 8 + g;
-        b[j][0] = pack_bf16x2(wsm[st][ks + 2 * t][n],
-                              wsm[st][ks + 2 * t + 1][n]);
-        b[j][1] = pack_bf16x2(wsm[st][ks + 2 * t + 8][n],
-                              wsm[st][ks + 2 * t + 9][n]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r = i * 16 + g;
-        unsigned a[4];
-        a[0] = *reinterpret_cast<const unsigned*>(&xs[st][r][ks + 2 * t]);
-        a[1] = *reinterpret_cast<const unsigned*>(&xs[st][r + 8][ks + 2 * t]);
-        a[2] = *reinterpret_cast<const unsigned*>(
-            &xs[st][r][ks + 2 * t + 8]);
-        a[3] = *reinterpret_cast<const unsigned*>(
-            &xs[st][r + 8][ks + 2 * t + 8]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
+  __syncthreads();
+
+  if (tid >= QW_CONSUMERS) {
+    // producer warpgroup: one thread issues the loads
+    hp::setmaxnreg_dec<40>();
+    if (tid == QW_CONSUMERS) {
+      hp::RingPos<S> pos;
+      for (int i = 0; i < nk; ++i, pos.advance()) {
+        if (pos.round > 0) hp::mbar_wait(&empty[pos.stage], pos.parity() ^ 1);
+        unsigned char* st = ring + pos.stage * L::STAGE;
+        hp::mbar_arrive_expect_tx(&full[pos.stage], L::STAGE);
+        const int k = (kt0 + i) * QW_BK;
+        hp::tma_load_2d(st, &xmap, &full[pos.stage], k, m0);
+        hp::tma_load_2d(st + L::Q_OFF, &qmap, &full[pos.stage], n0, k);
       }
     }
+    __syncwarp();
+    if (cs > 1) hp::cluster_sync();   // the consumers' one cluster barrier
+    return;
   }
-  cp_async_wait<0>();
 
-  const bool split = gridDim.z > 1;
-  float* part = split ? ws + (long long)blockIdx.z * M * N : nullptr;
+  // consumer warpgroups: warpgroup cw owns weight columns 64 cw .. +63;
+  // a thread's accumulators hold columns c0 and c0 + 8
+  hp::setmaxnreg_inc<232>();
+  const int cw = tid / 128, t = tid % 128;
+  const int wi = t / 32, lane = t % 32;
+  const int g = lane / 4, q4 = lane % 4;
+  const int c0 = cw * 64 + wi * 16 + g;
+  float acc[TN / 2];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  hp::fence_operand(acc);
+  hp::RingPos<S> pos;
+  int prev = -1;
+  for (int i = 0; i < nk; ++i, pos.advance()) {
+    hp::mbar_wait(&full[pos.stage], pos.parity());
+    const unsigned char* st = ring + pos.stage * L::STAGE;
+    // the widened buffer of stage i - 2 is free: wgmma_wait<1> of step i - 1
+    unsigned char* w = smem + (i & 1) * L::W_BYTES;
+    widen_half(st + L::Q_OFF, w, cw, t);
+    hp::fence_proxy_async();
+    hp::named_bar_sync(1 + cw, 128);
+    hp::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int kk = 0; kk < QW_BK / 16; ++kk) {
+      const uint64_t da = hp::sw128_desc(
+          w + cw * QW_BK * 128 + kk * 2048, QW_BK * 128, 1024);
+      const uint64_t db = hp::sw128_desc(st + kk * 32, 0, 1024);
+      hp::wgmma<TN, 1, 0>(acc, da, db);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();          // the previous stage's products are done
+    if (prev >= 0) hp::mbar_arrive(&empty[prev]);
+    prev = pos.stage;
+  }
+  hp::wgmma_wait<0>();
+  hp::fence_operand(acc);
+
+  if (cs == 1) {
+    // A lone CTA: scale and cast in registers, stage each warpgroup's bf16
+    // [TN][64] tile in the ring (free once both warpgroups are done), and
+    // store it as 16-byte chunks of y's rows.
+    const float s0 = n0 + c0 < N ? scale[n0 + c0] : 0.f;
+    const float s1 = n0 + c0 + 8 < N ? scale[n0 + c0 + 8] : 0.f;
+    hp::named_bar_sync(3, QW_CONSUMERS);
+    bf16* tile = reinterpret_cast<bf16*>(smem + L::RING_OFF) +
+                 cw * TN * L::OUT_LD;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = m0 + i * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + warp * 16 + j * 8 + 2 * t + (e & 1);
-        if (m >= M || n >= N) continue;
-        if (split)
-          part[(long long)m * N + n] = acc[i][j][e];
-        else
-          y[(long long)m * N + n] = __float2bfloat16(acc[i][j][e] * scale[n]);
+        const int r = 8 * j + 2 * q4 + (e & 1);
+        const int c = wi * 16 + g + (e >= 2 ? 8 : 0);
+        tile[r * L::OUT_LD + c] =
+            __float2bfloat16(acc[4 * j + e] * (e >= 2 ? s1 : s0));
       }
-}
+    hp::named_bar_sync(1 + cw, 128);
+#pragma unroll 4
+    for (int it = t; it < TN * 8; it += 128) {
+      const int r = it / 8, c = (it % 8) * 8;
+      const int m = m0 + r, n = n0 + cw * 64 + c;
+      if (m < M && n < N)
+        *reinterpret_cast<uint4*>(y + (long long)m * N + n) =
+            *reinterpret_cast<const uint4*>(tile + r * L::OUT_LD + c);
+    }
+    return;
+  }
 
-// y[m, n] = bf16(scale[n] * sum over the splits of ws[z, m, n]), the
-// splits summed in order
-__global__ void qmm_split_reduce_kernel(const float* __restrict__ ws,
-                                        const float* __restrict__ scale,
-                                        __nv_bfloat16* __restrict__ y, int M,
-                                        int N, int splits) {
-  const long long mn = (long long)M * N;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < mn; i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
-    y[i] = __float2bfloat16(s * scale[i % N]);
+  if constexpr (L::CLUSTER) {
+    // Rank r reduces token rows [r * rows, (r + 1) * rows): each rank
+    // pushes its fp32 partial of those rows into slot `rank` of rank r's
+    // buffer (remote stores through the cluster, its own locally), one
+    // cluster barrier, then rank r sums its slots in rank order.
+    float* P = reinterpret_cast<float*>(smem + L::P_OFF);
+    const int rows = TN / cs;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * q4 + (e & 1);
+        const int c = c0 + (e >= 2 ? 8 : 0);
+        const uint32_t dest = r * cs / TN;          // TN and cs: powers of 2
+        float* dst = P + (rank * rows + r - dest * rows) * QW_P_LD + c;
+        if (dest == rank)
+          *dst = acc[4 * j + e];
+        else
+          hp::st_cluster_f32(hp::map_rank(hp::smem_addr(dst), dest),
+                             acc[4 * j + e]);
+      }
+    hp::cluster_sync();   // every partial has landed
+
+    // the slots summed in rank order, scaled, cast and stored, four float4
+    // items a thread at a time so that their loads overlap
+    constexpr int ITEM_ROW = QW_WN / 4;
+    const int items = rows * ITEM_ROW;
+    for (int base = tid; base < items; base += 4 * QW_CONSUMERS) {
+      float4 sum[4], sc[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = base + u * QW_CONSUMERS;
+        const int n = n0 + (it % ITEM_ROW) * 4;
+        sum[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        sc[u] = it < items && n < N
+                    ? make_float4(scale[n], scale[n + 1], scale[n + 2],
+                                  scale[n + 3])
+                    : sum[u];
+      }
+      for (uint32_t j = 0; j < cs; ++j)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int it = base + u * QW_CONSUMERS;
+          if (it >= items) continue;
+          const float4 v = *reinterpret_cast<const float4*>(
+              P + (j * rows + it / ITEM_ROW) * QW_P_LD + (it % ITEM_ROW) * 4);
+          sum[u].x += v.x;
+          sum[u].y += v.y;
+          sum[u].z += v.z;
+          sum[u].w += v.w;
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = base + u * QW_CONSUMERS;
+        const int m = m0 + rank * rows + it / ITEM_ROW;
+        const int n = n0 + (it % ITEM_ROW) * 4;
+        if (it >= items || m >= M || n >= N) continue;
+        uint2 o;
+        o.x = pack_bf16x2(sum[u].x * sc[u].x, sum[u].y * sc[u].y);
+        o.y = pack_bf16x2(sum[u].z * sc[u].z, sum[u].w * sc[u].w);
+        *reinterpret_cast<uint2*>(y + (long long)m * N + n) = o;
+      }
+    }
   }
 }
 
-cudaError_t launch_mma(const __nv_bfloat16* x, long long ldx,
-                       const int8_t* q, const float* scale,
-                       __nv_bfloat16* y, float* ws, int M, int N, int K,
-                       int k_split, cudaStream_t stream) {
-  const int splits = (K + k_split - 1) / k_split;
-  if (splits > 1 && ws == nullptr) return cudaErrorInvalidValue;
-  const int mt = M <= 16 ? 1 : 4;
-  const dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + 16 * mt - 1) / (16 * mt),
-                  splits);
-  if (mt == 1)
-    qmm_mma_kernel<1><<<grid, MMA_NT, 0, stream>>>(x, ldx, q, scale, y, ws,
-                                                   M, N, K, k_split);
-  else
-    qmm_mma_kernel<4><<<grid, MMA_NT, 0, stream>>>(x, ldx, q, scale, y, ws,
-                                                   M, N, K, k_split);
-  if (splits > 1) {
-    const cudaError_t err = cudaGetLastError();
+template <int TN>
+cudaError_t launch_wgmma(const bf16* x, long long ldx, const int8_t* q,
+                         const float* scale, bf16* y, int M, int N, int K,
+                         int cluster, cudaStream_t stream) {
+  using L = QwLayout<TN>;
+  CUtensorMap xm, qm;
+  const uint64_t xd[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t xs[1] = {static_cast<uint64_t>(ldx) * 2};
+  const uint32_t xb[2] = {QW_BK, TN};
+  cudaError_t err = hp::tensor_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                   2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  const uint64_t qd[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t qs[1] = {static_cast<uint64_t>(N)};
+  const uint32_t qb[2] = {QW_WN, QW_BK};
+  err = hp::tensor_map(&qm, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qd, qs, qb,
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  static bool ready = false;
+  if (!ready) {
+    err = cudaFuncSetAttribute(qmm_wgmma_kernel<TN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::SMEM);
     if (err != cudaSuccess) return err;
-    const long long mn = (long long)M * N;
-    const long long want = (mn + 255) / 256;
-    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-    qmm_split_reduce_kernel<<<blocks, 256, 0, stream>>>(ws, scale, y, M, N,
-                                                        splits);
+    ready = true;
   }
-  return cudaGetLastError();
+  const int k_tiles = (K + QW_BK - 1) / QW_BK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * ((N + QW_WN - 1) / QW_WN), (M + TN - 1) / TN);
+  cfg.blockDim = dim3(QW_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, qmm_wgmma_kernel<TN>, xm, qm, scale, y, M,
+                            N, K, (k_tiles + cluster - 1) / cluster);
 }
 
 cudaError_t launch_fma(const float* x, long long ldx, const int8_t* q,
@@ -307,14 +465,15 @@ cudaError_t launch_fma(const float* x, long long ldx, const int8_t* q,
 
 // x: [M, K] through its row stride ldx (K contiguous), fp32 or bf16 as
 // `dtype` says; q: [K, N] int8 contiguous; scale: [N] fp32; y: [M, N]
-// contiguous in x's dtype. ws: fp32 workspace of ceil(K / k_split) * M *
-// N floats for the split-K tensor-core path (null when k_split >= K).
-// bf16 needs K % 8 == 0, N % 16 == 0, ldx % 8 == 0 and 16-byte aligned x
-// and q (cudaErrorInvalidValue otherwise). Returns cudaGetLastError()
-// after the launches.
+// contiguous in x's dtype. bf16 takes the wgmma kernel with the plan the
+// wrapper chose: token tiles of `tile` rows (16, 32, 64, 128 or 256) and
+// `cluster` (1, 2, 4 or 8; 1 for 256-row tiles) CTAs splitting K.
+// It needs K % 8 == 0, N % 16 == 0, ldx % 8 == 0 and 16-byte aligned x and
+// q (cudaErrorInvalidValue otherwise); fp32 ignores the plan. Returns the
+// launch's error.
 extern "C" int ds_quant_matmul(const void* x, long long ldx, const void* q,
-                               const void* scale, void* y, void* ws, int M,
-                               int N, int K, int k_split, int dtype,
+                               const void* scale, void* y, int M, int N,
+                               int K, int tile, int cluster, int dtype,
                                void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
@@ -324,14 +483,29 @@ extern "C" int ds_quant_matmul(const void* x, long long ldx, const void* q,
                       static_cast<const float*>(scale),
                       static_cast<float*>(y), M, N, K, cs);
   if (dtype != ds::DTYPE_BF16) return cudaErrorInvalidValue;
-  const bool mma_ok = K > 0 && k_split > 0 && k_split % MMA_BK == 0 &&
-                      K % 8 == 0 && ldx % 8 == 0 && N % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  if (!mma_ok) return cudaErrorInvalidValue;
-  return launch_mma(static_cast<const __nv_bfloat16*>(x), ldx,
-                    static_cast<const int8_t*>(q),
-                    static_cast<const float*>(scale),
-                    static_cast<__nv_bfloat16*>(y),
-                    static_cast<float*>(ws), M, N, K, k_split, cs);
+  const bool ok = K > 0 && K % 8 == 0 && ldx % 8 == 0 && N % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  (cluster == 1 || cluster == 2 || cluster == 4 ||
+                   cluster == 8) &&
+                  (tile <= 128 || cluster == 1);
+  if (!ok) return cudaErrorInvalidValue;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const int8_t* qb = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(scale);
+  bf16* yb = static_cast<bf16*>(y);
+  switch (tile) {
+    case 16:
+      return launch_wgmma<16>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
+    case 32:
+      return launch_wgmma<32>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
+    case 64:
+      return launch_wgmma<64>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
+    case 128:
+      return launch_wgmma<128>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
+    case 256:
+      return launch_wgmma<256>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

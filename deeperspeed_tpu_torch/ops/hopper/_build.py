@@ -54,10 +54,10 @@ SIGNATURES = {
     "ds_paged_decode_int8": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _P, _L,
                              _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F,
                              _I, _P],
-    # x, its row stride, q (int8 [K, N]), scale (fp32 [N]), y, split-K
-    # workspace (or null), M, N, K, k rows a split, dtype of x and y,
+    # x, its row stride, q (int8 [K, N]), scale (fp32 [N]), y, M, N, K,
+    # the bf16 plan's token tile and cluster size, dtype of x and y,
     # stream
-    "ds_quant_matmul": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ds_quant_matmul": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, dout, lse, delta, seg, layout, kbias, seed, dk, dv, B, S,
     # H, D, q/k/v strides (b, s, h), sm_scale, causal, dropout thresh,
     # 1 / keep, dtype, stream
@@ -82,9 +82,9 @@ SIGNATURES = {
     "ds_adam": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _I,
                 _P],
     # x, its row stride, w, w read transposed (0/1), sizes, lut (int32),
-    # y, R, K, N, span, dtype, stream
+    # y, R, K, N, number of weights, span, dtype, stream
     "ds_grouped_matmul": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P],
+                          _I, _P],
     # x, dy, sizes, lut, dw (fp32), R, K, N, span, n_weights, dtype, stream
     "ds_grouped_matmul_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -33,9 +33,16 @@ from . import _build
 DEFAULT_BLOCK_M = 256
 
 # kernel launches since the last reset (`chip_smoke.py` reads these): the
-# forward kernel (forward and dx products) and the dW kernel
+# forward kernel (forward and dx products), the same by design ("wgmma":
+# bf16, "fma": fp32), and the dW kernel
 launches = 0
+DESIGNS = ("wgmma", "fma")
+design_launches = dict.fromkeys(DESIGNS, 0)
 dw_launches = 0
+
+
+def reset_design_launches():
+    design_launches.update(dict.fromkeys(DESIGNS, 0))
 
 # device int32 copies of the static LUTs, per (lut, device)
 _LUT_CACHE = {}
@@ -150,9 +157,10 @@ def grouped_matmul_cuda(x, w, group_sizes, span, lut=None, transpose_w=False):
     tensors → y [R, N] in ``x.dtype``. x [R, K] is read through its row
     stride (K contiguous); w is [W, K, N] contiguous, or with
     ``transpose_w`` the [W, N, K] weight whose transpose is multiplied (dx
-    = dy @ w^T, read in place). bf16 reads 16-byte chunks: it needs K, N
-    and the row stride multiples of 8 and 16-byte aligned tensors;
-    anything else raises."""
+    = dy @ w^T, read in place). fp32 takes the FMA kernel; bf16 the wgmma
+    kernel, whose TMA loads read 16-byte chunks: it needs K, N and the row
+    stride multiples of 8 and 16-byte aligned tensors; anything else
+    raises."""
     global launches
     w_eff = w.transpose(1, 2) if transpose_w else w
     G, lut_t = _check(x.shape, w_eff.shape, group_sizes, span, lut)
@@ -186,9 +194,10 @@ def grouped_matmul_cuda(x, w, group_sizes, span, lut=None, transpose_w=False):
     err = lib.ds_grouped_matmul(
         x.data_ptr(), ldx, w.data_ptr(), int(transpose_w), sizes.data_ptr(),
         _device_lut(lut_t, x.device).data_ptr(), out.data_ptr(), R, K, N,
-        span, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+        w.shape[0], span, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "ds_grouped_matmul")
     launches += 1
+    design_launches["wgmma" if x.dtype == torch.bfloat16 else "fma"] += 1
     return out
 
 

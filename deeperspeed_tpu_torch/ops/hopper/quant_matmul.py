@@ -25,15 +25,23 @@ from . import _build
 
 INT8_QMAX = 127.0
 
-# split-K of the kernel's tensor-core path: blocks of 64 output columns
-# by 16 (M <= 16) or 64 rows, K in tiles of 32; below about two blocks an
-# SM the K range splits so that enough weight bytes are in flight, each
-# split at least 4 K tiles long
-MMA_BN, MMA_BK, MMA_MIN_TILES = 64, 32, 4
-TARGET_BLOCKS = 264
+# the bf16 wgmma kernel's tiles: 128 weight columns by a token tile (the
+# rows of x, wgmma's N) a CTA, K in tiles of 64
+WGMMA_WN, WGMMA_BK = 128, 64
+TOKEN_TILES = (16, 32, 64, 128, 256)
+# the K range splits over a cluster of up to 8 CTAs while the CTAs fit
+# the H100's 132 SMs and each keeps at least 2 K tiles
+SMS, MAX_CLUSTER, MIN_K_TILES = 132, 8, 2
 
-# kernel launches since the last reset (`chip_smoke.py` reads this)
+# kernel launches since the last reset (`chip_smoke.py` reads these): all
+# of them, and by design ("wgmma": the bf16 kernel, "fma": fp32)
 launches = 0
+DESIGNS = ("wgmma", "fma")
+design_launches = dict.fromkeys(DESIGNS, 0)
+
+
+def reset_design_launches():
+    design_launches.update(dict.fromkeys(DESIGNS, 0))
 
 
 class QuantizedWeight:
@@ -71,22 +79,34 @@ def quant_matmul_reference(x, qw):
     return (y * qw.scale).to(x.dtype)
 
 
-def split_k_rows(M, N, K):
-    """K rows each block of the tensor-core path takes (a multiple of 32;
-    K or more means no split)."""
-    tiles = -(-N // MMA_BN) * -(-M // (16 if M <= 16 else 64))
-    k_tiles = -(-K // MMA_BK)
-    splits = -(-TARGET_BLOCKS // tiles)
-    return max(MMA_MIN_TILES, -(-k_tiles // splits)) * MMA_BK
+def launch_plan(M, N, K):
+    """The bf16 kernel's one launch for x [M, K] and an int8 [K, N]:
+    ``(tile, cluster, grid)``. ``tile`` is the token tile: the least of
+    16, 32, 64 and 128 rows that holds M, and above 128 rows 128 until
+    128-row tiles alone would fill the card's SMs, then 256; ``cluster``
+    CTAs (1, 2, 4 or 8) split the K tiles of one output tile; ``grid`` is
+    the number of CTAs."""
+    n_tiles = -(-N // WGMMA_WN)
+    tile = next((t for t in TOKEN_TILES[:-1] if M <= t), TOKEN_TILES[-2])
+    if n_tiles * -(-M // tile) > SMS:
+        tile = TOKEN_TILES[-1]
+    tiles = n_tiles * -(-M // tile)
+    k_tiles = -(-K // WGMMA_BK)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and tiles * 2 * cluster <= SMS
+           and k_tiles >= MIN_K_TILES * 2 * cluster):
+        cluster *= 2
+    return tile, cluster, tiles * cluster
 
 
 def quant_matmul_cuda(x, qw):
     """Launch `csrc/quant_matmul.cu` on CUDA tensors: x [M, K] (rows
-    through a row stride, K contiguous) → [M, N] in ``x.dtype``. fp32 x
-    takes the FMA kernel; bf16 x takes the tensor-core kernel, which
-    reads 16-byte chunks and so needs K % 8 == 0, N % 16 == 0, a row
-    stride that is a multiple of 8 and 16-byte aligned x and weight
-    (every GPT-NeoX block matmul meets them); anything else raises."""
+    through a row stride, K contiguous) → [M, N] in ``x.dtype``, one
+    launch. fp32 x takes the FMA kernel; bf16 x takes the wgmma kernel
+    with `launch_plan`, whose TMA loads read 16-byte chunks and so need K
+    % 8 == 0, N % 16 == 0, a row stride that is a multiple of 8 and
+    16-byte aligned x and weight (every GPT-NeoX block matmul meets
+    them); anything else raises."""
     global launches
     M, K = x.shape
     N = qw.qval.shape[1]
@@ -118,18 +138,15 @@ def quant_matmul_cuda(x, qw):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    k_split = split_k_rows(M, N, K)
-    ws = None
-    if x.dtype == torch.bfloat16 and k_split < K:
-        ws = torch.empty(-(-K // k_split) * M * N, dtype=torch.float32,
-                         device=x.device)
+    design = "wgmma" if x.dtype == torch.bfloat16 else "fma"
+    tile, cluster, _ = launch_plan(M, N, K)
     lib = _build.load_library()
     err = lib.ds_quant_matmul(
-        x.data_ptr(), ldx, q.data_ptr(),
-        s.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-        M, N, K, k_split, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+        x.data_ptr(), ldx, q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N,
+        K, tile, cluster, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "ds_quant_matmul")
     launches += 1
+    design_launches[design] += 1
     return out
 
 

@@ -9,6 +9,8 @@ against this plain version there (phase 3) and drives them through MoE
 training (phases 11-12). Here the wrapper takes the plain version
 because the tensors lie on the CPU."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -148,3 +150,76 @@ def test_cuda_path_needs_cuda_tensors():
     with pytest.raises(ValueError, match="no grouped matmul path"):
         gm.grouped_matmul(torch.empty((32, K), device="meta"),
                           torch.empty((4, K, N), device="meta"), sz, SPAN)
+
+
+def _fake_library(monkeypatch):
+    """A library whose entry points record their arguments and succeed,
+    so the wrappers' checks and counters run on the CPU; the module's
+    counters are put back afterwards."""
+    calls = []
+    lib = types.SimpleNamespace(
+        ds_grouped_matmul=lambda *a: calls.append(("fwd",) + a) or 0,
+        ds_grouped_matmul_dw=lambda *a: calls.append(("dw",) + a) or 0)
+    monkeypatch.setattr(gm._build, "load_library", lambda: lib)
+    monkeypatch.setattr(gm._build, "stream_ptr", lambda t: None)
+    for name in ("launches", "dw_launches"):
+        monkeypatch.setattr(gm, name, getattr(gm, name))
+    monkeypatch.setattr(gm, "design_launches", dict(gm.design_launches))
+    return calls
+
+
+def test_launches_are_counted_by_design(monkeypatch):
+    """bf16 forward and dx products count as the "wgmma" design, fp32 as
+    "fma"; the dW kernel is counted apart."""
+    calls = _fake_library(monkeypatch)
+    gm.reset_design_launches()
+    sz = torch.tensor([8, 0, 5, 3])
+    x = torch.zeros(4 * SPAN, 16, dtype=torch.bfloat16)
+    w = torch.zeros(4, 16, 24, dtype=torch.bfloat16)
+    dy = torch.zeros(4 * SPAN, 24, dtype=torch.bfloat16)
+    assert gm.grouped_matmul_cuda(x, w, sz, SPAN).shape == (4 * SPAN, 24)
+    assert gm.grouped_matmul_cuda(dy, w, sz, SPAN, transpose_w=True).shape \
+        == (4 * SPAN, 16)
+    gm.grouped_matmul_cuda(x.float(), w.float(), sz, SPAN)
+    gm.grouped_matmul_dw_cuda(x, dy, sz, SPAN, (0, 1, 2, 3), 4)
+    assert gm.design_launches == {"wgmma": 2, "fma": 1}
+    assert [c[0] for c in calls] == ["fwd", "fwd", "fwd", "dw"]
+    # the number of weights and the span reach the library
+    assert calls[0][8:14] == (4 * SPAN, 16, 24, 4, SPAN, 1)
+    assert calls[1][4] == 1 and calls[1][8:11] == (4 * SPAN, 24, 16)
+    gm.reset_design_launches()
+    assert gm.design_launches == {"wgmma": 0, "fma": 0}
+
+
+@pytest.mark.parametrize("case", ["x_pointer", "row_stride", "k", "n"])
+def test_sixteen_byte_refusals_never_reach_the_library(case, monkeypatch):
+    """bf16 inputs the TMA loads cannot read raise before the library is
+    called, and nothing is counted."""
+    calls = _fake_library(monkeypatch)
+    K_, N_ = (12, 16) if case == "k" else (16, 12) if case == "n" else \
+        (16, 16)
+    sz = torch.tensor([8, 3])
+    w = torch.zeros(2, K_, N_, dtype=torch.bfloat16)
+    if case == "x_pointer":             # base 2 bytes past 16
+        x = torch.zeros(2 * SPAN, K_ + 8, dtype=torch.bfloat16)[:, 1:K_ + 1]
+    elif case == "row_stride":          # rows 20 elements apart
+        x = torch.zeros(2 * SPAN, K_ + 4, dtype=torch.bfloat16)[:, :K_]
+    else:
+        x = torch.zeros(2 * SPAN, K_, dtype=torch.bfloat16)
+    before = (gm.launches, dict(gm.design_launches))
+    with pytest.raises(ValueError, match="16-byte"):
+        gm.grouped_matmul_cuda(x, w, sz, SPAN)
+    assert calls == [] and (gm.launches, gm.design_launches) == before
+
+
+def test_span_no_tile_divides(monkeypatch):
+    """A span that no 128-row tile divides (`pick_span` gives 8- and
+    64-aligned spans) goes to the kernel as it is: the kernel bounds its
+    stores by the span."""
+    calls = _fake_library(monkeypatch)
+    span, sizes = 200, torch.tensor([200, 57, 0])
+    x = torch.zeros(3 * span, 64, dtype=torch.bfloat16)
+    w = torch.zeros(3, 64, 96, dtype=torch.bfloat16)
+    out = gm.grouped_matmul_cuda(x, w, sizes, span)
+    assert out.shape == (3 * span, 96)
+    assert calls[0][8:13] == (3 * span, 64, 96, 3, span)

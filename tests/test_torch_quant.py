@@ -16,6 +16,8 @@ The CUDA kernels run only on the card: `chip_smoke.py` holds them
 against these plain versions there.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -523,19 +525,79 @@ def test_int8_rungs_serve_bf16(models, rung):
     (16, 768, 2304), (16, 768, 768), (16, 768, 3072), (16, 3072, 768),
     (256, 768, 3072), (4096, 768, 3072), (4096, 3072, 768), (7, 104, 80),
 ])
-def test_split_k_plan(M, K, N):
-    """The kernel's split-K plan (computed in Python, where its workspace
-    is allocated): whole K tiles of 32, at least 4 a split, enough blocks
-    at decode rows and no split once the output tiles alone fill the
-    card."""
-    k_split = qm.split_k_rows(M, N, K)
-    assert k_split % qm.MMA_BK == 0
-    assert k_split >= qm.MMA_MIN_TILES * qm.MMA_BK
-    tiles = -(-N // qm.MMA_BN) * -(-M // (16 if M <= 16 else 64))
-    splits = -(-K // k_split)
-    if tiles >= qm.TARGET_BLOCKS:
-        assert splits == 1
-    if K >= 8 * qm.MMA_MIN_TILES * qm.MMA_BK and M <= 16:
-        assert tiles * splits >= qm.TARGET_BLOCKS // 2
-    if splits > 1:
-        assert tiles * splits <= 2 * qm.TARGET_BLOCKS
+def test_launch_plan(M, K, N):
+    """The bf16 kernel's plan (computed in Python, passed to its one
+    launch): the least token tile of 16-128 rows that holds M, 256-row
+    tiles only where 128-row tiles alone would fill the card; a cluster
+    of 1, 2, 4 or 8 CTAs, each keeping at least 2 of the K tiles, that
+    stops growing only where the 8-CTA limit, the K tiles or the card's
+    SMs stop it; every decode-row output tile split at least 4 ways."""
+    tile, cluster, grid = qm.launch_plan(M, N, K)
+    n_tiles = -(-N // qm.WGMMA_WN)
+    least = min([t for t in (16, 32, 64, 128) if t >= M] or [128])
+    assert tile == (256 if n_tiles * -(-M // least) > qm.SMS else least)
+    assert cluster in (1, 2, 4, 8)
+    assert tile < 256 or cluster == 1   # the kernel's 256-row tile is lone
+    tiles = n_tiles * -(-M // tile)
+    k_tiles = -(-K // qm.WGMMA_BK)
+    assert grid == tiles * cluster
+    assert cluster == 1 or (k_tiles >= qm.MIN_K_TILES * cluster
+                            and grid <= qm.SMS)
+    assert cluster == qm.MAX_CLUSTER or 2 * grid > qm.SMS or \
+        k_tiles < qm.MIN_K_TILES * 2 * cluster
+    k_per_rank = -(-k_tiles // cluster)
+    assert (cluster - 1) * k_per_rank < k_tiles      # no rank left idle
+    if M <= 16 and K >= 768:
+        assert cluster >= 4
+
+
+def _fake_library(monkeypatch):
+    """A library whose int8 matmul entry records its arguments and
+    succeeds, so the wrapper's plan, checks and counters run on the CPU;
+    the module's counters are put back afterwards."""
+    calls = []
+    lib = types.SimpleNamespace(
+        ds_quant_matmul=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(qm._build, "load_library", lambda: lib)
+    monkeypatch.setattr(qm._build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(qm, "launches", qm.launches)
+    monkeypatch.setattr(qm, "design_launches", dict(qm.design_launches))
+    return calls
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 768, 3072), (256, 3072, 768),
+                                   (4096, 768, 2304)])
+def test_one_launch_a_call_counted_by_design(M, K, N, monkeypatch):
+    """Every call is one library call that carries `launch_plan`'s token
+    tile and cluster; bf16 counts as the "wgmma" design, fp32 as "fma"."""
+    calls = _fake_library(monkeypatch)
+    qm.reset_design_launches()
+    g = torch.Generator().manual_seed(3)
+    qw = qm.quantize_weight(torch.randn(K, N, generator=g))
+    x = torch.zeros(M, K, dtype=torch.bfloat16)
+    out = qm.quant_matmul_cuda(x, qw)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    tile, cluster, _ = qm.launch_plan(M, N, K)
+    assert len(calls) == 1 and calls[0][5:11] == (M, N, K, tile, cluster, 1)
+    qm.quant_matmul_cuda(x.float(), qw)
+    assert len(calls) == 2 and calls[1][10] == 0
+    assert qm.design_launches == {"wgmma": 1, "fma": 1}
+    qm.reset_design_launches()
+    assert qm.design_launches == {"wgmma": 0, "fma": 0}
+
+
+@pytest.mark.parametrize("case", [
+    "bf16_unaligned", "bf16_row_stride", "bf16_k", "bf16_n"])
+def test_sixteen_byte_refusals_never_reach_the_library(case, monkeypatch):
+    """What the TMA loads cannot read raises before the library is
+    called, and nothing is counted; the aligned x of the same shape
+    launches once."""
+    calls = _fake_library(monkeypatch)
+    x, qw, msg = _unreadable(case)
+    before = dict(qm.design_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        qm.quant_matmul_cuda(x, qw)
+    assert calls == [] and qm.design_launches == before
+    if case in ("bf16_unaligned", "bf16_row_stride"):
+        qm.quant_matmul_cuda(x.contiguous(), qw)
+        assert len(calls) == 1
