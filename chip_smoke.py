@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: the hand-written kernels from deeperspeed_tpu_torch/csrc;
+2. build: the hand-written kernels from deeperspeed_tpu_torch/csrc, and
+   what the grouped dW and block-sparse dK/dV kernels take on the card
+   (registers, spills, static and dynamic shared memory, blocks an SM);
 3. kernels: each kernel against its plain PyTorch version, in bf16 and
    fp32, with its time, the plain version's time, a library call's time
    (timed only) and its bound: flash forward at the serving shapes and
@@ -21,11 +23,13 @@ Phases (any failure exits non-zero before the final line):
    of 2560 rows, ragged sizes with an empty expert, (K, N) = (768, 3072)
    and (3072, 768)) and on a LUT whose weights own several spans:
    outputs, dx through the autograd function and the fp32 dW, exact
-   zeros on dead rows and for an empty expert, two forward and dx calls
-   bit-identical, and spans no 128-row tile divides with NaN-filled
-   dead rows; the block-sparse forward, dk/dv and dq kernels at phase 13's
-   attention shape (B=2, S=16384, H=12, D=64, fixed l16g1 causal) with
-   dq, dk, dv also through the autograd function, and on a bidirectional
+   zeros on dead rows and for an empty expert, two forward, dx and dW
+   calls bit-identical, and spans no tile divides with NaN-filled dead
+   rows (the dW finite and equal to the plain version); the
+   block-sparse forward, dk/dv and dq kernels at phase 13's attention
+   shape (B=2, S=16384, H=12, D=64, fixed l16g1 causal) with dq, dk, dv
+   also through the autograd function, two bf16 dk/dv calls
+   bit-identical, and on a bidirectional
    layout with a dead row at head dims 64, 128 and 256; the layout-masked
    flash forward and backward at phase 14(a)'s shape (B=16, S=1024,
    l4g1) and on the dead-row layout; each timed beside SDPA under the
@@ -78,9 +82,9 @@ Phases (any failure exits non-zero before the final line):
    capacity factor 1.25, sort dispatch; 559,080,960 parameters), phase
    7's optimizer, schedule, clipping, bf16 and ZeRO-2 at micro 8 x gas 1
    x 1024, 20 steps and one `eval_batch`, with exact launch counts (48
-   grouped-matmul forward-kernel launches a step, all on the wgmma
-   design, and 24 dW besides 12 flash forward, 12 + 12 flash backward
-   and 1 Adam);
+   grouped-matmul forward-kernel launches a step and 24 dW, all on the
+   wgmma design, besides 12 flash forward, 12 + 12 flash backward and 1
+   Adam);
 12. MoE training parity: the same MoE model in fp32 (micro 2, gas 2, S
    1024) takes 3 steps through the kernels and 3 through the plain
    path; the losses must agree;
@@ -90,12 +94,14 @@ Phases (any failure exits non-zero before the final line):
    128-blocks, causal; density 0.094) through `initialize()` →
    `train_batch`, Adam lr 1e-4, bf16, ZeRO-2, micro 2, 10 steps and one
    `eval_batch`, with exact launch counts (12 block-sparse forward, 12
-   dk/dv and 12 dq launches a step, no dense or masked flash launch);
+   dk/dv and 12 dq launches a step, every dk/dv launch on the
+   tensor-core design, no dense or masked flash launch);
 14. sparse training parity, fp32, 3 steps through the kernels and 3
    through the plain versions of the same arm: (a) the masked flash arm
    on phase 8's GPT-NeoX-125M (S 1024, micro 2 x gas 2, l4g1), (b) the
-   block-sparse arm on phase 13's model at S 8192 (micro 1, l16g1); the
-   losses must agree within rtol 1e-4;
+   block-sparse arm on phase 13's model at S 8192 (micro 1, l16g1), its
+   dk/dv launches on the FMA design; the losses must agree within rtol
+   1e-4;
 15. BERT training (bench.py's row_bert512 on one card): BERT-large
    (336,232,258 parameters) through `initialize()` → `train_batch`,
    Adam lr 1e-4, bf16, ZeRO-2, dropout 0.1, micro 20 x 512 tokens with
@@ -1222,6 +1228,8 @@ def gmm_times(gm, row, x, w, dy, sz):
         x, dy, sz, GMM_SPAN, lut, W), warmup=2, iters=10)
     row["dw_library_ms"] = time_ms(lambda: torch.bmm(xb.transpose(1, 2),
                                                      dyb))
+    row["dw_library_graph_ms"] = graph_ms(
+        lambda: torch.bmm(xb.transpose(1, 2), dyb), launches=10, replays=3)
     row["dw_bound_ms"], row["dw_bound_by"] = gmm_bound_ms(
         sizes, K, N, W, x.element_size(), dw=True)
     print(f"  grouped_matmul times K={K} N={N}: forward {row['ms']:.4f} ms "
@@ -1235,15 +1243,18 @@ def gmm_times(gm, row, x, w, dy, sz):
           f"{row['dx_bound_ms']:.5f} ms ({row['dx_bound_by']}); dW "
           f"{row['dw_ms']:.4f} ms (graph {row['dw_graph_ms']:.4f}), plain "
           f"{row['dw_plain_ms']:.4f} ms, torch.bmm "
-          f"{row['dw_library_ms']:.4f} ms, bound {row['dw_bound_ms']:.5f} "
+          f"{row['dw_library_ms']:.4f} ms (graph "
+          f"{row['dw_library_graph_ms']:.4f}), bound {row['dw_bound_ms']:.5f} "
           f"ms ({row['dw_bound_by']})", flush=True)
 
 
 def gmm_nan_dead_rows(gm, gen, K, N, sizes=(200, 57, 0, 133), span=200):
-    """The bf16 forward and dx on spans that no 128-row tile divides, dead
-    rows of x and dy filled with NaN: the last tile of a span reads the
-    next span's rows, and no bit of a dead row may reach a live one →
-    (max relative error of the live rows, dead rows exact zeros)."""
+    """The bf16 forward, dx and dW on spans that no 128-row tile (dW: no
+    64-row stage) divides, dead rows of x and dy filled with NaN: the last
+    tile of a span reads the next span's rows, and no bit of a dead row
+    may reach a live one → (max relative error of the live rows of y and
+    dx, dead rows exact zeros, the dW's max relative error against the
+    plain version, the dW finite and the empty weight's exact zeros)."""
     R, W = len(sizes) * span, len(sizes)
     dead = ~gmm_live_rows(sizes, span)
     x = torch.randn(R, K, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1264,21 +1275,29 @@ def gmm_nan_dead_rows(gm, gen, K, N, sizes=(200, 57, 0, 133), span=200):
     err = max(float((o[~dead].float() - r[~dead].float()).abs().max()) /
               float(r[~dead].float().abs().max()) for o, r in zip(outs, refs))
     zero = all(bool((o[dead] == 0).all()) for o in outs)
-    return err, zero
+    lut = tuple(range(W))
+    dw = gm.grouped_matmul_dw_cuda(xn, dyn, sz, span, lut, W)
+    dw_ref = gm.grouped_matmul_dw_reference(x, dy, sz, span, lut, W)
+    torch.cuda.synchronize()
+    err_dw = float((dw - dw_ref).abs().max()) / float(dw_ref.abs().max())
+    dw_ok = bool(torch.isfinite(dw).all()) and all(
+        bool((dw[e] == 0).all()) for e in range(W) if sizes[e] == 0)
+    return err, zero, err_dw, dw_ok
 
 
 def check_grouped_matmul(gm, gen, report):
     """Phase 3 for the MoE path: both grouped-matmul kernels against
     their plain versions at phase 11's geometry in bf16 and fp32 (timed
-    in bf16; two bf16 forward and dx calls compared bit for bit), on the
-    small many-spans-per-weight LUT case, and the bf16 forward and dx on
-    spans no 128-row tile divides with NaN-filled dead rows."""
+    in bf16; two bf16 forward, dx and dW calls compared bit for bit), on
+    the small many-spans-per-weight LUT case, and the bf16 forward, dx
+    and dW on spans no tile divides with NaN-filled dead rows."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for K, N in GMM_SHAPES:
             row, (x, w, dy, sz) = gmm_case(gm, gen, GMM_SIZES, GMM_SPAN, K,
                                            N, len(GMM_SIZES), None, dtype)
             if dtype == torch.bfloat16:
+                lut = tuple(range(len(GMM_SIZES)))
                 row["bit_identical"] = bool(
                     torch.equal(gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN),
                                 gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN))
@@ -1287,16 +1306,28 @@ def check_grouped_matmul(gm, gen, report):
                                                transpose_w=True),
                         gm.grouped_matmul_cuda(dy, w, sz, GMM_SPAN,
                                                transpose_w=True)))
-                err, zero = gmm_nan_dead_rows(gm, gen, K, N)
+                row["dw_bit_identical"] = torch.equal(
+                    gm.grouped_matmul_dw_cuda(x, dy, sz, GMM_SPAN, lut,
+                                              len(lut)),
+                    gm.grouped_matmul_dw_cuda(x, dy, sz, GMM_SPAN, lut,
+                                              len(lut)))
+                err, zero, err_dw, dw_ok = gmm_nan_dead_rows(gm, gen, K, N)
                 row["nan_dead_rows"] = {"max_rel_err": err,
-                                        "dead_rows_exact_zero": zero}
+                                        "dead_rows_exact_zero": zero,
+                                        "dw_max_rel_err": err_dw,
+                                        "dw_finite_empty_zero": dw_ok}
                 print(f"  grouped_matmul K={K} N={N}: two calls "
-                      f"bit-identical {row['bit_identical']}; spans of 200 "
-                      f"with NaN dead rows: rel err {err:.2e}, dead rows "
-                      f"exact zero {zero}", flush=True)
+                      f"bit-identical {row['bit_identical']} (dW "
+                      f"{row['dw_bit_identical']}); spans of 200 with NaN "
+                      f"dead rows: rel err {err:.2e}, dead rows exact zero "
+                      f"{zero}; dW rel err {err_dw:.2e}, finite with the "
+                      f"empty weight exact zeros {dw_ok}", flush=True)
                 if not (row["bit_identical"] and zero and
                         err <= TOL_GMM[dtype]):
                     fail(f"grouped matmul forward/dx kernel: {row}")
+                if not (row["dw_bit_identical"] and dw_ok and
+                        err_dw <= TOL_GMM_DW):
+                    fail(f"grouped matmul dW kernel: {row}")
                 gmm_times(gm, row, x, w, dy, sz)
             rows.append(row)
             del x, w, dy, sz
@@ -1442,6 +1473,15 @@ def check_block_sparse(bsa, fa, gen, report):
             fail(f"block-sparse kernels disagree with their plain versions: "
                  f"{row}")
         if dtype == torch.bfloat16:
+            first, second = (bsa.block_sparse_attention_dkv_cuda(
+                q, k, v, lse, do, delta, luts, True) for _ in range(2))
+            row["dkv_bit_identical"] = all(
+                torch.equal(a, b) for a, b in zip(first, second))
+            del first, second
+            print(f"  block_sparse dk/dv (bf16): two calls bit-identical "
+                  f"{row['dkv_bit_identical']}", flush=True)
+            if not row["dkv_bit_identical"]:
+                fail(f"two bf16 block-sparse dk/dv calls differ: {row}")
             row["fwd_ms"] = time_ms(lambda: bsa.block_sparse_attention_cuda(
                 q, k, v, luts, True), warmup=2, iters=10)
             row["dkv_ms"] = time_ms(
@@ -2368,11 +2408,11 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     if gm is not None:
         # every grouped forward / dx launch on the path is the wgmma design
         design["grouped_matmul"] = dict(gm.design_launches)
-        if design["grouped_matmul"] != {"wgmma": launches["grouped_matmul"],
-                                        "fma": 0}:
-            fail(f"{key}: grouped matmul launches by design "
-                 f"{design['grouped_matmul']}, want all "
-                 f"{launches['grouped_matmul']} on wgmma")
+        design["grouped_matmul_dw"] = dict(gm.dw_design_launches)
+        for name in ("grouped_matmul", "grouped_matmul_dw"):
+            if design[name] != {"wgmma": launches[name], "fma": 0}:
+                fail(f"{key}: {name} launches by design {design[name]}, "
+                     f"want all {launches[name]} on wgmma")
     if eng.global_steps != TRAIN_STEPS or eng.skipped_steps:
         fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
     eval_loss = eng.eval_batch((tokens[0], tokens[0]))
@@ -2451,6 +2491,7 @@ def reset_attention_counts(fa, bsa):
     fa.reset_flag_launches()
     fa.reset_design_launches()
     bsa.launches = bsa.dkv_launches = bsa.dq_launches = 0
+    bsa.reset_design_launches()
 
 
 def attention_counts(fa, bsa):
@@ -2517,6 +2558,10 @@ def train_sparse(fa, bsa, ad, report, profile_step=False):
     if launches != want:
         fail(f"sparse training launch counts {launches} != {want} ({L} "
              f"layers x {SPARSE_STEPS} steps, no dense or masked flash)")
+    design = dict(bsa.dkv_design_launches)
+    if design != {"mma": want["block_sparse_dkv"], "fma": 0}:
+        fail(f"block-sparse dk/dv launches by design {design}, want all "
+             f"{want['block_sparse_dkv']} on the tensor-core (mma) design")
     if eng.global_steps != SPARSE_STEPS or eng.skipped_steps:
         fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
     eval_loss = eng.eval_batch((tokens[0], tokens[0]))
@@ -2531,6 +2576,7 @@ def train_sparse(fa, bsa, ad, report, profile_step=False):
         "tokens_per_s": micro * SPARSE_SEQ / med,
         "max_memory_allocated_gb": peak / 2 ** 30,
         "num_params": eng.num_params, "launches": launches,
+        "dkv_design_launches": design,
         "launches_per_step": {k: v / SPARSE_STEPS
                               for k, v in launches.items()},
         "activation_checkpointing": False,
@@ -2580,6 +2626,8 @@ def sparse_parity(fa, bsa, report, key, block, model_kw, seq, micro, gas,
         losses[use_kernels] = [eng.train_batch(batch=(tokens, tokens))
                                for _ in range(3)]
         counts[use_kernels] = attention_counts(fa, bsa)
+        if use_kernels:
+            dkv_design = dict(bsa.dkv_design_launches)
         del eng, model
         torch.cuda.empty_cache()
     fast, plain = np.array(losses[True]), np.array(losses[False])
@@ -2590,6 +2638,10 @@ def sparse_parity(fa, bsa, report, key, block, model_kw, seq, micro, gas,
                    "kernels": losses[True], "plain": losses[False],
                    "max_rel_diff": float(rel.max()), "rtol": 1e-4,
                    "launches": counts[True]}
+    # fp32: every block-sparse dk/dv launch keeps the FMA design
+    if dkv_design != {"mma": 0, "fma": counts[True]["block_sparse_dkv"]}:
+        fail(f"{key}: fp32 block-sparse dk/dv launches by design "
+             f"{dkv_design}, want all on fma")
     print(f"  {arm}: losses kernels {losses[True]} vs plain "
           f"{losses[False]}: max relative difference {rel.max():.3e}; "
           f"launches {used}", flush=True)
@@ -2952,10 +3004,23 @@ def main():
               f"{row['static_smem']} B, spill stores {row['spill_stores']} "
               f"B, loads {row['spill_loads']} B", flush=True)
 
+    sparse_luts = bsa.LayoutLuts(sparse_layout(SPARSE_L16G1, SPARSE_SEQ))
+    taken = {"gmm_dw_wgmma_kernel (8 weights)": _build.kernel_info(
+        "ds_grouped_matmul_dw_info", len(GMM_SIZES))}
+    for D in fa.MMA_HEAD_DIMS:
+        taken[f"block_sparse_dkv_mma_kernel<{D}> (phase 13's LUT)"] = \
+            _build.kernel_info("ds_block_sparse_dkv_info", D,
+                               sparse_luts.bwd[0].shape[-1])
+    for name, row in taken.items():
+        print(f"  on the device: {name}: {row['registers']} registers, "
+              f"local (spill) {row['local_bytes']} B, static shared "
+              f"{row['static_smem']} B, dynamic shared {row['dynamic_smem']} "
+              f"B, {row['blocks_per_sm']} blocks an SM", flush=True)
+    del sparse_luts
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "build": {"seconds": info["seconds"], "built": info["built"],
-                        "ptxas": ptxas}}
+                        "ptxas": ptxas, "kernel_info": taken}}
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("kernels vs plain versions:", flush=True)
     fl = check_prefill(fa, gen, report)
@@ -3221,18 +3286,24 @@ def main():
          "replaces": f"{pallas}grouped_matmul.py:174 (_dw_kernel, via "
                      f"_dw_pallas :204)",
          "launches": tm["launches"]["grouped_matmul_dw"],
+         "design": "bf16: persistent wgmma m64n256k16 with A = x^T and B = "
+                   "dy both MN-major, fed by TMA through an mbarrier ring "
+                   "(csrc/hopper_gemm.cuh); fp32: FMA tiles",
+         "design_launches": tm["design_launches"]["grouped_matmul_dw"],
          "max_abs_err": gmm[0]["max_abs_err_dw"], "ms": gmm[0]["dw_ms"],
          "graph_ms": gmm[0]["dw_graph_ms"],
          "plain_ms": gmm[0]["dw_plain_ms"],
          "bound_ms": gmm[0]["dw_bound_ms"],
          "bound_by": gmm[0]["dw_bound_by"],
          "library_ms": gmm[0]["dw_library_ms"],
+         "library_graph_ms": gmm[0]["dw_library_graph_ms"],
          "shape": gmm_shape(gmm[0]) + ", fp32 dW",
          "tolerance": f"{TOL_GMM_DW} x max|ref|",
          "other_shapes": [{"K": r["K"], "N": r["N"], "ms": r["dw_ms"],
                            "graph_ms": r["dw_graph_ms"],
                            "plain_ms": r["dw_plain_ms"],
                            "library_ms": r["dw_library_ms"],
+                           "library_graph_ms": r["dw_library_graph_ms"],
                            "bound_ms": r["dw_bound_ms"],
                            "bound_by": r["dw_bound_by"],
                            "max_abs_err": r["max_abs_err_dw"]}
@@ -3261,6 +3332,13 @@ def main():
                      f"(_sparse_dkv_kernel, via sparse_attention_bwd :393)",
          "launches": ts["launches"]["block_sparse_dkv"] +
          pb["launches"]["block_sparse_dkv"],
+         "design": "bf16 at D 64/128: the mma.sync dK/dV tile step of "
+                   "csrc/attention_mma.cuh over the transposed LUT; fp32 "
+                   "and D 256: FMA tiles",
+         "design_launches": {"train_sparse": ts["dkv_design_launches"],
+                             "train_sparse_parity": {
+                                 "mma": 0, "fma": pb["launches"][
+                                     "block_sparse_dkv"]}},
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "plain_ms": bs["plain_bwd_ms"],
          "plain": "the plain backward (dq, dk, dv together)",

@@ -1,8 +1,9 @@
 // The tensor-core pieces of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu): 64-row tiles of bf16 in shared memory filled by cp.async,
-// fragments built by ldmatrix, products by mma.sync m16n8k16 with fp32
-// accumulators (common.cuh), and the accumulator-to-operand repacking that
-// keeps P and dS in registers.
+// flash_bwd.cu) and of the block-sparse dK/dV kernel
+// (block_sparse_attention.cu): 64-row tiles of bf16 in shared memory
+// filled by cp.async, fragments built by ldmatrix, products by mma.sync
+// m16n8k16 with fp32 accumulators (common.cuh), and the
+// accumulator-to-operand repacking that keeps P and dS in registers.
 //
 // A block is 4 warps; each warp owns 16 rows of the block's 64-row side
 // (q rows in the forward and dq kernels, keys in the dk/dv kernel) and
@@ -162,6 +163,28 @@ __device__ __forceinline__ void pack_a(unsigned (&a)[KS][4],
     a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
+}
+
+// Pᵀ (or P) and dS of one accumulator element, from the fp32 score s and
+// dP at (row, key), with off2 = (bias − lse)·log2 e: P = 2^(s·scale2 +
+// off2) = exp(s·scale + bias − lse) on live pairs; with dropout the
+// forward's keep-mask M scales P for dV and dP for dS:
+//   pv = M ? P / keep : 0,  ds = P · ((M ? dP / keep : 0) − delta) · scale
+template <bool DROP>
+__device__ __forceinline__ void p_and_ds(float& s_io, float& dp_io, bool live,
+                                         float scale2, float off2,
+                                         float delta_r, float sm_scale,
+                                         unsigned mix, int row, int key,
+                                         int thresh, float inv_keep) {
+  const float p = live ? ex2(fmaf(s_io, scale2, off2)) : 0.f;
+  float pv = p, dpv = dp_io;
+  if constexpr (DROP) {
+    const bool keep = attn::dropout_keep(mix, row, key, thresh);
+    pv = keep ? p * inv_keep : 0.f;
+    dpv = keep ? dpv * inv_keep : 0.f;
+  }
+  s_io = pv;
+  dp_io = p * (dpv - delta_r) * sm_scale;
 }
 
 // fp32 values [r0, r0 + 64) of a row (lse, delta, key bias) into dst by

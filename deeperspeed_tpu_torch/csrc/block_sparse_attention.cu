@@ -15,9 +15,11 @@
 // causal) the live pairs number about 2·12·16384·1500, so the forward's
 // 4·D flops a pair take a few hundred microseconds at the bf16
 // tensor-core peak while q, k, v, out cross device memory in a few
-// tens: operations bound. These first kernels do their products with
-// fp32 FMA, as the flash kernels do, and are bound by FMA throughput.
-// Design:
+// tens: operations bound. The forward and dQ kernels do their products
+// with fp32 FMA (attention_tiles.cuh), as the first flash kernels did,
+// and are bound by FMA throughput; for bf16 at D = 64 and 128 the dK/dV
+// kernel takes the tensor-core tile step of the flash dK/dV kernel
+// (attention_mma.cuh), fp32 and D = 256 the FMA one. Design:
 //
 // - The TPU kernels group `group_q` row blocks and fan out over `fanout`
 //   key blocks to feed the MXU fat strips (`build_row_union_lut`, with
@@ -32,9 +34,15 @@
 // - dK/dV: one block per (b·h, key tile), walking the TRANSPOSED layout's
 //   LUT (every query block that attends its key block; global columns
 //   list most of the sequence). dQ: one block per (b·h, q tile), walking
-//   the forward LUT. Both recompute P and dP from the lse
-//   (`attn::bwd_p_and_ds`). No atomics: every gradient element is one
-//   fp32 sum in a fixed order, so results are reproducible.
+//   the forward LUT. Both recompute P and dP from the lse. No atomics:
+//   every gradient element is one fp32 sum in a fixed order, so results
+//   are reproducible.
+// - bf16 dK/dV (`block_sparse_dkv_mma_kernel`): 4 warps × 16 keys; K and
+//   V stay in shared memory, the Q and dO tiles of the listed query
+//   blocks stream through a 2-stage cp.async ring, the next tile's
+//   address resolved from the LUT row (copied to shared memory at the
+//   start) before the current tile's products; Sᵀ, dPᵀ and the two
+//   accumulations by mma.sync with Pᵀ and dSᵀ kept in registers.
 // - Under `causal`, key tiles wholly after the q tile (and, for dK/dV,
 //   q tiles wholly before the key tile) are skipped before any load.
 // - The LUTs list row blocks in `order` (the longest rows first), so the
@@ -42,6 +50,7 @@
 //   behind them.
 // - Tiles and layout: S is a multiple of 128; a 64-row tile (32 at D =
 //   256) lies inside one 128 x 128 block.
+#include "attention_mma.cuh"
 #include "attention_tiles.cuh"
 
 namespace {
@@ -207,6 +216,150 @@ __global__ void __launch_bounds__(NT)
   ds::attn::bwd_store<T, D>(dq, acc, b, h, q0, S, H);
 }
 
+// ---------------------------------------------------------------------------
+// dK/dV on the tensor cores (bf16, D = 64 and 128)
+// ---------------------------------------------------------------------------
+
+namespace mm = ds::mma_attn;
+
+// bytes of dynamic shared memory: K, V and the 2-stage Q / dO ring (bf16
+// tiles), the ring's lse and delta rows, and the key block's LUT row
+template <int D>
+__host__ __device__ constexpr size_t dkv_mma_smem(int max_active) {
+  return 6 * mm::tile_elems<D>() * sizeof(mm::bf16) +
+         4 * mm::BN * sizeof(float) + ((max_active + 3) / 4) * 16;
+}
+
+// The tile step of `flash_bwd_dkv_mma_kernel` (csrc/flash_bwd.cu) over the
+// transposed LUT: one block of 4 warps per (b·h, 64-key tile), each warp
+// 16 keys; K and V stay in shared memory while the Q and dO tiles of the
+// query blocks that attend the key block stream through a 2-stage
+// cp.async ring with their lse and delta rows. The LUT row is copied to
+// shared memory first, so the next tile's rows are found without a
+// global load. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ by mma.sync; Pᵀ and dSᵀ stay in
+// registers as the A operands of dV += Pᵀ·dO and dK += dSᵀ·Q. A tile is
+// taken in slices of W q rows (16 at D = 64, 32 at D = 128) to keep the
+// registers of three (two) blocks an SM.
+template <int D>
+__global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
+    block_sparse_dkv_mma_kernel(
+        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
+        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        Lut lut_t, mm::bf16* __restrict__ dk, mm::bf16* __restrict__ dv,
+        int S, int H, Strides st, float sm_scale, int causal) {
+  constexpr int TILE = mm::tile_elems<D>();
+  constexpr int LD = mm::ld<D>();
+  constexpr int KS = D / 16;
+  constexpr int W = D == 64 ? 16 : 32;
+  constexpr int SUB = GRAIN / mm::BM;  // key tiles a layout block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mm::bf16* Ks = reinterpret_cast<mm::bf16*>(smem_raw);
+  mm::bf16* Vs = Ks + TILE;
+  mm::bf16* Qs = Vs + TILE;       // [2][64][LD]
+  mm::bf16* dOs = Qs + 2 * TILE;  // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][64]
+  float* dl_s = lse_s + 2 * mm::BN;                          // [2][64]
+  int* blocks = reinterpret_cast<int*>(dl_s + 2 * mm::BN);   // the LUT row
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int nb = S / GRAIN;
+  const int cb = lut_t.order[blockIdx.x / SUB];  // key block
+  const int k0 = cb * GRAIN + (blockIdx.x % SUB) * mm::BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
+  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
+  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const float* lse_bh = lse + (long long)bh * S;
+  const float* delta_bh = delta + (long long)bh * S;
+  const float scale2 = sm_scale * mm::LOG2E;
+  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+
+  // the q tiles: tile i is the (i % 2)-th 64 rows of query block
+  // blocks[i / 2]
+  const int n_blocks = lut_t.count(h, nb, cb);
+  const int n_tiles = SUB * n_blocks;
+  const int* row = lut_t.row(h, nb, cb);
+  for (int i = tid; i < n_blocks; i += mm::NTM) blocks[i] = row[i];
+  __syncthreads();
+  auto q_start = [&](int i) {
+    return blocks[i / SUB] * GRAIN + (i % SUB) * mm::BN;
+  };
+  // the next tile from i on that holds a live pair: with causal, a q tile
+  // wholly before the keys is skipped (uniform over the block)
+  auto next_tile = [&](int i) {
+    while (i < n_tiles && causal && q_start(i) + mm::BN - 1 < k0) ++i;
+    return i;
+  };
+  auto load_q_side = [&](int i, int stage) {
+    const int q0 = q_start(i);
+    mm::load_tile<D>(Qs + stage * TILE, qb, st.qss, q0, S);
+    mm::load_tile<D>(dOs + stage * TILE, db, (long long)H * D, q0, S);
+    mm::load_vec(lse_s + stage * mm::BN, lse_bh, q0, S, 0);
+    mm::load_vec(dl_s + stage * mm::BN, delta_bh, q0, S, mm::BN);
+  };
+
+  mm::load_tile<D>(Ks, kb, st.kss, k0, S);
+  mm::load_tile<D>(Vs, vb, st.vss, k0, S);
+  int i = next_tile(0);
+  if (i < n_tiles) load_q_side(i, 0);
+  ds::cp_async_commit();
+  ds::cp_async_wait<0>();
+  __syncthreads();
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+  mm::zero(acc_k);
+  mm::zero(acc_v);
+  int stage = 0;
+  while (i < n_tiles) {
+    const int nxt = next_tile(i + 1);
+    if (nxt < n_tiles) load_q_side(nxt, stage ^ 1);  // overlaps this tile
+    ds::cp_async_commit();
+    const int q0 = q_start(i);
+    const mm::bf16* Qt = Qs + stage * TILE;
+    const mm::bf16* dOt = dOs + stage * TILE;
+    const float* lse_t = lse_s + stage * mm::BN;
+    const float* dl_t = dl_s + stage * mm::BN;
+    const bool masked = causal && k0 + warp * 16 + 15 > q0;
+#pragma unroll 1  // one slice's registers at a time
+    for (int c0 = 0; c0 < mm::BN; c0 += W) {
+      float s[W / 8][4], dp[W / 8][4];
+      mm::zero(s);
+      mm::zero(dp);
+      mm::mma_abt<KS, W>(s, mm::SmemA<D>{Ks, warp * 16}, Qt + c0 * LD, LD);
+      mm::mma_abt<KS, W>(dp, mm::SmemA<D>{Vs, warp * 16}, dOt + c0 * LD,
+                         LD);
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = c0 + 8 * j + 2 * qd + c, qrow = q0 + col;
+          const float nlse2 = -lse_t[col] * mm::LOG2E, dl = dl_t[col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            mm::p_and_ds<false>(s[j][2 * r + c], dp[j][2 * r + c],
+                                !masked || keys[r] <= qrow, scale2, nlse2,
+                                dl, sm_scale, 0u, qrow, keys[r], 0, 1.f);
+        }
+      }
+      unsigned pa[W / 16][4], da[W / 16][4];
+      mm::pack_a<W / 16>(pa, s);
+      mm::pack_a<W / 16>(da, dp);
+      mm::mma_ab<W / 16, D>(acc_v, pa, dOt + c0 * LD, LD);
+      mm::mma_ab<W / 16, D>(acc_k, da, Qt + c0 * LD, LD);
+    }
+    ds::cp_async_wait<0>();  // tile nxt landed
+    __syncthreads();         // ... for every warp, and this stage is free
+    stage ^= 1;
+    i = nxt;
+  }
+  const float one[2] = {1.f, 1.f};
+  const long long off = ((long long)b * S * H + h) * D;
+  mm::store_rows<D>(dk + off, (long long)H * D, acc_k, keys, S, one);
+  mm::store_rows<D>(dv + off, (long long)H * D, acc_v, keys, S, one);
+}
+
 enum class Part { kFwd, kDKV, kDQ };
 
 struct Args {
@@ -247,6 +400,15 @@ cudaError_t launch(Part part, const Args& a) {
   constexpr size_t smem = ds::attn::bwd_smem_bytes<D>();
   const dim3 grid(a.S / ds::attn::bwd_rows<D>(), a.B * a.H);
   if (part == Part::kDKV) {
+    if constexpr (mm::takes_mma<T, D>()) {
+      auto kernel = block_sparse_dkv_mma_kernel<D>;
+      const size_t bytes = dkv_mma_smem<D>(a.lut.max_active);
+      if ((err = set_smem(kernel, bytes)) != cudaSuccess) return err;
+      kernel<<<dim3(a.S / mm::BM, a.B * a.H), mm::NTM, bytes, a.stream>>>(
+          tq, tk, tv, td, a.lse_in, a.delta, a.lut, static_cast<T*>(a.o1),
+          static_cast<T*>(a.o2), a.S, a.H, a.st, a.sm_scale, a.causal);
+      return cudaGetLastError();
+    }
     auto kernel = block_sparse_dkv_kernel<T, D>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, NT, smem, a.stream>>>(
@@ -347,4 +509,35 @@ extern "C" int ds_block_sparse_bwd_dq(
                H, Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh},
                sm_scale, causal, static_cast<cudaStream_t>(stream)};
   return run(Part::kDQ, a, D, dtype);
+}
+
+// What the bf16 dK/dV kernel at head dim D (64 or 128) takes on this
+// device for a transposed LUT of max_active entries a row, into
+// info[0..4]: registers a thread, local (spill) bytes a thread, static and
+// dynamic shared memory bytes, and blocks an SM can hold.
+extern "C" int ds_block_sparse_dkv_info(int D, int max_active, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+  int blocks = 0;
+  size_t bytes = 0;
+  auto query = [&](auto kernel, size_t smem) {
+    bytes = smem;
+    err = set_smem(kernel, smem);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          mm::NTM, smem);
+  };
+  if (max_active < 1) return cudaErrorInvalidValue;
+  if (D == 64)
+    query(block_sparse_dkv_mma_kernel<64>, dkv_mma_smem<64>(max_active));
+  else if (D == 128)
+    query(block_sparse_dkv_mma_kernel<128>, dkv_mma_smem<128>(max_active));
+  if (err != cudaSuccess) return err;
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = static_cast<int>(bytes);
+  info[4] = blocks;
+  return cudaSuccess;
 }

@@ -31,8 +31,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// -- the mma.sync kernels' pieces (the grouped dW of grouped_matmul.cu,
-// the bf16 flash kernels) --
+// -- the mma.sync kernels' pieces (the bf16 flash kernels and the
+// block-sparse dK/dV, through attention_mma.cuh) --
 
 // 16-byte global -> shared copy; pred false copies nothing and zero-fills
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -1,16 +1,35 @@
-// CPU shim copy of csrc/common.cuh: the pieces quant_matmul.cu and
-// grouped_matmul.cu use, emulated. cp.async copies at once (so the shim
-// cannot see a missing wait); ldmatrix and mma.sync exchange their
-// operands through a per-warp buffer between two warp barriers, then each
-// lane computes its own fragment by the m16n8k16 / 8x8 layouts.
+// CPU shim copy of csrc/common.cuh, emulated. cp.async copies at once (so
+// the shim cannot see a missing wait); ldmatrix and mma.sync exchange
+// their operands through a per-warp buffer between two warp barriers,
+// then each lane computes its own fragment by the m16n8k16 / 8x8 layouts
+// (one warp barrier an exchange, `shim::exchange_slots`);
+// ex2 is std::exp2 (the card's ex2.approx differs in the last bits).
 #pragma once
 
 #include "cuda_shim.h"
 
 namespace ds {
 
+constexpr float NEG_INF = -1e30f;
+
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+
+inline float to_float(float x) { return x; }
+inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+T from_float(float x);
+template <>
+inline float from_float<float>(float x) {
+  return x;
+}
+template <>
+inline __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+inline float ex2(float x) { return std::exp2(x); }
 
 inline void cp_async16(void* smem, const void* gmem, bool pred) {
   if (reinterpret_cast<uintptr_t>(smem) % 16 ||
@@ -22,13 +41,20 @@ inline void cp_async16(void* smem, const void* gmem, bool pred) {
     std::memset(smem, 0, 16);
 }
 
+inline void cp_async4(void* smem, const void* gmem, bool pred) {
+  if (reinterpret_cast<uintptr_t>(smem) % 4 ||
+      (pred && reinterpret_cast<uintptr_t>(gmem) % 4))
+    shim_fail("cp.async.ca (4 bytes) needs 4-byte aligned addresses");
+  if (pred)
+    std::memcpy(smem, gmem, 4);
+  else
+    std::memset(smem, 0, 4);
+}
+
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
 
-inline uint64_t* warp_buffer() {
-  return shim::self.block->xchg[threadIdx.x / 32].data();
-}
 
 inline float bf16_lo(unsigned v) {
   return __uint_as_float((v & 0xFFFFu) << 16);
@@ -39,11 +65,10 @@ inline float bf16_hi(unsigned v) { return __uint_as_float(v & 0xFFFF0000u); }
 // the 4 matrices: plain (row l/4, cols 2(l%4), +1), trans (rows 2(l%4), +1
 // of col l/4)
 inline void ldmatrix_x4_any(unsigned* r, const void* smem, bool trans) {
-  uint64_t* buf = warp_buffer();
+  uint64_t* buf = shim::exchange_slots();
   const int l = threadIdx.x % 32;
   if (reinterpret_cast<uintptr_t>(smem) % 16)
     shim_fail("ldmatrix row address not 16-byte aligned");
-  __syncwarp();
   buf[l] = reinterpret_cast<uintptr_t>(smem);
   __syncwarp();
   for (int m = 0; m < 4; ++m) {
@@ -56,7 +81,6 @@ inline void ldmatrix_x4_any(unsigned* r, const void* smem, bool trans) {
     }
     r[m] = h[0] | (static_cast<unsigned>(h[1]) << 16);
   }
-  __syncwarp();
 }
 
 inline void ldmatrix_x4(unsigned* r, const void* smem) {
@@ -68,9 +92,8 @@ inline void ldmatrix_x4_trans(unsigned* r, const void* smem) {
 
 // c += a * b on one m16n8k16 tile: bf16 A (row) and B (col), fp32 c
 inline void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  uint64_t* buf = warp_buffer();
+  uint64_t* buf = shim::exchange_slots();
   const int l = threadIdx.x % 32;
-  __syncwarp();
   buf[l * 8 + 0] = a[0];
   buf[l * 8 + 1] = a[1];
   buf[l * 8 + 2] = a[2];
@@ -96,7 +119,6 @@ inline void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
     for (int k = 0; k < 16; ++k) s = std::fma(A(row, k), B(k, col), s);
     c[e] += s;
   }
-  __syncwarp();
 }
 
 }  // namespace ds

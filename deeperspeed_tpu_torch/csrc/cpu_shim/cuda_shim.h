@@ -9,6 +9,7 @@
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <chrono>
 #include <condition_variable>
@@ -61,6 +62,9 @@ inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
 
 struct __nv_bfloat16 { uint16_t bits; };
 struct alignas(4) __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -127,6 +131,24 @@ inline cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// what the kernels' info entry points read; the shim has no registers or
+// occupancy to report, so they read as zeros
+struct cudaFuncAttributes {
+  size_t sharedSizeBytes = 0, localSizeBytes = 0;
+  int numRegs = 0;
+};
+template <typename F>
+inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F*) {
+  *a = cudaFuncAttributes{};
+  return cudaSuccess;
+}
+template <typename F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F*,
+                                                                 int,
+                                                                 size_t) {
+  *n = 0;
+  return cudaSuccess;
+}
 // three SMs, so that a persistent kernel's CTAs each walk several tiles
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* dev) {
@@ -143,7 +165,22 @@ inline thread_local dim3 blockDim, gridDim;
 
 namespace shim {
 
-struct MBar;
+// an mbarrier: its arrival count, transaction bytes and phase (driven by
+// hopper_gemm.cuh here)
+struct MBar {
+  std::mutex mu;
+  std::condition_variable cv;
+  uint32_t count = 0, pending = 0, phase = 0;
+  int64_t tx = 0;
+  void complete_if_done() {
+    if (pending == 0 && tx == 0) {
+      phase ^= 1;
+      pending = count;
+      cv.notify_all();
+    }
+  }
+};
+
 
 // one CTA: its shared memory, barriers and (named) bar.sync barriers
 struct Block {
@@ -157,6 +194,7 @@ struct Block {
   std::vector<std::unique_ptr<MBar>> mbars;             // by offset / 8
   // per-warp exchange buffers of the warp collectives
   std::vector<std::vector<uint64_t>> xchg;
+  std::atomic<int> vote{0};                              // __syncthreads_or
 };
 
 struct Cluster {
@@ -168,9 +206,22 @@ struct Thread {
   unsigned rank = 0, csize = 1;
   Block* block = nullptr;
   Cluster* cluster = nullptr;
+  unsigned exchanges = 0;   // warp exchanges this thread has taken part in
 };
 
 inline thread_local Thread self;
+
+// The slots of this warp's next exchange (a warp collective: each lane
+// writes its slots, one warp barrier, each lane reads the others'). The
+// buffer's two halves alternate from one exchange to the next, so a
+// lane may write the next half as soon as it has read: by then every
+// lane has passed this exchange's barrier, so every read of the half
+// before is done.
+constexpr unsigned XCHG_SLOTS = 256;
+inline uint64_t* exchange_slots() {
+  std::vector<uint64_t>& buf = self.block->xchg[threadIdx.x / 32];
+  return buf.data() + (self.exchanges++ & 1) * XCHG_SLOTS;
+}
 
 inline std::barrier<>& named_barrier(int id, int count) {
   Block& b = *self.block;
@@ -200,7 +251,8 @@ void run_grid(dim3 grid, dim3 block, size_t smem, unsigned cx, K kernel,
             b->warps.push_back(std::make_unique<std::barrier<>>(
                 std::min(32u, nt - 32 * w)));
           b->mbars.resize(smem / 8 + 1);
-          b->xchg.assign((nt + 31) / 32, std::vector<uint64_t>(32 * 8));
+          b->xchg.assign((nt + 31) / 32,
+                         std::vector<uint64_t>(2 * XCHG_SLOTS));
           cl.blocks.push_back(b.get());
           blocks.push_back(std::move(b));
         }
@@ -242,6 +294,33 @@ inline void __syncthreads() { shim::self.block->sync->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xFFFFFFFFu) {
   shim::self.block->warps[threadIdx.x / 32]->arrive_and_wait();
 }
+
+// every thread's p, or-ed: the vote is cleared, set and read between
+// three block barriers
+inline int __syncthreads_or(int p) {
+  shim::Block& b = *shim::self.block;
+  b.sync->arrive_and_wait();
+  if (threadIdx.x == 0) b.vote = 0;
+  b.sync->arrive_and_wait();
+  if (p) b.vote = 1;
+  b.sync->arrive_and_wait();
+  return b.vote;
+}
+
+// lane l gets lane (l ^ m)'s value, through the warp's exchange buffer
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int m) {
+  uint64_t* buf = shim::exchange_slots();
+  const int l = threadIdx.x % 32;
+  static_assert(sizeof(T) <= sizeof(uint64_t), "one exchange slot a lane");
+  std::memcpy(&buf[l], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &buf[l ^ m], sizeof(T));
+  return r;
+}
+
+inline float __expf(float x) { return std::exp(x); }
 
 // a shared-memory address is the offset into the CTA's buffer
 inline size_t __cvta_generic_to_shared(const void* p) {

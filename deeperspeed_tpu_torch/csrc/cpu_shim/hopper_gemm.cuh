@@ -36,20 +36,6 @@ struct CUtensorMap {
 
 namespace shim {
 
-struct MBar {
-  std::mutex mu;
-  std::condition_variable cv;
-  uint32_t count = 0, pending = 0, phase = 0;
-  int64_t tx = 0;
-  void complete_if_done() {
-    if (pending == 0 && tx == 0) {
-      phase ^= 1;
-      pending = count;
-      cv.notify_all();
-    }
-  }
-};
-
 inline MBar& mbar_at(uint32_t addr) {
   Block& b = *self.block;
   if (addr % 8) shim_fail("mbarrier not 8-byte aligned");

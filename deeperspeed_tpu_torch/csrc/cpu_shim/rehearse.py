@@ -1,39 +1,58 @@
-"""Rehearse the int8 matmul and grouped-matmul kernels on the CPU.
+"""Rehearse the Hopper kernels on the CPU.
 
-    python deeperspeed_tpu_torch/csrc/cpu_shim/rehearse.py [--keep]
+    python deeperspeed_tpu_torch/csrc/cpu_shim/rehearse.py [--only FAMILY]
 
-Copies `csrc/quant_matmul.cu`, `csrc/grouped_matmul.cu` and
-`csrc/errors.cu` next to this directory's stand-ins for the CUDA headers
-and for `common.cuh` / `hopper_gemm.cuh`, compiles them with g++ into a
-shared library under `build/cpu_shim/`, and hands that library to the
-wrappers of `ops/hopper/` in place of the nvcc build. The wrappers then
-run their kernels on CPU tensors, one thread per CUDA thread, and each
-result is held against the plain PyTorch version:
+FAMILY is one of `quant_matmul`, `grouped_matmul`, `grouped_matmul_dw`
+and `block_sparse_dkv` (all four without ``--only``). Each family's
+source (`csrc/quant_matmul.cu`, `csrc/grouped_matmul.cu`,
+`csrc/block_sparse_attention.cu`) and `csrc/errors.cu` are copied next to
+this directory's stand-ins for the CUDA headers and for `common.cuh` /
+`hopper_gemm.cuh` (the attention headers are the real ones), compiled by
+g++ under `build/cpu_shim/` (one object a source, in parallel, kept by a
+hash of what it was built from) and linked into a library that is handed
+to the wrappers of `ops/hopper/` in place of the nvcc build. The
+wrappers then run their kernels on CPU tensors, one thread per CUDA
+thread, and each result is held against the plain PyTorch version:
 
-- the int8 matmul at every plan the wrapper picks for a set of small
-  shapes (token tiles 16 / 32 / 64 with swapped operands, 128-row tiles,
-  clusters of 1-8 CTAs, ragged M, N and K), bf16 within 2e-2 of max|ref|
-  (chip_smoke's TOL_QMM); one-hot x over a weight that holds all 256
-  int8 values, bit for bit; two calls bit-identical;
-- the grouped matmul's forward and dx (wgmma) and dW (mma.sync) on spans
-  that no 128-row tile divides, dead rows filled with NaN: within 1e-2 of
-  max|ref| (TOL_GMM), dead rows exact zeros, dW within 1e-4 (fp32).
+- quant_matmul: the int8 matmul at every plan the wrapper picks for a
+  set of small shapes (token tiles 16 / 32 / 64 with swapped operands,
+  128-row tiles, clusters of 1-8 CTAs, ragged M, N and K), bf16 within
+  2e-2 of max|ref| (chip_smoke's TOL_QMM); one-hot x over a weight that
+  holds all 256 int8 values, bit for bit; two calls bit-identical;
+- grouped_matmul: the grouped forward and dx (wgmma) on spans that no
+  128-row tile divides, dead rows filled with NaN: within 1e-2 of
+  max|ref| (TOL_GMM), dead rows exact zeros;
+- grouped_matmul_dw: the dW kernel (wgmma with both operands MN-major)
+  with NaN in the dead rows of x and dy, spans no 64-row stage divides,
+  weights owning several spans, an empty weight (exact zeros), K and N
+  edges inside a tile and more tiles than CTAs: within 1e-4 of max|ref|
+  (TOL_GMM_DW), finite, two calls bit-identical;
+- block_sparse_dkv: the bf16 dK/dV kernel (mma.sync) at D = 64 and 128
+  on a causal fixed layout with a global column and a key block no
+  query attends (exact zeros), and on a bidirectional layout with a dead
+  row: within chip_smoke's bf16 TOL_BWD of the plain backward, two
+  calls on the causal layout bit-identical, every launch counted as the
+  "mma" design.
 
 It checks indexing, tiling, the mbarrier ring, the TMA box and swizzle,
-the descriptors' layouts and the cluster reduction against one reading
-of the hardware's rules (`hopper_gemm.cuh` here says which); it cannot
-check that reading, speed, or sm_90a code generation: only the card can.
-Exits non-zero on the first disagreement.
+the descriptors' layouts, the cluster reduction and the warp-level
+fragment layouts against one reading of the hardware's rules
+(`hopper_gemm.cuh` and `common.cuh` here say which); it cannot check
+that reading, a missing fence or wait, speed, or sm_90a code
+generation: only the card can. Exits non-zero on the first
+disagreement.
 """
 
 import argparse
 import ctypes
+import hashlib
+import os
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -42,49 +61,93 @@ REPO = CSRC.parents[1]
 sys.path.insert(0, str(REPO))
 
 from deeperspeed_tpu_torch.ops.hopper import _build  # noqa: E402
+from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa  # noqa: E402,E501
+from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm  # noqa: E402
 
-SOURCES = ("quant_matmul.cu", "grouped_matmul.cu", "errors.cu")
 OUT = REPO / "build" / "cpu_shim"
+SHIM_HEADERS = ("cuda_shim.h", "cuda.h", "cuda_runtime.h", "cuda_bf16.h",
+                "common.cuh", "hopper_gemm.cuh")
+REAL_HEADERS = ("attention_tiles.cuh", "attention_mma.cuh")
+CXX = ["g++", "-std=c++20", "-O1", "-g", "-fPIC", "-pthread"]
 
 
 def shim_source(text):
     """A kernel source as g++ takes it under the shim: dynamic shared
     memory is the CTA's buffer, and `k<<<grid, block, smem, stream>>>(a)`
     is a call of the shim's launcher."""
-    text = re.sub(r"extern __shared__[^;]*?(\w+)\[\];",
-                  r"unsigned char* \1 = shim::self.block->smem;", text)
+    text = re.sub(
+        r"extern __shared__ (?:__align__\(\d+\) )?([\w ]+?) (\w+)\[\];",
+        r"\1* \2 = reinterpret_cast<\1*>(shim::self.block->smem);", text)
     return re.sub(r"([\w:]+(?:<[^;<>]*>)?)<<<([^;]*?)>>>\(",
                   r"shim::Launcher(\2).run(\1, ", text)
 
 
-def build():
+def _write(path, data):
+    """Write ``data`` (bytes) to ``path`` unless it holds them already, by
+    a rename, so a concurrent rehearsal reads either version whole."""
+    if path.exists() and path.read_bytes() == data:
+        return
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
+def build(sources):
+    """Compile ``sources`` (names under csrc/) and errors.cu under the shim
+    and link them → the library's path. Objects and libraries are named
+    by a hash of the sources, the headers and the flags, so a later run
+    on the same files reuses them."""
     OUT.mkdir(parents=True, exist_ok=True)
-    for name in ("cuda_shim.h", "cuda.h", "cuda_runtime.h", "cuda_bf16.h",
-                 "common.cuh", "hopper_gemm.cuh"):
-        shutil.copy(HERE / name, OUT / name)
-    srcs = []
-    for name in SOURCES:
-        dst = OUT / (Path(name).stem + ".cpp")
-        dst.write_text(shim_source((CSRC / name).read_text()))
-        srcs.append(str(dst))
-    lib = OUT / "libds_shim_kernels.so"
-    cmd = ["g++", "-std=c++20", "-O1", "-g", "-fPIC", "-shared", "-pthread",
-           f"-I{OUT}", "-include", "cuda_shim.h", *srcs, "-o", str(lib)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        sys.exit(f"g++ failed:\n{res.stderr[-6000:]}")
+    headers = b""
+    for name in SHIM_HEADERS:
+        _write(OUT / name, (HERE / name).read_bytes())
+        headers += (HERE / name).read_bytes()
+    for name in REAL_HEADERS:
+        _write(OUT / name, (CSRC / name).read_bytes())
+        headers += (CSRC / name).read_bytes()
+    objs, procs = [], []
+    for name in (*sources, "errors.cu"):
+        text = shim_source((CSRC / name).read_text())
+        tag = hashlib.sha256(headers + text.encode() +
+                             " ".join(CXX).encode()).hexdigest()[:16]
+        obj = OUT / f"{Path(name).stem}_{tag}.o"
+        objs.append(obj)
+        if obj.exists():
+            continue
+        src = OUT / f"{Path(name).stem}_{tag}.cpp"
+        _write(src, text.encode())
+        tmp = obj.with_name(f"{obj.name}.{os.getpid()}.tmp")
+        procs.append((name, obj, tmp, subprocess.Popen(
+            [*CXX, f"-I{OUT}", "-include", "cuda_shim.h", "-c", str(src),
+             "-o", str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for name, obj, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"g++ failed on {name}:\n{log[-6000:]}")
+        os.replace(tmp, obj)
+    tag = hashlib.sha256("".join(o.name for o in objs).encode()).hexdigest()
+    lib = OUT / f"libds_shim_kernels_{tag[:16]}.so"
+    if not lib.exists():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        res = subprocess.run([*CXX, "-shared", *map(str, objs), "-o",
+                              str(tmp)], capture_output=True, text=True)
+        if res.returncode:
+            sys.exit(f"g++ link failed:\n{res.stderr[-6000:]}")
+        os.replace(tmp, lib)
     return lib
 
 
 def load(lib_path):
+    """Hand the shim library to the wrappers in place of the nvcc build."""
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("ds_quant_matmul", "ds_grouped_matmul",
-                 "ds_grouped_matmul_dw"):
-        fn = getattr(lib, name)
-        fn.argtypes = _build.SIGNATURES[name]
-        fn.restype = ctypes.c_int
+    for name, argtypes in _build.SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.ds_error_string.argtypes = [ctypes.c_int]
     lib.ds_error_string.restype = ctypes.c_char_p
     _build._LIB = lib
@@ -155,55 +218,169 @@ def check_quant_matmul(gen):
     print(f"  plans covered: {sorted(plans)}", flush=True)
 
 
+def _gmm_inputs(gen, sizes, span, K, N, W):
+    """bf16 x [R, K], dy [R, N], w [W, K, N] and the sizes, with NaN in
+    the dead rows of x and dy → (x, dy, w, sizes, dead)."""
+    R = len(sizes) * span
+    x = torch.randn(R, K, generator=gen).to(torch.bfloat16)
+    dy = torch.randn(R, N, generator=gen).to(torch.bfloat16)
+    w = (0.1 * torch.randn(W, K, N, generator=gen)).to(torch.bfloat16)
+    sz = torch.tensor(sizes, dtype=torch.int32)
+    dead = ~(torch.arange(span)[None] < sz[:, None]).reshape(-1)
+    x[dead] = float("nan")
+    dy[dead] = float("nan")
+    return x, dy, w, sz, dead
+
+
 def check_grouped_matmul(gen):
     for sizes, span, K, N, W, lut in (
             ((200, 57, 0, 0, 133, 200), 200, 64, 96, 3, (0, 0, 1, 1, 2, 2)),
             ((130, 0, 72), 136, 72, 136, 3, None),
             ((256, 100), 256, 128, 264, 2, None)):
-        G = len(sizes)
-        R = G * span
-        lut_t = tuple(range(W)) if lut is None else lut
-        x = torch.randn(R, K, generator=gen).to(torch.bfloat16)
-        dy = torch.randn(R, N, generator=gen).to(torch.bfloat16)
-        w = (0.1 * torch.randn(W, K, N, generator=gen)).to(torch.bfloat16)
-        sz = torch.tensor(sizes, dtype=torch.int32)
-        dead = ~(torch.arange(span)[None] < sz[:, None]).reshape(-1)
-        x[dead] = float("nan")
-        dy[dead] = float("nan")
+        x, dy, w, sz, dead = _gmm_inputs(gen, sizes, span, K, N, W)
         y = gm.grouped_matmul_cuda(x, w, sz, span, lut)
         dx = gm.grouped_matmul_cuda(dy, w, sz, span, lut, transpose_w=True)
         live = ~dead
-        xc, dyc = x.clone(), dy.clone()
-        xc[dead] = 0
-        dyc[dead] = 0
-        ref = gm.grouped_matmul_reference(xc, w, sz, span, lut)
-        ref_dx = gm.grouped_matmul_reference(dyc, w.transpose(1, 2)
+        ref = gm.grouped_matmul_reference(x, w, sz, span, lut)
+        ref_dx = gm.grouped_matmul_reference(dy, w.transpose(1, 2)
                                              .contiguous(), sz, span, lut)
-        dw = gm.grouped_matmul_dw_cuda(xc, dyc, sz, span, lut_t, W)
-        dw_ref = gm.grouped_matmul_dw_reference(xc, dyc, sz, span, lut_t, W)
         errs = (rel_err(y[live], ref[live]) if live.any() else 0.0,
-                rel_err(dx[live], ref_dx[live]) if live.any() else 0.0,
-                rel_err(dw, dw_ref))
+                rel_err(dx[live], ref_dx[live]) if live.any() else 0.0)
         zero = bool((y[dead] == 0).all() and (dx[dead] == 0).all())
         print(f"  grouped_matmul sizes={sizes} span={span} K={K} N={N}: "
-              f"rel err y {errs[0]:.2e}, dx {errs[1]:.2e}, dW {errs[2]:.2e}; "
-              f"dead rows exact zero: {zero}", flush=True)
-        if errs[0] > 1e-2 or errs[1] > 1e-2 or errs[2] > 1e-4 or not zero:
+              f"rel err y {errs[0]:.2e}, dx {errs[1]:.2e}; dead rows exact "
+              f"zero: {zero}", flush=True)
+        if errs[0] > 1e-2 or errs[1] > 1e-2 or not zero:
             fail(f"grouped matmul {sizes}: {errs}, dead rows zero {zero}")
+
+
+def check_grouped_matmul_dw(gen):
+    gm.reset_design_launches()
+    calls = 0
+    for sizes, span, K, N, W, lut in (
+            # an empty weight among weights of two spans; K inside one box
+            ((200, 57, 0, 0, 133, 200), 200, 64, 96, 3, (0, 0, 1, 1, 2, 2)),
+            # K and N edges inside the boxes, an empty weight
+            ((130, 0, 72), 136, 72, 136, 3, None),
+            # two N tiles, the second 8 columns wide; two K tiles
+            ((256, 100), 256, 200, 264, 2, None),
+            # 30 tiles on the shim's 3 SMs: the ring runs across tiles;
+            # spans of 1, 63, 64 and 129 rows
+            ((64, 1, 63, 129, 0), 136, 136, 520, 5, None)):
+        x, dy, w, sz, _ = _gmm_inputs(gen, sizes, span, K, N, W)
+        lut_t = tuple(range(W)) if lut is None else lut
+        dw = gm.grouped_matmul_dw_cuda(x, dy, sz, span, lut_t, W)
+        again = gm.grouped_matmul_dw_cuda(x, dy, sz, span, lut_t, W)
+        calls += 2
+        ref = gm.grouped_matmul_dw_reference(x, dy, sz, span, lut_t, W)
+        err = rel_err(dw, ref)
+        empty = [e for e in range(W)
+                 if all(s == 0 for s, l in zip(sizes, lut_t) if l == e)]
+        zero = all(bool((dw[e] == 0).all()) for e in empty)
+        finite = bool(torch.isfinite(dw).all())
+        same = torch.equal(dw, again)
+        print(f"  grouped_matmul_dw sizes={sizes} span={span} K={K} N={N}: "
+              f"rel err {err:.2e}, finite {finite}, empty weights {empty} "
+              f"exact zero {zero}, two calls bit-identical {same}",
+              flush=True)
+        if err > 1e-4 or not (finite and zero and same):
+            fail(f"grouped matmul dW {sizes}: rel err {err}, finite "
+                 f"{finite}, empty zero {zero}, bit-identical {same}")
+    if gm.dw_design_launches != {"wgmma": calls, "fma": 0}:
+        fail(f"dW launches by design {gm.dw_design_launches}, want all "
+             f"{calls} on wgmma")
+
+
+def _dkv_case(gen, layout, causal, D, S, B=1):
+    """q, k, v, dO (bf16) and the plain forward's out and lse on a layout
+    → the kernel's (dk, dv), a second call's (on causal layouts, else
+    the first's) and the plain backward's (dk, dv)."""
+    H = layout.shape[0]
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    luts = bsa.LayoutLuts(layout)
+    out, lse = bsa.block_sparse_attention_reference(q, k, v, luts, causal)
+    delta = fa.attention_delta(out, do)
+    got = bsa.block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts,
+                                              causal)
+    again = bsa.block_sparse_attention_dkv_cuda(
+        q, k, v, lse, do, delta, luts, causal) if causal else got
+    _, dk, dv = bsa.block_sparse_attention_bwd_reference(q, k, v, out, lse,
+                                                         do, luts, causal)
+    return got, again, (dk, dv)
+
+
+def check_block_sparse_dkv(gen):
+    bsa.reset_design_launches()
+    S, n = 512, 4
+    # causal, head 0 a fixed-like pattern: local blocks, key block 0
+    # global (every query block lists it), key block 2 attended by no
+    # query block; head 1 its own pattern with a dead key block 3
+    causal_layout = np.tril(np.ones((2, n, n), np.int64))
+    causal_layout[0, :, 2] = 0
+    causal_layout[0, 2, 1] = 0
+    causal_layout[1, :, 3] = 0
+    causal_layout[1, 3, 1] = 0
+    # bidirectional, head 1 with a dead query row (block 2)
+    bidir = np.eye(n, dtype=np.int64)[None].repeat(2, 0)
+    bidir[:, :, 0] = 1
+    bidir[0, 1, 3] = bidir[1, 3, 2] = 1
+    bidir[1, 2] = 0
+    calls = 0
+    for D in (64, 128):
+        for name, layout, causal, dead_keys in (
+                ("causal fixed", causal_layout, True, ((0, 2), (1, 3))),
+                ("bidirectional dead row", bidir, False, ())):
+            (dk, dv), (dk2, dv2), (rk, rv) = _dkv_case(gen, layout, causal,
+                                                       D, S)
+            calls += 2 if causal else 1
+            ok, errs = True, []
+            for g, w in ((dk, rk), (dv, rv)):
+                err = (g.float() - w.float()).abs()
+                errs.append(float(err.max()))
+                ok = ok and bool((err <= 3e-2 + 3e-2 * w.float().abs())
+                                 .all()) and bool(torch.isfinite(g).all())
+            zero = all(bool((g[:, kb * 128:(kb + 1) * 128, h] == 0).all())
+                       for h, kb in dead_keys for g in (dk, dv))
+            same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            print(f"  block_sparse_dkv D={D} {name}: max abs err dk "
+                  f"{errs[0]:.2e}, dv {errs[1]:.2e}; unattended key blocks "
+                  f"exact zero {zero}; two calls bit-identical {same}",
+                  flush=True)
+            if not (ok and zero and same):
+                fail(f"block-sparse dK/dV D={D} {name}: errs {errs}, zero "
+                     f"{zero}, bit-identical {same}")
+    if bsa.dkv_design_launches != {"mma": calls, "fma": 0}:
+        fail(f"dK/dV launches by design {bsa.dkv_design_launches}, want "
+             f"all {calls} on mma")
+
+
+FAMILIES = {
+    "quant_matmul": (("quant_matmul.cu",), check_quant_matmul,
+                     "int8 matmul (wgmma)"),
+    "grouped_matmul": (("grouped_matmul.cu",), check_grouped_matmul,
+                       "grouped matmul forward / dx (wgmma)"),
+    "grouped_matmul_dw": (("grouped_matmul.cu",), check_grouped_matmul_dw,
+                          "grouped matmul dW (wgmma, MN-major A and B)"),
+    "block_sparse_dkv": (("block_sparse_attention.cu",),
+                         check_block_sparse_dkv,
+                         "block-sparse dK/dV (mma.sync)"),
+}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.parse_args()
+    ap.add_argument("--only", choices=sorted(FAMILIES),
+                    help="rehearse one kernel family")
+    args = ap.parse_args()
     torch.set_num_threads(2)
-    lib = build()
-    load(lib)
+    names = [args.only] if args.only else list(FAMILIES)
+    sources = sorted({s for n in names for s in FAMILIES[n][0]})
+    load(build(sources))
     gen = torch.Generator().manual_seed(0)
-    print("int8 matmul (wgmma kernel under the shim):", flush=True)
-    check_quant_matmul(gen)
-    print("grouped matmul (wgmma forward / dx, mma.sync dW, under the "
-          "shim):", flush=True)
-    check_grouped_matmul(gen)
+    for name in names:
+        print(f"{FAMILIES[name][2]}, under the shim:", flush=True)
+        FAMILIES[name][1](gen)
     print("rehearsal passed", flush=True)
 
 

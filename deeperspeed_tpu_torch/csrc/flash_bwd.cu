@@ -254,28 +254,6 @@ __global__ void __launch_bounds__(NT)
 
 namespace mm = ds::mma_attn;
 
-// Pᵀ (or P) and dS of one accumulator element, from the fp32 score s and
-// dP at (row, key), with off2 = (bias − lse)·log2 e: P = 2^(s·scale2 +
-// off2) = exp(s·scale + bias − lse) on live pairs; with dropout the
-// forward's keep-mask M scales P for dV and dP for dS:
-//   pv = M ? P / keep : 0,  ds = P · ((M ? dP / keep : 0) − delta) · scale
-template <bool DROP>
-__device__ __forceinline__ void p_and_ds(float& s_io, float& dp_io, bool live,
-                                         float scale2, float off2,
-                                         float delta_r, float sm_scale,
-                                         unsigned mix, int row, int key,
-                                         int thresh, float inv_keep) {
-  const float p = live ? ds::ex2(fmaf(s_io, scale2, off2)) : 0.f;
-  float pv = p, dpv = dp_io;
-  if constexpr (DROP) {
-    const bool keep = ds::attn::dropout_keep(mix, row, key, thresh);
-    pv = keep ? p * inv_keep : 0.f;
-    dpv = keep ? dpv * inv_keep : 0.f;
-  }
-  s_io = pv;
-  dp_io = p * (dpv - delta_r) * sm_scale;
-}
-
 // dK/dV (the design above). The lse and delta rows ride the Q/dO ring,
 // one barrier a tile. A tile is taken in slices of W q rows, each its
 // own Sᵀ, dPᵀ, Pᵀ, dSᵀ and two products, so that a thread stays within
@@ -403,9 +381,9 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
               live = row < S && keys[r] < S &&
                      (!causal || keys[r] <= row) &&
                      (seg_b == nullptr || segq == segk[r]);
-            p_and_ds<DROP>(s[j][2 * r + c], dp[j][2 * r + c], live, scale2,
-                           nlse2 + kb2[r], dl, sm_scale, mix, row, keys[r],
-                           thresh, inv_keep);
+            mm::p_and_ds<DROP>(s[j][2 * r + c], dp[j][2 * r + c], live,
+                               scale2, nlse2 + kb2[r], dl, sm_scale, mix, row,
+                               keys[r], thresh, inv_keep);
           }
         }
       }
@@ -560,9 +538,9 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
             if (masked)
               live = key < S && (!causal || key <= rows[r]) &&
                      (seg_b == nullptr || segq[r] == segk);
-            p_and_ds<DROP>(s[j][2 * r + c], dp[j][2 * r + c], live, scale2,
-                           nlse2[r] + kbv, delta_r[r], sm_scale, mix,
-                           rows[r], key, thresh, inv_keep);
+            mm::p_and_ds<DROP>(s[j][2 * r + c], dp[j][2 * r + c], live,
+                               scale2, nlse2[r] + kbv, delta_r[r], sm_scale,
+                               mix, rows[r], key, thresh, inv_keep);
           }
         }
       }

@@ -39,14 +39,27 @@
 //   each output row depends only on its own input row, and dead rows are
 //   stored as zeros by a select, so no bits of a dead row (Inf, NaN) reach
 //   a live one; stores stop at the span's end.
-// - dW (bf16): mma.sync m16n8k16 with fp32 accumulators and ldmatrix
-//   fragments. A block of 8 warps owns a 128 x 128 output tile, each warp
-//   64 x 32; the contraction runs in slices of 32 through a 4-stage
-//   cp.async ring in dynamic shared memory (16-byte copies, zero fill past
-//   the edges and past the span's size, so dead rows cost no reads).
-// - dW blocks own (weight, K tile, N tile) and walk that weight's spans in
-//   order, slice by slice up to each size: one fp32 sum in registers, a
-//   fixed order, no atomics, and every tile written once, zeros included.
+// - dW (bf16): `gmm_dw_wgmma_kernel`, the same producer / two-consumer
+//   ring. The contraction runs over rows, so both operands are MN-major:
+//   a stage is 64 rows of x (two [64 r][64 k] boxes, warpgroup cw's 64
+//   K-rows of dw each) and of dy (four [64 r][64 n] boxes), and each
+//   warpgroup runs wgmma m64n256k16 with A = x^T and B = dy both
+//   transposed (TA = TB = 1). A CTA owns a 128 x 256 fp32 tile of one
+//   weight and walks that weight's spans in LUT order, 64 rows a stage up
+//   to each span's size: one fp32 sum in registers, a fixed order, no
+//   atomics. The grid is persistent; the weights are dealt out in order of
+//   their live rows (most first, ranked by each CTA at its start), since
+//   the routing decides the loads and the heaviest weight's tail sets the
+//   time. A weight with no live row issues no loads: its tiles are stored
+//   as zeros.
+//   TMA reads whole 64-row boxes, so a span's last stage brings in dead
+//   rows of that span (NaN, Inf) and rows of the next: the consumers
+//   zero those lines of both operands in shared memory, fence them for
+//   the async proxy and meet at a named barrier before the products.
+//   The ring holds 4 stages of 64 rows (48 KB each): the stages are fed
+//   from L2 at 85 flops a byte, so more bytes in flight pay. The epilogue
+//   stages each warpgroup's 64 rows in shared memory, 32 columns at a
+//   time, and stores them as 16-byte chunks of whole rows.
 // - fp32 (the parity path) takes FMA tiled kernels of the same contract:
 //   64 x 64 tiles, 4 x 4 outputs a thread, slices of 16 staged in shared
 //   memory.
@@ -60,32 +73,6 @@ namespace {
 namespace hp = ds::hopper;
 
 using bf16 = __nv_bfloat16;
-using ds::cp_async16;
-using ds::cp_async_commit;
-using ds::cp_async_wait;
-using ds::ldmatrix_x4;
-using ds::ldmatrix_x4_trans;
-using ds::mma_bf16;
-
-// dW tensor-core path
-constexpr int MM_BM = 128;
-constexpr int MM_BN = 128;
-constexpr int MM_BK = 32;
-constexpr int MM_WARPS_M = 2;
-constexpr int MM_WARPS_N = 4;
-constexpr int MM_NT = 32 * MM_WARPS_M * MM_WARPS_N;   // 256
-constexpr int MM_WM = MM_BM / MM_WARPS_M;             // 64 rows a warp
-constexpr int MM_WN = MM_BN / MM_WARPS_N;             // 32 columns a warp
-constexpr int MM_MT = MM_WM / 16;                     // m16 tiles a warp
-constexpr int MM_NT8 = MM_WN / 8;                     // n8 tiles a warp
-constexpr int MM_STAGES = 4;
-constexpr int MM_PAD = 8;   // 16 bytes: ldmatrix rows fall in distinct banks
-// row strides (elements) of the stored dW tiles
-constexpr int LD_M = MM_BM + MM_PAD;     // [32][128]: x^T slice
-constexpr int LD_N = MM_BN + MM_PAD;     // [32][128]: dy
-constexpr int OPERAND_ELEMS = MM_BM * (MM_BK + MM_PAD);   // 10 KB a slot
-constexpr int STAGE_ELEMS = 2 * OPERAND_ELEMS;
-constexpr int MM_SMEM_BYTES = MM_STAGES * STAGE_ELEMS * 2;   // 80 KB
 
 // FMA path (fp32)
 constexpr int FM_NT = 256;
@@ -96,49 +83,6 @@ constexpr int FM_PAD = 4;
 
 __device__ __forceinline__ int live_size(const int* sizes, int g, int span) {
   return min(max(sizes[g], 0), span);
-}
-
-// One 32-deep slice of the dW block tile: A stored [k][m] (x^T), B stored
-// [k][n] (dy).
-__device__ __forceinline__ void mma_slice(float (&acc)[MM_MT][MM_NT8][4],
-                                          const bf16* As, const bf16* Bs,
-                                          int wm, int wn, int lane) {
-  const int mat = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int ks = 0; ks < MM_BK; ks += 16) {
-    unsigned a[MM_MT][4];
-#pragma unroll
-    for (int i = 0; i < MM_MT; ++i) {
-      const int m0 = wm * MM_WM + i * 16;
-      ldmatrix_x4_trans(a[i], As + (ks + r + 8 * (mat / 2)) * LD_M + m0 +
-                                  8 * (mat % 2));
-    }
-    unsigned b[MM_NT8][2];
-#pragma unroll
-    for (int j = 0; j < MM_NT8; j += 2) {
-      const int n0 = wn * MM_WN + j * 8;
-      unsigned t[4];
-      ldmatrix_x4_trans(t, Bs + (ks + r + 8 * (mat % 2)) * LD_N + n0 +
-                               8 * (mat / 2));
-      b[j][0] = t[0];
-      b[j][1] = t[1];
-      b[j + 1][0] = t[2];
-      b[j + 1][1] = t[3];
-    }
-#pragma unroll
-    for (int i = 0; i < MM_MT; ++i)
-#pragma unroll
-      for (int j = 0; j < MM_NT8; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[MM_MT][MM_NT8][4]) {
-#pragma unroll
-  for (int i = 0; i < MM_MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MM_NT8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 }
 
 // wgmma forward
@@ -335,92 +279,196 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
   }
 }
 
-// dW: blockIdx.x = column tile of N, blockIdx.y = row tile of K, blockIdx.z
-// = weight. The contraction walks the weight's spans (contiguous in the
-// non-decreasing LUT) slice by slice up to each span's size.
-__global__ void __launch_bounds__(MM_NT) gmm_dw_mma_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ dy,
-    const int* __restrict__ sizes, const int* __restrict__ lut,
-    float* __restrict__ dw, int G, int K, int N, int span) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * MM_BM;   // rows of dw[e]: the K index
-  const int n0 = blockIdx.x * MM_BN;
-  int s_lo = G, s_hi = G;
-  for (int s = 0; s < G; ++s)
-    if (lut[s] == e) {
-      if (s_lo == G) s_lo = s;
-      s_hi = s + 1;
-    }
-  int ktiles = 0;
-  for (int s = s_lo; s < s_hi; ++s)
-    ktiles += (live_size(sizes, s, span) + MM_BK - 1) / MM_BK;
+// wgmma dW
+constexpr int DW_BM = 128;                      // K rows of dw a tile
+constexpr int DW_BN = 256;                      // N columns a tile
+constexpr int DW_BR = 64;                       // contraction rows a stage
+constexpr int DW_STAGES = 4;
+constexpr int DW_BOX = DW_BR * 128;             // one [64 r][64] bf16 box
+constexpr int DW_A_BYTES = 2 * DW_BOX;          // x: 2 x [64 r][64 k]
+constexpr int DW_STAGE = DW_A_BYTES + 4 * DW_BOX;   // + dy: 4 x [64 r][64 n]
+constexpr int DW_CHUNK = 32;                    // columns staged at a time
+constexpr int DW_OUT_LD = DW_CHUNK + 8;         // a staged fp32 row
+constexpr int DW_OUT_OFF = DW_STAGES * DW_STAGE;
+constexpr int DW_BARS = DW_OUT_OFF + 2 * 64 * DW_OUT_LD * 4;
+constexpr int DW_TABLE = DW_BARS + 2 * DW_STAGES * 8;
+// the weights a launch may rank (its table: an int4 and an int a weight)
+constexpr int DW_MAX_WEIGHTS = 512;
 
-  // the loader's cursor: slices are issued in order, so one (span, row)
-  // pair that every thread advances alike walks them
-  int cs = s_lo, cr = 0;
-  auto load_tile = [&](int stage) {
-    int size = cs < s_hi ? live_size(sizes, cs, span) : 0;
-    while (cs < s_hi && cr >= size) {
-      ++cs;
-      cr = 0;
-      size = cs < s_hi ? live_size(sizes, cs, span) : 0;
-    }
-    const long long row0 = (long long)cs * span + cr;
-    const int nrows = size - cr;
-    bf16* As = smem + stage * STAGE_ELEMS;
-    bf16* Bs = As + OPERAND_ELEMS;
-    for (int c = tid; c < MM_BK * (MM_BM / 8); c += MM_NT) {
-      const int rr = c / (MM_BM / 8), kc = (c % (MM_BM / 8)) * 8;
-      const bool ok = rr < nrows && m0 + kc < K;
-      cp_async16(As + rr * LD_M + kc,
-                 ok ? x + (row0 + rr) * K + m0 + kc : x, ok);
-    }
-    for (int c = tid; c < MM_BK * (MM_BN / 8); c += MM_NT) {
-      const int rr = c / (MM_BN / 8), nc = (c % (MM_BN / 8)) * 8;
-      const bool ok = rr < nrows && n0 + nc < N;
-      cp_async16(Bs + rr * LD_N + nc,
-                 ok ? dy + (row0 + rr) * N + n0 + nc : dy, ok);
-    }
-    cr += MM_BK;
-  };
+__host__ __device__ constexpr int dw_smem(int n_weights) {
+  return 1024 + DW_TABLE + 20 * n_weights;
+}
+static_assert(dw_smem(DW_MAX_WEIGHTS) <= 232448, "the H100's shared memory");
 
-  float acc[MM_MT][MM_NT8][4];
-  zero_acc(acc);
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / MM_WARPS_N, wn = warp % MM_WARPS_N;
-#pragma unroll
-  for (int s = 0; s < MM_STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<MM_STAGES - 2>();
-    __syncthreads();
-    const int nxt = kt + MM_STAGES - 1;
-    if (nxt < ktiles) load_tile(nxt % MM_STAGES);
-    cp_async_commit();
-    const bf16* As = smem + (kt % MM_STAGES) * STAGE_ELEMS;
-    mma_slice(acc, As, As + OPERAND_ELEMS, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-
-  float* dwe = dw + (long long)e * K * N;
-  const int gq = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int i = 0; i < MM_MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MM_NT8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * MM_WM + i * 16 + gq + 8 * h;
-        const int n = n0 + wn * MM_WN + j * 8 + 2 * tq;
-        if (m >= K || n >= N) continue;
-        *reinterpret_cast<float2*>(dwe + (long long)m * N + n) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+// Each weight's spans [lo, hi) (contiguous: the LUT is non-decreasing) and
+// live rows into spans[e], then order[rank] = e with the weights ranked by
+// live rows, most first (ties by index). Every thread of the CTA.
+__device__ __forceinline__ void dw_rank_weights(const int* sizes,
+                                                const int* lut, int G,
+                                                int span, int W, int4* spans,
+                                                int* order) {
+  for (int e = threadIdx.x; e < W; e += blockDim.x) {
+    int lo = G, hi = G, live = 0;
+    for (int s = 0; s < G; ++s)
+      if (lut[s] == e) {
+        if (lo == G) lo = s;
+        hi = s + 1;
+        live += live_size(sizes, s, span);
       }
+    spans[e] = make_int4(lo, hi, live, 0);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < W; e += blockDim.x) {
+    const int live = spans[e].z;
+    int rank = 0;
+    for (int f = 0; f < W; ++f)
+      rank += spans[f].z > live || (spans[f].z == live && f < e);
+    order[rank] = e;
+  }
+  __syncthreads();
+}
+
+// dW, persistent: tile t is (weight order[t / per_w], K tile, N tile);
+// CTA b takes tiles b, b + gridDim.x, ... The producer runs ahead into
+// the next tile's loads while the consumers store the last one.
+__global__ void __launch_bounds__(GW_THREADS, 1) gmm_dw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap dymap, const int* __restrict__ sizes,
+    const int* __restrict__ lut, float* __restrict__ dw, int G, int K,
+    int N, int span, int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_BARS);
+  uint64_t* empty = full + DW_STAGES;
+  int4* spans = reinterpret_cast<int4*>(smem + DW_TABLE);
+  int* order = reinterpret_cast<int*>(spans + W);
+  const int tid = threadIdx.x;
+  const int k_tiles = (K + DW_BM - 1) / DW_BM;
+  const int n_tiles = (N + DW_BN - 1) / DW_BN;
+  const int per_w = k_tiles * n_tiles;
+  const int tiles = W * per_w;
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], GW_CONSUMERS);
+    }
+    hp::mbar_fence_init();
+  }
+  dw_rank_weights(sizes, lut, G, span, W, spans, order);
+
+  if (tid >= GW_CONSUMERS) {
+    // producer warpgroup: one thread issues the loads of every stage
+    hp::setmaxnreg_dec<40>();
+    if (tid == GW_CONSUMERS) {
+      hp::RingPos<DW_STAGES> pos;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int4 sp = spans[order[t / per_w]];
+        const int k0 = (t % per_w) / n_tiles * DW_BM;
+        const int n0 = (t % n_tiles) * DW_BN;
+        for (int s = sp.x; s < sp.y; ++s) {
+          const int size = live_size(sizes, s, span);
+          for (int r = 0; r < size; r += DW_BR, pos.advance()) {
+            if (pos.round > 0)
+              hp::mbar_wait(&empty[pos.stage], pos.parity() ^ 1);
+            unsigned char* st = smem + pos.stage * DW_STAGE;
+            uint64_t* bar = &full[pos.stage];
+            hp::mbar_arrive_expect_tx(bar, DW_STAGE);
+            const int row = s * span + r;
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+              hp::tma_load_2d(st + b * DW_BOX, &xmap, bar, k0 + 64 * b, row);
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              hp::tma_load_2d(st + DW_A_BYTES + b * DW_BOX, &dymap, bar,
+                              n0 + 64 * b, row);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: K rows 64 cw .. 64 cw + 63 of each tile
+  hp::setmaxnreg_inc<232>();
+  const int cw = tid / 128, t = tid % 128;
+  const int wi = t / 32, lane = t % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  float* out = reinterpret_cast<float*>(smem + DW_OUT_OFF) +
+               cw * 64 * DW_OUT_LD;
+  hp::RingPos<DW_STAGES> pos;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int e = order[tile / per_w];
+    const int4 sp = spans[e];
+    const int k0 = (tile % per_w) / n_tiles * DW_BM;
+    const int n0 = (tile % n_tiles) * DW_BN;
+    float acc[DW_BN / 2];
+#pragma unroll
+    for (int i = 0; i < DW_BN / 2; ++i) acc[i] = 0.f;
+    hp::fence_operand(acc);
+    int prev = -1;
+    for (int s = sp.x; s < sp.y; ++s) {
+      const int size = live_size(sizes, s, span);
+      for (int r = 0; r < size; r += DW_BR, pos.advance()) {
+        hp::mbar_wait(&full[pos.stage], pos.parity());
+        unsigned char* st = smem + pos.stage * DW_STAGE;
+        const int live = min(DW_BR, size - r);
+        if (live < DW_BR) {
+          // lines [live, 64) of all six boxes hold dead or foreign rows
+          const int chunks = (DW_BR - live) * 8;
+          for (int i = tid; i < 6 * chunks; i += GW_CONSUMERS) {
+            const int c = i % chunks;
+            *reinterpret_cast<uint4*>(st + (i / chunks) * DW_BOX +
+                                      (live + c / 8) * 128 + (c % 8) * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          hp::fence_proxy_async();
+          hp::named_bar_sync(1, GW_CONSUMERS);
+        }
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DW_BR / 16; ++kk) {
+          const uint64_t da =
+              hp::sw128_desc(st + cw * DW_BOX + kk * 2048, DW_BOX, 1024);
+          const uint64_t db =
+              hp::sw128_desc(st + DW_A_BYTES + kk * 2048, DW_BOX, 1024);
+          hp::wgmma<DW_BN, 1, 1>(acc, da, db);
+        }
+        hp::wgmma_commit();
+        hp::wgmma_wait<1>();      // the previous stage's products are done
+        if (prev >= 0) hp::mbar_arrive(&empty[prev]);
+        prev = pos.stage;
+      }
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_operand(acc);
+    if (prev >= 0) hp::mbar_arrive(&empty[prev]);
+
+    // this warpgroup's 64 rows, DW_CHUNK columns at a time: staged in
+    // shared memory, stored as 16-byte chunks of whole rows
+    float* dwe = dw + (long long)e * K * N;
+    constexpr int J = DW_CHUNK / 8, V = DW_CHUNK / 4;   // n8 tiles, float4s
+#pragma unroll
+    for (int q = 0; q < DW_BN / DW_CHUNK; ++q) {
+      hp::named_bar_sync(2 + cw, 128);   // the last chunk's rows are read
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(out + (wi * 16 + gq + 8 * h) * DW_OUT_LD +
+                                     j * 8 + 2 * tq) =
+              make_float2(acc[4 * (J * q + j) + 2 * h],
+                          acc[4 * (J * q + j) + 2 * h + 1]);
+      hp::named_bar_sync(2 + cw, 128);
+      for (int it = t; it < 64 * V; it += 128) {
+        const int r = it / V, c = (it % V) * 4;
+        const int m = k0 + cw * 64 + r, n = n0 + q * DW_CHUNK + c;
+        if (m < K && n < N)
+          *reinterpret_cast<float4*>(dwe + (long long)m * N + n) =
+              *reinterpret_cast<const float4*>(out + r * DW_OUT_LD + c);
+      }
+    }
+  }
 }
 
 template <bool TRANS_W>
@@ -567,6 +615,20 @@ cudaError_t allow_smem(F* kernel, int bytes, bool* done) {
   return err;
 }
 
+// the SMs of the current device (the persistent grids' size), read once
+cudaError_t sm_count(int* out) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *out = sms;
+  return cudaSuccess;
+}
+
 // the bf16 forward: x [R, K] through ldx and the weight as a 3-D map
 // (innermost first: [N, K, W], or [K, N, W] when w is stored [W, N, K])
 template <bool TRANS_W>
@@ -592,14 +654,8 @@ cudaError_t launch_fwd_wgmma(const bf16* x, long long ldx, const bf16* w,
   static bool ready = false;
   err = allow_smem(gmm_fwd_wgmma_kernel<TRANS_W>, GW_SMEM, &ready);
   if (err != cudaSuccess) return err;
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int tps = (span + GW_BM - 1) / GW_BM;
   const int n_tiles = (N + GW_BN - 1) / GW_BN;
   const int G = R / span;
@@ -607,6 +663,38 @@ cudaError_t launch_fwd_wgmma(const bf16* x, long long ldx, const bf16* w,
                                   GW_SMEM, stream>>>(xm, wm, sizes, lut, y, K,
                                                      N, span, G, tps,
                                                      n_tiles);
+  return cudaGetLastError();
+}
+
+// room for the dW kernel's table of the most weights a launch may rank
+cudaError_t allow_dw_smem() {
+  static bool ready = false;
+  return allow_smem(gmm_dw_wgmma_kernel, dw_smem(DW_MAX_WEIGHTS), &ready);
+}
+
+// the bf16 dW: x [R, K] and dy [R, N] contiguous, each read as [64 r][64]
+// boxes
+cudaError_t launch_dw_wgmma(const bf16* x, const bf16* dy, const int* sizes,
+                            const int* lut, float* dw, int R, int K, int N,
+                            int span, int W, cudaStream_t stream) {
+  CUtensorMap xm, dym;
+  const uint64_t xd[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(R)};
+  const uint64_t xs[1] = {static_cast<uint64_t>(K) * 2};
+  const uint64_t dd[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(R)};
+  const uint64_t dys[1] = {static_cast<uint64_t>(N) * 2};
+  const uint32_t box[2] = {64, DW_BR};
+  cudaError_t err = hp::tensor_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                   2, xd, xs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = hp::tensor_map(&dym, dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dd, dys,
+                       box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  if ((err = allow_dw_smem()) != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const int tiles = W * ((K + DW_BM - 1) / DW_BM) * ((N + DW_BN - 1) / DW_BN);
+  gmm_dw_wgmma_kernel<<<min(tiles, sms), GW_THREADS, dw_smem(W), stream>>>(
+      xm, dym, sizes, lut, dw, R / span, K, N, span, W);
   return cudaGetLastError();
 }
 
@@ -661,8 +749,8 @@ extern "C" int ds_grouped_matmul(const void* x, long long ldx, const void* w,
 // dw [n_weights, K, N] fp32 = for each weight e, the sum over the spans s
 // with lut[s] == e of x[s]^T @ dy[s] on the first sizes[s] rows; x [R, K]
 // and dy [R, N] contiguous, in the dtype `dtype` says. Every element of dw
-// is written. bf16 needs K % 8 == 0, N % 8 == 0 and 16-byte aligned x and
-// dy. Returns cudaGetLastError() after the launch.
+// is written. bf16 needs K % 8 == 0, N % 8 == 0, 16-byte aligned x, dy and
+// dw and at most 512 weights. Returns cudaGetLastError() after the launch.
 extern "C" int ds_grouped_matmul_dw(const void* x, const void* dy,
                                     const void* sizes, const void* lut,
                                     void* dw, int R, int K, int N, int span,
@@ -683,17 +771,34 @@ extern "C" int ds_grouped_matmul_dw(const void* x, const void* dy,
     return cudaGetLastError();
   }
   if (dtype != ds::DTYPE_BF16) return cudaErrorInvalidValue;
-  if (K % 8 || N % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+  if (K % 8 || N % 8 || n_weights > DW_MAX_WEIGHTS ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(dy) % 16 ||
-      reinterpret_cast<uintptr_t>(dw) % 8)
+      reinterpret_cast<uintptr_t>(dw) % 16)
     return cudaErrorInvalidValue;
-  static bool ready = false;
-  const cudaError_t err =
-      allow_smem(gmm_dw_mma_kernel, MM_SMEM_BYTES, &ready);
+  return launch_dw_wgmma(static_cast<const bf16*>(x),
+                         static_cast<const bf16*>(dy), sz, lt, dwf, R, K, N,
+                         span, n_weights, cs);
+}
+
+// What the bf16 dW kernel takes on this device for n_weights weights, into
+// info[0..4]: registers a thread at launch, local (spill) bytes a thread,
+// static and dynamic shared memory bytes, and CTAs an SM can hold.
+extern "C" int ds_grouped_matmul_dw_info(int n_weights, int* info) {
+  if (n_weights <= 0 || n_weights > DW_MAX_WEIGHTS)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_dw_smem();
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gmm_dw_wgmma_kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, gmm_dw_wgmma_kernel, GW_THREADS, dw_smem(n_weights));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + MM_BN - 1) / MM_BN, (K + MM_BM - 1) / MM_BM, n_weights);
-  gmm_dw_mma_kernel<<<grid, MM_NT, MM_SMEM_BYTES, cs>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dy), sz, lt, dwf,
-      G, K, N, span);
-  return cudaGetLastError();
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = dw_smem(n_weights);
+  info[4] = blocks;
+  return cudaSuccess;
 }

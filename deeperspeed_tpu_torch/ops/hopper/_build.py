@@ -87,6 +87,12 @@ SIGNATURES = {
                           _I, _P],
     # x, dy, sizes, lut, dw (fp32), R, K, N, span, n_weights, dtype, stream
     "ds_grouped_matmul_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # what a bf16 kernel takes on the device, into int info[5]: registers,
+    # local (spill) bytes, static and dynamic shared memory bytes, blocks
+    # an SM; the dW kernel for n_weights weights, the block-sparse dk/dv
+    # kernel at head dim D for a LUT of max_active entries a row
+    "ds_grouped_matmul_dw_info": [_I, _P],
+    "ds_block_sparse_dkv_info": [_I, _I, _P],
 }
 
 # what the kernels are instantiated for: the dtype codes of csrc/common.cuh
@@ -185,6 +191,16 @@ def load_library():
                       seconds=time.perf_counter() - t0, log=log)
     _LIB = lib
     return lib
+
+
+def kernel_info(name, *args):
+    """{"registers", "local_bytes", "static_smem", "dynamic_smem",
+    "blocks_per_sm"} of a kernel, by its info entry point (``name``) on
+    the current device."""
+    info = (ctypes.c_int * 5)()
+    check(getattr(load_library(), name)(*args, info), name)
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "blocks_per_sm"), info))
 
 
 def check(err, name):

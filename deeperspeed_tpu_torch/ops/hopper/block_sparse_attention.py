@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
+from . import flash_attention as fa
 from .flash_attention import MASK_GRAIN as BLOCK  # the layout grain
 from .flash_attention import _acc, _strides, attention_delta
 from .flash_attention import _kernel_args as _flash_kernel_args
@@ -50,10 +51,18 @@ NEG_INF = -1e30
 # the plain versions work on this many bytes of fp32 scores at a time
 PLAIN_CHUNK_BYTES = 1 << 29
 
-# kernel launches since the last reset (`chip_smoke.py` reads these)
+# kernel launches since the last reset (`chip_smoke.py` reads these); the
+# dk/dv launches also by design: "mma" (bf16 at D = 64 and 128, the
+# tensor-core tile step) or "fma"
 launches = 0
 dkv_launches = 0
 dq_launches = 0
+DESIGNS = ("mma", "fma")
+dkv_design_launches = dict.fromkeys(DESIGNS, 0)
+
+
+def reset_design_launches():
+    dkv_design_launches.update(dict.fromkeys(DESIGNS, 0))
 
 
 def build_lut(layout):
@@ -299,10 +308,16 @@ def block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts, causal,
     """Launch the dk/dv kernel of `csrc/block_sparse_attention.cu` on CUDA
     tensors → (dk, dv), [B, S, H, D] contiguous in q's dtype. ``do`` is
     contiguous in q's dtype; ``delta`` is `attention_delta` [B·H, S]
-    fp32."""
+    fp32. bf16 at D = 64 and 128 takes the tensor-core design, whose
+    16-byte loads need q, k, v and dO on 16-byte pointers and row
+    strides."""
     global dkv_launches
     ins, common = _bwd_args(q, k, v, lse, do, delta, luts, causal, sm_scale,
                             "block-sparse dk/dv")
+    design = fa.flash_design(q.dtype, q.shape[-1])
+    if design == "mma":
+        fa.check_alignment((("q", q), ("k", k), ("v", v), ("dO", do)),
+                           "block-sparse dk/dv")
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = _build.load_library().ds_block_sparse_bwd_dkv(
@@ -310,6 +325,7 @@ def block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts, causal,
         dv.data_ptr(), *common)
     _build.check(err, "ds_block_sparse_bwd_dkv")
     dkv_launches += 1
+    dkv_design_launches[design] += 1
     return dk, dv
 
 

@@ -34,15 +34,21 @@ DEFAULT_BLOCK_M = 256
 
 # kernel launches since the last reset (`chip_smoke.py` reads these): the
 # forward kernel (forward and dx products), the same by design ("wgmma":
-# bf16, "fma": fp32), and the dW kernel
+# bf16, "fma": fp32), and the dW kernel, also by design
 launches = 0
 DESIGNS = ("wgmma", "fma")
 design_launches = dict.fromkeys(DESIGNS, 0)
 dw_launches = 0
+dw_design_launches = dict.fromkeys(DESIGNS, 0)
+
+# the most weights the bf16 dW kernel ranks by live rows in one launch
+# (`DW_MAX_WEIGHTS` in csrc/grouped_matmul.cu)
+DW_MAX_WEIGHTS = 512
 
 
 def reset_design_launches():
     design_launches.update(dict.fromkeys(DESIGNS, 0))
+    dw_design_launches.update(dict.fromkeys(DESIGNS, 0))
 
 # device int32 copies of the static LUTs, per (lut, device)
 _LUT_CACHE = {}
@@ -119,14 +125,19 @@ def grouped_matmul_reference(x, w, group_sizes, span, lut=None):
 
 def grouped_matmul_dw_reference(x, dy, group_sizes, span, lut, n_weights):
     """Plain PyTorch version of the dW kernel (`_dw_pallas`): per weight,
-    x^T @ dy over its spans' live rows, in fp32 → [n_weights, K, N]."""
+    x^T @ dy over its spans' live rows, in fp32 → [n_weights, K, N]. The
+    dead rows of both x and dy are masked, as the kernel never reads them:
+    whatever they hold (NaN included) contributes exact zeros. The Pallas
+    kernel masks dy's alone, which agrees wherever the dead rows of x are
+    finite."""
     R, K = x.shape
     N = dy.shape[1]
     G = R // span
     valid = (torch.arange(span, device=x.device)[None, :]
              < group_sizes.to(x.device)[:, None])[..., None]
     xm = x.float().reshape(G, span, K).masked_fill(~valid, 0.0)
-    per_span = torch.bmm(xm.transpose(1, 2), dy.float().reshape(G, span, N))
+    dym = dy.float().reshape(G, span, N).masked_fill(~valid, 0.0)
+    per_span = torch.bmm(xm.transpose(1, 2), dym)
     idx = torch.as_tensor(np.asarray(lut, np.int64), device=x.device)
     return torch.zeros((n_weights, K, N), dtype=torch.float32,
                        device=x.device).index_add_(0, idx, per_span)
@@ -205,7 +216,9 @@ def grouped_matmul_dw_cuda(x, dy, group_sizes, span, lut, n_weights):
     """Launch the dW kernel of `csrc/grouped_matmul.cu` on CUDA tensors →
     dw [n_weights, K, N] fp32: per weight, x^T @ dy summed over its spans'
     live rows, zeros for a weight with none. x [R, K] and dy [R, N] are
-    made contiguous, in one dtype (fp32 or bf16)."""
+    made contiguous, in one dtype (fp32: the FMA kernel; bf16: the wgmma
+    kernel, which needs K and N multiples of 8, 16-byte aligned x and dy
+    and at most `DW_MAX_WEIGHTS` weights)."""
     global dw_launches
     R, K = x.shape
     N = dy.shape[1]
@@ -226,6 +239,9 @@ def grouped_matmul_dw_cuda(x, dy, group_sizes, span, lut, n_weights):
             f"the bf16 grouped matmul dW kernel reads 16-byte chunks: it "
             f"needs K % 8 == 0 (K={K}), N % 8 == 0 (N={N}) and 16-byte "
             f"aligned x and dy")
+    if x.dtype == torch.bfloat16 and n_weights > DW_MAX_WEIGHTS:
+        raise ValueError(f"the bf16 grouped matmul dW kernel ranks at most "
+                         f"{DW_MAX_WEIGHTS} weights, got {n_weights}")
     sizes = _kernel_sizes(group_sizes, x.device)
     lib = _build.load_library()
     err = lib.ds_grouped_matmul_dw(
@@ -234,6 +250,7 @@ def grouped_matmul_dw_cuda(x, dy, group_sizes, span, lut, n_weights):
         span, n_weights, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "ds_grouped_matmul_dw")
     dw_launches += 1
+    dw_design_launches["wgmma" if x.dtype == torch.bfloat16 else "fma"] += 1
     return dw
 
 

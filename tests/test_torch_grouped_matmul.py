@@ -164,7 +164,8 @@ def _fake_library(monkeypatch):
     monkeypatch.setattr(gm._build, "stream_ptr", lambda t: None)
     for name in ("launches", "dw_launches"):
         monkeypatch.setattr(gm, name, getattr(gm, name))
-    monkeypatch.setattr(gm, "design_launches", dict(gm.design_launches))
+    for name in ("design_launches", "dw_design_launches"):
+        monkeypatch.setattr(gm, name, dict(getattr(gm, name)))
     return calls
 
 
@@ -223,3 +224,96 @@ def test_span_no_tile_divides(monkeypatch):
     out = gm.grouped_matmul_cuda(x, w, sizes, span)
     assert out.shape == (3 * span, 96)
     assert calls[0][8:13] == (3 * span, 64, 96, 3, span)
+
+
+def test_dw_launches_are_counted_by_design(monkeypatch):
+    """bf16 dW launches count as the "wgmma" design, fp32 as "fma"; the
+    forward counters stay apart, and the reset clears both."""
+    calls = _fake_library(monkeypatch)
+    gm.reset_design_launches()
+    sz = torch.tensor([8, 0, 5, 3])
+    x = torch.zeros(4 * SPAN, 16, dtype=torch.bfloat16)
+    dy = torch.zeros(4 * SPAN, 24, dtype=torch.bfloat16)
+    lut = (0, 0, 1, 1)
+    dw = gm.grouped_matmul_dw_cuda(x, dy, sz, SPAN, lut, 2)
+    assert dw.shape == (2, 16, 24) and dw.dtype == torch.float32
+    gm.grouped_matmul_dw_cuda(x, dy, sz, SPAN, lut, 2)
+    gm.grouped_matmul_dw_cuda(x.float(), dy.float(), sz, SPAN, lut, 2)
+    assert gm.dw_design_launches == {"wgmma": 2, "fma": 1}
+    assert gm.design_launches == {"wgmma": 0, "fma": 0}
+    assert gm.dw_launches == 3
+    # R, K, N, span, the number of weights and the dtype reach the library
+    assert calls[0][6:12] == (4 * SPAN, 16, 24, SPAN, 2, 1)
+    assert calls[2][11] == 0
+    gm.reset_design_launches()
+    assert gm.dw_design_launches == {"wgmma": 0, "fma": 0}
+
+
+def test_bf16_dw_refuses_more_weights_than_it_ranks(monkeypatch):
+    """The bf16 dW kernel ranks at most `DW_MAX_WEIGHTS` weights in shared
+    memory: more raise before the library is called; fp32 takes any."""
+    calls = _fake_library(monkeypatch)
+    n = gm.DW_MAX_WEIGHTS + 1
+    sz = torch.ones(n, dtype=torch.int32)
+    x = torch.zeros(n * SPAN, 8, dtype=torch.bfloat16)
+    dy = torch.zeros(n * SPAN, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most"):
+        gm.grouped_matmul_dw_cuda(x, dy, sz, SPAN, tuple(range(n)), n)
+    assert calls == [] and gm.dw_design_launches == {"wgmma": 0, "fma": 0}
+    gm.grouped_matmul_dw_cuda(x.float(), dy.float(), sz, SPAN,
+                              tuple(range(n)), n)
+    assert [c[0] for c in calls] == ["dw"]
+
+
+DW_MASK_CASES = [((8, 0, 5, 3), None, None),
+                 ((8, 3, 0, 6), 2, (0, 0, 1, 1)),
+                 ((5, 0, 0, 7, 8, 1), 3, (0, 0, 1, 1, 1, 2))]
+
+
+def _dead_rows(sizes):
+    return ~(np.arange(SPAN)[None] < np.asarray(sizes)[:, None]).reshape(-1)
+
+
+@pytest.mark.parametrize("sizes,W,lut", DW_MASK_CASES,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_plain_dw_matches_pallas_with_garbage_dead_rows(sizes, W, lut):
+    """Finite garbage in the dead rows of x and dy: the Pallas dW (which
+    masks dy alone) and the plain dW (which masks both) agree."""
+    x, w, sz, dy = _case(sizes, W, seed=3)
+    dead = _dead_rows(sizes)
+    rng = np.random.default_rng(4)
+    x[dead] = 1e3 * rng.standard_normal((int(dead.sum()), K))
+    dy[dead] = 1e3 * rng.standard_normal((int(dead.sum()), N))
+    want = _jax(x, w, sz, lut, dy)[2]
+    lut_t = tuple(range(len(sizes))) if lut is None else lut
+    got = gm.grouped_matmul_dw_reference(
+        torch.from_numpy(x), torch.from_numpy(dy), torch.from_numpy(sz),
+        SPAN, lut_t, w.shape[0])
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("sizes,W,lut", DW_MASK_CASES,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_plain_dw_keeps_nan_dead_rows_out(sizes, W, lut):
+    """The kernel's contract: dead rows cost no reads and give zeros. With
+    NaN in the dead rows of both x and dy the plain dW equals the dW of
+    the same inputs with those rows zeroed, bit for bit, and a weight
+    with no live row gets exact zeros."""
+    x, w, sz, dy = _case(sizes, W, seed=5)
+    dead = _dead_rows(sizes)
+    lut_t = tuple(range(len(sizes))) if lut is None else lut
+    xz, dyz = x.copy(), dy.copy()
+    xz[dead] = 0.0
+    dyz[dead] = 0.0
+    x[dead] = np.nan
+    dy[dead] = np.nan
+    args = (torch.from_numpy(sz), SPAN, lut_t, w.shape[0])
+    got = gm.grouped_matmul_dw_reference(torch.from_numpy(x),
+                                         torch.from_numpy(dy), *args)
+    want = gm.grouped_matmul_dw_reference(torch.from_numpy(xz),
+                                          torch.from_numpy(dyz), *args)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    for e in range(w.shape[0]):
+        if all(s == 0 for s, l in zip(sizes, lut_t) if l == e):
+            assert torch.all(got[e] == 0)

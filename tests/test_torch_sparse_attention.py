@@ -531,3 +531,75 @@ def test_block_sparse_block_refines_to_128():
     np.testing.assert_allclose(att(q, k, v).numpy(), want.numpy(), **TOL)
     with pytest.raises(ValueError, match="multiple of 128"):
         bsa.BlockSparseAttention(layout, block=64)
+
+
+# ---------------------------------------------------------------------------
+# the plain backward against `sparse_attention_bwd`; launches by design
+# ---------------------------------------------------------------------------
+
+def test_plain_backward_matches_sparse_attention_bwd():
+    """The plain backward against the JAX backward kernels called as
+    `sparse_attention_bwd` (interpret mode) on the same residuals (q, k,
+    v, out, lse from `sparse_attention_fwd`) and dO: a causal fixed
+    layout with a global column and, on head 1, a key block that no
+    query attends, whose dK and dV are exact zeros."""
+    S = 1024
+    layout = sc.FixedSparsityConfig(
+        num_heads=2, block=128, num_local_blocks=2, num_global_blocks=1,
+        attention="unidirectional").make_layout(S)
+    layout[1, :, 2] = 0
+    q, k, v, do = _qkv(S, 21)
+    jatt = jbsa.BlockSparseAttention(layout, block=128, causal=True)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    out, res = jbsa.sparse_attention_fwd(
+        *map(jnp.asarray, (q, k, v)), jatt.lut, jatt.bits, jatt.sentinel,
+        True, scale, 128, jatt.group, jatt.fanout)
+    want = jbsa.sparse_attention_bwd(
+        res, jnp.asarray(do), jatt.lut, jatt.bits, jatt.lut_t, jatt.bits_t,
+        jatt.sentinel, True, scale, 128, jatt.group, jatt.fanout)
+    luts = bsa.LayoutLuts(layout)
+    got = bsa.block_sparse_attention_bwd_reference(
+        *map(torch.from_numpy, (q, k, v, np.array(out), np.array(res[4]),
+                                do)), luts, True)
+    # the first window's global column (key block 1) lists every query
+    # block from its own on in its transposed LUT row
+    assert luts.bwd[1][0, 1] == S // 128 - 1
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL_GRAD,
+                                   err_msg=name)
+    for g in got[1:]:
+        assert torch.all(g[0, 256:384, 1] == 0)
+
+
+def test_dkv_launches_are_counted_by_design(monkeypatch):
+    """bf16 dk/dv at D = 64 and 128 counts as the tensor-core ("mma")
+    design and needs 16-byte rows; fp32 and D = 256 count as "fma"; the
+    reset clears the counts."""
+    calls = []
+    lib = type("Lib", (), {"ds_block_sparse_bwd_dkv": staticmethod(
+        lambda *a: calls.append(a) or 0)})()
+    monkeypatch.setattr(bsa._build, "load_library", lambda: lib)
+    monkeypatch.setattr(bsa._build, "stream_ptr", lambda t: None)
+    monkeypatch.setattr(bsa, "dkv_launches", bsa.dkv_launches)
+    monkeypatch.setattr(bsa, "dkv_design_launches",
+                        dict(bsa.dkv_design_launches))
+    bsa.reset_design_launches()
+    S, H = 256, 2
+    luts = bsa.LayoutLuts(np.tril(np.ones((H, 2, 2))))
+    row = torch.zeros(H, S)
+    for dtype, D in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                     (torch.float32, 64), (torch.bfloat16, 256)):
+        q = torch.zeros(1, S, H, D, dtype=dtype)
+        dk, dv = bsa.block_sparse_attention_dkv_cuda(q, q, q, row, q, row,
+                                                     luts, True)
+        assert dk.shape == dv.shape == q.shape
+    assert bsa.dkv_design_launches == {"mma": 2, "fma": 2}
+    assert len(calls) == 4 and calls[0][12:16] == (1, S, H, 64)
+    # a row stride off 16 bytes is refused before the library (mma only)
+    q = torch.zeros(1, S, H, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        bsa.block_sparse_attention_dkv_cuda(q, q, q, row, q.contiguous(),
+                                            row, luts, True)
+    assert len(calls) == 4
+    bsa.reset_design_launches()
+    assert bsa.dkv_design_launches == {"mma": 0, "fma": 0}
