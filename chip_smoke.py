@@ -1,19 +1,26 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --decode-only [DIR]
 
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the hand-written kernels from deeperspeed_tpu_torch/csrc, and
-   what the grouped dW and block-sparse dK/dV kernels take on the card
-   (registers, spills, static and dynamic shared memory, blocks an SM);
+   what the grouped dW, block-sparse dK/dV and paged-decode cluster
+   kernels take on the card (registers, spills, static and dynamic shared
+   memory, blocks an SM);
 3. kernels: each kernel against its plain PyTorch version, in bf16 and
    fp32, with its time, the plain version's time, a library call's time
    (timed only) and its bound: flash forward at the serving shapes and
    at the training shape, flash backward at the training shape and on
    ragged segments (timed at B=4, S=1024), paged decode over bf16/fp32
-   and over int8 pools at the serving shape, the weight-only int8 matmul
+   and over int8 pools at the serving shape and at head dims 128 and 256
+   (two calls bit-identical), timed in CUDA graphs cold (cycling through
+   the pools of as many layers as it takes to read 64 MB between two
+   uses of one) and warm, beside the parent's single-block kernel and
+   SDPA, over lengths 0-1024 and over serve-quant's 62-110, the
+   weight-only int8 matmul
    (bf16: the wgmma kernel) at M = 16, 256 and 4096 for the four block
    weights, its int8 widening read out bit for bit (one-hot x over all
    256 int8 values), two calls bit-identical, and the wrapper's host
@@ -50,7 +57,8 @@ Phases (any failure exits non-zero before the final line):
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted (every flash launch of phases 4, 7, 11 and 15 on the
-   tensor-core design, by the wrapper's per-design counter);
+   tensor-core design, every paged-decode launch of phases 4 and 9 on
+   the cluster design, by the wrappers' per-design counters);
 5. parity: the same model in fp32 gives the same greedy tokens through
    the kernels and through the plain path;
 6. profile (only with ``--profile``): `torch.profiler` over a steady
@@ -175,6 +183,9 @@ QUANT_SERVE_CONFIG = {"inference": {
 QUANT_RUNGS = (("bf16", None, None), ("int8w", "int8", None),
                ("int8w_int8kv", "int8", "int8"))
 QUANT_REQUESTS, QUANT_PROMPT, QUANT_NEW = 16, 62, 48
+# the lengths of serve-quant's decode window (62-token prompts, up to 48
+# new tokens): paged decode's second timed shape
+DECODE_SERVE_LENGTHS = (QUANT_PROMPT, QUANT_PROMPT + QUANT_NEW)
 SERVE_CONFIG = {"inference": {
     "enabled": True, "page_size": 64, "num_pages": 513,
     "max_batch_size": 16, "token_budget": 2048,
@@ -516,16 +527,22 @@ def check_prefill(fa, gen, report):
                 if r["S"] == 1024 and r["dtype"] == str(torch.bfloat16))
 
 
-def decode_query_case(dtype, gen, B, H, D, ps, NP, P):
+def decode_query_case(dtype, gen, B, H, D, ps, NP, P, serving=False):
     """q as a strided view like the engine's, a random page permutation,
-    lengths in [0, NP·ps] with 0 and exact page multiples, trash page 0
-    past each length."""
+    trash page 0 past each length; lengths in [0, NP·ps] with 0 and exact
+    page multiples, or (``serving``) drawn from serve-quant's decode
+    window, `DECODE_SERVE_LENGTHS`."""
     qkv = torch.randn(B, H, 3 * D, generator=gen, device="cuda").to(dtype)
     q = qkv[..., :D]
-    lengths = torch.randint(0, NP * ps + 1, (B,), generator=gen,
-                            device="cuda")
-    edge = torch.tensor([0, ps, NP * ps, 3 * ps], device="cuda")[:B]
-    lengths[:len(edge)] = edge
+    if serving:
+        lo, hi = DECODE_SERVE_LENGTHS
+        lengths = torch.randint(lo, hi + 1, (B,), generator=gen,
+                                device="cuda")
+    else:
+        lengths = torch.randint(0, NP * ps + 1, (B,), generator=gen,
+                                device="cuda")
+        edge = torch.tensor([0, ps, NP * ps, 3 * ps], device="cuda")[:B]
+        lengths[:len(edge)] = edge
     perm = torch.randperm(P - 1, generator=gen, device="cuda")[:B * NP] + 1
     table = perm.reshape(B, NP)
     live = (torch.arange(NP, device="cuda")[None] * ps < lengths[:, None])
@@ -533,31 +550,32 @@ def decode_query_case(dtype, gen, B, H, D, ps, NP, P):
     return q, table.to(torch.int32), lengths.to(torch.int32)
 
 
-def decode_case(dtype, gen, B=16, H=12, D=64, ps=64, NP=16, P=513, L=2):
-    """Pools [L, P, H, ps, D] (the kernel reads layer 1 through its
-    view) and the query case of `decode_query_case`."""
-    k_pool = torch.randn(L, P, H, ps, D, generator=gen,
-                         device="cuda").to(dtype)
-    v_pool = torch.randn(L, P, H, ps, D, generator=gen,
-                         device="cuda").to(dtype)
-    q, table, lengths = decode_query_case(dtype, gen, B, H, D, ps, NP, P)
-    return q, k_pool[1], v_pool[1], table, lengths
-
-
-def decode_int8_case(dtype, gen, B=16, H=12, D=64, ps=64, NP=16, P=513,
-                     L=2):
-    """int8 pools [L, P, H, ps, D] and bf16 scale pools [L, P, H, ps] (the
-    kernel reads layer 1 through views), q in ``dtype``."""
-    k_pool = torch.randint(-127, 128, (L, P, H, ps, D), generator=gen,
-                           device="cuda", dtype=torch.int8)
-    v_pool = torch.randint(-127, 128, (L, P, H, ps, D), generator=gen,
-                           device="cuda", dtype=torch.int8)
-    k_sc, v_sc = (
+def decode_pools(gen, L, P, H, ps, D, dtype, int8):
+    """L layers' pools [L, P, H, ps, D] in ``dtype``, or int8 with bf16
+    scale pools [L, P, H, ps] → (k, v) or (k, v, k_scales, v_scales)."""
+    if not int8:
+        return tuple(torch.randn(L, P, H, ps, D, generator=gen,
+                                 device="cuda").to(dtype) for _ in range(2))
+    kv = tuple(torch.randint(-127, 128, (L, P, H, ps, D), generator=gen,
+                             device="cuda", dtype=torch.int8)
+               for _ in range(2))
+    return kv + tuple(
         (0.005 + 0.02 * torch.rand(L, P, H, ps, generator=gen,
                                    device="cuda")).to(torch.bfloat16)
         for _ in range(2))
-    q, table, lengths = decode_query_case(dtype, gen, B, H, D, ps, NP, P)
-    return q, k_pool[1], v_pool[1], k_sc[1], v_sc[1], table, lengths
+
+
+def decode_call(da, q, views, table, lengths):
+    """The wrapper a main path calls on one layer's views."""
+    if len(views) == 4:
+        return da.paged_decode_int8_cuda(q, *views, table, lengths)
+    return da.paged_decode_cuda(q, *views, table, lengths)
+
+
+def decode_reference(da, q, views, table, lengths):
+    scales = dict(zip(("k_scales", "v_scales"), views[2:]))
+    return da.paged_decode_attention_reference(q, views[0], views[1], table,
+                                               lengths, **scales)
 
 
 def decode_bound_ms(q, lengths, kv_bytes=None, scale_bytes=0):
@@ -573,149 +591,165 @@ def decode_bound_ms(q, lengths, kv_bytes=None, scale_bytes=0):
     return bound_ms(nbytes, 4 * H * D * tokens)
 
 
-def check_decode(da, gen, report):
+def decode_times(da, gen, int8, serving, B=16, H=12, D=64, ps=64, NP=16,
+                 P=513):
+    """One timed bf16 shape: the kernel checked on it, then the kernel,
+    the single-block kernel (the parent's, kept for fp32 pools and D
+    256; through `launch_kernel` with cluster 0, where the module has
+    it), the plain version and SDPA on pre-gathered K/V (dequantized for
+    int8 pools), each timed cold and warm. Cold: the calls cycle through
+    the views of L layers of pools, so many that between two uses of a
+    layer the others read at least `QMM_COLD_BYTES` (at least 3, as a
+    serving step walks its layers' distinct pools); SDPA cycles through
+    L pre-gathered copies. Warm: 20 calls on one layer's view."""
     import torch.nn.functional as F
-    rows = []
-    for dtype in (torch.bfloat16, torch.float32):
-        q, kp, vp, table, lengths = decode_case(dtype, gen)
-        out = da.paged_decode_cuda(q, kp, vp, table, lengths)
-        ref = da.paged_decode_attention_reference(q, kp, vp, table, lengths)
-        torch.cuda.synchronize()
-        tol = TOL[dtype]["out"]
-        err, ok = close(out, ref, *tol)
-        zero_ok = bool((out[lengths == 0] == 0).all())
-        row = {"dtype": str(dtype), "max_abs_err": err, "tol": tol,
-               "lengths": lengths.tolist()}
-        print(f"  paged_decode {row}", flush=True)
-        if not (ok and zero_ok):
-            fail(f"paged decode kernel disagrees with its plain version "
-                 f"(zero rows exact: {zero_ok}): {row}")
-        if dtype == torch.bfloat16:
-            B, H, D = q.shape
-            NP, ps = table.shape[1], kp.shape[2]
-            kg = kp[table.long()].movedim(2, 1).reshape(B, H, NP * ps, D)
-            vg = vp[table.long()].movedim(2, 1).reshape(B, H, NP * ps, D)
-            mask = (torch.arange(NP * ps, device="cuda")[None] <
-                    lengths[:, None])[:, None, None, :]
-            q4 = q.contiguous()[:, :, None, :]
-            row["ms"] = time_ms(lambda: da.paged_decode_cuda(
-                q, kp, vp, table, lengths))
-            row["plain_ms"] = time_ms(
-                lambda: da.paged_decode_attention_reference(
-                    q, kp, vp, table, lengths))
-            row["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q4, kg, vg, attn_mask=mask))
-            row["bound_ms"], row["bound_by"] = decode_bound_ms(q, lengths)
-            row["graph_ms"] = graph_ms(lambda: da.paged_decode_cuda(
-                q, kp, vp, table, lengths))
-            row["plain_graph_ms"] = graph_ms(
-                lambda: da.paged_decode_attention_reference(
-                    q, kp, vp, table, lengths), launches=5)
-            row["library_graph_ms"] = graph_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q4, kg, vg, attn_mask=mask))
-            print(f"  paged_decode times: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, library "
-                  f"{row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}); in a CUDA "
-                  f"graph: kernel {row['graph_ms']:.4f} ms, plain "
-                  f"{row['plain_graph_ms']:.4f} ms, library "
-                  f"{row['library_graph_ms']:.4f} ms", flush=True)
-        rows.append(row)
-    # the other head dims, and smaller pages
-    for dtype in (torch.bfloat16, torch.float32):
-        for B, H, D, ps, NP, P in ((3, 2, 128, 16, 8, 40),
-                                   (5, 4, 256, 32, 4, 30)):
-            q, kp, vp, table, lengths = decode_case(
-                dtype, gen, B=B, H=H, D=D, ps=ps, NP=NP, P=P)
-            out = da.paged_decode_cuda(q, kp, vp, table, lengths)
-            ref = da.paged_decode_attention_reference(q, kp, vp, table,
-                                                      lengths)
-            torch.cuda.synchronize()
-            err, ok = close(out, ref, *TOL[dtype]["out"])
-            zero_ok = bool((out[lengths == 0] == 0).all())
-            row = {"B": B, "H": H, "D": D, "page_size": ps,
-                   "dtype": str(dtype), "max_abs_err": err}
-            print(f"  paged_decode {row}", flush=True)
-            if not (ok and zero_ok):
-                fail(f"paged decode kernel disagrees with its plain "
-                     f"version (zero rows exact: {zero_ok}): {row}")
-            rows.append(row)
-    report["paged_decode"] = rows
-    return rows[0]
+    q, table, lengths = decode_query_case(torch.bfloat16, gen, B, H, D, ps,
+                                          NP, P, serving)
+    kv_bytes, scale_bytes = (1, 2) if int8 else (2, 0)
+    live = 2 * H * int(lengths.long().sum()) * (D * kv_bytes + scale_bytes)
+    L = max(3, 1 + -(-QMM_COLD_BYTES // live))
+    pools = decode_pools(gen, L, P, H, ps, D, torch.bfloat16, int8)
+    views = [tuple(p[i] for p in pools) for i in range(L)]
+    out = decode_call(da, q, views[0], table, lengths)
+    again = decode_call(da, q, views[0], table, lengths)
+    ref = decode_reference(da, q, views[0], table, lengths)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]["out"]
+    err, ok = close(out, ref, *tol)
+    zero_ok = bool((out[lengths == 0] == 0).all())
+    same = torch.equal(out, again)
+    row = {"dtype": str(torch.bfloat16), "int8_pools": int8,
+           "shape": f"B={B} H={H} D={D} ps={ps} NP={NP} P={P}",
+           "lengths_drawn": (f"{DECODE_SERVE_LENGTHS[0]}-"
+                             f"{DECODE_SERVE_LENGTHS[1]}" if serving else
+                             f"0-{NP * ps} with 0, {ps}, {NP * ps}, "
+                             f"{3 * ps}"),
+           "lengths": lengths.tolist(), "max_abs_err": err, "tol": tol,
+           "two_calls_identical": same, "layers_cycled": L,
+           "live_bytes": live}
+    if not (ok and zero_ok and same):
+        fail(f"paged decode kernel disagrees with its plain version at its "
+             f"timed shape (zero rows exact: {zero_ok}, bit-identical: "
+             f"{same}): {row}")
+    NPg = -(-int(lengths.max()) // ps)
+    pt = table[:, :NPg].long()
+
+    def gathered(v):
+        k, vv = v[0][pt], v[1][pt]
+        if int8:
+            k = (k.float() * v[2][pt].float()[..., None]).to(torch.bfloat16)
+            vv = (vv.float() * v[3][pt].float()[..., None]).to(
+                torch.bfloat16)
+        return tuple(t.movedim(2, 1).reshape(B, H, NPg * ps, D)
+                     for t in (k, vv))
+    copies = [gathered(v) for v in views]
+    mask = (torch.arange(NPg * ps, device="cuda")[None] <
+            lengths[:, None])[:, None, None, :]
+    q4 = q.contiguous()[:, :, None, :]
+    it = {"i": 0}
+
+    def nxt(seq):
+        it["i"] = (it["i"] + 1) % len(seq)
+        return seq[it["i"]]
+
+    def kernel(v):
+        return decode_call(da, q, v, table, lengths)
+
+    def plain(v):
+        return decode_reference(da, q, v, table, lengths)
+
+    def library(g):
+        return F.scaled_dot_product_attention(q4, *g, attn_mask=mask)
+    n_plain = min(L, 4)   # each plain call writes [B, H, NP·ps, D] gathers
+    row["ms"] = time_ms(lambda: kernel(nxt(views)))
+    row["plain_ms"] = time_ms(lambda: plain(nxt(views[:n_plain])), warmup=2,
+                              iters=10)
+    row["library_ms"] = time_ms(lambda: library(nxt(copies)))
+    row["bound_ms"], row["bound_by"] = decode_bound_ms(
+        q, lengths, kv_bytes=kv_bytes, scale_bytes=scale_bytes)
+    row["graph_ms"] = graph_ms(lambda: kernel(nxt(views)), launches=L)
+    row["warm_graph_ms"] = graph_ms(lambda: kernel(views[0]))
+    row["plain_graph_ms"] = graph_ms(lambda: plain(nxt(views[:n_plain])),
+                                     launches=n_plain, replays=2)
+    row["library_graph_ms"] = graph_ms(lambda: library(nxt(copies)),
+                                       launches=L)
+    row["library_warm_graph_ms"] = graph_ms(lambda: library(copies[0]))
+    row["library"] = (f"SDPA on pre-gathered{', dequantized' if int8 else ''}"
+                      f" bf16 K/V of {NPg * ps} positions, bool mask")
+    if hasattr(da, "launch_kernel"):
+        def fixed(cluster):
+            return lambda v: da.launch_kernel(q, v[0], v[1], table, lengths,
+                                              None, cluster, *v[2:])
+        single = fixed(0)
+        row["parent_max_abs_err"], _ = close(single(views[0]), ref, *tol)
+        row["parent_graph_ms"] = graph_ms(lambda: single(nxt(views)),
+                                          launches=L)
+        row["parent_warm_graph_ms"] = graph_ms(lambda: single(views[0]))
+        # the plan's cluster beside min(8, pages a row), the row alone's
+        row["cluster"] = da.launch_plan(B, H, NP)
+        row["cluster8_graph_ms"] = graph_ms(
+            lambda: fixed(min(8, NP))(nxt(views)), launches=L)
+    print(f"  {'paged_decode_int8' if int8 else 'paged_decode'} timed "
+          f"({'serving lengths ' + row['lengths_drawn'] if serving else 'lengths 0-1024'}"
+          f", {L} layers cycled): max abs err {err:.2e}; kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}); in a CUDA graph, cold: kernel "
+          f"{row['graph_ms']:.4f} ms (clusters of {row.get('cluster')}; of "
+          f"{min(8, NP)}: {row.get('cluster8_graph_ms', float('nan')):.4f} "
+          f"ms), parent "
+          f"{row.get('parent_graph_ms', float('nan')):.4f} ms, plain "
+          f"{row['plain_graph_ms']:.4f} ms, library "
+          f"{row['library_graph_ms']:.4f} ms; warm: kernel "
+          f"{row['warm_graph_ms']:.4f} ms, parent "
+          f"{row.get('parent_warm_graph_ms', float('nan')):.4f} ms, library "
+          f"{row['library_warm_graph_ms']:.4f} ms", flush=True)
+    del pools, views, copies
+    torch.cuda.empty_cache()
+    return row
 
 
-def check_decode_int8(da, gen, report):
-    """The int8-pool kernel against the plain version at the serving
-    shape and at the other head dims, bf16 and fp32 q."""
-    import torch.nn.functional as F
+def check_decode(da, report, int8=False):
+    """The bf16/fp32-pool (or, with ``int8``, the int8-pool) kernel against
+    its plain version at the serving shape and at head dims 128 and 256,
+    bf16 and fp32 q: within TOL, length-0 rows exact zeros, two calls
+    bit-identical; then `decode_times` at the serving shape over lengths
+    0-1024 and over serving lengths → (checked rows, timed rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(7 + int(int8))
+    name = "paged_decode_int8" if int8 else "paged_decode"
+    design = getattr(da, "kernel_design", lambda q, kp: "single")
     rows = []
-    cases = [dict()] + [dict(B=B, H=H, D=D, ps=ps, NP=NP, P=P)
-                        for B, H, D, ps, NP, P in ((3, 2, 128, 16, 8, 40),
-                                                   (5, 4, 256, 32, 4, 30))]
-    for shape in cases:
+    for shape in (dict(B=16, H=12, D=64, ps=64, NP=16, P=513),
+                  dict(B=3, H=2, D=128, ps=16, NP=8, P=40),
+                  dict(B=5, H=4, D=256, ps=32, NP=4, P=30)):
         for dtype in (torch.bfloat16, torch.float32):
-            q, kp, vp, ks, vs, table, lengths = decode_int8_case(
-                dtype, gen, **shape)
-            out = da.paged_decode_int8_cuda(q, kp, vp, ks, vs, table,
-                                            lengths)
-            ref = da.paged_decode_attention_reference(
-                q, kp, vp, table, lengths, k_scales=ks, v_scales=vs)
+            q, table, lengths = decode_query_case(dtype, gen, **shape)
+            pools = decode_pools(gen, 2, shape["P"], shape["H"],
+                                 shape["ps"], shape["D"], dtype, int8)
+            views = tuple(p[1] for p in pools)
+            out = decode_call(da, q, views, table, lengths)
+            again = decode_call(da, q, views, table, lengths)
+            ref = decode_reference(da, q, views, table, lengths)
             torch.cuda.synchronize()
             tol = TOL[dtype]["out"]
             err, ok = close(out, ref, *tol)
             zero_ok = bool((out[lengths == 0] == 0).all())
+            same = torch.equal(out, again)
             row = {"dtype": str(dtype), "max_abs_err": err, "tol": tol,
+                   "design": design(q, views[0]), "two_calls_identical": same,
                    **shape}
-            print(f"  paged_decode_int8 {row}", flush=True)
-            if not (ok and zero_ok and out.dtype == dtype):
-                fail(f"int8 paged decode kernel disagrees with its plain "
-                     f"version (zero rows exact: {zero_ok}): {row}")
-            if not shape and dtype == torch.bfloat16:
-                B, H, D = q.shape
-                NP, ps = table.shape[1], kp.shape[2]
-                pt = table.long()
-                kg = (kp[pt].float() * ks[pt].float()[..., None]).to(dtype)
-                vg = (vp[pt].float() * vs[pt].float()[..., None]).to(dtype)
-                kg = kg.movedim(2, 1).reshape(B, H, NP * ps, D)
-                vg = vg.movedim(2, 1).reshape(B, H, NP * ps, D)
-                mask = (torch.arange(NP * ps, device="cuda")[None] <
-                        lengths[:, None])[:, None, None, :]
-                q4 = q.contiguous()[:, :, None, :]
-                row["ms"] = time_ms(lambda: da.paged_decode_int8_cuda(
-                    q, kp, vp, ks, vs, table, lengths))
-                row["plain_ms"] = time_ms(
-                    lambda: da.paged_decode_attention_reference(
-                        q, kp, vp, table, lengths, k_scales=ks,
-                        v_scales=vs))
-                row["library_ms"] = time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q4, kg, vg, attn_mask=mask))
-                row["bound_ms"], row["bound_by"] = decode_bound_ms(
-                    q, lengths, kv_bytes=1, scale_bytes=2)
-                row["lengths"] = lengths.tolist()
-                row["graph_ms"] = graph_ms(lambda: da.paged_decode_int8_cuda(
-                    q, kp, vp, ks, vs, table, lengths))
-                row["plain_graph_ms"] = graph_ms(
-                    lambda: da.paged_decode_attention_reference(
-                        q, kp, vp, table, lengths, k_scales=ks,
-                        v_scales=vs), launches=5)
-                row["library_graph_ms"] = graph_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q4, kg, vg, attn_mask=mask))
-                print(f"  paged_decode_int8 times: kernel {row['ms']:.4f} "
-                      f"ms, plain {row['plain_ms']:.4f} ms, library "
-                      f"{row['library_ms']:.4f} ms, bound "
-                      f"{row['bound_ms']:.5f} ms ({row['bound_by']}); in a "
-                      f"CUDA graph: kernel {row['graph_ms']:.4f} ms, plain "
-                      f"{row['plain_graph_ms']:.4f} ms, library "
-                      f"{row['library_graph_ms']:.4f} ms", flush=True)
+            print(f"  {name} {row}", flush=True)
+            if not (ok and zero_ok and same and out.dtype == dtype):
+                fail(f"{name} kernel disagrees with its plain version "
+                     f"(zero rows exact: {zero_ok}, bit-identical: {same}): "
+                     f"{row}")
             rows.append(row)
-            del q, kp, vp, ks, vs
+            del pools, views
         torch.cuda.empty_cache()
-    report["paged_decode_int8"] = rows
-    return rows[0]
+    timed = [decode_times(da, gen, int8, serving)
+             for serving in (False, True)]
+    report[name] = {"checked": rows, "timed": timed}
+    return timed
 
 
 def qmm_bound_ms(x, qw):
@@ -2029,6 +2063,22 @@ def check_bwd_identity(fa, gen, report):
     return rows
 
 
+def check_decode_design(da, what, launches, int8):
+    """Every paged-decode launch of a bf16 serving path (bf16 or int8
+    pools, D 64) took the cluster kernel, by the wrapper's per-design
+    counters → {"paged_decode": counts, "paged_decode_int8": counts}."""
+    got = {"paged_decode": dict(da.launches_by_design),
+           "paged_decode_int8": dict(da.launches_by_design_int8)}
+    for name, counts in got.items():
+        n = launches[name] if name in launches else 0
+        if counts != {"cluster": n, "single": 0}:
+            fail(f"{what}: {name} launches by design {counts}, want all "
+                 f"{n} on the cluster kernel")
+    if not got["paged_decode_int8" if int8 else "paged_decode"]["cluster"]:
+        fail(f"{what}: no paged-decode launch on the cluster kernel")
+    return got
+
+
 def check_design(fa, what, want_mma):
     """Fail unless every flash launch since the last reset took the bf16
     tensor-core kernels: ``want_mma`` {kernel: launches} of the path."""
@@ -2071,6 +2121,7 @@ def serve(fa, da, report):
     fa.launches = 0
     fa.reset_design_launches()
     da.launches = 0
+    da.reset_launches_by_design()
     prefill_calls = decode_steps = 0
     submit_at, last, seen, itl, ttft = {}, {}, {}, [], []
     submitted = step = 0
@@ -2118,6 +2169,7 @@ def serve(fa, da, report):
              f"calls, {decode_steps} decode steps)")
     design = check_design(fa, "serving",
                           {"fwd": launches["flash_fwd"]})
+    decode_design = check_decode_design(da, "serving", launches, False)
     with torch.no_grad():
         logits = model(torch.tensor([prompts[0]], device="cuda"))
     if logits.shape != (1, len(prompts[0]), cfg.vocab_size) or \
@@ -2142,6 +2194,7 @@ def serve(fa, da, report):
         "steps": stats["steps"], "evictions": stats["evictions"],
         "prefill_calls": prefill_calls, "decode_steps": decode_steps,
         "launches": launches, "design_launches": design,
+        "decode_design_launches": decode_design["paged_decode"],
         "dtypes": eng.dtypes,
     }
     report["serve"] = result
@@ -2203,6 +2256,7 @@ def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
 
     fa.launches = da.launches = da.launches_int8 = qm.launches = 0
     qm.reset_design_launches()
+    da.reset_launches_by_design()
     prefill_calls = decode_steps = 0
     itl, last = [], {}
     t0 = time.perf_counter()
@@ -2247,6 +2301,7 @@ def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
     if design != {"wgmma": launches["quant_matmul"], "fma": 0}:
         fail(f"{tag}: int8 matmul launches by design {design}, want all "
              f"{launches['quant_matmul']} on wgmma")
+    decode_design = check_decode_design(da, tag, launches, bool(kv_dtype))
     dtok = eng.stats["decode_tokens"] - warm["decode_tokens"]
     dsec = eng.stats["decode_s"] - warm["decode_s"]
     row = {"decode_tok_s": dtok / dsec, "stream_tok_s": dtok / dt,
@@ -2255,7 +2310,7 @@ def serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da, qm):
            "prefill_s": eng.stats["prefill_s"] - warm["prefill_s"],
            "prefill_calls": prefill_calls, "decode_steps": decode_steps,
            "launches": launches, "quant_matmul_design_launches": design,
-           "dtypes": eng.dtypes}
+           "decode_design_launches": decode_design, "dtypes": eng.dtypes}
     del eng
     torch.cuda.empty_cache()
     return row
@@ -2856,7 +2911,8 @@ def profile_window(fn, steps, share_of=None):
     """Run ``fn`` ``steps`` times under the profiler: host ms per step,
     device kernel ms per step, busy share, launches per step and the
     kernels that take the most device time; with ``share_of``, the share
-    of device time of the kernels whose names hold it."""
+    of device time (and the ms a step) of the kernels whose names hold
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -2878,9 +2934,9 @@ def profile_window(fn, steps, share_of=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     extra = {}
     if share_of is not None:
-        extra["device_share_" + share_of] = sum(
-            t for name, (t, _) in by_name.items() if share_of in name) / \
-            max(busy_us, 1e-9)
+        us = sum(t for name, (t, _) in by_name.items() if share_of in name)
+        extra["device_share_" + share_of] = us / max(busy_us, 1e-9)
+        extra["device_ms_per_step_" + share_of] = us / 1e3 / steps
     return {**extra,
         "steps": steps,
         "host_ms_per_step": wall * 1e3 / steps,
@@ -2919,7 +2975,7 @@ def profile(report, card):
     while eng.scheduler.waiting:
         eng.step()
     eng.step()
-    decode = profile_window(eng.step, 20)
+    decode = profile_window(eng.step, 20, share_of="paged_decode")
     # one prefill call at the B=4, S=512 bucket, through the engine's
     # device program
     S = 512
@@ -2932,6 +2988,8 @@ def profile(report, card):
                              share_of="flash")
     report["profile"] = {"decode_B16": decode, "prefill_B4_S512": prefill}
     print_profile("decode step (B=16)", decode, card)
+    print(f"  paged decode: {decode['device_ms_per_step_paged_decode']:.4f} "
+          f"ms a step", flush=True)
     print_profile("prefill call (B=4, S=512)", prefill, card)
     print(f"  flash kernels' share of device time: "
           f"{prefill['device_share_flash']:.3f}", flush=True)
@@ -2948,9 +3006,11 @@ def profile(report, card):
         while eng.scheduler.waiting:
             eng.step()
         eng.step()
-        res = profile_window(eng.step, 10)
+        res = profile_window(eng.step, 10, share_of="paged_decode")
         report["profile"][f"decode_quant_{tag}"] = res
         print_profile(f"serve-quant decode step ({tag})", res, card)
+        print(f"  paged decode: {res['device_ms_per_step_paged_decode']:.4f} "
+              f"ms a step", flush=True)
         del eng
     del model
     torch.cuda.empty_cache()
@@ -2961,10 +3021,58 @@ def gmm_shape(row):
             f"K={row['K']} N={row['N']} bf16")
 
 
+DECODE_DESIGN = (
+    "bf16 and int8 pools at D 64/128: split-KV over a thread-block cluster "
+    "of min(8, pages a row) CTAs halved to fit one wave, pages dealt "
+    "round-robin, empty ranks exit at once, 16-byte cp.async page tiles "
+    "in a 2-stage ring, fixed-order DSMEM merge in rank 0; fp32 pools and "
+    "D 256: one block a (sequence, head)")
+DECODE_GRAPH_KEYS = ("graph_ms", "warm_graph_ms", "parent_graph_ms",
+                     "parent_warm_graph_ms", "plain_graph_ms",
+                     "library_graph_ms", "library_warm_graph_ms",
+                     "layers_cycled", "cluster", "cluster8_graph_ms")
+
+
+def decode_graph_times(row):
+    """A timed decode row's CUDA-graph times: cold (cycling layers) and
+    warm, of the kernel, the parent's single-block kernel, the plain
+    version and SDPA."""
+    return {k: row[k] for k in DECODE_GRAPH_KEYS if k in row}
+
+
+def decode_shape_row(row):
+    return {k: row[k] for k in (
+        "shape", "lengths_drawn", "max_abs_err", "ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")} | decode_graph_times(row)
+
+
 def graph_times(row):
-    """The CUDA-graph device times of a decode-sized kernel's row."""
+    """The CUDA-graph device times of a small kernel's row (the int8
+    matmul at decode rows)."""
     return {k: row[k] for k in ("graph_ms", "plain_graph_ms",
                                 "library_graph_ms")}
+
+
+def decode_only(tree, card):
+    """Phase 3's paged-decode checks and timings alone, on the port of
+    the checkout ``tree`` (this one, or another commit's, to time its
+    kernels by the same cold method on the same card in the same call)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    _build.load_library()
+    info = _build.BUILD_INFO
+    print(f"build: {info['seconds']:.1f} s (built={info['built']}) "
+          f"{info['path']}", flush=True)
+    report = {"card": card, "tree": os.path.abspath(tree),
+              "decode_attention": da.__file__}
+    print("paged decode vs plain versions:", flush=True)
+    for int8 in (False, True):
+        check_decode(da, report, int8=int8)
+    print(json.dumps({"decode": {k: report[k] for k in (
+        "paged_decode", "paged_decode_int8")}}), flush=True)
+    print(f"decode-only on {card}: {report['tree']}", flush=True)
+    return 0
 
 
 def main():
@@ -2972,6 +3080,10 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile a decode window, a prefill call and "
                          "the training steps")
+    ap.add_argument("--decode-only", metavar="DIR", nargs="?", const=".",
+                    help="run only the paged-decode checks and timings of "
+                         "phase 3, on the port of this checkout or of DIR "
+                         "(a checkout of another commit, built there)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2984,6 +3096,8 @@ def main():
           f"{sys.version.split()[0]}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.decode_only:
+        return decode_only(args.decode_only, card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -3011,6 +3125,11 @@ def main():
         taken[f"block_sparse_dkv_mma_kernel<{D}> (phase 13's LUT)"] = \
             _build.kernel_info("ds_block_sparse_dkv_info", D,
                                sparse_luts.bwd[0].shape[-1])
+    for D in da.CLUSTER_HEAD_DIMS:
+        for pool in ("bf16", "int8"):
+            taken[f"paged_decode_cluster_kernel<{D}> ({pool} pools, 16 "
+                  f"pages a row)"] = _build.kernel_info(
+                      "ds_paged_decode_info", D, int(pool == "int8"), 16)
     for name, row in taken.items():
         print(f"  on the device: {name}: {row['registers']} registers, "
               f"local (spill) {row['local_bytes']} B, static shared "
@@ -3024,8 +3143,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("kernels vs plain versions:", flush=True)
     fl = check_prefill(fa, gen, report)
-    de = check_decode(da, gen, report)
-    di = check_decode_int8(da, gen, report)
+    de, de_serve = check_decode(da, report)
+    di, di_serve = check_decode(da, report, int8=True)
     qrows = check_quant_matmul(qm, gen, report)
     n_params = GPTNeoXConfig(**NEOX_125M).num_params()
     ft, fb, adm, fbs = check_train_kernels(fa, ad, gen, report, n_params)
@@ -3174,11 +3293,15 @@ def main():
          "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
          "replaces": f"{pallas}decode_attention.py:84",
          "launches": sv["launches"]["paged_decode"],
+         "design": DECODE_DESIGN,
+         "design_launches": sv["decode_design_launches"],
          "max_abs_err": de["max_abs_err"], "ms": de["ms"],
          "plain_ms": de["plain_ms"], "bound_ms": de["bound_ms"],
          "bound_by": de["bound_by"], "library_ms": de["library_ms"],
-         "shape": "B=16 H=12 D=64 ps=64 NP=16 P=513 bf16",
-         "tolerance": de["tol"], **graph_times(de)},
+         "library": de["library"],
+         "shape": f"{de['shape']} bf16, lengths {de['lengths_drawn']}",
+         "tolerance": de["tol"], **decode_graph_times(de),
+         "serving_shape": decode_shape_row(de_serve)},
         {"name": "flash_bwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{pallas}flash_attention.py:736, :763 "
@@ -3252,12 +3375,17 @@ def main():
                      f"(_decode_kernel_quant)",
          "launches": sq["rungs"]["int8w_int8kv"]["launches"][
              "paged_decode_int8"],
+         "design": DECODE_DESIGN,
+         "design_launches": sq["rungs"]["int8w_int8kv"][
+             "decode_design_launches"]["paged_decode_int8"],
          "max_abs_err": di["max_abs_err"], "ms": di["ms"],
          "plain_ms": di["plain_ms"], "bound_ms": di["bound_ms"],
          "bound_by": di["bound_by"], "library_ms": di["library_ms"],
-         "shape": "B=16 H=12 D=64 ps=64 NP=16 P=513 int8 pools, bf16 "
-                  "scales, bf16 q",
-         "tolerance": di["tol"], **graph_times(di)},
+         "library": di["library"],
+         "shape": f"{di['shape']} int8 pools, bf16 scales, bf16 q, "
+                  f"lengths {di['lengths_drawn']}",
+         "tolerance": di["tol"], **decode_graph_times(di),
+         "serving_shape": decode_shape_row(di_serve)},
         {"name": "grouped_matmul", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
          "replaces": f"{pallas}grouped_matmul.py:121 (_fwd_kernel, via "

@@ -20,6 +20,7 @@
 #include <cstring>
 #include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 #include <vector>
 
@@ -197,9 +198,53 @@ struct Block {
   std::atomic<int> vote{0};                              // __syncthreads_or
 };
 
+// barrier.cluster: a phase completes when every thread of the cluster
+// that has not exited has arrived. A thread that exits leaves every later
+// phase; if it had not arrived in the current one, it stops holding that
+// one up. A wait that does not return in 20 s aborts.
+struct ClusterBarrier {
+  std::mutex mu;
+  std::condition_variable cv;
+  unsigned expected, arrived = 0, leaving = 0;
+  uint64_t phase = 0;
+  explicit ClusterBarrier(unsigned n) : expected(n) {}
+  void complete_if_done() {   // with mu held
+    if (arrived == 0 || arrived < expected) return;
+    ++phase;
+    arrived = 0;
+    expected -= leaving;
+    leaving = 0;
+    cv.notify_all();
+  }
+  uint64_t arrive() {
+    std::lock_guard<std::mutex> lock(mu);
+    const uint64_t p = phase;
+    ++arrived;
+    complete_if_done();
+    return p;
+  }
+  void wait(uint64_t p) {
+    std::unique_lock<std::mutex> lock(mu);
+    if (!cv.wait_for(lock, std::chrono::seconds(20),
+                     [&] { return phase != p; }))
+      shim_fail("barrier.cluster wait never returned");
+  }
+  void arrive_and_wait() { wait(arrive()); }
+  // the thread exits; `pending`: the phase of an arrival it never waited on
+  void leave(std::optional<uint64_t> pending) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (pending && *pending == phase) {
+      ++leaving;   // counted in this phase, gone from the next
+    } else {
+      --expected;
+      complete_if_done();
+    }
+  }
+};
+
 struct Cluster {
   std::vector<Block*> blocks;
-  std::unique_ptr<std::barrier<>> sync;
+  std::unique_ptr<ClusterBarrier> sync;
 };
 
 struct Thread {
@@ -207,6 +252,8 @@ struct Thread {
   Block* block = nullptr;
   Cluster* cluster = nullptr;
   unsigned exchanges = 0;   // warp exchanges this thread has taken part in
+  // the phase of a barrier.cluster arrival not yet waited on
+  std::optional<uint64_t> cluster_token;
 };
 
 inline thread_local Thread self;
@@ -256,7 +303,7 @@ void run_grid(dim3 grid, dim3 block, size_t smem, unsigned cx, K kernel,
           cl.blocks.push_back(b.get());
           blocks.push_back(std::move(b));
         }
-        cl.sync = std::make_unique<std::barrier<>>(nt * cx);
+        cl.sync = std::make_unique<ClusterBarrier>(nt * cx);
         std::vector<std::thread> threads;
         for (unsigned r = 0; r < cx; ++r)
           for (unsigned t = 0; t < nt; ++t)
@@ -271,6 +318,7 @@ void run_grid(dim3 grid, dim3 block, size_t smem, unsigned cx, K kernel,
               self.block = cl.blocks[r];
               self.cluster = &cl;
               kernel(args...);
+              cl.sync->leave(self.cluster_token);
             });
         for (auto& th : threads) th.join();
       }

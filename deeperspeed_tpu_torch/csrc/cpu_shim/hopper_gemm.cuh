@@ -14,7 +14,8 @@
 //   two bytes apart; MN-major: index i at (i / 64) * LBO + (i % 64) * 2, k
 //   at (k / 8) * SBO + (k % 8) * 128), then swizzled.
 // - A cluster's CTAs run together; mapa / ld.shared::cluster reach the
-//   other CTA's buffer; barrier.cluster is a barrier over all of them.
+//   other CTA's buffer; barrier.cluster is a barrier over all of their
+//   threads that have not exited (`shim::ClusterBarrier`).
 #pragma once
 
 #include "cuda_shim.h"
@@ -196,6 +197,16 @@ inline void setmaxnreg_dec() {}
 inline uint32_t cluster_rank() { return shim::self.rank; }
 inline uint32_t cluster_size() { return shim::self.csize; }
 inline void cluster_sync() { shim::self.cluster->sync->arrive_and_wait(); }
+// the split halves: the arrival's token is kept until the wait
+inline void cluster_arrive_relaxed() {
+  if (shim::self.cluster_token) shim_fail("two cluster arrivals, no wait");
+  shim::self.cluster_token.emplace(shim::self.cluster->sync->arrive());
+}
+inline void cluster_wait() {
+  if (!shim::self.cluster_token) shim_fail("cluster wait without arrival");
+  shim::self.cluster->sync->wait(*shim::self.cluster_token);
+  shim::self.cluster_token.reset();
+}
 
 // a cluster address: (rank + 1) << 24 | offset
 inline uint32_t map_rank(uint32_t addr, uint32_t rank) {

@@ -2,10 +2,11 @@
 
     python deeperspeed_tpu_torch/csrc/cpu_shim/rehearse.py [--only FAMILY]
 
-FAMILY is one of `quant_matmul`, `grouped_matmul`, `grouped_matmul_dw`
-and `block_sparse_dkv` (all four without ``--only``). Each family's
-source (`csrc/quant_matmul.cu`, `csrc/grouped_matmul.cu`,
-`csrc/block_sparse_attention.cu`) and `csrc/errors.cu` are copied next to
+FAMILY is one of `quant_matmul`, `grouped_matmul`, `grouped_matmul_dw`,
+`block_sparse_dkv`, `paged_decode` and `paged_decode_int8` (all six
+without ``--only``). Each family's source (`csrc/quant_matmul.cu`,
+`csrc/grouped_matmul.cu`, `csrc/block_sparse_attention.cu`,
+`csrc/paged_decode.cu`) and `csrc/errors.cu` are copied next to
 this directory's stand-ins for the CUDA headers and for `common.cuh` /
 `hopper_gemm.cuh` (the attention headers are the real ones), compiled by
 g++ under `build/cpu_shim/` (one object a source, in parallel, kept by a
@@ -32,7 +33,17 @@ thread, and each result is held against the plain PyTorch version:
   query attends (exact zeros), and on a bidirectional layout with a dead
   row: within chip_smoke's bf16 TOL_BWD of the plain backward, two
   calls on the causal layout bit-identical, every launch counted as the
-  "mma" design.
+  "mma" design;
+- paged_decode, paged_decode_int8: the cluster kernel over bf16 pools
+  (bf16 q) and int8 pools (bf16 and fp32 q) at D = 64 and 128, on page
+  tables of 12 pages of 16 slots (clusters of 8, ranks with two page
+  slots), 3 pages of 64 and 2 pages of 128 (two 64-row tiles a page):
+  ragged lengths with 0, exact page multiples and lengths that leave
+  ranks without a live page, the trash page 0 past every length filled
+  with large values; within chip_smoke's TOL of the plain version,
+  length-0 rows exact zeros, two calls bit-identical, every launch
+  counted as the "cluster" design (fp32 pools: the single-block kernel,
+  counted "single").
 
 It checks indexing, tiling, the mbarrier ring, the TMA box and swizzle,
 the descriptors' layouts, the cluster reduction and the warp-level
@@ -62,6 +73,7 @@ sys.path.insert(0, str(REPO))
 
 from deeperspeed_tpu_torch.ops.hopper import _build  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa  # noqa: E402,E501
+from deeperspeed_tpu_torch.ops.hopper import decode_attention as da  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm  # noqa: E402
@@ -355,6 +367,93 @@ def check_block_sparse_dkv(gen):
              f"all {calls} on mma")
 
 
+# (page_size, pages a row, lengths): a row of 12 pages makes clusters of
+# 8 whose ranks 0-3 hold two page slots; 16 and 48 tokens leave ranks
+# without a live page; 128-slot pages are two tiles
+DECODE_CASES = ((16, 12, (0, 16, 37, 192, 130, 48)),
+                (64, 3, (70, 0, 192, 1, 128)),
+                (128, 2, (200, 256, 0, 64, 129)))
+TOL_DECODE = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+
+
+def _decode_case(gen, ps, NP, lengths, H, D, q_dtype, int8):
+    """q as a strided view, pools [P, H, ps, D] (bf16, fp32 or int8 with
+    bf16 scales), a page permutation, the trash page 0 past each length
+    filled with large values."""
+    B = len(lengths)
+    P = B * NP + 3
+    q = torch.randn(B, H, 3 * D, generator=gen).to(q_dtype)[..., :D]
+    if int8:
+        kp, vp = (torch.randint(-127, 128, (P, H, ps, D), generator=gen,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = ((0.005 + 0.02 * torch.rand(P, H, ps, generator=gen))
+                  .to(torch.bfloat16) for _ in range(2))
+        kp[0], vp[0], ks[0], vs[0] = 127, -127, 100.0, 100.0
+    else:
+        kp, vp = (torch.randn(P, H, ps, D, generator=gen).to(q_dtype)
+                  for _ in range(2))
+        kp[0], vp[0] = 1e4, -1e4
+        ks = vs = None
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    table = (torch.randperm(P - 1, generator=gen)[:B * NP] + 1).reshape(
+        B, NP)
+    live = torch.arange(NP)[None] * ps < lens[:, None]
+    table = torch.where(live, table, 0).to(torch.int32)
+    return q, kp, vp, ks, vs, table, lens
+
+
+def _check_decode(gen, int8):
+    da.reset_launches_by_design()
+    counts = da.launches_by_design_int8 if int8 else da.launches_by_design
+    q_dtypes = (torch.bfloat16, torch.float32)
+    calls = {"cluster": 0, "single": 0}
+    for D in (64, 128):
+        for ps, NP, lengths in DECODE_CASES:
+            for q_dtype in q_dtypes:
+                q, kp, vp, ks, vs, table, lens = _decode_case(
+                    gen, ps, NP, lengths, 2, D, q_dtype, int8)
+                if int8:
+                    run = lambda: da.paged_decode_int8_cuda(  # noqa: E731
+                        q, kp, vp, ks, vs, table, lens)
+                else:
+                    run = lambda: da.paged_decode_cuda(  # noqa: E731
+                        q, kp, vp, table, lens)
+                got, again = run(), run()
+                design = da.kernel_design(q, kp)
+                calls[design] += 2
+                ref = da.paged_decode_attention_reference(
+                    q, kp, vp, table, lens, k_scales=ks, v_scales=vs)
+                atol, rtol = TOL_DECODE[q_dtype]
+                err = (got.float() - ref.float()).abs()
+                ok = bool((err <= atol + rtol * ref.float().abs()).all()) \
+                    and bool(torch.isfinite(got).all()) and \
+                    got.dtype == q_dtype
+                zero = bool((got[lens == 0] == 0).all())
+                same = torch.equal(got, again)
+                cl = da.launch_plan(*q.shape[:2], NP) \
+                    if design == "cluster" else 0
+                print(f"  paged_decode{'_int8' if int8 else ''} D={D} "
+                      f"ps={ps} NP={NP} q {str(q_dtype)[6:]} ({design}, "
+                      f"cluster {cl}): max abs err {float(err.max()):.2e}; "
+                      f"length-0 rows exact zero {zero}; two calls "
+                      f"bit-identical {same}", flush=True)
+                if not (ok and zero and same):
+                    fail(f"paged decode{' int8' if int8 else ''} D={D} "
+                         f"ps={ps} NP={NP} {q_dtype}: max abs err "
+                         f"{float(err.max())}, zero rows {zero}, "
+                         f"bit-identical {same}")
+    if counts != calls or calls["cluster"] == 0:
+        fail(f"paged decode launches by design {counts}, want {calls}")
+
+
+def check_paged_decode(gen):
+    _check_decode(gen, int8=False)
+
+
+def check_paged_decode_int8(gen):
+    _check_decode(gen, int8=True)
+
+
 FAMILIES = {
     "quant_matmul": (("quant_matmul.cu",), check_quant_matmul,
                      "int8 matmul (wgmma)"),
@@ -365,6 +464,11 @@ FAMILIES = {
     "block_sparse_dkv": (("block_sparse_attention.cu",),
                          check_block_sparse_dkv,
                          "block-sparse dK/dV (mma.sync)"),
+    "paged_decode": (("paged_decode.cu",), check_paged_decode,
+                     "paged decode over bf16 pools (cluster split-KV)"),
+    "paged_decode_int8": (("paged_decode.cu",), check_paged_decode_int8,
+                          "paged decode over int8 pools (cluster "
+                          "split-KV)"),
 }
 
 

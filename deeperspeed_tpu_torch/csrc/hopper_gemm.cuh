@@ -276,6 +276,19 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// the two halves of cluster_sync, for a barrier split around other work:
+// every thread arrives (relaxed: it orders nothing), later waits. A CTA
+// that arrives at a kernel's start and waits before its first remote
+// store knows that the other CTAs have started, so their shared memory
+// exists.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // the shared::cluster address of the same offset in CTA `rank`'s memory
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;

@@ -46,14 +46,15 @@ SIGNATURES = {
                                                       _P],
     # q, q strides (b, h), k_pages, v_pages, pool strides (page, head,
     # slot), page_table, its row stride, lengths, out, B, H, D,
-    # page_size, pages per row, sm_scale, dtype, stream
+    # page_size, pages per row, sm_scale, cluster size (0: the
+    # single-block kernel), dtype, stream
     "ds_paged_decode": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _L, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _I, _P],
+                        _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # the same over int8 pools, with k_scales, v_scales and their strides
     # (page, head) after the pool strides; dtype is q's
     "ds_paged_decode_int8": [_P, _L, _L, _P, _P, _L, _L, _L, _P, _P, _L,
                              _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _I, _P],
+                             _I, _I, _P],
     # x, its row stride, q (int8 [K, N]), scale (fp32 [N]), y, M, N, K,
     # the bf16 plan's token tile and cluster size, dtype of x and y,
     # stream
@@ -90,9 +91,12 @@ SIGNATURES = {
     # what a bf16 kernel takes on the device, into int info[5]: registers,
     # local (spill) bytes, static and dynamic shared memory bytes, blocks
     # an SM; the dW kernel for n_weights weights, the block-sparse dk/dv
-    # kernel at head dim D for a LUT of max_active entries a row
+    # kernel at head dim D for a LUT of max_active entries a row, the
+    # paged-decode cluster kernel at head dim D over bf16 (0) or int8 (1)
+    # pools for a page table of n_pages_row pages a row
     "ds_grouped_matmul_dw_info": [_I, _P],
     "ds_block_sparse_dkv_info": [_I, _I, _P],
+    "ds_paged_decode_info": [_I, _I, _I, _P],
 }
 
 # what the kernels are instantiated for: the dtype codes of csrc/common.cuh

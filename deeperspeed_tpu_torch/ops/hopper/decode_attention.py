@@ -4,7 +4,11 @@ Replaces `_decode_kernel` and `_decode_kernel_quant` of
 `deeperspeed_tpu/ops/pallas/decode_attention.py`. The kernels are
 `csrc/paged_decode.cu` (`ds_paged_decode` over bf16/fp32 pools,
 `ds_paged_decode_int8` over int8 pools); its header says what bounds
-them on the H100 and what the design does about that.
+them on the H100 and what the designs do about that. Two designs:
+"cluster" (bf16 and int8 pools at head dims 64 and 128: the KV pages of
+a (sequence, head) split over a thread-block cluster of `launch_plan`
+CTAs, merged in rank order in shared memory) and "single" (fp32 pools
+and head dim 256: one block a (sequence, head)).
 
 Contract (the JAX package's):
 
@@ -34,10 +38,45 @@ from . import _build
 
 NEG_INF = -1e30
 
+# the cluster design's reach, its largest (portable) cluster, and one
+# wave of it on the H100: 132 SMs holding 6 CTAs each (the bf16 D = 64
+# kernel's occupancy, bounded by its shared memory)
+CLUSTER_HEAD_DIMS = (64, 128)
+MAX_CLUSTER = 8
+SMS, CTAS_PER_SM = 132, 6
+DESIGNS = ("cluster", "single")
+
 # kernel launches since the last reset (`chip_smoke.py` reads these):
-# the bf16/fp32-pool kernel and the int8-pool kernel
+# the bf16/fp32-pool kernel and the int8-pool kernel, all and by design
 launches = 0
 launches_int8 = 0
+launches_by_design = dict.fromkeys(DESIGNS, 0)
+launches_by_design_int8 = dict.fromkeys(DESIGNS, 0)
+
+
+def reset_launches_by_design():
+    launches_by_design.update(dict.fromkeys(DESIGNS, 0))
+    launches_by_design_int8.update(dict.fromkeys(DESIGNS, 0))
+
+
+def kernel_design(q, k_pages):
+    """The design a launch takes: "cluster" for bf16 and int8 pools at
+    head dims 64 and 128, else "single"."""
+    if k_pages.dtype in (torch.bfloat16, torch.int8) and \
+            q.shape[2] in CLUSTER_HEAD_DIMS:
+        return "cluster"
+    return "single"
+
+
+def launch_plan(B, H, n_pages_row):
+    """The cluster kernel's CTAs a (sequence, head): ``min(8,
+    n_pages_row)`` (at least 1), halved while the grid of ``B·H·C`` CTAs
+    would not fit one wave of the card. From the shapes alone, never from
+    the lengths, so one launch serves any lengths (and a CUDA graph)."""
+    cluster = max(1, min(MAX_CLUSTER, n_pages_row))
+    while cluster > 1 and B * H * cluster > SMS * CTAS_PER_SM:
+        cluster = -(-cluster // 2)
+    return cluster
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
@@ -128,33 +167,82 @@ def _check_kernel_args(q, k_pages, v_pages, page_table, lengths):
                          "the pools contiguous (stride 1)")
 
 
+def _check_cluster_layout(k_pages, v_pages, k_scales=None,
+                          v_scales=None):
+    """What the cluster kernel's 16-byte tile loads need: a (page, head)
+    of each pool one contiguous page_size x D block (slot stride == D),
+    16-byte aligned pools, page and head strides; for int8 pools the
+    same of the scale pools' (page, head) rows."""
+    D = k_pages.shape[3]
+    if k_pages.stride(2) != D:
+        raise ValueError(f"the cluster paged-decode kernel reads a (page, "
+                         f"head) as one contiguous tile: it needs the slot "
+                         f"stride == head_dim ({D}), got {k_pages.stride(2)}")
+    pools = [k_pages, v_pages]
+    if k_scales is not None:
+        pools += [k_scales, v_scales]
+    for t in pools:
+        es = t.element_size()
+        if t.data_ptr() % 16 or (t.stride(0) * es) % 16 or \
+                (t.stride(1) * es) % 16:
+            raise ValueError(
+                f"the cluster paged-decode kernel reads 16-byte chunks: it "
+                f"needs 16-byte aligned pools and scale pools with page "
+                f"and head strides a multiple of 16 bytes, got a "
+                f"{t.dtype} pool with strides {tuple(t.stride())}")
+
+
+def launch_kernel(q, k_pages, v_pages, page_table, lengths, sm_scale,
+                  cluster, k_scales=None, v_scales=None):
+    """One launch of `ds_paged_decode` (with scales: `ds_paged_decode_int8`)
+    on arguments the wrappers have checked, with ``cluster`` CTAs a
+    (sequence, head) (0: the single-block kernel) → [B, H, D] in q's
+    dtype. Counts nothing: the wrappers count their launches."""
+    B, H, D = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    scale_args = ()
+    name = "ds_paged_decode"
+    if k_scales is not None:
+        name = "ds_paged_decode_int8"
+        scale_args = (k_scales.data_ptr(), v_scales.data_ptr(),
+                      k_scales.stride(0), k_scales.stride(1))
+    err = getattr(_build.load_library(), name)(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        *scale_args, page_table.data_ptr(), page_table.stride(0),
+        lengths.data_ptr(), out.data_ptr(), B, H, D, k_pages.shape[2],
+        page_table.shape[1], float(scale), cluster,
+        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    _build.check(err, name)
+    return out
+
+
 def paged_decode_cuda(q, k_pages, v_pages, page_table, lengths,
                       sm_scale=None):
     """Launch `ds_paged_decode` (`csrc/paged_decode.cu`) on CUDA tensors
-    → [B, H, D]."""
+    → [B, H, D]: the cluster kernel for bf16 pools at head dims 64 and
+    128, the single-block kernel for fp32 pools and head dim 256."""
     global launches
-    B, H, D = q.shape
-    ps = k_pages.shape[2]
     if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != q.dtype or \
             v_pages.dtype != q.dtype:
         raise TypeError(f"paged decode kernel takes float32 or bfloat16 "
                         f"q and pools of one dtype, got {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
     _check_kernel_args(q, k_pages, v_pages, page_table, lengths)
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    if B == 0:
-        return out
-    lib = _build.load_library()
-    err = lib.ds_paged_decode(
-        q.data_ptr(), q.stride(0), q.stride(1),
-        k_pages.data_ptr(), v_pages.data_ptr(),
-        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        page_table.data_ptr(), page_table.stride(0), lengths.data_ptr(),
-        out.data_ptr(), B, H, D, ps, page_table.shape[1], float(scale),
-        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check(err, "ds_paged_decode")
-    launches += 1
+    design = kernel_design(q, k_pages)
+    if design == "cluster":
+        _check_cluster_layout(k_pages, v_pages)
+    cluster = launch_plan(*q.shape[:2], page_table.shape[1]) \
+        if design == "cluster" else 0
+    out = launch_kernel(q, k_pages, v_pages, page_table, lengths, sm_scale,
+                        cluster)
+    if q.shape[0]:
+        launches += 1
+        launches_by_design[design] += 1
     return out
 
 
@@ -162,10 +250,9 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                            page_table, lengths, sm_scale=None):
     """Launch `ds_paged_decode_int8` (`csrc/paged_decode.cu`) on CUDA
     tensors: int8 pools with bf16 per-slot scales → [B, H, D] in q's
-    dtype."""
+    dtype; the cluster kernel at head dims 64 and 128, the single-block
+    kernel at 256."""
     global launches_int8
-    B, H, D = q.shape
-    ps = k_pages.shape[2]
     if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != torch.int8 \
             or v_pages.dtype != torch.int8:
         raise TypeError(f"int8 paged decode kernel takes float32 or "
@@ -182,22 +269,16 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
                     ("v_scales", v_scales)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    if B == 0:
-        return out
-    lib = _build.load_library()
-    err = lib.ds_paged_decode_int8(
-        q.data_ptr(), q.stride(0), q.stride(1),
-        k_pages.data_ptr(), v_pages.data_ptr(),
-        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        k_scales.data_ptr(), v_scales.data_ptr(),
-        k_scales.stride(0), k_scales.stride(1),
-        page_table.data_ptr(), page_table.stride(0), lengths.data_ptr(),
-        out.data_ptr(), B, H, D, ps, page_table.shape[1], float(scale),
-        _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    _build.check(err, "ds_paged_decode_int8")
-    launches_int8 += 1
+    design = kernel_design(q, k_pages)
+    if design == "cluster":
+        _check_cluster_layout(k_pages, v_pages, k_scales, v_scales)
+    cluster = launch_plan(*q.shape[:2], page_table.shape[1]) \
+        if design == "cluster" else 0
+    out = launch_kernel(q, k_pages, v_pages, page_table, lengths, sm_scale,
+                        cluster, k_scales, v_scales)
+    if q.shape[0]:
+        launches_int8 += 1
+        launches_by_design_int8[design] += 1
     return out
 
 
@@ -207,8 +288,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     """One decode step of paged attention: ``out[b, h] = softmax(q[b, h]
     · K[b]) · V[b]`` with K/V read through ``page_table[b]`` and masked
     at ``lengths[b]``. ``k_scales``/``v_scales`` [P, H, page_size] mark
-    int8 pools: the kernel dequantizes each element after its load, the
-    plain version at the gather."""
+    int8 pools: the kernels fold the scales into the scores and the
+    probabilities (the single-block kernel dequantizes each element), the
+    plain version dequantizes at the gather."""
     _check(q, k_pages, v_pages, page_table, lengths, k_scales, v_scales)
     if backend not in (None, "auto", "pallas", "xla"):
         raise ValueError(f"unknown paged decode backend {backend!r}")
