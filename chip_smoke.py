@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --decode-only [DIR]
+    python3 chip_smoke.py --sparse-only [DIR]
 
 Phases (any failure exits non-zero before the final line):
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: the hand-written kernels from deeperspeed_tpu_torch/csrc, and
-   what the grouped dW, block-sparse dK/dV and paged-decode cluster
-   kernels take on the card (registers, spills, static and dynamic shared
-   memory, blocks an SM);
+   what the grouped dW, the block-sparse tensor-core forward, dK/dV and
+   dQ (which must not spill) and the paged-decode cluster kernels take
+   on the card (registers, spills, static and dynamic shared memory,
+   blocks an SM);
 3. kernels: each kernel against its plain PyTorch version, in bf16 and
    fp32, with its time, the plain version's time, a library call's time
    (timed only) and its bound: flash forward at the serving shapes and
@@ -35,8 +37,9 @@ Phases (any failure exits non-zero before the final line):
    rows (the dW finite and equal to the plain version); the
    block-sparse forward, dk/dv and dq kernels at phase 13's attention
    shape (B=2, S=16384, H=12, D=64, fixed l16g1 causal) with dq, dk, dv
-   also through the autograd function, two bf16 dk/dv calls
-   bit-identical, and on a bidirectional
+   also through the autograd function, two bf16 calls of each kernel
+   bit-identical, on a causal bf16 layout at D = 128 (B=2, S=2048, H=4,
+   l4g1), and on a bidirectional
    layout with a dead row at head dims 64, 128 and 256; the layout-masked
    flash forward and backward at phase 14(a)'s shape (B=16, S=1024,
    l4g1) and on the dead-row layout; each timed beside SDPA under the
@@ -102,13 +105,14 @@ Phases (any failure exits non-zero before the final line):
    128-blocks, causal; density 0.094) through `initialize()` →
    `train_batch`, Adam lr 1e-4, bf16, ZeRO-2, micro 2, 10 steps and one
    `eval_batch`, with exact launch counts (12 block-sparse forward, 12
-   dk/dv and 12 dq launches a step, every dk/dv launch on the
-   tensor-core design, no dense or masked flash launch);
+   dk/dv and 12 dq launches a step, every one on the tensor-core
+   design, no dense or masked flash launch);
 14. sparse training parity, fp32, 3 steps through the kernels and 3
    through the plain versions of the same arm: (a) the masked flash arm
    on phase 8's GPT-NeoX-125M (S 1024, micro 2 x gas 2, l4g1), (b) the
    block-sparse arm on phase 13's model at S 8192 (micro 1, l16g1), its
-   dk/dv launches on the FMA design; the losses must agree within rtol
+   forward, dk/dv and dq launches on the FMA design; the losses must
+   agree within rtol
    1e-4;
 15. BERT training (bench.py's row_bert512 on one card): BERT-large
    (336,232,258 parameters) through `initialize()` → `train_batch`,
@@ -1507,15 +1511,8 @@ def check_block_sparse(bsa, fa, gen, report):
             fail(f"block-sparse kernels disagree with their plain versions: "
                  f"{row}")
         if dtype == torch.bfloat16:
-            first, second = (bsa.block_sparse_attention_dkv_cuda(
-                q, k, v, lse, do, delta, luts, True) for _ in range(2))
-            row["dkv_bit_identical"] = all(
-                torch.equal(a, b) for a, b in zip(first, second))
-            del first, second
-            print(f"  block_sparse dk/dv (bf16): two calls bit-identical "
-                  f"{row['dkv_bit_identical']}", flush=True)
-            if not row["dkv_bit_identical"]:
-                fail(f"two bf16 block-sparse dk/dv calls differ: {row}")
+            row.update(sparse_bit_identity(bsa, q, k, v, lse, do, delta,
+                                           luts, True))
             row["fwd_ms"] = time_ms(lambda: bsa.block_sparse_attention_cuda(
                 q, k, v, luts, True), warmup=2, iters=10)
             row["dkv_ms"] = time_ms(
@@ -1572,9 +1569,62 @@ def check_block_sparse(bsa, fa, gen, report):
         rows.append(row)
         del q, k, v, out, lse, do, delta
         torch.cuda.empty_cache()
+    rows.append(check_sparse_causal_d128(bsa, fa, gen))
     rows += check_sparse_dead_rows(bsa, fa, gen)
     report["block_sparse"] = rows
     return rows[0]
+
+
+def sparse_bit_identity(bsa, q, k, v, lse, do, delta, luts, causal):
+    """Two calls of each block-sparse kernel on the same inputs must be
+    bit-identical (no atomics; every sum in a fixed order) → {"<part>_bit_
+    identical": True}."""
+    calls = {
+        "fwd": lambda: bsa.block_sparse_attention_cuda(q, k, v, luts,
+                                                       causal),
+        "dkv": lambda: bsa.block_sparse_attention_dkv_cuda(
+            q, k, v, lse, do, delta, luts, causal),
+        "dq": lambda: (bsa.block_sparse_attention_dq_cuda(
+            q, k, v, lse, do, delta, luts, causal),)}
+    row = {}
+    for part, call in calls.items():
+        first, second = call(), call()
+        row[f"{part}_bit_identical"] = all(
+            torch.equal(a, b) for a, b in zip(first, second))
+        del first, second
+    print(f"  block_sparse {q.dtype} D={q.shape[-1]}: two calls "
+          f"bit-identical {row}", flush=True)
+    if not all(row.values()):
+        fail(f"two block-sparse calls on the same inputs differ: {row}")
+    return row
+
+
+def check_sparse_causal_d128(bsa, fa, gen):
+    """A causal bf16 layout at D = 128 (B=2, S=2048, H=4, fixed l4g1):
+    forward and backward against the plain versions within TOL /
+    TOL_BWD, and each kernel's two calls bit-identical."""
+    B, S, H, D, dtype = 2, 2048, 4, 128, torch.bfloat16
+    layout = sparse_layout(SPARSE_L4G1, S, H=H)
+    luts = bsa.LayoutLuts(layout)
+    q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+    out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, True)
+    ref_out, ref_lse = bsa.block_sparse_attention_reference(q, k, v, luts,
+                                                            True)
+    torch.cuda.synchronize()
+    err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+    err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+    grads, ok_g, (do, delta) = check_sparse_grads(bsa, fa, q, k, v, luts,
+                                                  True, out, lse, gen)
+    row = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+           "layout": "fixed l4g1 causal", "max_abs_err_out": err_o,
+           "max_abs_err_lse": err_l, "tol_out": TOL[dtype]["out"],
+           "tol_bwd": TOL_BWD[dtype], **grads}
+    print(f"  block_sparse causal D=128 {row}", flush=True)
+    if not (ok_o and ok_l and ok_g):
+        fail(f"block-sparse kernels disagree with their plain versions at "
+             f"D 128, causal: {row}")
+    row.update(sparse_bit_identity(bsa, q, k, v, lse, do, delta, luts, True))
+    return row
 
 
 def check_sparse_dead_rows(bsa, fa, gen):
@@ -2564,12 +2614,28 @@ def attention_counts(fa, bsa):
     return counts
 
 
-def train_sparse(fa, bsa, ad, report, profile_step=False):
+def check_sparse_design(bsa, what, launches, design):
+    """Fail unless every block-sparse launch since the last reset took
+    ``design`` ("mma": the bf16 tensor-core kernels; "fma"), by the
+    wrapper's per-kernel counts; ``launches`` is `attention_counts` of
+    the same run → {kernel: {design: launches}}."""
+    got = {part: dict(counts) for part, counts in
+           bsa.design_launches.items()}
+    want = {part: {d: launches[f"block_sparse_{part}"] if d == design else 0
+                   for d in bsa.DESIGNS} for part in bsa.PARTS}
+    if got != want:
+        fail(f"{what}: block-sparse launches by design {got} != {want} "
+             f"(every launch on the {design} design)")
+    return got
+
+
+def train_sparse(fa, bsa, ad, report, profile_step=False, designs=True):
     """Phase 13: GPT-NeoX-125M's widths and depth with an 8192 vocabulary
     at 16,384 tokens, the JSON "sparse_attention" block (fixed l16g1)
     through `initialize()` → `train_batch`, 10 bf16 steps on one repeated
     batch and one `eval_batch`, every attention launch counted: the
-    block-sparse arm only."""
+    block-sparse arm only, and (with ``designs``) every launch on the
+    tensor-core design."""
     import deeperspeed_tpu_torch as dst
     from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
     model = GPTNeoX(GPTNeoXConfig(**SPARSE_MODEL), device="cuda")
@@ -2613,10 +2679,8 @@ def train_sparse(fa, bsa, ad, report, profile_step=False):
     if launches != want:
         fail(f"sparse training launch counts {launches} != {want} ({L} "
              f"layers x {SPARSE_STEPS} steps, no dense or masked flash)")
-    design = dict(bsa.dkv_design_launches)
-    if design != {"mma": want["block_sparse_dkv"], "fma": 0}:
-        fail(f"block-sparse dk/dv launches by design {design}, want all "
-             f"{want['block_sparse_dkv']} on the tensor-core (mma) design")
+    design = check_sparse_design(bsa, "train-sparse-125M-16k", launches,
+                                 "mma") if designs else None
     if eng.global_steps != SPARSE_STEPS or eng.skipped_steps:
         fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
     eval_loss = eng.eval_batch((tokens[0], tokens[0]))
@@ -2631,7 +2695,7 @@ def train_sparse(fa, bsa, ad, report, profile_step=False):
         "tokens_per_s": micro * SPARSE_SEQ / med,
         "max_memory_allocated_gb": peak / 2 ** 30,
         "num_params": eng.num_params, "launches": launches,
-        "dkv_design_launches": design,
+        "design_launches": design,
         "launches_per_step": {k: v / SPARSE_STEPS
                               for k, v in launches.items()},
         "activation_checkpointing": False,
@@ -2682,7 +2746,8 @@ def sparse_parity(fa, bsa, report, key, block, model_kw, seq, micro, gas,
                                for _ in range(3)]
         counts[use_kernels] = attention_counts(fa, bsa)
         if use_kernels:
-            dkv_design = dict(bsa.dkv_design_launches)
+            # fp32: every block-sparse launch keeps the FMA design
+            design = check_sparse_design(bsa, key, counts[True], "fma")
         del eng, model
         torch.cuda.empty_cache()
     fast, plain = np.array(losses[True]), np.array(losses[False])
@@ -2692,11 +2757,7 @@ def sparse_parity(fa, bsa, report, key, block, model_kw, seq, micro, gas,
     report[key] = {"arm": arm, "seq": seq, "micro": micro, "gas": gas,
                    "kernels": losses[True], "plain": losses[False],
                    "max_rel_diff": float(rel.max()), "rtol": 1e-4,
-                   "launches": counts[True]}
-    # fp32: every block-sparse dk/dv launch keeps the FMA design
-    if dkv_design != {"mma": 0, "fma": counts[True]["block_sparse_dkv"]}:
-        fail(f"{key}: fp32 block-sparse dk/dv launches by design "
-             f"{dkv_design}, want all on fma")
+                   "launches": counts[True], "design_launches": design}
     print(f"  {arm}: losses kernels {losses[True]} vs plain "
           f"{losses[False]}: max relative difference {rel.max():.3e}; "
           f"launches {used}", flush=True)
@@ -3075,6 +3136,37 @@ def decode_only(tree, card):
     return 0
 
 
+def sparse_only(tree, card):
+    """Phase 13 alone, its step profiled, on the port of the checkout
+    ``tree`` (this one, or another commit's, to time the sparse training
+    step of both on the same card in the same call). Its launch counts
+    and falling loss are checked; its launches by design are not, since
+    another commit's port may not count them."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    _build.load_library()
+    info = _build.BUILD_INFO
+    print(f"build: {info['seconds']:.1f} s (built={info['built']}) "
+          f"{info['path']}", flush=True)
+    report = {"card": card, "tree": os.path.abspath(tree)}
+    ts = train_sparse(fa, bsa, ad, report, profile_step=True, designs=False)
+    print(f"  {ts['steps']} steps: loss {ts['losses'][0]:.4f} -> "
+          f"{ts['losses'][-1]:.4f}, median step {ts['step_ms_median']:.1f} "
+          f"ms, {ts['tokens_per_s']:.0f} tokens/s", flush=True)
+    print_profile("sparse training step (micro 2 x 16384, l16g1)",
+                  ts["profile"], card)
+    print(f"  block-sparse kernels' share of device time: "
+          f"{ts['profile']['device_share_block_sparse']:.3f}", flush=True)
+    print(json.dumps({"train_sparse": {k: ts[k] for k in (
+        "step_ms_median", "step_ms", "tokens_per_s", "losses",
+        "profile")}}), flush=True)
+    print(f"sparse-only on {card}: {report['tree']}", flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3084,6 +3176,10 @@ def main():
                     help="run only the paged-decode checks and timings of "
                          "phase 3, on the port of this checkout or of DIR "
                          "(a checkout of another commit, built there)")
+    ap.add_argument("--sparse-only", metavar="DIR", nargs="?", const=".",
+                    help="run only phase 13 (train-sparse-125M-16k, its "
+                         "step profiled), on the port of this checkout or "
+                         "of DIR")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3098,6 +3194,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if args.decode_only:
         return decode_only(args.decode_only, card)
+    if args.sparse_only:
+        return sparse_only(args.sparse_only, card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -3121,10 +3219,13 @@ def main():
     sparse_luts = bsa.LayoutLuts(sparse_layout(SPARSE_L16G1, SPARSE_SEQ))
     taken = {"gmm_dw_wgmma_kernel (8 weights)": _build.kernel_info(
         "ds_grouped_matmul_dw_info", len(GMM_SIZES))}
-    for D in fa.MMA_HEAD_DIMS:
-        taken[f"block_sparse_dkv_mma_kernel<{D}> (phase 13's LUT)"] = \
-            _build.kernel_info("ds_block_sparse_dkv_info", D,
-                               sparse_luts.bwd[0].shape[-1])
+    for part in bsa.PARTS:
+        lut = sparse_luts.bwd if part == "dkv" else sparse_luts.fwd
+        for D in fa.MMA_HEAD_DIMS:
+            taken[f"block_sparse_{part}_mma_kernel<{D}> (phase 13's LUT)"] \
+                = _build.kernel_info("ds_block_sparse_info",
+                                     bsa.PART_CODES[part], D,
+                                     lut[0].shape[-1])
     for D in da.CLUSTER_HEAD_DIMS:
         for pool in ("bf16", "int8"):
             taken[f"paged_decode_cluster_kernel<{D}> ({pool} pools, 16 "
@@ -3135,6 +3236,10 @@ def main():
               f"local (spill) {row['local_bytes']} B, static shared "
               f"{row['static_smem']} B, dynamic shared {row['dynamic_smem']} "
               f"B, {row['blocks_per_sm']} blocks an SM", flush=True)
+    spilled = {name: row["local_bytes"] for name, row in taken.items()
+               if name.startswith("block_sparse") and row["local_bytes"]}
+    if spilled:
+        fail(f"the block-sparse tensor-core kernels spill: {spilled}")
     del sparse_luts
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda,
@@ -3264,6 +3369,14 @@ def main():
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
     sparse_shape = "B=2 S=16384 H=12 D=64 bf16, fixed l16g1 causal"
     masked_shape = "B=16 S=1024 H=12 D=64 bf16, fixed l4g1 causal"
+    sparse_design = "bf16 at D 64/128: the mma.sync tile steps of " \
+        "csrc/attention_mma.cuh over the per-row LUT (dk/dv: the " \
+        "transposed one); fp32 and D 256: FMA tiles"
+
+    def sparse_designs(part):
+        return {"train_sparse": ts["design_launches"][part],
+                "train_sparse_parity": pb["design_launches"][part]}
+
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
@@ -3445,6 +3558,8 @@ def main():
          "launches_by_path": {"train_sparse": ts["launches"][
              "block_sparse_fwd"], "train_sparse_parity": pb["launches"][
              "block_sparse_fwd"]},
+         "design": sparse_design,
+         "design_launches": sparse_designs("fwd"),
          "max_abs_err": max(bs["max_abs_err_out"], bs["max_abs_err_lse"]),
          "ms": bs["fwd_ms"], "plain_ms": bs["plain_fwd_ms"],
          "bound_ms": bs["fwd_bound_ms"], "bound_by": bs["fwd_bound_by"],
@@ -3460,13 +3575,8 @@ def main():
                      f"(_sparse_dkv_kernel, via sparse_attention_bwd :393)",
          "launches": ts["launches"]["block_sparse_dkv"] +
          pb["launches"]["block_sparse_dkv"],
-         "design": "bf16 at D 64/128: the mma.sync dK/dV tile step of "
-                   "csrc/attention_mma.cuh over the transposed LUT; fp32 "
-                   "and D 256: FMA tiles",
-         "design_launches": {"train_sparse": ts["dkv_design_launches"],
-                             "train_sparse_parity": {
-                                 "mma": 0, "fma": pb["launches"][
-                                     "block_sparse_dkv"]}},
+         "design": sparse_design,
+         "design_launches": sparse_designs("dkv"),
          "max_abs_err": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
          "ms": bs["dkv_ms"], "plain_ms": bs["plain_bwd_ms"],
          "plain": "the plain backward (dq, dk, dv together)",
@@ -3483,6 +3593,8 @@ def main():
                      f"(_sparse_dq_kernel, via sparse_attention_bwd :393)",
          "launches": ts["launches"]["block_sparse_dq"] +
          pb["launches"]["block_sparse_dq"],
+         "design": sparse_design,
+         "design_launches": sparse_designs("dq"),
          "max_abs_err": bs["max_abs_err_dq"], "ms": bs["dq_ms"],
          "plain_ms": bs["plain_bwd_ms"],
          "plain": "the plain backward (dq, dk, dv together)",

@@ -1,5 +1,5 @@
 // The tensor-core pieces of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu) and of the block-sparse dK/dV kernel
+// flash_bwd.cu) and of the block-sparse forward, dK/dV and dQ kernels
 // (block_sparse_attention.cu): 64-row tiles of bf16 in shared memory
 // filled by cp.async, fragments built by ldmatrix, products by mma.sync
 // m16n8k16 with fp32 accumulators (common.cuh), and the

@@ -12,14 +12,17 @@
 //
 // Bound on the H100: at the sparse training shape (B=2, S=16384, H=12,
 // D=64, fixed layout with 16 local and 1 global 128-blocks a window,
-// causal) the live pairs number about 2·12·16384·1500, so the forward's
-// 4·D flops a pair take a few hundred microseconds at the bf16
-// tensor-core peak while q, k, v, out cross device memory in a few
-// tens: operations bound. The forward and dQ kernels do their products
-// with fp32 FMA (attention_tiles.cuh), as the first flash kernels did,
-// and are bound by FMA throughput; for bf16 at D = 64 and 128 the dK/dV
-// kernel takes the tensor-core tile step of the flash dK/dV kernel
-// (attention_mma.cuh), fp32 and D = 256 the FMA one. Design:
+// causal) the live pairs number about 5.8e8, so the forward's 4·D flops
+// a pair take 0.15 ms at the bf16 tensor-core peak while q, k, v, out
+// cross device memory in about 0.06 ms: operations bound, and the dq
+// (6·D) and dk/dv (8·D) more so. What the kernels can reach is the flash
+// kernels' tile rate on the live tiles only, so each walks a compact
+// per-row LUT and runs the flash kernels' tensor-core tile step.
+//
+// Design (bf16 at D = 64 and 128; the C dispatch picks it at compile time
+// through `takes_mma`, as the flash kernels do; fp32, which the fp32
+// parity runs take, and D = 256, whose accumulators would spill, keep the
+// FMA tile steps of attention_tiles.cuh, bound by FMA throughput):
 //
 // - The TPU kernels group `group_q` row blocks and fan out over `fanout`
 //   key blocks to feed the MXU fat strips (`build_row_union_lut`, with
@@ -28,28 +31,42 @@
 //   128-column blocks (built on the host by `ops/hopper/
 //   block_sparse_attention.build_lut`), so no work is spent on rows or
 //   columns the layout leaves out.
-// - Forward: one thread block per (b·h, 64-row q tile), the online
-//   softmax of csrc/flash_fwd.cu (`attn::fwd_tile`) over the two 64-key
-//   tiles of each active column block of its row block.
-// - dK/dV: one block per (b·h, key tile), walking the TRANSPOSED layout's
-//   LUT (every query block that attends its key block; global columns
-//   list most of the sequence). dQ: one block per (b·h, q tile), walking
-//   the forward LUT. Both recompute P and dP from the lse. No atomics:
-//   every gradient element is one fp32 sum in a fixed order, so results
-//   are reproducible.
-// - bf16 dK/dV (`block_sparse_dkv_mma_kernel`): 4 warps × 16 keys; K and
-//   V stay in shared memory, the Q and dO tiles of the listed query
-//   blocks stream through a 2-stage cp.async ring, the next tile's
-//   address resolved from the LUT row (copied to shared memory at the
-//   start) before the current tile's products; Sᵀ, dPᵀ and the two
-//   accumulations by mma.sync with Pᵀ and dSᵀ kept in registers.
-// - Under `causal`, key tiles wholly after the q tile (and, for dK/dV,
-//   q tiles wholly before the key tile) are skipped before any load.
+// - Forward (`block_sparse_fwd_mma_kernel`) and dQ
+//   (`block_sparse_dq_mma_kernel`): one block of 4 warps per (b·h, 64-row
+//   q tile), each warp 16 q rows, walking the forward LUT; dK/dV
+//   (`block_sparse_dkv_mma_kernel`): one block per (b·h, 64-key tile),
+//   each warp 16 keys, walking the TRANSPOSED layout's LUT (every query
+//   block that attends its key block; global columns list most of the
+//   sequence). The block's LUT row is copied to shared memory first, and
+//   tile i of the walk is the (i % 2)-th 64-row half of block i / 2; the
+//   next tile's address is resolved before the current tile's products.
+// - The block's own side stays on chip (Q as mma A fragments in the
+//   forward; Q and dO as fragments at D = 64, in shared memory at D = 128
+//   in the dQ; K and V in shared memory in the dK/dV) while the other
+//   side's tiles stream through a 2-stage cp.async ring of bf16 tiles,
+//   rows padded by 16 bytes for conflict-free ldmatrix.
+// - Every product is mma.sync m16n8k16 with fp32 accumulators
+//   (attention_mma.cuh). The forward runs the base-2 online softmax of
+//   `flash_fwd_mma_kernel` and keeps P, rounded to bf16 as the Pallas
+//   kernel rounds it to v's dtype, in registers as the A operand of P·V.
+//   The backward recomputes P from the lse and forms dS = P∘(dP − Δ)·
+//   scale in registers, rounded to bf16 (the Pallas kernel's
+//   `ds.astype(k.dtype)`) as the A operand of dQ += dS·K (and Pᵀ, dSᵀ of
+//   dV += Pᵀ·dO, dK += dSᵀ·Q).
+// - Under `causal`, a key tile wholly after the q tile (and, for dK/dV, a
+//   q tile wholly before the key tile) is skipped tile by tile before any
+//   load, so no kernel of this design relies on the LUT's order; the
+//   element mask runs only on tiles that cross the diagonal. (The FMA
+//   forward and dQ stop at the first such tile, which is right because
+//   `build_lut` lists columns in ascending order.)
+// - A row with no live key gives zero output, lse = +1e30 and zero
+//   gradients. No atomics: every output element is one fp32 sum in a
+//   fixed order, so two calls are bit-identical.
 // - The LUTs list row blocks in `order` (the longest rows first), so the
 //   blocks with the most tiles start first and the short ones fill in
 //   behind them.
 // - Tiles and layout: S is a multiple of 128; a 64-row tile (32 at D =
-//   256) lies inside one 128 x 128 block.
+//   256 in the FMA kernels) lies inside one 128 x 128 block.
 #include "attention_mma.cuh"
 #include "attention_tiles.cuh"
 
@@ -217,17 +234,189 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV on the tensor cores (bf16, D = 64 and 128)
+// the tensor-core kernels (bf16, D = 64 and 128)
 // ---------------------------------------------------------------------------
 
 namespace mm = ds::mma_attn;
 
-// bytes of dynamic shared memory: K, V and the 2-stage Q / dO ring (bf16
-// tiles), the ring's lse and delta rows, and the key block's LUT row
+constexpr int SUB_MMA = GRAIN / mm::BN;  // 64-row tiles a layout block
+static_assert(mm::BM == mm::BN, "q and key tiles share one 64-row grain");
+
+// bytes of dynamic shared memory: `tiles` bf16 64-row tiles, `rows`
+// fp32 rows of 64 (the dK/dV ring's lse and delta) and the block's LUT row
+template <int D>
+__host__ __device__ constexpr size_t mma_smem(int tiles, int rows,
+                                              int max_active) {
+  return tiles * mm::tile_elems<D>() * sizeof(mm::bf16) +
+         rows * mm::BN * sizeof(float) + ((max_active + 3) / 4) * 16;
+}
+
+// the forward: Q and the 2-stage K / V ring; dQ: Q, dO and the ring;
+// dK/dV: K, V and the 2-stage Q / dO ring with its lse and delta rows
+template <int D>
+__host__ __device__ constexpr size_t fwd_mma_smem(int max_active) {
+  return mma_smem<D>(5, 0, max_active);
+}
+template <int D>
+__host__ __device__ constexpr size_t dq_mma_smem(int max_active) {
+  return mma_smem<D>(6, 0, max_active);
+}
 template <int D>
 __host__ __device__ constexpr size_t dkv_mma_smem(int max_active) {
-  return 6 * mm::tile_elems<D>() * sizeof(mm::bf16) +
-         4 * mm::BN * sizeof(float) + ((max_active + 3) / 4) * 16;
+  return mma_smem<D>(6, 4, max_active);
+}
+
+// The tile step of `flash_fwd_mma_kernel` (csrc/flash_fwd.cu) without its
+// segment, key-bias and dropout branches, over the forward LUT: one block
+// of 4 warps per (b·h, 64-row q tile), each warp 16 q rows held as A
+// fragments; the key tiles of the row block's active column blocks
+// stream through a 2-stage cp.async ring, the next tile's address
+// resolved from the LUT row in shared memory before the current tile's
+// products. S = Q·Kᵀ by mma.sync, the element mask only on tiles that
+// cross the diagonal, the base-2 online softmax over each row's lane
+// quad, P rounded to bf16 in registers as the A operand of O += P·V.
+template <int D>
+__global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
+    block_sparse_fwd_mma_kernel(const mm::bf16* __restrict__ q,
+                                const mm::bf16* __restrict__ k,
+                                const mm::bf16* __restrict__ v, Lut lut,
+                                mm::bf16* __restrict__ out,
+                                float* __restrict__ lse, int S, int H,
+                                Strides st, float sm_scale, int causal) {
+  constexpr int TILE = mm::tile_elems<D>();
+  constexpr int LD = mm::ld<D>();
+  constexpr int KS = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
+  mm::bf16* Ks = Qs + TILE;      // [2][64][LD]
+  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  int* blocks = reinterpret_cast<int*>(Vs + 2 * TILE);  // the LUT row
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int nb = S / GRAIN;
+  const int rb = lut.order[blockIdx.x / SUB_MMA];
+  const int q0 = rb * GRAIN + (blockIdx.x % SUB_MMA) * mm::BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
+  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
+  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const float scale2 = sm_scale * mm::LOG2E;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  const int n_blocks = lut.count(h, nb, rb);
+  const int n_tiles = SUB_MMA * n_blocks;
+  const int* row = lut.row(h, nb, rb);
+  for (int i = tid; i < n_blocks; i += mm::NTM) blocks[i] = row[i];
+  __syncthreads();
+  auto k_start = [&](int i) {
+    return blocks[i / SUB_MMA] * GRAIN + (i % SUB_MMA) * mm::BN;
+  };
+  // the next tile from i on that holds a live pair: with causal, a key
+  // tile wholly after the q tile is skipped (uniform over the block)
+  auto next_tile = [&](int i) {
+    while (i < n_tiles && causal && k_start(i) > q0 + mm::BM - 1) ++i;
+    return i;
+  };
+  auto load_kv = [&](int i, int stage) {
+    const int k0 = k_start(i);
+    mm::load_tile<D>(Ks + stage * TILE, kb, st.kss, k0, S);
+    mm::load_tile<D>(Vs + stage * TILE, vb, st.vss, k0, S);
+  };
+
+  mm::load_tile<D>(Qs, qb, st.qss, q0, S);
+  int i = next_tile(0);
+  if (i < n_tiles) load_kv(i, 0);
+  ds::cp_async_commit();
+  ds::cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) mm::a_frag<D>(qf[kk], Qs, warp * 16, kk);
+
+  float o[D / 8][4];
+  mm::zero(o);
+  // running max (base 2) and this lane's part of the row sums
+  float m_i[2] = {ds::NEG_INF, ds::NEG_INF}, l_i[2] = {0.f, 0.f};
+  int stage = 0;
+  while (i < n_tiles) {
+    const int nxt = next_tile(i + 1);
+    if (nxt < n_tiles) load_kv(nxt, stage ^ 1);  // overlaps this tile
+    ds::cp_async_commit();
+    const int k0 = k_start(i);
+    float s[8][4];
+    mm::zero(s);
+    mm::mma_abt<KS, 64>(s, mm::RegA<KS>{qf}, Ks + stage * TILE, LD);
+
+    // scale and the causal mask at each accumulator's (row, key); a tile
+    // wholly below the warp's diagonal needs no mask
+    const bool masked = causal && k0 + mm::BN - 1 > q0 + warp * 16;
+    float mx[2] = {ds::NEG_INF, ds::NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * qd + c;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float sc = s[j][2 * r + c] * scale2;
+          if (masked && key > rows[r]) sc = ds::NEG_INF;
+          s[j][2 * r + c] = sc;
+          mx[r] = fmaxf(mx[r], sc);
+        }
+      }
+    }
+    // online softmax over the lane quad that shares each row; a masked
+    // score (-1e30) gets p = 0 exactly, so a row with no live key keeps
+    // l = 0
+    float m_new[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m_i[r], mx[r]);
+      const float alpha = ds::ex2(m_i[r] - m_new[r]);
+      m_i[r] = m_new[r];
+      l_i[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        const float sv = s[j][e];
+        const float p =
+            sv <= 0.5f * ds::NEG_INF ? 0.f : ds::ex2(sv - m_new[r]);
+        l_i[r] += p;
+        s[j][e] = p;
+      }
+    }
+    unsigned pa[4][4];
+    mm::pack_a<4>(pa, s);
+    mm::mma_ab<4, D>(o, pa, Vs + stage * TILE, LD);
+    ds::cp_async_wait<0>();  // tile nxt landed
+    __syncthreads();         // ... for every warp, and this stage is free
+    stage ^= 1;
+    i = nxt;
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / (l == 0.f ? 1.f : l);
+    if (qd == 0 && rows[r] < S)
+      lse[(long long)bh * S + rows[r]] =
+          l == 0.f ? -ds::NEG_INF : m_i[r] * mm::LN2 + logf(l);
+  }
+  mm::store_rows<D>(out + ((long long)b * S * H + h) * D, (long long)H * D,
+                    o, rows, S, inv);
 }
 
 // The tile step of `flash_bwd_dkv_mma_kernel` (csrc/flash_bwd.cu) over the
@@ -252,7 +441,6 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   constexpr int LD = mm::ld<D>();
   constexpr int KS = D / 16;
   constexpr int W = D == 64 ? 16 : 32;
-  constexpr int SUB = GRAIN / mm::BM;  // key tiles a layout block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   mm::bf16* Ks = reinterpret_cast<mm::bf16*>(smem_raw);
   mm::bf16* Vs = Ks + TILE;
@@ -264,8 +452,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, qd = lane % 4;
   const int nb = S / GRAIN;
-  const int cb = lut_t.order[blockIdx.x / SUB];  // key block
-  const int k0 = cb * GRAIN + (blockIdx.x % SUB) * mm::BM;
+  const int cb = lut_t.order[blockIdx.x / SUB_MMA];  // key block
+  const int k0 = cb * GRAIN + (blockIdx.x % SUB_MMA) * mm::BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
   const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
@@ -279,12 +467,12 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   // the q tiles: tile i is the (i % 2)-th 64 rows of query block
   // blocks[i / 2]
   const int n_blocks = lut_t.count(h, nb, cb);
-  const int n_tiles = SUB * n_blocks;
+  const int n_tiles = SUB_MMA * n_blocks;
   const int* row = lut_t.row(h, nb, cb);
   for (int i = tid; i < n_blocks; i += mm::NTM) blocks[i] = row[i];
   __syncthreads();
   auto q_start = [&](int i) {
-    return blocks[i / SUB] * GRAIN + (i % SUB) * mm::BN;
+    return blocks[i / SUB_MMA] * GRAIN + (i % SUB_MMA) * mm::BN;
   };
   // the next tile from i on that holds a live pair: with causal, a q tile
   // wholly before the keys is skipped (uniform over the block)
@@ -360,6 +548,140 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   mm::store_rows<D>(dv + off, (long long)H * D, acc_v, keys, S, one);
 }
 
+// The tile step of `flash_bwd_dq_mma_kernel` (csrc/flash_bwd.cu) without
+// its segment, key-bias and dropout branches, over the forward LUT: one
+// block of 4 warps per (b·h, 64-row q tile), each warp 16 q rows; Q and
+// dO are A fragments in registers at D = 64 and read from shared memory
+// at each step at D = 128 (to stay within the registers of two blocks an
+// SM); the two rows' −lse·log2 e and delta stay in registers; the K / V
+// tiles of the row block's active column blocks stream through a 2-stage
+// cp.async ring, the LUT row in shared memory. S and dP by mma.sync, a
+// tile taken in two halves of 32 keys; dS = P∘(dP − delta)·scale rounded
+// to bf16 in registers as the A operand of dQ += dS·K.
+template <int D>
+__global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
+    block_sparse_dq_mma_kernel(
+        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
+        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        Lut lut, mm::bf16* __restrict__ dq, int S, int H, Strides st,
+        float sm_scale, int causal) {
+  constexpr int TILE = mm::tile_elems<D>();
+  constexpr int LD = mm::ld<D>();
+  constexpr int KS = D / 16;
+  constexpr bool A_REGS = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
+  mm::bf16* dOs = Qs + TILE;
+  mm::bf16* Ks = dOs + TILE;     // [2][64][LD]
+  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  int* blocks = reinterpret_cast<int*>(Vs + 2 * TILE);  // the LUT row
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int nb = S / GRAIN;
+  const int rb = lut.order[blockIdx.x / SUB_MMA];
+  const int q0 = rb * GRAIN + (blockIdx.x % SUB_MMA) * mm::BM;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
+  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
+  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const float scale2 = sm_scale * mm::LOG2E;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  float nlse2[2], delta_r[2];  // −lse·log2 e and delta of the two rows
+  for (int r = 0; r < 2; ++r) {
+    nlse2[r] = -lse[(long long)bh * S + rows[r]] * mm::LOG2E;
+    delta_r[r] = delta[(long long)bh * S + rows[r]];
+  }
+
+  const int n_blocks = lut.count(h, nb, rb);
+  const int n_tiles = SUB_MMA * n_blocks;
+  const int* row = lut.row(h, nb, rb);
+  for (int i = tid; i < n_blocks; i += mm::NTM) blocks[i] = row[i];
+  __syncthreads();
+  auto k_start = [&](int i) {
+    return blocks[i / SUB_MMA] * GRAIN + (i % SUB_MMA) * mm::BN;
+  };
+  // as the forward's: a key tile wholly after the q tile is skipped
+  auto next_tile = [&](int i) {
+    while (i < n_tiles && causal && k_start(i) > q0 + mm::BM - 1) ++i;
+    return i;
+  };
+  auto load_kv = [&](int i, int stage) {
+    const int k0 = k_start(i);
+    mm::load_tile<D>(Ks + stage * TILE, kb, st.kss, k0, S);
+    mm::load_tile<D>(Vs + stage * TILE, vb, st.vss, k0, S);
+  };
+
+  mm::load_tile<D>(Qs, qb, st.qss, q0, S);
+  mm::load_tile<D>(dOs, db, (long long)H * D, q0, S);
+  int i = next_tile(0);
+  if (i < n_tiles) load_kv(i, 0);
+  ds::cp_async_commit();
+  ds::cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[A_REGS ? KS : 1][4], df[A_REGS ? KS : 1][4];
+  if constexpr (A_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      mm::a_frag<D>(qf[kk], Qs, warp * 16, kk);
+      mm::a_frag<D>(df[kk], dOs, warp * 16, kk);
+    }
+  }
+
+  float acc[D / 8][4];
+  mm::zero(acc);
+  int stage = 0;
+  while (i < n_tiles) {
+    const int nxt = next_tile(i + 1);
+    if (nxt < n_tiles) load_kv(nxt, stage ^ 1);  // overlaps this tile
+    ds::cp_async_commit();
+    const int k0 = k_start(i);
+    const mm::bf16* Kt = Ks + stage * TILE;
+    const mm::bf16* Vt = Vs + stage * TILE;
+    const bool masked = causal && k0 + mm::BN - 1 > q0 + warp * 16;
+#pragma unroll 1  // one half's registers at a time
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;
+      float s[4][4], dp[4][4];
+      mm::zero(s);
+      mm::zero(dp);
+      if constexpr (A_REGS) {
+        mm::mma_abt<KS, 32>(s, mm::RegA<KS>{qf}, Kt + c0 * LD, LD);
+        mm::mma_abt<KS, 32>(dp, mm::RegA<KS>{df}, Vt + c0 * LD, LD);
+      } else {
+        mm::mma_abt<KS, 32>(s, mm::SmemA<D>{Qs, warp * 16}, Kt + c0 * LD,
+                            LD);
+        mm::mma_abt<KS, 32>(dp, mm::SmemA<D>{dOs, warp * 16}, Vt + c0 * LD,
+                            LD);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + c0 + 8 * j + 2 * qd + c;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            mm::p_and_ds<false>(s[j][2 * r + c], dp[j][2 * r + c],
+                                !masked || key <= rows[r], scale2, nlse2[r],
+                                delta_r[r], sm_scale, 0u, rows[r], key, 0,
+                                1.f);
+        }
+      }
+      unsigned da[2][4];
+      mm::pack_a<2>(da, dp);
+      mm::mma_ab<2, D>(acc, da, Kt + c0 * LD, LD);
+    }
+    ds::cp_async_wait<0>();  // tile nxt landed
+    __syncthreads();         // ... for every warp, and this stage is free
+    stage ^= 1;
+    i = nxt;
+  }
+  const float one[2] = {1.f, 1.f};
+  mm::store_rows<D>(dq + ((long long)b * S * H + h) * D, (long long)H * D,
+                    acc, rows, S, one);
+}
+
 enum class Part { kFwd, kDKV, kDQ };
 
 struct Args {
@@ -388,6 +710,15 @@ cudaError_t launch(Part part, const Args& a) {
   const T* td = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (part == Part::kFwd) {
+    if constexpr (mm::takes_mma<T, D>()) {
+      auto kernel = block_sparse_fwd_mma_kernel<D>;
+      const size_t bytes = fwd_mma_smem<D>(a.lut.max_active);
+      if ((err = set_smem(kernel, bytes)) != cudaSuccess) return err;
+      kernel<<<dim3(a.S / mm::BM, a.B * a.H), mm::NTM, bytes, a.stream>>>(
+          tq, tk, tv, a.lut, static_cast<T*>(a.o1), static_cast<float*>(a.o2),
+          a.S, a.H, a.st, a.sm_scale, a.causal);
+      return cudaGetLastError();
+    }
     auto kernel = block_sparse_fwd_kernel<T, D>;
     constexpr size_t smem = ds::attn::fwd_smem_bytes<D>();
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
@@ -415,6 +746,15 @@ cudaError_t launch(Part part, const Args& a) {
         tq, tk, tv, td, a.lse_in, a.delta, a.lut, static_cast<T*>(a.o1),
         static_cast<T*>(a.o2), a.S, a.H, a.st, a.sm_scale, a.causal);
   } else {
+    if constexpr (mm::takes_mma<T, D>()) {
+      auto kernel = block_sparse_dq_mma_kernel<D>;
+      const size_t bytes = dq_mma_smem<D>(a.lut.max_active);
+      if ((err = set_smem(kernel, bytes)) != cudaSuccess) return err;
+      kernel<<<dim3(a.S / mm::BM, a.B * a.H), mm::NTM, bytes, a.stream>>>(
+          tq, tk, tv, td, a.lse_in, a.delta, a.lut, static_cast<T*>(a.o1),
+          a.S, a.H, a.st, a.sm_scale, a.causal);
+      return cudaGetLastError();
+    }
     auto kernel = block_sparse_dq_kernel<T, D>;
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, NT, smem, a.stream>>>(
@@ -511,11 +851,13 @@ extern "C" int ds_block_sparse_bwd_dq(
   return run(Part::kDQ, a, D, dtype);
 }
 
-// What the bf16 dK/dV kernel at head dim D (64 or 128) takes on this
-// device for a transposed LUT of max_active entries a row, into
+// What the bf16 tensor-core kernel of `part` (0 the forward, 1 dK/dV, 2
+// dQ) at head dim D (64 or 128) takes on this device for a LUT of
+// max_active entries a row (the transposed layout's for dK/dV), into
 // info[0..4]: registers a thread, local (spill) bytes a thread, static and
 // dynamic shared memory bytes, and blocks an SM can hold.
-extern "C" int ds_block_sparse_dkv_info(int D, int max_active, int* info) {
+extern "C" int ds_block_sparse_info(int part, int D, int max_active,
+                                    int* info) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaErrorInvalidValue;
   int blocks = 0;
@@ -528,11 +870,20 @@ extern "C" int ds_block_sparse_dkv_info(int D, int max_active, int* info) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                           mm::NTM, smem);
   };
+  auto query_d = [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    if (part == 0)
+      query(block_sparse_fwd_mma_kernel<DD>, fwd_mma_smem<DD>(max_active));
+    else if (part == 1)
+      query(block_sparse_dkv_mma_kernel<DD>, dkv_mma_smem<DD>(max_active));
+    else if (part == 2)
+      query(block_sparse_dq_mma_kernel<DD>, dq_mma_smem<DD>(max_active));
+  };
   if (max_active < 1) return cudaErrorInvalidValue;
   if (D == 64)
-    query(block_sparse_dkv_mma_kernel<64>, dkv_mma_smem<64>(max_active));
+    query_d(std::integral_constant<int, 64>{});
   else if (D == 128)
-    query(block_sparse_dkv_mma_kernel<128>, dkv_mma_smem<128>(max_active));
+    query_d(std::integral_constant<int, 128>{});
   if (err != cudaSuccess) return err;
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);

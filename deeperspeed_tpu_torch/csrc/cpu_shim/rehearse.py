@@ -3,8 +3,8 @@
     python deeperspeed_tpu_torch/csrc/cpu_shim/rehearse.py [--only FAMILY]
 
 FAMILY is one of `quant_matmul`, `grouped_matmul`, `grouped_matmul_dw`,
-`block_sparse_dkv`, `paged_decode` and `paged_decode_int8` (all six
-without ``--only``). Each family's source (`csrc/quant_matmul.cu`,
+`block_sparse_fwd`, `block_sparse_dkv`, `block_sparse_dq`,
+`paged_decode` and `paged_decode_int8` (all eight without ``--only``). Each family's source (`csrc/quant_matmul.cu`,
 `csrc/grouped_matmul.cu`, `csrc/block_sparse_attention.cu`,
 `csrc/paged_decode.cu`) and `csrc/errors.cu` are copied next to
 this directory's stand-ins for the CUDA headers and for `common.cuh` /
@@ -28,6 +28,15 @@ thread, and each result is held against the plain PyTorch version:
   weights owning several spans, an empty weight (exact zeros), K and N
   edges inside a tile and more tiles than CTAs: within 1e-4 of max|ref|
   (TOL_GMM_DW), finite, two calls bit-identical;
+- block_sparse_fwd, block_sparse_dq: the bf16 forward and dQ kernels
+  (mma.sync) at D = 64 and 128, q, k, v split out of one projection, on
+  a causal layout with a global column and a row block whose only block
+  lies above the diagonal (dead under causal), on the same layout with
+  every LUT row reversed (the causal skip goes tile by tile, so the
+  kernels need no column order), and on a bidirectional layout with a
+  dead row: out within chip_smoke's bf16 TOL (2e-2, 2e-2), lse within
+  1e-3, dq within TOL_BWD, dead rows exact zeros (lse +1e30), two calls
+  bit-identical, every launch counted as the "mma" design;
 - block_sparse_dkv: the bf16 dK/dV kernel (mma.sync) at D = 64 and 128
   on a causal fixed layout with a global column and a key block no
   query attends (exact zeros), and on a bidirectional layout with a dead
@@ -322,22 +331,160 @@ def _dkv_case(gen, layout, causal, D, S, B=1):
     return got, again, (dk, dv)
 
 
-def check_block_sparse_dkv(gen):
-    bsa.reset_design_launches()
-    S, n = 512, 4
-    # causal, head 0 a fixed-like pattern: local blocks, key block 0
-    # global (every query block lists it), key block 2 attended by no
-    # query block; head 1 its own pattern with a dead key block 3
+def _sparse_layouts(n=4):
+    """(causal, bidirectional) 0/1 layouts [2, n, n]. Causal: head 0 a
+    fixed-like pattern (local blocks, key block 0 global: every query
+    block lists it; key block 2 attended by no query block); head 1 its
+    own pattern with a dead key block 3. Bidirectional: head 1 with a
+    dead query row (block 2)."""
     causal_layout = np.tril(np.ones((2, n, n), np.int64))
     causal_layout[0, :, 2] = 0
     causal_layout[0, 2, 1] = 0
     causal_layout[1, :, 3] = 0
     causal_layout[1, 3, 1] = 0
-    # bidirectional, head 1 with a dead query row (block 2)
     bidir = np.eye(n, dtype=np.int64)[None].repeat(2, 0)
     bidir[:, :, 0] = 1
     bidir[0, 1, 3] = bidir[1, 3, 2] = 1
     bidir[1, 2] = 0
+    return causal_layout, bidir
+
+
+def _sparse_cases(n=4):
+    """The forward and dq families' layouts: (name, layout, causal, the
+    (head, row block) pairs with no live key, reversed LUT rows). The
+    causal layout adds, on head 1, a row block (0) whose only block lies
+    above the diagonal, so causal leaves it dead; its reversed copy lists
+    every row's columns in descending order, which the tile-by-tile
+    causal skip must not depend on."""
+    causal_layout, bidir = _sparse_layouts(n)
+    causal_layout[1, 0, 0] = 0
+    causal_layout[1, 0, 2] = 1
+    return (("causal fixed", causal_layout, True, ((1, 0),), False),
+            ("causal fixed, LUT rows reversed", causal_layout, True,
+             ((1, 0),), True),
+            ("bidirectional dead row", bidir, False, ((1, 2),), False))
+
+
+def _sparse_luts(layout, reverse):
+    """LayoutLuts of ``layout``; with ``reverse`` each forward LUT row
+    lists its active columns in descending order."""
+    luts = bsa.LayoutLuts(layout)
+    if reverse:
+        lut, counts, order = luts.fwd
+        lut = lut.copy()
+        for h, i in np.ndindex(counts.shape):
+            lut[h, i, :counts[h, i]] = lut[h, i, :counts[h, i]][::-1]
+        luts.fwd = (lut, counts, order)
+    return luts
+
+
+def _sparse_qkv(gen, B, S, H, D):
+    """bf16 q, k, v as views split out of one [B, S, H, 3D] projection
+    (the main path's strides), and dO."""
+    qkv = torch.randn(B, S, H, 3 * D, generator=gen).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    return q, k, v, torch.randn(B, S, H, D, generator=gen).to(torch.bfloat16)
+
+
+def _dead(x, dead, B, H, S):
+    """The rows of the (head, row block) pairs ``dead`` of a [B, S, H,
+    ...] tensor, or of an lse [B·H, S]."""
+    if x.shape == (B * H, S):
+        x = x.view(B, H, S).transpose(1, 2)
+    return torch.cat([x[:, rb * 128:(rb + 1) * 128, h].reshape(-1)
+                      for h, rb in dead])
+
+
+def check_block_sparse_fwd(gen):
+    """The bf16 forward at D = 64 and 128 against the plain version:
+    out within chip_smoke's TOL (2e-2, 2e-2), lse within 1e-3, dead rows
+    exact zeros with lse = +1e30, two calls bit-identical, every launch
+    counted as "mma"."""
+    bsa.reset_design_launches()
+    B, S, H = 1, 512, 2
+    calls = 0
+    for D in (64, 128):
+        for name, layout, causal, dead, reverse in _sparse_cases():
+            luts = _sparse_luts(layout, reverse)
+            q, k, v, _ = _sparse_qkv(gen, B, S, H, D)
+            out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, causal)
+            out2, lse2 = bsa.block_sparse_attention_cuda(q, k, v, luts,
+                                                         causal)
+            calls += 2
+            ref_out, ref_lse = bsa.block_sparse_attention_reference(
+                q, k, v, luts, causal)
+            err_o = (out.float() - ref_out.float()).abs()
+            err_l = (lse - ref_lse).abs()
+            live = ref_lse < 1e29
+            ok = bool((err_o <= 2e-2 + 2e-2 * ref_out.float().abs()).all()) \
+                and bool((err_l[live] <= 1e-3).all()) and \
+                bool(torch.isfinite(out).all())
+            zero = bool((_dead(out, dead, B, H, S) == 0).all()) and \
+                bool((_dead(lse, dead, B, H, S) == 1e30).all()) and \
+                bool((lse[~live] == 1e30).all())
+            same = torch.equal(out, out2) and torch.equal(lse, lse2)
+            print(f"  block_sparse_fwd D={D} {name}: max abs err out "
+                  f"{float(err_o.max()):.2e}, lse "
+                  f"{float(err_l[live].max()):.2e}; dead rows exact zero, "
+                  f"lse +1e30: {zero}; two calls bit-identical {same}",
+                  flush=True)
+            if not (ok and zero and same):
+                fail(f"block-sparse forward D={D} {name}: out err "
+                     f"{float(err_o.max())}, lse err "
+                     f"{float(err_l[live].max())}, dead {zero}, "
+                     f"bit-identical {same}")
+    _check_designs("fwd", calls)
+
+
+def check_block_sparse_dq(gen):
+    """The bf16 dq at D = 64 and 128 against the plain backward from the
+    plain forward's (out, lse): within chip_smoke's bf16 TOL_BWD (3e-2,
+    3e-2), dead rows exact zeros, two calls bit-identical, every launch
+    counted as "mma"."""
+    bsa.reset_design_launches()
+    B, S, H = 1, 512, 2
+    calls = 0
+    for D in (64, 128):
+        for name, layout, causal, dead, reverse in _sparse_cases():
+            luts = _sparse_luts(layout, reverse)
+            q, k, v, do = _sparse_qkv(gen, B, S, H, D)
+            out, lse = bsa.block_sparse_attention_reference(q, k, v, luts,
+                                                            causal)
+            delta = fa.attention_delta(out, do)
+            dq = bsa.block_sparse_attention_dq_cuda(q, k, v, lse, do, delta,
+                                                    luts, causal)
+            dq2 = bsa.block_sparse_attention_dq_cuda(q, k, v, lse, do, delta,
+                                                     luts, causal)
+            calls += 2
+            want = bsa.block_sparse_attention_bwd_reference(
+                q, k, v, out, lse, do, luts, causal)[0]
+            err = (dq.float() - want.float()).abs()
+            ok = bool((err <= 3e-2 + 3e-2 * want.float().abs()).all()) and \
+                bool(torch.isfinite(dq).all())
+            zero = bool((_dead(dq, dead, B, H, S) == 0).all())
+            same = torch.equal(dq, dq2)
+            print(f"  block_sparse_dq D={D} {name}: max abs err "
+                  f"{float(err.max()):.2e}; dead rows exact zero {zero}; "
+                  f"two calls bit-identical {same}", flush=True)
+            if not (ok and zero and same):
+                fail(f"block-sparse dq D={D} {name}: err "
+                     f"{float(err.max())}, dead {zero}, bit-identical "
+                     f"{same}")
+    _check_designs("dq", calls)
+
+
+def _check_designs(part, calls):
+    want = {p: {"mma": calls if p == part else 0, "fma": 0}
+            for p in bsa.PARTS}
+    if bsa.design_launches != want:
+        fail(f"block-sparse launches by design {bsa.design_launches}, want "
+             f"{want}")
+
+
+def check_block_sparse_dkv(gen):
+    bsa.reset_design_launches()
+    S, n = 512, 4
+    causal_layout, bidir = _sparse_layouts(n)
     calls = 0
     for D in (64, 128):
         for name, layout, causal, dead_keys in (
@@ -362,9 +509,7 @@ def check_block_sparse_dkv(gen):
             if not (ok and zero and same):
                 fail(f"block-sparse dK/dV D={D} {name}: errs {errs}, zero "
                      f"{zero}, bit-identical {same}")
-    if bsa.dkv_design_launches != {"mma": calls, "fma": 0}:
-        fail(f"dK/dV launches by design {bsa.dkv_design_launches}, want "
-             f"all {calls} on mma")
+    _check_designs("dkv", calls)
 
 
 # (page_size, pages a row, lengths): a row of 12 pages makes clusters of
@@ -461,6 +606,12 @@ FAMILIES = {
                        "grouped matmul forward / dx (wgmma)"),
     "grouped_matmul_dw": (("grouped_matmul.cu",), check_grouped_matmul_dw,
                           "grouped matmul dW (wgmma, MN-major A and B)"),
+    "block_sparse_fwd": (("block_sparse_attention.cu",),
+                         check_block_sparse_fwd,
+                         "block-sparse forward (mma.sync)"),
+    "block_sparse_dq": (("block_sparse_attention.cu",),
+                        check_block_sparse_dq,
+                        "block-sparse dQ (mma.sync)"),
     "block_sparse_dkv": (("block_sparse_attention.cu",),
                          check_block_sparse_dkv,
                          "block-sparse dK/dV (mma.sync)"),

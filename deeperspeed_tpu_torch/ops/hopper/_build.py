@@ -90,12 +90,13 @@ SIGNATURES = {
     "ds_grouped_matmul_dw": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # what a bf16 kernel takes on the device, into int info[5]: registers,
     # local (spill) bytes, static and dynamic shared memory bytes, blocks
-    # an SM; the dW kernel for n_weights weights, the block-sparse dk/dv
-    # kernel at head dim D for a LUT of max_active entries a row, the
-    # paged-decode cluster kernel at head dim D over bf16 (0) or int8 (1)
-    # pools for a page table of n_pages_row pages a row
+    # an SM; the dW kernel for n_weights weights, the block-sparse
+    # tensor-core kernel of a part (0 forward, 1 dk/dv, 2 dq) at head dim
+    # D for a LUT of max_active entries a row, the paged-decode cluster
+    # kernel at head dim D over bf16 (0) or int8 (1) pools for a page
+    # table of n_pages_row pages a row
     "ds_grouped_matmul_dw_info": [_I, _P],
-    "ds_block_sparse_dkv_info": [_I, _I, _P],
+    "ds_block_sparse_info": [_I, _I, _I, _P],
     "ds_paged_decode_info": [_I, _I, _I, _P],
 }
 

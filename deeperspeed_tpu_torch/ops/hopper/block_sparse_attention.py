@@ -51,18 +51,32 @@ NEG_INF = -1e30
 # the plain versions work on this many bytes of fp32 scores at a time
 PLAIN_CHUNK_BYTES = 1 << 29
 
-# kernel launches since the last reset (`chip_smoke.py` reads these); the
-# dk/dv launches also by design: "mma" (bf16 at D = 64 and 128, the
-# tensor-core tile step) or "fma"
+# kernel launches since the last reset (`chip_smoke.py` reads these), and
+# by kernel ("fwd", "dkv", "dq") and design: "mma" (bf16 at D = 64 and
+# 128, the tensor-core tile steps) or "fma"
 launches = 0
 dkv_launches = 0
 dq_launches = 0
+PARTS = ("fwd", "dkv", "dq")
+# the part codes of the C entry point `ds_block_sparse_info`
+PART_CODES = {part: i for i, part in enumerate(PARTS)}
 DESIGNS = ("mma", "fma")
-dkv_design_launches = dict.fromkeys(DESIGNS, 0)
+design_launches = {part: dict.fromkeys(DESIGNS, 0) for part in PARTS}
 
 
 def reset_design_launches():
-    dkv_design_launches.update(dict.fromkeys(DESIGNS, 0))
+    for counts in design_launches.values():
+        counts.update(dict.fromkeys(DESIGNS, 0))
+
+
+def _design(q, tensors, what):
+    """The design a call on q takes; the tensor-core design loads rows by
+    16-byte cp.async, so it refuses ``tensors`` off 16-byte pointers and
+    row strides."""
+    design = fa.flash_design(q.dtype, q.shape[-1])
+    if design == "mma":
+        fa.check_alignment(tensors, what)
+    return design
 
 
 def build_lut(layout):
@@ -262,7 +276,9 @@ def _lut_args(luts):
 
 def block_sparse_attention_cuda(q, k, v, luts, causal, sm_scale=None):
     """Launch the forward kernel of `csrc/block_sparse_attention.cu` on
-    CUDA tensors → (out, lse)."""
+    CUDA tensors → (out, lse). bf16 at D = 64 and 128 takes the
+    tensor-core design, whose 16-byte loads need q, k and v on 16-byte
+    pointers and row strides."""
     global launches
     B, S, H, D = q.shape
     code, default_scale = _kernel_args(q, k, v, luts, "block-sparse forward")
@@ -270,6 +286,8 @@ def block_sparse_attention_cuda(q, k, v, luts, causal, sm_scale=None):
     dev = luts.on(q.device)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    design = _design(q, (("q", q), ("k", k), ("v", v)),
+                     "block-sparse forward")
     lib = _build.load_library()
     err = lib.ds_block_sparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *_lut_args(dev["fwd"]),
@@ -277,6 +295,7 @@ def block_sparse_attention_cuda(q, k, v, luts, causal, sm_scale=None):
         float(scale), int(bool(causal)), code, _build.stream_ptr(q))
     _build.check(err, "ds_block_sparse_fwd")
     launches += 1
+    design_launches["fwd"][design] += 1
     return out, lse
 
 
@@ -314,10 +333,8 @@ def block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts, causal,
     global dkv_launches
     ins, common = _bwd_args(q, k, v, lse, do, delta, luts, causal, sm_scale,
                             "block-sparse dk/dv")
-    design = fa.flash_design(q.dtype, q.shape[-1])
-    if design == "mma":
-        fa.check_alignment((("q", q), ("k", k), ("v", v), ("dO", do)),
-                           "block-sparse dk/dv")
+    design = _design(q, (("q", q), ("k", k), ("v", v), ("dO", do)),
+                     "block-sparse dk/dv")
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     err = _build.load_library().ds_block_sparse_bwd_dkv(
@@ -325,22 +342,26 @@ def block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts, causal,
         dv.data_ptr(), *common)
     _build.check(err, "ds_block_sparse_bwd_dkv")
     dkv_launches += 1
-    dkv_design_launches[design] += 1
+    design_launches["dkv"][design] += 1
     return dk, dv
 
 
 def block_sparse_attention_dq_cuda(q, k, v, lse, do, delta, luts, causal,
                                    sm_scale=None):
     """Launch the dq kernel of `csrc/block_sparse_attention.cu` on CUDA
-    tensors → dq [B, S, H, D] contiguous in q's dtype."""
+    tensors → dq [B, S, H, D] contiguous in q's dtype; bf16 at D = 64 and
+    128 needs the dk/dv kernel's 16-byte alignment."""
     global dq_launches
     ins, common = _bwd_args(q, k, v, lse, do, delta, luts, causal, sm_scale,
                             "block-sparse dq")
+    design = _design(q, (("q", q), ("k", k), ("v", v), ("dO", do)),
+                     "block-sparse dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.load_library().ds_block_sparse_bwd_dq(
         *ins, *_lut_args(luts.on(q.device)["fwd"]), dq.data_ptr(), *common)
     _build.check(err, "ds_block_sparse_bwd_dq")
     dq_launches += 1
+    design_launches["dq"][design] += 1
     return dq
 
 

@@ -393,6 +393,26 @@ def test_build_lut():
     assert lut_t[0, 0].tolist() == [0, 1, 3]
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_build_lut_lists_columns_in_ascending_order(seed):
+    """The FMA forward and dq kernels (fp32, D = 256) stop a row's walk
+    at its first key tile wholly after the q tile under causal, which is
+    right only because each LUT row lists its columns in ascending
+    order (the tensor-core kernels skip tile by tile and need no order):
+    random layouts of three heads, both LUTs, each row strictly
+    ascending and exactly the layout row's active columns."""
+    rng = np.random.default_rng(seed)
+    n = 9
+    layout = (rng.random((3, n, n)) < 0.4).astype(np.int32)
+    layout[:, 4] = 0                               # an empty row
+    for lay in (layout, layout.transpose(0, 2, 1)):
+        lut, counts, _ = bsa.build_lut(lay)
+        for h, i in np.ndindex(counts.shape):
+            cols = lut[h, i, :counts[h, i]]
+            assert np.all(np.diff(cols) > 0)
+            assert cols.tolist() == np.nonzero(lay[h, i])[0].tolist()
+
+
 # ---------------------------------------------------------------------------
 # SparseSelfAttention: the JAX module's arm and output
 # ---------------------------------------------------------------------------
@@ -571,35 +591,58 @@ def test_plain_backward_matches_sparse_attention_bwd():
         assert torch.all(g[0, 256:384, 1] == 0)
 
 
-def test_dkv_launches_are_counted_by_design(monkeypatch):
-    """bf16 dk/dv at D = 64 and 128 counts as the tensor-core ("mma")
-    design and needs 16-byte rows; fp32 and D = 256 count as "fma"; the
-    reset clears the counts."""
+@pytest.mark.parametrize("part", ["fwd", "dkv", "dq"])
+def test_launches_are_counted_by_design(part, monkeypatch):
+    """Each block-sparse kernel (forward, dk/dv, dq) in bf16 at D = 64 and
+    128 counts as the tensor-core ("mma") design and needs 16-byte rows;
+    fp32 and D = 256 count as "fma" and take any row stride; the reset
+    clears every kernel's counts."""
+    entry = {"fwd": "ds_block_sparse_fwd", "dkv": "ds_block_sparse_bwd_dkv",
+             "dq": "ds_block_sparse_bwd_dq"}[part]
     calls = []
-    lib = type("Lib", (), {"ds_block_sparse_bwd_dkv": staticmethod(
+    lib = type("Lib", (), {entry: staticmethod(
         lambda *a: calls.append(a) or 0)})()
     monkeypatch.setattr(bsa._build, "load_library", lambda: lib)
     monkeypatch.setattr(bsa._build, "stream_ptr", lambda t: None)
-    monkeypatch.setattr(bsa, "dkv_launches", bsa.dkv_launches)
-    monkeypatch.setattr(bsa, "dkv_design_launches",
-                        dict(bsa.dkv_design_launches))
-    bsa.reset_design_launches()
+    for name in ("launches", "dkv_launches", "dq_launches"):
+        monkeypatch.setattr(bsa, name, getattr(bsa, name))
+    monkeypatch.setattr(bsa, "design_launches",
+                        {p: dict(c) for p, c in bsa.design_launches.items()})
     S, H = 256, 2
     luts = bsa.LayoutLuts(np.tril(np.ones((H, 2, 2))))
     row = torch.zeros(H, S)
+
+    def call(q, do=None):
+        if part == "fwd":
+            return bsa.block_sparse_attention_cuda(q, q, q, luts, True)
+        do = q.contiguous() if do is None else do
+        if part == "dkv":
+            return bsa.block_sparse_attention_dkv_cuda(q, q, q, row, do, row,
+                                                       luts, True)
+        return (bsa.block_sparse_attention_dq_cuda(q, q, q, row, do, row,
+                                                   luts, True),)
+
+    bsa.reset_design_launches()
     for dtype, D in ((torch.bfloat16, 64), (torch.bfloat16, 128),
                      (torch.float32, 64), (torch.bfloat16, 256)):
         q = torch.zeros(1, S, H, D, dtype=dtype)
-        dk, dv = bsa.block_sparse_attention_dkv_cuda(q, q, q, row, q, row,
-                                                     luts, True)
-        assert dk.shape == dv.shape == q.shape
-    assert bsa.dkv_design_launches == {"mma": 2, "fma": 2}
-    assert len(calls) == 4 and calls[0][12:16] == (1, S, H, 64)
+        outs = call(q)
+        assert all(o.shape == q.shape for o in outs[:1 if part == "fwd"
+                                                    else None])
+    want = {p: {"mma": 2 if p == part else 0, "fma": 2 if p == part else 0}
+            for p in bsa.PARTS}
+    assert bsa.design_launches == want
+    # B, S, H, D follow the pointers, the LUT's four arguments and outputs
+    first = {"fwd": 9, "dkv": 12, "dq": 11}[part]
+    assert len(calls) == 4 and calls[0][first:first + 4] == (1, S, H, 64)
     # a row stride off 16 bytes is refused before the library (mma only)
     q = torch.zeros(1, S, H, 68, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
-        bsa.block_sparse_attention_dkv_cuda(q, q, q, row, q.contiguous(),
-                                            row, luts, True)
+        call(q)
     assert len(calls) == 4
+    q = torch.zeros(1, S, H, 66, dtype=torch.float32)[..., :64]
+    call(q)
+    assert len(calls) == 5 and bsa.design_launches[part]["fma"] == 3
     bsa.reset_design_launches()
-    assert bsa.dkv_design_launches == {"mma": 0, "fma": 0}
+    assert bsa.design_launches == {p: {"mma": 0, "fma": 0}
+                                   for p in bsa.PARTS}
