@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --decode-only [DIR]
     python3 chip_smoke.py --sparse-only [DIR]
+    python3 chip_smoke.py --ckpt-only [DIR]
 
 Phases (any failure exits non-zero before the final line):
 
@@ -125,6 +126,22 @@ Phases (any failure exits non-zero before the final line):
    micro 2 x gas 2, dropout 0.1, a ragged mask), 3 steps through the
    kernels and 3 through the plain versions from generators seeded
    alike; the losses must agree within rtol 1e-4.
+17. checkpoint (bench.py's row_ckpt on one card): phase 7's run takes
+   6 steps, saves (sync) and takes 4 more; a fresh engine from other
+   seed weights loads and every field (masters, moments, compute
+   parameters, Adam step, LR schedule, loss scale, counters) must equal
+   its value at the save bit for bit; it takes the same 4 steps, every
+   flash and Adam launch counted on the tensor-core designs, and the
+   losses must agree with the uninterrupted ones within rtol 1e-4
+   (whether they are bit-identical is printed); then an async save
+   overlapped with steps (row_ckpt's ckpt_step_ms, ckpt_sync_stall_ms,
+   ckpt_async_stall_ms, ckpt_async_overlap_steps, ckpt_bytes_mb,
+   ckpt_stall_ratio, the load seconds and write MB/s), a corrupted
+   newest checkpoint that `load_checkpoint()` must pass over for the
+   previous one and must refuse by name, and the checkpoint's own
+   zero_to_fp32.py, whose fp32 state dict must equal the masters. The
+   checkpoints live in a temporary directory under build/, removed at
+   the end.
 
 It prints its wall seconds, one JSON line of kernel results, then the
 card line, then as the last line ``{"ok": true, "device": {...}}``. A
@@ -137,8 +154,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -278,6 +297,9 @@ BERT_DROPOUT_SEED = 123457
 # p / (1 - rate), some 1e-3 at S = 512, so 1e-5 catches it
 TOL_FLAGS = {torch.bfloat16: {"out": (2e-2, 2e-2), "bwd": (3e-2, 3e-2)},
              torch.float32: {"out": (1e-5, 1e-5), "bwd": (1e-5, 1e-5)}}
+# train-125M-ckpt: phase 7's run saved after 6 steps and resumed for 4
+CKPT_STEPS_BEFORE = 6
+CKPT_STEPS_AFTER = 4
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
 
@@ -2965,6 +2987,223 @@ def bert_parity(fa, bsa, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: checkpoint save / resume of train-125M
+# ---------------------------------------------------------------------------
+
+def ckpt_snapshot(eng):
+    """Device copies of every field a checkpoint restores."""
+    return {"master": eng._master.clone(),
+            "params": eng._params_flat.clone(),
+            "exp_avg": eng.opt_state.exp_avg.clone(),
+            "exp_avg_sq": eng.opt_state.exp_avg_sq.clone(),
+            "scalars": ckpt_scalars(eng)}
+
+
+def ckpt_scalars(eng):
+    return {"adam_step": eng.opt_state.step, "lr": eng.get_lr(),
+            "lr_iteration": eng.lr_scheduler.last_batch_iteration,
+            "loss_scale": tuple(eng.scale_state),
+            "global_steps": eng.global_steps,
+            "global_samples": eng.global_samples,
+            "micro_steps": eng.micro_steps,
+            "skipped_steps": eng.skipped_steps}
+
+
+def ckpt_restored(eng, snap, what):
+    """Fail unless every field equals its value at the save, bit for
+    bit."""
+    tensors = {"master": eng._master, "params": eng._params_flat,
+               "exp_avg": eng.opt_state.exp_avg,
+               "exp_avg_sq": eng.opt_state.exp_avg_sq}
+    off = [k for k, t in tensors.items() if not torch.equal(t, snap[k])]
+    if off or ckpt_scalars(eng) != snap["scalars"]:
+        fail(f"{what}: restored state differs from the save: tensors "
+             f"{off}, scalars {ckpt_scalars(eng)} vs {snap['scalars']}")
+
+
+def train_checkpoint(fa, ad, report):
+    """Phase 17 on train-125M: (a) 6 steps, a sync save, 4 steps; a
+    fresh engine from other weights loads and takes the same 4 steps
+    through the counted kernels; (b) an async save overlapped with
+    steps (bench.py row_ckpt's quantities); (c) a corrupted newest
+    checkpoint falls back to the previous one, and naming it raises;
+    (d) the shipped zero_to_fp32.py gives back the masters. Checkpoints
+    go to a temporary directory under build/, removed at the end."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.checkpoint import manifest as mf
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_smoke_", dir="build")
+    try:
+        return _train_checkpoint(dst, mf, fa, ad, report, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _train_checkpoint(dst, mf, fa, ad, report, tmp):
+    eng, *_ = dst.initialize(model=build_model(torch.float32),
+                             config_params=TRAIN_CONFIG)
+    gas = eng.gradient_accumulation_steps()
+    micro = eng.train_micro_batch_size_per_gpu()
+    L = NEOX_125M["num_layers"]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+
+    def steps(engine, n):
+        losses, times = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(engine.train_batch(batch=(tokens, tokens)))
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    # (a) save and resume
+    _, step_s = steps(eng, CKPT_STEPS_BEFORE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save_checkpoint(tmp)
+    sync_s = time.perf_counter() - t0
+    first_tag = f"global_step{CKPT_STEPS_BEFORE}"
+    sync_bytes = sum(e["bytes"] for e in mf.load_manifest(
+        os.path.join(tmp, first_tag))["files"].values())
+    snap = ckpt_snapshot(eng)
+    whole, _ = steps(eng, CKPT_STEPS_AFTER)
+
+    resumed, *_ = dst.initialize(model=build_model(torch.float32, seed=1),
+                                 config_params=TRAIN_CONFIG)
+    if torch.equal(resumed._master, snap["master"]):
+        fail("the fresh engine starts from the saved weights")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, _ = resumed.load_checkpoint(tmp)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if path != os.path.join(tmp, first_tag):
+        fail(f"load_checkpoint resumed {path}, want {first_tag}")
+    ckpt_restored(resumed, snap, "load_checkpoint")
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.reset_design_launches()
+    ad.launches = 0
+    after, _ = steps(resumed, CKPT_STEPS_AFTER)
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches}
+    want = {"flash_fwd": L * gas * CKPT_STEPS_AFTER,
+            "flash_bwd_dkv": L * gas * CKPT_STEPS_AFTER,
+            "flash_bwd_dq": L * gas * CKPT_STEPS_AFTER,
+            "adam": CKPT_STEPS_AFTER}
+    if launches != want:
+        fail(f"resumed steps' launch counts {launches} != {want}")
+    design = check_design(fa, "train_ckpt", {
+        "fwd": want["flash_fwd"], "dkv": want["flash_bwd_dkv"],
+        "dq": want["flash_bwd_dq"]})
+    whole_a, after_a = np.array(whole), np.array(after)
+    rel = np.abs(after_a - whole_a) / np.abs(whole_a)
+    identical = bool(np.array_equal(after_a, whole_a))
+    print(f"  resumed losses {after} vs uninterrupted {whole}: max relative "
+          f"difference {rel.max():.3e}, bit-identical {identical}",
+          flush=True)
+    if not (np.isfinite(after_a).all() and (rel <= 1e-4).all()):
+        fail(f"resumed losses {after} differ from the uninterrupted run's "
+             f"{whole} beyond rtol 1e-4")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # (b) async save, overlapped with steps (bench.py row_ckpt)
+    manager = eng.checkpoint_manager
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    async_tag = eng.save_checkpoint_async(tmp)
+    async_s = time.perf_counter() - t0
+    overlapped = 0
+    while manager.in_flight and overlapped < 64:
+        eng.train_batch(batch=(tokens, tokens))
+        overlapped += 1
+    torch.cuda.synchronize()
+    manager.wait()
+    if manager.saves_completed != 1 or mf.read_latest(tmp) != async_tag:
+        fail(f"the async save {async_tag} did not commit "
+             f"({manager.saves_completed} saves, latest "
+             f"{mf.read_latest(tmp)})")
+    step_ms = float(np.median(step_s[1:])) * 1e3
+
+    # (c) the newest checkpoint corrupted: fall back; named, it raises
+    zero = os.path.join(tmp, async_tag,
+                        "zero_pp_rank_0_mp_rank_00_optim_states.pt")
+    with open(zero, "r+b") as f:
+        f.seek(os.path.getsize(zero) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    path, _ = eng.load_checkpoint(tmp)
+    if path != os.path.join(tmp, first_tag):
+        fail(f"with {async_tag} corrupted, load_checkpoint() resumed {path}, "
+             f"want the previous committed {first_tag}")
+    ckpt_restored(eng, snap, "the fallback load")
+    try:
+        eng.load_checkpoint(tmp, tag=async_tag)
+    except RuntimeError as e:
+        raised = str(e)
+    else:
+        fail(f"loading the corrupted {async_tag} by name did not raise")
+
+    # the disk alone: 1 GiB of raw bytes written and fsynced beside the
+    # checkpoints
+    raw = os.path.join(tmp, "disk_probe.bin")
+    block = np.random.default_rng(0).bytes(1 << 30)
+    t0 = time.perf_counter()
+    with open(raw, "wb") as f:
+        f.write(block)
+        f.flush()
+        os.fsync(f.fileno())
+    disk_mb_s = 1024 / (time.perf_counter() - t0)
+    os.remove(raw)
+    del block
+
+    # (d) the shipped recovery script gives back the masters
+    out = os.path.join(tmp, "fp32.pt")
+    ckpt = os.path.join(tmp, first_tag)
+    res = subprocess.run([sys.executable, os.path.join(ckpt, "zero_to_fp32.py"),
+                          ckpt, out], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode:
+        fail(f"zero_to_fp32.py failed: {res.stderr[-2000:]}")
+    sd = torch.load(out, weights_only=False)
+    fp32 = torch.cat([torch.from_numpy(sd[n.replace(".", "/")]).reshape(-1)
+                      for n in eng.param_names])
+    if len(sd) != len(eng.param_names) or \
+            not torch.equal(fp32, snap["master"].cpu()):
+        fail("zero_to_fp32.py's fp32 state dict differs from the masters")
+    del sd, fp32
+
+    result = {
+        "steps_before": CKPT_STEPS_BEFORE, "steps_after": CKPT_STEPS_AFTER,
+        "losses_uninterrupted": whole, "losses_resumed": after,
+        "max_rel_diff": float(rel.max()), "rtol": 1e-4,
+        "bit_identical": identical, "launches": launches,
+        "design_launches": design,
+        "ckpt_step_ms": step_ms,
+        "ckpt_sync_stall_ms": sync_s * 1e3,
+        "ckpt_async_stall_ms": async_s * 1e3,
+        "ckpt_async_overlap_steps": overlapped,
+        "ckpt_bytes_mb": manager.total_bytes / 2 ** 20,
+        "ckpt_stall_ratio": async_s / sync_s,
+        "sync_bytes_mb": sync_bytes / 2 ** 20,
+        "sync_write_mb_s": sync_bytes / 2 ** 20 / sync_s,
+        "async_write_s": manager.total_write_s,
+        "async_write_mb_s": manager.total_bytes / 2 ** 20 /
+        manager.total_write_s,
+        "load_s": load_s, "disk_write_mb_s": disk_mb_s,
+        "fallback": {"corrupted": async_tag, "resumed": first_tag,
+                     "named_load_raised": raised[:200]},
+        "zero_to_fp32": "equal to the masters",
+    }
+    report["train_ckpt"] = result
+    del eng, snap
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 6 (--profile): where a serving step's time goes
 # ---------------------------------------------------------------------------
 
@@ -3136,6 +3375,45 @@ def decode_only(tree, card):
     return 0
 
 
+def print_checkpoint(tc, card):
+    print(f"  checkpoint train-125M: {tc['steps_before']} steps, save, "
+          f"{tc['steps_after']} resumed steps bit-identical "
+          f"{tc['bit_identical']} (max relative difference "
+          f"{tc['max_rel_diff']:.3e}), launches {tc['launches']}; "
+          f"step {tc['ckpt_step_ms']:.1f} ms, sync stall "
+          f"{tc['ckpt_sync_stall_ms']:.1f} ms, async stall "
+          f"{tc['ckpt_async_stall_ms']:.1f} ms (ratio "
+          f"{tc['ckpt_stall_ratio']:.4f}), {tc['ckpt_async_overlap_steps']} "
+          f"steps overlapped, {tc['ckpt_bytes_mb']:.1f} MB a save, write "
+          f"{tc['sync_write_mb_s']:.0f} MB/s sync / "
+          f"{tc['async_write_mb_s']:.0f} MB/s async (the disk alone "
+          f"{tc['disk_write_mb_s']:.0f} MB/s), load {tc['load_s']:.2f} s on "
+          f"{card}", flush=True)
+    print(json.dumps({"row_ckpt": {k: tc[k] for k in (
+        "ckpt_step_ms", "ckpt_sync_stall_ms", "ckpt_async_stall_ms",
+        "ckpt_async_overlap_steps", "ckpt_bytes_mb", "ckpt_stall_ratio")},
+        "load_s": tc["load_s"], "sync_write_mb_s": tc["sync_write_mb_s"],
+        "async_write_mb_s": tc["async_write_mb_s"],
+        "disk_write_mb_s": tc["disk_write_mb_s"]}), flush=True)
+    return tc
+
+
+def ckpt_only(tree, card):
+    """Phase 17 alone, on the port of the checkout ``tree``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    _build.load_library()
+    info = _build.BUILD_INFO
+    print(f"build: {info['seconds']:.1f} s (built={info['built']}) "
+          f"{info['path']}", flush=True)
+    print("checkpoint train-125M (bf16, fp32 masters, ZeRO-2):", flush=True)
+    print_checkpoint(train_checkpoint(fa, ad, {}), card)
+    print(f"ckpt-only on {card}: {os.path.abspath(tree)}", flush=True)
+    return 0
+
+
 def sparse_only(tree, card):
     """Phase 13 alone, its step profiled, on the port of the checkout
     ``tree`` (this one, or another commit's, to time the sparse training
@@ -3180,6 +3458,10 @@ def main():
                     help="run only phase 13 (train-sparse-125M-16k, its "
                          "step profiled), on the port of this checkout or "
                          "of DIR")
+    ap.add_argument("--ckpt-only", metavar="DIR", nargs="?", const=".",
+                    help="run only phase 17 (checkpoint save / resume of "
+                         "train-125M), on the port of this checkout or of "
+                         "DIR")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3196,6 +3478,8 @@ def main():
         return decode_only(args.decode_only, card)
     if args.sparse_only:
         return sparse_only(args.sparse_only, card)
+    if args.ckpt_only:
+        return ckpt_only(args.ckpt_only, card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -3344,6 +3628,7 @@ def main():
     print("BERT training parity (fp32, 4 layers, kernels vs plain):",
           flush=True)
     bp = bert_parity(fa, bsa, report)
+    tc = print_checkpoint(train_checkpoint(fa, ad, report), card)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -3384,16 +3669,19 @@ def main():
                      f"{pallas}flash_attention.py:360, :378 "
                      f"(_fwd_single_kernel, _fwd_single_mh_kernel)",
          "launches": sv["launches"]["flash_fwd"] +
-         tr["launches"]["flash_fwd"] + tm["launches"]["flash_fwd"],
+         tr["launches"]["flash_fwd"] + tm["launches"]["flash_fwd"] +
+         tc["launches"]["flash_fwd"],
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
-                              "train_moe": tm["launches"]["flash_fwd"]},
+                              "train_moe": tm["launches"]["flash_fwd"],
+                              "train_ckpt": tc["launches"]["flash_fwd"]},
          "design": "bf16 at D 64/128: tensor cores (mma.sync, "
                    "csrc/attention_mma.cuh); fp32, D 256: FMA tile steps",
          "design_launches_by_path": {
              "serve": sv["design_launches"]["fwd"],
              "train": tr["design_launches"]["fwd"],
-             "train_moe": tm["design_launches"]["fwd"]},
+             "train_moe": tm["design_launches"]["fwd"],
+             "train_ckpt": tc["design_launches"]["fwd"]},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
@@ -3422,17 +3710,22 @@ def main():
                      f"{pallas}flash_attention.py:948, :1038 "
                      f"(_bwd_dkv_kernel, _bwd_dq_kernel)",
          "launches": tr["launches"]["flash_bwd_dkv"] +
-         tm["launches"]["flash_bwd_dkv"],
+         tm["launches"]["flash_bwd_dkv"] + tc["launches"]["flash_bwd_dkv"],
          "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"] +
-                                tm["launches"]["flash_bwd_dkv"],
+                                tm["launches"]["flash_bwd_dkv"] +
+                                tc["launches"]["flash_bwd_dkv"],
                                 "dq": tr["launches"]["flash_bwd_dq"] +
-                                tm["launches"]["flash_bwd_dq"]},
+                                tm["launches"]["flash_bwd_dq"] +
+                                tc["launches"]["flash_bwd_dq"]},
          "launches_by_path": {"train": tr["launches"]["flash_bwd_dkv"],
-                              "train_moe": tm["launches"]["flash_bwd_dkv"]},
+                              "train_moe": tm["launches"]["flash_bwd_dkv"],
+                              "train_ckpt": tc["launches"]["flash_bwd_dkv"]},
          "design_launches_by_path": {
              "train": {k: tr["design_launches"][k] for k in ("dkv", "dq")},
              "train_moe": {k: tm["design_launches"][k]
-                           for k in ("dkv", "dq")}},
+                           for k in ("dkv", "dq")},
+             "train_ckpt": {k: tc["design_launches"][k]
+                            for k in ("dkv", "dq")}},
          "max_abs_err": max(fb[f"max_abs_err_{g}"]
                             for g in ("dq", "dk", "dv")),
          "ms": fb["ms"], "plain_ms": fb["plain_ms"],
@@ -3448,9 +3741,11 @@ def main():
         {"name": "adam", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/adam.cu",
          "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
-         "launches": tr["launches"]["adam"] + tm["launches"]["adam"],
+         "launches": tr["launches"]["adam"] + tm["launches"]["adam"] +
+         tc["launches"]["adam"],
          "launches_by_path": {"train": tr["launches"]["adam"],
-                              "train_moe": tm["launches"]["adam"]},
+                              "train_moe": tm["launches"]["adam"],
+                              "train_ckpt": tc["launches"]["adam"]},
          "max_abs_err": adm["max_abs_err_p"], "ms": adm["ms"],
          "plain_ms": adm["plain_ms"], "bound_ms": adm["bound_ms"],
          "bound_by": adm["bound_by"], "library_ms": adm["library_ms"],

@@ -1,0 +1,489 @@
+"""Engine checkpoint save/load in the JAX package's directory layout.
+
+The port of `deeperspeed_tpu/checkpoint/checkpointing.py`. Layout:
+
+    {save_dir}/{tag}/mp_rank_00_model_states.pt
+    {save_dir}/{tag}/zero_pp_rank_{dp}_mp_rank_00_optim_states.pt
+    {save_dir}/{tag}/manifest.json
+    {save_dir}/{tag}/zero_to_fp32.py
+    {save_dir}/latest
+
+The model-states file holds the module's parameters, the LR schedule,
+the dataloader position, the four counters, the loss-scale state and the
+config. The zero file (written iff ZeRO is on or the compute dtype is
+not fp32, the JAX engine's ``keep_master``) holds the fp32 masters and
+the Adam state; otherwise the Adam state goes into the model-states
+file. A JAX engine loads what the port writes and the port loads what a
+JAX engine writes, including zero files written by several data-parallel
+ranks, which are merged here onto the one card (the JAX package's
+elastic resume).
+
+Saves are two-phase, as in the JAX package: `snapshot_checkpoint` copies
+each flat buffer of the engine to the host once (the only part that
+stalls training) and returns immutable host payloads; `write_and_commit`
+turns them into a crash-consistent directory (`manifest.py`). Loads
+verify the manifest and, when no tag is named, fall back to the newest
+other committed checkpoint.
+
+Loads write in place. The model's parameters are views into the
+engine's flat compute buffer (and, with fp32 compute, that buffer is the
+masters), so every leaf is copied into its slice of a host buffer and
+each flat buffer gets one host-to-device copy; no engine tensor is
+rebound.
+
+Not ported: the streamed-NVMe, host-offload and pipeline checkpoints.
+The port's config refuses those engines, and loading such a checkpoint
+raises "not ported".
+"""
+
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from ..runtime.config_utils import DeepSpeedConfigError
+from ..runtime.fp16.loss_scaler import LossScaleState
+from ..utils.logging import log_dist, logger
+from . import manifest as mf
+from .serialization import (load_obj, path_key, save_obj, state_dict,
+                            to_tensor, unshard_concat)
+
+LATEST_FILE = mf.LATEST_FILE
+DS_VERSION = "0.3.15+tpu"
+
+# model-state keys that are training state, not caller payload: both
+# full and module-only loads exclude them from the returned client_state
+_TRAINING_STATE_KEYS = ("module", "optimizer", "lr_scheduler",
+                        "batch_size_scheduler", "dataloader",
+                        "gradient_noise_scale", "quantization_state")
+
+
+def _not_ported(what):
+    return DeepSpeedConfigError(
+        f"{what} is not ported yet (it comes with the scale-out slice, "
+        f"offload tiers and pipeline; see ROADMAP.md A.7)")
+
+
+def _model_states_name(mp_rank):
+    return f"mp_rank_{mp_rank:02d}_model_states.pt"
+
+
+def _zero_ckpt_name(dp_rank, mp_rank):
+    return f"zero_pp_rank_{dp_rank}_mp_rank_{mp_rank:02d}_optim_states.pt"
+
+
+# ---------------------------------------------------------------------------
+# phase 1: snapshot (device → host; the only training stall)
+# ---------------------------------------------------------------------------
+
+def _host_flats(engine, flats):
+    """One device-to-host copy of each flat buffer, as fp32, into host
+    buffers the engine keeps across saves (pinned on a GPU). Returns
+    when every copy is complete, so the next optimizer step, which
+    writes the masters and moments in place, cannot reach the
+    snapshot."""
+    bufs = engine.__dict__.setdefault("_ckpt_host_buffers", {})
+    cuda = engine.device.type == "cuda"
+    out = {}
+    for role, src in flats.items():
+        buf = bufs.get(role)
+        if buf is None:
+            buf = bufs[role] = torch.empty(src.numel(), dtype=torch.float32,
+                                           pin_memory=cuda)
+        buf.copy_(src.float(), non_blocking=cuda)
+        out[role] = buf
+    if cuda:
+        torch.cuda.synchronize(engine.device)
+    return out
+
+
+def _natural(engine, flat, prefix=""):
+    """``{path key: numpy view}`` of one host flat buffer, split in
+    `param_names` order."""
+    arr = flat.numpy()
+    return {prefix + path_key(name): arr[lo:hi].reshape(shape)
+            for name, lo, hi, shape in engine.param_slices}
+
+
+def _opt_arrays(engine, host):
+    arrays = {"step": np.asarray(engine.opt_state.step, np.int32)}
+    arrays.update(_natural(engine, host["exp_avg"], "exp_avg/"))
+    arrays.update(_natural(engine, host["exp_avg_sq"], "exp_avg_sq/"))
+    return arrays
+
+
+def _param_groups(engine):
+    return [dict(g) for g in engine.optimizer.param_groups]
+
+
+def snapshot_checkpoint(engine, client_state=None):
+    """``{relative path: payload}`` of the engine's current state, every
+    array on the host. Once this returns, training may go on while a
+    writer commits the payloads. Payloads are picklable objects (written
+    with `save_obj`) or raw ``bytes``."""
+    client_state = client_state or {}
+    flats = {"params": engine._params_flat,
+             "exp_avg": engine.opt_state.exp_avg,
+             "exp_avg_sq": engine.opt_state.exp_avg_sq}
+    if engine._master is not engine._params_flat:
+        flats["master"] = engine._master
+    host = _host_flats(engine, flats)
+    host.setdefault("master", host["params"])
+    dataloader = engine.training_dataloader
+    scale = engine.scale_state
+    model_state = {
+        # compute-dtype leaves as fp32 (exact for bf16); JAX casts back
+        "module": state_dict(_natural(engine, host["params"])),
+        "optimizer": None,
+        "lr_scheduler": (engine.lr_scheduler.state_dict()
+                         if engine.lr_scheduler is not None else None),
+        "batch_size_scheduler": None,
+        "dataloader": (dataloader.state_dict()
+                       if dataloader is not None else None),
+        "gradient_noise_scale": None,
+        "csr_tensor_module_names": [],
+        "quantization_state": None,
+        "skipped_steps": engine.skipped_steps,
+        "global_steps": engine.global_steps,
+        "global_samples": engine.global_samples,
+        "micro_steps": engine.micro_steps,
+        "dp_world_size": engine.dp_world_size,
+        "mp_world_size": engine.mp_world_size,
+        "pipeline": None,
+        "loss_scale_state": {
+            "cur_scale": float(scale.cur_scale),
+            "cur_iter": int(scale.cur_iter),
+            "last_overflow_iter": int(scale.last_overflow_iter),
+            "cur_hysteresis": int(scale.cur_hysteresis),
+        },
+        "ds_config": engine._config.param_dict,
+        "ds_version": DS_VERSION,
+    }
+    model_state.update(client_state)
+    if not engine.zero_optimization():
+        model_state["optimizer"] = {
+            "state": state_dict(_opt_arrays(engine, host)),
+            "param_groups": _param_groups(engine)}
+    payloads = {_model_states_name(0): model_state}
+    if engine.keep_master:
+        payloads.update(_zero_payloads(engine, host))
+
+    # ship the recovery script with the checkpoint, as the JAX package
+    # does: fp32 weights come back later without the framework
+    from ..utils import zero_to_fp32 as _z2f
+    with open(_z2f.__file__, "rb") as f:
+        payloads["zero_to_fp32.py"] = f.read()
+    return payloads
+
+
+def _zero_payloads(engine, host):
+    """The zero file of the one data-parallel rank: every leaf whole
+    (dims None, as the JAX package writes a leaf it does not shard)."""
+    opt = _opt_arrays(engine, host)
+    master = _natural(engine, host["master"])
+    return {_zero_ckpt_name(0, 0): {
+        "optimizer_state_dict": {
+            "state": opt,
+            "shard_dims": {k: None for k in opt},
+            "flat_shapes": {},
+            "param_groups": _param_groups(engine),
+        },
+        "fp32_master": master,
+        "fp32_master_dims": {k: None for k in master},
+        "fp32_master_flat_shapes": {},
+        "zero_stage": engine.zero_optimization_stage(),
+        "partition_count": 1,
+        "dp_rank": 0,
+    }}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: commit (file I/O only; the sync path and the async writer)
+# ---------------------------------------------------------------------------
+
+def write_and_commit(payloads, save_dir, tag, step, save_latest=True):
+    """Write `payloads` into a staging dir, checksum-manifest + fsync +
+    atomically rename it to ``{save_dir}/{tag}``, then flip ``latest``.
+    A crash at any point leaves the previous committed state or the new
+    one. Returns the bytes written."""
+    tag = str(tag)
+    os.makedirs(save_dir, exist_ok=True)
+    staging = os.path.join(save_dir, mf.STAGING_PREFIX + tag)
+    if os.path.isdir(staging):  # leftover of a crashed earlier save
+        shutil.rmtree(staging)
+    os.makedirs(staging)
+    entries, nbytes = {}, 0
+    for rel, payload in payloads.items():
+        path = os.path.join(staging, rel)
+        if isinstance(payload, (bytes, bytearray)):
+            with open(path, "wb") as f:
+                f.write(payload)
+        else:
+            save_obj(payload, path)
+        mf._fsync_file(path)
+        # checksum now, while the bytes are still in the page cache
+        entries[rel] = mf.file_entry(path)
+        nbytes += entries[rel]["bytes"]
+    mf.commit_staged(save_dir, staging, tag, step, files=entries)
+    if save_latest:
+        mf.write_latest(save_dir, tag)
+    return nbytes
+
+
+def save_checkpoint(engine, save_dir, tag=None, client_state=None,
+                    save_latest=True):
+    """Snapshot and commit inline. Tag validation across hosts is
+    trivially true on one process."""
+    if tag is None:
+        tag = f"global_step{engine.global_steps}"
+    payloads = snapshot_checkpoint(engine, client_state)
+    write_and_commit(payloads, save_dir, tag, step=engine.global_steps,
+                     save_latest=save_latest)
+    log_dist(f"Saved checkpoint {tag} to "
+             f"{os.path.join(save_dir, str(tag))}", ranks=[0])
+    return True
+
+
+# ---------------------------------------------------------------------------
+# load
+# ---------------------------------------------------------------------------
+
+def _resolve_committed_state(load_dir, tag):
+    """Verify the requested tag's manifest and read its model states;
+    when resuming from `latest` (tag=None), fall back to the newest
+    other committed checkpoint on corruption. A named tag that fails
+    raises. Returns (tag, ckpt_dir, model_state) or (None, None,
+    None)."""
+    explicit_tag = tag is not None
+    if tag is None:
+        tag = mf.read_latest(load_dir)
+        if tag is None:
+            logger.warning(f"No '{LATEST_FILE}' file at "
+                           f"{os.path.join(load_dir, LATEST_FILE)}; "
+                           "cannot resume")
+            return None, None, None
+
+    candidates = [str(tag)]
+    if not explicit_tag:
+        candidates += [t for _, t in reversed(mf.committed_tags(load_dir))
+                       if t != str(tag)]
+
+    for cand in candidates:
+        ckpt_dir = os.path.join(load_dir, cand)
+        ok, problems = mf.verify_manifest(ckpt_dir)
+        if not ok:
+            if explicit_tag:
+                raise RuntimeError(
+                    f"checkpoint {cand} failed manifest verification: "
+                    f"{'; '.join(problems[:3])}")
+            logger.warning(
+                f"Checkpoint {cand} failed manifest verification "
+                f"({'; '.join(problems[:3])}); falling back to the "
+                "previous committed checkpoint")
+            continue
+        model_path = os.path.join(ckpt_dir, _model_states_name(0))
+        if not os.path.isfile(model_path):
+            logger.warning(f"Checkpoint file {model_path} not found")
+            continue
+        try:
+            model_state = load_obj(model_path)
+        except Exception as e:  # torn legacy write (no manifest to catch)
+            if explicit_tag:
+                raise RuntimeError(
+                    f"checkpoint {cand} is corrupt: failed to "
+                    f"deserialize {model_path}") from e
+            logger.warning(f"Failed to deserialize {model_path} "
+                           f"({type(e).__name__}: {e})")
+            continue
+        if cand != str(tag):
+            logger.warning(f"Resuming from fallback checkpoint {cand} "
+                           f"instead of corrupt {tag}")
+        return cand, ckpt_dir, model_state
+
+    logger.warning(f"No loadable checkpoint under {load_dir}")
+    return None, None, None
+
+
+def _client_state(model_state):
+    return {k: v for k, v in model_state.items()
+            if k not in _TRAINING_STATE_KEYS}
+
+
+def _module_arrays(model_state):
+    if model_state.get("streamed_nvme"):
+        raise _not_ported("a streamed-NVMe checkpoint")
+    return model_state["module"]["arrays"]
+
+
+def _copy_leaves(engine, dst, arrays, prefix=""):
+    """Every leaf ``prefix + key`` of ``arrays`` into its slice of one
+    host fp32 buffer, then one copy into the flat engine tensor ``dst``
+    (cast to its dtype), in place."""
+    host = torch.empty(engine.num_params, dtype=torch.float32)
+    for name, lo, hi, shape in engine.param_slices:
+        key = prefix + path_key(name)
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing parameter {key!r}")
+        leaf = to_tensor(arrays[key])
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"checkpoint leaf {key!r} has shape "
+                             f"{tuple(leaf.shape)}, the model's is {shape}")
+        host[lo:hi] = leaf.reshape(-1)
+    dst.copy_(host)
+
+
+def _load_opt_arrays(engine, arrays, param_groups):
+    _copy_leaves(engine, engine.opt_state.exp_avg, arrays, "exp_avg/")
+    _copy_leaves(engine, engine.opt_state.exp_avg_sq, arrays, "exp_avg_sq/")
+    engine.opt_state = engine.opt_state._replace(
+        step=int(np.asarray(arrays["step"])))
+    engine.optimizer.param_groups = [dict(g) for g in param_groups]
+
+
+def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
+                    load_lr_scheduler_states=True,
+                    load_dataloader_states=True, module_only=False):
+    cand, ckpt_dir, model_state = _resolve_committed_state(load_dir, tag)
+    if cand is None:
+        return None, {}
+    if module_only:
+        # the parameters only: optimizer moments, schedules, dataloader
+        # position, loss scale and counters stay as they are
+        _copy_leaves(engine, engine._params_flat, _module_arrays(model_state))
+        if engine._params_flat is not engine._master:
+            logger.warning(
+                "module_only load on an engine with fp32 masters: the "
+                "next train step overwrites params from the (stale) "
+                "masters — use module_only for evaluation/serving only")
+        log_dist(f"Loaded module-only checkpoint {cand} from {load_dir}",
+                 ranks=[0])
+        return os.path.join(load_dir, cand), _client_state(model_state)
+    return _apply_checkpoint(engine, load_dir, cand, ckpt_dir, model_state,
+                             load_optimizer_states, load_lr_scheduler_states,
+                             load_dataloader_states)
+
+
+def load_module_checkpoint(load_dir, tag=None, like=None):
+    """Engine-free parameters-only load (serving restarts): the same
+    manifest verification and committed-tag fallback as
+    `load_checkpoint`, returning ``{dotted name: tensor}`` for
+    ``model.load_state_dict``; ``like`` (the names, or a state dict)
+    picks and requires the leaves. Returns (path, params, client_state)
+    or (None, None, {})."""
+    cand, _, model_state = _resolve_committed_state(load_dir, tag)
+    if cand is None:
+        return None, None, {}
+    arrays = _module_arrays(model_state)
+    names = list(like) if like is not None else \
+        [k.replace("/", ".") for k in arrays]
+    params = {}
+    for name in names:
+        if path_key(name) not in arrays:
+            raise KeyError(f"checkpoint missing parameter "
+                           f"{path_key(name)!r}")
+        params[name] = to_tensor(arrays[path_key(name)])
+    log_dist(f"Loaded module-only checkpoint {cand} from {load_dir}",
+             ranks=[0])
+    return os.path.join(load_dir, cand), params, _client_state(model_state)
+
+
+def _apply_checkpoint(engine, load_dir, tag, ckpt_dir, model_state,
+                      load_optimizer_states, load_lr_scheduler_states,
+                      load_dataloader_states=True):
+    if model_state.get("pipeline"):
+        raise _not_ported("a pipeline checkpoint")
+    saved_mp = model_state.get("mp_world_size")
+    if saved_mp is not None and int(saved_mp) != engine.mp_world_size:
+        raise _not_ported(f"a checkpoint saved at model-parallel world "
+                          f"{saved_mp}")
+    saved_dp = model_state.get("dp_world_size")
+    if saved_dp is not None and int(saved_dp) != engine.dp_world_size:
+        log_dist(f"elastic resume: dp world size changed {saved_dp} -> "
+                 f"{engine.dp_world_size}; zero shards merge onto this "
+                 f"card", ranks=[0])
+
+    # --- params, then masters and moments --------------------------------
+    _copy_leaves(engine, engine._params_flat, _module_arrays(model_state))
+    if load_optimizer_states:
+        if engine.keep_master:
+            _load_zero_checkpoint(engine, ckpt_dir)
+        elif model_state.get("optimizer"):
+            _load_opt_arrays(engine, model_state["optimizer"]["state"]
+                             ["arrays"],
+                             model_state["optimizer"]["param_groups"])
+
+    # --- schedules, dataloader, counters ---------------------------------
+    if load_lr_scheduler_states and engine.lr_scheduler is not None and \
+            model_state.get("lr_scheduler") is not None:
+        engine.lr_scheduler.load_state_dict(model_state["lr_scheduler"])
+    dataloader = engine.training_dataloader
+    if load_dataloader_states and dataloader is not None and \
+            model_state.get("dataloader") is not None:
+        try:
+            dataloader.load_state_dict(model_state["dataloader"])
+        except ValueError as e:
+            kept = dataloader.reconcile_state_dict(model_state["dataloader"])
+            logger.warning(
+                f"dataloader position not restored exactly ({e}); "
+                f"reconciled under the current topology instead: {kept}")
+
+    engine.global_steps = model_state.get("global_steps", 0)
+    engine.global_samples = model_state.get("global_samples", 0)
+    engine.skipped_steps = model_state.get("skipped_steps", 0)
+    engine.micro_steps = model_state.get("micro_steps", 0)
+    ls = model_state.get("loss_scale_state", {})
+    engine.scale_state = LossScaleState(
+        cur_scale=float(ls.get("cur_scale", 1.0)),
+        cur_iter=int(ls.get("cur_iter", 0)),
+        last_overflow_iter=int(ls.get("last_overflow_iter", -1)),
+        cur_hysteresis=int(ls.get("cur_hysteresis", 1)))
+    log_dist(f"Loaded checkpoint {tag} from {load_dir}", ranks=[0])
+    return os.path.join(load_dir, str(tag)), _client_state(model_state)
+
+
+def _merge(flats, dims, saved_dp, flat_shapes=None):
+    """Per-rank ``{key: slice}`` dicts → whole natural-shaped arrays.
+    A dim of "flat" marks a ragged leaf saved as rank slices of its
+    raveled array; ``flat_shapes`` gives its shape back."""
+    out = {}
+    for key in flats[0]:
+        dim = dims.get(key) if dims else None
+        if dim is None or saved_dp == 1:
+            out[key] = flats[0][key]
+        elif dim == "flat":
+            merged = unshard_concat([np.asarray(f[key]) for f in flats], 0)
+            out[key] = merged.reshape((flat_shapes or {})[key])
+        else:
+            out[key] = unshard_concat([np.asarray(f[key]) for f in flats],
+                                      dim)
+    return out
+
+
+def _load_zero_checkpoint(engine, ckpt_dir):
+    """Merge the per-dp-rank zero files (written at any data-parallel
+    world size) and copy the masters and the Adam state into the
+    engine's flat buffers."""
+    shards = []
+    while True:
+        path = os.path.join(ckpt_dir, _zero_ckpt_name(len(shards), 0))
+        if not os.path.isfile(path):
+            break
+        shards.append(load_obj(path))
+    if not shards:
+        logger.warning(f"No zero checkpoint files in {ckpt_dir}")
+        return
+    osd = shards[0]["optimizer_state_dict"]
+    if osd.get("host_offload"):
+        raise _not_ported("a host-offload (ZeRO-Offload) checkpoint")
+    saved_dp = shards[0]["partition_count"]
+    opt = _merge([s["optimizer_state_dict"]["state"] for s in shards],
+                 osd.get("shard_dims", {}), saved_dp,
+                 osd.get("flat_shapes"))
+    if shards[0].get("fp32_master") is not None:
+        master = _merge([s["fp32_master"] for s in shards],
+                        shards[0].get("fp32_master_dims", {}), saved_dp,
+                        shards[0].get("fp32_master_flat_shapes"))
+        _copy_leaves(engine, engine._master, master)
+    if opt:
+        _load_opt_arrays(engine, opt, osd["param_groups"])

@@ -6,7 +6,8 @@ keys, defaults and `DeepSpeedConfigError` messages for what it parses,
 so a config written for the JAX package means the same here. The
 training parser reads what the port's engine runs (the batch triple,
 precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
-stages 0-2) and the "moe" and "sparse_attention" blocks the model reads
+stages 0-2), the "checkpoint" block the engine's checkpoint manager
+reads, and the "moe" and "sparse_attention" blocks the model reads
 (`GPTNeoX.apply_ds_config`); every other top-level block of the JAX
 config that is set raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
 """
@@ -248,6 +249,83 @@ class DeepSpeedConfig:
         self.inference_params = parse_inference_block(d)
         self.sparse_attention = _parse_sparse_attention(d)
         self._parse_moe_block(d)
+        self._parse_checkpoint_block(d)
+
+    def _parse_checkpoint_block(self, d):
+        """Parse + validate the "checkpoint" block with the JAX package's
+        keys, defaults and messages: tag validation plus the async-save
+        knobs (`checkpoint/async_manager.py`). A mistyped retention knob
+        fails at start-up, not at the first save."""
+        ckpt = d.get(c.CHECKPOINT) or {}
+        known = {c.CHECKPOINT_TAG_VALIDATION, c.CHECKPOINT_SAVE_DIR,
+                 c.CHECKPOINT_ASYNC_SAVE, c.CHECKPOINT_SAVE_INTERVAL,
+                 c.CHECKPOINT_KEEP_LAST_N, c.CHECKPOINT_KEEP_EVERY_N_STEPS,
+                 c.CHECKPOINT_SAVE_ON_PREEMPTION}
+        unknown = sorted(set(ckpt) - known)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown 'checkpoint' key(s) {unknown}; valid keys: "
+                f"{sorted(known)}")
+
+        self.checkpoint_tag_validation_mode = str(
+            ckpt.get(c.CHECKPOINT_TAG_VALIDATION,
+                     c.CHECKPOINT_TAG_VALIDATION_DEFAULT)).upper()
+        if self.checkpoint_tag_validation_mode not in \
+                c.CHECKPOINT_TAG_VALIDATION_MODES:
+            raise DeepSpeedConfigError(
+                f"checkpoint.{c.CHECKPOINT_TAG_VALIDATION} must be one of "
+                f"{c.CHECKPOINT_TAG_VALIDATION_MODES}, got "
+                f"{self.checkpoint_tag_validation_mode!r}")
+        self.checkpoint_tag_validation_enabled = (
+            self.checkpoint_tag_validation_mode != c.ValidationMode.IGNORE)
+        self.checkpoint_tag_validation_fail = (
+            self.checkpoint_tag_validation_mode == c.ValidationMode.FAIL)
+
+        save_dir = ckpt.get(c.CHECKPOINT_SAVE_DIR,
+                            c.CHECKPOINT_SAVE_DIR_DEFAULT)
+        if save_dir is not None and not isinstance(save_dir, str):
+            raise DeepSpeedConfigError(
+                f"checkpoint.{c.CHECKPOINT_SAVE_DIR} must be a string "
+                f"path, got {save_dir!r}")
+        for key, default in ((c.CHECKPOINT_ASYNC_SAVE,
+                              c.CHECKPOINT_ASYNC_SAVE_DEFAULT),
+                             (c.CHECKPOINT_SAVE_ON_PREEMPTION,
+                              c.CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT)):
+            if not isinstance(ckpt.get(key, default), bool):
+                raise DeepSpeedConfigError(
+                    f"checkpoint.{key} must be a boolean, got "
+                    f"{ckpt.get(key)!r}")
+        ints = {}
+        for key, default in ((c.CHECKPOINT_SAVE_INTERVAL,
+                              c.CHECKPOINT_SAVE_INTERVAL_DEFAULT),
+                             (c.CHECKPOINT_KEEP_LAST_N,
+                              c.CHECKPOINT_KEEP_LAST_N_DEFAULT),
+                             (c.CHECKPOINT_KEEP_EVERY_N_STEPS,
+                              c.CHECKPOINT_KEEP_EVERY_N_STEPS_DEFAULT)):
+            value = as_int(ckpt.get(key, default), f"checkpoint.{key}")
+            if value < 0:
+                raise DeepSpeedConfigError(
+                    f"checkpoint.{key} must be >= 0 (0 disables), got "
+                    f"{value}")
+            ints[key] = value
+        save_on_preemption = ckpt.get(c.CHECKPOINT_SAVE_ON_PREEMPTION,
+                                      c.CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT)
+        if save_dir is None and (ints[c.CHECKPOINT_SAVE_INTERVAL]
+                                 or save_on_preemption):
+            raise DeepSpeedConfigError(
+                f"checkpoint.{c.CHECKPOINT_SAVE_DIR} is required when "
+                f"{c.CHECKPOINT_SAVE_INTERVAL} or "
+                f"{c.CHECKPOINT_SAVE_ON_PREEMPTION} is set (auto/emergency "
+                "saves need somewhere to write)")
+        self.checkpoint_config = {
+            "save_dir": save_dir,
+            "async_save": ckpt.get(c.CHECKPOINT_ASYNC_SAVE,
+                                   c.CHECKPOINT_ASYNC_SAVE_DEFAULT),
+            "save_interval_steps": ints[c.CHECKPOINT_SAVE_INTERVAL],
+            "keep_last_n": ints[c.CHECKPOINT_KEEP_LAST_N],
+            "keep_every_n_steps": ints[c.CHECKPOINT_KEEP_EVERY_N_STEPS],
+            "save_on_preemption": save_on_preemption,
+        }
 
     def _parse_moe_block(self, d):
         """Parse + validate the "moe" block with the JAX package's keys,

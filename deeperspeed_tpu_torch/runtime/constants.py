@@ -83,7 +83,6 @@ NOT_PORTED_BLOCKS = {
     "tensorboard": "observability",
     "flops_profiler": "observability",
     "elasticity": "elasticity",
-    "checkpoint": "checkpointing",
     "quantization": "serving-quant / quantized training",
     "batch_size_schedule": "batch-size schedules",
     "amp": "mixed precision through amp",
@@ -91,6 +90,39 @@ NOT_PORTED_BLOCKS = {
     "planner": "schedule planner",
     "rl": "online RL",
 }
+
+# ---------------------------------------------------------------------------
+# Checkpoint block (`config._parse_checkpoint_block`, read by the engine's
+# `checkpoint.AsyncCheckpointManager`)
+# ---------------------------------------------------------------------------
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_SAVE_DIR = "save_dir"
+CHECKPOINT_SAVE_DIR_DEFAULT = None
+CHECKPOINT_ASYNC_SAVE = "async_save"
+CHECKPOINT_ASYNC_SAVE_DEFAULT = True
+CHECKPOINT_SAVE_INTERVAL = "save_interval_steps"
+CHECKPOINT_SAVE_INTERVAL_DEFAULT = 0
+CHECKPOINT_KEEP_LAST_N = "keep_last_n"
+CHECKPOINT_KEEP_LAST_N_DEFAULT = 0
+CHECKPOINT_KEEP_EVERY_N_STEPS = "keep_every_n_steps"
+CHECKPOINT_KEEP_EVERY_N_STEPS_DEFAULT = 0
+CHECKPOINT_SAVE_ON_PREEMPTION = "save_on_preemption"
+CHECKPOINT_SAVE_ON_PREEMPTION_DEFAULT = False
+
+
+class ValidationMode:
+    WARN = "WARN"
+    IGNORE = "IGNORE"
+    FAIL = "FAIL"
+
+
+CHECKPOINT_TAG_VALIDATION_DEFAULT = ValidationMode.WARN
+CHECKPOINT_TAG_VALIDATION_MODES = [
+    ValidationMode.WARN,
+    ValidationMode.IGNORE,
+    ValidationMode.FAIL,
+]
 
 # ---------------------------------------------------------------------------
 # MoE block (`config._parse_moe_block`, read by `GPTNeoX.apply_ds_config`)

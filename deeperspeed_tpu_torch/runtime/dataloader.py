@@ -4,8 +4,9 @@
 arrays, lists of tuples) with rank-strided sampling, batching into numpy
 stacks, and optional infinite repeat. The training engine moves each
 batch to its device. One process trains on one card in this slice, so
-the replica count and rank default to 1 and 0; the JAX loader's resume
-position (`state_dict`) waits for the checkpoint slice.
+the replica count and rank default to 1 and 0. `state_dict` /
+`load_state_dict` carry the resume position through a checkpoint with
+the JAX loader's keys and errors.
 """
 
 import numpy as np
@@ -72,6 +73,8 @@ class DeepSpeedDataLoader:
             data_sampler = list(data_sampler)
         self.data_sampler = data_sampler
         self.epoch = 0
+        self._batches_yielded = 0   # position within the current epoch
+        self._resume_offset = 0     # batches to skip on the next __iter__
         self.len = self._num_batches()
 
     def _local_indices(self):
@@ -98,13 +101,78 @@ class DeepSpeedDataLoader:
     def __len__(self):
         return self.len
 
+    def state_dict(self):
+        """Resume position for full-state checkpointing: epoch + batch
+        offset. The built-in sampler's shuffle order is derived from
+        (seed, epoch), so these two plus the seed restore the exact
+        sample stream; a materialized custom `data_sampler` is static
+        across epochs and needs only the offset."""
+        return {"epoch": self.epoch,
+                "batches_yielded": self._batches_yielded,
+                "seed": self.seed,
+                "shuffle": self.shuffle,
+                "batch_size": self.batch_size,
+                "num_replicas": self.num_replicas,
+                "rank": self.rank}
+
+    def load_state_dict(self, sd):
+        self.epoch = int(sd["epoch"])
+        self.seed = sd.get("seed", self.seed)
+        if sd.get("batch_size") not in (None, self.batch_size):
+            # a different batch size re-chunks the index stream; an
+            # offset in old-batch units would resume mid-batch silently
+            raise ValueError(
+                f"dataloader resume: checkpoint was cut at batch_size="
+                f"{sd['batch_size']} but this loader uses "
+                f"{self.batch_size}; restart the epoch or match sizes")
+        if "shuffle" in sd and bool(sd["shuffle"]) != bool(self.shuffle):
+            # the offset skip only lands on the right samples if the
+            # index order matches
+            raise ValueError(
+                f"dataloader resume: checkpoint was cut with shuffle="
+                f"{sd['shuffle']} but this loader uses "
+                f"shuffle={self.shuffle}")
+        saved_topo = (sd.get("num_replicas", self.num_replicas),
+                      sd.get("rank", self.rank))
+        if saved_topo != (self.num_replicas, self.rank):
+            # rank-strided index streams: another replica count or rank
+            # re-deals the samples, so the offset would skip or replay
+            # the wrong ones (the engine reconciles instead)
+            raise ValueError(
+                f"dataloader resume: checkpoint was cut at (num_replicas,"
+                f" rank)={saved_topo} but this loader runs "
+                f"{(self.num_replicas, self.rank)}")
+        self._resume_offset = int(sd.get("batches_yielded", 0))
+        self._batches_yielded = self._resume_offset
+        self.len = self._num_batches()
+
+    def reconcile_state_dict(self, sd):
+        """Fallback when `load_state_dict` rejects the exact position
+        (replica count / batch size / shuffle changed): keep the epoch
+        and the shuffle seed, reset the batch offset. At most one partial
+        epoch is replayed; nothing is skipped. Returns the fields kept."""
+        self.epoch = int(sd.get("epoch", self.epoch))
+        self.seed = sd.get("seed", self.seed)
+        self._resume_offset = 0
+        self._batches_yielded = 0
+        self.len = self._num_batches()
+        return {"epoch": self.epoch, "seed": self.seed, "offset": 0}
+
     def __iter__(self):
         if self.tput_timer:
             self.tput_timer.start()
         indices = self._local_indices()
-        for start in range(0, len(indices), self.batch_size):
+        skip, self._resume_offset = self._resume_offset, 0
+        self._batches_yielded = skip
+        for batch_idx, start in enumerate(
+                range(0, len(indices), self.batch_size)):
             chunk = indices[start:start + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 break
-            yield self.collate_fn([self.dataset[i] for i in chunk])
+            if batch_idx < skip:   # checkpoint resume: mid-epoch seek
+                continue
+            batch = self.collate_fn([self.dataset[i] for i in chunk])
+            self._batches_yielded = batch_idx + 1
+            yield batch
         self.epoch += 1
+        self._batches_yielded = 0

@@ -31,8 +31,17 @@ MoE: a "moe" config block is handed to the model's `apply_ds_config`
 before the flat state is built, so the flat buffers hold the expert
 weights and autograd adds their dW into the flat gradient views like any
 other leaf. The gate jitter and BERT's dropout seeds draw from one
-`torch.Generator` on the training device, seeded once and passed to
-every micro-step's loss.
+`torch.Generator` on the training device, re-seeded before every
+micro-step from (1234, ``micro_steps``), as the JAX engine folds
+``micro_steps`` into ``PRNGKey(1234)``: a run resumed from a checkpoint
+(which restores ``micro_steps``) draws the numbers of the run that was
+never stopped.
+
+Checkpoints (`save_checkpoint`, `save_checkpoint_async`,
+`load_checkpoint`; `checkpoint/`) are the JAX package's files: either
+engine resumes the other's run. The "checkpoint" config block drives
+`checkpoint_manager` (auto-saves, retention, the preemption save), which
+`train_batch` calls at the end of every step.
 
 Batches: bare tokens, a tuple of arrays (GPT-NeoX's (tokens, labels))
 or a dict (BERT's), each leaf moved to the device with its kind kept
@@ -44,6 +53,8 @@ each model's ``loss_fn`` unpacks its own micro-batch.
 import numpy as np
 import torch
 
+from ..checkpoint import checkpointing
+from ..checkpoint.async_manager import AsyncCheckpointManager
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.logging import log_dist
 from ..utils.timer import ThroughputTimer
@@ -56,6 +67,17 @@ from .fp16.loss_scaler import (DynamicLossScaler, create_loss_scaler,
                                update_loss_scale)
 from .lr_schedules import get_scheduler_class
 from .utils import clip_grad_norm_
+
+
+# the base seed of the per-micro-step generator (the JAX engine's
+# PRNGKey(1234))
+RNG_BASE_SEED = 1234
+
+
+def micro_step_seed(micro_steps):
+    """The generator seed of micro-step ``micro_steps``: (1234,
+    micro_steps) packed into one 64-bit seed."""
+    return (RNG_BASE_SEED << 32) | int(micro_steps)
 
 
 def _not_ported(what, slice_name):
@@ -127,9 +149,9 @@ class DeepSpeedEngine:
                     "does not implement apply_ds_config(config) "
                     "(models.gpt_neox.GPTNeoX does)")
             model.apply_ds_config(self._config)
-        # the generator of the gate jitter and the dropout seeds (the JAX
-        # engine's base key 1234)
-        self._rng = torch.Generator(device=self.device).manual_seed(1234)
+        # the generator of the gate jitter and the dropout seeds, re-seeded
+        # from (1234, micro_steps) before every micro-step
+        self._rng = torch.Generator(device=self.device)
 
         self.optimizer = self._configure_optimizer(optimizer)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
@@ -145,6 +167,15 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self.micro_steps = 0
         self.skipped_steps = 0
+        # one process, one card: the topology a checkpoint records
+        self.dp_world_size = 1
+        self.mp_world_size = 1
+        # fp32 masters apart from the parameters in the JAX engine, so a
+        # checkpoint holds a zero file (ZeRO on, or a 16-bit compute dtype)
+        self.keep_master = (self.compute_dtype != torch.float32
+                            or self.zero_optimization())
+        self.checkpoint_manager = AsyncCheckpointManager(
+            self, **self._config.checkpoint_config)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_micro_batch_size_per_gpu(),
             steps_per_output=self._config.steps_per_print)
@@ -261,6 +292,9 @@ class DeepSpeedEngine:
         self._master = torch.empty(self.num_params, dtype=torch.float32,
                                    device=dev)
         offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        # (name, lo, hi, shape) of every leaf in the flat buffers
+        self.param_slices = [(n, lo, hi, tuple(p.shape)) for (n, p), lo, hi
+                             in zip(named, offsets[:-1], offsets[1:])]
         with torch.no_grad():
             for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
                 self._master[lo:hi].copy_(p.detach().reshape(-1))
@@ -368,6 +402,7 @@ class DeepSpeedEngine:
         params = self.module.params_tree()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for i in range(gas):
+            self._rng.manual_seed(micro_step_seed(self.micro_steps))
             loss = self.module.loss_fn(params,
                                        self._map(batch, lambda v: v[i]),
                                        rng=self._rng)
@@ -388,6 +423,9 @@ class DeepSpeedEngine:
         self._after_step(overflow)
         mean_loss = float(loss_sum / gas)
         self.tput_timer.stop(tokens=tokens.numel())
+        # step boundary: drain finished saves, honor a preemption request,
+        # fire the auto-save interval (no-ops when unconfigured)
+        self.checkpoint_manager.on_step_boundary(self)
         return mean_loss
 
     def _apply_update(self, grads, lr):
@@ -452,3 +490,50 @@ class DeepSpeedEngine:
         return float(self.module.loss_fn(self.module.params_tree(),
                                          self._device_batch(batch),
                                          rng=rng))
+
+    # ------------------------------------------------------------------
+    # checkpointing (the JAX package's layout; see checkpoint/)
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        # back-pressure against the async path: commits stay totally
+        # ordered even when sync and async saves interleave
+        self.checkpoint_manager.wait()
+        return checkpointing.save_checkpoint(
+            self, save_dir, tag=tag, client_state=client_state,
+            save_latest=save_latest)
+
+    def save_checkpoint_async(self, save_dir, tag=None, client_state=None,
+                              save_latest=True):
+        """Snapshot the train state now (the only stall: one
+        device-to-host copy of each flat buffer, complete on return) and
+        commit in a background writer thread. At most one save is in
+        flight; a second call waits out the first. Returns the tag;
+        `checkpoint_manager.wait()` blocks until the checkpoint is
+        durable."""
+        return self.checkpoint_manager.save_async(
+            save_dir, tag=tag, client_state=client_state,
+            save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None,
+                        load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_dataloader_states=True,
+                        module_only=False):
+        """Restore in place (the flat buffers keep their storage).
+        ``tag=None`` resumes from `latest`, falling back to the newest
+        other committed checkpoint when its manifest fails; a named tag
+        that fails raises. `module_only=True` restores only the
+        parameters. Returns (path, client_state), or (None, {}) when
+        there is nothing to load."""
+        path, client_state = checkpointing.load_checkpoint(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states,
+            load_dataloader_states=load_dataloader_states,
+            module_only=module_only)
+        if path is not None and not module_only:
+            self.checkpoint_manager.on_checkpoint_loaded(self)
+        return path, client_state

@@ -1,8 +1,9 @@
 """The port stands alone: nothing in `deeperspeed_tpu_torch/` or
-`chip_smoke.py` imports JAX, jaxlib or the JAX package, and building a
-CPU serving engine (bf16/fp32 and int8), a dense, an MoE and a
-block-sparse GPT-NeoX training engine and a BERT training engine leaves
-JAX out of `sys.modules`."""
+`chip_smoke.py` imports JAX, jaxlib, the JAX package or `ml_dtypes`,
+and building a CPU serving engine (bf16/fp32 and int8), a dense, an MoE
+and a block-sparse GPT-NeoX training engine and a BERT training engine,
+and saving and loading a checkpoint, leaves them out of
+`sys.modules`."""
 
 import ast
 import os
@@ -13,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "deeperspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "deeperspeed_tpu", "ml_dtypes")
 FILES = sorted((ROOT / "deeperspeed_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 
@@ -97,8 +98,13 @@ def test_engine_on_cpu_loads_no_jax():
         "     'masked_lm_labels': ids, 'next_sentence_label': "
         "torch.zeros(1, 2, dtype=torch.long)}\n"
         "assert eng.train_batch(batch=b) > 0 and eng.global_steps == 1\n"
+        "import tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    eng.save_checkpoint_async(d)\n"
+        "    eng.checkpoint_manager.wait()\n"
+        "    assert eng.load_checkpoint(d)[0].endswith('global_step1')\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'deeperspeed_tpu'))\n"
+        "('jax', 'jaxlib', 'deeperspeed_tpu', 'ml_dtypes'))\n"
         "print(bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
