@@ -56,8 +56,14 @@ Phases (any failure exits non-zero before the final line):
    and held bit for bit against `dropout_keep`; two bf16 backward calls
    on the same inputs compared bit for bit (training and BERT shapes);
    the bf16 flash kernels at D = 64 and 128 are the tensor-core design,
-   fp32 and D = 256 the FMA one; phase 2 prints every kernel's registers
-   and spills (`-Xptxas -v`);
+   fp32 and D = 256 the FMA one; the segmented flash forward and
+   backward on packed documents, against their plain versions at S 4096
+   (bf16 and fp32) and at phase 18's shape (B=2, S=16384, H=12, D=64,
+   its rows' segments; the plain version one batch row and two heads at
+   a time), and timed there beside SDPA under the same bool mask, the
+   bound over the live pairs (the plain version is timed at S 4096
+   only); phase 2 prints every kernel's registers and spills
+   (`-Xptxas -v`);
 4. serving: GPT-NeoX-125M at full width (seeded random bf16 weights)
    serves 32 requests through `InferenceEngine` with every kernel
    launch counted (every flash launch of phases 4, 7, 11 and 15 on the
@@ -69,7 +75,7 @@ Phases (any failure exits non-zero before the final line):
    window of decode steps at B=16, over one B=4, S=512 prefill call of
    the same bf16 model, over a decode window of each serve-quant rung of
    phase 9, over one training step of phase 7, one of phase 11, one of
-   phase 13 and one of phase 15: host ms per step,
+   phase 13, one of phase 15 and one of phase 18: host ms per step,
    device kernel ms per step, the device's busy share, launches per step
    and the top kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
@@ -107,7 +113,10 @@ Phases (any failure exits non-zero before the final line):
    `train_batch`, Adam lr 1e-4, bf16, ZeRO-2, micro 2, 10 steps and one
    `eval_batch`, with exact launch counts (12 block-sparse forward, 12
    dk/dv and 12 dq launches a step, every one on the tensor-core
-   design, no dense or masked flash launch);
+   design, no dense or masked flash launch); then the same 10 steps
+   with the bench row's remat ("activation_checkpointing": {"policy":
+   "full"}): 24 block-sparse forward, 12 dk/dv and 12 dq launches a
+   step, its step ms and peak memory beside the run without;
 14. sparse training parity, fp32, 3 steps through the kernels and 3
    through the plain versions of the same arm: (a) the masked flash arm
    on phase 8's GPT-NeoX-125M (S 1024, micro 2 x gas 2, l4g1), (b) the
@@ -141,7 +150,31 @@ Phases (any failure exits non-zero before the final line):
    previous one and must refuse by name, and the checkpoint's own
    zero_to_fp32.py, whose fp32 state dict must equal the masters. The
    checkpoints live in a temporary directory under build/, removed at
-   the end.
+   the end;
+18. packed long-context training (bench.py's row_packed on one card):
+   phase 13's model without the sparse block, the "packing" block and
+   "activation_checkpointing": {"policy": "full"} (the row's
+   remat_blocks), on the first 2 rows of the row's seeded document
+   mixture packed into 16,384-token rows: 10 bf16 steps and one
+   `eval_batch` with a falling loss; beside it the no-segment control
+   (the same tokens without segment ids or the packing block), the
+   no-remat run ("none") and 3 steps each under "dots",
+   "attn_residuals" and "offload_dots". Each run counts its launches
+   exactly (12 flash forward a step, 24 where the policy recomputes the
+   forward: full, dots, offload_dots; 12 dk/dv, 12 dq, all on the
+   tensor-core design; one Adam); every policy's 3 losses equal the
+   "none" run's bit for bit; peak memory orders full < none,
+   attn_residuals <= dots <= none, offload_dots < dots. It reports step
+   ms, tokens/s, effective tokens/s, occupancy, the seg/no-seg
+   speed-up and each run's peak memory above what was allocated before
+   its engine (cuBLAS workspaces released first), and what earlier
+   phases left allocated;
+19. packed parity, fp32, kernels vs plain: (a) phase 18's model at 4
+   layers, S 4096, micro 2, "full" remat, 3 steps each way, losses
+   within rtol 1e-4; (b) BERT-large's widths at 4 layers, S 512, 2
+   packed rows, attention dropout 0 (hidden dropout 0.1), two remat
+   spans: `encode(segment_ids=)` through the non-causal segmented flash
+   kernels, loss and gradient within rtol 1e-4.
 
 It prints its wall seconds, one JSON line of kernel results, then the
 card line, then as the last line ``{"ok": true, "device": {...}}``. A
@@ -300,6 +333,27 @@ TOL_FLAGS = {torch.bfloat16: {"out": (2e-2, 2e-2), "bwd": (3e-2, 3e-2)},
 # train-125M-ckpt: phase 7's run saved after 6 steps and resumed for 4
 CKPT_STEPS_BEFORE = 6
 CKPT_STEPS_AFTER = 4
+# train-packed-125M-16k: bench.py's row_packed on one card (bench.py:771-
+# 846): phase 13's model (125M widths and depth, vocabulary 8192) at
+# 16,384 tokens, the _neox_engine JSON with the "packing" block and the
+# row's remat_blocks=True ("full"), on the first 2 rows of its seeded
+# lognormal document mixture (mean 2048 tokens, sigma 1.2)
+PACKED_SEQ = 16384
+PACKED_DOCS = dict(seed=7, n_docs=64, vocab_size=8192, mean_len=2048.0,
+                   sigma=1.2)
+PACKED_TRAIN_CONFIG = {
+    **{k: v for k, v in SPARSE_TRAIN_CONFIG.items()
+       if k != "sparse_attention"},
+    "packing": {"enabled": True},
+    "activation_checkpointing": {"policy": "full"},
+}
+PACKED_STEPS = 10
+# the no-remat run and the other policies beside the main run
+PACKED_POLICY_STEPS = 3
+# phase 19: (a) phase 18's model at 4 layers and S 4096; (b) BERT-large's
+# widths at 4 layers, S 512, packed rows, two remat spans
+PACKED_PARITY_SEQ = 4096
+BERT_PACKED_SEQ = 512
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
 
@@ -2651,18 +2705,28 @@ def check_sparse_design(bsa, what, launches, design):
     return got
 
 
-def train_sparse(fa, bsa, ad, report, profile_step=False, designs=True):
+def train_sparse(fa, bsa, ad, report, profile_step=False, designs=True,
+                 remat=False):
     """Phase 13: GPT-NeoX-125M's widths and depth with an 8192 vocabulary
     at 16,384 tokens, the JSON "sparse_attention" block (fixed l16g1)
     through `initialize()` → `train_batch`, 10 bf16 steps on one repeated
     batch and one `eval_batch`, every attention launch counted: the
     block-sparse arm only, and (with ``designs``) every launch on the
-    tensor-core design."""
+    tensor-core design. With ``remat``, the bench row's remat
+    (remat_blocks=True: ``"activation_checkpointing": {"policy":
+    "full"}``): each block's forward runs again in the backward, so 24
+    block-sparse forward launches a step."""
     import deeperspeed_tpu_torch as dst
     from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
     model = GPTNeoX(GPTNeoXConfig(**SPARSE_MODEL), device="cuda")
     model.init_params(5)
-    eng, *_ = dst.initialize(model=model, config_params=SPARSE_TRAIN_CONFIG)
+    conf = dict(SPARSE_TRAIN_CONFIG)
+    if remat:
+        conf["activation_checkpointing"] = {"policy": "full"}
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    if remat and model.remat_policy != "full":
+        fail(f"the activation_checkpointing block set remat policy "
+             f"{model.remat_policy!r}, not 'full'")
     cfg = model.config
     arm = model.sparse_self_attention.arm(SPARSE_SEQ, cfg.head_dim)
     layout = model.sparse_self_attention.get_layout(SPARSE_SEQ)[0]
@@ -2689,7 +2753,7 @@ def train_sparse(fa, bsa, ad, report, profile_step=False, designs=True):
               f"{step_s[-1] * 1e3:.1f} ms", flush=True)
     launches = dict(attention_counts(fa, bsa), adam=ad.launches)
     want = {k: 0 for k in launches}
-    want.update(block_sparse_fwd=L * SPARSE_STEPS,
+    want.update(block_sparse_fwd=(2 if remat else 1) * L * SPARSE_STEPS,
                 block_sparse_dkv=L * SPARSE_STEPS,
                 block_sparse_dq=L * SPARSE_STEPS, adam=SPARSE_STEPS)
     peak = torch.cuda.max_memory_allocated()
@@ -2700,7 +2764,8 @@ def train_sparse(fa, bsa, ad, report, profile_step=False, designs=True):
              f"{losses[0]:.4f}, step {SPARSE_STEPS} {losses[-1]:.4f}")
     if launches != want:
         fail(f"sparse training launch counts {launches} != {want} ({L} "
-             f"layers x {SPARSE_STEPS} steps, no dense or masked flash)")
+             f"layers x {SPARSE_STEPS} steps, no dense or masked flash; "
+             f"remat {remat})")
     design = check_sparse_design(bsa, "train-sparse-125M-16k", launches,
                                  "mma") if designs else None
     if eng.global_steps != SPARSE_STEPS or eng.skipped_steps:
@@ -2720,13 +2785,13 @@ def train_sparse(fa, bsa, ad, report, profile_step=False, designs=True):
         "design_launches": design,
         "launches_per_step": {k: v / SPARSE_STEPS
                               for k, v in launches.items()},
-        "activation_checkpointing": False,
+        "activation_checkpointing": "full" if remat else False,
     }
     if profile_step:
         result["profile"] = profile_window(
             lambda: eng.train_batch(batch=(tokens, tokens)), 1,
             share_of="block_sparse")
-    report["train_sparse"] = result
+    report["train_sparse_remat" if remat else "train_sparse"] = result
     del eng, model
     torch.cuda.empty_cache()
     return result
@@ -3204,6 +3269,559 @@ def _train_checkpoint(dst, mf, fa, ad, report, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phases 3, 18, 19: packed documents at 16,384 tokens
+# ---------------------------------------------------------------------------
+
+def packed_rows(seq, rows=2):
+    """row_packed's data: the seeded document mixture (documents capped
+    at ``seq``) packed into ``seq``-token rows, the first ``rows`` of
+    them → (tokens [rows, seq] int64, segment ids [rows, seq] int32) on
+    the host."""
+    from deeperspeed_tpu_torch.runtime.packing import (pack_documents,
+                                                       synthetic_doc_mixture)
+    docs = synthetic_doc_mixture(
+        PACKED_DOCS["seed"], PACKED_DOCS["n_docs"],
+        PACKED_DOCS["vocab_size"], mean_len=PACKED_DOCS["mean_len"],
+        sigma=PACKED_DOCS["sigma"], max_len=seq)
+    tok, seg = pack_documents(docs, seq)
+    if tok.shape[0] < rows:
+        fail(f"the mixture packed into {tok.shape[0]} rows < {rows}")
+    return tok[:rows].astype(np.int64), seg[:rows]
+
+
+def check_packed_at_scale(fa, q, k, v, seg, out, lse, do, delta, heads=2):
+    """The segmented flash forward (``out``, ``lse``) and one backward
+    launch on (``do``, ``delta``) at phase 18's shape and rows against
+    their plain versions, run on one (batch row, ``heads`` heads) slice
+    at a time: heads are independent, and one head's fp32 scores at
+    16,384 tokens are about 1.07 GB where the whole would be about 26 GB.
+    → (max abs errors of out, lse, dq, dk, dv over all slices, ok under
+    TOL / TOL_BWD)."""
+    B, S, H, D = q.shape
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, seg)
+    lse3 = lse.view(B, H, S)
+    tol = {"out": TOL[q.dtype]["out"], "lse": TOL[q.dtype]["lse"],
+           **{n: TOL_BWD[q.dtype] for n in ("dq", "dk", "dv")}}
+    errs, ok = dict.fromkeys(tol, 0.0), True
+    for b in range(B):
+        for h in range(0, H, heads):
+            sl = (slice(b, b + 1), slice(None), slice(h, h + heads))
+            qs, ks, vs, os_, dos = (x[sl] for x in (q, k, v, out, do))
+            ls = lse3[b, h:h + heads].contiguous()
+            ref_o, ref_l = fa.flash_attention_segmented_reference(
+                qs, ks, vs, seg[b:b + 1])
+            pairs = [("out", os_, ref_o), ("lse", ls, ref_l)]
+            pairs += zip(("dq", "dk", "dv"), (x[sl] for x in (dq, dk, dv)),
+                         fa.flash_attention_bwd_reference(
+                             qs, ks, vs, os_, ls, dos, seg[b:b + 1]))
+            for name, got, want in pairs:
+                err, good = close(got, want, *tol[name])
+                errs[name] = max(errs[name], err)
+                ok = ok and good
+            del pairs, ref_o, ref_l
+    del dq, dk, dv
+    torch.cuda.empty_cache()
+    return errs, ok
+
+
+def check_packed_attention(fa, gen, report):
+    """Phase 3 for the segmented flash kernels on packed rows: forward
+    and backward against their plain versions at S 4096 (bf16 and fp32,
+    phase 19(a)'s segments) and at phase 18's attention shape (B=2
+    S=16384 H=12 D=64 bf16, its rows; `check_packed_at_scale`), then
+    timed there beside SDPA (forward, and its backward) under the same
+    bool mask; the bound counts the live (causal, same-document) pairs.
+    The plain version is timed at S 4096 only: at 16,384 it would
+    materialize about 26 GB of fp32 scores at once."""
+    import torch.nn.functional as F
+    H, D = SPARSE_MODEL["num_heads"], \
+        SPARSE_MODEL["hidden_size"] // SPARSE_MODEL["num_heads"]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        _, seg_np = packed_rows(PACKED_PARITY_SEQ)
+        seg = torch.from_numpy(seg_np).cuda()
+        B, S = seg.shape
+        q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+        out, lse = fa.flash_attention_cuda(q, k, v, seg)
+        ref_out, ref_lse = fa.flash_attention_segmented_reference(q, k, v,
+                                                                  seg)
+        err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+        err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+        del ref_out, ref_lse
+        grow, ok_g, (o, l_, do_, _) = check_grads(fa, q, k, v, seg, gen)
+        row = {"B": B, "S": S, "H": H, "D": D, "dtype": str(dtype),
+               "segments": "packed", "max_abs_err_out": err_o,
+               "max_abs_err_lse": err_l, "tol_out": TOL[dtype]["out"],
+               "tol_bwd": TOL_BWD[dtype], **grow}
+        if dtype == torch.bfloat16:
+            row["plain_fwd_ms"] = time_ms(
+                lambda: fa.flash_attention_segmented_reference(q, k, v, seg),
+                warmup=1, iters=3)
+            row["plain_bwd_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_reference(q, k, v, o, l_, do_,
+                                                         seg),
+                warmup=1, iters=3)
+        print(f"  flash packed (S {S}) {row}", flush=True)
+        if not (ok_o and ok_l and ok_g):
+            fail(f"segmented flash kernels disagree with their plain "
+                 f"versions on packed rows: {row}")
+        rows.append(row)
+        del q, k, v, out, lse, o, l_, do_
+        torch.cuda.empty_cache()
+    # the timings at phase 18's shape
+    _, seg_np = packed_rows(PACKED_SEQ)
+    seg = torch.from_numpy(seg_np).cuda()
+    B, S = seg.shape
+    q, k, v, _, _ = prefill_case(S, torch.bfloat16, gen, B=B, H=H, D=D)
+    out, lse = fa.flash_attention_cuda(q, k, v, seg)
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(q.dtype)
+    delta = fa.attention_delta(out, do)
+    errs, ok = check_packed_at_scale(fa, q, k, v, seg, out, lse, do, delta)
+    print(f"  flash packed (S {S}, phase 18's rows) max abs errors {errs}",
+          flush=True)
+    if not ok:
+        fail(f"segmented flash kernels disagree with their plain versions "
+             f"at phase 18's shape and rows: {errs}")
+    t = {"B": B, "S": S, "H": H, "D": D, "dtype": str(q.dtype),
+         "segments": "packed (phase 18's rows)",
+         **{f"max_abs_err_{n}": e for n, e in errs.items()},
+         "tol_out": TOL[q.dtype]["out"], "tol_lse": TOL[q.dtype]["lse"],
+         "tol_bwd": TOL_BWD[q.dtype],
+         "live_pairs": live_pairs(seg, B, S),
+         "causal_pairs": B * S * (S + 1) // 2,
+         "plain": f"not timed at S {S} (about 26 GB of fp32 scores); "
+                  f"plain_fwd_ms / plain_bwd_ms are S {PACKED_PARITY_SEQ}'s"}
+    t["fwd_ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v, seg))
+    t["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, lse, do, delta, seg))
+    t["causal_fwd_ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v))
+    t["fwd_bound_ms"], t["fwd_bound_by"] = prefill_bound_ms(q, seg)
+    t["bwd_bound_ms"], t["bwd_bound_by"] = flash_bwd_bound_ms(q, seg)
+    t["plain_fwd_ms"] = rows[0]["plain_fwd_ms"]
+    t["plain_bwd_ms"] = rows[0]["plain_bwd_ms"]
+    mask = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None] & \
+        (seg[:, :, None] == seg[:, None, :])
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    with torch.no_grad():
+        t["library_fwd_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None]), warmup=2, iters=10)
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                           attn_mask=mask[:, None])
+    do_t = do.transpose(1, 2).contiguous()
+    t["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True), warmup=2, iters=10)
+    t["library"] = "SDPA under the same bool mask [B, 1, S, S]"
+    print(f"  flash packed times (B={B} S={S}, {t['live_pairs']} live pairs "
+          f"of {t['causal_pairs']} causal): forward {t['fwd_ms']:.4f} ms "
+          f"(causal without segments {t['causal_fwd_ms']:.4f}), backward "
+          f"{t['bwd_ms']:.4f} ms; SDPA {t['library_fwd_ms']:.4f} / "
+          f"{t['library_bwd_ms']:.4f} ms; bound {t['fwd_bound_ms']:.5f} / "
+          f"{t['bwd_bound_ms']:.5f} ms ({t['fwd_bound_by']} / "
+          f"{t['bwd_bound_by']})", flush=True)
+    report["flash_packed"] = {"checks": rows, "times": t}
+    del q, k, v, out, lse, do, delta, mask, qt, kt, vt, o_lib, do_t
+    torch.cuda.empty_cache()
+    return t
+
+
+def release_cublas_workspaces():
+    """Free the cuBLAS workspaces PyTorch keeps, one for every (handle,
+    stream) pair that ran a cuBLAS call (it frees none by itself; the next
+    call allocates its stream's again) → bytes released, None where the
+    build lacks the call."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is None:
+        return None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    clear()
+    return before - torch.cuda.memory_allocated()
+
+
+def memory_census(top=8):
+    """What holds device memory before phase 18 builds an engine: the
+    CUDA tensors Python can reach (gc), grouped by (shape, dtype), the
+    ``top`` largest groups; the allocator's live blocks by size; then
+    the cuBLAS workspaces released (`release_cublas_workspaces`) →
+    {"allocated_gb",
+    "reachable_gb", "groups", "blocks_mb", "cublas_workspaces_gb",
+    "after_gb"}."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    groups, seen = {}, set()
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+            st = obj.untyped_storage()
+            key = (st.data_ptr(), st.nbytes())
+        except Exception:
+            continue
+        if key in seen:
+            continue
+        seen.add(key)
+        g = groups.setdefault((tuple(obj.shape), str(obj.dtype)), [0, 0])
+        g[0] += 1
+        g[1] += key[1]
+    rows = sorted(groups.items(), key=lambda kv: -kv[1][1])
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                mb = b["size"] / 2 ** 20
+                blocks[mb] = blocks.get(mb, 0) + 1
+    allocated = torch.cuda.memory_allocated()
+    released = release_cublas_workspaces()
+    after = torch.cuda.memory_allocated()
+    return {"allocated_gb": allocated / 2 ** 30,
+            "reachable_gb": sum(n for _, n in groups.values()) / 2 ** 30,
+            "groups": [{"shape": list(shape), "dtype": dtype, "count": c,
+                        "gb": n / 2 ** 30}
+                       for (shape, dtype), (c, n) in rows[:top]],
+            "blocks_mb": {f"{mb:g}": c for mb, c in
+                          sorted(blocks.items(), key=lambda kv: -kv[0])[:top]},
+            "cublas_workspaces_gb": None if released is None
+            else released / 2 ** 30,
+            "after_gb": after / 2 ** 30}
+
+
+def packed_run(fa, bsa, ad, tokens, seg, policy, steps, eval_too=False,
+               profile_step=False):
+    """One engine of phase 18 from seed-5 weights: ``steps`` bf16
+    `train_batch` steps on the packed batch (no segment ids, and no
+    "packing" block, when ``seg`` is None) under remat ``policy``, every
+    attention and Adam launch counted and checked: per step 12 flash
+    forward launches (24 where the policy recomputes the forward:
+    full, dots, offload_dots), 12 dk/dv, 12 dq, all on the tensor-core
+    design, no other attention kernel, one Adam. Its peak memory is
+    read above what was allocated before the engine was built, each run
+    starting with the cuBLAS workspaces released, so every run counts
+    the workspaces it allocates itself."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    conf = json.loads(json.dumps(PACKED_TRAIN_CONFIG))
+    conf["activation_checkpointing"] = {"policy": policy}
+    if seg is None:
+        del conf["packing"]
+    release_cublas_workspaces()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    model = GPTNeoX(GPTNeoXConfig(**SPARSE_MODEL), device="cuda") \
+        .init_params(5)
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    if model.config.use_segment_ids != (seg is not None) or \
+            model.remat_policy != policy:
+        fail(f"phase 18's config did not reach the model: use_segment_ids "
+             f"{model.config.use_segment_ids}, remat {model.remat_policy}")
+    batch = (tokens, tokens) if seg is None else (tokens, tokens, seg)
+    L = model.config.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts(fa, bsa)
+    ad.launches = 0
+    losses, step_s = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        step_s.append(time.perf_counter() - t0)
+        print(f"  {policy}{'' if seg is not None else ', no segments'} step "
+              f"{step + 1}: loss {losses[-1]:.4f}, {step_s[-1] * 1e3:.1f} ms",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(attention_counts(fa, bsa), adam=ad.launches)
+    fwd = 2 if policy in ("full", "dots", "offload_dots") else 1
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=fwd * L * steps, flash_bwd_dkv=L * steps,
+                flash_bwd_dq=L * steps, adam=steps)
+    if launches != want:
+        fail(f"phase 18 ({policy}, segments {seg is not None}) launch "
+             f"counts {launches} != {want}")
+    design = check_design(fa, f"train_packed ({policy})", {
+        "fwd": want["flash_fwd"], "dkv": want["flash_bwd_dkv"],
+        "dq": want["flash_bwd_dq"]})
+    if not all(np.isfinite(losses)):
+        fail(f"a phase 18 loss is not finite ({policy}): {losses}")
+    if eng.global_steps != steps or eng.skipped_steps:
+        fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
+    med = float(np.median(step_s))
+    run = {"policy": policy, "segments": seg is not None, "steps": steps,
+           "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+           "step_ms_median": med * 1e3,
+           "tokens_per_s": tokens.numel() / med,
+           "max_memory_allocated_gb": peak / 2 ** 30,
+           "baseline_gb": baseline / 2 ** 30,
+           "peak_gb": (peak - baseline) / 2 ** 30,
+           "launches": launches, "design_launches": design,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "num_params": eng.num_params}
+    if eval_too:
+        run["eval_loss"] = eng.eval_batch(tuple(x[0] for x in batch))
+        if not np.isfinite(run["eval_loss"]):
+            fail(f"eval_batch loss {run['eval_loss']} is not finite")
+    if profile_step:
+        run["profile"] = profile_window(lambda: eng.train_batch(batch=batch),
+                                        1, share_of="flash")
+    del eng, model
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_packed(fa, bsa, ad, report, profile_step=False):
+    """Phase 18: train-packed-125M-16k (bench.py's row_packed on one
+    card). The main run: 10 steps and one `eval_batch` on 2 packed rows
+    of 16,384 tokens under "full" remat, the loss falling. Beside it, at
+    the same shape: the no-segment control (row_packed's: the same
+    tokens without segment ids or the packing block, still "full"), the
+    no-remat run ("none") and 3 steps each under dots, attn_residuals
+    and offload_dots. Every policy's 3 losses must equal the "none"
+    run's bit for bit (the recompute is the same arithmetic); peak
+    memory must order full < none, attn_residuals <= dots <= none and
+    offload_dots < dots."""
+    from deeperspeed_tpu_torch.runtime.packing import (
+        count_effective_targets, packed_batch_token_stats)
+    tok_np, seg_np = packed_rows(PACKED_SEQ)
+    eff, total = packed_batch_token_stats((tok_np[None], tok_np[None],
+                                           seg_np[None]))
+    if eff != count_effective_targets(seg_np):
+        fail("the packed batch's token stats disagree")
+    tokens = torch.from_numpy(tok_np[None]).cuda()
+    seg = torch.from_numpy(seg_np[None]).cuda()
+    docs_in_rows = [int(np.unique(r[r > 0]).size) for r in seg_np]
+    survivors = memory_census()
+    print(f"  device memory held before phase 18: "
+          f"{survivors['allocated_gb']:.4f} GiB allocated, "
+          f"{survivors['reachable_gb']:.4f} GiB in reachable tensors "
+          f"(largest {survivors['groups'][:2]}), live blocks by MiB "
+          f"{survivors['blocks_mb']}; cuBLAS workspaces released "
+          f"{survivors['cublas_workspaces_gb']} GiB, "
+          f"{survivors['after_gb']:.4f} GiB left", flush=True)
+    runs = {"full": packed_run(fa, bsa, ad, tokens, seg, "full",
+                               PACKED_STEPS, eval_too=True,
+                               profile_step=profile_step)}
+    main = runs["full"]
+    if not main["losses"][-1] < main["losses"][0]:
+        fail(f"the packed training loss did not fall: step 1 "
+             f"{main['losses'][0]:.4f}, step {PACKED_STEPS} "
+             f"{main['losses'][-1]:.4f}")
+    control = packed_run(fa, bsa, ad, tokens, None, "full", PACKED_STEPS)
+    for policy in ("none", "dots", "attn_residuals", "offload_dots"):
+        runs[policy] = packed_run(fa, bsa, ad, tokens, seg, policy,
+                                  PACKED_POLICY_STEPS)
+    base = runs["none"]["losses"]
+    equal = {p: r["losses"][:PACKED_POLICY_STEPS] == base
+             for p, r in runs.items()}
+    peak = {p: r["peak_gb"] for p, r in runs.items()}
+    result = {
+        "seq": PACKED_SEQ, "rows": int(tok_np.shape[0]),
+        "documents_per_row": docs_in_rows,
+        "occupancy": float((seg_np != 0).mean()),
+        "effective_targets": eff, "total_targets": total,
+        "effective_fraction": eff / total,
+        "steps": PACKED_STEPS, "losses": main["losses"],
+        "eval_loss": main["eval_loss"],
+        "step_ms_median": main["step_ms_median"],
+        "tokens_per_s": main["tokens_per_s"],
+        "effective_tokens_per_s": main["tokens_per_s"] * eff / total,
+        "noseg_step_ms_median": control["step_ms_median"],
+        "noseg_tokens_per_s": control["tokens_per_s"],
+        "seg_speedup": control["step_ms_median"] / main["step_ms_median"],
+        "remat_cost_ms": main["step_ms_median"] -
+        runs["none"]["step_ms_median"],
+        "peak_gb": peak, "noseg_peak_gb": control["peak_gb"],
+        "baseline_gb": {p: r["baseline_gb"] for p, r in runs.items()},
+        "survivors": survivors,
+        "losses_equal_none": equal, "launches": main["launches"],
+        "design_launches": main["design_launches"],
+        "launches_per_step": main["launches_per_step"],
+        "runs": runs, "noseg": control}
+    report["train_packed"] = result
+    for p, r in runs.items():
+        print(f"  {p}: median step {r['step_ms_median']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak memory "
+              f"{r['peak_gb']:.3f} GiB above the {r['baseline_gb']:.3f} GiB "
+              f"held before the engine, flash launches a "
+              f"step {r['launches_per_step']['flash_fwd']:.0f} / "
+              f"{r['launches_per_step']['flash_bwd_dkv']:.0f} / "
+              f"{r['launches_per_step']['flash_bwd_dq']:.0f}, losses "
+              f"{r['losses'][:PACKED_POLICY_STEPS]} (equal to none: "
+              f"{equal[p]})", flush=True)
+    bad = [p for p, same in equal.items() if not same]
+    if bad:
+        fail(f"remat policies {bad} change the losses: "
+             f"{ {p: runs[p]['losses'][:PACKED_POLICY_STEPS] for p in runs} }")
+    if not (peak["full"] < peak["none"] and
+            peak["attn_residuals"] <= peak["dots"] <= peak["none"] and
+            peak["offload_dots"] < peak["dots"]):
+        fail(f"peak memory out of order (want full < none, attn_residuals "
+             f"<= dots <= none, offload_dots < dots): {peak}")
+    return result
+
+
+def packed_parity(fa, bsa, report):
+    """Phase 19(a): phase 18's model at 4 layers, S 4096, micro 2, fp32,
+    the packing block and "full" remat: 3 steps through the kernels and
+    3 through the plain versions; the losses must agree within rtol
+    1e-4, and the kernel run takes 8 flash forward (the recompute),
+    4 dk/dv and 4 dq launches a step, all on the FMA design (fp32)."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    conf = json.loads(json.dumps(PACKED_TRAIN_CONFIG))
+    conf["fp16"] = {"enabled": False}
+    cfg = GPTNeoXConfig(**dict(SPARSE_MODEL, num_layers=4,
+                               max_seq_len=PACKED_PARITY_SEQ))
+    tok_np, seg_np = packed_rows(PACKED_PARITY_SEQ)
+    batch = (torch.from_numpy(tok_np[None]).cuda(),) * 2 + \
+        (torch.from_numpy(seg_np[None]).cuda(),)
+    losses, launches, design = {}, None, None
+    for use_kernels in (True, False):
+        model = GPTNeoX(cfg, use_kernels=use_kernels, device="cuda") \
+            .init_params(9)
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        reset_attention_counts(fa, bsa)
+        losses[use_kernels] = [eng.train_batch(batch=batch)
+                               for _ in range(3)]
+        if use_kernels:
+            launches = attention_counts(fa, bsa)
+            design = {k: dict(v) for k, v in fa.design_launches.items()}
+        del eng, model
+        torch.cuda.empty_cache()
+    fast, plain = np.array(losses[True]), np.array(losses[False])
+    rel = np.abs(fast - plain) / np.abs(plain)
+    L = cfg.num_layers
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=2 * L * 3, flash_bwd_dkv=L * 3, flash_bwd_dq=L * 3)
+    report["train_packed_parity"] = {
+        "kernels": losses[True], "plain": losses[False],
+        "max_rel_diff": float(rel.max()), "rtol": 1e-4, "seq": cfg.max_seq_len,
+        "launches": launches, "design_launches": design}
+    print(f"  (a) GPT-NeoX 4 layers, S {PACKED_PARITY_SEQ}, packed, full "
+          f"remat: losses kernels {losses[True]} vs plain {losses[False]}: "
+          f"max relative difference {rel.max():.3e}", flush=True)
+    if launches != want:
+        fail(f"packed parity launch counts {launches} != {want}")
+    if design != {k: {"mma": 0, "fma": want[f"flash_{n}"]} for k, n in
+                  (("fwd", "fwd"), ("dkv", "bwd_dkv"), ("dq", "bwd_dq"))}:
+        fail(f"packed parity launches by design {design}: fp32 takes the "
+             f"FMA kernels")
+    if not (np.isfinite(fast).all() and (rel <= 1e-4).all()):
+        fail(f"fp32 packed training losses differ between the kernel path "
+             f"and the plain path beyond rtol 1e-4: {losses}")
+    return report["train_packed_parity"]
+
+
+def bert_packed_parity(fa, bsa, report):
+    """Phase 19(b): BERT-large's widths at 4 layers, fp32, S 512, 2 packed
+    rows, hidden dropout 0.1 and attention dropout 0, number_checkpoints
+    2 ("full" spans of 2 layers): `encode(segment_ids=)` takes the
+    non-causal segmented flash kernels. The loss (a fixed projection of
+    the encoder output) and its gradient through the kernels and through
+    the plain versions, dropout from generators seeded alike: the loss
+    within rtol 1e-4, the gradient element by element within rtol 1e-4
+    (atol 1e-4 of its largest magnitude); 8 flash forward (the recompute),
+    4 dk/dv and 4 dq launches, no flagged one."""
+    from deeperspeed_tpu_torch import BertConfig, BertModel
+    from deeperspeed_tpu_torch.runtime.packing import (pack_documents,
+                                                       synthetic_doc_mixture)
+    cfg = dataclasses.replace(BertConfig.large(), num_layers=4,
+                              attn_dropout=0.0)
+    S = BERT_PACKED_SEQ
+    docs = synthetic_doc_mixture(3, 32, cfg.vocab_size, mean_len=128.0,
+                                 sigma=1.0, max_len=S)
+    ids, seg = (torch.from_numpy(a[:2]).cuda()
+                for a in pack_documents(docs, S))
+    proj = torch.randn(2, S, cfg.hidden_size, device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(4))
+    losses, grads, launches = {}, {}, None
+    for use_kernels in (True, False):
+        model = BertModel(cfg, number_checkpoints=2, use_kernels=use_kernels,
+                          device="cuda").init_params(7)
+        params = model.params_tree()
+        reset_attention_counts(fa, bsa)
+        gen = torch.Generator(device="cuda").manual_seed(1234)
+        out = model.encode(params, ids, rng=gen, deterministic=False,
+                           segment_ids=seg)
+        loss = (out * proj).sum() / out.numel()
+        named = [(n, p) for n, p in model.named_parameters()
+                 if not n.startswith("pooler")]
+        g = torch.autograd.grad(loss, [p for _, p in named])
+        if use_kernels:
+            launches = attention_counts(fa, bsa)
+        losses[use_kernels] = float(loss.detach())
+        grads[use_kernels] = torch.cat([x.reshape(-1) for x in g])
+        del model, params, out, loss, g
+        torch.cuda.empty_cache()
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    g_diff = (grads[True] - grads[False]).abs()
+    g_max = float(grads[False].abs().max())
+    g_off = int((g_diff > 1e-4 * (g_max + grads[False].abs())).sum())
+    L = cfg.num_layers
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=2 * L, flash_bwd_dkv=L, flash_bwd_dq=L)
+    report["bert_packed_parity"] = {
+        "kernels": losses[True], "plain": losses[False],
+        "rel_diff": rel, "grad_max_abs_diff": float(g_diff.max()),
+        "grad_max_abs": g_max, "grads_outside_tol": g_off, "rtol": 1e-4,
+        "launches": launches,
+        "documents_per_row": [int(np.unique(r[r > 0]).size)
+                              for r in seg.cpu().numpy()]}
+    print(f"  (b) BERT-large widths, 4 layers, S {S}, packed, 2 spans: loss "
+          f"kernels {losses[True]:.8f} vs plain {losses[False]:.8f} "
+          f"(relative {rel:.3e}); gradient max abs difference "
+          f"{float(g_diff.max()):.3e} of max {g_max:.3e}, {g_off} outside "
+          f"tolerance; launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    if launches != want:
+        fail(f"BERT packed parity launch counts {launches} != {want} (the "
+             f"non-causal segmented flash on every layer, twice forward)")
+    if not (np.isfinite(losses[True]) and rel <= 1e-4):
+        fail(f"BERT packed loss differs between the kernel path and the "
+             f"plain path beyond rtol 1e-4: {losses}")
+    if g_off or not torch.isfinite(grads[True]).all():
+        fail(f"{g_off} elements of the BERT packed gradient differ between "
+             f"the kernel path and the plain path beyond rtol 1e-4")
+    return report["bert_packed_parity"]
+
+
+def packed_times(t, part):
+    """The kernels line's entry for the segmented flash ``part`` ("fwd",
+    "bwd") at phase 18's shape (`check_packed_attention`)."""
+    errs = {n: t[f"max_abs_err_{n}"] for n in
+            (("out", "lse") if part == "fwd" else ("dq", "dk", "dv"))}
+    tol = ({"out": t["tol_out"], "lse": t["tol_lse"]} if part == "fwd"
+           else t["tol_bwd"])
+    return {"ms": t[f"{part}_ms"], "plain_ms": t[f"plain_{part}_ms"],
+            "library_ms": t[f"library_{part}_ms"],
+            "max_abs_err": errs, "tol": tol,
+            "bound_ms": t[f"{part}_bound_ms"],
+            "bound_by": t[f"{part}_bound_by"], "live_pairs": t["live_pairs"],
+            "shape": f"B={t['B']} S={t['S']} H={t['H']} D={t['D']} bf16, "
+                     f"causal, packed documents (phase 18's rows)",
+            "plain": t["plain"], "library": t["library"]}
+
+
+def print_packed(tp, card):
+    full, none = tp["runs"]["full"], tp["runs"]["none"]
+    print(f"  {tp['steps']} steps (full remat): loss {tp['losses'][0]:.4f} "
+          f"-> {tp['losses'][-1]:.4f} (eval {tp['eval_loss']:.4f}), median "
+          f"step {tp['step_ms_median']:.1f} ms, {tp['tokens_per_s']:.0f} "
+          f"tokens/s, {tp['effective_tokens_per_s']:.0f} effective tokens/s "
+          f"(fraction {tp['effective_fraction']:.4f}, occupancy "
+          f"{tp['occupancy']:.4f}, documents a row "
+          f"{tp['documents_per_row']}); no-segment control "
+          f"{tp['noseg_step_ms_median']:.1f} ms (seg/no-seg speed-up "
+          f"{tp['seg_speedup']:.3f}); no remat {none['step_ms_median']:.1f} "
+          f"ms (remat cost {tp['remat_cost_ms']:.1f} ms); peak memory "
+          f"{ {p: round(v, 3) for p, v in tp['peak_gb'].items()} } GiB "
+          f"above what the engine found allocated (full "
+          f"{full['baseline_gb']:.3f} GiB) on {card}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 6 (--profile): where a serving step's time goes
 # ---------------------------------------------------------------------------
 
@@ -3544,6 +4162,7 @@ def main():
     bert_rows, _ = check_bert_attention(fa, gen, report)
     check_dropout_readout(fa, report)
     check_bwd_identity(fa, gen, report)
+    fpk = check_packed_attention(fa, gen, report)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -3607,6 +4226,16 @@ def main():
           f"tokens/s, peak memory {ts['max_memory_allocated_gb']:.2f} GiB, "
           f"density {ts['density']:.4f}, launches per step "
           f"{ts['launches_per_step']} on {card}", flush=True)
+    print("sparse training train-sparse-125M-16k with the bench row's remat "
+          "(\"full\"):", flush=True)
+    tsr = train_sparse(fa, bsa, ad, report, remat=True)
+    print(f"  {tsr['steps']} steps: loss {tsr['losses'][0]:.4f} -> "
+          f"{tsr['losses'][-1]:.4f}, median step {tsr['step_ms_median']:.1f} "
+          f"ms (no remat {ts['step_ms_median']:.1f}), peak memory "
+          f"{tsr['max_memory_allocated_gb']:.2f} GiB (no remat "
+          f"{ts['max_memory_allocated_gb']:.2f}), launches per step "
+          f"{ {k: v for k, v in tsr['launches_per_step'].items() if v} } on "
+          f"{card}", flush=True)
     print("sparse training parity (fp32, kernels vs plain):", flush=True)
     pm = sparse_parity(fa, bsa, report, "train_sparse_parity_masked",
                        SPARSE_L4G1, dict(NEOX_125M), TRAIN_SEQ, 2, 2,
@@ -3629,6 +4258,13 @@ def main():
           flush=True)
     bp = bert_parity(fa, bsa, report)
     tc = print_checkpoint(train_checkpoint(fa, ad, report), card)
+    print("packed long-context training train-packed-125M-16k (bf16, fp32 "
+          "masters, ZeRO-2, packing, remat):", flush=True)
+    tp = train_packed(fa, bsa, ad, report, profile_step=args.profile)
+    print_packed(tp, card)
+    print("packed training parity (fp32, kernels vs plain):", flush=True)
+    packed_parity(fa, bsa, report)
+    bert_packed_parity(fa, bsa, report)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -3649,6 +4285,11 @@ def main():
                       tb["profile"], card)
         print(f"  flash kernels' share of device time: "
               f"{tb['profile']['device_share_flash']:.3f}", flush=True)
+        tpp = tp["runs"]["full"]["profile"]
+        print_profile("packed training step (2 x 16384, full remat)", tpp,
+                      card)
+        print(f"  flash kernels' share of device time: "
+              f"{tpp['device_share_flash']:.3f}", flush=True)
 
     pallas = "deeperspeed_tpu/ops/pallas/"
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
@@ -3660,6 +4301,7 @@ def main():
 
     def sparse_designs(part):
         return {"train_sparse": ts["design_launches"][part],
+                "train_sparse_remat": tsr["design_launches"][part],
                 "train_sparse_parity": pb["design_launches"][part]}
 
     kernels = [
@@ -3670,18 +4312,20 @@ def main():
                      f"(_fwd_single_kernel, _fwd_single_mh_kernel)",
          "launches": sv["launches"]["flash_fwd"] +
          tr["launches"]["flash_fwd"] + tm["launches"]["flash_fwd"] +
-         tc["launches"]["flash_fwd"],
+         tc["launches"]["flash_fwd"] + tp["launches"]["flash_fwd"],
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "train_moe": tm["launches"]["flash_fwd"],
-                              "train_ckpt": tc["launches"]["flash_fwd"]},
+                              "train_ckpt": tc["launches"]["flash_fwd"],
+                              "train_packed": tp["launches"]["flash_fwd"]},
          "design": "bf16 at D 64/128: tensor cores (mma.sync, "
                    "csrc/attention_mma.cuh); fp32, D 256: FMA tile steps",
          "design_launches_by_path": {
              "serve": sv["design_launches"]["fwd"],
              "train": tr["design_launches"]["fwd"],
              "train_moe": tm["design_launches"]["fwd"],
-             "train_ckpt": tc["design_launches"]["fwd"]},
+             "train_ckpt": tc["design_launches"]["fwd"],
+             "train_packed": tp["design_launches"]["fwd"]},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
@@ -3689,7 +4333,8 @@ def main():
          "tolerance": fl["tol_out"],
          "train_shape": {k: ft[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "max_abs_err_out")} | {"shape": train_shape}},
+             "max_abs_err_out")} | {"shape": train_shape},
+         "packed_shape": packed_times(fpk, "fwd")},
         {"name": "paged_decode", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
          "replaces": f"{pallas}decode_attention.py:84",
@@ -3710,22 +4355,29 @@ def main():
                      f"{pallas}flash_attention.py:948, :1038 "
                      f"(_bwd_dkv_kernel, _bwd_dq_kernel)",
          "launches": tr["launches"]["flash_bwd_dkv"] +
-         tm["launches"]["flash_bwd_dkv"] + tc["launches"]["flash_bwd_dkv"],
+         tm["launches"]["flash_bwd_dkv"] + tc["launches"]["flash_bwd_dkv"] +
+         tp["launches"]["flash_bwd_dkv"],
          "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"] +
                                 tm["launches"]["flash_bwd_dkv"] +
-                                tc["launches"]["flash_bwd_dkv"],
+                                tc["launches"]["flash_bwd_dkv"] +
+                                tp["launches"]["flash_bwd_dkv"],
                                 "dq": tr["launches"]["flash_bwd_dq"] +
                                 tm["launches"]["flash_bwd_dq"] +
-                                tc["launches"]["flash_bwd_dq"]},
+                                tc["launches"]["flash_bwd_dq"] +
+                                tp["launches"]["flash_bwd_dq"]},
          "launches_by_path": {"train": tr["launches"]["flash_bwd_dkv"],
                               "train_moe": tm["launches"]["flash_bwd_dkv"],
-                              "train_ckpt": tc["launches"]["flash_bwd_dkv"]},
+                              "train_ckpt": tc["launches"]["flash_bwd_dkv"],
+                              "train_packed": tp["launches"][
+                                  "flash_bwd_dkv"]},
          "design_launches_by_path": {
              "train": {k: tr["design_launches"][k] for k in ("dkv", "dq")},
              "train_moe": {k: tm["design_launches"][k]
                            for k in ("dkv", "dq")},
              "train_ckpt": {k: tc["design_launches"][k]
-                            for k in ("dkv", "dq")}},
+                            for k in ("dkv", "dq")},
+             "train_packed": {k: tp["design_launches"][k]
+                              for k in ("dkv", "dq")}},
          "max_abs_err": max(fb[f"max_abs_err_{g}"]
                             for g in ("dq", "dk", "dv")),
          "ms": fb["ms"], "plain_ms": fb["plain_ms"],
@@ -3737,15 +4389,17 @@ def main():
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "max_abs_err_dq", "max_abs_err_dk", "max_abs_err_dv")} | {
              "shape": "B=4 S=1024 H=12 D=64 bf16, ragged segments "
-                      "(SDPA with the bool mask as library)"}},
+                      "(SDPA with the bool mask as library)"},
+         "packed_shape": packed_times(fpk, "bwd")},
         {"name": "adam", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/adam.cu",
          "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
          "launches": tr["launches"]["adam"] + tm["launches"]["adam"] +
-         tc["launches"]["adam"],
+         tc["launches"]["adam"] + tp["launches"]["adam"],
          "launches_by_path": {"train": tr["launches"]["adam"],
                               "train_moe": tm["launches"]["adam"],
-                              "train_ckpt": tc["launches"]["adam"]},
+                              "train_ckpt": tc["launches"]["adam"],
+                              "train_packed": tp["launches"]["adam"]},
          "max_abs_err": adm["max_abs_err_p"], "ms": adm["ms"],
          "plain_ms": adm["plain_ms"], "bound_ms": adm["bound_ms"],
          "bound_by": adm["bound_by"], "library_ms": adm["library_ms"],
@@ -3849,8 +4503,10 @@ def main():
          "replaces": f"{pallas}block_sparse_attention.py:140 "
                      f"(_sparse_fwd_kernel, via sparse_attention_fwd :213)",
          "launches": ts["launches"]["block_sparse_fwd"] +
+         tsr["launches"]["block_sparse_fwd"] +
          pb["launches"]["block_sparse_fwd"],
          "launches_by_path": {"train_sparse": ts["launches"][
+             "block_sparse_fwd"], "train_sparse_remat": tsr["launches"][
              "block_sparse_fwd"], "train_sparse_parity": pb["launches"][
              "block_sparse_fwd"]},
          "design": sparse_design,
@@ -3869,6 +4525,7 @@ def main():
          "replaces": f"{pallas}block_sparse_attention.py:281 "
                      f"(_sparse_dkv_kernel, via sparse_attention_bwd :393)",
          "launches": ts["launches"]["block_sparse_dkv"] +
+         tsr["launches"]["block_sparse_dkv"] +
          pb["launches"]["block_sparse_dkv"],
          "design": sparse_design,
          "design_launches": sparse_designs("dkv"),
@@ -3887,6 +4544,7 @@ def main():
          "replaces": f"{pallas}block_sparse_attention.py:343 "
                      f"(_sparse_dq_kernel, via sparse_attention_bwd :393)",
          "launches": ts["launches"]["block_sparse_dq"] +
+         tsr["launches"]["block_sparse_dq"] +
          pb["launches"]["block_sparse_dq"],
          "design": sparse_design,
          "design_launches": sparse_designs("dq"),

@@ -23,11 +23,14 @@ engine passes a generator seeded 0 and its eval loss does too. The
 seeds of every layer (attention, attention-output dropout, FFN dropout)
 are drawn as one int32 [L, 3] tensor on the device.
 
-The pipeline factories (`BertEmbeddingsPipe` … `to_layer_specs`) wait
-for the pipeline, tensor-parallel `param_specs` for the ranks, and the
-remat knobs for activation checkpointing (ROADMAP.md).
+The remat knobs run the encoder as recompute spans
+(`runtime/activation_checkpointing`), and `encode(segment_ids=)` takes
+packed rows. The pipeline factories (`BertEmbeddingsPipe` …
+`to_layer_specs`) wait for the pipeline and tensor-parallel
+`param_specs` for the ranks (ROADMAP.md).
 """
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -38,8 +41,12 @@ from ..ops.transformer.transformer import (DeepSpeedTransformerConfig,
                                            DeepSpeedTransformerLayer,
                                            _layer_norm, attention_bias,
                                            draw_seeds)
+from ..runtime.activation_checkpointing.checkpointing import \
+    checkpoint_span
+from ..runtime.packing import segment_relative_positions
 from ..utils.device import resolve_device
-from .gpt_neox import _holder, unflatten
+from .gpt_neox import (_holder, apply_activation_checkpointing_config,
+                       resolve_remat, segment_sizes, unflatten)
 
 
 @dataclass(frozen=True)
@@ -123,24 +130,22 @@ def reject_unsupported_ds_blocks(ds_config, family):
             "delayed-scaling FFN lives on models.gpt_neox.GPTNeoX")
 
 
-def _not_ported(what, slice_name):
-    return NotImplementedError(
-        f"{what} is not ported yet ({slice_name} slice; see ROADMAP.md)")
-
-
 class BertModel(nn.Module):
     """Embeddings + encoder + pooler. Parameters are created empty on
     ``device`` (None means the GPU, and raises without CUDA): call
     `init_params(seed)` or `load_jax_params(params)`. ``use_kernels``
-    False keeps the flash kernels' plain versions."""
+    False keeps the flash kernels' plain versions. The remat knobs
+    (`gpt_neox.resolve_remat` semantics): ``remat_policy`` names what a
+    span keeps and ``number_checkpoints`` groups the encoder into that
+    many spans (per layer without it); the JSON
+    "activation_checkpointing" block sets them."""
 
     def __init__(self, config=None, remat_policy=None,
                  number_checkpoints=None, use_kernels=True, device=None,
                  **kw):
         super().__init__()
-        if remat_policy is not None or number_checkpoints is not None:
-            raise _not_ported("remat_policy / number_checkpoints",
-                              "activation checkpointing")
+        self.remat_policy = remat_policy
+        self.number_checkpoints = number_checkpoints
         cfg = config or BertConfig(**kw)
         device = resolve_device(device, type(self).__name__)
         self.config = cfg
@@ -167,14 +172,19 @@ class BertModel(nn.Module):
         return self
 
     def apply_ds_config(self, ds_config):
-        """Refuse the blocks BERT does not implement (the JAX
+        """Refuse the blocks BERT does not implement and take the
+        "activation_checkpointing" block's remat knobs (the JAX
         `BertModel.apply_ds_config`); the training engine calls it."""
         reject_unsupported_ds_blocks(ds_config, "BERT")
         if getattr(ds_config, "packing_params", None):
+            # the BERT loss paths consume MLM/classification batches, not
+            # the LM (tokens, labels, segment_ids) triples the packing
+            # block promises; the encoder itself takes segment ids
             raise NotImplementedError(
                 "the packing config block targets the LM families "
                 "(GPT-NeoX / GPT-2); for packed encoder runs pass "
                 "segment_ids to BertModel.encode() directly")
+        apply_activation_checkpointing_config(self, ds_config)
 
     # -- params -----------------------------------------------------------
 
@@ -221,12 +231,19 @@ class BertModel(nn.Module):
 
     def embed(self, params, input_ids, token_type_ids=None,
               segment_ids=None):
-        if segment_ids is not None:
-            raise _not_ported("packed segment ids", "long-context")
+        """Word + position + token-type embeddings, normed. With
+        ``segment_ids`` (packed rows) the position table is gathered at
+        each token's intra-document position, so a packed document sees
+        the position rows of the same document alone."""
         e = params["embeddings"]
         input_ids = input_ids.long()
         S = input_ids.shape[1]
-        x = e["word"][input_ids] + e["position"][None, :S, :]
+        if segment_ids is None:
+            pos = e["position"][None, :S, :]
+        else:
+            pos = e["position"][
+                segment_relative_positions(segment_ids).long()]
+        x = e["word"][input_ids] + pos
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = x + e["token_type"][token_type_ids.long()]
@@ -239,9 +256,21 @@ class BertModel(nn.Module):
         """Embeddings + encoder → [B, S, H]; with ``collect_hidden``
         also the per-layer outputs. ``rng`` (a `torch.Generator` on the
         model's device) feeds every layer's dropout seeds unless
-        ``deterministic``."""
+        ``deterministic``; they are drawn before the layers, so a span's
+        recompute draws the same masks.
+
+        ``segment_ids`` [B, S] int (packed rows, 0 = pad): every layer's
+        attention becomes intra-document (bidirectional within a
+        document) and the position embedding is gathered at
+        intra-document positions.
+
+        With remat knobs set (and no hidden collection) the encoder runs
+        as `number_checkpoints` recompute spans (one per layer without
+        it) under the named policy."""
         x = self.embed(params, input_ids, token_type_ids,
                        segment_ids=segment_ids)
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(torch.int32).contiguous()
         hidden = [x] if collect_hidden else None
         L = self.config.num_layers
         seeds = draw_seeds(rng, (L, 3)) \
@@ -249,10 +278,30 @@ class BertModel(nn.Module):
         # the mask's key bias, built once for every layer
         kbias, _ = attention_bias(attention_mask, *x.shape[:2], x.device)
         mask = attention_mask if kbias is None else None
-        for layer, lp, sd in zip(self.layers, params["layers"], seeds):
-            x = layer.apply(lp, x, attention_mask=mask, key_bias=kbias,
-                            deterministic=deterministic, seeds=sd,
-                            use_kernels=self.use_kernels)
+
+        def run_layers(first, last, x, seeds):
+            for layer, lp, sd in zip(self.layers[first:last],
+                                     params["layers"][first:last], seeds):
+                x = layer.apply(lp, x, attention_mask=mask, key_bias=kbias,
+                                deterministic=deterministic, seeds=sd,
+                                segment_ids=segment_ids,
+                                use_kernels=self.use_kernels)
+            return x
+
+        do_remat, policy, n_ckpt = (False, None, None) if collect_hidden \
+            else resolve_remat(False, self.remat_policy,
+                               self.number_checkpoints)
+        if do_remat:
+            idx = 0
+            for size in segment_sizes(L, n_ckpt if n_ckpt is not None
+                                      else L):
+                x = checkpoint_span(
+                    functools.partial(run_layers, idx, idx + size), x,
+                    seeds[idx:idx + size], policy=policy)
+                idx += size
+            return x
+        for i in range(L):
+            x = run_layers(i, i + 1, x, seeds[i:i + 1])
             if collect_hidden:
                 hidden.append(x)
         if collect_hidden:

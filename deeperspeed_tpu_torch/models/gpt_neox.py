@@ -24,9 +24,18 @@ block turns a dense model into one (`GPTNeoX.apply_ds_config`). With
 ``attention_engine="sparse"`` (or the JSON "sparse_attention" block) the
 attention core is a `SparseSelfAttention` over the block's pattern
 (`make_sparse_attention`).
+
+Packed batches ((tokens, labels, segment_ids) triples, the JSON
+"packing" block; `runtime/packing.py`) make attention intra-document on
+every block and gather the rotary cache at intra-document positions.
+Activation checkpointing (the JSON "activation_checkpointing" block, or
+the ``remat_blocks`` / ``remat_policy`` / ``number_checkpoints`` knobs)
+runs each block, or each of ``number_checkpoints`` groups of blocks, as
+one recompute span (`runtime/activation_checkpointing/checkpointing.py`).
 """
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -37,6 +46,11 @@ from torch import nn
 
 from ..moe.layer import moe_ffn_dense
 from ..ops.hopper.quant_matmul import QuantizedWeight, quant_matmul
+from ..runtime.activation_checkpointing.checkpointing import (
+    checkpoint_span, make_remat_policy, resolve_policy_name)
+from ..runtime.config_utils import DeepSpeedConfigError
+from ..runtime.packing import (mask_cross_document_labels,
+                               segment_relative_positions)
 from ..utils.device import resolve_device
 from ..utils.logging import logger
 
@@ -57,8 +71,8 @@ class GPTNeoXConfig:
     param_dtype: object = torch.float32
     # The remaining fields mirror the JAX config so one config object
     # describes one model in both packages. `GPTNeoX` builds the dense
-    # and the MoE FFN and the dense or sparse attention engine (the
-    # serving engine refuses MoE and sparse models); packed segment ids,
+    # and the MoE FFN, the dense or sparse attention engine and packed
+    # segment ids (the serving engine refuses MoE and sparse models);
     # the MoE routing statistics and the quantized FFN wait for their
     # slices, and `GPTNeoX` refuses a config that asks for them.
     moe_num_experts: int = 0
@@ -278,29 +292,113 @@ def lm_head(params, h):
     return (h @ wte.to(h.dtype).t()).float()
 
 
+def segment_sizes(n_layers, n_segments):
+    """Span lengths for segmented checkpointing: n_segments as-equal-as-
+    possible groups over n_layers (earlier spans get the remainder).
+    Shared by the GPT-NeoX and BERT span loops (`gpt_neox.segment_sizes`)."""
+    n = max(1, min(int(n_segments), n_layers))
+    return [n_layers // n + (1 if i < n_layers % n else 0)
+            for i in range(n)]
+
+
+def resolve_remat(remat_blocks, remat_policy, number_checkpoints):
+    """Shared knob resolution for the model families: returns
+    (do_remat, policy, number_checkpoints), `policy` a
+    `make_remat_policy` result. `remat_blocks=True` with no explicit
+    policy keeps whole-block save-nothing remat ('full'); a policy or
+    segment count alone also switches remat on ('none' resolves to no
+    remat at all — keep everything — unless segments are asked for,
+    whose spans then run plainly)."""
+    do_remat = bool(remat_blocks or remat_policy is not None
+                    or number_checkpoints is not None)
+    if not do_remat:
+        return False, None, None
+    policy, is_remat = make_remat_policy(remat_policy)
+    if not is_remat and number_checkpoints is None:
+        return False, None, None   # 'none': saving everything == no remat
+    return True, policy, number_checkpoints
+
+
 def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
-                   attn_fn=None):
+                   attn_fn=None, remat_blocks=False, remat_policy=None,
+                   number_checkpoints=None, segment_ids=None):
     """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
     (out, the blocks' aux losses summed). The blocks draw their gate
     jitter from ``rng`` in turn; ``attn_fn`` is their attention core
-    when set (`block_forward`)."""
+    when set (`block_forward`).
+
+    ``segment_ids`` [B, S] int (packed ragged batches, 0 = pad — see
+    `runtime.packing`): attention becomes intra-document on every block,
+    and the rotary cache is gathered at each token's intra-document
+    position, so a packed document sees the position stream of the same
+    document padded alone.
+
+    Remat knobs (see `resolve_remat`): ``remat_policy`` names what a
+    span keeps ('none'/'full'/'dots'/'attn_residuals'/'offload_dots');
+    with ``number_checkpoints`` the blocks run as that many spans
+    (`segment_sizes`, a Python loop), else each block is a span. A
+    span's gate-jitter draws replay in its recompute."""
+    moe = bool(cfg.moe_num_experts)
+    do_remat, policy, n_ckpt = resolve_remat(remat_blocks, remat_policy,
+                                             number_checkpoints)
+    if n_ckpt is not None and moe:
+        raise ValueError(
+            "number_checkpoints (segmented-scan checkpointing) needs a "
+            "uniform block stack: incompatible with MoE aux-loss "
+            "threading and collect_hidden — drop number_checkpoints or "
+            "use per-block remat (a policy alone)")
     x = params["embed"]["wte"][tokens]
-    cos_sin = _rotary_cache(cfg, tokens.shape[1], device=x.device)
+    cos, sin, rot_dim = _rotary_cache(cfg, tokens.shape[1], device=x.device)
+    if segment_ids is not None:
+        # int32 once for every block's kernels
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+        if rot_dim:
+            # the rotary cache at intra-document positions: [B, S, rot]
+            pos = segment_relative_positions(segment_ids).long()
+            cos, sin = cos[pos], sin[pos]
+    cos_sin = (cos, sin, rot_dim)
+
+    def run_blocks(blocks, x):
+        aux_sum = None
+        for bp in blocks:
+            x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
+                              segment_ids=segment_ids, rng=rng,
+                              attn_fn=attn_fn)
+            if moe:
+                x, aux = x
+                aux_sum = aux if aux_sum is None else aux_sum + aux
+        return (x, aux_sum) if moe else x
+
+    blocks = params["blocks"]
+    if n_ckpt is not None:
+        # the spans own the remat; blocks inside run bare
+        groups, idx = [], 0
+        for size in segment_sizes(len(blocks), n_ckpt):
+            groups.append(blocks[idx:idx + size])
+            idx += size
+    else:
+        groups = [[bp] for bp in blocks]
     aux_total = None
-    for bp in params["blocks"]:
-        x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
-                          rng=rng, attn_fn=attn_fn)
-        if cfg.moe_num_experts:
+    for group in groups:
+        if do_remat:
+            x = checkpoint_span(functools.partial(run_blocks, group), x,
+                                policy=policy, generators=(rng,))
+        else:
+            x = run_blocks(group, x)
+        if moe:
             x, aux = x
             aux_total = aux if aux_total is None else aux_total + aux
     out = layer_norm(x, params["final_ln"]["scale"],
                      params["final_ln"]["bias"], cfg.layernorm_eps)
-    return (out, aux_total) if cfg.moe_num_experts else out
+    return (out, aux_total) if moe else out
 
 
-def forward(cfg, params, tokens, use_kernels=True, attn_fn=None):
-    """tokens [B, S] int → logits [B, S, V] (fp32)."""
-    x = forward_hidden(cfg, params, tokens, use_kernels, attn_fn=attn_fn)
+def forward(cfg, params, tokens, use_kernels=True, attn_fn=None,
+            **remat):
+    """tokens [B, S] int → logits [B, S, V] (fp32); ``remat`` takes
+    `forward_hidden`'s remat knobs."""
+    x = forward_hidden(cfg, params, tokens, use_kernels, attn_fn=attn_fn,
+                       **remat)
     if cfg.moe_num_experts:
         x, _ = x
     return lm_head(params, x)
@@ -411,6 +509,35 @@ def make_sparse_attention(cfg, sparse_params=None):
     return attn_fn
 
 
+def apply_activation_checkpointing_config(model, ds_config):
+    """Thread the JSON "activation_checkpointing" block into a model's
+    remat knobs (shared by the GPT-NeoX and BERT families; the engine
+    calls it through `apply_ds_config`): `number_checkpoints` → span
+    groups, `cpu_checkpointing` → the host-offload policy
+    (`offload_dots`), fork key `policy` → the named policy;
+    `partition_activations` has no model axis to shard over on one rank
+    (the JAX package's boundary constraint is None there). Validates
+    `number_checkpoints` against the model's layer count (parse time
+    cannot: it does not know it).
+
+    An active block always implies remat (the reference block is a
+    checkpointing block): with no explicit policy, whole-block 'full'
+    remat."""
+    ac = getattr(ds_config, "activation_checkpointing_config", None)
+    if ac is None or not getattr(ac, "active", False):
+        return
+    n_layers = getattr(model.config, "num_layers", None)
+    if ac.number_checkpoints is not None and n_layers is not None and \
+            ac.number_checkpoints > n_layers:
+        raise DeepSpeedConfigError(
+            f"activation_checkpointing.number_checkpoints "
+            f"({ac.number_checkpoints}) exceeds the model's num_layers "
+            f"({n_layers})")
+    policy = resolve_policy_name(ac.policy, ac.cpu_checkpointing)
+    model.remat_policy = policy if policy is not None else "full"
+    model.number_checkpoints = ac.number_checkpoints
+
+
 def _refuse_unported(cfg):
     """Raise on config fields whose paths are not ported yet, instead of
     training without them."""
@@ -418,10 +545,6 @@ def _refuse_unported(cfg):
         raise ValueError(
             f"attention_engine must be 'dense' or 'sparse', got "
             f"{cfg.attention_engine!r}")
-    if cfg.use_segment_ids:
-        raise NotImplementedError(
-            "packed segment ids (use_segment_ids) are not ported yet "
-            "(long-context slice)")
     if cfg.moe_num_experts and cfg.moe_observability:
         raise NotImplementedError(
             "the MoE routing statistics (moe_observability) are not "
@@ -483,15 +606,26 @@ class GPTNeoX(nn.Module):
 
     ``use_kernels`` (the counterpart of the JAX model's ``use_pallas``)
     sends attention through the hand-written flash-prefill kernel; False
-    keeps the plain PyTorch version everywhere."""
+    keeps the plain PyTorch version everywhere. ``remat_blocks``,
+    ``remat_policy`` and ``number_checkpoints`` are the JAX model's remat
+    knobs (`forward_hidden`); the JSON "activation_checkpointing" block
+    sets them. ``scan_blocks`` (the JAX model's compile-time knob: one
+    `lax.scan` body for the stack) is accepted and stored, and does
+    nothing: eager PyTorch compiles nothing."""
 
-    def __init__(self, config=None, use_kernels=True, device=None, **kwargs):
+    def __init__(self, config=None, use_kernels=True, device=None,
+                 remat_blocks=False, scan_blocks=False, remat_policy=None,
+                 number_checkpoints=None, **kwargs):
         super().__init__()
         cfg = config or GPTNeoXConfig(**kwargs)
         _refuse_unported(cfg)
         device = resolve_device(device, "GPTNeoX")
         self.config = cfg
         self.use_kernels = use_kernels
+        self.remat_blocks = remat_blocks
+        self.scan_blocks = scan_blocks
+        self.remat_policy = remat_policy
+        self.number_checkpoints = number_checkpoints
         self._init_seed = 0
         # the sparse engine: set by apply_ds_config, or built lazily for
         # attention_engine="sparse" set on the config
@@ -550,27 +684,42 @@ class GPTNeoX(nn.Module):
 
     @torch.no_grad()
     def apply_ds_config(self, ds_config):
-        """Wire the JSON "moe" and "sparse_attention" blocks into the
-        model (`GPTNeoX.apply_ds_config` of the JAX package); the training
+        """Wire the JSON "moe", "packing", "sparse_attention" and
+        "activation_checkpointing" blocks into the model
+        (`GPTNeoX.apply_ds_config` of the JAX package); the training
         engine calls it before it builds its flat state. "moe": the
         config takes the block's values; each block's FFN holder whose
         shapes differ from the new config's (a dense model made MoE) is
         rebuilt and its leaves drawn with `init_params`' rule from a
         generator seeded with the last `init_params` seed, and one whose
-        shapes match keeps its weights. "sparse_attention": the attention
-        core becomes the sparse engine over the block's pattern (the same
-        parameters). The other blocks the JAX method wires are refused by
-        `DeepSpeedConfig` until their slices."""
+        shapes match keeps its weights. "packing": batches must carry
+        segment ids (``use_segment_ids``). "sparse_attention": the
+        attention core becomes the sparse engine over the block's pattern
+        (the same parameters). "activation_checkpointing": the remat
+        knobs (`apply_activation_checkpointing_config`). The other blocks
+        the JAX method wires are refused by `DeepSpeedConfig` until their
+        slices."""
         moe = getattr(ds_config, "moe_params", None)
         if moe:
             self._apply_moe(moe)
+        packing = getattr(ds_config, "packing_params", None)
+        if packing:
+            self.config = dataclasses.replace(self.config,
+                                              use_segment_ids=True)
         sparse = getattr(ds_config, "sparse_attention", None)
         if sparse:
+            if packing:
+                # also rejected at config parse; kept here for direct
+                # apply_ds_config callers
+                raise ValueError(
+                    "packing + sparse_attention is unsupported: the "
+                    "sparse kernels are not segment-aware")
             self.config = dataclasses.replace(self.config,
                                               attention_engine="sparse")
             self._sparse_params = dict(sparse)
             self._attn_fn = make_sparse_attention(self.config,
                                                   self._sparse_params)
+        apply_activation_checkpointing_config(self, ds_config)
 
     def _apply_moe(self, moe):
         self.config = dataclasses.replace(
@@ -615,27 +764,40 @@ class GPTNeoX(nn.Module):
         takes."""
         return unflatten(dict(self.named_parameters()))
 
+    def _remat_knobs(self):
+        return dict(remat_blocks=self.remat_blocks,
+                    remat_policy=self.remat_policy,
+                    number_checkpoints=self.number_checkpoints)
+
     def forward(self, tokens):
         """tokens [B, S] → logits [B, S, V] (fp32)."""
         return forward(self.config, self.params_tree(), tokens,
                        use_kernels=self.use_kernels,
-                       attn_fn=self._attention_fn())
+                       attn_fn=self._attention_fn(), **self._remat_knobs())
 
     def loss_fn(self, params, batch, rng=None):
         """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
         parameter tree ``params`` (`params_tree()`), differentiable in
         it: `GPTNeoX.loss_fn` of the JAX package. With MoE it adds
         ``moe_aux_loss_coef`` times the blocks' mean aux loss; ``rng`` (a
-        `torch.Generator` on the model's device) feeds the gate jitter."""
+        `torch.Generator` on the model's device) feeds the gate jitter.
+        A packed batch's labels lose their pad and cross-document targets
+        (`mask_cross_document_labels`), so packing changes the loss only
+        through the attention it removes; with ``use_segment_ids`` (the
+        "packing" block) a batch without segment ids raises."""
         tokens, labels, seg = split_lm_batch(batch)
-        if seg is not None:
-            raise NotImplementedError(
-                "packed (tokens, labels, segment_ids) batches are not "
-                "ported yet (long-context slice)")
         cfg = self.config
+        if cfg.use_segment_ids and seg is None:
+            raise ValueError(
+                "packing is enabled (use_segment_ids) but the batch has "
+                "no segment_ids: feed (tokens, labels, segment_ids) "
+                "triples (runtime.packing.PackedDataset emits them)")
+        if seg is not None:
+            labels = mask_cross_document_labels(labels, seg)
         hidden = forward_hidden(cfg, params, tokens,
                                 use_kernels=self.use_kernels, rng=rng,
-                                attn_fn=self._attention_fn())
+                                attn_fn=self._attention_fn(),
+                                segment_ids=seg, **self._remat_knobs())
         if not cfg.moe_num_experts:
             return lm_head_loss(params, hidden, labels)
         hidden, aux = hidden

@@ -60,6 +60,7 @@ every length goes through the kernels here.
 """
 
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -468,24 +469,43 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
     return dq, dk, dv
 
 
+@torch.library.custom_op("deeperspeed_tpu_torch::flash_fwd",
+                         mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              segment_ids: Optional[torch.Tensor],
+              layout: Optional[torch.Tensor], kbias: Optional[torch.Tensor],
+              seed: Optional[torch.Tensor], sm_scale: Optional[float],
+              causal: bool, dropout_rate: float,
+              use_kernels: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of `_FlashAttention` as one dispatcher op → (out, lse):
+    the kernel on CUDA tensors (``use_kernels``), the plain version on
+    CPU tensors. Being an op, it is what a selective-checkpoint policy
+    sees (`runtime/activation_checkpointing`: ``attn_residuals`` keeps
+    exactly its two outputs, so a recomputed span never launches the
+    forward kernel again); a raw ctypes launch would be invisible to
+    it."""
+    flags = (kbias, seed, dropout_rate)
+    if use_kernels and q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v, segment_ids, sm_scale, layout,
+                                    causal, *flags)
+    return flash_attention_segmented_reference(
+        q, k, v, segment_ids, sm_scale, layout, causal, *flags)
+
+
 class _FlashAttention(torch.autograd.Function):
     """The kernels (CUDA tensors, ``use_kernels``) or the plain versions
     in both directions; segment ids, the layout, the scale and the seed
     take no gradient, the key bias a zero one (it is a mask, as in the
-    JAX package)."""
+    JAX package). The forward goes through the `flash_fwd` op."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale, layout=None,
                 causal=True, use_kernels=True, kbias=None, seed=None,
                 dropout_rate=0.0):
         kernels = use_kernels and q.device.type == "cuda"
-        flags = (kbias, seed, dropout_rate)
-        if kernels:
-            out, lse = flash_attention_cuda(q, k, v, segment_ids, sm_scale,
-                                            layout, causal, *flags)
-        else:
-            out, lse = flash_attention_segmented_reference(
-                q, k, v, segment_ids, sm_scale, layout, causal, *flags)
+        out, lse = flash_fwd(q, k, v, segment_ids, layout, kbias, seed,
+                             sm_scale, causal, float(dropout_rate),
+                             bool(use_kernels))
         ctx.save_for_backward(q, k, v, out, lse, segment_ids, layout, kbias,
                               seed)
         ctx.args = (sm_scale, causal, kernels, dropout_rate)
@@ -509,14 +529,19 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, dkbias, None, None
 
 
-def flash_attention_segmented(q, k, v, segment_ids=None, sm_scale=None):
-    """Causal (optionally segmented) attention on [B, S, H, D] → out,
-    differentiable in q, k, v: the CUDA kernels for CUDA tensors, the
-    plain versions for CPU tensors."""
+def flash_attention_segmented(q, k, v, segment_ids=None, sm_scale=None,
+                              causal=True, use_kernels=True):
+    """Causal (or, with ``causal=False``, bidirectional) attention on
+    [B, S, H, D], intra-segment with ``segment_ids`` [B, S] (pad id 0
+    attends to pad, as in the JAX package) → out, differentiable in q,
+    k, v: the CUDA kernels for CUDA tensors (``use_kernels``), the plain
+    versions for CPU tensors. The non-causal form is BERT's packed
+    encoder attention (the JAX layer's `flash_attention_segmented(...,
+    causal=False)`)."""
     _check(q, k, v, segment_ids)
     _check_device(q)
     return _FlashAttention.apply(q, k, v, segment_ids, sm_scale, None,
-                                 True, True, None, None, 0.0)
+                                 bool(causal), use_kernels, None, None, 0.0)
 
 
 def _check_device(q):

@@ -16,6 +16,13 @@ so a step needs no host sync; a test hands JAX's seeds in to compare
 masks bit for bit. The checkpoint knobs map to
 `torch.utils.checkpoint` (non-reentrant): the seeds are inputs, so the
 recomputation draws the same masks.
+
+Packed rows (``segment_ids``, 0 = pad): attention is bidirectional
+within a document. Without an additive mask or attention dropout, at
+S >= `_flash_min_seq`, it takes the non-causal segmented flash kernels;
+otherwise the materialized path adds a pairwise -1e30 penalty across
+documents, as the JAX layer does (its flagged kernels carry no segment
+gate).
 """
 
 import json
@@ -31,6 +38,7 @@ from ...models.gpt_neox import layer_norm as _layer_norm
 from ...utils.device import resolve_device
 from ..hopper.flash_attention import (dropout_threshold,
                                       flash_attention_kbias,
+                                      flash_attention_segmented,
                                       flash_attention_supported,
                                       flash_attention_train)
 
@@ -254,7 +262,7 @@ class DeepSpeedTransformerLayer(nn.Module):
     # -- forward -----------------------------------------------------------
 
     def _attention(self, params, x, mask_bias, seed, drop_active,
-                   use_kernels):
+                   use_kernels, segment_ids=None):
         cfg = self.config
         b, s, h = x.shape
         heads = cfg.heads
@@ -267,9 +275,24 @@ class DeepSpeedTransformerLayer(nn.Module):
 
         kbias, additive_mask = mask_bias
         rate = float(cfg.attn_dropout_ratio)
-        if (additive_mask is None or kbias is not None) and \
-                s >= _flash_min_seq() and \
-                flash_attention_supported((b, s, heads, hd)):
+        flash_ok = s >= _flash_min_seq() and \
+            flash_attention_supported((b, s, heads, hd))
+        # packed rows take the segmented flash only without a mask or
+        # attention dropout: the flagged kernels carry no segment gate
+        seg_flash = segment_ids is not None and flash_ok and \
+            additive_mask is None and not drop_active
+        if segment_ids is not None and not seg_flash:
+            same = segment_ids[:, None, :, None] == \
+                segment_ids[:, None, None, :]
+            seg_pen = torch.where(same, 0.0, -1e30)           # [B,1,S,S]
+            additive_mask = seg_pen if additive_mask is None else \
+                additive_mask + seg_pen
+        if seg_flash:
+            ctx = flash_attention_segmented(q, k, v, segment_ids,
+                                            causal=False,
+                                            use_kernels=use_kernels)
+        elif segment_ids is None and flash_ok and \
+                (additive_mask is None or kbias is not None):
             if drop_active:
                 ctx = flash_attention_train(
                     q, k, v, kbias, seed.reshape(1), dropout_rate=rate,
@@ -302,10 +325,6 @@ class DeepSpeedTransformerLayer(nn.Module):
               deterministic=None, segment_ids=None, seeds=None,
               use_kernels=None, key_bias=None):
         cfg = self.config
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed segment ids are not ported yet (long-context "
-                "slice)")
         if deterministic is None:
             deterministic = not cfg.training
         if use_kernels is None:
@@ -328,10 +347,11 @@ class DeepSpeedTransformerLayer(nn.Module):
                 normed = _layer_norm(x, params["attn_nw"], params["attn_nb"],
                                      eps)
                 attn = self._attention(params, normed, mask_bias,
-                                       s_attn, attn_drop, use_kernels)
+                                       s_attn, attn_drop, use_kernels,
+                                       segment_ids)
                 return x + _dropout(attn, hrate, s_out, not drop)
             attn = self._attention(params, x, mask_bias, s_attn,
-                                   attn_drop, use_kernels)
+                                   attn_drop, use_kernels, segment_ids)
             attn = _dropout(attn, hrate, s_out, not drop)
             return _layer_norm(x + attn, params["attn_nw"],
                                params["attn_nb"], eps)

@@ -7,12 +7,15 @@ so a config written for the JAX package means the same here. The
 training parser reads what the port's engine runs (the batch triple,
 precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
 stages 0-2), the "checkpoint" block the engine's checkpoint manager
-reads, and the "moe" and "sparse_attention" blocks the model reads
+reads, and the "moe", "sparse_attention", "packing" and
+"activation_checkpointing" blocks the model reads
 (`GPTNeoX.apply_ds_config`); every other top-level block of the JAX
 config that is set raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
+from .activation_checkpointing.config import (
+    DeepSpeedActivationCheckpointingConfig)
 from .config_utils import (DeepSpeedConfigError, as_int, get_scalar_param,
                            load_config_json)
 from .precision import resolve_precision
@@ -172,6 +175,14 @@ class DeepSpeedConfig:
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_config.enabled
 
+        # Parse validates knob types and the remat-policy name against
+        # the registry (unknown names raise with the valid choices);
+        # `number_checkpoints <= num_layers` is enforced model-side where
+        # the layer count is known (models.gpt_neox.
+        # apply_activation_checkpointing_config).
+        self.activation_checkpointing_config = (
+            DeepSpeedActivationCheckpointingConfig.from_dict(d))
+
         # Mixed precision. "fp16" block carries both fp16 and bf16 (fork).
         fp16 = d.get(c.FP16) or {}
         self.fp16_enabled = bool(
@@ -248,8 +259,57 @@ class DeepSpeedConfig:
 
         self.inference_params = parse_inference_block(d)
         self.sparse_attention = _parse_sparse_attention(d)
+        self._parse_packing_block(d)
         self._parse_moe_block(d)
         self._parse_checkpoint_block(d)
+
+    def _parse_packing_block(self, d):
+        """Parse + validate the "packing" block (`runtime/packing.py`:
+        document-packed ragged batches with segment ids) with the JAX
+        package's keys, defaults and messages: a typo'd knob fails at
+        start-up, not by training with cross-document attention. The
+        block makes the model REQUIRE (tokens, labels, segment_ids)
+        batches."""
+        pk = d.get(c.PACKING) or {}
+        known = {c.PACKING_ENABLED, c.PACKING_PAD_ID, c.PACKING_DROP_TAIL}
+        unknown = sorted(set(pk) - known)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown 'packing' key(s) {unknown}; valid keys: "
+                f"{sorted(known)}")
+
+        enabled = pk.get(c.PACKING_ENABLED, c.PACKING_ENABLED_DEFAULT)
+        if not isinstance(enabled, bool):
+            raise DeepSpeedConfigError(
+                f"packing.{c.PACKING_ENABLED} must be a boolean, got "
+                f"{enabled!r}")
+        self.packing_enabled = enabled
+        if not enabled:
+            self.packing_params = False
+            return
+
+        pad_id = as_int(pk.get(c.PACKING_PAD_ID, c.PACKING_PAD_ID_DEFAULT),
+                        f"packing.{c.PACKING_PAD_ID}")
+        if pad_id < 0:
+            raise DeepSpeedConfigError(
+                f"packing.{c.PACKING_PAD_ID} must be >= 0, got {pad_id}")
+        drop_tail = pk.get(c.PACKING_DROP_TAIL,
+                           c.PACKING_DROP_TAIL_DEFAULT)
+        if not isinstance(drop_tail, bool):
+            raise DeepSpeedConfigError(
+                f"packing.{c.PACKING_DROP_TAIL} must be a boolean, got "
+                f"{drop_tail!r}")
+        if self.sparse_attention:
+            # the block-sparse kernels carry no segment gate: a packed
+            # batch through them would silently attend across documents
+            raise DeepSpeedConfigError(
+                "packing cannot be combined with sparse_attention: the "
+                "sparse kernels are not segment-aware (use the dense "
+                "segmented flash engine for packed batches)")
+        self.packing_params = {
+            "pad_id": pad_id,
+            "drop_tail": drop_tail,
+        }
 
     def _parse_checkpoint_block(self, d):
         """Parse + validate the "checkpoint" block with the JAX package's

@@ -71,10 +71,8 @@ GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
 # set (present, and not null / false / {} / {"enabled": false}) raises
 # DeepSpeedConfigError "not ported".
 NOT_PORTED_BLOCKS = {
-    "activation_checkpointing": "activation checkpointing",
     "progressive_layer_drop": "progressive layer drop",
-    "sequence_parallel": "long context",
-    "packing": "long context",
+    "sequence_parallel": "ranks (sequence parallelism)",
     "pipeline": "scale-out (pipeline)",
     "multislice": "scale-out",
     "training_health": "robustness (sentinel, fault injection)",
@@ -90,6 +88,20 @@ NOT_PORTED_BLOCKS = {
     "planner": "schedule planner",
     "rl": "online RL",
 }
+
+# ---------------------------------------------------------------------------
+# Packing block (document-packed ragged batches; runtime/packing.py)
+# ---------------------------------------------------------------------------
+PACKING = "packing"
+PACKING_ENABLED = "enabled"
+PACKING_ENABLED_DEFAULT = False
+# token id written on pad positions (segment id 0 marks them for the
+# kernels' masks and the effective-token accounting)
+PACKING_PAD_ID = "pad_id"
+PACKING_PAD_ID_DEFAULT = 0
+# drop rows under 50% occupancy (bench hygiene for tail rows)
+PACKING_DROP_TAIL = "drop_tail"
+PACKING_DROP_TAIL_DEFAULT = False
 
 # ---------------------------------------------------------------------------
 # Checkpoint block (`config._parse_checkpoint_block`, read by the engine's

@@ -27,8 +27,10 @@ The LR is read before the step and the scheduler steps after each step
 taken.
 
 MoE: a "moe" config block is handed to the model's `apply_ds_config`
-(as is a "sparse_attention" block, which swaps the attention core)
-before the flat state is built, so the flat buffers hold the expert
+(as are a "sparse_attention" block, which swaps the attention core, a
+"packing" block, which makes the loss segment-aware, and an
+"activation_checkpointing" block, which sets the remat spans) before
+the flat state is built, so the flat buffers hold the expert
 weights and autograd adds their dW into the flat gradient views like any
 other leaf. The gate jitter and BERT's dropout seeds draw from one
 `torch.Generator` on the training device, re-seeded before every
@@ -101,7 +103,8 @@ class DeepSpeedEngine:
     ``model`` is a `models.gpt_neox.GPTNeoX` or a `models.bert` model
     (any `torch.nn.Module` with ``loss_fn(params, batch, rng=None)`` and
     ``params_tree()``, and ``apply_ds_config(config)`` where the config
-    has a "moe" or a "sparse_attention" block); it trains on the device
+    has a "moe", "sparse_attention", "packing" or
+    "activation_checkpointing" block); it trains on the device
     its parameters are on. ``config`` (a JSON path) or ``config_params``
     (a dict) is the DeepSpeed config.
     """
@@ -142,13 +145,25 @@ class DeepSpeedEngine:
                 "fp16 training on the GPU (the kernels are built for fp32 "
                 "and bf16)", "fp16 kernels")
 
-        if self._config.moe_enabled or self._config.sparse_attention:
+        # config-drivable model features, applied before the flat state
+        # is built: the model builds expert weights, its attention core,
+        # its segment-aware loss and its remat spans from the JSON alone
+        act_ckpt = self._config.activation_checkpointing_config
+        if self._config.moe_enabled or self._config.sparse_attention or \
+                self._config.packing_params:
             if not hasattr(model, "apply_ds_config"):
                 raise DeepSpeedConfigError(
-                    "config enables moe/sparse_attention but the model "
-                    "does not implement apply_ds_config(config) "
+                    "config enables moe/packing/sparse_attention but the "
+                    "model does not implement apply_ds_config(config) "
                     "(models.gpt_neox.GPTNeoX does)")
             model.apply_ds_config(self._config)
+        elif act_ckpt.active and hasattr(model, "apply_ds_config"):
+            model.apply_ds_config(self._config)
+        if act_ckpt.active:
+            # keep the module-level Megatron API in sync for models that
+            # call activation_checkpointing.checkpoint() directly
+            from .activation_checkpointing import checkpointing as _ckpt
+            _ckpt.configure(deepspeed_config=self._config)
         # the generator of the gate jitter and the dropout seeds, re-seeded
         # from (1234, micro_steps) before every micro-step
         self._rng = torch.Generator(device=self.device)
@@ -324,6 +339,30 @@ class DeepSpeedEngine:
                     f"flat gradient buffer no longer holds it")
         self._grads_checked = True
 
+    def pack_dataset(self, docs, seq_len=None):
+        """Pack a ragged document list into a `PackedDataset` using the
+        validated "packing" block's `pad_id`/`drop_tail`: the config is
+        the one source of those knobs (a hand-built `PackedDataset` with
+        other values would desync pad detection from the model's segment
+        masking). `seq_len` defaults to the model's `config.max_seq_len`.
+        Feed the result to `deepspeed_io` or iterate it directly into
+        `train_batch`."""
+        params = getattr(self._config, "packing_params", None)
+        if not params:
+            raise DeepSpeedConfigError(
+                "pack_dataset requires the 'packing' config block with "
+                "\"enabled\": true")
+        if seq_len is None:
+            seq_len = getattr(getattr(self.module, "config", None),
+                              "max_seq_len", None)
+            if seq_len is None:
+                raise DeepSpeedConfigError(
+                    "pack_dataset could not infer the packing window "
+                    "from model.config.max_seq_len; pass seq_len "
+                    "explicitly")
+        from .packing import PackedDataset
+        return PackedDataset(docs, seq_len, **params)
+
     def deepspeed_io(self, dataset, batch_size=None, route="train",
                      data_sampler=None, collate_fn=None):
         """A `DeepSpeedDataLoader` of micro-batches over ``dataset``."""
@@ -373,8 +412,9 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over ``gradient_accumulation_steps``
-        micro-batches: ``batch`` = (tokens, labels) (or bare tokens)
-        shaped [gas, micro, S] for GPT-NeoX, a dict or tuple of
+        micro-batches: ``batch`` = (tokens, labels) (or bare tokens, or
+        a packed (tokens, labels, segment_ids) triple) shaped
+        [gas, micro, S] for GPT-NeoX, a dict or tuple of
         [gas, micro, ...] arrays for BERT, numpy or tensors; or
         ``data_iter`` yielding one micro-batch per ``next``. Returns the
         mean loss."""

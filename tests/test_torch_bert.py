@@ -42,7 +42,6 @@ from deeperspeed_tpu_torch.models.convert import (adam_state_from_jax,
                                                   state_dict_from_jax)
 from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
 from deeperspeed_tpu_torch.ops.transformer import transformer as tr
-from deeperspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError
 
 torch.set_num_threads(2)
 
@@ -453,17 +452,18 @@ def test_unsupported_blocks_refused_as_jax_refuses():
         jbert.BertConfig.tiny()).apply_ds_config,
         types.SimpleNamespace(sparse_attention={"mode": "fixed"}))
     assert str(terr.value) == str(jerr.value)
-    # "packing": the port's config refuses the block; the model's own
-    # refusal is the JAX one
+    # "packing": BERT refuses the block with the JAX message, from the
+    # model and through the engine
     packed = types.SimpleNamespace(packing_params={"enabled": True})
     jerr = pytest.raises(NotImplementedError, jbert.BertModel(
         jbert.BertConfig.tiny()).apply_ds_config, packed)
     with pytest.raises(NotImplementedError) as terr:
         model.apply_ds_config(packed)
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(DeepSpeedConfigError, match="not ported"):
+    with pytest.raises(NotImplementedError) as terr:
         dst.initialize(model=model, config_params=dict(
             _config(), packing={"enabled": True}))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bert.BertModel(bert.BertConfig.tiny(), remat_policy="full",
-                       device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    # the remat knobs are ported (tests/test_torch_remat.py)
+    assert bert.BertModel(bert.BertConfig.tiny(), remat_policy="full",
+                          device="cpu").remat_policy == "full"

@@ -1,9 +1,9 @@
 """The port stands alone: nothing in `deeperspeed_tpu_torch/` or
 `chip_smoke.py` imports JAX, jaxlib, the JAX package or `ml_dtypes`,
 and building a CPU serving engine (bf16/fp32 and int8), a dense, an MoE
-and a block-sparse GPT-NeoX training engine and a BERT training engine,
-and saving and loading a checkpoint, leaves them out of
-`sys.modules`."""
+and a block-sparse GPT-NeoX training engine, a packed GPT-NeoX training
+engine under a remat policy and a BERT training engine, and saving and
+loading a checkpoint, leaves them out of `sys.modules`."""
 
 import ast
 import os
@@ -98,6 +98,20 @@ def test_engine_on_cpu_loads_no_jax():
         "     'masked_lm_labels': ids, 'next_sentence_label': "
         "torch.zeros(1, 2, dtype=torch.long)}\n"
         "assert eng.train_batch(batch=b) > 0 and eng.global_steps == 1\n"
+        "from deeperspeed_tpu_torch.runtime.packing import (\n"
+        "    pack_documents, synthetic_doc_mixture)\n"
+        "pm = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
+        "eng, *_ = initialize(model=pm, config_params={\n"
+        "    'train_batch_size': 2,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}},\n"
+        "    'packing': {'enabled': True},\n"
+        "    'activation_checkpointing': {'policy': 'attn_residuals'}})\n"
+        "tok, seg = pack_documents(synthetic_doc_mixture(0, 9, 512,\n"
+        "    mean_len=40.0, max_len=64), 64)\n"
+        "b = (tok[None, :2], tok[None, :2], seg[None, :2])\n"
+        "assert eng.train_batch(batch=b) > 0\n"
+        "assert pm.config.use_segment_ids and "
+        "pm.remat_policy == 'attn_residuals'\n"
         "import tempfile\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    eng.save_checkpoint_async(d)\n"

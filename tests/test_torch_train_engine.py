@@ -334,7 +334,8 @@ def test_disabled_blocks_and_lamb(weights):
 def test_unported_model_fields_raise():
     """A config field whose path is not ported raises at model build
     instead of training without it (the JAX model would use it)."""
-    for field, match in (({"use_segment_ids": True}, "long-context"),
+    for field, match in (({"moe_num_experts": 4, "moe_observability": True},
+                          "not ported"),
                          ({"ffn_quant_recipe": "fp8"}, "not ported")):
         with pytest.raises(NotImplementedError, match=match):
             neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, **field), device="cpu")
