@@ -4,6 +4,7 @@
     python3 chip_smoke.py --decode-only [DIR]
     python3 chip_smoke.py --sparse-only [DIR]
     python3 chip_smoke.py --ckpt-only [DIR]
+    python3 chip_smoke.py --gpt2-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -75,9 +76,10 @@ Phases (any failure exits non-zero before the final line):
    window of decode steps at B=16, over one B=4, S=512 prefill call of
    the same bf16 model, over a decode window of each serve-quant rung of
    phase 9, over one training step of phase 7, one of phase 11, one of
-   phase 13, one of phase 15 and one of phase 18: host ms per step,
-   device kernel ms per step, the device's busy share, launches per step
-   and the top kernels;
+   phase 13, one of phase 15, one of phase 18 and one of each "full"
+   rung of phase 20 (lean and classic): host ms per step, device kernel
+   ms per step, the device's busy share, launches per step and the top
+   kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
    masters, Adam(W), WarmupLR, clipping, ZeRO-2, gas 2 x micro 16 x
    1024 tokens, 20 steps through `initialize()` → `train_batch` on one
@@ -174,7 +176,35 @@ Phases (any failure exits non-zero before the final line):
    within rtol 1e-4; (b) BERT-large's widths at 4 layers, S 512, 2
    packed rows, attention dropout 0 (hidden dropout 0.1), two remat
    spans: `encode(segment_ids=)` through the non-causal segmented flash
-   kernels, loss and gradient within rtol 1e-4.
+   kernels, loss and gradient within rtol 1e-4;
+20. GPT-2 XL training (bench.py's row_gpt2xl on one card; 1,557,686,400
+   parameters, seeded bf16 weights made by the port and handed to
+   `initialize(model=, model_parameters=)`, the row's default_rng(4)
+   tokens): the row's lean bs 8 ladder ("fp16_master_weights_and_grads"
+   and bf16 Adam moments; "dots", "attn_residuals", "full"), its floor
+   (lean bs 4, whole-block remat) and one classic bs 8 "full" rung (fp32
+   masters and moments), 2 warm-up and 3 timed steps each: tokens/s,
+   the row's MFU, step ms, peak memory above what was allocated before
+   the engine, exact launches (48 flash forward a step, 96 where the
+   policy recomputes it, 48 dk/dv, 48 dq, all tensor-core; one Adam on
+   the lean or fp32 variant) and a falling loss. The row's last rung
+   (ZeRO-3 with the host-offload optimizer) is not ported;
+21. the legacy loop on GPT-2 XL (lean, "full", micro 4 x gas 2): three
+   steps through forward / backward / step equal three through
+   train_batch bit for bit; set_layers_to_hook(["transformerlayer"])
+   gives 48 captures of [4, 1024, 1600] from one capture forward and
+   disarms; enable_gradient_noise_scale gives a finite estimate;
+22. GPT-2 XL served (seeded bf16 weights, phase 4's "inference" block
+   and stream): every flash and paged-decode launch counted, all on the
+   tensor-core prefill and the cluster decode, no page leaks, every
+   request ok; tokens/s, TTFT, inter-token p50 / p99;
+23. GPT-2 parity, fp32, kernels vs plain: XL's widths at 4 layers, S
+   1024, micro 2 x gas 2, 3 steps each way (losses within rtol 1e-4),
+   and the same weights served (the same greedy tokens).
+Phase 3 also holds the flat Adam kernel at GPT-2 XL's size in the lean
+(bf16 p, g, m, v) and the classic (fp32 p, m, v, bf16 g and copy)
+dtypes against its plain version chunk by chunk, two calls
+bit-identical, timed beside `torch.optim.AdamW(fused=True)`.
 
 It prints its wall seconds, one JSON line of kernel results, then the
 card line, then as the last line ``{"ok": true, "device": {...}}``. A
@@ -356,6 +386,28 @@ PACKED_PARITY_SEQ = 4096
 BERT_PACKED_SEQ = 512
 # the long report, under the git-ignored build directory
 REPORT_DIR = os.path.join("build", "reports")
+
+# GPT-2 XL (bench.py row_gpt2xl; Megatron GPT-2 1.5B): the config, its
+# parameter count, the row's flops a token (6N + 12·L·h·S, bench.py:612)
+GPT2_XL = dict(vocab_size=50304, hidden_size=1600, num_layers=48,
+               num_heads=25, max_seq_len=1024)
+GPT2_XL_PARAMS = 1_557_686_400
+GPT2_SEQ = 1024
+GPT2_FTOK = 6 * GPT2_XL_PARAMS + 12 * 48 * 1600 * GPT2_SEQ
+GPT2_WARMUP, GPT2_STEPS = 2, 3
+# the kernels a GPT-2 XL training step launches
+GPT2_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "adam")
+# phase 20's rungs: (tag, micro batch, remat policy (None: whole-block
+# remat), lean state)
+GPT2_RUNGS = (("onchip_dots_bs8", 8, "dots", True),
+              ("onchip_attn_residuals_bs8", 8, "attn_residuals", True),
+              ("onchip_full_bs8", 8, "full", True),
+              ("onchip_lean_bs4", 4, None, True),
+              ("classic_full_bs8", 8, "full", False))
+# phase 3's Adam at GPT-2 XL's size: hyperparameters, and the chunk the
+# plain version runs over (its fp32 temporaries stay near 5 GB)
+ADAM_XL_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01)
+ADAM_XL_CHUNK = 1 << 27
 
 
 def fail(msg):
@@ -2226,9 +2278,11 @@ def build_model(dtype, seed=0):
     return GPTNeoX(cfg, device="cuda").init_params(seed)
 
 
-def serve(fa, da, report):
+def serve(fa, da, report, model=None, key="serve"):
+    """Phase 4 (GPT-NeoX-125M), and with a GPT-2 ``model`` phase 22:
+    row_serve's stream of 32 requests x 32 new tokens."""
     from deeperspeed_tpu_torch import InferenceEngine
-    model = build_model(torch.bfloat16)
+    model = build_model(torch.bfloat16) if model is None else model
     cfg = model.config
     eng = InferenceEngine(model, config=SERVE_CONFIG)
     rng = np.random.default_rng(0)
@@ -2293,9 +2347,8 @@ def serve(fa, da, report):
             not prefill_calls or not decode_steps:
         fail(f"launch counts {launches} != {L} x ({prefill_calls} prefill "
              f"calls, {decode_steps} decode steps)")
-    design = check_design(fa, "serving",
-                          {"fwd": launches["flash_fwd"]})
-    decode_design = check_decode_design(da, "serving", launches, False)
+    design = check_design(fa, key, {"fwd": launches["flash_fwd"]})
+    decode_design = check_decode_design(da, key, launches, False)
     with torch.no_grad():
         logits = model(torch.tensor([prompts[0]], device="cuda"))
     if logits.shape != (1, len(prompts[0]), cfg.vocab_size) or \
@@ -2323,7 +2376,7 @@ def serve(fa, da, report):
         "decode_design_launches": decode_design["paged_decode"],
         "dtypes": eng.dtypes,
     }
-    report["serve"] = result
+    report[key] = result
     del eng, model
     torch.cuda.empty_cache()
     return result
@@ -3825,12 +3878,12 @@ def print_packed(tp, card):
 # phase 6 (--profile): where a serving step's time goes
 # ---------------------------------------------------------------------------
 
-def profile_window(fn, steps, share_of=None):
+def profile_window(fn, steps, share_of=None, also=()):
     """Run ``fn`` ``steps`` times under the profiler: host ms per step,
     device kernel ms per step, busy share, launches per step and the
     kernels that take the most device time; with ``share_of``, the share
     of device time (and the ms a step) of the kernels whose names hold
-    it."""
+    it, and the same for each name fragment in ``also``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     torch.cuda.synchronize()
@@ -3851,10 +3904,10 @@ def profile_window(fn, steps, share_of=None):
     busy_us = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     extra = {}
-    if share_of is not None:
-        us = sum(t for name, (t, _) in by_name.items() if share_of in name)
-        extra["device_share_" + share_of] = us / max(busy_us, 1e-9)
-        extra["device_ms_per_step_" + share_of] = us / 1e3 / steps
+    for part in ((share_of,) if share_of is not None else ()) + tuple(also):
+        us = sum(t for name, (t, _) in by_name.items() if part in name)
+        extra["device_share_" + part] = us / max(busy_us, 1e-9)
+        extra["device_ms_per_step_" + part] = us / 1e3 / steps
     return {**extra,
         "steps": steps,
         "host_ms_per_step": wall * 1e3 / steps,
@@ -4063,6 +4116,655 @@ def sparse_only(tree, card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (continued): flat Adam at GPT-2 XL's size, lean and classic
+# ---------------------------------------------------------------------------
+
+def adam_xl_case(gen, n, lean):
+    """The inputs of one flat Adam call at n elements: lean (bf16 p, g, m,
+    v) or classic (fp32 p, m, v, bf16 g, a bf16 copy)."""
+    pdt = torch.bfloat16 if lean else torch.float32
+    p = torch.randn(n, generator=gen, device="cuda", dtype=pdt)
+    g = torch.randn(n, generator=gen, device="cuda", dtype=torch.bfloat16)
+    m = torch.randn(n, generator=gen, device="cuda", dtype=pdt).mul_(0.1)
+    v = torch.rand(n, generator=gen, device="cuda", dtype=pdt).mul_(0.01)
+    return p, g, m, v
+
+
+def adam_xl_run(ad, case, lean):
+    """One kernel call on copies of ``case`` → (p, m, v, bf16 copy or
+    None)."""
+    p, g, m, v = case
+    pk, mk, vk = p.clone(), m.clone(), v.clone()
+    out = None if lean else torch.empty(p.numel(), dtype=torch.bfloat16,
+                                        device="cuda")
+    ad.adam_cuda(pk, g, mk, vk, 6e-4, 3, adam_w=True, bias_correction=True,
+                 p_out=out, **ADAM_XL_HP)
+    torch.cuda.synchronize()
+    return pk, mk, vk, out
+
+
+def check_adam_xl(ad, gen, report):
+    """Phase 3 at GPT-2 XL's 1,557,686,400 elements: the lean variant
+    (bf16 p, g, m, v) and the classic one (fp32 p, m, v, bf16 g and the
+    bf16 copy), each held against the plain version chunk by chunk: p, m
+    and v bit-equal to it (the kernel rounds each operation where the
+    plain version does), two calls bit-identical, timed (CUDA events) beside the plain version (chunk
+    by chunk) and `torch.optim.AdamW(fused=True)` on one flat parameter
+    of the same storage (bf16 with bf16 state; fp32), the library
+    yardstick."""
+    n = GPT2_XL_PARAMS
+    rows = {}
+    for lean in (True, False):
+        tag = "lean" if lean else "classic"
+        case = adam_xl_case(gen, n, lean)
+        first = adam_xl_run(ad, case, lean)
+        second = adam_xl_run(ad, case, lean)
+        identical = all(torch.equal(a, b) for a, b in zip(first[:3],
+                                                          second[:3]))
+        if not lean:
+            identical = identical and torch.equal(first[3], second[3])
+        del second
+        p, g, m, v = case
+        errs, exact, recast = {"p": 0.0, "m": 0.0, "v": 0.0}, True, True
+        for lo in range(0, n, ADAM_XL_CHUNK):
+            hi = min(n, lo + ADAM_XL_CHUNK)
+            want = ad.adam_flat_reference(p[lo:hi], g[lo:hi], m[lo:hi],
+                                          v[lo:hi], 6e-4, 3, adam_w=True,
+                                          bias_correction=True,
+                                          **ADAM_XL_HP)
+            for name, got, ref in zip("pmv", first, want):
+                errs[name] = max(errs[name], float(
+                    (got[lo:hi].float() - ref.float()).abs().max()))
+                exact = exact and torch.equal(got[lo:hi], ref)
+            if not lean:
+                recast = recast and torch.equal(
+                    first[3][lo:hi], first[0][lo:hi].to(torch.bfloat16))
+            del want
+        del first
+        torch.cuda.empty_cache()
+        row = {"n": n, "variant": tag,
+               "dtypes": {"p": str(p.dtype), "g": str(g.dtype),
+                          "m_v": str(m.dtype)},
+               **{f"max_abs_err_{k}": e for k, e in errs.items()},
+               "two_calls_identical": identical, "bit_equal_plain": exact,
+               "tol": "bit-equal"}
+        if not lean:
+            row["bf16_copy_is_recast"] = recast
+        print(f"  adam n={n} ({tag}): errors {errs}, bit-equal to the plain "
+              f"version {exact}, two calls identical {identical}" +
+              ("" if lean else f", recast {recast}"), flush=True)
+        if not (exact and identical and recast):
+            fail(f"flat Adam kernel ({tag}, n={n}) is not bit-equal to its "
+                 f"plain version or to itself: {row}")
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        out = None if lean else torch.empty(n, dtype=torch.bfloat16,
+                                            device="cuda")
+        row["ms"] = time_ms(lambda: ad.adam_cuda(
+            pk, g, mk, vk, 6e-4, 3, adam_w=True, bias_correction=True,
+            p_out=out, **ADAM_XL_HP), warmup=3, iters=15)
+        del pk, mk, vk, out
+
+        def plain():
+            for lo in range(0, n, ADAM_XL_CHUNK):
+                hi = min(n, lo + ADAM_XL_CHUNK)
+                ad.adam_flat_reference(p[lo:hi], g[lo:hi], m[lo:hi],
+                                       v[lo:hi], 6e-4, 3, adam_w=True,
+                                       bias_correction=True, **ADAM_XL_HP)
+        row["plain_ms"] = time_ms(plain, warmup=1, iters=3)
+        # the library yardstick: fused AdamW on one flat parameter, its
+        # grad in the parameter's dtype, its state in the same dtype
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = g.to(p.dtype)
+        del case, p, m, v
+        torch.cuda.empty_cache()
+        lib = torch.optim.AdamW([lib_p], lr=6e-4, betas=(0.9, 0.95),
+                                eps=1e-8, weight_decay=0.01, fused=True)
+        row["library_ms"] = time_ms(lib.step, warmup=3, iters=15)
+        row["library"] = f"torch.optim.AdamW(fused=True), {tag} storage"
+        del lib_p, lib, g
+        torch.cuda.empty_cache()
+        # each input read once, each output written once
+        nbytes = n * (14 if lean else 3 * 8 + 2 + 2)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 14 * n)
+        print(f"  adam times n={n} ({tag}): kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})", flush=True)
+        rows[tag] = row
+    report["adam_xl"] = rows
+    return rows
+
+
+def check_gpt2_attention(fa, da, gen, report):
+    """Phase 3 at GPT-2 XL's attention shapes, whose 25 heads no earlier
+    check takes: the bf16 flash forward, dk/dv and dq at phase 20's
+    training shape (B=8 S=1024 H=25 D=64, causal), the forward at phase
+    22's prefill shape (B=4 S=1024, ragged segments) and the paged decode
+    at phase 22's decode geometry (B=16 H=25 D=64 ps=64 NP=16 P=513,
+    bf16 pools), each against its plain version within TOL / TOL_BWD
+    (length-0 rows exact zeros, two decode calls bit-identical), every
+    launch on the design the GPT-2 phases take (the tensor-core flash,
+    the cluster decode). The training-shape kernels are timed beside
+    SDPA, the library yardstick."""
+    import torch.nn.functional as F
+    bf16 = torch.bfloat16
+    H = GPT2_XL["num_heads"]
+    D = GPT2_XL["hidden_size"] // H
+    B = GPT2_RUNGS[0][1]
+    fa.reset_design_launches()
+    da.reset_launches_by_design()
+    q, k, v, _, _ = prefill_case(GPT2_SEQ, bf16, gen, B=B, H=H, D=D)
+    bwd, ok_b, (out, lse, do, delta) = check_grads(fa, q, k, v, None, gen)
+    ref_out, ref_lse = fa.flash_attention_segmented_reference(q, k, v)
+    err_o, ok_o = close(out, ref_out, *TOL[bf16]["out"])
+    err_l, ok_l = close(lse, ref_lse, *TOL[bf16]["lse"])
+    del ref_out, ref_lse
+    fwd = {"shape": f"B={B} S={GPT2_SEQ} H={H} D={D} bf16, causal",
+           "max_abs_err_out": err_o, "max_abs_err_lse": err_l,
+           "tol_out": TOL[bf16]["out"], "tol_lse": TOL[bf16]["lse"]}
+    bwd = {"shape": fwd["shape"] + " (dkv + dq kernels)",
+           "tol": TOL_BWD[bf16], **bwd}
+    pq, pk, pv, seg, _ = prefill_case(GPT2_SEQ, bf16, gen, B=4, H=H, D=D)
+    p_out, p_lse = fa.flash_attention_cuda(pq, pk, pv, seg)
+    ref_out, ref_lse = fa.flash_attention_segmented_reference(pq, pk, pv,
+                                                              seg)
+    err_po, ok_po = close(p_out, ref_out, *TOL[bf16]["out"])
+    err_pl, ok_pl = close(p_lse, ref_lse, *TOL[bf16]["lse"])
+    prefill = {"shape": f"B=4 S={GPT2_SEQ} H={H} D={D} bf16, ragged "
+                        f"segments", "max_abs_err_out": err_po,
+               "max_abs_err_lse": err_pl, "tol_out": TOL[bf16]["out"]}
+    del pq, pk, pv, seg, p_out, p_lse, ref_out, ref_lse
+    geo = dict(B=16, H=H, D=D, ps=64, NP=16, P=513)
+    dq_, table, lengths = decode_query_case(bf16, gen, **geo)
+    pools = decode_pools(gen, 2, geo["P"], H, geo["ps"], D, bf16, False)
+    views = tuple(p[1] for p in pools)
+    d_out = decode_call(da, dq_, views, table, lengths)
+    again = decode_call(da, dq_, views, table, lengths)
+    ref = decode_reference(da, dq_, views, table, lengths)
+    torch.cuda.synchronize()
+    err_d, ok_d = close(d_out, ref, *TOL[bf16]["out"])
+    zero_ok = bool((d_out[lengths == 0] == 0).all())
+    same = torch.equal(d_out, again)
+    decode = {"shape": "B={B} H={H} D={D} ps={ps} NP={NP} P={P} bf16 "
+                       "pools".format(**geo),
+              "lengths_drawn": "0-{0} with 0, {1}, {0}, {2}".format(
+                  geo["NP"] * geo["ps"], geo["ps"], 3 * geo["ps"]),
+              "max_abs_err": err_d, "tol": TOL[bf16]["out"],
+              "zero_rows_exact": zero_ok, "two_calls_identical": same,
+              "cluster": da.launch_plan(geo["B"], H, geo["NP"])}
+    del pools, views, d_out, again, ref
+    designs = {"flash": check_design(fa, "phase 3 (GPT-2 XL shapes)",
+                                     {"fwd": 2, "dkv": 1, "dq": 1}),
+               "decode": dict(da.launches_by_design)}
+    if designs["decode"] != {"cluster": 2, "single": 0}:
+        fail(f"phase 3 (GPT-2 XL shapes): paged-decode launches by design "
+             f"{designs['decode']}, want both on the cluster kernel")
+    for name, row in (("flash_fwd", fwd), ("flash_bwd", bwd),
+                      ("flash_fwd (prefill)", prefill),
+                      ("paged_decode", decode)):
+        print(f"  {name} at GPT-2 XL's shape {row}", flush=True)
+    if not (ok_o and ok_l and ok_b and ok_po and ok_pl and ok_d and
+            zero_ok and same):
+        fail(f"a kernel disagrees with its plain version at GPT-2 XL's "
+             f"shapes: {fwd}, {bwd}, {prefill}, {decode}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    fwd["ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v))
+    bwd["ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, lse, do, delta))
+    with torch.no_grad():
+        fwd["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2).contiguous()
+    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    fwd["bound_ms"], fwd["bound_by"] = prefill_bound_ms(q, None)
+    bwd["bound_ms"], bwd["bound_by"] = flash_bwd_bound_ms(q, None)
+    for name, r in (("flash_fwd", fwd), ("flash_bwd", bwd)):
+        print(f"  {name} times at GPT-2 XL's shape: kernel {r['ms']:.4f} "
+              f"ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    del q, k, v, out, lse, do, delta, qt, kt, vt, o_lib, do_t
+    torch.cuda.empty_cache()
+    rows = {"flash_fwd": fwd, "flash_bwd": bwd, "prefill": prefill,
+            "paged_decode": decode, "design_launches": designs}
+    report["gpt2xl_attention"] = rows
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 20-23: the GPT-2 family (GPT-2 XL, bench.py's row_gpt2xl)
+# ---------------------------------------------------------------------------
+
+def gpt2_tree(cfg, seed):
+    """Seeded weights made by the port (`gpt2.init_params`) on the card."""
+    from deeperspeed_tpu_torch.models import gpt2
+    return gpt2.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+
+
+def gpt2_conf(bs, lean, micro=None, gas=1):
+    """row_gpt2xl's DeepSpeed config (bench.py:572-590): the lean state
+    (bf16 parameters as masters, bf16 Adam moments) or the classic one
+    (fp32 masters and moments), bf16 compute, ZeRO stage 0."""
+    fp16 = {"enabled": True, "type": "bfloat16"}
+    opt = {"lr": 1e-4}
+    if lean:
+        fp16["fp16_master_weights_and_grads"] = True
+        opt["state_dtype"] = "bfloat16"
+    conf = {"train_batch_size": bs, "steps_per_print": 10_000,
+            "optimizer": {"type": "Adam", "params": opt}, "fp16": fp16,
+            "zero_optimization": {"stage": 0}}
+    if micro is not None:
+        conf.update(train_micro_batch_size_per_gpu=micro,
+                    gradient_accumulation_steps=gas)
+    return conf
+
+
+def gpt2_tokens(bs, gas=1, seed=4):
+    """row_gpt2xl's tokens: default_rng(4) ids below the vocabulary,
+    shaped [gas, bs / gas, 1024]; labels equal tokens."""
+    r = np.random.default_rng(seed)
+    tok = r.integers(0, GPT2_XL["vocab_size"], (gas, bs // gas, GPT2_SEQ),
+                     np.int64)
+    return torch.from_numpy(tok).cuda()
+
+
+def gpt2_engine(tree, conf, policy, cfg=None, use_kernels=True):
+    """A GPT-2 engine from ``tree`` through `initialize(model=,
+    model_parameters=)`; ``policy`` None is whole-block remat (the
+    row's floor), else the named remat policy."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPT2, GPT2Config
+    cfg = cfg or GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16)
+    model = GPT2(cfg, device="cuda", use_kernels=use_kernels,
+                 remat_blocks=policy is None, remat_policy=policy)
+    eng, *_ = dst.initialize(model=model, model_parameters=tree,
+                             config_params=conf)
+    return eng, model
+
+
+def gpt2_step_launches(L, steps, fwd_per_layer, micro_steps=1):
+    """The launches of ``steps`` training steps by design: per micro-step
+    L flash forward (2L where the policy recomputes it), L dk/dv, L dq,
+    and one Adam a step."""
+    mu = steps * micro_steps
+    return dict(flash_fwd=fwd_per_layer * L * mu, flash_bwd_dkv=L * mu,
+                flash_bwd_dq=L * mu, adam=steps)
+
+
+def gpt2_launch_check(fa, bsa, ad, what, want, lean):
+    """Exact launches since the last reset: ``want`` {flash_fwd,
+    flash_bwd_dkv, flash_bwd_dq, adam}, every flash launch on the
+    tensor-core design, no other attention kernel, and every Adam launch
+    on the lean or the fp32 variant → (launches, designs, Adam launches
+    by variant)."""
+    launches = dict(attention_counts(fa, bsa), adam=ad.launches)
+    full = dict.fromkeys(launches, 0) | want
+    if launches != full:
+        fail(f"{what}: launch counts {launches} != {full}")
+    design = check_design(fa, what, {"fwd": want["flash_fwd"],
+                                     "dkv": want["flash_bwd_dkv"],
+                                     "dq": want["flash_bwd_dq"]})
+    variant = "lean" if lean else "fp32"
+    if dict(ad.variant_launches) != {variant: want["adam"]}:
+        fail(f"{what}: Adam launches by variant {ad.variant_launches}, "
+             f"want {{{variant!r}: {want['adam']}}}")
+    return launches, design, dict(ad.variant_launches)
+
+
+def train_gpt2xl_rung(fa, bsa, ad, tree, tag, bs, policy, lean,
+                      profile_step=False):
+    """One rung of phase 20: 2 warm-up and 3 timed bf16 `train_batch`
+    steps of GPT-2 XL at micro ``bs`` x 1024 under ``policy``; with
+    ``profile_step`` one more step under the profiler."""
+    release_cublas_workspaces()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng, model = gpt2_engine(tree, gpt2_conf(bs, lean), policy)
+    if eng.num_params != GPT2_XL_PARAMS or eng.keep_master == lean or \
+            (eng._master.dtype == torch.float32) == lean or \
+            eng.opt_state.exp_avg.dtype != (torch.bfloat16 if lean
+                                            else torch.float32):
+        fail(f"phase 20 ({tag}): the engine's state is not the "
+             f"{'lean' if lean else 'classic'} one: {eng.num_params} "
+             f"parameters, master {eng._master.dtype}, moments "
+             f"{eng.opt_state.exp_avg.dtype}")
+    init_peak = torch.cuda.max_memory_allocated()
+    tokens = gpt2_tokens(bs)
+    L = model.config.num_layers
+    losses, step_s = [], []
+    for step in range(GPT2_WARMUP + GPT2_STEPS):
+        if step == GPT2_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_attention_counts(fa, bsa)
+            ad.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=(tokens, tokens)))
+        step_s.append(time.perf_counter() - t0)
+        print(f"  {tag} step {step + 1}: loss {losses[-1]:.4f}, "
+              f"{step_s[-1] * 1e3:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    fwd = 2 if policy in (None, "full", "dots") else 1
+    launches, design, variants = gpt2_launch_check(
+        fa, bsa, ad, f"phase 20 ({tag})",
+        gpt2_step_launches(L, GPT2_STEPS, fwd), lean)
+    if not all(np.isfinite(losses)):
+        fail(f"a phase 20 loss is not finite ({tag}): {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 20 ({tag}): the loss did not fall: {losses}")
+    if eng.global_steps != GPT2_WARMUP + GPT2_STEPS or eng.skipped_steps:
+        fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
+    med = float(np.median(step_s[GPT2_WARMUP:]))
+    tps = bs * GPT2_SEQ / med
+    run = {"rung": tag, "batch": bs, "policy": policy or "full (whole "
+           "block)", "state": "lean" if lean else "classic",
+           "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+           "step_ms_median": med * 1e3, "tokens_per_s": tps,
+           "gpt2_xl_1p5b_mfu": tps * GPT2_FTOK / PEAK_FLOPS_S,
+           "baseline_gb": baseline / 2 ** 30,
+           "peak_gb": (peak - baseline) / 2 ** 30,
+           "init_peak_gb": (init_peak - baseline) / 2 ** 30,
+           "state_gb": (eng._master.numel() * eng._master.element_size() +
+                        (0 if eng._params_flat is eng._master else
+                         eng._params_flat.numel() * 2) +
+                        eng._grads_flat.numel() * 2 +
+                        (0 if eng._grad_acc is eng._grads_flat else
+                         eng._grad_acc.numel() * 4) +
+                        2 * eng.opt_state.exp_avg.numel() *
+                        eng.opt_state.exp_avg.element_size()) / 2 ** 30,
+           "launches": launches, "design_launches": design,
+           "adam_variants": variants,
+           "launches_per_step": {k: v / GPT2_STEPS
+                                 for k, v in launches.items() if v}}
+    print(f"  {tag}: median step {run['step_ms_median']:.1f} ms, "
+          f"{tps:.0f} tokens/s, MFU {run['gpt2_xl_1p5b_mfu']:.4f}, peak "
+          f"{run['peak_gb']:.2f} GiB above {run['baseline_gb']:.2f} "
+          f"(state {run['state_gb']:.2f}), launches per step "
+          f"{run['launches_per_step']}", flush=True)
+    if profile_step:
+        run["profile"] = profile_window(
+            lambda: eng.train_batch(batch=(tokens, tokens)), 1,
+            share_of="flash", also=("adam_kernel", "nvjet"))
+    del eng, model
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_gpt2xl(fa, bsa, ad, report, profile_step=False):
+    """Phase 20 (train-gpt2xl, bench.py row_gpt2xl on one card): GPT-2 XL
+    (1,557,686,400 parameters) with seeded bf16 weights made by the port,
+    through `initialize(model=, model_parameters=)`, on the row's lean
+    bs 8 ladder ("dots", "attn_residuals", "full"), its floor (lean bs 4,
+    whole-block remat) and one classic-state bs 8 "full" rung. The row's
+    last rung, z3_hostopt_bs2, needs ZeRO-3 and the host-offload tier,
+    which the port does not carry (ROADMAP A.6/A.7)."""
+    from deeperspeed_tpu_torch import GPT2Config
+    tree = gpt2_tree(GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16), 3)
+    runs = {}
+    for tag, bs, policy, lean in GPT2_RUNGS:
+        runs[tag] = train_gpt2xl_rung(
+            fa, bsa, ad, tree, tag, bs, policy, lean,
+            profile_step=profile_step and policy == "full")
+    del tree
+    torch.cuda.empty_cache()
+    out = {"runs": runs, "not_run": {
+        "z3_hostopt_bs2": "ZeRO-3 with the host-offload optimizer is not "
+                          "ported (ROADMAP A.6/A.7)"},
+        "launches": {k: sum(r["launches"][k] for r in runs.values())
+                     for k in GPT2_KERNELS}}
+    report["train_gpt2xl"] = out
+    return out
+
+
+def legacy_gpt2xl(fa, bsa, ad, report):
+    """Phase 21 (train-gpt2xl-legacy): GPT-2 XL, lean, "full" remat,
+    micro 4 x gas 2. Three steps through forward / backward / step from
+    the same weights as three through train_batch: the losses equal bit
+    for bit. Then set_layers_to_hook(["transformerlayer"]) on one batch
+    (48 captures of [4, 1024, 1600] from one capture forward) and
+    enable_gradient_noise_scale (a finite estimate after n_batches)."""
+    from deeperspeed_tpu_torch import GPT2Config
+    tree = gpt2_tree(GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16), 3)
+    conf = gpt2_conf(8, True, micro=4, gas=2)
+    tokens = gpt2_tokens(8, gas=2)
+    L = GPT2_XL["num_layers"]
+    losses, by_pass = {}, {}
+    for path in ("train_batch", "legacy"):
+        eng, model = gpt2_engine(tree, conf, "full")
+        reset_attention_counts(fa, bsa)
+        ad.reset_launches()
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(3):
+            if path == "train_batch":
+                out.append(eng.train_batch(batch=(tokens, tokens)))
+                continue
+            for i in range(2):
+                loss = eng(((tokens[i], tokens[i])))
+                eng.backward(loss)
+                got = eng.step()
+                if (got is None) != (i == 0):
+                    fail(f"phase 21: step() at micro-batch {i} returned "
+                         f"{got}")
+            out.append(got)
+        torch.cuda.synchronize()
+        losses[path] = out
+        launches, design, variants = gpt2_launch_check(
+            fa, bsa, ad, f"phase 21 ({path})",
+            gpt2_step_launches(L, 3, 2, micro_steps=2), True)
+        by_pass[path] = {k: launches[k] for k in GPT2_KERNELS}
+        print(f"  {path}: losses {out}, {time.perf_counter() - t0:.2f} s, "
+              f"launches {launches['flash_fwd']} / "
+              f"{launches['flash_bwd_dkv']} / {launches['flash_bwd_dq']} "
+              f"flash, {variants} Adam", flush=True)
+        if path == "legacy":
+            break
+        del eng, model
+        torch.cuda.empty_cache()
+    if losses["legacy"] != losses["train_batch"]:
+        fail(f"phase 21: the legacy loop's losses {losses['legacy']} != "
+             f"train_batch's {losses['train_batch']}")
+    # layer hooks on one batch: one capture forward, the 48 blocks
+    reset_attention_counts(fa, bsa)
+    ad.reset_launches()
+    calls = []
+    real = model.hidden_states
+
+    def counted(*a, **kw):
+        outs = real(*a, **kw)
+        calls.append(len(outs))
+        return outs
+    model.hidden_states = counted
+    eng.set_layers_to_hook(["transformerlayer"])
+    eng(((tokens[0], tokens[0])))
+    eng._cached_loss = None
+    hooked = eng.get_hooked_activations()
+    model.hidden_states = real
+    shapes = {tuple(t.shape) for t in hooked.values()}
+    if len(hooked) != L or calls != [L + 2] or \
+            shapes != {(4, GPT2_SEQ, GPT2_XL["hidden_size"])} or \
+            sorted(hooked) != list(range(1, L + 1)) or \
+            not all(bool(torch.isfinite(t).all()) for t in hooked.values()):
+        fail(f"phase 21: {len(hooked)} captures of {shapes} from capture "
+             f"forwards {calls}, want {L} of (4, {GPT2_SEQ}, "
+             f"{GPT2_XL['hidden_size']}) from one forward of {L + 2} "
+             f"outputs")
+    eng(((tokens[0], tokens[0])))   # disarmed: captures nothing new
+    eng._cached_loss = None
+    if calls != [L + 2]:
+        fail(f"phase 21: the capture did not disarm: {calls}")
+    del hooked
+    # the gradient-noise-scale estimator over two micro-batches
+    gns = eng.enable_gradient_noise_scale(n_batches=2)
+    for i in range(2):
+        eng.backward(eng(((tokens[i], tokens[i]))))
+    eng.step()
+    est = {"scale": gns.scale, "noise": gns.noise,
+           "noise_scale": gns.noise_scale, "n_updates": gns.n_updates}
+    print(f"  hooks: {L} captures of {sorted(shapes)} from one capture "
+          f"forward; gradient noise scale {est}", flush=True)
+    if gns.n_updates != 2 or not all(
+            x is not None and np.isfinite(x) for x in
+            (gns.scale, gns.noise, gns.noise_scale)):
+        fail(f"phase 21: no finite gradient-noise-scale estimate: {est}")
+    # the capture call: L in the capture forward (no remat) and L in the
+    # loss forward; the disarmed call L; the two micro-steps 2L each
+    # (the "full" recompute) and their backward, one Adam
+    launches, _, _ = gpt2_launch_check(
+        fa, bsa, ad, "phase 21 (hooks and noise scale)",
+        dict(flash_fwd=7 * L, flash_bwd_dkv=2 * L, flash_bwd_dq=2 * L,
+             adam=1), True)
+    by_pass["hooks_and_noise_scale"] = {k: launches[k] for k in GPT2_KERNELS}
+    del eng, model, tree, gns
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "identical": True, "hooked_layers": L,
+           "hook_shape": [4, GPT2_SEQ, GPT2_XL["hidden_size"]],
+           "capture_forwards": len(calls), "gradient_noise_scale": est,
+           "launches_by_pass": by_pass,
+           "launches": {k: sum(n[k] for n in by_pass.values())
+                        for k in GPT2_KERNELS}}
+    report["train_gpt2xl_legacy"] = out
+    return out
+
+
+def serve_gpt2xl(fa, da, report):
+    """Phase 22 (serve-gpt2xl): GPT-2 XL with seeded bf16 weights behind
+    phase 4's "inference" block, row_serve's stream."""
+    from deeperspeed_tpu_torch import GPT2, GPT2Config
+    model = GPT2(GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16),
+                 device="cuda").init_params(6)
+    return serve(fa, da, report, model=model, key="serve_gpt2xl")
+
+
+def gpt2_parity(fa, bsa, report):
+    """Phase 23: GPT-2 XL's widths at 4 layers in fp32, kernels vs the
+    plain path: 3 steps of micro 2 x gas 2 x 1024 each way (losses within
+    rtol 1e-4), and the same weights served (the same greedy tokens)."""
+    from deeperspeed_tpu_torch import GPT2, GPT2Config, InferenceEngine
+    cfg = dataclasses.replace(GPT2Config.megatron_1_5b(), num_layers=4)
+    tree = gpt2_tree(cfg, 7)
+    conf = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2, "steps_per_print": 10_000,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+    tokens = gpt2_tokens(4, gas=2, seed=8)
+    losses = {}
+    for use_kernels in (True, False):
+        reset_attention_counts(fa, bsa)
+        eng, model = gpt2_engine(tree, conf, "full", cfg=cfg,
+                                 use_kernels=use_kernels)
+        losses[use_kernels] = [eng.train_batch(batch=(tokens, tokens))
+                               for _ in range(3)]
+        got = attention_counts(fa, bsa)["flash_fwd"]
+        if got != (2 * 4 * 2 * 3 if use_kernels else 0):
+            fail(f"phase 23: {got} flash forward launches with use_kernels "
+                 f"{use_kernels}")
+        del eng, model
+        torch.cuda.empty_cache()
+    fast, plain = np.array(losses[True]), np.array(losses[False])
+    rel = np.abs(fast - plain) / np.abs(plain)
+    print(f"  training: losses kernels {losses[True]} vs plain "
+          f"{losses[False]}: max relative difference {rel.max():.3e}",
+          flush=True)
+    if not (np.isfinite(fast).all() and (rel <= 1e-4).all()):
+        fail(f"phase 23: fp32 GPT-2 losses differ between the kernel path "
+             f"and the plain path beyond rtol 1e-4: {losses}")
+    model = GPT2(cfg, device="cuda")
+    model.load_jax_params(tree)
+    rng = np.random.default_rng(9)
+    lens = [9, 64, 65, 130, 300, 700]
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in lens]
+    fast = InferenceEngine(model, config=SERVE_CONFIG).generate(
+        prompts, max_new_tokens=16)
+    model.use_kernels = False
+    plain_cfg = json.loads(json.dumps(SERVE_CONFIG))
+    plain_cfg["inference"]["kernel"] = "xla"
+    plain = InferenceEngine(model, config=plain_cfg).generate(
+        prompts, max_new_tokens=16)
+    same = [a == b for a, b in zip(fast, plain)]
+    print(f"  serving: {sum(same)}/{len(same)} requests token-identical",
+          flush=True)
+    if not all(same):
+        fail(f"phase 23: greedy GPT-2 tokens differ between the kernel "
+             f"path and the plain path: {fast} vs {plain}")
+    del model, tree
+    torch.cuda.empty_cache()
+    report["gpt2_parity"] = {"losses_kernels": losses[True],
+                             "losses_plain": losses[False],
+                             "max_rel_diff": float(rel.max()), "rtol": 1e-4,
+                             "prompt_lengths": lens, "identical": same}
+    return report["gpt2_parity"]
+
+
+def print_gpt2(tg, lg, sg, card):
+    for tag, r in tg["runs"].items():
+        print(f"  {tag}: {r['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{r['gpt2_xl_1p5b_mfu']:.4f}, step {r['step_ms_median']:.1f} "
+              f"ms, peak {r['peak_gb']:.2f} GiB, loss {r['losses'][0]:.4f} "
+              f"-> {r['losses'][-1]:.4f} on {card}", flush=True)
+        if "profile" in r:
+            print_profile(f"{tag} step (profiled)", r["profile"], card)
+            pr = r["profile"]
+            print(f"  shares of device time: flash "
+                  f"{pr['device_share_flash']:.3f} "
+                  f"({pr['device_ms_per_step_flash']:.3f} ms), cuBLAS "
+                  f"GEMMs (nvjet) {pr['device_share_nvjet']:.3f} "
+                  f"({pr['device_ms_per_step_nvjet']:.3f} ms), Adam "
+                  f"{pr['device_ms_per_step_adam_kernel']:.3f} ms",
+                  flush=True)
+    print(f"  legacy loop: losses {lg['losses']['legacy']} (identical to "
+          f"train_batch)", flush=True)
+    print(f"  serve-gpt2xl: {sg['generated_tokens']} tokens in "
+          f"{sg['wall_s']:.3f} s: {sg['tokens_per_s']:.1f} tokens/s, TTFT "
+          f"p50 {sg['ttft_p50_ms']:.2f} ms, inter-token p50 "
+          f"{sg['inter_token_p50_ms']:.2f} ms / p99 "
+          f"{sg['inter_token_p99_ms']:.2f} ms, launches {sg['launches']} on "
+          f"{card}", flush=True)
+
+
+def gpt2_only(card, profile_step=False):
+    """Phase 3's GPT-2 XL checks (the Adam variants at its size, the
+    attention kernels at its shapes) and phases 20-23 alone."""
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s", flush=True)
+    report = {"card": card}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    check_adam_xl(ad, gen, report)
+    check_gpt2_attention(fa, da, gen, report)
+    run_gpt2_phases(fa, bsa, da, ad, report, card, profile_step)
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_gpt2.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(card, flush=True)
+    return 0
+
+
+def run_gpt2_phases(fa, bsa, da, ad, report, card, profile_step=False):
+    print("GPT-2 XL training train-gpt2xl (bf16, lean / classic state, "
+          "ZeRO-0):", flush=True)
+    tg = train_gpt2xl(fa, bsa, ad, report, profile_step)
+    print("GPT-2 XL legacy loop train-gpt2xl-legacy (lean, full remat, "
+          "micro 4 x gas 2):", flush=True)
+    lg = legacy_gpt2xl(fa, bsa, ad, report)
+    print("serving GPT-2 XL serve-gpt2xl (bf16):", flush=True)
+    sg = serve_gpt2xl(fa, da, report)
+    print("GPT-2 parity (XL widths, 4 layers, fp32, kernels vs plain):",
+          flush=True)
+    gp = gpt2_parity(fa, bsa, report)
+    print_gpt2(tg, lg, sg, card)
+    return tg, lg, sg, gp
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4080,6 +4782,9 @@ def main():
                     help="run only phase 17 (checkpoint save / resume of "
                          "train-125M), on the port of this checkout or of "
                          "DIR")
+    ap.add_argument("--gpt2-only", action="store_true",
+                    help="run only phase 3's flat Adam at GPT-2 XL's size "
+                         "and phases 20-23 (the GPT-2 family)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4098,6 +4803,8 @@ def main():
         return sparse_only(args.sparse_only, card)
     if args.ckpt_only:
         return ckpt_only(args.ckpt_only, card)
+    if args.gpt2_only:
+        return gpt2_only(card, args.profile)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -4163,6 +4870,8 @@ def main():
     check_dropout_readout(fa, report)
     check_bwd_identity(fa, gen, report)
     fpk = check_packed_attention(fa, gen, report)
+    axl = check_adam_xl(ad, gen, report)
+    gxl = check_gpt2_attention(fa, da, gen, report)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -4265,6 +4974,8 @@ def main():
     print("packed training parity (fp32, kernels vs plain):", flush=True)
     packed_parity(fa, bsa, report)
     bert_packed_parity(fa, bsa, report)
+    tg, lg, sg, _ = run_gpt2_phases(fa, bsa, da, ad, report, card,
+                                    args.profile)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -4312,12 +5023,18 @@ def main():
                      f"(_fwd_single_kernel, _fwd_single_mh_kernel)",
          "launches": sv["launches"]["flash_fwd"] +
          tr["launches"]["flash_fwd"] + tm["launches"]["flash_fwd"] +
-         tc["launches"]["flash_fwd"] + tp["launches"]["flash_fwd"],
+         tc["launches"]["flash_fwd"] + tp["launches"]["flash_fwd"] +
+         tg["launches"]["flash_fwd"] + lg["launches"]["flash_fwd"] +
+         sg["launches"]["flash_fwd"],
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "train_moe": tm["launches"]["flash_fwd"],
                               "train_ckpt": tc["launches"]["flash_fwd"],
-                              "train_packed": tp["launches"]["flash_fwd"]},
+                              "train_packed": tp["launches"]["flash_fwd"],
+                              "train_gpt2xl": tg["launches"]["flash_fwd"],
+                              "train_gpt2xl_legacy": lg["launches"][
+                                  "flash_fwd"],
+                              "serve_gpt2xl": sg["launches"]["flash_fwd"]},
          "design": "bf16 at D 64/128: tensor cores (mma.sync, "
                    "csrc/attention_mma.cuh); fp32, D 256: FMA tile steps",
          "design_launches_by_path": {
@@ -4325,7 +5042,10 @@ def main():
              "train": tr["design_launches"]["fwd"],
              "train_moe": tm["design_launches"]["fwd"],
              "train_ckpt": tc["design_launches"]["fwd"],
-             "train_packed": tp["design_launches"]["fwd"]},
+             "train_packed": tp["design_launches"]["fwd"],
+             "serve_gpt2xl": sg["design_launches"]["fwd"],
+             "train_gpt2xl": {tag: r["design_launches"]["fwd"]
+                              for tag, r in tg["runs"].items()}},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
@@ -4334,20 +5054,28 @@ def main():
          "train_shape": {k: ft[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "max_abs_err_out")} | {"shape": train_shape},
-         "packed_shape": packed_times(fpk, "fwd")},
+         "packed_shape": packed_times(fpk, "fwd"),
+         "gpt2xl_shape": gxl["flash_fwd"],
+         "gpt2xl_prefill_shape": gxl["prefill"]},
         {"name": "paged_decode", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
          "replaces": f"{pallas}decode_attention.py:84",
-         "launches": sv["launches"]["paged_decode"],
+         "launches": sv["launches"]["paged_decode"] +
+         sg["launches"]["paged_decode"],
+         "launches_by_path": {"serve": sv["launches"]["paged_decode"],
+                              "serve_gpt2xl": sg["launches"][
+                                  "paged_decode"]},
          "design": DECODE_DESIGN,
          "design_launches": sv["decode_design_launches"],
+         "design_launches_gpt2xl": sg["decode_design_launches"],
          "max_abs_err": de["max_abs_err"], "ms": de["ms"],
          "plain_ms": de["plain_ms"], "bound_ms": de["bound_ms"],
          "bound_by": de["bound_by"], "library_ms": de["library_ms"],
          "library": de["library"],
          "shape": f"{de['shape']} bf16, lengths {de['lengths_drawn']}",
          "tolerance": de["tol"], **decode_graph_times(de),
-         "serving_shape": decode_shape_row(de_serve)},
+         "serving_shape": decode_shape_row(de_serve),
+         "gpt2xl_shape": gxl["paged_decode"]},
         {"name": "flash_bwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
          "replaces": f"{pallas}flash_attention.py:736, :763 "
@@ -4356,19 +5084,28 @@ def main():
                      f"(_bwd_dkv_kernel, _bwd_dq_kernel)",
          "launches": tr["launches"]["flash_bwd_dkv"] +
          tm["launches"]["flash_bwd_dkv"] + tc["launches"]["flash_bwd_dkv"] +
-         tp["launches"]["flash_bwd_dkv"],
+         tp["launches"]["flash_bwd_dkv"] + tg["launches"]["flash_bwd_dkv"] +
+         lg["launches"]["flash_bwd_dkv"],
          "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"] +
                                 tm["launches"]["flash_bwd_dkv"] +
                                 tc["launches"]["flash_bwd_dkv"] +
-                                tp["launches"]["flash_bwd_dkv"],
+                                tp["launches"]["flash_bwd_dkv"] +
+                                tg["launches"]["flash_bwd_dkv"] +
+                                lg["launches"]["flash_bwd_dkv"],
                                 "dq": tr["launches"]["flash_bwd_dq"] +
                                 tm["launches"]["flash_bwd_dq"] +
                                 tc["launches"]["flash_bwd_dq"] +
-                                tp["launches"]["flash_bwd_dq"]},
+                                tp["launches"]["flash_bwd_dq"] +
+                                tg["launches"]["flash_bwd_dq"] +
+                                lg["launches"]["flash_bwd_dq"]},
          "launches_by_path": {"train": tr["launches"]["flash_bwd_dkv"],
                               "train_moe": tm["launches"]["flash_bwd_dkv"],
                               "train_ckpt": tc["launches"]["flash_bwd_dkv"],
                               "train_packed": tp["launches"][
+                                  "flash_bwd_dkv"],
+                              "train_gpt2xl": tg["launches"][
+                                  "flash_bwd_dkv"],
+                              "train_gpt2xl_legacy": lg["launches"][
                                   "flash_bwd_dkv"]},
          "design_launches_by_path": {
              "train": {k: tr["design_launches"][k] for k in ("dkv", "dq")},
@@ -4390,16 +5127,24 @@ def main():
              "max_abs_err_dq", "max_abs_err_dk", "max_abs_err_dv")} | {
              "shape": "B=4 S=1024 H=12 D=64 bf16, ragged segments "
                       "(SDPA with the bool mask as library)"},
-         "packed_shape": packed_times(fpk, "bwd")},
+         "packed_shape": packed_times(fpk, "bwd"),
+         "gpt2xl_shape": gxl["flash_bwd"]},
         {"name": "adam", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/adam.cu",
          "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
          "launches": tr["launches"]["adam"] + tm["launches"]["adam"] +
-         tc["launches"]["adam"] + tp["launches"]["adam"],
+         tc["launches"]["adam"] + tp["launches"]["adam"] +
+         tg["launches"]["adam"] + lg["launches"]["adam"],
          "launches_by_path": {"train": tr["launches"]["adam"],
                               "train_moe": tm["launches"]["adam"],
                               "train_ckpt": tc["launches"]["adam"],
-                              "train_packed": tp["launches"]["adam"]},
+                              "train_packed": tp["launches"]["adam"],
+                              "train_gpt2xl": tg["launches"]["adam"],
+                              "train_gpt2xl_legacy": lg["launches"][
+                                  "adam"]},
+         "variant_launches_gpt2xl": {tag: r["adam_variants"]
+                                     for tag, r in tg["runs"].items()},
+         "gpt2xl_shapes": axl,
          "max_abs_err": adm["max_abs_err_p"], "ms": adm["ms"],
          "plain_ms": adm["plain_ms"], "bound_ms": adm["bound_ms"],
          "bound_by": adm["bound_by"], "library_ms": adm["library_ms"],

@@ -2,12 +2,15 @@
 NVIDIA H100.
 
 The port grows slice by slice beside the JAX package, which stays the
-reference it is tested against. It serves GPT-NeoX (the continuous-
-batching `InferenceEngine` over a paged KV cache, with int8 block
-weights and int8 KV pages as options) and trains GPT-NeoX and BERT on
-one card: `initialize()` returns a `DeepSpeedEngine` whose `train_batch`
-runs bf16 (or fp32) compute with fp32 masters, Adam(W), the LR
-schedules, gradient clipping and ZeRO stages 0-2. GPT-NeoX takes a
+reference it is tested against. It serves GPT-NeoX and GPT-2 (the
+continuous-batching `InferenceEngine` over a paged KV cache, with int8
+block weights and int8 KV pages as options) and trains GPT-NeoX, GPT-2
+and BERT on one card: `initialize()` returns a `DeepSpeedEngine` whose
+`train_batch` (or the legacy `forward` / `backward` / `step` loop) runs
+bf16 (or fp32) compute with fp32 masters, or the lean state
+(``fp16_master_weights_and_grads``: the bf16 parameters are the
+masters, with bf16 Adam moments), Adam(W), the LR schedules, gradient
+clipping and ZeRO stages 0-2. GPT-NeoX takes a
 dense or an MoE FFN (`moe`, driven by the JSON "moe" block) and dense
 or block-sparse attention (`ops/sparse_attention`, driven by the JSON
 "sparse_attention" block); BERT (`BertForPreTraining`,
@@ -20,10 +23,13 @@ weight-only int8 matmul, the grouped expert matmul (forward and dW) and
 the flat Adam step. The port never imports JAX or `deeperspeed_tpu`.
 """
 
+import argparse
+
 from . import moe
 from .inference import InferenceEngine
 from .models.bert import (BertConfig, BertForPreTraining,
                           BertForQuestionAnswering, BertModel)
+from .models.gpt2 import GPT2, GPT2Config
 from .models.gpt_neox import GPTNeoX, GPTNeoXConfig
 from .moe import MoELayer
 from .ops.transformer import (DeepSpeedTransformerConfig,
@@ -36,16 +42,39 @@ from .utils.logging import log_dist, logger
 from .version import __version__
 
 
+def _add_core_arguments(parser):
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user code)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="DeepSpeed json configuration file")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help=argparse.SUPPRESS)  # deprecated spelling
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help=argparse.SUPPRESS)
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Discover rank/world from MPI")
+    return parser
+
+
+def add_config_arguments(parser):
+    """Add DeepSpeed's argparse flags (the JAX package's
+    `add_config_arguments`: the same flags, defaults and help)."""
+    return _add_core_arguments(parser)
+
+
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
                config_params=None):
     """Initialize the training engine (the JAX package's `initialize`).
 
-    ``model`` is a `GPTNeoX`, a `BertForPreTraining` or a
+    ``model`` is a `GPTNeoX`, a `GPT2`, a `BertForPreTraining` or a
     `BertForQuestionAnswering` whose parameters are initialized or
-    loaded; it trains on their device (build it with ``device="cpu"`` to
-    train on the CPU). ``config`` is a JSON path, ``config_params`` a dict.
+    loaded, or are loaded from ``model_parameters`` (the JAX package's
+    natural params pytree, numpy or tensor leaves); it trains on their
+    device (build it with ``device="cpu"`` to train on the CPU).
+    ``config`` is a JSON path, ``config_params`` a dict.
 
     Returns ``(engine, engine.optimizer, engine.training_dataloader,
     engine.lr_scheduler)``. A pipeline model and more than one
@@ -70,7 +99,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
            "DeepSpeedConfigError", "DeepSpeedDataLoader", "RepeatingLoader",
-           "InferenceEngine", "GPTNeoX", "GPTNeoXConfig", "MoELayer", "moe",
+           "InferenceEngine", "GPT2", "GPT2Config", "GPTNeoX",
+           "GPTNeoXConfig", "MoELayer", "moe", "add_config_arguments",
            "BertConfig", "BertModel", "BertForPreTraining",
            "BertForQuestionAnswering", "DeepSpeedTransformerConfig",
            "DeepSpeedTransformerLayer", "log_dist", "logger",

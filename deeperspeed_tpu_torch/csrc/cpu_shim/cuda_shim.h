@@ -82,6 +82,13 @@ inline __nv_bfloat16 __float2bfloat16(float f) {   // round to nearest even
   u += 0x7FFFu + ((u >> 16) & 1u);
   return {static_cast<uint16_t>(u >> 16)};
 }
+// IEEE single operations, each rounded to nearest even (no contraction:
+// the host build targets no FMA)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }

@@ -4,9 +4,10 @@
 
 FAMILY is one of `quant_matmul`, `grouped_matmul`, `grouped_matmul_dw`,
 `block_sparse_fwd`, `block_sparse_dkv`, `block_sparse_dq`,
-`paged_decode` and `paged_decode_int8` (all eight without ``--only``). Each family's source (`csrc/quant_matmul.cu`,
+`paged_decode`, `paged_decode_int8` and `adam` (all nine without
+``--only``). Each family's source (`csrc/quant_matmul.cu`,
 `csrc/grouped_matmul.cu`, `csrc/block_sparse_attention.cu`,
-`csrc/paged_decode.cu`) and `csrc/errors.cu` are copied next to
+`csrc/paged_decode.cu`, `csrc/adam.cu`) and `csrc/errors.cu` are copied next to
 this directory's stand-ins for the CUDA headers and for `common.cuh` /
 `hopper_gemm.cuh` (the attention headers are the real ones), compiled by
 g++ under `build/cpu_shim/` (one object a source, in parallel, kept by a
@@ -52,7 +53,15 @@ thread, and each result is held against the plain PyTorch version:
   with large values; within chip_smoke's TOL of the plain version,
   length-0 rows exact zeros, two calls bit-identical, every launch
   counted as the "cluster" design (fp32 pools: the single-block kernel,
-  counted "single").
+  counted "single");
+- adam: the flat Adam(W) kernel at every parameter / moment storage
+  pair (fp32 or bf16 p, fp32 or bf16 m and v), fp32 and bf16 grads,
+  AdamW and L2 mode, with the bf16 recast beside fp32 p, on a length no
+  block or pack of 4 divides, and on views off the 16-byte alignment
+  the packed loop needs: p, m and v equal to the plain version bit for bit (the
+  kernel rounds each operation once, in the plain version's order), the
+  recast equal to the new p rounded, two calls bit-identical, and a
+  p_out beside bf16 p refused.
 
 It checks indexing, tiling, the mbarrier ring, the TMA box and swizzle,
 the descriptors' layouts, the cluster reduction and the warp-level
@@ -81,6 +90,7 @@ REPO = CSRC.parents[1]
 sys.path.insert(0, str(REPO))
 
 from deeperspeed_tpu_torch.ops.hopper import _build  # noqa: E402
+from deeperspeed_tpu_torch.ops.hopper import adam as ad  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa  # noqa: E402,E501
 from deeperspeed_tpu_torch.ops.hopper import decode_attention as da  # noqa: E402
 from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa  # noqa: E402
@@ -599,6 +609,59 @@ def check_paged_decode_int8(gen):
     _check_decode(gen, int8=True)
 
 
+def check_adam(gen):
+    n = 3 * 256 + 77
+    hp = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01,
+              bias_correction=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for p_dt, m_dt, g_dt, adam_w, recast, skew in (
+            (f32, f32, bf16, True, True, 0), (f32, f32, f32, False, False, 0),
+            (f32, bf16, f32, True, True, 0), (bf16, bf16, bf16, True, False, 0),
+            (bf16, bf16, f32, False, False, 0),
+            (bf16, f32, bf16, True, False, 0),
+            (bf16, bf16, bf16, True, False, 1)):
+        # skew 1: every buffer a view one element past a 16-byte boundary,
+        # which takes the one-element-a-thread loop throughout
+        p = torch.randn(n + skew, generator=gen).to(p_dt)[skew:]
+        g = torch.randn(n + skew, generator=gen).to(g_dt)[skew:]
+        m = (0.1 * torch.randn(n + skew, generator=gen)).to(m_dt)[skew:]
+        v = (0.01 * torch.rand(n + skew, generator=gen)).to(m_dt)[skew:]
+        want = ad.adam_flat_reference(p, g, m, v, 6e-4, 3, adam_w=adam_w,
+                                      **hp)
+        runs = []
+        for _ in range(2):
+            pk, mk, vk = p.clone(), m.clone(), v.clone()
+            out = torch.empty(n, dtype=bf16) if recast else None
+            ad.adam_cuda(pk, g, mk, vk, 6e-4, 3, adam_w=adam_w, p_out=out,
+                         **hp)
+            runs.append((pk, mk, vk, out))
+        pk, mk, vk, out = runs[0]
+        case = (f"p {p_dt}, m/v {m_dt}, g {g_dt}, adam_w {adam_w}, "
+                f"recast {recast}, skew {skew}")
+        for name, got, ref in (("p", pk, want[0]), ("m", mk, want[1]),
+                               ("v", vk, want[2])):
+            if not torch.equal(got, ref):
+                fail(f"adam {case}: {name} off the plain version by "
+                     f"{rel_err(got, ref):.3e} of max|ref|")
+        if recast and not torch.equal(out, pk.to(bf16)):
+            fail(f"adam {case}: the bf16 recast is not the new p rounded")
+        if not all(torch.equal(a, b) for a, b in zip(runs[0][:3],
+                                                       runs[1][:3])):
+            fail(f"adam {case}: two calls differ")
+        print(f"  {case}: equal to the plain version bit for bit, two "
+              f"calls bit-identical",
+              flush=True)
+    try:
+        ad.adam_cuda(p.to(bf16), g, m, v, 6e-4, 3, adam_w=True,
+                     p_out=torch.empty(n, dtype=bf16), **hp)
+    except TypeError:
+        pass
+    else:
+        fail("adam: a bf16 p_out beside bf16 p was not refused")
+    if ad.launches != 14:
+        fail(f"adam: {ad.launches} launches counted, want 14")
+
+
 FAMILIES = {
     "quant_matmul": (("quant_matmul.cu",), check_quant_matmul,
                      "int8 matmul (wgmma)"),
@@ -620,6 +683,8 @@ FAMILIES = {
     "paged_decode_int8": (("paged_decode.cu",), check_paged_decode_int8,
                           "paged decode over int8 pools (cluster "
                           "split-KV)"),
+    "adam": (("adam.cu",), check_adam,
+             "flat Adam(W) over fp32 / bf16 parameters and moments"),
 }
 
 

@@ -1,7 +1,7 @@
 """Serving engine: continuous batching over a paged KV cache.
 
 The port of `InferenceEngine` in `deeperspeed_tpu/inference/engine.py`,
-for the GPT-NeoX family on one device. It is driven by the same
+for the GPT-NeoX and GPT-2 families on one device. It is driven by the same
 ``"inference"`` config block (`runtime.config.parse_inference_block`)
 and the ``weights`` choice of the ``"quantization"`` block, casts (or
 int8-quantizes) weights with `module_inject.prepare_inference_params`,
@@ -37,7 +37,7 @@ temperature > 0 draws from the softmax with the engine's own
 Not ported yet (each raises at construction, and ROADMAP.md lists it):
 the prefix cache, speculative decoding, disaggregated roles and the
 router, admission control, serving fault injection, the hang watchdog,
-telemetry spans, a model-parallel mesh and the GPT-2 family. A prefill or decode exception propagates:
+telemetry spans and a model-parallel mesh. A prefill or decode exception propagates:
 the quarantine/retry layer comes with the robustness slice.
 """
 
@@ -46,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from ..models import gpt2 as gpt2_mod
 from ..models import gpt_neox as neox
 from ..module_inject.replace_module import prepare_inference_params
 from ..ops.hopper.decode_attention import paged_decode_attention
@@ -78,22 +79,37 @@ def _not_ported(what, slice_name):
 
 
 class _Family:
-    """The model-family seams the serving loop needs: token embedding,
-    rotary rows, LM head. The block body is the shared
-    `gpt_neox._block_qkv` / `_block_post_attn`."""
+    """The model-family seams the serving loop needs: token embedding at
+    absolute positions, rotary rows, LM head (the JAX `_Family`). The
+    block body is the shared `gpt_neox._block_qkv` / `_block_post_attn`;
+    GPT-2 runs it with a zero-width rotary cache and adds its learned
+    ``wpe`` row at each token's position, and its head is tied (the
+    LM head reads ``embed.wte`` when there is no ``embed_out``)."""
 
     def __init__(self, model, max_seq_len, device):
-        if not isinstance(model, neox.GPTNeoX):
-            raise _not_ported(
-                f"serving {type(model).__name__} (only GPT-NeoX is; the "
-                f"GPT-2 family waits)", "serving")
         self.cfg = model.config
-        self._cos, self._sin, self.rot_dim = neox._rotary_cache(
-            self.cfg, max_seq_len, device=device)
+        if isinstance(model, neox.GPTNeoX):
+            self.kind = "gpt_neox"
+            self._cos, self._sin, self.rot_dim = neox._rotary_cache(
+                self.cfg, max_seq_len, device=device)
+        elif isinstance(model, gpt2_mod.GPT2):
+            self.kind = "gpt2"
+            self._cos = torch.zeros((max_seq_len, 0), device=device)
+            self._sin = torch.zeros((max_seq_len, 0), device=device)
+            self.rot_dim = 0
+        else:
+            raise DeepSpeedConfigError(
+                f"InferenceEngine serves the GPT-NeoX / GPT-2 families; "
+                f"got {type(model).__name__}")
 
-    def embed(self, params, tokens):
-        """tokens [...] → [..., H]."""
-        return params["embed"]["wte"][tokens]
+    def embed(self, params, tokens, positions):
+        """tokens [...] at their absolute ``positions`` (broadcastable
+        to tokens: [1, S] in a prefill, [B] in a decode step) → [..., H];
+        GPT-2 adds its ``wpe`` rows there."""
+        x = params["embed"]["wte"][tokens]
+        if self.kind == "gpt2":
+            x = x + params["embed"]["wpe"][positions]
+        return x
 
     def cos_sin_prefill(self, seqlen):
         return self._cos[:seqlen], self._sin[:seqlen], self.rot_dim
@@ -111,7 +127,8 @@ class _Family:
 class InferenceEngine:
     """Continuous-batching serving over the paged KV cache.
 
-    ``model`` is a `models.gpt_neox.GPTNeoX`; ``config`` a dict or JSON
+    ``model`` is a `models.gpt_neox.GPTNeoX` or a `models.gpt2.GPT2`;
+    ``config`` a dict or JSON
     path holding the ``"inference"`` block; ``params`` an optional
     ``{dotted name: tensor}`` state dict (else the model's own
     parameters). ``device`` defaults to ``"cuda"`` and raises when CUDA
@@ -306,7 +323,7 @@ class InferenceEngine:
         # row causal attention over its own tokens only
         seg = (pos < lengths[:, None]).to(torch.int32)
         flat_pt = page_table.reshape(-1).long()
-        x = fam.embed(params, tokens)
+        x = fam.embed(params, tokens, pos)
         backend = self._attn_backend
         for layer, bp in enumerate(params["blocks"]):
             q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H,
@@ -350,7 +367,7 @@ class InferenceEngine:
         H, D = cfg.num_heads, cfg.head_dim
         B = tokens.shape[0]
         pos = (lengths.long() - 1).clamp(min=0)
-        x = fam.embed(params, tokens)[:, None, :]
+        x = fam.embed(params, tokens, pos)[:, None, :]
         cos, sin, rot_dim = fam.cos_sin_decode(pos)
         page_idx = page_table.gather(1, (pos // ps)[:, None])[:, 0].long()
         slot = pos % ps

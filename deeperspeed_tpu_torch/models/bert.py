@@ -46,7 +46,8 @@ from ..runtime.activation_checkpointing.checkpointing import \
 from ..runtime.packing import segment_relative_positions
 from ..utils.device import resolve_device
 from .gpt_neox import (_holder, apply_activation_checkpointing_config,
-                       resolve_remat, segment_sizes, unflatten)
+                       reject_unsupported_ds_blocks, resolve_remat,
+                       segment_sizes, unflatten)
 
 
 @dataclass(frozen=True)
@@ -106,28 +107,6 @@ class BertConfig:
             pre_layer_norm=self.pre_layer_norm,
             training=training,
             adjust_init_range=True)
-
-
-def reject_unsupported_ds_blocks(ds_config, family):
-    """Refuse the config blocks the family does not implement, as the
-    JAX package's `reject_unsupported_ds_blocks` does (same errors):
-    accepting them would train without them."""
-    if getattr(ds_config, "moe_params", None) or \
-            getattr(ds_config, "sequence_parallel_params", None):
-        raise NotImplementedError(
-            f"{family} does not implement the moe/sequence_parallel "
-            "config blocks; use models.gpt_neox.GPTNeoX")
-    if getattr(ds_config, "sparse_attention", None):
-        raise NotImplementedError(
-            f"{family} does not implement the sparse_attention config "
-            "block (the run would silently train with dense attention); "
-            "the block-sparse engine lives on models.gpt_neox.GPTNeoX")
-    qz = getattr(ds_config, "quantization_config", None)
-    if qz and qz.get("ffn"):
-        raise NotImplementedError(
-            f"{family} does not implement the quantization.ffn block "
-            "(the run would silently train full-precision); the "
-            "delayed-scaling FFN lives on models.gpt_neox.GPTNeoX")
 
 
 class BertModel(nn.Module):
@@ -406,9 +385,10 @@ class BertForPreTraining(BertModel):
         return ["embedding"] + \
             ["transformerlayer"] * self.config.num_layers
 
+    @torch.no_grad()
     def hidden_states(self, params, batch, rng=None):
         """The embedding output and every layer's output, without
-        dropout."""
+        dropout or gradients."""
         input_ids, token_type_ids, attention_mask, *_ = self._unpack(batch)
         _, outs = self.encode(params, input_ids, token_type_ids,
                               attention_mask, rng=None, deterministic=True,

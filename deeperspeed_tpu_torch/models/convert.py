@@ -27,10 +27,15 @@ def _flatten(tree, prefix, out):
 def state_dict_from_jax(params):
     """JAX natural params pytree (numpy leaves) → ``{dotted name:
     torch.Tensor}``. Leaves keep their shape; a dtype numpy cannot
-    hand to torch (bfloat16 from ml_dtypes) goes through float32."""
+    hand to torch (bfloat16 from ml_dtypes) goes through float32. A
+    leaf that is already a tensor (a tree made by the port, as
+    `gpt2.init_params` makes one) is taken as it is, on its device."""
     flat = _flatten(params, "", {})
     out = {}
     for name, leaf in flat.items():
+        if isinstance(leaf, torch.Tensor):
+            out[name] = leaf
+            continue
         arr = np.asarray(leaf)
         if arr.dtype.name == "bfloat16":
             out[name] = torch.from_numpy(

@@ -170,7 +170,11 @@ def apply_rotary(q, k, cos, sin, rot_dim):
     """Rotary embedding on the first rot_dim dims of q/k [B, S, H, D].
 
     cos/sin are [S, rot] (one position stream) or [B, S, rot]
-    (per-row positions: the decode step)."""
+    (per-row positions: the decode step). A zero ``rot_dim`` (GPT-2,
+    whose positions come from its learned table) returns q and k as they
+    are."""
+    if rot_dim == 0:
+        return q, k
     q_rot, q_pass = q[..., :rot_dim], q[..., rot_dim:]
     k_rot, k_pass = k[..., :rot_dim], k[..., rot_dim:]
     if cos.dim() == 2:
@@ -319,57 +323,50 @@ def resolve_remat(remat_blocks, remat_policy, number_checkpoints):
     return True, policy, number_checkpoints
 
 
-def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
-                   attn_fn=None, remat_blocks=False, remat_policy=None,
-                   number_checkpoints=None, segment_ids=None):
-    """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
-    (out, the blocks' aux losses summed). The blocks draw their gate
-    jitter from ``rng`` in turn; ``attn_fn`` is their attention core
-    when set (`block_forward`).
-
-    ``segment_ids`` [B, S] int (packed ragged batches, 0 = pad — see
-    `runtime.packing`): attention becomes intra-document on every block,
-    and the rotary cache is gathered at each token's intra-document
-    position, so a packed document sees the position stream of the same
-    document padded alone.
+def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
+                attn_fn=None, remat_blocks=False, remat_policy=None,
+                number_checkpoints=None, segment_ids=None, hidden=None):
+    """The blocks over the embedded ``x`` [B, S, H] → the last block's
+    output; with MoE (out, the blocks' aux losses summed). Shared by the
+    GPT-NeoX and GPT-2 forwards (the JAX package's
+    `gpt_neox.forward_hidden` and `gpt2.forward_hidden` loop over the
+    same block). The
+    blocks draw their gate jitter from ``rng`` in turn; ``attn_fn`` is
+    their attention core when set (`block_forward`); ``segment_ids``
+    (int32) makes attention intra-document.
 
     Remat knobs (see `resolve_remat`): ``remat_policy`` names what a
     span keeps ('none'/'full'/'dots'/'attn_residuals'/'offload_dots');
     with ``number_checkpoints`` the blocks run as that many spans
     (`segment_sizes`, a Python loop), else each block is a span. A
-    span's gate-jitter draws replay in its recompute."""
+    span's gate-jitter draws replay in its recompute.
+
+    ``hidden`` (a list, the capture path of `hidden_states`) receives
+    every block's output; it runs the blocks without remat, as the JAX
+    package's ``collect_hidden`` path does."""
     moe = bool(cfg.moe_num_experts)
-    do_remat, policy, n_ckpt = resolve_remat(remat_blocks, remat_policy,
-                                             number_checkpoints)
+    do_remat, policy, n_ckpt = (False, None, None) if hidden is not None \
+        else resolve_remat(remat_blocks, remat_policy, number_checkpoints)
     if n_ckpt is not None and moe:
         raise ValueError(
             "number_checkpoints (segmented-scan checkpointing) needs a "
             "uniform block stack: incompatible with MoE aux-loss "
             "threading and collect_hidden — drop number_checkpoints or "
             "use per-block remat (a policy alone)")
-    x = params["embed"]["wte"][tokens]
-    cos, sin, rot_dim = _rotary_cache(cfg, tokens.shape[1], device=x.device)
-    if segment_ids is not None:
-        # int32 once for every block's kernels
-        segment_ids = segment_ids.to(torch.int32).contiguous()
-        if rot_dim:
-            # the rotary cache at intra-document positions: [B, S, rot]
-            pos = segment_relative_positions(segment_ids).long()
-            cos, sin = cos[pos], sin[pos]
-    cos_sin = (cos, sin, rot_dim)
 
-    def run_blocks(blocks, x):
+    def run_blocks(group, x):
         aux_sum = None
-        for bp in blocks:
+        for bp in group:
             x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
                               segment_ids=segment_ids, rng=rng,
                               attn_fn=attn_fn)
             if moe:
                 x, aux = x
                 aux_sum = aux if aux_sum is None else aux_sum + aux
+            if hidden is not None:
+                hidden.append(x)
         return (x, aux_sum) if moe else x
 
-    blocks = params["blocks"]
     if n_ckpt is not None:
         # the spans own the remat; blocks inside run bare
         groups, idx = [], 0
@@ -388,9 +385,48 @@ def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
         if moe:
             x, aux = x
             aux_total = aux if aux_total is None else aux_total + aux
+    return (x, aux_total) if moe else x
+
+
+def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
+                   attn_fn=None, remat_blocks=False, remat_policy=None,
+                   number_checkpoints=None, segment_ids=None, hidden=None):
+    """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
+    (out, the blocks' aux losses summed). The blocks run through
+    `block_stack` (its remat knobs, ``rng``, ``attn_fn`` and ``hidden``).
+
+    ``segment_ids`` [B, S] int (packed ragged batches, 0 = pad — see
+    `runtime.packing`): attention becomes intra-document on every block,
+    and the rotary cache is gathered at each token's intra-document
+    position, so a packed document sees the position stream of the same
+    document padded alone.
+
+    ``hidden`` (a list) receives the embedding, every block's output and
+    the final-norm output (`GPTNeoX.hidden_states`)."""
+    x = params["embed"]["wte"][tokens]
+    cos, sin, rot_dim = _rotary_cache(cfg, tokens.shape[1], device=x.device)
+    if segment_ids is not None:
+        # int32 once for every block's kernels
+        segment_ids = segment_ids.to(torch.int32).contiguous()
+        if rot_dim:
+            # the rotary cache at intra-document positions: [B, S, rot]
+            pos = segment_relative_positions(segment_ids).long()
+            cos, sin = cos[pos], sin[pos]
+    if hidden is not None:
+        hidden.append(x)
+    x = block_stack(cfg, params["blocks"], x, (cos, sin, rot_dim),
+                    use_kernels=use_kernels, rng=rng, attn_fn=attn_fn,
+                    remat_blocks=remat_blocks, remat_policy=remat_policy,
+                    number_checkpoints=number_checkpoints,
+                    segment_ids=segment_ids, hidden=hidden)
+    aux = None
+    if cfg.moe_num_experts:
+        x, aux = x
     out = layer_norm(x, params["final_ln"]["scale"],
                      params["final_ln"]["bias"], cfg.layernorm_eps)
-    return (out, aux_total) if moe else out
+    if hidden is not None:
+        hidden.append(out)
+    return (out, aux) if cfg.moe_num_experts else out
 
 
 def forward(cfg, params, tokens, use_kernels=True, attn_fn=None,
@@ -509,9 +545,32 @@ def make_sparse_attention(cfg, sparse_params=None):
     return attn_fn
 
 
+def reject_unsupported_ds_blocks(ds_config, family):
+    """Refuse the config blocks a family does not implement, as the
+    JAX package's `reject_unsupported_ds_blocks` does (same errors):
+    accepting them would train without them. Shared by GPT-2 and
+    BERT."""
+    if getattr(ds_config, "moe_params", None) or \
+            getattr(ds_config, "sequence_parallel_params", None):
+        raise NotImplementedError(
+            f"{family} does not implement the moe/sequence_parallel "
+            "config blocks; use models.gpt_neox.GPTNeoX")
+    if getattr(ds_config, "sparse_attention", None):
+        raise NotImplementedError(
+            f"{family} does not implement the sparse_attention config "
+            "block (the run would silently train with dense attention); "
+            "the block-sparse engine lives on models.gpt_neox.GPTNeoX")
+    qz = getattr(ds_config, "quantization_config", None)
+    if qz and qz.get("ffn"):
+        raise NotImplementedError(
+            f"{family} does not implement the quantization.ffn block "
+            "(the run would silently train full-precision); the "
+            "delayed-scaling FFN lives on models.gpt_neox.GPTNeoX")
+
+
 def apply_activation_checkpointing_config(model, ds_config):
     """Thread the JSON "activation_checkpointing" block into a model's
-    remat knobs (shared by the GPT-NeoX and BERT families; the engine
+    remat knobs (shared by the GPT-NeoX, GPT-2 and BERT families; the engine
     calls it through `apply_ds_config`): `number_checkpoints` → span
     groups, `cpu_checkpointing` → the host-offload policy
     (`offload_dots`), fork key `policy` → the named policy;
@@ -595,7 +654,70 @@ def _init_param(cfg, name, param, gen):
         param.normal_(0.0, scale, generator=gen)
 
 
-class GPTNeoX(nn.Module):
+class LMModule(nn.Module):
+    """The module glue GPT-NeoX and GPT-2 share: the remat knobs and
+    ``scan_blocks``, loading a JAX tree, the natural tree of the
+    parameters, a packed batch's checks and the layer names of the
+    activation capture.
+
+    ``remat_blocks``, ``remat_policy`` and ``number_checkpoints`` are the
+    JAX models' remat knobs (`forward_hidden`); the JSON
+    "activation_checkpointing" block sets them. ``scan_blocks`` (the JAX
+    models' compile-time knob: one `lax.scan` body for the stack) is
+    accepted and stored, and does nothing: eager PyTorch compiles
+    nothing."""
+
+    def __init__(self, cfg, use_kernels, remat_blocks, scan_blocks,
+                 remat_policy, number_checkpoints):
+        super().__init__()
+        self.config = cfg
+        self.use_kernels = use_kernels
+        self.remat_blocks = remat_blocks
+        self.scan_blocks = scan_blocks
+        self.remat_policy = remat_policy
+        self.number_checkpoints = number_checkpoints
+
+    def load_jax_params(self, params):
+        """Load the JAX package's natural params pytree (numpy leaves —
+        call ``jax.device_get`` first) into this module."""
+        from .convert import state_dict_from_jax
+        self.load_state_dict(state_dict_from_jax(params))
+        return self
+
+    def params_tree(self):
+        """The parameters as the natural tree the functional forward
+        takes."""
+        return unflatten(dict(self.named_parameters()))
+
+    def _remat_knobs(self):
+        return dict(remat_blocks=self.remat_blocks,
+                    remat_policy=self.remat_policy,
+                    number_checkpoints=self.number_checkpoints)
+
+    def _lm_batch(self, batch):
+        """(tokens, labels, segment ids or None) of an LM batch (see
+        `split_lm_batch`). A packed batch's labels lose their pad and
+        cross-document targets (`mask_cross_document_labels`); with
+        ``use_segment_ids`` (the "packing" block) a batch without segment
+        ids raises."""
+        tokens, labels, seg = split_lm_batch(batch)
+        if self.config.use_segment_ids and seg is None:
+            raise ValueError(
+                "packing is enabled (use_segment_ids) but the batch has "
+                "no segment_ids: feed (tokens, labels, segment_ids) "
+                "triples (runtime.packing.PackedDataset emits them)")
+        if seg is not None:
+            labels = mask_cross_document_labels(labels, seg)
+        return tokens, labels, seg
+
+    # -- layer-activation capture (engine.set_layers_to_hook) ------------
+
+    def layer_names(self):
+        return ["embedding"] + \
+            ["transformerlayer"] * self.config.num_layers + ["final_ln"]
+
+
+class GPTNeoX(LMModule):
     """The GPT-NeoX model with the JAX package's parameter names and
     ``[in, out]`` weight layout; its parameters are trainable (the
     training engine differentiates `loss_fn`, the serving engine takes
@@ -606,26 +728,17 @@ class GPTNeoX(nn.Module):
 
     ``use_kernels`` (the counterpart of the JAX model's ``use_pallas``)
     sends attention through the hand-written flash-prefill kernel; False
-    keeps the plain PyTorch version everywhere. ``remat_blocks``,
-    ``remat_policy`` and ``number_checkpoints`` are the JAX model's remat
-    knobs (`forward_hidden`); the JSON "activation_checkpointing" block
-    sets them. ``scan_blocks`` (the JAX model's compile-time knob: one
-    `lax.scan` body for the stack) is accepted and stored, and does
-    nothing: eager PyTorch compiles nothing."""
+    keeps the plain PyTorch version everywhere. The remat knobs and
+    ``scan_blocks``: `LMModule`."""
 
     def __init__(self, config=None, use_kernels=True, device=None,
                  remat_blocks=False, scan_blocks=False, remat_policy=None,
                  number_checkpoints=None, **kwargs):
-        super().__init__()
         cfg = config or GPTNeoXConfig(**kwargs)
         _refuse_unported(cfg)
         device = resolve_device(device, "GPTNeoX")
-        self.config = cfg
-        self.use_kernels = use_kernels
-        self.remat_blocks = remat_blocks
-        self.scan_blocks = scan_blocks
-        self.remat_policy = remat_policy
-        self.number_checkpoints = number_checkpoints
+        super().__init__(cfg, use_kernels, remat_blocks, scan_blocks,
+                         remat_policy, number_checkpoints)
         self._init_seed = 0
         # the sparse engine: set by apply_ds_config, or built lazily for
         # attention_engine="sparse" set on the config
@@ -752,28 +865,32 @@ class GPTNeoX(nn.Module):
                             gen)
             blk.mlp = mlp
 
-    def load_jax_params(self, params):
-        """Load the JAX package's natural params pytree (numpy leaves —
-        call ``jax.device_get`` first) into this module."""
-        from .convert import state_dict_from_jax
-        self.load_state_dict(state_dict_from_jax(params))
-        return self
-
-    def params_tree(self):
-        """The parameters as the natural tree the functional forward
-        takes."""
-        return unflatten(dict(self.named_parameters()))
-
-    def _remat_knobs(self):
-        return dict(remat_blocks=self.remat_blocks,
-                    remat_policy=self.remat_policy,
-                    number_checkpoints=self.number_checkpoints)
-
     def forward(self, tokens):
         """tokens [B, S] → logits [B, S, V] (fp32)."""
         return forward(self.config, self.params_tree(), tokens,
                        use_kernels=self.use_kernels,
                        attn_fn=self._attention_fn(), **self._remat_knobs())
+
+    def _lm_forward(self, params, batch, rng=None):
+        """Shared body of `loss_fn` / `loss_and_logits`: one block-stack
+        forward → (final-norm hidden, masked labels, the MoE aux loss or
+        None)."""
+        tokens, labels, seg = self._lm_batch(batch)
+        cfg = self.config
+        hidden = forward_hidden(cfg, params, tokens,
+                                use_kernels=self.use_kernels, rng=rng,
+                                attn_fn=self._attention_fn(),
+                                segment_ids=seg, **self._remat_knobs())
+        if cfg.moe_num_experts:
+            return hidden[0], labels, hidden[1]
+        return hidden, labels, None
+
+    def _head_loss(self, params, hidden, labels, aux):
+        cfg = self.config
+        loss = lm_head_loss(params, hidden, labels)
+        if aux is None:
+            return loss
+        return loss + cfg.moe_aux_loss_coef * aux / max(cfg.num_layers, 1)
 
     def loss_fn(self, params, batch, rng=None):
         """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
@@ -785,21 +902,25 @@ class GPTNeoX(nn.Module):
         (`mask_cross_document_labels`), so packing changes the loss only
         through the attention it removes; with ``use_segment_ids`` (the
         "packing" block) a batch without segment ids raises."""
-        tokens, labels, seg = split_lm_batch(batch)
-        cfg = self.config
-        if cfg.use_segment_ids and seg is None:
-            raise ValueError(
-                "packing is enabled (use_segment_ids) but the batch has "
-                "no segment_ids: feed (tokens, labels, segment_ids) "
-                "triples (runtime.packing.PackedDataset emits them)")
-        if seg is not None:
-            labels = mask_cross_document_labels(labels, seg)
-        hidden = forward_hidden(cfg, params, tokens,
-                                use_kernels=self.use_kernels, rng=rng,
-                                attn_fn=self._attention_fn(),
-                                segment_ids=seg, **self._remat_knobs())
-        if not cfg.moe_num_experts:
-            return lm_head_loss(params, hidden, labels)
-        hidden, aux = hidden
-        return lm_head_loss(params, hidden, labels) + \
-            cfg.moe_aux_loss_coef * aux / max(cfg.num_layers, 1)
+        return self._head_loss(params, *self._lm_forward(params, batch, rng))
+
+    def loss_and_logits(self, params, batch, rng=None):
+        """(loss, [B, S, V] fp32 logits) from one forward: what the
+        engine's `eval_batch(return_logits=True)` runs."""
+        hidden, labels, aux = self._lm_forward(params, batch, rng)
+        return self._head_loss(params, hidden, labels, aux), \
+            lm_head(params, hidden)
+
+    @torch.no_grad()
+    def hidden_states(self, params, batch, rng=None):
+        """The embedding, every block's output and the final-norm output
+        of ``batch``'s tokens (the JAX model's ``collect_hidden`` forward:
+        the same blocks, without remat), for the engine's
+        activation capture."""
+        tokens, _, seg = split_lm_batch(batch)
+        hidden = []
+        forward_hidden(self.config, params, tokens,
+                       use_kernels=self.use_kernels, rng=rng,
+                       attn_fn=self._attention_fn(), segment_ids=seg,
+                       hidden=hidden)
+        return hidden

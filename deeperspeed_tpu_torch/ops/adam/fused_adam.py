@@ -1,10 +1,16 @@
-"""Adam/AdamW over the engine's flat fp32 partition.
+"""Adam/AdamW over the engine's flat partition.
 
 The port of `deeperspeed_tpu/ops/adam/fused_adam.py`. The JAX optimizer
 updates leaf by leaf and lets XLA fuse each leaf's update; eager
 PyTorch fuses nothing, so here the masters, moments and gradients are
-one flat fp32 buffer each and `update` is one launch of the flat kernel
+one flat buffer each and `update` is one launch of the flat kernel
 (`ops/hopper/adam.py`, `csrc/adam.cu`) over the whole partition.
+
+``state_dtype`` (the JAX class's extension): the moments rest in
+float32 (the default) or bfloat16, and the math runs in fp32 either way.
+The masters are fp32, or, in the engine's lean state
+(``fp16_master_weights_and_grads``), the compute-dtype parameters
+themselves.
 
 API shape follows the JAX class: hyperparameters live in
 ``param_groups[0]``, where the LR schedules write ``lr`` (and
@@ -19,11 +25,17 @@ import torch
 
 from ..hopper.adam import fused_adam_flat_
 
+# the moment storage dtypes the flat kernel is built for, by the names
+# the JSON config and the JAX class take
+_STATE_DTYPES = {"float32": torch.float32, "torch.float32": torch.float32,
+                 "bfloat16": torch.bfloat16,
+                 "torch.bfloat16": torch.bfloat16}
+
 
 class AdamState(NamedTuple):
     step: int                    # optimizer steps taken
-    exp_avg: torch.Tensor        # [n] fp32
-    exp_avg_sq: torch.Tensor     # [n] fp32
+    exp_avg: torch.Tensor        # [n] in state_dtype
+    exp_avg_sq: torch.Tensor     # [n] in state_dtype
 
 
 class FusedAdam:
@@ -36,10 +48,12 @@ class FusedAdam:
         if amsgrad:
             raise ValueError("FusedAdam does not support amsgrad "
                              "(reference parity: fused_adam.py:47)")
-        if str(state_dtype) not in ("float32", "torch.float32"):
-            raise NotImplementedError(
-                f"FusedAdam state_dtype {state_dtype!r} is not ported: the "
-                f"flat kernel keeps its moments in float32")
+        self.state_dtype = _STATE_DTYPES.get(str(state_dtype))
+        if self.state_dtype is None:
+            raise ValueError(
+                f"FusedAdam state_dtype must be one of "
+                f"{sorted(_STATE_DTYPES)}, got {state_dtype!r} (the flat "
+                f"kernel keeps its moments in float32 or bfloat16)")
         self.adam_w_mode = adam_w_mode
         self.param_groups = [{
             "lr": lr,
@@ -51,13 +65,17 @@ class FusedAdam:
         self.defaults = dict(self.param_groups[0])
 
     def init_state(self, master):
-        """Zero moments shaped like the flat fp32 ``master``."""
-        return AdamState(step=0, exp_avg=torch.zeros_like(master),
-                         exp_avg_sq=torch.zeros_like(master))
+        """Zero moments in ``state_dtype``, shaped like the flat
+        ``master``."""
+        return AdamState(
+            step=0,
+            exp_avg=torch.zeros_like(master, dtype=self.state_dtype),
+            exp_avg_sq=torch.zeros_like(master, dtype=self.state_dtype))
 
     def update(self, grads, state, master, lr=None, compute_out=None,
                use_kernel=True):
-        """One optimizer step: ``master`` (flat fp32) and the moments of
+        """One optimizer step: ``master`` (flat fp32, or the lean
+        state's compute-dtype parameters) and the moments of
         ``state`` are updated in place from the flat ``grads``; the new
         masters are also written into ``compute_out`` (the flat compute
         parameters) when given. ``use_kernel=False`` takes the plain

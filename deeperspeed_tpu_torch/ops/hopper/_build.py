@@ -78,10 +78,10 @@ SIGNATURES = {
     # the same over the forward lut, with dq in place of dk, dv
     "ds_block_sparse_bwd_dq": [_P] * 9 + [_I] + [_P] + [_I] * 4 +
                               [_L] * 9 + [_F, _I, _I, _P],
-    # p, g, m, v, p_out (bf16 or null), n, lr, beta1, beta2, eps,
-    # weight_decay, bias_c1, bias_c2, adam_w, g dtype, stream
-    "ds_adam": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _I,
-                _P],
+    # p, g, m, v, p_out (bf16 or null), n, lr, beta1, beta2, 1 - beta1,
+    # 1 - beta2, eps, weight_decay, bias_c1, bias_c2, adam_w, g, p and m
+    # dtypes, stream
+    "ds_adam": [_P, _P, _P, _P, _P, _L] + [_F] * 9 + [_I] * 4 + [_P],
     # x, its row stride, w, w read transposed (0/1), sizes, lut (int32),
     # y, R, K, N, number of weights, span, dtype, stream
     "ds_grouped_matmul": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,

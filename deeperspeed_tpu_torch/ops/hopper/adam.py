@@ -1,7 +1,7 @@
 """Flat Adam(W): the CUDA kernel and its plain version.
 
 Replaces `_adam_kernel` of `deeperspeed_tpu/ops/pallas/optimizer.py`
-(through `fused_adam_flat`): one read-and-write pass over a flat fp32
+(through `fused_adam_flat`): one read-and-write pass over a flat
 partition, the layout the training engine keeps its masters, moments and
 gradients in (`runtime/engine.py`). The kernel is `csrc/adam.cu`; its
 header says what bounds it on the H100 and what the design does about
@@ -10,9 +10,12 @@ that.
 `fused_adam_flat_` updates p, m and v in place: it launches the kernel
 on CUDA tensors and takes `adam_flat_reference` for CPU tensors, or
 where the caller asks for the plain path (``use_kernel=False``, the
-model's ``use_kernels=False``). The kernel takes p, m, v in fp32, g in
-fp32 or bf16 and an optional bf16 ``p_out`` (the compute-parameter copy
-written in the same pass); anything else raises.
+model's ``use_kernels=False``). The kernel takes p in fp32 or bf16 (as
+`fused_adam_flat` does: a bf16 p is the lean state's master, updated in
+its own dtype from the fp32 math), m and v both in fp32 or both in bf16
+(`FusedAdam`'s ``state_dtype``), g in fp32 or bf16, and, with an fp32 p
+only, an optional bf16 ``p_out`` (the compute-parameter copy written in
+the same pass); anything else raises.
 """
 
 import numpy as np
@@ -20,8 +23,27 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset (`chip_smoke.py` reads this)
+# kernel launches since the last reset (`chip_smoke.py` reads this), in
+# all and by storage variant: "fp32" (fp32 p, m, v: the classic masters)
+# or "lean" (bf16 p, bf16 m, v), else "p <dtype>, m <dtype>"
 launches = 0
+variant_launches = {}
+
+
+def _variant(p_dtype, m_dtype):
+    """The `variant_launches` key of a call on p and moments of these
+    dtypes."""
+    if p_dtype == m_dtype == torch.float32:
+        return "fp32"
+    if p_dtype == m_dtype == torch.bfloat16:
+        return "lean"
+    return f"p {str(p_dtype)[6:]}, m {str(m_dtype)[6:]}"
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    variant_launches.clear()
 
 
 def bias_corrections(beta1, beta2, step, bias_correction=True):
@@ -37,19 +59,28 @@ def bias_corrections(beta1, beta2, step, bias_correction=True):
 def adam_flat_reference(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
                         eps=1e-8, weight_decay=0.0, adam_w=True,
                         bias_correction=True):
-    """Plain PyTorch Adam(W) (a copy of the JAX `adam_flat_reference`) →
-    (new_p in p's dtype, new_m, new_v); the inputs are not changed."""
+    """Plain PyTorch Adam(W) (a copy of the JAX `adam_flat_reference`,
+    with the moments read and written in their own dtype as the JAX
+    `FusedAdam` keeps them under ``state_dtype``) → (new_p in p's dtype,
+    new_m and new_v in m's dtype); the math runs in fp32 and the inputs
+    are not changed."""
     g = g.float()
     p32 = p.float()
     if not adam_w and weight_decay != 0:
         g = g + weight_decay * p32
-    m = beta1 * m + (1 - beta1) * g
-    v = beta2 * v + (1 - beta2) * g * g
-    c1, c2 = bias_corrections(beta1, beta2, step, bias_correction)
-    update = (m / c1) / (torch.sqrt(v / c2) + eps)
+    m32 = beta1 * m.float() + (1 - beta1) * g
+    v32 = beta2 * v.float() + (1 - beta2) * g * g
+    # the corrections as 0-dim tensors on the device: PyTorch's CUDA
+    # division by a Python scalar multiplies by its reciprocal, which
+    # rounds differently from the division the kernel and JAX do
+    c1, c2 = (torch.tensor(c, dtype=torch.float32, device=p.device)
+              for c in bias_corrections(beta1, beta2, step,
+                                        bias_correction))
+    update = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
     if adam_w and weight_decay != 0:
         update = update + weight_decay * p32
-    return (p32 - lr * update).to(p.dtype), m, v
+    return ((p32 - lr * update).to(p.dtype), m32.to(m.dtype),
+            v32.to(v.dtype))
 
 
 def _check(p, g, m, v, p_out):
@@ -65,35 +96,45 @@ def _check(p, g, m, v, p_out):
         if t.device != p.device:
             raise ValueError(f"flat Adam: {name} is on {t.device}, p on "
                              f"{p.device}")
-    if m.dtype != torch.float32 or v.dtype != torch.float32:
-        raise TypeError(f"flat Adam keeps m and v in float32, got "
+    if v.dtype != m.dtype:
+        raise TypeError(f"flat Adam keeps m and v in one dtype, got "
                         f"{m.dtype}, {v.dtype}")
+
+
+def _check_kernel_dtypes(p, g, m, p_out):
+    """Raise on a dtype combination `csrc/adam.cu` is not built for."""
+    for name, t in (("p", p), ("m", m), ("g", g)):
+        if t.dtype not in _build.DTYPE_CODES:
+            raise TypeError(f"flat Adam kernel takes {name} in float32 or "
+                            f"bfloat16, got {t.dtype}")
+    if p_out is not None and (p.dtype != torch.float32 or
+                              p_out.dtype != torch.bfloat16):
+        raise TypeError(f"flat Adam kernel writes a bfloat16 p_out beside "
+                        f"float32 masters only, got p {p.dtype}, p_out "
+                        f"{p_out.dtype}")
 
 
 def adam_cuda(p, g, m, v, lr, step, *, beta1, beta2, eps, weight_decay,
               adam_w, bias_correction, p_out=None):
-    """Launch `csrc/adam.cu` on CUDA tensors: p, m, v updated in place,
-    and the new p written as bf16 into ``p_out`` when given."""
+    """Launch `csrc/adam.cu` on CUDA tensors: p, m, v updated in place
+    (each in its own dtype), and the new p written as bf16 into ``p_out``
+    when given."""
     global launches
-    if p.dtype != torch.float32:
-        raise TypeError(f"flat Adam kernel updates float32 masters, got "
-                        f"{p.dtype}")
-    if g.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"flat Adam kernel takes float32 or bfloat16 "
-                        f"grads, got {g.dtype}")
-    if p_out is not None and p_out.dtype != torch.bfloat16:
-        raise TypeError(f"flat Adam kernel writes a bfloat16 copy, got "
-                        f"p_out {p_out.dtype}")
+    _check(p, g, m, v, p_out)
+    _check_kernel_dtypes(p, g, m, p_out)
     c1, c2 = bias_corrections(beta1, beta2, step, bias_correction)
     lib = _build.load_library()
     err = lib.ds_adam(
         p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
         p_out.data_ptr() if p_out is not None else None, p.numel(),
-        float(lr), float(beta1), float(beta2), float(eps),
-        float(weight_decay), c1, c2, int(bool(adam_w)),
-        _build.DTYPE_CODES[g.dtype], _build.stream_ptr(p))
+        float(lr), float(beta1), float(beta2), 1 - beta1, 1 - beta2,
+        float(eps), float(weight_decay), c1, c2, int(bool(adam_w)),
+        _build.DTYPE_CODES[g.dtype], _build.DTYPE_CODES[p.dtype],
+        _build.DTYPE_CODES[m.dtype], _build.stream_ptr(p))
     _build.check(err, "ds_adam")
     launches += 1
+    key = _variant(p.dtype, m.dtype)
+    variant_launches[key] = variant_launches.get(key, 0) + 1
 
 
 def fused_adam_flat_(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
@@ -104,7 +145,6 @@ def fused_adam_flat_(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
     ``use_kernel=False``. ``step`` is the 1-based count of the step
     being taken; ``p_out`` (optional) receives the new p in its own
     dtype."""
-    _check(p, g, m, v, p_out)
     kw = dict(beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay,
               adam_w=adam_w, bias_correction=bias_correction)
     if use_kernel and p.device.type == "cuda":
@@ -112,6 +152,7 @@ def fused_adam_flat_(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
         return
     if use_kernel and p.device.type != "cpu":
         raise ValueError(f"no flat Adam path for device {p.device}")
+    _check(p, g, m, v, p_out)
     new_p, new_m, new_v = adam_flat_reference(p, g, m, v, lr, step, **kw)
     p.copy_(new_p)
     m.copy_(new_m)

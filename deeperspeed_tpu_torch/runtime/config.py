@@ -19,6 +19,7 @@ from .activation_checkpointing.config import (
 from .config_utils import (DeepSpeedConfigError, as_int, get_scalar_param,
                            load_config_json)
 from .precision import resolve_precision
+from .zero import constants as zc
 from .zero.config import DeepSpeedZeroConfig
 
 
@@ -155,6 +156,32 @@ class DeepSpeedConfig:
                     f"the '{key}' config block is not ported yet (it comes "
                     f"with the {slice_name} slice; see ROADMAP.md)")
 
+    @staticmethod
+    def _check_lean_state(zero_block):
+        """The JAX engine's refusals of ``fp16_master_weights_and_grads``,
+        with its messages and in its order: with a ZeRO stage (which
+        shards the fp32 master layout), then with the host-offload tier.
+        Checked before the zero block is parsed, so an offload block gets
+        this message and not its own "not ported"."""
+        if zero_block is True:
+            zero_block = {zc.ZERO_OPTIMIZATION_STAGE: 1}
+        if not isinstance(zero_block, dict):
+            return
+        stage = as_int(zero_block.get(zc.ZERO_OPTIMIZATION_STAGE,
+                                      zc.ZERO_OPTIMIZATION_STAGE_DEFAULT),
+                       zc.ZERO_OPTIMIZATION_STAGE)
+        if stage > zc.ZERO_OPTIMIZATION_DISABLED:
+            raise DeepSpeedConfigError(
+                "fp16_master_weights_and_grads with ZeRO stages is not "
+                "supported: ZeRO shards the fp32 master layout; use "
+                "stage 0, or drop the flag")
+        if zero_block.get(zc.OFFLOAD_OPTIMIZER) is not None or \
+                zero_block.get(zc.ZERO_OPTIMIZATION_CPU_OFFLOAD):
+            raise DeepSpeedConfigError(
+                "fp16_master_weights_and_grads is a device-state knob; "
+                "the host-offload tier keeps fp32 masters in DRAM by "
+                "design (drop the flag or the offload block)")
+
     def _initialize_params(self, d):
         self.train_batch_size = d.get(c.TRAIN_BATCH_SIZE,
                                       c.TRAIN_BATCH_SIZE_DEFAULT)
@@ -171,6 +198,14 @@ class DeepSpeedConfig:
             d.get(c.GRADIENT_PREDIVIDE_FACTOR,
                   c.GRADIENT_PREDIVIDE_FACTOR_DEFAULT))
 
+        # Later-DeepSpeed key (the JAX engine's lean state): no separate
+        # fp32 master copy; the compute-dtype parameters are the masters
+        # and the gradients stay in the compute dtype.
+        self.fp16_master_weights_and_grads = bool(
+            (d.get(c.FP16) or {}).get(c.FP16_MASTER_WEIGHTS_AND_GRADS,
+                                      False))
+        if self.fp16_master_weights_and_grads:
+            self._check_lean_state(d.get(zc.ZERO_OPTIMIZATION))
         self.zero_config = DeepSpeedZeroConfig.from_dict(d)
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_config.enabled
@@ -228,10 +263,6 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"fp16.{c.FP16_MIN_SCALE_PATIENCE} is not ported yet (the "
                 f"loss-scale floor watch comes with the robustness slice)")
-        if fp16.get(c.FP16_MASTER_WEIGHTS_AND_GRADS, False):
-            raise DeepSpeedConfigError(
-                f"fp16.{c.FP16_MASTER_WEIGHTS_AND_GRADS} is not ported yet: "
-                f"the port keeps fp32 masters")
 
         self.gradient_clipping = float(
             d.get(c.GRADIENT_CLIPPING, c.GRADIENT_CLIPPING_DEFAULT))
@@ -256,6 +287,12 @@ class DeepSpeedConfig:
         else:
             self.scheduler_name = c.SCHEDULER_TYPE_DEFAULT
             self.scheduler_params = None
+
+        # Fork additions: gradient storage for debugging.
+        self.store_gradients = bool(
+            d.get(c.STORE_GRADIENTS, c.STORE_GRADIENTS_DEFAULT))
+        self.store_gradients_cpu = bool(
+            d.get(c.STORE_GRADIENTS_CPU, c.STORE_GRADIENTS_CPU_DEFAULT))
 
         self.inference_params = parse_inference_block(d)
         self.sparse_attention = _parse_sparse_attention(d)

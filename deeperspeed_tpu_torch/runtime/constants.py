@@ -59,6 +59,12 @@ FP16_MIN_SCALE_PATIENCE = "min_scale_patience"
 FP16_MIN_SCALE_PATIENCE_DEFAULT = 0
 FP16_MASTER_WEIGHTS_AND_GRADS = "fp16_master_weights_and_grads"
 
+# Fork additions: gradient storage for debugging (`engine.backward`)
+STORE_GRADIENTS = "store_gradients"
+STORE_GRADIENTS_DEFAULT = False
+STORE_GRADIENTS_CPU = "store_gradients_cpu"
+STORE_GRADIENTS_CPU_DEFAULT = True
+
 GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
 PRESCALE_GRADIENTS = "prescale_gradients"

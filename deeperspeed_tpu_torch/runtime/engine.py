@@ -2,13 +2,14 @@
 
 The port of the training step of `deeperspeed_tpu/runtime/engine.py`
 (`_init_state`, `_loss_and_grads`, `_train_step_body`, `_apply_update`,
-`train_batch`, `eval_batch`): bf16, fp16 or fp32 compute with fp32
-masters, Adam(W), the LR schedules, gradient clipping and ZeRO stages
+`train_batch`, `eval_batch`, and the legacy `forward` / `backward` /
+`step` loop): bf16, fp16 or fp32 compute with fp32 masters or the lean
+state, Adam(W), the LR schedules, gradient clipping and ZeRO stages
 0-2, which on one card are the same single-rank step.
 
 State layout. The JAX engine keeps pytrees and lets XLA fuse each
-leaf's update; eager PyTorch fuses nothing, so the port keeps the fp32
-masters, both Adam moments and the fp32 gradient accumulator as one flat
+leaf's update; eager PyTorch fuses nothing, so the port keeps the
+masters, both Adam moments and the gradient accumulator as one flat
 buffer each, as the reference's ZeRO 1/2 partitions do. The model's
 parameters become views into one flat compute-dtype buffer, and their
 ``.grad`` views into one flat compute-dtype gradient buffer that
@@ -17,6 +18,16 @@ the gradient buffer is the accumulator. An optimizer step is then one
 launch of the flat Adam kernel, which also writes the compute-dtype
 copy of the new masters (the recast).
 
+The lean state (``fp16.fp16_master_weights_and_grads``, the JAX
+engine's ``keep_master`` False under a 16-bit compute dtype): the flat
+compute-dtype buffer is the master, and no fp32 copy of the model is
+made; the Adam moments rest in the optimizer's ``state_dtype``. As in
+the JAX step, one micro-batch's gradients reach the optimizer in the
+compute dtype, and several are summed in an fp32 accumulator (the JAX
+scan's fp32 carry) and divided by their count; unscaling, the
+prescale divide and clipping run on an fp32 copy. The kernel then
+updates the bf16 parameters in place from its fp32 math.
+
 Step (`train_batch`), as in the JAX engine: for each micro-batch the
 loss (times the loss scale, fp16 only) is differentiated, and the
 micro-batch gradient is added in fp32 into the accumulator; the sum is
@@ -24,7 +35,13 @@ divided by the accumulation steps; then unscale (fp16) → finite check
 (fp16) → global norm and clip → Adam on the masters → recast. On an
 fp16 overflow nothing changes but the loss scale and ``skipped_steps``.
 The LR is read before the step and the scheduler steps after each step
-taken.
+taken. The legacy loop (`forward` returns the loss with its graph,
+`backward` runs autograd into the flat gradient views, `step` applies
+the update at the accumulation boundary) runs the same micro-step and
+the same update, so it takes the same steps bit for bit. The fork's
+debugging features ride on it: `backward` feeds the gradient-noise-scale
+estimator and stores each micro-batch's gradients (``store_gradients``);
+`set_layers_to_hook` captures layer outputs on the next batch.
 
 MoE: a "moe" config block is handed to the model's `apply_ds_config`
 (as are a "sparse_attention" block, which swaps the attention core, a
@@ -43,13 +60,14 @@ Checkpoints (`save_checkpoint`, `save_checkpoint_async`,
 `load_checkpoint`; `checkpoint/`) are the JAX package's files: either
 engine resumes the other's run. The "checkpoint" config block drives
 `checkpoint_manager` (auto-saves, retention, the preemption save), which
-`train_batch` calls at the end of every step.
+`train_batch` and `step` call at the end of every step.
 
-Batches: bare tokens, a tuple of arrays (GPT-NeoX's (tokens, labels))
-or a dict (BERT's), each leaf moved to the device with its kind kept
-(integer ids as long, a float mask as it is) and handed to ``loss_fn``
-one micro-batch at a time, as the JAX engine splits its batch pytree;
-each model's ``loss_fn`` unpacks its own micro-batch.
+Batches: bare tokens, a tuple of arrays (GPT-NeoX's and GPT-2's
+(tokens, labels)) or a dict (BERT's), each leaf moved to the device
+with its kind kept (integer ids as long, a float mask as it is) and
+handed to ``loss_fn`` one micro-batch at a time, as the JAX engine
+splits its batch pytree; each model's ``loss_fn`` unpacks its own
+micro-batch.
 """
 
 import numpy as np
@@ -57,8 +75,9 @@ import torch
 
 from ..checkpoint import checkpointing
 from ..checkpoint.async_manager import AsyncCheckpointManager
+from ..models.convert import state_dict_from_jax
 from ..ops.adam.fused_adam import FusedAdam
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
 from . import constants as c
 from .config import DeepSpeedConfig
@@ -68,7 +87,7 @@ from .fp16.loss_scaler import (DynamicLossScaler, create_loss_scaler,
                                grads_finite, init_loss_scale_state,
                                update_loss_scale)
 from .lr_schedules import get_scheduler_class
-from .utils import clip_grad_norm_
+from .utils import GradientNoiseScale, clip_grad_norm_
 
 
 # the base seed of the per-micro-step generator (the JAX engine's
@@ -100,13 +119,16 @@ def _check_single_rank():
 class DeepSpeedEngine:
     """Training engine with the DeepSpeed training API on one card.
 
-    ``model`` is a `models.gpt_neox.GPTNeoX` or a `models.bert` model
-    (any `torch.nn.Module` with ``loss_fn(params, batch, rng=None)`` and
-    ``params_tree()``, and ``apply_ds_config(config)`` where the config
-    has a "moe", "sparse_attention", "packing" or
-    "activation_checkpointing" block); it trains on the device
-    its parameters are on. ``config`` (a JSON path) or ``config_params``
-    (a dict) is the DeepSpeed config.
+    ``model`` is a `models.gpt_neox.GPTNeoX`, a `models.gpt2.GPT2` or
+    a `models.bert` model (any `torch.nn.Module` with ``loss_fn(params,
+    batch, rng=None)`` and ``params_tree()``, and
+    ``apply_ds_config(config)`` where the config has a "moe",
+    "sparse_attention", "packing" or "activation_checkpointing" block);
+    it trains on the device its parameters are on. ``model_parameters``
+    (optional) is the JAX package's natural params pytree (numpy or
+    tensor leaves), loaded into the model (`convert.state_dict_from_jax`)
+    before the flat state is built. ``config`` (a JSON path) or
+    ``config_params`` (a dict) is the DeepSpeed config.
     """
 
     def __init__(self, args=None, model=None, optimizer=None,
@@ -120,11 +142,6 @@ class DeepSpeedEngine:
             raise DeepSpeedConfigError(
                 "model must be a torch.nn.Module exposing loss_fn(params, "
                 "batch) and params_tree() (models.gpt_neox.GPTNeoX)")
-        if model_parameters is not None:
-            raise DeepSpeedConfigError(
-                "model_parameters: the port trains the model's own "
-                "parameters; load weights into the model first "
-                "(GPTNeoX.init_params / load_jax_params)")
         if mpu is not None:
             raise _not_ported("a model-parallel unit (mpu)", "scale-out")
         _check_single_rank()
@@ -164,12 +181,23 @@ class DeepSpeedEngine:
             # call activation_checkpointing.checkpoint() directly
             from .activation_checkpointing import checkpointing as _ckpt
             _ckpt.configure(deepspeed_config=self._config)
+        if model_parameters is not None:
+            # the weights the JAX engine would train: loaded in place,
+            # after apply_ds_config has given the model its final shapes
+            with torch.no_grad():
+                model.load_state_dict(state_dict_from_jax(model_parameters))
         # the generator of the gate jitter and the dropout seeds, re-seeded
         # from (1234, micro_steps) before every micro-step
         self._rng = torch.Generator(device=self.device)
 
         self.optimizer = self._configure_optimizer(optimizer)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        # fp32 masters apart from the parameters in the JAX engine, so a
+        # checkpoint holds a zero file (ZeRO on, or a 16-bit compute
+        # dtype), unless the lean state makes the parameters the masters
+        self.keep_master = ((self.compute_dtype != torch.float32
+                             or self.zero_optimization())
+                            and not self._config.fp16_master_weights_and_grads)
         self._init_state()
 
         self.loss_scaler = create_loss_scaler(self._config)
@@ -185,10 +213,19 @@ class DeepSpeedEngine:
         # one process, one card: the topology a checkpoint records
         self.dp_world_size = 1
         self.mp_world_size = 1
-        # fp32 masters apart from the parameters in the JAX engine, so a
-        # checkpoint holds a zero file (ZeRO on, or a 16-bit compute dtype)
-        self.keep_master = (self.compute_dtype != torch.float32
-                            or self.zero_optimization())
+        # the legacy loop's micro-batches since the last step, and their
+        # loss sum; the last forward's loss (what backward() runs when
+        # it is given none)
+        self._accum_count = 0
+        self._accum_loss = None
+        self._cached_loss = None
+        # the fork's debugging features (backward() feeds them)
+        self.gradient_noise_scale = None
+        self._gns_warned = False
+        self.store_gradients = self._config.store_gradients
+        self.stored_gradients = None
+        self._layers_to_hook = []
+        self.hooked_activations = {}
         self.checkpoint_manager = AsyncCheckpointManager(
             self, **self._config.checkpoint_config)
         self.tput_timer = ThroughputTimer(
@@ -296,28 +333,36 @@ class DeepSpeedEngine:
         return sched
 
     def _init_state(self):
-        """Flat fp32 masters from the model's parameters; the parameters
-        become views into the flat compute-dtype buffer and their grads
-        views into the flat gradient buffer."""
+        """The flat state from the model's parameters: fp32 masters (in
+        the lean state the flat compute-dtype buffer is the master, and
+        no fp32 copy is made); the parameters become views into the flat
+        compute-dtype buffer and their grads views into the flat
+        gradient buffer. A separate fp32 accumulator exists where the
+        compute dtype is 16-bit, except in the lean state with one
+        micro-batch a step, whose gradients reach Adam as they are."""
         named = list(self.module.named_parameters())
         self.param_names = [n for n, _ in named]
         sizes = [p.numel() for _, p in named]
         self.num_params = int(sum(sizes))
         dev, cdt = self.device, self.compute_dtype
-        self._master = torch.empty(self.num_params, dtype=torch.float32,
-                                   device=dev)
         offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
         # (name, lo, hi, shape) of every leaf in the flat buffers
         self.param_slices = [(n, lo, hi, tuple(p.shape)) for (n, p), lo, hi
                              in zip(named, offsets[:-1], offsets[1:])]
+        lean = not self.keep_master and cdt != torch.float32
+        self._master = torch.empty(
+            self.num_params, dtype=cdt if lean else torch.float32,
+            device=dev)
         with torch.no_grad():
             for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
                 self._master[lo:hi].copy_(p.detach().reshape(-1))
-        self._params_flat = self._master if cdt == torch.float32 else \
-            self._master.to(cdt)
+        self._params_flat = self._master if self._master.dtype == cdt \
+            else self._master.to(cdt)
         self._grads_flat = torch.zeros(self.num_params, dtype=cdt,
                                        device=dev)
-        self._grad_acc = self._grads_flat if cdt == torch.float32 else \
+        one_micro_lean = lean and self.gradient_accumulation_steps() == 1
+        self._grad_acc = self._grads_flat \
+            if cdt == torch.float32 or one_micro_lean else \
             torch.zeros(self.num_params, dtype=torch.float32, device=dev)
         self._grad_ptrs = []
         for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
@@ -410,14 +455,17 @@ class DeepSpeedEngine:
     def _current_lr(self):
         return float(self.optimizer.param_groups[0]["lr"])
 
-    def train_batch(self, data_iter=None, batch=None):
+    def train_batch(self, data_iter=None, batch=None, layers_to_hook=None):
         """One optimizer step over ``gradient_accumulation_steps``
         micro-batches: ``batch`` = (tokens, labels) (or bare tokens, or
         a packed (tokens, labels, segment_ids) triple) shaped
-        [gas, micro, S] for GPT-NeoX, a dict or tuple of
+        [gas, micro, S] for GPT-NeoX and GPT-2, a dict or tuple of
         [gas, micro, ...] arrays for BERT, numpy or tensors; or
-        ``data_iter`` yielding one micro-batch per ``next``. Returns the
-        mean loss."""
+        ``data_iter`` yielding one micro-batch per ``next``.
+        ``layers_to_hook`` captures those layers' outputs on the first
+        micro-batch (`set_layers_to_hook`). Returns the mean loss."""
+        if layers_to_hook is not None:
+            self.set_layers_to_hook(layers_to_hook)
         gas = self.gradient_accumulation_steps()
         if batch is None:
             if data_iter is None:
@@ -431,38 +479,75 @@ class DeepSpeedEngine:
                               for i in range(len(micro[0])))
             else:
                 batch = np.stack([np.asarray(m) for m in micro])
+        self._warn_gns_not_fed("train_batch")
+        if self._accum_count:
+            raise RuntimeError(
+                f"train_batch with {self._accum_count} micro-batch(es) of "
+                f"the forward/backward/step loop not yet stepped")
         batch = self._device_batch(batch)
         tokens = self._input_ids(batch)
         if tokens.dim() != 3 or tokens.shape[0] != gas:
             raise ValueError(f"train_batch expects [gas={gas}, micro, S] "
                              f"batches, got {tuple(tokens.shape)}")
         self.tput_timer.start()
-        lr = self._current_lr()
-        scale = self.scale_state.cur_scale
-        params = self.module.params_tree()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        if self._layers_to_hook:
+            self._capture_activations(self._map(batch, lambda v: v[0]))
         for i in range(gas):
             self._rng.manual_seed(micro_step_seed(self.micro_steps))
-            loss = self.module.loss_fn(params,
+            loss = self.module.loss_fn(self.module.params_tree(),
                                        self._map(batch, lambda v: v[i]),
                                        rng=self._rng)
-            (loss * scale if self._config.loss_scaling_enabled
-             else loss).backward()
-            if not self._grads_checked:
-                self._check_grad_views()
-            if self._grad_acc is not self._grads_flat:
-                self._grad_acc.add_(self._grads_flat)
-                self._grads_flat.zero_()
-            loss_sum += loss.detach().float()
-            self.micro_steps += 1
+            self._micro_backward(loss)
+        mean_loss = self._step_update()
+        self.tput_timer.stop(tokens=tokens.numel())
+        return mean_loss
+
+    def _micro_backward(self, loss, per_micro=None):
+        """One micro-batch's backward (the loss times the loss scale,
+        fp16 only) into the flat gradient views, then into the
+        accumulator; the loss joins the step's sum. ``per_micro`` (the
+        legacy loop's debugging features) sees this micro-batch's
+        gradients alone, scaled, in the compute dtype: where the
+        gradient buffer is the accumulator, the earlier micro-batches'
+        sum is set aside while autograd runs and added back after, which
+        gives the same sum bit for bit (one IEEE add, commutative)."""
+        stash = None
+        if per_micro is not None and self._grad_acc is self._grads_flat \
+                and self._accum_count:
+            stash = self._grads_flat.clone()
+            self._grads_flat.zero_()
+        (loss * self.scale_state.cur_scale
+         if self._config.loss_scaling_enabled else loss).backward()
+        if not self._grads_checked:
+            self._check_grad_views()
+        if per_micro is not None:
+            per_micro(self._grads_flat)
+        if stash is not None:
+            self._grads_flat.add_(stash)
+        elif self._grad_acc is not self._grads_flat:
+            self._grad_acc.add_(self._grads_flat)
+            self._grads_flat.zero_()
+        loss = loss.detach().float()
+        self._accum_loss = loss if self._accum_loss is None else \
+            self._accum_loss + loss
+        self._accum_count += 1
+        self.micro_steps += 1
+
+    def _step_update(self):
+        """The step over the accumulated micro-batches: the mean
+        gradient through `_apply_update`, then the host schedules and
+        the checkpoint manager's step boundary. Returns the mean
+        loss."""
+        n = self._accum_count
+        lr = self._current_lr()
         grads = self._grad_acc
-        if gas > 1:
-            grads.div_(gas)
+        if n > 1:
+            grads.div_(n)
         overflow = self._apply_update(grads, lr)
         grads.zero_()
+        mean_loss = float(self._accum_loss / n)
+        self._accum_count, self._accum_loss = 0, None
         self._after_step(overflow)
-        mean_loss = float(loss_sum / gas)
-        self.tput_timer.stop(tokens=tokens.numel())
         # step boundary: drain finished saves, honor a preemption request,
         # fire the auto-save interval (no-ops when unconfigured)
         self.checkpoint_manager.on_step_boundary(self)
@@ -470,8 +555,15 @@ class DeepSpeedEngine:
 
     def _apply_update(self, grads, lr):
         """Unscale, check, clip, update the masters and recast; on an
-        fp16 overflow skip the update. Returns the overflow flag."""
+        fp16 overflow skip the update. Returns the overflow flag. A
+        16-bit gradient (the lean state's one micro-batch) goes to Adam
+        as it is, or through an fp32 copy where it is unscaled, divided
+        or clipped first (the JAX `_apply_update`)."""
         cfg = self._config
+        if grads.dtype != torch.float32 and (
+                cfg.loss_scaling_enabled or cfg.prescale_gradients or
+                cfg.gradient_clipping > 0):
+            grads = grads.float()
         if cfg.loss_scaling_enabled:
             grads.div_(self.scale_state.cur_scale)
         if cfg.prescale_gradients and cfg.gradient_predivide_factor != 1.0:
@@ -518,18 +610,162 @@ class DeepSpeedEngine:
                      f"{self.skipped_steps}, lr={self.get_lr()}, "
                      f"loss_scale={self.loss_scale}", ranks=[0])
 
+    # ------------------------------------------------------------------
+    # the legacy training loop (Megatron's engine(batch) /
+    # engine.backward(loss) / engine.step())
+    # ------------------------------------------------------------------
+
+    def forward(self, batch, rng=None):
+        """The loss of one micro-batch ((tokens, labels) [micro, S] for
+        GPT-NeoX and GPT-2, BERT's dict or tuple), with its autograd
+        graph: `backward` differentiates it. The gate jitter and BERT's
+        dropout draw from ``rng`` (a `torch.Generator`) or, by default,
+        from the engine's generator re-seeded from (1234,
+        ``micro_steps``), as `train_batch` seeds each micro-step. Armed
+        layers (`set_layers_to_hook`) are captured first."""
+        batch = self._device_batch(batch)
+        if self._layers_to_hook:
+            self._capture_activations(batch)
+        if rng is None:
+            rng = self._rng.manual_seed(micro_step_seed(self.micro_steps))
+        loss = self.module.loss_fn(self.module.params_tree(), batch,
+                                   rng=rng)
+        self._cached_loss = loss
+        return loss
+
+    __call__ = forward
+
+    def backward(self, loss=None, allreduce_gradients=True,
+                 release_loss=False):
+        """Differentiate ``loss`` (the last `forward`'s when None; times
+        the loss scale under fp16) into the flat gradient views and add
+        it into the accumulator. Feeds the gradient-noise-scale
+        estimator the micro-batch's unscaled gradients, and keeps them,
+        scaled, in ``stored_gradients`` when ``store_gradients`` is on
+        (on the host with ``store_gradients_cpu``). Returns ``loss``."""
+        if loss is None:
+            loss = self._cached_loss
+        if loss is None:
+            raise RuntimeError("backward() called before forward()")
+        self._cached_loss = None
+        want = self.gradient_noise_scale is not None or self.store_gradients
+        self._micro_backward(loss, self._per_micro_grads if want else None)
+        return loss
+
+    def _per_micro_grads(self, flat):
+        if self.gradient_noise_scale is not None:
+            # unscaled: the flat gradients carry the loss scale
+            scale = float(self.scale_state.cur_scale) \
+                if self._config.loss_scaling_enabled else 1.0
+            self.gradient_noise_scale.update(flat.float() / scale)
+        if self.store_gradients:
+            self.stored_gradients = self._natural_tree(
+                flat.detach().to("cpu", torch.float32, copy=True).numpy()
+                if self._config.store_gradients_cpu else flat.clone())
+
+    def _natural_tree(self, flat):
+        """One flat buffer (tensor or numpy) → the natural tree of the
+        parameters (nested dicts, lists for the layer levels), one view
+        a leaf."""
+        from ..models.gpt_neox import unflatten
+        return unflatten({name: flat[lo:hi].reshape(shape)
+                          for name, lo, hi, shape in self.param_slices})
+
+    def is_gradient_accumulation_boundary(self):
+        return self._accum_count >= self.gradient_accumulation_steps()
+
+    def step(self):
+        """At the accumulation boundary, the optimizer update over the
+        accumulated micro-batches (`train_batch`'s update); returns the
+        mean micro-batch loss. Before it, returns None."""
+        if not self.is_gradient_accumulation_boundary():
+            return None
+        return self._step_update()
+
+    # ------------------------------------------------------------------
+    # the fork's debugging features
+    # ------------------------------------------------------------------
+
+    def set_layers_to_hook(self, layers_to_hook):
+        """Capture the listed layer outputs (indices, or case-insensitive
+        regexes matched against the model's `layer_names()`) on the next
+        batch; the capture then disarms."""
+        self._layers_to_hook = list(layers_to_hook or [])
+        self.hooked_activations = {}
+
+    def get_hooked_activations(self):
+        return self.hooked_activations
+
+    def _capture_activations(self, batch):
+        """The armed layers' outputs of one micro-batch, by index into
+        `layer_names()`, from the model's `hidden_states` (one forward
+        without gradients or remat, so no layer is captured twice), with
+        the micro-step's generator seed. One shot: disarms after."""
+        hs_fn = getattr(self.module, "hidden_states", None)
+        if hs_fn is None:
+            return
+        import re
+        rng = torch.Generator(device=self.device).manual_seed(
+            micro_step_seed(self.micro_steps))
+        outs = hs_fn(self.module.params_tree(), batch, rng)
+        names = list(getattr(self.module, "layer_names", lambda: [])()) or \
+            [str(i) for i in range(len(outs))]
+        wanted = set()
+        for item in self._layers_to_hook:
+            if isinstance(item, int):
+                wanted.add(item)
+            else:
+                pat = re.compile(str(item).lower())
+                wanted.update(i for i, n in enumerate(names)
+                              if pat.search(n.lower()))
+        self.hooked_activations = {i: outs[i].detach() for i in sorted(wanted)
+                                   if 0 <= i < len(outs)}
+        self._layers_to_hook = []
+
+    def enable_gradient_noise_scale(self, n_batches=10, beta=0.99):
+        """The gradient-noise-scale estimator (`runtime.utils.
+        GradientNoiseScale`) at the micro batch size; `backward` feeds
+        it each micro-batch's gradients (`train_batch` does not, and
+        warns once)."""
+        self.gradient_noise_scale = GradientNoiseScale(
+            batch_size_small=self.train_micro_batch_size_per_gpu(),
+            n_batches=n_batches, beta=beta)
+        self._gns_warned = False
+        return self.gradient_noise_scale
+
+    def _warn_gns_not_fed(self, path):
+        if self.gradient_noise_scale is None or self._gns_warned:
+            return
+        self._gns_warned = True
+        logger.warning(
+            f"{path}: GradientNoiseScale is enabled but this fused path "
+            "keeps per-micro-batch gradients on device; the estimator "
+            "only updates under the forward()/backward()/step() loop")
+
     @torch.no_grad()
-    def eval_batch(self, batch):
-        """Loss of one batch [B, ...] (GPT-NeoX: (tokens, labels) or bare
-        tokens; BERT: a dict or tuple), without touching the training
-        state. The gate jitter and BERT's dropout, where on, draw from a
+    def eval_batch(self, batch, rng=None, return_logits=False):
+        """Loss of one batch [B, ...] (GPT-NeoX and GPT-2: (tokens,
+        labels) or bare tokens; BERT: a dict or tuple), without touching
+        the training state; with ``return_logits`` (loss, [B, S, V] fp32
+        logits) from one forward (the model's `loss_and_logits`). The
+        gate jitter and BERT's dropout, where on, draw from ``rng`` or a
         fresh generator seeded 0: the JAX engine's eval key is
         ``PRNGKey(0)``, and a BERT loss given a key runs dropout, so its
         eval loss includes dropout."""
-        rng = torch.Generator(device=self.device).manual_seed(0)
-        return float(self.module.loss_fn(self.module.params_tree(),
-                                         self._device_batch(batch),
-                                         rng=rng))
+        if rng is None:
+            rng = torch.Generator(device=self.device).manual_seed(0)
+        batch = self._device_batch(batch)
+        params = self.module.params_tree()
+        if return_logits:
+            fn = getattr(self.module, "loss_and_logits", None)
+            if fn is None:
+                raise RuntimeError(
+                    "eval_batch(return_logits=True) needs a model exposing "
+                    "loss_and_logits(params, batch, rng) (models.gpt_neox."
+                    "GPTNeoX / models.gpt2.GPT2 do)")
+            loss, logits = fn(params, batch, rng)
+            return float(loss), logits
+        return float(self.module.loss_fn(params, batch, rng=rng))
 
     # ------------------------------------------------------------------
     # checkpointing (the JAX package's layout; see checkpoint/)

@@ -272,3 +272,32 @@ def get_scheduler_class(name):
         raise ValueError(
             f"unknown lr schedule {name!r}; valid: {VALID_LR_SCHEDULES}")
     return _SCHEDULE_CLASSES[name]
+
+
+def add_tuning_arguments(parser):
+    """The reference's CLI tuning flags (the JAX package's
+    `add_tuning_arguments`: the same flags and defaults)."""
+    group = parser.add_argument_group("Convergence Tuning",
+                                      "Convergence tuning configurations")
+    group.add_argument("--lr_schedule", type=str, default=None)
+    group.add_argument("--lr_range_test_min_lr", type=float, default=0.001)
+    group.add_argument("--lr_range_test_step_rate", type=float, default=1.0)
+    group.add_argument("--lr_range_test_step_size", type=int, default=1000)
+    group.add_argument("--lr_range_test_staircase", type=bool, default=False)
+    group.add_argument("--cycle_first_step_size", type=int, default=1000)
+    group.add_argument("--cycle_first_stair_count", type=int, default=-1)
+    group.add_argument("--cycle_second_step_size", type=int, default=-1)
+    group.add_argument("--cycle_second_stair_count", type=int, default=-1)
+    group.add_argument("--decay_step_size", type=int, default=1000)
+    group.add_argument("--cycle_min_lr", type=float, default=0.01)
+    group.add_argument("--cycle_max_lr", type=float, default=0.1)
+    group.add_argument("--decay_lr_rate", type=float, default=0.0)
+    group.add_argument("--cycle_momentum", default=False,
+                       action="store_true")
+    group.add_argument("--cycle_min_mom", type=float, default=0.8)
+    group.add_argument("--cycle_max_mom", type=float, default=0.9)
+    group.add_argument("--decay_mom_rate", type=float, default=0.0)
+    group.add_argument("--warmup_min_lr", type=float, default=0.0)
+    group.add_argument("--warmup_max_lr", type=float, default=0.001)
+    group.add_argument("--warmup_num_steps", type=int, default=1000)
+    return parser

@@ -2,8 +2,10 @@
 `chip_smoke.py` imports JAX, jaxlib, the JAX package or `ml_dtypes`,
 and building a CPU serving engine (bf16/fp32 and int8), a dense, an MoE
 and a block-sparse GPT-NeoX training engine, a packed GPT-NeoX training
-engine under a remat policy and a BERT training engine, and saving and
-loading a checkpoint, leaves them out of `sys.modules`."""
+engine under a remat policy, a BERT training engine, a GPT-2 serving
+engine and a lean GPT-2 training engine through `train_batch` and the
+legacy forward / backward / step loop, and saving and loading a
+checkpoint, leaves them out of `sys.modules`."""
 
 import ast
 import os
@@ -117,6 +119,23 @@ def test_engine_on_cpu_loads_no_jax():
         "    eng.save_checkpoint_async(d)\n"
         "    eng.checkpoint_manager.wait()\n"
         "    assert eng.load_checkpoint(d)[0].endswith('global_step1')\n"
+        "from deeperspeed_tpu_torch import GPT2, GPT2Config\n"
+        "g = GPT2(GPT2Config.tiny(), device='cpu').init_params(0)\n"
+        "ge = InferenceEngine(g, config={'inference': {'enabled': True, "
+        "'page_size': 16, 'num_pages': 16, 'max_batch_size': 2}}, "
+        "device='cpu')\n"
+        "assert len(ge.generate([[1, 2, 3]], max_new_tokens=3)[0]) == 3\n"
+        "lean, *_ = initialize(model=g, config_params={\n"
+        "    'train_batch_size': 4, 'train_micro_batch_size_per_gpu': 2,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3,\n"
+        "                  'state_dtype': 'bfloat16'}},\n"
+        "    'fp16': {'enabled': True, 'type': 'bfloat16',\n"
+        "             'fp16_master_weights_and_grads': True}})\n"
+        "gt = torch.randint(0, 256, (2, 2, 16))\n"
+        "assert lean.train_batch(batch=(gt, gt)) > 0\n"
+        "for i in range(2):\n"
+        "    lean.backward(lean((gt[i], gt[i])))\n"
+        "assert lean.step() > 0 and lean.global_steps == 2\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu', 'ml_dtypes'))\n"
         "print(bad)\n")

@@ -226,7 +226,9 @@ def test_unported_mesh_and_family_raise(models):
         def named_parameters(self):
             return model.named_parameters()
 
-    with pytest.raises(DeepSpeedConfigError, match="not ported"):
+    with pytest.raises(DeepSpeedConfigError,
+                       match="serves the GPT-NeoX / GPT-2 families; got "
+                             "GPT2Like"):
         InferenceEngine(GPT2Like(), config=_config(), device="cpu")
 
 

@@ -310,7 +310,6 @@ UNPORTED = [{k: {"enabled": True}} for k in sorted(c.NOT_PORTED_BLOCKS)] + [
                            "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 1, "cpu_offload": True}},
     {"fp16": {"enabled": True, "min_scale_patience": 3}},
-    {"fp16": {"enabled": True, "fp16_master_weights_and_grads": True}},
 ]
 
 
