@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sparse-only [DIR]
     python3 chip_smoke.py --ckpt-only [DIR]
     python3 chip_smoke.py --gpt2-only
+    python3 chip_smoke.py --serve-prefix-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -200,7 +201,38 @@ Phases (any failure exits non-zero before the final line):
    request ok; tokens/s, TTFT, inter-token p50 / p99;
 23. GPT-2 parity, fp32, kernels vs plain: XL's widths at 4 layers, S
    1024, micro 2 x gas 2, 3 steps each way (losses within rtol 1e-4),
-   and the same weights served (the same greedy tokens).
+   and the same weights served (the same greedy tokens);
+24. serve-prefix-125M (bench.py's row_serve_prefix): GPT-NeoX-125M
+   (seeded bf16 weights) behind the row's "inference" block (page 64,
+   513 pages, batches of 4 / 8, budget 2048) serves the row's stream (32
+   requests, one shared 256-token prefix, every fifth prompt cold, tails
+   of 8-48 tokens, 32 new): two streams cache off (the second measured),
+   then three with the prefix cache and k = 4 speculation through the
+   row's draft (hidden 256, 4 layers, 8 heads of 32; the third
+   measured). It reports the row's hit rate, saved tokens, effective
+   prefill tokens/s both ways, acceptance, inter-token p50 both ways and
+   their ratio, compile_delta (must be 0), and the greedy agreement of
+   the two engines on the measured prompts (bf16 rounds the verify's
+   plain attention and the kernels' differently); exact launches: 12
+   flash forwards a full prefill call (all tensor-core), the cluster
+   decode 12 a cache-off decode step, and the draft's (k + 1) x 4 decode
+   calls a speculative step on the plain version (head dim 32, as the
+   JAX package dispatches); no page leaked, every registered page held
+   by the registry alone, every request ok;
+25. serve-gpt2xl-spec: the same block and stream through GPT-2 XL and a
+   GPT-2 small draft: 48 flash forwards a full prefill call, the draft's
+   (k + 1) x 12 decode calls a speculative step all on the bf16 cluster
+   kernel, the same invariants and quantities;
+26. prefix + speculative parity, fp32: (a) phase 24's pair at 125M
+   widths with a 4-layer target, (b) phase 25's pair at XL's and GPT-2
+   small's widths, 4 and 2 layers, int8 KV pages and int8 draft weights:
+   a shared-prefix stream served twice (misses, then hits) gives the
+   same greedy tokens through the kernels, through the plain path
+   (launching no kernel) and through a cache-off, non-speculative engine;
+   (c) `hot_swap_weights` on (a)'s warm engine drops the registry with
+   compile_delta 0 and then serves what a fresh engine on the new weights
+   serves, and `restore_sampler_state` makes a second engine draw a
+   temperature-0.8 speculative stream token for token.
 Phase 3 also holds the flat Adam kernel at GPT-2 XL's size in the lean
 (bf16 p, g, m, v) and the classic (fp32 p, m, v, bf16 g and copy)
 dtypes against its plain version chunk by chunk, two calls
@@ -408,6 +440,19 @@ GPT2_RUNGS = (("onchip_dots_bs8", 8, "dots", True),
 # plain version runs over (its fp32 temporaries stay near 5 GB)
 ADAM_XL_HP = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01)
 ADAM_XL_CHUNK = 1 << 27
+
+# serve-prefix-125M / serve-gpt2xl-spec: bench.py's row_serve_prefix
+# (bench.py:1529-1660): the row's "inference" block, its stream (32
+# requests, one shared 256-token prefix, every fifth prompt cold, tails
+# of 8-48 tokens, 32 new tokens) and its speculative depth
+PREFIX_BLOCK = {"enabled": True, "page_size": 64, "num_pages": 513,
+                "max_batch_size": 8, "token_budget": 2048,
+                "prefill_batch_sizes": [4], "decode_batch_sizes": [8]}
+PREFIX_REQUESTS, PREFIX_LEN, PREFIX_NEW, PREFIX_SPEC_K = 32, 256, 32, 4
+# the row's draft for GPT-NeoX-125M (bench.py:1551-1553): head dim 32,
+# which the paged-decode dispatch sends to the plain version
+PREFIX_DRAFT = dict(vocab_size=50304, hidden_size=256, num_layers=4,
+                    num_heads=8, max_seq_len=1024)
 
 
 def fail(msg):
@@ -843,15 +888,18 @@ def decode_times(da, gen, int8, serving, B=16, H=12, D=64, ps=64, NP=16,
 
 def check_decode(da, report, int8=False):
     """The bf16/fp32-pool (or, with ``int8``, the int8-pool) kernel against
-    its plain version at the serving shape and at head dims 128 and 256,
-    bf16 and fp32 q: within TOL, length-0 rows exact zeros, two calls
-    bit-identical; then `decode_times` at the serving shape over lengths
-    0-1024 and over serving lengths → (checked rows, timed rows)."""
+    its plain version at the serving shape (B 16: clusters of 4), at the
+    speculative draft's propose shape of phases 25-26 (B 8: clusters of
+    8) and at head dims 128 and 256, bf16 and fp32 q: within TOL,
+    length-0 rows exact zeros, two calls bit-identical; then
+    `decode_times` at the serving shape over lengths 0-1024 and over
+    serving lengths → (checked rows, timed rows)."""
     gen = torch.Generator(device="cuda").manual_seed(7 + int(int8))
     name = "paged_decode_int8" if int8 else "paged_decode"
     design = getattr(da, "kernel_design", lambda q, kp: "single")
     rows = []
     for shape in (dict(B=16, H=12, D=64, ps=64, NP=16, P=513),
+                  dict(B=8, H=12, D=64, ps=64, NP=16, P=513),
                   dict(B=3, H=2, D=128, ps=16, NP=8, P=40),
                   dict(B=5, H=4, D=256, ps=32, NP=4, P=30)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -870,6 +918,9 @@ def check_decode(da, report, int8=False):
             row = {"dtype": str(dtype), "max_abs_err": err, "tol": tol,
                    "design": design(q, views[0]), "two_calls_identical": same,
                    **shape}
+            if row["design"] == "cluster":
+                row["cluster"] = da.launch_plan(shape["B"], shape["H"],
+                                                shape["NP"])
             print(f"  {name} {row}", flush=True)
             if not (ok and zero_ok and same and out.dtype == dtype):
                 fail(f"{name} kernel disagrees with its plain version "
@@ -2249,7 +2300,7 @@ def check_decode_design(da, what, launches, int8):
            "paged_decode_int8": dict(da.launches_by_design_int8)}
     for name, counts in got.items():
         n = launches[name] if name in launches else 0
-        if counts != {"cluster": n, "single": 0}:
+        if counts != {"cluster": n, "single": 0, "plain": 0}:
             fail(f"{what}: {name} launches by design {counts}, want all "
                  f"{n} on the cluster kernel")
     if not got["paged_decode_int8" if int8 else "paged_decode"]["cluster"]:
@@ -4297,7 +4348,7 @@ def check_gpt2_attention(fa, da, gen, report):
     designs = {"flash": check_design(fa, "phase 3 (GPT-2 XL shapes)",
                                      {"fwd": 2, "dkv": 1, "dq": 1}),
                "decode": dict(da.launches_by_design)}
-    if designs["decode"] != {"cluster": 2, "single": 0}:
+    if designs["decode"] != {"cluster": 2, "single": 0, "plain": 0}:
         fail(f"phase 3 (GPT-2 XL shapes): paged-decode launches by design "
              f"{designs['decode']}, want both on the cluster kernel")
     for name, row in (("flash_fwd", fwd), ("flash_bwd", bwd),
@@ -4765,6 +4816,430 @@ def run_gpt2_phases(fa, bsa, da, ad, report, card, profile_step=False):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: the prefix cache and speculative decoding
+# ---------------------------------------------------------------------------
+
+def prefix_prompts(rng, shared, vocab, n_req=PREFIX_REQUESTS):
+    """row_serve_prefix's make_prompts: every fifth prompt has a cold
+    random prefix as long as the shared one, the others share it; tails of
+    8-48 tokens."""
+    out = []
+    for i in range(n_req):
+        tail = list(rng.integers(1, vocab, size=int(rng.integers(8, 48))))
+        if i % 5 == 4:
+            out.append(list(rng.integers(1, vocab, size=PREFIX_LEN)) + tail)
+        else:
+            out.append(shared + tail)
+    return out
+
+
+def program_calls(eng, duty):
+    """Calls so far of one duty's bucket programs: "prefill" (the full
+    prefill), "decode", "chunk" or "spec_propose"."""
+    return sum(n for key, n in eng.program_calls.items() if key[0] == duty)
+
+
+def prefix_stream(eng, prompts):
+    """row_serve_prefix's stream(): submit every prompt, drain, and give
+    each token a running request appended the gap since its previous step
+    (a speculative step's gap spread over the tokens it appended) → the
+    engine-stats delta, the inter-token p50 (s), the finished requests in
+    submission order and the full-prefill / decode calls it made."""
+    before = dict(eng.stats)
+    full, decode = program_calls(eng, "prefill"), program_calls(eng, "decode")
+    last, itl = {}, []
+    ids = [eng.submit(p, max_new_tokens=PREFIX_NEW) for p in prompts]
+    while eng.scheduler.has_work:
+        eng.step()
+        now = time.perf_counter()
+        for r in list(eng.scheduler.running):
+            k = len(r.generated)
+            if k and r.request_id in last and k > last[r.request_id][1]:
+                n = k - last[r.request_id][1]
+                itl.extend([(now - last[r.request_id][0]) / n] * n)
+            if k:
+                last[r.request_id] = (now, k)
+    done = {r.request_id: r for r in eng.scheduler.pop_finished()}
+    return {"delta": {k: v - before[k] for k, v in eng.stats.items()
+                      if isinstance(v, (int, float))},
+            "p50_s": float(np.percentile(np.asarray(itl), 50)),
+            "done": [done[i] for i in ids],
+            "full_prefill_calls": program_calls(eng, "prefill") - full,
+            "decode_steps": program_calls(eng, "decode") - decode}
+
+
+def check_prefix_requests(what, run, vocab):
+    if any(r.status != "ok" or len(r.generated) != PREFIX_NEW or
+           not all(0 <= t < vocab for t in r.generated)
+           for r in run["done"]):
+        fail(f"{what}: not every request finished ok with {PREFIX_NEW} "
+             f"tokens: {[(r.request_id, r.status) for r in run['done']]}")
+
+
+def check_registry(what, eng):
+    """No page leaked, and each registered page held by the registry
+    alone → the registered page count."""
+    pc = eng.prefix_cache
+    reg = pc.stats["registered_pages"] if pc is not None else 0
+    if eng.cache.num_free != eng.cache.num_pages - 1 - reg:
+        fail(f"{what}: pages leaked: {eng.cache.num_free} free of "
+             f"{eng.cache.num_pages - 1} with {reg} registered")
+    if sorted(eng.cache._refcount.values()) != [1] * reg:
+        fail(f"{what}: registered pages not held by the registry alone: "
+             f"{sorted(eng.cache._refcount.values())}")
+    return reg
+
+
+def reset_serving_counts(fa, da, qm=None):
+    torch.cuda.synchronize()
+    fa.launches = 0
+    fa.reset_design_launches()
+    da.launches = da.launches_int8 = 0
+    da.reset_launches_by_design()
+    if qm is not None:
+        qm.launches = 0
+        qm.reset_design_launches()
+
+
+def serve_prefix(fa, da, report, target, draft, key):
+    """Phase 24 (GPT-NeoX-125M and the row's 4-layer draft) and phase 25
+    (GPT-2 XL and GPT-2 small): bench.py's row_serve_prefix on the card.
+    A cache-off, non-speculative engine serves two streams (the second
+    measured), then an engine with the prefix cache and k = 4 speculation
+    serves three (the third measured). Exact launches: the flash forward
+    L a full prefill call (prefix hits take the chunk program), paged
+    decode L a decode step in the cache-off engine, and in the other the
+    draft's (k + 1) x its layers a speculative step: on the cluster kernel
+    where `paged_decode_supported` takes the draft's head dim, else the
+    plain version (counted as "plain")."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    cfg, dcfg = target.config, draft.config
+    V, L, DL, k = cfg.vocab_size, cfg.num_layers, dcfg.num_layers, \
+        PREFIX_SPEC_K
+    draft_kernel = da.paged_decode_supported(dcfg.head_dim,
+                                             PREFIX_BLOCK["page_size"])
+    rng = np.random.default_rng(0)
+    shared = list(rng.integers(1, V, size=PREFIX_LEN))
+
+    base = InferenceEngine(target, config={"inference": PREFIX_BLOCK})
+    prefix_stream(base, prefix_prompts(rng, shared, V))        # warm-up
+    reset_serving_counts(fa, da)
+    b = prefix_stream(base, prefix_prompts(rng, shared, V))
+    base_launches = {"flash_fwd": fa.launches, "paged_decode": da.launches}
+    check_prefix_requests(f"{key} (cache off)", b, V)
+    check_registry(f"{key} (cache off)", base)
+    if base_launches != {"flash_fwd": L * b["full_prefill_calls"],
+                         "paged_decode": L * b["decode_steps"]} or \
+            not b["decode_steps"]:
+        fail(f"{key} (cache off): launches {base_launches} != {L} x "
+             f"({b['full_prefill_calls']} prefill calls, "
+             f"{b['decode_steps']} decode steps)")
+    base_design = check_design(fa, f"{key} (cache off)",
+                               {"fwd": base_launches["flash_fwd"]})
+    base_decode = check_decode_design(da, f"{key} (cache off)",
+                                      base_launches, False)
+
+    block = dict(PREFIX_BLOCK, prefix_cache={"enabled": True},
+                 speculative={"enabled": True, "num_draft_tokens": k})
+    eng = InferenceEngine(target, config={"inference": block},
+                          draft_model=draft)
+    prefix_stream(eng, prefix_prompts(rng, shared, V))   # warm-up: misses
+    prefix_stream(eng, prefix_prompts(rng, shared, V))   # warm-up: hits
+    warm = eng.compile_count()
+    pcs_before = dict(eng.prefix_cache.stats)
+    prompts = prefix_prompts(rng, shared, V)
+    reset_serving_counts(fa, da)
+    m = prefix_stream(eng, prompts)
+    launches = {"flash_fwd": fa.launches, "paged_decode": da.launches,
+                "paged_decode_int8": da.launches_int8}
+    decode_design = dict(da.launches_by_design)
+    design = check_design(fa, key, {"fwd": launches["flash_fwd"]})
+    compile_delta = eng.compile_count() - warm
+    pcs = {n: v - pcs_before[n] for n, v in eng.prefix_cache.stats.items()}
+    d = m["delta"]
+    check_prefix_requests(key, m, V)
+    reg = check_registry(key, eng)
+    want_draft = (k + 1) * DL * d["spec_steps"]
+    want_design = {"cluster": want_draft if draft_kernel else 0,
+                   "single": 0, "plain": 0 if draft_kernel else want_draft}
+    if launches["flash_fwd"] != L * m["full_prefill_calls"] or \
+            not m["full_prefill_calls"] or not d["spec_steps"]:
+        fail(f"{key}: {launches['flash_fwd']} flash forward launches != "
+             f"{L} x {m['full_prefill_calls']} full prefill calls")
+    if launches["paged_decode"] != want_design["cluster"] or \
+            launches["paged_decode_int8"] or decode_design != want_design:
+        fail(f"{key}: paged decode launches {launches}, by design "
+             f"{decode_design}, want {want_design} ((k + 1) x {DL} a "
+             f"speculative step, {d['spec_steps']} steps)")
+    if compile_delta:
+        fail(f"{key}: {compile_delta} new bucket programs in the measured "
+             f"stream")
+    # bf16: the verify's plain chunk attention and a decode on the
+    # kernel round differently, so greedy agreement is reported here
+    # (phase 26 gates token identity in fp32)
+    agree = base.generate(prompts, max_new_tokens=PREFIX_NEW)
+    same = [a == r.generated for a, r in zip(agree, m["done"])]
+    tokens_same = sum(x == y for a, r in zip(agree, m["done"])
+                      for x, y in zip(a, r.generated))
+    result = {
+        "requests": PREFIX_REQUESTS, "shared_len": PREFIX_LEN,
+        "max_new_tokens": PREFIX_NEW, "spec_k": k,
+        "hit_rate": pcs["hits"] / max(pcs["lookups"], 1),
+        "lookups": pcs["lookups"], "hits": pcs["hits"],
+        "saved_tokens": pcs["saved_prefill_tokens"],
+        "registered_pages": reg,
+        "base_prefill_tok_s": b["delta"]["prefill_tokens"] /
+        b["delta"]["prefill_s"],
+        "prefill_tok_s": d["prefill_tokens"] / d["prefill_s"],
+        "spec_acceptance": d["spec_accepted"] / max(d["spec_proposed"], 1),
+        "spec_steps": d["spec_steps"], "spec_proposed": d["spec_proposed"],
+        "spec_accepted": d["spec_accepted"],
+        "base_p50_token_ms": b["p50_s"] * 1e3,
+        "p50_token_ms": m["p50_s"] * 1e3,
+        "p50_speedup": b["p50_s"] / m["p50_s"],
+        "compile_delta": compile_delta,
+        "base_prefill_s": b["delta"]["prefill_s"],
+        "base_decode_s": b["delta"]["decode_s"],
+        "prefill_s": d["prefill_s"], "decode_s": d["decode_s"],
+        "spec_step_ms": d["decode_s"] / d["spec_steps"] * 1e3,
+        "base_decode_step_ms": b["delta"]["decode_s"] / b["decode_steps"] *
+        1e3,
+        "full_prefill_calls": m["full_prefill_calls"],
+        "chunk_calls": {"/".join(map(str, key_)): n for key_, n in
+                        eng.program_calls.items() if key_[0] == "chunk"},
+        "base_full_prefill_calls": b["full_prefill_calls"],
+        "base_decode_steps": b["decode_steps"],
+        "launches": launches, "design_launches": design,
+        "decode_design_launches": decode_design,
+        "base_launches": base_launches, "base_design_launches": base_design,
+        "base_decode_design_launches": base_decode["paged_decode"],
+        "bf16_agreement": {"requests_identical": sum(same),
+                           "tokens_equal": tokens_same,
+                           "tokens": sum(len(r.generated)
+                                         for r in m["done"])},
+        "dtypes": eng.dtypes,
+    }
+    report[key] = result
+    del eng, base
+    torch.cuda.empty_cache()
+    return result
+
+
+def print_prefix(r, card, key):
+    print(f"  {key}: hit rate {r['hit_rate']:.4f} ({r['hits']}/"
+          f"{r['lookups']}), saved {r['saved_tokens']} prefill tokens, "
+          f"effective prefill {r['prefill_tok_s']:.1f} tokens/s (cache off "
+          f"{r['base_prefill_tok_s']:.1f}), acceptance "
+          f"{r['spec_acceptance']:.4f} ({r['spec_accepted']}/"
+          f"{r['spec_proposed']}), inter-token p50 {r['p50_token_ms']:.2f} "
+          f"ms (cache off {r['base_p50_token_ms']:.2f}, speed-up "
+          f"{r['p50_speedup']:.3f}), a speculative step "
+          f"{r['spec_step_ms']:.2f} ms (a decode step "
+          f"{r['base_decode_step_ms']:.2f}), compile_delta "
+          f"{r['compile_delta']}, launches {r['launches']} "
+          f"{r['decode_design_launches']} (cache off {r['base_launches']}), "
+          f"bf16 agreement {r['bf16_agreement']} on {card}", flush=True)
+
+
+def prefix_parity_case(fa, da, qm, what, target, draft, extra,
+                       draft_quant=None):
+    """One pair of phase 26: a shared-prefix stream served twice (misses,
+    then hits) by the prefix + speculative engine through the kernels and
+    through the plain path (``inference.kernel: "xla"``, ``use_kernels``
+    off), and by a cache-off, non-speculative engine through the kernels;
+    fp32, so greedy tokens must be identical. The plain path must launch
+    no kernel."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    V = target.config.vocab_size
+    rng = np.random.default_rng(5)
+    shared = list(rng.integers(1, V, size=PREFIX_LEN))
+    prompts = prefix_prompts(rng, shared, V, n_req=10)
+    spec = {"enabled": True, "num_draft_tokens": PREFIX_SPEC_K}
+    if draft_quant:
+        spec["draft_weight_quant"] = draft_quant
+    both = dict(PREFIX_BLOCK, **extra, prefix_cache={"enabled": True},
+                speculative=spec)
+    runs, counts = {}, {}
+    for path in ("kernels", "plain"):
+        target.use_kernels = path == "kernels"
+        block = dict(both, kernel="auto" if path == "kernels" else "xla")
+        reset_serving_counts(fa, da, qm)
+        eng = InferenceEngine(target, config={"inference": block},
+                              draft_model=draft)
+        runs[path] = [eng.generate(prompts, 16) for _ in range(2)]
+        torch.cuda.synchronize()
+        counts[path] = {"flash_fwd": fa.launches,
+                        "paged_decode": da.launches,
+                        "paged_decode_int8": da.launches_int8,
+                        "paged_decode_plain": da.launches_by_design["plain"]
+                        + da.launches_by_design_int8["plain"],
+                        "quant_matmul": qm.launches}
+        check_registry(f"{what} ({path})", eng)
+        counts[path]["hits"] = eng.prefix_cache.stats["hits"]
+        counts[path]["spec_steps"] = eng.stats["spec_steps"]
+        del eng
+    target.use_kernels = True
+    base = InferenceEngine(target, config={"inference": dict(
+        PREFIX_BLOCK, **extra)})
+    runs["cache_off"] = [base.generate(prompts, 16) for _ in range(2)]
+    del base
+    torch.cuda.empty_cache()
+    same = [[a == b == c for a, b, c in zip(*(runs[p][i] for p in runs))]
+            for i in range(2)]
+    print(f"  {what}: {sum(map(sum, same))}/{2 * len(prompts)} requests "
+          f"token-identical (kernels, plain, cache off); launches {counts}",
+          flush=True)
+    if not all(map(all, same)):
+        fail(f"{what}: greedy tokens differ between the kernel path, the "
+             f"plain path and the cache-off engine: {runs}")
+    if any(v for n, v in counts["plain"].items()
+           if n not in ("hits", "spec_steps")) or \
+            not counts["kernels"]["flash_fwd"] or \
+            not counts["kernels"]["hits"]:
+        fail(f"{what}: launches {counts}: the plain path must launch no "
+             f"kernel, the kernel path the flash forward on its misses")
+    return {"identical": same, "launches": counts,
+            "prompts": len(prompts), "extra": extra,
+            "draft_weight_quant": draft_quant}
+
+
+def prefix_lifecycle(target, draft, new_target):
+    """Phase 26(c) on (a)'s pair: `hot_swap_weights` on a warm prefix +
+    speculative engine drops the registry with no new bucket program and
+    then serves what a fresh engine on the new weights serves; a
+    temperature-0.8 speculative stream drawn by one engine is drawn again,
+    token for token, by a second one after `restore_sampler_state`."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    V = target.config.vocab_size
+    rng = np.random.default_rng(6)
+    shared = list(rng.integers(1, V, size=PREFIX_LEN))
+    prompts = prefix_prompts(rng, shared, V, n_req=10)
+    spec = {"enabled": True, "num_draft_tokens": PREFIX_SPEC_K}
+    block = dict(PREFIX_BLOCK, prefix_cache={"enabled": True},
+                 speculative=spec)
+    eng = InferenceEngine(target, config={"inference": block},
+                          draft_model=draft)
+    for _ in range(2):
+        eng.generate(prompts, 8)
+    registered = eng.prefix_cache.stats["registered_pages"]
+    new = dict(new_target.named_parameters())
+    swap = eng.hot_swap_weights(new)
+    after = eng.prefix_cache.stats["registered_pages"]
+    if not registered or after or swap["compile_delta"]:
+        fail(f"phase 26(c): hot swap left {after} of {registered} "
+             f"registered pages, compile_delta {swap['compile_delta']}")
+    got = eng.generate(prompts, 8)
+    check_registry("phase 26(c)", eng)
+    want = InferenceEngine(target, config={"inference": PREFIX_BLOCK},
+                           params=new).generate(prompts, 8)
+    swapped_same = [a == b for a, b in zip(got, want)]
+    if not all(swapped_same):
+        fail(f"phase 26(c): after the swap {got} != a fresh engine's {want}")
+    del eng
+    sampled = {"inference": dict(PREFIX_BLOCK, temperature=0.8,
+                                 speculative=spec)}
+    first = InferenceEngine(target, config=sampled, draft_model=draft)
+    first.generate(prompts[:5], 8)
+    snap = first.sampler_state()
+    drawn = first.generate(prompts[5:], 8)
+    second = InferenceEngine(target, config=sampled, draft_model=draft)
+    second.restore_sampler_state(snap)
+    again = second.generate(prompts[5:], 8)
+    if again != drawn:
+        fail(f"phase 26(c): the restored sampler drew {again}, the first "
+             f"engine {drawn}")
+    del first, second
+    torch.cuda.empty_cache()
+    print(f"  phase 26(c): hot swap {swap['swap_ms']:.1f} ms dropped "
+          f"{registered} registered pages, compile_delta "
+          f"{swap['compile_delta']}, then {sum(swapped_same)}/"
+          f"{len(prompts)} requests as a fresh engine's; restored sampler "
+          f"{len(drawn)}/{len(drawn)} temperature-0.8 requests identical "
+          f"(steps {snap['steps']})", flush=True)
+    return {"swap_ms": swap["swap_ms"], "compile_delta":
+            swap["compile_delta"], "registered_before": registered,
+            "registered_after": after, "after_swap_identical": swapped_same,
+            "sampler_steps": snap["steps"], "restored_identical": True}
+
+
+def prefix_parity(fa, da, qm, report):
+    """Phase 26: fp32, kernels vs plain: (a) phase 24's pair at 125M
+    widths, the target at 4 layers; (b) phase 25's pair at GPT-2 XL's and
+    GPT-2 small's widths, 4 and 2 layers, int8 KV pages and int8 draft
+    weights; (c) the weight swap and the sampler snapshot on (a)'s pair."""
+    from deeperspeed_tpu_torch import (GPT2, GPT2Config, GPTNeoX,
+                                       GPTNeoXConfig)
+    neox_cfg = GPTNeoXConfig(**dict(NEOX_125M, num_layers=4))
+    target = GPTNeoX(neox_cfg, device="cuda").init_params(11)
+    draft = GPTNeoX(GPTNeoXConfig(**PREFIX_DRAFT),
+                    device="cuda").init_params(12)
+    out = {"a": prefix_parity_case(fa, da, qm, "phase 26(a)", target, draft,
+                                   {})}
+    new_target = GPTNeoX(neox_cfg, device="cuda").init_params(21)
+    out["c"] = prefix_lifecycle(target, draft, new_target)
+    del target, draft, new_target
+    xl = GPT2(dataclasses.replace(GPT2Config.megatron_1_5b(), num_layers=4),
+              device="cuda").init_params(13)
+    small = GPT2(dataclasses.replace(GPT2Config.small(), num_layers=2),
+                 device="cuda").init_params(14)
+    out["b"] = prefix_parity_case(fa, da, qm, "phase 26(b)", xl, small,
+                                  {"kv_cache_dtype": "int8"}, "int8")
+    k = out["b"]["launches"]["kernels"]
+    if not k["paged_decode_int8"] or not k["quant_matmul"]:
+        fail(f"phase 26(b): the kernel path launched {k}: the int8 decode "
+             f"and the int8 matmul must run")
+    del xl, small
+    torch.cuda.empty_cache()
+    report["prefix_parity"] = out
+    return out
+
+
+def run_prefix_phases(fa, da, qm, report, card):
+    from deeperspeed_tpu_torch import GPT2, GPT2Config, GPTNeoX, \
+        GPTNeoXConfig
+    print("serving with the prefix cache and speculation serve-prefix-125M "
+          "(bf16, row_serve_prefix):", flush=True)
+    target = build_model(torch.bfloat16)
+    draft = GPTNeoX(GPTNeoXConfig(param_dtype=torch.bfloat16,
+                                  **PREFIX_DRAFT), device="cuda") \
+        .init_params(3)
+    sp = serve_prefix(fa, da, report, target, draft, "serve_prefix")
+    print_prefix(sp, card, "serve-prefix-125M")
+    del target, draft
+    print("serving GPT-2 XL with a GPT-2 small draft serve-gpt2xl-spec "
+          "(bf16):", flush=True)
+    target = GPT2(GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16),
+                  device="cuda").init_params(6)
+    draft = GPT2(GPT2Config.small(param_dtype=torch.bfloat16),
+                 device="cuda").init_params(8)
+    sx = serve_prefix(fa, da, report, target, draft, "serve_gpt2xl_spec")
+    print_prefix(sx, card, "serve-gpt2xl-spec")
+    del target, draft
+    torch.cuda.empty_cache()
+    print("prefix + speculative parity (fp32, kernels vs plain vs cache "
+          "off):", flush=True)
+    pp = prefix_parity(fa, da, qm, report)
+    return sp, sx, pp
+
+
+def serve_prefix_only(card):
+    """Phases 24-26 alone."""
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s", flush=True)
+    report = {"card": card}
+    run_prefix_phases(fa, da, qm, report, card)
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_prefix.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4785,6 +5260,9 @@ def main():
     ap.add_argument("--gpt2-only", action="store_true",
                     help="run only phase 3's flat Adam at GPT-2 XL's size "
                          "and phases 20-23 (the GPT-2 family)")
+    ap.add_argument("--serve-prefix-only", action="store_true",
+                    help="run only phases 24-26 (the prefix cache and "
+                         "speculative decoding)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4805,6 +5283,8 @@ def main():
         return ckpt_only(args.ckpt_only, card)
     if args.gpt2_only:
         return gpt2_only(card, args.profile)
+    if args.serve_prefix_only:
+        return serve_prefix_only(card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -4976,6 +5456,7 @@ def main():
     bert_packed_parity(fa, bsa, report)
     tg, lg, sg, _ = run_gpt2_phases(fa, bsa, da, ad, report, card,
                                     args.profile)
+    sp, sx, pp = run_prefix_phases(fa, da, qm, report, card)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -5025,7 +5506,9 @@ def main():
          tr["launches"]["flash_fwd"] + tm["launches"]["flash_fwd"] +
          tc["launches"]["flash_fwd"] + tp["launches"]["flash_fwd"] +
          tg["launches"]["flash_fwd"] + lg["launches"]["flash_fwd"] +
-         sg["launches"]["flash_fwd"],
+         sg["launches"]["flash_fwd"] + sum(
+             r[n]["flash_fwd"] for r in (sp, sx)
+             for n in ("base_launches", "launches")),
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "train_moe": tm["launches"]["flash_fwd"],
@@ -5034,7 +5517,14 @@ def main():
                               "train_gpt2xl": tg["launches"]["flash_fwd"],
                               "train_gpt2xl_legacy": lg["launches"][
                                   "flash_fwd"],
-                              "serve_gpt2xl": sg["launches"]["flash_fwd"]},
+                              "serve_gpt2xl": sg["launches"]["flash_fwd"],
+                              "serve_prefix": sp["launches"]["flash_fwd"],
+                              "serve_prefix_cache_off": sp["base_launches"][
+                                  "flash_fwd"],
+                              "serve_gpt2xl_spec": sx["launches"][
+                                  "flash_fwd"],
+                              "serve_gpt2xl_spec_cache_off": sx[
+                                  "base_launches"]["flash_fwd"]},
          "design": "bf16 at D 64/128: tensor cores (mma.sync, "
                    "csrc/attention_mma.cuh); fp32, D 256: FMA tile steps",
          "design_launches_by_path": {
@@ -5061,13 +5551,25 @@ def main():
          "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
          "replaces": f"{pallas}decode_attention.py:84",
          "launches": sv["launches"]["paged_decode"] +
-         sg["launches"]["paged_decode"],
+         sg["launches"]["paged_decode"] + sum(
+             r[n]["paged_decode"] for r in (sp, sx)
+             for n in ("base_launches", "launches")),
          "launches_by_path": {"serve": sv["launches"]["paged_decode"],
                               "serve_gpt2xl": sg["launches"][
-                                  "paged_decode"]},
+                                  "paged_decode"],
+                              "serve_prefix": sp["launches"][
+                                  "paged_decode"],
+                              "serve_prefix_cache_off": sp[
+                                  "base_launches"]["paged_decode"],
+                              "serve_gpt2xl_spec": sx["launches"][
+                                  "paged_decode"],
+                              "serve_gpt2xl_spec_cache_off": sx[
+                                  "base_launches"]["paged_decode"]},
          "design": DECODE_DESIGN,
          "design_launches": sv["decode_design_launches"],
          "design_launches_gpt2xl": sg["decode_design_launches"],
+         "design_launches_serve_prefix": sp["decode_design_launches"],
+         "design_launches_gpt2xl_spec": sx["decode_design_launches"],
          "max_abs_err": de["max_abs_err"], "ms": de["ms"],
          "plain_ms": de["plain_ms"], "bound_ms": de["bound_ms"],
          "bound_by": de["bound_by"], "library_ms": de["library_ms"],
@@ -5157,6 +5659,8 @@ def main():
                          for r in sq["rungs"].values()),
          "launches_by_rung": {t: r["launches"]["quant_matmul"]
                               for t, r in sq["rungs"].items()},
+         "parity_launches_int8_draft": pp["b"]["launches"]["kernels"][
+             "quant_matmul"],
          "design": "bf16: wgmma fed by TMA through an mbarrier ring, the "
                    "int8 tile widened to bf16 in shared memory, K split "
                    "over a cluster (csrc/hopper_gemm.cuh); fp32: FMA tiles",
@@ -5182,6 +5686,8 @@ def main():
                      f"(_decode_kernel_quant)",
          "launches": sq["rungs"]["int8w_int8kv"]["launches"][
              "paged_decode_int8"],
+         "parity_launches_int8_prefix_spec": pp["b"]["launches"][
+             "kernels"]["paged_decode_int8"],
          "design": DECODE_DESIGN,
          "design_launches": sq["rungs"]["int8w_int8kv"][
              "decode_design_launches"]["paged_decode_int8"],

@@ -561,7 +561,7 @@ def _check_decode(gen, int8):
     da.reset_launches_by_design()
     counts = da.launches_by_design_int8 if int8 else da.launches_by_design
     q_dtypes = (torch.bfloat16, torch.float32)
-    calls = {"cluster": 0, "single": 0}
+    calls = dict.fromkeys(da.DESIGNS, 0)
     for D in (64, 128):
         for ps, NP, lengths in DECODE_CASES:
             for q_dtype in q_dtypes:

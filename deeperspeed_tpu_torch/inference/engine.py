@@ -18,7 +18,8 @@ Execution model:
 - **Fixed shapes.** The scheduler only emits the configured bucket
   shapes (prefill per (batch, length) bucket, decode per batch bucket),
   as in the JAX package; PyTorch runs eagerly, so a bucket costs no
-  compile here.
+  compile here. `compile_count()` counts the distinct bucket programs
+  that have run, so a warm stream adds none, as in the JAX package.
 - **State.** The page pools are updated in place; weights and the
   rotary cache are read-only.
 - **int8 serving.** ``quantization.weights: "int8"`` rests the block
@@ -29,16 +30,37 @@ Execution model:
   still runs on the fresh K/V, and decode runs the int8 paged-decode
   kernel. ``inference.kernel`` switches both kernels with the decode
   kernel: ``"xla"`` takes every plain version.
+- **Prefix cache** (``inference.prefix_cache``). A `PrefixCache` over
+  the allocator registers every prefilled prompt's full pages. A request
+  whose prompt starts with a registered chain shares those pages and
+  prefills only its suffix through the chunk program (`_chunk`): the
+  window at its absolute positions stores its K/V into the request's
+  own pages, then attends over the whole page table in plain PyTorch,
+  the JAX package's XLA code. A prefix-hit batch never takes the
+  whole-page scatter of `_prefill`, which would overwrite shared pages.
+- **Speculative decoding** (``inference.speculative`` with
+  ``draft_model=``). The draft keeps shadow pools at the target's page
+  ids. Every prefill also writes the draft's K/V (the chunk program's
+  draft duty); each decode step the draft proposes k tokens in k + 1
+  paged decode steps (`_propose`), the target verifies the window in one
+  chunk call, and acceptance appends 1 to k + 1 tokens a row. Greedy
+  acceptance is token-identical to plain decode; sampled acceptance is
+  rejection sampling on a numpy generator of its own.
 
 Sampling is deterministic: temperature 0 (default) is argmax;
-temperature > 0 draws from the softmax with the engine's own
-`torch.Generator`, seeded from the config seed.
+temperature > 0 draws from the softmax with the engine's
+`torch.Generator`, re-seeded from (config seed, program count) before
+each sampling program as the JAX package folds its step counter into
+its key (`sampler_state` / `restore_sampler_state` carry the count and
+the speculative generator's state). The draws are the port's own, not
+the JAX package's.
 
 Not ported yet (each raises at construction, and ROADMAP.md lists it):
-the prefix cache, speculative decoding, disaggregated roles and the
-router, admission control, serving fault injection, the hang watchdog,
-telemetry spans and a model-parallel mesh. A prefill or decode exception propagates:
-the quarantine/retry layer comes with the robustness slice.
+admission control, serving fault injection and the hang watchdog (the
+robustness slice, which also brings the quarantine/retry layer: a
+prefill or decode exception propagates), disaggregated roles, the router
+and a model-parallel mesh (scale-out), and telemetry spans
+(observability).
 """
 
 import time
@@ -49,15 +71,16 @@ import torch
 from ..models import gpt2 as gpt2_mod
 from ..models import gpt_neox as neox
 from ..module_inject.replace_module import prepare_inference_params
-from ..ops.hopper.decode_attention import paged_decode_attention
+from ..ops.hopper.decode_attention import (paged_attention_reference,
+                                           paged_decode_attention)
 from ..runtime.config import (parse_inference_block,
                               parse_quantization_block)
 from ..runtime.config_utils import DeepSpeedConfigError, load_config_json
 from ..runtime.precision import resolve_kv_cache_dtype
 from ..utils.device import resolve_device
 from .admission import validate_priority
-from .kv_cache import (PagedKVCache, QuantizedPages, pages_for_tokens,
-                       quantize_kv)
+from .kv_cache import (PagedKVCache, PrefixCache, QuantizedPages,
+                       pages_for_tokens, quantize_kv)
 from .metrics import ServeRequestMetrics
 from .scheduler import RUNNING, ContinuousBatchingScheduler, Request
 
@@ -76,6 +99,35 @@ def _not_ported(what, slice_name):
     return DeepSpeedConfigError(
         f"{what} is not ported to deeperspeed_tpu_torch yet ({slice_name} "
         f"slice; see ROADMAP.md)")
+
+
+def sampling_seed(seed, steps):
+    """The generator seed of sampling program ``steps``: (seed, steps)
+    packed into one 64-bit seed, the port's `jax.random.fold_in`."""
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(steps) & 0xFFFFFFFF)
+
+
+def _store(pool, page_idx, slot, vec):
+    """K or V rows ``vec`` [..., H, D] into their (page, slot) cells
+    (``page_idx`` / ``slot`` of vec's leading shape); int8 pools quantize
+    each (head, token) vector with the same `quantize_kv` as every other
+    write path, so identical tokens give identical page bytes."""
+    if isinstance(pool, QuantizedPages):
+        q8, sc = quantize_kv(vec)
+        pool.data[page_idx, :, slot] = q8
+        pool.scale[page_idx, :, slot] = sc.to(pool.scale.dtype)
+    else:
+        pool[page_idx, :, slot] = vec.to(pool.dtype)
+
+
+def _pool_args(k_pool, v_pool):
+    """(k, v, scale kwargs) of one layer's pools for the paged attention:
+    int8 pools arrive as `QuantizedPages` and hand on their scale
+    pools."""
+    if isinstance(k_pool, QuantizedPages):
+        return k_pool.data, v_pool.data, {"k_scales": k_pool.scale,
+                                          "v_scales": v_pool.scale}
+    return k_pool, v_pool, {}
 
 
 class _Family:
@@ -104,8 +156,8 @@ class _Family:
 
     def embed(self, params, tokens, positions):
         """tokens [...] at their absolute ``positions`` (broadcastable
-        to tokens: [1, S] in a prefill, [B] in a decode step) → [..., H];
-        GPT-2 adds its ``wpe`` rows there."""
+        to tokens: [1, S] in a prefill, [B] in a decode step, [B, S] in
+        a chunk window) → [..., H]; GPT-2 adds its ``wpe`` rows there."""
         x = params["embed"]["wte"][tokens]
         if self.kind == "gpt2":
             x = x + params["embed"]["wpe"][positions]
@@ -119,9 +171,27 @@ class _Family:
         return (self._cos[positions][:, None, :],
                 self._sin[positions][:, None, :], self.rot_dim)
 
-    def head(self, params, h):
-        """Final-norm hidden [B, H] → logits [B, V] (fp32)."""
-        return neox.lm_head(params, h)
+    def cos_sin_at(self, positions):
+        """Per-token rotary rows at `positions` [B, S] → ([B, S, rot],
+        ...): a chunk window starting mid-sequence."""
+        return self._cos[positions], self._sin[positions], self.rot_dim
+
+    def set_head(self, params):
+        """Keep the LM head's weight of ``params`` (``embed_out``, else
+        the tied ``wte``) widened to fp32, once a set of weights: it is
+        read-only, and `head` reads it every program."""
+        self._head_w = params.get("embed_out",
+                                  params["embed"])["wte"].float()
+
+    def head(self, h):
+        """Final-norm hidden [..., H] → logits [..., V] (fp32): one row
+        a sequence, or every window position (the speculative verify).
+        The products of h and the head weight (both in the compute dtype,
+        so exact in fp32) are summed in fp32 and never rounded to the
+        compute dtype (the JAX head's ``preferred_element_type=float32``):
+        bf16 logits would tie in the argmax where the JAX package's do
+        not."""
+        return h.float() @ self._head_w.t()
 
 
 class InferenceEngine:
@@ -131,12 +201,15 @@ class InferenceEngine:
     ``config`` a dict or JSON
     path holding the ``"inference"`` block; ``params`` an optional
     ``{dotted name: tensor}`` state dict (else the model's own
-    parameters). ``device`` defaults to ``"cuda"`` and raises when CUDA
-    is absent; the CPU must be asked for (``device="cpu"``).
+    parameters). ``draft_model`` (GPT-NeoX or GPT-2, the target's
+    vocabulary and at least its window) and its optional
+    ``draft_params`` serve ``inference.speculative``. ``device``
+    defaults to ``"cuda"`` and raises when CUDA is absent; the CPU must
+    be asked for (``device="cpu"``).
     """
 
     def __init__(self, model, config=None, params=None, device=None,
-                 mesh=None):
+                 mesh=None, draft_model=None, draft_params=None):
         self.model = model
         cfg = model.config
         self.device = resolve_device(device, "InferenceEngine")
@@ -219,26 +292,38 @@ class InferenceEngine:
         self.kv_quant = self.kv_cache_dtype == torch.int8
         # int8 block matmul weights at rest (the "quantization" block's
         # weights choice); inference.kernel reaches their matmuls as the
-        # backend `_prefill` / `_decode` hand to the block functions
+        # backend the programs hand to the block functions
         self.weight_quant = (quantization or {}).get("weights")
-        self.params = neox.unflatten(prepare_inference_params(
-            params, self.compute_dtype, weight_quant=self.weight_quant,
-            device=self.device))
+        # the natural names a checkpoint load or a weight swap must carry
+        self._natural_names = list(params)
+        self.prefix_cache = None
+        self.family = _Family(model, self.max_seq_len, self.device)
+        self._set_params(self._prepare(params, self.weight_quant))
 
         # -- cache / scheduler ---------------------------------------------
-        self.family = _Family(model, self.max_seq_len, self.device)
         self.cache = PagedKVCache(
             num_layers=cfg.num_layers, num_pages=ip["num_pages"],
             num_heads=cfg.num_heads, page_size=self.page_size,
             head_dim=cfg.head_dim, dtype=self.kv_cache_dtype,
             device=self.device)
+        # -- prefix registry + speculative decoding (both off without
+        #    their config sub-blocks: the plain serving loop) ------------
+        if ip["prefix_cache"] is not None:
+            self.prefix_cache = PrefixCache(
+                self.cache, max_pages=ip["prefix_cache"]["max_pages"])
+        self.spec_k = 0
+        self.draft_model = None
+        self.draft_cache = None
+        if ip["speculative"] is not None:
+            self._init_draft(ip, draft_model, draft_params)
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, max_seq_len=self.max_seq_len,
             token_budget=ip["token_budget"],
             max_batch_size=self.max_batch_size,
             prefill_lengths=self.prefill_lengths,
             prefill_batch_sizes=self.prefill_batch_sizes,
-            decode_batch_sizes=self.decode_batch_sizes)
+            decode_batch_sizes=self.decode_batch_sizes,
+            prefix_cache=self.prefix_cache, spec_tokens=self.spec_k)
         self.n_pages_max = pages_for_tokens(self.max_seq_len,
                                             self.page_size)
         self.dtypes = {"weight": self.weight_quant or str(self.compute_dtype),
@@ -248,6 +333,9 @@ class InferenceEngine:
         self.default_priority = ip["default_priority"]
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.seed)
+        self._steps = 0
+        # calls of each bucket program, by (duty, shape) key
+        self.program_calls = {}
         self.stats = {"steps": 0, "prefill_requests": 0,
                       "prefill_tokens": 0, "decode_tokens": 0,
                       "evictions": 0, "finished": 0,
@@ -255,22 +343,69 @@ class InferenceEngine:
                       "decode_s": 0.0, "admission_wait_s": 0.0,
                       "queue_depth": 0.0, "page_pool_util": 0.0,
                       "requests_ok": 0, "requests_deadline_exceeded": 0,
-                      "requests_failed": 0}
+                      "requests_failed": 0,
+                      # speculative decoding: proposed / accepted draft
+                      # tokens and verify steps (0 with speculation off)
+                      "spec_steps": 0, "spec_proposed": 0,
+                      "spec_accepted": 0}
         self.request_metrics = ServeRequestMetrics()
+
+    def _init_draft(self, ip, draft_model, draft_params):
+        """The draft model of ``inference.speculative``: the JAX engine's
+        checks, its params prepared at the target's compute dtype (int8
+        block weights under ``draft_weight_quant``), and its shadow pools
+        at the target's num_pages / page_size, so that one page id
+        addresses a sequence's K/V in both models and no second
+        allocator exists."""
+        sp = ip["speculative"]
+        cfg = self.model.config
+        if draft_model is None:
+            raise DeepSpeedConfigError(
+                "inference.speculative is enabled but no draft_model "
+                "was passed to InferenceEngine (the draft proposes "
+                "the tokens the target verifies)")
+        dcfg = draft_model.config
+        if getattr(dcfg, "moe_num_experts", 0):
+            raise DeepSpeedConfigError(
+                "an MoE draft model is not supported (the decode "
+                "block would silently drop the expert routing)")
+        if dcfg.vocab_size != cfg.vocab_size:
+            raise DeepSpeedConfigError(
+                f"draft vocab_size {dcfg.vocab_size} != target "
+                f"vocab_size {cfg.vocab_size}: draft proposals would "
+                f"index a different token space")
+        if dcfg.max_seq_len < self.max_seq_len:
+            raise DeepSpeedConfigError(
+                f"draft max_seq_len {dcfg.max_seq_len} is smaller "
+                f"than the serving window {self.max_seq_len}: the "
+                f"draft could not reach every decode position")
+        self.spec_k = sp["num_draft_tokens"]
+        self.draft_model = draft_model
+        if draft_params is None:
+            draft_params = dict(draft_model.named_parameters())
+        self.draft_params = neox.unflatten(
+            self._prepare(draft_params, sp["draft_weight_quant"]))
+        self.draft_family = _Family(draft_model, self.max_seq_len,
+                                    self.device)
+        self.draft_family.set_head(self.draft_params)
+        self.draft_cache = PagedKVCache(
+            num_layers=dcfg.num_layers, num_pages=ip["num_pages"],
+            num_heads=dcfg.num_heads, page_size=self.page_size,
+            head_dim=dcfg.head_dim, dtype=self.kv_cache_dtype,
+            device=self.device)
+        # host-side rejection sampling (temperature > 0): its own
+        # deterministic stream, apart from the sampling generator
+        self._spec_rng = np.random.default_rng(self.seed)
 
     @staticmethod
     def _reject_unported(d, ip):
-        """Every serving feature this slice does not carry raises here,
-        before anything is allocated."""
+        """Every serving feature this port does not carry yet raises
+        here, before anything is allocated."""
         checks = (
-            (ip["prefix_cache"] is not None, "inference.prefix_cache",
-             "serving"),
-            (ip["speculative"] is not None, "inference.speculative",
-             "serving"),
             (ip["disaggregation"]["role"] != "unified",
              "an inference.disaggregation role other than \"unified\"",
-             "serving"),
-            (ip["router"] is not None, "inference.router", "serving"),
+             "scale-out"),
+            (ip["router"] is not None, "inference.router", "scale-out"),
             (ip["fault_injection"] is not None,
              "inference.fault_injection", "robustness"),
             (ip["admission"] is not None, "inference.admission",
@@ -286,22 +421,110 @@ class InferenceEngine:
             raise _not_ported("telemetry spans", "observability")
 
     # ------------------------------------------------------------------
+    # weights
+    # ------------------------------------------------------------------
+
+    def _prepare(self, params, weight_quant):
+        return prepare_inference_params(
+            params, self.compute_dtype, weight_quant=weight_quant,
+            device=self.device)
+
+    def _set_params(self, params):
+        """Install prepared ``{name: tensor}`` params. A weight swap
+        invalidates every registered prefix page (its K/V is a function
+        of the old weights): the registry is dropped and waiting
+        requests detach their prefixes; running requests keep decoding
+        on their old-weights K/V, as in the JAX package."""
+        self.params = neox.unflatten(params)
+        self.family.set_head(self.params)
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+            self.scheduler.detach_waiting_prefixes()
+
+    def load_checkpoint(self, load_dir, tag=None):
+        """Params-only restore through the manifest-verified loader
+        (`checkpoint.checkpointing.load_module_checkpoint`: CRC checks
+        and the committed-tag fallback, no optimizer state read), from
+        a checkpoint the JAX package or the port wrote. Returns (path,
+        client_state), or (None, {}) when there is none."""
+        from ..checkpoint.checkpointing import load_module_checkpoint
+        path, natural, client_state = load_module_checkpoint(
+            load_dir, tag=tag, like=self._natural_names)
+        if path is None:
+            return None, {}
+        self._set_params(self._prepare(natural, self.weight_quant))
+        return path, client_state
+
+    def hot_swap_weights(self, natural_params):
+        """In-process weight swap: ``natural_params`` is a ``{dotted
+        name: tensor}`` state dict of the target (what ``params=``
+        takes), cast or int8-quantized as at construction. Eager
+        programs take the params as they run, so nothing is rebuilt.
+        Returns ``{"swap_ms", "compile_delta"}``."""
+        before = self.compile_count()
+        t0 = time.perf_counter()
+        self._set_params(self._prepare(natural_params, self.weight_quant))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"swap_ms": (time.perf_counter() - t0) * 1e3,
+                "compile_delta": self.compile_count() - before}
+
+    def sampler_state(self):
+        """Snapshot of every sampling stream: the program counter the
+        sampling generator is re-seeded from and, with speculation, the
+        rejection sampler's PCG64 state (plain data, as in the JAX
+        package)."""
+        state = {"steps": int(self._steps)}
+        if self.spec_k:
+            state["spec_rng"] = self._spec_rng.bit_generator.state
+        return state
+
+    def restore_sampler_state(self, state):
+        """Restore `sampler_state()`: sampling is a function of (seed,
+        steps), so a restored engine draws the tokens an uninterrupted
+        one would have drawn."""
+        self._steps = int(state["steps"])
+        if self.spec_k and "spec_rng" in state:
+            self._spec_rng.bit_generator.state = state["spec_rng"]
+
+    def compile_count(self):
+        """The distinct bucket programs that have run, by (duty, shape):
+        what the JAX engine's count of compiled executables counts, so a
+        warm stream adds none."""
+        return len(self.program_calls)
+
+    def _program(self, *key):
+        self.program_calls[key] = self.program_calls.get(key, 0) + 1
+
+    # ------------------------------------------------------------------
     # the device programs
     # ------------------------------------------------------------------
 
-    def _sample(self, logits):
+    def _next_rng(self):
+        """The sampling generator of the next program, re-seeded from
+        (seed, program count)."""
+        self._steps += 1
+        return self._generator.manual_seed(sampling_seed(self.seed,
+                                                         self._steps))
+
+    def _sample(self, logits, rng):
         if self.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
         probs = torch.softmax(logits / self.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._generator)[:, 0]
+        return torch.multinomial(probs, 1, generator=rng)[:, 0]
+
+    def _side(self, which):
+        """(model config, family, params, cache) of the target or the
+        draft."""
+        if which == "target":
+            return self.model.config, self.family, self.params, self.cache
+        return (self.draft_model.config, self.draft_family,
+                self.draft_params, self.draft_cache)
 
     def _attention(self, q, k_pages, v_pages, page_table, lengths):
-        """Paged decode attention; int8 pools arrive as `QuantizedPages`
-        and hand their scale pools to the int8 kernel."""
-        scales = {}
-        if isinstance(k_pages, QuantizedPages):
-            scales = {"k_scales": k_pages.scale, "v_scales": v_pages.scale}
-            k_pages, v_pages = k_pages.data, v_pages.data
+        """Paged decode attention; int8 pools hand their scale pools to
+        the int8 kernel."""
+        k_pages, v_pages, scales = _pool_args(k_pages, v_pages)
         return paged_decode_attention(q, k_pages, v_pages, page_table,
                                       lengths, backend=self._attn_backend,
                                       **scales)
@@ -354,47 +577,146 @@ class InferenceEngine:
         h_last = neox.layer_norm(h_last, params["final_ln"]["scale"],
                                  params["final_ln"]["bias"],
                                  cfg.layernorm_eps)
-        return self._sample(fam.head(params, h_last))
+        return self._sample(fam.head(h_last), self._next_rng())
+
+    def _decode_blocks(self, which, tokens, pos, page_idx, page_table,
+                       att_len):
+        """One token a row through every block of the target or the
+        draft: its K/V stored at (``page_idx``, ``pos % ps``) before the
+        paged decode attends over ``page_table`` up to ``att_len`` →
+        the final-norm hidden [B, h]."""
+        cfg, fam, params, cache = self._side(which)
+        H, D = cfg.num_heads, cfg.head_dim
+        B = tokens.shape[0]
+        x = fam.embed(params, tokens, pos)[:, None, :]
+        cos, sin, rot_dim = fam.cos_sin_decode(pos)
+        slot = pos % self.page_size
+        backend = self._attn_backend
+        for layer, bp in enumerate(params["blocks"]):
+            q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H,
+                                      backend=backend)
+            k_pool, v_pool = cache.k[layer], cache.v[layer]
+            _store(k_pool, page_idx, slot, k[:, 0])
+            _store(v_pool, page_idx, slot, v[:, 0])
+            # the int8 kernel reads q in the compute dtype
+            qrow = q[:, 0] if self.kv_quant else q[:, 0].to(k_pool.dtype)
+            attn = self._attention(qrow, k_pool, v_pool, page_table, att_len)
+            x = neox._block_post_attn(cfg, bp, x,
+                                      attn.to(x.dtype).reshape(B, 1, H * D),
+                                      backend=backend)
+        return neox.layer_norm(x[:, 0], params["final_ln"]["scale"],
+                               params["final_ln"]["bias"], cfg.layernorm_eps)
 
     @torch.no_grad()
     def _decode(self, tokens, lengths, page_table):
         """tokens [B], lengths [B] (including this token; 0 = inactive
         row), page_table [B, NP] (device) → sampled tokens [B]."""
-        cfg = self.model.config
-        fam = self.family
-        params = self.params
-        ps = self.page_size
-        H, D = cfg.num_heads, cfg.head_dim
-        B = tokens.shape[0]
         pos = (lengths.long() - 1).clamp(min=0)
-        x = fam.embed(params, tokens, pos)[:, None, :]
-        cos, sin, rot_dim = fam.cos_sin_decode(pos)
-        page_idx = page_table.gather(1, (pos // ps)[:, None])[:, 0].long()
+        page_idx = page_table.gather(
+            1, (pos // self.page_size)[:, None])[:, 0].long()
+        h = self._decode_blocks("target", tokens, pos, page_idx, page_table,
+                                lengths)
+        return self._sample(self.family.head(h),
+                            self._next_rng())
+
+    @torch.no_grad()
+    def _chunk(self, which, mode, tokens, start, n_new, page_table):
+        """The mid-sequence window program: ``tokens`` [B, S] at per-row
+        absolute positions ``start + 0..S-1`` (``n_new`` valid), their
+        K/V written into the row's pages BEFORE the window attends over
+        the whole page table (earlier positions included: a
+        continuation, not a fresh prefill). One program, three duties:
+
+        - ``("target", "sample")``: a prefix hit's suffix prefill; the
+          first token samples at the last valid position → [B];
+        - ``("target", "verify")``: the speculative verify over [pending
+          token, k proposals] → per-position argmax tokens [B, S]
+          (greedy) or fp32 next-token probabilities [B, S, V] (sampled);
+        - ``("draft", "write")``: the draft's twin of any prefill (full
+          or suffix): its K/V only, no head → None.
+
+        Invalid window slots write to the trash page 0 (their duplicate
+        indices only ever collide there, and page 0 is never read
+        unmasked). The attention is the plain `paged_attention_reference`
+        over the row-gathered pages (XLA code in the JAX package too)."""
+        cfg, fam, params, cache = self._side(which)
+        B, S = tokens.shape
+        ps = self.page_size
+        H = cfg.num_heads
+        offs = torch.arange(S, device=self.device)[None, :]
+        valid = offs < n_new[:, None]
+        pos = (start.long()[:, None] + offs).clamp(0, self.max_seq_len - 1)
+        x = fam.embed(params, tokens, pos)
+        cos, sin, rot_dim = fam.cos_sin_at(pos)
+        page_idx = page_table.gather(1, pos // ps).long()
+        page_idx = torch.where(valid, page_idx, torch.zeros_like(page_idx))
         slot = pos % ps
+        # query position p sees cache slots 0..p; invalid rows see none
+        qpos = torch.where(valid, pos, torch.full_like(pos, -1))
         backend = self._attn_backend
         for layer, bp in enumerate(params["blocks"]):
             q, k, v = neox._block_qkv(cfg, bp, x, cos, sin, rot_dim, H,
                                       backend=backend)
-            k_pool, v_pool = self.cache.k[layer], self.cache.v[layer]
-            # one decoded token's K and V row into its page slot; int8
-            # pools quantize per head vector and land the scale in the
-            # page-aligned scale pool
-            for pool, vec in ((k_pool, k[:, 0]), (v_pool, v[:, 0])):
-                if isinstance(pool, QuantizedPages):
-                    q8, sc = quantize_kv(vec)
-                    pool.data[page_idx, :, slot] = q8
-                    pool.scale[page_idx, :, slot] = sc.to(pool.scale.dtype)
-                else:
-                    pool[page_idx, :, slot] = vec.to(pool.dtype)
-            # the int8 kernel reads q in the compute dtype
-            qrow = q[:, 0] if self.kv_quant else q[:, 0].to(k_pool.dtype)
-            attn = self._attention(qrow, k_pool, v_pool, page_table, lengths)
+            k_pool, v_pool = cache.k[layer], cache.v[layer]
+            _store(k_pool, page_idx, slot, k)
+            _store(v_pool, page_idx, slot, v)
+            kp, vp, scales = _pool_args(k_pool, v_pool)
+            # q rounds to the pool dtype, as in JAX (int8 pools: the
+            # compute dtype)
+            qw = q if self.kv_quant else q.to(kp.dtype)
+            attn = paged_attention_reference(qw, kp, vp, page_table, qpos,
+                                             **scales)
             x = neox._block_post_attn(cfg, bp, x,
-                                      attn.to(x.dtype).reshape(B, 1, H * D),
+                                      attn.to(x.dtype).reshape(B, S, -1),
                                       backend=backend)
-        h = neox.layer_norm(x[:, 0], params["final_ln"]["scale"],
-                            params["final_ln"]["bias"], cfg.layernorm_eps)
-        return self._sample(fam.head(params, h))
+        if mode == "write":
+            return None
+        final = params["final_ln"]
+        if mode == "sample":
+            idx = (n_new.long() - 1).clamp(0, S - 1)
+            h = x[torch.arange(B, device=self.device), idx]
+            h = neox.layer_norm(h, final["scale"], final["bias"],
+                                cfg.layernorm_eps)
+            return self._sample(fam.head(h), self._next_rng())
+        h = neox.layer_norm(x, final["scale"], final["bias"],
+                            cfg.layernorm_eps)
+        logits = fam.head(h)
+        # the verify takes a sampling program's slot, as in the JAX
+        # engine, though acceptance samples on the host
+        self._next_rng()
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return torch.softmax(logits / self.temperature, dim=-1)
+
+    @torch.no_grad()
+    def _propose(self, tokens, lengths, windows, page_table):
+        """The draft program: k + 1 decode steps through the draft
+        against its pools (the target's page ids). Steps 0..k-1 propose
+        the argmax; the last writes the final proposal's K/V without
+        sampling, so the draft cache covers every token the target may
+        accept. A row's ``windows`` gate its writes and attention past
+        its speculative window to the trash page (a row at its
+        max_new_tokens edge, window 0, still gets its pending token's
+        draft K/V written and nothing else) → proposals [B, k]."""
+        base = (lengths.long() - 1).clamp(min=0)
+        live = lengths > 0
+        proposed = []
+        tok = tokens
+        for j in range(self.spec_k + 1):
+            pos = (base + j).clamp(0, self.max_seq_len - 1)
+            active = (j <= windows) & live
+            page_idx = page_table.gather(
+                1, (pos // self.page_size)[:, None])[:, 0].long()
+            page_idx = torch.where(active, page_idx,
+                                   torch.zeros_like(page_idx))
+            att_len = torch.where(active, pos + 1,
+                                  torch.zeros_like(pos)).to(torch.int32)
+            h = self._decode_blocks("draft", tok, pos, page_idx, page_table,
+                                    att_len)
+            if j < self.spec_k:
+                tok = torch.argmax(self.draft_family.head(h), dim=-1)
+                proposed.append(tok)
+        return torch.stack(proposed, dim=1)
 
     def _to_device(self, arr):
         return torch.from_numpy(arr).to(self.device)
@@ -426,8 +748,9 @@ class InferenceEngine:
 
     def step(self):
         """One scheduler step: admit + prefill new requests, decode one
-        token for every in-flight sequence. Returns a summary dict. A
-        prefill or decode exception propagates."""
+        token for every in-flight sequence (with speculation: one
+        speculative window each). Returns a summary dict. A prefill or
+        decode exception propagates."""
         now = time.perf_counter()
         finished_before = len(self.scheduler.finished)
         plan = self.scheduler.schedule(now=now)
@@ -455,7 +778,8 @@ class InferenceEngine:
         produced = 0
         if plan.decodes and all(r.state == RUNNING for r in plan.decodes):
             t0 = time.perf_counter()
-            produced = self._run_decode(plan)
+            produced = (self._run_speculative(plan) if self.spec_k
+                        else self._run_decode(plan))
             self.stats["decode_s"] += time.perf_counter() - t0
             self.stats["decode_tokens"] += produced
 
@@ -480,20 +804,72 @@ class InferenceEngine:
                 self.request_metrics.observe_ttft(now - req.submitted_at)
             req.last_token_at = now
 
+    def _check_private(self, pages, start, n):
+        """A window writes slots ``start .. start + n - 1``: each page it
+        reaches must be held by this request alone (refcount 1). A
+        shared prefix page or a registered one is never written. A debug
+        check: the windows call it on the CPU only (the tests' engines),
+        so the served path on the card pays no host work for it."""
+        ps = self.page_size
+        for page in pages[start // ps:(start + n - 1) // ps + 1]:
+            if self.cache.refcount(page) != 1:
+                raise RuntimeError(
+                    f"a window write reaches page {page}, held "
+                    f"{self.cache.refcount(page)} times: shared pages "
+                    f"are read-only")
+
+    def _chunk_arrays(self, reqs, B, S):
+        """Window inputs of the chunk program: each request's suffix
+        (everything past its shared prefix pages: the whole context when
+        nothing is shared) at its absolute positions, and the full-width
+        page table (shared pages included: the window attends over the
+        prefix K/V it did not write)."""
+        tokens = np.zeros((B, S), np.int64)
+        start = np.zeros((B,), np.int32)
+        n_new = np.zeros((B,), np.int32)
+        page_table = np.zeros((B, self.n_pages_max), np.int32)
+        for i, req in enumerate(reqs):
+            shared = req.n_shared * self.page_size
+            suffix = req.context[shared:]
+            tokens[i, :len(suffix)] = suffix
+            start[i] = shared
+            n_new[i] = len(suffix)
+            page_table[i, :len(req.pages)] = req.pages
+            if self.device.type == "cpu":
+                self._check_private(req.pages, shared, len(suffix))
+        return [self._to_device(a) for a in (tokens, start, n_new,
+                                             page_table)]
+
     def _run_prefill(self, plan):
         B, S = plan.prefill_batch, plan.prefill_len
-        n_pages_row = S // self.page_size
-        tokens = np.zeros((B, S), np.int64)
-        lengths = np.zeros((B,), np.int32)
-        page_table = np.zeros((B, n_pages_row), np.int32)
-        for i, req in enumerate(plan.prefills):
-            ctx = req.context
-            tokens[i, :len(ctx)] = ctx
-            lengths[i] = len(ctx)
-            page_table[i, :len(req.pages)] = req.pages
-        nxt = self._prefill(self._to_device(tokens),
-                            self._to_device(lengths),
-                            self._to_device(page_table))
+        chunk = (self._chunk_arrays(plan.prefills, B, S)
+                 if plan.prefill_kind == "chunk" or self.spec_k else None)
+        if plan.prefill_kind == "chunk":
+            # prefix-hit batch: the suffix-only window through the chunk
+            # program (the full-prefill scatter would overwrite the
+            # shared pages other requests read)
+            self._program("chunk", "target", "sample", B, S)
+            nxt = self._chunk("target", "sample", *chunk)
+        else:
+            n_pages_row = S // self.page_size
+            tokens = np.zeros((B, S), np.int64)
+            lengths = np.zeros((B,), np.int32)
+            page_table = np.zeros((B, n_pages_row), np.int32)
+            for i, req in enumerate(plan.prefills):
+                ctx = req.context
+                tokens[i, :len(ctx)] = ctx
+                lengths[i] = len(ctx)
+                page_table[i, :len(req.pages)] = req.pages
+            self._program("prefill", B, S)
+            nxt = self._prefill(self._to_device(tokens),
+                                self._to_device(lengths),
+                                self._to_device(page_table))
+        if self.spec_k:
+            # the draft's twin of every prefill: its K/V for each newly
+            # written position lands at the same page ids (shared prefix
+            # pages already hold the registrant's draft K/V)
+            self._program("chunk", "draft", "write", B, S)
+            self._chunk("draft", "write", *chunk)
         self._complete_prefills(plan.prefills, nxt.cpu().numpy())
 
     def _run_decode(self, plan):
@@ -505,6 +881,7 @@ class InferenceEngine:
             tokens[i] = req.generated[-1]
             lengths[i] = req.cached + 1
             page_table[i, :len(req.pages)] = req.pages
+        self._program("decode", B)
         nxt = self._decode(self._to_device(tokens), self._to_device(lengths),
                            self._to_device(page_table)).cpu().numpy()
         now = time.perf_counter()
@@ -515,6 +892,117 @@ class InferenceEngine:
                     now - req.last_token_at)
             req.last_token_at = now
         return len(plan.decodes)
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _accept_greedy(tgt, proposed, w):
+        """Greedy acceptance: `tgt[j]` (the verify's argmax at window
+        index j) IS the token sequential greedy decode would produce
+        there; proposals only decide how many of them land in one step.
+        Accept while the draft agrees; the first disagreement appends
+        the target's correction and stops; full agreement earns the
+        bonus token `tgt[w]`. Token-identical to plain greedy decode."""
+        out = []
+        for j in range(w):
+            out.append(int(tgt[j]))
+            if int(proposed[j]) != int(tgt[j]):
+                return out
+        out.append(int(tgt[w]))
+        return out
+
+    def _accept_sampled(self, probs, proposed, w):
+        """Rejection-sampling acceptance against the target's
+        temperature-scaled distributions (`probs` [S, V] fp32). The
+        draft proposes greedily (a delta distribution at x), so the
+        accept test ``u < p(x)/q(x)`` reduces to ``u < p(x)`` and the
+        residual (p - q)⁺ to p with x zeroed: each emitted token is
+        distributed as sequential sampling from p."""
+        out = []
+        for j in range(w):
+            p = np.asarray(probs[j], np.float64)
+            x = int(proposed[j])
+            if self._spec_rng.random() < p[x]:
+                out.append(x)
+                continue
+            p[x] = 0.0
+            total = p.sum()
+            if total <= 0.0:
+                out.append(x)     # p WAS the delta at x: accept it
+            else:
+                out.append(int(self._spec_rng.choice(len(p),
+                                                     p=p / total)))
+            return out
+        p = np.asarray(probs[w], np.float64)
+        out.append(int(self._spec_rng.choice(len(p), p=p / p.sum())))
+        return out
+
+    def _run_speculative(self, plan):
+        """One speculative decode step: the draft proposes up to k tokens
+        a row, the target verifies the whole window in ONE chunk call,
+        and acceptance appends 1..k+1 tokens a row. Pages grown for
+        tokens the shrinking window will never reach roll back through
+        the allocator (`scheduler._rollback_spec_pages`). Returns the
+        tokens appended across the batch."""
+        B = plan.decode_batch
+        reqs = plan.decodes
+        tokens = np.zeros((B,), np.int64)
+        lengths = np.zeros((B,), np.int32)
+        windows = np.full((B,), -1, np.int32)
+        page_table = np.zeros((B, self.n_pages_max), np.int32)
+        for i, req in enumerate(reqs):
+            tokens[i] = req.generated[-1]
+            lengths[i] = req.cached + 1
+            windows[i] = self.scheduler._spec_window(req)
+            page_table[i, :len(req.pages)] = req.pages
+            if self.device.type == "cpu":
+                self._check_private(req.pages, req.cached, windows[i] + 1)
+        pt = self._to_device(page_table)
+        self._program("spec_propose", B)
+        proposed = self._propose(self._to_device(tokens),
+                                 self._to_device(lengths),
+                                 self._to_device(windows), pt).cpu().numpy()
+
+        # the verify window a row: [pending token, proposals[:w]] at
+        # positions cached..cached+w; the pending token's K/V enters the
+        # target cache here, as in a plain decode step
+        S = self.spec_k + 1
+        wtokens = np.zeros((B, S), np.int64)
+        n_new = np.zeros((B,), np.int32)
+        for i in range(len(reqs)):
+            w = int(windows[i])
+            wtokens[i, 0] = tokens[i]
+            wtokens[i, 1:1 + w] = proposed[i, :w]
+            n_new[i] = w + 1
+        start = np.maximum(lengths - 1, 0).astype(np.int32)
+        self._program("chunk", "target", "verify", B, S)
+        out = self._chunk("target", "verify", self._to_device(wtokens),
+                          self._to_device(start), self._to_device(n_new),
+                          pt).cpu().numpy()
+
+        now = time.perf_counter()
+        produced = 0
+        for i, req in enumerate(reqs):
+            w = int(windows[i])
+            if self.temperature <= 0.0:
+                accepted = self._accept_greedy(out[i], proposed[i], w)
+            else:
+                accepted = self._accept_sampled(out[i], proposed[i], w)
+            self.stats["spec_proposed"] += w
+            self.stats["spec_accepted"] += len(accepted) - 1
+            appended = self.scheduler.complete_speculative(req, accepted)
+            produced += appended
+            if req.last_token_at is not None and appended:
+                # the user-visible cadence: one step emitted `appended`
+                # tokens, so each token's inter-token gap is dt/appended
+                per_token = (now - req.last_token_at) / appended
+                for _ in range(appended):
+                    self.request_metrics.observe_inter_token(per_token)
+            req.last_token_at = now
+        self.stats["spec_steps"] += 1
+        return produced
 
     def run(self, max_steps=None):
         """Drive steps until the queue drains (or `max_steps`)."""
@@ -540,10 +1028,47 @@ class InferenceEngine:
                 done[r.request_id] = r
         return [list(done[i].generated) for i in ids]
 
+    def generate_rollouts(self, prompts, max_new_tokens, eos_token_id=None):
+        """`generate` plus the accounting of this call only: ``(outputs,
+        stats)`` with the rollout wall seconds, the generated tokens, their
+        rate, the new bucket programs (``compile_delta``) and, with
+        speculation, the acceptance rate."""
+        before = {"compile": self.compile_count(),
+                  "spec_proposed": self.stats["spec_proposed"],
+                  "spec_accepted": self.stats["spec_accepted"]}
+        t0 = time.perf_counter()
+        outputs = self.generate(prompts, max_new_tokens,
+                                eos_token_id=eos_token_id)
+        rollout_s = time.perf_counter() - t0
+        tokens = sum(len(o) for o in outputs)
+        stats = {
+            "rollout_s": rollout_s,
+            "rollout_tokens": tokens,
+            "tokens_per_s": tokens / max(rollout_s, 1e-9),
+            "compile_delta": self.compile_count() - before["compile"],
+        }
+        if self.spec_k:
+            proposed = self.stats["spec_proposed"] - before["spec_proposed"]
+            accepted = self.stats["spec_accepted"] - before["spec_accepted"]
+            stats["spec_acceptance_rate"] = accepted / max(proposed, 1)
+        return outputs, stats
+
     def serve_stats(self):
         """Counters + phase seconds + request-latency percentiles (p50/p99
         of admission wait / TTFT / inter-token, from the fixed-bucket
-        histograms)."""
+        histograms), with the prefix registry's and the speculative
+        acceptance's figures when those are on."""
         out = dict(self.stats)
         out.update(self.request_metrics.summary())
+        if self.prefix_cache is not None:
+            pcs = self.prefix_cache.stats
+            out["prefix_lookups"] = pcs["lookups"]
+            out["prefix_hits"] = pcs["hits"]
+            out["prefix_hit_rate"] = pcs["hits"] / max(pcs["lookups"], 1)
+            out["prefix_pages_shared"] = pcs["pages_shared"]
+            out["prefix_saved_prefill_tokens"] = \
+                pcs["saved_prefill_tokens"]
+        if self.spec_k:
+            out["spec_acceptance_rate"] = self.stats["spec_accepted"] / \
+                max(self.stats["spec_proposed"], 1)
         return out

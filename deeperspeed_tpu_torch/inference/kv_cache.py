@@ -22,8 +22,14 @@ the decode kernel resolves both through one page-table lookup. K/V
 vectors quantize symmetrically per (head, slot) at write time
 (`quantize_kv`). A resident token costs ``2·L·H·(D + 2)`` bytes instead
 of ``2·L·H·D·2`` at bf16: 128/66 ≈ 1.94× more sessions at a fixed pool
-budget for D = 64. The prefix registry (`PrefixCache`) waits for a
-later slice.
+budget for D = 64.
+
+**Prefix registry** (`PrefixCache`, the JAX class copied as it is):
+full prompt pages are registered as a chain keyed by their token ids;
+a later prompt that starts with a registered chain shares its pages by
+reference count and prefills only its suffix. The registry holds one
+reference a page, and an allocation shortfall first reclaims its least
+recently used unshared pages.
 """
 
 import torch
@@ -92,8 +98,12 @@ class PagedKVCache:
         # free list: every page except the trash page, low ids first so
         # tests are deterministic
         self._free = list(range(self.num_pages - 1, 0, -1))
-        # reference counts for allocated pages (absent = free)
+        # reference counts for allocated pages (absent = free); the
+        # prefix registry and co-reading requests hold extra references
         self._refcount = {}
+        # optional `PrefixCache` (set by its constructor): allocation
+        # shortfalls reclaim LRU unshared registry pages before failing
+        self.prefix_cache = None
 
     def _make_pool(self):
         shape = (self.num_layers, self.num_pages, self.num_heads,
@@ -127,10 +137,13 @@ class PagedKVCache:
     def allocate(self, n):
         """Pop n pages from the free list (each carrying ONE
         reference), or None when fewer remain (all-or-nothing: a
-        partial grab would deadlock admission)."""
+        partial grab would deadlock admission). A shortfall first asks
+        the prefix registry to reclaim LRU unshared pages."""
         n = int(n)
         if n < 0:
             raise ValueError(f"cannot allocate {n} pages")
+        if n > len(self._free) and self.prefix_cache is not None:
+            self.prefix_cache.reclaim(n - len(self._free))
         if n > len(self._free):
             return None
         if n == 0:
@@ -141,8 +154,9 @@ class PagedKVCache:
         return pages
 
     def retain(self, pages):
-        """Add one reference to each page. Pages must be currently
-        allocated."""
+        """Add one reference to each page (prefix sharing: the new
+        reader frees through the ordinary `free` path). Pages must be
+        currently allocated."""
         pages = [int(p) for p in pages]
         for p in pages:
             if p not in self._refcount:
@@ -187,3 +201,150 @@ class PagedKVCache:
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         per_head = self.head_dim * itemsize + (2 if self.quantized else 0)
         return 2 * self.num_layers * self.num_heads * per_head
+
+
+class _PrefixNode:
+    """One registered full page: keyed under its parent by the page's
+    exact token ids, so the (parent, key) chain IS the chained content
+    hash: dict lookup hashes it, equality verifies it."""
+
+    __slots__ = ("key", "page", "parent", "children", "last_used")
+
+    def __init__(self, key, page, parent):
+        self.key = key
+        self.page = page
+        self.parent = parent
+        self.children = {}
+        self.last_used = 0
+
+
+class PrefixCache:
+    """Radix-style page-granular prefix registry over a `PagedKVCache`.
+
+    A completed prefill registers each FULL prompt page as a chain node
+    (`register`); a new prompt walks the tree (`lookup`) and shares the
+    longest matching page chain via refcounts, so its prefill starts at
+    the first divergent page. The registry holds one reference per
+    registered page, so pages outlive the request that built them;
+    `reclaim` releases least-recently-used UNSHARED leaves back to the
+    allocator when the pool runs short (or past ``max_pages``), and
+    `clear` drops everything (a weight swap: the cached K/V no longer
+    matches what a forward pass would produce).
+
+    Host-side and deterministic: recency is a logical tick counter, not
+    wall clock, so the same request stream always caches and reclaims
+    the same pages."""
+
+    def __init__(self, cache, max_pages=None):
+        self.cache = cache
+        self.page_size = cache.page_size
+        if max_pages is not None and int(max_pages) < 1:
+            raise ValueError(
+                f"prefix_cache max_pages must be >= 1, got {max_pages}")
+        self.max_pages = None if max_pages is None else int(max_pages)
+        self.stats = {"lookups": 0, "hits": 0, "pages_shared": 0,
+                      "saved_prefill_tokens": 0, "registered_pages": 0,
+                      "reclaimed_pages": 0}
+        self._root = _PrefixNode(None, None, None)
+        self._pages = 0
+        self._tick = 0
+        cache.prefix_cache = self
+
+    @staticmethod
+    def page_key(tokens):
+        """The canonical node key for one page's worth of tokens."""
+        return tuple(int(t) for t in tokens)
+
+    def _touch(self, node):
+        self._tick += 1
+        node.last_used = self._tick
+
+    def lookup(self, tokens):
+        """Longest registered page chain covering a prefix of `tokens`,
+        capped so at least ONE token is left to prefill (prefill always
+        samples the first generated token). Returns the node chain
+        (possibly empty); the caller retains the pages."""
+        ps = self.page_size
+        limit = max((len(tokens) - 1) // ps, 0)
+        node = self._root
+        chain = []
+        for i in range(limit):
+            child = node.children.get(
+                self.page_key(tokens[i * ps:(i + 1) * ps]))
+            if child is None:
+                break
+            chain.append(child)
+            node = child
+        for n in chain:
+            self._touch(n)
+        return chain
+
+    def register(self, parent, keys, pages):
+        """Extend the chain under `parent` (None = root) with full
+        pages: `keys[i]` is `page_key(...)` of the page's tokens,
+        `pages[i]` the request-owned page holding their K/V. A key
+        already registered keeps the EXISTING node/page (the request's
+        copy stays request-owned and frees normally); a new key retains
+        the page for the registry. Returns the deepest node."""
+        node = parent if parent is not None else self._root
+        for key, page in zip(keys, pages):
+            child = node.children.get(key)
+            if child is None:
+                self.cache.retain([page])
+                child = _PrefixNode(key, int(page), node)
+                node.children[key] = child
+                self._pages += 1
+            self._touch(child)
+            node = child
+        self.stats["registered_pages"] = self._pages
+        if self.max_pages is not None and self._pages > self.max_pages:
+            self.reclaim(self._pages - self.max_pages)
+        return node
+
+    def _lru_leaves(self):
+        out = []
+        stack = list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            if n.children:
+                stack.extend(n.children.values())
+            else:
+                out.append(n)
+        out.sort(key=lambda n: n.last_used)
+        return out
+
+    def reclaim(self, n_pages):
+        """Release up to `n_pages` least-recently-used UNSHARED leaf
+        pages back to the allocator (refcount 1 = registry-only; a page
+        some in-flight request still reads is never reclaimed). Interior
+        nodes become leaves as their children go, so a whole cold chain
+        drains back-to-front. Returns the number reclaimed."""
+        reclaimed = 0
+        while reclaimed < int(n_pages):
+            leaf = next((l for l in self._lru_leaves()
+                         if self.cache.refcount(l.page) == 1), None)
+            if leaf is None:
+                break
+            leaf.parent.children.pop(leaf.key)
+            self.cache.free([leaf.page])
+            self._pages -= 1
+            reclaimed += 1
+        self.stats["registered_pages"] = self._pages
+        self.stats["reclaimed_pages"] += reclaimed
+        return reclaimed
+
+    def clear(self):
+        """Drop every chain and release the registry's references.
+        Pages still shared with in-flight requests stay allocated until
+        those requests free them; only the registry's claim ends."""
+        stack = list(self._root.children.values())
+        pages = []
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            pages.append(n.page)
+        if pages:
+            self.cache.free(pages)
+        self._root.children.clear()
+        self._pages = 0
+        self.stats["registered_pages"] = 0

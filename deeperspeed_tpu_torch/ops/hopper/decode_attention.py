@@ -27,7 +27,12 @@ Contract (the JAX package's):
 
 ``backend`` maps from ``inference.kernel``: None/"auto" and "pallas"
 launch the kernel on CUDA tensors and take the plain version on CPU
-tensors; "xla" always takes the plain version.
+tensors; "xla" always takes the plain version. With None/"auto" a CUDA
+call on a shape the kernels cannot take (`paged_decode_supported`: head
+dim 64, 128 or 256, page size a multiple of 8) takes the plain version
+too, decided from the shapes before any launch, as the JAX package sends
+such shapes to its XLA path; it is counted under the design "plain".
+"pallas" forces the kernel, which raises on such a shape.
 """
 
 import math
@@ -44,10 +49,13 @@ NEG_INF = -1e30
 CLUSTER_HEAD_DIMS = (64, 128)
 MAX_CLUSTER = 8
 SMS, CTAS_PER_SM = 132, 6
-DESIGNS = ("cluster", "single")
+# "plain": a CUDA call the shape dispatch sent to the plain version
+DESIGNS = ("cluster", "single", "plain")
 
 # kernel launches since the last reset (`chip_smoke.py` reads these):
 # the bf16/fp32-pool kernel and the int8-pool kernel, all and by design
+# (the "plain" entries count CUDA calls of unsupported shapes, which
+# launch nothing)
 launches = 0
 launches_int8 = 0
 launches_by_design = dict.fromkeys(DESIGNS, 0)
@@ -57,6 +65,33 @@ launches_by_design_int8 = dict.fromkeys(DESIGNS, 0)
 def reset_launches_by_design():
     launches_by_design.update(dict.fromkeys(DESIGNS, 0))
     launches_by_design_int8.update(dict.fromkeys(DESIGNS, 0))
+
+
+def paged_decode_supported(head_dim, page_size):
+    """The shapes the kernels take under ``backend`` None/"auto": a head
+    dim they are built for (the JAX package's on-TPU head dims) and whole
+    8-key chunks a page, for bf16, fp32 and int8 pools alike. The JAX
+    rule also asks 32 slots a page of int8 pools (one int8 sublane tile
+    on a TPU); the CUDA kernel has no such rule, so int8 pools at page
+    sizes 8-24 launch it here where the JAX package takes its XLA path."""
+    return head_dim in _build.HEAD_DIMS and page_size % 8 == 0
+
+
+def decode_route(device_type, head_dim, page_size, backend):
+    """Where a call goes: "kernel", "plain" (CPU tensors or ``backend``
+    "xla") or "unsupported" (CUDA tensors of a shape
+    `paged_decode_supported` refuses under None/"auto": the plain
+    version, counted as the "plain" design)."""
+    if backend not in (None, "auto", "pallas", "xla"):
+        raise ValueError(f"unknown paged decode backend {backend!r}")
+    if backend == "xla" or device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"no paged decode path for device {device_type}")
+    if backend != "pallas" and not paged_decode_supported(head_dim,
+                                                          page_size):
+        return "unsupported"
+    return "kernel"
 
 
 def kernel_design(q, k_pages):
@@ -79,14 +114,17 @@ def launch_plan(B, H, n_pages_row):
     return cluster
 
 
-def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
-                                     lengths, sm_scale=None, k_scales=None,
-                                     v_scales=None):
-    """Plain PyTorch version (`paged_decode_attention_xla`): gather the
-    sequence's pages into a contiguous [B, H, NP·ps, D] view and run a
-    masked softmax. int8 pools dequantize at the gather, and their
-    probabilities stay fp32 through P·V."""
-    B, H, D = q.shape
+def paged_attention_reference(q, k_pages, v_pages, page_table, qpos,
+                              sm_scale=None, k_scales=None, v_scales=None):
+    """Plain paged attention over a window of queries (the JAX package's
+    `paged_decode_attention_xla`, and its serving engine's chunk
+    ``attend``): gather each sequence's pages into a contiguous
+    [B, H, NP·ps, D] view; query ``s`` of row ``b`` (``q`` [B, S, H, D])
+    sees slots ``0..qpos[b, s]`` (-1: none, an exact zero row) →
+    [B, S, H, D] fp32. int8 pools dequantize at the gather. Scores and
+    P·V sum in fp32; the probabilities round to the pool dtype (fp32 for
+    int8 pools) before P·V."""
+    B, S, H, D = q.shape
     ps = k_pages.shape[2]
     NP = page_table.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -98,18 +136,29 @@ def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
         vs = v_scales[pt].movedim(2, 1).reshape(B, H, NP * ps)
         k = k.float() * ks.float()[..., None]
         v = v.float() * vs.float()[..., None]
-    s = torch.einsum("bhd,bhsd->bhs", q.float(), k.float()) * scale
-    pos = torch.arange(NP * ps, device=q.device)
-    s = torch.where(pos[None, None, :] < lengths[:, None, None].to(pos.dtype),
-                    s, torch.full_like(s, NEG_INF))
+    s = torch.einsum("bshd,bhkd->bhsk", q.float(), k.float()) * scale
+    kpos = torch.arange(NP * ps, device=q.device)
+    mask = kpos[None, None, None, :] <= qpos.long()[:, None, :, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(s <= NEG_INF * 0.5, torch.zeros_like(p), p)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhs,bhsd->bhd", (p / l_safe).to(v.dtype).float(),
-                       v.float())
-    return out.to(q.dtype)
+    return torch.einsum("bhsk,bhkd->bshd", (p / l_safe).to(v.dtype).float(),
+                        v.float())
+
+
+def paged_decode_attention_reference(q, k_pages, v_pages, page_table,
+                                     lengths, sm_scale=None, k_scales=None,
+                                     v_scales=None):
+    """Plain PyTorch version of the decode: `paged_attention_reference`
+    with one query a row, at position ``lengths - 1`` → [B, H, D] in q's
+    dtype."""
+    qpos = (lengths.long() - 1)[:, None]
+    return paged_attention_reference(
+        q[:, None], k_pages, v_pages, page_table, qpos, sm_scale,
+        k_scales=k_scales, v_scales=v_scales)[:, 0].to(q.dtype)
 
 
 def _check(q, k_pages, v_pages, page_table, lengths, k_scales, v_scales):
@@ -292,15 +341,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     probabilities (the single-block kernel dequantizes each element), the
     plain version dequantizes at the gather."""
     _check(q, k_pages, v_pages, page_table, lengths, k_scales, v_scales)
-    if backend not in (None, "auto", "pallas", "xla"):
-        raise ValueError(f"unknown paged decode backend {backend!r}")
-    if backend == "xla" or q.device.type == "cpu":
+    quant = k_scales is not None
+    route = decode_route(q.device.type, q.shape[2], k_pages.shape[2],
+                         backend)
+    if route != "kernel":
+        if route == "unsupported":
+            (launches_by_design_int8 if quant
+             else launches_by_design)["plain"] += 1
         return paged_decode_attention_reference(
             q, k_pages, v_pages, page_table, lengths, sm_scale,
             k_scales=k_scales, v_scales=v_scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged decode path for device {q.device}")
-    if k_scales is not None:
+    if quant:
         return paged_decode_int8_cuda(q, k_pages, v_pages, k_scales,
                                       v_scales, page_table, lengths,
                                       sm_scale)

@@ -6,8 +6,9 @@
   JAX `InferenceEngine` (use_pallas=False), on the same weights and
   prompts, give identical greedy tokens and the same counters, with
   prefill buckets across page boundaries and evictions included.
-- `device=None` without CUDA raises, unported features raise, and CPU
-  tensors never touch a kernel's launch counter.
+- `device=None` without CUDA raises, unported features raise, the prefix
+  cache and speculative decoding build, and CPU tensors never touch a
+  kernel's launch counter.
 """
 
 import numpy as np
@@ -194,8 +195,6 @@ def test_default_device_needs_cuda(models, monkeypatch):
 
 
 UNPORTED = [
-    ({"prefix_cache": {"enabled": True}}, {}),
-    ({"speculative": {"enabled": True}}, {}),
     ({"disaggregation": {"role": "prefill"}}, {}),
     ({"router": {}}, {}),
     ({"fault_injection": {"faults": []}}, {}),
@@ -212,6 +211,22 @@ def test_unported_features_raise(models, block, top):
     cfg.update(top)
     with pytest.raises(DeepSpeedConfigError, match="not ported"):
         InferenceEngine(model, config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("block", [
+    {"prefix_cache": {"enabled": True}},
+    {"speculative": {"enabled": True, "num_draft_tokens": 2}}])
+def test_prefix_cache_and_speculative_construct(models, block):
+    """Both serving features build (they raised "not ported" before the
+    slice that carries them); speculation takes a draft model."""
+    _, _, model = models
+    draft = model if "speculative" in block else None
+    eng = InferenceEngine(model, config=_config(**block), device="cpu",
+                          draft_model=draft)
+    assert (eng.prefix_cache is not None) == ("prefix_cache" in block)
+    assert eng.spec_k == (2 if draft is not None else 0)
+    (out,) = eng.generate([[3, 1, 4, 1, 5]], max_new_tokens=4)
+    assert len(out) == 4
 
 
 def test_unported_mesh_and_family_raise(models):
