@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ckpt-only [DIR]
     python3 chip_smoke.py --gpt2-only
     python3 chip_smoke.py --serve-prefix-only
+    python3 chip_smoke.py --serve-chaos-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -232,7 +233,39 @@ Phases (any failure exits non-zero before the final line):
    (c) `hot_swap_weights` on (a)'s warm engine drops the registry with
    compile_delta 0 and then serves what a fresh engine on the new weights
    serves, and `restore_sampler_state` makes a second engine draw a
-   temperature-0.8 speculative stream token for token.
+   temperature-0.8 speculative stream token for token;
+27. serve-chaos-125M (bench.py's row_serve_chaos): GPT-NeoX-125M (seeded
+   bf16 weights) behind the row's "inference" block (page 64, 513 pages,
+   batches of 4 / 16, budget 2048, an admission queue of 24, retry 3 x
+   5-50 ms, jitter 0.25) serves the row's stream (64 requests,
+   lognormal(5.0, 0.8) prompt lengths, 64 new tokens, one submission
+   every 2 steps) clean, then under the row's fault storm (decode errors
+   at step serials 40, 41 and 120, a 0.05 s decode stall at 80, page-pool
+   pressure of 0.7 at 60-64). It reports the row's success rate, shed
+   fraction, TTFT p50 / p99, tokens/s, quarantines and evictions, and the
+   storm's TTFT p99 degradation; it holds the row's invariants (the
+   server stays up, every accepted request reaches exactly one terminal
+   status, no page leaks, compile_delta 0), no quarantine or failure in
+   the clean stream, as many quarantines in the storm as injected errors
+   fired on a step with work of their phase and nothing but injected
+   faults caught, a clean `torch.cuda.synchronize()` after each stream,
+   and exact launches (12 flash forwards a full prefill call, 12 cluster
+   decodes a decode step, all on the tensor-core and cluster designs);
+   (b) the same model with a 0.25 s hang timeout and one 1.0 s decode
+   stall once every program is warm: the watchdog fires once, its stack
+   dump names the threads, `run()` drains every accepted request to one
+   terminal status and exits with SystemExit(0); a fresh engine whose
+   programs are cold, with a timeout below its steps' times, never fires;
+28. chaos parity, fp32, kernels vs plain: (a) phase 26(a)'s pair with the
+   prefix cache and k = 4 speculation serves a shared-prefix stream twice
+   under transient faults (a prefill error, two decode errors, page-pool
+   pressure): every request ends ok with the greedy tokens of a clean
+   cache-off engine and of the plain path, no page leaked, the registry
+   holding only its own pages; (b) the same with int8 weights (target and
+   draft) and int8 KV pages, and a prefill that loses every KV pool
+   mid-stream (their storage released), so the engine rebuilds the
+   target's and the draft's `QuantizedPages` with `reset_pools` and
+   re-prefills what was running.
 Phase 3 also holds the flat Adam kernel at GPT-2 XL's size in the lean
 (bf16 p, g, m, v) and the classic (fp32 p, m, v, bf16 g and copy)
 dtypes against its plain version chunk by chunk, two calls
@@ -453,6 +486,37 @@ PREFIX_REQUESTS, PREFIX_LEN, PREFIX_NEW, PREFIX_SPEC_K = 32, 256, 32, 4
 # which the paged-decode dispatch sends to the plain version
 PREFIX_DRAFT = dict(vocab_size=50304, hidden_size=256, num_layers=4,
                     num_heads=8, max_seq_len=1024)
+
+# serve-chaos-125M: bench.py's row_serve_chaos (bench.py:1388-1526): the
+# row's "inference" block (robustness layer on), its stream (64 requests,
+# lognormal(5.0, 0.8) prompt lengths, 64 new tokens, one submission every
+# 2 steps) and its fault storm (step serials count the warm-up's steps)
+CHAOS_BLOCK = {"enabled": True, "page_size": 64, "num_pages": 513,
+               "max_batch_size": 16, "token_budget": 2048,
+               "prefill_batch_sizes": [4], "decode_batch_sizes": [16],
+               "admission": {"max_queue_depth": 24},
+               "retry": {"max_attempts": 3, "backoff_base_ms": 5,
+                         "backoff_cap_ms": 50, "jitter": 0.25}}
+CHAOS_REQUESTS, CHAOS_NEW = 64, 64
+CHAOS_STORM = [
+    {"kind": "decode_error", "step": 40, "times": 2},
+    {"kind": "decode_error", "step": 120, "times": 1},
+    {"kind": "decode_stall", "step": 80, "seconds": 0.05},
+    {"kind": "page_pool_pressure", "step": 60, "times": 5, "factor": 0.7},
+]
+# phase 27(b): the hang watchdog's timeout, the stall that trips it (at a
+# step serial past the warm-up, inside the decode phase of 16 requests)
+# and the cold engine's timeout, below any step's time
+CHAOS_HANG_TIMEOUT_S, CHAOS_STALL_S, CHAOS_STALL_STEP = 0.25, 1.0, 20
+CHAOS_HANG_REQUESTS, CHAOS_COLD_TIMEOUT_S = 16, 0.001
+# phase 28: transient faults over the two waves of a shared-prefix stream
+# (misses, then hits)
+CHAOS_PARITY_FAULTS = [
+    {"kind": "prefill_error", "step": 1},
+    {"kind": "decode_error", "step": 4},
+    {"kind": "page_pool_pressure", "step": 6, "times": 2, "factor": 0.7},
+    {"kind": "decode_error", "step": 25},
+]
 
 
 def fail(msg):
@@ -5240,6 +5304,491 @@ def serve_prefix_only(card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 27-28: serving under failure
+# ---------------------------------------------------------------------------
+
+def watch_faults(eng):
+    """Record, by fault serial, whether each step's plan had prefill and
+    decode work, and every exception the quarantine catches → (plans,
+    caught). The engine's own quarantine still runs."""
+    plans, caught = {}, []
+    schedule = eng.scheduler.schedule
+    quarantine = eng._quarantine_batch
+
+    def watched_schedule(now=None):
+        plan = schedule(now=now)
+        if eng.fault_injector is not None:
+            plans[eng.fault_injector.serial - 1] = (
+                bool(plan.prefills), bool(plan.decodes))
+        return plan
+
+    def watched_quarantine(requests, exc, phase):
+        caught.append((phase, type(exc).__name__, str(exc)))
+        return quarantine(requests, exc, phase)
+
+    eng.scheduler.schedule = watched_schedule
+    eng._quarantine_batch = watched_quarantine
+    return plans, caught
+
+
+def injected_with_work(eng, plans, lost=()):
+    """The prefill_error / decode_error faults that fired on a step with
+    work of their phase: each of them must be one quarantine. A step in
+    ``lost`` lost its pools in the prefill, so its decode was skipped."""
+    fired = eng.fault_injector.fired if eng.fault_injector else []
+    return sum(1 for serial, kind in fired
+               if (kind == "prefill_error" and plans[serial][0]) or
+               (kind == "decode_error" and plans[serial][1] and
+                serial not in lost))
+
+
+def chaos_prompts(eng, rng, vocab, n_req):
+    """row_serve_chaos's prompts: lognormal(5.0, 0.8) lengths clipped to
+    8 .. min(768, the top bucket, the window less the new tokens)."""
+    hi = min(768, eng.prefill_lengths[-1], eng.max_seq_len - CHAOS_NEW)
+    lens = np.clip(np.exp(rng.normal(5.0, 0.8, size=n_req)), 8,
+                   hi).astype(int)
+    return [list(rng.integers(1, vocab, size=int(n))) for n in lens]
+
+
+def warm_buckets(eng, rng, vocab):
+    """Warm every prefill bucket (b - 2 tokens, so the top bucket's prompt
+    plus two tokens still fits the window) and the decode bucket."""
+    eng.generate([list(rng.integers(1, vocab, size=b - 2))
+                  for b in eng.prefill_lengths], max_new_tokens=2)
+    torch.cuda.synchronize()
+
+
+def program_delta(eng, before, duty):
+    return program_calls(eng, duty) - sum(
+        n for key, n in before.items() if key[0] == duty)
+
+
+def chaos_stream(fa, da, model, faults, tag):
+    """One variant of phase 27: row_serve_chaos's run() on the card, with
+    the launch counts, the clean / storm quarantine checks and a clean
+    synchronize."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    from deeperspeed_tpu_torch.inference import RequestRejected
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_layers
+    block = dict(CHAOS_BLOCK)
+    if faults:
+        block["fault_injection"] = {"faults": faults}
+    eng = InferenceEngine(model, config={"inference": block})
+    plans, caught = watch_faults(eng)
+    rng = np.random.default_rng(0)
+    prompts = chaos_prompts(eng, rng, V, CHAOS_REQUESTS)
+    warm_buckets(eng, rng, V)
+    warm = eng.compile_count()
+    calls = dict(eng.program_calls)
+    keys = ("requests_ok", "requests_deadline_exceeded", "requests_failed",
+            "requests_shed", "quarantines", "retries", "evictions")
+    base = {k: eng.stats[k] for k in keys}
+    reset_serving_counts(fa, da)
+
+    submit_at, first_tok = {}, {}
+    shed = submitted = step = 0
+    t_start = time.perf_counter()
+    while submitted < len(prompts) or eng.scheduler.has_work:
+        while submitted < len(prompts) and submitted * 2 <= step:
+            try:
+                rid = eng.submit(prompts[submitted],
+                                 max_new_tokens=CHAOS_NEW)
+                submit_at[rid] = time.perf_counter()
+            except RequestRejected:
+                shed += 1
+            submitted += 1
+        if eng.scheduler.has_work:
+            try:
+                eng.step()
+            except BaseException as e:  # noqa: BLE001 - the row's gate
+                fail(f"{tag}: the server died: {type(e).__name__}: {e}")
+        now = time.perf_counter()
+        for r in list(eng.scheduler.running) + eng.scheduler.finished:
+            rid = r.request_id
+            if rid in submit_at and rid not in first_tok and r.generated:
+                first_tok[rid] = now - submit_at[rid]
+        step += 1
+        if now - t_start > 600:
+            fail(f"{tag}: the stream did not end within 600 s")
+    torch.cuda.synchronize()       # raises on a sticky CUDA error
+    dt = time.perf_counter() - t_start
+    launches = {"flash_fwd": fa.launches, "paged_decode": da.launches}
+    d = {k: eng.stats[k] - base[k] for k in keys}
+    done = [r for r in eng.scheduler.finished if r.request_id in submit_at]
+    ids = [r.request_id for r in done]
+    all_terminal = sorted(ids) == sorted(submit_at) and sum(
+        d[k] for k in ("requests_ok", "requests_deadline_exceeded",
+                       "requests_failed")) == len(submit_at)
+    leaked = eng.cache.num_pages - 1 - eng.cache.num_free
+    compile_delta = eng.compile_count() - warm
+    prefill_calls = program_delta(eng, calls, "prefill")
+    decode_steps = program_delta(eng, calls, "decode")
+    expected = injected_with_work(eng, plans)
+    fired = list(eng.fault_injector.fired) if eng.fault_injector else []
+    if not all_terminal or leaked or compile_delta:
+        fail(f"{tag}: invariants broken: all_terminal {all_terminal}, "
+             f"{leaked} pages leaked, compile_delta {compile_delta}")
+    if any(r.status == "ok" and (len(r.generated) != CHAOS_NEW or not all(
+            0 <= t < V for t in r.generated)) for r in done):
+        fail(f"{tag}: a request ended ok with the wrong tokens")
+    if faults is None and (d["quarantines"] or d["requests_failed"] or
+                           caught):
+        fail(f"{tag}: the clean stream quarantined {d['quarantines']} "
+             f"batches and failed {d['requests_failed']} requests: "
+             f"{caught}")
+    if faults is not None and (
+            not expected or d["quarantines"] != expected or
+            len(caught) != expected or
+            any(name != "InjectedServingFault" for _, name, _ in caught)):
+        fail(f"{tag}: {d['quarantines']} quarantines, {expected} injected "
+             f"errors fired on a step with work (fired {fired}); caught "
+             f"{caught}")
+    if launches != {"flash_fwd": L * prefill_calls,
+                    "paged_decode": L * decode_steps} or \
+            not prefill_calls or not decode_steps:
+        fail(f"{tag}: launches {launches} != {L} x ({prefill_calls} "
+             f"prefill calls, {decode_steps} decode steps)")
+    design = check_design(fa, tag, {"fwd": launches["flash_fwd"]})
+    decode_design = check_decode_design(da, tag, launches, False)
+    ttft = sorted(first_tok.values())
+
+    def pct(q):
+        return float(np.percentile(np.asarray(ttft), q) * 1e3)
+
+    gen = sum(len(r.generated) for r in done)
+    result = {
+        "requests": submitted, "accepted": len(submit_at),
+        "success_rate": d["requests_ok"] / max(submitted, 1),
+        "shed_fraction": shed / max(submitted, 1),
+        "ttft_p50_ms": pct(50), "ttft_p99_ms": pct(99),
+        "tokens_per_s": gen / dt, "generated_tokens": gen, "wall_s": dt,
+        "quarantines": d["quarantines"], "retries": d["retries"],
+        "evictions": d["evictions"], "requests_failed": d["requests_failed"],
+        "requests_deadline_exceeded": d["requests_deadline_exceeded"],
+        "requests_shed": d["requests_shed"], "server_up": True,
+        "all_terminal": all_terminal, "pages_leaked": leaked,
+        "compile_delta": compile_delta, "fired": fired,
+        "injected_with_work": expected, "caught": caught,
+        "prefill_calls": prefill_calls, "decode_steps": decode_steps,
+        "launches": launches, "design_launches": design,
+        "decode_design_launches": decode_design["paged_decode"],
+    }
+    del eng
+    torch.cuda.empty_cache()
+    return result
+
+
+def chaos_watchdog(model):
+    """Phase 27(b): the hang watchdog on the card. A 1.0 s decode stall
+    past the warm-up trips a 0.25 s timeout once; `run()` then drains and
+    exits 0 with every accepted request terminal. A fresh engine whose
+    programs are cold never arms, though its steps outlast its
+    timeout."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    V = model.config.vocab_size
+    block = dict(CHAOS_BLOCK, hang_timeout_s=CHAOS_HANG_TIMEOUT_S,
+                 fault_injection={"faults": [{
+                     "kind": "decode_stall", "step": CHAOS_STALL_STEP,
+                     "seconds": CHAOS_STALL_S}]})
+    eng = InferenceEngine(model, config={"inference": block})
+    plans, _ = watch_faults(eng)
+    rng = np.random.default_rng(1)
+    prompts = chaos_prompts(eng, rng, V, CHAOS_HANG_REQUESTS)
+    warm_buckets(eng, rng, V)
+    warm_serial = eng.fault_injector.serial
+    if warm_serial >= CHAOS_STALL_STEP or eng.watchdog_fires:
+        fail(f"phase 27(b): the warm-up took {warm_serial} steps (the "
+             f"stall is at {CHAOS_STALL_STEP}) and fired the watchdog "
+             f"{eng.watchdog_fires} times")
+    ids = [eng.submit(p, max_new_tokens=CHAOS_NEW) for p in prompts]
+    t0 = time.perf_counter()
+    code = "returned"
+    try:
+        eng.run()
+    except SystemExit as e:
+        code = e.code
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    done = {}
+    for r in eng.scheduler.finished:
+        if r.request_id in done:
+            fail(f"phase 27(b): request {r.request_id} ended twice")
+        done[r.request_id] = r.status
+    dump = eng.last_stack_dump or ""
+    stalled = (CHAOS_STALL_STEP, "decode_stall") in eng.fault_injector.fired
+    if code != 0 or eng.watchdog_fires != 1 or not stalled or \
+            not plans[CHAOS_STALL_STEP][1]:
+        fail(f"phase 27(b): run() ended with {code!r} (want SystemExit(0)), "
+             f"the watchdog fired {eng.watchdog_fires} times (want 1), "
+             f"stall fired {stalled}")
+    if "MainThread" not in dump or "ds-hang-watchdog" not in dump:
+        fail(f"phase 27(b): the stack dump does not name the threads: "
+             f"{dump[:400]}")
+    if sorted(done) != sorted(ids) or \
+            any(s != "ok" for s in done.values()):
+        fail(f"phase 27(b): accepted {ids}, terminal {done}")
+    eng.watchdog.stop()
+    del eng
+
+    cold = InferenceEngine(model, config={"inference": dict(
+        CHAOS_BLOCK, hang_timeout_s=CHAOS_COLD_TIMEOUT_S)})
+    cold.submit(prompts[0], max_new_tokens=2)
+    step_s = []
+    while cold.scheduler.has_work:
+        t = time.perf_counter()
+        cold.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    time.sleep(0.1)                # several of the watchdog's polls
+    if cold.watchdog_fires or min(step_s) <= CHAOS_COLD_TIMEOUT_S or \
+            set(cold.program_calls.values()) != {1}:
+        fail(f"phase 27(b): the cold engine fired {cold.watchdog_fires} "
+             f"times over steps of {step_s} s (timeout "
+             f"{CHAOS_COLD_TIMEOUT_S} s), programs {cold.program_calls}")
+    cold.watchdog.stop()
+    del cold
+    torch.cuda.empty_cache()
+    return {"exit_code": code, "watchdog_fires": 1, "run_s": run_s,
+            "warm_serial": warm_serial, "stall_step": CHAOS_STALL_STEP,
+            "stall_s": CHAOS_STALL_S, "timeout_s": CHAOS_HANG_TIMEOUT_S,
+            "terminal": sorted(set(done.values())), "requests": len(ids),
+            "dump_lines": dump.count("\n") + 1,
+            "cold_step_s": step_s, "cold_timeout_s": CHAOS_COLD_TIMEOUT_S,
+            "cold_watchdog_fires": 0}
+
+
+def serve_chaos(fa, da, report):
+    """Phase 27: serve-chaos-125M clean and under the storm, then the
+    watchdog (27(b))."""
+    model = build_model(torch.bfloat16)
+    out = {"clean": chaos_stream(fa, da, model, None, "serve-chaos clean"),
+           "storm": chaos_stream(fa, da, model, CHAOS_STORM,
+                                 "serve-chaos storm")}
+    out["chaos_ttft_p99_degradation_pct"] = (
+        (out["storm"]["ttft_p99_ms"] - out["clean"]["ttft_p99_ms"]) /
+        out["clean"]["ttft_p99_ms"] * 100.0)
+    out["watchdog"] = chaos_watchdog(model)
+    report["serve_chaos"] = out
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_chaos(r, card):
+    for tag in ("clean", "storm"):
+        v = r[tag]
+        print(f"  serve-chaos-125M {tag}: success_rate "
+              f"{v['success_rate']:.4f}, shed_fraction "
+              f"{v['shed_fraction']:.4f}, TTFT p50 {v['ttft_p50_ms']:.2f} "
+              f"ms / p99 {v['ttft_p99_ms']:.2f} ms, {v['tokens_per_s']:.1f} "
+              f"tokens/s, quarantines {v['quarantines']}, retries "
+              f"{v['retries']}, evictions {v['evictions']}, failed "
+              f"{v['requests_failed']}, fired {v['fired']}, "
+              f"{v['prefill_calls']} prefill calls, {v['decode_steps']} "
+              f"decode steps, launches {v['launches']}, pages_leaked "
+              f"{v['pages_leaked']}, compile_delta {v['compile_delta']} on "
+              f"{card}", flush=True)
+    w = r["watchdog"]
+    print(f"  serve-chaos-125M: chaos_ttft_p99_degradation_pct "
+          f"{r['chaos_ttft_p99_degradation_pct']:.1f}; watchdog: fired "
+          f"{w['watchdog_fires']} on a {w['stall_s']} s stall at step "
+          f"{w['stall_step']} (timeout {w['timeout_s']} s), run() exited "
+          f"{w['exit_code']} after {w['run_s']:.2f} s with "
+          f"{w['requests']} requests {w['terminal']}; a cold engine "
+          f"(timeout {w['cold_timeout_s']} s, steps "
+          f"{[round(s, 4) for s in w['cold_step_s']]} s) fired 0 times on "
+          f"{card}", flush=True)
+
+
+def lose_pools_on_prefill(eng, nth):
+    """Make the engine's ``nth`` prefill call release the storage of every
+    K/V pool (target and draft, int8 data and scales) and raise, as a call
+    that died mid-execution would leave them → the fault serials of the
+    steps that lost them."""
+    from deeperspeed_tpu_torch.inference import QuantizedPages
+    run_prefill = eng._run_prefill
+    calls, lost = [0], []
+
+    def dying_prefill(plan):
+        calls[0] += 1
+        if calls[0] != nth:
+            return run_prefill(plan)
+        lost.append(eng.fault_injector.serial - 1)
+        for cache in (eng.cache, eng.draft_cache):
+            if cache is None:
+                continue
+            for pool in (cache.k, cache.v):
+                parts = ((pool.data, pool.scale)
+                         if isinstance(pool, QuantizedPages) else (pool,))
+                for t in parts:
+                    t.untyped_storage().resize_(0)
+        raise RuntimeError("simulated mid-execution loss of the KV pools")
+
+    eng._run_prefill = dying_prefill
+    return lost
+
+
+def chaos_parity_case(fa, da, qm, what, target, draft, extra,
+                      int8=False, lose_at=None):
+    """One pair of phase 28: phase 26's shared-prefix stream, served twice
+    (misses, then hits) under CHAOS_PARITY_FAULTS by the prefix +
+    speculative engine through the kernels ("kernels") and through the
+    plain path ("plain"), and by a cache-off, non-speculative engine
+    through the kernels ("cache_off", whose target decodes on the paged
+    decode kernel: the speculative target only verifies, and the row's
+    draft, at head dim 32, takes the plain decode); then by a clean one
+    without faults ("clean"). Every request ends ok with identical greedy
+    tokens (fp32), no page leaks, and each faulty engine quarantines
+    exactly the injected errors that fired on a step with work of their
+    phase. ``int8`` serves int8 block weights (target and draft);
+    ``lose_at`` makes that prefill call of each faulty engine lose every
+    pool."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    V = target.config.vocab_size
+    rng = np.random.default_rng(7)
+    shared = list(rng.integers(1, V, size=PREFIX_LEN))
+    prompts = prefix_prompts(rng, shared, V, n_req=10)
+    spec = {"enabled": True, "num_draft_tokens": PREFIX_SPEC_K}
+    top = {}
+    if int8:
+        spec["draft_weight_quant"] = "int8"
+        top = {"quantization": {"weights": "int8"}}
+    plain_block = dict(PREFIX_BLOCK, **extra)
+    faulty = dict(plain_block, retry=CHAOS_BLOCK["retry"],
+                  fault_injection={"faults": CHAOS_PARITY_FAULTS})
+    both = dict(faulty, prefix_cache={"enabled": True}, speculative=spec)
+    paths = {"kernels": (both, "auto", True), "plain": (both, "xla", True),
+             "cache_off": (faulty, "auto", False),
+             "clean": (plain_block, "auto", False)}
+    runs, counts, faults = {}, {}, {}
+    for path, (block, kernel, speculative) in paths.items():
+        target.use_kernels = kernel == "auto"
+        reset_serving_counts(fa, da, qm)
+        eng = InferenceEngine(
+            target, config={"inference": dict(block, kernel=kernel), **top},
+            draft_model=draft if speculative else None)
+        plans, caught = watch_faults(eng)
+        lost = ([] if lose_at is None or path == "clean"
+                else lose_pools_on_prefill(eng, lose_at))
+        waves = []
+        for _ in range(2):
+            ids = [eng.submit(p, max_new_tokens=16) for p in prompts]
+            done = {}
+            while eng.scheduler.has_work:
+                eng.step()
+                for r in eng.scheduler.pop_finished():
+                    done[r.request_id] = r
+            waves.append([done[i] for i in ids])
+        torch.cuda.synchronize()
+        statuses = [r.status for w in waves for r in w]
+        runs[path] = [[list(r.generated) for r in w] for w in waves]
+        counts[path] = {"flash_fwd": fa.launches,
+                        "paged_decode": da.launches,
+                        "paged_decode_int8": da.launches_int8,
+                        "paged_decode_plain": da.launches_by_design["plain"]
+                        + da.launches_by_design_int8["plain"],
+                        "quant_matmul": qm.launches}
+        check_registry(f"{what} ({path})", eng)
+        expected = injected_with_work(eng, plans, lost) + len(lost)
+        simulated = [c for c in caught if c[1] != "InjectedServingFault"]
+        faults[path] = {"fired": list(eng.fault_injector.fired)
+                        if eng.fault_injector else [],
+                        "quarantines": eng.stats["quarantines"],
+                        "retries": eng.stats["retries"],
+                        "evictions": eng.stats["evictions"],
+                        "expected": expected, "caught": caught,
+                        "pools_lost_at": lost}
+        pools_lost = eng.cache.pools_lost() or (
+            eng.draft_cache is not None and eng.draft_cache.pools_lost())
+        if any(s != "ok" for s in statuses) or \
+                eng.stats["quarantines"] != expected or \
+                len(caught) != expected or \
+                len(simulated) != len(lost) or pools_lost or \
+                (path != "clean") != bool(expected) or \
+                (lose_at is not None and path != "clean" and
+                 len(lost) != 1):
+            fail(f"{what} ({path}): statuses {statuses}, faults "
+                 f"{faults[path]}, pools lost {pools_lost}")
+        del eng
+    target.use_kernels = True
+    torch.cuda.empty_cache()
+    same = [[len({str(runs[p][i][j]) for p in runs}) == 1
+             for j in range(len(prompts))] for i in range(2)]
+    print(f"  {what}: {sum(map(sum, same))}/{2 * len(prompts)} requests "
+          f"token-identical (the prefix + speculative engine through the "
+          f"kernels and the plain path and a cache-off engine, all under "
+          f"faults, and a clean cache-off one); faults "
+          f"{ {p: {k: v for k, v in f.items() if k != 'caught'} for p, f in faults.items()} }; "
+          f"launches {counts}", flush=True)
+    if not all(map(all, same)):
+        fail(f"{what}: greedy tokens differ between the paths: {runs}")
+    decode = "paged_decode_int8" if extra.get("kv_cache_dtype") == "int8" \
+        else "paged_decode"
+    if any(v for n, v in counts["plain"].items()) or \
+            not counts["kernels"]["flash_fwd"] or \
+            not counts["cache_off"]["flash_fwd"] or \
+            not counts["cache_off"][decode] or \
+            (int8 and not all(counts[p]["quant_matmul"]
+                              for p in ("kernels", "cache_off"))):
+        fail(f"{what}: launches {counts}: the plain path must launch no "
+             f"kernel, the kernel paths the flash forward, the cache-off "
+             f"engine the {decode} kernel, int8 weights the int8 matmul")
+    return {"identical": same, "launches": counts, "faults": faults,
+            "prompts": len(prompts), "extra": extra, "int8_weights": int8,
+            "lose_pools_at": lose_at}
+
+
+def chaos_parity(fa, da, qm, report):
+    """Phase 28: fp32, kernels vs plain under faults: (a) phase 26(a)'s
+    pair; (b) the same with int8 weights and int8 KV pages, and a
+    mid-stream pool loss."""
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    target = GPTNeoX(GPTNeoXConfig(**dict(NEOX_125M, num_layers=4)),
+                     device="cuda").init_params(11)
+    draft = GPTNeoX(GPTNeoXConfig(**PREFIX_DRAFT),
+                    device="cuda").init_params(12)
+    out = {"a": chaos_parity_case(fa, da, qm, "phase 28(a)", target, draft,
+                                  {})}
+    out["b"] = chaos_parity_case(
+        fa, da, qm, "phase 28(b)", target, draft,
+        {"kv_cache_dtype": "int8"}, int8=True, lose_at=4)
+    del target, draft
+    torch.cuda.empty_cache()
+    report["chaos_parity"] = out
+    return out
+
+
+def run_chaos_phases(fa, da, qm, report, card):
+    print("serving under failure serve-chaos-125M (bf16, row_serve_chaos):",
+          flush=True)
+    sc = serve_chaos(fa, da, report)
+    print_chaos(sc, card)
+    print("chaos parity (fp32, kernels vs plain vs clean, under faults):",
+          flush=True)
+    cp = chaos_parity(fa, da, qm, report)
+    return sc, cp
+
+
+def serve_chaos_only(card):
+    """Phases 27-28 alone."""
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s", flush=True)
+    report = {"card": card}
+    run_chaos_phases(fa, da, qm, report, card)
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_chaos.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5263,6 +5812,8 @@ def main():
     ap.add_argument("--serve-prefix-only", action="store_true",
                     help="run only phases 24-26 (the prefix cache and "
                          "speculative decoding)")
+    ap.add_argument("--serve-chaos-only", action="store_true",
+                    help="run only phases 27-28 (serving under failure)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5285,6 +5836,8 @@ def main():
         return gpt2_only(card, args.profile)
     if args.serve_prefix_only:
         return serve_prefix_only(card)
+    if args.serve_chaos_only:
+        return serve_chaos_only(card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -5457,6 +6010,8 @@ def main():
     tg, lg, sg, _ = run_gpt2_phases(fa, bsa, da, ad, report, card,
                                     args.profile)
     sp, sx, pp = run_prefix_phases(fa, da, qm, report, card)
+    sc, cp = run_chaos_phases(fa, da, qm, report, card)
+    chaos = {f"serve_chaos_{v}": sc[v] for v in ("clean", "storm")}
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -5508,7 +6063,8 @@ def main():
          tg["launches"]["flash_fwd"] + lg["launches"]["flash_fwd"] +
          sg["launches"]["flash_fwd"] + sum(
              r[n]["flash_fwd"] for r in (sp, sx)
-             for n in ("base_launches", "launches")),
+             for n in ("base_launches", "launches")) + sum(
+             r["launches"]["flash_fwd"] for r in chaos.values()),
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "train_moe": tm["launches"]["flash_fwd"],
@@ -5524,7 +6080,9 @@ def main():
                               "serve_gpt2xl_spec": sx["launches"][
                                   "flash_fwd"],
                               "serve_gpt2xl_spec_cache_off": sx[
-                                  "base_launches"]["flash_fwd"]},
+                                  "base_launches"]["flash_fwd"]} | {
+             path: r["launches"]["flash_fwd"]
+             for path, r in chaos.items()},
          "design": "bf16 at D 64/128: tensor cores (mma.sync, "
                    "csrc/attention_mma.cuh); fp32, D 256: FMA tile steps",
          "design_launches_by_path": {
@@ -5535,7 +6093,9 @@ def main():
              "train_packed": tp["design_launches"]["fwd"],
              "serve_gpt2xl": sg["design_launches"]["fwd"],
              "train_gpt2xl": {tag: r["design_launches"]["fwd"]
-                              for tag, r in tg["runs"].items()}},
+                              for tag, r in tg["runs"].items()}} | {
+             path: r["design_launches"]["fwd"]
+             for path, r in chaos.items()},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
@@ -5553,7 +6113,8 @@ def main():
          "launches": sv["launches"]["paged_decode"] +
          sg["launches"]["paged_decode"] + sum(
              r[n]["paged_decode"] for r in (sp, sx)
-             for n in ("base_launches", "launches")),
+             for n in ("base_launches", "launches")) + sum(
+             r["launches"]["paged_decode"] for r in chaos.values()),
          "launches_by_path": {"serve": sv["launches"]["paged_decode"],
                               "serve_gpt2xl": sg["launches"][
                                   "paged_decode"],
@@ -5564,12 +6125,17 @@ def main():
                               "serve_gpt2xl_spec": sx["launches"][
                                   "paged_decode"],
                               "serve_gpt2xl_spec_cache_off": sx[
-                                  "base_launches"]["paged_decode"]},
+                                  "base_launches"]["paged_decode"]} | {
+             path: r["launches"]["paged_decode"]
+             for path, r in chaos.items()},
          "design": DECODE_DESIGN,
          "design_launches": sv["decode_design_launches"],
          "design_launches_gpt2xl": sg["decode_design_launches"],
          "design_launches_serve_prefix": sp["decode_design_launches"],
          "design_launches_gpt2xl_spec": sx["decode_design_launches"],
+         "design_launches_serve_chaos": {
+             path: r["decode_design_launches"]
+             for path, r in chaos.items()},
          "max_abs_err": de["max_abs_err"], "ms": de["ms"],
          "plain_ms": de["plain_ms"], "bound_ms": de["bound_ms"],
          "bound_by": de["bound_by"], "library_ms": de["library_ms"],
@@ -5661,6 +6227,9 @@ def main():
                               for t, r in sq["rungs"].items()},
          "parity_launches_int8_draft": pp["b"]["launches"]["kernels"][
              "quant_matmul"],
+         "chaos_parity_launches_int8": {
+             path: cp["b"]["launches"][path]["quant_matmul"]
+             for path in ("kernels", "cache_off", "clean")},
          "design": "bf16: wgmma fed by TMA through an mbarrier ring, the "
                    "int8 tile widened to bf16 in shared memory, K split "
                    "over a cluster (csrc/hopper_gemm.cuh); fp32: FMA tiles",
@@ -5688,6 +6257,9 @@ def main():
              "paged_decode_int8"],
          "parity_launches_int8_prefix_spec": pp["b"]["launches"][
              "kernels"]["paged_decode_int8"],
+         "chaos_parity_launches_int8": {
+             path: cp["b"]["launches"][path]["paged_decode_int8"]
+             for path in ("kernels", "cache_off", "clean")},
          "design": DECODE_DESIGN,
          "design_launches": sq["rungs"]["int8w_int8kv"][
              "decode_design_launches"]["paged_decode_int8"],

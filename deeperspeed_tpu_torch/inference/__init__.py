@@ -10,10 +10,16 @@ int8 pages) and weight-only int8 matmul kernels.
   prefix registry of ``inference.prefix_cache``.
 - `ContinuousBatchingScheduler` / `Request` — per-step admission and
   eviction under a token + page budget (copied from the JAX package).
+- `AdmissionController` and the typed request-terminal errors
+  (`RequestRejected` / `DeadlineExceeded` / `RequestFailed` /
+  `DrainAborted`): the serving-under-failure layer, with the engine's
+  quarantine / retry / poison, fault injection, hang watchdog and
+  graceful drain.
 """
 
-from .admission import (DeadlineExceeded, PRIORITIES, RequestFailed,
-                        REQUEST_STATUSES)
+from .admission import (AdmissionController, DeadlineExceeded,
+                        DrainAborted, PRIORITIES, RequestFailed,
+                        RequestRejected, REQUEST_STATUSES)
 from .engine import InferenceEngine
 from .kv_cache import (PagedKVCache, PrefixCache, QuantizedPages,
                        pages_for_tokens, quantize_kv)
@@ -22,5 +28,6 @@ from .scheduler import ContinuousBatchingScheduler, Request, StepPlan
 __all__ = ["InferenceEngine", "PagedKVCache", "PrefixCache",
            "QuantizedPages", "quantize_kv", "pages_for_tokens",
            "ContinuousBatchingScheduler", "Request", "StepPlan",
-           "DeadlineExceeded", "RequestFailed", "PRIORITIES",
+           "AdmissionController", "RequestRejected", "DeadlineExceeded",
+           "RequestFailed", "DrainAborted", "PRIORITIES",
            "REQUEST_STATUSES"]

@@ -46,6 +46,23 @@ Execution model:
   chunk call, and acceptance appends 1 to k + 1 tokens a row. Greedy
   acceptance is token-identical to plain decode; sampled acceptance is
   rejection sampling on a numpy generator of its own.
+- **Serving under failure.** ``inference.admission`` sheds a request at
+  `submit` with a typed `RequestRejected` (a full queue, page-pool or
+  TTFT pressure, an SLO the measured TTFT already misses). A prefill or
+  decode exception QUARANTINES the batch (`_quarantine_batch`): the
+  requests free their pages and re-prefill from their full context after
+  a capped, jittered backoff (``inference.retry``, `utils.kv_retry`), and
+  a request that fails ``retry.max_attempts`` steps in a row ends with a
+  typed `RequestFailed`; the server stays up. ``inference.fault_injection``
+  (or ``DS_FAULT_INJECT``) scripts prefill / decode errors, decode stalls
+  and page-pool pressure by step serial. ``inference.hang_timeout_s``
+  arms a `runtime.sentinel.HangWatchdog` around a step whose bucket
+  programs have all run before (a first call builds the kernels and the
+  cuBLAS state: it is not a hang); on expiry it dumps every thread's
+  stack and requests a drain. `drain` stops admissions, finishes what is
+  in flight within ``inference.drain_deadline_s`` and fails the rest
+  with a typed `DrainAborted`; `install_drain_handler` makes SIGTERM /
+  SIGINT request it, and `run` then drains and exits with code 0.
 
 Sampling is deterministic: temperature 0 (default) is argmax;
 temperature > 0 draws from the softmax with the engine's
@@ -56,13 +73,12 @@ the speculative generator's state). The draws are the port's own, not
 the JAX package's.
 
 Not ported yet (each raises at construction, and ROADMAP.md lists it):
-admission control, serving fault injection and the hang watchdog (the
-robustness slice, which also brings the quarantine/retry layer: a
-prefill or decode exception propagates), disaggregated roles, the router
-and a model-parallel mesh (scale-out), and telemetry spans
-(observability).
+disaggregated roles, the router and a model-parallel mesh (scale-out),
+and telemetry spans and a monitor (observability), so `drain` has no
+metrics backend to flush.
 """
 
+import random
 import time
 
 import numpy as np
@@ -76,13 +92,19 @@ from ..ops.hopper.decode_attention import (paged_attention_reference,
 from ..runtime.config import (parse_inference_block,
                               parse_quantization_block)
 from ..runtime.config_utils import DeepSpeedConfigError, load_config_json
+from ..runtime.fault_injection import (FaultInjector, InjectedServingFault,
+                                       SERVING_FAULT_KINDS)
 from ..runtime.precision import resolve_kv_cache_dtype
 from ..utils.device import resolve_device
-from .admission import validate_priority
+from ..utils.kv_retry import backoff_delay
+from ..utils.logging import logger
+from .admission import (AdmissionController, DrainAborted, RequestFailed,
+                        validate_priority)
 from .kv_cache import (PagedKVCache, PrefixCache, QuantizedPages,
                        pages_for_tokens, quantize_kv)
 from .metrics import ServeRequestMetrics
-from .scheduler import RUNNING, ContinuousBatchingScheduler, Request
+from .scheduler import (FINISHED, RUNNING, ContinuousBatchingScheduler,
+                        Request)
 
 
 def _pow2_ladder(lo, hi):
@@ -342,13 +364,40 @@ class InferenceEngine:
                       "schedule_s": 0.0, "prefill_s": 0.0,
                       "decode_s": 0.0, "admission_wait_s": 0.0,
                       "queue_depth": 0.0, "page_pool_util": 0.0,
-                      "requests_ok": 0, "requests_deadline_exceeded": 0,
+                      # terminal-status taxonomy: every request reaches
+                      # exactly one
+                      "requests_ok": 0, "requests_shed": 0,
+                      "requests_deadline_exceeded": 0,
                       "requests_failed": 0,
+                      "quarantines": 0, "retries": 0,
                       # speculative decoding: proposed / accepted draft
                       # tokens and verify steps (0 with speculation off)
                       "spec_steps": 0, "spec_proposed": 0,
                       "spec_accepted": 0}
         self.request_metrics = ServeRequestMetrics()
+
+        # graceful drain (SIGTERM): a flag-only handler, acted on at the
+        # next serving-loop iteration
+        self.drain_deadline_s = ip["drain_deadline_s"]
+        self._drain_requested = False
+        self._prev_handlers = {}
+        # -- robustness: admission control, the retry / poison policy,
+        #    serving fault injection, the hang watchdog ------------------
+        self.retry_params = ip["retry"]
+        self._retry_rng = random.Random(ip["seed"])
+        self.admission = (AdmissionController(ip["admission"])
+                          if ip["admission"] else None)
+        self.fault_injector = FaultInjector.from_config_env(
+            config_spec=ip["fault_injection"])
+        self._step_faults = []      # serving faults fired this step
+        self._pressure_pages = []   # page_pool_pressure seizures
+        self.watchdog = None
+        self.watchdog_fires = 0
+        self.last_stack_dump = None
+        if ip["hang_timeout_s"] > 0:
+            from ..runtime.sentinel import HangWatchdog
+            self.watchdog = HangWatchdog(ip["hang_timeout_s"], self,
+                                         "_on_serving_hang")
 
     def _init_draft(self, ip, draft_model, draft_params):
         """The draft model of ``inference.speculative``: the JAX engine's
@@ -406,12 +455,6 @@ class InferenceEngine:
              "an inference.disaggregation role other than \"unified\"",
              "scale-out"),
             (ip["router"] is not None, "inference.router", "scale-out"),
-            (ip["fault_injection"] is not None,
-             "inference.fault_injection", "robustness"),
-            (ip["admission"] is not None, "inference.admission",
-             "robustness"),
-            (ip["hang_timeout_s"] > 0, "inference.hang_timeout_s > 0",
-             "robustness"),
         )
         for hit, what, slice_name in checks:
             if hit:
@@ -726,36 +769,80 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens, eos_token_id=None,
-               request_id=None, priority=None, deadline_ms=None):
-        """Enqueue one request; returns its id. ``priority`` is a class
-        name (``interactive``/``batch``: eviction takes ``batch`` first);
-        ``deadline_ms`` bounds the request's total wall clock (expired
-        requests end with status ``deadline_exceeded``)."""
+               request_id=None, priority=None, deadline_ms=None,
+               ttft_slo_ms=None):
+        """Enqueue one request; returns its id.
+
+        ``priority`` is a class name (``interactive``/``batch``: eviction
+        takes ``batch`` first); ``deadline_ms`` bounds the request's
+        total wall clock (expired requests end with status
+        ``deadline_exceeded``); ``ttft_slo_ms`` is its time-to-first-token
+        objective. Under overload the admission controller raises a typed
+        `RequestRejected` (terminal status ``shed``) with a retry-after
+        hint, and the request never enters the queue."""
         priority = self.default_priority if priority is None else priority
         validate_priority(priority)
-        if deadline_ms is not None and (
-                not isinstance(deadline_ms, (int, float)) or
-                isinstance(deadline_ms, bool) or deadline_ms <= 0):
-            raise ValueError(f"deadline_ms must be a number > 0 "
-                             f"(milliseconds), got {deadline_ms!r}")
+        for name, value in (("deadline_ms", deadline_ms),
+                            ("ttft_slo_ms", ttft_slo_ms)):
+            if value is not None and (
+                    not isinstance(value, (int, float)) or
+                    isinstance(value, bool) or value <= 0):
+                raise ValueError(
+                    f"{name} must be a number > 0 (milliseconds), got "
+                    f"{value!r}")
         req = Request(prompt=[int(t) for t in prompt],
                       max_new_tokens=int(max_new_tokens),
                       eos_token_id=eos_token_id, request_id=request_id,
                       priority=priority,
                       deadline_ms=(None if deadline_ms is None
-                                   else float(deadline_ms)))
+                                   else float(deadline_ms)),
+                      ttft_slo_ms=(None if ttft_slo_ms is None
+                                   else float(ttft_slo_ms)))
+        if self.admission is not None:
+            usable = max(self.cache.num_pages - 1, 1)
+            try:
+                self.admission.admit(
+                    req, queue_depth=len(self.scheduler.waiting) +
+                    len(self.scheduler.quarantined),
+                    page_pool_util=1.0 - self.cache.num_free / usable)
+            except Exception:
+                self.stats["requests_shed"] += 1
+                raise
         return self.scheduler.add_request(req, now=time.perf_counter())
 
     def step(self):
         """One scheduler step: admit + prefill new requests, decode one
         token for every in-flight sequence (with speculation: one
-        speculative window each). Returns a summary dict. A prefill or
-        decode exception propagates."""
+        speculative window each). Returns a summary dict.
+
+        A prefill or decode exception QUARANTINES the implicated batch
+        (`_quarantine_batch`) instead of killing the server: `step()`
+        raises only on a scheduler invariant. The hang watchdog is armed
+        around the dispatch once the step's programs are warm and fed on
+        exit, also when the step dies rather than hangs."""
+        self._plan_step_faults()
+        self._apply_page_pressure()
+        try:
+            return self._step_inner()
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.feed()
+            self._release_page_pressure()
+
+    def _step_inner(self):
         now = time.perf_counter()
         finished_before = len(self.scheduler.finished)
         plan = self.scheduler.schedule(now=now)
         self.stats["schedule_s"] += time.perf_counter() - now
         self.stats["evictions"] += len(plan.evicted)
+        if plan.empty and self.scheduler.quarantined:
+            # nothing dispatchable until a backoff window closes: sleep
+            # toward the earliest retry_at (capped, so run() / drain()
+            # stay responsive) instead of spinning step() and burning
+            # scripted fault serials on idle steps
+            wake = min((r.retry_at for r in self.scheduler.quarantined
+                        if r.retry_at is not None), default=now)
+            time.sleep(min(max(wake - time.perf_counter(), 0.0), 0.05))
         for req in plan.prefills:
             if req.admitted_at is not None and req.enqueued_at is not None:
                 wait = req.admitted_at - req.enqueued_at
@@ -765,33 +852,229 @@ class InferenceEngine:
         self.stats["queue_depth"] = float(len(self.scheduler.waiting))
         self.stats["page_pool_util"] = 1.0 - self.cache.num_free / usable
 
+        if self.watchdog is not None and self._programs_warm(plan):
+            self.watchdog.arm()
+
         if plan.prefills:
             t0 = time.perf_counter()
-            self._run_prefill(plan)
+            ok = True
+            try:
+                if self._fault_fired("prefill_error") is not None:
+                    raise InjectedServingFault(
+                        "injected prefill_error fault")
+                self._run_prefill(plan)
+            except Exception as e:  # noqa: BLE001 - quarantine, don't die
+                ok = False
+                self._quarantine_batch(plan.prefills, e, "prefill")
             self.stats["prefill_s"] += time.perf_counter() - t0
-            self.stats["prefill_requests"] += len(plan.prefills)
-            # r.cached is the pre-sampling context length (complete_
-            # prefill pins it before appending the first token)
-            self.stats["prefill_tokens"] += \
-                sum(r.cached for r in plan.prefills)
+            if ok:
+                self.stats["prefill_requests"] += len(plan.prefills)
+                # r.cached is the pre-sampling context length (complete_
+                # prefill pins it before appending the first token)
+                self.stats["prefill_tokens"] += \
+                    sum(r.cached for r in plan.prefills)
 
+        # a prefill that lost the pools mid-execution evicted every
+        # running sequence (`_recover_cache_if_lost`): the planned decode
+        # batch would read zeroed pages and append garbage tokens, so it
+        # is skipped and the evicted requests re-prefill on later steps
         produced = 0
         if plan.decodes and all(r.state == RUNNING for r in plan.decodes):
+            stall = self._fault_fired("decode_stall")
+            if stall is not None:
+                time.sleep(stall["seconds"])   # drives the watchdog
             t0 = time.perf_counter()
-            produced = (self._run_speculative(plan) if self.spec_k
-                        else self._run_decode(plan))
+            ok = True
+            try:
+                if self._fault_fired("decode_error") is not None:
+                    raise InjectedServingFault(
+                        "injected decode_error fault")
+                produced = (self._run_speculative(plan) if self.spec_k
+                            else self._run_decode(plan))
+            except Exception as e:  # noqa: BLE001
+                ok = False
+                produced = 0
+                self._quarantine_batch(plan.decodes, e, "decode")
             self.stats["decode_s"] += time.perf_counter() - t0
-            self.stats["decode_tokens"] += produced
+            if ok:
+                self.stats["decode_tokens"] += produced
 
         finished = len(self.scheduler.finished) - finished_before
         self.stats["finished"] += finished
         self.stats["steps"] += 1
+        self._sync_status_counts()
+        if self.admission is not None and finished:
+            self.admission.note_finished(finished)
+        return {"prefilled": len(plan.prefills), "decoded": produced,
+                "evicted": len(plan.evicted), "finished": finished}
+
+    def _sync_status_counts(self):
+        """Mirror the scheduler's terminal-status tallies into the stats
+        (``shed`` is the engine's own: shed requests never enter the
+        scheduler)."""
         sc = self.scheduler.status_counts
         self.stats["requests_ok"] = sc["ok"]
         self.stats["requests_deadline_exceeded"] = sc["deadline_exceeded"]
         self.stats["requests_failed"] = sc["failed"]
-        return {"prefilled": len(plan.prefills), "decoded": produced,
-                "evicted": len(plan.evicted), "finished": finished}
+
+    # ------------------------------------------------------------------
+    # step-failure quarantine + serving fault injection
+    # ------------------------------------------------------------------
+
+    def _plan_step_faults(self):
+        """One injector turn a serving step: keep the serving-kind host
+        faults fired for this step (training kinds in a shared
+        DS_FAULT_INJECT plan are ignored here)."""
+        self._step_faults = []
+        if self.fault_injector is None:
+            return
+        self.fault_injector.plan_next_step()
+        self._step_faults = [
+            f for f in self.fault_injector.take_host_faults()
+            if f["kind"] in SERVING_FAULT_KINDS]
+
+    def _fault_fired(self, kind):
+        return next((f for f in self._step_faults if f["kind"] == kind),
+                    None)
+
+    def _apply_page_pressure(self):
+        """``page_pool_pressure`` fault: seize a fraction of the FREE
+        pool for this step, so scheduling runs under memory pressure
+        (eviction, admission shedding); released at step end."""
+        fault = self._fault_fired("page_pool_pressure")
+        if fault is None:
+            return
+        n = int(self.cache.num_free * fault["factor"])
+        got = self.cache.allocate(n)
+        if got:
+            self._pressure_pages.extend(got)
+            logger.warning(
+                f"fault injection: page_pool_pressure seized {len(got)} "
+                f"free page(s) for this step")
+
+    def _release_page_pressure(self):
+        if self._pressure_pages:
+            self.cache.free(self._pressure_pages)
+            self._pressure_pages = []
+
+    def _quarantine_batch(self, requests, exc, phase):
+        """A prefill or decode step failed: quarantine every implicated
+        request. Attribution is batch-granular (the failing request
+        cannot be told apart inside one batched call); an innocent
+        co-batched request resets its failure run at its next completed
+        step. A transient failure gets a capped, jittered retry; a
+        request failing ``retry.max_attempts`` consecutive steps is
+        poisoned with a typed `RequestFailed`.
+
+        A quarantined request frees its pages and re-prefills from its
+        full context, so K/V that a call wrote past the request's
+        committed length before it raised (torch writes the pools in
+        place, layer by layer) is never read. A sticky CUDA error (an
+        illegal address) cannot be recovered in-process: every later
+        call fails too, until the requests are poisoned."""
+        now = time.perf_counter()
+        self._recover_cache_if_lost(now)
+        # the exception rides on poisoned requests (RequestFailed.
+        # last_error) that live until the caller pops them: drop its
+        # traceback now, or its frames pin this step's tensors (and the
+        # engine) for that whole lifetime
+        exc.__traceback__ = None
+        rp = self.retry_params
+        poisoned = 0
+        for req in requests:
+            if req.state == FINISHED:
+                continue       # cache-loss recovery may have failed it
+            req.failures += 1
+            if req.failures >= rp["max_attempts"]:
+                poisoned += 1
+                self.scheduler.finish_failed(req, RequestFailed(
+                    f"request {req.request_id} failed {req.failures} "
+                    f"consecutive {phase} steps — poisoned "
+                    f"({type(exc).__name__}: {exc})",
+                    last_error=exc, attempts=req.failures))
+            else:
+                delay_ms = backoff_delay(
+                    req.failures, rp["backoff_base_ms"],
+                    rp["backoff_cap_ms"], rp["jitter"], self._retry_rng)
+                self.scheduler.quarantine_request(
+                    req, retry_at=now + delay_ms / 1e3, now=now)
+                self.stats["retries"] += 1
+        self.stats["quarantines"] += 1
+        logger.warning(
+            f"serving {phase} step failed ({type(exc).__name__}: {exc}) "
+            f"— quarantined {len(requests)} request(s) "
+            f"({poisoned} poisoned); the server stays up")
+
+    def _recover_cache_if_lost(self, now):
+        """A step that lost the K/V pools mid-execution (their storage
+        released: `PagedKVCache.pools_lost`, the port's counterpart of a
+        consumed donated buffer) leaves every cached context gone:
+        rebuild the pools zeroed (the draft's too), drop the prefix
+        registry and evict every running sequence, which re-prefills
+        from its full token history on readmission. Errors that leave
+        the pools allocated (the common case, injected faults included)
+        skip this."""
+        lost = self.cache.pools_lost() or (
+            self.draft_cache is not None and self.draft_cache.pools_lost())
+        if not lost:
+            return
+        logger.error(
+            "serving step lost the KV pools mid-execution — rebuilding "
+            "zeroed pools and re-prefilling every running sequence")
+        self.cache.reset_pools()
+        if self.draft_cache is not None:
+            self.draft_cache.reset_pools()
+        if self.prefix_cache is not None:
+            # registered prefix K/V died with the pools: drop every chain
+            # and detach waiting attachments, or new requests would share
+            # zeroed pages
+            self.prefix_cache.clear()
+            self.scheduler.detach_waiting_prefixes()
+        while self.scheduler.running:
+            self.scheduler._evict_victim(now)
+
+    def _programs_warm(self, plan):
+        """True when every bucket program this plan dispatches has run
+        at least once in this engine (its count in `program_calls`, which
+        `_program` bumps before the call): a first call builds the kernel
+        library with nvcc and sets up cuBLAS handles and workspaces, and
+        the watchdog must not count that as a hang."""
+        def warm(key):
+            return self.program_calls.get(key, 0) >= 1
+        if plan.empty:
+            return False
+        if plan.prefills:
+            B, S = plan.prefill_batch, plan.prefill_len
+            pkey = (("chunk", "target", "sample", B, S)
+                    if plan.prefill_kind == "chunk"
+                    else ("prefill", B, S))
+            if not warm(pkey):
+                return False
+            if self.spec_k and not warm(("chunk", "draft", "write", B, S)):
+                return False
+        if plan.decodes:
+            B = plan.decode_batch
+            if self.spec_k:
+                if not warm(("spec_propose", B)) or not warm(
+                        ("chunk", "target", "verify", B, self.spec_k + 1)):
+                    return False
+            elif not warm(("decode", B)):
+                return False
+        return True
+
+    def _on_serving_hang(self):
+        """Watchdog expiry (on the watchdog thread): the step blew its
+        wall-clock deadline. Dump every thread's stack and request a
+        drain: `run()` stops admissions and performs the drain with its
+        typed in-flight failures if and when the stuck step returns."""
+        from ..runtime.sentinel import dump_all_stacks
+        self.watchdog_fires += 1
+        self.last_stack_dump = dump_all_stacks()
+        logger.error(
+            f"serving hang watchdog: step exceeded "
+            f"{self.watchdog.timeout_s:.1f}s — requesting an emergency "
+            f"drain; all-thread stacks:\n{self.last_stack_dump}")
+        self._drain_requested = True
 
     def _complete_prefills(self, reqs, nxt):
         now = time.perf_counter()
@@ -801,7 +1084,11 @@ class InferenceEngine:
             # evicted request's re-prefill must not re-count
             if req.first_token_at is None and req.submitted_at is not None:
                 req.first_token_at = now
-                self.request_metrics.observe_ttft(now - req.submitted_at)
+                ttft_s = now - req.submitted_at
+                self.request_metrics.observe_ttft(ttft_s)
+                if self.admission is not None:
+                    # the shedding signal: the measured TTFT EMA
+                    self.admission.observe_ttft(ttft_s * 1e3)
             req.last_token_at = now
 
     def _check_private(self, pages, start, n):
@@ -1004,10 +1291,103 @@ class InferenceEngine:
         self.stats["spec_steps"] += 1
         return produced
 
+    # ------------------------------------------------------------------
+    # graceful drain (SIGTERM from the pod scheduler)
+    # ------------------------------------------------------------------
+    #
+    # Serving takes no emergency checkpoint: the right shutdown is to
+    # stop admitting, finish what is running (bounded by
+    # `inference.drain_deadline_s`), fail the rest with a typed status
+    # and exit 0 so the orchestrator sees a clean termination.
+
+    def install_drain_handler(self):
+        """Register SIGTERM / SIGINT to REQUEST a drain (a flag only);
+        `run()` performs the drain at its next loop iteration. Weakly
+        bound: the signal registry must not pin the engine (and its page
+        pools) for the life of the process. A no-op off the main
+        thread."""
+        import signal as _signal
+        import threading
+        import weakref
+        if threading.current_thread() is not threading.main_thread():
+            return self
+        engine_ref = weakref.ref(self)
+
+        def handler(signum, frame):  # noqa: ARG001
+            engine = engine_ref()
+            if engine is not None:
+                engine._drain_requested = True
+
+        for sig in (_signal.SIGTERM, _signal.SIGINT):
+            try:
+                self._prev_handlers[sig] = _signal.signal(sig, handler)
+            except (ValueError, OSError):  # pragma: no cover
+                pass
+        return self
+
+    def restore_signal_handlers(self):
+        import signal as _signal
+        for sig, handler in self._prev_handlers.items():
+            try:
+                _signal.signal(sig, handler)
+            except (ValueError, OSError):  # pragma: no cover
+                pass
+        self._prev_handlers = {}
+
+    def request_drain(self):
+        """The programmatic equivalent of the SIGTERM handler."""
+        self._drain_requested = True
+
+    def drain(self, deadline_s=None):
+        """Stop admissions, finish in-flight sequences for at most
+        ``deadline_s`` (``inference.drain_deadline_s`` by default), then
+        fail whatever is still in flight or quarantined with a typed
+        `DrainAborted`. Returns a summary dict; fresh queued requests are
+        left unserved (``unserved`` counts them) for the replacement
+        instance."""
+        deadline_s = (self.drain_deadline_s if deadline_s is None
+                      else float(deadline_s))
+        self.scheduler.stop_admissions()
+        t0 = time.perf_counter()
+        deadline_hit = False
+        while self.scheduler.has_inflight_work:
+            if time.perf_counter() - t0 > deadline_s:
+                deadline_hit = True
+                break
+            self.step()
+        abandoned = 0
+        for req in self.scheduler.inflight_requests():
+            self.scheduler.finish_failed(req, DrainAborted(
+                f"graceful-drain deadline ({deadline_s:.1f}s) elapsed "
+                f"with request {req.request_id} still in flight "
+                f"({len(req.generated)}/{req.max_new_tokens} tokens "
+                f"generated)", attempts=req.failures))
+            abandoned += 1
+        self._sync_status_counts()
+        summary = {
+            "drained_s": time.perf_counter() - t0,
+            "deadline_hit": deadline_hit,
+            "inflight_abandoned": abandoned,
+            "unserved": sum(1 for r in self.scheduler.waiting
+                            if not r.evictions),
+        }
+        self.restore_signal_handlers()
+        logger.info(f"inference drain complete: {summary}")
+        return summary
+
     def run(self, max_steps=None):
-        """Drive steps until the queue drains (or `max_steps`)."""
+        """Drive steps until the queue drains (or `max_steps`). A pending
+        drain request (SIGTERM through `install_drain_handler`,
+        `request_drain()` or the hang watchdog) switches to `drain` and
+        exits the process with code 0 once in-flight work is done, also
+        on an idle server."""
         steps = 0
-        while self.scheduler.has_work:
+        while True:
+            if self._drain_requested:
+                self.drain()
+                raise SystemExit(0)
+            if not self.scheduler.has_work:
+                break
             self.step()
             steps += 1
             if max_steps is not None and steps >= max_steps:

@@ -124,6 +124,24 @@ class PagedKVCache:
         is not quantized)."""
         return pool.data if isinstance(pool, QuantizedPages) else pool
 
+    def reset_pools(self):
+        """Rebuild the K/V pools zeroed (int8 pools: zero data and unit
+        scales), keeping the allocator state. The serving engine's
+        quarantine path calls this when a step lost its pools
+        mid-execution (`pools_lost`); it then re-prefills every running
+        sequence, so the zeroed contents are never read."""
+        self.k = self._make_pool()
+        self.v = self._make_pool()
+
+    def pools_lost(self):
+        """True when a pool's storage is gone (released to size 0): the
+        port's counterpart of a donated JAX buffer that a call consumed.
+        Torch updates the pools in place, so a call that raises between
+        layers leaves them allocated, holding K/V past each request's
+        committed length; only a released storage counts as lost."""
+        return any(self.data_array(pool).untyped_storage().nbytes() == 0
+                   for pool in (self.k, self.v))
+
     # -- allocator (host-side) --------------------------------------------
 
     @property

@@ -791,9 +791,9 @@ def parse_inference_block(d):
 
     fault_spec = inf.get(c.INFERENCE_FAULT_INJECTION)
     if fault_spec is not None:
-        raise DeepSpeedConfigError(
-            f"inference.{c.INFERENCE_FAULT_INJECTION} is not ported yet: "
-            f"the serving fault injector comes with the robustness slice")
+        from .fault_injection import validate_fault_spec
+        validate_fault_spec(fault_spec,
+                            where=f"inference.{c.INFERENCE_FAULT_INJECTION}")
 
     return {
         "page_size": ints[c.INFERENCE_PAGE_SIZE],

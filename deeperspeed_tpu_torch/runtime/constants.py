@@ -81,7 +81,7 @@ NOT_PORTED_BLOCKS = {
     "sequence_parallel": "ranks (sequence parallelism)",
     "pipeline": "scale-out (pipeline)",
     "multislice": "scale-out",
-    "training_health": "robustness (sentinel, fault injection)",
+    "training_health": "training robustness (the sentinel)",
     "telemetry": "observability",
     "monitor": "observability",
     "tensorboard": "observability",

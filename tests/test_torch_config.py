@@ -92,12 +92,13 @@ def test_same_rejects(block):
 
 
 def test_fault_injection_is_not_ported():
+    """The block raised "not ported" until the serving robustness slice;
+    the port now parses it as the JAX package does, to the same dict."""
     block = {"enabled": True,
              "fault_injection": {"faults": [{"kind": "decode_error",
                                              "step": 1}]}}
-    jax_parse({"inference": block})
-    with pytest.raises(DeepSpeedConfigError, match="not ported"):
-        parse_inference_block({"inference": block})
+    assert parse_inference_block({"inference": block}) == \
+        jax_parse({"inference": block})
 
 
 @pytest.mark.parametrize("spelling", ["bf16", "bfloat16", "fp32", "float",

@@ -6,9 +6,9 @@
   JAX `InferenceEngine` (use_pallas=False), on the same weights and
   prompts, give identical greedy tokens and the same counters, with
   prefill buckets across page boundaries and evictions included.
-- `device=None` without CUDA raises, unported features raise, the prefix
-  cache and speculative decoding build, and CPU tensors never touch a
-  kernel's launch counter.
+- `device=None` without CUDA raises, unported features raise, the serving
+  robustness blocks build and serve, the prefix cache and speculative
+  decoding build, and CPU tensors never touch a kernel's launch counter.
 """
 
 import numpy as np
@@ -197,9 +197,6 @@ def test_default_device_needs_cuda(models, monkeypatch):
 UNPORTED = [
     ({"disaggregation": {"role": "prefill"}}, {}),
     ({"router": {}}, {}),
-    ({"fault_injection": {"faults": []}}, {}),
-    ({"admission": {}}, {}),
-    ({"hang_timeout_s": 2.0}, {}),
     ({}, {"telemetry": {"enabled": True}}),
 ]
 
@@ -227,6 +224,25 @@ def test_prefix_cache_and_speculative_construct(models, block):
     assert eng.spec_k == (2 if draft is not None else 0)
     (out,) = eng.generate([[3, 1, 4, 1, 5]], max_new_tokens=4)
     assert len(out) == 4
+
+
+@pytest.mark.parametrize("block", [
+    {"fault_injection": {"faults": []}},
+    {"admission": {}},
+    {"hang_timeout_s": 2.0}])
+def test_robustness_blocks_construct_and_serve(models, block):
+    """The serving robustness blocks build and serve (they raised "not
+    ported" before the slice that carries them)."""
+    _, _, model = models
+    eng = InferenceEngine(model, config=_config(**block), device="cpu")
+    assert (eng.admission is not None) == ("admission" in block)
+    assert (eng.watchdog is not None) == ("hang_timeout_s" in block)
+    assert eng.fault_injector is None       # an empty plan builds none
+    (out,) = eng.generate([[3, 1, 4, 1, 5]], max_new_tokens=4)
+    assert len(out) == 4
+    assert eng.stats["requests_ok"] == 1 and eng.stats["quarantines"] == 0
+    if eng.watchdog is not None:
+        eng.watchdog.stop()
 
 
 def test_unported_mesh_and_family_raise(models):
