@@ -7,6 +7,7 @@
     python3 chip_smoke.py --gpt2-only
     python3 chip_smoke.py --serve-prefix-only
     python3 chip_smoke.py --serve-chaos-only
+    python3 chip_smoke.py --sentinel-only [--profile]
 
 Phases (any failure exits non-zero before the final line):
 
@@ -265,7 +266,41 @@ Phases (any failure exits non-zero before the final line):
    draft) and int8 KV pages, and a prefill that loses every KV pool
    mid-stream (their storage released), so the engine rebuilds the
    target's and the draft's `QuantizedPages` with `reset_pools` and
-   re-prefills what was running.
+   re-prefills what was running;
+29. train-sentinel-125M (bench.py's row_sentinel, not cut):
+   GPT-NeoX-125M (seeded bf16 weights) behind the row's JSON (Adam lr
+   1e-4, bf16, ZeRO-2, gas 1, S 1024). (a) At bs 16 and 8: 3 warm-up and
+   8 timed steps with the sentinel off and on (skip_batch, warmup 3),
+   then those two engines and a third under policy warn (the same probe,
+   no host read before Adam) take 10 alternating rounds of 8 steps
+   (medians); the recovery under policy
+   rollback: 4 steps, a sync save, NaN gradients at serial 4, the faulted
+   step timed to its return after a device sync. It reports the row's
+   sentinel_step_ms_off / _on, sentinel_overhead_pct,
+   sentinel_recovery_ms and sentinel_rollbacks (must be 1). At bs 8, with
+   WarmupLR, the batch-size warmup and progressive layer drop on: (b) a
+   quarantined NaN step launches 12 flash forward, 12 dk/dv and 12 dq
+   (tensor-core) and no Adam, leaves masters, moments and compute
+   parameters bit-equal and no schedule moved, its record reads
+   ["nonfinite_grad"], the next step launches Adam once; (c) a run rolled
+   back over a NaN step ends bit-identical to a clean run that never saw
+   that batch (masters, moments, schedules, loss scale, counters); (d)
+   under warn the NaN step reaches the masters through the Adam kernel,
+   equal to its plain version on the same inputs; (e) a x1e4 loss spike
+   is one "loss_spike" anomaly, clear on the next step; (f) abort_after 2
+   raises TrainingHealthError on the second NaN step; (g) a 1.0 s hang
+   deadline: a 2.5 s stall on the engine's first step (which builds the
+   kernels under --sentinel-only) does not fire, one at serial 3 fires
+   once with every thread's stack, and with save_on_preemption the fire
+   makes the next step boundary write a checkpoint that `latest` names
+   and raise SystemExit. Every run counts its launches exactly; with
+   --profile, (a) also profiles 3 steps of each of its three engines;
+30. sentinel parity, fp32: phase 29's model at 4 layers (micro 2 x gas
+   2, clipping) under one fault plan (a x1e4 loss spike, NaN gradients
+   twice in a row, one rollback) through the kernels and through the
+   plain path: identical verdicts, counters and quarantine records,
+   losses within rtol 1e-4; the legacy forward / backward / step loop on
+   the same plan gives the verdicts of its gradient flags.
 Phase 3 also holds the flat Adam kernel at GPT-2 XL's size in the lean
 (bf16 p, g, m, v) and the classic (fp32 p, m, v, bf16 g and copy)
 dtypes against its plain version chunk by chunk, two calls
@@ -279,6 +314,7 @@ nothing of JAX.
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -517,6 +553,53 @@ CHAOS_PARITY_FAULTS = [
     {"kind": "page_pool_pressure", "step": 6, "times": 2, "factor": 0.7},
     {"kind": "decode_error", "step": 25},
 ]
+
+# train-sentinel-125M: bench.py's row_sentinel (bench.py:972-1059) on one
+# card, not cut: GPT-NeoX-125M with the row's JSON (Adam lr 1e-4, bf16,
+# ZeRO-2, gas 1, S 1024) at bs 16 and 8, 3 warm-up and 8 timed steps with
+# the sentinel off and on, then the rollback recovery
+SENTINEL_BASE = {
+    "gradient_accumulation_steps": 1, "steps_per_print": 10_000,
+    "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+    "fp16": {"enabled": True, "type": "bfloat16"},
+    "zero_optimization": {"stage": 2},
+}
+SENTINEL_RUNGS = (16, 8)
+SENTINEL_WARMUP, SENTINEL_STEPS = 3, 8
+# the off / on / eager-probe engines' alternating rounds of 8 steps
+SENTINEL_ROUNDS = 10
+# the third engine of the rounds: the probe without its host read
+SENTINEL_WARN = {"enabled": True, "policy": "warn", "warmup_steps": 3}
+SENTINEL_ON = {"enabled": True, "policy": "skip_batch", "warmup_steps": 3}
+SENTINEL_ROLLBACK = {"enabled": True, "policy": "rollback",
+                     "rollback_after": 1, "warmup_steps": 100,
+                     "fault_injection": {"faults": [
+                         {"kind": "nan_grads", "step": 4}]}}
+# phase 29(b)-(g) at bs 8, with the step boundary's schedules on
+SENTINEL_MICRO = 8
+SENTINEL_SCHEDULES = {
+    "scheduler": {"type": "WarmupLR", "params": {
+        "warmup_min_lr": 0, "warmup_max_lr": 1e-4,
+        "warmup_num_steps": 10}},
+    "batch_size_schedule": {"enabled": True, "params": {
+        "min_batch_size_multiplier": 0.25, "warmup_num_steps": 6,
+        "num_intervals": 4}},
+    "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                               "gamma": 0.05},
+}
+# 29(g): the watchdog's deadline (about 10x a bs-8 step) and the stall
+# that trips it
+SENTINEL_HANG_S, SENTINEL_STALL_S = 1.0, 2.5
+# phase 30: 125M widths at 4 layers in fp32, micro 2 x gas 2, clipping;
+# one plan: a loss spike (quarantined), then NaN gradients twice in a
+# row (quarantined, then rolled back to the save before them)
+SENTINEL_PARITY_LAYERS = 4
+SENTINEL_PARITY_STEPS, SENTINEL_PARITY_SAVE = 10, 6
+SENTINEL_PARITY_TH = {
+    "enabled": True, "policy": "rollback", "rollback_after": 2,
+    "warmup_steps": 3, "fault_injection": {"faults": [
+        {"kind": "loss_spike", "step": 4, "factor": 1e4},
+        {"kind": "nan_grads", "step": 7, "times": 2}]}}
 
 
 def fail(msg):
@@ -2387,9 +2470,9 @@ def check_design(fa, what, want_mma):
 # phase 4: serving at full width
 # ---------------------------------------------------------------------------
 
-def build_model(dtype, seed=0):
+def build_model(dtype, seed=0, **overrides):
     from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
-    cfg = GPTNeoXConfig(param_dtype=dtype, **NEOX_125M)
+    cfg = GPTNeoXConfig(param_dtype=dtype, **{**NEOX_125M, **overrides})
     return GPTNeoX(cfg, device="cuda").init_params(seed)
 
 
@@ -5772,6 +5855,604 @@ def run_chaos_phases(fa, da, qm, report, card):
     return sc, cp
 
 
+# ---------------------------------------------------------------------------
+# phase 29: training under failure, train-sentinel-125M
+# ---------------------------------------------------------------------------
+
+class LaunchLedger:
+    """Phase 29's launches: each run sets the counts to 0 just before it
+    and reads them just after; `check` holds a run to its exact counts
+    (every flash launch on the tensor-core design) and adds them to the
+    phase's totals."""
+
+    def __init__(self, fa, ad):
+        self.fa, self.ad = fa, ad
+        self.totals = {"flash_fwd": 0, "flash_bwd_dkv": 0,
+                       "flash_bwd_dq": 0, "adam": 0}
+        self.design = {"fwd": 0, "dkv": 0, "dq": 0}
+
+    def reset(self):
+        fa = self.fa
+        fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+        fa.reset_design_launches()
+        self.ad.reset_launches()
+
+    def check(self, what, steps, adam):
+        fa = self.fa
+        got = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+               "flash_bwd_dq": fa.bwd_dq_launches, "adam": self.ad.launches}
+        L = NEOX_125M["num_layers"]
+        want = {"flash_fwd": L * steps, "flash_bwd_dkv": L * steps,
+                "flash_bwd_dq": L * steps, "adam": adam}
+        if got != want:
+            fail(f"{what}: launches {got} != {want} ({L} layers x {steps} "
+                 f"steps, {adam} Adam)")
+        check_design(self.fa, what, {"fwd": got["flash_fwd"],
+                                     "dkv": got["flash_bwd_dkv"],
+                                     "dq": got["flash_bwd_dq"]})
+        for k in self.totals:
+            self.totals[k] += got[k]
+        for k, name in (("fwd", "flash_fwd"), ("dkv", "flash_bwd_dkv"),
+                        ("dq", "flash_bwd_dq")):
+            self.design[k] += got[name]
+        return got
+
+
+def sentinel_engine(bs, th=None, ckpt=None, extra=None):
+    """GPT-NeoX-125M (seeded bf16 weights made by the port) behind the
+    row's JSON at ``bs``, with a "training_health" block ``th``, a
+    "checkpoint" block ``ckpt`` and ``extra`` blocks."""
+    import deeperspeed_tpu_torch as dst
+    conf = {**SENTINEL_BASE, "train_batch_size": bs, **(extra or {})}
+    if th is not None:
+        conf["training_health"] = th
+    if ckpt is not None:
+        conf["checkpoint"] = ckpt
+    eng, *_ = dst.initialize(model=build_model(torch.bfloat16),
+                             config_params=conf)
+    return eng
+
+
+def sentinel_tokens(bs, n=1, seed=0):
+    """``n`` seeded batches [1, bs, 1024] over the whole vocabulary (the
+    row's tokens: default_rng(0))."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(
+        0, NEOX_125M["vocab_size"], size=(n, 1, bs, TRAIN_SEQ))).cuda()
+
+
+def free_cuda():
+    """Collect dropped engines (their wrapped methods hold cycles) and
+    return their memory to the device."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def flat_snapshot(eng):
+    return [t.clone() for t in (eng._master, eng.opt_state.exp_avg,
+                                eng.opt_state.exp_avg_sq, eng._params_flat)]
+
+
+def schedule_state(eng):
+    """The host schedules a step boundary moves."""
+    return {"global_steps": eng.global_steps,
+            "global_samples": eng.global_samples, "lr": eng.get_lr(),
+            "adam_step": eng.opt_state.step,
+            "bs_iteration": eng.batch_size_scheduler.last_batch_iteration,
+            "batch_size": eng.batch_size_scheduler.current_batch_size,
+            "pld_theta": float(eng.progressive_layer_drop.get_theta())}
+
+
+def sentinel_steps(eng, batch, steps):
+    """Host ms a step over ``steps`` `train_batch` calls, between device
+    syncs; and the last loss."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = eng.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, loss
+
+
+def sentinel_rung(ledger, bs, tmp, profile_step=False):
+    """29(a): bench.py row_sentinel's rung at ``bs``. The row: a fresh
+    engine with the sentinel off, then one with it on, 3 warm-up and 8
+    timed steps each. Then the same two engines and a third under policy
+    warn (the same probe without the host read of its flag before Adam)
+    take turns, 8 steps at a time, for ``SENTINEL_ROUNDS`` rounds in
+    alternating order: the medians give the overhead from one card, with
+    the read and without. With
+    ``profile_step`` each of the three also runs 3 profiled steps. Then
+    the recovery: 4 steps, a sync save, and the faulted step timed to its
+    return after a device sync."""
+    tokens = sentinel_tokens(bs)[0]
+    batch = (tokens, tokens)
+    engines, row = {}, {}
+    for tag, th in (("off", None), ("on", SENTINEL_ON),
+                    ("warn", SENTINEL_WARN)):
+        eng = engines[tag] = sentinel_engine(bs, th=th)
+        ledger.reset()
+        for _ in range(SENTINEL_WARMUP):
+            eng.train_batch(batch=batch)
+        row[tag], _ = sentinel_steps(eng, batch, SENTINEL_STEPS)
+        n = SENTINEL_WARMUP + SENTINEL_STEPS
+        ledger.check(f"train-sentinel bs {bs} {tag}", n, n)
+    blocks = {tag: [] for tag in engines}
+    for r in range(SENTINEL_ROUNDS):
+        for tag in (list(engines) if r % 2 == 0 else list(engines)[::-1]):
+            ledger.reset()
+            ms, loss = sentinel_steps(engines[tag], batch, SENTINEL_STEPS)
+            ledger.check(f"train-sentinel bs {bs} {tag} round {r}",
+                         SENTINEL_STEPS, SENTINEL_STEPS)
+            blocks[tag].append(ms)
+    n = SENTINEL_WARMUP + SENTINEL_STEPS * (SENTINEL_ROUNDS + 1)
+    prof = {}
+    for tag, eng in engines.items():
+        if not np.isfinite(loss) or eng.global_steps != n:
+            fail(f"train-sentinel bs {bs} {tag}: loss {loss}, "
+                 f"{eng.global_steps} steps taken of {n}")
+        if eng.sentinel is not None and (eng.sentinel.anomalies or
+                                         int(eng.health.quarantined)):
+            fail(f"train-sentinel bs {bs} {tag}: the sentinel flagged a "
+                 f"clean run: {eng.sentinel.quarantined_windows}")
+        if profile_step:
+            prof[tag] = profile_window(
+                lambda: eng.train_batch(batch=batch), 3, share_of="flash")
+    del engines, eng
+    free_cuda()
+
+    save_dir = os.path.join(tmp, f"rung_bs{bs}")
+    eng = sentinel_engine(bs, th=SENTINEL_ROLLBACK,
+                          ckpt={"save_dir": save_dir})
+    ledger.reset()
+    for _ in range(4):
+        eng.train_batch(batch=batch)
+    eng.save_checkpoint(save_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.train_batch(batch=batch)   # NaN gradients -> rollback
+    torch.cuda.synchronize()
+    recovery_ms = (time.perf_counter() - t0) * 1e3
+    # the faulted step skips its update before the rollback
+    ledger.check(f"train-sentinel bs {bs} recovery", 5, 4)
+    rollbacks = eng.sentinel.rollbacks
+    if rollbacks != 1 or eng.global_steps != 4:
+        fail(f"train-sentinel bs {bs}: {rollbacks} rollbacks, "
+             f"global_steps {eng.global_steps} after the faulted step")
+    del eng
+    free_cuda()
+    med = {tag: float(np.median(v)) for tag, v in blocks.items()}
+    return {
+        "sentinel_step_ms_off": row["off"],
+        "sentinel_step_ms_on": row["on"],
+        "sentinel_overhead_pct": (row["on"] - row["off"]) / row["off"] * 100,
+        "sentinel_recovery_ms": recovery_ms,
+        "sentinel_rollbacks": rollbacks,
+        "step_ms_row": row,
+        "step_ms_rounds": blocks,
+        "step_ms_median": med,
+        "overhead_pct_median": (med["on"] / med["off"] - 1) * 100,
+        "overhead_pct_median_warn": (med["warn"] / med["off"] - 1) * 100,
+        "tokens_per_s_off": bs * TRAIN_SEQ / med["off"] * 1e3,
+        **({"profile": prof} if prof else {}),
+    }
+
+
+def sentinel_quarantine(ledger):
+    """29(b): a NaN-gradient step at serial 3 under skip_batch, with
+    WarmupLR, the batch-size warmup and PLD on: that step launches the
+    forward and backward flash kernels and no Adam, leaves every flat
+    buffer bit-equal and no schedule moved; the next step launches Adam
+    once."""
+    th = {"enabled": True, "policy": "skip_batch", "warmup_steps": 3,
+          "fault_injection": {"faults": [{"kind": "nan_grads", "step": 3}]}}
+    eng = sentinel_engine(SENTINEL_MICRO, th=th, extra=SENTINEL_SCHEDULES)
+    batches = sentinel_tokens(SENTINEL_MICRO, 5, seed=1)
+    ledger.reset()
+    for i in range(3):
+        eng.train_batch(batch=(batches[i], batches[i]))
+    ledger.check("train-sentinel quarantine, steps 0-2", 3, 3)
+    before, sched = flat_snapshot(eng), schedule_state(eng)
+    cur_iter = eng.scale_state.cur_iter
+    ledger.reset()
+    loss = eng.train_batch(batch=(batches[3], batches[3]))
+    torch.cuda.synchronize()
+    launches = ledger.check("train-sentinel quarantined step", 1, 0)
+    changed = [name for name, a, b in zip(
+        ("master", "exp_avg", "exp_avg_sq", "params"), before,
+        flat_snapshot(eng)) if not torch.equal(a, b)]
+    if changed or schedule_state(eng) != sched:
+        fail(f"the quarantined step moved {changed}, schedules "
+             f"{schedule_state(eng)} vs {sched}")
+    if eng.scale_state.cur_iter != cur_iter + 1:
+        fail(f"the loss-scale state did not advance on the quarantined "
+             f"step: cur_iter {eng.scale_state.cur_iter}")
+    record = eng.sentinel.quarantined_windows[-1]
+    if record["kinds"] != ["nonfinite_grad"] or \
+            eng.sentinel.quarantined != 1:
+        fail(f"quarantine record {eng.sentinel.quarantined_windows}")
+    ledger.reset()
+    eng.train_batch(batch=(batches[4], batches[4]))
+    after = ledger.check("train-sentinel step after the quarantine", 1, 1)
+    if eng.global_steps != sched["global_steps"] + 1:
+        fail(f"the step after the quarantine left global_steps at "
+             f"{eng.global_steps}")
+    del eng, before
+    free_cuda()
+    return {"launches_quarantined_step": launches,
+            "launches_next_step": after, "record": record,
+            "loss": loss, "schedules": sched,
+            "state_bit_equal": True}
+
+
+def sentinel_trajectory(ledger, tmp):
+    """29(c): the faulted run (NaN gradients at serial 5 under rollback
+    after a save at step 5, then batches 6-7) against a clean run with a
+    fault that never fires on batches 0-4 and 6-7: masters and moments
+    bit-identical, schedules and counters equal."""
+    batches = sentinel_tokens(SENTINEL_MICRO, 8, seed=2)
+
+    def run(tag, fault_step, skip=None, save_at=None):
+        save_dir = os.path.join(tmp, f"trajectory_{tag}")
+        th = {"enabled": True, "policy": "rollback", "rollback_after": 1,
+              "warmup_steps": 100, "fault_injection": {"faults": [
+                  {"kind": "nan_grads", "step": fault_step}]}}
+        eng = sentinel_engine(SENTINEL_MICRO, th=th,
+                              ckpt={"save_dir": save_dir},
+                              extra=SENTINEL_SCHEDULES)
+        ledger.reset()
+        losses = []
+        for i in range(len(batches)):
+            if i == skip:
+                continue
+            if i == save_at:
+                eng.save_checkpoint(save_dir)
+            losses.append(eng.train_batch(batch=(batches[i], batches[i])))
+        steps = len(losses)
+        ledger.check(f"train-sentinel trajectory {tag}", steps, 7)
+        state = {"flat": flat_snapshot(eng), "sched": schedule_state(eng),
+                 "scale": tuple(eng.scale_state),
+                 "micro_steps": eng.micro_steps,
+                 "rollbacks": eng.sentinel.rollbacks}
+        del eng
+        free_cuda()
+        return state, losses
+
+    faulted, f_losses = run("faulted", 5, save_at=5)
+    clean, c_losses = run("clean", 10_000, skip=5)
+    off = [name for name, a, b in zip(
+        ("master", "exp_avg", "exp_avg_sq", "params"), faulted["flat"],
+        clean["flat"]) if not torch.equal(a, b)]
+    if faulted["rollbacks"] != 1 or off or any(
+            faulted[k] != clean[k] for k in ("sched", "scale",
+                                             "micro_steps")):
+        fail(f"the rolled-back run differs from the clean run: tensors "
+             f"{off}, rollbacks {faulted['rollbacks']}, "
+             f"{ {k: (faulted[k], clean[k]) for k in ('sched', 'scale')} }")
+    return {"bit_identical": True, "faulted_losses": f_losses,
+            "clean_losses": c_losses, "schedules": faulted["sched"],
+            "loss_scale": faulted["scale"]}
+
+
+def sentinel_warn(ledger):
+    """29(d): under warn the NaN step reaches the masters through the
+    Adam kernel, and the kernel's result equals its plain version's on
+    the same inputs (the same NaN positions, the rest bit for bit)."""
+    th = {"enabled": True, "policy": "warn", "warmup_steps": 100,
+          "fault_injection": {"faults": [{"kind": "nan_grads", "step": 1}]}}
+    eng = sentinel_engine(SENTINEL_MICRO, th=th)
+    tokens = sentinel_tokens(SENTINEL_MICRO, seed=3)[0]
+    ledger.reset()
+    eng.train_batch(batch=(tokens, tokens))
+    seen = {}
+    update = eng.optimizer.update
+
+    def capture(grads, state, master, lr=None, compute_out=None,
+                use_kernel=True):
+        seen.update(grads=grads.clone(), state=state._replace(
+            exp_avg=state.exp_avg.clone(),
+            exp_avg_sq=state.exp_avg_sq.clone()), master=master.clone(),
+            out=None if compute_out is None else compute_out.clone(),
+            lr=lr, use_kernel=use_kernel)
+        return update(grads, state, master, lr=lr, compute_out=compute_out,
+                      use_kernel=use_kernel)
+
+    eng.optimizer.update = capture
+    eng.train_batch(batch=(tokens, tokens))
+    torch.cuda.synchronize()
+    ledger.check("train-sentinel warn", 2, 2)
+    if not seen.get("use_kernel") or eng.sentinel.anomalies != 1 or \
+            eng.sentinel.quarantined or eng.global_steps != 2:
+        fail(f"warn: kernel {seen.get('use_kernel')}, anomalies "
+             f"{eng.sentinel.anomalies}, quarantined "
+             f"{eng.sentinel.quarantined}, steps {eng.global_steps}")
+    state = update(seen["grads"], seen["state"], seen["master"],
+                   lr=seen["lr"], compute_out=seen["out"], use_kernel=False)
+    pairs = {"master": (eng._master, seen["master"]),
+             "exp_avg": (eng.opt_state.exp_avg, state.exp_avg),
+             "exp_avg_sq": (eng.opt_state.exp_avg_sq, state.exp_avg_sq),
+             "params": (eng._params_flat, seen["out"])}
+    nan = {}
+    for name, (got, want) in pairs.items():
+        same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+        rest = ~torch.isnan(want)
+        if not same_nan or not torch.equal(got[rest], want[rest]):
+            fail(f"warn: the Adam kernel's {name} differs from its plain "
+                 f"version on the NaN step")
+        nan[name] = int(torch.isnan(got).sum())
+    if nan["master"] == 0:
+        fail("warn: the NaN gradients did not reach the masters")
+    del eng
+    free_cuda()
+    return {"nan_elements": nan, "num_params": seen["master"].numel()}
+
+
+def sentinel_spike(ledger):
+    """29(e): a x1e4 loss spike at serial 6 after a 3-step warm-up is one
+    anomaly, "loss_spike", and the flags are clear on the next step."""
+    th = {"enabled": True, "policy": "skip_batch", "warmup_steps": 3,
+          "fault_injection": {"faults": [
+              {"kind": "loss_spike", "step": 6, "factor": 1e4}]}}
+    eng = sentinel_engine(SENTINEL_MICRO, th=th)
+    batches = sentinel_tokens(SENTINEL_MICRO, 8, seed=4)
+    ledger.reset()
+    losses, flags = [], []
+    for b in batches:
+        losses.append(eng.train_batch(batch=(b, b)))
+        flags.append(eng.sentinel.last_flags)
+    ledger.check("train-sentinel loss spike", 8, 7)
+    kinds = [w["kinds"] for w in eng.sentinel.quarantined_windows]
+    if eng.sentinel.anomalies != 1 or kinds != [["loss_spike"]] or \
+            flags[7] != 0 or not losses[6] > 100 * max(losses[:6]):
+        fail(f"loss spike: anomalies {eng.sentinel.anomalies}, records "
+             f"{kinds}, flags {flags}, losses {losses}")
+    del eng
+    free_cuda()
+    return {"losses": losses, "flags": flags}
+
+
+def sentinel_abort(ledger):
+    """29(f): abort_after 2 with NaN gradients at serials 2-4 raises
+    TrainingHealthError on the second anomaly (serial 3)."""
+    from deeperspeed_tpu_torch import TrainingHealthError
+    th = {"enabled": True, "policy": "abort", "abort_after": 2,
+          "warmup_steps": 100, "fault_injection": {"faults": [
+              {"kind": "nan_grads", "step": 2, "times": 3}]}}
+    eng = sentinel_engine(SENTINEL_MICRO, th=th)
+    tokens = sentinel_tokens(SENTINEL_MICRO, seed=5)[0]
+    ledger.reset()
+    done, error = 0, None
+    try:
+        for _ in range(5):
+            eng.train_batch(batch=(tokens, tokens))
+            done += 1
+    except TrainingHealthError as e:
+        error = str(e)
+    ledger.check("train-sentinel abort", 4, 2)
+    if error is None or done != 3 or "abort_after=2" not in error:
+        fail(f"abort: {done} steps returned, error {error!r}")
+    del eng
+    free_cuda()
+    return {"steps_returned": done, "error": error}
+
+
+def sentinel_watchdog(ledger, tmp):
+    """29(g): a 1.0 s deadline; the engine's first step (which includes
+    the kernels' build when nothing was built before) stalls 2.5 s and
+    must not fire; a 2.5 s stall at serial 3 fires exactly once with every
+    thread's stack; with save_on_preemption a fire makes the next step
+    boundary write a checkpoint that `latest` names and raise
+    SystemExit."""
+    from deeperspeed_tpu_torch.checkpoint import manifest as mf
+    stall = {"kind": "stall", "seconds": SENTINEL_STALL_S}
+    th = {"enabled": True, "hang_timeout_seconds": SENTINEL_HANG_S,
+          "warmup_steps": 100, "fault_injection": {"faults": [
+              dict(stall, step=0), dict(stall, step=3)]}}
+    tokens = sentinel_tokens(SENTINEL_MICRO, seed=6)[0]
+    eng = sentinel_engine(SENTINEL_MICRO, th=th)
+    ledger.reset()
+    step_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.train_batch(batch=(tokens, tokens))
+        step_s.append(time.perf_counter() - t0)
+        if len(step_s) == 1 and eng.sentinel.watchdog_fires:
+            fail(f"the watchdog fired on the engine's first step "
+                 f"({step_s[0]:.1f} s)")
+    ledger.check("train-sentinel watchdog", 5, 5)
+    dump = eng.sentinel.last_stack_dump or ""
+    fires = eng.sentinel.watchdog_fires
+    if fires != 1 or "train_batch" not in dump or "MainThread" not in dump:
+        fail(f"watchdog: {fires} fires (want 1), dump has train_batch "
+             f"{'train_batch' in dump}, MainThread {'MainThread' in dump}")
+    del eng
+    free_cuda()
+
+    save_dir = os.path.join(tmp, "preemption")
+    th["fault_injection"] = {"faults": [dict(stall, step=1)]}
+    eng = sentinel_engine(SENTINEL_MICRO, th=th, ckpt={
+        "save_dir": save_dir, "save_on_preemption": True})
+    ledger.reset()
+    eng.train_batch(batch=(tokens, tokens))
+    code = None
+    try:
+        eng.train_batch(batch=(tokens, tokens))
+    except SystemExit as e:
+        code = e.code
+    ledger.check("train-sentinel preemption", 2, 2)
+    latest = mf.read_latest(save_dir)
+    if code is None or eng.sentinel.watchdog_fires != 1 or \
+            latest != "global_step2":
+        fail(f"preemption: exit {code}, fires "
+             f"{eng.sentinel.watchdog_fires}, latest {latest!r}")
+    del eng
+    free_cuda()
+    return {"fires": fires, "step_s": step_s,
+            "dump_lines": len(dump.splitlines()),
+            "preemption_exit_code": code, "preemption_latest": latest}
+
+
+def train_sentinel(fa, ad, report, profile_step=False):
+    """Phase 29 on train-sentinel-125M (``profile_step``: 29(a) also
+    profiles its off and on steps); checkpoints go to a temporary
+    directory under build/, removed at the end."""
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_sentinel_", dir="build")
+    ledger = LaunchLedger(fa, ad)
+    try:
+        res = {"watchdog": sentinel_watchdog(ledger, tmp)}
+        print(f"  (g) watchdog: first step {res['watchdog']['step_s'][0]:.2f}"
+              f" s unarmed, {res['watchdog']['fires']} fire on the 2.5 s "
+              f"stall, preemption save {res['watchdog']['preemption_latest']}"
+              f" then SystemExit({res['watchdog']['preemption_exit_code']})",
+              flush=True)
+        res["rungs"] = {}
+        for bs in SENTINEL_RUNGS:
+            r = sentinel_rung(ledger, bs, tmp, profile_step)
+            res["rungs"][f"bs{bs}"] = r
+            med = r["step_ms_median"]
+            print(f"  (a) bs {bs}: step {r['sentinel_step_ms_off']:.2f} ms "
+                  f"off / {r['sentinel_step_ms_on']:.2f} ms on "
+                  f"({r['sentinel_overhead_pct']:+.2f}%); medians of "
+                  f"{SENTINEL_ROUNDS} alternating rounds {med['off']:.2f} / "
+                  f"{med['on']:.2f} ({r['overhead_pct_median']:+.2f}%), "
+                  f"warn (no read) {med['warn']:.2f} "
+                  f"({r['overhead_pct_median_warn']:+.2f}%); recovery "
+                  f"{r['sentinel_recovery_ms']:.1f} ms, rollbacks "
+                  f"{r['sentinel_rollbacks']}", flush=True)
+            for tag, pr in r.get("profile", {}).items():
+                print_profile(f"bs {bs}, sentinel {tag}", pr,
+                              report.get("card"))
+        res["quarantine"] = sentinel_quarantine(ledger)
+        print(f"  (b) quarantined step: launches "
+              f"{res['quarantine']['launches_quarantined_step']}, next "
+              f"{res['quarantine']['launches_next_step']}, state bit-equal",
+              flush=True)
+        res["trajectory"] = sentinel_trajectory(ledger, tmp)
+        print("  (c) rollback trajectory bit-identical to the clean run",
+              flush=True)
+        res["warn"] = sentinel_warn(ledger)
+        print(f"  (d) warn: NaN elements {res['warn']['nan_elements']}, the "
+              f"kernel equal to its plain version", flush=True)
+        res["spike"] = sentinel_spike(ledger)
+        res["abort"] = sentinel_abort(ledger)
+        print(f"  (e) loss spike flags {res['spike']['flags']}; (f) abort "
+              f"after {res['abort']['steps_returned']} steps", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = dict(ledger.totals)
+    res["design_launches"] = {k: {"mma": v, "fma": 0}
+                              for k, v in ledger.design.items()}
+    report["train_sentinel"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 30: sentinel parity, kernels vs plain path, fp32
+# ---------------------------------------------------------------------------
+
+def sentinel_parity_nan_steps():
+    """The step serials phase 30's plan gives NaN gradients."""
+    return {f["step"] + i
+            for f in SENTINEL_PARITY_TH["fault_injection"]["faults"]
+            if f["kind"] == "nan_grads" for i in range(f.get("times", 1))}
+
+
+def sentinel_parity_run(tmp, tag, use_kernels, legacy):
+    """Phase 30's plan through ``train_batch`` or the legacy loop (whose
+    update has no injector and no loss: the planned NaN gradients are
+    written into the accumulator before `step`)."""
+    import deeperspeed_tpu_torch as dst
+    save_dir = os.path.join(tmp, tag)
+    conf = {**SENTINEL_BASE, "train_batch_size": 4,
+            "train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+            "fp16": {"enabled": False},
+            "training_health": SENTINEL_PARITY_TH,
+            "checkpoint": {"save_dir": save_dir}}
+    model = build_model(torch.float32, seed=1,
+                        num_layers=SENTINEL_PARITY_LAYERS)
+    model.use_kernels = use_kernels
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    verdicts = []
+    after = eng._after_step
+
+    def recorded(*args):
+        verdicts.append(after(*args))
+        return verdicts[-1]
+
+    eng._after_step = recorded
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(2, 2, TRAIN_SEQ))).cuda()
+    nan_steps = sentinel_parity_nan_steps()
+    losses = []
+    for step in range(SENTINEL_PARITY_STEPS):
+        if step == SENTINEL_PARITY_SAVE:
+            eng.save_checkpoint(save_dir)
+        if not legacy:
+            losses.append(eng.train_batch(batch=(tokens, tokens)))
+            continue
+        for m in range(2):
+            eng.backward(eng((tokens[m], tokens[m])))
+        if step in nan_steps:
+            eng._grad_acc.fill_(float("nan"))
+        losses.append(eng.step())
+    s = eng.sentinel
+    out = {"verdicts": verdicts, "losses": losses,
+           "counters": {"anomalies": s.anomalies,
+                        "quarantined": s.quarantined,
+                        "rollbacks": s.rollbacks,
+                        "global_steps": eng.global_steps},
+           "records": [dict(w) for w in s.quarantined_windows]}
+    del eng
+    free_cuda()
+    return out
+
+
+def sentinel_parity(report):
+    """Phase 30: phase 29's model at 4 layers in fp32 (micro 2 x gas 2,
+    clipping) under one fault plan through the kernels and through the
+    plain path: identical verdicts, counters and quarantine records,
+    losses within rtol 1e-4; the legacy loop on the same plan gives the
+    verdicts of its gradient flags."""
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_sentinel_parity_", dir="build")
+    try:
+        runs = {tag: sentinel_parity_run(tmp, tag, kernels, legacy)
+                for tag, kernels, legacy in (("kernels", True, False),
+                                             ("plain", False, False),
+                                             ("legacy", True, True))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k, p, lg = runs["kernels"], runs["plain"], runs["legacy"]
+    want = ["ok"] * 4 + ["quarantined"] + ["ok"] * 2 + \
+        ["quarantined", "rollback", "ok"]
+    fast, plain = np.array(k["losses"]), np.array(p["losses"])
+    rel = float(np.max(np.abs(fast - plain) / np.abs(plain)))
+    if k["verdicts"] != want or p["verdicts"] != want or \
+            k["counters"] != p["counters"] or k["records"] != p["records"] \
+            or not rel <= 1e-4:
+        fail(f"sentinel parity: kernels {k['verdicts']} {k['counters']} vs "
+             f"plain {p['verdicts']} {p['counters']} (want {want}), "
+             f"records {k['records']} vs {p['records']}, loss rel {rel:.3e}")
+    # the legacy loop sees no loss: only its NaN-gradient steps flag
+    nan_steps = sentinel_parity_nan_steps()
+    legacy_want = [v if i in nan_steps else "ok"
+                   for i, v in enumerate(want)]
+    if lg["verdicts"] != legacy_want:
+        fail(f"sentinel parity: the legacy loop's verdicts "
+             f"{lg['verdicts']} != {legacy_want}")
+    report["train_sentinel_parity"] = {
+        "verdicts": k["verdicts"], "legacy_verdicts": lg["verdicts"],
+        "counters": k["counters"], "legacy_counters": lg["counters"],
+        "records": k["records"], "kernels": k["losses"],
+        "plain": p["losses"], "max_rel_diff": rel, "rtol": 1e-4}
+    print(f"  verdicts {k['verdicts']} (plain identical; legacy "
+          f"{lg['verdicts']}), counters {k['counters']}, losses max "
+          f"relative difference {rel:.3e}", flush=True)
+
+
 def serve_chaos_only(card):
     """Phases 27-28 alone."""
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -5785,6 +6466,34 @@ def serve_chaos_only(card):
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_chaos.json"), "w") as f:
         json.dump(report, f, indent=1)
+    print(card, flush=True)
+    return 0
+
+
+def run_sentinel_phases(fa, ad, report, card, profile_step=False):
+    print(f"training under failure train-sentinel-125M (row_sentinel; bf16, "
+          f"fp32 masters, ZeRO-2) on {card}:", flush=True)
+    ts = train_sentinel(fa, ad, report, profile_step)
+    print("sentinel parity (fp32, 4 layers, kernels vs plain, and the legacy "
+          "loop):", flush=True)
+    sentinel_parity(report)
+    return ts
+
+
+def sentinel_only(card, profile_step=False):
+    """Phases 29-30 alone. Phase 29(g) runs first, so that its engine's
+    first step includes the kernels' build."""
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    report = {"card": card}
+    run_sentinel_phases(fa, ad, report, card, profile_step)
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s, inside phase 29(g)'s "
+          f"first step", flush=True)
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_sentinel.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
     print(card, flush=True)
     return 0
 
@@ -5814,6 +6523,8 @@ def main():
                          "speculative decoding)")
     ap.add_argument("--serve-chaos-only", action="store_true",
                     help="run only phases 27-28 (serving under failure)")
+    ap.add_argument("--sentinel-only", action="store_true",
+                    help="run only phases 29-30 (training under failure)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5838,6 +6549,8 @@ def main():
         return serve_prefix_only(card)
     if args.serve_chaos_only:
         return serve_chaos_only(card)
+    if args.sentinel_only:
+        return sentinel_only(card, args.profile)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -6012,6 +6725,7 @@ def main():
     sp, sx, pp = run_prefix_phases(fa, da, qm, report, card)
     sc, cp = run_chaos_phases(fa, da, qm, report, card)
     chaos = {f"serve_chaos_{v}": sc[v] for v in ("clean", "storm")}
+    tsn = run_sentinel_phases(fa, ad, report, card, args.profile)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -6064,7 +6778,8 @@ def main():
          sg["launches"]["flash_fwd"] + sum(
              r[n]["flash_fwd"] for r in (sp, sx)
              for n in ("base_launches", "launches")) + sum(
-             r["launches"]["flash_fwd"] for r in chaos.values()),
+             r["launches"]["flash_fwd"] for r in chaos.values()) +
+         tsn["launches"]["flash_fwd"],
          "launches_by_path": {"serve": sv["launches"]["flash_fwd"],
                               "train": tr["launches"]["flash_fwd"],
                               "train_moe": tm["launches"]["flash_fwd"],
@@ -6080,7 +6795,9 @@ def main():
                               "serve_gpt2xl_spec": sx["launches"][
                                   "flash_fwd"],
                               "serve_gpt2xl_spec_cache_off": sx[
-                                  "base_launches"]["flash_fwd"]} | {
+                                  "base_launches"]["flash_fwd"],
+                              "train_sentinel": tsn["launches"][
+                                  "flash_fwd"]} | {
              path: r["launches"]["flash_fwd"]
              for path, r in chaos.items()},
          "design": "bf16 at D 64/128: tensor cores (mma.sync, "
@@ -6093,7 +6810,8 @@ def main():
              "train_packed": tp["design_launches"]["fwd"],
              "serve_gpt2xl": sg["design_launches"]["fwd"],
              "train_gpt2xl": {tag: r["design_launches"]["fwd"]
-                              for tag, r in tg["runs"].items()}} | {
+                              for tag, r in tg["runs"].items()},
+             "train_sentinel": tsn["design_launches"]["fwd"]} | {
              path: r["design_launches"]["fwd"]
              for path, r in chaos.items()},
          "max_abs_err": fl["max_abs_err_out"], "ms": fl["ms"],
@@ -6153,19 +6871,21 @@ def main():
          "launches": tr["launches"]["flash_bwd_dkv"] +
          tm["launches"]["flash_bwd_dkv"] + tc["launches"]["flash_bwd_dkv"] +
          tp["launches"]["flash_bwd_dkv"] + tg["launches"]["flash_bwd_dkv"] +
-         lg["launches"]["flash_bwd_dkv"],
+         lg["launches"]["flash_bwd_dkv"] + tsn["launches"]["flash_bwd_dkv"],
          "launches_by_kernel": {"dkv": tr["launches"]["flash_bwd_dkv"] +
                                 tm["launches"]["flash_bwd_dkv"] +
                                 tc["launches"]["flash_bwd_dkv"] +
                                 tp["launches"]["flash_bwd_dkv"] +
                                 tg["launches"]["flash_bwd_dkv"] +
-                                lg["launches"]["flash_bwd_dkv"],
+                                lg["launches"]["flash_bwd_dkv"] +
+                                tsn["launches"]["flash_bwd_dkv"],
                                 "dq": tr["launches"]["flash_bwd_dq"] +
                                 tm["launches"]["flash_bwd_dq"] +
                                 tc["launches"]["flash_bwd_dq"] +
                                 tp["launches"]["flash_bwd_dq"] +
                                 tg["launches"]["flash_bwd_dq"] +
-                                lg["launches"]["flash_bwd_dq"]},
+                                lg["launches"]["flash_bwd_dq"] +
+                                tsn["launches"]["flash_bwd_dq"]},
          "launches_by_path": {"train": tr["launches"]["flash_bwd_dkv"],
                               "train_moe": tm["launches"]["flash_bwd_dkv"],
                               "train_ckpt": tc["launches"]["flash_bwd_dkv"],
@@ -6174,6 +6894,8 @@ def main():
                               "train_gpt2xl": tg["launches"][
                                   "flash_bwd_dkv"],
                               "train_gpt2xl_legacy": lg["launches"][
+                                  "flash_bwd_dkv"],
+                              "train_sentinel": tsn["launches"][
                                   "flash_bwd_dkv"]},
          "design_launches_by_path": {
              "train": {k: tr["design_launches"][k] for k in ("dkv", "dq")},
@@ -6182,7 +6904,9 @@ def main():
              "train_ckpt": {k: tc["design_launches"][k]
                             for k in ("dkv", "dq")},
              "train_packed": {k: tp["design_launches"][k]
-                              for k in ("dkv", "dq")}},
+                              for k in ("dkv", "dq")},
+             "train_sentinel": {k: tsn["design_launches"][k]
+                                for k in ("dkv", "dq")}},
          "max_abs_err": max(fb[f"max_abs_err_{g}"]
                             for g in ("dq", "dk", "dv")),
          "ms": fb["ms"], "plain_ms": fb["plain_ms"],
@@ -6202,14 +6926,16 @@ def main():
          "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
          "launches": tr["launches"]["adam"] + tm["launches"]["adam"] +
          tc["launches"]["adam"] + tp["launches"]["adam"] +
-         tg["launches"]["adam"] + lg["launches"]["adam"],
+         tg["launches"]["adam"] + lg["launches"]["adam"] +
+         tsn["launches"]["adam"],
          "launches_by_path": {"train": tr["launches"]["adam"],
                               "train_moe": tm["launches"]["adam"],
                               "train_ckpt": tc["launches"]["adam"],
                               "train_packed": tp["launches"]["adam"],
                               "train_gpt2xl": tg["launches"]["adam"],
                               "train_gpt2xl_legacy": lg["launches"][
-                                  "adam"]},
+                                  "adam"],
+                              "train_sentinel": tsn["launches"]["adam"]},
          "variant_launches_gpt2xl": {tag: r["adam_variants"]
                                      for tag, r in tg["runs"].items()},
          "gpt2xl_shapes": axl,

@@ -38,6 +38,7 @@ from .runtime.config import DeepSpeedConfig
 from .runtime.config_utils import DeepSpeedConfigError
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .runtime.engine import DeepSpeedEngine
+from .runtime.sentinel import TrainingHealthError
 from .utils.logging import log_dist, logger
 from .version import __version__
 
@@ -99,7 +100,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 __all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
            "DeepSpeedConfigError", "DeepSpeedDataLoader", "RepeatingLoader",
-           "InferenceEngine", "GPT2", "GPT2Config", "GPTNeoX",
+           "TrainingHealthError", "InferenceEngine", "GPT2", "GPT2Config",
+           "GPTNeoX",
            "GPTNeoXConfig", "MoELayer", "moe", "add_config_arguments",
            "BertConfig", "BertModel", "BertForPreTraining",
            "BertForQuestionAnswering", "DeepSpeedTransformerConfig",

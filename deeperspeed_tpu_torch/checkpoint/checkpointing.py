@@ -9,7 +9,7 @@ The port of `deeperspeed_tpu/checkpoint/checkpointing.py`. Layout:
     {save_dir}/latest
 
 The model-states file holds the module's parameters, the LR schedule,
-the dataloader position, the four counters, the loss-scale state and the
+the batch-size schedule, the dataloader position, the four counters, the loss-scale state and the
 config. The zero file (written iff ZeRO is on or the compute dtype is
 not fp32, the JAX engine's ``keep_master``) holds the fp32 masters and
 the Adam state; otherwise the Adam state goes into the model-states
@@ -138,7 +138,9 @@ def snapshot_checkpoint(engine, client_state=None):
         "optimizer": None,
         "lr_scheduler": (engine.lr_scheduler.state_dict()
                          if engine.lr_scheduler is not None else None),
-        "batch_size_scheduler": None,
+        "batch_size_scheduler": (engine.batch_size_scheduler.state_dict()
+                                 if engine.batch_size_scheduler is not None
+                                 else None),
         "dataloader": (dataloader.state_dict()
                        if dataloader is not None else None),
         "gradient_noise_scale": None,
@@ -417,6 +419,13 @@ def _apply_checkpoint(engine, load_dir, tag, ckpt_dir, model_state,
     if load_lr_scheduler_states and engine.lr_scheduler is not None and \
             model_state.get("lr_scheduler") is not None:
         engine.lr_scheduler.load_state_dict(model_state["lr_scheduler"])
+    if engine.batch_size_scheduler is not None and \
+            model_state.get("batch_size_scheduler") is not None:
+        engine.batch_size_scheduler.load_state_dict(
+            model_state["batch_size_scheduler"])
+    # load_dataloader_states=False: the sentinel's rollback keeps the
+    # loader at its CURRENT position (already past the quarantined
+    # window) instead of rewinding it to the checkpoint's offset
     dataloader = engine.training_dataloader
     if load_dataloader_states and dataloader is not None and \
             model_state.get("dataloader") is not None:

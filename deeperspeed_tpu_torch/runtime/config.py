@@ -7,7 +7,9 @@ so a config written for the JAX package means the same here. The
 training parser reads what the port's engine runs (the batch triple,
 precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
 stages 0-2), the "checkpoint" block the engine's checkpoint manager
-reads, and the "moe", "sparse_attention", "packing" and
+reads, the "training_health", "progressive_layer_drop" and
+"batch_size_schedule" blocks and ``fp16.min_scale_patience`` its step
+boundary reads, and the "moe", "sparse_attention", "packing" and
 "activation_checkpointing" blocks the model reads
 (`GPTNeoX.apply_ds_config`); every other top-level block of the JAX
 config that is set raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
@@ -251,6 +253,9 @@ class DeepSpeedConfig:
         self.loss_scaling_enabled = (
             self.fp16_enabled and
             self.precision == resolve_precision("fp16"))
+        # Consecutive overflow-skipped steps tolerated at the
+        # min_loss_scale floor before a loud error (0 = warn-only; see
+        # fp16/loss_scaler.ScaleFloorWatch).
         self.min_scale_patience = as_int(
             fp16.get(c.FP16_MIN_SCALE_PATIENCE,
                      c.FP16_MIN_SCALE_PATIENCE_DEFAULT),
@@ -259,10 +264,6 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"fp16.{c.FP16_MIN_SCALE_PATIENCE} must be >= 0 "
                 f"(0 = warn-only), got {self.min_scale_patience}")
-        if self.min_scale_patience:
-            raise DeepSpeedConfigError(
-                f"fp16.{c.FP16_MIN_SCALE_PATIENCE} is not ported yet (the "
-                f"loss-scale floor watch comes with the robustness slice)")
 
         self.gradient_clipping = float(
             d.get(c.GRADIENT_CLIPPING, c.GRADIENT_CLIPPING_DEFAULT))
@@ -298,7 +299,22 @@ class DeepSpeedConfig:
         self.sparse_attention = _parse_sparse_attention(d)
         self._parse_packing_block(d)
         self._parse_moe_block(d)
+
+        pld = d.get(c.PROGRESSIVE_LAYER_DROP) or {}
+        self.pld_enabled = bool(pld.get(c.PLD_ENABLED, c.PLD_ENABLED_DEFAULT))
+        self.pld_params = {
+            c.PLD_THETA: pld.get(c.PLD_THETA, c.PLD_THETA_DEFAULT),
+            c.PLD_GAMMA: pld.get(c.PLD_GAMMA, c.PLD_GAMMA_DEFAULT),
+        } if self.pld_enabled else False
+
+        bs_sched = d.get(c.BATCH_SIZE_SCHEDULE) or {}
+        self.batch_size_schedule_enabled = bool(
+            bs_sched.get(c.BS_SCHEDULE_ENABLED, c.BS_SCHEDULE_ENABLED_DEFAULT))
+        self.batch_size_schedule_params = dict(
+            bs_sched.get(c.BS_SCHEDULE_PARAMS, {}))
+
         self._parse_checkpoint_block(d)
+        self._parse_training_health_block(d)
 
     def _parse_packing_block(self, d):
         """Parse + validate the "packing" block (`runtime/packing.py`:
@@ -422,6 +438,113 @@ class DeepSpeedConfig:
             "keep_last_n": ints[c.CHECKPOINT_KEEP_LAST_N],
             "keep_every_n_steps": ints[c.CHECKPOINT_KEEP_EVERY_N_STEPS],
             "save_on_preemption": save_on_preemption,
+        }
+
+    def _parse_training_health_block(self, d):
+        """Parse + validate the "training_health" block (runtime/
+        sentinel.py + runtime/fault_injection.py) with the JAX package's
+        keys, defaults, bounds and messages. Same parse-time strictness
+        as the "checkpoint" block: a mistyped threshold or policy must
+        fail at startup, not at the first (hours-away) anomaly. Runs
+        AFTER _parse_checkpoint_block: the rollback policy
+        cross-validates against checkpoint.save_dir."""
+        th = d.get(c.TRAINING_HEALTH) or {}
+        known = {c.TRAINING_HEALTH_ENABLED, c.TRAINING_HEALTH_POLICY,
+                 c.TRAINING_HEALTH_LOSS_ZSCORE,
+                 c.TRAINING_HEALTH_GRAD_NORM_ZSCORE,
+                 c.TRAINING_HEALTH_EMA_BETA,
+                 c.TRAINING_HEALTH_WARMUP_STEPS,
+                 c.TRAINING_HEALTH_ROLLBACK_AFTER,
+                 c.TRAINING_HEALTH_ABORT_AFTER,
+                 c.TRAINING_HEALTH_MAX_ROLLBACKS,
+                 c.TRAINING_HEALTH_HANG_TIMEOUT,
+                 c.TRAINING_HEALTH_FAULT_INJECTION}
+        unknown = sorted(set(th) - known)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown 'training_health' key(s) {unknown}; valid "
+                f"keys: {sorted(known)}")
+
+        enabled = th.get(c.TRAINING_HEALTH_ENABLED,
+                         c.TRAINING_HEALTH_ENABLED_DEFAULT)
+        if not isinstance(enabled, bool):
+            raise DeepSpeedConfigError(
+                f"training_health.{c.TRAINING_HEALTH_ENABLED} must be a "
+                f"boolean, got {enabled!r}")
+
+        from .sentinel import POLICIES
+        policy = th.get(c.TRAINING_HEALTH_POLICY,
+                        c.TRAINING_HEALTH_POLICY_DEFAULT)
+        if policy not in POLICIES:
+            raise DeepSpeedConfigError(
+                f"training_health.{c.TRAINING_HEALTH_POLICY} must be one "
+                f"of {list(POLICIES)}, got {policy!r}")
+
+        floats = {}
+        for key, default, lo, hi in (
+                (c.TRAINING_HEALTH_LOSS_ZSCORE,
+                 c.TRAINING_HEALTH_LOSS_ZSCORE_DEFAULT, 0.0, None),
+                (c.TRAINING_HEALTH_GRAD_NORM_ZSCORE,
+                 c.TRAINING_HEALTH_GRAD_NORM_ZSCORE_DEFAULT, 0.0, None),
+                (c.TRAINING_HEALTH_EMA_BETA,
+                 c.TRAINING_HEALTH_EMA_BETA_DEFAULT, 0.0, 1.0),
+                (c.TRAINING_HEALTH_HANG_TIMEOUT,
+                 c.TRAINING_HEALTH_HANG_TIMEOUT_DEFAULT, 0.0, None)):
+            value = th.get(key, default)
+            if not isinstance(value, (int, float)) or \
+                    isinstance(value, bool):
+                raise DeepSpeedConfigError(
+                    f"training_health.{key} must be a number, got "
+                    f"{value!r}")
+            value = float(value)
+            if value < lo or (hi is not None and value >= hi):
+                bound = f">= {lo}" if hi is None else f"in [{lo}, {hi})"
+                raise DeepSpeedConfigError(
+                    f"training_health.{key} must be {bound}, got {value}")
+            floats[key] = value
+
+        ints = {}
+        for key, default, lo in (
+                (c.TRAINING_HEALTH_WARMUP_STEPS,
+                 c.TRAINING_HEALTH_WARMUP_STEPS_DEFAULT, 0),
+                (c.TRAINING_HEALTH_ROLLBACK_AFTER,
+                 c.TRAINING_HEALTH_ROLLBACK_AFTER_DEFAULT, 1),
+                (c.TRAINING_HEALTH_ABORT_AFTER,
+                 c.TRAINING_HEALTH_ABORT_AFTER_DEFAULT, 1),
+                (c.TRAINING_HEALTH_MAX_ROLLBACKS,
+                 c.TRAINING_HEALTH_MAX_ROLLBACKS_DEFAULT, 0)):
+            value = as_int(th.get(key, default), f"training_health.{key}")
+            if value < lo:
+                raise DeepSpeedConfigError(
+                    f"training_health.{key} must be >= {lo}, got {value}")
+            ints[key] = value
+
+        if enabled and policy == "rollback" and \
+                self.checkpoint_config["save_dir"] is None:
+            raise DeepSpeedConfigError(
+                "training_health.policy 'rollback' requires "
+                "checkpoint.save_dir: recovery restores the last "
+                "committed checkpoint from there")
+
+        fault_spec = th.get(c.TRAINING_HEALTH_FAULT_INJECTION)
+        if fault_spec is not None:
+            from .fault_injection import validate_fault_spec
+            validate_fault_spec(fault_spec)   # parse-time strictness
+
+        self.training_health_enabled = enabled
+        self.training_health_config = {
+            "enabled": enabled,
+            "policy": policy,
+            "loss_zscore": floats[c.TRAINING_HEALTH_LOSS_ZSCORE],
+            "grad_norm_zscore":
+                floats[c.TRAINING_HEALTH_GRAD_NORM_ZSCORE],
+            "ema_beta": floats[c.TRAINING_HEALTH_EMA_BETA],
+            "warmup_steps": ints[c.TRAINING_HEALTH_WARMUP_STEPS],
+            "rollback_after": ints[c.TRAINING_HEALTH_ROLLBACK_AFTER],
+            "abort_after": ints[c.TRAINING_HEALTH_ABORT_AFTER],
+            "max_rollbacks": ints[c.TRAINING_HEALTH_MAX_ROLLBACKS],
+            "hang_timeout_seconds": floats[c.TRAINING_HEALTH_HANG_TIMEOUT],
+            "fault_injection": fault_spec,
         }
 
     def _parse_moe_block(self, d):

@@ -77,23 +77,65 @@ GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
 # set (present, and not null / false / {} / {"enabled": false}) raises
 # DeepSpeedConfigError "not ported".
 NOT_PORTED_BLOCKS = {
-    "progressive_layer_drop": "progressive layer drop",
     "sequence_parallel": "ranks (sequence parallelism)",
     "pipeline": "scale-out (pipeline)",
     "multislice": "scale-out",
-    "training_health": "training robustness (the sentinel)",
     "telemetry": "observability",
     "monitor": "observability",
     "tensorboard": "observability",
     "flops_profiler": "observability",
     "elasticity": "elasticity",
     "quantization": "serving-quant / quantized training",
-    "batch_size_schedule": "batch-size schedules",
     "amp": "mixed precision through amp",
     "aio": "offload",
     "planner": "schedule planner",
     "rl": "online RL",
 }
+
+# ---------------------------------------------------------------------------
+# Progressive layer drop
+# ---------------------------------------------------------------------------
+PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
+
+# ---------------------------------------------------------------------------
+# Batch-size warmup schedule (fork addition, bs_schedules.py)
+# ---------------------------------------------------------------------------
+BATCH_SIZE_SCHEDULE = "batch_size_schedule"
+BS_SCHEDULE_ENABLED = "enabled"
+BS_SCHEDULE_ENABLED_DEFAULT = False
+BS_SCHEDULE_PARAMS = "params"
+
+# ---------------------------------------------------------------------------
+# Training-health sentinel block (runtime/sentinel.py)
+# ---------------------------------------------------------------------------
+TRAINING_HEALTH = "training_health"
+TRAINING_HEALTH_ENABLED = "enabled"
+TRAINING_HEALTH_ENABLED_DEFAULT = False
+TRAINING_HEALTH_POLICY = "policy"
+TRAINING_HEALTH_POLICY_DEFAULT = "warn"
+TRAINING_HEALTH_LOSS_ZSCORE = "loss_zscore"
+TRAINING_HEALTH_LOSS_ZSCORE_DEFAULT = 6.0
+TRAINING_HEALTH_GRAD_NORM_ZSCORE = "grad_norm_zscore"
+TRAINING_HEALTH_GRAD_NORM_ZSCORE_DEFAULT = 6.0
+TRAINING_HEALTH_EMA_BETA = "ema_beta"
+TRAINING_HEALTH_EMA_BETA_DEFAULT = 0.98
+TRAINING_HEALTH_WARMUP_STEPS = "warmup_steps"
+TRAINING_HEALTH_WARMUP_STEPS_DEFAULT = 20
+TRAINING_HEALTH_ROLLBACK_AFTER = "rollback_after"
+TRAINING_HEALTH_ROLLBACK_AFTER_DEFAULT = 2
+TRAINING_HEALTH_ABORT_AFTER = "abort_after"
+TRAINING_HEALTH_ABORT_AFTER_DEFAULT = 5
+TRAINING_HEALTH_MAX_ROLLBACKS = "max_rollbacks"
+TRAINING_HEALTH_MAX_ROLLBACKS_DEFAULT = 2
+TRAINING_HEALTH_HANG_TIMEOUT = "hang_timeout_seconds"
+TRAINING_HEALTH_HANG_TIMEOUT_DEFAULT = 0.0
+TRAINING_HEALTH_FAULT_INJECTION = "fault_injection"
 
 # ---------------------------------------------------------------------------
 # Packing block (document-packed ragged batches; runtime/packing.py)

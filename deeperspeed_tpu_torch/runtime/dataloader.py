@@ -101,6 +101,12 @@ class DeepSpeedDataLoader:
     def __len__(self):
         return self.len
 
+    def position(self):
+        """Current stream position as `{"epoch", "offset"}` (offset in
+        batches within the epoch): the provenance the training-health
+        sentinel records for quarantined windows and rollbacks."""
+        return {"epoch": self.epoch, "offset": self._batches_yielded}
+
     def state_dict(self):
         """Resume position for full-state checkpointing: epoch + batch
         offset. The built-in sampler's shuffle order is derived from

@@ -62,6 +62,19 @@ engine resumes the other's run. The "checkpoint" config block drives
 `checkpoint_manager` (auto-saves, retention, the preemption save), which
 `train_batch` and `step` call at the end of every step.
 
+Training under failure (the "training_health" block; `sentinel.py`,
+`fault_injection.py`): `train_batch` plans each step with the fault
+injector (an injected NaN gradient or loss spike corrupts the step's
+mean loss and accumulated gradient; a stall sleeps with the watchdog
+armed, which it is once a step of the same kind has run), the probe in
+`_apply_update` reads the global norm and the mean loss, and
+`_after_step` turns its flags into a verdict: "quarantined" and
+"overflow" steps advance no schedule, a "rollback" restores the last
+checkpoint and skips the step boundary. The step boundary
+(`_advance_host_schedules`) steps the LR and batch-size schedules,
+progressive layer drop, the loss-scale floor watch
+(``fp16.min_scale_patience``) and the checkpoint manager.
+
 Batches: bare tokens, a tuple of arrays (GPT-NeoX's and GPT-2's
 (tokens, labels)) or a dict (BERT's), each leaf moved to the device
 with its kind kept (integer ids as long, a float mask as it is) and
@@ -69,6 +82,9 @@ handed to ``loss_fn`` one micro-batch at a time, as the JAX engine
 splits its batch pytree; each model's ``loss_fn`` unpacks its own
 micro-batch.
 """
+
+import inspect
+import time
 
 import numpy as np
 import torch
@@ -82,12 +98,18 @@ from ..utils.timer import ThroughputTimer
 from . import constants as c
 from .config import DeepSpeedConfig
 from .config_utils import DeepSpeedConfigError
+from .bs_schedules import BatchSizeScheduler
 from .dataloader import DeepSpeedDataLoader
-from .fp16.loss_scaler import (DynamicLossScaler, create_loss_scaler,
-                               grads_finite, init_loss_scale_state,
-                               update_loss_scale)
+from .fault_injection import (HOST_FAULT_KINDS, SERVING_FAULT_KINDS,
+                              FaultInjector, apply_fault)
+from .fp16.loss_scaler import (DynamicLossScaler, ScaleFloorWatch,
+                               create_loss_scaler, grads_finite,
+                               init_loss_scale_state, update_loss_scale)
 from .lr_schedules import get_scheduler_class
-from .utils import GradientNoiseScale, clip_grad_norm_
+from .progressive_layer_drop import ProgressiveLayerDrop
+from .sentinel import (TrainingHealthSentinel, grad_anomaly,
+                       init_health_state, probe_update)
+from .utils import GradientNoiseScale, clip_grad_norm_, global_norm
 
 
 # the base seed of the per-micro-step generator (the JAX engine's
@@ -192,6 +214,24 @@ class DeepSpeedEngine:
 
         self.optimizer = self._configure_optimizer(optimizer)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self.batch_size_scheduler = None
+        if self._config.batch_size_schedule_enabled:
+            self.batch_size_scheduler = BatchSizeScheduler(
+                final_batch_size=self.train_micro_batch_size_per_gpu(),
+                **self._config.batch_size_schedule_params)
+        self.progressive_layer_drop = None
+        self._pld_in_loss = False
+        if self._config.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                self._config.pld_params["theta"],
+                self._config.pld_params["gamma"])
+            # theta(t) reaches the model only if its loss_fn declares the
+            # argument (the reference injects it as a forward kwarg)
+            try:
+                self._pld_in_loss = "pld_theta" in \
+                    inspect.signature(model.loss_fn).parameters
+            except (TypeError, ValueError):
+                self._pld_in_loss = False
         # fp32 masters apart from the parameters in the JAX engine, so a
         # checkpoint holds a zero file (ZeRO on, or a 16-bit compute
         # dtype), unless the lean state makes the parameters the masters
@@ -205,6 +245,38 @@ class DeepSpeedEngine:
             init_scale=self.loss_scaler.cur_scale,
             delayed_shift=getattr(self.loss_scaler, "delayed_shift", 1),
             static=not self.dynamic_loss_scale())
+        self._scale_floor = None
+        if self.dynamic_loss_scale():
+            self._scale_floor = ScaleFloorWatch(
+                min_scale=self.loss_scaler.min_scale,
+                patience=self._config.min_scale_patience)
+
+        # the training-health sentinel and the fault-injection harness
+        # (runtime/sentinel.py, runtime/fault_injection.py; the
+        # "training_health" block)
+        th_cfg = self._config.training_health_config
+        self._fault_injector = FaultInjector.from_config_env(
+            th_cfg.get("fault_injection"))
+        if self._fault_injector is not None:
+            elastic = sorted({f["kind"] for f in self._fault_injector.faults
+                              if f["kind"] in HOST_FAULT_KINDS and
+                              f["kind"] not in SERVING_FAULT_KINDS})
+            if elastic:
+                raise _not_ported(
+                    f"the training fault kind(s) {elastic} (they act on "
+                    f"the peer-health monitor and the slices)",
+                    "scale-out (A.7) and fleet (A.8.3)")
+        self.sentinel = None
+        self.health = None
+        if th_cfg.get("enabled"):
+            self.sentinel = TrainingHealthSentinel(
+                self, **{k: v for k, v in th_cfg.items()
+                         if k not in ("enabled", "fault_injection")})
+            self.health = init_health_state(self.device)
+        # the (gas, injector present) kinds of step this engine has run:
+        # the watchdog arms only for those (the first one builds the
+        # kernels and sets up cuBLAS, which is not a hang)
+        self._steps_run = set()
 
         self.global_steps = 0
         self.global_samples = 0
@@ -484,6 +556,36 @@ class DeepSpeedEngine:
             raise RuntimeError(
                 f"train_batch with {self._accum_count} micro-batch(es) of "
                 f"the forward/backward/step loop not yet stepped")
+
+        fault = None
+        stall_s = 0.0
+        if self._fault_injector is not None:
+            mode, factor, stall_s = self._fault_injector.plan_next_step()
+            # the serving kinds do nothing in training (the elastic ones
+            # are refused at construction)
+            self._fault_injector.take_host_faults()
+            fault = (mode, factor)
+        # hang watchdog: this step must complete (through the sentinel's
+        # flags read in _after_step) before the deadline. Armed only
+        # once this kind of step has run: the first one builds the
+        # kernels and sets up cuBLAS, which is not a hang.
+        key = (gas, fault is not None)
+        if self.sentinel is not None and key in self._steps_run:
+            self.sentinel.watchdog_arm()
+        self._steps_run.add(key)
+        if stall_s > 0:
+            time.sleep(stall_s)   # deterministic hung-step fault
+        try:
+            return self._train_batch_execute(batch, gas, fault)
+        except BaseException:
+            # the step DIED rather than hung: disarm, or the deadline
+            # would later fire a spurious stack dump and preemption
+            # request while the caller handles the exception
+            if self.sentinel is not None:
+                self.sentinel.watchdog_feed()
+            raise
+
+    def _train_batch_execute(self, batch, gas, fault):
         batch = self._device_batch(batch)
         tokens = self._input_ids(batch)
         if tokens.dim() != 3 or tokens.shape[0] != gas:
@@ -496,11 +598,24 @@ class DeepSpeedEngine:
             self._rng.manual_seed(micro_step_seed(self.micro_steps))
             loss = self.module.loss_fn(self.module.params_tree(),
                                        self._map(batch, lambda v: v[i]),
-                                       rng=self._rng)
+                                       rng=self._rng, **self._pld_kwargs())
             self._micro_backward(loss)
-        mean_loss = self._step_update()
+        mean_loss = self._step_update(fault=fault, probe_loss=True)
         self.tput_timer.stop(tokens=tokens.numel())
         return mean_loss
+
+    def _pld_kwargs(self):
+        """``pld_theta`` for a model whose ``loss_fn`` declares it:
+        theta(t) = (1 - p)·e^{-γt} + p at t = ``global_steps``, in fp32 as
+        the JAX step computes it from its step counter."""
+        if not self._pld_in_loss:
+            return {}
+        p = self._config.pld_params["theta"]
+        gamma = self._config.pld_params["gamma"]
+        t = np.float32(self.global_steps)
+        theta = np.float32(1.0 - p) * np.exp(np.float32(-gamma) * t) + \
+            np.float32(p)
+        return {"pld_theta": float(np.float32(theta))}
 
     def _micro_backward(self, loss, per_micro=None):
         """One micro-batch's backward (the loss times the loss scale,
@@ -533,32 +648,42 @@ class DeepSpeedEngine:
         self._accum_count += 1
         self.micro_steps += 1
 
-    def _step_update(self):
+    def _step_update(self, fault=None, probe_loss=False):
         """The step over the accumulated micro-batches: the mean
-        gradient through `_apply_update`, then the host schedules and
-        the checkpoint manager's step boundary. Returns the mean
-        loss."""
+        gradient (corrupted by ``fault``, an injected ``(mode, factor)``,
+        where given) through `_apply_update`, then the step boundary
+        (`_after_step`). The probe sees the mean loss where
+        ``probe_loss`` (`train_batch`); the legacy loop's update has no
+        loss, as in JAX. Returns the mean loss."""
         n = self._accum_count
         lr = self._current_lr()
         grads = self._grad_acc
         if n > 1:
             grads.div_(n)
-        overflow = self._apply_update(grads, lr)
-        grads.zero_()
-        mean_loss = float(self._accum_loss / n)
+        loss = self._accum_loss / n
+        if fault is not None:
+            loss, grads = apply_fault(loss, grads, fault)
+        overflow = self._apply_update(grads, lr,
+                                      loss=loss if probe_loss else None)
+        self._grad_acc.zero_()
+        mean_loss = float(loss)
         self._accum_count, self._accum_loss = 0, None
         self._after_step(overflow)
-        # step boundary: drain finished saves, honor a preemption request,
-        # fire the auto-save interval (no-ops when unconfigured)
-        self.checkpoint_manager.on_step_boundary(self)
         return mean_loss
 
-    def _apply_update(self, grads, lr):
+    def _apply_update(self, grads, lr, loss=None):
         """Unscale, check, clip, update the masters and recast; on an
         fp16 overflow skip the update. Returns the overflow flag. A
         16-bit gradient (the lean state's one micro-batch) goes to Adam
         as it is, or through an fp32 copy where it is unscaled, divided
-        or clipped first (the JAX `_apply_update`)."""
+        or clipped first (the JAX `_apply_update`).
+
+        With the sentinel on, the global norm (after unscale and the
+        predivide, before clipping; the clip reuses it) and ``loss`` go
+        through the probe, and under policy `skip_batch` or higher a
+        hard anomaly skips the update: its flag is read on the host once,
+        before the Adam launch, where the JAX step selects the old state
+        branchlessly. The loss-scale state advances either way."""
         cfg = self._config
         if grads.dtype != torch.float32 and (
                 cfg.loss_scaling_enabled or cfg.prescale_gradients or
@@ -570,9 +695,19 @@ class DeepSpeedEngine:
             grads.div_(cfg.gradient_predivide_factor)
         overflow = cfg.loss_scaling_enabled and \
             not bool(grads_finite(grads))
-        if not overflow:
+        skip = overflow
+        grad_norm = None
+        if self.sentinel is not None:
+            grad_norm = global_norm(grads)
+            self.health, hard = probe_update(
+                self.health, loss, grad_norm,
+                grad_anomaly(self, self.scale_state, grad_norm, overflow),
+                self.sentinel.probe_config)
+            if self.sentinel.probe_config.quarantine and not overflow:
+                skip = bool(hard)
+        if not skip:
             if cfg.gradient_clipping > 0:
-                clip_grad_norm_(grads, cfg.gradient_clipping)
+                clip_grad_norm_(grads, cfg.gradient_clipping, norm=grad_norm)
             self.opt_state = self.optimizer.update(
                 grads, self.opt_state, self._master, lr=lr,
                 compute_out=None if self._params_flat is self._master
@@ -593,22 +728,61 @@ class DeepSpeedEngine:
         return overflow
 
     def _after_step(self, overflow):
+        """Post-step host bookkeeping. Returns the step's verdict: one
+        of "ok", "warned", "quarantined", "rollback", "overflow".
+        "quarantined" and "overflow" advance no schedule; after a
+        "rollback" the state and the counters are the checkpoint's, and
+        the step boundary is not run."""
+        verdict = "ok"
+        if self.sentinel is not None:
+            try:
+                verdict = self.sentinel.after_step(self)
+            finally:
+                self.sentinel.watchdog_feed()
+            if verdict == "rollback":
+                return verdict
         if overflow:
+            if verdict == "ok":
+                verdict = "overflow"   # scale-search skip
             self.skipped_steps += 1
             log_dist(f"OVERFLOW! Skipping step; loss scale now "
                      f"{self.scale_state.cur_scale}", ranks=[0])
-        self._advance_host_schedules(taken=0 if overflow else 1)
+            if self._scale_floor is not None:
+                self._scale_floor.on_skip(self.scale_state.cur_scale)
+            self._advance_host_schedules(taken=0)
+        else:
+            if self._scale_floor is not None:
+                self._scale_floor.on_step_taken()
+            # a quarantined anomaly skipped its update: the schedules do
+            # not advance either
+            self._advance_host_schedules(
+                taken=0 if verdict == "quarantined" else 1)
+        return verdict
 
     def _advance_host_schedules(self, taken):
+        """Advance the host-side per-step machinery after ``taken``
+        steps, then the checkpoint manager's step boundary."""
         self.global_steps += taken
         self.global_samples += self.train_batch_size() * taken
         for _ in range(taken):
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
-        if taken and self.global_steps % self.steps_per_print() == 0:
-            log_dist(f"step={self.global_steps}, skipped="
-                     f"{self.skipped_steps}, lr={self.get_lr()}, "
-                     f"loss_scale={self.loss_scale}", ranks=[0])
+            if self.batch_size_scheduler is not None:
+                self.batch_size_scheduler.step()
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        if self.global_steps and \
+                self.global_steps % self.steps_per_print() == 0:
+            msg = (f"step={self.global_steps}, skipped={self.skipped_steps}"
+                   f", lr={self.get_lr()}, loss_scale={self.loss_scale}")
+            if self.sentinel is not None:
+                s = self.sentinel
+                msg += (f", anomalies={s.anomalies}, quarantined="
+                        f"{s.quarantined}, rollbacks={s.rollbacks}")
+            log_dist(msg, ranks=[0])
+        # step boundary: drain finished saves, honor a preemption request,
+        # fire the auto-save interval (no-ops when unconfigured)
+        self.checkpoint_manager.on_step_boundary(self)
 
     # ------------------------------------------------------------------
     # the legacy training loop (Megatron's engine(batch) /
@@ -629,7 +803,7 @@ class DeepSpeedEngine:
         if rng is None:
             rng = self._rng.manual_seed(micro_step_seed(self.micro_steps))
         loss = self.module.loss_fn(self.module.params_tree(), batch,
-                                   rng=rng)
+                                   rng=rng, **self._pld_kwargs())
         self._cached_loss = loss
         return loss
 

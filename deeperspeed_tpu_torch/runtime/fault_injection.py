@@ -2,15 +2,15 @@
 
 The port of `deeperspeed_tpu/runtime/fault_injection.py`. It drives
 the serving engine's robustness paths on demand (quarantine → retry →
-poison, the hang watchdog, eviction under page-pool pressure) and keeps
-the training kinds whole for the training sentinel, which the port's
-training engine still refuses (the ``training_health`` block).
+poison, the hang watchdog, eviction under page-pool pressure) and the
+training engine's (the sentinel's quarantine, rollback and abort, the
+training hang watchdog, the loss-scale floor watch).
 
 Gating (nothing is built when both are absent):
 
-- config: ``{"inference": {"fault_injection": {"faults": [...]}}}``
-  (``training_health.fault_injection`` in the JAX package's training
-  engine);
+- config: ``{"training_health": {"fault_injection": {"faults": [...]}}}``
+  for the training engine, ``{"inference": {"fault_injection":
+  {"faults": [...]}}}`` for the serving engine;
 - env: ``DS_FAULT_INJECT='{"faults": [...]}'`` (JSON, same schema).
 
 Fault schema (validated at parse time)::
@@ -32,9 +32,19 @@ Fault schema (validated at parse time)::
      "peer": "sim0",     # peer_death / slow_peer: simulated peer name
      "slice": "slice1"}  # slice_kill: the slice to kill
 
-``step`` counts `InferenceEngine.step()` calls in this process (a
-monotonic serial: warm-up steps count too, and a retried request does
-not re-trigger a one-shot fault).
+``step`` counts `InferenceEngine.step()` calls, or `train_batch` calls,
+of the engine that owns the injector (a monotonic serial: warm-up steps
+count too, and a retried request or a step replayed after a rollback
+does not re-trigger a one-shot fault).
+
+The training kinds: the engine's `train_batch` plans each step once;
+``nan_grads`` and ``loss_spike`` corrupt the step's mean loss and its
+accumulated gradient through `apply_fault` before the update, and
+``stall`` sleeps before the step runs (with the watchdog armed). The
+peer-health and multislice kinds (``peer_death``, ``slow_peer``,
+``barrier_timeout``, ``dcn_delay``, ``slice_kill``) need the JAX
+engine's peer monitor and slices, which the port does not have yet: the
+training engine refuses them.
 
 The serving kinds are host faults, consumed by `InferenceEngine`:
 ``prefill_error`` / ``decode_error`` raise an `InjectedServingFault` in

@@ -6,12 +6,15 @@ branchless arithmetic; the port's engine reads the overflow flag on the
 host each fp16 step (the JAX engine does too, `_after_step`), so the
 state is plain Python numbers and `update_loss_scale` is the same
 transition written with branches. bf16 and fp32 runs keep a static scale
-of 1 and never check for overflow.
+of 1 and never check for overflow. `ScaleFloorWatch` watches a dynamic
+scale pinned at its floor (``fp16.min_scale_patience``).
 """
 
 from typing import NamedTuple
 
 import torch
+
+from ...utils.logging import logger
 
 
 class LossScaleState(NamedTuple):
@@ -82,6 +85,60 @@ class DynamicLossScaler(LossScaler):
         self.min_scale = min_scale
         self.delayed_shift = delayed_shift
         self.consecutive_hysteresis = consecutive_hysteresis
+
+
+class LossScaleFloorError(RuntimeError):
+    """The dynamic loss scale has been pinned at `min_loss_scale` for
+    `fp16.min_scale_patience` consecutive skipped steps: every step is
+    being skipped, the run is burning compute without training."""
+
+
+class ScaleFloorWatch:
+    """Detect a loss scale stuck at its floor (host-side, O(1) per step).
+
+    The dynamic scaler halves on overflow but floors at `min_scale`; once
+    there, a run whose gradients stay non-finite skips EVERY step while
+    reporting normal-looking progress. This watch warns ONCE when the
+    floor is first hit on a skipped step, tracks the consecutive-skip run
+    length, and after `patience` consecutive skipped steps at the floor
+    raises `LossScaleFloorError` instead of silently burning steps.
+    `patience=0` keeps warn-only behavior.
+    """
+
+    def __init__(self, min_scale=1.0, patience=0):
+        self.min_scale = float(min_scale)
+        self.patience = int(patience)
+        self.consecutive = 0
+        self.warned = False
+
+    def on_skip(self, cur_scale):
+        """Record an overflow-skipped step; True if the scale sits at the
+        floor. Raises after `patience` consecutive floor skips."""
+        if cur_scale > self.min_scale:
+            self.consecutive = 0
+            return False
+        self.consecutive += 1
+        if not self.warned:
+            self.warned = True
+            logger.warning(
+                f"dynamic loss scale has bottomed out at min_scale="
+                f"{self.min_scale} and the step was skipped; if this "
+                "persists the run is not training (set "
+                "fp16.min_scale_patience to fail fast)")
+        if self.patience and self.consecutive >= self.patience:
+            raise LossScaleFloorError(
+                f"loss scale pinned at min_scale={self.min_scale} for "
+                f"{self.consecutive} consecutive skipped steps "
+                f"(fp16.min_scale_patience={self.patience}): every "
+                "recent step overflowed and was dropped. The gradients "
+                "are persistently non-finite — check for bad data, a "
+                "diverged model, or enable the training_health sentinel "
+                "for automatic rollback.")
+        return True
+
+    def on_step_taken(self):
+        """A step actually applied: the skip run (if any) is over."""
+        self.consecutive = 0
 
 
 def create_loss_scaler(config):

@@ -6,7 +6,8 @@ Four schedules with the reference's exact math and stateful API
 ``LRRangeTest``, ``OneCycle``, ``WarmupLR``, ``WarmupDecayLR``. The
 training engine reads ``param_groups[0]["lr"]`` before each step and
 calls ``step()`` after each step taken; ``lr_at(iteration)``
-evaluates a schedule as a function.
+evaluates a schedule as a function, and `make_schedule_fn` builds one
+as a plain ``f(step)`` without an optimizer.
 """
 
 import math
@@ -272,6 +273,27 @@ def get_scheduler_class(name):
         raise ValueError(
             f"unknown lr schedule {name!r}; valid: {VALID_LR_SCHEDULES}")
     return _SCHEDULE_CLASSES[name]
+
+
+class _DummyGroups:
+    """Stand-in optimizer so schedules can be evaluated as pure functions."""
+    param_groups = None
+
+    def __init__(self):
+        self.param_groups = [{"lr": 0.0, "betas": (0.9, 0.999)}]
+        self.defaults = {"betas": (0.9, 0.999)}
+
+
+def make_schedule_fn(name, params):
+    """Return a pure ``f(step: int) -> float``, the schedule's LR at an
+    optimizer step counted from 0 (the JAX package's `make_schedule_fn`,
+    which its jitted programs call)."""
+    sched = get_scheduler_class(name)(_DummyGroups(), **params)
+
+    def schedule(step):
+        return sched.lr_at(int(step))[0]
+
+    return schedule
 
 
 def add_tuning_arguments(parser):

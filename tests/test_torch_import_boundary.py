@@ -4,8 +4,10 @@ and building a CPU serving engine (bf16/fp32 and int8), a dense, an MoE
 and a block-sparse GPT-NeoX training engine, a packed GPT-NeoX training
 engine under a remat policy, a BERT training engine, a GPT-2 serving
 engine and a lean GPT-2 training engine through `train_batch` and the
-legacy forward / backward / step loop, and saving and loading a
-checkpoint, leaves them out of `sys.modules`."""
+legacy forward / backward / step loop, saving and loading a checkpoint,
+and a training engine with the training-health sentinel, a fault plan,
+the batch-size schedule and progressive layer drop, leaves them out of
+`sys.modules`."""
 
 import ast
 import os
@@ -136,6 +138,19 @@ def test_engine_on_cpu_loads_no_jax():
         "for i in range(2):\n"
         "    lean.backward(lean((gt[i], gt[i])))\n"
         "assert lean.step() > 0 and lean.global_steps == 2\n"
+        "h = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
+        "eng, *_ = initialize(model=h, config_params={\n"
+        "    'train_batch_size': 2,\n"
+        "    'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}},\n"
+        "    'training_health': {'enabled': True, 'policy': 'skip_batch',\n"
+        "        'fault_injection': {'faults': [\n"
+        "            {'kind': 'nan_grads', 'step': 1}]}},\n"
+        "    'batch_size_schedule': {'enabled': True},\n"
+        "    'progressive_layer_drop': {'enabled': True}})\n"
+        "x = torch.randint(0, 512, (1, 2, 16))\n"
+        "for _ in range(2):\n"
+        "    assert eng.train_batch(batch=(x, x)) > 0\n"
+        "assert eng.global_steps == 1 and eng.sentinel.quarantined == 1\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu', 'ml_dtypes'))\n"
         "print(bad)\n")

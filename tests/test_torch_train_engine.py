@@ -309,7 +309,6 @@ UNPORTED = [{k: {"enabled": True}} for k in sorted(c.NOT_PORTED_BLOCKS)] + [
     {"zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 1, "cpu_offload": True}},
-    {"fp16": {"enabled": True, "min_scale_patience": 3}},
 ]
 
 
