@@ -8,6 +8,7 @@
     python3 chip_smoke.py --serve-prefix-only
     python3 chip_smoke.py --serve-chaos-only
     python3 chip_smoke.py --sentinel-only [--profile]
+    python3 chip_smoke.py --fp16-only [--profile]
 
 Phases (any failure exits non-zero before the final line):
 
@@ -301,6 +302,31 @@ Phases (any failure exits non-zero before the final line):
    plain path: identical verdicts, counters and quarantine records,
    losses within rtol 1e-4; the legacy forward / backward / step loop on
    the same plan gives the verdicts of its gradient flags.
+31. fp16 training: (a) train-fp16-125M, phase 7's model, batch and
+   config with GPT-NeoX configs/125M.yml's fp16 block from 2^32: the
+   opening overflows skipped (no Adam launch), then 14 steps taken on
+   the classic fp16 Adam variant, the loss scale equal to a host replay
+   of the JAX `update_loss_scale` rule over the observed overflow flags,
+   the loss falling over the taken steps, every flash launch on the
+   tensor cores, step ms, tokens/s and MFU beside phase 7's bf16; (b)
+   train-moe-125M in fp16 (8 steps from 2^16, every grouped launch on
+   wgmma); (c) train-bert-large-512-fp16-lamb, phase 15's BERT-large in
+   fp16 with "Lamb" (bing_bert's options, 6 steps from 2^16); (e) the
+   lean fp16 state (fp16 masters and moments, 8 steps from 2^16); (f)
+   3 fp16 steps of the legacy loop equal to `train_batch`'s; (d)
+   parity: 125M widths at 4 layers, fp16 kernels vs the plain path, the
+   same overflow flags and scales, losses within rtol 2e-2;
+32. serve-fp16-125M: phase 4's stream with fp16 weights and fp16 pools
+   (every prefill on the tensor cores, every decode on the cluster
+   kernel), then greedy tokens kernels vs plain: every first token
+   identical, the identical requests counted.
+Phase 3 also holds every fp16 variant against its plain version in fp16
+(flash forward and backward at the training shape, at D 128, on ragged
+segments and at BERT's key-bias + dropout shape with its all-masked
+row; an overflow case whose non-finite dq, dk, dv must sit where the
+plain version's do; the cluster decode; grouped forward, dx and dW;
+Adam classic and lean at 125M's size), each timed beside its plain
+version, a library call and its bound.
 Phase 3 also holds the flat Adam kernel at GPT-2 XL's size in the lean
 (bf16 p, g, m, v) and the classic (fp32 p, m, v, bf16 g and copy)
 dtypes against its plain version chunk by chunk, two calls
@@ -418,7 +444,7 @@ GMM_LUT_CASE = dict(sizes=(200, 57, 0, 0, 133, 200), span=200, K=64, N=96,
 # grouped matmul tolerances as a fraction of max|ref|: bf16 outputs (y,
 # dx) round once after an fp32 sum in another order than the plain
 # version; fp32 outputs and the fp32 dW differ only in the order
-TOL_GMM = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+TOL_GMM = {torch.bfloat16: 1e-2, torch.float16: 5e-3, torch.float32: 1e-5}
 TOL_GMM_DW = 1e-4
 TRAIN_VOCAB_USED = 512    # ids drawn from [0, 512), so the loss must fall
 # train-sparse-125M-16k: bench.py's row_longseq sparse rung on one card
@@ -683,6 +709,9 @@ def kernel_name(mangled):
             if s.startswith("13__nv_bfloat16", i):
                 args.append("bf16")
                 i += len("13__nv_bfloat16")
+            elif s.startswith("6__half", i):
+                args.append("fp16")
+                i += len("6__half")
             elif s[i] == "f":
                 args.append("float")
                 i += 1
@@ -916,8 +945,9 @@ def decode_bound_ms(q, lengths, kv_bytes=None, scale_bytes=0):
 
 
 def decode_times(da, gen, int8, serving, B=16, H=12, D=64, ps=64, NP=16,
-                 P=513):
-    """One timed bf16 shape: the kernel checked on it, then the kernel,
+                 P=513, dtype=torch.bfloat16):
+    """One timed bf16 (or, with ``dtype``, fp16) shape: the kernel
+    checked on it, then the kernel,
     the single-block kernel (the parent's, kept for fp32 pools and D
     256; through `launch_kernel` with cluster 0, where the module has
     it), the plain version and SDPA on pre-gathered K/V (dequantized for
@@ -927,22 +957,22 @@ def decode_times(da, gen, int8, serving, B=16, H=12, D=64, ps=64, NP=16,
     serving step walks its layers' distinct pools); SDPA cycles through
     L pre-gathered copies. Warm: 20 calls on one layer's view."""
     import torch.nn.functional as F
-    q, table, lengths = decode_query_case(torch.bfloat16, gen, B, H, D, ps,
-                                          NP, P, serving)
+    q, table, lengths = decode_query_case(dtype, gen, B, H, D, ps, NP, P,
+                                          serving)
     kv_bytes, scale_bytes = (1, 2) if int8 else (2, 0)
     live = 2 * H * int(lengths.long().sum()) * (D * kv_bytes + scale_bytes)
     L = max(3, 1 + -(-QMM_COLD_BYTES // live))
-    pools = decode_pools(gen, L, P, H, ps, D, torch.bfloat16, int8)
+    pools = decode_pools(gen, L, P, H, ps, D, dtype, int8)
     views = [tuple(p[i] for p in pools) for i in range(L)]
     out = decode_call(da, q, views[0], table, lengths)
     again = decode_call(da, q, views[0], table, lengths)
     ref = decode_reference(da, q, views[0], table, lengths)
     torch.cuda.synchronize()
-    tol = TOL[torch.bfloat16]["out"]
+    tol = TOL_FP16["decode"] if dtype == torch.float16 else TOL[dtype]["out"]
     err, ok = close(out, ref, *tol)
     zero_ok = bool((out[lengths == 0] == 0).all())
     same = torch.equal(out, again)
-    row = {"dtype": str(torch.bfloat16), "int8_pools": int8,
+    row = {"dtype": str(dtype), "int8_pools": int8,
            "shape": f"B={B} H={H} D={D} ps={ps} NP={NP} P={P}",
            "lengths_drawn": (f"{DECODE_SERVE_LENGTHS[0]}-"
                              f"{DECODE_SERVE_LENGTHS[1]}" if serving else
@@ -999,7 +1029,8 @@ def decode_times(da, gen, int8, serving, B=16, H=12, D=64, ps=64, NP=16,
                                        launches=L)
     row["library_warm_graph_ms"] = graph_ms(lambda: library(copies[0]))
     row["library"] = (f"SDPA on pre-gathered{', dequantized' if int8 else ''}"
-                      f" bf16 K/V of {NPg * ps} positions, bool mask")
+                      f" {str(q.dtype)[6:]} K/V of {NPg * ps} positions, "
+                      f"bool mask")
     if hasattr(da, "launch_kernel"):
         def fixed(cluster):
             return lambda v: da.launch_kernel(q, v[0], v[1], table, lengths,
@@ -6498,6 +6529,946 @@ def sentinel_only(card, profile_step=False):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# fp16: phase 3's fp16 cases, phase 31 (fp16 training) and phase 32 (fp16
+# serving)
+# ---------------------------------------------------------------------------
+
+# the fp16 kernels against their plain versions, as the bf16 ones: the
+# kernel rounds its output to fp16 once after fp32 sums in another order
+# and (flash) packs P and dS to fp16, where the plain version keeps them
+# in fp32; fp16 carries 3 more mantissa bits than bf16, so these are
+# bf16's bounds halved (the flash backward's dS at dO's full scale keeps
+# bf16's)
+TOL_FP16 = {"out": (1e-2, 1e-2), "lse": (1e-3, 0.0), "bwd": (3e-2, 3e-2),
+            "decode": (5e-3, 5e-3), "gmm": 5e-3}
+# GPT-NeoX configs/125M.yml's fp16 block; initial_scale_power is left at
+# its default, 32 (2^32), so the opening steps overflow and are skipped
+FP16_BLOCK = {"enabled": True, "type": "float16", "loss_scale": 0,
+              "loss_scale_window": 1000, "hysteresis": 2,
+              "min_loss_scale": 1}
+FP16_TRAIN_CONFIG = {**TRAIN_CONFIG, "fp16": FP16_BLOCK}
+# train-fp16-125M runs until this many steps were taken (at most
+# FP16_MAX_STEPS steps: every overflow from 2^32 down is skipped)
+FP16_TAKEN = 14
+FP16_MAX_STEPS = 64
+# the short fp16 rungs (MoE, BERT with Lamb, the lean state, parity)
+# start at 2^16, so that a few steps hold both skipped and taken ones
+FP16_SHORT = {**FP16_BLOCK, "initial_scale_power": 16}
+FP16_MOE_STEPS = 8
+# the lean fp16 state: fp16 parameters as the masters and fp16 Adam
+# moments (ZeRO stage 0: the JAX engine refuses the flag with ZeRO)
+# eps 1e-4: fp16 holds no v = g^2 below 6e-8 (the second moment of a
+# 1e-4 gradient underflows to 0, and m / eps at eps 1e-8 would step by
+# 1e4)
+FP16_LEAN_CONFIG = {**TRAIN_CONFIG, "zero_optimization": {"stage": 0},
+                    "optimizer": {"type": "Adam", "params": {
+                        **TRAIN_CONFIG["optimizer"]["params"],
+                        "eps": 1e-4, "state_dtype": "float16"}},
+                    "fp16": {**FP16_SHORT,
+                             "fp16_master_weights_and_grads": True}}
+FP16_LEAN_STEPS = 8
+# train-bert-large-512-fp16-lamb: phase 15's BERT-large in fp16 with the
+# DeepSpeedExamples bing_bert Lamb options, at phase 15's lr
+FP16_BERT_STEPS = 6
+FP16_BERT_CONFIG = {**BERT_TRAIN_CONFIG, "fp16": FP16_SHORT,
+                    "optimizer": {"type": "Lamb", "params": {
+                        "lr": BERT_TRAIN_CONFIG["optimizer"]["params"]["lr"],
+                        "weight_decay": 0.01, "bias_correction": False,
+                        "max_coeff": 0.3, "min_coeff": 0.01}}}
+# phase 31(d): 125M widths at 4 layers, both paths in fp16 from 2^20, 10
+# steps of micro 2 x gas 2; losses within rtol 2e-2 (the two paths round
+# the fp16 activations apart, about 1e-3 a step, and Adam carries it on)
+FP16_PARITY_LAYERS = 4
+FP16_PARITY_STEPS = 10
+FP16_PARITY_RTOL = 2e-2
+
+
+def replay_loss_scale(init_scale, overflows, scale_window, min_scale,
+                      hysteresis, scale_factor=2.0):
+    """The JAX package's `update_loss_scale` rule
+    (deeperspeed_tpu/runtime/fp16/loss_scaler.py:136), replayed on the
+    host over observed overflow flags → the scale after each step."""
+    scale, it, last, hyst, out = float(init_scale), 0, -1, hysteresis, []
+    for overflow in overflows:
+        if overflow:
+            shift = hysteresis == 1 or hyst <= 1
+            if shift:
+                scale = max(scale / scale_factor, min_scale)
+            else:
+                hyst -= 1
+            last = it
+        elif (it - last) % scale_window == 0:
+            scale *= scale_factor
+            hyst = hysteresis
+        it += 1
+        out.append(scale)
+    return out
+
+
+def fp16_flash_case(fa, gen, B, S, H, D, seg=None, times=False):
+    """The fp16 flash forward and backward kernels against their plain
+    versions on one causal case (q, k, v split out of one projection) →
+    row; with ``times``, timed beside the plain versions and SDPA."""
+    import torch.nn.functional as F
+    dtype = torch.float16
+    q, k, v, seg_ids, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+    seg = seg_ids if seg else None
+    out, lse = fa.flash_attention_cuda(q, k, v, seg)
+    ref_out, ref_lse = fa.flash_attention_segmented_reference(q, k, v, seg)
+    torch.cuda.synchronize()
+    row = {"B": B, "S": S, "H": H, "D": D, "dtype": "fp16",
+           "segments": seg is not None, "tol_out": TOL_FP16["out"],
+           "tol_bwd": TOL_FP16["bwd"]}
+    row["max_abs_err_out"], ok = close(out, ref_out, *TOL_FP16["out"])
+    row["max_abs_err_lse"], ok_l = close(lse, ref_lse, *TOL_FP16["lse"])
+    ok = ok and ok_l and out.dtype == dtype
+    del ref_out, ref_lse
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+    delta = fa.attention_delta(out, do)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, seg)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, seg)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        row[f"max_abs_err_{name}"], good = close(g, w, *TOL_FP16["bwd"])
+        ok = ok and good and g.dtype == dtype
+    print(f"  fp16 flash {row}", flush=True)
+    if not ok:
+        fail(f"the fp16 flash kernels disagree with their plain versions: "
+             f"{row}")
+    del got, want
+    if times:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        # SDPA: is_causal, or (segments) the causal same-segment bool mask
+        lib_kw = {"is_causal": True} if seg is None else {"attn_mask": (
+            torch.ones(S, S, dtype=torch.bool, device="cuda").tril()[None]
+            & (seg[:, :, None] == seg[:, None, :]))[:, None]}
+        row["ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v, seg))
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_segmented_reference(q, k, v, seg),
+            warmup=2, iters=10)
+        with torch.no_grad():
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       **lib_kw))
+        row["bound_ms"], row["bound_by"] = prefill_bound_ms(q, seg)
+        row["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, lse, do, delta, seg))
+        row["plain_bwd_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                     seg),
+            warmup=2, iters=10)
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw)
+        do_t = do.transpose(1, 2).contiguous()
+        row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do_t, retain_graph=True))
+        row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bwd_bound_ms(q, seg)
+        print(f"  fp16 flash times B={B} S={S} H={H} D={D}"
+              f"{' ragged segments' if seg is not None else ''}: forward "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
+              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} "
+              f"{row['bound_by']}), backward {row['bwd_ms']:.4f} ms (plain "
+              f"{row['plain_bwd_ms']:.4f}, SDPA {row['library_bwd_ms']:.4f}"
+              f", bound {row['bwd_bound_ms']:.5f} {row['bwd_bound_by']})",
+              flush=True)
+        del qt, kt, vt, o_lib, do_t
+    del q, k, v, out, lse, do, delta
+    torch.cuda.empty_cache()
+    return row
+
+
+def fp16_bert_case(fa, gen):
+    """The fp16 flash kernels with the key-bias and dropout flags at
+    BERT-large's shape (not causal, rate 0.1, the last batch row all
+    masked) against their plain versions: exact zeros and lse +1e30 on
+    the dead row, whose -1e30 bias stays in the kernels' fp32 kbias."""
+    q, k, v, kbias, do, seed, lens = bert_attention_case(torch.float16, gen)
+    B, S, H, D = q.shape
+    flags = (None, None, None, False, kbias, seed, 0.1)
+    out, lse = fa.flash_attention_cuda(q, k, v, *flags)
+    ref_out, ref_lse = fa.flash_attention_segmented_reference(q, k, v,
+                                                              *flags)
+    delta = fa.attention_delta(out, do)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta, *flags)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, *flags)
+    torch.cuda.synchronize()
+    row = {"B": B, "S": S, "H": H, "D": D, "dtype": "fp16", "rate": 0.1,
+           "kbias": True, "tol_out": TOL_FP16["out"],
+           "tol_bwd": TOL_FP16["bwd"]}
+    row["max_abs_err_out"], ok = close(out, ref_out, *TOL_FP16["out"])
+    row["max_abs_err_lse"], ok_l = close(lse, ref_lse, *TOL_FP16["lse"])
+    ok = ok and ok_l
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        row[f"max_abs_err_{name}"], good = close(g, w, *TOL_FP16["bwd"])
+        ok = ok and good
+    row["dead_row_exact"] = bool((out[-1] == 0).all()) and \
+        bool((lse[-H:] == 1e30).all()) and \
+        all(bool((g[-1] == 0).all()) for g in got)
+    print(f"  fp16 flash kbias/dropout {row}", flush=True)
+    if not (ok and row["dead_row_exact"]):
+        fail(f"the fp16 flagged flash kernels disagree with their plain "
+             f"versions or the all-masked row is not exact: {row}")
+    import torch.nn.functional as F
+    row["ms"] = time_ms(lambda: fa.flash_attention_cuda(q, k, v, *flags))
+    row["bwd_ms"] = time_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, lse, do, delta, *flags))
+    row["plain_ms"] = time_ms(lambda: fa.flash_attention_segmented_reference(
+        q, k, v, *flags), warmup=2, iters=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = kbias[:, None, None, :].to(torch.float16)
+    with torch.no_grad():
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, dropout_p=0.1))
+    pairs = int(lens.sum()) * S * H
+    row["bound_ms"], row["bound_by"] = attn_bound_ms(q, pairs, "fwd",
+                                                     extra_bytes=B * S * 4)
+    row["bwd_bound_ms"], row["bwd_bound_by"] = attn_bound_ms(
+        q, pairs, "bwd", extra_bytes=B * S * 4)
+    print(f"  fp16 flash kbias/dropout times: forward {row['ms']:.4f} ms "
+          f"(plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
+          f"bound {row['bound_ms']:.5f} {row['bound_by']}), backward "
+          f"{row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.5f} "
+          f"{row['bwd_bound_by']})", flush=True)
+    del qt, kt, vt
+    del q, k, v, out, lse, got, want, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def fp16_overflow_case(fa, gen, B=2, S=256, H=4, D=64):
+    """dO at fp16's full scale on heads 0-1 of batch row 0 (and v at 8x),
+    so that dS = P∘(dP − delta)·scale passes 65504 on the early rows of
+    those heads; the rest is an ordinary call. The kernels round dS to
+    fp16 (inf past 65504) before dQ = dS·K and dK = dSᵀ·Q, as the plain
+    version does: dq, dk, dv must be non-finite exactly where the plain
+    version's are (leaving out the elements `fp16_overflow_undecided`
+    marks: a value, or a dS entry of its row or key, within 1e-3 of the
+    threshold, where a last bit decides), on those heads only, and the
+    forward stays finite."""
+    dtype = torch.float16
+    q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+    v = (v.float() * 8).to(dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda")
+    do[0, :, :2] = (do[0, :, :2] * 20000).clamp(-60000, 60000)
+    do = do.to(dtype)
+    delta = fa.attention_delta(out, do)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lse, do, delta)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    undecided = fa.fp16_overflow_undecided(q, k, v, out, lse, do)
+    row = {"B": B, "S": S, "H": H, "D": D, "dtype": "fp16",
+           "out_finite": bool(torch.isfinite(out).all())}
+    same = True
+    for name, g, w, u in zip(("dq", "dk", "dv"), got, want, undecided):
+        gi, wi = ~torch.isfinite(g), ~torch.isfinite(w)
+        row[f"{name}_nonfinite"] = int(gi.sum())
+        row[f"{name}_nonfinite_plain"] = int(wi.sum())
+        row[f"{name}_inf"] = int(torch.isinf(g).sum())
+        # elements whose overflow a last bit decides are left out
+        row[f"{name}_undecided"] = int(u.sum())
+        row[f"{name}_mismatched"] = int(((gi != wi) & ~u).sum())
+        same = same and row[f"{name}_mismatched"] == 0
+        # nothing non-finite outside the two scaled heads
+        row[f"{name}_nonfinite_elsewhere"] = int(gi.sum() - gi[0, :, :2].sum())
+    hit = row["dq_inf"] > 0 and row["dk_inf"] > 0
+    clean = all(row[f"{n}_nonfinite_elsewhere"] == 0
+                for n in ("dq", "dk", "dv"))
+    print(f"  fp16 flash backward overflow case {row}", flush=True)
+    if not (row["out_finite"] and same and hit and clean):
+        fail(f"fp16 overflow case: the kernels' non-finite gradients do not "
+             f"sit exactly where the plain version's do: {row}")
+    del q, k, v, out, lse, do, delta, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def fp16_decode_cases(da, gen):
+    """The cluster decode over fp16 pools with fp16 q at the serving shape
+    (B 16: clusters of 4) and at head dim 128 against its plain version
+    (which rounds P to fp16 as JAX does), then timed over lengths 0-1024
+    and 62-110 → (checked rows, timed rows)."""
+    rows = []
+    for shape in (dict(B=16, H=12, D=64, ps=64, NP=16, P=513),
+                  dict(B=3, H=2, D=128, ps=16, NP=8, P=40)):
+        q, table, lengths = decode_query_case(torch.float16, gen, **shape)
+        pools = decode_pools(gen, 2, shape["P"], shape["H"], shape["ps"],
+                             shape["D"], torch.float16, False)
+        views = tuple(p[1] for p in pools)
+        out = decode_call(da, q, views, table, lengths)
+        again = decode_call(da, q, views, table, lengths)
+        ref = decode_reference(da, q, views, table, lengths)
+        torch.cuda.synchronize()
+        err, ok = close(out, ref, *TOL_FP16["decode"])
+        row = {"dtype": "fp16", "max_abs_err": err,
+               "tol": TOL_FP16["decode"],
+               "design": da.kernel_design(q, views[0]),
+               "cluster": da.launch_plan(shape["B"], shape["H"],
+                                         shape["NP"]),
+               "two_calls_identical": torch.equal(out, again),
+               "zero_rows_exact": bool((out[lengths == 0] == 0).all()),
+               **shape}
+        print(f"  paged_decode fp16 {row}", flush=True)
+        if not (ok and row["design"] == "cluster" and
+                row["two_calls_identical"] and row["zero_rows_exact"] and
+                out.dtype == torch.float16):
+            fail(f"the fp16 cluster decode disagrees with its plain version:"
+                 f" {row}")
+        rows.append(row)
+        del pools, views
+    timed = [decode_times(da, gen, False, serving, dtype=torch.float16)
+             for serving in (False, True)]
+    return rows, timed
+
+
+def fp16_gmm_cases(gm, gen):
+    """The grouped forward, dx and dW in fp16 at phase 11's geometry
+    against their plain versions (dead rows exact zeros, the empty
+    expert's dW exact zeros), timed beside torch.bmm."""
+    rows = []
+    for K, N in GMM_SHAPES:
+        row, (x, w, dy, sz) = gmm_case(gm, gen, GMM_SIZES, GMM_SPAN, K, N,
+                                       len(GMM_SIZES), None, torch.float16)
+        gmm_times(gm, row, x, w, dy, sz)
+        rows.append(row)
+        del x, w, dy, sz
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fp16_adam_cases(ad, gen, n):
+    """The flat Adam kernel's fp16 variants at the model's parameter count:
+    classic (fp32 p, m, v, fp32 g as the engine hands it after unscaling,
+    the fp16 copy written in the same pass; within TOL_ADAM, the copy the
+    new p rounded) and lean (fp16 p, m, v, fp32 g; bit-equal), each timed
+    beside its plain version and AdamW(fused=True) in the same storage."""
+    hp = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01)
+    rows = {}
+    for lean in (False, True):
+        pdt = torch.float16 if lean else torch.float32
+        p = torch.randn(n, generator=gen, device="cuda").to(pdt)
+        g = (1e-3 * torch.randn(n, generator=gen, device="cuda"))
+        m = (1e-3 * torch.randn(n, generator=gen, device="cuda")).to(pdt)
+        v = (1e-6 * torch.rand(n, generator=gen, device="cuda")).to(pdt)
+        want = ad.adam_flat_reference(p, g, m, v, 6e-4, 3, **hp)
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        copy = None if lean else torch.empty(n, dtype=torch.float16,
+                                             device="cuda")
+        ad.reset_launches()
+        ad.adam_cuda(pk, g, mk, vk, 6e-4, 3, adam_w=True,
+                     bias_correction=True, p_out=copy, **hp)
+        torch.cuda.synchronize()
+        tag = "lean" if lean else "classic"
+        row = {"n": n, "variant": dict(ad.variant_launches),
+               "storage": "fp16 p, m, v; fp32 g" if lean else
+               "fp32 p, m, v; fp32 g; fp16 copy"}
+        ok = True
+        for name, got, ref in (("p", pk, want[0]), ("m", mk, want[1]),
+                               ("v", vk, want[2])):
+            if lean:
+                row[f"bit_equal_{name}"] = bool(torch.equal(got, ref))
+                ok = ok and row[f"bit_equal_{name}"]
+                row[f"max_abs_err_{name}"] = float(
+                    (got.float() - ref.float()).abs().max())
+            else:
+                err, good = close(got, ref, *TOL_ADAM)
+                row[f"max_abs_err_{name}"] = err
+                ok = ok and good
+        if not lean:
+            row["fp16_copy_is_recast"] = bool(torch.equal(
+                copy, pk.to(torch.float16)))
+            ok = ok and row["fp16_copy_is_recast"]
+        want_variant = {"fp16 lean" if lean else "fp16 classic": 1}
+        print(f"  adam fp16 {tag} {row}", flush=True)
+        if not ok or row["variant"] != want_variant:
+            fail(f"the fp16 {tag} Adam kernel disagrees with its plain "
+                 f"version: {row}")
+        del want
+        row["ms"] = time_ms(lambda: ad.adam_cuda(
+            pk, g, mk, vk, 6e-4, 3, adam_w=True, bias_correction=True,
+            p_out=copy, **hp))
+        row["plain_ms"] = time_ms(lambda: ad.adam_flat_reference(
+            p, g, m, v, 6e-4, 3, **hp), warmup=2, iters=10)
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = g.to(pdt)
+        lib = torch.optim.AdamW([lib_p], lr=6e-4, betas=(0.9, 0.95),
+                                eps=1e-8, weight_decay=0.01, fused=True)
+        row["library_ms"] = time_ms(lib.step)
+        row["library"] = (f"AdamW(fused=True) on one flat "
+                          f"{'fp16' if lean else 'fp32'} tensor")
+        esz = p.element_size()
+        nbytes = n * (6 * esz + g.element_size() + (0 if lean else 2))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 14 * n)
+        print(f"  adam fp16 {tag} times n={n}: kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})", flush=True)
+        rows[tag] = row
+        del p, g, m, v, pk, mk, vk, copy, lib_p, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_fp16_kernels(fa, da, gm, ad, gen, report, n_params):
+    """Phase 3's fp16 cases: every fp16 variant against its plain version
+    in fp16 at the phase's shapes, timed beside its plain version, a
+    library call and its bound."""
+    B, S, H = TRAIN_CONFIG["train_micro_batch_size_per_gpu"], TRAIN_SEQ, \
+        NEOX_125M["num_heads"]
+    res = {"flash_train": fp16_flash_case(fa, gen, B, S, H, 64, times=True),
+           "flash_d128": fp16_flash_case(fa, gen, 4, S, H, 128),
+           "flash_segments": fp16_flash_case(fa, gen, 4, S, H, 64,
+                                             seg=True, times=True),
+           "flash_bert": fp16_bert_case(fa, gen),
+           "flash_overflow": fp16_overflow_case(fa, gen)}
+    res["decode_checked"], res["decode_timed"] = fp16_decode_cases(da, gen)
+    res["grouped_matmul"] = fp16_gmm_cases(gm, gen)
+    res["adam"] = fp16_adam_cases(ad, gen, n_params)
+    report["fp16_kernels"] = res
+    return res
+
+
+def fp16_engine(conf, model=None):
+    import deeperspeed_tpu_torch as dst
+    model = build_model(torch.float32) if model is None else model
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    if eng.compute_dtype != torch.float16:
+        fail(f"the fp16 block did not give an fp16 engine: "
+             f"{eng.compute_dtype}")
+    return eng, model
+
+
+def fp16_steps(eng, batch, max_steps, want_taken=None):
+    """``train_batch`` until ``want_taken`` steps were taken (or
+    ``max_steps`` ran) → (losses, overflow flags, scales after each step,
+    step seconds)."""
+    losses, overflows, scales, step_s = [], [], [], []
+    while len(losses) < max_steps and (
+            want_taken is None or overflows.count(False) < want_taken):
+        skipped = eng.skipped_steps
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=batch))
+        step_s.append(time.perf_counter() - t0)
+        overflows.append(eng.skipped_steps > skipped)
+        scales.append(float(eng.loss_scale))
+        print(f"  step {len(losses)}: loss {losses[-1]:.4f}, "
+              f"{'overflow, skipped' if overflows[-1] else 'taken'}, loss "
+              f"scale now {scales[-1]:g}, {step_s[-1] * 1e3:.1f} ms",
+              flush=True)
+    return losses, overflows, scales, step_s
+
+
+def check_scale_replay(what, conf, overflows, scales):
+    block = conf["fp16"]
+    replay = replay_loss_scale(
+        2 ** block.get("initial_scale_power", 32), overflows,
+        block["loss_scale_window"], block["min_loss_scale"],
+        block["hysteresis"])
+    if replay != scales:
+        fail(f"{what}: the loss-scale trajectory {scales} is not the JAX "
+             f"rule's replay {replay} over the overflow flags {overflows}")
+    return replay
+
+
+def neox_ftok(cfg, seq):
+    """Model flops a token of GPT-NeoX (bench.py row_gpt2xl's formula):
+    6N + 12·L·h·S."""
+    return 6 * cfg.num_params() + 12 * cfg.num_layers * cfg.hidden_size * seq
+
+
+def train_fp16(fa, ad, report, bf16=None, profile_step=False):
+    """Phase 31(a), train-fp16-125M: phase 7's model, batch and config
+    with GPT-NeoX configs/125M.yml's fp16 block (from 2^32) through
+    `train_batch`: the opening overflows are skipped (no Adam launch),
+    then FP16_TAKEN steps are taken on the classic fp16 Adam variant;
+    the scale follows the JAX rule's replay and the loss falls. ``bf16``
+    is phase 7's result, where it ran, for the MFU beside it; with
+    ``profile_step``, two more taken steps under the profiler."""
+    eng, model = fp16_engine(FP16_TRAIN_CONFIG)
+    gas = eng.gradient_accumulation_steps()
+    micro = eng.train_micro_batch_size_per_gpu()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+    L = model.config.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.reset_design_launches()
+    ad.reset_launches()
+    losses, overflows, scales, step_s = fp16_steps(
+        eng, (tokens, tokens), FP16_MAX_STEPS, FP16_TAKEN)
+    n, taken = len(losses), overflows.count(False)
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches}
+    want = {"flash_fwd": L * gas * n, "flash_bwd_dkv": L * gas * n,
+            "flash_bwd_dq": L * gas * n, "adam": taken}
+    if launches != want:
+        fail(f"train-fp16-125M launch counts {launches} != {want} ({n} "
+             f"steps, {taken} taken: one Adam a taken step)")
+    if dict(ad.variant_launches) != {"fp16 classic": taken}:
+        fail(f"train-fp16-125M Adam launches by variant "
+             f"{ad.variant_launches}, want all {taken} fp16 classic")
+    design = check_design(fa, "train_fp16", {
+        "fwd": launches["flash_fwd"], "dkv": launches["flash_bwd_dkv"],
+        "dq": launches["flash_bwd_dq"]})
+    replay = check_scale_replay("train-fp16-125M", FP16_TRAIN_CONFIG,
+                                overflows, scales)
+    taken_losses = [l for l, o in zip(losses, overflows) if not o]
+    if not (overflows[0] and taken >= FP16_TAKEN and
+            eng.skipped_steps == n - taken and eng.global_steps == taken):
+        fail(f"train-fp16-125M: overflows {overflows}, {eng.global_steps} "
+             f"global steps, {eng.skipped_steps} skipped (want the opening "
+             f"steps skipped, then {FP16_TAKEN} taken)")
+    if not (all(np.isfinite(taken_losses)) and
+            taken_losses[-1] < 0.9 * taken_losses[0]):
+        fail(f"train-fp16-125M: the loss did not fall over the taken steps: "
+             f"{taken_losses}")
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median([t for t, o in zip(step_s, overflows) if not o]))
+    tps = gas * micro * TRAIN_SEQ / med
+    ftok = neox_ftok(model.config, TRAIN_SEQ)
+    res = {"steps": n, "taken": taken, "skipped_steps": eng.skipped_steps,
+           "overflows": overflows, "loss_scale": scales,
+           "loss_scale_replay": replay, "losses": losses,
+           "taken_losses": taken_losses, "step_ms_median": med * 1e3,
+           "step_ms": [t * 1e3 for t in step_s], "tokens_per_s": tps,
+           "mfu": tps * ftok / PEAK_FLOPS_S,
+           "max_memory_allocated_gb": peak / 2 ** 30,
+           "launches": launches, "design_launches": design,
+           "adam_variants": dict(ad.variant_launches),
+           "dtypes": {"compute": str(eng.compute_dtype),
+                      "master": str(eng._master.dtype)}}
+    if bf16 is not None:
+        res["bf16_step_ms_median"] = bf16["step_ms_median"]
+        res["bf16_tokens_per_s"] = bf16["tokens_per_s"]
+        res["bf16_mfu"] = bf16["tokens_per_s"] * ftok / PEAK_FLOPS_S
+    print(f"  {n} steps, {taken} taken, {eng.skipped_steps} skipped; loss "
+          f"scale {scales[0]:g} -> {scales[-1]:g} (the JAX rule's replay); "
+          f"taken losses {taken_losses[0]:.4f} -> {taken_losses[-1]:.4f}; "
+          f"median taken step {med * 1e3:.1f} ms, {tps:.0f} tokens/s, MFU "
+          f"{res['mfu']:.4f}" + (
+              f" (bf16, phase 7: {bf16['step_ms_median']:.1f} ms, MFU "
+              f"{res['bf16_mfu']:.4f})" if bf16 is not None else "") +
+          f", peak memory {res['max_memory_allocated_gb']:.2f} GiB",
+          flush=True)
+    if profile_step:
+        res["profile"] = profile_window(
+            lambda: eng.train_batch(batch=(tokens, tokens)), 2,
+            share_of="flash", also=("adam",))
+        print_profile("fp16 training step (gas 2 x micro 16 x 1024)",
+                      res["profile"], torch.cuda.get_device_name(0))
+    report["train_fp16"] = res
+    del eng, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_fp16_short(fa, ad, report, key, conf, steps, model=None, gm=None,
+                     bert=False, lean=False):
+    """Phase 31(b) (MoE, with ``gm``), (c) (BERT with Lamb) and (e) (the
+    lean fp16 state): ``steps`` fp16 steps from 2^16 → result; every
+    flash launch on the tensor cores, the grouped launches on wgmma, one
+    Adam launch a taken step (none with Lamb), the scale the JAX rule's
+    replay."""
+    from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
+    eng, model = fp16_engine(conf, model)
+    gas = eng.gradient_accumulation_steps()
+    micro = eng.train_micro_batch_size_per_gpu()
+    L = model.config.num_layers
+    if bert:
+        batch = bert_batch(1, micro, BERT_SEQ, model.config.vocab_size)
+    else:
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(
+            0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+        batch = (tokens, tokens)
+    reset_attention_counts(fa, bsa)
+    ad.reset_launches()
+    if gm is not None:
+        gm.launches = gm.dw_launches = 0
+        gm.reset_design_launches()
+    losses, overflows, scales, step_s = fp16_steps(eng, batch, steps)
+    taken = overflows.count(False)
+    counts = attention_counts(fa, bsa)
+    flash = {k: counts[f"flash_{k}_kbias_dropout" if bert else
+                       {"fwd": "flash_fwd", "dkv": "flash_bwd_dkv",
+                        "dq": "flash_bwd_dq"}[k]]
+             for k in ("fwd", "dkv", "dq")}
+    want_flash = L * gas * steps
+    launches = {"flash": flash, "adam": ad.launches}
+    if flash != dict.fromkeys(("fwd", "dkv", "dq"), want_flash):
+        fail(f"{key}: flash launches {flash}, want {want_flash} each")
+    design = check_design(fa, key, flash)
+    want_adam = 0 if bert else taken
+    variant = "fp16 lean" if lean else "fp16 classic"
+    if ad.launches != want_adam or (want_adam and dict(
+            ad.variant_launches) != {variant: want_adam}):
+        fail(f"{key}: Adam launches {ad.launches} by variant "
+             f"{ad.variant_launches}, want {want_adam} ({variant})")
+    if gm is not None:
+        launches.update(grouped_matmul=gm.launches,
+                        grouped_matmul_dw=gm.dw_launches)
+        want_g = {"grouped_matmul": 4 * L * gas * steps,
+                  "grouped_matmul_dw": 2 * L * gas * steps}
+        design["grouped_matmul"] = dict(gm.design_launches)
+        design["grouped_matmul_dw"] = dict(gm.dw_design_launches)
+        for name, n in want_g.items():
+            if launches[name] != n or design[name] != {"wgmma": n, "fma": 0}:
+                fail(f"{key}: {name} launches {launches[name]} by design "
+                     f"{design[name]}, want all {n} on wgmma")
+    replay = check_scale_replay(key, conf, overflows, scales)
+    taken_losses = [x for x, o in zip(losses, overflows) if not o]
+    if taken < 2 or not all(np.isfinite(taken_losses)):
+        fail(f"{key}: {taken} steps taken of {steps}, losses {losses}")
+    med = float(np.median(step_s))
+    res = {"steps": steps, "taken": taken, "overflows": overflows,
+           "loss_scale": scales, "loss_scale_replay": replay,
+           "losses": losses, "taken_losses": taken_losses,
+           "step_ms_median": med * 1e3, "launches": launches,
+           "design_launches": design,
+           "adam_variants": dict(ad.variant_launches),
+           "optimizer": type(eng.optimizer).__name__,
+           "num_params": eng.num_params,
+           "dtypes": {"compute": str(eng.compute_dtype),
+                      "master": str(eng._master.dtype),
+                      "moments": str(eng.opt_state.exp_avg.dtype)}}
+    print(f"  {key}: {steps} steps, {taken} taken, loss scale "
+          f"{scales[0]:g} -> {scales[-1]:g}, taken losses "
+          f"{[round(x, 4) for x in taken_losses]}, median step "
+          f"{med * 1e3:.1f} ms, {eng.num_params} parameters, "
+          f"{res['optimizer']}, dtypes {res['dtypes']}", flush=True)
+    report[key] = res
+    del eng, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_fp16_legacy(fa, ad, report, steps=3):
+    """Phase 31(f): phase 7's model and batch in fp16 (from 2^16) for
+    ``steps`` steps through the legacy forward / backward / step loop and
+    through `train_batch` on two fresh engines: losses, masters, the
+    scale and the Adam launches equal bit for bit."""
+    conf = {**FP16_TRAIN_CONFIG, "fp16": FP16_SHORT}
+    rng = np.random.default_rng(0)
+    runs = {}
+    for legacy in (False, True):
+        eng, model = fp16_engine(conf)
+        gas = eng.gradient_accumulation_steps()
+        micro = eng.train_micro_batch_size_per_gpu()
+        tokens = torch.from_numpy(rng.integers(
+            0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda() \
+            if not runs else runs[False]["tokens"]
+        ad.reset_launches()
+        losses = []
+        for _ in range(steps):
+            if legacy:
+                for i in range(gas):
+                    eng.backward(eng((tokens[i], tokens[i])))
+                    got = eng.step()
+                losses.append(got)
+            else:
+                losses.append(eng.train_batch(batch=(tokens, tokens)))
+        runs[legacy] = {"tokens": tokens, "losses": losses,
+                        "master": eng._master.clone(),
+                        "scale": float(eng.loss_scale),
+                        "skipped": eng.skipped_steps,
+                        "adam": dict(ad.variant_launches)}
+        del eng, model
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    res = {"train_batch": a["losses"], "legacy": b["losses"],
+           "masters_equal": bool(torch.equal(a["master"], b["master"])),
+           "scale": [a["scale"], b["scale"]],
+           "skipped": [a["skipped"], b["skipped"]],
+           "adam": [a["adam"], b["adam"]]}
+    report["train_fp16_legacy"] = res
+    print(f"  legacy loop vs train_batch, {steps} fp16 steps: losses "
+          f"{b['losses']} vs {a['losses']}, masters equal "
+          f"{res['masters_equal']}, Adam {b['adam']} vs {a['adam']}",
+          flush=True)
+    if not (a["losses"] == b["losses"] and res["masters_equal"] and
+            a["scale"] == b["scale"] and a["skipped"] == b["skipped"] and
+            a["adam"] == b["adam"] and a["adam"]):
+        fail(f"fp16 legacy loop differs from train_batch: {res}")
+    return res
+
+
+def train_fp16_parity(report):
+    """Phase 31(d): 125M widths at 4 layers, fp16 from 2^20 through the
+    kernels and through the plain path (micro 2 x gas 2, S 1024): the
+    same overflow flags and scales, losses within FP16_PARITY_RTOL."""
+    conf = json.loads(json.dumps(FP16_TRAIN_CONFIG))
+    conf.update(train_batch_size=4, train_micro_batch_size_per_gpu=2,
+                gradient_accumulation_steps=2)
+    conf["fp16"]["initial_scale_power"] = 20
+    conf["scheduler"]["params"]["warmup_min_lr"] = 6e-5
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(2, 2, TRAIN_SEQ))).cuda()
+    runs = {}
+    for use_kernels in (True, False):
+        model = build_model(torch.float32, seed=1,
+                            num_layers=FP16_PARITY_LAYERS)
+        model.use_kernels = use_kernels
+        eng, _ = fp16_engine(conf, model)
+        runs[use_kernels] = fp16_steps(eng, (tokens, tokens),
+                                       FP16_PARITY_STEPS)
+        del eng, model
+        torch.cuda.empty_cache()
+    (lk, ok_, sk, _), (lp, op, sp, _) = runs[True], runs[False]
+    rel = np.abs(np.array(lk) - np.array(lp)) / np.abs(np.array(lp))
+    res = {"kernels": lk, "plain": lp, "overflows_kernels": ok_,
+           "overflows_plain": op, "scales_kernels": sk, "scales_plain": sp,
+           "max_rel_diff": float(rel.max()), "rtol": FP16_PARITY_RTOL}
+    report["train_fp16_parity"] = res
+    print(f"  losses kernels {[round(x, 5) for x in lk]} vs plain "
+          f"{[round(x, 5) for x in lp]}: max relative difference "
+          f"{rel.max():.3e}; overflows {ok_} (plain {op})", flush=True)
+    if ok_ != op or sk != sp or not any(ok_) or all(ok_):
+        fail(f"fp16 parity: the overflow flags or scales differ between the "
+             f"kernel path and the plain path (or no step overflowed or "
+             f"every one did): {res}")
+    if not (np.isfinite(lk).all() and (rel <= FP16_PARITY_RTOL).all()):
+        fail(f"fp16 parity: losses differ beyond rtol {FP16_PARITY_RTOL}: "
+             f"{res}")
+    return res
+
+
+def serve_fp16(fa, da, report):
+    """Phase 32, serve-fp16-125M: phase 4's stream with fp16 weights and
+    fp16 pools through `InferenceEngine` (every prefill launch on the
+    tensor cores, every decode launch on the cluster kernel), then greedy
+    tokens of 8 prompts x 16 new through the kernels and through the
+    plain path: every first token identical (the prefill logits agree;
+    later tokens can part at a near tie, and the count is reported)."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    sv = serve(fa, da, report, model=build_model(torch.float16),
+               key="serve_fp16")
+    if sv["dtypes"] != {"weight": "torch.float16", "compute": "torch.float16",
+                        "kv_cache": "torch.float16"}:
+        fail(f"serve-fp16-125M did not serve fp16 weights and pools: "
+             f"{sv['dtypes']}")
+    model = build_model(torch.float16, seed=1)
+    cfg = model.config
+    rng = np.random.default_rng(1)
+    lens = [9, 64, 65, 130, 200, 300, 513, 700]
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in lens]
+    fast = InferenceEngine(model, config=SERVE_CONFIG).generate(
+        prompts, max_new_tokens=16)
+    model.use_kernels = False
+    plain_cfg = json.loads(json.dumps(SERVE_CONFIG))
+    plain_cfg["inference"]["kernel"] = "xla"
+    plain = InferenceEngine(model, config=plain_cfg).generate(
+        prompts, max_new_tokens=16)
+    same = [a == b for a, b in zip(fast, plain)]
+    first = [a[0] == b[0] for a, b in zip(fast, plain)]
+    sv["parity"] = {"prompt_lengths": lens, "identical": same,
+                    "first_token_identical": first}
+    print(f"  fp16 greedy parity: {sum(same)}/{len(same)} requests "
+          f"token-identical, {sum(first)}/{len(first)} first tokens",
+          flush=True)
+    if not all(first):
+        fail(f"fp16 greedy first tokens differ between the kernel path and "
+             f"the plain path: {fast} vs {plain}")
+    del model
+    torch.cuda.empty_cache()
+    return sv
+
+
+def run_fp16_phases(fa, da, gm, ad, report, card, bf16=None,
+                    profile_step=False):
+    """Phases 31-32 → (31(a), 31(b), 31(c), 31(e), 32) results."""
+    from deeperspeed_tpu_torch import BertConfig, BertForPreTraining
+    print(f"fp16 training train-fp16-125M (GPT-NeoX configs/125M.yml's fp16 "
+          f"block from 2^32, fp32 masters, ZeRO-2) on {card}:", flush=True)
+    ta = train_fp16(fa, ad, report, bf16, profile_step)
+    print("fp16 MoE training train-moe-125M (8 experts, top-2, sort; fp16 "
+          "from 2^16):", flush=True)
+    tb = train_fp16_short(fa, ad, report, "train_moe_fp16",
+                          {**MOE_TRAIN_CONFIG, "fp16": FP16_SHORT},
+                          FP16_MOE_STEPS, gm=gm)
+    print("fp16 BERT training train-bert-large-512-fp16-lamb (Lamb, fp16 "
+          "from 2^16, ZeRO-2, dropout 0.1):", flush=True)
+    cfg = BertConfig.large()
+    tc = train_fp16_short(
+        fa, ad, report, "train_bert_fp16_lamb", FP16_BERT_CONFIG,
+        FP16_BERT_STEPS,
+        model=BertForPreTraining(cfg, device="cuda").init_params(1),
+        bert=True)
+    print("fp16 lean state train-fp16-125M-lean (fp16 masters and moments, "
+          "ZeRO 0, fp16 from 2^16):", flush=True)
+    te = train_fp16_short(fa, ad, report, "train_fp16_lean",
+                          FP16_LEAN_CONFIG, FP16_LEAN_STEPS, lean=True)
+    print("fp16 legacy loop (phase 7's model, fp16 from 2^16):",
+          flush=True)
+    train_fp16_legacy(fa, ad, report)
+    print("fp16 training parity (4 layers, kernels vs plain, fp16 from "
+          "2^20):", flush=True)
+    train_fp16_parity(report)
+    print(f"serving serve-fp16-125M (fp16 weights and pools) on {card}:",
+          flush=True)
+    sv = serve_fp16(fa, da, report)
+    print(f"  {sv['generated_tokens']} tokens in {sv['wall_s']:.3f} s: "
+          f"{sv['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{sv['ttft_p50_ms']:.2f} ms, inter-token p50 "
+          f"{sv['inter_token_p50_ms']:.2f} ms / p99 "
+          f"{sv['inter_token_p99_ms']:.2f} ms, launches {sv['launches']}, "
+          f"decode by design {sv['decode_design_launches']}", flush=True)
+    return ta, tb, tc, te, sv
+
+
+def fp16_kernel_rows(k3, ta, tb, tc, te, sv):
+    """The fp16 variants' entries of the kernels line: each with its
+    launches on phases 31-32 (the main path) and phase 3's numbers."""
+    pallas = "deeperspeed_tpu/ops/pallas/"
+    ft, fbert = k3["flash_train"], k3["flash_bert"]
+    dec = k3["decode_timed"][0]
+    g0 = k3["grouped_matmul"][0]
+    train_fwd = ta["launches"]["flash_fwd"] + tb["launches"]["flash"]["fwd"] \
+        + te["launches"]["flash"]["fwd"]
+    shape = "B=16 S=1024 H=12 D=64 fp16, causal"
+    rows = [
+        {"name": "flash_fwd_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": f"{pallas}flash_attention.py:497 (_fwd_kernel); :360, "
+                     f":378 (_fwd_single*); flags :209, :1374, :1421",
+         "launches": train_fwd + tc["launches"]["flash"]["fwd"] +
+         sv["launches"]["flash_fwd"],
+         "launches_by_path": {"train_fp16": ta["launches"]["flash_fwd"],
+                              "train_moe_fp16": tb["launches"]["flash"][
+                                  "fwd"],
+                              "train_bert_fp16_lamb": tc["launches"][
+                                  "flash"]["fwd"],
+                              "train_fp16_lean": te["launches"]["flash"][
+                                  "fwd"],
+                              "serve_fp16": sv["launches"]["flash_fwd"]},
+         "design": "fp16 at D 64/128: the tensor-core kernel "
+                   "(mma.sync f32.f16.f16.f32)",
+         "max_abs_err": max(ft["max_abs_err_out"], ft["max_abs_err_lse"]),
+         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+         "library_ms": ft["library_ms"], "shape": shape,
+         "tolerance": TOL_FP16["out"],
+         "kbias_dropout_shape": {k: fbert[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "bwd_ms", "bwd_bound_ms", "max_abs_err_out")},
+         "segments_shape": {k: k3["flash_segments"][k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} | {
+             "shape": "B=4 S=1024 H=12 D=64 fp16, ragged segments"}},
+        {"name": "flash_bwd_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{pallas}flash_attention.py:736, :763 "
+                     f"(_bwd_single*); :948, :1038 (_bwd_dkv_kernel, "
+                     f"_bwd_dq_kernel)",
+         "launches": ta["launches"]["flash_bwd_dkv"] +
+         tb["launches"]["flash"]["dkv"] + tc["launches"]["flash"]["dkv"] +
+         te["launches"]["flash"]["dkv"],
+         "design": "fp16 at D 64/128: the tensor-core kernels, dS rounded "
+                   "to fp16 (inf past 65504) before dQ and dK",
+         "max_abs_err": max(ft[f"max_abs_err_{g}"] for g in ("dq", "dk",
+                                                              "dv")),
+         "ms": ft["bwd_ms"], "plain_ms": ft["plain_bwd_ms"],
+         "bound_ms": ft["bwd_bound_ms"], "bound_by": ft["bwd_bound_by"],
+         "library_ms": ft["library_bwd_ms"],
+         "shape": shape + " (dkv + dq kernels)",
+         "tolerance": TOL_FP16["bwd"],
+         "segments_shape": {k: k3["flash_segments"][k] for k in (
+             "bwd_ms", "plain_bwd_ms", "library_bwd_ms", "bwd_bound_ms",
+             "bwd_bound_by")} | {
+             "shape": "B=4 S=1024 H=12 D=64 fp16, ragged segments"},
+         "overflow_case": k3["flash_overflow"]},
+        {"name": "paged_decode_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
+         "replaces": f"{pallas}decode_attention.py:84 (_decode_kernel)",
+         "launches": sv["launches"]["paged_decode"],
+         "design_launches": sv["decode_design_launches"],
+         "max_abs_err": dec["max_abs_err"], "ms": dec["ms"],
+         "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+         "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+         "library": dec["library"],
+         "shape": f"{dec['shape']} fp16, lengths {dec['lengths_drawn']}",
+         "tolerance": TOL_FP16["decode"], **decode_graph_times(dec),
+         "serving_shape": decode_shape_row(k3["decode_timed"][1])},
+        {"name": "grouped_matmul_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": f"{pallas}grouped_matmul.py:121 (_fwd_kernel; also dx)",
+         "launches": tb["launches"]["grouped_matmul"],
+         "design_launches": tb["design_launches"]["grouped_matmul"],
+         "max_abs_err": g0["max_abs_err"], "ms": g0["ms"],
+         "graph_ms": g0["graph_ms"], "plain_ms": g0["plain_ms"],
+         "bound_ms": g0["bound_ms"], "bound_by": g0["bound_by"],
+         "library_ms": g0["library_ms"], "shape": gmm_shape(g0),
+         "tolerance": f"{TOL_FP16['gmm']} x max|ref|",
+         "dx": [{k: r[k] for k in ("K", "N", "dx_ms", "dx_library_ms",
+                                   "dx_bound_ms", "max_abs_err_dx")}
+                for r in k3["grouped_matmul"]]},
+        {"name": "grouped_matmul_dw_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": f"{pallas}grouped_matmul.py:174 (_dw_kernel)",
+         "launches": tb["launches"]["grouped_matmul_dw"],
+         "design_launches": tb["design_launches"]["grouped_matmul_dw"],
+         "max_abs_err": g0["max_abs_err_dw"], "ms": g0["dw_ms"],
+         "graph_ms": g0["dw_graph_ms"], "plain_ms": g0["dw_plain_ms"],
+         "bound_ms": g0["dw_bound_ms"], "bound_by": g0["dw_bound_by"],
+         "library_ms": g0["dw_library_ms"],
+         "shape": gmm_shape(g0) + ", fp32 dW",
+         "tolerance": f"{TOL_GMM_DW} x max|ref|"},
+    ]
+    for tag, runs in (("classic", (ta, tb)), ("lean", (te,))):
+        a = k3["adam"][tag]
+        rows.append(
+            {"name": f"adam_fp16_{tag}", "route": "cuda",
+             "source": "deeperspeed_tpu_torch/csrc/adam.cu",
+             "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
+             "launches": sum(r["adam_variants"].get(f"fp16 {tag}", 0)
+                             for r in runs),
+             "max_abs_err": a["max_abs_err_p"], "ms": a["ms"],
+             "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+             "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+             "library": a["library"],
+             "shape": f"n={a['n']} {a['storage']}",
+             "tolerance": "bit-equal" if tag == "lean" else TOL_ADAM})
+    return rows
+
+
+def fp16_only(card, profile_step=False):
+    """Phase 3's fp16 cases and phases 31-32 alone, with phase 7 (bf16)
+    first for the step, tokens/s and MFU beside phase 31(a)'s (and, with
+    ``profile_step``, both steps profiled)."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("fp16 kernels vs plain versions:", flush=True)
+    k3 = check_fp16_kernels(fa, da, gm, ad, gen, report,
+                            GPTNeoXConfig(**NEOX_125M).num_params())
+    print("training GPT-NeoX-125M (bf16, phase 7):", flush=True)
+    tr = train(fa, ad, report, profile_step=profile_step)
+    if profile_step:
+        print_profile("bf16 training step (gas 2 x micro 16 x 1024)",
+                      tr["profile"], card)
+    phases = run_fp16_phases(fa, da, gm, ad, report, card, bf16=tr,
+                             profile_step=profile_step)
+    report["kernels"] = fp16_kernel_rows(k3, *phases)
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_fp16.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": report["kernels"]}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6525,6 +7496,9 @@ def main():
                     help="run only phases 27-28 (serving under failure)")
     ap.add_argument("--sentinel-only", action="store_true",
                     help="run only phases 29-30 (training under failure)")
+    ap.add_argument("--fp16-only", action="store_true",
+                    help="run only phase 3's fp16 cases and phases 31-32 "
+                         "(fp16 training and serving)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6551,6 +7525,8 @@ def main():
         return serve_chaos_only(card)
     if args.sentinel_only:
         return sentinel_only(card, args.profile)
+    if args.fp16_only:
+        return fp16_only(card, args.profile)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -6618,6 +7594,8 @@ def main():
     fpk = check_packed_attention(fa, gen, report)
     axl = check_adam_xl(ad, gen, report)
     gxl = check_gpt2_attention(fa, da, gen, report)
+    print("fp16 kernels vs plain versions:", flush=True)
+    k16 = check_fp16_kernels(fa, da, gm, ad, gen, report, n_params)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -6726,6 +7704,8 @@ def main():
     sc, cp = run_chaos_phases(fa, da, qm, report, card)
     chaos = {f"serve_chaos_{v}": sc[v] for v in ("clean", "storm")}
     tsn = run_sentinel_phases(fa, ad, report, card, args.profile)
+    f16 = run_fp16_phases(fa, da, gm, ad, report, card, bf16=tr,
+                          profile_step=args.profile)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -7193,6 +8173,7 @@ def main():
          "tolerance": bert_row["tol_bwd"],
          "tolerance_fp32": TOL_FLAGS[torch.float32]["bwd"]},
     ]
+    kernels += fp16_kernel_rows(k16, *f16)
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

@@ -15,19 +15,22 @@
 // rounds once, in the plain version's order (`adam_flat_reference`, one
 // PyTorch op each), with no fused multiply-add, so the kernel gives the
 // plain version's bits. A template over the storage types: p (P) is
-// fp32 (the classic masters) or bf16 (the lean state, where the compute
-// parameters are the masters, as `fused_adam_flat` takes a bf16 p); the
-// moments (M) rest in fp32 or bf16 (the optimizer's `state_dtype`); g
-// (G) is fp32 or bf16. Each value is read once, the math runs in fp32,
-// and each output is rounded once to its storage type, to nearest even
-// (`.astype` / `.to`). With fp32 p, the new p may also be written as
-// bf16 into the compute-parameter buffer in the same pass (the recast of
-// the engine's step); with bf16 p there is no such copy.
+// fp32 (the classic masters) or bf16 or fp16 (the lean state, where the
+// compute parameters are the masters, as `fused_adam_flat` takes a
+// 16-bit p); the moments (M) rest in fp32, bf16 or fp16 (the optimizer's
+// `state_dtype`); g (G) is fp32, bf16 or fp16. Each value is read once,
+// the math runs in fp32, and each output is rounded once to its storage
+// type, to nearest even (`.astype` / `.to`; fp16 past 65504 becomes
+// inf). With fp32 p, the new p may also be written as bf16 or fp16 (C)
+// into the compute-parameter buffer in the same pass (the recast of the
+// engine's step); with a 16-bit p there is no such copy. The fp16
+// variants are the loss-scaled training path's: the classic one (fp32 p,
+// m, v, an fp16 copy) and the lean one (fp16 p, m, v).
 //
 // Bound on the H100: bytes. An element reads p, g, m, v and writes p, m,
-// v: 28-30 bytes classic (fp32 p/m/v, bf16 g, the bf16 copy), 14 bytes
-// lean (all bf16), against 14 flops; GPT-2 XL's 1,557,686,400 elements
-// take 13.02 / 6.51 ms at 3.35 TB/s. Design: a grid-stride loop over
+// v: 28-30 bytes classic (fp32 p/m/v, 16-bit g and copy), 14 bytes lean
+// (all bf16 or all fp16), against 14 flops; GPT-2 XL's 1,557,686,400
+// elements take 13.02 / 6.51 ms at 3.35 TB/s. Design: a grid-stride loop over
 // packs of 4 neighbouring elements a thread (one 8- or 16-byte load or
 // store a buffer: with 2-byte elements one element a thread kept too
 // few bytes in flight), neighbouring threads on neighbouring packs,
@@ -68,11 +71,11 @@ __device__ __forceinline__ void adam_step(const Hyper& h, float pi, float gi,
   pn = __fsub_rn(pi, __fmul_rn(h.lr, u));
 }
 
-template <typename P, typename G, typename M>
+template <typename P, typename G, typename M, typename C>
 __global__ void __launch_bounds__(NT)
     adam_kernel(P* __restrict__ p, const G* __restrict__ g,
                 M* __restrict__ m, M* __restrict__ v,
-                __nv_bfloat16* __restrict__ p_out, long long n,
+                C* __restrict__ p_out, long long n,
                 long long n_packs, Hyper h) {
   const long long stride = (long long)gridDim.x * NT;
   const long long tid = (long long)blockIdx.x * NT + threadIdx.x;
@@ -83,7 +86,7 @@ __global__ void __launch_bounds__(NT)
     const Pack<M> vp = reinterpret_cast<const Pack<M>*>(v)[j];
     Pack<P> po;
     Pack<M> mo, vo;
-    Pack<__nv_bfloat16> co;
+    Pack<C> co;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       float pn, mi, vi;
@@ -92,12 +95,12 @@ __global__ void __launch_bounds__(NT)
       po.x[k] = ds::from_float<P>(pn);
       mo.x[k] = ds::from_float<M>(mi);
       vo.x[k] = ds::from_float<M>(vi);
-      co.x[k] = __float2bfloat16(pn);
+      co.x[k] = ds::from_float<C>(pn);
     }
     reinterpret_cast<Pack<P>*>(p)[j] = po;
     reinterpret_cast<Pack<M>*>(m)[j] = mo;
     reinterpret_cast<Pack<M>*>(v)[j] = vo;
-    if (p_out != nullptr) reinterpret_cast<Pack<__nv_bfloat16>*>(p_out)[j] = co;
+    if (p_out != nullptr) reinterpret_cast<Pack<C>*>(p_out)[j] = co;
   }
   for (long long i = n_packs * VEC + tid; i < n; i += stride) {
     float pn, mi, vi;
@@ -106,7 +109,7 @@ __global__ void __launch_bounds__(NT)
     p[i] = ds::from_float<P>(pn);
     m[i] = ds::from_float<M>(mi);
     v[i] = ds::from_float<M>(vi);
-    if (p_out != nullptr) p_out[i] = __float2bfloat16(pn);
+    if (p_out != nullptr) p_out[i] = ds::from_float<C>(pn);
   }
 }
 
@@ -114,7 +117,7 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-template <typename P, typename G, typename M>
+template <typename P, typename G, typename M, typename C>
 cudaError_t launch(void* p, const void* g, void* m, void* v, void* p_out,
                    long long n, const Hyper& h, cudaStream_t stream) {
   const bool packed = aligned16(p) && aligned16(g) && aligned16(m) &&
@@ -125,54 +128,71 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, void* p_out,
   const long long work = packed ? n_packs + (n - n_packs * VEC) : n;
   const long long want = (work + NT - 1) / NT;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  adam_kernel<P, G, M><<<blocks, NT, 0, stream>>>(
+  adam_kernel<P, G, M, C><<<blocks, NT, 0, stream>>>(
       static_cast<P*>(p), static_cast<const G*>(g), static_cast<M*>(m),
-      static_cast<M*>(v), static_cast<__nv_bfloat16*>(p_out), n, n_packs, h);
+      static_cast<M*>(v), static_cast<C*>(p_out), n, n_packs, h);
   return cudaGetLastError();
 }
 
-template <typename P, typename M>
+template <typename P, typename M, typename C>
 cudaError_t launch_g(int g_dtype, void* p, const void* g, void* m, void* v,
                      void* p_out, long long n, const Hyper& h,
                      cudaStream_t stream) {
   if (g_dtype == ds::DTYPE_F32)
-    return launch<P, float, M>(p, g, m, v, p_out, n, h, stream);
+    return launch<P, float, M, C>(p, g, m, v, p_out, n, h, stream);
   if (g_dtype == ds::DTYPE_BF16)
-    return launch<P, __nv_bfloat16, M>(p, g, m, v, p_out, n, h, stream);
+    return launch<P, __nv_bfloat16, M, C>(p, g, m, v, p_out, n, h, stream);
+  if (g_dtype == ds::DTYPE_F16)
+    return launch<P, __half, M, C>(p, g, m, v, p_out, n, h, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename P>
+template <typename P, typename C>
 cudaError_t launch_m(int m_dtype, int g_dtype, void* p, const void* g,
                      void* m, void* v, void* p_out, long long n,
                      const Hyper& h, cudaStream_t stream) {
   if (m_dtype == ds::DTYPE_F32)
-    return launch_g<P, float>(g_dtype, p, g, m, v, p_out, n, h, stream);
+    return launch_g<P, float, C>(g_dtype, p, g, m, v, p_out, n, h, stream);
   if (m_dtype == ds::DTYPE_BF16)
-    return launch_g<P, __nv_bfloat16>(g_dtype, p, g, m, v, p_out, n, h,
-                                      stream);
+    return launch_g<P, __nv_bfloat16, C>(g_dtype, p, g, m, v, p_out, n, h,
+                                         stream);
+  if (m_dtype == ds::DTYPE_F16)
+    return launch_g<P, __half, C>(g_dtype, p, g, m, v, p_out, n, h, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // p: [n] in p_dtype, m and v: [n] in m_dtype, all contiguous and updated
-// in place; g: [n] contiguous in g_dtype (dtype codes: 0 fp32, 1 bf16);
-// p_out: [n] bf16 contiguous or null, and null when p is bf16; omb1 and
-// omb2: 1 - b1 and 1 - b2 as the caller rounds them. Returns
-// cudaGetLastError() after the launch (n = 0 launches nothing).
+// in place; g: [n] contiguous in g_dtype (dtype codes: 0 fp32, 1 bf16, 2
+// fp16); p_out: [n] contiguous in c_dtype (bf16 or fp16) or null, and
+// null when p is 16-bit; omb1 and omb2: 1 - b1 and 1 - b2 as the caller
+// rounds them. Returns cudaGetLastError() after the launch (n = 0
+// launches nothing).
 extern "C" int ds_adam(void* p, const void* g, void* m, void* v, void* p_out,
                        long long n, float lr, float b1, float b2, float omb1,
                        float omb2, float eps, float wd, float bc1, float bc2,
                        int adam_w, int g_dtype, int p_dtype, int m_dtype,
-                       void* stream) {
+                       int c_dtype, void* stream) {
   if (n <= 0) return cudaSuccess;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const Hyper h{lr, b1, b2, omb1, omb2, eps, wd, bc1, bc2, adam_w};
-  if (p_dtype == ds::DTYPE_F32)
-    return launch_m<float>(m_dtype, g_dtype, p, g, m, v, p_out, n, h, cs);
-  if (p_dtype == ds::DTYPE_BF16 && p_out == nullptr)
-    return launch_m<__nv_bfloat16>(m_dtype, g_dtype, p, g, m, v, p_out, n, h,
+  using bf16 = __nv_bfloat16;
+  if (p_dtype == ds::DTYPE_F32) {
+    if (p_out == nullptr || c_dtype == ds::DTYPE_BF16)
+      return launch_m<float, bf16>(m_dtype, g_dtype, p, g, m, v, p_out, n, h,
                                    cs);
+    if (c_dtype == ds::DTYPE_F16)
+      return launch_m<float, __half>(m_dtype, g_dtype, p, g, m, v, p_out, n,
+                                     h, cs);
+    return cudaErrorInvalidValue;
+  }
+  if (p_out != nullptr) return cudaErrorInvalidValue;
+  if (p_dtype == ds::DTYPE_BF16)
+    return launch_m<bf16, bf16>(m_dtype, g_dtype, p, g, m, v, p_out, n, h,
+                                cs);
+  if (p_dtype == ds::DTYPE_F16)
+    return launch_m<__half, __half>(m_dtype, g_dtype, p, g, m, v, p_out, n,
+                                    h, cs);
   return cudaErrorInvalidValue;
 }

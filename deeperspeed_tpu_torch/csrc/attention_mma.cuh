@@ -1,6 +1,7 @@
-// The tensor-core pieces of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu) and of the block-sparse forward, dK/dV and dQ kernels
-// (block_sparse_attention.cu): 64-row tiles of bf16 in shared memory
+// The tensor-core pieces of the bf16 and fp16 flash kernels (flash_fwd.cu,
+// flash_bwd.cu) and of the bf16 block-sparse forward, dK/dV and dQ kernels
+// (block_sparse_attention.cu): 64-row tiles of 16-bit elements T (bf16 or
+// fp16; every piece is a template over T) in shared memory
 // filled by cp.async, fragments built by ldmatrix, products by mma.sync
 // m16n8k16 with fp32 accumulators (common.cuh), and the
 // accumulator-to-operand repacking that keeps P and dS in registers.
@@ -11,7 +12,7 @@
 // 64-wide tile is float[8][4]: lane l holds rows g = l/4 and g + 8 of the
 // warp's 16 and columns 8j + 2(l%4) + {0, 1} of n-tile j (elements e = 0,
 // 1 on row g, e = 2, 3 on row g + 8). That is the m16n8k16 A fragment's
-// layout too, so a tile of P or dS packed to bf16 pairs is the A operand
+// layout too, so a tile of P or dS packed to T pairs is the A operand
 // of the next product with no shared-memory round trip (`pack_a`).
 //
 // Tiles are stored row-major with rows padded by 8 elements (16 bytes):
@@ -43,11 +44,12 @@ static_assert(BM == 64 && BN == 64 && NTM == 128,
               "tile_live and the loaders assume 64-row tiles, 128 threads");
 
 // which tile step a (dtype, head dim) takes: the tensor-core one for bf16
-// at D = 64 and 128; fp32 (parity) and D = 256 (its accumulators would
-// spill) keep attention_tiles.cuh's FMA steps
+// and fp16 at D = 64 and 128; fp32 (parity) and D = 256 (its accumulators
+// would spill) keep attention_tiles.cuh's FMA steps
 template <typename T, int D>
 __host__ __device__ constexpr bool takes_mma() {
-  return std::is_same<T, bf16>::value && (D == 64 || D == 128);
+  return (std::is_same<T, bf16>::value || std::is_same<T, __half>::value) &&
+         (D == 64 || D == 128);
 }
 
 template <int D>
@@ -64,8 +66,8 @@ __host__ __device__ constexpr int tile_elems() {
 // rows [r0, r0 + 64) of one head (row stride `stride`, head dim
 // contiguous, 16-byte aligned) into dst [64][D + PAD] by 16-byte cp.async;
 // rows at or past S are zero-filled. The caller commits the group.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long stride, int r0, int S) {
   constexpr int CPR = D / 8;  // 16-byte chunks a row
   for (int c = threadIdx.x; c < BN * CPR; c += NTM) {
@@ -77,8 +79,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // the A fragments (16 rows from row0, k-step kk) of a stored tile
-template <int D>
-__device__ __forceinline__ void a_frag(unsigned (&a)[4], const bf16* tile,
+template <int D, typename T>
+__device__ __forceinline__ void a_frag(unsigned (&a)[4], const T* tile,
                                        int row0, int kk) {
   const int lane = threadIdx.x % 32, mat = lane / 8, r = lane % 8;
   ldmatrix_x4(a, tile + (row0 + r + 8 * (mat % 2)) * ld<D>() + kk * 16 +
@@ -96,9 +98,9 @@ struct RegA {
 };
 
 // A operand read from a stored tile at each k-step (rows row0..row0+15)
-template <int D>
+template <int D, typename T = bf16>
 struct SmemA {
-  const bf16* tile;
+  const T* tile;
   int row0;
   __device__ void operator()(int kk, unsigned (&a)[4]) const {
     a_frag<D>(a, tile, row0, kk);
@@ -106,10 +108,10 @@ struct SmemA {
 };
 
 // acc[N/8][4] += A (16 x 16·KS) · Bᵀ, B stored [n][k] (rows 0..N-1 of bt,
-// k contiguous, row stride ldb)
-template <int KS, int N, typename AFrag>
+// k contiguous, row stride ldb); A and B of bt's element type
+template <int KS, int N, typename AFrag, typename T>
 __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], AFrag afrag,
-                                        const bf16* bt, int ldb) {
+                                        const T* bt, int ldb) {
   const int lane = threadIdx.x % 32, mat = lane / 8, r = lane % 8;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
@@ -120,18 +122,18 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], AFrag afrag,
       unsigned t[4];
       ldmatrix_x4(t, bt + (jp * 16 + r + 8 * (mat / 2)) * ldb + kk * 16 +
                          8 * (mat % 2));
-      mma_bf16(acc[2 * jp], a, t[0], t[1]);
-      mma_bf16(acc[2 * jp + 1], a, t[2], t[3]);
+      mma16<T>(acc[2 * jp], a, t[0], t[1]);
+      mma16<T>(acc[2 * jp + 1], a, t[2], t[3]);
     }
   }
 }
 
 // acc[N/8][4] += A (16 x 16·KS, fragments in registers) · B, B stored
 // [k][n] (rows 0..16·KS-1 of b, n contiguous, row stride ldb)
-template <int KS, int N>
+template <int KS, int N, typename T>
 __device__ __forceinline__ void mma_ab(float (&acc)[N / 8][4],
                                        const unsigned (&a)[KS][4],
-                                       const bf16* b, int ldb) {
+                                       const T* b, int ldb) {
   const int lane = threadIdx.x % 32, mat = lane / 8, r = lane % 8;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
@@ -140,28 +142,24 @@ __device__ __forceinline__ void mma_ab(float (&acc)[N / 8][4],
       unsigned t[4];
       ldmatrix_x4_trans(t, b + (kk * 16 + r + 8 * (mat % 2)) * ldb +
                                jp * 16 + 8 * (mat / 2));
-      mma_bf16(acc[2 * jp], a[kk], t[0], t[1]);
-      mma_bf16(acc[2 * jp + 1], a[kk], t[2], t[3]);
+      mma16<T>(acc[2 * jp], a[kk], t[0], t[1]);
+      mma16<T>(acc[2 * jp + 1], a[kk], t[2], t[3]);
     }
   }
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// a 16 x 16·KS fp32 accumulator tile (float[2·KS][4]), rounded to bf16,
-// as the A operand (KS k-steps of 16) of the next product
-template <int KS>
+// a 16 x 16·KS fp32 accumulator tile (float[2·KS][4]), rounded to nearest
+// T (fp16: past 65504 to inf, so an overflow of dS shows in dQ, dK), as
+// the A operand (KS k-steps of 16) of the next product
+template <int KS, typename T = bf16>
 __device__ __forceinline__ void pack_a(unsigned (&a)[KS][4],
                                        const float (&s)[2 * KS][4]) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    a[kk][0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
 }
 
@@ -207,9 +205,10 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 
 // A lane's two rows of a [.., D] output (row stride row_stride from base):
 // acc[D/8][4] holds rows[0] (elements 0, 1) and rows[1] (2, 3), each row
-// scaled by scale[r] and written as bf16 pairs; rows at or past S skipped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
+// scaled by scale[r] and written as T pairs rounded to nearest; rows at
+// or past S skipped
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride,
                                            const float (&acc)[D / 8][4],
                                            const int (&rows)[2], int S,
                                            const float (&scale)[2]) {
@@ -217,10 +216,10 @@ __device__ __forceinline__ void store_rows(bf16* base, long long row_stride,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= S) continue;
-    bf16* p = base + (long long)rows[r] * row_stride + 2 * qd;
+    T* p = base + (long long)rows[r] * row_stride + 2 * qd;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
+      *reinterpret_cast<unsigned*>(p + 8 * j) = pack2<T>(
           acc[j][2 * r] * scale[r], acc[j][2 * r + 1] * scale[r]);
   }
 }

@@ -2,7 +2,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace ds {
 
@@ -14,11 +17,13 @@ constexpr float NEG_INF = -1e30f;
 // dtype codes passed by the Python wrappers
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_F16 = 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -29,6 +34,27 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// round to nearest even: past 65504 this gives +-inf, so an fp16
+// overflow reaches the loss scaler's finite check (a saturating _rz
+// conversion would hide it)
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// two fp32 values rounded to nearest into one 32-bit pair of T (bf16 or
+// fp16; lo in the low half), the operand and store format of the
+// tensor-core kernels
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
 }
 
 // -- the mma.sync kernels' pieces (the bf16 flash kernels and the
@@ -77,6 +103,26 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same with fp16 A and B
+__device__ __forceinline__ void mma_f16(float* c, const unsigned* a,
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the m16n8k16 step of element type T (bf16 or fp16)
+template <typename T>
+__device__ __forceinline__ void mma16(float* c, const unsigned* a,
+                                      unsigned b0, unsigned b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
 }
 
 // four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row

@@ -82,6 +82,59 @@ inline __nv_bfloat16 __float2bfloat16(float f) {   // round to nearest even
   u += 0x7FFFu + ((u >> 16) & 1u);
   return {static_cast<uint16_t>(u >> 16)};
 }
+// IEEE binary16: round to nearest even, past 65504 to +-inf, subnormals
+// kept, NaN quieted
+struct __half { uint16_t bits; };
+struct alignas(4) __half2 { __half x, y; };
+inline float __half2float(__half h) {
+  const uint32_t sign = static_cast<uint32_t>(h.bits & 0x8000u) << 16;
+  const uint32_t exp = (h.bits >> 10) & 0x1Fu, man = h.bits & 0x3FFu;
+  if (exp == 0x1F) {
+    const uint32_t u = sign | 0x7F800000u | (man << 13);
+    float f;
+    std::memcpy(&f, &u, 4);
+    return f;
+  }
+  const float mag = exp == 0 ? std::ldexp(static_cast<float>(man), -24)
+                             : std::ldexp(static_cast<float>(man | 0x400u),
+                                          static_cast<int>(exp) - 25);
+  return sign ? -mag : mag;
+}
+inline __half __float2half_rn(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  const uint16_t sign = static_cast<uint16_t>((u >> 16) & 0x8000u);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u)
+    return {static_cast<uint16_t>(sign | 0x7E00u)};
+  const float a = std::fabs(f);
+  if (a >= 65520.f) return {static_cast<uint16_t>(sign | 0x7C00u)};
+  // a multiple of the spacing at a's binade (2^-24 below 2^-14), rounded
+  // to nearest even by nearbyint under the default rounding mode
+  int e;
+  std::frexp(a, &e);                       // a = m 2^e, m in [0.5, 1)
+  const int q = std::max(e - 11, -24);     // the spacing's exponent
+  const float n = std::nearbyint(std::ldexp(a, -q));
+  const float r = std::ldexp(n, q);
+  if (r >= 65520.f) return {static_cast<uint16_t>(sign | 0x7C00u)};
+  int re;
+  std::frexp(r, &re);
+  uint16_t bits;
+  if (r == 0.f) {
+    bits = 0;
+  } else if (re - 1 < -14) {               // subnormal: man = r / 2^-24
+    bits = static_cast<uint16_t>(std::ldexp(r, 24));
+  } else {
+    const uint32_t man =
+        static_cast<uint32_t>(std::ldexp(r, 11 - re)) & 0x3FFu;
+    bits = static_cast<uint16_t>(((re - 1 + 15) << 10) | man);
+  }
+  return {static_cast<uint16_t>(sign | bits)};
+}
+inline __half2 __floats2half2_rn(float a, float b) {
+  return {__float2half_rn(a), __float2half_rn(b)};
+}
+inline __half __ushort_as_half(unsigned short u) { return {u}; }
+
 // IEEE single operations, each rounded to nearest even (no contraction:
 // the host build targets no FMA)
 inline float __fadd_rn(float a, float b) { return a + b; }

@@ -18,10 +18,12 @@
 //   threads that have not exited (`shim::ClusterBarrier`).
 #pragma once
 
+#include "common.cuh"
 #include "cuda_shim.h"
 
 enum CUtensorMapDataType {
   CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0,
+  CU_TENSOR_MAP_DATA_TYPE_FLOAT16 = 6,
   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9
 };
 enum CUtensorMapSwizzle {
@@ -61,7 +63,10 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr,
                               const uint64_t* dims, const uint64_t* strides,
                               const uint32_t* box, CUtensorMapSwizzle swz) {
   map->base = static_cast<const unsigned char*>(ptr);
-  map->esize = dtype == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
+  map->esize = dtype == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ||
+                       dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                   ? 2
+                   : 1;
   map->rank = rank;
   map->swizzle = swz;
   // cuTensorMapEncodeTiled's conditions
@@ -233,7 +238,9 @@ inline void wgmma_wait() {}
 template <int R>
 inline void fence_operand(float (&)[R]) {}
 
-// element (i, k) of a 64 x 16 (A) or N x 16 (B) operand under a descriptor
+// element (i, k) of a 64 x 16 (A) or N x 16 (B) operand of element type T
+// (bf16 or fp16) under a descriptor
+template <typename T>
 inline float desc_elem(uint64_t desc, bool mn_major, int i, int k) {
   if ((desc >> 62) != 1) shim_fail("descriptor without the B128 layout");
   const uint32_t start = static_cast<uint32_t>(desc & 0x3FFF) << 4;
@@ -244,12 +251,12 @@ inline float desc_elem(uint64_t desc, bool mn_major, int i, int k) {
                      (k % 8) * 128
                : start + (i / 8) * sbo + (i % 8) * 128 + k * 2;
   const unsigned char* p = shim::smem_ptr(shim::swz128(a));
-  __nv_bfloat16 h;
+  T h;
   std::memcpy(&h, p, 2);
-  return __bfloat162float(h);
+  return ds::to_float(h);
 }
 
-template <int N, int TA, int TB>
+template <int N, int TA, int TB, typename T = __nv_bfloat16>
 inline void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
   const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
   for (int j = 0; j < N / 8; ++j)
@@ -258,7 +265,8 @@ inline void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db) {
       const int c = 8 * j + 2 * (l % 4) + (e & 1);
       float s = 0.f;
       for (int k = 0; k < 16; ++k)
-        s = std::fma(desc_elem(da, TA, r, k), desc_elem(db, TB, c, k), s);
+        s = std::fma(desc_elem<T>(da, TA, r, k), desc_elem<T>(db, TB, c, k),
+                     s);
       d[4 * j + e] += s;
     }
 }

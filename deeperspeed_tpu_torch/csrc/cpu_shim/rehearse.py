@@ -4,8 +4,9 @@
 
 FAMILY is one of `quant_matmul`, `grouped_matmul`, `grouped_matmul_dw`,
 `block_sparse_fwd`, `block_sparse_dkv`, `block_sparse_dq`,
-`paged_decode`, `paged_decode_int8` and `adam` (all nine without
-``--only``). Each family's source (`csrc/quant_matmul.cu`,
+`paged_decode`, `paged_decode_int8`, `adam`, `paged_decode_fp16` and
+`adam_fp16` (all eleven without ``--only``). Each family's source
+(`csrc/quant_matmul.cu`,
 `csrc/grouped_matmul.cu`, `csrc/block_sparse_attention.cu`,
 `csrc/paged_decode.cu`, `csrc/adam.cu`) and `csrc/errors.cu` are copied next to
 this directory's stand-ins for the CUDA headers and for `common.cuh` /
@@ -54,6 +55,9 @@ thread, and each result is held against the plain PyTorch version:
   length-0 rows exact zeros, two calls bit-identical, every launch
   counted as the "cluster" design (fp32 pools: the single-block kernel,
   counted "single");
+- paged_decode_fp16: the same cluster cases over fp16 pools with fp16 q
+  (the plain version rounds P to fp16, the kernel keeps it in fp32):
+  within 5e-3 + 5e-3·|ref|, the same zero, identity and design checks;
 - adam: the flat Adam(W) kernel at every parameter / moment storage
   pair (fp32 or bf16 p, fp32 or bf16 m and v), fp32 and bf16 grads,
   AdamW and L2 mode, with the bf16 recast beside fp32 p, on a length no
@@ -61,7 +65,12 @@ thread, and each result is held against the plain PyTorch version:
   the packed loop needs: p, m and v equal to the plain version bit for bit (the
   kernel rounds each operation once, in the plain version's order), the
   recast equal to the new p rounded, two calls bit-identical, and a
-  p_out beside bf16 p refused.
+  p_out beside bf16 p refused;
+- adam_fp16: the same over the fp16 variants: the classic one (fp32 p,
+  m, v with an fp16 g and the fp16 copy, or an fp32 g), fp16 moments
+  beside fp32 p, the lean one (fp16 p, m, v; fp16 or fp32 g) and fp16 p
+  with fp32 moments, on the aligned and the skewed views: bit for bit,
+  launches counted by variant ("fp16 classic", "fp16 lean").
 
 It checks indexing, tiling, the mbarrier ring, the TMA box and swizzle,
 the descriptors' layouts, the cluster reduction and the warp-level
@@ -99,7 +108,7 @@ from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm  # noqa: E402
 
 OUT = REPO / "build" / "cpu_shim"
 SHIM_HEADERS = ("cuda_shim.h", "cuda.h", "cuda_runtime.h", "cuda_bf16.h",
-                "common.cuh", "hopper_gemm.cuh")
+                "cuda_fp16.h", "common.cuh", "hopper_gemm.cuh")
 REAL_HEADERS = ("attention_tiles.cuh", "attention_mma.cuh")
 CXX = ["g++", "-std=c++20", "-O1", "-g", "-fPIC", "-pthread"]
 
@@ -528,7 +537,8 @@ def check_block_sparse_dkv(gen):
 DECODE_CASES = ((16, 12, (0, 16, 37, 192, 130, 48)),
                 (64, 3, (70, 0, 192, 1, 128)),
                 (128, 2, (200, 256, 0, 64, 129)))
-TOL_DECODE = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+TOL_DECODE = {torch.bfloat16: (2e-2, 2e-2), torch.float16: (5e-3, 5e-3),
+              torch.float32: (1e-4, 1e-4)}
 
 
 def _decode_case(gen, ps, NP, lengths, H, D, q_dtype, int8):
@@ -557,10 +567,9 @@ def _decode_case(gen, ps, NP, lengths, H, D, q_dtype, int8):
     return q, kp, vp, ks, vs, table, lens
 
 
-def _check_decode(gen, int8):
+def _check_decode(gen, int8, q_dtypes=(torch.bfloat16, torch.float32)):
     da.reset_launches_by_design()
     counts = da.launches_by_design_int8 if int8 else da.launches_by_design
-    q_dtypes = (torch.bfloat16, torch.float32)
     calls = dict.fromkeys(da.DESIGNS, 0)
     for D in (64, 128):
         for ps, NP, lengths in DECODE_CASES:
@@ -609,17 +618,37 @@ def check_paged_decode_int8(gen):
     _check_decode(gen, int8=True)
 
 
-def check_adam(gen):
+def check_paged_decode_fp16(gen):
+    _check_decode(gen, int8=False, q_dtypes=(torch.float16,))
+
+
+ADAM_CASES = (
+    # p, m/v, g, adam_w, the copy's dtype (None: no copy), skew
+    (torch.float32, torch.float32, torch.bfloat16, True, torch.bfloat16, 0),
+    (torch.float32, torch.float32, torch.float32, False, None, 0),
+    (torch.float32, torch.bfloat16, torch.float32, True, torch.bfloat16, 0),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, True, None, 0),
+    (torch.bfloat16, torch.bfloat16, torch.float32, False, None, 0),
+    (torch.bfloat16, torch.float32, torch.bfloat16, True, None, 0),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, True, None, 1))
+# the fp16 variants: classic (fp32 p, m, v, fp16 g and copy) and lean
+# (fp16 p, m, v), fp32 g where the engine unscales first, a skewed view
+ADAM_CASES_FP16 = (
+    (torch.float32, torch.float32, torch.float16, True, torch.float16, 0),
+    (torch.float32, torch.float32, torch.float32, True, torch.float16, 0),
+    (torch.float32, torch.float16, torch.float32, False, torch.float16, 0),
+    (torch.float16, torch.float16, torch.float16, True, None, 0),
+    (torch.float16, torch.float16, torch.float32, True, None, 0),
+    (torch.float16, torch.float32, torch.float16, False, None, 0),
+    (torch.float16, torch.float16, torch.float16, True, None, 1))
+
+
+def check_adam(gen, cases=ADAM_CASES):
+    ad.reset_launches()
     n = 3 * 256 + 77
     hp = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01,
               bias_correction=True)
-    f32, bf16 = torch.float32, torch.bfloat16
-    for p_dt, m_dt, g_dt, adam_w, recast, skew in (
-            (f32, f32, bf16, True, True, 0), (f32, f32, f32, False, False, 0),
-            (f32, bf16, f32, True, True, 0), (bf16, bf16, bf16, True, False, 0),
-            (bf16, bf16, f32, False, False, 0),
-            (bf16, f32, bf16, True, False, 0),
-            (bf16, bf16, bf16, True, False, 1)):
+    for p_dt, m_dt, g_dt, adam_w, copy_dt, skew in cases:
         # skew 1: every buffer a view one element past a 16-byte boundary,
         # which takes the one-element-a-thread loop throughout
         p = torch.randn(n + skew, generator=gen).to(p_dt)[skew:]
@@ -631,35 +660,45 @@ def check_adam(gen):
         runs = []
         for _ in range(2):
             pk, mk, vk = p.clone(), m.clone(), v.clone()
-            out = torch.empty(n, dtype=bf16) if recast else None
+            out = torch.empty(n, dtype=copy_dt) if copy_dt else None
             ad.adam_cuda(pk, g, mk, vk, 6e-4, 3, adam_w=adam_w, p_out=out,
                          **hp)
             runs.append((pk, mk, vk, out))
         pk, mk, vk, out = runs[0]
         case = (f"p {p_dt}, m/v {m_dt}, g {g_dt}, adam_w {adam_w}, "
-                f"recast {recast}, skew {skew}")
+                f"copy {copy_dt}, skew {skew}")
         for name, got, ref in (("p", pk, want[0]), ("m", mk, want[1]),
                                ("v", vk, want[2])):
             if not torch.equal(got, ref):
                 fail(f"adam {case}: {name} off the plain version by "
                      f"{rel_err(got, ref):.3e} of max|ref|")
-        if recast and not torch.equal(out, pk.to(bf16)):
-            fail(f"adam {case}: the bf16 recast is not the new p rounded")
+        if copy_dt and not torch.equal(out, pk.to(copy_dt)):
+            fail(f"adam {case}: the recast is not the new p rounded")
         if not all(torch.equal(a, b) for a, b in zip(runs[0][:3],
                                                        runs[1][:3])):
             fail(f"adam {case}: two calls differ")
         print(f"  {case}: equal to the plain version bit for bit, two "
               f"calls bit-identical",
               flush=True)
+    half = p.dtype
     try:
-        ad.adam_cuda(p.to(bf16), g, m, v, 6e-4, 3, adam_w=True,
-                     p_out=torch.empty(n, dtype=bf16), **hp)
+        ad.adam_cuda(p, g, m, v, 6e-4, 3, adam_w=True,
+                     p_out=torch.empty(n, dtype=half), **hp)
     except TypeError:
         pass
     else:
-        fail("adam: a bf16 p_out beside bf16 p was not refused")
-    if ad.launches != 14:
-        fail(f"adam: {ad.launches} launches counted, want 14")
+        fail(f"adam: a {half} p_out beside {half} p was not refused")
+    if ad.launches != 2 * len(cases):
+        fail(f"adam: {ad.launches} launches counted, want "
+             f"{2 * len(cases)}")
+
+
+def check_adam_fp16(gen):
+    check_adam(gen, ADAM_CASES_FP16)
+    if set(ad.variant_launches) != {"fp16 classic", "fp16 lean",
+                                    "p float32, m float16",
+                                    "p float16, m float32"}:
+        fail(f"adam fp16 launches by variant {ad.variant_launches}")
 
 
 FAMILIES = {
@@ -685,6 +724,11 @@ FAMILIES = {
                           "split-KV)"),
     "adam": (("adam.cu",), check_adam,
              "flat Adam(W) over fp32 / bf16 parameters and moments"),
+    "paged_decode_fp16": (("paged_decode.cu",), check_paged_decode_fp16,
+                          "paged decode over fp16 pools (cluster "
+                          "split-KV)"),
+    "adam_fp16": (("adam.cu",), check_adam_fp16,
+                  "flat Adam(W), the fp16 variants (classic and lean)"),
 }
 
 

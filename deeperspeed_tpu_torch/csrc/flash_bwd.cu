@@ -43,8 +43,8 @@
 // three barriers a tile, and 100.9 KB of shared memory a block (2 blocks
 // an SM). It ran the row-3 backward in 4.6-4.9 ms.
 //
-// This design (bf16 at D = 64 and 128; the C dispatch picks it at compile
-// time):
+// This design (bf16 and fp16 at D = 64 and 128, a template over the
+// element type; the C dispatch picks it at compile time):
 //
 // - Two kernels, no atomics, so the result is deterministic, as before.
 //   dK/dV (`flash_bwd_dkv_mma_kernel`): one block of 4 warps per (b·h,
@@ -62,6 +62,12 @@
 //   uses them, rounded to bf16, as the A operands of dV += Pᵀ·dO and
 //   dK += dSᵀ·Q; the dQ kernel forms dS and runs dQ += dS·K the same
 //   way. Nothing but the load ring goes through shared memory.
+// - fp16 (the loss-scaled training path) runs the same steps with
+//   `mma.sync ... f32.f16.f16.f32`. dO arrives multiplied by the loss
+//   scale; dS is rounded to nearest fp16 before dQ = dS·K and dK = dSᵀ·Q,
+//   and dQ, dK, dV are stored rounded to nearest, so a value past 65504
+//   becomes inf there (the plain version rounds dS the same way) and the
+//   scaler's finite check skips the step.
 // - q, k and v are read through (batch, seq, head) strides, so the views
 //   split out of the fused QKV projection need no copy; dO is contiguous
 //   [B, S, H, D]; dq, dk, dv are written [B, S, H, D] contiguous.
@@ -249,7 +255,7 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 tensor-core kernels (D = 64, 128)
+// the 16-bit tensor-core kernels (T bf16 or fp16, D = 64, 128)
 // ---------------------------------------------------------------------------
 
 namespace mm = ds::mma_attn;
@@ -258,15 +264,15 @@ namespace mm = ds::mma_attn;
 // one barrier a tile. A tile is taken in slices of W q rows, each its
 // own Sᵀ, dPᵀ, Pᵀ, dSᵀ and two products, so that a thread stays within
 // 168 registers at D = 64 and three blocks share an SM.
-template <int D, bool BIAS, bool DROP>
+template <typename T, int D, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     flash_bwd_dkv_mma_kernel(
-        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
-        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         const int* __restrict__ seg, const int* __restrict__ layout,
         const float* __restrict__ kbias, const int* __restrict__ seed,
-        mm::bf16* __restrict__ dk, mm::bf16* __restrict__ dv, int S, int H,
+        T* __restrict__ dk, T* __restrict__ dv, int S, int H,
         Strides st, float sm_scale, int causal, int thresh,
         float inv_keep) {
   constexpr int TILE = mm::tile_elems<D>();
@@ -276,10 +282,10 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   // lane) and the slice's Sᵀ and dPᵀ fit 168 registers without a spill
   constexpr int W = D == 64 ? 16 : 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mm::bf16* Ks = reinterpret_cast<mm::bf16*>(smem_raw);
-  mm::bf16* Vs = Ks + TILE;
-  mm::bf16* Qs = Vs + TILE;       // [2][64][LD]
-  mm::bf16* dOs = Qs + 2 * TILE;  // [2][64][LD]
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE;
+  T* Qs = Vs + TILE;       // [2][64][LD]
+  T* dOs = Qs + 2 * TILE;  // [2][64][LD]
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][64]
   float* dl_s = lse_s + 2 * mm::BN;                          // [2][64]
   int* own_seg = reinterpret_cast<int*>(dl_s + 2 * mm::BN);  // [64]
@@ -289,10 +295,10 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = kt * mm::BM;
   const int nb = S / 128;  // layout blocks a row (layout calls only)
-  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
-  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
-  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
-  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* kb = k + b * st.ksb + h * st.ksh;
+  const T* vb = v + b * st.vsb + h * st.vsh;
+  const T* db = dout + ((long long)b * S * H + h) * D;
   const float* lse_bh = lse + (long long)bh * S;
   const float* delta_bh = delta + (long long)bh * S;
   const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
@@ -352,8 +358,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     if (nxt < n_qt) load_q_side(nxt, stage ^ 1);  // overlaps this tile
     ds::cp_async_commit();
     const int q0 = qt * mm::BN;
-    const mm::bf16* Qt = Qs + stage * TILE;
-    const mm::bf16* dOt = dOs + stage * TILE;
+    const T* Qt = Qs + stage * TILE;
+    const T* dOt = dOs + stage * TILE;
     const float* lse_t = lse_s + stage * mm::BN;
     const float* dl_t = dl_s + stage * mm::BN;
     const bool masked = seg_b != nullptr || q0 + mm::BN > S ||
@@ -363,8 +369,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
       float s[W / 8][4], dp[W / 8][4];
       mm::zero(s);
       mm::zero(dp);
-      mm::mma_abt<KS, W>(s, mm::SmemA<D>{Ks, warp * 16}, Qt + c0 * LD, LD);
-      mm::mma_abt<KS, W>(dp, mm::SmemA<D>{Vs, warp * 16}, dOt + c0 * LD,
+      mm::mma_abt<KS, W>(s, mm::SmemA<D, T>{Ks, warp * 16}, Qt + c0 * LD, LD);
+      mm::mma_abt<KS, W>(dp, mm::SmemA<D, T>{Vs, warp * 16}, dOt + c0 * LD,
                           LD);
 #pragma unroll
       for (int j = 0; j < W / 8; ++j) {
@@ -388,8 +394,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
         }
       }
       unsigned pa[W / 16][4], da[W / 16][4];
-      mm::pack_a<W / 16>(pa, s);
-      mm::pack_a<W / 16>(da, dp);
+      mm::pack_a<W / 16, T>(pa, s);
+      mm::pack_a<W / 16, T>(da, dp);
       mm::mma_ab<W / 16, D>(acc_v, pa, dOt + c0 * LD, LD);
       mm::mma_ab<W / 16, D>(acc_k, da, Qt + c0 * LD, LD);
     }
@@ -408,25 +414,25 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
 // and read from shared memory at each step at D = 128, to stay within
 // the registers; the key bias rides the K/V ring, one barrier a tile; a
 // tile is taken in two halves of 32 keys.
-template <int D, bool BIAS, bool DROP>
+template <typename T, int D, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     flash_bwd_dq_mma_kernel(
-        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
-        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
         const int* __restrict__ seg, const int* __restrict__ layout,
         const float* __restrict__ kbias, const int* __restrict__ seed,
-        mm::bf16* __restrict__ dq, int S, int H, Strides st, float sm_scale,
+        T* __restrict__ dq, int S, int H, Strides st, float sm_scale,
         int causal, int thresh, float inv_keep) {
   constexpr int TILE = mm::tile_elems<D>();
   constexpr int LD = mm::ld<D>();
   constexpr int KS = D / 16;
   constexpr bool A_REGS = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
-  mm::bf16* dOs = Qs + TILE;
-  mm::bf16* Ks = dOs + TILE;     // [2][64][LD]
-  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + TILE;
+  T* Ks = dOs + TILE;     // [2][64][LD]
+  T* Vs = Ks + 2 * TILE;  // [2][64][LD]
   float* kb_s = reinterpret_cast<float*>(Vs + 2 * TILE);       // [2][64]
   int* own_seg = reinterpret_cast<int*>(kb_s + 4 * mm::BN);    // [64]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -438,10 +444,10 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int* lrow =
       layout != nullptr ? layout + ((long long)h * nb + q0 / 128) * nb
                         : nullptr;
-  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
-  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
-  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
-  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* kb = k + b * st.ksb + h * st.ksh;
+  const T* vb = v + b * st.vsb + h * st.vsh;
+  const T* db = dout + ((long long)b * S * H + h) * D;
   const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
   const float* kbias_b = BIAS ? kbias + (long long)b * S : nullptr;
   const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
@@ -504,8 +510,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     if (nxt < n_kt) load_kv(nxt, stage ^ 1);  // overlaps this tile
     ds::cp_async_commit();
     const int k0 = kt * mm::BN;
-    const mm::bf16* Kt = Ks + stage * TILE;
-    const mm::bf16* Vt = Vs + stage * TILE;
+    const T* Kt = Ks + stage * TILE;
+    const T* Vt = Vs + stage * TILE;
     const float* kb_t = kb_s + stage * mm::BN;
     const bool masked = seg_b != nullptr || k0 + mm::BN > S ||
                         (causal && k0 + mm::BN - 1 > q0 + warp * 16);
@@ -519,9 +525,9 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
         mm::mma_abt<KS, 32>(s, mm::RegA<KS>{qf}, Kt + c0 * LD, LD);
         mm::mma_abt<KS, 32>(dp, mm::RegA<KS>{df}, Vt + c0 * LD, LD);
       } else {
-        mm::mma_abt<KS, 32>(s, mm::SmemA<D>{Qs, warp * 16}, Kt + c0 * LD,
+        mm::mma_abt<KS, 32>(s, mm::SmemA<D, T>{Qs, warp * 16}, Kt + c0 * LD,
                             LD);
-        mm::mma_abt<KS, 32>(dp, mm::SmemA<D>{dOs, warp * 16}, Vt + c0 * LD,
+        mm::mma_abt<KS, 32>(dp, mm::SmemA<D, T>{dOs, warp * 16}, Vt + c0 * LD,
                             LD);
       }
 #pragma unroll
@@ -545,7 +551,7 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
         }
       }
       unsigned da[2][4];
-      mm::pack_a<2>(da, dp);
+      mm::pack_a<2, T>(da, dp);
       mm::mma_ab<2, D>(acc, da, Kt + c0 * LD, LD);
     }
     ds::cp_async_wait<0>();  // tile nxt landed
@@ -576,36 +582,36 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool BIAS, bool DROP>
+template <typename T, int D, bool BIAS, bool DROP>
 cudaError_t launch_mma(Part part, const Args& a) {
   // dk/dv: K, V and a 2-stage Q, dO ring with its lse and delta; dq: Q,
   // dO and a 2-stage K, V ring with its key bias (room for four 64-float
   // rows either way); and the block's segment ids
-  constexpr size_t smem = 6 * mm::tile_elems<D>() * sizeof(mm::bf16) +
+  constexpr size_t smem = 6 * mm::tile_elems<D>() * sizeof(T) +
                           4 * mm::BN * sizeof(float) + mm::BM * sizeof(int);
   const dim3 grid((a.S + mm::BM - 1) / mm::BM, a.B * a.H);
-  const auto* tq = static_cast<const mm::bf16*>(a.q);
-  const auto* tk = static_cast<const mm::bf16*>(a.k);
-  const auto* tv = static_cast<const mm::bf16*>(a.v);
-  const auto* td = static_cast<const mm::bf16*>(a.dout);
+  const auto* tq = static_cast<const T*>(a.q);
+  const auto* tk = static_cast<const T*>(a.k);
+  const auto* tv = static_cast<const T*>(a.v);
+  const auto* td = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (part == Part::kDKV) {
-    auto kernel = flash_bwd_dkv_mma_kernel<D, BIAS, DROP>;
+    auto kernel = flash_bwd_dkv_mma_kernel<T, D, BIAS, DROP>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, mm::NTM, smem, a.stream>>>(
         tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
-        static_cast<mm::bf16*>(a.g1), static_cast<mm::bf16*>(a.g2), a.S,
+        static_cast<T*>(a.g1), static_cast<T*>(a.g2), a.S,
         a.H, a.st, a.sm_scale, a.causal, a.thresh, a.inv_keep);
   } else {
-    auto kernel = flash_bwd_dq_mma_kernel<D, BIAS, DROP>;
+    auto kernel = flash_bwd_dq_mma_kernel<T, D, BIAS, DROP>;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, mm::NTM, smem, a.stream>>>(
         tq, tk, tv, td, a.lse, a.delta, a.seg, a.layout, a.kbias, a.seed,
-        static_cast<mm::bf16*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal,
+        static_cast<T*>(a.g1), a.S, a.H, a.st, a.sm_scale, a.causal,
         a.thresh, a.inv_keep);
   }
   return cudaGetLastError();
@@ -615,7 +621,7 @@ cudaError_t launch_mma(Part part, const Args& a) {
 template <typename T, int D, bool BIAS, bool DROP>
 cudaError_t launch(Part part, const Args& a) {
   if constexpr (mm::takes_mma<T, D>()) {
-    return launch_mma<D, BIAS, DROP>(part, a);
+    return launch_mma<T, D, BIAS, DROP>(part, a);
   } else {
     constexpr int rows = ds::attn::bwd_rows<D>();
     constexpr size_t smem =
@@ -675,6 +681,7 @@ cudaError_t dispatch_d(int D, Part part, const Args& a) {
 int run(Part part, const Args& a, int D, int dtype) {
   if (dtype == ds::DTYPE_F32) return dispatch_d<float>(D, part, a);
   if (dtype == ds::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, part, a);
+  if (dtype == ds::DTYPE_F16) return dispatch_d<__half>(D, part, a);
   return cudaErrorInvalidValue;
 }
 

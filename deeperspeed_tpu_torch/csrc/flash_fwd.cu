@@ -40,8 +40,9 @@
 // shared memory behind three barriers a tile; 67.6 KB of shared memory a
 // block. It ran row 2 in 1.65 ms, about 16 TFLOP/s.
 //
-// This design (bf16 at D = 64 and 128, `flash_fwd_mma_kernel`; the C
-// dispatch picks it at compile time):
+// This design (bf16 and fp16 at D = 64 and 128, `flash_fwd_mma_kernel`,
+// a template over the element type; the C dispatch picks it at compile
+// time):
 //
 // - One block of 4 warps per (b·h, 64-row q tile), each warp 16 q rows; a
 //   loop over 64-key tiles up to the causal limit takes the place of the
@@ -57,7 +58,10 @@
 //   accumulator's absolute (row, key); the online softmax reduces each
 //   row over its lane quad with two shuffles. P, rounded to bf16 as the
 //   plain version rounds it, is repacked in registers as the A operand
-//   of P·V (V read by ldmatrix.trans); O stays in fp32 registers.
+//   of P·V (V read by ldmatrix.trans); O stays in fp32 registers. In
+//   fp16 the same steps run `mma.sync ... f32.f16.f16.f32`, and P and O
+//   are rounded to nearest (`__floats2half2_rn`): an output past 65504
+//   stores inf, which the loss scaler's finite check then sees.
 // - q, k and v are read through (batch, seq, head) strides, so the views
 //   split out of the fused QKV projection need no copy (bf16 operands
 //   must be 16-byte aligned, which the wrapper checks); out is written
@@ -75,29 +79,30 @@ using ds::attn::NT;
 using ds::attn::Strides;
 namespace mm = ds::mma_attn;
 
-// The bf16 tensor-core forward (D = 64, 128; the design above). The key
+// The 16-bit tensor-core forward (T bf16 or fp16, D = 64, 128; the design
+// above). The key
 // bias rides the K/V ring, one barrier a tile; the online softmax runs in
 // base 2 (scores scaled by log2 e, ex2 on the special-function unit). At
 // D = 64 three blocks share an SM (at most 168 registers a thread).
-template <int D, bool BIAS, bool DROP>
+template <typename T, int D, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
-    flash_fwd_mma_kernel(const mm::bf16* __restrict__ q,
-                         const mm::bf16* __restrict__ k,
-                         const mm::bf16* __restrict__ v,
+    flash_fwd_mma_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k,
+                         const T* __restrict__ v,
                          const int* __restrict__ seg,
                          const int* __restrict__ layout,
                          const float* __restrict__ kbias,
                          const int* __restrict__ seed,
-                         mm::bf16* __restrict__ out, float* __restrict__ lse,
+                         T* __restrict__ out, float* __restrict__ lse,
                          int S, int H, Strides st, float sm_scale, int causal,
                          int thresh, float inv_keep) {
   constexpr int TILE = mm::tile_elems<D>();
   constexpr int LD = mm::ld<D>();
   constexpr int KS = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
-  mm::bf16* Ks = Qs + TILE;      // [2][64][LD]
-  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + TILE;      // [2][64][LD]
+  T* Vs = Ks + 2 * TILE;  // [2][64][LD]
   float* kb_s = reinterpret_cast<float*>(Vs + 2 * TILE);  // [2][64]
   int* own_seg = reinterpret_cast<int*>(kb_s + 2 * mm::BN);  // [64]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -109,9 +114,9 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int* lrow =
       layout != nullptr ? layout + ((long long)h * nb + q0 / 128) * nb
                         : nullptr;
-  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
-  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
-  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* kb = k + b * st.ksb + h * st.ksh;
+  const T* vb = v + b * st.vsb + h * st.vsh;
   const int* seg_b = seg != nullptr ? seg + (long long)b * S : nullptr;
   const float* kbias_b = BIAS ? kbias + (long long)b * S : nullptr;
   const unsigned mix = DROP ? ds::attn::dropout_mix(seed, bh) : 0u;
@@ -232,7 +237,7 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
       }
     }
     unsigned pa[4][4];
-    mm::pack_a<4>(pa, s);
+    mm::pack_a<4, T>(pa, s);
     mm::mma_ab<4, D>(o, pa, Vs + stage * TILE, LD);
     ds::cp_async_wait<0>();  // tile nxt landed
     __syncthreads();         // ... for every warp, and this stage is free
@@ -344,20 +349,20 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, bool BIAS, bool DROP>
+template <typename T, int D, bool BIAS, bool DROP>
 cudaError_t launch_mma(const Args& a) {
-  auto kernel = flash_fwd_mma_kernel<D, BIAS, DROP>;
+  auto kernel = flash_fwd_mma_kernel<T, D, BIAS, DROP>;
   // Q, the K and V ring, the key bias ring, the block's segment ids
-  constexpr size_t smem = 5 * mm::tile_elems<D>() * sizeof(mm::bf16) +
+  constexpr size_t smem = 5 * mm::tile_elems<D>() * sizeof(T) +
                           2 * mm::BN * sizeof(float) + mm::BM * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S + mm::BM - 1) / mm::BM, a.B * a.H);
   kernel<<<grid, mm::NTM, smem, a.stream>>>(
-      static_cast<const mm::bf16*>(a.q), static_cast<const mm::bf16*>(a.k),
-      static_cast<const mm::bf16*>(a.v), a.seg, a.layout, a.kbias, a.seed,
-      static_cast<mm::bf16*>(a.out), a.lse, a.S, a.H, a.st, a.sm_scale,
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.seg, a.layout, a.kbias, a.seed,
+      static_cast<T*>(a.out), a.lse, a.S, a.H, a.st, a.sm_scale,
       a.causal, a.thresh, a.inv_keep);
   return cudaGetLastError();
 }
@@ -366,7 +371,7 @@ cudaError_t launch_mma(const Args& a) {
 template <typename T, int D, bool BIAS, bool DROP>
 cudaError_t launch(const Args& a) {
   if constexpr (mm::takes_mma<T, D>()) {
-    return launch_mma<D, BIAS, DROP>(a);
+    return launch_mma<T, D, BIAS, DROP>(a);
   } else {
     auto kernel = flash_fwd_kernel<T, D, BIAS, DROP>;
     constexpr size_t smem =
@@ -436,5 +441,6 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                static_cast<cudaStream_t>(stream)};
   if (dtype == ds::DTYPE_F32) return dispatch_d<float>(D, a);
   if (dtype == ds::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, a);
+  if (dtype == ds::DTYPE_F16) return dispatch_d<__half>(D, a);
   return cudaErrorInvalidValue;
 }

@@ -20,7 +20,11 @@
 // pass is 77 GFLOP on about 70 MB, some 1,100 flops a byte: the tensor
 // cores bound it. Design:
 //
-// - bf16 forward and dx: `gmm_fwd_wgmma_kernel` (csrc/hopper_gemm.cuh),
+// - bf16 and fp16 forward and dx: `gmm_fwd_wgmma_kernel`, a template
+//   over the element type (csrc/hopper_gemm.cuh's `wgmma` takes the
+//   operand type: the descriptors and swizzles are those of any 2-byte
+//   type, only the instruction's type fields change; fp16 stores its
+//   output rounded to nearest, past 65504 as inf),
 //   persistent: one CTA an SM walks output tiles of 128 rows of one span
 //   by 256 columns. One producer thread keeps a 3-stage ring of TMA loads
 //   in flight, running on into the next tile's loads while the consumers
@@ -39,8 +43,8 @@
 //   each output row depends only on its own input row, and dead rows are
 //   stored as zeros by a select, so no bits of a dead row (Inf, NaN) reach
 //   a live one; stores stop at the span's end.
-// - dW (bf16): `gmm_dw_wgmma_kernel`, the same producer / two-consumer
-//   ring. The contraction runs over rows, so both operands are MN-major:
+// - dW (bf16 and fp16): `gmm_dw_wgmma_kernel`, the same producer /
+//   two-consumer ring. The contraction runs over rows, so both operands are MN-major:
 //   a stage is 64 rows of x (two [64 r][64 k] boxes, warpgroup cw's 64
 //   K-rows of dw each) and of dy (four [64 r][64 n] boxes), and each
 //   warpgroup runs wgmma m64n256k16 with A = x^T and B = dy both
@@ -64,6 +68,7 @@
 //   64 x 64 tiles, 4 x 4 outputs a thread, slices of 16 staged in shared
 //   memory.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper_gemm.cuh"
@@ -146,11 +151,11 @@ __device__ __forceinline__ int gw_live_tiles(int n_tiles, int span, int G,
 // into the next tile's loads while the consumers store the last one.
 // TRANS_W: wmap reads w stored [W, N, K] (the dx product); otherwise
 // [W, K, N].
-template <bool TRANS_W>
+template <typename T, bool TRANS_W>
 __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap, const int* __restrict__ sizes,
-    const int* __restrict__ lut, bf16* __restrict__ y, int K, int N, int span,
+    const int* __restrict__ lut, T* __restrict__ y, int K, int N, int span,
     int G, int tps, int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -204,11 +209,11 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
   const int cw = tid / 128, t = tid % 128;
   const int wi = t / 32, lane = t % 32;
   const int gq = lane / 4, tq = lane % 4;
-  bf16* out = reinterpret_cast<bf16*>(smem + GW_OUT_OFF) + cw * 64 * GW_OUT_LD;
+  T* out = reinterpret_cast<T*>(smem + GW_OUT_OFF) + cw * 64 * GW_OUT_LD;
   hp::RingPos<GW_STAGES> pos;
   for (int tile = blockIdx.x; tile < live_tiles; tile += gridDim.x) {
     const GwTile w = gw_tile(tile, true, n_tiles, tps, span, G, sizes);
-    bf16* yt = y + w.grow0 * N;
+    T* yt = y + w.grow0 * N;
     float acc[GW_BN / 2];
 #pragma unroll
     for (int i = 0; i < GW_BN / 2; ++i) acc[i] = 0.f;
@@ -225,11 +230,11 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
         if (TRANS_W) {
           const uint64_t db =
               hp::sw128_desc(st + GW_A_BYTES + kk * 32, 0, 1024);
-          hp::wgmma<GW_BN, 0, 0>(acc, da, db);
+          hp::wgmma<GW_BN, 0, 0, T>(acc, da, db);
         } else {
           const uint64_t db = hp::sw128_desc(st + GW_A_BYTES + kk * 2048,
                                              GW_BK * 128, 1024);
-          hp::wgmma<GW_BN, 0, 1>(acc, da, db);
+          hp::wgmma<GW_BN, 0, 1, T>(acc, da, db);
         }
       }
       hp::wgmma_commit();
@@ -241,8 +246,9 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
     hp::fence_operand(acc);
     hp::mbar_arrive(&empty[prev]);
 
-    // stage this warpgroup's 64 rows as bf16 (dead rows as zeros) and store
-    // them as 16-byte chunks of whole rows
+    // stage this warpgroup's 64 rows in T, rounded to nearest (dead rows as
+    // zeros; fp16 past 65504 as inf), and store them as 16-byte chunks of
+    // whole rows
     hp::named_bar_sync(2 + cw, 128);   // the last tile's rows are stored
 #pragma unroll
     for (int j = 0; j < GW_BN / 8; ++j)
@@ -250,10 +256,9 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
       for (int h = 0; h < 2; ++h) {
         const int r = wi * 16 + gq + 8 * h;
         const bool dead = cw * 64 + r >= w.live;
-        *reinterpret_cast<__nv_bfloat162*>(out + r * GW_OUT_LD + j * 8 +
-                                           2 * tq) =
-            __floats2bfloat162_rn(dead ? 0.f : acc[4 * j + 2 * h],
-                                  dead ? 0.f : acc[4 * j + 2 * h + 1]);
+        *reinterpret_cast<unsigned*>(out + r * GW_OUT_LD + j * 8 + 2 * tq) =
+            ds::pack2<T>(dead ? 0.f : acc[4 * j + 2 * h],
+                         dead ? 0.f : acc[4 * j + 2 * h + 1]);
       }
     hp::named_bar_sync(2 + cw, 128);
     for (int it = t; it < 64 * (GW_BN / 8); it += 128) {
@@ -268,7 +273,7 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_fwd_wgmma_kernel(
   const int dead_tiles = (G * tps) * n_tiles - live_tiles;
   for (int tile = blockIdx.x; tile < dead_tiles; tile += gridDim.x) {
     const GwTile w = gw_tile(tile, false, n_tiles, tps, span, G, sizes);
-    bf16* yt = y + w.grow0 * N;
+    T* yt = y + w.grow0 * N;
     for (int it = t; it < 64 * (GW_BN / 8); it += 128) {
       const int r = cw * 64 + it / (GW_BN / 8);
       const int n = w.n0 + (it % (GW_BN / 8)) * 8;
@@ -330,7 +335,9 @@ __device__ __forceinline__ void dw_rank_weights(const int* sizes,
 
 // dW, persistent: tile t is (weight order[t / per_w], K tile, N tile);
 // CTA b takes tiles b, b + gridDim.x, ... The producer runs ahead into
-// the next tile's loads while the consumers store the last one.
+// the next tile's loads while the consumers store the last one. T: the
+// element type of x and dy (bf16 or fp16); dW is fp32 either way.
+template <typename T>
 __global__ void __launch_bounds__(GW_THREADS, 1) gmm_dw_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap dymap, const int* __restrict__ sizes,
@@ -432,7 +439,7 @@ __global__ void __launch_bounds__(GW_THREADS, 1) gmm_dw_wgmma_kernel(
               hp::sw128_desc(st + cw * DW_BOX + kk * 2048, DW_BOX, 1024);
           const uint64_t db =
               hp::sw128_desc(st + DW_A_BYTES + kk * 2048, DW_BOX, 1024);
-          hp::wgmma<DW_BN, 1, 1>(acc, da, db);
+          hp::wgmma<DW_BN, 1, 1, T>(acc, da, db);
         }
         hp::wgmma_commit();
         hp::wgmma_wait<1>();      // the previous stage's products are done
@@ -629,52 +636,60 @@ cudaError_t sm_count(int* out) {
   return cudaSuccess;
 }
 
-// the bf16 forward: x [R, K] through ldx and the weight as a 3-D map
+// the tensor maps' element type of T
+template <typename T>
+constexpr CUtensorMapDataType map_dtype() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// the 16-bit forward: x [R, K] through ldx and the weight as a 3-D map
 // (innermost first: [N, K, W], or [K, N, W] when w is stored [W, N, K])
-template <bool TRANS_W>
-cudaError_t launch_fwd_wgmma(const bf16* x, long long ldx, const bf16* w,
-                             const int* sizes, const int* lut, bf16* y, int R,
+template <typename T, bool TRANS_W>
+cudaError_t launch_fwd_wgmma(const T* x, long long ldx, const T* w,
+                             const int* sizes, const int* lut, T* y, int R,
                              int K, int N, int W, int span,
                              cudaStream_t stream) {
   CUtensorMap xm, wm;
   const uint64_t xd[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(R)};
   const uint64_t xs[1] = {static_cast<uint64_t>(ldx) * 2};
   const uint32_t xb[2] = {GW_BK, GW_BM};
-  cudaError_t err = hp::tensor_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                   2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = hp::tensor_map(&xm, x, map_dtype<T>(), 2, xd, xs, xb,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const uint64_t inner = TRANS_W ? K : N, outer = TRANS_W ? N : K;
   const uint64_t wd[3] = {inner, outer, static_cast<uint64_t>(W)};
   const uint64_t ws[2] = {inner * 2, inner * outer * 2};
   const uint32_t wb[3] = {64, static_cast<uint32_t>(TRANS_W ? GW_BN : GW_BK),
                           1};
-  err = hp::tensor_map(&wm, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wd, ws, wb,
+  err = hp::tensor_map(&wm, w, map_dtype<T>(), 3, wd, ws, wb,
                        CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   static bool ready = false;
-  err = allow_smem(gmm_fwd_wgmma_kernel<TRANS_W>, GW_SMEM, &ready);
+  err = allow_smem(gmm_fwd_wgmma_kernel<T, TRANS_W>, GW_SMEM, &ready);
   if (err != cudaSuccess) return err;
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int tps = (span + GW_BM - 1) / GW_BM;
   const int n_tiles = (N + GW_BN - 1) / GW_BN;
   const int G = R / span;
-  gmm_fwd_wgmma_kernel<TRANS_W><<<min(G * tps * n_tiles, sms), GW_THREADS,
-                                  GW_SMEM, stream>>>(xm, wm, sizes, lut, y, K,
-                                                     N, span, G, tps,
-                                                     n_tiles);
+  gmm_fwd_wgmma_kernel<T, TRANS_W><<<min(G * tps * n_tiles, sms),
+                                     GW_THREADS, GW_SMEM, stream>>>(
+      xm, wm, sizes, lut, y, K, N, span, G, tps, n_tiles);
   return cudaGetLastError();
 }
 
 // room for the dW kernel's table of the most weights a launch may rank
+template <typename T>
 cudaError_t allow_dw_smem() {
   static bool ready = false;
-  return allow_smem(gmm_dw_wgmma_kernel, dw_smem(DW_MAX_WEIGHTS), &ready);
+  return allow_smem(gmm_dw_wgmma_kernel<T>, dw_smem(DW_MAX_WEIGHTS), &ready);
 }
 
-// the bf16 dW: x [R, K] and dy [R, N] contiguous, each read as [64 r][64]
-// boxes
-cudaError_t launch_dw_wgmma(const bf16* x, const bf16* dy, const int* sizes,
+// the 16-bit dW: x [R, K] and dy [R, N] contiguous, each read as
+// [64 r][64] boxes
+template <typename T>
+cudaError_t launch_dw_wgmma(const T* x, const T* dy, const int* sizes,
                             const int* lut, float* dw, int R, int K, int N,
                             int span, int W, cudaStream_t stream) {
   CUtensorMap xm, dym;
@@ -683,17 +698,17 @@ cudaError_t launch_dw_wgmma(const bf16* x, const bf16* dy, const int* sizes,
   const uint64_t dd[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(R)};
   const uint64_t dys[1] = {static_cast<uint64_t>(N) * 2};
   const uint32_t box[2] = {64, DW_BR};
-  cudaError_t err = hp::tensor_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                   2, xd, xs, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = hp::tensor_map(&xm, x, map_dtype<T>(), 2, xd, xs, box,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  err = hp::tensor_map(&dym, dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dd, dys,
-                       box, CU_TENSOR_MAP_SWIZZLE_128B);
+  err = hp::tensor_map(&dym, dy, map_dtype<T>(), 2, dd, dys, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  if ((err = allow_dw_smem()) != cudaSuccess) return err;
+  if ((err = allow_dw_smem<T>()) != cudaSuccess) return err;
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int tiles = W * ((K + DW_BM - 1) / DW_BM) * ((N + DW_BN - 1) / DW_BN);
-  gmm_dw_wgmma_kernel<<<min(tiles, sms), GW_THREADS, dw_smem(W), stream>>>(
+  gmm_dw_wgmma_kernel<T><<<min(tiles, sms), GW_THREADS, dw_smem(W), stream>>>(
       xm, dym, sizes, lut, dw, R / span, K, N, span, W);
   return cudaGetLastError();
 }
@@ -731,19 +746,30 @@ extern "C" int ds_grouped_matmul(const void* x, long long ldx, const void* w,
                                                         yf, K, N, span, tps);
     return cudaGetLastError();
   }
-  if (dtype != ds::DTYPE_BF16) return cudaErrorInvalidValue;
+  if (dtype != ds::DTYPE_BF16 && dtype != ds::DTYPE_F16)
+    return cudaErrorInvalidValue;
   if (K % 8 || N % 8 || ldx % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(w) % 16 ||
       reinterpret_cast<uintptr_t>(y) % 16)
     return cudaErrorInvalidValue;
+  if (dtype == ds::DTYPE_F16) {
+    const __half* xh = static_cast<const __half*>(x);
+    const __half* wh = static_cast<const __half*>(w);
+    __half* yh = static_cast<__half*>(y);
+    if (w_transposed)
+      return launch_fwd_wgmma<__half, true>(xh, ldx, wh, sz, lt, yh, R, K, N,
+                                            W, span, cs);
+    return launch_fwd_wgmma<__half, false>(xh, ldx, wh, sz, lt, yh, R, K, N,
+                                           W, span, cs);
+  }
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* yb = static_cast<bf16*>(y);
   if (w_transposed)
-    return launch_fwd_wgmma<true>(xb, ldx, wb, sz, lt, yb, R, K, N, W, span,
-                                  cs);
-  return launch_fwd_wgmma<false>(xb, ldx, wb, sz, lt, yb, R, K, N, W, span,
-                                 cs);
+    return launch_fwd_wgmma<bf16, true>(xb, ldx, wb, sz, lt, yb, R, K, N, W,
+                                        span, cs);
+  return launch_fwd_wgmma<bf16, false>(xb, ldx, wb, sz, lt, yb, R, K, N, W,
+                                       span, cs);
 }
 
 // dw [n_weights, K, N] fp32 = for each weight e, the sum over the spans s
@@ -770,12 +796,17 @@ extern "C" int ds_grouped_matmul_dw(const void* x, const void* dy,
         dwf, G, K, N, span);
     return cudaGetLastError();
   }
-  if (dtype != ds::DTYPE_BF16) return cudaErrorInvalidValue;
+  if (dtype != ds::DTYPE_BF16 && dtype != ds::DTYPE_F16)
+    return cudaErrorInvalidValue;
   if (K % 8 || N % 8 || n_weights > DW_MAX_WEIGHTS ||
       reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(dy) % 16 ||
       reinterpret_cast<uintptr_t>(dw) % 16)
     return cudaErrorInvalidValue;
+  if (dtype == ds::DTYPE_F16)
+    return launch_dw_wgmma(static_cast<const __half*>(x),
+                           static_cast<const __half*>(dy), sz, lt, dwf, R, K,
+                           N, span, n_weights, cs);
   return launch_dw_wgmma(static_cast<const bf16*>(x),
                          static_cast<const bf16*>(dy), sz, lt, dwf, R, K, N,
                          span, n_weights, cs);
@@ -787,13 +818,14 @@ extern "C" int ds_grouped_matmul_dw(const void* x, const void* dy,
 extern "C" int ds_grouped_matmul_dw_info(int n_weights, int* info) {
   if (n_weights <= 0 || n_weights > DW_MAX_WEIGHTS)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_dw_smem();
+  cudaError_t err = allow_dw_smem<bf16>();
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gmm_dw_wgmma_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, gmm_dw_wgmma_kernel<bf16>);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, gmm_dw_wgmma_kernel, GW_THREADS, dw_smem(n_weights));
+        &blocks, gmm_dw_wgmma_kernel<bf16>, GW_THREADS, dw_smem(n_weights));
   if (err != cudaSuccess) return err;
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);

@@ -16,8 +16,10 @@
 // so the latency of the one DRAM round trip and the number of bytes in
 // flight decide the time. Two designs:
 //
-// `paged_decode_cluster_kernel` (bf16 pools with bf16 q, int8 pools with
-// bf16 or fp32 q, at D = 64 and 128; the wrapper's "cluster" design):
+// `paged_decode_cluster_kernel` (bf16 pools with bf16 q, fp16 pools with
+// fp16 q, int8 pools with bf16 or fp32 q, at D = 64 and 128; the
+// wrapper's "cluster" design; fp16 pools run the bf16 kernel with the
+// element type swapped, the output rounded to nearest fp16):
 //
 // - Split-KV over a thread-block cluster of C CTAs a (sequence, head).
 //   The host picks C from the shapes, never from the lengths, so one
@@ -264,7 +266,7 @@ cudaError_t dispatch_d(int D, const DecodeArgs& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// the cluster design (bf16 and int8 pools at D = 64 and 128)
+// the cluster design (bf16, fp16 and int8 pools at D = 64 and 128)
 // ---------------------------------------------------------------------------
 
 namespace hp = ds::hopper;
@@ -320,6 +322,11 @@ __device__ __forceinline__ void widen(const KV* p, float (&f)[N]) {
       for (int j = 0; j < 4; ++j)
         f[4 * i + j] = static_cast<float>(
             static_cast<int8_t>((w[i] >> (8 * j)) & 0xFFu));
+    } else if constexpr (std::is_same<KV, __half>::value) {
+      f[2 * i] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(w[i] & 0xFFFFu)));
+      f[2 * i + 1] = __half2float(__ushort_as_half(
+          static_cast<unsigned short>(w[i] >> 16)));
     } else {
       f[2 * i] = __uint_as_float(w[i] << 16);
       f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
@@ -327,7 +334,8 @@ __device__ __forceinline__ void widen(const KV* p, float (&f)[N]) {
   }
 }
 
-// T: q/out dtype; KV: __nv_bfloat16 (with T bf16) or int8_t. Grid: C CTAs
+// T: q/out dtype; KV: __nv_bfloat16 (with T bf16), __half (with T fp16)
+// or int8_t. Grid: C CTAs
 // (one cluster) a (sequence, head), blockIdx.x / C = b·H + h.
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(CL_NT)
@@ -628,14 +636,18 @@ extern "C" int ds_paged_decode(const void* q, long long qsb, long long qsh,
                                  page_table, pt_sb, lengths, out, B, H,
                                  page_size, n_pages_row, sm_scale);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (cluster > 0)
-    return dtype == ds::DTYPE_BF16
-               ? dispatch_cluster<__nv_bfloat16, __nv_bfloat16>(D, a,
-                                                                cluster, cs)
-               : cudaErrorInvalidValue;
+  if (cluster > 0) {
+    if (dtype == ds::DTYPE_BF16)
+      return dispatch_cluster<__nv_bfloat16, __nv_bfloat16>(D, a, cluster,
+                                                            cs);
+    if (dtype == ds::DTYPE_F16)
+      return dispatch_cluster<__half, __half>(D, a, cluster, cs);
+    return cudaErrorInvalidValue;
+  }
   if (dtype == ds::DTYPE_F32) return dispatch_d<float, float>(D, a, cs);
   if (dtype == ds::DTYPE_BF16)
     return dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, a, cs);
+  if (dtype == ds::DTYPE_F16) return dispatch_d<__half, __half>(D, a, cs);
   return cudaErrorInvalidValue;
 }
 

@@ -26,8 +26,10 @@ def _flatten(tree, prefix, out):
 
 def state_dict_from_jax(params):
     """JAX natural params pytree (numpy leaves) → ``{dotted name:
-    torch.Tensor}``. Leaves keep their shape; a dtype numpy cannot
-    hand to torch (bfloat16 from ml_dtypes) goes through float32. A
+    torch.Tensor}``. Leaves keep their shape and dtype (fp16 leaves stay
+    fp16, the fp16 training and serving paths' weights); a dtype numpy
+    cannot hand to torch (bfloat16 from ml_dtypes) goes through float32
+    to bfloat16. A
     leaf that is already a tensor (a tree made by the port, as
     `gpt2.init_params` makes one) is taken as it is, on its device."""
     flat = _flatten(params, "", {})

@@ -7,7 +7,8 @@ one flat buffer each and `update` is one launch of the flat kernel
 (`ops/hopper/adam.py`, `csrc/adam.cu`) over the whole partition.
 
 ``state_dtype`` (the JAX class's extension): the moments rest in
-float32 (the default) or bfloat16, and the math runs in fp32 either way.
+float32 (the default), bfloat16 or float16, and the math runs in fp32
+either way.
 The masters are fp32, or, in the engine's lean state
 (``fp16_master_weights_and_grads``), the compute-dtype parameters
 themselves.
@@ -29,7 +30,8 @@ from ..hopper.adam import fused_adam_flat_
 # the JSON config and the JAX class take
 _STATE_DTYPES = {"float32": torch.float32, "torch.float32": torch.float32,
                  "bfloat16": torch.bfloat16,
-                 "torch.bfloat16": torch.bfloat16}
+                 "torch.bfloat16": torch.bfloat16,
+                 "float16": torch.float16, "torch.float16": torch.float16}
 
 
 class AdamState(NamedTuple):
@@ -53,7 +55,8 @@ class FusedAdam:
             raise ValueError(
                 f"FusedAdam state_dtype must be one of "
                 f"{sorted(_STATE_DTYPES)}, got {state_dtype!r} (the flat "
-                f"kernel keeps its moments in float32 or bfloat16)")
+                f"kernel keeps its moments in float32, bfloat16 or "
+                f"float16)")
         self.adam_w_mode = adam_w_mode
         self.param_groups = [{
             "lr": lr,
@@ -92,3 +95,22 @@ class FusedAdam:
             bias_correction=group["bias_correction"], p_out=compute_out,
             use_kernel=use_kernel)
         return state._replace(step=step)
+
+    # -- state (de)serialization (the JAX class's surface) ----------------
+
+    def state_dict(self, state):
+        return {
+            "step": int(state.step),
+            # copies: `update` writes the moments in place
+            "exp_avg": state.exp_avg.detach().clone(),
+            "exp_avg_sq": state.exp_avg_sq.detach().clone(),
+            "param_groups": [dict(g) for g in self.param_groups],
+        }
+
+    def load_state_dict(self, sd, device=None):
+        """The state of a `state_dict` (moments as tensors or numpy
+        arrays, put on ``device``); the param groups are restored."""
+        self.param_groups = [dict(g) for g in sd["param_groups"]]
+        m, v = (torch.as_tensor(sd[k], device=device)
+                for k in ("exp_avg", "exp_avg_sq"))
+        return AdamState(step=int(sd["step"]), exp_avg=m, exp_avg_sq=v)

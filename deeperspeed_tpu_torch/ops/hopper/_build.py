@@ -41,7 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, seg, layout, kbias, seed, out, lse, B, S, H, D, q/k/v
     # strides (b, s, h), sm_scale, causal, dropout thresh, 1 / keep,
-    # dtype (0 fp32, 1 bf16), stream
+    # dtype (0 fp32, 1 bf16, 2 fp16), stream
     "ds_flash_fwd": [_P] * 9 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _F, _I,
                                                       _P],
     # q, q strides (b, h), k_pages, v_pages, pool strides (page, head,
@@ -78,10 +78,10 @@ SIGNATURES = {
     # the same over the forward lut, with dq in place of dk, dv
     "ds_block_sparse_bwd_dq": [_P] * 9 + [_I] + [_P] + [_I] * 4 +
                               [_L] * 9 + [_F, _I, _I, _P],
-    # p, g, m, v, p_out (bf16 or null), n, lr, beta1, beta2, 1 - beta1,
-    # 1 - beta2, eps, weight_decay, bias_c1, bias_c2, adam_w, g, p and m
-    # dtypes, stream
-    "ds_adam": [_P, _P, _P, _P, _P, _L] + [_F] * 9 + [_I] * 4 + [_P],
+    # p, g, m, v, p_out (bf16, fp16 or null), n, lr, beta1, beta2,
+    # 1 - beta1, 1 - beta2, eps, weight_decay, bias_c1, bias_c2, adam_w,
+    # g, p, m and p_out dtypes, stream
+    "ds_adam": [_P, _P, _P, _P, _P, _L] + [_F] * 9 + [_I] * 5 + [_P],
     # x, its row stride, w, w read transposed (0/1), sizes, lut (int32),
     # y, R, K, N, number of weights, span, dtype, stream
     "ds_grouped_matmul": [_P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -102,7 +102,7 @@ SIGNATURES = {
 
 # what the kernels are instantiated for: the dtype codes of csrc/common.cuh
 # and the head dims of their templates
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)
 
 _LIB = None

@@ -10,12 +10,12 @@ that.
 `fused_adam_flat_` updates p, m and v in place: it launches the kernel
 on CUDA tensors and takes `adam_flat_reference` for CPU tensors, or
 where the caller asks for the plain path (``use_kernel=False``, the
-model's ``use_kernels=False``). The kernel takes p in fp32 or bf16 (as
-`fused_adam_flat` does: a bf16 p is the lean state's master, updated in
-its own dtype from the fp32 math), m and v both in fp32 or both in bf16
-(`FusedAdam`'s ``state_dtype``), g in fp32 or bf16, and, with an fp32 p
-only, an optional bf16 ``p_out`` (the compute-parameter copy written in
-the same pass); anything else raises.
+model's ``use_kernels=False``). The kernel takes p in fp32, bf16 or fp16
+(as `fused_adam_flat` does: a 16-bit p is the lean state's master,
+updated in its own dtype from the fp32 math), m and v both in fp32, bf16
+or fp16 (`FusedAdam`'s ``state_dtype``), g in fp32, bf16 or fp16, and,
+with an fp32 p only, an optional bf16 or fp16 ``p_out`` (the
+compute-parameter copy written in the same pass); anything else raises.
 """
 
 import numpy as np
@@ -24,19 +24,24 @@ import torch
 from . import _build
 
 # kernel launches since the last reset (`chip_smoke.py` reads this), in
-# all and by storage variant: "fp32" (fp32 p, m, v: the classic masters)
-# or "lean" (bf16 p, bf16 m, v), else "p <dtype>, m <dtype>"
+# all and by storage variant: "fp32" (fp32 p, m, v: the classic masters,
+# with a bf16 copy or none), "fp16 classic" (the same with an fp16 copy
+# or an fp16 g: the loss-scaled fp16 path), "lean" (bf16 p, bf16 m, v),
+# "fp16 lean" (fp16 p, m, v), else "p <dtype>, m <dtype>"
 launches = 0
 variant_launches = {}
 
 
-def _variant(p_dtype, m_dtype):
+def _variant(p_dtype, m_dtype, g_dtype=None, c_dtype=None):
     """The `variant_launches` key of a call on p and moments of these
-    dtypes."""
+    dtypes (g's and the copy's dtypes tell the classic fp16 variant)."""
     if p_dtype == m_dtype == torch.float32:
-        return "fp32"
+        return "fp16 classic" if torch.float16 in (g_dtype, c_dtype) \
+            else "fp32"
     if p_dtype == m_dtype == torch.bfloat16:
         return "lean"
+    if p_dtype == m_dtype == torch.float16:
+        return "fp16 lean"
     return f"p {str(p_dtype)[6:]}, m {str(m_dtype)[6:]}"
 
 
@@ -105,20 +110,21 @@ def _check_kernel_dtypes(p, g, m, p_out):
     """Raise on a dtype combination `csrc/adam.cu` is not built for."""
     for name, t in (("p", p), ("m", m), ("g", g)):
         if t.dtype not in _build.DTYPE_CODES:
-            raise TypeError(f"flat Adam kernel takes {name} in float32 or "
-                            f"bfloat16, got {t.dtype}")
-    if p_out is not None and (p.dtype != torch.float32 or
-                              p_out.dtype != torch.bfloat16):
-        raise TypeError(f"flat Adam kernel writes a bfloat16 p_out beside "
-                        f"float32 masters only, got p {p.dtype}, p_out "
-                        f"{p_out.dtype}")
+            raise TypeError(f"flat Adam kernel takes {name} in float32, "
+                            f"bfloat16 or float16, got {t.dtype}")
+    if p_out is not None and (
+            p.dtype != torch.float32 or
+            p_out.dtype not in (torch.bfloat16, torch.float16)):
+        raise TypeError(f"flat Adam kernel writes a bfloat16 or float16 "
+                        f"p_out beside float32 masters only, got p "
+                        f"{p.dtype}, p_out {p_out.dtype}")
 
 
 def adam_cuda(p, g, m, v, lr, step, *, beta1, beta2, eps, weight_decay,
               adam_w, bias_correction, p_out=None):
     """Launch `csrc/adam.cu` on CUDA tensors: p, m, v updated in place
-    (each in its own dtype), and the new p written as bf16 into ``p_out``
-    when given."""
+    (each in its own dtype), and the new p written in ``p_out``'s dtype
+    (bf16 or fp16) into ``p_out`` when given."""
     global launches
     _check(p, g, m, v, p_out)
     _check_kernel_dtypes(p, g, m, p_out)
@@ -130,10 +136,13 @@ def adam_cuda(p, g, m, v, lr, step, *, beta1, beta2, eps, weight_decay,
         float(lr), float(beta1), float(beta2), 1 - beta1, 1 - beta2,
         float(eps), float(weight_decay), c1, c2, int(bool(adam_w)),
         _build.DTYPE_CODES[g.dtype], _build.DTYPE_CODES[p.dtype],
-        _build.DTYPE_CODES[m.dtype], _build.stream_ptr(p))
+        _build.DTYPE_CODES[m.dtype],
+        _build.DTYPE_CODES[p_out.dtype] if p_out is not None else 0,
+        _build.stream_ptr(p))
     _build.check(err, "ds_adam")
     launches += 1
-    key = _variant(p.dtype, m.dtype)
+    key = _variant(p.dtype, m.dtype, g.dtype,
+                   p_out.dtype if p_out is not None else None)
     variant_launches[key] = variant_launches.get(key, 0) + 1
 
 

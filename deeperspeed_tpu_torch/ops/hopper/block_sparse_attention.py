@@ -259,10 +259,18 @@ def block_sparse_attention_bwd_reference(q, k, v, out, lse, do, luts, causal,
 # the kernels
 # ---------------------------------------------------------------------------
 
+# the dtypes csrc/block_sparse_attention.cu is built for (fp16 is not
+# ported: ROADMAP.md)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _kernel_args(q, k, v, luts, what):
-    """Check what the kernels take (the flash kernels' dtypes, head dims,
-    strides and grid, and the layout) → (dtype code, default
+    """Check what the kernels take (fp32 or bf16; the flash kernels' head
+    dims, strides and grid, and the layout) → (dtype code, default
     sm_scale)."""
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
     _check_layout(q, luts)
     _, _, code, default_scale = _flash_kernel_args(q, k, v, None, what)
     return code, default_scale

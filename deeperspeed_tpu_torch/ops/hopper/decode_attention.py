@@ -5,9 +5,9 @@ Replaces `_decode_kernel` and `_decode_kernel_quant` of
 `csrc/paged_decode.cu` (`ds_paged_decode` over bf16/fp32 pools,
 `ds_paged_decode_int8` over int8 pools); its header says what bounds
 them on the H100 and what the designs do about that. Two designs:
-"cluster" (bf16 and int8 pools at head dims 64 and 128: the KV pages of
-a (sequence, head) split over a thread-block cluster of `launch_plan`
-CTAs, merged in rank order in shared memory) and "single" (fp32 pools
+"cluster" (bf16, fp16 and int8 pools at head dims 64 and 128: the KV
+pages of a (sequence, head) split over a thread-block cluster of
+`launch_plan` CTAs, merged in rank order in shared memory) and "single" (fp32 pools
 and head dim 256: one block a (sequence, head)).
 
 Contract (the JAX package's):
@@ -47,6 +47,10 @@ NEG_INF = -1e30
 # wave of it on the H100: 132 SMs holding 6 CTAs each (the bf16 D = 64
 # kernel's occupancy, bounded by its shared memory)
 CLUSTER_HEAD_DIMS = (64, 128)
+CLUSTER_POOL_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
+# the q dtypes the int8-pool kernels are built for (fp16 with int8 pools
+# is not ported: ROADMAP.md)
+INT8_Q_DTYPES = (torch.float32, torch.bfloat16)
 MAX_CLUSTER = 8
 SMS, CTAS_PER_SM = 132, 6
 # "plain": a CUDA call the shape dispatch sent to the plain version
@@ -95,9 +99,9 @@ def decode_route(device_type, head_dim, page_size, backend):
 
 
 def kernel_design(q, k_pages):
-    """The design a launch takes: "cluster" for bf16 and int8 pools at
-    head dims 64 and 128, else "single"."""
-    if k_pages.dtype in (torch.bfloat16, torch.int8) and \
+    """The design a launch takes: "cluster" for bf16, fp16 and int8 pools
+    at head dims 64 and 128, else "single"."""
+    if k_pages.dtype in CLUSTER_POOL_DTYPES and \
             q.shape[2] in CLUSTER_HEAD_DIMS:
         return "cluster"
     return "single"
@@ -273,13 +277,13 @@ def launch_kernel(q, k_pages, v_pages, page_table, lengths, sm_scale,
 def paged_decode_cuda(q, k_pages, v_pages, page_table, lengths,
                       sm_scale=None):
     """Launch `ds_paged_decode` (`csrc/paged_decode.cu`) on CUDA tensors
-    → [B, H, D]: the cluster kernel for bf16 pools at head dims 64 and
-    128, the single-block kernel for fp32 pools and head dim 256."""
+    → [B, H, D]: the cluster kernel for bf16 and fp16 pools at head dims
+    64 and 128, the single-block kernel for fp32 pools and head dim 256."""
     global launches
     if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != q.dtype or \
             v_pages.dtype != q.dtype:
-        raise TypeError(f"paged decode kernel takes float32 or bfloat16 "
-                        f"q and pools of one dtype, got {q.dtype}, "
+        raise TypeError(f"paged decode kernel takes float32, bfloat16 or "
+                        f"float16 q and pools of one dtype, got {q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
     _check_kernel_args(q, k_pages, v_pages, page_table, lengths)
     design = kernel_design(q, k_pages)
@@ -302,7 +306,7 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
     dtype; the cluster kernel at head dims 64 and 128, the single-block
     kernel at 256."""
     global launches_int8
-    if q.dtype not in _build.DTYPE_CODES or k_pages.dtype != torch.int8 \
+    if q.dtype not in INT8_Q_DTYPES or k_pages.dtype != torch.int8 \
             or v_pages.dtype != torch.int8:
         raise TypeError(f"int8 paged decode kernel takes float32 or "
                         f"bfloat16 q and int8 pools, got {q.dtype}, "

@@ -10,11 +10,14 @@ by `csrc/flash_fwd.cu` at every S; the backward `_bwd_single_kernel` /
 are one function too, computed by `csrc/flash_bwd.cu`. The headers of the
 sources say what bounds each kernel on the H100 and what its design does
 about that. Each source holds two designs, chosen by dtype and head dim
-in its C dispatch (`flash_design` mirrors the choice): bf16 at D = 64
-and 128 runs tensor-core kernels (`mma.sync`, `ldmatrix`, `cp.async`;
-`csrc/attention_mma.cuh`), which need each bf16 operand 16-byte aligned
-(`check_alignment`); fp32 and D = 256 run the FMA tile steps of
-`csrc/attention_tiles.cuh`. Launches are counted by design too
+in its C dispatch (`flash_design` mirrors the choice): bf16 and fp16 at
+D = 64 and 128 run tensor-core kernels (`mma.sync`, `ldmatrix`,
+`cp.async`; `csrc/attention_mma.cuh`), which need each 16-bit operand
+16-byte aligned (`check_alignment`); fp32 and D = 256 run the FMA tile
+steps of `csrc/attention_tiles.cuh`. In fp16 (the loss-scaled training
+path) the kernels round dS to fp16 before dQ and dK, as the plain
+backward does, so a dS past 65504 is inf in both. Launches are counted
+by design too
 (`design_launches`).
 
 The layout-mask flag (`make_masked_flash_attention`, the dense-ish arm of
@@ -86,8 +89,9 @@ flag_launches = {kernel: dict.fromkeys(FLAG_COMBOS, 0)
                  for kernel in ("fwd", "dkv", "dq")}
 
 
-# the head dims at which bf16 takes the tensor-core kernels (`takes_mma`
+# the dtypes and head dims that take the tensor-core kernels (`takes_mma`
 # in csrc/attention_mma.cuh), and the launches by kernel and design
+MMA_DTYPES = (torch.bfloat16, torch.float16)
 MMA_HEAD_DIMS = (64, 128)
 DESIGNS = ("mma", "fma")
 design_launches = {kernel: dict.fromkeys(DESIGNS, 0)
@@ -105,9 +109,9 @@ def reset_design_launches():
 
 
 def flash_design(dtype, head_dim):
-    """"mma" (the bf16 tensor-core kernels) or "fma" (the FMA tile steps)
-    for a call on ``dtype`` at ``head_dim``."""
-    return "mma" if dtype == torch.bfloat16 and \
+    """"mma" (the bf16 and fp16 tensor-core kernels) or "fma" (the FMA
+    tile steps) for a call on ``dtype`` at ``head_dim``."""
+    return "mma" if dtype in MMA_DTYPES and \
         head_dim in MMA_HEAD_DIMS else "fma"
 
 
@@ -293,7 +297,8 @@ def _kernel_args(q, k, v, segment_ids, what, layout=None):
     layout or None, dtype code, sm_scale default)."""
     B, S, H, D = q.shape
     if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
+        raise TypeError(f"{what} kernel takes float32, bfloat16 or "
+                        f"float16, got "
                         f"{q.dtype}")
     if D not in _build.HEAD_DIMS:
         raise ValueError(f"{what} kernel takes head_dim in "
@@ -405,10 +410,51 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, segment_ids=None,
         p_v = torch.where(keep, p * inv, torch.zeros_like(p))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
     ds = p * (dp - delta) * scale
+    if q.dtype == torch.float16:
+        # the kernels' A operand of dQ and dK: dS rounded to fp16, inf
+        # past 65504 (an overflow the loss scaler must see)
+        ds = ds.to(torch.float16).to(ds.dtype)
     dv = torch.einsum("bhqk,bqhd->bkhd", p_v, dof)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+# fp16's overflow threshold: a value at or past it rounds to inf
+FP16_INF_AT = 65520.0
+
+
+def fp16_overflow_undecided(q, k, v, out, lse, do, segment_ids=None,
+                            sm_scale=None, causal=True, margin=1e-3):
+    """Where two correct fp16 backward passes may disagree on overflow →
+    (dq, dk, dv) bool masks, [B, S, H, D]: an element whose own fp32 value
+    (the plain version's, before its fp16 rounding) or, for dq and dk, a
+    dS entry of its row or key lies within ``margin`` (relative) of
+    `FP16_INF_AT`, where a last-bit difference in exp or in the order of
+    a sum decides between 65504 and inf. Everywhere else the kernels and
+    the plain version must be non-finite at the same places. Plain
+    PyTorch, fp32, by the formulas of `flash_attention_bwd_reference`."""
+    B, S, H, D = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    live = _live_mask(S, segment_ids, q.device, None, causal)
+    p = torch.where(live, torch.exp(s - lse.reshape(B, H, S, 1)),
+                    torch.zeros_like(s))
+    delta = attention_delta(out, do).reshape(B, H, S, 1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta) * scale
+    lo, hi = FP16_INF_AT * (1 - margin), FP16_INF_AT * (1 + margin)
+
+    def near(x):
+        return (x.abs() >= lo) & (x.abs() <= hi)
+    ds16 = ds.to(torch.float16).float()
+    near_ds = near(ds)
+    row = near_ds.any(dim=3).permute(0, 2, 1)[..., None]     # [B, S, H, 1]
+    col = near_ds.any(dim=2).permute(0, 2, 1)[..., None]
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds16, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return near(dq) | row, near(dk) | col, near(dv)
 
 
 def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,

@@ -34,16 +34,19 @@ DEFAULT_BLOCK_M = 256
 
 # kernel launches since the last reset (`chip_smoke.py` reads these): the
 # forward kernel (forward and dx products), the same by design ("wgmma":
-# bf16, "fma": fp32), and the dW kernel, also by design
+# bf16 and fp16, "fma": fp32), and the dW kernel, also by design
 launches = 0
 DESIGNS = ("wgmma", "fma")
 design_launches = dict.fromkeys(DESIGNS, 0)
 dw_launches = 0
 dw_design_launches = dict.fromkeys(DESIGNS, 0)
 
-# the most weights the bf16 dW kernel ranks by live rows in one launch
+# the most weights the 16-bit dW kernel ranks by live rows in one launch
 # (`DW_MAX_WEIGHTS` in csrc/grouped_matmul.cu)
 DW_MAX_WEIGHTS = 512
+
+# the dtypes that take the wgmma kernels (fp32 takes the FMA ones)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def reset_design_launches():
@@ -168,18 +171,19 @@ def grouped_matmul_cuda(x, w, group_sizes, span, lut=None, transpose_w=False):
     tensors → y [R, N] in ``x.dtype``. x [R, K] is read through its row
     stride (K contiguous); w is [W, K, N] contiguous, or with
     ``transpose_w`` the [W, N, K] weight whose transpose is multiplied (dx
-    = dy @ w^T, read in place). fp32 takes the FMA kernel; bf16 the wgmma
-    kernel, whose TMA loads read 16-byte chunks: it needs K, N and the row
-    stride multiples of 8 and 16-byte aligned tensors; anything else
-    raises."""
+    = dy @ w^T, read in place). fp32 takes the FMA kernel; bf16 and fp16
+    the wgmma kernel, whose TMA loads read 16-byte chunks: it needs K, N
+    and the row stride multiples of 8 and 16-byte aligned tensors;
+    anything else raises."""
     global launches
     w_eff = w.transpose(1, 2) if transpose_w else w
     G, lut_t = _check(x.shape, w_eff.shape, group_sizes, span, lut)
     R, K = x.shape
     N = w_eff.shape[2]
     if x.dtype not in _build.DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"grouped matmul kernel takes float32 or bfloat16 "
-                        f"x and w of one dtype, got {x.dtype}, {w.dtype}")
+        raise TypeError(f"grouped matmul kernel takes float32, bfloat16 or "
+                        f"float16 x and w of one dtype, got {x.dtype}, "
+                        f"{w.dtype}")
     if w.device != x.device:
         raise ValueError(f"w on {w.device}, x on {x.device}")
     if not w.is_contiguous():
@@ -189,14 +193,14 @@ def grouped_matmul_cuda(x, w, group_sizes, span, lut=None, transpose_w=False):
                          f"contiguous, got strides {tuple(x.stride())}")
     ldx = x.stride(0) if R > 1 else K
     out = torch.empty((R, N), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16 and not (
+    if x.dtype in HALF_DTYPES and not (
             K % 8 == 0 and N % 8 == 0 and ldx % 8 == 0 and
             _aligned(x, w, out)):
         raise ValueError(
-            f"the bf16 grouped matmul kernel reads 16-byte chunks: it needs "
+            f"the 16-bit grouped matmul kernel reads 16-byte chunks: it needs "
             f"K % 8 == 0 (K={K}), N % 8 == 0 (N={N}), a row stride that is "
             f"a multiple of 8 (got {ldx}) and 16-byte aligned x and w")
-    tile_m = 128 if x.dtype == torch.bfloat16 else 64
+    tile_m = 128 if x.dtype in HALF_DTYPES else 64
     if G * -(-span // tile_m) > 65535:
         raise ValueError(f"grouped matmul kernel grid: {G} spans of "
                          f"{span} rows exceed 65535 row tiles")
@@ -208,7 +212,7 @@ def grouped_matmul_cuda(x, w, group_sizes, span, lut=None, transpose_w=False):
         w.shape[0], span, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "ds_grouped_matmul")
     launches += 1
-    design_launches["wgmma" if x.dtype == torch.bfloat16 else "fma"] += 1
+    design_launches["wgmma" if x.dtype in HALF_DTYPES else "fma"] += 1
     return out
 
 
@@ -216,9 +220,9 @@ def grouped_matmul_dw_cuda(x, dy, group_sizes, span, lut, n_weights):
     """Launch the dW kernel of `csrc/grouped_matmul.cu` on CUDA tensors →
     dw [n_weights, K, N] fp32: per weight, x^T @ dy summed over its spans'
     live rows, zeros for a weight with none. x [R, K] and dy [R, N] are
-    made contiguous, in one dtype (fp32: the FMA kernel; bf16: the wgmma
-    kernel, which needs K and N multiples of 8, 16-byte aligned x and dy
-    and at most `DW_MAX_WEIGHTS` weights)."""
+    made contiguous, in one dtype (fp32: the FMA kernel; bf16 and fp16:
+    the wgmma kernel, which needs K and N multiples of 8, 16-byte aligned
+    x and dy and at most `DW_MAX_WEIGHTS` weights)."""
     global dw_launches
     R, K = x.shape
     N = dy.shape[1]
@@ -226,21 +230,21 @@ def grouped_matmul_dw_cuda(x, dy, group_sizes, span, lut, n_weights):
         raise ValueError(f"dy has {dy.shape[0]} rows, x {R}")
     _, lut_t = _check(x.shape, (n_weights, K, N), group_sizes, span, lut)
     if x.dtype not in _build.DTYPE_CODES or dy.dtype != x.dtype:
-        raise TypeError(f"grouped matmul dW kernel takes float32 or "
-                        f"bfloat16 x and dy of one dtype, got {x.dtype}, "
-                        f"{dy.dtype}")
+        raise TypeError(f"grouped matmul dW kernel takes float32, "
+                        f"bfloat16 or float16 x and dy of one dtype, got "
+                        f"{x.dtype}, {dy.dtype}")
     if dy.device != x.device:
         raise ValueError(f"dy on {dy.device}, x on {x.device}")
     x, dy = x.contiguous(), dy.contiguous()
     dw = torch.empty((n_weights, K, N), dtype=torch.float32, device=x.device)
-    if x.dtype == torch.bfloat16 and not (
+    if x.dtype in HALF_DTYPES and not (
             K % 8 == 0 and N % 8 == 0 and _aligned(x, dy)):
         raise ValueError(
-            f"the bf16 grouped matmul dW kernel reads 16-byte chunks: it "
+            f"the 16-bit grouped matmul dW kernel reads 16-byte chunks: it "
             f"needs K % 8 == 0 (K={K}), N % 8 == 0 (N={N}) and 16-byte "
             f"aligned x and dy")
-    if x.dtype == torch.bfloat16 and n_weights > DW_MAX_WEIGHTS:
-        raise ValueError(f"the bf16 grouped matmul dW kernel ranks at most "
+    if x.dtype in HALF_DTYPES and n_weights > DW_MAX_WEIGHTS:
+        raise ValueError(f"the 16-bit grouped matmul dW kernel ranks at most "
                          f"{DW_MAX_WEIGHTS} weights, got {n_weights}")
     sizes = _kernel_sizes(group_sizes, x.device)
     lib = _build.load_library()
@@ -250,7 +254,7 @@ def grouped_matmul_dw_cuda(x, dy, group_sizes, span, lut, n_weights):
         span, n_weights, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "ds_grouped_matmul_dw")
     dw_launches += 1
-    dw_design_launches["wgmma" if x.dtype == torch.bfloat16 else "fma"] += 1
+    dw_design_launches["wgmma" if x.dtype in HALF_DTYPES else "fma"] += 1
     return dw
 
 

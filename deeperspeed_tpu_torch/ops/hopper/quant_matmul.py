@@ -110,7 +110,8 @@ def quant_matmul_cuda(x, qw):
     global launches
     M, K = x.shape
     N = qw.qval.shape[1]
-    if x.dtype not in _build.DTYPE_CODES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        # fp16 activations are not ported (ROADMAP.md)
         raise TypeError(f"quant matmul kernel takes float32 or bfloat16 "
                         f"x, got {x.dtype}")
     q, s = qw.qval, qw.scale

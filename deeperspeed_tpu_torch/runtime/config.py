@@ -265,6 +265,13 @@ class DeepSpeedConfig:
                 f"fp16.{c.FP16_MIN_SCALE_PATIENCE} must be >= 0 "
                 f"(0 = warn-only), got {self.min_scale_patience}")
 
+        # the "amp" block: parsed as the JAX package parses it (nothing
+        # there reads it beyond the two attributes)
+        amp = d.get(c.AMP) or {}
+        self.amp_enabled = bool(amp.get(c.AMP_ENABLED, c.AMP_ENABLED_DEFAULT))
+        self.amp_params = {k: v for k, v in amp.items()
+                           if k != c.AMP_ENABLED}
+
         self.gradient_clipping = float(
             d.get(c.GRADIENT_CLIPPING, c.GRADIENT_CLIPPING_DEFAULT))
         self.prescale_gradients = bool(

@@ -86,11 +86,16 @@ NOT_PORTED_BLOCKS = {
     "flops_profiler": "observability",
     "elasticity": "elasticity",
     "quantization": "serving-quant / quantized training",
-    "amp": "mixed precision through amp",
     "aio": "offload",
     "planner": "schedule planner",
     "rl": "online RL",
 }
+
+# AMP (API-compat: parsed as the JAX package parses it, and read by nothing
+# else, as there)
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
 
 # ---------------------------------------------------------------------------
 # Progressive layer drop

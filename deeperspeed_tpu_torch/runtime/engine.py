@@ -93,6 +93,7 @@ from ..checkpoint import checkpointing
 from ..checkpoint.async_manager import AsyncCheckpointManager
 from ..models.convert import state_dict_from_jax
 from ..ops.adam.fused_adam import FusedAdam
+from ..ops.lamb.fused_lamb import FusedLamb
 from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
 from . import constants as c
@@ -106,6 +107,7 @@ from .fp16.loss_scaler import (DynamicLossScaler, ScaleFloorWatch,
                                create_loss_scaler, grads_finite,
                                init_loss_scale_state, update_loss_scale)
 from .lr_schedules import get_scheduler_class
+from .precision import check_fp16_ported
 from .progressive_layer_drop import ProgressiveLayerDrop
 from .sentinel import (TrainingHealthSentinel, grad_anomaly,
                        init_health_state, probe_update)
@@ -178,11 +180,9 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
         self.device = next(model.parameters()).device
         self.compute_dtype = self._config.precision
-        if self.device.type == "cuda" and \
-                self.compute_dtype == torch.float16:
-            raise _not_ported(
-                "fp16 training on the GPU (the kernels are built for fp32 "
-                "and bf16)", "fp16 kernels")
+        check_fp16_ported(self.device, self.compute_dtype,
+                          sparse_attention=bool(
+                              self._config.sparse_attention))
 
         # config-drivable model features, applied before the flat state
         # is built: the model builds expert weights, its attention core,
@@ -363,11 +363,12 @@ class DeepSpeedEngine:
 
     def _configure_optimizer(self, client_optimizer):
         if client_optimizer is not None:
-            if not isinstance(client_optimizer, FusedAdam):
+            if not isinstance(client_optimizer, (FusedAdam, FusedLamb)):
                 raise _not_ported(
                     f"a client optimizer of type "
                     f"{type(client_optimizer).__name__} (the port steps "
-                    f"FusedAdam over its flat partition)", "optimizers")
+                    f"FusedAdam or FusedLamb over its flat partition)",
+                    "optimizers")
             log_dist("Using client optimizer", ranks=[0])
             return client_optimizer
         name = self._config.optimizer_name
@@ -385,9 +386,11 @@ class DeepSpeedEngine:
         params.pop("torch_adam", None)
         if name == c.ADAM_OPTIMIZER:
             return FusedAdam(**params)
-        if name in (c.LAMB_OPTIMIZER, c.ONEBIT_ADAM_OPTIMIZER,
-                    c.ONEBIT_LAMB_OPTIMIZER):
-            raise _not_ported(f"the {name!r} optimizer", "optimizers")
+        if name == c.LAMB_OPTIMIZER:
+            return FusedLamb(**params)
+        if name in (c.ONEBIT_ADAM_OPTIMIZER, c.ONEBIT_LAMB_OPTIMIZER):
+            raise _not_ported(f"the {name!r} optimizer",
+                              "compressed comm (A.7)")
         raise DeepSpeedConfigError(f"Unknown optimizer {name!r}")
 
     def _configure_lr_scheduler(self, client_scheduler):
@@ -443,7 +446,14 @@ class DeepSpeedEngine:
             p.grad = self._grads_flat[lo:hi].view(p.shape)
             self._grad_ptrs.append(p.grad.data_ptr())
         self._grads_checked = False
-        self.opt_state = self.optimizer.init_state(self._master)
+        if isinstance(self.optimizer, FusedLamb):
+            # the trust ratio is per parameter: each leaf's span of the
+            # flat buffers
+            self.opt_state = self.optimizer.init_state(
+                self._master, segments=[(lo, hi) for _, lo, hi, _ in
+                                        self.param_slices])
+        else:
+            self.opt_state = self.optimizer.init_state(self._master)
 
     def _check_grad_views(self):
         """After the first backward: autograd added into the flat

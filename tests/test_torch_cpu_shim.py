@@ -18,7 +18,8 @@ REHEARSE = (Path(__file__).resolve().parents[1] / "deeperspeed_tpu_torch" /
             "csrc" / "cpu_shim" / "rehearse.py")
 FAMILIES = ("quant_matmul", "grouped_matmul", "grouped_matmul_dw",
             "block_sparse_fwd", "block_sparse_dkv", "block_sparse_dq",
-            "paged_decode", "paged_decode_int8", "adam")
+            "paged_decode", "paged_decode_int8", "adam",
+            "paged_decode_fp16", "adam_fp16")
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -6,8 +6,9 @@ engine under a remat policy, a BERT training engine, a GPT-2 serving
 engine and a lean GPT-2 training engine through `train_batch` and the
 legacy forward / backward / step loop, saving and loading a checkpoint,
 and a training engine with the training-health sentinel, a fault plan,
-the batch-size schedule and progressive layer drop, leaves them out of
-`sys.modules`."""
+the batch-size schedule and progressive layer drop, an fp16 engine with
+Lamb and the "amp" block, `FP16_Optimizer` / `FP16_UnfusedOptimizer`
+steps and an fp16 serving engine, leaves them out of `sys.modules`."""
 
 import ast
 import os
@@ -151,6 +152,31 @@ def test_engine_on_cpu_loads_no_jax():
         "for _ in range(2):\n"
         "    assert eng.train_batch(batch=(x, x)) > 0\n"
         "assert eng.global_steps == 1 and eng.sentinel.quarantined == 1\n"
+        "f = GPTNeoX(GPTNeoXConfig.tiny(), device='cpu').init_params(0)\n"
+        "eng, *_ = initialize(model=f, config_params={\n"
+        "    'train_batch_size': 2, 'amp': {'enabled': True},\n"
+        "    'optimizer': {'type': 'Lamb', 'params': {'lr': 1e-3}},\n"
+        "    'fp16': {'enabled': True, 'initial_scale_power': 8}})\n"
+        "assert eng.train_batch(batch=(x, x)) > 0\n"
+        "assert eng._config.amp_enabled and eng.compute_dtype == "
+        "torch.float16\n"
+        "from deeperspeed_tpu_torch.ops.adam.fused_adam import FusedAdam\n"
+        "from deeperspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb\n"
+        "from deeperspeed_tpu_torch.runtime.fp16 import (FP16_Optimizer,\n"
+        "    FP16_UnfusedOptimizer)\n"
+        "for W, B in ((FP16_Optimizer, FusedAdam),\n"
+        "             (FP16_UnfusedOptimizer, FusedLamb)):\n"
+        "    w = torch.ones(4, 4, dtype=torch.float16)\n"
+        "    o = W(B(lr=1e-2), dynamic_loss_scale=True)\n"
+        "    st = o.init_state({'w': w})\n"
+        "    st, info = o.step(st, {'w': torch.ones(4, 4)})\n"
+        "    assert info.overflow is False or info.overflow is True\n"
+        "fe = InferenceEngine(GPTNeoX(GPTNeoXConfig.tiny(param_dtype=\n"
+        "    torch.float16), device='cpu').init_params(0), config={\n"
+        "    'inference': {'enabled': True, 'page_size': 16, "
+        "'num_pages': 16}}, device='cpu')\n"
+        "assert fe.dtypes['kv_cache'] == 'torch.float16'\n"
+        "assert len(fe.generate([[1, 2, 3]], max_new_tokens=2)[0]) == 2\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'deeperspeed_tpu', 'ml_dtypes'))\n"
         "print(bad)\n")

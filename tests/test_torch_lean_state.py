@@ -79,8 +79,11 @@ def test_bf16_moments_match_the_jax_fused_adam():
             want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
             assert _ulps(got, want).max() <= 1, step
     assert state.step == int(jstate.step) == 3
+    # fp16 moments are the lean fp16 state's (the kernel's fp16 lean
+    # variant); a dtype the kernel has no storage for is refused
+    assert FusedAdam(state_dtype="float16").state_dtype == torch.float16
     with pytest.raises(ValueError, match="state_dtype"):
-        FusedAdam(state_dtype="float16")
+        FusedAdam(state_dtype="float64")
 
 
 def _config(gas, **extra):

@@ -248,8 +248,16 @@ def test_bad_blocks_raise_like_jax(blocks):
 
 
 def test_amp_is_still_refused():
+    """The "amp" block is ported now (parsed as the JAX config parses
+    it, beside the training-health blocks); a block that is still not
+    ported beside them ("aio") is refused."""
+    conf = _cfg(amp={"enabled": True, "opt_level": "O1"},
+                training_health={"enabled": True})
+    ours, ref = DeepSpeedConfig(conf), JaxConfig(conf, world_size=1)
+    assert ours.amp_enabled is ref.amp_enabled is True
+    assert ours.amp_params == ref.amp_params == {"opt_level": "O1"}
     with pytest.raises(DeepSpeedConfigError, match="not ported"):
-        DeepSpeedConfig(_cfg(amp={"enabled": True}))
+        DeepSpeedConfig(_cfg(aio={"block_size": 1048576}))
 
 
 def test_exports_match_jax():

@@ -37,6 +37,7 @@ from deeperspeed_tpu_torch.models.convert import (adam_state_from_jax,
                                                   flat_from_jax,
                                                   state_dict_from_jax)
 from deeperspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deeperspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deeperspeed_tpu_torch.runtime import constants as c
 from deeperspeed_tpu_torch.runtime import lr_schedules as sched
 from deeperspeed_tpu_torch.runtime.config import DeepSpeedConfig
@@ -284,6 +285,9 @@ GOOD = [
     {"train_batch_size": 6, "gradient_accumulation_steps": 3,
      "zero_optimization": True},
     {"train_micro_batch_size_per_gpu": 4, "fp16": {"enabled": False}},
+    # the "amp" block, parsed as the JAX package parses it
+    {"train_batch_size": 4, "amp": {"enabled": True, "opt_level": "O1"}},
+    {"train_batch_size": 4, "amp": {"enabled": False, "loss_scale": 128}},
 ]
 FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
           "gradient_accumulation_steps", "fp16_enabled", "bfloat16_enabled",
@@ -292,7 +296,7 @@ FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
           "prescale_gradients", "gradient_predivide_factor",
           "optimizer_name", "optimizer_params", "scheduler_name",
           "scheduler_params", "zero_optimization_stage", "zero_enabled",
-          "steps_per_print")
+          "steps_per_print", "amp_enabled", "amp_params")
 
 
 @pytest.mark.parametrize("conf", GOOD)
@@ -322,11 +326,18 @@ def test_unported_blocks_raise(block):
 
 
 def test_disabled_blocks_and_lamb(weights):
+    """Disabled blocks parse; 1-bit Adam is refused as not ported, and
+    "Lamb" builds the port's FusedLamb."""
     DeepSpeedConfig({"train_batch_size": 4, "moe": {"enabled": False},
                      "tensorboard": {}, "pipeline": None})
     with pytest.raises(DeepSpeedConfigError, match="not ported"):
         dst.initialize(model=_port_model(weights[1]), config_params={
-            "train_batch_size": 4, "optimizer": {"type": "Lamb"}})
+            "train_batch_size": 4, "optimizer": {"type": "OneBitAdam"}})
+    eng, opt, *_ = dst.initialize(model=_port_model(weights[1]),
+                                  config_params={
+                                      "train_batch_size": 4,
+                                      "optimizer": {"type": "Lamb"}})
+    assert isinstance(opt, FusedLamb) and opt is eng.optimizer
 
 
 def test_unported_model_fields_raise():
