@@ -320,13 +320,35 @@ Phases (any failure exits non-zero before the final line):
    (every prefill on the tensor cores, every decode on the cluster
    kernel), then greedy tokens kernels vs plain: every first token
    identical, the identical requests counted.
+33. train-sparse-125M-16k-fp16: phase 13's model, batch and JSON with
+   GPT-NeoX configs/125M.yml's fp16 block from 2^16, 10 steps without
+   and 10 with the bench row's "full" remat: every block-sparse launch
+   "mma" (12 / 24 forward, 12 dk/dv, 12 dq a step), no flash launch,
+   one Adam a taken step, the loss scale equal to a host replay of the
+   JAX `update_loss_scale` over the observed overflows, the loss
+   falling over the taken steps;
+34. serve-quant-125M-fp16: row_quant's stream with fp16 weights at the
+   int8w and int8w_int8kv rungs (exact launches, every int8 matmul
+   "wgmma", every int8 decode "cluster"), then greedy tokens of 8
+   prompts with int8 weights and pages through the kernels and the
+   plain path: every first token identical;
+35. a client module with a TiledLinear(768, 50304) head in 2 x 8 tiles
+   through `initialize()` → `train_batch`, 5 steps in bf16 and in fp16
+   beside the dense nn.Linear holding the same weights (losses within
+   1e-2), then one bf16 step through a client SGD with momentum (no
+   Adam launch; masters, momentum and the compute copy by its rule).
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
 row; an overflow case whose non-finite dq, dk, dv must sit where the
-plain version's do; the cluster decode; grouped forward, dx and dW;
-Adam classic and lean at 125M's size), each timed beside its plain
-version, a library call and its bound.
+plain version's do; the cluster decode over fp16 pools and over int8
+pools with fp16 q; grouped forward, dx and dW; Adam classic and lean at
+125M's size; the block-sparse forward, dk/dv and dq at phase 13's shape
+and at D 128, with their own overflow case; the int8 matmul with fp16
+activations at M = 16, 256 and 4096, its widening read out bit for bit
+and an fp16 overflow to inf), each timed beside its plain version, a
+library call and its bound, with two-call identity and the launches by
+design.
 Phase 3 also holds the flat Adam kernel at GPT-2 XL's size in the lean
 (bf16 p, g, m, v) and the classic (fp32 p, m, v, bf16 g and copy)
 dtypes against its plain version chunk by chunk, two calls
@@ -371,7 +393,7 @@ TOL_ADAM = (1e-6, 1e-6)
 # weight-only int8 matmul, as a fraction of max|ref|: bf16 rounds its
 # output once and sums in another order than the plain version; fp32
 # differs only in the summation order
-TOL_QMM = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+TOL_QMM = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-5}
 # the (K, N) of GPT-NeoX-125M's four block matmuls (qkv, out-proj,
 # mlp-in, mlp-out), checked at the rows phase 9 gives them: a decode step
 # of 16 sequences and a prefill call of 4 x 64 tokens
@@ -991,9 +1013,8 @@ def decode_times(da, gen, int8, serving, B=16, H=12, D=64, ps=64, NP=16,
     def gathered(v):
         k, vv = v[0][pt], v[1][pt]
         if int8:
-            k = (k.float() * v[2][pt].float()[..., None]).to(torch.bfloat16)
-            vv = (vv.float() * v[3][pt].float()[..., None]).to(
-                torch.bfloat16)
+            k = (k.float() * v[2][pt].float()[..., None]).to(q.dtype)
+            vv = (vv.float() * v[3][pt].float()[..., None]).to(q.dtype)
         return tuple(t.movedim(2, 1).reshape(B, H, NPg * ps, D)
                      for t in (k, vv))
     copies = [gathered(v) for v in views]
@@ -1181,16 +1202,16 @@ def qmm_times(qm, gen, row, x, qw):
           f"library {row['library_graph_ms']:.4f} ms", flush=True)
 
 
-def qmm_readout(qm, gen, M, K=768, N=3072):
+def qmm_readout(qm, gen, M, K=768, N=3072, dtype=torch.bfloat16):
     """One-hot rows of x over an int8 weight that holds all 256 values:
-    y[m, n] = bf16(q[m % K, n] · scale[n]) exactly, so the bf16 kernel's
-    int8 → bf16 widening must give the plain version bit for bit →
-    mismatches."""
+    y[m, n] = bf16(q[m % K, n] · scale[n]) exactly (fp16 with ``dtype``),
+    so the kernel's int8 widening must give the plain version bit for
+    bit → mismatches."""
     q = (torch.arange(K * N, device="cuda") % 256 - 128).to(
         torch.int8).reshape(K, N)
     scale = torch.rand(N, generator=gen, device="cuda") + 0.5
     qw = qm.QuantizedWeight(q, scale)
-    x = torch.zeros(M, K, dtype=torch.bfloat16, device="cuda")
+    x = torch.zeros(M, K, dtype=dtype, device="cuda")
     x[torch.arange(M), torch.arange(M) % K] = 1.0
     got = qm.quant_matmul_cuda(x, qw)
     want = qm.quant_matmul_reference(x, qw)
@@ -1807,7 +1828,8 @@ def token_mask(layout, causal):
     return mask
 
 
-def check_sparse_grads(bsa, fa, q, k, v, luts, causal, out, lse, gen):
+def check_sparse_grads(bsa, fa, q, k, v, luts, causal, out, lse, gen,
+                       tol=None):
     """The block-sparse backward kernels against the plain backward on the
     same (out, lse, dO), and dq, dk, dv through the autograd function
     against the plain versions' → (row, ok, (do, delta))."""
@@ -1826,8 +1848,8 @@ def check_sparse_grads(bsa, fa, q, k, v, luts, causal, out, lse, gen):
     row, ok = {}, True
     for name, g, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), leaves,
                              want):
-        err, good = close(g, w, *TOL_BWD[q.dtype])
-        err_a, good_a = close(a.grad, w, *TOL_BWD[q.dtype])
+        err, good = close(g, w, *(tol or TOL_BWD[q.dtype]))
+        err_a, good_a = close(a.grad, w, *(tol or TOL_BWD[q.dtype]))
         row[f"max_abs_err_{name}"] = max(err, err_a)
         ok = ok and good and good_a
     return row, ok, (do, delta)
@@ -6542,6 +6564,8 @@ def sentinel_only(card, profile_step=False):
 # bf16's)
 TOL_FP16 = {"out": (1e-2, 1e-2), "lse": (1e-3, 0.0), "bwd": (3e-2, 3e-2),
             "decode": (5e-3, 5e-3), "gmm": 5e-3}
+# fp16's overflow threshold: a value at or past it rounds to inf
+FP16_INF_AT = 65520.0
 # GPT-NeoX configs/125M.yml's fp16 block; initial_scale_power is left at
 # its default, 32 (2^32), so the opening steps overflow and are skipped
 FP16_BLOCK = {"enabled": True, "type": "float16", "loss_scale": 0,
@@ -6715,11 +6739,21 @@ def fp16_bert_case(fa, gen):
         q, k, v, lse, do, delta, *flags))
     row["plain_ms"] = time_ms(lambda: fa.flash_attention_segmented_reference(
         q, k, v, *flags), warmup=2, iters=10)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row["plain_bwd_ms"] = time_ms(
+        lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                 *flags), warmup=2, iters=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
     mask = kbias[:, None, None, :].to(torch.float16)
     with torch.no_grad():
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, dropout_p=0.1))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           dropout_p=0.1)
+    do_t = do.transpose(1, 2).contiguous()
+    row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    del o_lib, do_t
     pairs = int(lens.sum()) * S * H
     row["bound_ms"], row["bound_by"] = attn_bound_ms(q, pairs, "fwd",
                                                      extra_bytes=B * S * 4)
@@ -6728,12 +6762,36 @@ def fp16_bert_case(fa, gen):
     print(f"  fp16 flash kbias/dropout times: forward {row['ms']:.4f} ms "
           f"(plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, "
           f"bound {row['bound_ms']:.5f} {row['bound_by']}), backward "
-          f"{row['bwd_ms']:.4f} ms (bound {row['bwd_bound_ms']:.5f} "
+          f"{row['bwd_ms']:.4f} ms (plain {row['plain_bwd_ms']:.4f}, SDPA "
+          f"{row['library_bwd_ms']:.4f}, bound {row['bwd_bound_ms']:.5f} "
           f"{row['bwd_bound_by']})", flush=True)
     del qt, kt, vt
     del q, k, v, out, lse, got, want, ref_out, ref_lse
     torch.cuda.empty_cache()
     return row
+
+
+def overflow_placement(row, got, want, undecided):
+    """Where the kernels' (dq, dk, dv) are non-finite against the plain
+    version's, into ``row``, for the overflow cases (dO scaled on heads
+    0-1 of batch row 0) → (the same places outside ``undecided``, where
+    a last bit decides; dq and dk overflowed to inf; nothing non-finite
+    off the scaled heads)."""
+    same = True
+    for name, g, w, u in zip(("dq", "dk", "dv"), got, want, undecided):
+        gi, wi = ~torch.isfinite(g), ~torch.isfinite(w)
+        row[f"{name}_nonfinite"] = int(gi.sum())
+        row[f"{name}_nonfinite_plain"] = int(wi.sum())
+        row[f"{name}_inf"] = int(torch.isinf(g).sum())
+        row[f"{name}_undecided"] = int(u.sum())
+        row[f"{name}_mismatched"] = int(((gi != wi) & ~u).sum())
+        same = same and row[f"{name}_mismatched"] == 0
+        row[f"{name}_nonfinite_elsewhere"] = int(gi.sum() -
+                                                 gi[0, :, :2].sum())
+    hit = row["dq_inf"] > 0 and row["dk_inf"] > 0
+    clean = all(row[f"{n}_nonfinite_elsewhere"] == 0
+                for n in ("dq", "dk", "dv"))
+    return same, hit, clean
 
 
 def fp16_overflow_case(fa, gen, B=2, S=256, H=4, D=64):
@@ -6760,21 +6818,7 @@ def fp16_overflow_case(fa, gen, B=2, S=256, H=4, D=64):
     undecided = fa.fp16_overflow_undecided(q, k, v, out, lse, do)
     row = {"B": B, "S": S, "H": H, "D": D, "dtype": "fp16",
            "out_finite": bool(torch.isfinite(out).all())}
-    same = True
-    for name, g, w, u in zip(("dq", "dk", "dv"), got, want, undecided):
-        gi, wi = ~torch.isfinite(g), ~torch.isfinite(w)
-        row[f"{name}_nonfinite"] = int(gi.sum())
-        row[f"{name}_nonfinite_plain"] = int(wi.sum())
-        row[f"{name}_inf"] = int(torch.isinf(g).sum())
-        # elements whose overflow a last bit decides are left out
-        row[f"{name}_undecided"] = int(u.sum())
-        row[f"{name}_mismatched"] = int(((gi != wi) & ~u).sum())
-        same = same and row[f"{name}_mismatched"] == 0
-        # nothing non-finite outside the two scaled heads
-        row[f"{name}_nonfinite_elsewhere"] = int(gi.sum() - gi[0, :, :2].sum())
-    hit = row["dq_inf"] > 0 and row["dk_inf"] > 0
-    clean = all(row[f"{n}_nonfinite_elsewhere"] == 0
-                for n in ("dq", "dk", "dv"))
+    same, hit, clean = overflow_placement(row, got, want, undecided)
     print(f"  fp16 flash backward overflow case {row}", flush=True)
     if not (row["out_finite"] and same and hit and clean):
         fail(f"fp16 overflow case: the kernels' non-finite gradients do not "
@@ -6910,7 +6954,221 @@ def fp16_adam_cases(ad, gen, n):
     return rows
 
 
-def check_fp16_kernels(fa, da, gm, ad, gen, report, n_params):
+def fp16_sparse_case(bsa, fa, gen):
+    """The three block-sparse kernels in fp16 at phase 13's attention
+    shape (B=2, S=16384, H=12, D=64, fixed l16g1 causal) against their
+    plain versions (TOL_FP16 out / bwd; dq, dk, dv also through the
+    autograd function), two calls of each bit-identical, every launch
+    "mma"; timed beside the plain versions, SDPA in fp16 under the bool
+    token mask and the bound; then a causal D 128 case (B=2, S=2048, H=4,
+    l4g1) and an overflowing loss-scaled backward at S 1024."""
+    B, S, H, D, dtype = 2, SPARSE_SEQ, 12, 64, torch.float16
+    layout = sparse_layout(SPARSE_L16G1, S)
+    luts = bsa.LayoutLuts(layout)
+    pairs = sparse_live_pairs(layout, True, B)
+    lut_bytes = sum(a.nbytes for a in luts.fwd + luts.bwd)
+    bsa.reset_design_launches()
+    q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+    out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, True)
+    ref_out, ref_lse = bsa.block_sparse_attention_reference(q, k, v, luts,
+                                                            True)
+    torch.cuda.synchronize()
+    err_o, ok_o = close(out, ref_out, *TOL_FP16["out"])
+    err_l, ok_l = close(lse, ref_lse, *TOL_FP16["lse"])
+    del ref_out, ref_lse
+    grads, ok_g, (do, delta) = check_sparse_grads(
+        bsa, fa, q, k, v, luts, True, out, lse, gen, tol=TOL_FP16["bwd"])
+    row = {"B": B, "S": S, "H": H, "D": D, "dtype": "fp16",
+           "layout": "fixed l16g1 causal", "live_pairs": pairs,
+           "max_abs_err_out": err_o, "max_abs_err_lse": err_l,
+           "tol_out": TOL_FP16["out"], "tol_bwd": TOL_FP16["bwd"], **grads}
+    print(f"  block_sparse fp16 {row}", flush=True)
+    if not (ok_o and ok_l and ok_g and out.dtype == dtype):
+        fail(f"the fp16 block-sparse kernels disagree with their plain "
+             f"versions: {row}")
+    row.update(sparse_bit_identity(bsa, q, k, v, lse, do, delta, luts,
+                                   True))
+    row["design_launches"] = {p: dict(c)
+                              for p, c in bsa.design_launches.items()}
+    if any(c["fma"] for c in bsa.design_launches.values()):
+        fail(f"an fp16 block-sparse launch at D 64 took the FMA design: "
+             f"{row['design_launches']}")
+    row["fwd_ms"] = time_ms(lambda: bsa.block_sparse_attention_cuda(
+        q, k, v, luts, True), warmup=2, iters=10)
+    row["dkv_ms"] = time_ms(lambda: bsa.block_sparse_attention_dkv_cuda(
+        q, k, v, lse, do, delta, luts, True), warmup=2, iters=10)
+    row["dq_ms"] = time_ms(lambda: bsa.block_sparse_attention_dq_cuda(
+        q, k, v, lse, do, delta, luts, True), warmup=2, iters=10)
+    row["plain_fwd_ms"] = time_ms(
+        lambda: bsa.block_sparse_attention_reference(q, k, v, luts, True),
+        warmup=1, iters=3)
+    row["plain_bwd_ms"] = time_ms(
+        lambda: bsa.block_sparse_attention_bwd_reference(
+            q, k, v, out, lse, do, luts, True), warmup=1, iters=3)
+    for part in ("fwd", "dkv", "dq"):
+        row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = \
+            attn_bound_ms(q, pairs, part, lut_bytes)
+    mask = token_mask(layout, True)
+    row["library_fwd_ms"], row["library_bwd_ms"], row["library_batch"] = \
+        sdpa_times(q, k, v, do, mask)
+    del mask
+    print(f"  block_sparse times (fp16): forward {row['fwd_ms']:.4f} ms, "
+          f"dk/dv {row['dkv_ms']:.4f} ms, dq {row['dq_ms']:.4f} ms; plain "
+          f"{row['plain_fwd_ms']:.4f} / {row['plain_bwd_ms']:.4f} ms; SDPA "
+          f"(fp16, bool mask, B={row['library_batch']}) "
+          f"{row['library_fwd_ms']:.4f} / {row['library_bwd_ms']:.4f} ms; "
+          f"bounds {row['fwd_bound_ms']:.5f} / {row['dkv_bound_ms']:.5f} / "
+          f"{row['dq_bound_ms']:.5f} ms ({row['fwd_bound_by']})", flush=True)
+    del q, k, v, out, lse, do, delta
+    torch.cuda.empty_cache()
+    # causal D 128
+    B2, S2, H2 = 2, 2048, 4
+    luts2 = bsa.LayoutLuts(sparse_layout(SPARSE_L4G1, S2, H=H2))
+    q, k, v, _, _ = prefill_case(S2, dtype, gen, B=B2, H=H2, D=128)
+    out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts2, True)
+    ref_out, _ = bsa.block_sparse_attention_reference(q, k, v, luts2, True)
+    err, ok = close(out, ref_out, *TOL_FP16["out"])
+    g128, ok_g, (do, delta) = check_sparse_grads(
+        bsa, fa, q, k, v, luts2, True, out, lse, gen, tol=TOL_FP16["bwd"])
+    row["d128"] = {"B": B2, "S": S2, "H": H2, "max_abs_err_out": err,
+                   **g128, **sparse_bit_identity(bsa, q, k, v, lse, do,
+                                                 delta, luts2, True)}
+    print(f"  block_sparse fp16 causal D=128 {row['d128']}", flush=True)
+    if not (ok and ok_g):
+        fail(f"the fp16 block-sparse kernels disagree at D 128: "
+             f"{row['d128']}")
+    del q, k, v, out, lse, do, delta, ref_out
+    row["overflow"] = fp16_sparse_overflow_case(bsa, fa, gen)
+    torch.cuda.empty_cache()
+    return row
+
+
+def fp16_sparse_overflow_case(bsa, fa, gen, B=2, S=1024, H=4, D=64):
+    """dO at fp16's full scale on heads 0-1 of batch row 0 and v at 8x, on
+    a causal l4g1 layout: the kernels' non-finite dq, dk, dv sit where the
+    plain version's do, leaving out what `fp16_overflow_undecided` marks
+    (with the layout), on those heads only; the forward stays finite."""
+    dtype = torch.float16
+    layout = sparse_layout(SPARSE_L4G1, S, H=H)
+    luts = bsa.LayoutLuts(layout)
+    q, k, v, _, _ = prefill_case(S, dtype, gen, B=B, H=H, D=D)
+    v = (v.float() * 8).to(dtype)
+    out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, True)
+    do = torch.randn(B, S, H, D, generator=gen, device="cuda")
+    do[0, :, :2] = (do[0, :, :2] * 20000).clamp(-60000, 60000)
+    do = do.to(dtype)
+    delta = fa.attention_delta(out, do)
+    got = bsa.block_sparse_attention_bwd_cuda(q, k, v, lse, do, delta, luts,
+                                              True)
+    want = bsa.block_sparse_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    luts, True)
+    torch.cuda.synchronize()
+    undecided = fa.fp16_overflow_undecided(
+        q, k, v, out, lse, do,
+        layout=torch.as_tensor(np.asarray(layout) != 0, device="cuda"))
+    row = {"B": B, "S": S, "H": H, "D": D, "layout": "fixed l4g1 causal",
+           "out_finite": bool(torch.isfinite(out).all())}
+    same, _, clean = overflow_placement(row, got, want, undecided)
+    print(f"  block_sparse fp16 backward overflow case {row}", flush=True)
+    if not (row["out_finite"] and same and clean and row["dq_nonfinite"]
+            and row["dk_nonfinite"]):
+        fail(f"fp16 block-sparse overflow case: the kernels' non-finite "
+             f"gradients do not sit where the plain version's do: {row}")
+    del q, k, v, out, lse, do, delta, got, want
+    return row
+
+
+def fp16_qmm_cases(qm, gen):
+    """The int8 matmul with fp16 activations (the wgmma kernel) against its
+    plain version within TOL_QMM[fp16] of max|ref|: the four block
+    weights at M = 16, 256 and 4096, two calls bit-identical, mlp-in and
+    mlp-out timed (events and CUDA graphs) beside the plain version,
+    `torch.matmul` on the dequantized fp16 weight and the bound; the
+    widening read out bit for bit; an output past 65504 inf exactly where
+    the plain version's is; every launch "wgmma"."""
+    rows, identical = [], True
+    qm.reset_design_launches()
+    for M in QMM_PATH_ROWS + (4096,):
+        for K, N in QMM_BLOCK_SHAPES:
+            row, x, qw = qmm_case(qm, gen, M, K, N, torch.float16)
+            again = qm.quant_matmul_cuda(x, qw)
+            row["bit_identical"] = bool(torch.equal(
+                qm.quant_matmul_cuda(x, qw), again))
+            identical &= row["bit_identical"]
+            if (K, N) in QMM_SHAPES:
+                qmm_times(qm, gen, row, x, qw)
+            rows.append(row)
+            del x, qw
+        torch.cuda.empty_cache()
+    readout = {M: qmm_readout(qm, gen, M, dtype=torch.float16)
+               for M in QMM_PATH_ROWS + (4096,)}
+    # overflow: columns scaled so that their outputs pass 65504
+    x = torch.randn(16, 768, generator=gen, device="cuda").to(torch.float16)
+    qw = qm.quantize_weight(0.02 * torch.randn(768, 3072, generator=gen,
+                                               device="cuda"))
+    qw.scale[::3] *= 4e5
+    got, want = qm.quant_matmul_cuda(x, qw), qm.quant_matmul_reference(x, qw)
+    y = torch.matmul(x.float(), qw.qval.float()) * qw.scale
+    # a sum within 1e-3 of the threshold may round either way by its order
+    near = (y.abs() - FP16_INF_AT).abs() <= 1e-3 * FP16_INF_AT
+    mism = int(((torch.isinf(got) != torch.isinf(want)) & ~near).sum())
+    overflow = {"inf_plain": int(torch.isinf(want).sum()),
+                "inf_kernel": int(torch.isinf(got).sum()),
+                "mismatched": mism}
+    design = dict(qm.design_launches)
+    print(f"  quant_matmul fp16: widening readout mismatches {readout}; two "
+          f"calls bit-identical {identical}; overflow {overflow}; launches "
+          f"by design {design}", flush=True)
+    if any(readout.values()) or not identical or mism or \
+            not overflow["inf_plain"] or design["fma"]:
+        fail(f"the fp16 int8 matmul kernel: readout {readout}, two calls "
+             f"bit-identical {identical}, overflow {overflow}, designs "
+             f"{design}")
+    return {"rows": rows, "readout_mismatches": readout,
+            "bit_identical": identical, "overflow": overflow,
+            "design_launches": design}
+
+
+def fp16_int8_decode_cases(da, gen):
+    """The cluster decode over int8 pools (bf16 scales) with fp16 q at the
+    serving shape (B 16) and at head dim 128 against its plain version
+    (TOL_FP16 decode), then timed over lengths 0-1024 and 62-110 beside
+    the single-block kernel, the plain version and SDPA on gathered,
+    dequantized fp16 K/V → (checked rows, timed rows)."""
+    rows = []
+    for shape in (dict(B=16, H=12, D=64, ps=64, NP=16, P=513),
+                  dict(B=3, H=2, D=128, ps=16, NP=8, P=40)):
+        q, table, lengths = decode_query_case(torch.float16, gen, **shape)
+        pools = decode_pools(gen, 2, shape["P"], shape["H"], shape["ps"],
+                             shape["D"], torch.float16, True)
+        views = tuple(p[1] for p in pools)
+        out = decode_call(da, q, views, table, lengths)
+        again = decode_call(da, q, views, table, lengths)
+        ref = decode_reference(da, q, views, table, lengths)
+        torch.cuda.synchronize()
+        err, ok = close(out, ref, *TOL_FP16["decode"])
+        row = {"dtype": "fp16 q, int8 pools", "max_abs_err": err,
+               "tol": TOL_FP16["decode"],
+               "design": da.kernel_design(q, views[0]),
+               "cluster": da.launch_plan(shape["B"], shape["H"],
+                                         shape["NP"]),
+               "two_calls_identical": torch.equal(out, again),
+               "zero_rows_exact": bool((out[lengths == 0] == 0).all()),
+               **shape}
+        print(f"  paged_decode_int8 fp16 {row}", flush=True)
+        if not (ok and row["design"] == "cluster" and
+                row["two_calls_identical"] and row["zero_rows_exact"] and
+                out.dtype == torch.float16):
+            fail(f"the fp16-q int8 decode disagrees with its plain version: "
+                 f"{row}")
+        rows.append(row)
+        del pools, views
+    timed = [decode_times(da, gen, True, serving, dtype=torch.float16)
+             for serving in (False, True)]
+    return rows, timed
+
+
+def check_fp16_kernels(fa, da, gm, ad, bsa, qm, gen, report, n_params):
     """Phase 3's fp16 cases: every fp16 variant against its plain version
     in fp16 at the phase's shapes, timed beside its plain version, a
     library call and its bound."""
@@ -6925,6 +7183,10 @@ def check_fp16_kernels(fa, da, gm, ad, gen, report, n_params):
     res["decode_checked"], res["decode_timed"] = fp16_decode_cases(da, gen)
     res["grouped_matmul"] = fp16_gmm_cases(gm, gen)
     res["adam"] = fp16_adam_cases(ad, gen, n_params)
+    res["block_sparse"] = fp16_sparse_case(bsa, fa, gen)
+    res["quant_matmul"] = fp16_qmm_cases(qm, gen)
+    res["decode_int8_checked"], res["decode_int8_timed"] = \
+        fp16_int8_decode_cases(da, gen)
     report["fp16_kernels"] = res
     return res
 
@@ -7277,9 +7539,320 @@ def serve_fp16(fa, da, report):
     return sv
 
 
-def run_fp16_phases(fa, da, gm, ad, report, card, bf16=None,
+# phase 33, train-sparse-125M-16k-fp16: phase 13's rung with GPT-NeoX
+# configs/125M.yml's fp16 block, from 2^16 as phase 31's short rungs
+SPARSE_FP16_CONFIG = {**SPARSE_TRAIN_CONFIG, "fp16": FP16_SHORT}
+# phase 34, serve-quant-125M-fp16: row_quant's int8 rungs in fp16
+QUANT_FP16_RUNGS = (("int8w_fp16", "int8", None),
+                    ("int8w_int8kv_fp16", "int8", "int8"))
+# phase 35: a client head, TiledLinear(768, 50304) at GPT-NeoX-125M's head
+# width in 2 x 8 tiles, on micro 8 x 1024 features; 5 steps a run
+TILED_IN, TILED_OUT, TILED_SPLITS = 768, 50304, (2, 8)
+TILED_MICRO, TILED_STEPS = 8, 5
+TILED_CONFIG = {"train_batch_size": TILED_MICRO,
+                "train_micro_batch_size_per_gpu": TILED_MICRO,
+                "gradient_accumulation_steps": 1, "steps_per_print": 10_000,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                "zero_optimization": {"stage": 2}}
+# tiled against dense losses: the tiles' two bf16 (fp16) partial
+# products, each rounded before the fp32 sum, against one product
+TILED_LOSS_RTOL = 1e-2
+# the client optimizer of phase 35: SGD with momentum (lr, momentum)
+CLIENT_SGD = (0.5, 0.9)
+
+
+def train_sparse_fp16(fa, bsa, ad, report, remat=False):
+    """Phase 33, train-sparse-125M-16k-fp16: phase 13's model, batch and
+    JSON with the fp16 block from 2^16, 10 steps with (``remat``) and
+    without the bench row's "full" remat: 12 (24 with remat) block-sparse
+    forward, 12 dk/dv and 12 dq launches a step, every one "mma", no
+    flash launch, one Adam a taken step; the loss scale equal to the JAX
+    rule's replay over the observed overflows; the loss falling."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    model = GPTNeoX(GPTNeoXConfig(**SPARSE_MODEL), device="cuda")
+    model.init_params(5)
+    conf = dict(SPARSE_FP16_CONFIG)
+    if remat:
+        conf["activation_checkpointing"] = {"policy": "full"}
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    cfg = model.config
+    arm = model.sparse_self_attention.arm(SPARSE_SEQ, cfg.head_dim)
+    if eng.compute_dtype != torch.float16 or arm != "block_sparse":
+        fail(f"train-sparse-125M-16k-fp16: compute {eng.compute_dtype}, arm "
+             f"{arm}")
+    micro = eng.train_micro_batch_size_per_gpu()
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, micro, SPARSE_SEQ))).cuda()
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts(fa, bsa)
+    ad.reset_launches()
+    losses, overflows, scales, step_s = fp16_steps(
+        eng, (tokens, tokens), SPARSE_STEPS)
+    taken = overflows.count(False)
+    launches = dict(attention_counts(fa, bsa), adam=ad.launches)
+    want = {k: 0 for k in launches}
+    want.update(block_sparse_fwd=(2 if remat else 1) * L * SPARSE_STEPS,
+                block_sparse_dkv=L * SPARSE_STEPS,
+                block_sparse_dq=L * SPARSE_STEPS, adam=taken)
+    if launches != want:
+        fail(f"train-sparse-125M-16k-fp16 launch counts {launches} != {want}"
+             f" ({L} layers x {SPARSE_STEPS} steps, {taken} taken; remat "
+             f"{remat})")
+    design = check_sparse_design(bsa, "train-sparse-125M-16k-fp16",
+                                 launches, "mma")
+    replay = check_scale_replay("train-sparse-125M-16k-fp16", conf,
+                                overflows, scales)
+    taken_losses = [l for l, o in zip(losses, overflows) if not o]
+    if not (taken >= 2 and all(np.isfinite(taken_losses)) and
+            taken_losses[-1] < taken_losses[0]):
+        fail(f"train-sparse-125M-16k-fp16: {taken} steps taken, losses "
+             f"{taken_losses} (want the loss to fall)")
+    med = float(np.median([t for t, o in zip(step_s, overflows) if not o]))
+    res = {"steps": SPARSE_STEPS, "taken": taken, "overflows": overflows,
+           "loss_scale": scales, "loss_scale_replay": replay,
+           "losses": losses, "taken_losses": taken_losses,
+           "step_ms_median": med * 1e3, "step_ms": [t * 1e3 for t in step_s],
+           "tokens_per_s": micro * SPARSE_SEQ / med,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "design_launches": design,
+           "adam_variants": dict(ad.variant_launches),
+           "activation_checkpointing": "full" if remat else False}
+    print(f"  {SPARSE_STEPS} steps, {taken} taken; loss scale "
+          f"{scales[0]:g} -> {scales[-1]:g} (the JAX rule's replay); taken "
+          f"losses {taken_losses[0]:.4f} -> {taken_losses[-1]:.4f}; median "
+          f"taken step {med * 1e3:.1f} ms, {res['tokens_per_s']:.0f} tokens/"
+          f"s, peak memory {res['max_memory_allocated_gb']:.2f} GiB; remat "
+          f"{remat}", flush=True)
+    report["train_sparse_fp16_remat" if remat else "train_sparse_fp16"] = res
+    del eng, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_quant_fp16(fa, da, qm, report):
+    """Phase 34, serve-quant-125M-fp16: row_quant's stream (16 x 62 prompt
+    x 48 new) with fp16 weights at the int8w and int8w_int8kv rungs, exact
+    launches, every int8 matmul "wgmma", every int8 decode "cluster"; then
+    greedy tokens of 8 prompts x 16 new with int8 weights and pages
+    through the kernels and through the plain path: every first token
+    identical."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    model = build_model(torch.float16)
+    cfg = model.config
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=QUANT_PROMPT))
+               for _ in range(QUANT_REQUESTS)]
+    rungs = {}
+    for tag, weights, kv_dtype in QUANT_FP16_RUNGS:
+        r = serve_quant_rung(model, prompts, tag, weights, kv_dtype, fa, da,
+                             qm)
+        if r["dtypes"]["compute"] != "torch.float16":
+            fail(f"{tag} did not serve in fp16: {r['dtypes']}")
+        rungs[tag] = r
+        print(f"  {tag}: decode {r['decode_tok_s']:.1f} tokens/s, stream "
+              f"{r['stream_tok_s']:.1f} tokens/s, inter-token p50 "
+              f"{r['inter_token_p50_ms']:.2f} ms, launches {r['launches']}, "
+              f"dtypes {r['dtypes']}", flush=True)
+    del model
+    model = build_model(torch.float16, seed=1)
+    lens = [9, 64, 65, 130, 200, 300, 513, 700]
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in lens]
+    conf = _quant_config(SERVE_CONFIG, "int8", "int8")
+    qm.launches = da.launches_int8 = 0
+    fast = InferenceEngine(model, config=conf).generate(
+        prompts, max_new_tokens=16)
+    launched = {"quant_matmul": qm.launches,
+                "paged_decode_int8": da.launches_int8}
+    model.use_kernels = False
+    plain_cfg = json.loads(json.dumps(conf))
+    plain_cfg["inference"]["kernel"] = "xla"
+    qm.launches = da.launches_int8 = 0
+    plain = InferenceEngine(model, config=plain_cfg).generate(
+        prompts, max_new_tokens=16)
+    same = [a == b for a, b in zip(fast, plain)]
+    first = [a[0] == b[0] for a, b in zip(fast, plain)]
+    print(f"  fp16 int8 greedy parity: {sum(same)}/{len(same)} requests "
+          f"token-identical, {sum(first)}/{len(first)} first tokens; kernel "
+          f"launches {launched}", flush=True)
+    if qm.launches or da.launches_int8 or not all(launched.values()):
+        fail(f"fp16 int8 parity: the kernel path launched {launched}, the "
+             f"plain path {qm.launches} / {da.launches_int8}")
+    if not all(first):
+        fail(f"fp16 int8 greedy first tokens differ between the kernel path "
+             f"and the plain path: {fast} vs {plain}")
+    res = {"rungs": rungs, "parity": {"prompt_lengths": lens,
+                                      "identical": same,
+                                      "first_token_identical": first,
+                                      "kernel_launches": launched}}
+    report["serve_quant_fp16"] = res
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def tiled_models():
+    """(TiledHead, DenseHead): client modules for `initialize()`, a
+    TiledLinear head (or the dense nn.Linear holding the same weights)
+    over given features, mean cross-entropy against labels."""
+    from deeperspeed_tpu_torch.runtime.zero import TiledLinear
+
+    class Head(torch.nn.Module):
+        def params_tree(self):
+            return dict(self.named_parameters())
+
+        def loss_fn(self, params, batch, rng=None):
+            x, y = batch
+            dtype = next(self.parameters()).dtype
+            logits = self.head(x.to(dtype)).float()
+            return torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), y.reshape(-1))
+
+    class TiledHead(Head):
+        def __init__(self):
+            super().__init__()
+            self.head = TiledLinear(TILED_IN, TILED_OUT,
+                                    in_splits=TILED_SPLITS[0],
+                                    out_splits=TILED_SPLITS[1],
+                                    device="cuda")
+            self.head.init_params(torch.Generator().manual_seed(0))
+
+    class DenseHead(Head):
+        def __init__(self, tiled):
+            super().__init__()
+            self.head = torch.nn.Linear(TILED_IN, TILED_OUT, device="cuda")
+            with torch.no_grad():
+                self.head.weight.copy_(tiled.head.to_dense().t())
+                self.head.bias.copy_(tiled.head.bias)
+    return TiledHead, DenseHead
+
+
+class ClientSGD:
+    """SGD with momentum through the client-optimizer protocol (the rule
+    `tests/test_torch_tiling.py` also runs on the JAX engine): ``update``
+    returns (new masters, state)."""
+
+    def __init__(self, lr, momentum):
+        self.param_groups = [{"lr": lr, "momentum": momentum}]
+
+    def init_state(self, master):
+        return (0, torch.zeros_like(master, dtype=torch.float32))
+
+    def update(self, grads, state, master, lr=None):
+        step, buf = state
+        buf = self.param_groups[0]["momentum"] * buf + grads.float()
+        return master - lr * buf, (step + 1, buf)
+
+
+def tiled_run(model, conf, batch, ad, what):
+    import deeperspeed_tpu_torch as dst
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    ad.reset_launches()
+    losses, overflows, scales, step_s = fp16_steps(eng, batch, TILED_STEPS)
+    taken = overflows.count(False)
+    if ad.launches != taken or not all(np.isfinite(losses)):
+        fail(f"{what}: {ad.launches} Adam launches for {taken} taken steps, "
+             f"losses {losses}")
+    res = {"losses": losses, "overflows": overflows, "loss_scale": scales,
+           "taken": taken, "adam_launches": ad.launches,
+           "adam_variants": dict(ad.variant_launches),
+           "step_ms_median": float(np.median(step_s)) * 1e3}
+    return eng, res
+
+
+def train_tiled(ad, report):
+    """Phase 35: a client module whose head is TiledLinear(768, 50304) in
+    2 x 8 tiles, trained through `initialize()` → `train_batch` for 5
+    steps in bf16 and in fp16 (from 2^16) beside the dense nn.Linear
+    holding the same weights (losses within TILED_LOSS_RTOL, the first
+    step's within a tenth of it, one Adam a taken step); then the tiled
+    bf16 run's first step once more through a client SGD with momentum:
+    no Adam launch, the first step's loss bit-equal to the Adam run's,
+    the masters equal to the rule's p - lr·g from the gradient the engine
+    handed it, the momentum its g, the bf16 compute copy the masters
+    rounded."""
+    import deeperspeed_tpu_torch as dst
+    TiledHead, DenseHead = tiled_models()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(1, TILED_MICRO, TRAIN_SEQ, TILED_IN, generator=gen,
+                    device="cuda")
+    y = torch.randint(0, TILED_OUT, (1, TILED_MICRO, TRAIN_SEQ),
+                      generator=gen, device="cuda")
+    res = {"splits": TILED_SPLITS, "shape": f"{TILED_IN} x {TILED_OUT}",
+           "tokens_a_step": TILED_MICRO * TRAIN_SEQ}
+    for tag, block in (("bf16", {"enabled": True, "type": "bfloat16"}),
+                       ("fp16", FP16_SHORT)):
+        conf = {**TILED_CONFIG, "fp16": block}
+        tiled = TiledHead()
+        dense = DenseHead(tiled)
+        _, rt = tiled_run(tiled, conf, (x, y), ad, f"tiled {tag}")
+        _, rd = tiled_run(dense, conf, (x, y), ad, f"dense {tag}")
+        lt, ld = np.array(rt["losses"]), np.array(rd["losses"])
+        rel = np.abs(lt - ld) / np.abs(ld)
+        row = {"tiled": rt, "dense": rd, "loss_rel_diff": rel.tolist(),
+               "tol": TILED_LOSS_RTOL}
+        print(f"  {tag}: tiled losses {lt.round(4).tolist()}, dense "
+              f"{ld.round(4).tolist()}, relative difference max "
+              f"{rel.max():.2e}; step {rt['step_ms_median']:.1f} ms tiled, "
+              f"{rd['step_ms_median']:.1f} ms dense; Adam launches "
+              f"{rt['adam_launches']} / {rd['adam_launches']}", flush=True)
+        if rt["overflows"] != rd["overflows"] or \
+                rel.max() > TILED_LOSS_RTOL or rel[0] > TILED_LOSS_RTOL / 10:
+            fail(f"phase 35 {tag}: the tiled head does not train like the "
+                 f"dense one: {row}")
+        res[tag] = row
+        del tiled, dense
+        torch.cuda.empty_cache()
+    # the client optimizer: one bf16 step of the tiled head
+    conf = {k: v for k, v in TILED_CONFIG.items() if k != "optimizer"}
+    conf["fp16"] = {"enabled": True, "type": "bfloat16"}
+    opt = ClientSGD(*CLIENT_SGD)
+    seen = {}
+    inner = opt.update
+
+    def update(grads, state, master, lr=None):
+        seen.update(grads=grads.clone(), master=master.clone(), lr=lr)
+        return inner(grads, state, master, lr=lr)
+    opt.update = update
+    eng, *_ = dst.initialize(model=TiledHead(), optimizer=opt,
+                             config_params=conf)
+    ad.reset_launches()
+    loss = eng.train_batch(batch=(x, y))
+    torch.cuda.synchronize()
+    lr, mu = CLIENT_SGD
+    want = seen["master"] - seen["lr"] * (mu * 0.0 + seen["grads"].float())
+    client = {"loss": loss, "loss_adam_run": res["bf16"]["tiled"]["losses"][0],
+              "adam_launches": ad.launches, "lr": seen["lr"],
+              "masters_follow_the_rule": bool(torch.equal(eng._master,
+                                                          want)),
+              "momentum_is_g": bool(torch.equal(eng.opt_state[1],
+                                                seen["grads"].float())),
+              "compute_copy_is_masters": bool(torch.equal(
+                  eng._params_flat, eng._master.to(torch.bfloat16))),
+              "step": eng.opt_state[0]}
+    print(f"  client SGD (momentum {mu}, lr {lr}): {client}", flush=True)
+    if not (client["masters_follow_the_rule"] and client["momentum_is_g"] and
+            client["compute_copy_is_masters"] and client["step"] == 1 and
+            client["adam_launches"] == 0 and
+            abs(loss - client["loss_adam_run"]) <=
+            1e-6 * abs(client["loss_adam_run"])):
+        fail(f"phase 35: the client optimizer's step does not follow its "
+             f"rule: {client}")
+    res["client_sgd"] = client
+    report["train_tiled"] = res
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_fp16_phases(fa, da, gm, ad, bsa, qm, report, card, bf16=None,
                     profile_step=False):
-    """Phases 31-32 → (31(a), 31(b), 31(c), 31(e), 32) results."""
+    """Phases 31-35 → (31(a), 31(b), 31(c), 31(e), 32, 33, 33 with remat,
+    34, 35) results."""
     from deeperspeed_tpu_torch import BertConfig, BertForPreTraining
     print(f"fp16 training train-fp16-125M (GPT-NeoX configs/125M.yml's fp16 "
           f"block from 2^32, fp32 masters, ZeRO-2) on {card}:", flush=True)
@@ -7316,12 +7889,24 @@ def run_fp16_phases(fa, da, gm, ad, report, card, bf16=None,
           f"{sv['inter_token_p50_ms']:.2f} ms / p99 "
           f"{sv['inter_token_p99_ms']:.2f} ms, launches {sv['launches']}, "
           f"decode by design {sv['decode_design_launches']}", flush=True)
-    return ta, tb, tc, te, sv
+    print(f"fp16 sparse training train-sparse-125M-16k-fp16 (fixed l16g1, "
+          f"fp16 from 2^16, ZeRO-2) on {card}:", flush=True)
+    ts = train_sparse_fp16(fa, bsa, ad, report)
+    print("train-sparse-125M-16k-fp16 with the bench row's remat "
+          "(\"full\"):", flush=True)
+    tsr = train_sparse_fp16(fa, bsa, ad, report, remat=True)
+    print(f"fp16 int8 serving serve-quant-125M-fp16 (int8 weights / int8 "
+          f"weights + int8 KV) on {card}:", flush=True)
+    sq = serve_quant_fp16(fa, da, qm, report)
+    print(f"TiledLinear(768, 50304) head in 2 x 8 tiles (bf16, fp16, a "
+          f"client SGD) on {card}:", flush=True)
+    tt = train_tiled(ad, report)
+    return ta, tb, tc, te, sv, ts, tsr, sq, tt
 
 
-def fp16_kernel_rows(k3, ta, tb, tc, te, sv):
+def fp16_kernel_rows(k3, ta, tb, tc, te, sv, ts, tsr, sq, tt):
     """The fp16 variants' entries of the kernels line: each with its
-    launches on phases 31-32 (the main path) and phase 3's numbers."""
+    launches on phases 31-35 (the main path) and phase 3's numbers."""
     pallas = "deeperspeed_tpu/ops/pallas/"
     ft, fbert = k3["flash_train"], k3["flash_bert"]
     dec = k3["decode_timed"][0]
@@ -7353,7 +7938,8 @@ def fp16_kernel_rows(k3, ta, tb, tc, te, sv):
          "tolerance": TOL_FP16["out"],
          "kbias_dropout_shape": {k: fbert[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "bwd_ms", "bwd_bound_ms", "max_abs_err_out")},
+             "bwd_ms", "plain_bwd_ms", "library_bwd_ms", "bwd_bound_ms",
+             "max_abs_err_out")},
          "segments_shape": {k: k3["flash_segments"][k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")} | {
              "shape": "B=4 S=1024 H=12 D=64 fp16, ragged segments"}},
@@ -7430,19 +8016,112 @@ def fp16_kernel_rows(k3, ta, tb, tc, te, sv):
              "library": a["library"],
              "shape": f"n={a['n']} {a['storage']}",
              "tolerance": "bit-equal" if tag == "lean" else TOL_ADAM})
+    # phase 35's fp16 runs step the tiled and the dense head with it too
+    head = {m: tt["fp16"][m]["adam_launches"] for m in ("tiled", "dense")}
+    rows[-2]["launches"] += sum(head.values())
+    rows[-2]["launches_train_tiled_fp16"] = head
+    bs = k3["block_sparse"]
+    shape16 = "B=2 S=16384 H=12 D=64 fp16, fixed l16g1 causal"
+    for part, line, what in (
+            ("fwd", 140, "_sparse_fwd_kernel, via sparse_attention_fwd "
+                         ":213"),
+            ("dkv", 281, "_sparse_dkv_kernel, via sparse_attention_bwd "
+                         ":393"),
+            ("dq", 343, "_sparse_dq_kernel, via sparse_attention_bwd "
+                        ":393")):
+        key = f"block_sparse_{part}"
+        err = {"fwd": max(bs["max_abs_err_out"], bs["max_abs_err_lse"]),
+               "dkv": max(bs["max_abs_err_dk"], bs["max_abs_err_dv"]),
+               "dq": bs["max_abs_err_dq"]}[part]
+        rows.append(
+            {"name": f"{key}_fp16", "route": "cuda",
+             "source": "deeperspeed_tpu_torch/csrc/block_sparse_attention.cu",
+             "replaces": f"{pallas}block_sparse_attention.py:{line} ({what})",
+             "launches": ts["launches"][key] + tsr["launches"][key],
+             "launches_by_path": {"train_sparse_fp16": ts["launches"][key],
+                                  "train_sparse_fp16_remat": tsr[
+                                      "launches"][key]},
+             "design": "fp16 at D 64/128: the mma.sync tile steps "
+                       "(f32.f16.f16.f32), P and dS rounded to nearest "
+                       "fp16",
+             "design_launches": {
+                 "train_sparse_fp16": ts["design_launches"][part],
+                 "train_sparse_fp16_remat": tsr["design_launches"][part]},
+             "max_abs_err": err, "ms": bs[f"{part}_ms"],
+             "plain_ms": bs["plain_fwd_ms" if part == "fwd" else
+                            "plain_bwd_ms"],
+             "bound_ms": bs[f"{part}_bound_ms"],
+             "bound_by": bs[f"{part}_bound_by"],
+             "library_ms": bs["library_fwd_ms" if part == "fwd" else
+                              "library_bwd_ms"],
+             "library": f"SDPA in fp16 under the bool token mask"
+                        f"{'' if part == 'fwd' else ' (backward: dq, dk, dv)'}"
+                        f", B={bs['library_batch']}",
+             "shape": shape16,
+             "tolerance": bs["tol_out"] if part == "fwd" else bs["tol_bwd"],
+             "d128": bs["d128"], "overflow_case": bs["overflow"]})
+    qk = k3["quant_matmul"]
+    q0 = next(r for r in qk["rows"] if "ms" in r)
+    rows.append(
+        {"name": "quant_matmul_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": f"{pallas}quant_matmul.py:152 (_wq_kernel)",
+         "launches": sum(r["launches"]["quant_matmul"]
+                         for r in sq["rungs"].values()),
+         "launches_by_rung": {t: r["launches"]["quant_matmul"]
+                              for t, r in sq["rungs"].items()},
+         "design": "fp16: qmm_wgmma_kernel<__half, TN>, wgmma "
+                   "f32.f16.f16, the int8 tile widened to fp16 in shared "
+                   "memory (exact), fp16 TMA maps",
+         "design_launches_by_rung": {
+             t: r["quant_matmul_design_launches"]
+             for t, r in sq["rungs"].items()},
+         "max_abs_err": q0["max_abs_err"], "ms": q0["ms"],
+         "plain_ms": q0["plain_ms"], "bound_ms": q0["bound_ms"],
+         "bound_by": q0["bound_by"], "library_ms": q0["library_ms"],
+         "library": "torch.matmul on the dequantized fp16 weight",
+         "shape": f"M={q0['M']} K={q0['K']} N={q0['N']} fp16",
+         "tolerance": f"{TOL_QMM[torch.float16]} x max|ref|",
+         **graph_times(q0), "overflow_case": qk["overflow"],
+         "other_shapes": [{k: r[k] for k in (
+             "M", "K", "N", "plan", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "max_abs_err")} | graph_times(r)
+             for r in qk["rows"] if "ms" in r and r is not q0]})
+    di, di_serve = k3["decode_int8_timed"]
+    rung = sq["rungs"]["int8w_int8kv_fp16"]
+    rows.append(
+        {"name": "paged_decode_int8_fp16", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
+         "replaces": f"{pallas}decode_attention.py:152 "
+                     f"(_decode_kernel_quant)",
+         "launches": rung["launches"]["paged_decode_int8"],
+         "design": "fp16 q over int8 pools with bf16 scales: the cluster "
+                   "kernel (split-KV, rank-order merge), P in fp32",
+         "design_launches": rung["decode_design_launches"][
+             "paged_decode_int8"],
+         "max_abs_err": di["max_abs_err"], "ms": di["ms"],
+         "plain_ms": di["plain_ms"], "bound_ms": di["bound_ms"],
+         "bound_by": di["bound_by"], "library_ms": di["library_ms"],
+         "library": di["library"],
+         "shape": f"{di['shape']} int8 pools, bf16 scales, fp16 q, "
+                  f"lengths {di['lengths_drawn']}",
+         "tolerance": di["tol"], **decode_graph_times(di),
+         "serving_shape": decode_shape_row(di_serve)})
     return rows
 
 
 def fp16_only(card, profile_step=False):
-    """Phase 3's fp16 cases and phases 31-32 alone, with phase 7 (bf16)
+    """Phase 3's fp16 cases and phases 31-35 alone, with phase 7 (bf16)
     first for the step, tokens/s and MFU beside phase 31(a)'s (and, with
     ``profile_step``, both steps profiled)."""
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
     from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
     from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
     from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
     from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
@@ -7450,15 +8129,15 @@ def fp16_only(card, profile_step=False):
     report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
     gen = torch.Generator(device="cuda").manual_seed(0)
     print("fp16 kernels vs plain versions:", flush=True)
-    k3 = check_fp16_kernels(fa, da, gm, ad, gen, report,
+    k3 = check_fp16_kernels(fa, da, gm, ad, bsa, qm, gen, report,
                             GPTNeoXConfig(**NEOX_125M).num_params())
     print("training GPT-NeoX-125M (bf16, phase 7):", flush=True)
     tr = train(fa, ad, report, profile_step=profile_step)
     if profile_step:
         print_profile("bf16 training step (gas 2 x micro 16 x 1024)",
                       tr["profile"], card)
-    phases = run_fp16_phases(fa, da, gm, ad, report, card, bf16=tr,
-                             profile_step=profile_step)
+    phases = run_fp16_phases(fa, da, gm, ad, bsa, qm, report, card,
+                             bf16=tr, profile_step=profile_step)
     report["kernels"] = fp16_kernel_rows(k3, *phases)
     os.makedirs(REPORT_DIR, exist_ok=True)
     with open(os.path.join(REPORT_DIR, "chip_smoke_fp16.json"), "w") as f:
@@ -7497,8 +8176,9 @@ def main():
     ap.add_argument("--sentinel-only", action="store_true",
                     help="run only phases 29-30 (training under failure)")
     ap.add_argument("--fp16-only", action="store_true",
-                    help="run only phase 3's fp16 cases and phases 31-32 "
-                         "(fp16 training and serving)")
+                    help="run only phase 3's fp16 cases and phases 31-35 "
+                         "(fp16 training and serving, fp16 sparse and int8, "
+                         "TiledLinear and a client optimizer)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7595,7 +8275,8 @@ def main():
     axl = check_adam_xl(ad, gen, report)
     gxl = check_gpt2_attention(fa, da, gen, report)
     print("fp16 kernels vs plain versions:", flush=True)
-    k16 = check_fp16_kernels(fa, da, gm, ad, gen, report, n_params)
+    k16 = check_fp16_kernels(fa, da, gm, ad, bsa, qm, gen, report,
+                             n_params)
 
     print("serving GPT-NeoX-125M (bf16):", flush=True)
     sv = serve(fa, da, report)
@@ -7704,7 +8385,7 @@ def main():
     sc, cp = run_chaos_phases(fa, da, qm, report, card)
     chaos = {f"serve_chaos_{v}": sc[v] for v in ("clean", "storm")}
     tsn = run_sentinel_phases(fa, ad, report, card, args.profile)
-    f16 = run_fp16_phases(fa, da, gm, ad, report, card, bf16=tr,
+    f16 = run_fp16_phases(fa, da, gm, ad, bsa, qm, report, card, bf16=tr,
                           profile_step=args.profile)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)

@@ -106,10 +106,51 @@ def _natural(engine, flat, prefix=""):
             for name, lo, hi, shape in engine.param_slices}
 
 
-def _opt_arrays(engine, host):
-    arrays = {"step": np.asarray(engine.opt_state.step, np.int32)}
-    arrays.update(_natural(engine, host["exp_avg"], "exp_avg/"))
-    arrays.update(_natural(engine, host["exp_avg_sq"], "exp_avg_sq/"))
+def _client_state_dict(engine, what):
+    """A client optimizer's ``state_dict(state)`` (`engine.
+    is_client_optimizer`), or a typed error where it has none."""
+    fn = getattr(engine.optimizer, "state_dict", None)
+    if fn is None or not hasattr(engine.optimizer, "load_state_dict"):
+        raise DeepSpeedConfigError(
+            f"{what} needs the client optimizer "
+            f"{type(engine.optimizer).__name__} to have state_dict(state) "
+            f"and load_state_dict(state_dict)")
+    return {k: v for k, v in fn(engine.opt_state).items()
+            if k != "param_groups"}
+
+
+def _is_flat(engine, value):
+    return torch.is_tensor(value) and value.numel() == engine.num_params
+
+
+def _opt_flats(engine, client_sd):
+    """{role: flat device tensor} of the optimizer state: Adam's (and
+    Lamb's) moments, or the flat entries of a client's ``client_sd``
+    under "opt/<key>"."""
+    if client_sd is None:
+        return {"exp_avg": engine.opt_state.exp_avg,
+                "exp_avg_sq": engine.opt_state.exp_avg_sq}
+    return {f"opt/{k}": v for k, v in client_sd.items()
+            if _is_flat(engine, v)}
+
+
+def _opt_arrays(engine, host, client_sd):
+    """The optimizer state as the JAX package's checkpoint keys it: a
+    flat entry split into natural leaves under "<key>/" (Adam's
+    "exp_avg/...", a client's "momentum/..."), the rest (the step) as
+    arrays."""
+    if client_sd is None:
+        arrays = {"step": np.asarray(engine.opt_state.step, np.int32)}
+        arrays.update(_natural(engine, host["exp_avg"], "exp_avg/"))
+        arrays.update(_natural(engine, host["exp_avg_sq"], "exp_avg_sq/"))
+        return arrays
+    arrays = {}
+    for k, v in client_sd.items():
+        if _is_flat(engine, v):
+            arrays.update(_natural(engine, host[f"opt/{k}"], f"{k}/"))
+        else:
+            arrays[k] = np.asarray(v.detach().cpu() if torch.is_tensor(v)
+                                   else v)
     return arrays
 
 
@@ -122,10 +163,11 @@ def snapshot_checkpoint(engine, client_state=None):
     array on the host. Once this returns, training may go on while a
     writer commits the payloads. Payloads are picklable objects (written
     with `save_obj`) or raw ``bytes``."""
+    from ..runtime.engine import is_client_optimizer
     client_state = client_state or {}
-    flats = {"params": engine._params_flat,
-             "exp_avg": engine.opt_state.exp_avg,
-             "exp_avg_sq": engine.opt_state.exp_avg_sq}
+    client_sd = _client_state_dict(engine, "save_checkpoint") \
+        if is_client_optimizer(engine.optimizer) else None
+    flats = {"params": engine._params_flat, **_opt_flats(engine, client_sd)}
     if engine._master is not engine._params_flat:
         flats["master"] = engine._master
     host = _host_flats(engine, flats)
@@ -165,11 +207,11 @@ def snapshot_checkpoint(engine, client_state=None):
     model_state.update(client_state)
     if not engine.zero_optimization():
         model_state["optimizer"] = {
-            "state": state_dict(_opt_arrays(engine, host)),
+            "state": state_dict(_opt_arrays(engine, host, client_sd)),
             "param_groups": _param_groups(engine)}
     payloads = {_model_states_name(0): model_state}
     if engine.keep_master:
-        payloads.update(_zero_payloads(engine, host))
+        payloads.update(_zero_payloads(engine, host, client_sd))
 
     # ship the recovery script with the checkpoint, as the JAX package
     # does: fp32 weights come back later without the framework
@@ -179,10 +221,10 @@ def snapshot_checkpoint(engine, client_state=None):
     return payloads
 
 
-def _zero_payloads(engine, host):
+def _zero_payloads(engine, host, client_sd):
     """The zero file of the one data-parallel rank: every leaf whole
     (dims None, as the JAX package writes a leaf it does not shard)."""
-    opt = _opt_arrays(engine, host)
+    opt = _opt_arrays(engine, host, client_sd)
     master = _natural(engine, host["master"])
     return {_zero_ckpt_name(0, 0): {
         "optimizer_state_dict": {
@@ -336,10 +378,29 @@ def _copy_leaves(engine, dst, arrays, prefix=""):
 
 
 def _load_opt_arrays(engine, arrays, param_groups):
-    _copy_leaves(engine, engine.opt_state.exp_avg, arrays, "exp_avg/")
-    _copy_leaves(engine, engine.opt_state.exp_avg_sq, arrays, "exp_avg_sq/")
-    engine.opt_state = engine.opt_state._replace(
-        step=int(np.asarray(arrays["step"])))
+    from ..runtime.engine import is_client_optimizer
+    if is_client_optimizer(engine.optimizer):
+        # the client's own state_dict says which entries are flat; each
+        # is read into a copy of it, then handed to load_state_dict
+        sd = {}
+        for k, v in _client_state_dict(engine, "load_checkpoint").items():
+            if _is_flat(engine, v):
+                sd[k] = torch.empty_like(v)
+                _copy_leaves(engine, sd[k], arrays, f"{k}/")
+            else:
+                if k not in arrays:
+                    raise KeyError(f"checkpoint missing optimizer entry "
+                                   f"{k!r}")
+                sd[k] = arrays[k].item() if np.ndim(arrays[k]) == 0 \
+                    else torch.as_tensor(np.asarray(arrays[k]))
+        sd["param_groups"] = [dict(g) for g in param_groups]
+        engine.opt_state = engine.optimizer.load_state_dict(sd)
+    else:
+        _copy_leaves(engine, engine.opt_state.exp_avg, arrays, "exp_avg/")
+        _copy_leaves(engine, engine.opt_state.exp_avg_sq, arrays,
+                     "exp_avg_sq/")
+        engine.opt_state = engine.opt_state._replace(
+            step=int(np.asarray(arrays["step"])))
     engine.optimizer.param_groups = [dict(g) for g in param_groups]
 
 

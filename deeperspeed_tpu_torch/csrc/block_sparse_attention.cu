@@ -19,10 +19,11 @@
 // kernels' tile rate on the live tiles only, so each walks a compact
 // per-row LUT and runs the flash kernels' tensor-core tile step.
 //
-// Design (bf16 at D = 64 and 128; the C dispatch picks it at compile time
-// through `takes_mma`, as the flash kernels do; fp32, which the fp32
-// parity runs take, and D = 256, whose accumulators would spill, keep the
-// FMA tile steps of attention_tiles.cuh, bound by FMA throughput):
+// Design (bf16 and fp16 at D = 64 and 128, one template over the 16-bit
+// type T; the C dispatch picks it at compile time through `takes_mma`, as
+// the flash kernels do; fp32, which the fp32 parity runs take, and D =
+// 256, whose accumulators would spill, keep the FMA tile steps of
+// attention_tiles.cuh, bound by FMA throughput):
 //
 // - The TPU kernels group `group_q` row blocks and fan out over `fanout`
 //   key blocks to feed the MXU fat strips (`build_row_union_lut`, with
@@ -43,16 +44,18 @@
 // - The block's own side stays on chip (Q as mma A fragments in the
 //   forward; Q and dO as fragments at D = 64, in shared memory at D = 128
 //   in the dQ; K and V in shared memory in the dK/dV) while the other
-//   side's tiles stream through a 2-stage cp.async ring of bf16 tiles,
+//   side's tiles stream through a 2-stage cp.async ring of 16-bit tiles,
 //   rows padded by 16 bytes for conflict-free ldmatrix.
 // - Every product is mma.sync m16n8k16 with fp32 accumulators
-//   (attention_mma.cuh). The forward runs the base-2 online softmax of
-//   `flash_fwd_mma_kernel` and keeps P, rounded to bf16 as the Pallas
-//   kernel rounds it to v's dtype, in registers as the A operand of P·V.
-//   The backward recomputes P from the lse and forms dS = P∘(dP − Δ)·
-//   scale in registers, rounded to bf16 (the Pallas kernel's
-//   `ds.astype(k.dtype)`) as the A operand of dQ += dS·K (and Pᵀ, dSᵀ of
-//   dV += Pᵀ·dO, dK += dSᵀ·Q).
+//   (attention_mma.cuh; `.bf16.bf16` or `.f16.f16` by T). The forward
+//   runs the base-2 online softmax of `flash_fwd_mma_kernel` and keeps P,
+//   rounded to T as the Pallas kernel rounds it to v's dtype, in
+//   registers as the A operand of P·V. The backward recomputes P from the
+//   lse and forms dS = P∘(dP − Δ)·scale in registers, rounded to T (the
+//   Pallas kernel's `ds.astype(k.dtype)`) as the A operand of dQ += dS·K
+//   (and Pᵀ, dSᵀ of dV += Pᵀ·dO, dK += dSᵀ·Q). Every rounding to fp16 is
+//   to nearest, past 65504 to inf: a loss-scaled dS, dQ, dK or dV that
+//   overflows shows as inf, which the loss scaler's finite check sees.
 // - Under `causal`, a key tile wholly after the q tile (and, for dK/dV, a
 //   q tile wholly before the key tile) is skipped tile by tile before any
 //   load, so no kernel of this design relies on the LUT's order; the
@@ -234,7 +237,7 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core kernels (bf16, D = 64 and 128)
+// the tensor-core kernels (bf16 and fp16, D = 64 and 128)
 // ---------------------------------------------------------------------------
 
 namespace mm = ds::mma_attn;
@@ -242,7 +245,7 @@ namespace mm = ds::mma_attn;
 constexpr int SUB_MMA = GRAIN / mm::BN;  // 64-row tiles a layout block
 static_assert(mm::BM == mm::BN, "q and key tiles share one 64-row grain");
 
-// bytes of dynamic shared memory: `tiles` bf16 64-row tiles, `rows`
+// bytes of dynamic shared memory: `tiles` 16-bit 64-row tiles, `rows`
 // fp32 rows of 64 (the dK/dV ring's lse and delta) and the block's LUT row
 template <int D>
 __host__ __device__ constexpr size_t mma_smem(int tiles, int rows,
@@ -274,22 +277,22 @@ __host__ __device__ constexpr size_t dkv_mma_smem(int max_active) {
 // resolved from the LUT row in shared memory before the current tile's
 // products. S = Q·Kᵀ by mma.sync, the element mask only on tiles that
 // cross the diagonal, the base-2 online softmax over each row's lane
-// quad, P rounded to bf16 in registers as the A operand of O += P·V.
-template <int D>
+// quad, P rounded to T in registers as the A operand of O += P·V.
+template <typename T, int D>
 __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
-    block_sparse_fwd_mma_kernel(const mm::bf16* __restrict__ q,
-                                const mm::bf16* __restrict__ k,
-                                const mm::bf16* __restrict__ v, Lut lut,
-                                mm::bf16* __restrict__ out,
+    block_sparse_fwd_mma_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v, Lut lut,
+                                T* __restrict__ out,
                                 float* __restrict__ lse, int S, int H,
                                 Strides st, float sm_scale, int causal) {
   constexpr int TILE = mm::tile_elems<D>();
   constexpr int LD = mm::ld<D>();
   constexpr int KS = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
-  mm::bf16* Ks = Qs + TILE;      // [2][64][LD]
-  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + TILE;      // [2][64][LD]
+  T* Vs = Ks + 2 * TILE;  // [2][64][LD]
   int* blocks = reinterpret_cast<int*>(Vs + 2 * TILE);  // the LUT row
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, qd = lane % 4;
@@ -297,9 +300,9 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int rb = lut.order[blockIdx.x / SUB_MMA];
   const int q0 = rb * GRAIN + (blockIdx.x % SUB_MMA) * mm::BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
-  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
-  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* kb = k + b * st.ksb + h * st.ksh;
+  const T* vb = v + b * st.vsb + h * st.vsh;
   const float scale2 = sm_scale * mm::LOG2E;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
@@ -396,7 +399,7 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
       }
     }
     unsigned pa[4][4];
-    mm::pack_a<4>(pa, s);
+    mm::pack_a<4, T>(pa, s);
     mm::mma_ab<4, D>(o, pa, Vs + stage * TILE, LD);
     ds::cp_async_wait<0>();  // tile nxt landed
     __syncthreads();         // ... for every warp, and this stage is free
@@ -429,23 +432,23 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
 // registers as the A operands of dV += Pᵀ·dO and dK += dSᵀ·Q. A tile is
 // taken in slices of W q rows (16 at D = 64, 32 at D = 128) to keep the
 // registers of three (two) blocks an SM.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     block_sparse_dkv_mma_kernel(
-        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
-        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        Lut lut_t, mm::bf16* __restrict__ dk, mm::bf16* __restrict__ dv,
+        Lut lut_t, T* __restrict__ dk, T* __restrict__ dv,
         int S, int H, Strides st, float sm_scale, int causal) {
   constexpr int TILE = mm::tile_elems<D>();
   constexpr int LD = mm::ld<D>();
   constexpr int KS = D / 16;
   constexpr int W = D == 64 ? 16 : 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mm::bf16* Ks = reinterpret_cast<mm::bf16*>(smem_raw);
-  mm::bf16* Vs = Ks + TILE;
-  mm::bf16* Qs = Vs + TILE;       // [2][64][LD]
-  mm::bf16* dOs = Qs + 2 * TILE;  // [2][64][LD]
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE;
+  T* Qs = Vs + TILE;       // [2][64][LD]
+  T* dOs = Qs + 2 * TILE;  // [2][64][LD]
   float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][64]
   float* dl_s = lse_s + 2 * mm::BN;                          // [2][64]
   int* blocks = reinterpret_cast<int*>(dl_s + 2 * mm::BN);   // the LUT row
@@ -455,10 +458,10 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int cb = lut_t.order[blockIdx.x / SUB_MMA];  // key block
   const int k0 = cb * GRAIN + (blockIdx.x % SUB_MMA) * mm::BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
-  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
-  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
-  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* kb = k + b * st.ksb + h * st.ksh;
+  const T* vb = v + b * st.vsb + h * st.vsh;
+  const T* db = dout + ((long long)b * S * H + h) * D;
   const float* lse_bh = lse + (long long)bh * S;
   const float* delta_bh = delta + (long long)bh * S;
   const float scale2 = sm_scale * mm::LOG2E;
@@ -505,8 +508,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     if (nxt < n_tiles) load_q_side(nxt, stage ^ 1);  // overlaps this tile
     ds::cp_async_commit();
     const int q0 = q_start(i);
-    const mm::bf16* Qt = Qs + stage * TILE;
-    const mm::bf16* dOt = dOs + stage * TILE;
+    const T* Qt = Qs + stage * TILE;
+    const T* dOt = dOs + stage * TILE;
     const float* lse_t = lse_s + stage * mm::BN;
     const float* dl_t = dl_s + stage * mm::BN;
     const bool masked = causal && k0 + warp * 16 + 15 > q0;
@@ -515,8 +518,9 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
       float s[W / 8][4], dp[W / 8][4];
       mm::zero(s);
       mm::zero(dp);
-      mm::mma_abt<KS, W>(s, mm::SmemA<D>{Ks, warp * 16}, Qt + c0 * LD, LD);
-      mm::mma_abt<KS, W>(dp, mm::SmemA<D>{Vs, warp * 16}, dOt + c0 * LD,
+      mm::mma_abt<KS, W>(s, mm::SmemA<D, T>{Ks, warp * 16}, Qt + c0 * LD,
+                         LD);
+      mm::mma_abt<KS, W>(dp, mm::SmemA<D, T>{Vs, warp * 16}, dOt + c0 * LD,
                          LD);
 #pragma unroll
       for (int j = 0; j < W / 8; ++j) {
@@ -532,8 +536,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
         }
       }
       unsigned pa[W / 16][4], da[W / 16][4];
-      mm::pack_a<W / 16>(pa, s);
-      mm::pack_a<W / 16>(da, dp);
+      mm::pack_a<W / 16, T>(pa, s);
+      mm::pack_a<W / 16, T>(da, dp);
       mm::mma_ab<W / 16, D>(acc_v, pa, dOt + c0 * LD, LD);
       mm::mma_ab<W / 16, D>(acc_k, da, Qt + c0 * LD, LD);
     }
@@ -557,24 +561,24 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
 // tiles of the row block's active column blocks stream through a 2-stage
 // cp.async ring, the LUT row in shared memory. S and dP by mma.sync, a
 // tile taken in two halves of 32 keys; dS = P∘(dP − delta)·scale rounded
-// to bf16 in registers as the A operand of dQ += dS·K.
-template <int D>
+// to T in registers as the A operand of dQ += dS·K.
+template <typename T, int D>
 __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     block_sparse_dq_mma_kernel(
-        const mm::bf16* __restrict__ q, const mm::bf16* __restrict__ k,
-        const mm::bf16* __restrict__ v, const mm::bf16* __restrict__ dout,
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        Lut lut, mm::bf16* __restrict__ dq, int S, int H, Strides st,
+        Lut lut, T* __restrict__ dq, int S, int H, Strides st,
         float sm_scale, int causal) {
   constexpr int TILE = mm::tile_elems<D>();
   constexpr int LD = mm::ld<D>();
   constexpr int KS = D / 16;
   constexpr bool A_REGS = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  mm::bf16* Qs = reinterpret_cast<mm::bf16*>(smem_raw);
-  mm::bf16* dOs = Qs + TILE;
-  mm::bf16* Ks = dOs + TILE;     // [2][64][LD]
-  mm::bf16* Vs = Ks + 2 * TILE;  // [2][64][LD]
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + TILE;
+  T* Ks = dOs + TILE;     // [2][64][LD]
+  T* Vs = Ks + 2 * TILE;  // [2][64][LD]
   int* blocks = reinterpret_cast<int*>(Vs + 2 * TILE);  // the LUT row
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, qd = lane % 4;
@@ -582,10 +586,10 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
   const int rb = lut.order[blockIdx.x / SUB_MMA];
   const int q0 = rb * GRAIN + (blockIdx.x % SUB_MMA) * mm::BM;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const mm::bf16* qb = q + b * st.qsb + h * st.qsh;
-  const mm::bf16* kb = k + b * st.ksb + h * st.ksh;
-  const mm::bf16* vb = v + b * st.vsb + h * st.vsh;
-  const mm::bf16* db = dout + ((long long)b * S * H + h) * D;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* kb = k + b * st.ksb + h * st.ksh;
+  const T* vb = v + b * st.vsb + h * st.vsh;
+  const T* db = dout + ((long long)b * S * H + h) * D;
   const float scale2 = sm_scale * mm::LOG2E;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   float nlse2[2], delta_r[2];  // −lse·log2 e and delta of the two rows
@@ -637,8 +641,8 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
     if (nxt < n_tiles) load_kv(nxt, stage ^ 1);  // overlaps this tile
     ds::cp_async_commit();
     const int k0 = k_start(i);
-    const mm::bf16* Kt = Ks + stage * TILE;
-    const mm::bf16* Vt = Vs + stage * TILE;
+    const T* Kt = Ks + stage * TILE;
+    const T* Vt = Vs + stage * TILE;
     const bool masked = causal && k0 + mm::BN - 1 > q0 + warp * 16;
 #pragma unroll 1  // one half's registers at a time
     for (int half = 0; half < 2; ++half) {
@@ -650,10 +654,10 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
         mm::mma_abt<KS, 32>(s, mm::RegA<KS>{qf}, Kt + c0 * LD, LD);
         mm::mma_abt<KS, 32>(dp, mm::RegA<KS>{df}, Vt + c0 * LD, LD);
       } else {
-        mm::mma_abt<KS, 32>(s, mm::SmemA<D>{Qs, warp * 16}, Kt + c0 * LD,
-                            LD);
-        mm::mma_abt<KS, 32>(dp, mm::SmemA<D>{dOs, warp * 16}, Vt + c0 * LD,
-                            LD);
+        mm::mma_abt<KS, 32>(s, mm::SmemA<D, T>{Qs, warp * 16},
+                            Kt + c0 * LD, LD);
+        mm::mma_abt<KS, 32>(dp, mm::SmemA<D, T>{dOs, warp * 16},
+                            Vt + c0 * LD, LD);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -669,7 +673,7 @@ __global__ void __launch_bounds__(mm::NTM, D == 64 ? 3 : 2)
         }
       }
       unsigned da[2][4];
-      mm::pack_a<2>(da, dp);
+      mm::pack_a<2, T>(da, dp);
       mm::mma_ab<2, D>(acc, da, Kt + c0 * LD, LD);
     }
     ds::cp_async_wait<0>();  // tile nxt landed
@@ -711,7 +715,7 @@ cudaError_t launch(Part part, const Args& a) {
   cudaError_t err;
   if (part == Part::kFwd) {
     if constexpr (mm::takes_mma<T, D>()) {
-      auto kernel = block_sparse_fwd_mma_kernel<D>;
+      auto kernel = block_sparse_fwd_mma_kernel<T, D>;
       const size_t bytes = fwd_mma_smem<D>(a.lut.max_active);
       if ((err = set_smem(kernel, bytes)) != cudaSuccess) return err;
       kernel<<<dim3(a.S / mm::BM, a.B * a.H), mm::NTM, bytes, a.stream>>>(
@@ -732,7 +736,7 @@ cudaError_t launch(Part part, const Args& a) {
   const dim3 grid(a.S / ds::attn::bwd_rows<D>(), a.B * a.H);
   if (part == Part::kDKV) {
     if constexpr (mm::takes_mma<T, D>()) {
-      auto kernel = block_sparse_dkv_mma_kernel<D>;
+      auto kernel = block_sparse_dkv_mma_kernel<T, D>;
       const size_t bytes = dkv_mma_smem<D>(a.lut.max_active);
       if ((err = set_smem(kernel, bytes)) != cudaSuccess) return err;
       kernel<<<dim3(a.S / mm::BM, a.B * a.H), mm::NTM, bytes, a.stream>>>(
@@ -747,7 +751,7 @@ cudaError_t launch(Part part, const Args& a) {
         static_cast<T*>(a.o2), a.S, a.H, a.st, a.sm_scale, a.causal);
   } else {
     if constexpr (mm::takes_mma<T, D>()) {
-      auto kernel = block_sparse_dq_mma_kernel<D>;
+      auto kernel = block_sparse_dq_mma_kernel<T, D>;
       const size_t bytes = dq_mma_smem<D>(a.lut.max_active);
       if ((err = set_smem(kernel, bytes)) != cudaSuccess) return err;
       kernel<<<dim3(a.S / mm::BM, a.B * a.H), mm::NTM, bytes, a.stream>>>(
@@ -782,6 +786,7 @@ int run(Part part, const Args& a, int D, int dtype) {
   if (a.S % GRAIN != 0) return cudaErrorInvalidValue;
   if (dtype == ds::DTYPE_F32) return dispatch_d<float>(D, part, a);
   if (dtype == ds::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, part, a);
+  if (dtype == ds::DTYPE_F16) return dispatch_d<__half>(D, part, a);
   return cudaErrorInvalidValue;
 }
 
@@ -873,11 +878,14 @@ extern "C" int ds_block_sparse_info(int part, int D, int max_active,
   auto query_d = [&](auto d) {
     constexpr int DD = decltype(d)::value;
     if (part == 0)
-      query(block_sparse_fwd_mma_kernel<DD>, fwd_mma_smem<DD>(max_active));
+      query(block_sparse_fwd_mma_kernel<mm::bf16, DD>,
+            fwd_mma_smem<DD>(max_active));
     else if (part == 1)
-      query(block_sparse_dkv_mma_kernel<DD>, dkv_mma_smem<DD>(max_active));
+      query(block_sparse_dkv_mma_kernel<mm::bf16, DD>,
+            dkv_mma_smem<DD>(max_active));
     else if (part == 2)
-      query(block_sparse_dq_mma_kernel<DD>, dq_mma_smem<DD>(max_active));
+      query(block_sparse_dq_mma_kernel<mm::bf16, DD>,
+            dq_mma_smem<DD>(max_active));
   };
   if (max_active < 1) return cudaErrorInvalidValue;
   if (D == 64)

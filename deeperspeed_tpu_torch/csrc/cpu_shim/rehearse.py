@@ -206,13 +206,13 @@ def rel_err(got, want):
                                                       1e-30)
 
 
-def check_quant_matmul(gen):
+def check_quant_matmul(gen, dtype=torch.bfloat16):
     plans = set()
     for M, K, N in ((16, 256, 256), (7, 104, 80), (20, 128, 128),
                     (64, 192, 256), (130, 128, 256), (16, 1024, 128),
                     (256, 512, 128), (1, 64, 16), (100, 128, 128),
                     (300, 192, 256)):
-        x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
+        x = torch.randn(M, K, generator=gen).to(dtype)
         qw = qm.quantize_weight(0.02 * torch.randn(K, N, generator=gen))
         plan = qm.launch_plan(M, N, K)
         plans.add(plan[:2])
@@ -231,7 +231,7 @@ def check_quant_matmul(gen):
     for M, K, N, plan in ((300, 256, 256, (256, 1)), (40, 256, 128, (64, 4)),
                           (200, 512, 128, (128, 2))):
         qm.launch_plan = lambda *a, plan=plan: plan + (0,)
-        x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
+        x = torch.randn(M, K, generator=gen).to(dtype)
         qw = qm.quantize_weight(0.02 * torch.randn(K, N, generator=gen))
         err = rel_err(qm.quant_matmul_cuda(x, qw),
                       qm.quant_matmul_reference(x, qw))
@@ -241,13 +241,14 @@ def check_quant_matmul(gen):
         if err > 2e-2:
             fail(f"int8 matmul M={M} K={K} N={N} plan {plan}: rel err {err}")
     qm.launch_plan = orig
-    # every int8 value widens exactly: y[m, n] = bf16(q[m, n] * scale[n])
+    # every int8 value widens exactly: y[m, n] = x's dtype(q[m, n] *
+    # scale[n])
     for M in (16, 200):
         K, N = 256, 128
         q = (torch.arange(K * N) % 256 - 128).to(torch.int8).reshape(K, N)
         scale = torch.rand(N, generator=gen) + 0.5
         qw = qm.QuantizedWeight(q, scale)
-        x = torch.zeros(M, K, dtype=torch.bfloat16)
+        x = torch.zeros(M, K, dtype=dtype)
         x[torch.arange(M), torch.arange(M) % K] = 1.0
         got = qm.quant_matmul_cuda(x, qw)
         want = qm.quant_matmul_reference(x, qw)
@@ -255,7 +256,37 @@ def check_quant_matmul(gen):
             fail(f"int8 conversion readout (M={M}): "
                  f"{int((got != want).sum())} mismatches")
         print(f"  quant_matmul int8 readout M={M}: bit-equal", flush=True)
+    if dtype == torch.float16:
+        _quant_matmul_overflow(gen)
     print(f"  plans covered: {sorted(plans)}", flush=True)
+
+
+def _quant_matmul_overflow(gen):
+    """fp16 x whose products pass 65504 in some columns: the kernel's
+    fp16 output is inf exactly where the plain version's is (the scaled
+    fp32 sum rounded once, to nearest), on a lone CTA and a cluster."""
+    for M, K, N in ((16, 256, 128), (200, 512, 128)):
+        x = torch.randn(M, K, generator=gen).to(torch.float16)
+        qw = qm.quantize_weight(0.02 * torch.randn(K, N, generator=gen))
+        qw.scale[::3] *= 4e5
+        got = qm.quant_matmul_cuda(x, qw)
+        want = qm.quant_matmul_reference(x, qw)
+        inf_got, inf_want = torch.isinf(got), torch.isinf(want)
+        # a sum within 1e-3 of fp16's overflow threshold may round either
+        # way by its summation order
+        y = torch.matmul(x.float(), qw.qval.float()) * qw.scale
+        near = ((y.abs() - 65520.0).abs() <= 65.52)
+        mism = int(((inf_got != inf_want) & ~near).sum())
+        fin = ~inf_want & ~near
+        err = float((got.float()[fin] - want.float()[fin]).abs().max() /
+                    want.float()[fin].abs().max())
+        print(f"  quant_matmul fp16 overflow M={M}: {int(inf_want.sum())} "
+              f"inf in the plain version, {int(inf_got.sum())} in the "
+              f"kernel, {mism} mismatched; finite rel err {err:.2e}",
+              flush=True)
+        if mism or not int(inf_want.sum()) or err > 2e-2:
+            fail(f"int8 matmul fp16 overflow M={M}: {mism} mismatched inf, "
+                 f"rel err {err}")
 
 
 def _gmm_inputs(gen, sizes, span, K, N, W):
@@ -331,12 +362,12 @@ def check_grouped_matmul_dw(gen):
              f"{calls} on wgmma")
 
 
-def _dkv_case(gen, layout, causal, D, S, B=1):
-    """q, k, v, dO (bf16) and the plain forward's out and lse on a layout
-    → the kernel's (dk, dv), a second call's (on causal layouts, else
-    the first's) and the plain backward's (dk, dv)."""
+def _dkv_case(gen, layout, causal, D, S, B=1, dtype=torch.bfloat16):
+    """q, k, v, dO (bf16 or fp16) and the plain forward's out and lse on a
+    layout → the kernel's (dk, dv), a second call's (on causal layouts,
+    else the first's) and the plain backward's (dk, dv)."""
     H = layout.shape[0]
-    q, k, v, do = (torch.randn(B, S, H, D, generator=gen).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen).to(dtype)
                    for _ in range(4))
     luts = bsa.LayoutLuts(layout)
     out, lse = bsa.block_sparse_attention_reference(q, k, v, luts, causal)
@@ -397,12 +428,18 @@ def _sparse_luts(layout, reverse):
     return luts
 
 
-def _sparse_qkv(gen, B, S, H, D):
-    """bf16 q, k, v as views split out of one [B, S, H, 3D] projection
-    (the main path's strides), and dO."""
-    qkv = torch.randn(B, S, H, 3 * D, generator=gen).to(torch.bfloat16)
+def _sparse_qkv(gen, B, S, H, D, dtype=torch.bfloat16):
+    """q, k, v (bf16 or fp16) as views split out of one [B, S, H, 3D]
+    projection (the main path's strides), and dO."""
+    qkv = torch.randn(B, S, H, 3 * D, generator=gen).to(dtype)
     q, k, v = qkv.split(D, dim=-1)
-    return q, k, v, torch.randn(B, S, H, D, generator=gen).to(torch.bfloat16)
+    return q, k, v, torch.randn(B, S, H, D, generator=gen).to(dtype)
+
+
+# chip_smoke's TOL / TOL_BWD (bf16) and TOL_FP16 for the block-sparse
+# kernels: out, dq / dk / dv as (atol, rtol)
+TOL_SPARSE = {torch.bfloat16: ((2e-2, 2e-2), (3e-2, 3e-2)),
+              torch.float16: ((1e-2, 1e-2), (3e-2, 3e-2))}
 
 
 def _dead(x, dead, B, H, S):
@@ -414,18 +451,21 @@ def _dead(x, dead, B, H, S):
                       for h, rb in dead])
 
 
-def check_block_sparse_fwd(gen):
-    """The bf16 forward at D = 64 and 128 against the plain version:
-    out within chip_smoke's TOL (2e-2, 2e-2), lse within 1e-3, dead rows
-    exact zeros with lse = +1e30, two calls bit-identical, every launch
-    counted as "mma"."""
+def check_block_sparse_fwd(gen, dtype=torch.bfloat16, reversed_luts=True):
+    """The bf16 (or fp16) forward at D = 64 and 128 against the plain
+    version: out within chip_smoke's TOL (bf16 2e-2, 2e-2; fp16 1e-2,
+    1e-2), lse within 1e-3, dead rows exact zeros with lse = +1e30, two
+    calls bit-identical, every launch counted as "mma"."""
     bsa.reset_design_launches()
     B, S, H = 1, 512, 2
     calls = 0
+    atol, rtol = TOL_SPARSE[dtype][0]
     for D in (64, 128):
         for name, layout, causal, dead, reverse in _sparse_cases():
+            if reverse and not reversed_luts:
+                continue
             luts = _sparse_luts(layout, reverse)
-            q, k, v, _ = _sparse_qkv(gen, B, S, H, D)
+            q, k, v, _ = _sparse_qkv(gen, B, S, H, D, dtype)
             out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, causal)
             out2, lse2 = bsa.block_sparse_attention_cuda(q, k, v, luts,
                                                          causal)
@@ -435,14 +475,15 @@ def check_block_sparse_fwd(gen):
             err_o = (out.float() - ref_out.float()).abs()
             err_l = (lse - ref_lse).abs()
             live = ref_lse < 1e29
-            ok = bool((err_o <= 2e-2 + 2e-2 * ref_out.float().abs()).all()) \
+            ok = bool((err_o <= atol + rtol * ref_out.float().abs()).all()) \
                 and bool((err_l[live] <= 1e-3).all()) and \
-                bool(torch.isfinite(out).all())
+                bool(torch.isfinite(out).all()) and out.dtype == dtype
             zero = bool((_dead(out, dead, B, H, S) == 0).all()) and \
                 bool((_dead(lse, dead, B, H, S) == 1e30).all()) and \
                 bool((lse[~live] == 1e30).all())
             same = torch.equal(out, out2) and torch.equal(lse, lse2)
-            print(f"  block_sparse_fwd D={D} {name}: max abs err out "
+            print(f"  block_sparse_fwd {str(dtype)[6:]} D={D} {name}: max "
+                  f"abs err out "
                   f"{float(err_o.max()):.2e}, lse "
                   f"{float(err_l[live].max()):.2e}; dead rows exact zero, "
                   f"lse +1e30: {zero}; two calls bit-identical {same}",
@@ -455,18 +496,21 @@ def check_block_sparse_fwd(gen):
     _check_designs("fwd", calls)
 
 
-def check_block_sparse_dq(gen):
-    """The bf16 dq at D = 64 and 128 against the plain backward from the
-    plain forward's (out, lse): within chip_smoke's bf16 TOL_BWD (3e-2,
-    3e-2), dead rows exact zeros, two calls bit-identical, every launch
-    counted as "mma"."""
+def check_block_sparse_dq(gen, dtype=torch.bfloat16, reversed_luts=True):
+    """The bf16 (or fp16) dq at D = 64 and 128 against the plain backward
+    from the plain forward's (out, lse): within chip_smoke's TOL_BWD
+    (3e-2, 3e-2), dead rows exact zeros, two calls bit-identical, every
+    launch counted as "mma"."""
     bsa.reset_design_launches()
     B, S, H = 1, 512, 2
     calls = 0
+    atol, rtol = TOL_SPARSE[dtype][1]
     for D in (64, 128):
         for name, layout, causal, dead, reverse in _sparse_cases():
+            if reverse and not reversed_luts:
+                continue
             luts = _sparse_luts(layout, reverse)
-            q, k, v, do = _sparse_qkv(gen, B, S, H, D)
+            q, k, v, do = _sparse_qkv(gen, B, S, H, D, dtype)
             out, lse = bsa.block_sparse_attention_reference(q, k, v, luts,
                                                             causal)
             delta = fa.attention_delta(out, do)
@@ -478,11 +522,12 @@ def check_block_sparse_dq(gen):
             want = bsa.block_sparse_attention_bwd_reference(
                 q, k, v, out, lse, do, luts, causal)[0]
             err = (dq.float() - want.float()).abs()
-            ok = bool((err <= 3e-2 + 3e-2 * want.float().abs()).all()) and \
-                bool(torch.isfinite(dq).all())
+            ok = bool((err <= atol + rtol * want.float().abs()).all()) and \
+                bool(torch.isfinite(dq).all()) and dq.dtype == dtype
             zero = bool((_dead(dq, dead, B, H, S) == 0).all())
             same = torch.equal(dq, dq2)
-            print(f"  block_sparse_dq D={D} {name}: max abs err "
+            print(f"  block_sparse_dq {str(dtype)[6:]} D={D} {name}: max "
+                  f"abs err "
                   f"{float(err.max()):.2e}; dead rows exact zero {zero}; "
                   f"two calls bit-identical {same}", flush=True)
             if not (ok and zero and same):
@@ -500,28 +545,31 @@ def _check_designs(part, calls):
              f"{want}")
 
 
-def check_block_sparse_dkv(gen):
+def check_block_sparse_dkv(gen, dtype=torch.bfloat16):
     bsa.reset_design_launches()
     S, n = 512, 4
     causal_layout, bidir = _sparse_layouts(n)
     calls = 0
+    atol, rtol = TOL_SPARSE[dtype][1]
     for D in (64, 128):
         for name, layout, causal, dead_keys in (
                 ("causal fixed", causal_layout, True, ((0, 2), (1, 3))),
                 ("bidirectional dead row", bidir, False, ())):
             (dk, dv), (dk2, dv2), (rk, rv) = _dkv_case(gen, layout, causal,
-                                                       D, S)
+                                                       D, S, dtype=dtype)
             calls += 2 if causal else 1
             ok, errs = True, []
             for g, w in ((dk, rk), (dv, rv)):
                 err = (g.float() - w.float()).abs()
                 errs.append(float(err.max()))
-                ok = ok and bool((err <= 3e-2 + 3e-2 * w.float().abs())
-                                 .all()) and bool(torch.isfinite(g).all())
+                ok = ok and bool((err <= atol + rtol * w.float().abs())
+                                 .all()) and bool(torch.isfinite(g).all()) \
+                    and g.dtype == dtype
             zero = all(bool((g[:, kb * 128:(kb + 1) * 128, h] == 0).all())
                        for h, kb in dead_keys for g in (dk, dv))
             same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
-            print(f"  block_sparse_dkv D={D} {name}: max abs err dk "
+            print(f"  block_sparse_dkv {str(dtype)[6:]} D={D} {name}: max "
+                  f"abs err dk "
                   f"{errs[0]:.2e}, dv {errs[1]:.2e}; unattended key blocks "
                   f"exact zero {zero}; two calls bit-identical {same}",
                   flush=True)
@@ -701,6 +749,55 @@ def check_adam_fp16(gen):
         fail(f"adam fp16 launches by variant {ad.variant_launches}")
 
 
+def check_block_sparse_fp16(gen):
+    """The three block-sparse kernels in fp16 (the forward, dq and dk/dv
+    checks above at D = 64 and 128, within chip_smoke's TOL_FP16; the
+    reversed LUT rows, which test the causal skip and not the element
+    type, are left to the bf16 families), then
+    an overflowing loss-scaled backward: dO at fp16's full scale on head
+    0 and v at 8x, so that dS passes 65504: dq, dk and dv non-finite
+    exactly where the plain version's are, leaving out the elements
+    `fp16_overflow_undecided` marks, on head 0 only."""
+    check_block_sparse_fwd(gen, torch.float16, reversed_luts=False)
+    check_block_sparse_dq(gen, torch.float16, reversed_luts=False)
+    check_block_sparse_dkv(gen, torch.float16)
+    B, S, H, D = 1, 256, 2, 64
+    layout = np.ones((H, 2, 2), np.int64)
+    luts = bsa.LayoutLuts(layout)
+    q, k, v, _ = _sparse_qkv(gen, B, S, H, D, torch.float16)
+    v = (v.float() * 8).to(torch.float16)
+    out, lse = bsa.block_sparse_attention_cuda(q, k, v, luts, True)
+    do = torch.randn(B, S, H, D, generator=gen)
+    do[:, :, 0] = (do[:, :, 0] * 20000).clamp(-60000, 60000)
+    do = do.to(torch.float16)
+    delta = fa.attention_delta(out, do)
+    got = bsa.block_sparse_attention_bwd_cuda(q, k, v, lse, do, delta, luts,
+                                              True)
+    want = bsa.block_sparse_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    luts, True)
+    undecided = fa.fp16_overflow_undecided(
+        q, k, v, out, lse, do, layout=torch.as_tensor(layout))
+    row = {}
+    for name, g, w, u in zip(("dq", "dk", "dv"), got, want, undecided):
+        gi, wi = ~torch.isfinite(g), ~torch.isfinite(w)
+        row[name] = (int(gi.sum()), int(wi.sum()),
+                     int(((gi != wi) & ~u).sum()), int(gi[:, :, 1].sum()))
+    print(f"  block_sparse fp16 overflow (non-finite kernel, plain, "
+          f"mismatched, on head 1): {row}; forward finite "
+          f"{bool(torch.isfinite(out).all())}", flush=True)
+    if not (torch.isfinite(out).all() and row["dq"][0] and row["dk"][0] and
+            all(r[2] == 0 and r[3] == 0 for r in row.values())):
+        fail(f"block-sparse fp16 overflow: {row}")
+
+
+def check_quant_matmul_fp16(gen):
+    check_quant_matmul(gen, torch.float16)
+
+
+def check_paged_decode_int8_fp16(gen):
+    _check_decode(gen, int8=True, q_dtypes=(torch.float16,))
+
+
 FAMILIES = {
     "quant_matmul": (("quant_matmul.cu",), check_quant_matmul,
                      "int8 matmul (wgmma)"),
@@ -729,6 +826,16 @@ FAMILIES = {
                           "split-KV)"),
     "adam_fp16": (("adam.cu",), check_adam_fp16,
                   "flat Adam(W), the fp16 variants (classic and lean)"),
+    "block_sparse_fp16": (("block_sparse_attention.cu",),
+                          check_block_sparse_fp16,
+                          "block-sparse forward, dQ and dK/dV in fp16 "
+                          "(mma.sync f16), and a loss-scaled overflow"),
+    "quant_matmul_fp16": (("quant_matmul.cu",), check_quant_matmul_fp16,
+                          "int8 matmul with fp16 activations (wgmma f16)"),
+    "paged_decode_int8_fp16": (("paged_decode.cu",),
+                               check_paged_decode_int8_fp16,
+                               "paged decode over int8 pools with fp16 q "
+                               "(cluster split-KV)"),
 }
 
 
@@ -736,12 +843,20 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=sorted(FAMILIES),
                     help="rehearse one kernel family")
+    ap.add_argument("--generator-state", metavar="FILE",
+                    help="start the families' generator from this state "
+                         "(the bytes of torch.Generator.get_state()) "
+                         "instead of seed 0")
     args = ap.parse_args()
     torch.set_num_threads(2)
     names = [args.only] if args.only else list(FAMILIES)
     sources = sorted({s for n in names for s in FAMILIES[n][0]})
     load(build(sources))
     gen = torch.Generator().manual_seed(0)
+    if args.generator_state:
+        gen.set_state(torch.frombuffer(
+            bytearray(Path(args.generator_state).read_bytes()),
+            dtype=torch.uint8))
     for name in names:
         print(f"{FAMILIES[name][2]}, under the shim:", flush=True)
         FAMILIES[name][1](gen)

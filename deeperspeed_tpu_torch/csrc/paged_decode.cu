@@ -17,7 +17,7 @@
 // flight decide the time. Two designs:
 //
 // `paged_decode_cluster_kernel` (bf16 pools with bf16 q, fp16 pools with
-// fp16 q, int8 pools with bf16 or fp32 q, at D = 64 and 128; the
+// fp16 q, int8 pools with bf16, fp16 or fp32 q, at D = 64 and 128; the
 // wrapper's "cluster" design; fp16 pools run the bf16 kernel with the
 // element type swapped, the output rounded to nearest fp16):
 //
@@ -654,8 +654,9 @@ extern "C" int ds_paged_decode(const void* q, long long qsb, long long qsh,
 // The int8 pools of kv_cache_dtype "int8": k_pages/v_pages int8 as above,
 // k_scales/v_scales: one layer's [P, H, page_size] bf16 scale pool
 // through (page, head) strides, slot contiguous; q and out in `dtype`.
-// `cluster` as above, for fp32 or bf16 q at D 64/128; the cluster kernel
-// also needs 16-byte aligned scale pools and scale strides.
+// `cluster` as above, for fp32, bf16 or fp16 q at D 64/128; the cluster
+// kernel also needs 16-byte aligned scale pools and scale strides. The
+// scales stay bf16 whatever q's dtype, as the JAX package makes them.
 extern "C" int ds_paged_decode_int8(
     const void* q, long long qsb, long long qsh, const void* k_pages,
     const void* v_pages, long long sp, long long sh, long long ss,
@@ -676,11 +677,14 @@ extern "C" int ds_paged_decode_int8(
       return dispatch_cluster<float, int8_t>(D, a, cluster, cs);
     if (dtype == ds::DTYPE_BF16)
       return dispatch_cluster<__nv_bfloat16, int8_t>(D, a, cluster, cs);
+    if (dtype == ds::DTYPE_F16)
+      return dispatch_cluster<__half, int8_t>(D, a, cluster, cs);
     return cudaErrorInvalidValue;
   }
   if (dtype == ds::DTYPE_F32) return dispatch_d<float, int8_t>(D, a, cs);
   if (dtype == ds::DTYPE_BF16)
     return dispatch_d<__nv_bfloat16, int8_t>(D, a, cs);
+  if (dtype == ds::DTYPE_F16) return dispatch_d<__half, int8_t>(D, a, cs);
   return cudaErrorInvalidValue;
 }
 

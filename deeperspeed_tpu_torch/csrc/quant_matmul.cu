@@ -1,30 +1,32 @@
 // Weight-only int8 matmul for sm_90a: y[m, n] = (sum_k x[m, k] * q[k, n])
-// * scale[n], fp32 accumulation, y in x's dtype (fp32 or bf16).
+// * scale[n], fp32 accumulation, y in x's dtype (fp32, bf16 or fp16).
 //
 // Replaces the TPU kernel `_wq_kernel` of
 // deeperspeed_tpu/ops/pallas/quant_matmul.py (launched by
 // `quant_matmul_pallas`). As there, the int8 weight crosses device memory
 // at one byte an element and is widened on chip, and the per-channel
 // scale, which commutes with the contraction, multiplies the fp32 sum
-// once in the epilogue. int8 -> bf16 and bf16 -> fp32 are exact, so the
-// products are exact and only the summation order differs from the plain
-// version.
+// once in the epilogue. int8 -> bf16 or fp16 and either -> fp32 are
+// exact, so the products are exact and only the summation order differs
+// from the plain version.
 //
 // Bound on the H100: at decode (M = 16 rows, one per sequence) each
 // weight byte feeds 2 * 16 flops, far below the ~295 flops a byte at
 // which the tensor cores would become the limit, so the weight bytes
 // bound it; at a large prefill (M = 4096) it is the flops. Design:
 //
-// - bf16 x (16-byte aligned rows, N % 16 == 0, K % 8 == 0): one launch of
-//   `qmm_wgmma_kernel` (csrc/hopper_gemm.cuh), which computes yᵀ: a CTA
+// - bf16 or fp16 x (16-byte aligned rows, N % 16 == 0, K % 8 == 0): one
+//   launch of `qmm_wgmma_kernel<T, TN>` (csrc/hopper_gemm.cuh; T the
+//   16-bit type, wgmma `.bf16` or `.f16`), which computes yᵀ: a CTA
 //   owns 128 weight columns by a tile of 16, 32, 64, 128 or 256 token
 //   rows (the wrapper's plan). One producer thread keeps a ring of up to
-//   8 stages of TMA loads in flight (the x tile, bf16, 128-byte swizzle,
-//   and the int8 weight tile [64 k][128 n]). Each of two consumer
+//   8 stages of TMA loads in flight (the x tile, 16-bit, 128-byte
+//   swizzle, and the int8 weight tile [64 k][128 n]). Each of two consumer
 //   warpgroups widens its 64 columns of every int8 tile into a swizzled
-//   bf16 tile in shared memory (byte permutes into fp32 words with the
-//   exponent of 2^23, one subtraction, the high halves packed: exact for
-//   -128..127; double-buffered), fences it for the async proxy and runs
+//   tile of T in shared memory (byte permutes into fp32 words with the
+//   exponent of 2^23 and one subtraction, exact for -128..127; bf16 packs
+//   the high halves, fp16 converts each pair, exact for integers up to
+//   2048; double-buffered), fences it for the async proxy and runs
 //   wgmma m64nTk16 with that tile as the MN-major A and the x tile as the
 //   K-major B, fp32 accumulators in registers. So 16 decode rows are
 //   wgmma's N and waste nothing.
@@ -34,7 +36,9 @@
 //   pushes its fp32 partial of those rows into its own slot of rank r's
 //   buffer through distributed shared memory, one cluster barrier, then
 //   rank r sums the slots in rank order (bit-identical from call to
-//   call), scales, casts and stores. No workspace, no second kernel: one
+//   call), scales, casts and stores. The order is JAX's (`_wq_kernel`):
+//   the fp32 sum, then the fp32 scale, then one rounding to x's dtype
+//   (to nearest; fp16 past 65504 to inf). No workspace, no second kernel: one
 //   launch a call. A lone CTA scales and casts in registers and stores
 //   its tile through shared memory as 16-byte chunks.
 // - FMA path for fp32 x (exact fp32 products, as the plain version):
@@ -42,7 +46,7 @@
 //   tile read with 16-byte loads where N allows, widened once), 4 x 4
 //   outputs a thread.
 // - TMA zero-fills the ragged M, N and K edges; stores are bounded by M
-//   and N. bf16 inputs that TMA cannot read (unaligned base, row stride
+//   and N. 16-bit inputs that TMA cannot read (unaligned base, row stride
 //   or N) are refused (the wrapper raises first); every GPT-NeoX block
 //   matmul meets the conditions.
 #include <cstdint>
@@ -178,16 +182,13 @@ struct QwLayout {
   static_assert(2 * TN * OUT_LD * 2 <= STAGES * STAGE, "output tile");
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// four int8 (one word, the lower k or n in the low byte) -> two bf16x2
-// words: each byte, offset to unsigned, becomes the low byte of the fp32
-// word 0x4B0000uu = 2^23 + uu; subtracting 2^23 + 128 gives the integer
-// exactly, and an integer of at most 8 significant bits has a zero low
-// half, so the high half is its exact bf16
+// four int8 (one word, the lower k or n in the low byte) -> two pairs of
+// T (bf16x2 or half2) words: each byte, offset to unsigned, becomes the
+// low byte of the fp32 word 0x4B0000uu = 2^23 + uu; subtracting 2^23 +
+// 128 gives the integer exactly. bf16: an integer of at most 8
+// significant bits has a zero low half, so the high half is its exact
+// bf16; fp16: each pair converted (exact: |integer| <= 128 < 2048)
+template <typename T>
 __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
                                        uint32_t& hi) {
   const uint32_t u = w ^ 0x80808080u;
@@ -196,13 +197,19 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
   for (int i = 0; i < 4; ++i)
     f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u | i)) -
            8388736.f;
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
+  if constexpr (std::is_same<T, __half>::value) {
+    lo = ds::pack2<__half>(f[0], f[1]);
+    hi = ds::pack2<__half>(f[2], f[3]);
+  } else {
+    lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u);
+    hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
+  }
 }
 
-// warpgroup cw's 64 columns of the int8 stage [64 k][128 n] -> its bf16
-// block [k][64] of w, each 128-byte k line swizzled; t is the thread's
+// warpgroup cw's 64 columns of the int8 stage [64 k][128 n] -> its block
+// [k][64] of T in w, each 128-byte k line swizzled; t is the thread's
 // index in the warpgroup
+template <typename T>
 __device__ __forceinline__ void widen_half(const unsigned char* q,
                                            unsigned char* w, int cw, int t) {
 #pragma unroll
@@ -212,10 +219,10 @@ __device__ __forceinline__ void widen_half(const unsigned char* q,
     const uint4 v =
         *reinterpret_cast<const uint4*>(q + r * QW_WN + cw * 64 + c);
     uint4 a, b;
-    widen4(v.x, a.x, a.y);
-    widen4(v.y, a.z, a.w);
-    widen4(v.z, b.x, b.y);
-    widen4(v.w, b.z, b.w);
+    widen4<T>(v.x, a.x, a.y);
+    widen4<T>(v.y, a.z, a.w);
+    widen4<T>(v.z, b.x, b.y);
+    widen4<T>(v.w, b.z, b.w);
     const int ch = c >> 3;
     unsigned char* line = w + cw * (QW_BK * 128) + r * 128;
     *reinterpret_cast<uint4*>(line + ((ch ^ (r & 7)) << 4)) = a;
@@ -227,11 +234,11 @@ __device__ __forceinline__ void widen_half(const unsigned char* q,
 // k tiles of its cluster rank. Warpgroup cw's A is its 64 widened weight
 // columns (MN-major), the B of both is the x tile (K-major, TMA): wgmma
 // m64nTNk16.
-template <int TN>
+template <typename T, int TN>
 __global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap qmap, const float* __restrict__ scale,
-    bf16* __restrict__ y, int M, int N, int K, int k_per_rank) {
+    T* __restrict__ y, int M, int N, int K, int k_per_rank) {
   using L = QwLayout<TN>;
   constexpr int S = L::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -293,7 +300,7 @@ __global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
     const unsigned char* st = ring + pos.stage * L::STAGE;
     // the widened buffer of stage i - 2 is free: wgmma_wait<1> of step i - 1
     unsigned char* w = smem + (i & 1) * L::W_BYTES;
-    widen_half(st + L::Q_OFF, w, cw, t);
+    widen_half<T>(st + L::Q_OFF, w, cw, t);
     hp::fence_proxy_async();
     hp::named_bar_sync(1 + cw, 128);
     hp::wgmma_fence();
@@ -302,7 +309,7 @@ __global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
       const uint64_t da = hp::sw128_desc(
           w + cw * QW_BK * 128 + kk * 2048, QW_BK * 128, 1024);
       const uint64_t db = hp::sw128_desc(st + kk * 32, 0, 1024);
-      hp::wgmma<TN, 1, 0>(acc, da, db);
+      hp::wgmma<TN, 1, 0, T>(acc, da, db);
     }
     hp::wgmma_commit();
     hp::wgmma_wait<1>();          // the previous stage's products are done
@@ -313,14 +320,13 @@ __global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
   hp::fence_operand(acc);
 
   if (cs == 1) {
-    // A lone CTA: scale and cast in registers, stage each warpgroup's bf16
-    // [TN][64] tile in the ring (free once both warpgroups are done), and
-    // store it as 16-byte chunks of y's rows.
+    // A lone CTA: scale and cast in registers, stage each warpgroup's
+    // [TN][64] tile of T in the ring (free once both warpgroups are done),
+    // and store it as 16-byte chunks of y's rows.
     const float s0 = n0 + c0 < N ? scale[n0 + c0] : 0.f;
     const float s1 = n0 + c0 + 8 < N ? scale[n0 + c0 + 8] : 0.f;
     hp::named_bar_sync(3, QW_CONSUMERS);
-    bf16* tile = reinterpret_cast<bf16*>(smem + L::RING_OFF) +
-                 cw * TN * L::OUT_LD;
+    T* tile = reinterpret_cast<T*>(smem + L::RING_OFF) + cw * TN * L::OUT_LD;
 #pragma unroll
     for (int j = 0; j < TN / 8; ++j)
 #pragma unroll
@@ -328,7 +334,7 @@ __global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
         const int r = 8 * j + 2 * q4 + (e & 1);
         const int c = wi * 16 + g + (e >= 2 ? 8 : 0);
         tile[r * L::OUT_LD + c] =
-            __float2bfloat16(acc[4 * j + e] * (e >= 2 ? s1 : s0));
+            ds::from_float<T>(acc[4 * j + e] * (e >= 2 ? s1 : s0));
       }
     hp::named_bar_sync(1 + cw, 128);
 #pragma unroll 4
@@ -400,25 +406,28 @@ __global__ void __launch_bounds__(QW_THREADS, 1) qmm_wgmma_kernel(
         const int n = n0 + (it % ITEM_ROW) * 4;
         if (it >= items || m >= M || n >= N) continue;
         uint2 o;
-        o.x = pack_bf16x2(sum[u].x * sc[u].x, sum[u].y * sc[u].y);
-        o.y = pack_bf16x2(sum[u].z * sc[u].z, sum[u].w * sc[u].w);
+        o.x = ds::pack2<T>(sum[u].x * sc[u].x, sum[u].y * sc[u].y);
+        o.y = ds::pack2<T>(sum[u].z * sc[u].z, sum[u].w * sc[u].w);
         *reinterpret_cast<uint2*>(y + (long long)m * N + n) = o;
       }
     }
   }
 }
 
-template <int TN>
-cudaError_t launch_wgmma(const bf16* x, long long ldx, const int8_t* q,
-                         const float* scale, bf16* y, int M, int N, int K,
+template <typename T, int TN>
+cudaError_t launch_wgmma(const T* x, long long ldx, const int8_t* q,
+                         const float* scale, T* y, int M, int N, int K,
                          int cluster, cudaStream_t stream) {
   using L = QwLayout<TN>;
   CUtensorMap xm, qm;
   const uint64_t xd[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
   const uint64_t xs[1] = {static_cast<uint64_t>(ldx) * 2};
   const uint32_t xb[2] = {QW_BK, TN};
-  cudaError_t err = hp::tensor_map(&xm, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                                   2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B);
+  cudaError_t err = hp::tensor_map(
+      &xm, x,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const uint64_t qd[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
   const uint64_t qs[1] = {static_cast<uint64_t>(N)};
@@ -428,7 +437,7 @@ cudaError_t launch_wgmma(const bf16* x, long long ldx, const int8_t* q,
   if (err != cudaSuccess) return err;
   static bool ready = false;
   if (!ready) {
-    err = cudaFuncSetAttribute(qmm_wgmma_kernel<TN>,
+    err = cudaFuncSetAttribute(qmm_wgmma_kernel<T, TN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::SMEM);
     if (err != cudaSuccess) return err;
@@ -447,8 +456,35 @@ cudaError_t launch_wgmma(const bf16* x, long long ldx, const int8_t* q,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, qmm_wgmma_kernel<TN>, xm, qm, scale, y, M,
-                            N, K, (k_tiles + cluster - 1) / cluster);
+  return cudaLaunchKernelEx(&cfg, qmm_wgmma_kernel<T, TN>, xm, qm, scale, y,
+                            M, N, K, (k_tiles + cluster - 1) / cluster);
+}
+
+template <typename T>
+cudaError_t dispatch_tile(const void* x, long long ldx, const int8_t* q,
+                          const float* scale, void* y, int M, int N, int K,
+                          int tile, int cluster, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  switch (tile) {
+    case 16:
+      return launch_wgmma<T, 16>(xt, ldx, q, scale, yt, M, N, K, cluster,
+                                 stream);
+    case 32:
+      return launch_wgmma<T, 32>(xt, ldx, q, scale, yt, M, N, K, cluster,
+                                 stream);
+    case 64:
+      return launch_wgmma<T, 64>(xt, ldx, q, scale, yt, M, N, K, cluster,
+                                 stream);
+    case 128:
+      return launch_wgmma<T, 128>(xt, ldx, q, scale, yt, M, N, K, cluster,
+                                  stream);
+    case 256:
+      return launch_wgmma<T, 256>(xt, ldx, q, scale, yt, M, N, K, cluster,
+                                  stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_fma(const float* x, long long ldx, const int8_t* q,
@@ -463,26 +499,27 @@ cudaError_t launch_fma(const float* x, long long ldx, const int8_t* q,
 
 }  // namespace
 
-// x: [M, K] through its row stride ldx (K contiguous), fp32 or bf16 as
-// `dtype` says; q: [K, N] int8 contiguous; scale: [N] fp32; y: [M, N]
-// contiguous in x's dtype. bf16 takes the wgmma kernel with the plan the
-// wrapper chose: token tiles of `tile` rows (16, 32, 64, 128 or 256) and
-// `cluster` (1, 2, 4 or 8; 1 for 256-row tiles) CTAs splitting K.
-// It needs K % 8 == 0, N % 16 == 0, ldx % 8 == 0 and 16-byte aligned x and
-// q (cudaErrorInvalidValue otherwise); fp32 ignores the plan. Returns the
-// launch's error.
+// x: [M, K] through its row stride ldx (K contiguous), fp32, bf16 or fp16
+// as `dtype` says; q: [K, N] int8 contiguous; scale: [N] fp32; y: [M, N]
+// contiguous in x's dtype. bf16 and fp16 take the wgmma kernel with the
+// plan the wrapper chose: token tiles of `tile` rows (16, 32, 64, 128 or
+// 256) and `cluster` (1, 2, 4 or 8; 1 for 256-row tiles) CTAs splitting
+// K. They need K % 8 == 0, N % 16 == 0, ldx % 8 == 0 and 16-byte aligned x
+// and q (cudaErrorInvalidValue otherwise); fp32 ignores the plan. Returns
+// the launch's error.
 extern "C" int ds_quant_matmul(const void* x, long long ldx, const void* q,
                                const void* scale, void* y, int M, int N,
                                int K, int tile, int cluster, int dtype,
                                void* stream) {
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
+  const int8_t* qb = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(scale);
   if (dtype == ds::DTYPE_F32)
-    return launch_fma(static_cast<const float*>(x), ldx,
-                      static_cast<const int8_t*>(q),
-                      static_cast<const float*>(scale),
+    return launch_fma(static_cast<const float*>(x), ldx, qb, sc,
                       static_cast<float*>(y), M, N, K, cs);
-  if (dtype != ds::DTYPE_BF16) return cudaErrorInvalidValue;
+  if (dtype != ds::DTYPE_BF16 && dtype != ds::DTYPE_F16)
+    return cudaErrorInvalidValue;
   const bool ok = K > 0 && K % 8 == 0 && ldx % 8 == 0 && N % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
@@ -490,22 +527,8 @@ extern "C" int ds_quant_matmul(const void* x, long long ldx, const void* q,
                    cluster == 8) &&
                   (tile <= 128 || cluster == 1);
   if (!ok) return cudaErrorInvalidValue;
-  const bf16* xb = static_cast<const bf16*>(x);
-  const int8_t* qb = static_cast<const int8_t*>(q);
-  const float* sc = static_cast<const float*>(scale);
-  bf16* yb = static_cast<bf16*>(y);
-  switch (tile) {
-    case 16:
-      return launch_wgmma<16>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
-    case 32:
-      return launch_wgmma<32>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
-    case 64:
-      return launch_wgmma<64>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
-    case 128:
-      return launch_wgmma<128>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
-    case 256:
-      return launch_wgmma<256>(xb, ldx, qb, sc, yb, M, N, K, cluster, cs);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == ds::DTYPE_F16)
+    return dispatch_tile<__half>(x, ldx, qb, sc, y, M, N, K, tile, cluster,
+                                 cs);
+  return dispatch_tile<bf16>(x, ldx, qb, sc, y, M, N, K, tile, cluster, cs);
 }

@@ -94,7 +94,7 @@ from ..runtime.config import (parse_inference_block,
 from ..runtime.config_utils import DeepSpeedConfigError, load_config_json
 from ..runtime.fault_injection import (FaultInjector, InjectedServingFault,
                                        SERVING_FAULT_KINDS)
-from ..runtime.precision import check_fp16_ported, resolve_kv_cache_dtype
+from ..runtime.precision import resolve_kv_cache_dtype
 from ..utils.device import resolve_device
 from ..utils.kv_retry import backoff_delay
 from ..utils.logging import logger
@@ -316,9 +316,6 @@ class InferenceEngine:
         # weights choice); inference.kernel reaches their matmuls as the
         # backend the programs hand to the block functions
         self.weight_quant = (quantization or {}).get("weights")
-        check_fp16_ported(self.device, self.compute_dtype,
-                          int8_weights=self.weight_quant == "int8",
-                          int8_kv=self.kv_quant)
         # the natural names a checkpoint load or a weight swap must carry
         self._natural_names = list(params)
         self.prefix_cache = None

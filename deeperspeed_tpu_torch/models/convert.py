@@ -66,3 +66,23 @@ def adam_state_from_jax(state, names):
     return AdamState(step=int(np.asarray(state.step)),
                      exp_avg=flat_from_jax(state.exp_avg, names),
                      exp_avg_sq=flat_from_jax(state.exp_avg_sq, names))
+
+
+def tiled_linear_from_jax(layer, params):
+    """The JAX `TiledLinear`'s params ``{"weight": (in_splits, out_splits,
+    in_tile, out_tile), "bias": (out_features,)}`` (numpy leaves) into the
+    port's `runtime.zero.TiledLinear` ``layer``, in place: both stack the
+    tiles alike, so no leaf is transposed. Returns ``layer``."""
+    sd = state_dict_from_jax(params)
+    own = layer.state_dict()
+    if set(sd) != set(own):
+        raise ValueError(f"JAX TiledLinear params {sorted(sd)} do not match "
+                         f"the layer's {sorted(own)}")
+    for name, leaf in sd.items():
+        if tuple(leaf.shape) != tuple(own[name].shape):
+            raise ValueError(f"JAX TiledLinear {name} is "
+                             f"{tuple(leaf.shape)}, the layer's "
+                             f"{tuple(own[name].shape)} (in/out splits "
+                             f"differ?)")
+    layer.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
+    return layer

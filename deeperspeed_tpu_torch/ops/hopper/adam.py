@@ -61,6 +61,18 @@ def bias_corrections(beta1, beta2, step, bias_correction=True):
             float(np.float32(1.0) - np.float32(beta2) ** t))
 
 
+def sqrt_rn(x):
+    """fp32 square root rounded to nearest, as the kernel's `__fsqrt_rn`
+    and XLA's sqrt round it. On the CPU `torch.sqrt` goes through MKL's
+    vector math, which is accurate to 1 ulp but not correctly rounded
+    (sqrt(1.1671932f) comes out 1.0803671f, not 1.0803672f); a float64
+    square root rounded to fp32 is: no fp32 square root lies within
+    2^-50 of an fp32 rounding midpoint, far more than a float64 ulp."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def adam_flat_reference(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
                         eps=1e-8, weight_decay=0.0, adam_w=True,
                         bias_correction=True):
@@ -81,7 +93,7 @@ def adam_flat_reference(p, g, m, v, lr, step, *, beta1=0.9, beta2=0.999,
     c1, c2 = (torch.tensor(c, dtype=torch.float32, device=p.device)
               for c in bias_corrections(beta1, beta2, step,
                                         bias_correction))
-    update = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+    update = (m32 / c1) / (sqrt_rn(v32 / c2) + eps)
     if adam_w and weight_decay != 0:
         update = update + weight_decay * p32
     return ((p32 - lr * update).to(p.dtype), m32.to(m.dtype),

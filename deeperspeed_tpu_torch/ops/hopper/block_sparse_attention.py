@@ -32,7 +32,10 @@ blocks.
 its block-sparse arm; its autograd Function launches the three kernels
 on CUDA tensors and takes the plain versions on CPU tensors (or when
 called with ``use_kernels=False``). An unsupported dtype or head dim on
-a CUDA tensor raises.
+a CUDA tensor raises. fp32, bf16 and fp16 are built; in fp16 (the
+loss-scaled training path) the kernels and the plain backward round dS
+to fp16 before dQ and dK, as the Pallas kernel's ``ds.astype(k.dtype)``
+does, so an overflow shows as inf.
 """
 
 import math
@@ -52,8 +55,8 @@ NEG_INF = -1e30
 PLAIN_CHUNK_BYTES = 1 << 29
 
 # kernel launches since the last reset (`chip_smoke.py` reads these), and
-# by kernel ("fwd", "dkv", "dq") and design: "mma" (bf16 at D = 64 and
-# 128, the tensor-core tile steps) or "fma"
+# by kernel ("fwd", "dkv", "dq") and design: "mma" (bf16 and fp16 at D =
+# 64 and 128, the tensor-core tile steps) or "fma"
 launches = 0
 dkv_launches = 0
 dq_launches = 0
@@ -241,6 +244,10 @@ def block_sparse_attention_bwd_reference(q, k, v, out, lse, do, luts, causal,
         vg = vb[:, heads, idx].reshape(B, H, n, A * BLOCK, D)
         dp = torch.einsum("bhnqd,bhnkd->bhnqk", dob[:, :, r0:r1], vg)
         ds = p * (dp - delta[:, :, r0:r1]) * scale
+        if q.dtype == torch.float16:
+            # the kernels' A operand of dQ and dK: dS rounded to fp16, inf
+            # past 65504 (an overflow the loss scaler must see)
+            ds = ds.to(torch.float16).to(ds.dtype)
         dq[:, :, r0:r1] = torch.einsum("bhnqk,bhnkd->bhnqd", ds, kg)
         dkg = torch.einsum("bhnqk,bhnqd->bhnkd", ds, qb[:, :, r0:r1])
         dvg = torch.einsum("bhnqk,bhnqd->bhnkd", p, dob[:, :, r0:r1])
@@ -259,18 +266,17 @@ def block_sparse_attention_bwd_reference(q, k, v, out, lse, do, luts, causal,
 # the kernels
 # ---------------------------------------------------------------------------
 
-# the dtypes csrc/block_sparse_attention.cu is built for (fp16 is not
-# ported: ROADMAP.md)
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the dtypes csrc/block_sparse_attention.cu is built for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _kernel_args(q, k, v, luts, what):
-    """Check what the kernels take (fp32 or bf16; the flash kernels' head
-    dims, strides and grid, and the layout) → (dtype code, default
+    """Check what the kernels take (fp32, bf16 or fp16; the flash kernels'
+    head dims, strides and grid, and the layout) → (dtype code, default
     sm_scale)."""
     if q.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"{what} kernel takes float32, bfloat16 or float16, "
+                        f"got {q.dtype}")
     _check_layout(q, luts)
     _, _, code, default_scale = _flash_kernel_args(q, k, v, None, what)
     return code, default_scale
@@ -284,7 +290,7 @@ def _lut_args(luts):
 
 def block_sparse_attention_cuda(q, k, v, luts, causal, sm_scale=None):
     """Launch the forward kernel of `csrc/block_sparse_attention.cu` on
-    CUDA tensors → (out, lse). bf16 at D = 64 and 128 takes the
+    CUDA tensors → (out, lse). bf16 and fp16 at D = 64 and 128 take the
     tensor-core design, whose 16-byte loads need q, k and v on 16-byte
     pointers and row strides."""
     global launches
@@ -335,8 +341,8 @@ def block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts, causal,
     """Launch the dk/dv kernel of `csrc/block_sparse_attention.cu` on CUDA
     tensors → (dk, dv), [B, S, H, D] contiguous in q's dtype. ``do`` is
     contiguous in q's dtype; ``delta`` is `attention_delta` [B·H, S]
-    fp32. bf16 at D = 64 and 128 takes the tensor-core design, whose
-    16-byte loads need q, k, v and dO on 16-byte pointers and row
+    fp32. bf16 and fp16 at D = 64 and 128 take the tensor-core design,
+    whose 16-byte loads need q, k, v and dO on 16-byte pointers and row
     strides."""
     global dkv_launches
     ins, common = _bwd_args(q, k, v, lse, do, delta, luts, causal, sm_scale,
@@ -357,8 +363,8 @@ def block_sparse_attention_dkv_cuda(q, k, v, lse, do, delta, luts, causal,
 def block_sparse_attention_dq_cuda(q, k, v, lse, do, delta, luts, causal,
                                    sm_scale=None):
     """Launch the dq kernel of `csrc/block_sparse_attention.cu` on CUDA
-    tensors → dq [B, S, H, D] contiguous in q's dtype; bf16 at D = 64 and
-    128 needs the dk/dv kernel's 16-byte alignment."""
+    tensors → dq [B, S, H, D] contiguous in q's dtype; bf16 and fp16 at D
+    = 64 and 128 need the dk/dv kernel's 16-byte alignment."""
     global dq_launches
     ins, common = _bwd_args(q, k, v, lse, do, delta, luts, causal, sm_scale,
                             "block-sparse dq")

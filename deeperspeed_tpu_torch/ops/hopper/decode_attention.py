@@ -48,9 +48,8 @@ NEG_INF = -1e30
 # kernel's occupancy, bounded by its shared memory)
 CLUSTER_HEAD_DIMS = (64, 128)
 CLUSTER_POOL_DTYPES = (torch.bfloat16, torch.float16, torch.int8)
-# the q dtypes the int8-pool kernels are built for (fp16 with int8 pools
-# is not ported: ROADMAP.md)
-INT8_Q_DTYPES = (torch.float32, torch.bfloat16)
+# the q dtypes the int8-pool kernels are built for (the scales stay bf16)
+INT8_Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_CLUSTER = 8
 SMS, CTAS_PER_SM = 132, 6
 # "plain": a CUDA call the shape dispatch sent to the plain version
@@ -308,8 +307,9 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
     global launches_int8
     if q.dtype not in INT8_Q_DTYPES or k_pages.dtype != torch.int8 \
             or v_pages.dtype != torch.int8:
-        raise TypeError(f"int8 paged decode kernel takes float32 or "
-                        f"bfloat16 q and int8 pools, got {q.dtype}, "
+        raise TypeError(f"int8 paged decode kernel takes float32, "
+                        f"bfloat16 or float16 q and int8 pools, got "
+                        f"{q.dtype}, "
                         f"{k_pages.dtype}, {v_pages.dtype}")
     if k_scales.dtype != torch.bfloat16 or v_scales.dtype != torch.bfloat16:
         raise TypeError(f"int8 paged decode kernel takes bfloat16 scales, "

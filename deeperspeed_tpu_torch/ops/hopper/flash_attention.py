@@ -425,7 +425,8 @@ FP16_INF_AT = 65520.0
 
 
 def fp16_overflow_undecided(q, k, v, out, lse, do, segment_ids=None,
-                            sm_scale=None, causal=True, margin=1e-3):
+                            sm_scale=None, causal=True, margin=1e-3,
+                            layout=None):
     """Where two correct fp16 backward passes may disagree on overflow →
     (dq, dk, dv) bool masks, [B, S, H, D]: an element whose own fp32 value
     (the plain version's, before its fp16 rounding) or, for dq and dk, a
@@ -433,12 +434,14 @@ def fp16_overflow_undecided(q, k, v, out, lse, do, segment_ids=None,
     `FP16_INF_AT`, where a last-bit difference in exp or in the order of
     a sum decides between 65504 and inf. Everywhere else the kernels and
     the plain version must be non-finite at the same places. Plain
-    PyTorch, fp32, by the formulas of `flash_attention_bwd_reference`."""
+    PyTorch, fp32, by the formulas of `flash_attention_bwd_reference`;
+    ``layout`` ([H, S/128, S/128]) restricts the live pairs to its blocks,
+    as the block-sparse kernels do."""
     B, S, H, D = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    live = _live_mask(S, segment_ids, q.device, None, causal)
+    live = _live_mask(S, segment_ids, q.device, layout, causal)
     p = torch.where(live, torch.exp(s - lse.reshape(B, H, S, 1)),
                     torch.zeros_like(s))
     delta = attention_delta(out, do).reshape(B, H, S, 1)

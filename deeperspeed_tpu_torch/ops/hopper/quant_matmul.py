@@ -25,8 +25,8 @@ from . import _build
 
 INT8_QMAX = 127.0
 
-# the bf16 wgmma kernel's tiles: 128 weight columns by a token tile (the
-# rows of x, wgmma's N) a CTA, K in tiles of 64
+# the wgmma kernel's tiles (bf16 and fp16 x): 128 weight columns by a
+# token tile (the rows of x, wgmma's N) a CTA, K in tiles of 64
 WGMMA_WN, WGMMA_BK = 128, 64
 TOKEN_TILES = (16, 32, 64, 128, 256)
 # the K range splits over a cluster of up to 8 CTAs while the CTAs fit
@@ -34,7 +34,8 @@ TOKEN_TILES = (16, 32, 64, 128, 256)
 SMS, MAX_CLUSTER, MIN_K_TILES = 132, 8, 2
 
 # kernel launches since the last reset (`chip_smoke.py` reads these): all
-# of them, and by design ("wgmma": the bf16 kernel, "fma": fp32)
+# of them, and by design ("wgmma": the bf16 and fp16 kernel, "fma": fp32)
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 launches = 0
 DESIGNS = ("wgmma", "fma")
 design_launches = dict.fromkeys(DESIGNS, 0)
@@ -80,7 +81,7 @@ def quant_matmul_reference(x, qw):
 
 
 def launch_plan(M, N, K):
-    """The bf16 kernel's one launch for x [M, K] and an int8 [K, N]:
+    """The wgmma kernel's one launch for x [M, K] and an int8 [K, N]:
     ``(tile, cluster, grid)``. ``tile`` is the token tile: the least of
     16, 32, 64 and 128 rows that holds M, and above 128 rows 128 until
     128-row tiles alone would fill the card's SMs, then 256; ``cluster``
@@ -102,18 +103,17 @@ def launch_plan(M, N, K):
 def quant_matmul_cuda(x, qw):
     """Launch `csrc/quant_matmul.cu` on CUDA tensors: x [M, K] (rows
     through a row stride, K contiguous) → [M, N] in ``x.dtype``, one
-    launch. fp32 x takes the FMA kernel; bf16 x takes the wgmma kernel
-    with `launch_plan`, whose TMA loads read 16-byte chunks and so need K
-    % 8 == 0, N % 16 == 0, a row stride that is a multiple of 8 and
-    16-byte aligned x and weight (every GPT-NeoX block matmul meets
+    launch. fp32 x takes the FMA kernel; bf16 and fp16 x take the wgmma
+    kernel with `launch_plan`, whose TMA loads read 16-byte chunks and so
+    need K % 8 == 0, N % 16 == 0, a row stride that is a multiple of 8
+    and 16-byte aligned x and weight (every GPT-NeoX block matmul meets
     them); anything else raises."""
     global launches
     M, K = x.shape
     N = qw.qval.shape[1]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        # fp16 activations are not ported (ROADMAP.md)
-        raise TypeError(f"quant matmul kernel takes float32 or bfloat16 "
-                        f"x, got {x.dtype}")
+    if x.dtype not in (torch.float32, *WGMMA_DTYPES):
+        raise TypeError(f"quant matmul kernel takes float32, bfloat16 or "
+                        f"float16 x, got {x.dtype}")
     q, s = qw.qval, qw.scale
     if q.dtype != torch.int8 or s.dtype != torch.float32:
         raise TypeError(f"quant matmul kernel takes an int8 weight and "
@@ -128,18 +128,20 @@ def quant_matmul_cuda(x, qw):
         raise ValueError(f"quant matmul kernel needs x's contraction dim "
                          f"contiguous, got strides {tuple(x.stride())}")
     ldx = x.stride(0) if M > 1 else K
-    if x.dtype == torch.bfloat16 and not (
+    wgmma = x.dtype in WGMMA_DTYPES
+    if wgmma and not (
             K > 0 and K % 8 == 0 and N % 16 == 0 and ldx % 8 == 0
             and x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0):
         raise ValueError(
-            f"the bf16 quant matmul kernel reads 16-byte chunks: it needs "
+            f"the {x.dtype} quant matmul kernel reads 16-byte chunks: it "
+            f"needs "
             f"K % 8 == 0 (K={K}), N % 16 == 0 (N={N}), a row stride that "
             f"is a multiple of 8 (got {ldx}) and 16-byte aligned x and "
             f"weight")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
-    design = "wgmma" if x.dtype == torch.bfloat16 else "fma"
+    design = "wgmma" if wgmma else "fma"
     tile, cluster, _ = launch_plan(M, N, K)
     lib = _build.load_library()
     err = lib.ds_quant_matmul(

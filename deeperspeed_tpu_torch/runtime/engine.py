@@ -107,7 +107,6 @@ from .fp16.loss_scaler import (DynamicLossScaler, ScaleFloorWatch,
                                create_loss_scaler, grads_finite,
                                init_loss_scale_state, update_loss_scale)
 from .lr_schedules import get_scheduler_class
-from .precision import check_fp16_ported
 from .progressive_layer_drop import ProgressiveLayerDrop
 from .sentinel import (TrainingHealthSentinel, grad_anomaly,
                        init_health_state, probe_update)
@@ -123,6 +122,18 @@ def micro_step_seed(micro_steps):
     """The generator seed of micro-step ``micro_steps``: (1234,
     micro_steps) packed into one 64-bit seed."""
     return (RNG_BASE_SEED << 32) | int(micro_steps)
+
+
+# what a client optimizer object must have (the JAX engine's protocol)
+CLIENT_OPTIMIZER_PROTOCOL = ("param_groups", "init_state", "update")
+
+
+def is_client_optimizer(optimizer):
+    """True for an optimizer the engine steps through the client protocol
+    (`update` returns ``(new_master, new_state)``, as in the JAX engine);
+    the port's `FusedAdam` and `FusedLamb` update the flat masters in
+    place and write the compute copy themselves."""
+    return not isinstance(optimizer, (FusedAdam, FusedLamb))
 
 
 def _not_ported(what, slice_name):
@@ -180,9 +191,6 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
         self.device = next(model.parameters()).device
         self.compute_dtype = self._config.precision
-        check_fp16_ported(self.device, self.compute_dtype,
-                          sparse_attention=bool(
-                              self._config.sparse_attention))
 
         # config-drivable model features, applied before the flat state
         # is built: the model builds expert weights, its attention core,
@@ -363,12 +371,16 @@ class DeepSpeedEngine:
 
     def _configure_optimizer(self, client_optimizer):
         if client_optimizer is not None:
-            if not isinstance(client_optimizer, (FusedAdam, FusedLamb)):
-                raise _not_ported(
-                    f"a client optimizer of type "
-                    f"{type(client_optimizer).__name__} (the port steps "
-                    f"FusedAdam or FusedLamb over its flat partition)",
-                    "optimizers")
+            # the JAX engine's protocol: any object with param_groups,
+            # init_state and update (`is_client_optimizer`)
+            missing = [a for a in CLIENT_OPTIMIZER_PROTOCOL
+                       if not hasattr(client_optimizer, a)]
+            if missing:
+                raise DeepSpeedConfigError(
+                    f"a client optimizer needs param_groups, "
+                    f"init_state(master) and update(grads, state, master, "
+                    f"lr=); {type(client_optimizer).__name__} has no "
+                    f"{', '.join(missing)}")
             log_dist("Using client optimizer", ranks=[0])
             return client_optimizer
         name = self._config.optimizer_name
@@ -598,7 +610,11 @@ class DeepSpeedEngine:
     def _train_batch_execute(self, batch, gas, fault):
         batch = self._device_batch(batch)
         tokens = self._input_ids(batch)
-        if tokens.dim() != 3 or tokens.shape[0] != gas:
+        # token ids [gas, micro, S], or a client module's floating
+        # features [gas, micro, S, width] (as the JAX engine, any
+        # [gas, micro, ...] leaves)
+        features = tokens.is_floating_point() and tokens.dim() == 4
+        if not (tokens.dim() == 3 or features) or tokens.shape[0] != gas:
             raise ValueError(f"train_batch expects [gas={gas}, micro, S] "
                              f"batches, got {tuple(tokens.shape)}")
         self.tput_timer.start()
@@ -611,7 +627,7 @@ class DeepSpeedEngine:
                                        rng=self._rng, **self._pld_kwargs())
             self._micro_backward(loss)
         mean_loss = self._step_update(fault=fault, probe_loss=True)
-        self.tput_timer.stop(tokens=tokens.numel())
+        self.tput_timer.stop(tokens=tokens.shape[:3].numel())
         return mean_loss
 
     def _pld_kwargs(self):
@@ -718,11 +734,15 @@ class DeepSpeedEngine:
         if not skip:
             if cfg.gradient_clipping > 0:
                 clip_grad_norm_(grads, cfg.gradient_clipping, norm=grad_norm)
-            self.opt_state = self.optimizer.update(
-                grads, self.opt_state, self._master, lr=lr,
-                compute_out=None if self._params_flat is self._master
-                else self._params_flat,
-                use_kernel=getattr(self.module, "use_kernels", True))
+            compute_out = None if self._params_flat is self._master \
+                else self._params_flat
+            if is_client_optimizer(self.optimizer):
+                self._client_update(grads, lr, compute_out)
+            else:
+                self.opt_state = self.optimizer.update(
+                    grads, self.opt_state, self._master, lr=lr,
+                    compute_out=compute_out,
+                    use_kernel=getattr(self.module, "use_kernels", True))
         if self.dynamic_loss_scale():
             scaler = self.loss_scaler
             self.scale_state = update_loss_scale(
@@ -736,6 +756,26 @@ class DeepSpeedEngine:
             self.scale_state = self.scale_state._replace(
                 cur_iter=self.scale_state.cur_iter + 1)
         return overflow
+
+    def _client_update(self, grads, lr, compute_out):
+        """One step of a client optimizer over the flat masters: its
+        ``update(grads, state, master, lr=)`` returns ``(new_master,
+        new_state)`` (the JAX protocol); new masters it did not write in
+        place are copied into the flat master, and the compute copy is
+        written here unless its ``update`` takes ``compute_out`` and
+        wrote it itself."""
+        kw = {"lr": lr}
+        takes_out = compute_out is not None and "compute_out" in \
+            inspect.signature(self.optimizer.update).parameters
+        if takes_out:
+            kw["compute_out"] = compute_out
+        new_master, self.opt_state = self.optimizer.update(
+            grads, self.opt_state, self._master, **kw)
+        with torch.no_grad():
+            if new_master is not self._master:
+                self._master.copy_(new_master)
+            if compute_out is not None and not takes_out:
+                compute_out.copy_(self._master)
 
     def _after_step(self, overflow):
         """Post-step host bookkeeping. Returns the step's verdict: one

@@ -39,20 +39,3 @@ def resolve_kv_cache_dtype(type_str):
         return torch.int8
     return resolve_precision(s)
 
-
-def check_fp16_ported(device, dtype, sparse_attention=False,
-                      int8_weights=False, int8_kv=False):
-    """Refuse, before any launch, what fp16 on the GPU does not have yet:
-    the block-sparse kernel (sparse attention) and the int8 matmul and
-    int8 paged-decode kernels take fp32 and bf16 only. The CPU runs every
-    plain version in fp16, so nothing is refused there."""
-    if torch.device(device).type != "cuda" or dtype != torch.float16:
-        return
-    what = [name for name, on in (
-        ("sparse attention (the block-sparse kernel)", sparse_attention),
-        ("int8 weights (the int8 matmul kernel)", int8_weights),
-        ("int8 KV pages (the int8 paged-decode kernel)", int8_kv)) if on]
-    if what:
-        raise DeepSpeedConfigError(
-            f"fp16 on the GPU with {' and '.join(what)} is not ported yet: "
-            f"those kernels are built for fp32 and bf16 (see ROADMAP.md)")

@@ -1,0 +1,46 @@
+"""The fp16 int8 kernels rehearsed on the CPU, and the `adam` family on
+the inputs a run over every family draws.
+
+- `quant_matmul_fp16`: the int8 matmul's wgmma kernel with fp16
+  activations at every plan, the widening read out bit for bit, and fp16
+  outputs that overflow to inf where the plain version's do;
+- `paged_decode_int8_fp16`: the cluster decode over int8 pools with fp16
+  q;
+- `adam` from the generator state `rehearse.py` reaches, run over all its
+  families, before the `adam` family (`cpu_shim/adam_full_run.state`).
+  On those inputs the plain Adam's `torch.sqrt`, which on the CPU is not
+  rounded to nearest, once missed the kernel by one fp32 ulp of p.
+"""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SHIM = (Path(__file__).resolve().parents[1] / "deeperspeed_tpu_torch" /
+        "csrc" / "cpu_shim")
+REHEARSE = SHIM / "rehearse.py"
+
+
+def _rehearse(*args):
+    if shutil.which("g++") is None:
+        pytest.skip("the CPU shim compiles the CUDA sources with g++")
+    res = subprocess.run([sys.executable, str(REHEARSE), *args],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, (res.stdout[-4000:] + res.stderr[-4000:])
+    assert res.stdout.strip().splitlines()[-1] == "rehearsal passed"
+    return res.stdout
+
+
+@pytest.mark.parametrize("family", ("quant_matmul_fp16",
+                                    "paged_decode_int8_fp16"))
+def test_int8_fp16_family_rehearses_on_the_cpu(family):
+    _rehearse("--only", family)
+
+
+def test_adam_family_on_the_full_runs_inputs():
+    out = _rehearse("--only", "adam", "--generator-state",
+                    str(SHIM / "adam_full_run.state"))
+    assert out.count("equal to the plain version bit for bit") == 7

@@ -14,11 +14,10 @@ CPU (every kernel wrapper takes its plain version on CPU tensors).
 - the lean fp16 state (fp16 masters, fp16 moments, gas 2: an fp32
   accumulator) against the JAX engine, losses rtol 2e-2;
 - fp16 JAX parameters carried across in fp16 (`state_dict_from_jax`);
-- the fp16 refusals on the GPU (sparse attention, int8 weights, int8 KV
-  pages) raised by `check_fp16_ported` before any launch, the wrappers
-  of those kernels refusing fp16 tensors, and nothing refused on the
-  CPU: an fp16 sparse-attention engine trains, an fp16 serving engine
-  with int8 pages serves;
+- the block-sparse, int8 matmul and int8 decode wrappers taking fp16
+  tensors on to their kernels (float64 is refused), and on the CPU an
+  fp16 sparse-attention engine training and an fp16 serving engine with
+  int8 pages serving;
 - the "amp" block: parsed as the JAX config parses it, and an engine
   with it trains."""
 
@@ -39,7 +38,6 @@ from deeperspeed_tpu_torch.models.convert import (flat_from_jax,
                                                   state_dict_from_jax)
 from deeperspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deeperspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError
-from deeperspeed_tpu_torch.runtime.precision import check_fp16_ported
 
 torch.set_num_threads(2)
 
@@ -180,18 +178,6 @@ def test_fp16_jax_parameters_stay_fp16(weights):
         assert torch.equal(p.detach(), sd[name]), name
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(sparse_attention=True), "sparse attention"),
-    (dict(int8_weights=True), "int8 weights"),
-    (dict(int8_kv=True), "int8 KV pages")])
-def test_fp16_unported_kernels_refused_on_the_gpu(kw, what):
-    with pytest.raises(DeepSpeedConfigError, match=f"{what}.*not ported"):
-        check_fp16_ported("cuda", torch.float16, **kw)
-    # bf16 has those kernels, and the CPU runs every plain version
-    check_fp16_ported("cuda", torch.bfloat16, **kw)
-    check_fp16_ported("cpu", torch.float16, **kw)
-
-
 def test_fp16_sparse_and_int8_run_on_the_cpu():
     sp = neox.GPTNeoX(neox.GPTNeoXConfig(vocab_size=512, hidden_size=128,
                                          num_layers=1, num_heads=2),
@@ -234,26 +220,43 @@ def test_engine_with_amp_trains(weights, tokens):
     assert np.isfinite(eng.train_batch(batch=(tokens, tokens)))
 
 
-def test_int8_and_block_sparse_kernels_refuse_fp16_tensors():
-    """The wrappers of the kernels without an fp16 variant raise a typed
-    error on fp16 tensors before the library is loaded: the int8 matmul,
-    the int8 paged decode and the block-sparse attention."""
+def test_int8_and_block_sparse_kernels_refuse_fp16_tensors(monkeypatch):
+    """The wrappers of the int8 matmul, the int8 paged decode and the
+    block-sparse attention take fp16 tensors on to their kernels: the
+    dtype checks pass and the call reaches the library (stubbed here by
+    one that raises); float64 is refused with a typed error first."""
+    from deeperspeed_tpu_torch.ops.hopper import _build
     from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
     from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
     from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
-    x = torch.zeros(16, 64, dtype=torch.float16)
+
+    class Reached(Exception):
+        pass
+
+    def reached():
+        raise Reached
+
+    monkeypatch.setattr(_build, "load_library", reached)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: None)
     qw = qm.quantize_weight(torch.randn(64, 32))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        qm.quant_matmul_cuda(x, qw)
-    q = torch.zeros(2, 2, 64, dtype=torch.float16)
+    q = torch.zeros(2, 2, 64)
     pages = torch.zeros(4, 2, 16, 64, dtype=torch.int8)
     scales = torch.ones(4, 2, 16, dtype=torch.bfloat16)
     table = torch.zeros(2, 2, dtype=torch.int32)
     lengths = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(TypeError, match="float32 or"):
-        da.paged_decode_int8_cuda(q, pages, pages, scales, scales, table,
-                                  lengths)
-    t = torch.zeros(1, 256, 2, 64, dtype=torch.float16)
+    t = torch.zeros(1, 256, 2, 64)
     luts = bsa.LayoutLuts(np.ones((2, 2, 2)))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        bsa.block_sparse_attention_cuda(t, t, t, luts, True)
+    calls = (
+        (lambda dt: qm.quant_matmul_cuda(torch.zeros(16, 64, dtype=dt), qw),
+         "float32, bfloat16 or float16"),
+        (lambda dt: da.paged_decode_int8_cuda(
+            q.to(dt), pages, pages, scales, scales, table, lengths),
+         "float32, bfloat16 or float16"),
+        (lambda dt: bsa.block_sparse_attention_cuda(
+            t.to(dt), t.to(dt), t.to(dt), luts, True),
+         "float32, bfloat16 or float16"))
+    for call, names in calls:
+        with pytest.raises(Reached):
+            call(torch.float16)
+        with pytest.raises(TypeError, match=names):
+            call(torch.float64)

@@ -501,15 +501,31 @@ def test_kernel_callables_raise_like_jax():
 
 @pytest.mark.parametrize("what", ["fp16", "head_dim", "seq", "layout",
                                   "layout_heads"])
-def test_cuda_entries_refuse_before_launch(what):
+def test_cuda_entries_refuse_before_launch(what, monkeypatch):
     """What the kernels cannot take raises in the wrapper, before the
-    library is loaded or a launch is counted: a dtype, head dim or
+    library is loaded or a launch is counted: a dtype (float64; fp16,
+    which the kernels are built for, reaches the library), head dim or
     length the kernels are not built for, a flash layout map of the
     wrong shape, a block-sparse layout of other heads than q's (which
     the plain version refuses too)."""
     S, D, dtype = 256, 64, torch.float32
     if what == "fp16":
-        dtype = torch.float16
+        class Reached(Exception):
+            pass
+
+        def reached():
+            raise Reached
+        monkeypatch.setattr(bsa._build, "load_library", reached)
+        monkeypatch.setattr(bsa._build, "stream_ptr", lambda t: None)
+        q16 = torch.zeros(1, S, 2, D, dtype=torch.float16)
+        luts16 = bsa.LayoutLuts(np.ones((2, 2, 2)))
+        with pytest.raises(Reached):
+            bsa.block_sparse_attention_cuda(q16, q16, q16, luts16, True)
+        with pytest.raises(Reached):
+            bsa.block_sparse_attention_bwd_cuda(
+                q16, q16, q16, torch.zeros(2, S), q16, torch.zeros(2, S),
+                luts16, True)
+        dtype = torch.float64
     if what == "head_dim":
         D = 32
     if what == "seq":
