@@ -9,6 +9,7 @@
     python3 chip_smoke.py --serve-chaos-only
     python3 chip_smoke.py --sentinel-only [--profile]
     python3 chip_smoke.py --fp16-only [--profile]
+    python3 chip_smoke.py --quant-train-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -337,6 +338,35 @@ Phases (any failure exits non-zero before the final line):
    beside the dense nn.Linear holding the same weights (losses within
    1e-2), then one bf16 step through a client SGD with momentum (no
    Adam launch; masters, momentum and the compute copy by its rule).
+36. train-fp8ffn-125M: phase 7's rung with "quantization": {"ffn":
+   {"recipe": "fp8", "amax_history_len": 16}} (the delayed-scaling FFN;
+   bench.py's row_quant has no FFN part, so the rung is this phase's
+   own), 20 steps: step ms, tokens/s and MFU beside phase 7's, the amax
+   history [12, 4, 16] fp32, finite, one slot a micro-step and advanced,
+   the loss falling, exact launches (every flash launch tensor-core, one
+   Adam a step); then an int8-recipe rung of 6 steps. (b) `_fake_quant`
+   and `scale_from_history` on the card bit-equal to the CPU's (2^20
+   values, bf16, fp16 and fp32, both recipes), then 125M widths at 4
+   layers in fp32, 4 steps a recipe through the kernels and through the
+   plain path: losses within rtol 1e-4, histories within rtol 2e-2. (c)
+   At 4 layers: fp16 from 2^32 with the fp8 FFN (every overflow step
+   launches no Adam and keeps the history, the opening ones at zeros;
+   each taken step one Adam and its slots), and a save after 3 bf16
+   steps whose resume takes the next step bit-identical to the
+   uninterrupted run (loss and history);
+37. train-moe-125M-int8ffn: phase 11's rung with the int8 FFN, 10 steps,
+   step ms beside phase 11's, every grouped forward, dx and dW launch on
+   the wgmma design, the history held as in 36;
+38. serve-gpt2xl-int8: the int8 matmul at GPT-2 XL's block shapes
+   ((1600, 4800), (1600, 1600), (1600, 6400), (6400, 1600)) against its
+   plain version at 16 and 256 bf16 rows (timed beside the plain version,
+   torch.matmul on the dequantized weight and the bound) and 16 fp32
+   rows; GPT-2 XL (seeded bf16 weights) serves row_quant's stream (16
+   requests x 62 prompt tokens x 48 new, page 64) at the bf16 and int8w
+   rungs (decode and stream tokens/s, inter-token p50; exact launches,
+   every int8 matmul "wgmma"); greedy first tokens of 8 prompts with
+   int8 weights equal through the kernels and the plain path; an fp32
+   parity at XL widths and 2 layers token-identical to the plain path.
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
@@ -2830,13 +2860,18 @@ def parity_int8(da, qm, report):
 # ---------------------------------------------------------------------------
 
 def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
-          key="train"):
+          key="train", steps=TRAIN_STEPS, fall=0.9, fall_last=1):
     """Phase 7, and with ``gm`` (the grouped-matmul module) and the MoE
     config phase 11: the model made MoE by the JSON block alone, with
-    the grouped-matmul launches counted too."""
+    the grouped-matmul launches counted too. ``steps`` steps; the least
+    of the last ``fall_last`` losses must be below ``fall`` times the
+    first. With a
+    "quantization.ffn" block (phases 36 and 37) the amax history is held
+    to `check_quant_history`."""
     import deeperspeed_tpu_torch as dst
     model = build_model(torch.float32)
     eng, *_ = dst.initialize(model=model, config_params=conf)
+    quant = (conf.get("quantization") or {}).get("ffn")
     if gm is not None and not (
             model.config.moe_num_experts == MOE_BLOCK["num_experts"] and
             model.config.moe_dispatch == MOE_BLOCK["dispatch"] and
@@ -2858,35 +2893,36 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     if gm is not None:
         gm.launches = gm.dw_launches = 0
         gm.reset_design_launches()
-    losses, step_s = [], []
-    for step in range(TRAIN_STEPS):
+    losses, step_s, first_amax = [], [], None
+    for step in range(steps):
         t0 = time.perf_counter()
         losses.append(eng.train_batch(batch=(tokens, tokens)))
         step_s.append(time.perf_counter() - t0)
+        if quant and step == 0:
+            first_amax = eng.quant.amax.clone()
         print(f"  step {step + 1}: loss {losses[-1]:.4f}, "
               f"{step_s[-1] * 1e3:.1f} ms", flush=True)
     launches = {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
                 "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches}
-    want = {"flash_fwd": L * gas * TRAIN_STEPS,
-            "flash_bwd_dkv": L * gas * TRAIN_STEPS,
-            "flash_bwd_dq": L * gas * TRAIN_STEPS, "adam": TRAIN_STEPS}
+    want = {"flash_fwd": L * gas * steps, "flash_bwd_dkv": L * gas * steps,
+            "flash_bwd_dq": L * gas * steps, "adam": steps}
     if gm is not None:
         # each layer: two forward products and their two dx products on the
         # forward kernel, two dW products
         launches.update(grouped_matmul=gm.launches,
                         grouped_matmul_dw=gm.dw_launches)
-        want.update(grouped_matmul=4 * L * gas * TRAIN_STEPS,
-                    grouped_matmul_dw=2 * L * gas * TRAIN_STEPS)
+        want.update(grouped_matmul=4 * L * gas * steps,
+                    grouped_matmul_dw=2 * L * gas * steps)
     peak = torch.cuda.max_memory_allocated()
 
     if not all(np.isfinite(losses)):
         fail(f"a training loss is not finite: {losses}")
-    if not losses[-1] < 0.9 * losses[0]:
-        fail(f"the loss did not fall: step 1 {losses[0]:.4f}, step "
-             f"{TRAIN_STEPS} {losses[-1]:.4f}")
+    if not min(losses[-fall_last:]) < fall * losses[0]:
+        fail(f"{key}: the loss did not fall below {fall} x its first: step "
+             f"1 {losses[0]:.4f}, the last {fall_last} {losses[-fall_last:]}")
     if launches != want:
-        fail(f"training launch counts {launches} != {want} ({L} layers x "
-             f"gas {gas} x {TRAIN_STEPS} steps, one Adam a step)")
+        fail(f"{key}: training launch counts {launches} != {want} ({L} "
+             f"layers x gas {gas} x {steps} steps, one Adam a step)")
     design = check_design(fa, key, {
         "fwd": launches["flash_fwd"], "dkv": launches["flash_bwd_dkv"],
         "dq": launches["flash_bwd_dq"]})
@@ -2898,15 +2934,17 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
             if design[name] != {"wgmma": launches[name], "fma": 0}:
                 fail(f"{key}: {name} launches by design {design[name]}, "
                      f"want all {launches[name]} on wgmma")
-    if eng.global_steps != TRAIN_STEPS or eng.skipped_steps:
+    if eng.global_steps != steps or eng.skipped_steps:
         fail(f"{eng.global_steps} steps taken, {eng.skipped_steps} skipped")
+    history = check_quant_history(key, eng, quant, first_amax, gas, steps) \
+        if quant else None
     eval_loss = eng.eval_batch((tokens[0], tokens[0]))
     if not np.isfinite(eval_loss):
         fail(f"eval_batch loss {eval_loss} is not finite")
 
     med = float(np.median(step_s))
     result = {
-        "steps": TRAIN_STEPS, "gas": gas, "micro_batch": micro,
+        "steps": steps, "gas": gas, "micro_batch": micro,
         "seq": TRAIN_SEQ, "losses": losses, "eval_loss": eval_loss,
         "step_ms_median": med * 1e3,
         "step_ms": [t * 1e3 for t in step_s],
@@ -2914,11 +2952,17 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
         "max_memory_allocated_gb": peak / 2 ** 30,
         "num_params": eng.num_params,
         "launches": launches, "design_launches": design,
-        "launches_per_step": {k: v / TRAIN_STEPS
-                              for k, v in launches.items()},
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
         "dtypes": {"compute": str(eng.compute_dtype),
                    "master": str(eng._master.dtype)},
+        # model flops a token over the bf16 peak (dense only: an MoE
+        # step runs top_k of its experts, not all its parameters)
+        "mfu": None if model.config.moe_num_experts else
+        gas * micro * TRAIN_SEQ / med * neox_ftok(model.config, TRAIN_SEQ) /
+        PEAK_FLOPS_S,
     }
+    if history is not None:
+        result["quant_history"] = history
     if profile_step:
         result["profile"] = profile_window(
             lambda: eng.train_batch(batch=(tokens, tokens)),
@@ -8148,6 +8192,612 @@ def fp16_only(card, profile_step=False):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 36-38: quantized training (the "quantization.ffn" block) and
+# GPT-2 XL served with int8 weights
+# ---------------------------------------------------------------------------
+
+# phase 36 (train-fp8ffn-125M): phase 7's rung with the delayed-scaling
+# fp8 FFN (amax history 16), its own rung: bench.py row_quant has no FFN
+# part; then an int8-recipe rung of 6 steps
+QUANT_HISTORY = 16
+
+
+def quant_conf(base, recipe):
+    """``base`` with quantization.ffn (``recipe``, amax history 16)."""
+    conf = json.loads(json.dumps(base))
+    conf["quantization"] = {"ffn": {"recipe": recipe,
+                                    "amax_history_len": QUANT_HISTORY}}
+    return conf
+
+
+QUANT_INT8_STEPS = 6
+# 36(b): the kernels against the plain path at 125M widths, 4 layers, 4
+# fp32 steps a recipe. Losses within rtol 1e-4 (phase 8's); histories
+# within rtol 2e-2: the two paths sum attention in other orders, and an
+# fp32 ulp can move one element across an fp8 / int8 rounding boundary
+# (a step of up to 2^-3 of its value), whose layer the next layer's
+# input amax follows (the CPU tests' bound against the JAX engine, for
+# the same reason)
+QUANT_PARITY_LAYERS, QUANT_PARITY_STEPS = 4, 4
+QUANT_PARITY_RTOL = {"loss": 1e-4, "amax": 2e-2}
+# 36(c): fp16 from 2^32 (configs/125M.yml's block) and a save / resume,
+# both at 4 layers
+QUANT_RESUME_STEPS = 3
+# phase 37 (train-moe-125M-int8ffn): phase 11's rung with the int8 FFN;
+# its loss is held over the last 3 steps (phase 11's own run spiked once,
+# at its step 10: 13.88 between 7.05 and 6.32)
+QUANT_MOE_STEPS = 10
+# phase 38 (serve-gpt2xl-int8): GPT-2 XL's four block weights (qkv,
+# out-proj, mlp-in, mlp-out), at a decode step of 16 rows and a prefill
+# call of 4 x 64; N = 4800 and 1600 leave a partial 128-column tile
+GPT2_XL_QMM_SHAPES = ((1600, 4800), (1600, 1600), (1600, 6400), (6400, 1600))
+GPT2_XL_QMM_ROWS = (16, 256)
+QUANT_XL_RUNGS = (("bf16", None, None), ("int8w", "int8", None))
+QUANT_XL_PARITY_LAYERS = 2
+
+
+def check_quant_history(key, eng, ffn, first, gas, steps):
+    """The amax history of a quantized run: [L, 4, 16] fp32, finite; after
+    the first step the first ``gas`` slots written (> 0) and the rest
+    zero; at the end every slot written and moved since the first step."""
+    L = eng.module.config.num_layers
+    amax = eng.quant.amax
+    want = (L, 4, ffn["amax_history_len"])
+    filled = min(gas * steps, want[2])
+    ok = (tuple(amax.shape) == want and amax.dtype == torch.float32 and
+          bool(torch.isfinite(amax).all()) and
+          bool((first[..., :gas] > 0).all()) and
+          not bool(first[..., gas:].any()) and
+          bool((amax[..., :filled] > 0).all()) and
+          not bool(amax[..., filled:].any()) and
+          not torch.equal(amax, first))
+    res = {"shape": list(amax.shape), "dtype": str(amax.dtype),
+           "finite": bool(torch.isfinite(amax).all()),
+           "slots_written": filled, "max": float(amax.max()),
+           "min_written": float(amax[..., :filled].min()),
+           "layer0_slot0_after_step1": first[0, :, 0].tolist(),
+           "layer0_slot0_last": amax[0, :, 0].tolist(),
+           "advanced": not torch.equal(amax, first)}
+    print(f"  {key} amax history {res}", flush=True)
+    if not ok:
+        fail(f"{key}: the amax history is not [L, 4, H] fp32, finite, "
+             f"written one slot a micro-step and advanced: {res}")
+    return res
+
+
+def print_train(key, r, card, beside=None):
+    line = (f"  {key}: {r['steps']} steps, loss {r['losses'][0]:.4f} -> "
+            f"{r['losses'][-1]:.4f}, median step {r['step_ms_median']:.1f} "
+            f"ms, {r['tokens_per_s']:.0f} tokens/s")
+    if r.get("mfu") is not None:
+        line += f", MFU {r['mfu']:.4f}"
+    if beside is not None:
+        line += (f" (without the quantized FFN, same run: "
+                 f"{beside['step_ms_median']:.1f} ms, "
+                 f"{beside['tokens_per_s']:.0f} tokens/s" +
+                 (f", MFU {beside['mfu']:.4f}" if beside.get("mfu")
+                  is not None else "") + ")")
+    print(line + f", peak memory {r['max_memory_allocated_gb']:.2f} GiB, "
+          f"launches per step {r['launches_per_step']} on {card}",
+          flush=True)
+
+
+def fake_quant_on_card(report):
+    """36(b), first: `_fake_quant` and `scale_from_history` on the card
+    against the same functions on the host's CPU (which the CPU tests
+    hold bit for bit to the JAX package's) over 2^20 values spread over
+    16 binades either side of the range, at scales on and off a power of
+    two and one taken from a history: bf16 and fp16 bit-equal, fp32
+    bit-equal (the straight-through add rounds each operation alone on
+    both), so the card's float8_e4m3fn cast and int8 rounding are the
+    reference's."""
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    n = 1 << 20
+    mag = torch.exp2(torch.randn(n, generator=gen, device="cuda") * 6)
+    v = torch.randn(n, generator=gen, device="cuda") * mag
+    hist = torch.tensor([0.0, 3.7, 1.25, 0.0], device="cuda")
+    rows = []
+    for recipe in ("fp8", "int8"):
+        qmax = qm.recipe_qmax(recipe)
+        s_hist = qm.scale_from_history(hist, torch.tensor(9.0, device="cuda"),
+                                       qmax, 1.3)
+        s_cpu = qm.scale_from_history(hist.cpu(), torch.tensor(9.0), qmax,
+                                      1.3)
+        if s_hist.item() != s_cpu.item():
+            fail(f"scale_from_history on the card {s_hist.item()!r} != the "
+                 f"CPU's {s_cpu.item()!r}")
+        for dtype, bits in ((torch.bfloat16, torch.int16),
+                            (torch.float16, torch.int16),
+                            (torch.float32, torch.int32)):
+            # fp16 holds no value past 65504 (an inf input is NaN after
+            # the straight-through add, on any device)
+            x = (v.clamp(-6e4, 6e4) if dtype == torch.float16 else v).to(
+                dtype)
+            mismatches, nonfinite = 0, 0
+            for scale in (2.0 ** -7, 0.0123, 3.3, s_hist.item()):
+                got = qm._fake_quant(x, torch.tensor(scale, device="cuda"),
+                                     recipe).cpu()
+                want = qm._fake_quant(x.cpu(), torch.tensor(scale), recipe)
+                mismatches += int((got.view(bits) != want.view(bits)).sum())
+                nonfinite += int((~torch.isfinite(got)).sum())
+            rows.append({"recipe": recipe, "dtype": str(dtype), "values": n,
+                         "scales": 4, "mismatches": mismatches,
+                         "nonfinite": nonfinite})
+    print(f"  fake-quant on the card vs the CPU: {rows}", flush=True)
+    bad = [r for r in rows if r["mismatches"] or r["nonfinite"]]
+    if bad:
+        fail(f"_fake_quant on the card differs from the CPU's (or saturates "
+             f"to a non-finite value): {bad}")
+    report["quant_fake_quant_card"] = rows
+    return rows
+
+
+def quant_train_parity(fa, ad, report):
+    """36(b): the fp8 and int8 FFN at 125M widths and 4 layers, fp32,
+    micro 2 x gas 2 x 1024, 4 steps through the kernels and 4 through the
+    plain path (no kernel launched there): losses within rtol 1e-4,
+    histories within rtol 2e-2 (QUANT_PARITY_RTOL)."""
+    import deeperspeed_tpu_torch as dst
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(2, 2, TRAIN_SEQ))).cuda()
+    out = {}
+    for recipe in ("fp8", "int8"):
+        conf = quant_conf(TRAIN_CONFIG, recipe)
+        conf.update(train_batch_size=4, train_micro_batch_size_per_gpu=2,
+                    gradient_accumulation_steps=2, fp16={"enabled": False})
+        conf["scheduler"]["params"]["warmup_min_lr"] = 6e-5
+        runs = {}
+        for use_kernels in (True, False):
+            model = build_model(torch.float32, seed=1,
+                                num_layers=QUANT_PARITY_LAYERS)
+            model.use_kernels = use_kernels
+            eng, *_ = dst.initialize(model=model, config_params=conf)
+            fa.launches = ad.launches = 0
+            losses = [eng.train_batch(batch=(tokens, tokens))
+                      for _ in range(QUANT_PARITY_STEPS)]
+            n = QUANT_PARITY_LAYERS * 2 * QUANT_PARITY_STEPS
+            want = (n, QUANT_PARITY_STEPS) if use_kernels else (0, 0)
+            if (fa.launches, ad.launches) != want:
+                fail(f"36(b) {recipe}: flash / Adam launches "
+                     f"{(fa.launches, ad.launches)} != {want} (use_kernels "
+                     f"{use_kernels})")
+            runs[use_kernels] = (np.array(losses),
+                                 eng.quant.amax.cpu().numpy())
+            del eng, model
+            torch.cuda.empty_cache()
+        (lk, ak), (lp, ap) = runs[True], runs[False]
+        filled = min(2 * QUANT_PARITY_STEPS, QUANT_HISTORY)
+        loss_rel = float((np.abs(lk - lp) / np.abs(lp)).max())
+        amax_rel = float((np.abs(ak - ap) / np.maximum(np.abs(ap),
+                                                       1e-30)).max())
+        out[recipe] = {"losses_kernels": lk.tolist(),
+                       "losses_plain": lp.tolist(),
+                       "max_rel_diff_loss": loss_rel,
+                       "max_rel_diff_amax": amax_rel,
+                       "amax_written": bool((ak[..., :filled] > 0).all()),
+                       "rtol": QUANT_PARITY_RTOL}
+        print(f"  {recipe}: losses kernels {lk.tolist()} vs plain "
+              f"{lp.tolist()}: max relative difference {loss_rel:.3e}; amax "
+              f"histories {amax_rel:.3e}", flush=True)
+        if not (np.isfinite(lk).all() and loss_rel <= QUANT_PARITY_RTOL[
+                "loss"] and amax_rel <= QUANT_PARITY_RTOL["amax"] and
+                out[recipe]["amax_written"]):
+            fail(f"36(b) {recipe}: the kernel path and the plain path "
+                 f"differ beyond {QUANT_PARITY_RTOL}: {out[recipe]}")
+    report["train_quant_parity"] = out
+    return out
+
+
+def quant_fp16_overflow(fa, ad, report):
+    """36(c), first: 125M widths at 4 layers in fp16 from 2^32
+    (configs/125M.yml's block) with the fp8 FFN until 2 steps are taken:
+    an overflow step launches no Adam and leaves the history as it was
+    (the opening ones at its zeros); a taken step launches Adam once and
+    writes its gas slots."""
+    conf = quant_conf(FP16_TRAIN_CONFIG, "fp8")
+    model = build_model(torch.float32, num_layers=QUANT_PARITY_LAYERS)
+    eng, _ = fp16_engine(conf, model)
+    gas = eng.gradient_accumulation_steps()
+    micro = eng.train_micro_batch_size_per_gpu()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+    ad.reset_launches()
+    overflows, adam, kept, zeros = [], [], [], []
+    prev = eng.quant.amax.clone()
+    while len(overflows) < FP16_MAX_STEPS and overflows.count(False) < 2:
+        skipped, launched = eng.skipped_steps, ad.launches
+        eng.train_batch(batch=(tokens, tokens))
+        overflows.append(eng.skipped_steps > skipped)
+        adam.append(ad.launches - launched)
+        kept.append(torch.equal(eng.quant.amax, prev))
+        zeros.append(not bool(eng.quant.amax.any()))
+        prev = eng.quant.amax.clone()
+    opening = overflows.index(False) if False in overflows else 0
+    res = {"steps": len(overflows), "overflows": overflows,
+           "opening_overflows": opening, "adam_launches": adam,
+           "history_kept": kept, "history_zero": zeros,
+           "slots_written": int((prev[0, 0] > 0).sum()),
+           "loss_scale": float(eng.loss_scale)}
+    print(f"  fp16 from 2^32 with the fp8 FFN: {res}", flush=True)
+    ok = (opening > 0 and all(zeros[:opening]) and
+          overflows.count(False) == 2 and res["slots_written"] == 2 * gas
+          and all((a, k) == ((0, True) if o else (1, False))
+                  for o, a, k in zip(overflows, adam, kept)))
+    if not ok:
+        fail(f"36(c): an overflow step must launch no Adam and keep the "
+             f"history (the opening ones at zeros), a taken step launch "
+             f"one Adam and write {gas} slots: {res}")
+    report["train_quant_fp16"] = res
+    del eng, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def quant_resume(fa, ad, report):
+    """36(c), then: the fp8 FFN at 4 layers in bf16 takes 3 steps, saves
+    (sync) and takes one more; a fresh engine from other seed weights
+    loads the checkpoint (the history bit-equal to the saved one) and
+    takes the same step: its loss and history equal the uninterrupted
+    run's bit for bit."""
+    import deeperspeed_tpu_torch as dst
+    conf = quant_conf(TRAIN_CONFIG, "fp8")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, TRAIN_VOCAB_USED, size=(2, 16, TRAIN_SEQ))).cuda()
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="quant_resume_", dir="build")
+    try:
+        model = build_model(torch.float32, num_layers=QUANT_PARITY_LAYERS)
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        for _ in range(QUANT_RESUME_STEPS):
+            eng.train_batch(batch=(tokens, tokens))
+        eng.save_checkpoint(tmp, tag="q")
+        saved = eng.quant.amax.clone()
+        want = eng.train_batch(batch=(tokens, tokens))
+        want_amax = eng.quant.amax.clone()
+        del eng, model
+        model = build_model(torch.float32, seed=5,
+                            num_layers=QUANT_PARITY_LAYERS)
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        eng.load_checkpoint(tmp, tag="q")
+        loaded = torch.equal(eng.quant.amax, saved)
+        fa.launches = ad.launches = 0
+        got = eng.train_batch(batch=(tokens, tokens))
+        launches = (fa.launches, ad.launches)
+        res = {"loss_uninterrupted": want, "loss_resumed": got,
+               "history_loaded_bit_equal": loaded,
+               "loss_bit_identical": got == want,
+               "history_bit_identical": torch.equal(eng.quant.amax,
+                                                    want_amax),
+               "launches": list(launches)}
+        del eng, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"  save / resume with the fp8 FFN: {res}", flush=True)
+    if not (loaded and res["loss_bit_identical"] and
+            res["history_bit_identical"] and
+            launches == (QUANT_PARITY_LAYERS * 2, 1)):
+        fail(f"36(c): the resumed step is not bit-identical to the "
+             f"uninterrupted one: {res}")
+    report["train_quant_resume"] = res
+    return res
+
+
+def check_gpt2xl_qmm(qm, gen, report):
+    """38, first: the int8 matmul at GPT-2 XL's four block shapes against
+    its plain version, bf16 at 16 and 256 rows (two calls bit-identical,
+    timed beside the plain version, torch.matmul on the dequantized
+    weight and the bound) and fp32 at 16 rows (the parity's FMA
+    kernel)."""
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in GPT2_XL_QMM_ROWS if dtype == torch.bfloat16 else (16,):
+            for K, N in GPT2_XL_QMM_SHAPES:
+                row, x, qw = qmm_case(qm, gen, M, K, N, dtype)
+                if dtype == torch.bfloat16:
+                    again = qm.quant_matmul_cuda(x, qw)
+                    row["bit_identical"] = bool(torch.equal(
+                        qm.quant_matmul_cuda(x, qw), again))
+                    if not row["bit_identical"]:
+                        fail(f"int8 matmul at {row}: two calls differ")
+                    qmm_times(qm, gen, row, x, qw)
+                rows.append(row)
+                del x, qw
+        torch.cuda.empty_cache()
+    report["quant_matmul_gpt2xl"] = rows
+    return rows
+
+
+def serve_gpt2xl_int8(fa, da, qm, report):
+    """Phase 38, serve-gpt2xl-int8: GPT-2 XL (seeded bf16 weights) serves
+    row_quant's stream (16 requests x 62 prompt tokens x 48 new, page
+    64) at the bf16 and int8w rungs (exact launches, every int8 matmul on
+    the wgmma design, every decode on the cluster kernel); then the
+    greedy tokens of 8 prompts with int8 weights through the kernels and
+    through the plain path (every first token identical), and an fp32
+    parity at XL widths and 2 layers with int8 weights (every token
+    identical)."""
+    from deeperspeed_tpu_torch import GPT2, GPT2Config, InferenceEngine
+    model = GPT2(GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16),
+                 device="cuda").init_params(6)
+    cfg = model.config
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=QUANT_PROMPT))
+               for _ in range(QUANT_REQUESTS)]
+    rungs = {}
+    for tag, weights, kv_dtype in QUANT_XL_RUNGS:
+        rungs[tag] = r = serve_quant_rung(model, prompts, tag, weights,
+                                          kv_dtype, fa, da, qm)
+        print(f"  {tag}: decode {r['decode_tok_s']:.1f} tokens/s, stream "
+              f"{r['stream_tok_s']:.1f} tokens/s, inter-token p50 "
+              f"{r['inter_token_p50_ms']:.2f} ms, {r['prefill_calls']} "
+              f"prefill calls, {r['decode_steps']} decode steps, launches "
+              f"{r['launches']}, dtypes {r['dtypes']}", flush=True)
+    lens = [9, 64, 65, 130, 200, 300, 513, 700]
+    prompts = [list(rng.integers(1, cfg.vocab_size, size=n)) for n in lens]
+    conf = _quant_config(SERVE_CONFIG, "int8", None)
+    qm.launches = 0
+    fast = InferenceEngine(model, config=conf).generate(prompts,
+                                                        max_new_tokens=8)
+    launched = qm.launches
+    model.use_kernels = False
+    plain_cfg = json.loads(json.dumps(conf))
+    plain_cfg["inference"]["kernel"] = "xla"
+    qm.launches = 0
+    plain = InferenceEngine(model, config=plain_cfg).generate(
+        prompts, max_new_tokens=8)
+    same = [a == b for a, b in zip(fast, plain)]
+    first = [a[0] == b[0] for a, b in zip(fast, plain)]
+    print(f"  bf16 int8 greedy: {sum(same)}/{len(same)} requests "
+          f"token-identical, {sum(first)}/{len(first)} first tokens; int8 "
+          f"matmul launches {launched} (plain path {qm.launches})",
+          flush=True)
+    if qm.launches or not launched:
+        fail(f"38: the kernel path launched {launched} int8 matmuls, the "
+             f"plain path {qm.launches}")
+    if not all(first):
+        fail(f"38: greedy first tokens differ between the kernel path and "
+             f"the plain path: {fast} vs {plain}")
+    del model
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(GPT2Config.megatron_1_5b(),
+                                num_layers=QUANT_XL_PARITY_LAYERS)
+    model = GPT2(small, device="cuda").init_params(7)
+    prompts = [list(rng.integers(1, small.vocab_size, size=n)) for n in lens]
+    qm.launches = 0
+    qm.reset_design_launches()
+    fast32 = InferenceEngine(model, config=conf).generate(
+        prompts, max_new_tokens=16)
+    design32 = dict(qm.design_launches)
+    model.use_kernels = False
+    plain32 = InferenceEngine(model, config=plain_cfg).generate(
+        prompts, max_new_tokens=16)
+    same32 = [a == b for a, b in zip(fast32, plain32)]
+    print(f"  fp32 int8 parity at XL widths, {QUANT_XL_PARITY_LAYERS} "
+          f"layers: {sum(same32)}/{len(same32)} requests token-identical "
+          f"(int8 matmul launches by design {design32})", flush=True)
+    if not all(same32) or not design32["fma"] or design32["wgmma"]:
+        fail(f"38: fp32 int8 greedy tokens differ between the kernel path "
+             f"and the plain path ({design32}): {fast32} vs {plain32}")
+    del model
+    torch.cuda.empty_cache()
+    res = {"rungs": rungs,
+           "int8w_decode_vs_bf16": rungs["int8w"]["decode_tok_s"] /
+           rungs["bf16"]["decode_tok_s"],
+           "greedy_bf16": {"prompt_lengths": lens, "identical": same,
+                           "first_token_identical": first,
+                           "kernel_launches": launched},
+           "parity_fp32": {"layers": QUANT_XL_PARITY_LAYERS,
+                           "identical": same32,
+                           "design_launches": design32}}
+    report["serve_gpt2xl_int8"] = res
+    return res
+
+
+def run_quant_phases(fa, ad, gm, da, qm, report, card, bf16, moe):
+    """Phases 36-38 → (36, its int8 rung, 37, 38 results, the XL int8
+    matmul rows); ``bf16`` and ``moe`` are phases 7 and 11 of this run,
+    for the numbers beside."""
+    print(f"quantized training train-fp8ffn-125M (phase 7's rung with the "
+          f"fp8 FFN, amax history {QUANT_HISTORY}) on {card}:", flush=True)
+    tq = train(fa, ad, report, conf=quant_conf(TRAIN_CONFIG, "fp8"),
+               key="train_fp8ffn")
+    print_train("train-fp8ffn-125M", tq, card, beside=bf16)
+    print("train-int8ffn-125M (the int8 recipe):", flush=True)
+    ti = train(fa, ad, report, conf=quant_conf(TRAIN_CONFIG, "int8"),
+               key="train_int8ffn", steps=QUANT_INT8_STEPS, fall=1.0)
+    print_train("train-int8ffn-125M", ti, card, beside=bf16)
+    print("quantized training parity (fp32, 4 layers, kernels vs plain):",
+          flush=True)
+    fake_quant_on_card(report)
+    quant_train_parity(fa, ad, report)
+    print("quantized training in fp16 and across a checkpoint (4 layers):",
+          flush=True)
+    quant_fp16_overflow(fa, ad, report)
+    quant_resume(fa, ad, report)
+    print(f"quantized MoE training train-moe-125M-int8ffn (phase 11's rung "
+          f"with the int8 FFN) on {card}:", flush=True)
+    tm = train(fa, ad, report, conf=quant_conf(MOE_TRAIN_CONFIG, "int8"),
+               gm=gm, key="train_moe_int8ffn", steps=QUANT_MOE_STEPS,
+               fall_last=3)
+    print_train("train-moe-125M-int8ffn", tm, card, beside=moe)
+    print(f"serve-gpt2xl-int8 (GPT-2 XL, int8 block weights, row_quant's "
+          f"stream) on {card}:", flush=True)
+    xq = check_gpt2xl_qmm(qm, torch.Generator(device="cuda").manual_seed(38),
+                          report)
+    sx = serve_gpt2xl_int8(fa, da, qm, report)
+    return tq, ti, tm, sx, xq
+
+
+def quant_kernel_entries(tq, ti, tm, sx, xq):
+    """What phases 36-38 add to the kernels line: each kernel's launches
+    on them by path, and the int8 matmul's GPT-2 XL shapes."""
+    train_paths = {"train_fp8ffn": tq, "train_int8ffn": ti,
+                   "train_moe_int8ffn": tm}
+
+    def by_path(name, paths=train_paths):
+        return {p: r["launches"][name] for p, r in paths.items()}
+    xl = {t: r for t, r in sx["rungs"].items()}
+    return {
+        "flash_fwd": by_path("flash_fwd") | {
+            f"serve_gpt2xl_{t}": r["launches"]["flash_fwd"]
+            for t, r in xl.items()},
+        "flash_bwd": by_path("flash_bwd_dkv"),
+        "flash_bwd_dq": by_path("flash_bwd_dq"),
+        "adam": by_path("adam"),
+        "grouped_matmul": {"train_moe_int8ffn":
+                           tm["launches"]["grouped_matmul"]},
+        "grouped_matmul_dw": {"train_moe_int8ffn":
+                              tm["launches"]["grouped_matmul_dw"]},
+        "paged_decode": {f"serve_gpt2xl_{t}": r["launches"]["paged_decode"]
+                         for t, r in xl.items()},
+        "quant_matmul": {"serve_gpt2xl_int8w":
+                         xl["int8w"]["launches"]["quant_matmul"]},
+        "quant_matmul_design": {"serve_gpt2xl_int8w": xl["int8w"][
+            "quant_matmul_design_launches"]},
+        "quant_matmul_gpt2xl_shapes": [{k: r[k] for k in (
+            "M", "K", "N", "dtype", "plan", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")} | graph_times(r)
+            for r in xq if "ms" in r],
+    }
+
+
+def merge_quant_entries(kernels, entries):
+    """Add phases 36-38's launches to the kernels line's rows (their
+    totals and ``launches_by_path``) and the XL shapes to the int8
+    matmul's row."""
+    rows = {r["name"]: r for r in kernels}
+    for name in ("flash_fwd", "flash_bwd", "adam", "grouped_matmul",
+                 "grouped_matmul_dw", "paged_decode", "quant_matmul"):
+        paths = entries[name]
+        row = rows[name]
+        row["launches"] += sum(paths.values())
+        row.setdefault("launches_by_path", {}).update(paths)
+    by_kernel = rows["flash_bwd"].setdefault("launches_by_kernel",
+                                             {"dkv": 0, "dq": 0})
+    by_kernel["dkv"] += sum(entries["flash_bwd"].values())
+    by_kernel["dq"] += sum(entries["flash_bwd_dq"].values())
+    rows["quant_matmul"]["design_launches_gpt2xl"] = entries[
+        "quant_matmul_design"]
+    rows["quant_matmul"]["gpt2xl_shapes"] = entries[
+        "quant_matmul_gpt2xl_shapes"]
+
+
+def quant_kernel_rows(ft, fb, adm, gmm, xq, entries):
+    """The kernels line of ``--quant-train-only``: the kernels phases
+    36-38 launch, with phase 3's training-shape numbers (the int8
+    matmul's at GPT-2 XL's qkv shape, 16 rows) and their launches on
+    phases 36-38. The paged decode kernel, which phase 38 also launches,
+    is held and timed by the full run's phase 3."""
+    pallas = "deeperspeed_tpu/ops/pallas/"
+    train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
+    q0 = next(r for r in xq if "ms" in r)
+
+    def nums(r, err):
+        return {"max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
+
+    def total(name):
+        return sum(entries[name].values())
+    return [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": f"{pallas}flash_attention.py:497 (_fwd_kernel)",
+         "launches": total("flash_fwd"),
+         "launches_by_path": entries["flash_fwd"],
+         **nums(ft, ft["max_abs_err_out"]), "shape": train_shape},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": f"{pallas}flash_attention.py:948, :1038 "
+                     f"(_bwd_dkv_kernel, _bwd_dq_kernel)",
+         "launches": total("flash_bwd"),
+         "launches_by_kernel": {"dkv": total("flash_bwd"),
+                                "dq": total("flash_bwd_dq")},
+         **nums(fb, max(fb[f"max_abs_err_{g}"] for g in ("dq", "dk", "dv"))),
+         "shape": train_shape + " (dkv + dq kernels)"},
+        {"name": "adam", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/adam.cu",
+         "replaces": f"{pallas}optimizer.py:34 (_adam_kernel)",
+         "launches": total("adam"), "launches_by_path": entries["adam"],
+         **nums(adm, adm["max_abs_err_p"]),
+         "shape": "GPT-NeoX-125M's parameters, fp32 p/m/v, bf16 g, bf16 "
+                  "copy"},
+        {"name": "grouped_matmul", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": f"{pallas}grouped_matmul.py:121 (_fwd_kernel; also dx)",
+         "launches": total("grouped_matmul"),
+         **nums(gmm[0], gmm[0]["max_abs_err"]), "shape": gmm_shape(gmm[0])},
+        {"name": "grouped_matmul_dw", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
+         "replaces": f"{pallas}grouped_matmul.py:174 (_dw_kernel)",
+         "launches": total("grouped_matmul_dw"),
+         "max_abs_err": gmm[0]["max_abs_err_dw"], "ms": gmm[0]["dw_ms"],
+         "plain_ms": gmm[0]["dw_plain_ms"],
+         "bound_ms": gmm[0]["dw_bound_ms"],
+         "bound_by": gmm[0]["dw_bound_by"],
+         "library_ms": gmm[0]["dw_library_ms"],
+         "shape": gmm_shape(gmm[0]) + ", fp32 dW"},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": f"{pallas}quant_matmul.py:152 (_wq_kernel)",
+         "launches": total("quant_matmul"),
+         "launches_by_path": entries["quant_matmul"],
+         "design_launches": entries["quant_matmul_design"],
+         **nums(q0, q0["max_abs_err"]),
+         "library": "torch.matmul on the dequantized bf16 weight",
+         "shape": f"M={q0['M']} K={q0['K']} N={q0['N']} bf16 (GPT-2 XL "
+                  f"qkv, a decode step)",
+         "gpt2xl_shapes": entries["quant_matmul_gpt2xl_shapes"]},
+    ]
+
+
+def quant_train_only(card):
+    """Phases 36-38 alone, after phase 3's training-shape flash, Adam and
+    grouped-matmul checks and phases 7 and 11 (the step, tokens/s and
+    MFU beside phases 36 and 37)."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("kernels vs plain versions (training shapes):", flush=True)
+    ft, fb, adm, _ = check_train_kernels(
+        fa, ad, gen, report, GPTNeoXConfig(**NEOX_125M).num_params())
+    gmm = check_grouped_matmul(gm, gen, report)
+    print("training GPT-NeoX-125M (bf16, phase 7):", flush=True)
+    tr = train(fa, ad, report)
+    print_train("train-125M", tr, card)
+    print("MoE training GPT-NeoX-125M (phase 11):", flush=True)
+    tm = train(fa, ad, report, conf=MOE_TRAIN_CONFIG, gm=gm,
+               key="train_moe")
+    print_train("train-moe-125M", tm, card)
+    qres = run_quant_phases(fa, ad, gm, da, qm, report, card, bf16=tr,
+                            moe=tm)
+    report["kernels"] = quant_kernel_rows(ft, fb, adm, gmm, qres[-1],
+                                          quant_kernel_entries(*qres))
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_quant.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": report["kernels"]}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -8179,6 +8829,11 @@ def main():
                     help="run only phase 3's fp16 cases and phases 31-35 "
                          "(fp16 training and serving, fp16 sparse and int8, "
                          "TiledLinear and a client optimizer)")
+    ap.add_argument("--quant-train-only", action="store_true",
+                    help="run only phases 36-38 (quantized training and "
+                         "GPT-2 XL served with int8 weights), with phase 3's "
+                         "training-shape kernel checks and phases 7 and 11 "
+                         "for the numbers beside")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -8207,6 +8862,8 @@ def main():
         return sentinel_only(card, args.profile)
     if args.fp16_only:
         return fp16_only(card, args.profile)
+    if args.quant_train_only:
+        return quant_train_only(card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -8387,6 +9044,8 @@ def main():
     tsn = run_sentinel_phases(fa, ad, report, card, args.profile)
     f16 = run_fp16_phases(fa, da, gm, ad, bsa, qm, report, card, bf16=tr,
                           profile_step=args.profile)
+    qres = run_quant_phases(fa, ad, gm, da, qm, report, card, bf16=tr,
+                            moe=tm)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -8855,6 +9514,7 @@ def main():
          "tolerance_fp32": TOL_FLAGS[torch.float32]["bwd"]},
     ]
     kernels += fp16_kernel_rows(k16, *f16)
+    merge_quant_entries(kernels, quant_kernel_entries(*qres))
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

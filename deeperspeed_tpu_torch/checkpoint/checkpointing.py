@@ -9,8 +9,9 @@ The port of `deeperspeed_tpu/checkpoint/checkpointing.py`. Layout:
     {save_dir}/latest
 
 The model-states file holds the module's parameters, the LR schedule,
-the batch-size schedule, the dataloader position, the four counters, the loss-scale state and the
-config. The zero file (written iff ZeRO is on or the compute dtype is
+the batch-size schedule, the dataloader position, the four counters, the
+loss-scale state, the quantized FFN's amax history (``quantization_state``)
+and the config. The zero file (written iff ZeRO is on or the compute dtype is
 not fp32, the JAX engine's ``keep_master``) holds the fp32 masters and
 the Adam state; otherwise the Adam state goes into the model-states
 file. A JAX engine loads what the port writes and the port loads what a
@@ -187,7 +188,9 @@ def snapshot_checkpoint(engine, client_state=None):
                        if dataloader is not None else None),
         "gradient_noise_scale": None,
         "csr_tensor_module_names": [],
-        "quantization_state": None,
+        # the delayed-scaling FFN's amax history ({"amax", "ef": None}),
+        # None when quantization.ffn is off: bit-exact resume needs it
+        "quantization_state": engine._quant_state_dict(),
         "skipped_steps": engine.skipped_steps,
         "global_steps": engine.global_steps,
         "global_samples": engine.global_samples,
@@ -508,6 +511,8 @@ def _apply_checkpoint(engine, load_dir, tag, ckpt_dir, model_state,
         cur_iter=int(ls.get("cur_iter", 0)),
         last_overflow_iter=int(ls.get("last_overflow_iter", -1)),
         cur_hysteresis=int(ls.get("cur_hysteresis", 1)))
+    # the quantization state, with the JAX engine's rules and warnings
+    engine._restore_quant_state(model_state.get("quantization_state"))
     log_dist(f"Loaded checkpoint {tag} from {load_dir}", ranks=[0])
     return os.path.join(load_dir, str(tag)), _client_state(model_state)
 

@@ -25,6 +25,12 @@ block turns a dense model into one (`GPTNeoX.apply_ds_config`). With
 attention core is a `SparseSelfAttention` over the block's pattern
 (`make_sparse_attention`).
 
+With ``ffn_quant_recipe`` (the JSON "quantization.ffn" block) the FFN's
+two matmuls, dense or the sort engine's grouped ones, run on
+delayed-scaling fp8 / int8 fake-quantized operands; `loss_fn(...,
+ffn_amax=)` threads the per-layer amax histories [L, 4, H] through the
+blocks and returns the advanced ones (`ops/hopper/quant_matmul`).
+
 Packed batches ((tokens, labels, segment_ids) triples, the JSON
 "packing" block; `runtime/packing.py`) make attention intra-document on
 every block and gather the rotary cache at intra-document positions.
@@ -45,7 +51,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..moe.layer import moe_ffn_dense
-from ..ops.hopper.quant_matmul import QuantizedWeight, quant_matmul
+from ..ops.hopper.quant_matmul import (QuantizedWeight,
+                                      ffn_scaled_matmuls,
+                                      init_amax_history, quant_matmul)
 from ..runtime.activation_checkpointing.checkpointing import (
     checkpoint_span, make_remat_policy, resolve_policy_name)
 from ..runtime.config_utils import DeepSpeedConfigError
@@ -71,10 +79,11 @@ class GPTNeoXConfig:
     param_dtype: object = torch.float32
     # The remaining fields mirror the JAX config so one config object
     # describes one model in both packages. `GPTNeoX` builds the dense
-    # and the MoE FFN, the dense or sparse attention engine and packed
-    # segment ids (the serving engine refuses MoE and sparse models);
-    # the MoE routing statistics and the quantized FFN wait for their
-    # slices, and `GPTNeoX` refuses a config that asks for them.
+    # and the MoE FFN, the dense or sparse attention engine, packed
+    # segment ids and the delayed-scaling quantized FFN (the serving
+    # engine refuses MoE and sparse models); the MoE routing statistics
+    # wait for their slice, and `GPTNeoX` refuses a config that asks for
+    # them.
     moe_num_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -87,6 +96,10 @@ class GPTNeoXConfig:
     moe_observability: bool = False
     use_segment_ids: bool = False
     attention_engine: str = "dense"
+    # delayed-scaling quantized FFN (`ops/hopper/quant_matmul`): None =
+    # full precision, "int8"/"fp8" quantize both FFN matmul operands
+    # against per-layer amax histories threaded through the blocks (the
+    # JSON "quantization.ffn" block sets these)
     ffn_quant_recipe: object = None
     ffn_quant_margin: float = 1.0
     ffn_quant_history: int = 16
@@ -235,12 +248,14 @@ def _block_qkv(cfg, params, x, cos, sin, rot_dim, nh_local, backend=None):
 
 
 def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
-                     use_kernels=True):
+                     use_kernels=True, ffn_quant=None):
     """Everything after the attention core: out projection, residuals,
     ln2, MLP (dense or MoE). `attn_flat` is the [B, S, h] attention
     output. With MoE the return is (out, aux_load_balance_loss); ``rng``
     (a `torch.Generator`) feeds the gate jitter and ``use_kernels`` the
-    grouped matmul's kernel switch."""
+    grouped matmul's kernel switch. ``ffn_quant`` = (recipe, margin,
+    amax_row [4, H]) runs the FFN under delayed-scaling quantization and
+    appends the advanced amax row to the return."""
     out_b = params["attn"]["out_b"].to(x.dtype)
     attn_partial = _wmat(attn_flat, params["attn"]["out_w"], backend)
     if cfg.use_parallel_residual:
@@ -251,32 +266,48 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
                      params["ln_mlp"]["bias"], cfg.layernorm_eps)
     if cfg.moe_num_experts:
         B, S, h = ln2.shape
-        y, aux = moe_ffn_dense(
+        y = moe_ffn_dense(
             params["mlp"], ln2.reshape(B * S, h),
             capacity_factor=cfg.moe_capacity_factor, top_k=cfg.moe_top_k,
             rng=rng, jitter_eps=cfg.moe_jitter_eps,
             groups=cfg.moe_num_groups, dispatch=cfg.moe_dispatch,
             renorm_kept_choices=cfg.moe_renorm_kept_choices,
-            use_kernels=use_kernels)
-        moe_out = y.reshape(ln2.shape)
+            use_kernels=use_kernels, ffn_quant=ffn_quant)
+        moe_out = y[0].reshape(ln2.shape)
         if cfg.use_parallel_residual:
-            return x + attn_partial + out_b + moe_out, aux
-        return ln2_in + moe_out, aux
+            out = x + attn_partial + out_b + moe_out
+        else:
+            out = ln2_in + moe_out
+        return (out,) + tuple(y[1:])
     mlp_b = params["mlp"]["out_b"].to(x.dtype)
-    hmid = _wmat(ln2, params["mlp"]["in_w"], backend) + \
-        params["mlp"]["in_b"].to(x.dtype)
-    hmid = F.gelu(hmid, approximate="tanh")        # jax.nn.gelu's default
-    mlp_partial = _wmat(hmid, params["mlp"]["out_w"], backend)
+    new_row = None
+    if ffn_quant is not None:
+        recipe, margin, amax_row = ffn_quant
+        B, S, h = ln2.shape
+        y2d, new_row = ffn_scaled_matmuls(
+            ln2.reshape(B * S, h), params["mlp"]["in_w"],
+            params["mlp"]["in_b"], params["mlp"]["out_w"], amax_row, recipe,
+            margin)
+        mlp_partial = y2d.reshape(B, S, -1)
+    else:
+        hmid = _wmat(ln2, params["mlp"]["in_w"], backend) + \
+            params["mlp"]["in_b"].to(x.dtype)
+        hmid = F.gelu(hmid, approximate="tanh")    # jax.nn.gelu's default
+        mlp_partial = _wmat(hmid, params["mlp"]["out_w"], backend)
     if cfg.use_parallel_residual:
-        return x + (attn_partial + mlp_partial) + out_b + mlp_b
-    return ln2_in + mlp_partial + mlp_b
+        out = x + (attn_partial + mlp_partial) + out_b + mlp_b
+    else:
+        out = ln2_in + mlp_partial + mlp_b
+    return out if new_row is None else (out, new_row)
 
 
 def block_forward(cfg, params, x, cos_sin, use_kernels=True,
-                  segment_ids=None, rng=None, attn_fn=None):
+                  segment_ids=None, rng=None, attn_fn=None, ffn_quant=None):
     """One GPT-NeoX block: x + attn(ln1(x)) + ffn(ln2(x)); with MoE the
-    return is (out, aux_loss). ``attn_fn`` (the sparse engine of
-    `make_sparse_attention`) replaces `causal_attention` as the core."""
+    return is (out, aux_loss), and with ``ffn_quant`` the advanced amax
+    row is appended (`_block_post_attn`). ``attn_fn`` (the sparse engine
+    of `make_sparse_attention`) replaces `causal_attention` as the
+    core."""
     B, S, h = x.shape
     cos, sin, rot_dim = cos_sin
     q, k, v = _block_qkv(cfg, params, x, cos, sin, rot_dim, cfg.num_heads)
@@ -287,7 +318,7 @@ def block_forward(cfg, params, x, cos_sin, use_kernels=True,
         attn = causal_attention(q, k, v, use_kernels=use_kernels,
                                 segment_ids=segment_ids)
     return _block_post_attn(cfg, params, x, attn.reshape(B, S, h), rng=rng,
-                            use_kernels=use_kernels)
+                            use_kernels=use_kernels, ffn_quant=ffn_quant)
 
 
 def lm_head(params, h):
@@ -325,7 +356,8 @@ def resolve_remat(remat_blocks, remat_policy, number_checkpoints):
 
 def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
                 attn_fn=None, remat_blocks=False, remat_policy=None,
-                number_checkpoints=None, segment_ids=None, hidden=None):
+                number_checkpoints=None, segment_ids=None, hidden=None,
+                ffn_amax=None):
     """The blocks over the embedded ``x`` [B, S, H] → the last block's
     output; with MoE (out, the blocks' aux losses summed). Shared by the
     GPT-NeoX and GPT-2 forwards (the JAX package's
@@ -343,28 +375,55 @@ def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
 
     ``hidden`` (a list, the capture path of `hidden_states`) receives
     every block's output; it runs the blocks without remat, as the JAX
-    package's ``collect_hidden`` path does."""
+    package's ``collect_hidden`` path does.
+
+    ``ffn_amax`` [L, 4, H] (the delayed-scaling quantized FFN's amax
+    histories, `cfg.ffn_quant_recipe`): block i quantizes its FFN
+    against row i, and the advanced rows come back stacked as one more
+    return value. A row goes into its span as an argument and comes out
+    as an output, so a span's recompute in the backward reads the same
+    row and its second copy of the new row is dropped: the history
+    advances once a forward."""
     moe = bool(cfg.moe_num_experts)
+    quant = ffn_amax is not None
     do_remat, policy, n_ckpt = (False, None, None) if hidden is not None \
         else resolve_remat(remat_blocks, remat_policy, number_checkpoints)
+    if quant and n_ckpt is not None:
+        raise ValueError(
+            "quantization.ffn + number_checkpoints (segmented-scan "
+            "checkpointing) is unsupported: the amax rows do not "
+            "thread through the segment spans; use a remat policy "
+            "without number_checkpoints")
+    if quant and hidden is not None:
+        raise ValueError(
+            "quantization.ffn does not thread amax through the "
+            "hidden-state capture path (collect_hidden)")
     if n_ckpt is not None and moe:
         raise ValueError(
             "number_checkpoints (segmented-scan checkpointing) needs a "
             "uniform block stack: incompatible with MoE aux-loss "
             "threading and collect_hidden — drop number_checkpoints or "
             "use per-block remat (a policy alone)")
+    quant_args = (cfg.ffn_quant_recipe, cfg.ffn_quant_margin) \
+        if quant else None
 
-    def run_blocks(group, x):
+    def run_blocks(group, x, arow=None):
         aux_sum = None
         for bp in group:
-            x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
-                              segment_ids=segment_ids, rng=rng,
-                              attn_fn=attn_fn)
-            if moe:
-                x, aux = x
-                aux_sum = aux if aux_sum is None else aux_sum + aux
+            y = block_forward(
+                cfg, bp, x, cos_sin, use_kernels=use_kernels,
+                segment_ids=segment_ids, rng=rng, attn_fn=attn_fn,
+                ffn_quant=None if arow is None else (*quant_args, arow))
+            if moe or quant:
+                x = y[0]
+                if moe:
+                    aux_sum = y[1] if aux_sum is None else aux_sum + y[1]
+            else:
+                x = y
             if hidden is not None:
                 hidden.append(x)
+        if quant:
+            return (x, aux_sum, y[-1]) if moe else (x, y[-1])
         return (x, aux_sum) if moe else x
 
     if n_ckpt is not None:
@@ -375,25 +434,37 @@ def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
             idx += size
     else:
         groups = [[bp] for bp in blocks]
-    aux_total = None
-    for group in groups:
+    aux_total, new_rows = None, []
+    for i, group in enumerate(groups):
+        args = (x,) if not quant else (x, ffn_amax[i])
         if do_remat:
-            x = checkpoint_span(functools.partial(run_blocks, group), x,
+            y = checkpoint_span(functools.partial(run_blocks, group), *args,
                                 policy=policy, generators=(rng,))
         else:
-            x = run_blocks(group, x)
+            y = run_blocks(group, *args)
+        if not (moe or quant):
+            x = y
+            continue
+        x = y[0]
         if moe:
-            x, aux = x
-            aux_total = aux if aux_total is None else aux_total + aux
-    return (x, aux_total) if moe else x
+            aux_total = y[1] if aux_total is None else aux_total + y[1]
+        if quant:
+            new_rows.append(y[-1])
+    out = (x, aux_total) if moe else (x,)
+    if quant:
+        out += (torch.stack(new_rows),)
+    return out if len(out) > 1 else x
 
 
 def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
                    attn_fn=None, remat_blocks=False, remat_policy=None,
-                   number_checkpoints=None, segment_ids=None, hidden=None):
+                   number_checkpoints=None, segment_ids=None, hidden=None,
+                   ffn_amax=None):
     """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
-    (out, the blocks' aux losses summed). The blocks run through
-    `block_stack` (its remat knobs, ``rng``, ``attn_fn`` and ``hidden``).
+    (out, the blocks' aux losses summed); with ``ffn_amax`` [L, 4, H]
+    (the quantized FFN's amax histories) the advanced histories are
+    appended. The blocks run through `block_stack` (its remat knobs,
+    ``rng``, ``attn_fn``, ``hidden`` and ``ffn_amax``).
 
     ``segment_ids`` [B, S] int (packed ragged batches, 0 = pad — see
     `runtime.packing`): attention becomes intra-document on every block,
@@ -418,15 +489,16 @@ def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
                     use_kernels=use_kernels, rng=rng, attn_fn=attn_fn,
                     remat_blocks=remat_blocks, remat_policy=remat_policy,
                     number_checkpoints=number_checkpoints,
-                    segment_ids=segment_ids, hidden=hidden)
-    aux = None
-    if cfg.moe_num_experts:
-        x, aux = x
+                    segment_ids=segment_ids, hidden=hidden,
+                    ffn_amax=ffn_amax)
+    rest = ()
+    if cfg.moe_num_experts or ffn_amax is not None:
+        x, *rest = x
     out = layer_norm(x, params["final_ln"]["scale"],
                      params["final_ln"]["bias"], cfg.layernorm_eps)
     if hidden is not None:
         hidden.append(out)
-    return (out, aux) if cfg.moe_num_experts else out
+    return (out, *rest) if rest else out
 
 
 def forward(cfg, params, tokens, use_kernels=True, attn_fn=None,
@@ -608,10 +680,6 @@ def _refuse_unported(cfg):
         raise NotImplementedError(
             "the MoE routing statistics (moe_observability) are not "
             "ported yet (observability slice)")
-    if cfg.ffn_quant_recipe is not None:
-        raise NotImplementedError(
-            "the delayed-scaling quantized FFN (ffn_quant_recipe) is not "
-            "ported yet (quantized training slice)")
 
 
 def _holder(**shapes):
@@ -797,8 +865,9 @@ class GPTNeoX(LMModule):
 
     @torch.no_grad()
     def apply_ds_config(self, ds_config):
-        """Wire the JSON "moe", "packing", "sparse_attention" and
-        "activation_checkpointing" blocks into the model
+        """Wire the JSON "moe", "packing", "quantization",
+        "sparse_attention" and "activation_checkpointing" blocks into the
+        model
         (`GPTNeoX.apply_ds_config` of the JAX package); the training
         engine calls it before it builds its flat state. "moe": the
         config takes the block's values; each block's FFN holder whose
@@ -806,7 +875,9 @@ class GPTNeoX(LMModule):
         rebuilt and its leaves drawn with `init_params`' rule from a
         generator seeded with the last `init_params` seed, and one whose
         shapes match keeps its weights. "packing": batches must carry
-        segment ids (``use_segment_ids``). "sparse_attention": the
+        segment ids (``use_segment_ids``). "quantization" with an "ffn"
+        object: the FFN runs the delayed-scaling recipe (``ffn_quant_*``;
+        an MoE model needs sort dispatch). "sparse_attention": the
         attention core becomes the sparse engine over the block's pattern
         (the same parameters). "activation_checkpointing": the remat
         knobs (`apply_activation_checkpointing_config`). The other blocks
@@ -819,6 +890,21 @@ class GPTNeoX(LMModule):
         if packing:
             self.config = dataclasses.replace(self.config,
                                               use_segment_ids=True)
+        qz = getattr(ds_config, "quantization_config", None)
+        if qz and qz.get("ffn"):
+            f = qz["ffn"]
+            if self.config.moe_num_experts and \
+                    self.config.moe_dispatch != "sort":
+                raise ValueError(
+                    "quantization.ffn on an MoE model requires "
+                    "moe.dispatch = \"sort\" (the delayed-scaling path "
+                    "quantizes the grouped expert matmul; the einsum "
+                    "engine's flops sit in the one-hot dispatch tensor)")
+            self.config = dataclasses.replace(
+                self.config,
+                ffn_quant_recipe=f["recipe"],
+                ffn_quant_margin=f["margin"],
+                ffn_quant_history=f["amax_history_len"])
         sparse = getattr(ds_config, "sparse_attention", None)
         if sparse:
             if packing:
@@ -871,19 +957,25 @@ class GPTNeoX(LMModule):
                        use_kernels=self.use_kernels,
                        attn_fn=self._attention_fn(), **self._remat_knobs())
 
-    def _lm_forward(self, params, batch, rng=None):
+    def _lm_forward(self, params, batch, rng=None, ffn_amax=None):
         """Shared body of `loss_fn` / `loss_and_logits`: one block-stack
         forward → (final-norm hidden, masked labels, the MoE aux loss or
-        None)."""
+        None, the advanced amax histories or None)."""
         tokens, labels, seg = self._lm_batch(batch)
         cfg = self.config
         hidden = forward_hidden(cfg, params, tokens,
                                 use_kernels=self.use_kernels, rng=rng,
                                 attn_fn=self._attention_fn(),
-                                segment_ids=seg, **self._remat_knobs())
-        if cfg.moe_num_experts:
-            return hidden[0], labels, hidden[1]
-        return hidden, labels, None
+                                segment_ids=seg, ffn_amax=ffn_amax,
+                                **self._remat_knobs())
+        aux = new_amax = None
+        if cfg.moe_num_experts and ffn_amax is not None:
+            hidden, aux, new_amax = hidden
+        elif cfg.moe_num_experts:
+            hidden, aux = hidden
+        elif ffn_amax is not None:
+            hidden, new_amax = hidden
+        return hidden, labels, aux, new_amax
 
     def _head_loss(self, params, hidden, labels, aux):
         cfg = self.config
@@ -892,7 +984,7 @@ class GPTNeoX(LMModule):
             return loss
         return loss + cfg.moe_aux_loss_coef * aux / max(cfg.num_layers, 1)
 
-    def loss_fn(self, params, batch, rng=None):
+    def loss_fn(self, params, batch, rng=None, ffn_amax=None):
         """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
         parameter tree ``params`` (`params_tree()`), differentiable in
         it: `GPTNeoX.loss_fn` of the JAX package. With MoE it adds
@@ -901,13 +993,29 @@ class GPTNeoX(LMModule):
         A packed batch's labels lose their pad and cross-document targets
         (`mask_cross_document_labels`), so packing changes the loss only
         through the attention it removes; with ``use_segment_ids`` (the
-        "packing" block) a batch without segment ids raises."""
-        return self._head_loss(params, *self._lm_forward(params, batch, rng))
+        "packing" block) a batch without segment ids raises. With
+        ``ffn_amax`` (the quantized FFN's state, [L, 4, H] from
+        `init_ffn_amax`) the return is (loss, new_ffn_amax): the engine
+        threads the state from one micro-step to the next."""
+        hidden, labels, aux, new_amax = self._lm_forward(
+            params, batch, rng, ffn_amax=ffn_amax)
+        loss = self._head_loss(params, hidden, labels, aux)
+        return loss if ffn_amax is None else (loss, new_amax)
+
+    def init_ffn_amax(self):
+        """Zero amax-history state for `loss_fn(..., ffn_amax=)`,
+        [num_layers, 4, ffn_quant_history] fp32 on the model's device;
+        None when the config has no quantized-FFN recipe."""
+        if self.config.ffn_quant_recipe is None:
+            return None
+        return init_amax_history(self.config.num_layers,
+                                 self.config.ffn_quant_history,
+                                 device=self.embed.wte.device)
 
     def loss_and_logits(self, params, batch, rng=None):
         """(loss, [B, S, V] fp32 logits) from one forward: what the
         engine's `eval_batch(return_logits=True)` runs."""
-        hidden, labels, aux = self._lm_forward(params, batch, rng)
+        hidden, labels, aux, _ = self._lm_forward(params, batch, rng)
         return self._head_loss(params, hidden, labels, aux), \
             lm_head(params, hidden)
 

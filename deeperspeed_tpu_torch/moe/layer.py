@@ -18,9 +18,10 @@ choices that survived capacity. Two dispatch engines route identically:
 Gate jitter (``jitter_eps > 0`` with an ``rng``) draws its multiplicative
 noise from a `torch.Generator` at one point that both engines share, so
 they route identically under noise; the numbers are not the JAX
-package's. Expert parallelism (`moe_ffn_expert_parallel`, a mesh), the
-routing statistics (``moe.observability``) and the quantized FFN
-(``ffn_quant``) are not ported yet.
+package's. The sort engine runs the delayed-scaling quantized FFN
+(``ffn_quant``, the "quantization.ffn" block) on its two grouped
+products. Expert parallelism (`moe_ffn_expert_parallel`, a mesh) and the
+routing statistics (``moe.observability``) are not ported yet.
 """
 
 import functools
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from ..ops.hopper.grouped_matmul import (grouped_matmul,
                                          grouped_matmul_reference, pick_span)
+from ..ops.hopper.quant_matmul import grouped_scaled_operands
 from ..utils.device import resolve_device
 
 # auto-grouping target: the largest per-group token count
@@ -252,22 +254,39 @@ def _fill_buffer(x, route, capacity, span):
 
 
 def _sort_ffn(params, buf, sizes, span, lut, n_w, rows_per_w,
-              use_kernels=True):
+              use_kernels=True, ffn_quant=None):
     """The expert FFN over the packed buffer as two grouped matmuls. The
     biases ride a [n_w, rows, ·] view; dead rows come out of the second
     matmul as exact zeros plus a bias term, which the combine never
-    gathers."""
+    gathers.
+
+    ``ffn_quant`` = (recipe, margin, amax_row [4, H]) runs both grouped
+    matmuls on delayed-scaling fake-quantized operands
+    (`grouped_scaled_operands`) and makes the return (out, new_amax_row).
+    Each amax covers the whole buffer, dead rows included, as in JAX:
+    the buffer's are zeros, and the first product's are exact zeros
+    before the bias and gelu, so those of ``h`` are gelu(b_in)."""
     gmm = grouped_matmul if use_kernels else grouped_matmul_reference
     dt = buf.dtype
     w_in, b_in = params["w_in"].to(dt), params["b_in"].to(dt)
     w_out, b_out = params["w_out"].to(dt), params["b_out"].to(dt)
     inter, hidden = w_in.shape[-1], w_out.shape[-1]
+    if ffn_quant is not None:
+        recipe, margin, amax_row = ffn_quant
+        buf, w_in, hx_in, hw_in = grouped_scaled_operands(
+            buf, w_in, amax_row[0], amax_row[1], recipe, margin)
     h = gmm(buf, w_in, sizes, span, lut)
     h = F.gelu(h.reshape(n_w, rows_per_w, inter) + b_in[:, None, :],
                approximate="tanh").reshape(-1, inter)
+    if ffn_quant is not None:
+        h, w_out, hx_out, hw_out = grouped_scaled_operands(
+            h, w_out, amax_row[2], amax_row[3], recipe, margin)
     out = gmm(h, w_out, sizes, span, lut)
     out = out.reshape(n_w, rows_per_w, hidden) + b_out[:, None, :]
-    return out.reshape(-1, hidden)
+    out = out.reshape(-1, hidden)
+    if ffn_quant is None:
+        return out
+    return out, torch.stack([hx_in, hw_in, hx_out, hw_out])
 
 
 def _sort_combine(out_buf, route, span, T, dtype):
@@ -298,14 +317,19 @@ def moe_ffn_dense(params, x, capacity_factor=1.25, top_k=1, rng=None,
     the tokens into independent routing groups (capacity per group);
     ``dispatch`` picks the engine; ``rng`` is a `torch.Generator` for the
     gate jitter; ``use_kernels=False`` sends the sort engine's grouped
-    matmuls to their plain version on any device."""
+    matmuls to their plain version on any device. ``ffn_quant`` =
+    (recipe, margin, amax_row [4, H]) quantizes the sort engine's
+    grouped products (`_sort_ffn`) and makes the return (y, aux_loss,
+    new_amax_row); the einsum engine refuses it."""
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch must be one of {DISPATCH_MODES}, "
                          f"got {dispatch!r}")
-    if ffn_quant is not None:
-        raise NotImplementedError(
-            "quantization.ffn on MoE blocks is not ported yet (quantized "
-            "training slice)")
+    if ffn_quant is not None and dispatch != "sort":
+        raise ValueError(
+            "quantization.ffn on MoE blocks requires dispatch='sort': "
+            "the delayed-scaling path quantizes the grouped expert "
+            "matmul operands (the einsum engine spends its flops on the "
+            "one-hot dispatch tensor, which quantization cannot help)")
     T, H = x.shape
     E = params["w_in"].shape[0]
     g = _resolve_groups(groups, T)
@@ -331,7 +355,11 @@ def moe_ffn_dense(params, x, capacity_factor=1.25, top_k=1, rng=None,
     buf, sizes = _fill_buffer(x, route, capacity, span)
     lut = tuple(np.repeat(np.arange(E), g).tolist())
     out_buf = _sort_ffn(params, buf, sizes, span, lut, E, g * span,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, ffn_quant=ffn_quant)
+    if ffn_quant is not None:
+        out_buf, new_amax_row = out_buf
+        return (_sort_combine(out_buf, route, span, T, x.dtype), route.aux,
+                new_amax_row)
     return _sort_combine(out_buf, route, span, T, x.dtype), route.aux
 
 

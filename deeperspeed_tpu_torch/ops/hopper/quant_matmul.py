@@ -14,16 +14,27 @@ contraction, so it is applied once to the fp32 sum.
 ``backend`` is ``inference.kernel``, handed down by the serving engine
 through the model's block functions: None/"auto" and "pallas" launch
 the kernel on CUDA tensors and take the plain version on CPU tensors;
-"xla" always takes the plain version. The delayed-scaling
-training helpers of the JAX module (`scaled_matmul`,
-`ffn_scaled_matmuls`) are not ported yet.
+"xla" always takes the plain version.
+
+Delayed scaling (training; the "quantization.ffn" block): the dense and
+grouped FFN matmuls quantize both operands each step with scales taken
+from an amax history (`scale_from_history`, `amax_history_update`), as
+a fake-quant with a straight-through estimator (`_fake_quant`), so the
+backward is the full-precision transpose. The JAX module leaves this
+part to XLA (no Pallas kernel), so here it is plain PyTorch: the
+fake-quantized operands go to cuBLAS (`scaled_matmul`) or to the
+grouped-matmul kernel (`grouped_scaled_operands`) unchanged.
 """
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 INT8_QMAX = 127.0
+FP8_QMAX = 448.0      # float8_e4m3fn finite max
+QUANT_RECIPES = ("int8", "fp8")
 
 # the wgmma kernel's tiles (bf16 and fp16 x): 128 weight columns by a
 # token tile (the rows of x, wgmma's N) a CTA, K in tiles of 64
@@ -174,3 +185,130 @@ def quant_matmul(x, qw, backend=None):
     if x.device.type != "cuda":
         raise ValueError(f"no quant matmul path for device {x.device}")
     return quant_matmul_cuda(x, qw)
+
+
+# ---------------------------------------------------------------------------
+# delayed scaling (training): amax history + fake-quant matmul
+# ---------------------------------------------------------------------------
+
+def recipe_qmax(recipe):
+    if recipe == "int8":
+        return INT8_QMAX
+    if recipe == "fp8":
+        return FP8_QMAX
+    raise ValueError(
+        f"unknown quantization recipe {recipe!r}; expected one of "
+        f"{list(QUANT_RECIPES)}")
+
+
+def scale_from_history(history, current_amax, qmax, margin=1.0):
+    """Delayed-scaling scale: ``margin · max(history) / qmax``, falling
+    back to the current step's amax while the history is still all-zero
+    (step 0, or a freshly extended state), so the bootstrap step never
+    quantizes against a degenerate scale. A 0-d fp32 tensor.
+
+    The constant factor is one fp32 multiplier, ``fp32(margin) ·
+    fp32(1 / qmax)``, as XLA compiles the JAX function's ``amax * margin
+    / qmax`` (it folds the division by a constant into the multiplier),
+    so the scales are the JAX engine's bit for bit; on CUDA a multiply
+    by a Python scalar is exact, where a divide by one would take the
+    reciprocal anyway."""
+    hist_amax = history.max()
+    amax = torch.where(hist_amax > 0.0, hist_amax, current_amax)
+    amax = torch.clamp(amax, min=1e-12)
+    factor = np.float32(margin) * (np.float32(1.0) / np.float32(qmax))
+    return amax * float(factor)
+
+
+def amax_history_update(history, current_amax):
+    """Roll the window one step and record the current amax at slot 0
+    (a new tensor: the old history stays as it was)."""
+    cur = torch.as_tensor(current_amax, dtype=history.dtype,
+                          device=history.device).reshape(1)
+    return torch.cat([cur, history[:-1]])
+
+
+def _amax(v):
+    """max |v| in fp32, outside the differentiated graph (exact: the
+    largest magnitude of v's own dtype)."""
+    return v.detach().abs().amax().float()
+
+
+def _fake_quant(v, scale, recipe):
+    """Quantize → dequantize at ``scale`` with a straight-through
+    estimator: the forward value is the exact representable
+    low-precision value, the backward is identity (the reference
+    delayed-scaling recipe runs only the forward GEMM low-precision).
+    Divide (not multiply by a reciprocal), round half to even (int8),
+    clamp before the float8_e4m3fn cast (e4m3fn has no inf: an
+    out-of-range cast is NaN, and a delayed scale is stale by
+    construction), then cast to v's dtype; ``v + (dq - v)`` in v's
+    dtype, as in JAX."""
+    f = v.float() / scale
+    if recipe == "int8":
+        dq = torch.clamp(torch.round(f), -INT8_QMAX, INT8_QMAX) * scale
+    else:
+        f = torch.clamp(f, -FP8_QMAX, FP8_QMAX)
+        dq = f.to(torch.float8_e4m3fn).float() * scale
+    dq = dq.to(v.dtype)
+    return v + (dq - v).detach()
+
+
+def scaled_matmul(x, w, hist_x, hist_w, recipe, margin=1.0):
+    """One delayed-scaled matmul: quantize both operands with scales from
+    their amax histories, contract x's last dim with w's first (the one
+    contraction the JAX function's callers use; its ``dim_numbers`` is
+    not carried), and return ``(y, new_hist_x, new_hist_w)``, the
+    histories advanced with this step's amaxes (the amax observation is
+    outside the differentiated graph). 16-bit operands take cuBLAS's
+    16-bit product, which sums in fp32 and rounds once to x's dtype, as
+    the JAX ``preferred_element_type=float32`` product cast back does."""
+    xq, wq, hx, hw = grouped_scaled_operands(x, w, hist_x, hist_w, recipe,
+                                             margin)
+    return torch.matmul(xq, wq).to(x.dtype), hx, hw
+
+
+def grouped_scaled_operands(x, w, hist_x, hist_w, recipe, margin=1.0):
+    """Delayed-scaling fake-quant of a grouped-expert-matmul operand
+    pair: ``x`` [R, K] (the span-packed token buffer, dead rows
+    included in its amax) and ``w`` [E, K, N] (the stacked expert
+    weights) quantized against their amax histories, to be fed unchanged
+    into `grouped_matmul`. Returns (xq, wq, new_hist_x, new_hist_w);
+    `scaled_matmul` quantizes its pair the same way."""
+    qmax = recipe_qmax(recipe)
+    amax_x, amax_w = _amax(x), _amax(w)
+    sx = scale_from_history(hist_x, amax_x, qmax, margin)
+    sw = scale_from_history(hist_w, amax_w, qmax, margin)
+    return (_fake_quant(x, sx, recipe), _fake_quant(w, sw, recipe),
+            amax_history_update(hist_x, amax_x),
+            amax_history_update(hist_w, amax_w))
+
+
+# per-block dense-FFN amax state layout: 4 tensors (ffn-in x/w, ffn-out
+# x/w), each with its own history row; `models.gpt_neox` threads one
+# [4, history_len] row per layer through the blocks (the MoE sort path
+# reuses the layout: in-buf/in-w, out-buf/out-w)
+FFN_AMAX_TENSORS = 4
+
+
+def init_amax_history(num_layers, history_len, n_tensors=FFN_AMAX_TENSORS,
+                      device=None):
+    """Zero-initialized per-layer amax history: [L, n_tensors, H] fp32."""
+    return torch.zeros((int(num_layers), int(n_tensors), int(history_len)),
+                       dtype=torch.float32, device=device)
+
+
+def ffn_scaled_matmuls(x2d, w_in, b_in, w_out, amax_row, recipe,
+                       margin=1.0):
+    """The dense-FFN pair under delayed scaling: in-proj → gelu (tanh,
+    `jax.nn.gelu`'s default, the JAX function's default activation) →
+    out-proj, both matmuls quantized against ``amax_row`` [4, H] (rows:
+    in-x, in-w, out-x, out-w). Returns (y2d, new_amax_row); the output
+    bias is not added (callers fold it after the product, as the plain
+    FFN does)."""
+    h, hx_in, hw_in = scaled_matmul(x2d, w_in.to(x2d.dtype), amax_row[0],
+                                    amax_row[1], recipe, margin)
+    h = F.gelu(h + b_in.to(h.dtype), approximate="tanh")
+    y, hx_out, hw_out = scaled_matmul(h, w_out.to(h.dtype), amax_row[2],
+                                      amax_row[3], recipe, margin)
+    return y, torch.stack([hx_in, hw_in, hx_out, hw_out])

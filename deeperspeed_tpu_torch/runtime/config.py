@@ -9,10 +9,12 @@ precision and loss scaling, optimizer, LR scheduler, clipping, ZeRO
 stages 0-2), the "checkpoint" block the engine's checkpoint manager
 reads, the "training_health", "progressive_layer_drop" and
 "batch_size_schedule" blocks and ``fp16.min_scale_patience`` its step
-boundary reads, and the "moe", "sparse_attention", "packing" and
+boundary reads, the "moe", "sparse_attention", "packing" and
 "activation_checkpointing" blocks the model reads
-(`GPTNeoX.apply_ds_config`); every other top-level block of the JAX
-config that is set raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
+(`GPTNeoX.apply_ds_config`), and the "quantization" block (its "ffn"
+object arms the delayed-scaling FFN; "gradient_compression" raises "not
+ported"); every other top-level block of the JAX config that is set
+raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
@@ -322,6 +324,18 @@ class DeepSpeedConfig:
 
         self._parse_checkpoint_block(d)
         self._parse_training_health_block(d)
+
+        # the low-precision paths (the module-level parse, shared with the
+        # serving engine): the engine arms "ffn"; "weights" is parsed and
+        # read by nothing in training, as in the JAX engine
+        self.quantization_config = parse_quantization_block(d) or None
+        if self.quantization_config and \
+                self.quantization_config["gradient_compression"]:
+            raise DeepSpeedConfigError(
+                f"{c.QUANTIZATION}.{c.QUANTIZATION_GRAD_COMPRESSION} is "
+                f"not ported yet (it comes with the scale-out (A.7) slice: "
+                f"it needs the explicit ZeRO-3 schedule and a "
+                f"data-parallel world; see ROADMAP.md)")
 
     def _parse_packing_block(self, d):
         """Parse + validate the "packing" block (`runtime/packing.py`:
@@ -1275,10 +1289,9 @@ def _parse_inference_router(block):
 
 def parse_quantization_block(d):
     """Parse + validate the "quantization" block with the JAX package's
-    keys and errors. The serving engine consumes ``weights``; the
-    ``ffn`` and ``gradient_compression`` choices are validated here but
-    run by no path of the port yet (the training `DeepSpeedConfig`
-    refuses the block).
+    keys and errors. The serving engine consumes ``weights``, the
+    training engine ``ffn``; the training `DeepSpeedConfig` refuses an
+    enabled ``gradient_compression`` as not ported.
 
     Returns {"weights": str|None, "ffn": dict|None,
     "gradient_compression": bool, "gradient_compression_packed": bool}

@@ -85,7 +85,6 @@ NOT_PORTED_BLOCKS = {
     "tensorboard": "observability",
     "flops_profiler": "observability",
     "elasticity": "elasticity",
-    "quantization": "serving-quant / quantized training",
     "aio": "offload",
     "planner": "schedule planner",
     "rl": "online RL",
@@ -390,8 +389,8 @@ INFERENCE_ROUTER_SCALE_UP_UTIL = "scale_up_util"
 INFERENCE_ROUTER_SCALE_UP_UTIL_DEFAULT = 0.85
 
 # "quantization" block (`config.parse_quantization_block`): the serving
-# engine reads only ``weights``; the training ``DeepSpeedConfig`` still
-# refuses the block (the ``ffn`` and ``gradient_compression`` paths wait)
+# engine reads ``weights``, the training engine ``ffn``; the training
+# ``DeepSpeedConfig`` refuses an enabled ``gradient_compression``
 QUANTIZATION = "quantization"
 QUANTIZATION_ENABLED = "enabled"
 QUANTIZATION_ENABLED_DEFAULT = True
@@ -399,7 +398,7 @@ QUANTIZATION_ENABLED_DEFAULT = True
 QUANTIZATION_WEIGHTS = "weights"
 QUANTIZATION_WEIGHTS_DEFAULT = None
 QUANTIZATION_WEIGHTS_CHOICES = ("int8",)
-# delayed-scaling quantized FFN (training; validated, not run)
+# delayed-scaling quantized FFN (training; ops/hopper/quant_matmul)
 QUANTIZATION_FFN = "ffn"
 QUANTIZATION_FFN_RECIPE = "recipe"
 QUANTIZATION_FFN_RECIPE_CHOICES = ("int8", "fp8")
@@ -407,7 +406,8 @@ QUANTIZATION_FFN_HISTORY = "amax_history_len"
 QUANTIZATION_FFN_HISTORY_DEFAULT = 16
 QUANTIZATION_FFN_MARGIN = "margin"
 QUANTIZATION_FFN_MARGIN_DEFAULT = 1.0
-# error-feedback compressed gradients (training; validated, not run)
+# error-feedback compressed gradients (training; not ported: it
+# needs the explicit ZeRO-3 schedule and a data-parallel world)
 QUANTIZATION_GRAD_COMPRESSION = "gradient_compression"
 QUANTIZATION_GRAD_COMPRESSION_ENABLED = "enabled"
 QUANTIZATION_GRAD_COMPRESSION_ENABLED_DEFAULT = True

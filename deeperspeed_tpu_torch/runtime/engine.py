@@ -75,6 +75,18 @@ checkpoint and skips the step boundary. The step boundary
 progressive layer drop, the loss-scale floor watch
 (``fp16.min_scale_patience``) and the checkpoint manager.
 
+Quantized training (the "quantization" block's "ffn" object;
+`_configure_quantization`): `apply_ds_config` makes the model's FFN
+matmuls run the delayed-scaling fp8/int8 recipe, and the engine keeps
+the per-layer amax history ``quant.amax`` [L, 4, H] (`QuantState`).
+`train_batch` hands it to each micro-step's ``loss_fn(...,
+ffn_amax=)`` and the next micro-step reads what the last one returned;
+`_apply_update` keeps the step's new history only when the step is
+taken, so an fp16 overflow skip or a sentinel quarantine leaves it as
+it was (the JAX step selects the old state branchlessly; the port
+decides on the host, where it decides the skip). `eval_batch` runs full
+precision. The history rides the checkpoint's ``quantization_state``.
+
 Batches: bare tokens, a tuple of arrays (GPT-NeoX's and GPT-2's
 (tokens, labels)) or a dict (BERT's), each leaf moved to the device
 with its kind kept (integer ids as long, a float mask as it is) and
@@ -85,6 +97,7 @@ micro-batch.
 
 import inspect
 import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -122,6 +135,17 @@ def micro_step_seed(micro_steps):
     """The generator seed of micro-step ``micro_steps``: (1234,
     micro_steps) packed into one 64-bit seed."""
     return (RNG_BASE_SEED << 32) | int(micro_steps)
+
+
+class QuantState(NamedTuple):
+    """The quantization state (the JAX engine's ``EngineState.quant``):
+    ``amax`` is the delayed-scaling FFN's per-layer amax history
+    [L, 4, H] fp32 on the training device (None when quantization.ffn is
+    off); ``ef``, the compressed-gradient error feedback, is always None
+    here (gradient_compression is not ported). Checkpointed in
+    model_states for bit-exact resume."""
+    amax: Any = None
+    ef: Any = None
 
 
 # what a client optimizer object must have (the JAX engine's protocol)
@@ -196,13 +220,15 @@ class DeepSpeedEngine:
         # is built: the model builds expert weights, its attention core,
         # its segment-aware loss and its remat spans from the JSON alone
         act_ckpt = self._config.activation_checkpointing_config
+        quant_ffn = bool((self._config.quantization_config or {}).get("ffn"))
         if self._config.moe_enabled or self._config.sparse_attention or \
-                self._config.packing_params:
+                self._config.packing_params or quant_ffn:
             if not hasattr(model, "apply_ds_config"):
                 raise DeepSpeedConfigError(
-                    "config enables moe/packing/sparse_attention but the "
-                    "model does not implement apply_ds_config(config) "
-                    "(models.gpt_neox.GPTNeoX does)")
+                    "config enables moe/packing/sparse_attention/"
+                    "quantization.ffn but the model does not implement "
+                    "apply_ds_config(config) (models.gpt_neox.GPTNeoX "
+                    "does)")
             model.apply_ds_config(self._config)
         elif act_ckpt.active and hasattr(model, "apply_ds_config"):
             model.apply_ds_config(self._config)
@@ -247,6 +273,14 @@ class DeepSpeedEngine:
                              or self.zero_optimization())
                             and not self._config.fp16_master_weights_and_grads)
         self._init_state()
+
+        # the delayed-scaling FFN's amax history (after the flat state, as
+        # the JAX engine seats EngineState.quant after _init_state)
+        self.quant = None
+        self._quant_step_active = False
+        qz = self._config.quantization_config
+        if qz and qz.get("ffn"):
+            self._configure_quantization(qz)
 
         self.loss_scaler = create_loss_scaler(self._config)
         self.scale_state = init_loss_scale_state(
@@ -467,6 +501,79 @@ class DeepSpeedEngine:
         else:
             self.opt_state = self.optimizer.init_state(self._master)
 
+    def _configure_quantization(self, qz):
+        """Arm the delayed-scaling FFN (``quantization.ffn``; the model's
+        FFN already runs the recipe, `apply_ds_config` wired it) and seat
+        its zero amax history in ``quant``. The JAX engine's refusals
+        with its messages: progressive layer drop, and a model without
+        ``init_ffn_amax``. The offload tiers and ZeRO-3, which it also
+        refuses here, the port's config refuses as not ported, as it
+        does ``gradient_compression``."""
+        if self._config.pld_enabled:
+            raise DeepSpeedConfigError(
+                "quantization + progressive_layer_drop is unsupported "
+                "(theta and the amax state cannot both thread through "
+                "the block scan yet)")
+        if not hasattr(self.module, "init_ffn_amax"):
+            raise DeepSpeedConfigError(
+                "quantization.ffn needs a model exposing "
+                "init_ffn_amax()/loss_fn(ffn_amax=...) "
+                "(models.gpt_neox.GPTNeoX implements it)")
+        amax = self.module.init_ffn_amax()
+        if amax is None:
+            raise DeepSpeedConfigError(
+                "quantization.ffn is configured but the model has "
+                "no ffn_quant recipe — apply_ds_config did not "
+                "reach it (pass the config to deepspeed.initialize)")
+        self.quant = QuantState(amax=amax.to(self.device))
+        self._quant_step_active = True
+        log_dist(f"quantization armed: ffn={qz['ffn']['recipe']}, "
+                 f"gradient_compression=False", ranks=[0])
+
+    def _quant_state_dict(self):
+        """Host snapshot of ``quant`` for model_states: {"amax": fp32
+        ndarray, "ef": None}, or None when no quantization path is
+        armed (the JAX engine's layout)."""
+        if self.quant is None:
+            return None
+        return {"amax": self.quant.amax.detach().to("cpu").numpy(),
+                "ef": None}
+
+    def _restore_quant_state(self, payload):
+        """Re-seat checkpointed quantization state with the JAX engine's
+        rules: armed and a payload with a matching amax shape: restore
+        it; armed and no payload (a checkpoint from before the block was
+        on): keep the zero history, with a warning; a mismatched shape:
+        keep the zeros, with a warning; not armed: ignore a payload, with
+        a warning."""
+        if self.quant is None:
+            if payload and (payload.get("amax") is not None or
+                            payload.get("ef") is not None):
+                logger.warning(
+                    "checkpoint carries quantization state but this "
+                    "engine has no quantization block — ignoring it "
+                    "(the run continues as configured)")
+            return
+        if not payload:
+            logger.warning(
+                "quantization is armed but the checkpoint has no "
+                "quantization state (saved before the block was "
+                "enabled?) — amax history / error feedback restart "
+                "from zeros")
+            return
+        if payload.get("amax") is None:
+            return
+        saved = torch.as_tensor(np.asarray(payload["amax"], np.float32))
+        amax = self.quant.amax
+        if tuple(saved.shape) == tuple(amax.shape):
+            self.quant = self.quant._replace(amax=saved.to(self.device))
+        else:
+            logger.warning(
+                f"saved amax history {tuple(saved.shape)} does not match "
+                f"the configured {tuple(amax.shape)} "
+                f"(amax_history_len/layer change?) — restarting "
+                f"from zeros")
+
     def _check_grad_views(self):
         """After the first backward: autograd added into the flat
         gradient buffer's views and replaced none of them."""
@@ -620,13 +727,23 @@ class DeepSpeedEngine:
         self.tput_timer.start()
         if self._layers_to_hook:
             self._capture_activations(self._map(batch, lambda v: v[0]))
+        # the amax history in micro-step order: each micro-step reads what
+        # the one before it wrote; the step's update keeps the last
+        amax = self.quant.amax if self._quant_step_active else None
         for i in range(gas):
             self._rng.manual_seed(micro_step_seed(self.micro_steps))
+            kw = self._pld_kwargs()
+            if amax is not None:
+                kw["ffn_amax"] = amax
             loss = self.module.loss_fn(self.module.params_tree(),
                                        self._map(batch, lambda v: v[i]),
-                                       rng=self._rng, **self._pld_kwargs())
+                                       rng=self._rng, **kw)
+            if amax is not None:
+                loss, amax = loss
             self._micro_backward(loss)
-        mean_loss = self._step_update(fault=fault, probe_loss=True)
+        quant = None if amax is None else self.quant._replace(amax=amax)
+        mean_loss = self._step_update(fault=fault, probe_loss=True,
+                                      quant=quant)
         self.tput_timer.stop(tokens=tokens.shape[:3].numel())
         return mean_loss
 
@@ -674,13 +791,14 @@ class DeepSpeedEngine:
         self._accum_count += 1
         self.micro_steps += 1
 
-    def _step_update(self, fault=None, probe_loss=False):
+    def _step_update(self, fault=None, probe_loss=False, quant=None):
         """The step over the accumulated micro-batches: the mean
         gradient (corrupted by ``fault``, an injected ``(mode, factor)``,
         where given) through `_apply_update`, then the step boundary
         (`_after_step`). The probe sees the mean loss where
         ``probe_loss`` (`train_batch`); the legacy loop's update has no
-        loss, as in JAX. Returns the mean loss."""
+        loss, as in JAX. ``quant`` is the step's new `QuantState`, kept
+        if the step is taken. Returns the mean loss."""
         n = self._accum_count
         lr = self._current_lr()
         grads = self._grad_acc
@@ -690,16 +808,20 @@ class DeepSpeedEngine:
         if fault is not None:
             loss, grads = apply_fault(loss, grads, fault)
         overflow = self._apply_update(grads, lr,
-                                      loss=loss if probe_loss else None)
+                                      loss=loss if probe_loss else None,
+                                      quant=quant)
         self._grad_acc.zero_()
         mean_loss = float(loss)
         self._accum_count, self._accum_loss = 0, None
         self._after_step(overflow)
         return mean_loss
 
-    def _apply_update(self, grads, lr, loss=None):
+    def _apply_update(self, grads, lr, loss=None, quant=None):
         """Unscale, check, clip, update the masters and recast; on an
-        fp16 overflow skip the update. Returns the overflow flag. A
+        fp16 overflow skip the update. Returns the overflow flag. The
+        step's new `QuantState` ``quant`` replaces ``self.quant`` only
+        when the update is taken: a skipped step (overflow or
+        quarantine) would carry an anomalous step's amax forward. A
         16-bit gradient (the lean state's one micro-batch) goes to Adam
         as it is, or through an fp32 copy where it is unscaled, divided
         or clipped first (the JAX `_apply_update`).
@@ -732,6 +854,8 @@ class DeepSpeedEngine:
             if self.sentinel.probe_config.quarantine and not overflow:
                 skip = bool(hard)
         if not skip:
+            if quant is not None:
+                self.quant = quant
             if cfg.gradient_clipping > 0:
                 clip_grad_norm_(grads, cfg.gradient_clipping, norm=grad_norm)
             compute_out = None if self._params_flat is self._master \
@@ -846,7 +970,15 @@ class DeepSpeedEngine:
         dropout draw from ``rng`` (a `torch.Generator`) or, by default,
         from the engine's generator re-seeded from (1234,
         ``micro_steps``), as `train_batch` seeds each micro-step. Armed
-        layers (`set_layers_to_hook`) are captured first."""
+        layers (`set_layers_to_hook`) are captured first. With the
+        quantized FFN armed it raises, as in JAX: the loop does not
+        thread the amax history."""
+        if self._quant_step_active:
+            raise RuntimeError(
+                "the manual forward()/backward()/step() API does not "
+                "thread the quantization state (amax history / "
+                "error-feedback buffers would silently go stale); use "
+                "train_batch()/train_steps()")
         batch = self._device_batch(batch)
         if self._layers_to_hook:
             self._capture_activations(batch)

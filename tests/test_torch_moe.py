@@ -199,9 +199,10 @@ def test_layer_protocol_and_refusals():
         MoELayer(H, I, E, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="data-parallel"):
         moe_ffn_expert_parallel(params, torch.randn(8, H), "expert", 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        moe_ffn_dense(params, torch.randn(8, H), dispatch="sort",
-                      ffn_quant=("int8", 1.0, None))
+    # the quantized FFN runs on the sort engine only (the JAX refusal)
+    with pytest.raises(ValueError, match="requires dispatch='sort'"):
+        moe_ffn_dense(params, torch.randn(8, H), dispatch="einsum",
+                      ffn_quant=("int8", 1.0, torch.zeros(4, 2)))
 
 
 # ---------------------------------------------------------------------------

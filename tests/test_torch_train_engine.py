@@ -342,12 +342,15 @@ def test_disabled_blocks_and_lamb(weights):
 
 def test_unported_model_fields_raise():
     """A config field whose path is not ported raises at model build
-    instead of training without it (the JAX model would use it)."""
-    for field, match in (({"moe_num_experts": 4, "moe_observability": True},
-                          "not ported"),
-                         ({"ffn_quant_recipe": "fp8"}, "not ported")):
-        with pytest.raises(NotImplementedError, match=match):
-            neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, **field), device="cpu")
+    instead of training without it (the JAX model would use it); the
+    quantized FFN's fields are ported and build."""
+    with pytest.raises(NotImplementedError, match="not ported"):
+        neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, moe_num_experts=4,
+                                        moe_observability=True),
+                     device="cpu")
+    model = neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, ffn_quant_recipe="fp8"),
+                         device="cpu")
+    assert tuple(model.init_ffn_amax().shape) == (SIZE["num_layers"], 4, 16)
 
 
 def test_engine_defaults_to_the_gpu(monkeypatch):
