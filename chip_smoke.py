@@ -10,6 +10,7 @@
     python3 chip_smoke.py --sentinel-only [--profile]
     python3 chip_smoke.py --fp16-only [--profile]
     python3 chip_smoke.py --quant-train-only
+    python3 chip_smoke.py --observability-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -366,7 +367,39 @@ Phases (any failure exits non-zero before the final line):
    rungs (decode and stream tokens/s, inter-token p50; exact launches,
    every int8 matmul "wgmma"); greedy first tokens of 8 prompts with
    int8 weights equal through the kernels and the plain path; an fp32
-   parity at XL widths and 2 layers token-identical to the plain path.
+   parity at XL widths and 2 layers token-identical to the plain path;
+39. observability (train-telemetry-125M, serve-telemetry-125M; with
+   ``--observability-only`` beside phase 7): (a) bench.py row_telemetry's
+   rungs, phase 7's model behind the row's JSON (bf16, ZeRO-2, gas 1) at
+   micro 16 and 8 with tensorboard on, 3 warm-up and 8 timed steps with
+   the "telemetry" block off and then on (capture off): the step ms and
+   the overhead against the 1% bar (printed, not gated), the same
+   synchronizing CUDA calls in 3 steps after a monitor flush
+   (`torch.cuda.set_sync_debug_mode`), the same flash, Adam and cuBLAS
+   launches in a profiled step, the counted flops equal to the count
+   from the shapes, the in-engine MFU equal within 2% to the counted
+   flops over the step windows the script stamps itself, and its ratio
+   to the analytic MFU beside the ratio the shapes fix (the prediction,
+   printed with the host time outside the windows, not gated), the
+   goodput fraction; (b) a capture window
+   of 2 steps whose torch.profiler trace holds the spans and the flash
+   and Adam kernels launched inside train_dispatch, then 2 NaN-gradient
+   steps under policy "warn": one memory snapshot and one armed window;
+   (c) phase 4's stream with telemetry and a monitor serving Prometheus
+   on 127.0.0.1: the spans schedule / prefill / decode, the Serve/*
+   scalars, the scrape's TTFT and inter-token histograms, `drain`
+   flushing and closing the monitor, phase 4's first tokens; beside it
+   the stream through an engine without telemetry and one with it in 4
+   alternating rounds (the same tokens each round; the median tokens/s,
+   the host µs of the Serve/* scalars a step and of one span); (d) phase
+   11's MoE rung with moe.observability, 6 steps: the four Train/MoE/*
+   scalars at every step, min <= 1/E <= max, the drop in [0, 1); (e)
+   `python -m deeperspeed_tpu_torch.env_report --json` (every kernel
+   available) and `dispatch_report()` ("mma", "cluster", "wgmma"); (f)
+   phase 13's engine (2 x 16,384 tokens, block-sparse) with the
+   telemetry block, beside it without, one step each: the counted flops
+   equal to the shapes' count, exact launches, and the peak of allocated
+   memory no more than 256 MiB above the telemetry-off engine's.
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
@@ -681,7 +714,10 @@ SENTINEL_PARITY_TH = {
 
 
 def fail(msg):
+    # on both streams: a caller that keeps only the end of one still
+    # sees why the run failed
     print(f"chip_smoke FAILED: {msg}", flush=True)
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -2559,23 +2595,30 @@ def build_model(dtype, seed=0, **overrides):
     return GPTNeoX(cfg, device="cuda").init_params(seed)
 
 
-def serve(fa, da, report, model=None, key="serve"):
+def serve_prompts(cfg, n_req=32):
+    """row_serve's prompts (log-normal lengths, 8 to 768 tokens) → (the
+    generator after them, the prompts)."""
+    rng = np.random.default_rng(0)
+    lens = np.clip(np.exp(rng.normal(5.0, 0.8, size=n_req)), 8,
+                   768).astype(int)
+    return rng, [list(rng.integers(1, cfg.vocab_size, size=int(n)))
+                 for n in lens]
+
+
+def serve(fa, da, report, model=None, key="serve", conf=SERVE_CONFIG,
+          monitor=None, check=None):
     """Phase 4 (GPT-NeoX-125M), and with a GPT-2 ``model`` phase 22:
-    row_serve's stream of 32 requests x 32 new tokens."""
+    row_serve's stream of 32 requests x 32 new tokens. Phase 39(c) passes
+    a config with a "telemetry" block, a ``monitor`` and ``check(eng)``,
+    which holds the engine's observability before it goes and returns
+    what it read."""
     from deeperspeed_tpu_torch import InferenceEngine
     model = build_model(torch.bfloat16) if model is None else model
     cfg = model.config
-    eng = InferenceEngine(model, config=SERVE_CONFIG)
-    rng = np.random.default_rng(0)
+    eng = InferenceEngine(model, config=conf, monitor=monitor)
     n_req, max_new = 32, 32
-    lens = np.clip(np.exp(rng.normal(5.0, 0.8, size=n_req)), 8,
-                   768).astype(int)
-    prompts = [list(rng.integers(1, cfg.vocab_size, size=int(n)))
-               for n in lens]
-    # warm every prefill bucket (b - 2 so the top bucket's prompt plus two
-    # tokens still fits the window)
-    eng.generate([list(rng.integers(1, cfg.vocab_size, size=b - 2))
-                  for b in eng.prefill_lengths], max_new_tokens=2)
+    rng, prompts = serve_prompts(cfg, n_req)
+    warm_buckets(eng, rng, cfg.vocab_size)
     warm = dict(eng.stats)
     torch.cuda.synchronize()
 
@@ -2612,6 +2655,7 @@ def serve(fa, da, report, model=None, key="serve"):
     launches = {"flash_fwd": fa.launches, "paged_decode": da.launches}
 
     done = [r for r in eng.scheduler.finished if r.request_id in submit_at]
+    by_id = {r.request_id: r for r in done}
     if len(done) != n_req or any(r.status != "ok" for r in done):
         fail(f"not every request finished ok: "
              f"{[(r.request_id, r.status) for r in done]}")
@@ -2656,7 +2700,10 @@ def serve(fa, da, report, model=None, key="serve"):
         "launches": launches, "design_launches": design,
         "decode_design_launches": decode_design["paged_decode"],
         "dtypes": eng.dtypes,
+        "tokens": [list(by_id[rid].generated) for rid in submit_at],
     }
+    if check is not None:
+        result["observability"] = check(eng)
     report[key] = result
     del eng, model
     torch.cuda.empty_cache()
@@ -2860,7 +2907,8 @@ def parity_int8(da, qm, report):
 # ---------------------------------------------------------------------------
 
 def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
-          key="train", steps=TRAIN_STEPS, fall=0.9, fall_last=1):
+          key="train", steps=TRAIN_STEPS, fall=0.9, fall_last=1,
+          on_engine=None):
     """Phase 7, and with ``gm`` (the grouped-matmul module) and the MoE
     config phase 11: the model made MoE by the JSON block alone, with
     the grouped-matmul launches counted too. ``steps`` steps; the least
@@ -2871,6 +2919,8 @@ def train(fa, ad, report, profile_step=False, conf=TRAIN_CONFIG, gm=None,
     import deeperspeed_tpu_torch as dst
     model = build_model(torch.float32)
     eng, *_ = dst.initialize(model=model, config_params=conf)
+    if on_engine is not None:   # phase 39(d) listens to the monitor
+        on_engine(eng)
     quant = (conf.get("quantization") or {}).get("ffn")
     if gm is not None and not (
             model.config.moe_num_experts == MOE_BLOCK["num_experts"] and
@@ -8688,20 +8738,19 @@ def merge_quant_entries(kernels, entries):
         "quant_matmul_gpt2xl_shapes"]
 
 
-def quant_kernel_rows(ft, fb, adm, gmm, xq, entries):
-    """The kernels line of ``--quant-train-only``: the kernels phases
-    36-38 launch, with phase 3's training-shape numbers (the int8
-    matmul's at GPT-2 XL's qkv shape, 16 rows) and their launches on
-    phases 36-38. The paged decode kernel, which phase 38 also launches,
-    is held and timed by the full run's phase 3."""
+def _row_nums(r, err):
+    return {"max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]}
+
+
+def train_kernel_rows(ft, fb, adm, gmm, entries):
+    """The kernels line's training rows of a partial run (flash forward
+    and backward, Adam, the grouped matmul and its dW): phase 3's
+    training-shape numbers and the launches ``entries`` gives by path."""
     pallas = "deeperspeed_tpu/ops/pallas/"
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
-    q0 = next(r for r in xq if "ms" in r)
-
-    def nums(r, err):
-        return {"max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]}
+    nums = _row_nums
 
     def total(name):
         return sum(entries[name].values())
@@ -8743,13 +8792,25 @@ def quant_kernel_rows(ft, fb, adm, gmm, xq, entries):
          "bound_by": gmm[0]["dw_bound_by"],
          "library_ms": gmm[0]["dw_library_ms"],
          "shape": gmm_shape(gmm[0]) + ", fp32 dW"},
+    ]
+
+
+def quant_kernel_rows(ft, fb, adm, gmm, xq, entries):
+    """The kernels line of ``--quant-train-only``: the kernels phases
+    36-38 launch, with phase 3's training-shape numbers (the int8
+    matmul's at GPT-2 XL's qkv shape, 16 rows) and their launches on
+    phases 36-38. The paged decode kernel, which phase 38 also launches,
+    is held and timed by the full run's phase 3."""
+    pallas = "deeperspeed_tpu/ops/pallas/"
+    q0 = next(r for r in xq if "ms" in r)
+    return train_kernel_rows(ft, fb, adm, gmm, entries) + [
         {"name": "quant_matmul", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/quant_matmul.cu",
          "replaces": f"{pallas}quant_matmul.py:152 (_wq_kernel)",
-         "launches": total("quant_matmul"),
+         "launches": sum(entries["quant_matmul"].values()),
          "launches_by_path": entries["quant_matmul"],
          "design_launches": entries["quant_matmul_design"],
-         **nums(q0, q0["max_abs_err"]),
+         **_row_nums(q0, q0["max_abs_err"]),
          "library": "torch.matmul on the dequantized bf16 weight",
          "shape": f"M={q0['M']} K={q0['K']} N={q0['N']} bf16 (GPT-2 XL "
                   f"qkv, a decode step)",
@@ -8798,6 +8859,866 @@ def quant_train_only(card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 39: observability (train-telemetry-125M, serve-telemetry-125M)
+# ---------------------------------------------------------------------------
+
+# bench.py row_telemetry's rungs: phase 7's model behind the row's JSON
+# (SENTINEL_BASE: bf16, ZeRO-2, gas 1, Adam lr 1e-4) at micro 16 and 8,
+# 3 warm-up and 8 timed steps with the telemetry block off and then on
+# (goodput, mfu, spans; capture off); tensorboard on in both
+TELEMETRY_RUNGS = (16, 8)
+TELEMETRY_WARMUP, TELEMETRY_STEPS = 3, 8
+# then the two engines take turns, 8 steps at a time, for this many
+# rounds in alternating order (as phase 29's rounds): the medians
+TELEMETRY_ROUNDS = 4
+TELEMETRY_ON = {"enabled": True, "goodput": True, "mfu": True,
+                "spans": True}
+# steps counted for synchronizing calls right after a flush: fewer than
+# the monitor's flush interval (10 records) at two records a step
+TELEMETRY_SYNC_STEPS = 3
+# the bar the JAX row sets for the overhead with capture off (percent);
+# printed, not gated (host-bound steps spread 5-10%, PERF.md §7)
+TELEMETRY_BAR_PCT = 1.0
+# the in-engine MFU divides by the step windows, the analytic one by the
+# whole loop: the gate holds the Train/Samples/mfu scalars to the counted
+# flops over the step windows this script stamps itself (so the ratio to
+# the analytic MFU to the shapes' ratio x loop / windows); the ratio
+# against the shapes' ratio alone, the prediction, is printed
+TELEMETRY_MFU_TOL = 0.02
+TELEMETRY_CAPTURE_BS = 8
+TELEMETRY_MOE_STEPS = 6
+# 39(f): phase 13's engine (2 x 16,384 tokens) with the telemetry block,
+# beside it without: one step each, and the most the peak of allocated
+# memory may rise with telemetry on (allocator noise; the count's old
+# real plain pass held fp32 [2, 12, 16384, 16384] scores, 24 GiB each)
+TELEMETRY_LONG_STEPS = 1
+TELEMETRY_LONG_MEM_SLACK = 256 * 2 ** 20
+# 39(c): phase 4's stream through the engine without telemetry and the
+# one with it, taking turns in alternating order this many rounds
+SERVE_TELEMETRY_ROUNDS = 4
+TELEMETRY_SPANS = ("h2d", "train_dispatch")
+SPAN_NAMES = TELEMETRY_SPANS + ("data_fetch", "sentinel", "ckpt_snapshot",
+                                "rollback_restore")
+KERNEL_FRAGMENTS = {"flash_fwd": "flash_fwd", "flash_bwd": "flash_bwd",
+                    "adam": "adam_kernel"}
+
+
+def tb_available():
+    from deeperspeed_tpu_torch.runtime import monitor
+    return monitor._HAVE_TB
+
+
+def tb_block(tmp, tag):
+    return {"tensorboard": {"enabled": True, "output_path": tmp,
+                            "job_name": tag}}
+
+
+def listen(monitor):
+    """Keep every record the monitor gets (sample, scalars), beside its
+    own queue."""
+    records = []
+    record = monitor.record
+
+    def recorded(sample, scalars):
+        records.append((sample, dict(scalars)))
+        return record(sample, scalars)
+
+    monitor.record = recorded
+    return records
+
+
+def stamp_windows(tel):
+    """Stamp the host clock where the telemetry opens and closes each
+    step window; the returned list holds each window's seconds."""
+    windows, opened = [], []
+    start, end = tel.on_step_start, tel.on_step_end
+
+    def on_step_start(*a, **k):
+        opened.append(time.perf_counter())
+        return start(*a, **k)
+
+    def on_step_end(*a, **k):
+        windows.append(time.perf_counter() - opened.pop())
+        return end(*a, **k)
+    tel.on_step_start, tel.on_step_end = on_step_start, on_step_end
+    return windows
+
+
+def count_syncs(fn):
+    """Synchronizing CUDA calls made by ``fn()``, read with
+    `torch.cuda.set_sync_debug_mode("warn")` (one warning a call; the
+    mode's own notice that it is a prototype, given once a process, is
+    not a call)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def kernels_one_step(eng, batch):
+    """The device kernels of one `train_batch` step, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        eng.train_batch(batch=batch)
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        # the spans' record_functions also get a device-side range
+        if e.device_type == DeviceType.CUDA and not (
+                e.name.startswith("train_step") or e.name in SPAN_NAMES):
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def gemm_launches(names):
+    return sum(n for name, n in names.items()
+               if any(f in name.lower()
+                      for f in ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def shape_flops(bs, model=NEOX_125M, seq=None):
+    """The flops profiler's count of one GPT-NeoX step of ``model`` at
+    micro ``bs`` (gas 1) and ``seq`` tokens (TRAIN_SEQ by default), from
+    the shapes: the block matmuls (12·h² weights a layer) and the head
+    over the S - 1 labelled positions, 2 products forward and 4
+    backward; attention QKᵀ and P·V over the full S×S square (a block
+    layout too: the plain version computes the square, then masks); the
+    embedding gather none."""
+    h, L, V = model["hidden_size"], model["num_layers"], model["vocab_size"]
+    seq = TRAIN_SEQ if seq is None else seq
+    return (72 * L * h * h * bs * seq + 6 * h * V * bs * (seq - 1) +
+            12 * L * bs * seq * seq * h)
+
+
+def telemetry_rung(ledger, bs, tmp):
+    """39(a): row_telemetry's rung at micro ``bs``: a fresh engine with
+    the telemetry block off, then one with it on, 3 warm-up and 8 timed
+    steps each (host ms a step between device syncs: the JAX row's
+    printout); then the two take turns for TELEMETRY_ROUNDS blocks of 8
+    steps each, in alternating order (the medians: the overhead from one
+    card). Then, on each engine: the synchronizing CUDA calls of
+    TELEMETRY_SYNC_STEPS steps right after a monitor flush, and the
+    kernels of one profiled step (flash, Adam and cuBLAS launches). The
+    in-engine MFU (from the Train/Samples/mfu scalars of the 8 timed
+    steps: their flops over the sum of their step windows) against the
+    analytic one (tokens/s over the loop x (6N + 12·L·h·S) / peak): the
+    gate holds it to the counted flops over the step windows stamped
+    here; the ratio to the analytic MFU against the ratio the shapes fix
+    (the prediction) is printed, with the host time of the loop outside
+    the windows, inside the train_batch calls and between them."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    tokens = sentinel_tokens(bs)[0]
+    batch = (tokens, tokens)
+    row, syncs, kern, engines = {}, {}, {}, {}
+    for tag, tel in (("off", None), ("on", TELEMETRY_ON)):
+        blocks = tb_block(os.path.join(tmp, f"bs{bs}"), tag)
+        if tel is not None:
+            blocks["telemetry"] = tel
+        eng = engines[tag] = sentinel_engine(bs, extra=blocks)
+        records = listen(eng.monitor)
+        windows = stamp_windows(eng.telemetry) if tel is not None else []
+        ledger.reset()
+        for _ in range(TELEMETRY_WARMUP):
+            eng.train_batch(batch=batch)
+        records.clear()
+        windows.clear()
+        calls_s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_STEPS):
+            c0 = time.perf_counter()
+            loss = eng.train_batch(batch=batch)
+            calls_s += time.perf_counter() - c0
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        row[tag] = loop_s * 1e3 / TELEMETRY_STEPS
+        if tel is not None:
+            timed, windows_s = list(records), sum(windows)
+            on_calls_s, on_loop_s = calls_s, loop_s
+        n = TELEMETRY_WARMUP + TELEMETRY_STEPS
+        ledger.check(f"train-telemetry bs {bs} {tag}", n, n)
+        if not np.isfinite(loss):
+            fail(f"train-telemetry bs {bs} {tag}: loss {loss}")
+    # the two engines take turns, 8 steps at a time, in alternating
+    # order: the medians give the overhead from one card
+    rounds = {tag: [] for tag in engines}
+    for r in range(TELEMETRY_ROUNDS):
+        for tag in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            ledger.reset()
+            ms, _ = sentinel_steps(engines[tag], batch, TELEMETRY_STEPS)
+            ledger.check(f"train-telemetry bs {bs} {tag} round {r}",
+                         TELEMETRY_STEPS, TELEMETRY_STEPS)
+            rounds[tag].append(ms)
+    med = {tag: float(np.median(v)) for tag, v in rounds.items()}
+    for tag, eng in engines.items():
+        eng.monitor.flush()
+
+        def steps(eng=eng):
+            for _ in range(TELEMETRY_SYNC_STEPS):
+                eng.train_batch(batch=batch)
+        flushes = eng.monitor.flushes
+        syncs[tag] = count_syncs(steps)
+        eng.monitor.wait()
+        if eng.monitor.flushes != flushes:
+            fail(f"train-telemetry bs {bs} {tag}: the monitor flushed "
+                 f"inside the sync count")
+        ledger.reset()
+        kern[tag] = kernels_one_step(eng, batch)
+        ledger.check(f"train-telemetry bs {bs} {tag} profiled", 1, 1)
+        if tag == "on":
+            flops = eng.telemetry.compiled_flops.get(1)
+            goodput = eng.telemetry.goodput.scalars()
+        eng.monitor.close()
+    del engines, eng
+    free_cuda()
+    if syncs["on"] > syncs["off"]:
+        fail(f"train-telemetry bs {bs}: {syncs['on']} synchronizing calls "
+             f"in {TELEMETRY_SYNC_STEPS} steps with telemetry on, "
+             f"{syncs['off']} off")
+    launches = {tag: {k: sum(v for n, v in names.items() if frag in n)
+                      for k, frag in KERNEL_FRAGMENTS.items()} |
+                {"cublas": gemm_launches(names),
+                 "all": sum(names.values())}
+                for tag, names in kern.items()}
+    for k in ("flash_fwd", "flash_bwd", "adam", "cublas"):
+        if launches["on"][k] != launches["off"][k]:
+            fail(f"train-telemetry bs {bs}: {k} launches a step "
+                 f"{launches['on'][k]} with telemetry on, "
+                 f"{launches['off'][k]} off")
+    want_flops = shape_flops(bs)
+    if flops != want_flops:
+        fail(f"train-telemetry bs {bs}: counted flops {flops} != "
+             f"{want_flops} from the shapes")
+    mfu = [s["Train/Samples/mfu"] for _, s in timed
+           if "Train/Samples/mfu" in s]
+    if len(mfu) != TELEMETRY_STEPS:
+        fail(f"train-telemetry bs {bs}: {len(mfu)} mfu scalars in "
+             f"{TELEMETRY_STEPS} steps")
+    cfg = GPTNeoXConfig(**NEOX_125M)
+    ftok = neox_ftok(cfg, TRAIN_SEQ)
+    # the steps' flops over the sum of their step windows (each window
+    # from its scalar), as the analytic MFU is over the loop
+    mfu_engine = len(mfu) / sum(1 / m for m in mfu)
+    mfu_stamped = flops * len(mfu) / windows_s / PEAK_FLOPS_S
+    mfu_analytic = bs * TRAIN_SEQ / (row["on"] / 1e3) * ftok / PEAK_FLOPS_S
+    shape_ratio = want_flops / (bs * TRAIN_SEQ * ftok)
+    ratio = mfu_engine / mfu_analytic
+    explained = shape_ratio * on_loop_s / windows_s
+    if abs(mfu_engine / mfu_stamped - 1) > TELEMETRY_MFU_TOL:
+        fail(f"train-telemetry bs {bs}: in-engine MFU {mfu_engine:.4f} "
+             f"against {mfu_stamped:.4f} from the counted flops over the "
+             f"stamped step windows ({windows_s * 1e3:.2f} ms in "
+             f"{TELEMETRY_STEPS} steps)")
+    per_step = 1e3 / TELEMETRY_STEPS
+    return {
+        "telemetry_step_ms_off": row["off"],
+        "telemetry_step_ms_on": row["on"],
+        "telemetry_overhead_pct": (row["on"] - row["off"]) / row["off"] * 100,
+        "step_ms_rounds": rounds, "step_ms_median": med,
+        "overhead_pct_median": (med["on"] / med["off"] - 1) * 100,
+        "telemetry_mfu_in_engine": mfu_engine,
+        "telemetry_mfu_stamped_windows": mfu_stamped,
+        "telemetry_mfu_analytic": mfu_analytic,
+        "telemetry_mfu_ratio": ratio,
+        "telemetry_mfu_ratio_shapes": shape_ratio,
+        "telemetry_mfu_ratio_shapes_x_loop_over_windows": explained,
+        "telemetry_mfu_ratio_off_pct": (ratio / shape_ratio - 1) * 100,
+        "telemetry_mfu_ratio_within_prediction":
+            abs(ratio / shape_ratio - 1) <= TELEMETRY_MFU_TOL,
+        "step_window_ms": windows_s * per_step,
+        "host_ms_in_calls_outside_windows": (on_calls_s - windows_s) *
+        per_step,
+        "host_ms_between_calls": (on_loop_s - on_calls_s) * per_step,
+        "telemetry_flops_per_step": flops,
+        "telemetry_goodput_fraction": goodput["Train/Goodput/fraction"],
+        "goodput": goodput,
+        "syncs_per_window": syncs, "sync_window_steps": TELEMETRY_SYNC_STEPS,
+        "tensorboardX": tb_available(),
+        "launches_per_step": launches,
+        "kernels_on_not_off": {n: kern["on"][n] - kern["off"].get(n, 0)
+                               for n in kern["on"]
+                               if kern["on"][n] != kern["off"].get(n, 0)},
+        "scalar_tags": sorted({t for _, s in timed for t in s}),
+    }
+
+
+def telemetry_long_seq(fa, ad, tmp):
+    """39(f): phase 13's engine (train-sparse-125M-16k: micro 2 x 16,384
+    tokens, the block-sparse arm) with the telemetry block (goodput,
+    mfu, spans, memory watermarks each step) and tensorboard, beside the
+    same engine without the telemetry block, TELEMETRY_LONG_STEPS steps
+    each from a reset of the peak (their wall seconds: the difference
+    is mostly the count's host time): the step variant's flops, counted
+    over fake tensors, equal the count from the shapes (the block-sparse
+    plain version: each query block against its LUT's width of key
+    blocks, 2 products forward and 5 backward), the block-sparse
+    launches are exact, and the peak of allocated memory above what the
+    engine held before its first step is the telemetry-off engine's
+    within TELEMETRY_LONG_MEM_SLACK."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch import GPTNeoX, GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import block_sparse_attention as bsa
+    micro = SPARSE_TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, SPARSE_MODEL["vocab_size"], size=(1, micro, SPARSE_SEQ))).cuda()
+    L, h = SPARSE_MODEL["num_layers"], SPARSE_MODEL["hidden_size"]
+    out = {}
+    for tag in ("off", "on"):
+        model = GPTNeoX(GPTNeoXConfig(**SPARSE_MODEL), device="cuda")
+        model.init_params(5)
+        conf = {**SPARSE_TRAIN_CONFIG, **tb_block(tmp, f"long_{tag}")}
+        if tag == "on":
+            conf["telemetry"] = {**TELEMETRY_ON,
+                                 "memory_watermark_interval_steps": 1}
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        records = listen(eng.monitor)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_attention_counts(fa, bsa)
+        ad.reset_launches()
+        t0 = time.perf_counter()
+        losses = [eng.train_batch(batch=(tokens, tokens))
+                  for _ in range(TELEMETRY_LONG_STEPS)]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = dict(attention_counts(fa, bsa), adam=ad.launches)
+        n = TELEMETRY_LONG_STEPS
+        want = {k: 0 for k in launches}
+        want.update(block_sparse_fwd=L * n, block_sparse_dkv=L * n,
+                    block_sparse_dq=L * n, adam=n)
+        if launches != want or not all(np.isfinite(losses)):
+            fail(f"train-telemetry-16k {tag}: launches {launches} != "
+                 f"{want} or losses {losses} not finite")
+        out[tag] = {"peak_above_held_bytes": peak, "losses": losses,
+                    "launches": launches, "steps_wall_s": wall_s}
+        if tag == "on":
+            lut = model.sparse_self_attention.get_layout(
+                SPARSE_SEQ)[1].luts.fwd[0]
+            V = SPARSE_MODEL["vocab_size"]
+            want_flops = (72 * L * h * h * micro * SPARSE_SEQ +
+                          6 * h * V * micro * (SPARSE_SEQ - 1) +
+                          14 * L * micro * (SPARSE_SEQ // 128) *
+                          lut.shape[-1] * 128 * 128 * h)
+            flops = eng.telemetry.compiled_flops.get(1)
+            if flops != want_flops:
+                fail(f"train-telemetry-16k: counted flops {flops} != "
+                     f"{want_flops} from the shapes")
+            marks = [s["Train/Memory/hbm_peak_bytes"] for _, s in records
+                     if "Train/Memory/hbm_peak_bytes" in s]
+            mfu = [s["Train/Samples/mfu"] for _, s in records
+                   if "Train/Samples/mfu" in s]
+            if len(marks) != n or len(mfu) != n:
+                fail(f"train-telemetry-16k: {len(marks)} memory and "
+                     f"{len(mfu)} mfu scalars in {n} steps")
+            out["on"].update(flops=flops, lut_width=int(lut.shape[-1]),
+                             hbm_peak_bytes=marks, mfu=mfu)
+        eng.monitor.close()
+        del eng, model
+        free_cuda()
+    rise = out["on"]["peak_above_held_bytes"] - \
+        out["off"]["peak_above_held_bytes"]
+    out["peak_rise_bytes"] = rise
+    if rise > TELEMETRY_LONG_MEM_SLACK:
+        fail(f"train-telemetry-16k: telemetry on raised the peak of "
+             f"allocated memory by {rise / 2 ** 20:.1f} MiB")
+    return out
+
+
+def trace_kernels_in_spans(path):
+    """From an exported torch.profiler Chrome trace: the user-annotation
+    spans by name, and for each kernel family the launches whose runtime
+    call lies inside a train_dispatch span and those outside."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    names = sorted({e["name"] for e in spans})
+    dispatch = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+                if e["name"] == "train_dispatch"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime" and
+                 "correlation" in e.get("args", {})}
+    inside = {k: [0, 0] for k in KERNEL_FRAGMENTS}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k, frag in KERNEL_FRAGMENTS.items():
+            if frag in e["name"]:
+                ts = launch_ts.get(e.get("args", {}).get("correlation"))
+                hit = ts is not None and any(a <= ts <= b
+                                             for a, b in dispatch)
+                inside[k][0 if hit else 1] += 1
+    return names, inside
+
+
+def telemetry_capture(ledger, tmp):
+    """39(b): a capture window of 2 steps (trace_dir, capture
+    {start_step 3, num_steps 2}) on the micro-8 rung with the sentinel
+    under policy "warn" and capture_on_anomaly: the exported
+    torch.profiler trace must hold the spans and the flash and Adam
+    kernels launched inside train_dispatch. Then NaN gradients (and so a
+    NaN loss) at serial 6 for 2 steps: exactly one memory snapshot and
+    one armed window for the episode."""
+    bs = TELEMETRY_CAPTURE_BS
+    trace_dir = os.path.join(tmp, "trace")
+    # warmup_steps past the run: the probe's z-scores stay quiet while
+    # the loss falls fast, so the NaN steps are the only episode
+    th = {"enabled": True, "policy": "warn", "warmup_steps": 100,
+          "fault_injection": {"faults": [{"kind": "nan_grads", "step": 6,
+                                          "times": 2}]}}
+    eng = sentinel_engine(bs, th=th, extra={**tb_block(tmp, "capture"),
+                          "telemetry": {**TELEMETRY_ON,
+                                        "trace_dir": trace_dir,
+                                        "capture": {"start_step": 3,
+                                                    "num_steps": 2},
+                                        "capture_on_anomaly": True}})
+    tokens = sentinel_tokens(bs)[0]
+    ledger.reset()
+    steps = 9
+    for _ in range(steps):
+        eng.train_batch(batch=(tokens, tokens))
+    torch.cuda.synchronize()
+    ledger.check("train-telemetry capture", steps, steps)
+    tel = eng.telemetry
+    scheduled = os.path.join(trace_dir, "torch_trace_step3.json")
+    if not os.path.isfile(scheduled):
+        fail(f"no torch.profiler trace at {scheduled}: "
+             f"{tel.profiler_traces}")
+    names, inside = trace_kernels_in_spans(scheduled)
+    missing = [s for s in TELEMETRY_SPANS if s not in names]
+    if missing or not {"train_step3", "train_step4"} & set(names):
+        fail(f"the capture trace lacks the spans {missing} or a step of "
+             f"the window (has {names})")
+    for k, (hit, miss) in inside.items():
+        if not hit or miss:
+            fail(f"the capture trace: {k} kernels {hit} inside "
+                 f"train_dispatch, {miss} outside")
+    spans = json.load(open(os.path.join(trace_dir, "spans_step3.json")))
+    if tel.anomaly_captures != 1 or len(tel.memory_snapshots) != 1 or \
+            tel.windows_opened != 2:
+        fail(f"the NaN episode gave {tel.anomaly_captures} captures, "
+             f"{len(tel.memory_snapshots)} memory snapshots, "
+             f"{tel.windows_opened} windows (the scheduled one included)")
+    snap = json.load(open(tel.memory_snapshots[0]))
+    if "nonfinite" not in snap["tag"]:
+        fail(f"the anomaly episode is not the NaN one: {snap['tag']}")
+    dev = next(iter(snap["devices"].values()))
+    if not dev.get("bytes_in_use"):
+        fail(f"the memory snapshot holds no device bytes: {snap}")
+    result = {"spans_in_trace": names, "kernels_inside_dispatch": inside,
+              "span_events_exported": len(spans["traceEvents"]),
+              "dispatch_in_trace": spans["otherData"]["dispatch"],
+              "anomaly_captures": tel.anomaly_captures,
+              "memory_snapshot": snap["tag"],
+              "memory_bytes_in_use": dev.get("bytes_in_use"),
+              "windows_opened": tel.windows_opened,
+              "traces": [os.path.basename(p) for p in tel.profiler_traces],
+              "anomalies": eng.sentinel.anomalies}
+    eng.monitor.close()
+    del eng
+    free_cuda()
+    return result
+
+
+def serve_telemetry(fa, da, report, sv=None):
+    """39(c): phase 4's serve-125M stream with a "telemetry" block and a
+    monitor with a Prometheus port (0: ephemeral, on 127.0.0.1): the
+    spans schedule / prefill / decode, the Serve/* scalars, a scrape
+    that renders the TTFT and inter-token histograms, `drain` flushing
+    and closing the owned monitor, and the first tokens equal to phase
+    4's (``sv``; run here without telemetry when not given)."""
+    from deeperspeed_tpu_torch.runtime.monitor import TensorBoardMonitor
+    if sv is None:
+        sv = serve(fa, da, report, key="serve_phase4_beside")
+    tmp = tempfile.mkdtemp(prefix="ds_serve_telemetry_", dir="build")
+    monitor = TensorBoardMonitor(output_path=tmp, job_name="serve",
+                                 export={"prometheus_port": 0})
+    records = listen(monitor)
+    conf = {**SERVE_CONFIG, "telemetry": TELEMETRY_ON}
+
+    def check(eng):
+        import urllib.request
+        phases = sorted(eng.telemetry.tracer.drain_phases())
+        if phases != ["decode", "prefill", "schedule"]:
+            fail(f"serve-telemetry spans {phases}")
+        port = monitor.prometheus.port
+        # no proxy: the scrape stays on this host whatever the
+        # environment's http_proxy says
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        body = opener.open(f"http://127.0.0.1:{port}/metrics",
+                           timeout=30).read().decode()
+        for fam in ("ds_serve_ttft_ms_bucket", "ds_serve_inter_token_ms_"
+                    "bucket", "ds_serve_ttft_ms_count",
+                    "ds_serve_inter_token_ms_count"):
+            if fam not in body:
+                fail(f"the scrape has no {fam}")
+        pending = len(monitor._pending)
+        flushes = monitor.flushes
+        eng.drain()
+        if monitor.writer is not None or monitor._pending or \
+                (pending and monitor.flushes == flushes):
+            fail("drain did not flush and close the owned monitor")
+        tags = sorted({t for _, s in records for t in s})
+        want = {"Serve/queue_depth", "Serve/page_pool_util",
+                "Serve/running", "Serve/requests_ok", "Serve/ttft_p50_ms"}
+        if not want <= set(tags):
+            fail(f"serve-telemetry: Serve/* scalars {tags} lack "
+                 f"{sorted(want - set(tags))}")
+        return {"spans": phases, "serve_tags": tags,
+                "records": len(records), "scrape_bytes": len(body),
+                "scrape_ttft_count": next(
+                    line for line in body.splitlines()
+                    if line.startswith("ds_serve_ttft_ms_count"))}
+
+    st = serve(fa, da, report, key="serve_telemetry", conf=conf,
+               monitor=monitor, check=check)
+    first = [t[0] for t in st["tokens"]]
+    if first != [t[0] for t in sv["tokens"]]:
+        fail("serve-telemetry: the first tokens differ from phase 4's")
+    st["same_tokens_as_phase4"] = st["tokens"] == sv["tokens"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return st
+
+
+def serve_stream(eng, prompts, max_new):
+    """Phase 4's submission pattern (one request every two engine steps)
+    through ``eng`` → (generated tokens/s, engine steps, the tokens of
+    each request in submission order)."""
+    ids, submitted, step = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while submitted < len(prompts) or eng.scheduler.has_work:
+        while submitted < len(prompts) and submitted * 2 <= step:
+            ids.append(eng.submit(prompts[submitted],
+                                  max_new_tokens=max_new))
+            submitted += 1
+        if eng.scheduler.has_work:
+            eng.step()
+        step += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_id = {r.request_id: r for r in eng.scheduler.finished}
+    tokens = [list(by_id[i].generated) for i in ids]
+    return sum(map(len, tokens)) / dt, step, tokens
+
+
+def serve_overhead(tmp):
+    """39(c) beside: phase 4's stream through an engine without the
+    telemetry block and one with it and a monitor serving Prometheus (as
+    39(c)), on one bf16 model, SERVE_TELEMETRY_ROUNDS rounds taking
+    turns in alternating order: the median tokens/s of each and the
+    overhead; the host µs a step of the Serve/* scalars
+    (`_record_serve_scalars`, timed on the engine with telemetry), and
+    of one span (schedule, prefill and decode each enter one a step
+    where they run), timed over 2000 empty spans. Both engines give
+    the same tokens every round."""
+    from deeperspeed_tpu_torch import InferenceEngine
+    from deeperspeed_tpu_torch.runtime.monitor import TensorBoardMonitor
+    model = build_model(torch.bfloat16)
+    rng, prompts = serve_prompts(model.config)
+    monitor = TensorBoardMonitor(output_path=tmp, job_name="serve_rounds",
+                                 export={"prometheus_port": 0})
+    engines = {"off": InferenceEngine(model, config=SERVE_CONFIG),
+               "on": InferenceEngine(
+                   model, config={**SERVE_CONFIG, "telemetry": TELEMETRY_ON},
+                   monitor=monitor, owns_monitor=True)}
+    for eng in engines.values():
+        warm_buckets(eng, rng, model.config.vocab_size)
+    on = engines["on"]
+    scalar_s = []
+    record = on._record_serve_scalars
+
+    def timed_record():
+        t0 = time.perf_counter()
+        record()
+        scalar_s.append(time.perf_counter() - t0)
+    on._record_serve_scalars = timed_record
+    rounds = {tag: [] for tag in engines}
+    steps, first = {}, None
+    for r in range(SERVE_TELEMETRY_ROUNDS):
+        for tag in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            tps, steps[tag], tokens = serve_stream(engines[tag], prompts, 32)
+            rounds[tag].append(tps)
+            first = tokens if first is None else first
+            if tokens != first:
+                fail(f"serve-telemetry rounds: round {r} {tag} tokens "
+                     f"differ from the first stream's")
+    tel = on.telemetry
+    tel.tracer.drain_phases()
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tel.span("decode"):
+            pass
+    span_us = (time.perf_counter() - t0) / n * 1e6
+    tel.tracer.drain_phases()
+    for eng in engines.values():
+        eng.drain()
+    del engines, on, eng, model
+    free_cuda()
+    med = {tag: float(np.median(v)) for tag, v in rounds.items()}
+    return {"tokens_per_s_rounds": rounds, "tokens_per_s_median": med,
+            "overhead_pct_median": (med["off"] / med["on"] - 1) * 100,
+            "engine_steps_a_stream": steps,
+            "serve_scalars_us_a_step": float(np.mean(scalar_s)) * 1e6,
+            "serve_scalar_records": len(scalar_s),
+            "span_us": span_us}
+
+
+def train_moe_observability(fa, ad, gm, report, tmp):
+    """39(d): phase 11's MoE rung with moe.observability and tensorboard
+    on, TELEMETRY_MOE_STEPS steps: the four Train/MoE/* scalars at every
+    step record, min ≤ 1/E ≤ max, the drop fraction in [0, 1)."""
+    moe = {**MOE_BLOCK, "observability": True}
+    conf = {**MOE_TRAIN_CONFIG, "moe": moe, **tb_block(tmp, "moe")}
+    held = {}
+
+    def on_engine(eng):
+        held["records"] = listen(eng.monitor)
+    tm = train(fa, ad, report, conf=conf, gm=gm, key="train_moe_obs",
+               steps=TELEMETRY_MOE_STEPS, fall=1.0, fall_last=3,
+               on_engine=on_engine)
+    tags = ("Train/MoE/expert_load_min", "Train/MoE/expert_load_max",
+            "Train/MoE/expert_load_cv", "Train/MoE/capacity_drop_fraction")
+    steps = [s for _, s in held["records"] if "Train/Samples/train_loss" in s]
+    if len(steps) != TELEMETRY_MOE_STEPS:
+        fail(f"train-moe observability: {len(steps)} step records")
+    E = MOE_BLOCK["num_experts"]
+    rows = []
+    for s in steps:
+        if any(t not in s for t in tags):
+            fail(f"a step record lacks {[t for t in tags if t not in s]}")
+        lo, hi, cv, drop = (float(s[t]) for t in tags)
+        if not (lo <= 1 / E <= hi and 0.0 <= drop < 1.0):
+            fail(f"train-moe observability: min {lo}, max {hi}, drop {drop}")
+        rows.append({"min": lo, "max": hi, "cv": cv, "drop": drop})
+    tm["moe_stats"] = rows
+    return tm
+
+
+def env_and_dispatch(qm):
+    """39(e): `python -m deeperspeed_tpu_torch.env_report --json` in its
+    own process and `dispatch_report()` here, after (a)-(c): every
+    SIGNATURES kernel available, and the designs "mma", "cluster" and
+    "wgmma" (one bf16 int8 matmul call at a decode shape runs first: the
+    last one of the full run is phase 38's fp32 parity, "fma")."""
+    from deeperspeed_tpu_torch.ops import dispatch_report
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    qw = qm.quantize_weight(torch.randn(768, 3072, device="cuda",
+                                        generator=gen))
+    qm.quant_matmul(torch.randn(16, 768, device="cuda", generator=gen,
+                                dtype=torch.bfloat16), qw)
+    proc = subprocess.run([sys.executable, "-m",
+                           "deeperspeed_tpu_torch.env_report", "--json"],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        fail(f"env_report --json exited {proc.returncode}: {proc.stderr}")
+    rep = json.loads(proc.stdout)
+    missing = [s for s in _build.SIGNATURES if not rep["ops"].get(s)]
+    if missing:
+        fail(f"env_report: kernels not available: {missing}")
+    disp = dispatch_report()
+    want = {"flash": ("fwd", "mma"), "decode_attention": ("decode",
+                                                          "cluster"),
+            "quant_matmul": ("quant_matmul", "wgmma")}
+    for key, (k, v) in want.items():
+        if disp[key].get(k) != v:
+            fail(f"dispatch_report()[{key!r}] = {disp[key]}, want {k} {v}")
+    return {"env": rep["env"], "kernels_available": len(_build.SIGNATURES),
+            "dispatch": disp}
+
+
+def run_observability_phases(fa, ad, gm, da, qm, report, card, sv=None):
+    """Phase 39 → its result dict; ``sv`` is phase 4's serving result of
+    this run (run beside when None)."""
+    tmp = tempfile.mkdtemp(prefix="ds_telemetry_", dir="build")
+    ledger = LaunchLedger(fa, ad)
+    out = {"rungs": {}}
+    for bs in TELEMETRY_RUNGS:
+        print(f"train-telemetry-125M at micro {bs} (row_telemetry: telemetry "
+              f"off, then on, capture off) on {card}:", flush=True)
+        r = out["rungs"][bs] = telemetry_rung(ledger, bs, tmp)
+        print(f"  step {r['telemetry_step_ms_off']:.2f} ms off, "
+              f"{r['telemetry_step_ms_on']:.2f} ms on: overhead "
+              f"{r['telemetry_overhead_pct']:+.2f}%; rounds' medians "
+              f"{r['step_ms_median']['off']:.2f} / "
+              f"{r['step_ms_median']['on']:.2f} ms: "
+              f"{r['overhead_pct_median']:+.2f}% (bar "
+              f"{TELEMETRY_BAR_PCT}%); in-engine MFU "
+              f"{r['telemetry_mfu_in_engine']:.4f} (counted flops over "
+              f"the stamped windows {r['telemetry_mfu_stamped_windows']:.4f})"
+              f", analytic {r['telemetry_mfu_analytic']:.4f}, ratio "
+              f"{r['telemetry_mfu_ratio']:.4f} (shapes "
+              f"{r['telemetry_mfu_ratio_shapes']:.4f}, "
+              f"{r['telemetry_mfu_ratio_off_pct']:+.2f}%, within "
+              f"{TELEMETRY_MFU_TOL:.0%}: "
+              f"{r['telemetry_mfu_ratio_within_prediction']}; shapes x "
+              f"loop / windows "
+              f"{r['telemetry_mfu_ratio_shapes_x_loop_over_windows']:.4f});"
+              f" a step: window {r['step_window_ms']:.2f} ms, host "
+              f"{r['host_ms_in_calls_outside_windows']:.2f} ms in the call "
+              f"outside it, {r['host_ms_between_calls']:.3f} ms between "
+              f"calls; goodput {r['telemetry_goodput_fraction']:.4f}; "
+              f"syncs in {TELEMETRY_SYNC_STEPS} steps "
+              f"{r['syncs_per_window']}; launches a step "
+              f"{r['launches_per_step']} (kernels only with telemetry on: "
+              f"{r['kernels_on_not_off']}); tensorboardX "
+              f"{r['tensorboardX']}", flush=True)
+    print(f"train-telemetry-16k (phase 13's engine, telemetry off, then on)"
+          f" on {card}:", flush=True)
+    lg = out["long_seq"] = telemetry_long_seq(fa, ad, tmp)
+    print(f"  peak allocated above the engine's own: "
+          f"{lg['off']['peak_above_held_bytes'] / 2 ** 30:.3f} GiB off, "
+          f"{lg['on']['peak_above_held_bytes'] / 2 ** 30:.3f} GiB on "
+          f"({lg['peak_rise_bytes'] / 2 ** 20:+.1f} MiB); first step "
+          f"{lg['off']['steps_wall_s']:.2f} s off, "
+          f"{lg['on']['steps_wall_s']:.2f} s on; counted flops "
+          f"{lg['on']['flops']:.6g} (LUT width {lg['on']['lut_width']}); "
+          f"mfu {lg['on']['mfu']}; hbm_peak_bytes "
+          f"{lg['on']['hbm_peak_bytes']}", flush=True)
+    print("train-telemetry-125M capture window and NaN episode:", flush=True)
+    out["capture"] = telemetry_capture(ledger, tmp)
+    c = out["capture"]
+    print(f"  spans in the trace {c['spans_in_trace']}; kernels inside "
+          f"train_dispatch {c['kernels_inside_dispatch']}; "
+          f"{c['anomaly_captures']} anomaly capture, snapshot "
+          f"{c['memory_snapshot']} ({c['memory_bytes_in_use']} bytes), "
+          f"{c['windows_opened']} windows, traces {c['traces']}",
+          flush=True)
+    print(f"serve-telemetry-125M (phase 4's stream, telemetry, Prometheus) "
+          f"on {card}:", flush=True)
+    st = out["serve"] = serve_telemetry(fa, da, report, sv)
+    o = st["observability"]
+    print(f"  {st['tokens_per_s']:.1f} tokens/s (phase 4 "
+          f"{(sv or report['serve_phase4_beside'])['tokens_per_s']:.1f}), "
+          f"spans {o['spans']}, {len(o['serve_tags'])} Serve/* tags, "
+          f"{o['scrape_ttft_count']}, same tokens as phase 4: "
+          f"{st['same_tokens_as_phase4']}", flush=True)
+    print(f"serve-125M, telemetry off and on in {SERVE_TELEMETRY_ROUNDS} "
+          f"alternating rounds, on {card}:", flush=True)
+    so = out["serve_rounds"] = serve_overhead(tmp)
+    print(f"  tokens/s medians {so['tokens_per_s_median']['off']:.1f} off, "
+          f"{so['tokens_per_s_median']['on']:.1f} on: overhead "
+          f"{so['overhead_pct_median']:+.2f}% (rounds "
+          f"{so['tokens_per_s_rounds']}); Serve/* scalars "
+          f"{so['serve_scalars_us_a_step']:.1f} us a step, one span "
+          f"{so['span_us']:.2f} us; {so['engine_steps_a_stream']} engine "
+          f"steps a stream", flush=True)
+    print(f"train-moe-125M with moe.observability ({TELEMETRY_MOE_STEPS} "
+          f"steps) on {card}:", flush=True)
+    tm = out["moe"] = train_moe_observability(fa, ad, gm, report, tmp)
+    print(f"  step {tm['step_ms_median']:.1f} ms; Train/MoE/* a step: "
+          f"{tm['moe_stats']}", flush=True)
+    out["env"] = env_and_dispatch(qm)
+    print(f"  env_report: {out['env']['kernels_available']} kernels "
+          f"available on {out['env']['env']['device_name']}; dispatch "
+          f"{out['env']['dispatch']}", flush=True)
+    out["ledger"] = dict(ledger.totals)
+    report["observability"] = out
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def obs_kernel_entries(ob):
+    """What phase 39 adds to the kernels line: each kernel's launches on
+    its paths."""
+    st, tm, led = ob["serve"], ob["moe"], ob["ledger"]
+    return {
+        "flash_fwd": {"train_telemetry": led["flash_fwd"],
+                      "serve_telemetry": st["launches"]["flash_fwd"],
+                      "train_moe_obs": tm["launches"]["flash_fwd"]},
+        "flash_bwd": {"train_telemetry": led["flash_bwd_dkv"],
+                      "train_moe_obs": tm["launches"]["flash_bwd_dkv"]},
+        "flash_bwd_dq": {"train_telemetry": led["flash_bwd_dq"],
+                         "train_moe_obs": tm["launches"]["flash_bwd_dq"]},
+        "adam": {"train_telemetry": led["adam"],
+                 "train_moe_obs": tm["launches"]["adam"]},
+        "grouped_matmul": {"train_moe_obs": tm["launches"][
+            "grouped_matmul"]},
+        "grouped_matmul_dw": {"train_moe_obs": tm["launches"][
+            "grouped_matmul_dw"]},
+        "paged_decode": {"serve_telemetry": st["launches"]["paged_decode"]},
+    }
+
+
+def merge_obs_entries(kernels, entries):
+    """Add phase 39's launches to the kernels line's rows."""
+    rows = {r["name"]: r for r in kernels}
+    for name, paths in entries.items():
+        if name == "flash_bwd_dq":
+            continue
+        row = rows[name]
+        row["launches"] += sum(paths.values())
+        row.setdefault("launches_by_path", {}).update(paths)
+    if "flash_bwd" in rows:
+        by_kernel = rows["flash_bwd"].setdefault("launches_by_kernel",
+                                                 {"dkv": 0, "dq": 0})
+        by_kernel["dkv"] += sum(entries["flash_bwd"].values())
+        by_kernel["dq"] += sum(entries["flash_bwd_dq"].values())
+
+
+def observability_only(card):
+    """Phase 39 alone, after phase 3's training-shape flash and Adam
+    checks and the grouped matmul's, with phase 7 beside (its step and
+    MFU) and phase 4's stream run inside 39(c). The paged decode, which
+    39(c) launches, is held and timed by the full run's phase 3."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("kernels vs plain versions (training shapes):", flush=True)
+    ft, fb, adm, _ = check_train_kernels(
+        fa, ad, gen, report, GPTNeoXConfig(**NEOX_125M).num_params())
+    gmm = check_grouped_matmul(gm, gen, report)
+    print("training GPT-NeoX-125M (bf16, phase 7):", flush=True)
+    tr = train(fa, ad, report)
+    print_train("train-125M", tr, card)
+    t39 = time.perf_counter()
+    ob = run_observability_phases(fa, ad, gm, da, qm, report, card)
+    report["phase39_seconds"] = time.perf_counter() - t39
+    print(f"phase 39: {report['phase39_seconds']:.1f} s", flush=True)
+    entries = obs_kernel_entries(ob)
+    kernels = train_kernel_rows(ft, fb, adm, gmm, {
+        "flash_fwd": {"train": tr["launches"]["flash_fwd"]},
+        "flash_bwd": {"train": tr["launches"]["flash_bwd_dkv"]},
+        "flash_bwd_dq": {"train": tr["launches"]["flash_bwd_dq"]},
+        "adam": {"train": tr["launches"]["adam"]},
+        "grouped_matmul": {}, "grouped_matmul_dw": {}})
+    entries.pop("paged_decode")
+    merge_obs_entries(kernels, entries)
+    report["kernels"] = kernels
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_observability.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}, default=str), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -8829,6 +9750,11 @@ def main():
                     help="run only phase 3's fp16 cases and phases 31-35 "
                          "(fp16 training and serving, fp16 sparse and int8, "
                          "TiledLinear and a client optimizer)")
+    ap.add_argument("--observability-only", action="store_true",
+                    help="run only phase 39 (telemetry, monitor, flops "
+                         "count, MoE routing statistics, env report), with "
+                         "phase 3's training-shape kernel checks and phase "
+                         "7 beside")
     ap.add_argument("--quant-train-only", action="store_true",
                     help="run only phases 36-38 (quantized training and "
                          "GPT-2 XL served with int8 weights), with phase 3's "
@@ -8864,6 +9790,8 @@ def main():
         return fp16_only(card, args.profile)
     if args.quant_train_only:
         return quant_train_only(card)
+    if args.observability_only:
+        return observability_only(card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -9046,6 +9974,10 @@ def main():
                           profile_step=args.profile)
     qres = run_quant_phases(fa, ad, gm, da, qm, report, card, bf16=tr,
                             moe=tm)
+    t39 = time.perf_counter()
+    ob = run_observability_phases(fa, ad, gm, da, qm, report, card, sv=sv)
+    report["phase39_seconds"] = time.perf_counter() - t39
+    print(f"phase 39: {report['phase39_seconds']:.1f} s", flush=True)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -9515,6 +10447,7 @@ def main():
     ]
     kernels += fp16_kernel_rows(k16, *f16)
     merge_quant_entries(kernels, quant_kernel_entries(*qres))
+    merge_obs_entries(kernels, obs_kernel_entries(ob))
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

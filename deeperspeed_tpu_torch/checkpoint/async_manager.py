@@ -34,22 +34,9 @@ import threading
 import time
 import weakref
 
+from ..runtime.utils import register_weak_atexit
 from ..utils.logging import log_dist, logger
 from . import manifest as mf
-
-
-def _register_weak_atexit(obj, method_name):
-    """`obj.<method_name>()` at interpreter exit, held through a weakref
-    so the registry does not pin the manager (and its engine)."""
-    obj_ref = weakref.ref(obj)
-
-    def hook():  # pragma: no cover - interpreter teardown
-        target = obj_ref()
-        if target is not None:
-            getattr(target, method_name)()
-
-    atexit.register(hook)
-    return hook
 
 
 class AsyncCheckpointManager:
@@ -90,7 +77,7 @@ class AsyncCheckpointManager:
         if self.save_on_preemption:
             self._install_signal_handlers()
         # flush an in-flight commit at interpreter exit
-        self._atexit = _register_weak_atexit(self, "_drain_at_exit")
+        self._atexit = register_weak_atexit(self, "_drain_at_exit")
 
     # ------------------------------------------------------------------
     # save API
@@ -137,8 +124,14 @@ class AsyncCheckpointManager:
         # back-pressure: one save in flight, totally ordered commits
         self.wait()
 
+        from ..runtime.telemetry import NULL_TELEMETRY
+        telemetry = getattr(engine, "telemetry", NULL_TELEMETRY)
         t0 = time.perf_counter()
-        payloads = snapshot_checkpoint(engine, client_state)
+        # the snapshot is the only training-loop stall of an async save;
+        # spanning it puts the stall on the trace timeline, and the
+        # goodput meter reads total_stall_s deltas a step window
+        with telemetry.span("ckpt_snapshot"):
+            payloads = snapshot_checkpoint(engine, client_state)
         stall_s = time.perf_counter() - t0
         step = engine.global_steps
         self.total_stall_s += stall_s
@@ -223,6 +216,10 @@ class AsyncCheckpointManager:
                 f"write {stats['write_s'] * 1e3:.0f} ms"
                 + (f", GC'd {stats['deleted']}" if stats["deleted"]
                    else "") + ")", ranks=[0])
+            engine = self.engine
+            monitor = getattr(engine, "monitor", None)
+            if monitor is not None:
+                monitor.record_checkpoint(engine.global_samples, stats)
         if err is not None and not self._error_logged:
             # keep self._error for wait() to raise; warn now, once
             self._error_logged = True

@@ -72,14 +72,23 @@ its key (`sampler_state` / `restore_sampler_state` carry the count and
 the speculative generator's state). The draws are the port's own, not
 the JAX package's.
 
+Observability: a "telemetry" block spans each step's ``schedule``,
+``prefill`` and ``decode`` (mirrored into `torch.profiler`
+record_functions), and a ``monitor=`` (a `runtime.monitor.
+TensorBoardMonitor`) receives the per-step ``Serve/*`` saturation
+scalars keyed by total generated tokens and, through
+`ServeRequestMetrics`, every admission-wait / TTFT / inter-token
+observation for its Prometheus histograms. `drain` pushes the final
+``Serve/*`` counters, then closes an owned monitor (``owns_monitor``) or
+flushes a borrowed one, then closes the telemetry.
+
 Not ported yet (each raises at construction, and ROADMAP.md lists it):
-disaggregated roles, the router and a model-parallel mesh (scale-out),
-and telemetry spans and a monitor (observability), so `drain` has no
-metrics backend to flush.
+disaggregated roles, the router and a model-parallel mesh (scale-out).
 """
 
 import random
 import time
+import types
 
 import numpy as np
 import torch
@@ -89,7 +98,7 @@ from ..models import gpt_neox as neox
 from ..module_inject.replace_module import prepare_inference_params
 from ..ops.hopper.decode_attention import (paged_attention_reference,
                                            paged_decode_attention)
-from ..runtime.config import (parse_inference_block,
+from ..runtime.config import (DeepSpeedConfig, parse_inference_block,
                               parse_quantization_block)
 from ..runtime.config_utils import DeepSpeedConfigError, load_config_json
 from ..runtime.fault_injection import (FaultInjector, InjectedServingFault,
@@ -102,7 +111,9 @@ from .admission import (AdmissionController, DrainAborted, RequestFailed,
                         validate_priority)
 from .kv_cache import (PagedKVCache, PrefixCache, QuantizedPages,
                        pages_for_tokens, quantize_kv)
-from .metrics import ServeRequestMetrics
+from .metrics import (PREFIX_HIT_RATE, PREFIX_PAGES_SHARED,
+                      PREFIX_SAVED_PREFILL_TOKENS, REQUEST_STATUS_FAMILIES,
+                      SPEC_ACCEPTANCE_RATE, ServeRequestMetrics)
 from .scheduler import (FINISHED, RUNNING, ContinuousBatchingScheduler,
                         Request)
 
@@ -227,11 +238,15 @@ class InferenceEngine:
     vocabulary and at least its window) and its optional
     ``draft_params`` serve ``inference.speculative``. ``device``
     defaults to ``"cuda"`` and raises when CUDA is absent; the CPU must
-    be asked for (``device="cpu"``).
+    be asked for (``device="cpu"``). ``monitor`` (a
+    `runtime.monitor.TensorBoardMonitor`) receives the ``Serve/*``
+    scalars and histograms; ``owns_monitor=False`` keeps `drain` from
+    closing it (a monitor borrowed from a training engine).
     """
 
     def __init__(self, model, config=None, params=None, device=None,
-                 mesh=None, draft_model=None, draft_params=None):
+                 mesh=None, draft_model=None, draft_params=None,
+                 monitor=None, owns_monitor=True):
         self.model = model
         cfg = model.config
         self.device = resolve_device(device, "InferenceEngine")
@@ -254,6 +269,11 @@ class InferenceEngine:
         d = config if isinstance(config, dict) else load_config_json(config)
         self.inference_params = parse_inference_block(d)
         quantization = parse_quantization_block(d) or None
+        # the training parser's telemetry validation, without the batch
+        # triad it also wants
+        ns = types.SimpleNamespace()
+        DeepSpeedConfig._parse_telemetry_block(ns, d)
+        telemetry_config = ns.telemetry_config
         if not self.inference_params:
             raise DeepSpeedConfigError(
                 "the 'inference' config block is required (with "
@@ -374,7 +394,17 @@ class InferenceEngine:
                       # tokens and verify steps (0 with speculation off)
                       "spec_steps": 0, "spec_proposed": 0,
                       "spec_accepted": 0}
-        self.request_metrics = ServeRequestMetrics()
+        # telemetry (spans: schedule / prefill / decode) and the monitor.
+        # A BORROWED monitor (owns_monitor=False, e.g. a co-located
+        # training engine's) is flushed by drain() but not closed
+        from ..runtime.telemetry import build_telemetry
+        self.monitor = monitor
+        self._owns_monitor = bool(owns_monitor)
+        self.telemetry = build_telemetry(telemetry_config, monitor=monitor,
+                                         devices=[self.device])
+        # request-level latency histograms, fanned out to the monitor's
+        # export backends (Prometheus histogram families)
+        self.request_metrics = ServeRequestMetrics(monitor=monitor)
 
         # graceful drain (SIGTERM): a flag-only handler, acted on at the
         # next serving-loop iteration
@@ -459,9 +489,6 @@ class InferenceEngine:
         for hit, what, slice_name in checks:
             if hit:
                 raise _not_ported(what, slice_name)
-        telemetry = d.get("telemetry")
-        if isinstance(telemetry, dict) and telemetry.get("enabled", True):
-            raise _not_ported("telemetry spans", "observability")
 
     # ------------------------------------------------------------------
     # weights
@@ -832,7 +859,8 @@ class InferenceEngine:
     def _step_inner(self):
         now = time.perf_counter()
         finished_before = len(self.scheduler.finished)
-        plan = self.scheduler.schedule(now=now)
+        with self.telemetry.span("schedule"):
+            plan = self.scheduler.schedule(now=now)
         self.stats["schedule_s"] += time.perf_counter() - now
         self.stats["evictions"] += len(plan.evicted)
         if plan.empty and self.scheduler.quarantined:
@@ -858,14 +886,15 @@ class InferenceEngine:
         if plan.prefills:
             t0 = time.perf_counter()
             ok = True
-            try:
-                if self._fault_fired("prefill_error") is not None:
-                    raise InjectedServingFault(
-                        "injected prefill_error fault")
-                self._run_prefill(plan)
-            except Exception as e:  # noqa: BLE001 - quarantine, don't die
-                ok = False
-                self._quarantine_batch(plan.prefills, e, "prefill")
+            with self.telemetry.span("prefill"):
+                try:
+                    if self._fault_fired("prefill_error") is not None:
+                        raise InjectedServingFault(
+                            "injected prefill_error fault")
+                    self._run_prefill(plan)
+                except Exception as e:  # noqa: BLE001 - quarantine
+                    ok = False
+                    self._quarantine_batch(plan.prefills, e, "prefill")
             self.stats["prefill_s"] += time.perf_counter() - t0
             if ok:
                 self.stats["prefill_requests"] += len(plan.prefills)
@@ -885,16 +914,17 @@ class InferenceEngine:
                 time.sleep(stall["seconds"])   # drives the watchdog
             t0 = time.perf_counter()
             ok = True
-            try:
-                if self._fault_fired("decode_error") is not None:
-                    raise InjectedServingFault(
-                        "injected decode_error fault")
-                produced = (self._run_speculative(plan) if self.spec_k
-                            else self._run_decode(plan))
-            except Exception as e:  # noqa: BLE001
-                ok = False
-                produced = 0
-                self._quarantine_batch(plan.decodes, e, "decode")
+            with self.telemetry.span("decode"):
+                try:
+                    if self._fault_fired("decode_error") is not None:
+                        raise InjectedServingFault(
+                            "injected decode_error fault")
+                    produced = (self._run_speculative(plan) if self.spec_k
+                                else self._run_decode(plan))
+                except Exception as e:  # noqa: BLE001
+                    ok = False
+                    produced = 0
+                    self._quarantine_batch(plan.decodes, e, "decode")
             self.stats["decode_s"] += time.perf_counter() - t0
             if ok:
                 self.stats["decode_tokens"] += produced
@@ -905,8 +935,51 @@ class InferenceEngine:
         self._sync_status_counts()
         if self.admission is not None and finished:
             self.admission.note_finished(finished)
+        self._record_request_spans(plan)
+        if self.monitor is not None:
+            self._record_serve_scalars()
         return {"prefilled": len(plan.prefills), "decoded": produced,
                 "evicted": len(plan.evicted), "finished": finished}
+
+    def _record_serve_scalars(self):
+        """The per-step saturation series keyed by total generated
+        tokens (the Serve/* convention; buffered, no per-step flush): the
+        queue depth, the page-pool occupancy, the running batch, the
+        per-status terminal counters, and the prefix-cache and
+        speculative figures where those are on. Host floats only."""
+        total = self.stats["prefill_tokens"] + self.stats["decode_tokens"]
+        scalars = {
+            "Serve/queue_depth": self.stats["queue_depth"],
+            "Serve/page_pool_util": self.stats["page_pool_util"],
+            "Serve/running": float(len(self.scheduler.running))}
+        for status, tag in REQUEST_STATUS_FAMILIES.items():
+            scalars[tag] = float(self.stats[f"requests_{status}"])
+        if self.prefix_cache is not None:
+            pcs = self.prefix_cache.stats
+            scalars[PREFIX_HIT_RATE] = pcs["hits"] / max(pcs["lookups"], 1)
+            scalars[PREFIX_PAGES_SHARED] = float(pcs["pages_shared"])
+            scalars[PREFIX_SAVED_PREFILL_TOKENS] = \
+                float(pcs["saved_prefill_tokens"])
+        if self.spec_k:
+            scalars[SPEC_ACCEPTANCE_RATE] = \
+                self.stats["spec_accepted"] / \
+                max(self.stats["spec_proposed"], 1)
+        self.monitor.record(total, scalars)
+
+    def _record_request_spans(self, plan):
+        """Per-request lifecycle records behind the telemetry capture:
+        while a capture window is open, every request that FINISHED this
+        step lands in the span buffer as one event covering submit → last
+        token. Zero cost outside a window."""
+        tracer = getattr(self.telemetry, "tracer", None)
+        if tracer is None or not tracer.capturing:
+            return
+        now = time.perf_counter()
+        for req in plan.prefills + plan.decodes:
+            if req.state == FINISHED and req.submitted_at is not None:
+                tracer.record_event(
+                    f"request/{req.request_id}", req.submitted_at,
+                    (req.last_token_at or now) - req.submitted_at)
 
     def _sync_status_counts(self):
         """Mirror the scheduler's terminal-status tallies into the stats
@@ -1075,6 +1148,11 @@ class InferenceEngine:
             f"{self.watchdog.timeout_s:.1f}s — requesting an emergency "
             f"drain; all-thread stacks:\n{self.last_stack_dump}")
         self._drain_requested = True
+        try:
+            if self.monitor is not None:
+                self.monitor.flush()
+        except Exception:  # noqa: BLE001 - best-effort from the thread
+            pass
 
     def _complete_prefills(self, reqs, nxt):
         now = time.perf_counter()
@@ -1371,6 +1449,18 @@ class InferenceEngine:
             "unserved": sum(1 for r in self.scheduler.waiting
                             if not r.evictions),
         }
+        # pushes the Serve/* counters (the DrainAborted failures land in
+        # Serve/requests_failed BEFORE the monitor closes)
+        self.serve_stats()
+        if self.monitor is not None:
+            if self._owns_monitor:
+                self.monitor.close()  # drains the buffered scalar queue
+            else:
+                # borrowed: flush the Serve/* scalars, leave it open
+                flush = getattr(self.monitor, "flush", None)
+                if flush is not None:
+                    flush()
+        self.telemetry.close()
         self.restore_signal_handlers()
         logger.info(f"inference drain complete: {summary}")
         return summary
@@ -1437,7 +1527,9 @@ class InferenceEngine:
         """Counters + phase seconds + request-latency percentiles (p50/p99
         of admission wait / TTFT / inter-token, from the fixed-bucket
         histograms), with the prefix registry's and the speculative
-        acceptance's figures when those are on."""
+        acceptance's figures when those are on; also pushed to the
+        monitor (as ``Serve/*`` scalars keyed by total generated tokens)
+        when one is attached."""
         out = dict(self.stats)
         out.update(self.request_metrics.summary())
         if self.prefix_cache is not None:
@@ -1451,4 +1543,8 @@ class InferenceEngine:
         if self.spec_k:
             out["spec_acceptance_rate"] = self.stats["spec_accepted"] / \
                 max(self.stats["spec_proposed"], 1)
+        if self.monitor is not None:
+            total = out["prefill_tokens"] + out["decode_tokens"]
+            self.monitor.record(
+                total, {f"Serve/{k}": float(v) for k, v in out.items()})
         return out

@@ -272,7 +272,8 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
             rng=rng, jitter_eps=cfg.moe_jitter_eps,
             groups=cfg.moe_num_groups, dispatch=cfg.moe_dispatch,
             renorm_kept_choices=cfg.moe_renorm_kept_choices,
-            use_kernels=use_kernels, ffn_quant=ffn_quant)
+            use_kernels=use_kernels, ffn_quant=ffn_quant,
+            observe=cfg.moe_observability)
         moe_out = y[0].reshape(ln2.shape)
         if cfg.use_parallel_residual:
             out = x + attn_partial + out_b + moe_out
@@ -676,10 +677,6 @@ def _refuse_unported(cfg):
         raise ValueError(
             f"attention_engine must be 'dense' or 'sparse', got "
             f"{cfg.attention_engine!r}")
-    if cfg.moe_num_experts and cfg.moe_observability:
-        raise NotImplementedError(
-            "the MoE routing statistics (moe_observability) are not "
-            "ported yet (observability slice)")
 
 
 def _holder(**shapes):

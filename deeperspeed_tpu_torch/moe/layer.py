@@ -20,11 +20,15 @@ noise from a `torch.Generator` at one point that both engines share, so
 they route identically under noise; the numbers are not the JAX
 package's. The sort engine runs the delayed-scaling quantized FFN
 (``ffn_quant``, the "quantization.ffn" block) on its two grouped
-products. Expert parallelism (`moe_ffn_expert_parallel`, a mesh) and the
-routing statistics (``moe.observability``) are not ported yet.
+products. With ``observe`` (``moe.observability``) it also emits its
+routing statistics into `ROUTING_STATS`, as device tensors that the
+engine drains into ``Train/MoE/*`` scalars. Expert parallelism
+(`moe_ffn_expert_parallel`, a mesh) is not ported yet.
 """
 
+import contextlib
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -67,6 +71,96 @@ def _resolve_groups(groups, tokens):
         raise ValueError(f"groups={groups} must be ≥1 and divide the "
                          f"token count {tokens}")
     return groups
+
+
+class _RoutingStatsCollector:
+    """Sink of the sort engine's routing statistics (``moe.observability``):
+    per-expert load fractions and the capacity-drop fraction, one entry
+    per MoE layer forward. The JAX package lands them on the host through
+    `jax.debug.callback`; here they stay device tensors (no host read in
+    the step), and `drain` averages them on the device at the engine's
+    step record into the four ``Train/MoE/*`` scalars, which the
+    monitor reads at its flush.
+
+    Samples are AVERAGED across everything that accumulated since the
+    last drain: one entry per MoE layer per forward, plus duplicates when
+    rematerialization re-runs a layer's forward in the backward pass;
+    duplicate values are identical, so the averages are unbiased."""
+
+    # un-drained cap: with no monitor attached nothing ever drains; keep
+    # the most recent window instead of growing forever
+    MAX_PENDING = 1024
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._load = []          # [E] load fraction per emission
+        self._drop = []          # capacity-drop fraction per emission
+        self._suspended = 0
+
+    @contextlib.contextmanager
+    def suspended(self):
+        """Record nothing inside the block (the flops profiler's extra
+        forward of a step's batch)."""
+        with self._lock:
+            self._suspended += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._suspended -= 1
+
+    def _record(self, load, drop):
+        with self._lock:
+            if self._suspended:
+                return
+            self._load.append(load.detach())
+            self._drop.append(drop.detach())
+            if len(self._load) > self.MAX_PENDING:
+                del self._load[:-self.MAX_PENDING]
+                del self._drop[:-self.MAX_PENDING]
+
+    @property
+    def pending(self):
+        return len(self._load)
+
+    def drain(self):
+        """Averaged scalars since the last drain (0-d fp32 tensors on
+        the statistics' device), or None when nothing was emitted."""
+        with self._lock:
+            load, self._load = self._load, []
+            drop, self._drop = self._drop, []
+        if not load:
+            return None
+        mean_load = torch.stack(load).double().mean(dim=0)       # [E]
+        mean = mean_load.mean()
+        return {
+            "Train/MoE/expert_load_min": mean_load.min().float(),
+            "Train/MoE/expert_load_max": mean_load.max().float(),
+            # coefficient of variation (numpy's population std): 0 =
+            # perfectly balanced; the one imbalance series worth alerting
+            # on
+            "Train/MoE/expert_load_cv":
+                (mean_load.std(correction=0) /
+                 torch.clamp(mean, min=1e-12)).float(),
+            "Train/MoE/capacity_drop_fraction":
+                torch.stack(drop).double().mean().float(),
+        }
+
+
+ROUTING_STATS = _RoutingStatsCollector()
+
+
+def _emit_routing_stats(route, capacity, E, g):
+    """Emit one routing observation (sort engine only: the route's
+    counts already hold the position-in-expert bookkeeping, so the
+    statistics cost two reductions). The virtual-expert counts fold back
+    to real experts (virtual id = expert·g + group)."""
+    kT = route.pos.shape[0]                      # routed copies (T·top_k)
+    counts_e = route.counts.reshape(E, g).sum(dim=1)
+    load = counts_e.float() / max(kT, 1)
+    kept = torch.clamp(route.counts, max=capacity).sum()
+    drop = 1.0 - kept.float() / max(kT, 1)
+    ROUTING_STATS._record(load, drop)
 
 
 def _one_hot(idx, n):
@@ -310,7 +404,7 @@ def _sort_combine(out_buf, route, span, T, dtype):
 def moe_ffn_dense(params, x, capacity_factor=1.25, top_k=1, rng=None,
                   jitter_eps=0.0, groups=1, dispatch="einsum",
                   renorm_kept_choices=False, use_kernels=True,
-                  ffn_quant=None):
+                  ffn_quant=None, observe=False):
     """The MoE FFN on one device. ``params``: stacked expert weights
     {"w_in" [E, H, I], "b_in" [E, I], "w_out" [E, I, H], "b_out" [E, H],
     "gate" [H, E]}; x [T, H] → (y [T, H], aux_loss). ``groups`` splits
@@ -320,10 +414,15 @@ def moe_ffn_dense(params, x, capacity_factor=1.25, top_k=1, rng=None,
     matmuls to their plain version on any device. ``ffn_quant`` =
     (recipe, margin, amax_row [4, H]) quantizes the sort engine's
     grouped products (`_sort_ffn`) and makes the return (y, aux_loss,
-    new_amax_row); the einsum engine refuses it."""
+    new_amax_row); the einsum engine refuses it. ``observe`` emits the
+    sort engine's routing statistics (`ROUTING_STATS`)."""
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch must be one of {DISPATCH_MODES}, "
                          f"got {dispatch!r}")
+    if observe and dispatch != "sort":
+        raise ValueError(
+            "observe=True requires dispatch='sort': the routing stats "
+            "come from the sort engine's position-in-expert bookkeeping")
     if ffn_quant is not None and dispatch != "sort":
         raise ValueError(
             "quantization.ffn on MoE blocks requires dispatch='sort': "
@@ -351,6 +450,8 @@ def moe_ffn_dense(params, x, capacity_factor=1.25, top_k=1, rng=None,
 
     probs = _jittered_probs(params["gate"], xg, rng, jitter_eps)
     route = _sort_route(probs, capacity, top_k, renorm_kept_choices)
+    if observe:
+        _emit_routing_stats(route, capacity, E, g)
     span, _ = pick_span(capacity)
     buf, sizes = _fill_buffer(x, route, capacity, span)
     lut = tuple(np.repeat(np.arange(E), g).tolist())

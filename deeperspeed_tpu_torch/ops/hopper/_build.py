@@ -32,6 +32,21 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
+
+def device_cached(cache, key, make):
+    """``cache[key]``, made by ``make()`` (a tensor or a tuple or dict of
+    them) on a miss. What the flops count makes under `FakeTensorMode` is
+    handed back but not kept, so no later call reads a fake tensor."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils._pytree import tree_leaves
+    value = cache.get(key)
+    if value is None:
+        value = make()
+        if not any(isinstance(t, FakeTensor) for t in tree_leaves(value)):
+            cache[key] = value
+    return value
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong

@@ -119,13 +119,10 @@ class LayoutLuts:
     def on(self, device):
         """{"fwd": (lut, counts, order), "bwd": ...} as int32 tensors on
         ``device``, contiguous."""
-        key = str(device)
-        if key not in self._dev:
-            self._dev[key] = {
-                name: tuple(torch.as_tensor(a, device=device).contiguous()
-                            for a in luts)
-                for name, luts in (("fwd", self.fwd), ("bwd", self.bwd))}
-        return self._dev[key]
+        return _build.device_cached(self._dev, str(device), lambda: {
+            name: tuple(torch.as_tensor(a, device=device).contiguous()
+                        for a in luts)
+            for name, luts in (("fwd", self.fwd), ("bwd", self.bwd))})
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,11 @@ launches_by_design = dict.fromkeys(DESIGNS, 0)
 launches_by_design_int8 = dict.fromkeys(DESIGNS, 0)
 
 
+# the design the wrapper last ran ("cluster", "single" or "plain");
+# `ops.dispatch_report` reads it
+LAST_DESIGN = {}
+
+
 def reset_launches_by_design():
     launches_by_design.update(dict.fromkeys(DESIGNS, 0))
     launches_by_design_int8.update(dict.fromkeys(DESIGNS, 0))
@@ -292,6 +297,7 @@ def paged_decode_cuda(q, k_pages, v_pages, page_table, lengths,
         if design == "cluster" else 0
     out = launch_kernel(q, k_pages, v_pages, page_table, lengths, sm_scale,
                         cluster)
+    LAST_DESIGN["decode"] = design
     if q.shape[0]:
         launches += 1
         launches_by_design[design] += 1
@@ -329,6 +335,7 @@ def paged_decode_int8_cuda(q, k_pages, v_pages, k_scales, v_scales,
         if design == "cluster" else 0
     out = launch_kernel(q, k_pages, v_pages, page_table, lengths, sm_scale,
                         cluster, k_scales, v_scales)
+    LAST_DESIGN["decode"] = design
     if q.shape[0]:
         launches_int8 += 1
         launches_by_design_int8[design] += 1
@@ -348,7 +355,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     quant = k_scales is not None
     route = decode_route(q.device.type, q.shape[2], k_pages.shape[2],
                          backend)
+    LAST_DESIGN["decode_kv"] = "int8" if quant else str(k_pages.dtype)
     if route != "kernel":
+        LAST_DESIGN["decode"] = "plain"
         if route == "unsupported":
             (launches_by_design_int8 if quant
              else launches_by_design)["plain"] += 1

@@ -98,6 +98,11 @@ design_launches = {kernel: dict.fromkeys(DESIGNS, 0)
                    for kernel in ("fwd", "dkv", "dq")}
 
 
+# the design the wrapper last ran ("mma", "fma" or "plain"), by direction;
+# `ops.dispatch_report` reads it
+LAST_DESIGN = {}
+
+
 def reset_flag_launches():
     for counts in flag_launches.values():
         counts.update(dict.fromkeys(counts, 0))
@@ -364,6 +369,7 @@ def flash_attention_cuda(q, k, v, segment_ids=None, sm_scale=None,
         *_strides(q, k, v), float(scale), int(causal), thresh, float(inv),
         code, _build.stream_ptr(q))
     _build.check(err, "ds_flash_fwd")
+    LAST_DESIGN["fwd"] = design
     design_launches["fwd"][design] += 1
     combo = _flag_combo(kb, sd is not None)
     if combo is not None:
@@ -499,6 +505,7 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, delta, segment_ids=None,
            _ptr(sd))
     err = lib.ds_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common)
     _build.check(err, "ds_flash_bwd_dkv")
+    LAST_DESIGN["bwd"] = design
     design_launches["dkv"][design] += 1
     if combo is not None:
         flag_launches["dkv"][combo] += 1
@@ -537,8 +544,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if use_kernels and q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, segment_ids, sm_scale, layout,
                                     causal, *flags)
+    LAST_DESIGN["fwd"] = "plain"
     return flash_attention_segmented_reference(
         q, k, v, segment_ids, sm_scale, layout, causal, *flags)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, segment_ids, layout, kbias, seed, sm_scale,
+                    causal, dropout_rate, use_kernels):
+    """The op's shapes for fake tensors (the flops count's pass): out
+    [B, S, H, D] in q's dtype, lse [B·H, S] fp32."""
+    B, S, H, D = q.shape
+    return (q.new_empty((B, S, H, D)),
+            q.new_empty((B * H, S), dtype=torch.float32))
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -571,6 +589,7 @@ class _FlashAttention(torch.autograd.Function):
                 q, k, v, lse, do, attention_delta(out, do), segment_ids,
                 sm_scale, layout, causal, *flags)
         else:
+            LAST_DESIGN["bwd"] = "plain"
             dq, dk, dv = flash_attention_bwd_reference(
                 q, k, v, out, lse, do, segment_ids, sm_scale, layout, causal,
                 *flags)
@@ -642,7 +661,9 @@ def make_masked_flash_attention(layout128, causal=False, sm_scale=None):
     Returns fn(q, k, v, use_kernels=True) on [B, S, H, D], differentiable
     in q, k, v: the CUDA kernels for CUDA tensors, the plain versions for
     CPU tensors or with ``use_kernels=False``."""
-    layout = torch.as_tensor(np.asarray(layout128) != 0, dtype=torch.int32)
+    # numpy until a call puts it on its device (a tensor made here under
+    # the flops count's FakeTensorMode would be a fake one)
+    layout = (np.asarray(layout128) != 0).astype(np.int32)
     on_device = {}
 
     def fn(q, k, v, use_kernels=True):
@@ -656,12 +677,11 @@ def make_masked_flash_attention(layout128, causal=False, sm_scale=None):
                 f"{layout.shape[1] * MASK_GRAIN}")
         _check(q, k, v, None)
         _check_device(q)
-        key = str(q.device)
-        if key not in on_device:
-            on_device[key] = layout.to(q.device)
-        return _FlashAttention.apply(q, k, v, None, sm_scale,
-                                     on_device[key], causal, use_kernels,
-                                     None, None, 0.0)
+        lay = _build.device_cached(on_device, str(q.device),
+                                   lambda: torch.as_tensor(
+                                       layout, device=q.device))
+        return _FlashAttention.apply(q, k, v, None, sm_scale, lay, causal,
+                                     use_kernels, None, None, 0.0)
 
     fn.layout = layout
     fn.causal = causal

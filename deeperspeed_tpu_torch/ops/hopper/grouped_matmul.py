@@ -147,12 +147,9 @@ def grouped_matmul_dw_reference(x, dy, group_sizes, span, lut, n_weights):
 
 
 def _device_lut(lut_t, device):
-    key = (lut_t, str(device))
-    t = _LUT_CACHE.get(key)
-    if t is None:
-        t = torch.tensor(lut_t, dtype=torch.int32, device=device)
-        _LUT_CACHE[key] = t
-    return t
+    return _build.device_cached(
+        _LUT_CACHE, (lut_t, str(device)),
+        lambda: torch.tensor(lut_t, dtype=torch.int32, device=device))
 
 
 def _kernel_sizes(group_sizes, device):

@@ -52,6 +52,11 @@ DESIGNS = ("wgmma", "fma")
 design_launches = dict.fromkeys(DESIGNS, 0)
 
 
+# the design the wrapper last ran ("wgmma", "fma" or "plain");
+# `ops.dispatch_report` reads it
+LAST_DESIGN = {}
+
+
 def reset_design_launches():
     design_launches.update(dict.fromkeys(DESIGNS, 0))
 
@@ -159,6 +164,7 @@ def quant_matmul_cuda(x, qw):
         x.data_ptr(), ldx, q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N,
         K, tile, cluster, _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
     _build.check(err, "ds_quant_matmul")
+    LAST_DESIGN["quant_matmul"] = design
     launches += 1
     design_launches[design] += 1
     return out
@@ -181,6 +187,7 @@ def quant_matmul(x, qw, backend=None):
     if backend not in (None, "auto", "pallas", "xla"):
         raise ValueError(f"unknown quant_matmul backend {backend!r}")
     if backend == "xla" or x.device.type == "cpu":
+        LAST_DESIGN["quant_matmul"] = "plain"
         return quant_matmul_reference(x, qw)
     if x.device.type != "cuda":
         raise ValueError(f"no quant matmul path for device {x.device}")

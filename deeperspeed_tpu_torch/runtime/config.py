@@ -11,10 +11,13 @@ reads, the "training_health", "progressive_layer_drop" and
 "batch_size_schedule" blocks and ``fp16.min_scale_patience`` its step
 boundary reads, the "moe", "sparse_attention", "packing" and
 "activation_checkpointing" blocks the model reads
-(`GPTNeoX.apply_ds_config`), and the "quantization" block (its "ffn"
+(`GPTNeoX.apply_ds_config`), the "quantization" block (its "ffn"
 object arms the delayed-scaling FFN; "gradient_compression" raises "not
-ported"); every other top-level block of the JAX config that is set
-raises "not ported" (`constants.NOT_PORTED_BLOCKS`).
+ported"), and the observability blocks: "telemetry" (a set ``fleet``
+sub-block raises "not ported"), "monitor", "tensorboard",
+"flops_profiler", ``wall_clock_breakdown`` and ``memory_breakdown``;
+every other top-level block of the JAX config that is set raises "not
+ported" (`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
@@ -22,6 +25,7 @@ from .activation_checkpointing.config import (
     DeepSpeedActivationCheckpointingConfig)
 from .config_utils import (DeepSpeedConfigError, as_int, get_scalar_param,
                            load_config_json)
+from ..profiling.config import DeepSpeedFlopsProfilerConfig
 from .precision import resolve_precision
 from .zero import constants as zc
 from .zero.config import DeepSpeedZeroConfig
@@ -221,6 +225,7 @@ class DeepSpeedConfig:
         # apply_activation_checkpointing_config).
         self.activation_checkpointing_config = (
             DeepSpeedActivationCheckpointingConfig.from_dict(d))
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig.from_dict(d)
 
         # Mixed precision. "fp16" block carries both fp16 and bf16 (fork).
         fp16 = d.get(c.FP16) or {}
@@ -298,6 +303,20 @@ class DeepSpeedConfig:
             self.scheduler_name = c.SCHEDULER_TYPE_DEFAULT
             self.scheduler_params = None
 
+        self.wall_clock_breakdown = bool(
+            d.get(c.WALL_CLOCK_BREAKDOWN, c.WALL_CLOCK_BREAKDOWN_DEFAULT))
+        self.memory_breakdown = bool(
+            d.get(c.MEMORY_BREAKDOWN, c.MEMORY_BREAKDOWN_DEFAULT))
+
+        tb = d.get(c.TENSORBOARD) or {}
+        self.tensorboard_enabled = bool(
+            tb.get(c.TENSORBOARD_ENABLED, c.TENSORBOARD_ENABLED_DEFAULT))
+        self.tensorboard_output_path = tb.get(
+            c.TENSORBOARD_OUTPUT_PATH, c.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = tb.get(c.TENSORBOARD_JOB_NAME,
+                                           c.TENSORBOARD_JOB_NAME_DEFAULT)
+        self._parse_monitor_block(d)
+
         # Fork additions: gradient storage for debugging.
         self.store_gradients = bool(
             d.get(c.STORE_GRADIENTS, c.STORE_GRADIENTS_DEFAULT))
@@ -324,6 +343,7 @@ class DeepSpeedConfig:
 
         self._parse_checkpoint_block(d)
         self._parse_training_health_block(d)
+        self._parse_telemetry_block(d)
 
         # the low-precision paths (the module-level parse, shared with the
         # serving engine): the engine arms "ffn"; "weights" is parsed and
@@ -568,10 +588,217 @@ class DeepSpeedConfig:
             "fault_injection": fault_spec,
         }
 
+    def _parse_telemetry_block(self, d):
+        """Parse + validate the "telemetry" block (runtime/telemetry.py:
+        span tracing, goodput + MFU accounting, trigger-driven profiler
+        capture) with the JAX package's keys, defaults and messages: a
+        mistyped capture window must fail at startup, not silently never
+        trace. A set ``fleet`` sub-block (the cross-host layer) raises
+        "not ported". A static method's body: the serving engine runs it
+        with a bare namespace as ``self``."""
+        tel = d.get(c.TELEMETRY) or {}
+        known = {c.TELEMETRY_ENABLED, c.TELEMETRY_GOODPUT, c.TELEMETRY_MFU,
+                 c.TELEMETRY_SPANS, c.TELEMETRY_TRACE_DIR,
+                 c.TELEMETRY_CAPTURE, c.TELEMETRY_MEMORY_WATERMARK_INTERVAL,
+                 c.TELEMETRY_CAPTURE_ON_ANOMALY,
+                 c.TELEMETRY_ANOMALY_CAPTURE_STEPS, c.TELEMETRY_FLEET}
+        unknown = sorted(set(tel) - known)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown 'telemetry' key(s) {unknown}; valid keys: "
+                f"{sorted(known)}")
+
+        bools = {}
+        for key, default in (
+                (c.TELEMETRY_ENABLED, c.TELEMETRY_ENABLED_DEFAULT),
+                (c.TELEMETRY_GOODPUT, c.TELEMETRY_GOODPUT_DEFAULT),
+                (c.TELEMETRY_MFU, c.TELEMETRY_MFU_DEFAULT),
+                (c.TELEMETRY_SPANS, c.TELEMETRY_SPANS_DEFAULT),
+                (c.TELEMETRY_CAPTURE_ON_ANOMALY,
+                 c.TELEMETRY_CAPTURE_ON_ANOMALY_DEFAULT)):
+            value = tel.get(key, default)
+            if not isinstance(value, bool):
+                raise DeepSpeedConfigError(
+                    f"telemetry.{key} must be a boolean, got {value!r}")
+            bools[key] = value
+
+        trace_dir = tel.get(c.TELEMETRY_TRACE_DIR,
+                            c.TELEMETRY_TRACE_DIR_DEFAULT)
+        if trace_dir is not None and not isinstance(trace_dir, str):
+            raise DeepSpeedConfigError(
+                f"telemetry.{c.TELEMETRY_TRACE_DIR} must be a string "
+                f"path, got {trace_dir!r}")
+
+        capture = tel.get(c.TELEMETRY_CAPTURE)
+        if capture is not None:
+            if not isinstance(capture, dict):
+                raise DeepSpeedConfigError(
+                    f"telemetry.{c.TELEMETRY_CAPTURE} must be an object "
+                    "{start_step, num_steps}, got "
+                    f"{type(capture).__name__}")
+            cap_known = {c.TELEMETRY_CAPTURE_START_STEP,
+                         c.TELEMETRY_CAPTURE_NUM_STEPS}
+            cap_unknown = sorted(set(capture) - cap_known)
+            if cap_unknown:
+                raise DeepSpeedConfigError(
+                    f"Unknown telemetry.{c.TELEMETRY_CAPTURE} key(s) "
+                    f"{cap_unknown}; valid keys: {sorted(cap_known)}")
+            if c.TELEMETRY_CAPTURE_START_STEP not in capture:
+                raise DeepSpeedConfigError(
+                    f"telemetry.{c.TELEMETRY_CAPTURE} requires "
+                    f"{c.TELEMETRY_CAPTURE_START_STEP}")
+            start = as_int(capture[c.TELEMETRY_CAPTURE_START_STEP],
+                           f"telemetry.capture."
+                           f"{c.TELEMETRY_CAPTURE_START_STEP}")
+            num = as_int(capture.get(c.TELEMETRY_CAPTURE_NUM_STEPS,
+                                     c.TELEMETRY_CAPTURE_NUM_STEPS_DEFAULT),
+                         f"telemetry.capture."
+                         f"{c.TELEMETRY_CAPTURE_NUM_STEPS}")
+            if start < 0:
+                raise DeepSpeedConfigError(
+                    f"telemetry.capture.{c.TELEMETRY_CAPTURE_START_STEP} "
+                    f"must be >= 0, got {start}")
+            if num < 1:
+                raise DeepSpeedConfigError(
+                    f"telemetry.capture.{c.TELEMETRY_CAPTURE_NUM_STEPS} "
+                    f"must be >= 1, got {num}")
+            capture = {c.TELEMETRY_CAPTURE_START_STEP: start,
+                       c.TELEMETRY_CAPTURE_NUM_STEPS: num}
+
+        watermark = as_int(
+            tel.get(c.TELEMETRY_MEMORY_WATERMARK_INTERVAL,
+                    c.TELEMETRY_MEMORY_WATERMARK_INTERVAL_DEFAULT),
+            f"telemetry.{c.TELEMETRY_MEMORY_WATERMARK_INTERVAL}")
+        if watermark < 0:
+            raise DeepSpeedConfigError(
+                f"telemetry.{c.TELEMETRY_MEMORY_WATERMARK_INTERVAL} must "
+                f"be >= 0 (0 disables), got {watermark}")
+        anomaly_steps = as_int(
+            tel.get(c.TELEMETRY_ANOMALY_CAPTURE_STEPS,
+                    c.TELEMETRY_ANOMALY_CAPTURE_STEPS_DEFAULT),
+            f"telemetry.{c.TELEMETRY_ANOMALY_CAPTURE_STEPS}")
+        if anomaly_steps < 1:
+            raise DeepSpeedConfigError(
+                f"telemetry.{c.TELEMETRY_ANOMALY_CAPTURE_STEPS} must be "
+                f">= 1, got {anomaly_steps}")
+
+        fleet = tel.get(c.TELEMETRY_FLEET)
+        if fleet is not None and not isinstance(fleet, dict):
+            raise DeepSpeedConfigError(
+                f"telemetry.{c.TELEMETRY_FLEET} must be an object, got "
+                f"{type(fleet).__name__}")
+        if fleet is not None and fleet.get("enabled", False) is not False:
+            raise DeepSpeedConfigError(
+                f"telemetry.{c.TELEMETRY_FLEET} is not ported yet (it comes "
+                f"with the fleet (A.8.3) slice: the cross-host aggregation "
+                f"needs more than one rank; see ROADMAP.md)")
+
+        needs_dir = capture is not None or \
+            bools[c.TELEMETRY_CAPTURE_ON_ANOMALY]
+        if bools[c.TELEMETRY_ENABLED] and needs_dir and trace_dir is None:
+            raise DeepSpeedConfigError(
+                f"telemetry.{c.TELEMETRY_TRACE_DIR} is required when "
+                f"'{c.TELEMETRY_CAPTURE}' or "
+                f"'{c.TELEMETRY_CAPTURE_ON_ANOMALY}' is set (captures "
+                "need somewhere to write)")
+
+        self.telemetry_enabled = bools[c.TELEMETRY_ENABLED]
+        self.telemetry_config = {
+            "enabled": bools[c.TELEMETRY_ENABLED],
+            "goodput": bools[c.TELEMETRY_GOODPUT],
+            "mfu": bools[c.TELEMETRY_MFU],
+            "spans": bools[c.TELEMETRY_SPANS],
+            "trace_dir": trace_dir,
+            "capture": capture,
+            "memory_watermark_interval_steps": watermark,
+            "capture_on_anomaly": bools[c.TELEMETRY_CAPTURE_ON_ANOMALY],
+            "anomaly_capture_steps": anomaly_steps,
+        }
+
+    def _parse_monitor_block(self, d):
+        """Parse + validate the ``monitor`` block (runtime/exporters.py:
+        the Prometheus endpoint, the JSONL event stream, and event-file
+        rotation). Same parse-time strictness as the telemetry block —
+        a mistyped port must fail at startup, not silently never serve
+        a scrape."""
+        mon = d.get(c.MONITOR) or {}
+        known = {c.MONITOR_EXPORT}
+        unknown = sorted(set(mon) - known)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown 'monitor' key(s) {unknown}; valid keys: "
+                f"{sorted(known)}")
+        exp = mon.get(c.MONITOR_EXPORT) or {}
+        if not isinstance(exp, dict):
+            raise DeepSpeedConfigError(
+                f"monitor.{c.MONITOR_EXPORT} must be an object, got "
+                f"{type(exp).__name__}")
+        exp_known = {c.MONITOR_PROMETHEUS_PORT, c.MONITOR_PROMETHEUS_HOST,
+                     c.MONITOR_JSONL, c.MONITOR_ROTATE_MAX_MB,
+                     c.MONITOR_ROTATE_KEEP}
+        exp_unknown = sorted(set(exp) - exp_known)
+        if exp_unknown:
+            raise DeepSpeedConfigError(
+                f"Unknown monitor.{c.MONITOR_EXPORT} key(s) "
+                f"{exp_unknown}; valid keys: {sorted(exp_known)}")
+        port = exp.get(c.MONITOR_PROMETHEUS_PORT,
+                       c.MONITOR_PROMETHEUS_PORT_DEFAULT)
+        if port is not None:
+            port = as_int(port,
+                          f"monitor.export.{c.MONITOR_PROMETHEUS_PORT}")
+            if not 0 <= port <= 65535:
+                raise DeepSpeedConfigError(
+                    f"monitor.export.{c.MONITOR_PROMETHEUS_PORT} must be "
+                    f"in [0, 65535] (0 = ephemeral), got {port}")
+        jsonl = exp.get(c.MONITOR_JSONL, c.MONITOR_JSONL_DEFAULT)
+        if not isinstance(jsonl, bool):
+            raise DeepSpeedConfigError(
+                f"monitor.export.{c.MONITOR_JSONL} must be a boolean, "
+                f"got {jsonl!r}")
+        try:
+            rotate_mb = float(exp.get(c.MONITOR_ROTATE_MAX_MB,
+                                      c.MONITOR_ROTATE_MAX_MB_DEFAULT))
+        except (TypeError, ValueError):
+            raise DeepSpeedConfigError(
+                f"monitor.export.{c.MONITOR_ROTATE_MAX_MB} must be a "
+                f"number (MB; 0 disables rotation), got "
+                f"{exp.get(c.MONITOR_ROTATE_MAX_MB)!r}")
+        if rotate_mb < 0:
+            raise DeepSpeedConfigError(
+                f"monitor.export.{c.MONITOR_ROTATE_MAX_MB} must be >= 0, "
+                f"got {rotate_mb}")
+        keep = as_int(exp.get(c.MONITOR_ROTATE_KEEP,
+                              c.MONITOR_ROTATE_KEEP_DEFAULT),
+                      f"monitor.export.{c.MONITOR_ROTATE_KEEP}")
+        if keep < 1:
+            raise DeepSpeedConfigError(
+                f"monitor.export.{c.MONITOR_ROTATE_KEEP} must be >= 1, "
+                f"got {keep}")
+        host = exp.get(c.MONITOR_PROMETHEUS_HOST,
+                       c.MONITOR_PROMETHEUS_HOST_DEFAULT)
+        if not isinstance(host, str) or not host:
+            raise DeepSpeedConfigError(
+                f"monitor.export.{c.MONITOR_PROMETHEUS_HOST} must be a "
+                f"non-empty bind address string (default 127.0.0.1; "
+                f"0.0.0.0 exposes the scrape off-box), got {host!r}")
+        self.monitor_export_config = {
+            "prometheus_port": port,
+            "prometheus_host": host,
+            "jsonl": jsonl,
+            "rotate_max_mb": rotate_mb,
+            "rotate_keep": keep,
+        }
+        # an armed export backend means the user wants the monitor even
+        # without a tensorboard block — the engine constructs it either
+        # way (the parser's contract: a configured exporter must serve,
+        # not silently depend on an unrelated block)
+        self.monitor_export_active = port is not None or jsonl
+
     def _parse_moe_block(self, d):
         """Parse + validate the "moe" block with the JAX package's keys,
-        defaults and messages. ``observability: true`` is refused: the
-        port has no monitor to drain the routing statistics into."""
+        defaults and messages. ``observability: true`` (sort dispatch
+        only) makes the sort engine emit its routing statistics, which the
+        engine drains into the ``Train/MoE/*`` scalars."""
         moe = d.get(c.MOE) or {}
         known = {c.MOE_ENABLED, c.MOE_NUM_EXPERTS, c.MOE_TOP_K,
                  c.MOE_CAPACITY_FACTOR, c.MOE_JITTER_EPS,
@@ -665,11 +892,6 @@ class DeepSpeedConfig:
                 f"\"sort\": the expert-load / capacity-drop statistics "
                 f"come from the sort engine's position-in-expert "
                 f"bookkeeping (got dispatch={dispatch!r})")
-        if observability:
-            raise DeepSpeedConfigError(
-                f"moe.{c.MOE_OBSERVABILITY} is not ported (observability "
-                f"slice): the port has no monitor to drain the Train/MoE "
-                f"routing statistics into")
 
         self.moe_params = {
             "num_experts": num_experts,

@@ -80,15 +80,67 @@ NOT_PORTED_BLOCKS = {
     "sequence_parallel": "ranks (sequence parallelism)",
     "pipeline": "scale-out (pipeline)",
     "multislice": "scale-out",
-    "telemetry": "observability",
-    "monitor": "observability",
-    "tensorboard": "observability",
-    "flops_profiler": "observability",
     "elasticity": "elasticity",
     "aio": "offload",
     "planner": "schedule planner",
     "rl": "online RL",
 }
+
+# ---------------------------------------------------------------------------
+# Observability: wall-clock timers, tensorboard, the monitor's export
+# backends (runtime/exporters.py) and the telemetry block
+# (runtime/telemetry.py); the JAX package's keys and defaults
+# ---------------------------------------------------------------------------
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+
+MONITOR = "monitor"
+MONITOR_EXPORT = "export"
+MONITOR_PROMETHEUS_PORT = "prometheus_port"     # None = off, 0 = ephemeral
+MONITOR_PROMETHEUS_PORT_DEFAULT = None
+MONITOR_PROMETHEUS_HOST = "prometheus_host"     # 0.0.0.0 = off-box scrape
+MONITOR_PROMETHEUS_HOST_DEFAULT = "127.0.0.1"
+MONITOR_JSONL = "jsonl"
+MONITOR_JSONL_DEFAULT = False
+MONITOR_ROTATE_MAX_MB = "rotate_max_mb"         # 0 disables rotation
+MONITOR_ROTATE_MAX_MB_DEFAULT = 64
+MONITOR_ROTATE_KEEP = "rotate_keep"
+MONITOR_ROTATE_KEEP_DEFAULT = 5
+
+TELEMETRY = "telemetry"
+TELEMETRY_ENABLED = "enabled"
+TELEMETRY_ENABLED_DEFAULT = False
+TELEMETRY_GOODPUT = "goodput"
+TELEMETRY_GOODPUT_DEFAULT = True
+TELEMETRY_MFU = "mfu"
+TELEMETRY_MFU_DEFAULT = True
+TELEMETRY_SPANS = "spans"
+TELEMETRY_SPANS_DEFAULT = True
+TELEMETRY_TRACE_DIR = "trace_dir"
+TELEMETRY_TRACE_DIR_DEFAULT = None
+TELEMETRY_CAPTURE = "capture"             # {"start_step": N, "num_steps": M}
+TELEMETRY_CAPTURE_START_STEP = "start_step"
+TELEMETRY_CAPTURE_NUM_STEPS = "num_steps"
+TELEMETRY_CAPTURE_NUM_STEPS_DEFAULT = 1
+TELEMETRY_MEMORY_WATERMARK_INTERVAL = "memory_watermark_interval_steps"
+TELEMETRY_MEMORY_WATERMARK_INTERVAL_DEFAULT = 0
+TELEMETRY_CAPTURE_ON_ANOMALY = "capture_on_anomaly"
+TELEMETRY_CAPTURE_ON_ANOMALY_DEFAULT = False
+TELEMETRY_ANOMALY_CAPTURE_STEPS = "anomaly_capture_steps"
+TELEMETRY_ANOMALY_CAPTURE_STEPS_DEFAULT = 1
+# the cross-host sub-block (the JAX package's runtime/fleet.py): refused
+TELEMETRY_FLEET = "fleet"
 
 # AMP (API-compat: parsed as the JAX package parses it, and read by nothing
 # else, as there)

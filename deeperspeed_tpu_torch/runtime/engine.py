@@ -87,6 +87,26 @@ it was (the JAX step selects the old state branchlessly; the port
 decides on the host, where it decides the skip). `eval_batch` runs full
 precision. The history rides the checkpoint's ``quantization_state``.
 
+Observability (the "tensorboard", "monitor", "telemetry",
+"flops_profiler" blocks and ``wall_clock_breakdown``; built as the JAX
+engine builds them: the flops profiler and the monitor, then the
+checkpoint manager, then the telemetry): `train_batch` opens and closes
+the telemetry's step window (`on_step_start` / `on_step_end`, with the
+step's verdict and, for packed batches, its effective tokens) around the
+spans ``data_fetch``, ``h2d`` and ``train_dispatch``; the sentinel's
+escalation runs in the span ``sentinel``, a rollback's load in
+``rollback_restore`` and an async save's snapshot in ``ckpt_snapshot``.
+The in-engine MFU divides the step variant's flops, counted once at its
+first step by the flops profiler on the plain path over fake tensors
+(`profiling.flops_profiler.count_train_flops`; no device memory, and
+outside the step window), by the step window.
+`_record_step_metrics` queues the JAX engine's scalar tags on the
+monitor keyed by ``global_samples``: host floats, and the grad norm and
+MoE routing statistics as 0-d device tensors that the monitor reads at
+its flush. The legacy loop gets the ``forward`` / ``backward`` /
+``step`` timers and a telemetry step window from the first forward of
+an accumulation window to `step`.
+
 Batches: bare tokens, a tuple of arrays (GPT-NeoX's and GPT-2's
 (tokens, labels)) or a dict (BERT's), each leaf moved to the device
 with its kind kept (integer ids as long, a float mask as it is) and
@@ -108,7 +128,7 @@ from ..models.convert import state_dict_from_jax
 from ..ops.adam.fused_adam import FusedAdam
 from ..ops.lamb.fused_lamb import FusedLamb
 from ..utils.logging import log_dist, logger
-from ..utils.timer import ThroughputTimer
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from . import constants as c
 from .config import DeepSpeedConfig
 from .config_utils import DeepSpeedConfigError
@@ -333,6 +353,7 @@ class DeepSpeedEngine:
         self._accum_count = 0
         self._accum_loss = None
         self._cached_loss = None
+        self._legacy_window_open = False
         # the fork's debugging features (backward() feeds them)
         self.gradient_noise_scale = None
         self._gns_warned = False
@@ -340,8 +361,10 @@ class DeepSpeedEngine:
         self.stored_gradients = None
         self._layers_to_hook = []
         self.hooked_activations = {}
+        self._configure_observability_pre()
         self.checkpoint_manager = AsyncCheckpointManager(
             self, **self._config.checkpoint_config)
+        self._configure_telemetry()
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_micro_batch_size_per_gpu(),
             steps_per_output=self._config.steps_per_print)
@@ -385,6 +408,9 @@ class DeepSpeedEngine:
 
     def steps_per_print(self):
         return self._config.steps_per_print
+
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
 
     def dynamic_loss_scale(self):
         return isinstance(self.loss_scaler, DynamicLossScaler)
@@ -500,6 +526,61 @@ class DeepSpeedEngine:
                                         self.param_slices])
         else:
             self.opt_state = self.optimizer.init_state(self._master)
+
+    def _configure_observability_pre(self):
+        """The flops profiler and the monitor, before the checkpoint
+        manager (the JAX engine's order; the telemetry follows the
+        manager, `_configure_telemetry`).
+
+        The flops profiler (reference `engine.py:966-1019`) counts and
+        times the train step once, at ``flops_profiler.profile_step``.
+        The monitor (reference `engine.py:163-164,1222-1275`) is the
+        tensorboard event stream of loss / lr / scale / grad-norm /
+        step-time keyed by global sample count; an armed
+        ``monitor.export`` backend builds it without a tensorboard block,
+        as in JAX. ``wall_clock_breakdown`` arms the synchronized timer
+        group (a device sync at each phase edge, by design)."""
+        self.timers = SynchronizedWallClockTimer()
+        self.flops_profiler = None
+        self._flops_profiled = False
+        if self._config.flops_profiler_config.enabled:
+            from ..profiling.flops_profiler.profiler import FlopsProfiler
+            self.flops_profiler = FlopsProfiler(engine=self)
+        self.monitor = None
+        self._last_step_stamp = None
+        self._last_used_lr = None
+        self._step_metrics = {}
+        if self._config.tensorboard_enabled or \
+                self._config.monitor_export_active:
+            from .monitor import TensorBoardMonitor
+            self.monitor = TensorBoardMonitor(
+                output_path=self._config.tensorboard_output_path,
+                job_name=self._config.tensorboard_job_name,
+                export=self._config.monitor_export_config)
+        # MoE routing observability (moe.observability): the sort engine
+        # queues its statistics as device tensors, drained into
+        # Train/MoE/* scalars at each step record
+        moe_cfg = self._config.moe_params
+        self._moe_observe = bool(moe_cfg and moe_cfg.get("observability"))
+
+    def _configure_telemetry(self):
+        """The "telemetry" block (runtime/telemetry.py): spans mirrored
+        into `torch.profiler.record_function`, goodput buckets, in-engine
+        MFU from the flops profiler's count, trigger-driven capture.
+        `NULL_TELEMETRY` (every hook a no-op) when the block is absent."""
+        from .telemetry import build_telemetry
+        self.telemetry = build_telemetry(
+            self._config.telemetry_config, monitor=self.monitor,
+            devices=[self.device])
+        self._step_flops = {}   # step-variant key (gas) -> flops a step
+
+    @property
+    def _monitor_wants_grad_norm(self):
+        """The global gradient norm costs a read pass over the flat
+        gradient: compute it only when something reports it."""
+        return (self._config.tensorboard_enabled
+                or self.gradient_noise_scale is not None
+                or self.sentinel is not None)
 
     def _configure_quantization(self, qz):
         """Arm the delayed-scaling FFN (``quantization.ffn``; the model's
@@ -667,19 +748,24 @@ class DeepSpeedEngine:
         micro-batch (`set_layers_to_hook`). Returns the mean loss."""
         if layers_to_hook is not None:
             self.set_layers_to_hook(layers_to_hook)
+        tel = self.telemetry
+        tel.on_step_start(self.global_steps)
         gas = self.gradient_accumulation_steps()
         if batch is None:
             if data_iter is None:
                 raise ValueError("train_batch needs data_iter or batch")
-            micro = [next(data_iter) for _ in range(gas)]
-            if isinstance(micro[0], dict):
-                batch = {k: np.stack([np.asarray(m[k]) for m in micro])
-                         for k in micro[0]}
-            elif isinstance(micro[0], (tuple, list)):
-                batch = tuple(np.stack([np.asarray(m[i]) for m in micro])
-                              for i in range(len(micro[0])))
-            else:
-                batch = np.stack([np.asarray(m) for m in micro])
+            # the host input pipeline: the goodput data_wait bucket is fed
+            # by this span
+            with tel.span("data_fetch"):
+                micro = [next(data_iter) for _ in range(gas)]
+                if isinstance(micro[0], dict):
+                    batch = {k: np.stack([np.asarray(m[k]) for m in micro])
+                             for k in micro[0]}
+                elif isinstance(micro[0], (tuple, list)):
+                    batch = tuple(np.stack([np.asarray(m[i]) for m in micro])
+                                  for i in range(len(micro[0])))
+                else:
+                    batch = np.stack([np.asarray(m) for m in micro])
         self._warn_gns_not_fed("train_batch")
         if self._accum_count:
             raise RuntimeError(
@@ -715,7 +801,25 @@ class DeepSpeedEngine:
             raise
 
     def _train_batch_execute(self, batch, gas, fault):
-        batch = self._device_batch(batch)
+        tel = self.telemetry
+        token_stats = None
+        if tel.enabled:
+            # packed batches: effective (non-pad, non-cross-document) vs
+            # possible targets, counted on the host (one read of the
+            # segment ids where they are device tensors; None unpacked)
+            from .packing import packed_batch_token_stats
+            token_stats = packed_batch_token_stats(self._map(
+                batch, lambda v: v.cpu() if isinstance(v, torch.Tensor)
+                else v) if isinstance(batch, tuple) and len(batch) == 3
+                else batch)
+        with tel.outside_window():
+            self._maybe_profile_flops(batch)
+        if self.wall_clock_breakdown():
+            self.timers("comms").start()
+        with tel.span("h2d"):
+            batch = self._device_batch(batch)
+        if self.wall_clock_breakdown():
+            self.timers("comms").stop()
         tokens = self._input_ids(batch)
         # token ids [gas, micro, S], or a client module's floating
         # features [gas, micro, S, width] (as the JAX engine, any
@@ -724,27 +828,44 @@ class DeepSpeedEngine:
         if not (tokens.dim() == 3 or features) or tokens.shape[0] != gas:
             raise ValueError(f"train_batch expects [gas={gas}, micro, S] "
                              f"batches, got {tuple(tokens.shape)}")
+        if tel.wants_flops and gas not in self._step_flops:
+            # the step variant's flops, counted once over fake tensors
+            # and outside the step window (the JAX engine harvests them
+            # once from its compiled step)
+            from ..profiling.flops_profiler.profiler import \
+                count_train_flops
+            with tel.outside_window():
+                micro_flops = count_train_flops(
+                    self, self._map(batch, lambda v: v[0]),
+                    rng_seed=micro_step_seed(self.micro_steps))
+            self._step_flops[gas] = micro_flops * gas
+            tel.register_compiled(gas, self._step_flops[gas])
         self.tput_timer.start()
         if self._layers_to_hook:
             self._capture_activations(self._map(batch, lambda v: v[0]))
         # the amax history in micro-step order: each micro-step reads what
         # the one before it wrote; the step's update keeps the last
         amax = self.quant.amax if self._quant_step_active else None
-        for i in range(gas):
-            self._rng.manual_seed(micro_step_seed(self.micro_steps))
-            kw = self._pld_kwargs()
-            if amax is not None:
-                kw["ffn_amax"] = amax
-            loss = self.module.loss_fn(self.module.params_tree(),
-                                       self._map(batch, lambda v: v[i]),
-                                       rng=self._rng, **kw)
-            if amax is not None:
-                loss, amax = loss
-            self._micro_backward(loss)
-        quant = None if amax is None else self.quant._replace(amax=amax)
-        mean_loss = self._step_update(fault=fault, probe_loss=True,
-                                      quant=quant)
+        with tel.span("train_dispatch"), \
+                tel.step_annotation(self.global_steps):
+            for i in range(gas):
+                self._rng.manual_seed(micro_step_seed(self.micro_steps))
+                kw = self._pld_kwargs()
+                if amax is not None:
+                    kw["ffn_amax"] = amax
+                loss = self.module.loss_fn(self.module.params_tree(),
+                                           self._map(batch, lambda v: v[i]),
+                                           rng=self._rng, **kw)
+                if amax is not None:
+                    loss, amax = loss
+                self._micro_backward(loss)
+            quant = None if amax is None else self.quant._replace(amax=amax)
+            mean_loss, overflow = self._update_accumulated(
+                fault=fault, probe_loss=True, quant=quant)
+        verdict = self._after_step(overflow)
         self.tput_timer.stop(tokens=tokens.shape[:3].numel())
+        tel.on_step_end(self, verdict=verdict,
+                        flops=self._step_flops.get(gas), tokens=token_stats)
         return mean_loss
 
     def _pld_kwargs(self):
@@ -792,15 +913,24 @@ class DeepSpeedEngine:
         self.micro_steps += 1
 
     def _step_update(self, fault=None, probe_loss=False, quant=None):
-        """The step over the accumulated micro-batches: the mean
+        """The step over the accumulated micro-batches
+        (`_update_accumulated`), then the step boundary (`_after_step`).
+        Returns (the mean loss, the step's verdict)."""
+        mean_loss, overflow = self._update_accumulated(
+            fault=fault, probe_loss=probe_loss, quant=quant)
+        return mean_loss, self._after_step(overflow)
+
+    def _update_accumulated(self, fault=None, probe_loss=False, quant=None):
+        """The update over the accumulated micro-batches: the mean
         gradient (corrupted by ``fault``, an injected ``(mode, factor)``,
-        where given) through `_apply_update`, then the step boundary
-        (`_after_step`). The probe sees the mean loss where
-        ``probe_loss`` (`train_batch`); the legacy loop's update has no
-        loss, as in JAX. ``quant`` is the step's new `QuantState`, kept
-        if the step is taken. Returns the mean loss."""
+        where given) through `_apply_update`. The probe sees the mean
+        loss where ``probe_loss`` (`train_batch`); the legacy loop's
+        update has no loss, as in JAX. ``quant`` is the step's new
+        `QuantState`, kept if the step is taken. Returns (the mean loss,
+        the overflow flag)."""
         n = self._accum_count
         lr = self._current_lr()
+        self._last_used_lr = lr   # what THIS step runs with (monitor)
         grads = self._grad_acc
         if n > 1:
             grads.div_(n)
@@ -812,9 +942,9 @@ class DeepSpeedEngine:
                                       quant=quant)
         self._grad_acc.zero_()
         mean_loss = float(loss)
+        self._step_metrics["loss"] = mean_loss
         self._accum_count, self._accum_loss = 0, None
-        self._after_step(overflow)
-        return mean_loss
+        return mean_loss, overflow
 
     def _apply_update(self, grads, lr, loss=None, quant=None):
         """Unscale, check, clip, update the masters and recast; on an
@@ -844,9 +974,15 @@ class DeepSpeedEngine:
         overflow = cfg.loss_scaling_enabled and \
             not bool(grads_finite(grads))
         skip = overflow
-        grad_norm = None
+        # the global norm (after unscale and the predivide, before
+        # clipping; the clip reuses it) where the probe or the monitor
+        # reads it: a 0-d device tensor, read at the monitor's flush
+        grad_norm = global_norm(grads) if self._monitor_wants_grad_norm \
+            else None
+        self._step_metrics["grad_norm"] = grad_norm
+        # the scale this step ran with (the JAX step's metrics.loss_scale)
+        self._step_metrics["loss_scale"] = self.scale_state.cur_scale
         if self.sentinel is not None:
-            grad_norm = global_norm(grads)
             self.health, hard = probe_update(
                 self.health, loss, grad_norm,
                 grad_anomaly(self, self.scale_state, grad_norm, overflow),
@@ -857,7 +993,8 @@ class DeepSpeedEngine:
             if quant is not None:
                 self.quant = quant
             if cfg.gradient_clipping > 0:
-                clip_grad_norm_(grads, cfg.gradient_clipping, norm=grad_norm)
+                self._step_metrics["grad_norm"] = clip_grad_norm_(
+                    grads, cfg.gradient_clipping, norm=grad_norm)
             compute_out = None if self._params_flat is self._master \
                 else self._params_flat
             if is_client_optimizer(self.optimizer):
@@ -910,10 +1047,17 @@ class DeepSpeedEngine:
         verdict = "ok"
         if self.sentinel is not None:
             try:
-                verdict = self.sentinel.after_step(self)
+                # sentinel escalation is a bounded phase too: its flag
+                # read syncs the device, and warn/rollback work is host
+                # time a trace should attribute
+                with self.telemetry.span("sentinel"):
+                    verdict = self.sentinel.after_step(self)
             finally:
                 self.sentinel.watchdog_feed()
             if verdict == "rollback":
+                # the state and the counters are the checkpoint's; the
+                # poisoned step gives the schedules and the monitor
+                # nothing
                 return verdict
         if overflow:
             if verdict == "ok":
@@ -921,8 +1065,12 @@ class DeepSpeedEngine:
             self.skipped_steps += 1
             log_dist(f"OVERFLOW! Skipping step; loss scale now "
                      f"{self.scale_state.cur_scale}", ranks=[0])
-            if self._scale_floor is not None:
-                self._scale_floor.on_skip(self.scale_state.cur_scale)
+            if self._scale_floor is not None and \
+                    self._scale_floor.on_skip(self.scale_state.cur_scale) \
+                    and self.monitor is not None:
+                self.monitor.record(self.global_samples, {
+                    "Train/Samples/loss_scale_floor_skips":
+                        self._scale_floor.consecutive})
             self._advance_host_schedules(taken=0)
         else:
             if self._scale_floor is not None:
@@ -931,7 +1079,78 @@ class DeepSpeedEngine:
             # not advance either
             self._advance_host_schedules(
                 taken=0 if verdict == "quarantined" else 1)
+        if self.monitor is not None:
+            self._record_step_metrics()
         return verdict
+
+    def _record_step_metrics(self, sample_count=None):
+        """Queue one step's scalars on the monitor (the JAX engine's
+        tags). The loss, lr and loss scale are host floats; the grad norm
+        and the MoE routing statistics stay 0-d device tensors until the
+        monitor's flush reads them in one copy."""
+        # lr: the value the step ran with (_last_used_lr), not get_lr():
+        # the scheduler has already advanced past this step
+        lr = self._last_used_lr
+        metrics = self._step_metrics
+        scalars = {"Train/Samples/train_loss": metrics.get("loss"),
+                   "Train/Samples/lr": lr if lr is not None
+                   else self.get_lr()[0]}
+        if scalars["Train/Samples/train_loss"] is None:
+            del scalars["Train/Samples/train_loss"]
+        if self._config.loss_scaling_enabled:
+            scalars["Train/Samples/loss_scale"] = metrics.get(
+                "loss_scale", self.scale_state.cur_scale)
+        if (self._monitor_wants_grad_norm or
+                self._config.gradient_clipping > 0) and \
+                metrics.get("grad_norm") is not None:
+            scalars["Train/Samples/grad_norm"] = metrics["grad_norm"]
+        now = time.monotonic()
+        if self._last_step_stamp is not None:
+            scalars["Train/Samples/step_time_ms"] = \
+                (now - self._last_step_stamp) * 1e3
+        self._last_step_stamp = now
+        if self._moe_observe:
+            # the sort engine's expert-load / capacity-drop statistics of
+            # this step's forwards (device tensors, averaged here)
+            from ..moe.layer import ROUTING_STATS
+            moe_stats = ROUTING_STATS.drain()
+            if moe_stats:
+                scalars.update(moe_stats)
+        # wall_clock_breakdown timers land in the event stream too (the
+        # reference only printed them): Train/Timers/<name>_ms keyed by
+        # the same sample count; elapsed(reset) makes them per step
+        if self.wall_clock_breakdown():
+            for name, timer in self.timers.timers.items():
+                if timer.started_:
+                    continue   # mid-phase (the legacy loop): next step
+                ms = timer.elapsed(reset=True) * 1e3
+                if ms > 0:
+                    scalars[f"Train/Timers/{name}_ms"] = ms
+        self.monitor.record(
+            self.global_samples if sample_count is None else sample_count,
+            scalars)
+
+    def _maybe_profile_flops(self, batch, accum_steps=None, stacked=True):
+        """Run the flops profiler at `profile_step` (reference
+        `engine.py:966-1019`), exactly once: `>=` plus the flag keeps it
+        from firing every batch when the step at profile_step is skipped
+        by an fp16 overflow (global_steps does not advance on skipped
+        steps)."""
+        if self.flops_profiler is None or self._flops_profiled:
+            return
+        fp_cfg = self._config.flops_profiler_config
+        if self.global_steps < fp_cfg.profile_step:
+            return
+        self._flops_profiled = True
+        if not stacked:
+            batch = self._map(batch, lambda v: v[None])
+        self.flops_profiler.profile_train_step(batch,
+                                               accum_steps=accum_steps)
+        self.flops_profiler.print_model_profile(
+            profile_step=fp_cfg.profile_step,
+            module_depth=fp_cfg.module_depth,
+            top_modules=fp_cfg.top_modules,
+            detailed=fp_cfg.detailed)
 
     def _advance_host_schedules(self, taken):
         """Advance the host-side per-step machinery after ``taken``
@@ -972,13 +1191,27 @@ class DeepSpeedEngine:
         ``micro_steps``), as `train_batch` seeds each micro-step. Armed
         layers (`set_layers_to_hook`) are captured first. With the
         quantized FFN armed it raises, as in JAX: the loop does not
-        thread the amax history."""
+        thread the amax history.
+
+        The first forward of an accumulation window opens the telemetry's
+        step window, which `step` closes at the boundary (the JAX
+        engine's legacy loop has no telemetry; the port gives it the
+        goodput buckets and the MFU of `train_batch`'s count, where one
+        was made). The flops profiler fires here at its profile step on
+        this micro-batch."""
         if self._quant_step_active:
             raise RuntimeError(
                 "the manual forward()/backward()/step() API does not "
                 "thread the quantization state (amax history / "
                 "error-feedback buffers would silently go stale); use "
                 "train_batch()/train_steps()")
+        if self.wall_clock_breakdown():
+            self.timers("forward").start()
+        if self._accum_count == 0 and not self._legacy_window_open:
+            self._legacy_window_open = True
+            self.telemetry.on_step_start(self.global_steps)
+        with self.telemetry.outside_window():
+            self._maybe_profile_flops(batch, accum_steps=1, stacked=False)
         batch = self._device_batch(batch)
         if self._layers_to_hook:
             self._capture_activations(batch)
@@ -987,6 +1220,8 @@ class DeepSpeedEngine:
         loss = self.module.loss_fn(self.module.params_tree(), batch,
                                    rng=rng, **self._pld_kwargs())
         self._cached_loss = loss
+        if self.wall_clock_breakdown():
+            self.timers("forward").stop()
         return loss
 
     __call__ = forward
@@ -1004,8 +1239,12 @@ class DeepSpeedEngine:
         if loss is None:
             raise RuntimeError("backward() called before forward()")
         self._cached_loss = None
+        if self.wall_clock_breakdown():
+            self.timers("backward").start()
         want = self.gradient_noise_scale is not None or self.store_gradients
         self._micro_backward(loss, self._per_micro_grads if want else None)
+        if self.wall_clock_breakdown():
+            self.timers("backward").stop()
         return loss
 
     def _per_micro_grads(self, flat):
@@ -1036,7 +1275,17 @@ class DeepSpeedEngine:
         mean micro-batch loss. Before it, returns None."""
         if not self.is_gradient_accumulation_boundary():
             return None
-        return self._step_update()
+        if self.wall_clock_breakdown():
+            self.timers("step").start()
+        mean_loss, verdict = self._step_update()
+        if self.wall_clock_breakdown():
+            self.timers("step").stop()
+        if self._legacy_window_open:
+            self._legacy_window_open = False
+            self.telemetry.on_step_end(
+                self, verdict=verdict,
+                flops=self._step_flops.get(self.gradient_accumulation_steps()))
+        return mean_loss
 
     # ------------------------------------------------------------------
     # the fork's debugging features

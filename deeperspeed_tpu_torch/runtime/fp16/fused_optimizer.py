@@ -55,7 +55,10 @@ class StepInfo(NamedTuple):
 
 def tree_leaves(tree):
     """The leaves of a pytree of tensors in the JAX package's order:
-    dict keys sorted, lists and tuples in order."""
+    dict keys sorted, lists and tuples in order; ``None`` is an empty
+    subtree with no leaf, as in `jax.tree_util`."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
@@ -65,10 +68,12 @@ def tree_leaves(tree):
 
 def tree_unflatten(like, leaves):
     """A pytree shaped like ``like`` holding ``leaves`` (in
-    `tree_leaves` order)."""
+    `tree_leaves` order); a ``None`` of ``like`` stays ``None``."""
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             out = {k: None for k in node}
             for k in sorted(node):

@@ -446,8 +446,9 @@ class TrainingHealthSentinel:
                      f"{self.consecutive} consecutive", ranks=[0])
 
     def _telemetry_anomaly(self, engine, kind):
-        """Hand the anomaly to a telemetry layer, where the engine has
-        one (the port has none yet)."""
+        """Hand the anomaly to the engine's telemetry: with
+        ``capture_on_anomaly`` it snapshots device memory now and arms a
+        trace of the next step(s), once an episode."""
         telemetry = getattr(engine, "telemetry", None)
         if telemetry is not None:
             telemetry.on_anomaly(engine, kind)
@@ -474,9 +475,12 @@ class TrainingHealthSentinel:
         batch would re-trigger the same anomaly on real data corruption.
         The probe's EMAs are not in a checkpoint and carry over."""
         manager = engine.checkpoint_manager
-        manager.wait()   # newest commit must be durable before load
-        path, _ = engine.load_checkpoint(manager.save_dir,
-                                         load_dataloader_states=False)
+        from .telemetry import NULL_TELEMETRY
+        telemetry = getattr(engine, "telemetry", NULL_TELEMETRY)
+        with telemetry.span("rollback_restore"):
+            manager.wait()   # newest commit must be durable before load
+            path, _ = engine.load_checkpoint(manager.save_dir,
+                                             load_dataloader_states=False)
         if path is None:
             raise TrainingHealthError(
                 f"training health: rollback requested after {record} but "

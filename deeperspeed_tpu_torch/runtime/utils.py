@@ -8,9 +8,29 @@ read), and the noise-scale estimator keeps its running sum on the
 gradient's device.
 """
 
+import atexit
+import weakref
+
 import torch
 
 from ..utils.logging import logger
+
+
+def register_weak_atexit(obj, method_name):
+    """Register `obj.<method_name>()` to run at interpreter exit, held
+    through a weakref: the atexit registry must not pin `obj` (engines,
+    monitors, telemetry, checkpoint managers are made per run) for the
+    process lifetime. Returns the registered hook for
+    `atexit.unregister`."""
+    obj_ref = weakref.ref(obj)
+
+    def hook():  # pragma: no cover - interpreter teardown
+        target = obj_ref()
+        if target is not None:
+            getattr(target, method_name)()
+
+    atexit.register(hook)
+    return hook
 
 
 def global_norm(flat):

@@ -114,15 +114,21 @@ class TiledLinear(nn.Module):
         return w[:self.in_features, :self.out_features]
 
     def forward(self, x):
+        """``y = x @ W + b`` over input-tile slabs. The products run in
+        the promoted dtype of x and the weight (a bf16 input on fp32
+        parameters computes in fp32, as the JAX layer's einsum promotes)
+        and sum in fp32; the sum is cast to x's dtype before the bias
+        add, which promotes again."""
         lead = x.shape[:-1]
+        ct = torch.result_type(x, self.weight)
         xp = nn.functional.pad(x.reshape(-1, self.in_features),
-                               (0, self.pad_in))
+                               (0, self.pad_in)).to(ct)
         n = xp.shape[0]
         acc = None
         for i in range(self.in_splits):
             xi = xp[:, i * self.in_tile:(i + 1) * self.in_tile]
             # [out_splits, n, out_tile]: one slab of the weight a step
-            part = torch.matmul(xi, self.weight[i]).float()
+            part = torch.matmul(xi, self.weight[i].to(ct)).float()
             acc = part if acc is None else acc + part
         # cast before the permute's copy: half the bytes in 16 bits
         y = acc.to(x.dtype).permute(1, 0, 2).reshape(
@@ -134,22 +140,28 @@ class TiledLinear(nn.Module):
 
 class _MemoryEfficientLinear(torch.autograd.Function):
     """y = x @ W (+ b): saves x and W as they rest (no gathered copy),
-    and forms dx = dy Wᵀ, dW = xᵀ dy, db = Σ dy in the backward."""
+    and forms dx = dy Wᵀ, dW = xᵀ dy, db = Σ dy in the backward. Mixed
+    dtypes compute in their promoted dtype (`torch.result_type`, as the
+    JAX function's ``x @ W`` promotes); each gradient returns in its
+    input's dtype."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
         ctx.save_for_backward(x, weight)
         ctx.has_bias = bias is not None
-        y = torch.matmul(x, weight)
+        ct = torch.result_type(x, weight)
+        y = torch.matmul(x.to(ct), weight.to(ct))
         return y + bias if bias is not None else y
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dx = torch.matmul(dy, weight.t()) if ctx.needs_input_grad[0] \
-            else None
-        dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
-                          dy.reshape(-1, dy.shape[-1])) \
+        ct = torch.result_type(x, weight)
+        dx = torch.matmul(dy.to(ct), weight.to(ct).t()).to(x.dtype) \
+            if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(x.reshape(-1, x.shape[-1]).to(ct).t(),
+                          dy.reshape(-1, dy.shape[-1]).to(ct)).to(
+                              weight.dtype) \
             if ctx.needs_input_grad[1] else None
         db = dy.reshape(-1, dy.shape[-1]).sum(0) \
             if ctx.has_bias and ctx.needs_input_grad[2] else None

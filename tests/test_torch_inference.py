@@ -203,11 +203,24 @@ UNPORTED = [
 
 @pytest.mark.parametrize("block,top", UNPORTED)
 def test_unported_features_raise(models, block, top):
-    _, _, model = models
+    """Scale-out features raise "not ported". The telemetry case is
+    ported since: the engine builds with the block, as the JAX engine
+    does, and holds a live telemetry of the same parsed config."""
+    jmodel, jparams, model = models
     cfg = _config(**block)
     cfg.update(top)
-    with pytest.raises(DeepSpeedConfigError, match="not ported"):
-        InferenceEngine(model, config=cfg, device="cpu")
+    if "telemetry" not in top:
+        with pytest.raises(DeepSpeedConfigError, match="not ported"):
+            InferenceEngine(model, config=cfg, device="cpu")
+        return
+    eng = InferenceEngine(model, config=cfg, device="cpu")
+    ref = JaxEngine(jmodel, config=cfg, params=jparams)
+    assert eng.telemetry.enabled and ref.telemetry.enabled
+    for attr in ("goodput_enabled", "mfu_enabled", "spans_enabled",
+                 "trace_dir", "capture_start_step", "capture_num_steps"):
+        assert getattr(eng.telemetry, attr) == getattr(ref.telemetry, attr)
+    eng.drain()
+    ref.drain()
 
 
 @pytest.mark.parametrize("block", [

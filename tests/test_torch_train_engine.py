@@ -308,7 +308,11 @@ def test_config_values_match_jax(conf):
         np.dtype(ref.precision).name
 
 
-UNPORTED = [{k: {"enabled": True}} for k in sorted(c.NOT_PORTED_BLOCKS)] + [
+# the observability blocks, ported since: their cases stay in the list and
+# now hold the port's parse to the JAX package's
+RETIRED = ("flops_profiler", "monitor", "telemetry", "tensorboard")
+UNPORTED = [{k: {"enabled": True}} for k in sorted(
+    set(c.NOT_PORTED_BLOCKS) | set(RETIRED))] + [
     {"zero_optimization": {"stage": 3}},
     {"zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
@@ -320,9 +324,33 @@ UNPORTED = [{k: {"enabled": True}} for k in sorted(c.NOT_PORTED_BLOCKS)] + [
                          ids=lambda b: "-".join(sorted(b)) + str(
                              sorted(next(iter(b.values())))))
 def test_unported_blocks_raise(block):
+    """A block the port does not carry raises "not ported"; a retired
+    one parses as the JAX package parses it: the same attributes, or the
+    same error (``monitor`` has no "enabled" key in either)."""
     conf = {"train_batch_size": 4, **block}
-    with pytest.raises(DeepSpeedConfigError, match="not ported"):
-        DeepSpeedConfig(conf)
+    key = next(iter(block))
+    if key not in RETIRED:
+        with pytest.raises(DeepSpeedConfigError, match="not ported"):
+            DeepSpeedConfig(conf)
+        return
+    try:
+        ref = JaxConfig(conf, world_size=1)
+    except JaxConfigError as e:
+        with pytest.raises(DeepSpeedConfigError) as err:
+            DeepSpeedConfig(conf)
+        assert str(err.value) == str(e)
+        return
+    ours = DeepSpeedConfig(conf)
+    for attr in ("telemetry_config", "tensorboard_enabled",
+                 "monitor_export_config", "flops_profiler_config"):
+        theirs = getattr(ref, attr)
+        if attr == "telemetry_config":
+            theirs = {k: v for k, v in theirs.items() if k != "fleet"}
+        elif attr == "flops_profiler_config":
+            theirs = vars(theirs)
+            assert vars(getattr(ours, attr)) == theirs, attr
+            continue
+        assert getattr(ours, attr) == theirs, attr
 
 
 def test_disabled_blocks_and_lamb(weights):
@@ -343,11 +371,15 @@ def test_disabled_blocks_and_lamb(weights):
 def test_unported_model_fields_raise():
     """A config field whose path is not ported raises at model build
     instead of training without it (the JAX model would use it); the
-    quantized FFN's fields are ported and build."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, moe_num_experts=4,
-                                        moe_observability=True),
-                     device="cpu")
+    quantized FFN's fields are ported and build. ``moe_observability``
+    is ported since: the model builds, and on the einsum engine its
+    forward raises the JAX model's ValueError (the statistics come from
+    the sort engine)."""
+    model = neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, moe_num_experts=4,
+                                            moe_observability=True),
+                         device="cpu").init_params(0)
+    with pytest.raises(ValueError, match="dispatch='sort'"):
+        model(torch.zeros((1, 8), dtype=torch.long))
     model = neox.GPTNeoX(neox.GPTNeoXConfig(**SIZE, ffn_quant_recipe="fp8"),
                          device="cpu")
     assert tuple(model.init_ffn_amax().shape) == (SIZE["num_layers"], 4, 16)
