@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fp16-only [--profile]
     python3 chip_smoke.py --quant-train-only
     python3 chip_smoke.py --observability-only
+    python3 chip_smoke.py --rl-only [--profile]
 
 Phases (any failure exits non-zero before the final line):
 
@@ -82,8 +83,9 @@ Phases (any failure exits non-zero before the final line):
    window of decode steps at B=16, over one B=4, S=512 prefill call of
    the same bf16 model, over a decode window of each serve-quant rung of
    phase 9, over one training step of phase 7, one of phase 11, one of
-   phase 13, one of phase 15, one of phase 18 and one of each "full"
-   rung of phase 20 (lean and classic): host ms per step, device kernel
+   phase 13, one of phase 15, one of phase 18, one of each "full"
+   rung of phase 20 (lean and classic) and one rl-ppo-125M iteration of
+   phase 40: host ms per step, device kernel
    ms per step, the device's busy share, launches per step and the top
    kernels;
 7. training: GPT-NeoX-125M at full width and depth, bf16 with fp32
@@ -399,7 +401,45 @@ Phases (any failure exits non-zero before the final line):
    phase 13's engine (2 x 16,384 tokens, block-sparse) with the
    telemetry block, beside it without, one step each: the counted flops
    equal to the shapes' count, exact launches, and the peak of allocated
-   memory no more than 256 MiB above the telemetry-off engine's.
+   memory no more than 256 MiB above the telemetry-off engine's;
+40. online RL (``--rl-only`` runs it alone, after phase 3's checks of the
+   flash, Adam, paged-decode and int8 matmul kernels): first the bf16
+   kernels of the rungs against their plain versions at the RL path's
+   own shapes (heads 12 and 25, D 64: the flash forward and backward at
+   [16, 128], the prefill at 64 tokens for 1 and 16 prompts, the paged
+   decode at pages of 16, 8 a row, over bf16 and int8 pools), each on
+   the tensor-core or cluster design; (f) a plain LM
+   step over [16, 128] tokens on phase 7's config timed before the RL
+   pair exists; (a) rl-ppo-125M: phase 7's model behind `RLDriver`
+   (PPO-clip, 16 rollouts in groups of 4 from a seeded pool of 16
+   prompts of 64 ids, 64 new tokens, sequence length 128; serving pages
+   of 16, decode buckets up to 16, temperature 1.0, seed 7), 1 warm-up
+   and 4 timed iterations: per iteration the loss, mean reward, mean KL,
+   rollout tokens/s, the update's ms, swap_ms and compile_delta (0 on
+   every timed iteration), exact launches (flash forward, backward,
+   paged decode, Adam; every flash launch on the tensor-core design,
+   every decode on the cluster kernel), finite losses, the frozen
+   reference bit-equal to iteration 0's weights after the last update,
+   the serving weights equal to the pre-update weights until each swap
+   and to the trainer's after it; then (f) the same LM step with the
+   pair resident: the co-residency tax beside the JAX bar of 10% (a
+   finding); (b) the same with int8 weights and int8 KV pages on the
+   serving side, 2 timed iterations (the int8 matmul on wgmma, the int8
+   decode on the cluster kernel), swap_ms beside (a)'s; (c) DPO (group 4,
+   8 update rows), 2 timed iterations, the first loss ln 2 within 1e-2;
+   (d) kill and replay: `tests/torch_rl_worker.py` runs (a)'s loop at 2
+   layers with 8 rollouts of 32 new tokens and a checkpoint every
+   iteration in two
+   children side by side, one uninterrupted and one killed (`os._exit`
+   in the reward function) in iteration 2, then a third resumes the
+   killed one: the losses and sampled tokens of iterations 1-3 equal bit
+   for bit; (e) rl-ppo-gpt2xl: GPT-2 XL on the lean bf16 state with its
+   server and its frozen reference co-resident, (a)'s block, 1 warm-up
+   and 2 timed iterations, the pair's peak allocated memory, swap_ms and
+   compile_delta 0; (g) parity: (a)'s model at 4 layers in fp32, greedy,
+   group size 1, 2 iterations through the kernels and through the plain
+   path: the same rollouts, losses within 1e-4, the mean KL within 1e-2
+   and of the same sign.
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
@@ -8746,15 +8786,16 @@ def _row_nums(r, err):
 
 def train_kernel_rows(ft, fb, adm, gmm, entries):
     """The kernels line's training rows of a partial run (flash forward
-    and backward, Adam, the grouped matmul and its dW): phase 3's
-    training-shape numbers and the launches ``entries`` gives by path."""
+    and backward, Adam, the grouped matmul and its dW; without the last
+    two when ``gmm`` is None): phase 3's training-shape numbers and the
+    launches ``entries`` gives by path."""
     pallas = "deeperspeed_tpu/ops/pallas/"
     train_shape = "B=16 S=1024 H=12 D=64 bf16, causal"
     nums = _row_nums
 
     def total(name):
         return sum(entries[name].values())
-    return [
+    rows = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/flash_fwd.cu",
          "replaces": f"{pallas}flash_attention.py:497 (_fwd_kernel)",
@@ -8776,7 +8817,10 @@ def train_kernel_rows(ft, fb, adm, gmm, entries):
          "launches": total("adam"), "launches_by_path": entries["adam"],
          **nums(adm, adm["max_abs_err_p"]),
          "shape": "GPT-NeoX-125M's parameters, fp32 p/m/v, bf16 g, bf16 "
-                  "copy"},
+                  "copy"}]
+    if gmm is None:
+        return rows
+    return rows + [
         {"name": "grouped_matmul", "route": "cuda",
          "source": "deeperspeed_tpu_torch/csrc/grouped_matmul.cu",
          "replaces": f"{pallas}grouped_matmul.py:121 (_fwd_kernel; also dx)",
@@ -9655,7 +9699,8 @@ def obs_kernel_entries(ob):
 
 
 def merge_obs_entries(kernels, entries):
-    """Add phase 39's launches to the kernels line's rows."""
+    """Add a phase's launches (phase 39's, phase 40's: ``entries``
+    {kernel: {path: launches}}) to the kernels line's rows."""
     rows = {r["name"]: r for r in kernels}
     for name, paths in entries.items():
         if name == "flash_bwd_dq":
@@ -9719,6 +9764,759 @@ def observability_only(card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 40: online RL (rl-ppo-125M, rl-ppo-gpt2xl)
+# ---------------------------------------------------------------------------
+
+# bench.py row_rl at GPT-NeoX-125M's full width: 16 rollouts an iteration
+# in groups of 4 over a seeded pool of 16 prompts of 64 tokens, 64 new
+# tokens each, one [16, 128] PPO-clip update on phase 7's optimizer,
+# schedule, clipping, bf16 and ZeRO-2; the serving side pages of 16,
+# decode buckets up to 16, temperature 1.0, seed 7
+RL_SEQ = 128
+RL_PROMPT_LEN = 64
+RL_PROMPT_POOL = 16
+RL_BLOCK = {"enabled": True, "loss": "ppo_clip",
+            "rollouts_per_iteration": 16, "group_size": 4,
+            "max_new_tokens": 64, "sequence_length": RL_SEQ}
+RL_TRAIN_CONFIG = {**TRAIN_CONFIG, "train_batch_size": 16,
+                   "train_micro_batch_size_per_gpu": 16,
+                   "gradient_accumulation_steps": 1, "rl": RL_BLOCK}
+RL_SERVE_CONFIG = {"inference": {
+    "enabled": True, "page_size": 16, "num_pages": 257,
+    "max_seq_len": RL_SEQ, "max_batch_size": 16, "token_budget": 2048,
+    "prefill_lengths": [RL_PROMPT_LEN],
+    "prefill_batch_sizes": [1, 2, 4, 8, 16],
+    "decode_batch_sizes": [1, 2, 4, 8, 16], "temperature": 1.0,
+    "seed": 7}}
+RL_WARMUP = 1
+# timed iterations of (a) rl-ppo-125M, (b) its int8 serving side, (c)
+# DPO and (e) rl-ppo-gpt2xl
+RL_ITERS = {"ppo": 4, "int8": 2, "dpo": 2, "gpt2xl": 2}
+# (c): one chosen/rejected pair per group of 4 → 8 update rows
+RL_DPO_TRAIN_CONFIG = {**RL_TRAIN_CONFIG, "train_batch_size": 8,
+                       "train_micro_batch_size_per_gpu": 8,
+                       "rl": {**RL_BLOCK, "loss": "dpo"}}
+RL_DPO_LN2_TOL = 1e-2
+# (f): the co-residency tax, bench.py row_rl's (6 steps; 2 warm-up steps
+# before the RL pair exists, 1 with it resident) against its 10% bar
+RL_TAX_STEPS = 6
+RL_TAX_WARMUP = (2, 1)
+RL_TAX_BAR_PCT = 10.0
+# (d): kill and replay with a smaller stream, a checkpoint every iteration
+RL_KILL_BLOCK = {**RL_BLOCK, "rollouts_per_iteration": 8,
+                 "max_new_tokens": 32}
+RL_KILL_ITERS, RL_KILL_AT = 3, 2
+# (d)'s children at 2 of 125M's 12 layers (the full width): each child's
+# checkpoints (masters and Adam state) are written and read at 91M
+# parameters rather than 162M
+RL_KILL_LAYERS = 2
+# (g): fp32 parity at 4 layers, greedy, group size 1 (greedy rollouts of
+# one prompt are identical, so a group of 4 would have no advantage),
+# a constant learning rate (WarmupLR's first step has lr 0, which would
+# leave iteration 2's policy equal to the reference); the losses within
+# 1e-4 of each other (relative, at least 1e-4 absolute) and the mean KL
+# within 1e-2 relative, of the same sign
+RL_PARITY_LAYERS = 4
+RL_PARITY_ITERS = 2
+RL_PARITY_TOL = {"loss": 1e-4, "kl": 1e-2}
+# the RL path's kernels checked at its own shapes before the rungs: the
+# update's rows, the heads of GPT-NeoX-125M and GPT-2 XL, and the prefill
+# batches of 1 and 16 prompts
+RL_ROWS = RL_TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+RL_CHECK_HEADS = (NEOX_125M["num_heads"], GPT2_XL["num_heads"])
+RL_CHECK_PREFILLS = (1, 16)
+
+
+def rl_prompts(vocab, seed=0):
+    """The seeded pool of 16 prompts of 64 ids."""
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, size=RL_PROMPT_LEN)))
+            for _ in range(RL_PROMPT_POOL)]
+
+
+def rl_reward(prompt, response):
+    """A deterministic host function of the response: its share of even
+    ids. (bench.py row_rl scores the distinct count, which saturates for
+    samples over 50,304 ids: every reward of a group ties, PPO's
+    advantages are 0 and DPO's chosen row is its rejected one.)"""
+    return sum(t % 2 == 0 for t in response) / max(len(response), 1)
+
+
+def reset_rl_counts(fa, da, qm, ad):
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.masked_launches = fa.masked_bwd_dkv_launches = 0
+    fa.masked_bwd_dq_launches = 0
+    fa.reset_flag_launches()
+    fa.reset_design_launches()
+    da.launches = da.launches_int8 = 0
+    da.reset_launches_by_design()
+    qm.launches = 0
+    qm.reset_design_launches()
+    ad.reset_launches()
+
+
+def rl_counts(fa, da, qm, ad):
+    torch.cuda.synchronize()
+    return {"flash_fwd": fa.launches, "flash_bwd_dkv": fa.bwd_dkv_launches,
+            "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_masked_fwd": fa.masked_launches,
+            "paged_decode": da.launches,
+            "paged_decode_int8": da.launches_int8,
+            "quant_matmul": qm.launches, "adam": ad.launches}
+
+
+def rl_want(L, iters, prefill_calls, decode_steps, loss, int8):
+    """The launches of ``iters`` iterations: per iteration L flash
+    forwards for each training-side forward (the update's, the
+    reference's and, for PPO, the behavior eval's), L dk/dv and L dq,
+    one Adam; per serving prefill call L flash forwards; per decode step
+    L paged decodes (the int8 kernel over int8 pages); with int8 weights
+    4 int8 matmuls a block for every prefill call and decode step."""
+    forwards = 3 if loss == "ppo_clip" else 2
+    steps = prefill_calls + decode_steps
+    return {"flash_fwd": L * (forwards * iters + prefill_calls),
+            "flash_bwd_dkv": L * iters, "flash_bwd_dq": L * iters,
+            "flash_masked_fwd": 0,
+            "paged_decode": 0 if int8 else L * decode_steps,
+            "paged_decode_int8": L * decode_steps if int8 else 0,
+            "quant_matmul": 4 * L * steps if int8 else 0, "adam": iters}
+
+
+def timed_updates(eng, sink, after=None):
+    """Wrap ``eng.train_batch`` to record each update's milliseconds
+    between two device syncs; ``after()`` runs past the timed span."""
+    step = eng.train_batch
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **k)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after()
+        return out
+    eng.train_batch = timed
+
+
+def serve_leaves(serve):
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    return _flatten(serve.params, "", {})
+
+
+def serve_holds(serve, natural):
+    """True when the serving engine holds ``natural`` (a ``{name:
+    tensor}`` of the trainer's dtype) as it prepares weights, bit for
+    bit."""
+    from deeperspeed_tpu_torch.module_inject.replace_module import \
+        prepare_inference_params
+    want = prepare_inference_params(natural, serve.compute_dtype)
+    got = serve_leaves(serve)
+    return set(got) == set(want) and all(
+        torch.equal(got[n], want[n]) for n in want)
+
+
+def guard_update(drv, state):
+    """Run after each `train_batch` of ``drv`` (before its swap): record
+    whether the serving engine still holds ``state["before"]`` (the
+    pre-update weights) and whether the trainer's weights moved from
+    them."""
+    def check():
+        before = state["before"]
+        now = drv.engine.params_to_natural()
+        state["held"].append(serve_holds(drv.serve, before))
+        state["moved"].append(any(not torch.equal(now[n], before[n])
+                                  for n in before))
+    return check
+
+
+def rl_iterations(drv, n, key, card, guard=None):
+    """``n`` iterations of ``drv`` → their stats, each with the update's
+    ms; with ``guard`` (`guard_update`'s state) the serving weights are
+    checked between the update and the swap and after the swap (the
+    checks' time is in ``iteration_s``)."""
+    eng = drv.engine
+    updates = []
+    timed_updates(eng, updates,
+                  None if guard is None else guard_update(drv, guard))
+    rows = []
+    for _ in range(n):
+        if guard is not None:
+            guard["before"] = eng.params_to_natural()
+        t0 = time.perf_counter()
+        out = dict(drv.run_iteration())
+        out["iteration_s"] = time.perf_counter() - t0
+        out["update_ms"] = updates[-1]
+        if guard is not None:
+            guard["after"].append(serve_holds(drv.serve,
+                                              eng.params_to_natural()))
+        rows.append(out)
+        print(f"  {key} iteration {out['iteration']}: loss "
+              f"{out['loss']:.6f}, mean reward {out['mean_reward']:.4f}, "
+              f"mean KL {out['mean_kl']:.3e}, rollout "
+              f"{out['rollout_tokens']} tokens in {out['rollout_s']:.3f} s "
+              f"({out['rollout_tokens_per_s']:.1f} tokens/s), update "
+              f"{out['update_ms']:.2f} ms, swap {out['swap_ms']:.3f} ms, "
+              f"compile_delta {out['compile_delta']}, iteration "
+              f"{out['iteration_s']:.3f} s on {card}", flush=True)
+    del eng.train_batch
+    return rows
+
+
+def rl_rung(fa, da, qm, ad, key, eng, serve_config, iters, card,
+            guard=False, int8=False):
+    """One rung: the driver over ``eng``, the warm-up iteration, then
+    ``iters`` timed iterations with every count set to 0 just before
+    them and read just after: exact launches (every bf16 flash launch on
+    the tensor-core design, every paged decode on the cluster kernel,
+    every int8 matmul on wgmma), ``compile_delta`` 0, finite losses."""
+    from deeperspeed_tpu_torch.rl import RLDriver
+    model = eng.module
+    L = model.config.num_layers
+    drv = RLDriver(eng, rl_prompts(model.config.vocab_size), rl_reward,
+                   serve_config)
+    state = {"held": [], "moved": [], "after": []} if guard else None
+    warm = rl_iterations(drv, RL_WARMUP, key, card, state)
+    before = dict(drv.serve.program_calls)
+    reset_rl_counts(fa, da, qm, ad)
+    rows = rl_iterations(drv, iters, key, card, state)
+    got = rl_counts(fa, da, qm, ad)
+    prefill_calls = program_delta(drv.serve, before, "prefill")
+    decode_steps = program_delta(drv.serve, before, "decode")
+    want = rl_want(L, iters, prefill_calls, decode_steps, drv.loss_name,
+                   int8)
+    if got != want or not prefill_calls or not decode_steps:
+        fail(f"{key}: launches {got} != {want} ({L} layers, {iters} "
+             f"iterations, {prefill_calls} prefill calls, {decode_steps} "
+             f"decode steps)")
+    design = check_design(fa, key, {"fwd": got["flash_fwd"],
+                                    "dkv": got["flash_bwd_dkv"],
+                                    "dq": got["flash_bwd_dq"]})
+    decode_design = check_decode_design(da, key, got, int8)
+    qdesign = dict(qm.design_launches)
+    if int8 and qdesign != {"wgmma": got["quant_matmul"], "fma": 0}:
+        fail(f"{key}: int8 matmul launches by design {qdesign}, want all "
+             f"{got['quant_matmul']} on wgmma")
+    bad = [r["iteration"] for r in rows if r["compile_delta"]]
+    if bad:
+        fail(f"{key}: compile_delta != 0 on timed iterations {bad}")
+    if not all(np.isfinite(r["loss"]) for r in warm + rows):
+        fail(f"{key}: non-finite losses "
+             f"{[r['loss'] for r in warm + rows]}")
+    roll_s = sum(r["rollout_s"] for r in rows)
+    out = {"warmup": warm, "iterations": rows, "launches": got,
+           "design_launches": design, "decode_design_launches":
+           decode_design, "prefill_calls": prefill_calls,
+           "decode_steps": decode_steps,
+           "rollout_tokens_per_s": sum(r["rollout_tokens"] for r in rows)
+           / roll_s,
+           "update_ms_median": float(np.median([r["update_ms"]
+                                                for r in rows])),
+           "swap_ms_median": float(np.median([r["swap_ms"] for r in rows])),
+           "iteration_s_median": float(np.median([r["iteration_s"]
+                                                  for r in rows])),
+           "compile_delta": [r["compile_delta"] for r in rows],
+           "adam_variants": dict(ad.variant_launches),
+           "dtypes": drv.serve.dtypes}
+    if int8:
+        out["quant_matmul_design_launches"] = qdesign
+    if state is not None:
+        out["guard"] = {k: state[k] for k in ("held", "moved", "after")}
+    return drv, out
+
+
+def rl_engine(conf, model):
+    import deeperspeed_tpu_torch as dst
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    return eng
+
+
+def rl_lm_ms(eng, tokens, steps, warmup):
+    """Milliseconds a plain LM step of ``eng`` over ``steps`` steps,
+    between device syncs, after ``warmup`` steps."""
+    for _ in range(warmup):
+        eng.train_batch(batch=(tokens, tokens))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.train_batch(batch=(tokens, tokens))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def rl_ppo_125m(fa, da, qm, ad, card, out, profile_step=False):
+    """(f)'s first half, (a) rl-ppo-125M with its checks (with
+    ``profile_step``, one more iteration under torch.profiler), then
+    (f)'s second half with (a)'s pair resident."""
+    base_conf = {k: v for k, v in RL_TRAIN_CONFIG.items() if k != "rl"}
+    base = rl_engine(base_conf, build_model(torch.bfloat16))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, NEOX_125M["vocab_size"], size=(1, 16, RL_SEQ))).cuda()
+    pre_ms = rl_lm_ms(base, tokens, RL_TAX_STEPS, RL_TAX_WARMUP[0])
+    print(f"rl-ppo-125M (a): PPO-clip, 16 rollouts of 64 + 64 tokens, "
+          f"bf16, fp32 masters, ZeRO-2 on {card}:", flush=True)
+    eng = rl_engine(RL_TRAIN_CONFIG, build_model(torch.bfloat16))
+    init = eng.params_to_natural()
+    drv, a = rl_rung(fa, da, qm, ad, "rl-ppo-125M", eng, RL_SERVE_CONFIG,
+                     RL_ITERS["ppo"], card, guard=True)
+    from deeperspeed_tpu_torch.models.convert import _flatten
+    ref = _flatten(drv.buffer._ref_params, "", {})
+    a["ref_bit_equal"] = set(ref) == set(init) and all(
+        torch.equal(ref[n], init[n]) for n in init)
+    if not a["ref_bit_equal"]:
+        fail("rl-ppo-125M: the frozen reference moved from iteration 0's "
+             "weights")
+    g = a["guard"]
+    if not (all(g["held"]) and all(g["after"]) and any(g["moved"])):
+        fail(f"rl-ppo-125M: serving weights before the swaps {g['held']} "
+             f"(want all pre-update), after {g['after']} (want all the "
+             f"trainer's), trainer moved {g['moved']}")
+    print(f"  reference bit-equal to iteration 0's: {a['ref_bit_equal']}; "
+          f"serving weights pre-update until each swap: {g['held']}, the "
+          f"trainer's after it: {g['after']}; launches {a['launches']}",
+          flush=True)
+    if profile_step:
+        a["profile"] = profile_window(
+            drv.run_iteration, 1, share_of="flash",
+            also=("paged_decode", "adam", "gemm"))
+        print_profile("rl-ppo-125M iteration (rollout, reference and "
+                      "behavior forwards, update, swap)", a["profile"], card)
+    co_ms = rl_lm_ms(base, tokens, RL_TAX_STEPS, RL_TAX_WARMUP[1])
+    held_gb = torch.cuda.memory_allocated() / 2 ** 30
+    tax = {"lm_step_ms_alone": pre_ms, "lm_step_ms_co_resident": co_ms,
+           "tax_pct": (co_ms / pre_ms - 1) * 100,
+           "bar_pct": RL_TAX_BAR_PCT, "memory_allocated_gb": held_gb}
+    out["tax"] = tax
+    print(f"rl co-residency tax (f): plain LM step [16, {RL_SEQ}] "
+          f"{pre_ms:.3f} ms alone, {co_ms:.3f} ms with (a)'s pair resident "
+          f"({held_gb:.2f} GiB allocated): {tax['tax_pct']:+.2f}% (JAX bar "
+          f"{RL_TAX_BAR_PCT}%; a finding, not a check) on {card}",
+          flush=True)
+    del drv, eng, init, ref, base
+    free_cuda()
+    return a
+
+
+def rl_int8_125m(fa, da, qm, ad, card, a):
+    print(f"rl-ppo-125M-int8 (b): serving with int8 weights and int8 KV "
+          f"pages on {card}:", flush=True)
+    eng = rl_engine(RL_TRAIN_CONFIG, build_model(torch.bfloat16))
+    _, b = rl_rung(fa, da, qm, ad, "rl-ppo-125M-int8", eng,
+                   _quant_config(RL_SERVE_CONFIG, "int8", "int8"),
+                   RL_ITERS["int8"], card, int8=True)
+    print(f"  swap {b['swap_ms_median']:.3f} ms (re-quantizes; bf16 (a) "
+          f"{a['swap_ms_median']:.3f} ms), rollout "
+          f"{b['rollout_tokens_per_s']:.1f} tokens/s (a) "
+          f"{a['rollout_tokens_per_s']:.1f}), dtypes {b['dtypes']}, "
+          f"launches {b['launches']}", flush=True)
+    del eng
+    free_cuda()
+    return b
+
+
+def rl_dpo_125m(fa, da, qm, ad, card):
+    print(f"rl-dpo-125M (c): DPO, group size 4, 8 update rows on {card}:",
+          flush=True)
+    eng = rl_engine(RL_DPO_TRAIN_CONFIG, build_model(torch.bfloat16))
+    _, c = rl_rung(fa, da, qm, ad, "rl-dpo-125M", eng, RL_SERVE_CONFIG,
+                   RL_ITERS["dpo"], card)
+    first = c["warmup"][0]["loss"]
+    c["first_loss"] = first
+    c["first_loss_off_ln2"] = abs(first - float(np.log(2.0)))
+    print(f"  first loss {first:.6f}: ln 2 {float(np.log(2.0)):.6f} "
+          f"+- {RL_DPO_LN2_TOL}", flush=True)
+    if c["first_loss_off_ln2"] > RL_DPO_LN2_TOL:
+        fail(f"rl-dpo-125M: first loss {first} is not ln 2 within "
+             f"{RL_DPO_LN2_TOL}")
+    del eng
+    free_cuda()
+    return c
+
+
+def rl_worker_spec():
+    """(a)'s loop with the smaller stream and depth of (d), for
+    `tests/torch_rl_worker.py`."""
+    conf = {**RL_TRAIN_CONFIG, "train_batch_size": 8,
+            "train_micro_batch_size_per_gpu": 8, "rl": RL_KILL_BLOCK}
+    return {"device": "cuda",
+            "model": {**NEOX_125M, "num_layers": RL_KILL_LAYERS},
+            "dtype": "bfloat16", "seed": 0, "ds_config": conf,
+            "serve_config": RL_SERVE_CONFIG,
+            "prompts": {"n": RL_PROMPT_POOL, "len": RL_PROMPT_LEN,
+                        "seed": 0}}
+
+
+def rl_child(workdir, kill):
+    """Start `tests/torch_rl_worker.py` on (d)'s spec in ``workdir``,
+    killed in iteration ``kill`` (0: never)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_rl_worker.py"),
+         workdir, "log.txt", str(RL_KILL_ITERS), str(kill),
+         json.dumps(rl_worker_spec())], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def rl_wait(proc, timeout=600):
+    """(return code, the child's timing lines, the end of its output);
+    a child past ``timeout`` is killed."""
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    times = [ln[len("worker: "):] for ln in text.splitlines()
+             if ln.startswith("worker: ")]
+    return proc.returncode, times, text[-3000:]
+
+
+def rl_read_log(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def rl_kill_replay(card):
+    """(d): an uninterrupted child and a child killed (`os._exit` in the
+    reward function) during iteration 2 run side by side; a third
+    resumes the killed one. Iterations 1-3 must match bit for bit."""
+    print(f"rl kill and replay (d): {RL_KILL_BLOCK['rollouts_per_iteration']}"
+          f" rollouts of {RL_KILL_BLOCK['max_new_tokens']} new tokens at "
+          f"{RL_KILL_LAYERS} layers, a "
+          f"checkpoint every iteration, killed in iteration {RL_KILL_AT} "
+          f"on {card}:", flush=True)
+    tmp = tempfile.mkdtemp(prefix="ds_rl_kill_", dir="build")
+    ref_dir, kill_dir = os.path.join(tmp, "ref"), os.path.join(tmp, "kill")
+    os.makedirs(ref_dir)
+    os.makedirs(kill_dir)
+    t0 = time.perf_counter()
+    # the uninterrupted child runs beside the killed one and its resume
+    ref_proc = rl_child(ref_dir, 0)
+    procs = [ref_proc]
+    try:
+        kill_proc = rl_child(kill_dir, RL_KILL_AT)
+        procs.append(kill_proc)
+        rc_kill, t_kill, log_kill = rl_wait(kill_proc)
+        if rc_kill != 9:
+            fail(f"rl kill and replay: the killed child returned {rc_kill}"
+                 f" (want 9): {log_kill}")
+        killed = rl_read_log(os.path.join(kill_dir, "log.txt"))
+        res_proc = rl_child(kill_dir, 0)
+        procs.append(res_proc)
+        rc_res, t_res, log_res = rl_wait(res_proc)
+        rc_ref, t_ref, log_ref = rl_wait(ref_proc)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rc_res != 0 or rc_ref != 0:
+        fail(f"rl kill and replay: the resumed child returned {rc_res}, the "
+             f"uninterrupted one {rc_ref} (want 0): {log_res} {log_ref}")
+    wall = time.perf_counter() - t0
+    print(f"  children: uninterrupted {t_ref}; killed {t_kill}; resumed "
+          f"{t_res}", flush=True)
+    ref = rl_read_log(os.path.join(ref_dir, "log.txt"))
+    got = rl_read_log(os.path.join(kill_dir, "log.txt"))
+    iters = list(range(1, RL_KILL_ITERS + 1))
+    same = [g == r for g, r in zip(got, ref)]
+    res = {"iterations_killed_child": [r["iteration"] for r in killed],
+           "iterations": [r["iteration"] for r in got],
+           "losses": [r["loss"] for r in got],
+           "reference_losses": [r["loss"] for r in ref],
+           "identical": same, "wall_s": wall,
+           "child_seconds": {"uninterrupted": t_ref, "killed": t_kill,
+                             "resumed": t_res}}
+    print(f"  killed child logged {res['iterations_killed_child']}, the "
+          f"resumed one went on to {res['iterations']}; losses "
+          f"{res['losses']} vs uninterrupted {res['reference_losses']}; "
+          f"losses and sampled tokens identical by iteration: {same}; "
+          f"{wall:.1f} s", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if [r["iteration"] for r in ref] != iters or \
+            res["iterations"] != iters or \
+            res["iterations_killed_child"] != iters[:RL_KILL_AT - 1] or \
+            not all(same):
+        fail(f"rl kill and replay: not bit-identical: {res}")
+    return res
+
+
+def rl_ppo_gpt2xl(fa, da, qm, ad, card):
+    """(e): GPT-2 XL as the policy on the lean bf16 state, its server and
+    its frozen reference co-resident."""
+    from deeperspeed_tpu_torch import GPT2, GPT2Config
+    print(f"rl-ppo-gpt2xl (e): GPT-2 XL ({GPT2_XL_PARAMS} parameters), the "
+          f"lean bf16 state, (a)'s block on {card}:", flush=True)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPT2Config.megatron_1_5b(param_dtype=torch.bfloat16)
+    model = GPT2(cfg, device="cuda")
+    conf = {**gpt2_conf(16, lean=True), "rl": RL_BLOCK}
+    import deeperspeed_tpu_torch as dst
+    eng, *_ = dst.initialize(model=model,
+                             model_parameters=gpt2_tree(cfg, 0),
+                             config_params=conf)
+    if eng.num_params != GPT2_XL_PARAMS:
+        fail(f"rl-ppo-gpt2xl: {eng.num_params} parameters, want "
+             f"{GPT2_XL_PARAMS}")
+    _, e = rl_rung(fa, da, qm, ad, "rl-ppo-gpt2xl", eng, RL_SERVE_CONFIG,
+                   RL_ITERS["gpt2xl"], card)
+    if e["adam_variants"] != {"lean": RL_ITERS["gpt2xl"]}:
+        fail(f"rl-ppo-gpt2xl: Adam launches by variant "
+             f"{e['adam_variants']}, want all lean")
+    e["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  peak memory of the pair (trainer, server, reference) "
+          f"{e['max_memory_allocated_gb']:.2f} GiB, swap "
+          f"{e['swap_ms_median']:.3f} ms, update {e['update_ms_median']:.1f}"
+          f" ms, rollout {e['rollout_tokens_per_s']:.1f} tokens/s, "
+          f"compile_delta {e['compile_delta']} on {card}", flush=True)
+    del eng, model
+    free_cuda()
+    return e
+
+
+def rl_parity(card):
+    """(g): (a)'s model at 4 layers in fp32, greedy, through the kernels
+    and through the plain path (``use_kernels=False``, the serving
+    engine's "xla" kernel choice)."""
+    from deeperspeed_tpu_torch.rl import RLDriver
+    conf = {k: v for k, v in RL_TRAIN_CONFIG.items()
+            if k not in ("fp16", "scheduler", "rl")}
+    conf["rl"] = {**RL_BLOCK, "group_size": 1}
+    runs = {}
+    for tag, kernels in (("kernels", True), ("plain", False)):
+        model = build_model(torch.float32, num_layers=RL_PARITY_LAYERS)
+        model.use_kernels = kernels
+        serve = json.loads(json.dumps(RL_SERVE_CONFIG))
+        serve["inference"]["temperature"] = 0.0
+        if not kernels:
+            serve["inference"]["kernel"] = "xla"
+        seen = []
+
+        def reward(prompt, response, seen=seen):
+            seen.append(list(map(int, response)))
+            return rl_reward(prompt, response)
+        drv = RLDriver(rl_engine(conf, model),
+                       rl_prompts(NEOX_125M["vocab_size"]), reward, serve)
+        rows = drv.train(RL_PARITY_ITERS)
+        runs[tag] = {"losses": [r["loss"] for r in rows],
+                     "mean_kl": [r["mean_kl"] for r in rows],
+                     "rollouts": seen}
+        del drv, model
+        free_cuda()
+    k, p = runs["kernels"], runs["plain"]
+    tol = RL_PARITY_TOL
+    loss_ok = all(abs(a - b) <= tol["loss"] * max(1.0, abs(b))
+                  for a, b in zip(k["losses"], p["losses"]))
+    kl_ok = all(np.sign(a) == np.sign(b) and
+                abs(a - b) <= tol["kl"] * abs(b) + 1e-9
+                for a, b in zip(k["mean_kl"], p["mean_kl"]))
+    same = k["rollouts"] == p["rollouts"]
+    res = {"losses": {t: r["losses"] for t, r in runs.items()},
+           "mean_kl": {t: r["mean_kl"] for t, r in runs.items()},
+           "rollouts_identical": same, "tolerance": tol}
+    print(f"  parity (g), fp32 at {RL_PARITY_LAYERS} layers, greedy: "
+          f"rollouts identical {same}; losses {k['losses']} vs plain "
+          f"{p['losses']}; mean KL {k['mean_kl']} vs {p['mean_kl']}",
+          flush=True)
+    if not (same and loss_ok and kl_ok and k["mean_kl"][-1] != 0.0):
+        fail(f"rl parity: kernels vs plain differ: {res}")
+    return res
+
+
+def check_rl_kernels(fa, da, gen, report):
+    """The bf16 kernels of rungs (a)-(e) against their plain versions at
+    the RL path's own geometry, for heads 12 (GPT-NeoX-125M) and 25
+    (GPT-2 XL), D 64: the training flash forward and backward at [16,
+    128] causal (the update, the behavior and reference forwards), the
+    serving prefill at 64 tokens (the prompts fill the bucket: one
+    segment a row) for 1 and 16 prompts, and the paged decode at pages
+    of 16, 8 pages a row, over bf16 and int8 pools; each launch on the
+    design the rungs count (tensor-core flash, cluster decode), within
+    TOL and TOL_BWD."""
+    dtype = torch.bfloat16
+    B, D = RL_ROWS, 64
+    rows = []
+    for H in RL_CHECK_HEADS:
+        q, k, v, _, _ = prefill_case(RL_SEQ, dtype, gen, B=B, H=H, D=D)
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        fwd_design = fa.LAST_DESIGN["fwd"]
+        ref_out, ref_lse = fa.flash_attention_segmented_reference(q, k, v)
+        err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+        err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+        grads, ok_g, _ = check_grads(fa, q, k, v, None, gen)
+        row = {"kernel": "flash train", "B": B, "S": RL_SEQ, "H": H, "D": D,
+               "max_abs_err_out": err_o, "max_abs_err_lse": err_l, **grads,
+               "design": (fwd_design, fa.LAST_DESIGN["bwd"])}
+        rows.append(row)
+        print(f"  rl geometry {row}", flush=True)
+        if not (ok_o and ok_l and ok_g and row["design"] == ("mma", "mma")):
+            fail(f"flash kernels disagree with their plain versions (or "
+                 f"left the tensor-core design) at the RL training shape: "
+                 f"{row}")
+        for n in RL_CHECK_PREFILLS:
+            q, k, v, _, _ = prefill_case(RL_PROMPT_LEN, dtype, gen, B=n, H=H,
+                                         D=D)
+            seg = torch.ones(n, RL_PROMPT_LEN, dtype=torch.int32,
+                             device="cuda")
+            out, lse = fa.flash_attention_cuda(q, k, v, seg)
+            design = fa.LAST_DESIGN["fwd"]
+            ref_out, ref_lse = fa.flash_attention_segmented_reference(
+                q, k, v, seg)
+            err_o, ok_o = close(out, ref_out, *TOL[dtype]["out"])
+            err_l, ok_l = close(lse, ref_lse, *TOL[dtype]["lse"])
+            row = {"kernel": "flash prefill", "B": n, "S": RL_PROMPT_LEN,
+                   "H": H, "D": D, "max_abs_err_out": err_o,
+                   "max_abs_err_lse": err_l, "design": design}
+            rows.append(row)
+            print(f"  rl geometry {row}", flush=True)
+            if not (ok_o and ok_l and design == "mma"):
+                fail(f"flash prefill kernel disagrees with its plain version"
+                     f" (or left the tensor-core design) at the RL prefill "
+                     f"shape: {row}")
+        shape = dict(B=B, H=H, D=D, ps=RL_SERVE_CONFIG["inference"][
+            "page_size"], NP=RL_SEQ // RL_SERVE_CONFIG["inference"][
+            "page_size"], P=RL_SERVE_CONFIG["inference"]["num_pages"])
+        for int8 in (False, True):
+            q, table, lengths = decode_query_case(dtype, gen, **shape)
+            pools = decode_pools(gen, 2, shape["P"], H, shape["ps"], D,
+                                 dtype, int8)
+            views = tuple(p[1] for p in pools)
+            out = decode_call(da, q, views, table, lengths)
+            ref = decode_reference(da, q, views, table, lengths)
+            err, ok = close(out, ref, *TOL[dtype]["out"])
+            zero_ok = bool((out[lengths == 0] == 0).all())
+            row = {"kernel": "paged_decode_int8" if int8 else
+                   "paged_decode", **shape, "max_abs_err": err,
+                   "design": da.kernel_design(q, views[0])}
+            rows.append(row)
+            print(f"  rl geometry {row}", flush=True)
+            if not (ok and zero_ok and row["design"] == "cluster"):
+                fail(f"paged decode kernel disagrees with its plain version"
+                     f" (zero rows exact: {zero_ok}), or left the cluster "
+                     f"kernel, at the RL decode shape: {row}")
+            del pools, views
+        torch.cuda.empty_cache()
+    report["rl_kernel_checks"] = rows
+
+
+def run_rl_phases(fa, da, qm, ad, report, card, profile_step=False):
+    """Phase 40 → its result dict."""
+    t0 = time.perf_counter()
+    out = {}
+    print(f"rl kernels vs plain versions at the RL path's shapes (bf16) on "
+          f"{card}:", flush=True)
+    check_rl_kernels(fa, da, torch.Generator(device="cuda").manual_seed(40),
+                     report)
+    out["ppo"] = rl_ppo_125m(fa, da, qm, ad, card, out, profile_step)
+    out["int8"] = rl_int8_125m(fa, da, qm, ad, card, out["ppo"])
+    out["dpo"] = rl_dpo_125m(fa, da, qm, ad, card)
+    out["kill_replay"] = rl_kill_replay(card)
+    out["gpt2xl"] = rl_ppo_gpt2xl(fa, da, qm, ad, card)
+    print(f"rl parity (g): {RL_PARITY_ITERS} PPO iterations through the "
+          f"kernels and the plain path on {card}:", flush=True)
+    out["parity"] = rl_parity(card)
+    out["seconds"] = time.perf_counter() - t0
+    report["rl"] = out
+    print(f"phase 40: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+RL_PATHS = {"ppo": "rl_ppo_125m", "int8": "rl_ppo_125m_int8",
+            "dpo": "rl_dpo_125m", "gpt2xl": "rl_ppo_gpt2xl"}
+
+
+def rl_kernel_entries(rl):
+    """What phase 40 adds to the kernels line: each kernel's launches on
+    its rungs by path."""
+    entries = {}
+    for name, count in (("flash_fwd", "flash_fwd"),
+                        ("flash_bwd", "flash_bwd_dkv"),
+                        ("flash_bwd_dq", "flash_bwd_dq"), ("adam", "adam"),
+                        ("paged_decode", "paged_decode"),
+                        ("paged_decode_int8", "paged_decode_int8"),
+                        ("quant_matmul", "quant_matmul")):
+        paths = {path: rl[rung]["launches"][count]
+                 for rung, path in RL_PATHS.items()
+                 if rl[rung]["launches"][count]}
+        entries[name] = paths
+    return entries
+
+
+def rl_only(card, profile_step=False):
+    """Phase 40 alone, after phase 3's training-shape flash and Adam
+    checks, the paged decode over bf16 and int8 pools and the int8
+    matmul: the kernels its rungs launch."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import decode_attention as da
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import quant_matmul as qm
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("kernels vs plain versions (the RL path's):", flush=True)
+    ft, fb, adm, _ = check_train_kernels(
+        fa, ad, gen, report, GPTNeoXConfig(**NEOX_125M).num_params())
+    de, _ = check_decode(da, report)
+    di, _ = check_decode(da, report, int8=True)
+    qrows = check_quant_matmul(qm, gen, report)
+    rl = run_rl_phases(fa, da, qm, ad, report, card, profile_step)
+    kernels = rl_kernel_rows(ft, fb, adm, de, di, qrows[0],
+                             rl_kernel_entries(rl))
+    report["kernels"] = kernels
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_rl.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}, default=str), flush=True)
+    print(card, flush=True)
+    return 0
+
+
+def rl_kernel_rows(ft, fb, adm, de, di, q0, entries):
+    """The kernels line of ``--rl-only``: phase 3's numbers (flash and
+    Adam at the training shape, the paged decode over bf16 and int8 pools
+    at phase 3's shape, the int8 matmul at M = 16) and the launches of
+    phase 40's rungs."""
+    pallas = "deeperspeed_tpu/ops/pallas/"
+    rows = train_kernel_rows(ft, fb, adm, None, {
+        "flash_fwd": {}, "flash_bwd": {}, "flash_bwd_dq": {}, "adam": {},
+        "grouped_matmul": {}, "grouped_matmul_dw": {}})
+    rows += [
+        {"name": "paged_decode", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
+         "replaces": f"{pallas}decode_attention.py:84 (_decode_kernel)",
+         "launches": 0, **_row_nums(de, de["max_abs_err"]),
+         "library": de["library"], "shape": f"{de['shape']} bf16"},
+        {"name": "paged_decode_int8", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/paged_decode.cu",
+         "replaces": f"{pallas}decode_attention.py:152 "
+                     f"(_decode_kernel_quant)",
+         "launches": 0, **_row_nums(di, di["max_abs_err"]),
+         "library": di["library"],
+         "shape": f"{di['shape']} int8 pools, bf16 scales"},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "deeperspeed_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": f"{pallas}quant_matmul.py:152 (_wq_kernel)",
+         "launches": 0, **_row_nums(q0, q0["max_abs_err"]),
+         "shape": f"M={q0['M']} K={q0['K']} N={q0['N']} bf16"}]
+    merge_obs_entries(rows, entries)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -9760,6 +10558,10 @@ def main():
                          "GPT-2 XL served with int8 weights), with phase 3's "
                          "training-shape kernel checks and phases 7 and 11 "
                          "for the numbers beside")
+    ap.add_argument("--rl-only", action="store_true",
+                    help="run only phase 40 (online RL), after phase 3's "
+                         "checks of the kernels it launches (with "
+                         "--profile, one rl-ppo-125M iteration profiled)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -9792,6 +10594,8 @@ def main():
         return quant_train_only(card)
     if args.observability_only:
         return observability_only(card)
+    if args.rl_only:
+        return rl_only(card, args.profile)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -9978,6 +10782,7 @@ def main():
     ob = run_observability_phases(fa, ad, gm, da, qm, report, card, sv=sv)
     report["phase39_seconds"] = time.perf_counter() - t39
     print(f"phase 39: {report['phase39_seconds']:.1f} s", flush=True)
+    rl = run_rl_phases(fa, da, qm, ad, report, card, args.profile)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -10448,6 +11253,7 @@ def main():
     kernels += fp16_kernel_rows(k16, *f16)
     merge_quant_entries(kernels, quant_kernel_entries(*qres))
     merge_obs_entries(kernels, obs_kernel_entries(ob))
+    merge_obs_entries(kernels, rl_kernel_entries(rl))
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

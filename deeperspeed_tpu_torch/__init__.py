@@ -20,7 +20,10 @@ flash attention forward and backward (with an optional block-layout
 mask, key bias and dropout), the block-sparse attention forward and
 backward, the paged decode over bf16/fp32 and int8 pages, the
 weight-only int8 matmul, the grouped expert matmul (forward and dW) and
-the flat Adam step. The port never imports JAX or `deeperspeed_tpu`.
+the flat Adam step. Online RL (`rl.RLDriver`, the "rl" block) runs
+both engines in one process: rollouts from the serving engine, a
+PPO-clip or DPO update through `train_batch`, the weights hot-swapped
+back. The port never imports JAX or `deeperspeed_tpu`.
 """
 
 import argparse

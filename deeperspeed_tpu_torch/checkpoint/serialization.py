@@ -16,12 +16,16 @@ bf16 without `ml_dtypes`. The JAX package writes bf16 leaves as numpy
 arrays of `ml_dtypes.bfloat16`. `load_obj` reads every file through an
 unpickler that maps that type to ``uint16``, so such a leaf arrives as
 its raw 16-bit words and `to_tensor` views them as ``torch.bfloat16``
-(exact); the port never imports `ml_dtypes`. The port itself writes
-compute-dtype leaves as fp32 arrays (exact for bf16; the JAX package
-casts them back on load), never as 16-bit words, which JAX would read
-as integers.
+(exact); the port never imports `ml_dtypes`. In engine checkpoints the
+port writes compute-dtype leaves as fp32 arrays (exact for bf16; the
+JAX package casts them back to its template's dtype on load), never as
+16-bit words, which JAX would read as integers. A file that JAX loads
+with no template (the RL reference snapshot) gets `bf16_leaf`s: they
+unpickle as `ml_dtypes.bfloat16` arrays, as the JAX package writes
+them, and in the port as the raw words.
 """
 
+import importlib
 import pickle
 import types
 
@@ -32,13 +36,47 @@ import torch
 BF16_WORDS = np.uint16
 
 
+class _Reduce:
+    """Pickles as the call ``reduce`` names, made when the file is read."""
+
+    def __init__(self, *reduce):
+        self.reduce = reduce
+
+    def __reduce__(self):
+        return self.reduce
+
+
+# `ml_dtypes.bfloat16`, looked up by the reader: the writer needs no
+# `ml_dtypes`
+_BF16_TYPE = _Reduce(getattr, (_Reduce(importlib.import_module,
+                                       ("ml_dtypes",)), "bfloat16"))
+
+
+def bf16_leaf(tensor):
+    """A bf16 tensor → a leaf that unpickles as a numpy array of
+    `ml_dtypes.bfloat16` (read-only, over the file's bytes), the form of
+    a JAX bf16 leaf; `load_obj` reads it as ``uint16`` words."""
+    words = tensor.detach().cpu().contiguous().view(torch.int16).numpy()
+    return _Reduce(np.ndarray, (words.shape, _BF16_TYPE, words.tobytes()))
+
+
+def _import_module(name):
+    # the port reads `ml_dtypes.bfloat16` as uint16 words (see below)
+    if name == "ml_dtypes":
+        return types.SimpleNamespace(bfloat16=BF16_WORDS)
+    return importlib.import_module(name)
+
+
 class _Unpickler(pickle.Unpickler):
     """Maps `ml_dtypes.bfloat16` (the scalar type numpy pickles a bf16
-    array's dtype by) to ``uint16``, so no `ml_dtypes` is needed."""
+    array's dtype by, or `bf16_leaf`'s lookup of it) to ``uint16``, so no
+    `ml_dtypes` is needed."""
 
     def find_class(self, module, name):
         if module.split(".")[0] == "ml_dtypes" and name == "bfloat16":
             return BF16_WORDS
+        if module == "importlib" and name == "import_module":
+            return _import_module
         return super().find_class(module, name)
 
 
@@ -76,7 +114,7 @@ def to_tensor(arr):
     JAX file → ``torch.bfloat16``)."""
     arr = np.asarray(arr)
     if arr.dtype == BF16_WORDS:
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
+        return torch.from_numpy(np.array(arr).view(np.int16)) \
             .view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))   # a writable copy
 

@@ -948,11 +948,17 @@ class GPTNeoX(LMModule):
                             gen)
             blk.mlp = mlp
 
-    def forward(self, tokens):
-        """tokens [B, S] → logits [B, S, V] (fp32)."""
-        return forward(self.config, self.params_tree(), tokens,
+    def apply(self, params, tokens):
+        """tokens [B, S] → logits [B, S, V] (fp32) under the parameter
+        tree ``params`` (the JAX model's ``apply``), differentiable in
+        it: what the RL losses run."""
+        return forward(self.config, params, tokens,
                        use_kernels=self.use_kernels,
                        attn_fn=self._attention_fn(), **self._remat_knobs())
+
+    def forward(self, tokens):
+        """tokens [B, S] → logits [B, S, V] (fp32)."""
+        return self.apply(self.params_tree(), tokens)
 
     def _lm_forward(self, params, batch, rng=None, ffn_amax=None):
         """Shared body of `loss_fn` / `loss_and_logits`: one block-stack

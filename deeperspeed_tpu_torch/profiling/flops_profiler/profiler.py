@@ -110,13 +110,13 @@ def params_count(params):
 
 
 def _micro_loss(engine, params, micro_batch, rng):
-    """One micro-batch's loss of ``engine``'s model at ``params``, with
-    the step's own keyword arguments."""
-    model = engine.module
+    """One micro-batch's loss at ``params`` through the engine's
+    installed loss (the model's, or the "rl" block's), with the step's
+    own keyword arguments."""
     kw = engine._pld_kwargs()
     if engine.quant is not None and engine._quant_step_active:
         kw["ffn_amax"] = engine.quant.amax
-    loss = model.loss_fn(params, micro_batch, rng=rng, **kw)
+    loss = engine.loss_fn(params, micro_batch, rng=rng, **kw)
     return loss[0] if isinstance(loss, tuple) else loss
 
 

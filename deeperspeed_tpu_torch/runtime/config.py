@@ -16,8 +16,10 @@ object arms the delayed-scaling FFN; "gradient_compression" raises "not
 ported"), and the observability blocks: "telemetry" (a set ``fleet``
 sub-block raises "not ported"), "monitor", "tensorboard",
 "flops_profiler", ``wall_clock_breakdown`` and ``memory_breakdown``;
-every other top-level block of the JAX config that is set raises "not
-ported" (`constants.NOT_PORTED_BLOCKS`).
+the "rl" block (`parse_rl_block`; the engine installs its loss, and
+`rl.RLDriver` reads its rollout geometry); every other top-level block
+of the JAX config that is set raises "not ported"
+(`constants.NOT_PORTED_BLOCKS`).
 """
 
 from . import constants as c
@@ -324,6 +326,10 @@ class DeepSpeedConfig:
             d.get(c.STORE_GRADIENTS_CPU, c.STORE_GRADIENTS_CPU_DEFAULT))
 
         self.inference_params = parse_inference_block(d)
+        # Online-RL driver (deeperspeed_tpu_torch/rl); module-level parse
+        # so RLDriver validates raw dicts identically.
+        self.rl_params = parse_rl_block(d)
+        self.rl_enabled = bool(self.rl_params)
         self.sparse_attention = _parse_sparse_attention(d)
         self._parse_packing_block(d)
         self._parse_moe_block(d)
@@ -1507,6 +1513,102 @@ def _parse_inference_router(block):
             f"number in (0, 1], got {util!r}")
     out[c.INFERENCE_ROUTER_SCALE_UP_UTIL] = float(util)
     return out
+
+
+def parse_rl_block(d):
+    """Parse + validate the "rl" block (the online-RL driver,
+    `deeperspeed_tpu_torch/rl`) with the JAX package's keys, defaults
+    and errors. Module-level so `RLDriver` can validate raw dicts
+    identically; `DeepSpeedConfig` delegates here. A mistyped rollout
+    geometry fails at driver construction, not as a shape mismatch three
+    iterations into a run.
+
+    Returns the validated params dict, or False when absent/disabled."""
+    block = d.get(c.RL) or {}
+    if not isinstance(block, dict):
+        raise DeepSpeedConfigError(
+            f"'{c.RL}' must be a dict, got {block!r}")
+    known = {c.RL_ENABLED, c.RL_LOSS, c.RL_ROLLOUTS_PER_ITERATION,
+             c.RL_GROUP_SIZE, c.RL_MAX_NEW_TOKENS, c.RL_SEQUENCE_LENGTH,
+             c.RL_CLIP_RATIO, c.RL_KL_COEF, c.RL_BETA,
+             c.RL_CHECKPOINT_INTERVAL}
+    unknown = sorted(set(block) - known)
+    if unknown:
+        raise DeepSpeedConfigError(
+            f"Unknown '{c.RL}' key(s) {unknown}; valid keys: "
+            f"{sorted(known)}")
+
+    enabled = block.get(c.RL_ENABLED, c.RL_ENABLED_DEFAULT)
+    if not isinstance(enabled, bool):
+        raise DeepSpeedConfigError(
+            f"{c.RL}.{c.RL_ENABLED} must be a boolean, got {enabled!r}")
+    if not enabled:
+        return False
+
+    loss = block.get(c.RL_LOSS, c.RL_LOSS_DEFAULT)
+    if loss not in c.RL_LOSS_CHOICES:
+        raise DeepSpeedConfigError(
+            f"{c.RL}.{c.RL_LOSS} must be one of "
+            f"{list(c.RL_LOSS_CHOICES)}, got {loss!r}")
+
+    ints = {}
+    for key, default, lo in (
+            (c.RL_ROLLOUTS_PER_ITERATION,
+             c.RL_ROLLOUTS_PER_ITERATION_DEFAULT, 1),
+            (c.RL_GROUP_SIZE, c.RL_GROUP_SIZE_DEFAULT, 1),
+            (c.RL_MAX_NEW_TOKENS, c.RL_MAX_NEW_TOKENS_DEFAULT, 1),
+            (c.RL_CHECKPOINT_INTERVAL,
+             c.RL_CHECKPOINT_INTERVAL_DEFAULT, 1)):
+        value = as_int(block.get(key, default), f"{c.RL}.{key}")
+        if value < lo:
+            raise DeepSpeedConfigError(
+                f"{c.RL}.{key} must be >= {lo}, got {value}")
+        ints[key] = value
+    if ints[c.RL_ROLLOUTS_PER_ITERATION] % ints[c.RL_GROUP_SIZE]:
+        raise DeepSpeedConfigError(
+            f"{c.RL}.{c.RL_ROLLOUTS_PER_ITERATION} "
+            f"({ints[c.RL_ROLLOUTS_PER_ITERATION]}) must be a multiple "
+            f"of {c.RL_GROUP_SIZE} ({ints[c.RL_GROUP_SIZE]}): each "
+            f"iteration samples whole prompt groups")
+    if loss == "dpo" and ints[c.RL_GROUP_SIZE] < 2:
+        raise DeepSpeedConfigError(
+            f"{c.RL}.{c.RL_LOSS} \"dpo\" needs {c.RL_GROUP_SIZE} >= 2: "
+            f"the chosen/rejected pair is picked within a prompt group")
+
+    seq_len = block.get(c.RL_SEQUENCE_LENGTH, c.RL_SEQUENCE_LENGTH_DEFAULT)
+    if seq_len is not None:
+        seq_len = as_int(seq_len, f"{c.RL}.{c.RL_SEQUENCE_LENGTH}")
+        if seq_len < 2:
+            raise DeepSpeedConfigError(
+                f"{c.RL}.{c.RL_SEQUENCE_LENGTH} must be >= 2 (next-token "
+                f"logprobs need at least one transition), got {seq_len}")
+
+    floats = {}
+    for key, default, lo_open in (
+            (c.RL_CLIP_RATIO, c.RL_CLIP_RATIO_DEFAULT, True),
+            (c.RL_KL_COEF, c.RL_KL_COEF_DEFAULT, False),
+            (c.RL_BETA, c.RL_BETA_DEFAULT, True)):
+        value = block.get(key, default)
+        if not isinstance(value, (int, float)) or \
+                isinstance(value, bool) or \
+                (value <= 0 if lo_open else value < 0):
+            bound = "> 0" if lo_open else ">= 0"
+            raise DeepSpeedConfigError(
+                f"{c.RL}.{key} must be a number {bound}, got {value!r}")
+        floats[key] = float(value)
+
+    return {
+        c.RL_ENABLED: True,
+        c.RL_LOSS: loss,
+        c.RL_ROLLOUTS_PER_ITERATION: ints[c.RL_ROLLOUTS_PER_ITERATION],
+        c.RL_GROUP_SIZE: ints[c.RL_GROUP_SIZE],
+        c.RL_MAX_NEW_TOKENS: ints[c.RL_MAX_NEW_TOKENS],
+        c.RL_SEQUENCE_LENGTH: seq_len,
+        c.RL_CLIP_RATIO: floats[c.RL_CLIP_RATIO],
+        c.RL_KL_COEF: floats[c.RL_KL_COEF],
+        c.RL_BETA: floats[c.RL_BETA],
+        c.RL_CHECKPOINT_INTERVAL: ints[c.RL_CHECKPOINT_INTERVAL],
+    }
 
 
 def parse_quantization_block(d):

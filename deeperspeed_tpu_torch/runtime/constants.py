@@ -83,7 +83,6 @@ NOT_PORTED_BLOCKS = {
     "elasticity": "elasticity",
     "aio": "offload",
     "planner": "schedule planner",
-    "rl": "online RL",
 }
 
 # ---------------------------------------------------------------------------
@@ -502,3 +501,42 @@ SPARSE_GLOBAL_BLOCK_END_INDICES = "global_block_end_indices"
 SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT = None
 SPARSE_NUM_SLIDING_WINDOW_BLOCKS = "num_sliding_window_blocks"
 SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT = 3
+
+# ---------------------------------------------------------------------------
+# Online RL: the co-located train+serve driver (deeperspeed_tpu_torch/rl):
+# rollouts from the serving engine, PPO-clip / DPO losses on the training
+# engine, train→serve weights by in-process hot-swap; the JAX package's
+# keys and defaults
+# ---------------------------------------------------------------------------
+RL = "rl"
+RL_ENABLED = "enabled"
+RL_ENABLED_DEFAULT = False
+RL_LOSS = "loss"
+RL_LOSS_DEFAULT = "ppo_clip"
+RL_LOSS_CHOICES = ("ppo_clip", "dpo")
+# total rollouts generated per driver iteration (must be a multiple of
+# group_size; PPO updates on all of them, DPO on one pair per group)
+RL_ROLLOUTS_PER_ITERATION = "rollouts_per_iteration"
+RL_ROLLOUTS_PER_ITERATION_DEFAULT = 8
+# rollouts sampled per prompt: the advantage baseline group (PPO) /
+# the chosen-vs-rejected candidate pool (DPO, needs >= 2)
+RL_GROUP_SIZE = "group_size"
+RL_GROUP_SIZE_DEFAULT = 1
+RL_MAX_NEW_TOKENS = "max_new_tokens"
+RL_MAX_NEW_TOKENS_DEFAULT = 16
+# fixed padded rollout width (the one train/logprob shape of the run);
+# null = max prompt length + max_new_tokens, rounded up to 8
+RL_SEQUENCE_LENGTH = "sequence_length"
+RL_SEQUENCE_LENGTH_DEFAULT = None
+# PPO-clip knobs
+RL_CLIP_RATIO = "clip_ratio"
+RL_CLIP_RATIO_DEFAULT = 0.2
+RL_KL_COEF = "kl_coef"
+RL_KL_COEF_DEFAULT = 0.05
+# DPO preference temperature
+RL_BETA = "beta"
+RL_BETA_DEFAULT = 0.1
+# driver iterations between committed checkpoints (the deterministic-
+# resume granularity: a kill replays at most this many iterations)
+RL_CHECKPOINT_INTERVAL = "checkpoint_interval"
+RL_CHECKPOINT_INTERVAL_DEFAULT = 1

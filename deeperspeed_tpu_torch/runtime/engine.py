@@ -107,12 +107,21 @@ its flush. The legacy loop gets the ``forward`` / ``backward`` /
 ``step`` timers and a telemetry step window from the first forward of
 an accumulation window to `step`.
 
+Online RL (the "rl" block; `rl/`): `_apply_rl_loss_override` installs
+the registered PPO-clip or DPO loss as the engine's `loss_fn` before
+the optimizer is built, and every loss call (`train_batch`, the legacy
+`forward`, `eval_batch`, the flops count) goes through it; its batch is
+a dict (``tokens``, ``mask``, the logprobs, ``advantages``).
+`params_to_natural` hands out copies of the compute-dtype parameters
+for the co-resident serving engine and the frozen reference, which must
+not follow the flat buffer's in-place updates.
+
 Batches: bare tokens, a tuple of arrays (GPT-NeoX's and GPT-2's
-(tokens, labels)) or a dict (BERT's), each leaf moved to the device
-with its kind kept (integer ids as long, a float mask as it is) and
-handed to ``loss_fn`` one micro-batch at a time, as the JAX engine
-splits its batch pytree; each model's ``loss_fn`` unpacks its own
-micro-batch.
+(tokens, labels)) or a dict (BERT's, an RL batch), each leaf moved to
+the device with its kind kept (integer ids as long, a float mask as it
+is) and handed to ``loss_fn`` one micro-batch at a time, as the JAX
+engine splits its batch pytree; each model's ``loss_fn`` unpacks its
+own micro-batch.
 """
 
 import inspect
@@ -262,6 +271,11 @@ class DeepSpeedEngine:
             # after apply_ds_config has given the model its final shapes
             with torch.no_grad():
                 model.load_state_dict(state_dict_from_jax(model_parameters))
+        # the loss the engine trains (`loss_fn`): the model's own, or the
+        # RL loss the "rl" block installs, before anything reads it
+        self._loss_override = None
+        if self._config.rl_params:
+            self._apply_rl_loss_override()
         # the generator of the gate jitter and the dropout seeds, re-seeded
         # from (1234, micro_steps) before every micro-step
         self._rng = torch.Generator(device=self.device)
@@ -279,11 +293,12 @@ class DeepSpeedEngine:
             self.progressive_layer_drop = ProgressiveLayerDrop(
                 self._config.pld_params["theta"],
                 self._config.pld_params["gamma"])
-            # theta(t) reaches the model only if its loss_fn declares the
-            # argument (the reference injects it as a forward kwarg)
+            # theta(t) reaches the model only if the installed loss_fn
+            # declares the argument (the reference injects it as a forward
+            # kwarg)
             try:
                 self._pld_in_loss = "pld_theta" in \
-                    inspect.signature(model.loss_fn).parameters
+                    inspect.signature(self.loss_fn).parameters
             except (TypeError, ValueError):
                 self._pld_in_loss = False
         # fp32 masters apart from the parameters in the JAX engine, so a
@@ -371,6 +386,44 @@ class DeepSpeedEngine:
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
+
+    @property
+    def loss_fn(self):
+        """The loss the engine trains and evaluates, ``loss_fn(params,
+        batch, rng=None, ...)``: the RL loss the "rl" block installed
+        (`_apply_rl_loss_override`), else the model's own ``loss_fn``
+        (read from the model at each call)."""
+        if self._loss_override is not None:
+            return self._loss_override
+        return self.module.loss_fn
+
+    def _apply_rl_loss_override(self):
+        """Install the configured RL loss (`rl.losses` registry) as
+        `loss_fn`, rejecting the engine modes whose loss is tied to the
+        LM objective, with the JAX engine's messages. The pipeline, the
+        explicit ZeRO-3 schedule and ``offload_param``, which it also
+        rejects here, the port's config refuses as not ported; what
+        reaches this check is ``quantization.ffn`` (the delayed-scaling
+        FFN threads an amax history through the model's own loss_fn) and
+        a model without ``apply`` / ``loss_and_logits``. ZeRO stages 0-2
+        compose: they differentiate `loss_fn` like the LM loss."""
+        p = self._config.rl_params
+        if (self._config.quantization_config or {}).get("ffn"):
+            raise DeepSpeedConfigError(
+                "the \"rl\" block cannot ride quantization.ffn: the "
+                "delayed-scaling FFN path calls the model's own loss_fn "
+                "with an amax history the RL losses do not thread")
+        model = self.module
+        if not (hasattr(model, "apply") and
+                hasattr(model, "loss_and_logits")):
+            raise DeepSpeedConfigError(
+                "the \"rl\" block needs a model exposing apply(params, "
+                "tokens) and loss_and_logits(params, batch) "
+                "(models.gpt_neox.GPTNeoX does); a bare loss_fn "
+                "callable has no logits to score rollouts with")
+        from ..rl.losses import get_rl_loss
+        self._loss_override = get_rl_loss(p[c.RL_LOSS])(model, p)
+        log_dist(f"rl: loss_fn override -> {p[c.RL_LOSS]}", ranks=[0])
 
     # ------------------------------------------------------------------
     # config accessors (the JAX engine's, for what the port parses)
@@ -729,9 +782,13 @@ class DeepSpeedEngine:
 
     @staticmethod
     def _input_ids(batch):
-        """The token ids of a batch (``input_ids``, or the first leaf)."""
+        """The token ids of a batch (``input_ids``, an RL batch's
+        ``tokens``, or the first leaf)."""
         if isinstance(batch, dict):
-            return batch["input_ids"]
+            for key in ("input_ids", "tokens"):
+                if key in batch:
+                    return batch[key]
+            return next(iter(batch.values()))
         return batch[0] if isinstance(batch, tuple) else batch
 
     def _current_lr(self):
@@ -853,9 +910,9 @@ class DeepSpeedEngine:
                 kw = self._pld_kwargs()
                 if amax is not None:
                     kw["ffn_amax"] = amax
-                loss = self.module.loss_fn(self.module.params_tree(),
-                                           self._map(batch, lambda v: v[i]),
-                                           rng=self._rng, **kw)
+                loss = self.loss_fn(self.module.params_tree(),
+                                    self._map(batch, lambda v: v[i]),
+                                    rng=self._rng, **kw)
                 if amax is not None:
                     loss, amax = loss
                 self._micro_backward(loss)
@@ -1217,8 +1274,8 @@ class DeepSpeedEngine:
             self._capture_activations(batch)
         if rng is None:
             rng = self._rng.manual_seed(micro_step_seed(self.micro_steps))
-        loss = self.module.loss_fn(self.module.params_tree(), batch,
-                                   rng=rng, **self._pld_kwargs())
+        loss = self.loss_fn(self.module.params_tree(), batch, rng=rng,
+                            **self._pld_kwargs())
         self._cached_loss = loss
         if self.wall_clock_breakdown():
             self.timers("forward").stop()
@@ -1265,6 +1322,17 @@ class DeepSpeedEngine:
         from ..models.gpt_neox import unflatten
         return unflatten({name: flat[lo:hi].reshape(shape)
                           for name, lo, hi, shape in self.param_slices})
+
+    def params_to_natural(self):
+        """The compute-dtype parameters as ``{dotted name: tensor}``
+        (what `InferenceEngine` takes as ``params=`` and
+        `hot_swap_weights`), COPIES: one device copy of the flat compute
+        buffer, one view a leaf into it. The flat buffer's own views
+        (`_natural_tree`) would move with every update, which the serving
+        engine and the RL reference must not."""
+        flat = self._params_flat.detach().clone()
+        return {name: flat[lo:hi].view(shape)
+                for name, lo, hi, shape in self.param_slices}
 
     def is_gradient_accumulation_boundary(self):
         return self._accum_count >= self.gradient_accumulation_steps()
@@ -1370,7 +1438,7 @@ class DeepSpeedEngine:
                     "GPTNeoX / models.gpt2.GPT2 do)")
             loss, logits = fn(params, batch, rng)
             return float(loss), logits
-        return float(self.module.loss_fn(params, batch, rng=rng))
+        return float(self.loss_fn(params, batch, rng=rng))
 
     # ------------------------------------------------------------------
     # checkpointing (the JAX package's layout; see checkpoint/)

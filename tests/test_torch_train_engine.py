@@ -308,9 +308,9 @@ def test_config_values_match_jax(conf):
         np.dtype(ref.precision).name
 
 
-# the observability blocks, ported since: their cases stay in the list and
-# now hold the port's parse to the JAX package's
-RETIRED = ("flops_profiler", "monitor", "telemetry", "tensorboard")
+# the observability blocks and "rl", ported since: their cases stay in the
+# list and now hold the port's parse to the JAX package's
+RETIRED = ("flops_profiler", "monitor", "rl", "telemetry", "tensorboard")
 UNPORTED = [{k: {"enabled": True}} for k in sorted(
     set(c.NOT_PORTED_BLOCKS) | set(RETIRED))] + [
     {"zero_optimization": {"stage": 3}},
@@ -342,7 +342,8 @@ def test_unported_blocks_raise(block):
         return
     ours = DeepSpeedConfig(conf)
     for attr in ("telemetry_config", "tensorboard_enabled",
-                 "monitor_export_config", "flops_profiler_config"):
+                 "monitor_export_config", "flops_profiler_config",
+                 "rl_params", "rl_enabled"):
         theirs = getattr(ref, attr)
         if attr == "telemetry_config":
             theirs = {k: v for k, v in theirs.items() if k != "fleet"}
