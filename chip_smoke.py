@@ -12,6 +12,7 @@
     python3 chip_smoke.py --quant-train-only
     python3 chip_smoke.py --observability-only
     python3 chip_smoke.py --rl-only [--profile]
+    python3 chip_smoke.py --dp-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -440,6 +441,29 @@ Phases (any failure exits non-zero before the final line):
    group size 1, 2 iterations through the kernels and through the plain
    path: the same rollouts, losses within 1e-4, the mean KL within 1e-2
    and of the same sign.
+41. data parallel and ZeRO 0-2 through a process group (``--dp-only``
+   runs it alone, after phase 3's flash and Adam checks at the training
+   shape): (a) phase 7's model and config (bf16, micro 16, S 1024,
+   gas 2), 10 steps on one engine without a process group, then
+   `init_distributed(dist_backend="nccl")` at world 1 and 10 steps at
+   ZeRO 0, 1 and 2 each: losses and fp32 masters bit-equal to the
+   engine without a group (at world 1 every collective is a copy), the
+   step's ms beside the engine without a group (and phase 7's in the
+   all-phase run), the CUDA-event ms of the step's collectives (the
+   all-reduce, the reduce-scatter and the all-gather), exact launches
+   of the flash forward, backward and Adam; (b) a rank's state bytes by
+   the partition formula from the engine's buffers against
+   `torch.cuda.memory_allocated` after the engine is built, and the
+   formula's bytes a rank at worlds 2, 4 and 8 (arithmetic); (c) the
+   flat Adam kernel on every partition of the world-2, -4 and -8
+   layouts at the model's 162,322,944 parameters and on a partition
+   whose start is not 16-byte aligned (the kernel's one-element path):
+   each partition equal to the plain version on its slice, the
+   partitions together bit-equal to the whole-buffer step; (d) two
+   ranks over gloo on this one card (`tests/torch_dp_worker.py`
+   children, micro 8 each, so the global batch is (a)'s), ZeRO 1 and 2,
+   10 steps: losses within rtol 2e-2 of (a)'s (bf16 products at micro 8
+   round apart from micro 16), the ranks' losses equal;
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
@@ -10430,6 +10454,484 @@ def run_rl_phases(fa, da, qm, ad, report, card, profile_step=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 41: data parallel and ZeRO 0-2 through a process group
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 10
+DP_STAGES = (0, 1, 2)
+DP_WORLDS = (2, 4, 8)
+# (d): two gloo ranks on the one card, micro 8 each (phase 7's global 16)
+DP_CHILD_STAGES = (1, 2)
+DP_CHILD_TIMEOUT = 300
+# (d)'s losses against (a)'s: bf16 products at micro 8 round apart from
+# those at micro 16, and the difference grows over the steps
+TOL_DP_CHILD = 2e-2
+# (b): the engine's buffers against memory_allocated: the model's
+# non-parameter buffers and the allocator's rounding
+TOL_DP_BYTES = 32 * 2 ** 20
+
+
+class CollectiveClock:
+    """CUDA events around each collective the engine issues in a run:
+    the flat all-reduce (stage 0), the reduce-scatter and the all-gather
+    (`runtime.zero.stage1`), and the mean loss's one-element
+    all-reduce apart."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            key = name
+            if name == "all_reduce" and args[0].numel() == 1:
+                key = "loss_all_reduce"
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.setdefault(key, []).append((start, end))
+            return out
+        return timed
+
+    def ms(self, steps):
+        """{name: {"calls", "median_call_ms", "median_step_ms"}}: a step's
+        ms is the sum of its calls' (the median over the ``steps`` steps
+        leaves out the first step's NCCL set-up)."""
+        torch.cuda.synchronize()
+        out = {}
+        for k, v in self.events.items():
+            times = np.array([s.elapsed_time(e) for s, e in v])
+            out[k] = {"calls": len(times),
+                      "median_call_ms": float(np.median(times)),
+                      "median_step_ms": float(np.median(
+                          times.reshape(steps, -1).sum(1)))}
+        return out
+
+
+def dp_collective_ms(n):
+    """The collectives of (a) at world 1 on buffers of the model's size,
+    each timed alone between CUDA events (`time_ms`), beside a plain
+    device copy of the same bytes: the fp32 all-reduce (zero 0), the
+    fp32 reduce-scatter (zero 1), the bf16 in-place all-gather (zero
+    1-2)."""
+    import torch.distributed as dist
+    f32 = torch.randn(n, device="cuda")
+    out32 = torch.empty(n, device="cuda")
+    b16 = torch.randn(n, device="cuda").bfloat16()
+    rows = {
+        "all_reduce_fp32": time_ms(lambda: dist.all_reduce(f32)),
+        "reduce_scatter_fp32": time_ms(
+            lambda: dist.reduce_scatter_tensor(out32, f32)),
+        "all_gather_bf16_in_place": time_ms(
+            lambda: dist.all_gather_into_tensor(b16, b16)),
+        "copy_fp32": time_ms(lambda: out32.copy_(f32)),
+        "bytes_fp32": 4 * n}
+    del f32, out32, b16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dp_state_bytes(stage, n, world, part=None):
+    """A rank's training-state bytes by the partition formula (bf16
+    compute, fp32 masters): compute parameters and gradients, the fp32
+    masters, the two fp32 moments, the fp32 accumulator (whole at stages
+    0-1, the partition at 2) and stage 1's partition it is
+    reduce-scattered into. ``n`` is padded to world x 8 from stage 1
+    on."""
+    from deeperspeed_tpu_torch.runtime.zero.stage1 import flat_partition
+    if stage == 0:
+        return {"params": 2 * n, "grads": 2 * n, "master": 4 * n,
+                "exp_avg": 4 * n, "exp_avg_sq": 4 * n, "grad_acc": 4 * n}
+    p = part or flat_partition(n, world, 0)
+    out = {"params": 2 * p.padded, "grads": 2 * p.padded,
+           "master": 4 * p.size, "exp_avg": 4 * p.size,
+           "exp_avg_sq": 4 * p.size}
+    if stage == 1:
+        out.update(grad_acc=4 * p.padded, grad_part=4 * p.size)
+    else:
+        out["grad_acc"] = 4 * p.size
+    return out
+
+
+def dp_engine_bytes(eng):
+    """The same buffers, read from the engine."""
+    def nb(t):
+        return t.numel() * t.element_size()
+    out = {"params": nb(eng._params_flat), "grads": nb(eng._grads_flat),
+           "master": nb(eng._master), "exp_avg": nb(eng.opt_state.exp_avg),
+           "exp_avg_sq": nb(eng.opt_state.exp_avg_sq),
+           "grad_acc": nb(eng._grad_acc)}
+    if eng._grad_part is not None and eng._grad_part is not eng._grad_acc:
+        out["grad_part"] = nb(eng._grad_part)
+    return out
+
+
+def dp_run(fa, ad, stage, tokens, clock=None):
+    """One engine of phase 7's config at ``stage``, DP_STEPS steps: its
+    losses, step ms, launches, state bytes (formula, buffers, allocated)
+    and fp32 masters (on the card)."""
+    import torch.distributed as dist
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.runtime import engine as engine_mod
+    conf = {**TRAIN_CONFIG, "zero_optimization": {"stage": stage}}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(torch.float32)
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    n = eng.num_params
+    formula = dp_state_bytes(stage, n, eng.dp_world_size, eng._part)
+    buffers = dp_engine_bytes(eng)
+    if buffers != formula:
+        fail(f"phase 41 (b): stage {stage} buffers {buffers} are not the "
+             f"partition formula's {formula}")
+    if abs(allocated - sum(formula.values())) > TOL_DP_BYTES:
+        fail(f"phase 41 (b): stage {stage}: {allocated} bytes allocated "
+             f"after the engine is built, the formula's "
+             f"{sum(formula.values())}")
+    saved = {}
+    if clock is not None:
+        saved = {"reduce_scatter_": engine_mod.reduce_scatter_,
+                 "all_gather_": engine_mod.all_gather_}
+        engine_mod.reduce_scatter_ = clock.wrap("reduce_scatter",
+                                                saved["reduce_scatter_"])
+        engine_mod.all_gather_ = clock.wrap("all_gather",
+                                            saved["all_gather_"])
+        saved["all_reduce"] = dist.all_reduce
+        dist.all_reduce = clock.wrap("all_reduce", dist.all_reduce)
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    ad.launches = 0
+    losses, step_s = [], []
+    try:
+        for _ in range(DP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(batch=(tokens, tokens)))
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        for name, fn in saved.items():
+            if name == "all_reduce":
+                dist.all_reduce = fn
+            else:
+                setattr(engine_mod, name, fn)
+    launches = {"flash_fwd": fa.launches,
+                "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches}
+    gas, L = tokens.shape[0], model.config.num_layers
+    want = {"flash_fwd": L * gas * DP_STEPS,
+            "flash_bwd_dkv": L * gas * DP_STEPS,
+            "flash_bwd_dq": L * gas * DP_STEPS, "adam": DP_STEPS}
+    if launches != want:
+        fail(f"phase 41 (a): stage {stage} launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 41 (a): stage {stage} losses {losses}")
+    master = eng._master.detach().clone()
+    out = {"stage": stage, "dp_world_size": eng.dp_world_size,
+           "losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "step_ms_median": float(np.median(step_s)) * 1e3,
+           "launches": launches, "num_params": n,
+           "state_bytes": formula, "state_bytes_total":
+           sum(formula.values()), "allocated_after_init": allocated}
+    del eng, model
+    torch.cuda.empty_cache()
+    return out, master
+
+
+def dp_adam_partitions(ad, gen, n):
+    """(c): the flat Adam kernel on every partition of the world-N
+    layouts and on one partition whose start is not 16-byte aligned,
+    against the plain version on each slice and, all partitions
+    together, the whole-buffer step bit for bit."""
+    from deeperspeed_tpu_torch.runtime.zero.stage1 import flat_partition
+    hp = dict(beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.01)
+    rows = []
+    layouts = {f"world{w}": [(p.lo, p.hi) for p in (
+        flat_partition(n, w, r) for r in range(w))] for w in DP_WORLDS}
+    # a partition starting 3 elements in: 12 bytes into the fp32
+    # buffers, 6 into the bf16 ones, so no pointer is 16-byte aligned
+    layouts["unaligned"] = [(0, 3), (3, n // 2 + 1), (n // 2 + 1, n)]
+    padded = max(hi for lay in layouts.values() for _, hi in lay)
+    p = torch.randn(padded, generator=gen, device="cuda")
+    g = torch.randn(padded, generator=gen, device="cuda").bfloat16()
+    m = 0.1 * torch.randn(padded, generator=gen, device="cuda")
+    v = 0.01 * torch.rand(padded, generator=gen, device="cuda")
+    for name, layout in layouts.items():
+        end = layout[-1][1]
+        whole = [t[:end].clone() for t in (p, m, v)]
+        whole_c = torch.empty(end, dtype=torch.bfloat16, device="cuda")
+        ad.adam_cuda(*whole[:1], g[:end], *whole[1:], 6e-4, 3, adam_w=True,
+                     bias_correction=True, p_out=whole_c, **hp)
+        parts = [t[:end].clone() for t in (p, m, v)]
+        parts_c = torch.empty(end, dtype=torch.bfloat16, device="cuda")
+        err, ok, ms = 0.0, True, []
+        for lo, hi in layout:
+            ref = ad.adam_flat_reference(p[lo:hi], g[lo:hi], m[lo:hi],
+                                         v[lo:hi], 6e-4, 3, **hp)
+            args = [t[lo:hi] for t in parts]
+            ad.adam_cuda(args[0], g[lo:hi], args[1], args[2], 6e-4, 3,
+                         adam_w=True, bias_correction=True,
+                         p_out=parts_c[lo:hi], **hp)
+            for got, want in zip(args, ref):
+                e, good = close(got, want, *TOL_ADAM)
+                err, ok = max(err, e), ok and good
+            if hi - lo > 1000:
+                scratch = [t[lo:hi].clone() for t in (p, m, v)]
+                ms.append(time_ms(lambda: ad.adam_cuda(
+                    scratch[0], g[lo:hi], scratch[1], scratch[2], 6e-4, 3,
+                    adam_w=True, bias_correction=True,
+                    p_out=parts_c[lo:hi].clone(), **hp), warmup=2,
+                    iters=10))
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(
+            parts + [parts_c], whole + [whole_c]))
+        starts = [lo for lo, _ in layout]
+        row = {"layout": name, "partitions": len(layout), "end": end,
+               "starts_16B_aligned": [(lo * 4) % 16 == 0 and (lo * 2) % 16
+                                      == 0 for lo in starts],
+               "max_abs_err": err, "tol": TOL_ADAM,
+               "bit_equal_whole": bit_equal, "partition_ms": ms}
+        print(f"  adam on partitions {row}", flush=True)
+        if not (ok and bit_equal):
+            fail(f"phase 41 (c): the Adam kernel on the {name} partitions "
+                 f"disagrees: {row}")
+        rows.append(row)
+        del whole, whole_c, parts, parts_c
+    if all(all(r["starts_16B_aligned"]) for r in rows):
+        fail("phase 41 (c): no partition start was unaligned")
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dp_children(tmp, tokens, n_params):
+    """(d): two ranks over gloo on the one card, `tests/torch_dp_worker.py`
+    children at micro 8, ZeRO 1 then 2, DP_STEPS steps each. Returns each
+    rank's results."""
+    import pickle
+    import socket
+    root = os.path.dirname(os.path.abspath(__file__))
+    micro = tokens.shape[1] // 2
+    conf = {**TRAIN_CONFIG, "train_batch_size": TRAIN_CONFIG[
+        "train_batch_size"], "train_micro_batch_size_per_gpu": micro}
+    cases = [{"kind": "train", "name": f"zero{stage}", "size": NEOX_125M,
+              "seed": 0, "weights": None, "light": True,
+              "conf": {**conf, "zero_optimization": {"stage": stage}},
+              "tokens": tokens.cpu().numpy(), "steps": DP_STEPS}
+             for stage in DP_CHILD_STAGES]
+    spec = os.path.join(tmp, "dp_spec.pkl")
+    with open(spec, "wb") as f:
+        pickle.dump({"cases": cases, "device": "cuda", "backend": "gloo",
+                     "timeout": DP_CHILD_TIMEOUT}, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if q])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(root, "tests",
+                                          "torch_dp_worker.py"), spec, tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    deadline = time.monotonic() + DP_CHILD_TIMEOUT
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=max(
+                1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 41 (d): a rank did not finish in {DP_CHILD_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode:
+            fail(f"phase 41 (d): rank {rank} exited {proc.returncode}: "
+                 f"{log[-3000:]}")
+    out = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    for stage in DP_CHILD_STAGES:
+        r0, r1 = (o[f"zero{stage}"] for o in out)
+        if r0["losses"] != r1["losses"] or r0["dp_world_size"] != 2 or \
+                r0["num_params"] != n_params:
+            fail(f"phase 41 (d): zero {stage}: ranks disagree or the world "
+                 f"is not 2: {r0['losses']} / {r1['losses']}")
+    return out
+
+
+def run_dp_phase(fa, ad, report, card, phase7_ms=None):
+    """Phase 41 → its result dict. Sets up a world-1 NCCL process group
+    and destroys it before returning, so later engines train without
+    one."""
+    import torch.distributed as dist
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.utils import distributed as ds_dist
+    t0 = time.perf_counter()
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+    out = {"steps": DP_STEPS, "card": card}
+    print(f"data parallel (a): phase 7's engine without a process group, "
+          f"{DP_STEPS} steps:", flush=True)
+    ref, ref_master = dp_run(fa, ad, 2, tokens)
+    out["no_group"] = ref
+    print(f"  losses {ref['losses']}, median step "
+          f"{ref['step_ms_median']:.2f} ms on {card}", flush=True)
+    if ds_dist.is_initialized():
+        fail("phase 41: a process group exists before init_distributed")
+    with socket_port() as port:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dst.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"phase 41: process group {dist.get_backend()} world "
+                 f"{dist.get_world_size()}, want nccl world 1")
+        for stage in DP_STAGES:
+            clock = CollectiveClock()
+            res, master = dp_run(fa, ad, stage, tokens, clock)
+            res["collectives"] = clock.ms(DP_STEPS)
+            res["bit_equal_no_group"] = {
+                "losses": res["losses"] == ref["losses"],
+                "masters": bool(torch.equal(master, ref_master))}
+            print(f"  zero {stage} at world 1 over nccl: losses "
+                  f"{res['losses']}, median step "
+                  f"{res['step_ms_median']:.2f} ms (no group "
+                  f"{ref['step_ms_median']:.2f}"
+                  + (f", phase 7 {phase7_ms:.2f}" if phase7_ms else "")
+                  + f"), collectives a step {res['collectives']}, launches "
+                  f"{res['launches']}, bit-equal {res['bit_equal_no_group']}"
+                  f" on {card}", flush=True)
+            if not all(res["bit_equal_no_group"].values()):
+                fail(f"phase 41 (a): zero {stage} at world 1 is not the "
+                     f"engine without a group bit for bit: "
+                     f"{res['bit_equal_no_group']}")
+            out[f"zero{stage}"] = res
+            del master
+        out["collectives_alone"] = dp_collective_ms(ref["num_params"])
+        print(f"  the collectives alone at world 1, n = "
+              f"{ref['num_params']}: {out['collectives_alone']} (ms) on "
+              f"{card}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del ref_master
+    torch.cuda.empty_cache()
+    n = ref["num_params"]
+    out["state_bytes_arithmetic"] = {
+        f"world{w}": {f"zero{s}": sum(dp_state_bytes(s, n, w).values())
+                      for s in DP_STAGES} for w in (1,) + DP_WORLDS}
+    print(f"data parallel (b): a rank's state bytes at n = {n}, by the "
+          f"partition formula (arithmetic, not measured above world 1): "
+          f"{out['state_bytes_arithmetic']}; measured at world 1 "
+          f"(memory_allocated after the engine is built): "
+          f"{ {s: out[f'zero{s}']['allocated_after_init'] for s in DP_STAGES} }",
+          flush=True)
+    print("data parallel (c): the flat Adam kernel on partitions:",
+          flush=True)
+    out["adam_partitions"] = dp_adam_partitions(
+        ad, torch.Generator(device="cuda").manual_seed(41), n)
+    print("data parallel (d): two gloo ranks on this card, micro 8 each:",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="dp_children_", dir="build")
+    try:
+        kids = dp_children(tmp, tokens, n)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["two_ranks"] = {}
+    for stage in DP_CHILD_STAGES:
+        got = kids[0][f"zero{stage}"]["losses"]
+        want = out[f"zero{stage}"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        step_ms = [max(a, b) for a, b in zip(
+            kids[0][f"zero{stage}"]["step_ms"],
+            kids[1][f"zero{stage}"]["step_ms"])]
+        out["two_ranks"][f"zero{stage}"] = {
+            "losses": got, "max_rel_diff_to_a": rel, "tol": TOL_DP_CHILD,
+            "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "state_bytes": kids[0][f"zero{stage}"]["state_bytes"]}
+        print(f"  zero {stage}: losses {got}, max relative difference to "
+              f"(a) {rel:.3e}, median step (the slower rank's, the first "
+              f"left out) {out['two_ranks'][f'zero{stage}']['step_ms_median']:.2f}"
+              f" ms on {card}", flush=True)
+        if not rel < TOL_DP_CHILD:
+            fail(f"phase 41 (d): zero {stage} two-rank losses {got} are "
+                 f"not within rtol {TOL_DP_CHILD} of (a)'s {want}")
+    out["seconds"] = time.perf_counter() - t0
+    report["dp"] = out
+    print(f"phase 41: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+class socket_port:
+    """A free TCP port on localhost (closed again on exit)."""
+
+    def __enter__(self):
+        import socket
+        self._s = socket.socket()
+        self._s.bind(("127.0.0.1", 0))
+        return self._s.getsockname()[1]
+
+    def __exit__(self, *exc):
+        self._s.close()
+
+
+def dp_kernel_entries(dp):
+    """What phase 41 adds to the kernels line: each kernel's launches on
+    its runs by path."""
+    runs = {"train_dp_no_group": dp["no_group"]} | {
+        f"train_dp_zero{s}": dp[f"zero{s}"] for s in DP_STAGES}
+    return {name: {path: r["launches"][count] for path, r in runs.items()}
+            for name, count in (("flash_fwd", "flash_fwd"),
+                                ("flash_bwd", "flash_bwd_dkv"),
+                                ("flash_bwd_dq", "flash_bwd_dq"),
+                                ("adam", "adam"))}
+
+
+def dp_only(card):
+    """Phase 41 alone, after phase 3's training-shape flash and Adam
+    checks."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("kernels vs plain versions (the training path's):", flush=True)
+    ft, fb, adm, _ = check_train_kernels(
+        fa, ad, gen, report, GPTNeoXConfig(**NEOX_125M).num_params())
+    dp = run_dp_phase(fa, ad, report, card)
+    kernels = train_kernel_rows(ft, fb, adm, None, {
+        "flash_fwd": {}, "flash_bwd": {}, "flash_bwd_dq": {}, "adam": {}})
+    merge_obs_entries(kernels, dp_kernel_entries(dp))
+    report["kernels"] = kernels
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_dp.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}, default=str), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 RL_PATHS = {"ppo": "rl_ppo_125m", "int8": "rl_ppo_125m_int8",
             "dpo": "rl_dpo_125m", "gpt2xl": "rl_ppo_gpt2xl"}
 
@@ -10558,6 +11060,10 @@ def main():
                          "GPT-2 XL served with int8 weights), with phase 3's "
                          "training-shape kernel checks and phases 7 and 11 "
                          "for the numbers beside")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="run only phase 41 (data parallel and ZeRO 0-2 "
+                         "through a process group), after phase 3's flash "
+                         "and Adam checks at the training shape")
     ap.add_argument("--rl-only", action="store_true",
                     help="run only phase 40 (online RL), after phase 3's "
                          "checks of the kernels it launches (with "
@@ -10596,6 +11102,8 @@ def main():
         return observability_only(card)
     if args.rl_only:
         return rl_only(card, args.profile)
+    if args.dp_only:
+        return dp_only(card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -10783,6 +11291,7 @@ def main():
     report["phase39_seconds"] = time.perf_counter() - t39
     print(f"phase 39: {report['phase39_seconds']:.1f} s", flush=True)
     rl = run_rl_phases(fa, da, qm, ad, report, card, args.profile)
+    dp = run_dp_phase(fa, ad, report, card, phase7_ms=tr["step_ms_median"])
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -11254,6 +11763,7 @@ def main():
     merge_quant_entries(kernels, quant_kernel_entries(*qres))
     merge_obs_entries(kernels, obs_kernel_entries(ob))
     merge_obs_entries(kernels, rl_kernel_entries(rl))
+    merge_obs_entries(kernels, dp_kernel_entries(dp))
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

@@ -5,7 +5,10 @@ The port grows slice by slice beside the JAX package, which stays the
 reference it is tested against. It serves GPT-NeoX and GPT-2 (the
 continuous-batching `InferenceEngine` over a paged KV cache, with int8
 block weights and int8 KV pages as options) and trains GPT-NeoX, GPT-2
-and BERT on one card: `initialize()` returns a `DeepSpeedEngine` whose
+and BERT on one card or data-parallel across `torch.distributed` ranks
+(`init_distributed`: NCCL on the card, gloo on the CPU; ZeRO stages 1-2
+partition the fp32 masters, the moments and, at stage 2, the gradient
+accumulator): `initialize()` returns a `DeepSpeedEngine` whose
 `train_batch` (or the legacy `forward` / `backward` / `step` loop) runs
 bf16 (or fp32) compute with fp32 masters, or the lean state
 (``fp16_master_weights_and_grads``: the bf16 parameters are the
@@ -42,6 +45,7 @@ from .runtime.config_utils import DeepSpeedConfigError
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .runtime.engine import DeepSpeedEngine
 from .runtime.sentinel import TrainingHealthError
+from .utils.distributed import init_distributed
 from .utils.logging import log_dist, logger
 from .version import __version__
 
@@ -80,16 +84,20 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     device (build it with ``device="cpu"`` to train on the CPU).
     ``config`` is a JSON path, ``config_params`` a dict.
 
+    Under a `torch.distributed` process group (`init_distributed`) each
+    rank builds its model on its own card and trains data parallel with
+    ZeRO stages 0-2, each taking its own micro-batches.
+
     Returns ``(engine, engine.optimizer, engine.training_dataloader,
-    engine.lr_scheduler)``. A pipeline model and more than one
-    `torch.distributed` rank are not ported yet and raise
-    `DeepSpeedConfigError`.
+    engine.lr_scheduler)``. A pipeline model, an ``mpu``, ZeRO-3 and
+    expert parallelism are not ported yet and raise
+    `DeepSpeedConfigError` (the MoE layer's mesh: NotImplementedError).
     """
     log_dist(f"DeeperSpeed-torch info: version={__version__}", ranks=[0])
     if type(model).__name__ == "PipelineModule":
         raise DeepSpeedConfigError(
             "a PipelineModule is not ported yet (it comes with the "
-            "scale-out slice; see ROADMAP.md)")
+            "scale-out slice, A.7; see ROADMAP.md)")
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_parameters=model_parameters,
                              training_data=training_data,
@@ -101,7 +109,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             engine.lr_scheduler)
 
 
-__all__ = ["initialize", "DeepSpeedEngine", "DeepSpeedConfig",
+__all__ = ["initialize", "init_distributed", "DeepSpeedEngine", "DeepSpeedConfig",
            "DeepSpeedConfigError", "DeepSpeedDataLoader", "RepeatingLoader",
            "TrainingHealthError", "InferenceEngine", "GPT2", "GPT2Config",
            "GPTNeoX",

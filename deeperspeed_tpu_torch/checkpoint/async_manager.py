@@ -24,8 +24,10 @@ Guarantees, as in the JAX package:
 - a writer failure is re-raised on the caller's thread at the next
   `wait()` / save (and logged at the next step boundary).
 
-One process trains on one card, so the JAX package's multihost branch
-(an inline commit behind a device barrier) has no counterpart here.
+Across data-parallel ranks the commit runs inline on the training
+thread, as the JAX package's multihost branch does: it gathers every
+rank's file entries and passes barriers, collectives that must not
+interleave with the step's own. Rank 0 alone runs the retention GC.
 """
 
 import atexit
@@ -110,7 +112,9 @@ class AsyncCheckpointManager:
         """Snapshot now, commit in the background. Returns the tag once
         the snapshot is on the host (training may resume); the checkpoint
         is on disk only after the commit: `wait()` for durability."""
-        from .checkpointing import snapshot_checkpoint, write_and_commit
+        from .checkpointing import (snapshot_checkpoint,
+                                    validate_checkpoint_tag,
+                                    write_and_commit)
 
         engine = self.engine
         save_dir = save_dir if save_dir is not None else self.save_dir
@@ -123,6 +127,7 @@ class AsyncCheckpointManager:
 
         # back-pressure: one save in flight, totally ordered commits
         self.wait()
+        validate_checkpoint_tag(engine, tag)
 
         from ..runtime.telemetry import NULL_TELEMETRY
         telemetry = getattr(engine, "telemetry", NULL_TELEMETRY)
@@ -134,6 +139,7 @@ class AsyncCheckpointManager:
             payloads = snapshot_checkpoint(engine, client_state)
         stall_s = time.perf_counter() - t0
         step = engine.global_steps
+        gc_here = engine.dp_rank == 0
         self.total_stall_s += stall_s
 
         def writer():
@@ -147,7 +153,7 @@ class AsyncCheckpointManager:
                 deleted = mf.gc_checkpoints(
                     save_dir, keep_last_n=self.keep_last_n,
                     keep_every_n_steps=self.keep_every_n_steps,
-                    protect=(tag,))
+                    protect=(tag,)) if gc_here else []
                 write_s = time.perf_counter() - t1
                 with self._lock:
                     self.saves_completed += 1
@@ -161,6 +167,9 @@ class AsyncCheckpointManager:
                 with self._lock:
                     self._error = e
 
+        if engine.dp_world_size > 1:
+            writer()   # inline: the commit's collectives
+            return tag
         thread = threading.Thread(target=writer, daemon=True,
                                   name=f"ds-ckpt-writer-{tag}")
         self._thread = thread

@@ -8,6 +8,19 @@ The port of `deeperspeed_tpu/checkpoint/checkpointing.py`. Layout:
     {save_dir}/{tag}/zero_to_fp32.py
     {save_dir}/latest
 
+Across data-parallel ranks each rank writes its own zero file,
+``zero_pp_rank_{rank}``, in the JAX layout of a dp-``world`` engine:
+every leaf of the masters and the moments sliced along the dimension the
+JAX rules shard (`runtime.zero.partition_parameters`), a ragged leaf as
+"flat" ranges of its raveled array, a leaf the rules replicate whole.
+A rank holds one contiguous partition of the flat state, which cuts
+across those slices, so the partitions are all-gathered (one role at a
+time) before each rank cuts its own. Rank 0 writes the model states and
+commits the manifest once every rank's file is written and
+checksummed (the barrier of the JAX package's commit). Loads merge the
+files of any saved world and copy this rank's partition: the elastic
+resume of N saved ranks onto M.
+
 The model-states file holds the module's parameters, the LR schedule,
 the batch-size schedule, the dataloader position, the four counters, the
 loss-scale state, the quantized FFN's amax history (``quantization_state``)
@@ -15,9 +28,7 @@ and the config. The zero file (written iff ZeRO is on or the compute dtype is
 not fp32, the JAX engine's ``keep_master``) holds the fp32 masters and
 the Adam state; otherwise the Adam state goes into the model-states
 file. A JAX engine loads what the port writes and the port loads what a
-JAX engine writes, including zero files written by several data-parallel
-ranks, which are merged here onto the one card (the JAX package's
-elastic resume).
+JAX engine writes, at any data-parallel world on either side.
 
 Saves are two-phase, as in the JAX package: `snapshot_checkpoint` copies
 each flat buffer of the engine to the host once (the only part that
@@ -45,10 +56,14 @@ import torch
 
 from ..runtime.config_utils import DeepSpeedConfigError
 from ..runtime.fp16.loss_scaler import LossScaleState
+from ..runtime.zero.partition_parameters import (ZeroShardingRules,
+                                                 sharded_dim)
+from ..runtime.zero.stage1 import gather_full
+from ..utils.distributed import barrier, get_rank, get_world_size
 from ..utils.logging import log_dist, logger
 from . import manifest as mf
-from .serialization import (load_obj, path_key, save_obj, state_dict,
-                            to_tensor, unshard_concat)
+from .serialization import (load_obj, path_key, save_obj, shard_slice,
+                            state_dict, to_tensor, unshard_concat)
 
 LATEST_FILE = mf.LATEST_FILE
 DS_VERSION = "0.3.15+tpu"
@@ -74,6 +89,44 @@ def _zero_ckpt_name(dp_rank, mp_rank):
     return f"zero_pp_rank_{dp_rank}_mp_rank_{mp_rank:02d}_optim_states.pt"
 
 
+class CheckpointTagMismatchError(RuntimeError):
+    """Ranks tried to commit a checkpoint under different tags
+    (``checkpoint.tag_validation`` "FAIL")."""
+
+
+def check_checkpoint_tag_consistency(tag, fail=False, group=None):
+    """Every rank saves under rank 0's tag: rank 0 broadcasts its tag
+    over the process group and each rank compares (the JAX package's
+    check through its coordination service). True when consistent or
+    with one rank; on a mismatch warns, or raises
+    `CheckpointTagMismatchError` where ``fail``."""
+    tag = str(tag)
+    if get_world_size(group) <= 1:
+        return True
+    import torch.distributed as dist
+    box = [tag]
+    dist.broadcast_object_list(box, src=0, group=group)
+    if box[0] == tag:
+        return True
+    msg = (f"checkpoint tag mismatch across ranks: rank 0 is saving "
+           f"{box[0]!r} but rank {get_rank(group)} is saving {tag!r}; the "
+           f"per-rank files would land in different checkpoint "
+           f"directories")
+    if fail:
+        raise CheckpointTagMismatchError(msg)
+    logger.warning(msg)
+    return False
+
+
+def validate_checkpoint_tag(engine, tag):
+    """The ``checkpoint.tag_validation`` knob's consumer."""
+    cfg = engine._config
+    if cfg.checkpoint_tag_validation_enabled:
+        check_checkpoint_tag_consistency(
+            tag, fail=cfg.checkpoint_tag_validation_fail,
+            group=engine.dp_group)
+
+
 # ---------------------------------------------------------------------------
 # phase 1: snapshot (device → host; the only training stall)
 # ---------------------------------------------------------------------------
@@ -86,8 +139,13 @@ def _host_flats(engine, flats):
     snapshot."""
     bufs = engine.__dict__.setdefault("_ckpt_host_buffers", {})
     cuda = engine.device.type == "cuda"
+    part = engine._part
     out = {}
     for role, src in flats.items():
+        if part is not None and src.numel() == part.size:
+            # a partition: every rank's, in rank order, one role at a
+            # time on the device
+            src = gather_full(src, part, engine.dp_group)
         buf = bufs.get(role)
         if buf is None:
             buf = bufs[role] = torch.empty(src.numel(), dtype=torch.float32,
@@ -212,37 +270,75 @@ def snapshot_checkpoint(engine, client_state=None):
         model_state["optimizer"] = {
             "state": state_dict(_opt_arrays(engine, host, client_sd)),
             "param_groups": _param_groups(engine)}
-    payloads = {_model_states_name(0): model_state}
+    # rank 0 writes the rank-independent files, every rank its zero file
+    payloads = {}
+    if engine.dp_rank == 0:
+        payloads[_model_states_name(0)] = model_state
+        # ship the recovery script with the checkpoint, as the JAX
+        # package does: fp32 weights come back later without the
+        # framework
+        from ..utils import zero_to_fp32 as _z2f
+        with open(_z2f.__file__, "rb") as f:
+            payloads["zero_to_fp32.py"] = f.read()
     if engine.keep_master:
         payloads.update(_zero_payloads(engine, host, client_sd))
-
-    # ship the recovery script with the checkpoint, as the JAX package
-    # does: fp32 weights come back later without the framework
-    from ..utils import zero_to_fp32 as _z2f
-    with open(_z2f.__file__, "rb") as f:
-        payloads["zero_to_fp32.py"] = f.read()
     return payloads
 
 
 def _zero_payloads(engine, host, client_sd):
-    """The zero file of the one data-parallel rank: every leaf whole
-    (dims None, as the JAX package writes a leaf it does not shard)."""
-    opt = _opt_arrays(engine, host, client_sd)
-    master = _natural(engine, host["master"])
-    return {_zero_ckpt_name(0, 0): {
+    """This rank's zero file in the JAX layout of a dp-``world`` engine
+    (`_jax_slices`): ``world`` is the data-parallel world from stage 1
+    on, and 1 at stage 0, whose one file rank 0 writes, as the JAX
+    package does."""
+    stage = engine.zero_optimization_stage()
+    dp = engine.dp_world_size if stage >= 1 else 1
+    if engine.dp_rank >= dp:
+        return {}
+    rank = engine.dp_rank
+    rules = ZeroShardingRules(stage, dp)
+    opt, opt_dims, opt_shapes = _jax_slices(
+        _opt_arrays(engine, host, client_sd), rules, rank)
+    master, master_dims, master_shapes = _jax_slices(
+        _natural(engine, host["master"]), rules, rank)
+    return {_zero_ckpt_name(rank, 0): {
         "optimizer_state_dict": {
             "state": opt,
-            "shard_dims": {k: None for k in opt},
-            "flat_shapes": {},
+            "shard_dims": opt_dims,
+            "flat_shapes": opt_shapes,
             "param_groups": _param_groups(engine),
         },
         "fp32_master": master,
-        "fp32_master_dims": {k: None for k in master},
-        "fp32_master_flat_shapes": {},
-        "zero_stage": engine.zero_optimization_stage(),
-        "partition_count": 1,
-        "dp_rank": 0,
+        "fp32_master_dims": master_dims,
+        "fp32_master_flat_shapes": master_shapes,
+        "zero_stage": stage,
+        "partition_count": dp,
+        "dp_rank": rank,
     }}
+
+
+def _jax_slices(arrays, rules, rank):
+    """The JAX package's `_zero_payloads` slicing of natural arrays for
+    dp rank ``rank``: (slices, dims, flat shapes). A leaf's dim is the
+    one the rules shard, "flat" for a ragged leaf (rank ranges of its
+    raveled array) or None (whole on every rank)."""
+    dp = rules.world
+    dims, out, shapes = {}, {}, {}
+    for key, arr in arrays.items():
+        arr = np.asarray(arr)
+        if rules.master_pad_info(arr.shape) is not None:
+            dims[key] = "flat"
+            shapes[key] = tuple(arr.shape)
+        else:
+            dims[key] = sharded_dim(rules.master_spec(arr.shape))
+        dim = dims[key]
+        if dim is None or dp == 1:
+            out[key] = arr
+        elif dim == "flat":
+            out[key] = np.ascontiguousarray(
+                shard_slice(np.ravel(arr), dp, rank, 0))
+        else:
+            out[key] = np.ascontiguousarray(shard_slice(arr, dp, rank, dim))
+    return out, dims, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -253,13 +349,19 @@ def write_and_commit(payloads, save_dir, tag, step, save_latest=True):
     """Write `payloads` into a staging dir, checksum-manifest + fsync +
     atomically rename it to ``{save_dir}/{tag}``, then flip ``latest``.
     A crash at any point leaves the previous committed state or the new
-    one. Returns the bytes written."""
+    one. Across ranks every rank writes its own payloads into rank 0's
+    staging dir; rank 0 commits the manifest of every rank's files once
+    all are written and flips ``latest`` after the commit barrier.
+    Returns the bytes this rank wrote."""
     tag = str(tag)
-    os.makedirs(save_dir, exist_ok=True)
+    rank, world = get_rank(), get_world_size()
     staging = os.path.join(save_dir, mf.STAGING_PREFIX + tag)
-    if os.path.isdir(staging):  # leftover of a crashed earlier save
-        shutil.rmtree(staging)
-    os.makedirs(staging)
+    if rank == 0:
+        os.makedirs(save_dir, exist_ok=True)
+        if os.path.isdir(staging):  # leftover of a crashed earlier save
+            shutil.rmtree(staging)
+        os.makedirs(staging)
+    barrier("deeperspeed_ckpt_staging")
     entries, nbytes = {}, 0
     for rel, payload in payloads.items():
         path = os.path.join(staging, rel)
@@ -272,18 +374,29 @@ def write_and_commit(payloads, save_dir, tag, step, save_latest=True):
         # checksum now, while the bytes are still in the page cache
         entries[rel] = mf.file_entry(path)
         nbytes += entries[rel]["bytes"]
-    mf.commit_staged(save_dir, staging, tag, step, files=entries)
-    if save_latest:
+    if world > 1:
+        import torch.distributed as dist
+        every = [None] * world
+        dist.all_gather_object(every, entries)
+        entries = {k: v for e in every for k, v in e.items()}
+    if rank == 0:
+        mf.commit_staged(save_dir, staging, tag, step, files=entries)
+    # every rank's files are committed before anyone flips or reads
+    # latest
+    barrier("deeperspeed_ckpt_commit")
+    if save_latest and rank == 0:
         mf.write_latest(save_dir, tag)
+    barrier("deeperspeed_ckpt_latest")
     return nbytes
 
 
 def save_checkpoint(engine, save_dir, tag=None, client_state=None,
                     save_latest=True):
-    """Snapshot and commit inline. Tag validation across hosts is
-    trivially true on one process."""
+    """Snapshot and commit inline, every rank under rank 0's tag where
+    ``checkpoint.tag_validation`` asks it checked."""
     if tag is None:
         tag = f"global_step{engine.global_steps}"
+    validate_checkpoint_tag(engine, tag)
     payloads = snapshot_checkpoint(engine, client_state)
     write_and_commit(payloads, save_dir, tag, step=engine.global_steps,
                      save_latest=save_latest)
@@ -366,8 +479,11 @@ def _module_arrays(model_state):
 def _copy_leaves(engine, dst, arrays, prefix=""):
     """Every leaf ``prefix + key`` of ``arrays`` into its slice of one
     host fp32 buffer, then one copy into the flat engine tensor ``dst``
-    (cast to its dtype), in place."""
-    host = torch.empty(engine.num_params, dtype=torch.float32)
+    (cast to its dtype), in place: all of it, or this rank's partition
+    where ``dst`` is one."""
+    part = engine._part
+    flat_n = part.padded if part is not None else engine.num_params
+    host = torch.zeros(flat_n, dtype=torch.float32)
     for name, lo, hi, shape in engine.param_slices:
         key = prefix + path_key(name)
         if key not in arrays:
@@ -377,6 +493,8 @@ def _copy_leaves(engine, dst, arrays, prefix=""):
             raise ValueError(f"checkpoint leaf {key!r} has shape "
                              f"{tuple(leaf.shape)}, the model's is {shape}")
         host[lo:hi] = leaf.reshape(-1)
+    if part is not None and dst.numel() == part.size:
+        host = host[part.lo:part.hi]
     dst.copy_(host)
 
 
@@ -466,8 +584,8 @@ def _apply_checkpoint(engine, load_dir, tag, ckpt_dir, model_state,
     saved_dp = model_state.get("dp_world_size")
     if saved_dp is not None and int(saved_dp) != engine.dp_world_size:
         log_dist(f"elastic resume: dp world size changed {saved_dp} -> "
-                 f"{engine.dp_world_size}; zero shards merge onto this "
-                 f"card", ranks=[0])
+                 f"{engine.dp_world_size}; the zero shards merge and each "
+                 f"rank takes its partition", ranks=[0])
 
     # --- params, then masters and moments --------------------------------
     _copy_leaves(engine, engine._params_flat, _module_arrays(model_state))
@@ -538,7 +656,8 @@ def _merge(flats, dims, saved_dp, flat_shapes=None):
 def _load_zero_checkpoint(engine, ckpt_dir):
     """Merge the per-dp-rank zero files (written at any data-parallel
     world size) and copy the masters and the Adam state into the
-    engine's flat buffers."""
+    engine's flat buffers (this rank's partition of them at stages
+    1-2)."""
     shards = []
     while True:
         path = os.path.join(ckpt_dir, _zero_ckpt_name(len(shards), 0))

@@ -466,10 +466,13 @@ def moe_ffn_dense(params, x, capacity_factor=1.25, top_k=1, rng=None,
 
 def moe_ffn_expert_parallel(*args, **kwargs):
     """Expert parallelism (experts sharded over ranks, all-to-all token
-    exchange) is not ported yet: it comes with the data-parallel slice."""
+    exchange) is not ported yet: it comes with the ranks slice after
+    data-parallel ZeRO 1-2 (ROADMAP.md A.6). Replicated experts train
+    across data-parallel ranks like any other leaf."""
     raise NotImplementedError(
-        "moe_ffn_expert_parallel is not ported yet (it comes with the "
-        "data-parallel slice; see ROADMAP.md)")
+        "moe_ffn_expert_parallel is not ported yet (expert parallelism "
+        "comes after data-parallel ZeRO 1-2 in the ranks slice, A.6; see "
+        "ROADMAP.md)")
 
 
 class MoELayer:
@@ -488,7 +491,7 @@ class MoELayer:
         if mesh is not None:
             raise NotImplementedError(
                 "MoELayer with a mesh (expert parallelism) is not ported "
-                "yet (scale-out)")
+                "yet (scale-out, ROADMAP.md A.6)")
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
         self.num_experts = num_experts

@@ -139,20 +139,29 @@ def _parse_sparse_attention(param_dict):
     return common
 
 
+def _default_dp_world_size():
+    """The data-parallel world when none is given: the process group's
+    size (one rank a card), 1 without a process group."""
+    from ..utils.distributed import get_world_size
+    return get_world_size()
+
+
 class DeepSpeedConfig:
     """Parsed, validated training config (the JAX `DeepSpeedConfig` for
     the keys the port's engine runs). ``world_size`` is the
-    data-parallel world the batch triple resolves against: 1 on one
-    card."""
+    data-parallel world the batch triple resolves against: by default
+    the `torch.distributed` world, 1 without a process group (the JAX
+    config's default is its device count)."""
 
-    def __init__(self, json_file_or_dict, param_dict=None, world_size=1):
+    def __init__(self, json_file_or_dict, param_dict=None, world_size=None):
         if param_dict is not None:
             self._param_dict = dict(param_dict)
         elif isinstance(json_file_or_dict, dict):
             self._param_dict = dict(json_file_or_dict)
         else:
             self._param_dict = load_config_json(json_file_or_dict)
-        self.world_size = int(world_size)
+        self.world_size = int(world_size) if world_size is not None \
+            else _default_dp_world_size()
         self._reject_unported(self._param_dict)
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
@@ -285,6 +294,13 @@ class DeepSpeedConfig:
             d.get(c.GRADIENT_CLIPPING, c.GRADIENT_CLIPPING_DEFAULT))
         self.prescale_gradients = bool(
             d.get(c.PRESCALE_GRADIENTS, c.PRESCALE_GRADIENTS_DEFAULT))
+        # bf16 gradients default to fp32-upcast reductions (the fork's
+        # rule, as the JAX config)
+        self.fp32_allreduce = bool(d.get(
+            c.FP32_ALLREDUCE, c.FP32_ALLREDUCE_DEFAULT_BF16
+            if self.bfloat16_enabled else c.FP32_ALLREDUCE_DEFAULT))
+        self.sparse_gradients_enabled = bool(
+            d.get(c.SPARSE_GRADIENTS, c.SPARSE_GRADIENTS_DEFAULT))
 
         optimizer = d.get(c.OPTIMIZER)
         if optimizer is not None:

@@ -72,6 +72,14 @@ PRESCALE_GRADIENTS_DEFAULT = False
 GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
 GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
 
+# the data-parallel reduction: fp32 for bf16 gradients by default (the
+# fork's rule); sparse (CSR) all-gathers of the embedding gradients
+FP32_ALLREDUCE = "fp32_allreduce"
+FP32_ALLREDUCE_DEFAULT = False
+FP32_ALLREDUCE_DEFAULT_BF16 = True
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
+
 # Top-level blocks of the JAX config that the port does not carry yet:
 # block → the slice that brings it (ROADMAP.md queue A). A block that is
 # set (present, and not null / false / {} / {"enabled": false}) raises

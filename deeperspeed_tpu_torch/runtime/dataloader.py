@@ -3,8 +3,11 @@
 `DeepSpeedDataLoader` wraps any indexable dataset (torch Dataset, numpy
 arrays, lists of tuples) with rank-strided sampling, batching into numpy
 stacks, and optional infinite repeat. The training engine moves each
-batch to its device. One process trains on one card in this slice, so
-the replica count and rank default to 1 and 0. `state_dict` /
+batch to its device. The replica count and the rank default to the
+`torch.distributed` process group's (one rank a card; 1 and 0 without a
+group), as the JAX loader's default to the process count and index;
+each rank loads every ``num_replicas``-th sample from its rank on.
+`state_dict` /
 `load_state_dict` carry the resume position through a checkpoint with
 the JAX loader's keys and errors.
 """
@@ -61,8 +64,10 @@ class DeepSpeedDataLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
-        self.num_replicas = num_replicas if num_replicas is not None else 1
-        self.rank = rank if rank is not None else 0
+        from ..utils.distributed import get_rank, get_world_size
+        self.num_replicas = num_replicas if num_replicas is not None \
+            else get_world_size()
+        self.rank = rank if rank is not None else get_rank()
         # One-shot iterators (generator samplers, iter(x) is x) are
         # consumed by the first traversal — `_num_batches()` below would
         # exhaust them and `__iter__` would then yield zero batches.

@@ -1,11 +1,12 @@
-"""The training engine: `DeepSpeedEngine` on one card.
+"""The training engine: `DeepSpeedEngine`, on one card or across
+data-parallel `torch.distributed` ranks.
 
 The port of the training step of `deeperspeed_tpu/runtime/engine.py`
 (`_init_state`, `_loss_and_grads`, `_train_step_body`, `_apply_update`,
 `train_batch`, `eval_batch`, and the legacy `forward` / `backward` /
 `step` loop): bf16, fp16 or fp32 compute with fp32 masters or the lean
 state, Adam(W), the LR schedules, gradient clipping and ZeRO stages
-0-2, which on one card are the same single-rank step.
+0-2.
 
 State layout. The JAX engine keeps pytrees and lets XLA fuse each
 leaf's update; eager PyTorch fuses nothing, so the port keeps the
@@ -27,6 +28,38 @@ compute dtype, and several are summed in an fp32 accumulator (the JAX
 scan's fp32 carry) and divided by their count; unscaling, the
 prescale divide and clipping run on an fp32 copy. The kernel then
 updates the bf16 parameters in place from its fp32 math.
+
+Data parallel (a `torch.distributed` process group, which
+`utils.distributed.init_distributed` forms; one rank a card, NCCL on
+the card, gloo on the CPU). Each rank takes its own micro-batches
+[gas, micro, ...] (the JAX engine's global batch split over its data
+axis), and the gradients are reduced across the ranks as the JAX
+engine's shardings have XLA reduce them:
+
+- stage 0: every rank keeps all the state; the fp32 accumulator (the
+  gradient buffer in fp32 compute) is all-reduced at the accumulation
+  boundary;
+- stage 1: the flat buffers are padded to a multiple of world ×
+  `zero.stage1.PARTITION_ALIGNMENT` and each rank keeps the fp32
+  masters and the moments of one contiguous partition
+  (`zero.stage1.flat_partition`); the whole fp32 accumulator is
+  reduce-scattered once at the boundary;
+- stage 2: each micro-batch's gradient is reduce-scattered as it is
+  made into an fp32 accumulator of the rank's partition, so no rank
+  holds a whole fp32 gradient.
+
+The sum is divided by the world (with the accumulation steps), in fp32
+where ``allreduce_always_fp32()`` holds (bf16 by default). The global
+norm sums each rank's squares over the group, an fp16 overflow on any
+rank skips the step on all (`fp16.loss_scaler.grads_finite`), each rank
+launches the flat Adam kernel on its partition (which writes the compute
+copy of the partition), and the compute partitions are all-gathered
+into the flat parameter buffer. The mean loss is all-reduced. Where
+``sparse_gradients`` is set (stage 0), the token embeddings' gradient
+rows are all-gathered as a `csr_tensor.CSRTensor` instead. Scalars go to
+the monitor from rank 0 only, as the JAX package writes from process 0.
+At world 1 every collective is a copy and the step is the single-rank
+one bit for bit.
 
 Step (`train_batch`), as in the JAX engine: for each micro-batch the
 loss (times the loss scale, fp16 only) is differentiated, and the
@@ -153,6 +186,7 @@ from .progressive_layer_drop import ProgressiveLayerDrop
 from .sentinel import (TrainingHealthSentinel, grad_anomaly,
                        init_health_state, probe_update)
 from .utils import GradientNoiseScale, clip_grad_norm_, global_norm
+from .zero.stage1 import all_gather_, flat_partition, reduce_scatter_
 
 
 # the base seed of the per-micro-step generator (the JAX engine's
@@ -195,17 +229,15 @@ def _not_ported(what, slice_name):
         f"see ROADMAP.md)")
 
 
-def _check_single_rank():
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() and \
-            dist.get_world_size() > 1:
-        raise _not_ported(
-            f"training across {dist.get_world_size()} ranks (data "
-            f"parallel / ZeRO partitions)", "data-parallel")
+# the token embeddings (GPT-NeoX's and GPT-2's, BERT's): the leaves whose
+# gradient rows `sparse_gradients` reduces as a CSRTensor
+CSR_EMBEDDING_LEAVES = ("embed.wte", "embeddings.word")
 
 
 class DeepSpeedEngine:
-    """Training engine with the DeepSpeed training API on one card.
+    """Training engine with the DeepSpeed training API, on one card or
+    on each rank of a `torch.distributed` process group (one card a
+    rank; data parallel with ZeRO stages 0-2).
 
     ``model`` is a `models.gpt_neox.GPTNeoX`, a `models.gpt2.GPT2` or
     a `models.bert` model (any `torch.nn.Module` with ``loss_fn(params,
@@ -231,8 +263,8 @@ class DeepSpeedEngine:
                 "model must be a torch.nn.Module exposing loss_fn(params, "
                 "batch) and params_tree() (models.gpt_neox.GPTNeoX)")
         if mpu is not None:
-            raise _not_ported("a model-parallel unit (mpu)", "scale-out")
-        _check_single_rank()
+            raise _not_ported("a model-parallel unit (mpu)",
+                              "tensor / sequence parallel (A.6)")
         config_arg = config if config is not None else \
             getattr(args, "deepspeed_config", None)
         if config_arg is None and config_params is None:
@@ -244,6 +276,7 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
         self.device = next(model.parameters()).device
         self.compute_dtype = self._config.precision
+        self._configure_data_parallel()
 
         # config-drivable model features, applied before the flat state
         # is built: the model builds expert weights, its attention core,
@@ -281,6 +314,7 @@ class DeepSpeedEngine:
         self._rng = torch.Generator(device=self.device)
 
         self.optimizer = self._configure_optimizer(optimizer)
+        self._check_partitioned_optimizer()
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self.batch_size_scheduler = None
         if self._config.batch_size_schedule_enabled:
@@ -359,9 +393,6 @@ class DeepSpeedEngine:
         self.global_samples = 0
         self.micro_steps = 0
         self.skipped_steps = 0
-        # one process, one card: the topology a checkpoint records
-        self.dp_world_size = 1
-        self.mp_world_size = 1
         # the legacy loop's micro-batches since the last step, and their
         # loss sum; the last forward's loss (what backward() runs when
         # it is given none)
@@ -518,6 +549,19 @@ class DeepSpeedEngine:
                               "compressed comm (A.7)")
         raise DeepSpeedConfigError(f"Unknown optimizer {name!r}")
 
+    def _check_partitioned_optimizer(self):
+        """Across ranks at stages 1-2 each rank steps its partition of
+        the flat state: the flat Adam does; Lamb's per-parameter trust
+        ratio and a client's update over the whole flat masters do not
+        run on a partition yet."""
+        if not self._partitioned or isinstance(self.optimizer, FusedAdam):
+            return
+        raise _not_ported(
+            f"{type(self.optimizer).__name__} on a ZeRO stage "
+            f"{self.zero_optimization_stage()} partition across "
+            f"{self.dp_world_size} ranks (Adam partitions; use ZeRO "
+            f"stage 0 for Lamb or a client optimizer)", "ranks (A.6)")
+
     def _configure_lr_scheduler(self, client_scheduler):
         if client_scheduler is not None:
             if callable(client_scheduler) and not hasattr(
@@ -532,6 +576,35 @@ class DeepSpeedEngine:
                  f"{self._config.scheduler_name}", ranks=[0])
         return sched
 
+    def _configure_data_parallel(self):
+        """The data-parallel world: the `torch.distributed` default
+        group when one exists (at any world size, 1 included), else one
+        rank and no collectives. Stages 1-2 partition the flat state
+        (``_part``, this rank's range, set by `_init_state`)."""
+        from ..utils import distributed as ds_dist
+        self.mp_world_size = 1
+        self.dp_world_size = ds_dist.get_world_size()
+        self.dp_rank = ds_dist.get_rank()
+        self.dp_group = None
+        self._part = None
+        if not ds_dist.is_initialized():
+            return
+        import torch.distributed as dist
+        if dist.get_backend() == "nccl" and self.device.type != "cuda":
+            raise DeepSpeedConfigError(
+                f"the process group's backend is nccl but the model is on "
+                f"{self.device}: build the model on the rank's card, or "
+                f"init_distributed(dist_backend=\"gloo\") for the CPU")
+        self.dp_group = dist.group.WORLD
+
+    @property
+    def _partitioned(self):
+        """Stages 1-2 under a process group: each rank keeps the fp32
+        masters and moments (stage 2: the accumulator too) of one
+        contiguous, 16-byte aligned range of the flat buffers."""
+        return self.dp_group is not None and \
+            self.zero_optimization_stage() >= 1
+
     def _init_state(self):
         """The flat state from the model's parameters: fp32 masters (in
         the lean state the flat compute-dtype buffer is the master, and
@@ -539,7 +612,15 @@ class DeepSpeedEngine:
         compute-dtype buffer and their grads views into the flat
         gradient buffer. A separate fp32 accumulator exists where the
         compute dtype is 16-bit, except in the lean state with one
-        micro-batch a step, whose gradients reach Adam as they are."""
+        micro-batch a step, whose gradients reach Adam as they are.
+
+        Partitioned across ranks (stages 1-2): the flat compute and
+        gradient buffers are whole (padded to ``_part.padded``); the
+        masters and the moments are this rank's partition (with fp32
+        compute, a view of the parameters' partition); stage 1 keeps a
+        whole fp32 accumulator and a partition it is reduce-scattered
+        into (``_grad_part``), stage 2 an fp32 accumulator of the
+        partition only."""
         named = list(self.module.named_parameters())
         self.param_names = [n for n, _ in named]
         sizes = [p.numel() for _, p in named]
@@ -550,20 +631,38 @@ class DeepSpeedEngine:
         self.param_slices = [(n, lo, hi, tuple(p.shape)) for (n, p), lo, hi
                              in zip(named, offsets[:-1], offsets[1:])]
         lean = not self.keep_master and cdt != torch.float32
-        self._master = torch.empty(
-            self.num_params, dtype=cdt if lean else torch.float32,
-            device=dev)
+        part = self._part = flat_partition(
+            self.num_params, self.dp_world_size, self.dp_rank) \
+            if self._partitioned else None
+        flat_n = part.padded if part is not None else self.num_params
+        full = torch.zeros(flat_n, dtype=cdt if lean else torch.float32,
+                           device=dev)
         with torch.no_grad():
             for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
-                self._master[lo:hi].copy_(p.detach().reshape(-1))
-        self._params_flat = self._master if self._master.dtype == cdt \
-            else self._master.to(cdt)
-        self._grads_flat = torch.zeros(self.num_params, dtype=cdt,
-                                       device=dev)
+                full[lo:hi].copy_(p.detach().reshape(-1))
+        self._params_flat = full if full.dtype == cdt else full.to(cdt)
+        self._grads_flat = torch.zeros(flat_n, dtype=cdt, device=dev)
         one_micro_lean = lean and self.gradient_accumulation_steps() == 1
-        self._grad_acc = self._grads_flat \
-            if cdt == torch.float32 or one_micro_lean else \
-            torch.zeros(self.num_params, dtype=torch.float32, device=dev)
+        self._grad_part = None
+        if part is None:
+            self._master = full
+            self._grad_acc = self._grads_flat \
+                if cdt == torch.float32 or one_micro_lean else \
+                torch.zeros(flat_n, dtype=torch.float32, device=dev)
+        else:
+            self._master = self._params_flat[part.lo:part.hi] \
+                if cdt == torch.float32 else full[part.lo:part.hi].clone()
+            if self.zero_optimization_stage() >= 2:
+                self._grad_acc = self._grad_part = torch.zeros(
+                    part.size, dtype=torch.float32, device=dev)
+            else:
+                self._grad_acc = self._grads_flat \
+                    if cdt == torch.float32 else \
+                    torch.zeros(flat_n, dtype=torch.float32, device=dev)
+                self._grad_part = torch.zeros(part.size,
+                                              dtype=torch.float32,
+                                              device=dev)
+        del full
         self._grad_ptrs = []
         for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
             p.data = self._params_flat[lo:hi].view(p.shape)
@@ -603,8 +702,9 @@ class DeepSpeedEngine:
         self._last_step_stamp = None
         self._last_used_lr = None
         self._step_metrics = {}
-        if self._config.tensorboard_enabled or \
-                self._config.monitor_export_active:
+        # rank 0 writes the event stream (the JAX package's process 0)
+        if (self._config.tensorboard_enabled or
+                self._config.monitor_export_active) and self.dp_rank == 0:
             from .monitor import TensorBoardMonitor
             self.monitor = TensorBoardMonitor(
                 output_path=self._config.tensorboard_output_path,
@@ -620,11 +720,13 @@ class DeepSpeedEngine:
         """The "telemetry" block (runtime/telemetry.py): spans mirrored
         into `torch.profiler.record_function`, goodput buckets, in-engine
         MFU from the flops profiler's count, trigger-driven capture.
-        `NULL_TELEMETRY` (every hook a no-op) when the block is absent."""
+        `NULL_TELEMETRY` (every hook a no-op) when the block is absent,
+        and on every rank but 0."""
         from .telemetry import build_telemetry
+        # rank 0 measures and writes, as the JAX package's process 0
         self.telemetry = build_telemetry(
-            self._config.telemetry_config, monitor=self.monitor,
-            devices=[self.device])
+            self._config.telemetry_config if self.dp_rank == 0 else None,
+            monitor=self.monitor, devices=[self.device])
         self._step_flops = {}   # step-variant key (gas) -> flops a step
 
     @property
@@ -915,6 +1017,12 @@ class DeepSpeedEngine:
                                     rng=self._rng, **kw)
                 if amax is not None:
                     loss, amax = loss
+                    if self.dp_world_size > 1:
+                        # the JAX history is the global micro-batch's:
+                        # the max over the ranks' own
+                        import torch.distributed as dist
+                        dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                                        group=self.dp_group)
                 self._micro_backward(loss)
             quant = None if amax is None else self.quant._replace(amax=amax)
             mean_loss, overflow = self._update_accumulated(
@@ -960,6 +1068,15 @@ class DeepSpeedEngine:
             per_micro(self._grads_flat)
         if stash is not None:
             self._grads_flat.add_(stash)
+        elif self._grad_acc is self._grad_part:
+            # stage 2: the micro-batch's sum over the ranks into this
+            # rank's fp32 partition accumulator
+            reduce_scatter_(
+                self._grad_acc, self._grads_flat, self._part, self.dp_group,
+                dtype=self._reduce_dtype(self._grads_flat),
+                bucket=self._config.zero_config.reduce_bucket_size,
+                accumulate=True)
+            self._grads_flat.zero_()
         elif self._grad_acc is not self._grads_flat:
             self._grad_acc.add_(self._grads_flat)
             self._grads_flat.zero_()
@@ -988,10 +1105,15 @@ class DeepSpeedEngine:
         n = self._accum_count
         lr = self._current_lr()
         self._last_used_lr = lr   # what THIS step runs with (monitor)
-        grads = self._grad_acc
-        if n > 1:
-            grads.div_(n)
+        grads = self._reduced_grads()
+        if n * self.dp_world_size > 1:
+            grads.div_(n * self.dp_world_size)
         loss = self._accum_loss / n
+        if self.dp_group is not None:
+            import torch.distributed as dist
+            dist.all_reduce(loss, group=self.dp_group)
+            if self.dp_world_size > 1:
+                loss = loss / self.dp_world_size
         if fault is not None:
             loss, grads = apply_fault(loss, grads, fault)
         overflow = self._apply_update(grads, lr,
@@ -1002,6 +1124,60 @@ class DeepSpeedEngine:
         self._step_metrics["loss"] = mean_loss
         self._accum_count, self._accum_loss = 0, None
         return mean_loss, overflow
+
+    def _reduce_dtype(self, grads):
+        """The dtype the ranks sum gradients in: fp32 where
+        ``allreduce_always_fp32()`` holds or they are fp32, else their
+        own (fp16 reduces in fp16, as the reference does)."""
+        if self.allreduce_always_fp32():
+            return torch.float32
+        return grads.dtype
+
+    def _reduced_grads(self):
+        """The accumulated gradients summed over the ranks: the
+        accumulator itself with no process group; all-reduced at stage 0
+        (the token embeddings' rows gathered as a CSRTensor where
+        ``sparse_gradients`` is set); reduce-scattered into this rank's
+        fp32 partition at stage 1; stage 2's partition accumulator,
+        reduced micro-batch by micro-batch."""
+        acc = self._grad_acc
+        if self.dp_group is None or acc is self._grad_part:
+            return acc
+        if self._part is not None:
+            reduce_scatter_(self._grad_part, acc, self._part, self.dp_group,
+                            dtype=torch.float32)
+            return self._grad_part
+        import torch.distributed as dist
+        red = acc if acc.dtype == self._reduce_dtype(acc) else \
+            acc.to(self._reduce_dtype(acc))
+        sparse = [(lo, hi, shape) for name, lo, hi, shape in
+                  self.param_slices if name in CSR_EMBEDDING_LEAVES] \
+            if self.sparse_gradients_enabled() else []
+        edges = [0] + [b for lo, hi, _ in sparse for b in (lo, hi)] + \
+            [red.numel()]
+        for lo, hi in zip(edges[::2], edges[1::2]):
+            if hi > lo:
+                dist.all_reduce(red[lo:hi], group=self.dp_group)
+        if sparse:
+            from .csr_tensor import CSRTensor, csr_allgather
+            for lo, hi, shape in sparse:
+                dense = red[lo:hi].view(shape)
+                dense.copy_(csr_allgather(CSRTensor(dense),
+                                          self.dp_group).to_dense())
+        return red
+
+    def allreduce_always_fp32(self):
+        """bf16 runs reduce in fp32 by default (the fork's rule,
+        ``fp32_allreduce``)."""
+        return self._config.fp32_allreduce
+
+    def sparse_gradients_enabled(self):
+        return self._config.sparse_gradients_enabled
+
+    def allreduce_gradients(self, bucket_size=None):
+        """A no-op, as in the JAX engine: the gradients are reduced in
+        the step (stages 0-1) or in each micro-batch's backward
+        (stage 2)."""
 
     def _apply_update(self, grads, lr, loss=None, quant=None):
         """Unscale, check, clip, update the masters and recast; on an
@@ -1028,14 +1204,18 @@ class DeepSpeedEngine:
             grads.div_(self.scale_state.cur_scale)
         if cfg.prescale_gradients and cfg.gradient_predivide_factor != 1.0:
             grads.div_(cfg.gradient_predivide_factor)
+        # a partition's flag and norm are agreed over the ranks; stage
+        # 0's gradients are whole and alike on every rank
+        group = self.dp_group if self._part is not None else None
         overflow = cfg.loss_scaling_enabled and \
-            not bool(grads_finite(grads))
+            not bool(grads_finite(grads, group))
         skip = overflow
         # the global norm (after unscale and the predivide, before
         # clipping; the clip reuses it) where the probe or the monitor
         # reads it: a 0-d device tensor, read at the monitor's flush
-        grad_norm = global_norm(grads) if self._monitor_wants_grad_norm \
-            else None
+        grad_norm = global_norm(grads, group) if \
+            self._monitor_wants_grad_norm or (
+                group is not None and cfg.gradient_clipping > 0) else None
         self._step_metrics["grad_norm"] = grad_norm
         # the scale this step ran with (the JAX step's metrics.loss_scale)
         self._step_metrics["loss_scale"] = self.scale_state.cur_scale
@@ -1052,8 +1232,7 @@ class DeepSpeedEngine:
             if cfg.gradient_clipping > 0:
                 self._step_metrics["grad_norm"] = clip_grad_norm_(
                     grads, cfg.gradient_clipping, norm=grad_norm)
-            compute_out = None if self._params_flat is self._master \
-                else self._params_flat
+            compute_out = self._compute_out()
             if is_client_optimizer(self.optimizer):
                 self._client_update(grads, lr, compute_out)
             else:
@@ -1061,6 +1240,10 @@ class DeepSpeedEngine:
                     grads, self.opt_state, self._master, lr=lr,
                     compute_out=compute_out,
                     use_kernel=getattr(self.module, "use_kernels", True))
+            if self._part is not None:
+                # every rank's new compute partition into every rank's
+                # flat parameter buffer
+                all_gather_(self._params_flat, self._part, self.dp_group)
         if self.dynamic_loss_scale():
             scaler = self.loss_scaler
             self.scale_state = update_loss_scale(
@@ -1074,6 +1257,17 @@ class DeepSpeedEngine:
             self.scale_state = self.scale_state._replace(
                 cur_iter=self.scale_state.cur_iter + 1)
         return overflow
+
+    def _compute_out(self):
+        """Where the optimizer writes the new compute-dtype parameters:
+        nothing where the masters are the parameters (or a view of their
+        partition), else the flat compute buffer (this rank's
+        partition of it across ranks)."""
+        if self._master.dtype == self.compute_dtype:
+            return None
+        if self._part is not None:
+            return self._params_flat[self._part.lo:self._part.hi]
+        return self._params_flat
 
     def _client_update(self, grads, lr, compute_out):
         """One step of a client optimizer over the flat masters: its

@@ -6,8 +6,10 @@ branchless arithmetic; the port's engine reads the overflow flag on the
 host each fp16 step (the JAX engine does too, `_after_step`), so the
 state is plain Python numbers and `update_loss_scale` is the same
 transition written with branches. bf16 and fp32 runs keep a static scale
-of 1 and never check for overflow. `ScaleFloorWatch` watches a dynamic
-scale pinned at its floor (``fp16.min_scale_patience``).
+of 1 and never check for overflow. Across data-parallel ranks the
+overflow flag is agreed over the process group (`grads_finite`), as the
+JAX step agrees it over the data axis. `ScaleFloorWatch` watches a
+dynamic scale pinned at its floor (``fp16.min_scale_patience``).
 """
 
 from typing import NamedTuple
@@ -34,9 +36,21 @@ def init_loss_scale_state(init_scale=2 ** 32, delayed_shift=1,
                           cur_hysteresis=int(delayed_shift))
 
 
-def grads_finite(flat_grads):
-    """0-d bool tensor: every element of the flat gradient is finite."""
-    return torch.isfinite(flat_grads).all()
+def grads_finite(flat_grads, group=None):
+    """0-d bool tensor: every element of the flat gradient is finite.
+    With a process ``group`` of more than one rank, ``flat_grads`` is
+    this rank's partition and the flag is agreed over the ranks (any
+    rank's overflow is every rank's), so the dynamic scale moves alike
+    on all of them."""
+    finite = torch.isfinite(flat_grads).all()
+    if group is None:
+        return finite
+    import torch.distributed as dist
+    if dist.get_world_size(group) == 1:
+        return finite
+    flag = finite.to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return flag[0].bool()
 
 
 def update_loss_scale(state, overflow, scale_factor=2.0, scale_window=1000,

@@ -5,7 +5,9 @@ The port of `global_norm`, `clip_grad_norm_` and `GradientNoiseScale` of
 over a pytree; the port's gradient is one flat buffer, so the norm is
 one reduction and the clip one scale, both on the device (no host
 read), and the noise-scale estimator keeps its running sum on the
-gradient's device.
+gradient's device. Where the gradient is partitioned across
+data-parallel ranks, the norm takes the process group (the JAX
+versions' ``axis_name``) and sums the squares over it.
 """
 
 import atexit
@@ -33,16 +35,28 @@ def register_weak_atexit(obj, method_name):
     return hook
 
 
-def global_norm(flat):
-    """L2 norm of a flat tensor, as a 0-d fp32 tensor."""
-    return torch.linalg.vector_norm(flat.float())
+def global_norm(flat, group=None):
+    """L2 norm of a flat tensor, as a 0-d fp32 tensor. With a process
+    ``group`` of more than one rank, ``flat`` is this rank's partition
+    and the squares are summed over the ranks (the JAX `global_norm`'s
+    ``axis_name``)."""
+    norm = torch.linalg.vector_norm(flat.float())
+    if group is None:
+        return norm
+    import torch.distributed as dist
+    if dist.get_world_size(group) == 1:
+        return norm
+    sq = norm.square()
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
-def clip_grad_norm_(flat, max_norm, norm=None):
-    """Scale ``flat`` in place so its L2 norm is at most ``max_norm``.
-    A non-finite norm leaves it unscaled (the fp16 overflow skip handles
-    those steps). Returns the norm before clipping."""
-    total = global_norm(flat) if norm is None else norm
+def clip_grad_norm_(flat, max_norm, norm=None, group=None):
+    """Scale ``flat`` in place so its L2 norm (over the ranks of
+    ``group`` where given) is at most ``max_norm``. A non-finite norm
+    leaves it unscaled (the fp16 overflow skip handles those steps).
+    Returns the norm before clipping."""
+    total = global_norm(flat, group) if norm is None else norm
     coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
     coef = torch.where(torch.isfinite(total), coef, torch.ones_like(coef))
     flat.mul_(coef.to(flat.dtype))

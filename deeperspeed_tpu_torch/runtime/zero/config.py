@@ -1,12 +1,12 @@
 """The "zero_optimization" block → `DeepSpeedZeroConfig`.
 
 The port of `deeperspeed_tpu/runtime/zero/config.py` for the stages the
-port trains with: 0, 1 and 2 on one card, where they are the same
-single-rank step (masters, moments and gradients are flat fp32 buffers
-the card holds whole). The same keys, defaults and errors as the JAX
-parser; stage 3, the offload sub-blocks (and their deprecated boolean
-spellings) and the explicit collective schedule raise
-`DeepSpeedConfigError` "not ported".
+port trains with: 0, 1 and 2, on one card or across data-parallel
+ranks (stage 1 partitions the fp32 masters and moments, stage 2 the
+gradient accumulator too; `runtime/engine.py`). The same keys, defaults
+and errors as the JAX parser; stage 3, the offload sub-blocks (and
+their deprecated boolean spellings) and the explicit collective
+schedule raise `DeepSpeedConfigError` "not ported" (ROADMAP.md A.6).
 """
 
 from dataclasses import dataclass
@@ -18,15 +18,18 @@ from . import constants as zc
 def _not_ported(what):
     return DeepSpeedConfigError(
         f"zero_optimization: {what} is not ported yet (the port trains "
-        f"with ZeRO stages 0-2 on one card; see ROADMAP.md)")
+        f"with ZeRO stages 0-2; stage 3 and the offload tiers come with "
+        f"A.6 and A.7, see ROADMAP.md)")
 
 
 @dataclass(frozen=True)
 class DeepSpeedZeroConfig:
-    """The ZeRO stage. On one card stages 0-2 are the same step, so the
+    """The ZeRO stage and ``reduce_bucket_size``, the elements of each
+    partition one stage-2 reduce-scatter moves at a time; the other
     bucket and overlap knobs are checked as the JAX parser checks them
     and otherwise have nothing to tune."""
     stage: int = zc.ZERO_OPTIMIZATION_STAGE_DEFAULT
+    reduce_bucket_size: int = zc.ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE_DEFAULT
 
     @property
     def enabled(self):
@@ -67,4 +70,7 @@ class DeepSpeedZeroConfig:
                 raise DeepSpeedConfigError(
                     f"zero_optimization.{key} must be >= 0, got "
                     f"{d[key]!r}")
-        return cls(stage=stage)
+        return cls(stage=stage, reduce_bucket_size=as_int(get_scalar_param(
+            d, zc.ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE,
+            zc.ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE_DEFAULT),
+            zc.ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE))

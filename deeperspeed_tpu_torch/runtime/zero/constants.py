@@ -14,6 +14,9 @@ MAX_STAGE_ZERO_OPTIMIZATION = ZERO_OPTIMIZATION_WEIGHTS
 ZERO_OPTIMIZATION_STAGE = "stage"
 ZERO_OPTIMIZATION_STAGE_DEFAULT = ZERO_OPTIMIZATION_DISABLED
 
+ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE = "reduce_bucket_size"
+ZERO_OPTIMIZATION_REDUCE_BUCKET_SIZE_DEFAULT = 500_000_000
+
 # size knobs the JAX parser rejects when negative
 SIZE_KEYS = ("reduce_bucket_size", "allgather_bucket_size",
              "stage3_prefetch_bucket_size", "stage3_max_live_parameters",

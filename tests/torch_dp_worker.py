@@ -1,0 +1,253 @@
+"""One data-parallel rank of the port on the CPU, over gloo: the child the
+data-parallel tests start ``world`` times (`tests/torch_dp.py`).
+
+Usage: python torch_dp_worker.py <spec.pkl> <out_dir>
+
+The environment gives RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT;
+the spec (a pickled dict) gives ``cases``, run in order in one process
+group, each a dict with a ``kind``:
+
+- "train": ``initialize`` GPT-NeoX (``size``; ``weights``, a JAX params
+  tree of numpy leaves, or else the port's own init from ``seed``) with
+  ``conf`` (this rank's micro-batch), then
+  ``steps`` steps on this rank's columns of ``tokens`` [gas, micro ·
+  world, S] (the JAX engine's global batch split over its data axis),
+  through `train_batch` or, with ``legacy``, the forward / backward /
+  step loop. Optional: ``load`` (a checkpoint dir to resume from first),
+  ``save`` (dir) and ``save_at`` (after that many steps; the last by
+  default), ``inject_inf`` ({"step", "rank"}: an inf in that rank's
+  reduced gradient at that step, 1-based).
+  Reports the losses, each step's host ms (the returned loss syncs the
+  device), the masters and the compute parameters (natural
+  leaves, fp32, whole: gathered over the ranks), the loss scale, the
+  counters, this rank's state bytes by buffer and the files this rank
+  wrote (``light``: no masters or parameters).
+- "csr": `csr_allreduce` of this rank's row-sparse ``dense[rank]``.
+- "stage1": the standalone stage-1 / stage-2 optimizers on a few tensors.
+- "loader": the `DeepSpeedDataLoader` order at the group's defaults.
+- "refuse": `initialize` with each of ``confs`` (a name → config); the
+  message of the error each raises (None where none is raised).
+
+The spec's ``device`` ("cpu" by default; "cuda": every rank on the
+current card) and ``backend`` ("gloo" by default) place the ranks.
+Every rank writes ``rank{r}.pkl`` (the results by case name) into
+``out_dir``.
+"""
+
+import os
+import pickle
+import sys
+import time
+
+
+def _tree_flat(engine, flat):
+    """A whole flat buffer → {JAX path key: fp32 numpy leaf}."""
+    from deeperspeed_tpu_torch.checkpoint.serialization import path_key
+    arr = flat.detach().float().cpu().numpy()
+    return {path_key(n): arr[lo:hi].reshape(shape).copy()
+            for n, lo, hi, shape in engine.param_slices}
+
+
+def _whole(engine, t):
+    from deeperspeed_tpu_torch.runtime.zero.stage1 import gather_full
+    part = engine._part
+    if part is not None and t.numel() == part.size:
+        return gather_full(t.detach(), part, engine.dp_group)
+    return t
+
+
+def _state_bytes(engine):
+    """This rank's training-state bytes by buffer."""
+    def nb(t):
+        return t.numel() * t.element_size()
+    out = {"params": nb(engine._params_flat),
+           "grads": nb(engine._grads_flat),
+           "exp_avg": nb(engine.opt_state.exp_avg),
+           "exp_avg_sq": nb(engine.opt_state.exp_avg_sq)}
+    if engine._master.untyped_storage().data_ptr() != \
+            engine._params_flat.untyped_storage().data_ptr():
+        out["master"] = nb(engine._master)   # not a view of the params
+    if engine._grad_acc is not engine._grads_flat:
+        out["grad_acc"] = nb(engine._grad_acc)
+    if engine._grad_part is not None and \
+            engine._grad_part is not engine._grad_acc:
+        out["grad_part"] = nb(engine._grad_part)
+    return out
+
+
+def run_train(case, rank, world, device="cpu"):
+    import numpy as np
+    import torch
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.checkpoint import checkpointing
+    from deeperspeed_tpu_torch.models import gpt_neox as neox
+
+    written = []
+    save_obj = checkpointing.save_obj
+
+    def recording(obj, path, *a, **kw):
+        written.append(os.path.basename(path))
+        return save_obj(obj, path, *a, **kw)
+    checkpointing.save_obj = recording
+    model = neox.GPTNeoX(neox.GPTNeoXConfig(**case["size"]), device=device)
+    if case.get("weights") is None:
+        model.init_params(case["seed"])
+    eng, *_ = dst.initialize(model=model, config_params=case["conf"],
+                             model_parameters=case.get("weights"))
+    if case.get("load"):
+        eng.load_checkpoint(case["load"])
+    tokens = np.asarray(case["tokens"])
+    micro = tokens.shape[1] // world
+    mine = torch.from_numpy(np.ascontiguousarray(
+        tokens[:, rank * micro:(rank + 1) * micro])).to(device)
+    inject = case.get("inject_inf")
+    if inject:
+        reduced = eng._reduced_grads
+
+        def poisoned():
+            grads = reduced()
+            if eng.global_steps + eng.skipped_steps + 1 == inject["step"] \
+                    and rank == inject["rank"]:
+                grads[grads.numel() // 2] = float("inf")
+            return grads
+        eng._reduced_grads = poisoned
+    losses, masters, step_s = [], [], []
+    save_at = case.get("save_at", case["steps"])
+    for step in range(case["steps"]):
+        t0 = time.perf_counter()
+        if case.get("legacy"):
+            loss = None
+            for i in range(mine.shape[0]):
+                eng.backward(eng((mine[i], mine[i])))
+                loss = eng.step()
+            losses.append(loss)
+        else:
+            losses.append(eng.train_batch(batch=(mine, mine)))
+        step_s.append(time.perf_counter() - t0)
+        if case.get("masters_each_step"):
+            masters.append(_tree_flat(eng, _whole(eng, eng._master)))
+        if case.get("save") and step + 1 == save_at:
+            eng.save_checkpoint(case["save"])
+    checkpointing.save_obj = save_obj
+    out = {"losses": losses, "written": sorted(written),
+           "step_ms": [t * 1e3 for t in step_s],
+           "masters_each_step": masters,
+           "loss_scale": eng.loss_scale,
+           "skipped_steps": eng.skipped_steps,
+           "global_steps": eng.global_steps,
+           "state_bytes": _state_bytes(eng),
+           "num_params": eng.num_params,
+           "part": tuple(eng._part) if eng._part is not None else None,
+           "dp_world_size": eng.dp_world_size}
+    if not case.get("light"):
+        out["master"] = _tree_flat(eng, _whole(eng, eng._master))
+        out["params"] = _tree_flat(eng, eng._params_flat)
+    del eng
+    return out
+
+
+def run_csr(case, rank, world):
+    import torch
+
+    from deeperspeed_tpu_torch.runtime.csr_tensor import (CSRTensor,
+                                                           csr_allreduce)
+    dense = torch.as_tensor(case["dense"][rank])
+    out = csr_allreduce(CSRTensor(dense))
+    return {"indices": out.indices.numpy(), "values": out.values.numpy(),
+            "dense": out.to_dense().numpy()}
+
+
+def run_stage1(case, rank, world):
+    import torch
+
+    from deeperspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+    from deeperspeed_tpu_torch.runtime.zero.stage2 import (
+        FP16_DeepSpeedZeroOptimizer, FP16_DeepSpeedZeroOptimizer_Stage2)
+    from deeperspeed_tpu_torch.runtime.zero.stage1 import \
+        FP16_DeepSpeedZeroOptimizer_Stage1
+    params = [torch.as_tensor(p) for p in case["params"]]
+    grads = [torch.as_tensor(g[rank]) for g in case["grads"]]
+    out = {}
+    for cls in (FP16_DeepSpeedZeroOptimizer_Stage1,
+                FP16_DeepSpeedZeroOptimizer_Stage2):
+        opt = cls(FusedAdam(lr=0.1, eps=1e-3), precision=torch.float32,
+                  dynamic_loss_scale=True,
+                  dynamic_loss_args={"init_scale": 4.0}, clip_grad=1.0)
+        state = opt.init_state(params)
+        scaled = [g * 4.0 for g in grads]
+        if cls.stage == 2:
+            scaled = opt.reduce_gradients(scaled)
+        state, info = opt.step(state, scaled)
+        sd = opt.state_dict(state)
+        fresh = opt.init_state(params)
+        fresh = opt.load_state_dict(fresh, sd)
+        out[cls.stage] = {
+            "params": [p.clone().numpy() for p in opt.unflatten(
+                state.params)],
+            "overflow": info.overflow, "norm": float(info.grad_norm),
+            "scale": state.scale.cur_scale,
+            "sub_partitions": [[p.numpy() for p in parts] for parts in
+                               sd["local_sub_partitions_of_fp32_groups"]],
+            "reloaded_equal": bool(torch.equal(fresh.master, state.master)
+                                   and torch.equal(fresh.params,
+                                                   state.params))}
+    out["alias"] = FP16_DeepSpeedZeroOptimizer is \
+        FP16_DeepSpeedZeroOptimizer_Stage2
+    return out
+
+
+def run_loader(case, rank, world):
+    from deeperspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+    loader = DeepSpeedDataLoader(list(range(case["n"])), batch_size=2,
+                                 shuffle=True, seed=3)
+    return {"num_replicas": loader.num_replicas, "rank": loader.rank,
+            "order": [b.tolist() for b in loader]}
+
+
+def run_refuse(case, rank, world):
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models import gpt_neox as neox
+    out = {}
+    for name, conf in case["confs"].items():
+        model = neox.GPTNeoX(neox.GPTNeoXConfig(**case["size"]),
+                             device="cpu")
+        try:
+            dst.initialize(model=model, config_params=conf)
+            out[name] = None
+        except dst.DeepSpeedConfigError as e:
+            out[name] = str(e)
+    return out
+
+
+RUNNERS = {"train": run_train, "csr": run_csr, "stage1": run_stage1,
+           "loader": run_loader, "refuse": run_refuse}
+
+
+def main():
+    spec_path, out_dir = sys.argv[1], sys.argv[2]
+    import torch
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    import deeperspeed_tpu_torch as dst
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    device = spec.get("device", "cpu")
+    dst.init_distributed(dist_backend=spec.get("backend", "gloo"),
+                         timeout=spec.get("timeout", 120), verbose=False)
+    results = {}
+    for case in spec["cases"]:
+        kw = {"device": device} if case["kind"] == "train" else {}
+        results[case["name"]] = RUNNERS[case["kind"]](case, rank, world,
+                                                      **kw)
+        dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
