@@ -13,6 +13,7 @@
     python3 chip_smoke.py --observability-only
     python3 chip_smoke.py --rl-only [--profile]
     python3 chip_smoke.py --dp-only
+    python3 chip_smoke.py --zero3-only [--profile]
 
 Phases (any failure exits non-zero before the final line):
 
@@ -464,6 +465,25 @@ Phases (any failure exits non-zero before the final line):
    children, micro 8 each, so the global batch is (a)'s), ZeRO 1 and 2,
    10 steps: losses within rtol 2e-2 of (a)'s (bf16 products at micro 8
    round apart from micro 16), the ranks' losses equal;
+42. ZeRO stage 3, train-zero3-125M (``--zero3-only`` runs it alone,
+   after phase 3's flash and Adam checks at the training shape): (a)
+   phase 7's model and config, 10 steps on one engine without a process
+   group, then at world 1 over NCCL stage 3 "gspmd" and "explicit"
+   (prefetch 2, buckets of 32 MB, groups of 4 layers, remat on and off):
+   losses and fp32 masters (gathered, natural order) bit-equal to the
+   engine without a group, the step's ms, each collective's median
+   CUDA-event ms by row (all-gather a row, reduce-scatter a row's
+   gradient), exact launches of the flash forward (twice a layer under
+   remat), backward and Adam; (b) a rank's bytes at rest, 18 a
+   partition element and 2 a persisted one, from the buffers and
+   against `torch.cuda.memory_allocated` after the build (32 MiB), and
+   `max_memory_allocated` over a step; (c) bench.py row_zero3's
+   quantities at world 1 (seq 1024, the first batch of 48, 32 that
+   fits, gas 1, 12 steps after 4): tokens/s and MFU at stage 0, stage 3
+   "gspmd" and "explicit" without remat, printed, not gated; (d) two
+   gloo ranks on this card (micro 8 each), "gspmd" and "explicit", 3
+   steps each: losses within rtol 2e-2 of (a)'s, the ranks' losses
+   equal, each rank's bytes at rest the formula at world 2;
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
@@ -10932,6 +10952,458 @@ def dp_only(card):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 42: ZeRO stage 3 (train-zero3-125M)
+# ---------------------------------------------------------------------------
+
+Z3_STEPS = 10
+# the explicit schedule of (a), (c) and (d): bench.py's row_zero3 knobs
+Z3_EXPLICIT = {"mode": "explicit", "prefetch_depth": 2, "bucket_mb": 32,
+               "group_layers": 4}
+Z3_RUNS = (("gspmd", {"mode": "gspmd"}),
+           ("explicit", {**Z3_EXPLICIT, "remat": True}),
+           ("explicit_no_remat", {**Z3_EXPLICIT, "remat": False}))
+# (c): bench.py row_zero3's batch ladder at seq 1024, 12 steps after 4
+# warm-up steps, gas 1, Adam lr 1e-4
+Z3_ROW_LADDER = (48, 32)
+Z3_ROW_STEPS, Z3_ROW_WARMUP = 12, 4
+# (d): two gloo ranks on the card, micro 8 each; a stage-3 step stages
+# about 1.5 GB a rank through the host, so 3 steps a mode
+Z3_CHILD_STEPS = 3
+Z3_CHILD_TIMEOUT = 300
+TOL_Z3_CHILD = 2e-2
+# (b): 18 bytes a partition element (2 compute shard, 4 master, 8 moments,
+# 4 accumulator) and 2 a persisted element, against memory_allocated
+TOL_Z3_BYTES = 32 * 2 ** 20
+
+
+class RowClock:
+    """CUDA events around each stage-3 collective the runtime issues
+    (`Zero3Runtime.gather_chunks`: all-gather a row, on the side stream;
+    `scatter_chunks`: reduce-scatter a row's gradient), by row kind."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name, fn):
+        def timed(rt, *args):
+            row = args[-1]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(rt, *args)
+            end.record()
+            self.events.setdefault(f"{name}_{row.kind}", []).append(
+                (start, end, row.padded))
+            return out
+        return timed
+
+    def ms(self):
+        """{collective_rowkind: {"calls", "median_ms", "row_elements"}}."""
+        torch.cuda.synchronize()
+        out = {}
+        for k, v in self.events.items():
+            times = [s.elapsed_time(e) for s, e, _ in v]
+            out[k] = {"calls": len(times),
+                      "median_ms": float(np.median(times)),
+                      "row_elements": int(v[0][2])}
+        return out
+
+
+def z3_state_bytes(eng):
+    """A stage-3 rank's state bytes by the formula, and by its buffers."""
+    lay = eng._z3.layout
+    formula = 18 * lay.part_size + 2 * lay.persisted_padded
+    buffers = sum(t.numel() * t.element_size() for t in (
+        eng._params_flat, eng._master, eng.opt_state.exp_avg,
+        eng.opt_state.exp_avg_sq, eng._grad_acc, eng._z3.persist))
+    return formula, buffers
+
+
+def z3_profile(eng, tokens, card, name, steps=2):
+    """Two more steps of ``eng`` under the profiler (`profile_window`),
+    and the host ops that take the most self CPU time a step."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    res = profile_window(lambda: eng.train_batch(batch=(tokens, tokens)),
+                         steps, also=("nccl", "elementwise", "Memcpy",
+                                      "gemm", "flash"))
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(steps):
+            eng.train_batch(batch=(tokens, tokens))
+        torch.cuda.synchronize()
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    res["top_host_ops"] = [
+        {"name": e.key[:80], "self_cpu_ms_per_step":
+         e.self_cpu_time_total / 1e3 / steps, "calls_per_step":
+         e.count / steps} for e in top[:10]]
+    print_profile(f"zero 3 profile, {name}", res, card)
+    print(f"      device ms a step: nccl "
+          f"{res['device_ms_per_step_nccl']:.3f}, elementwise "
+          f"{res['device_ms_per_step_elementwise']:.3f}, memcpy "
+          f"{res['device_ms_per_step_Memcpy']:.3f}, gemm "
+          f"{res['device_ms_per_step_gemm']:.3f}, flash "
+          f"{res['device_ms_per_step_flash']:.3f}", flush=True)
+    for op in res["top_host_ops"][:8]:
+        print(f"      host {op['self_cpu_ms_per_step']:.2f} ms "
+              f"x{op['calls_per_step']:.0f}  {op['name']}", flush=True)
+    return res
+
+
+def z3_run(fa, ad, sched, tokens, clock=None, profile_step=False,
+           card=None):
+    """Phase 7's engine (TRAIN_CONFIG) at stage 3 with ``sched`` (None:
+    the config's own stage, as phase 41's reference), Z3_STEPS steps:
+    losses, step ms, launches, state bytes, peak memory over a step, and
+    the masters in the natural order (on the card); with
+    ``profile_step``, two more steps under the profiler."""
+    from deeperspeed_tpu_torch.runtime.zero import stage3 as s3
+    import deeperspeed_tpu_torch as dst
+    conf = dict(TRAIN_CONFIG)
+    if sched is not None:
+        conf["zero_optimization"] = {"stage": 3, "schedule": sched}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(torch.float32)
+    eng, *_ = dst.initialize(model=model, config_params=conf)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    out = {"schedule": sched, "allocated_after_init": allocated}
+    if sched is not None:
+        formula, buffers = z3_state_bytes(eng)
+        out.update(state_bytes_formula=formula, state_bytes_buffers=buffers,
+                   part_size=eng._z3.layout.part_size,
+                   persisted=eng._z3.layout.persisted_numel)
+        if buffers != formula:
+            fail(f"phase 42 (b): {sched['mode']} buffers {buffers} bytes, "
+                 f"the formula's {formula}")
+        if abs(allocated - formula) > TOL_Z3_BYTES:
+            fail(f"phase 42 (b): {sched}: {allocated} bytes allocated "
+                 f"after the engine is built, the formula's {formula}")
+    saved = {}
+    if clock is not None:
+        for name in ("gather_chunks", "scatter_chunks"):
+            saved[name] = getattr(s3.Zero3Runtime, name)
+            setattr(s3.Zero3Runtime, name, clock.wrap(
+                "all_gather" if name == "gather_chunks" else
+                "reduce_scatter", saved[name]))
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    ad.launches = 0
+    losses, step_s, peak = [], [], None
+    try:
+        for i in range(Z3_STEPS):
+            if i == Z3_STEPS - 1:
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            losses.append(eng.train_batch(batch=(tokens, tokens)))
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        for name, fn in saved.items():
+            setattr(s3.Zero3Runtime, name, fn)
+    gas, L = tokens.shape[0], model.config.num_layers
+    remat = sched is not None and (sched["mode"] == "gspmd" or
+                                   sched.get("remat", True))
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dkv":
+                fa.bwd_dkv_launches, "flash_bwd_dq": fa.bwd_dq_launches,
+                "adam": ad.launches}
+    want = {"flash_fwd": (2 if remat else 1) * L * gas * Z3_STEPS,
+            "flash_bwd_dkv": L * gas * Z3_STEPS,
+            "flash_bwd_dq": L * gas * Z3_STEPS, "adam": Z3_STEPS}
+    if launches != want:
+        fail(f"phase 42 (a): {sched} launches {launches} != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"phase 42 (a): {sched} losses {losses}")
+    with torch.no_grad():
+        master = eng._natural_flat(eng._master).clone()
+    out.update(losses=losses, step_ms=[t * 1e3 for t in step_s],
+               step_ms_median=float(np.median(step_s[1:])) * 1e3,
+               launches=launches, num_params=eng.num_params,
+               max_allocated_over_a_step=peak)
+    if sched is not None:
+        out["collectives"] = {"gathers": eng._z3.gathers,
+                              "reduce_scatters": eng._z3.reduce_scatters}
+    if profile_step:
+        out["profile"] = z3_profile(eng, tokens, card, (sched or {}).get(
+            "mode", "no group") + ("" if sched is None or sched.get(
+                "remat", True) else " without remat"))
+    del eng, model
+    torch.cuda.empty_cache()
+    return out, master
+
+
+def z3_row_rung(bs, sched, card):
+    """bench.py row_zero3 at batch ``bs`` (seq 1024, gas 1, lr 1e-4,
+    bf16): tokens/s and MFU over Z3_ROW_STEPS steps after the warm-up;
+    None where the batch does not fit on the card."""
+    import deeperspeed_tpu_torch as dst
+    zero = {"stage": 0} if sched is None else {"stage": 3,
+                                               "schedule": sched}
+    conf = {"train_batch_size": bs, "gradient_accumulation_steps": 1,
+            "steps_per_print": 10_000,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+            "fp16": {"enabled": True, "type": "bfloat16"},
+            "zero_optimization": zero}
+    model = eng = tokens = None
+    try:
+        model = build_model(torch.float32)
+        eng, *_ = dst.initialize(model=model, config_params=conf)
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, NEOX_125M["vocab_size"], size=(1, bs, TRAIN_SEQ))).cuda()
+        for _ in range(Z3_ROW_WARMUP):
+            eng.train_batch(batch=(tokens, tokens))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Z3_ROW_STEPS):
+            loss = eng.train_batch(batch=(tokens, tokens))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    except torch.cuda.OutOfMemoryError:
+        print(f"  batch {bs} does not fit ({sched}): the next rung",
+              flush=True)
+        return None
+    finally:
+        del eng, model, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    cfg = GPTNeoXConfig(**NEOX_125M)
+    tps = bs * TRAIN_SEQ * Z3_ROW_STEPS / dt
+    flops_tok = 6 * cfg.num_params() + 12 * cfg.num_layers * \
+        cfg.hidden_size * TRAIN_SEQ
+    return {"batch": bs, "tokens_per_sec": tps,
+            "mfu": tps * flops_tok / PEAK_FLOPS_S,
+            "step_ms": dt / Z3_ROW_STEPS * 1e3, "last_loss": loss,
+            "card": card}
+
+
+def z3_children(tmp, tokens, n_params):
+    """(d): two ranks over gloo on the one card, `tests/torch_dp_worker.py`
+    children at micro 8, stage 3 "gspmd" then "explicit", Z3_CHILD_STEPS
+    steps each. Returns each rank's results."""
+    import pickle
+    import socket
+    root = os.path.dirname(os.path.abspath(__file__))
+    micro = tokens.shape[1] // 2
+    conf = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": micro}
+    cases = [{"kind": "train", "name": name, "size": NEOX_125M, "seed": 0,
+              "weights": None, "light": True,
+              "conf": {**conf, "zero_optimization": {
+                  "stage": 3, "schedule": sched}},
+              "tokens": tokens.cpu().numpy(), "steps": Z3_CHILD_STEPS}
+             for name, sched in Z3_RUNS[:2]]
+    spec = os.path.join(tmp, "z3_spec.pkl")
+    with open(spec, "wb") as f:
+        pickle.dump({"cases": cases, "device": "cuda", "backend": "gloo",
+                     "timeout": Z3_CHILD_TIMEOUT}, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if q])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(root, "tests",
+                                          "torch_dp_worker.py"), spec, tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    deadline = time.monotonic() + Z3_CHILD_TIMEOUT
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=max(
+                1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 42 (d): a rank did not finish in {Z3_CHILD_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode:
+            fail(f"phase 42 (d): rank {rank} exited {proc.returncode}: "
+                 f"{log[-3000:]}")
+    out = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    for name, _ in Z3_RUNS[:2]:
+        r0, r1 = (o[name] for o in out)
+        if r0["losses"] != r1["losses"] or r0["dp_world_size"] != 2 or \
+                r0["num_params"] != n_params:
+            fail(f"phase 42 (d): {name}: ranks disagree or the world is "
+                 f"not 2: {r0['losses']} / {r1['losses']}")
+        for rank, r in enumerate((r0, r1)):
+            lay, sb = r["layout"], r["state_bytes"]
+            formula = 18 * lay["part_size"] + 2 * lay["persisted_padded"]
+            if sum(sb.values()) != formula:
+                fail(f"phase 42 (d): {name} rank {rank} holds "
+                     f"{sum(sb.values())} bytes at rest ({sb}), the "
+                     f"formula at world 2 {formula}")
+    return out
+
+
+def run_zero3_phase(fa, ad, report, card, profile_step=False):
+    """Phase 42 → its result dict. Sets up a world-1 NCCL process group
+    for (a)-(c) and destroys it before (d) and before returning. With
+    ``profile_step`` (``--zero3-only --profile``) each run of (a) takes
+    two more steps under the profiler after its gates."""
+    import torch.distributed as dist
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.utils import distributed as ds_dist
+    t0 = time.perf_counter()
+    gas = TRAIN_CONFIG["gradient_accumulation_steps"]
+    micro = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, TRAIN_VOCAB_USED, size=(gas, micro, TRAIN_SEQ))).cuda()
+    out = {"steps": Z3_STEPS, "card": card}
+    print(f"zero 3 (a): phase 7's engine without a process group, "
+          f"{Z3_STEPS} steps:", flush=True)
+    ref, ref_master = z3_run(fa, ad, None, tokens,
+                             profile_step=profile_step, card=card)
+    out["no_group"] = ref
+    print(f"  losses {ref['losses']}, median step "
+          f"{ref['step_ms_median']:.2f} ms on {card}", flush=True)
+    if ds_dist.is_initialized():
+        fail("phase 42: a process group exists before init_distributed")
+    with socket_port() as port:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dst.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail(f"phase 42: process group {dist.get_backend()} world "
+                 f"{dist.get_world_size()}, want nccl world 1")
+        for name, sched in Z3_RUNS:
+            clock = RowClock()
+            res, master = z3_run(fa, ad, sched, tokens, clock,
+                                 profile_step=profile_step, card=card)
+            res["collective_ms"] = clock.ms()
+            res["bit_equal_no_group"] = {
+                "losses": res["losses"] == ref["losses"],
+                "masters": bool(torch.equal(master, ref_master))}
+            print(f"  zero 3 {name} at world 1 over nccl: losses "
+                  f"{res['losses']}, median step "
+                  f"{res['step_ms_median']:.2f} ms (no group "
+                  f"{ref['step_ms_median']:.2f}), collectives (median "
+                  f"call ms by row) {res['collective_ms']}, launches "
+                  f"{res['launches']}, bit-equal "
+                  f"{res['bit_equal_no_group']} on {card}", flush=True)
+            print(f"  zero 3 {name} (b): state bytes at rest, formula "
+                  f"{res['state_bytes_formula']} (18 x {res['part_size']} "
+                  f"+ 2 x the persisted row), allocated after the build "
+                  f"{res['allocated_after_init']}; max allocated over a "
+                  f"step {res['max_allocated_over_a_step']} on {card}",
+                  flush=True)
+            if not all(res["bit_equal_no_group"].values()):
+                fail(f"phase 42 (a): zero 3 {name} at world 1 is not the "
+                     f"engine without a group bit for bit: "
+                     f"{res['bit_equal_no_group']}")
+            out[f"zero3_{name}"] = res
+            del master
+        print(f"zero 3 (c): bench.py row_zero3 at world 1, seq "
+              f"{TRAIN_SEQ}, the first of batch {Z3_ROW_LADDER} that "
+              f"fits, {Z3_ROW_STEPS} steps after {Z3_ROW_WARMUP}:",
+              flush=True)
+        out["row_zero3"] = {}
+        for name, sched in (("zero0", None),
+                            ("zero3", {"mode": "gspmd"}),
+                            ("zero3_explicit", {**Z3_EXPLICIT,
+                                                "remat": False})):
+            row = None
+            for bs in Z3_ROW_LADDER:
+                row = z3_row_rung(bs, sched, card)
+                if row is not None:
+                    break
+            if row is None or not np.isfinite(row["last_loss"]):
+                fail(f"phase 42 (c): {name}: no rung of {Z3_ROW_LADDER} "
+                     f"ran: {row}")
+            out["row_zero3"][name] = row
+            print(f"  {name}: {row}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del ref_master
+    torch.cuda.empty_cache()
+    print("zero 3 (d): two gloo ranks on this card, micro 8 each, "
+          f"{Z3_CHILD_STEPS} steps a mode:", flush=True)
+    tmp = tempfile.mkdtemp(prefix="z3_children_", dir="build")
+    try:
+        kids = z3_children(tmp, tokens, ref["num_params"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["two_ranks"] = {}
+    for name, _ in Z3_RUNS[:2]:
+        got = kids[0][name]["losses"]
+        want = out["zero3_gspmd"]["losses"][:Z3_CHILD_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        step_ms = [max(a, b) for a, b in zip(kids[0][name]["step_ms"],
+                                             kids[1][name]["step_ms"])]
+        out["two_ranks"][name] = {
+            "losses": got, "max_rel_diff_to_a": rel, "tol": TOL_Z3_CHILD,
+            "step_ms": step_ms,
+            "state_bytes": [k[name]["state_bytes"] for k in kids]}
+        print(f"  {name}: losses {got}, max relative difference to (a) "
+              f"{rel:.3e}, step ms (the slower rank's) {step_ms}, a rank's "
+              f"bytes at rest {out['two_ranks'][name]['state_bytes'][0]} "
+              f"on {card}", flush=True)
+        if not rel < TOL_Z3_CHILD:
+            fail(f"phase 42 (d): {name} two-rank losses {got} are not "
+                 f"within rtol {TOL_Z3_CHILD} of (a)'s {want}")
+    out["seconds"] = time.perf_counter() - t0
+    report["zero3"] = out
+    print(f"phase 42: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def zero3_kernel_entries(z3):
+    """What phase 42 adds to the kernels line: each kernel's launches on
+    its runs by path."""
+    runs = {"train_zero3_no_group": z3["no_group"]} | {
+        f"train_zero3_{name}": z3[f"zero3_{name}"] for name, _ in Z3_RUNS}
+    return {name: {path: r["launches"][count] for path, r in runs.items()}
+            for name, count in (("flash_fwd", "flash_fwd"),
+                                ("flash_bwd", "flash_bwd_dkv"),
+                                ("flash_bwd_dq", "flash_bwd_dq"),
+                                ("adam", "adam"))}
+
+
+def zero3_only(card, profile_step=False):
+    """Phase 42 alone, after phase 3's training-shape flash and Adam
+    checks (with ``profile_step``, each run of (a) profiled)."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("kernels vs plain versions (the training path's):", flush=True)
+    ft, fb, adm, _ = check_train_kernels(
+        fa, ad, gen, report, GPTNeoXConfig(**NEOX_125M).num_params())
+    z3 = run_zero3_phase(fa, ad, report, card, profile_step)
+    kernels = train_kernel_rows(ft, fb, adm, None, {
+        "flash_fwd": {}, "flash_bwd": {}, "flash_bwd_dq": {}, "adam": {}})
+    merge_obs_entries(kernels, zero3_kernel_entries(z3))
+    report["kernels"] = kernels
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_zero3.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}, default=str), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 RL_PATHS = {"ppo": "rl_ppo_125m", "int8": "rl_ppo_125m_int8",
             "dpo": "rl_dpo_125m", "gpt2xl": "rl_ppo_gpt2xl"}
 
@@ -11064,6 +11536,11 @@ def main():
                     help="run only phase 41 (data parallel and ZeRO 0-2 "
                          "through a process group), after phase 3's flash "
                          "and Adam checks at the training shape")
+    ap.add_argument("--zero3-only", action="store_true",
+                    help="run only phase 42 (ZeRO stage 3: world 1 over "
+                         "NCCL, bench.py row_zero3's quantities, two gloo "
+                         "ranks on the card), after phase 3's flash and "
+                         "Adam checks at the training shape")
     ap.add_argument("--rl-only", action="store_true",
                     help="run only phase 40 (online RL), after phase 3's "
                          "checks of the kernels it launches (with "
@@ -11104,6 +11581,8 @@ def main():
         return rl_only(card, args.profile)
     if args.dp_only:
         return dp_only(card)
+    if args.zero3_only:
+        return zero3_only(card, args.profile)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -11292,6 +11771,7 @@ def main():
     print(f"phase 39: {report['phase39_seconds']:.1f} s", flush=True)
     rl = run_rl_phases(fa, da, qm, ad, report, card, args.profile)
     dp = run_dp_phase(fa, ad, report, card, phase7_ms=tr["step_ms_median"])
+    z3 = run_zero3_phase(fa, ad, report, card)
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -11764,6 +12244,7 @@ def main():
     merge_obs_entries(kernels, obs_kernel_entries(ob))
     merge_obs_entries(kernels, rl_kernel_entries(rl))
     merge_obs_entries(kernels, dp_kernel_entries(dp))
+    merge_obs_entries(kernels, zero3_kernel_entries(z3))
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

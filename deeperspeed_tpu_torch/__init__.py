@@ -8,12 +8,14 @@ block weights and int8 KV pages as options) and trains GPT-NeoX, GPT-2
 and BERT on one card or data-parallel across `torch.distributed` ranks
 (`init_distributed`: NCCL on the card, gloo on the CPU; ZeRO stages 1-2
 partition the fp32 masters, the moments and, at stage 2, the gradient
-accumulator): `initialize()` returns a `DeepSpeedEngine` whose
+accumulator; stage 3 partitions GPT-NeoX's parameters too, gathered a
+layer at a time: `zero.Init`, `zero.GatheredParameters`):
+`initialize()` returns a `DeepSpeedEngine` whose
 `train_batch` (or the legacy `forward` / `backward` / `step` loop) runs
 bf16 (or fp32) compute with fp32 masters, or the lean state
 (``fp16_master_weights_and_grads``: the bf16 parameters are the
 masters, with bf16 Adam moments), Adam(W), the LR schedules, gradient
-clipping and ZeRO stages 0-2. GPT-NeoX takes a
+clipping and ZeRO stages 0-3. GPT-NeoX takes a
 dense or an MoE FFN (`moe`, driven by the JSON "moe" block) and dense
 or block-sparse attention (`ops/sparse_attention`, driven by the JSON
 "sparse_attention" block); BERT (`BertForPreTraining`,
@@ -43,6 +45,7 @@ from .ops.transformer import (DeepSpeedTransformerConfig,
 from .runtime.config import DeepSpeedConfig
 from .runtime.config_utils import DeepSpeedConfigError
 from .runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
+from .runtime import zero  # noqa: F401  (zero.Init, GatheredParameters)
 from .runtime.engine import DeepSpeedEngine
 from .runtime.sentinel import TrainingHealthError
 from .utils.distributed import init_distributed
@@ -86,11 +89,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
     Under a `torch.distributed` process group (`init_distributed`) each
     rank builds its model on its own card and trains data parallel with
-    ZeRO stages 0-2, each taking its own micro-batches.
+    ZeRO stages 0-3 (stage 3: GPT-NeoX), each taking its own
+    micro-batches.
 
     Returns ``(engine, engine.optimizer, engine.training_dataloader,
-    engine.lr_scheduler)``. A pipeline model, an ``mpu``, ZeRO-3 and
-    expert parallelism are not ported yet and raise
+    engine.lr_scheduler)``. A pipeline model, an ``mpu`` and expert
+    parallelism are not ported yet and raise
     `DeepSpeedConfigError` (the MoE layer's mesh: NotImplementedError).
     """
     log_dist(f"DeeperSpeed-torch info: version={__version__}", ranks=[0])

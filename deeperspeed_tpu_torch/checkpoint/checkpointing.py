@@ -19,7 +19,13 @@ time) before each rank cuts its own. Rank 0 writes the model states and
 commits the manifest once every rank's file is written and
 checksummed (the barrier of the JAX package's commit). Loads merge the
 files of any saved world and copy this rank's partition: the elastic
-resume of N saved ranks onto M.
+resume of N saved ranks onto M. At ZeRO stage 3 a rank's partition is
+its shard of every row of layers (`runtime.zero.stage3.Zero3Layout`):
+the partitions are gathered and laid out in the natural order on the
+device before the host copy, the files are the stage-2 layout with
+``"zero_stage": 3``, and a load copies this rank's rows out of the
+natural buffer, so a stage-2 and a stage-3 checkpoint load into either
+engine, at any world.
 
 The model-states file holds the module's parameters, the LR schedule,
 the batch-size schedule, the dataloader position, the four counters, the
@@ -142,7 +148,10 @@ def _host_flats(engine, flats):
     part = engine._part
     out = {}
     for role, src in flats.items():
-        if part is not None and src.numel() == part.size:
+        if engine._z3 is not None:
+            # every rank's rows, in the natural order
+            src = engine._z3.gather_natural(src)
+        elif part is not None and src.numel() == part.size:
             # a partition: every rank's, in rank order, one role at a
             # time on the device
             src = gather_full(src, part, engine.dp_group)
@@ -480,9 +489,12 @@ def _copy_leaves(engine, dst, arrays, prefix=""):
     """Every leaf ``prefix + key`` of ``arrays`` into its slice of one
     host fp32 buffer, then one copy into the flat engine tensor ``dst``
     (cast to its dtype), in place: all of it, or this rank's partition
-    where ``dst`` is one."""
+    where ``dst`` is one (at stage 3 its rows; the compute shard's copy
+    also fills the persisted row)."""
     part = engine._part
-    flat_n = part.padded if part is not None else engine.num_params
+    z3 = engine._z3
+    flat_n = part.padded if part is not None and z3 is None \
+        else engine.num_params
     host = torch.zeros(flat_n, dtype=torch.float32)
     for name, lo, hi, shape in engine.param_slices:
         key = prefix + path_key(name)
@@ -493,6 +505,12 @@ def _copy_leaves(engine, dst, arrays, prefix=""):
             raise ValueError(f"checkpoint leaf {key!r} has shape "
                              f"{tuple(leaf.shape)}, the model's is {shape}")
         host[lo:hi] = leaf.reshape(-1)
+    if z3 is not None:
+        if dst is engine._params_flat:
+            z3.load_natural(host.to(engine.device))
+        else:
+            dst.copy_(z3.layout.to_partition(host, engine.dp_rank))
+        return
     if part is not None and dst.numel() == part.size:
         host = host[part.lo:part.hi]
     dst.copy_(host)
@@ -655,9 +673,9 @@ def _merge(flats, dims, saved_dp, flat_shapes=None):
 
 def _load_zero_checkpoint(engine, ckpt_dir):
     """Merge the per-dp-rank zero files (written at any data-parallel
-    world size) and copy the masters and the Adam state into the
-    engine's flat buffers (this rank's partition of them at stages
-    1-2)."""
+    world size and ZeRO stage) and copy the masters and the Adam state
+    into the engine's flat buffers (this rank's partition of them at
+    stages 1-3)."""
     shards = []
     while True:
         path = os.path.join(ckpt_dir, _zero_ckpt_name(len(shards), 0))

@@ -358,7 +358,7 @@ def resolve_remat(remat_blocks, remat_policy, number_checkpoints):
 def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
                 attn_fn=None, remat_blocks=False, remat_policy=None,
                 number_checkpoints=None, segment_ids=None, hidden=None,
-                ffn_amax=None):
+                ffn_amax=None, zero3=None):
     """The blocks over the embedded ``x`` [B, S, H] → the last block's
     output; with MoE (out, the blocks' aux losses summed). Shared by the
     GPT-NeoX and GPT-2 forwards (the JAX package's
@@ -384,7 +384,15 @@ def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
     return value. A row goes into its span as an argument and comes out
     as an output, so a span's recompute in the backward reads the same
     row and its second copy of the new row is dropped: the history
-    advances once a forward."""
+    advances once a forward.
+
+    ``zero3`` (a `runtime.zero.stage3.Zero3Runtime`: ZeRO stage 3) is
+    the per-block fetch hook: ``blocks`` then hold each layer's
+    persisted leaves only, and the stack runs `zero3`'s groups and remat
+    (`_fetched_block_stack`) in place of the remat knobs."""
+    if zero3 is not None:
+        return _fetched_block_stack(cfg, zero3, x, cos_sin, use_kernels,
+                                    rng, attn_fn, segment_ids, hidden)
     moe = bool(cfg.moe_num_experts)
     quant = ffn_amax is not None
     do_remat, policy, n_ckpt = (False, None, None) if hidden is not None \
@@ -457,10 +465,40 @@ def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
     return out if len(out) > 1 else x
 
 
+def _fetched_block_stack(cfg, zero3, x, cos_sin, use_kernels, rng,
+                         attn_fn, segment_ids, hidden):
+    """The blocks over ZeRO-3 partitioned parameters: each of
+    ``zero3.groups`` runs as one recompute span when ``zero3.remat`` (and
+    grad mode) asks it, its layers' rows gathered inside the span, so
+    the backward's recompute gathers them again
+    (`Zero3Runtime.group_trees`: ``zero3.depth`` layers ahead, never
+    across a group's end); without remat the gathered rows stay as the
+    backward's residuals. The capture path (``hidden``) runs without
+    remat."""
+
+    def run_group(layers, x):
+        for bp in zero3.group_trees(layers):
+            x = block_forward(cfg, bp, x, cos_sin, use_kernels=use_kernels,
+                              segment_ids=segment_ids, rng=rng,
+                              attn_fn=attn_fn)
+            if hidden is not None:
+                hidden.append(x)
+        return x
+
+    remat = zero3.remat and hidden is None
+    for layers in zero3.groups:
+        if remat:
+            x = checkpoint_span(functools.partial(run_group, layers), x,
+                                policy=zero3.policy, generators=(rng,))
+        else:
+            x = run_group(layers, x)
+    return x
+
+
 def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
                    attn_fn=None, remat_blocks=False, remat_policy=None,
                    number_checkpoints=None, segment_ids=None, hidden=None,
-                   ffn_amax=None):
+                   ffn_amax=None, zero3=None):
     """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
     (out, the blocks' aux losses summed); with ``ffn_amax`` [L, 4, H]
     (the quantized FFN's amax histories) the advanced histories are
@@ -474,7 +512,8 @@ def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
     document padded alone.
 
     ``hidden`` (a list) receives the embedding, every block's output and
-    the final-norm output (`GPTNeoX.hidden_states`)."""
+    the final-norm output (`GPTNeoX.hidden_states`). ``zero3``: the
+    blocks' fetch hook (`block_stack`); ``params`` is then its `tree`."""
     x = params["embed"]["wte"][tokens]
     cos, sin, rot_dim = _rotary_cache(cfg, tokens.shape[1], device=x.device)
     if segment_ids is not None:
@@ -491,7 +530,7 @@ def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
                     remat_blocks=remat_blocks, remat_policy=remat_policy,
                     number_checkpoints=number_checkpoints,
                     segment_ids=segment_ids, hidden=hidden,
-                    ffn_amax=ffn_amax)
+                    ffn_amax=ffn_amax, zero3=zero3)
     rest = ()
     if cfg.moe_num_experts or ffn_amax is not None:
         x, *rest = x
@@ -960,7 +999,8 @@ class GPTNeoX(LMModule):
         """tokens [B, S] → logits [B, S, V] (fp32)."""
         return self.apply(self.params_tree(), tokens)
 
-    def _lm_forward(self, params, batch, rng=None, ffn_amax=None):
+    def _lm_forward(self, params, batch, rng=None, ffn_amax=None,
+                    zero3=None):
         """Shared body of `loss_fn` / `loss_and_logits`: one block-stack
         forward → (final-norm hidden, masked labels, the MoE aux loss or
         None, the advanced amax histories or None)."""
@@ -970,7 +1010,7 @@ class GPTNeoX(LMModule):
                                 use_kernels=self.use_kernels, rng=rng,
                                 attn_fn=self._attention_fn(),
                                 segment_ids=seg, ffn_amax=ffn_amax,
-                                **self._remat_knobs())
+                                zero3=zero3, **self._remat_knobs())
         aux = new_amax = None
         if cfg.moe_num_experts and ffn_amax is not None:
             hidden, aux, new_amax = hidden
@@ -987,7 +1027,7 @@ class GPTNeoX(LMModule):
             return loss
         return loss + cfg.moe_aux_loss_coef * aux / max(cfg.num_layers, 1)
 
-    def loss_fn(self, params, batch, rng=None, ffn_amax=None):
+    def loss_fn(self, params, batch, rng=None, ffn_amax=None, zero3=None):
         """Scalar LM loss of ``batch`` (see `split_lm_batch`) under the
         parameter tree ``params`` (`params_tree()`), differentiable in
         it: `GPTNeoX.loss_fn` of the JAX package. With MoE it adds
@@ -999,9 +1039,13 @@ class GPTNeoX(LMModule):
         "packing" block) a batch without segment ids raises. With
         ``ffn_amax`` (the quantized FFN's state, [L, 4, H] from
         `init_ffn_amax`) the return is (loss, new_ffn_amax): the engine
-        threads the state from one micro-step to the next."""
+        threads the state from one micro-step to the next. With ``zero3``
+        (ZeRO stage 3, `build_zero3_loss`) ``params`` is ignored: the
+        runtime gathers them."""
+        if zero3 is not None:
+            params = zero3.tree()
         hidden, labels, aux, new_amax = self._lm_forward(
-            params, batch, rng, ffn_amax=ffn_amax)
+            params, batch, rng, ffn_amax=ffn_amax, zero3=zero3)
         loss = self._head_loss(params, hidden, labels, aux)
         return loss if ffn_amax is None else (loss, new_amax)
 
@@ -1015,23 +1059,76 @@ class GPTNeoX(LMModule):
                                  self.config.ffn_quant_history,
                                  device=self.embed.wte.device)
 
-    def loss_and_logits(self, params, batch, rng=None):
+    def loss_and_logits(self, params, batch, rng=None, zero3=None):
         """(loss, [B, S, V] fp32 logits) from one forward: what the
         engine's `eval_batch(return_logits=True)` runs."""
-        hidden, labels, aux, _ = self._lm_forward(params, batch, rng)
+        if zero3 is not None:
+            params = zero3.tree()
+        hidden, labels, aux, _ = self._lm_forward(params, batch, rng,
+                                                  zero3=zero3)
         return self._head_loss(params, hidden, labels, aux), \
             lm_head(params, hidden)
 
     @torch.no_grad()
-    def hidden_states(self, params, batch, rng=None):
+    def hidden_states(self, params, batch, rng=None, zero3=None):
         """The embedding, every block's output and the final-norm output
         of ``batch``'s tokens (the JAX model's ``collect_hidden`` forward:
         the same blocks, without remat), for the engine's
         activation capture."""
+        if zero3 is not None:
+            params = zero3.tree()
         tokens, _, seg = split_lm_batch(batch)
         hidden = []
         forward_hidden(self.config, params, tokens,
                        use_kernels=self.use_kernels, rng=rng,
                        attn_fn=self._attention_fn(), segment_ids=seg,
-                       hidden=hidden)
+                       hidden=hidden, zero3=zero3)
         return hidden
+
+    def build_zero3_loss(self, runtime, schedule):
+        """Set ``runtime``'s schedule (a `Zero3Runtime` over this model's
+        partitioned parameters) and return ``loss(batch, rng=None)``: the
+        counterpart of the JAX model's ``build_explicit_zero3_loss``,
+        with its refusals and its rules. Groups: ``ceil(L /
+        number_checkpoints)`` layers when that knob is set (the recompute
+        spans are the groups), else ``schedule.group_layers`` under
+        "explicit" and one layer under "gspmd". Remat: ``schedule.remat``
+        or any of the model's remat knobs under "explicit", always under
+        "gspmd" (the gather again in the backward, the reference's fetch
+        / release), with the model's policy where it names one. Depth:
+        ``schedule.prefetch_depth`` under "explicit", 1 under
+        "gspmd"."""
+        cfg = self.config
+        explicit = schedule.mode == "explicit"
+        if explicit and getattr(cfg, "moe_num_experts", 0):
+            raise NotImplementedError(
+                "the explicit ZeRO-3 schedule does not support MoE "
+                "blocks yet (aux-loss threading); use the GSPMD "
+                "schedule (zero_optimization.schedule.mode \"gspmd\")")
+        if explicit and (cfg.attention_engine == "sparse" or
+                         self._attn_fn is not None):
+            raise NotImplementedError(
+                "the explicit ZeRO-3 schedule runs the dense flash/XLA "
+                "attention core; sparse_attention and sequence_parallel "
+                "need the GSPMD schedule")
+        from ..parallel.schedule import _segment_sizes
+        L = cfg.num_layers
+        if self.number_checkpoints:
+            group = max(1, -(-L // int(self.number_checkpoints)))
+        else:
+            group = schedule.group_layers if explicit else 1
+        remat = True
+        if explicit:
+            remat = (schedule.remat or self.remat_blocks
+                     or self.remat_policy is not None
+                     or bool(self.number_checkpoints))
+        policy = None
+        if self.remat_policy is not None:
+            policy, _ = make_remat_policy(self.remat_policy)
+        groups, idx = [], 0
+        for size in _segment_sizes(L, -(-L // group)):
+            groups.append(list(range(idx, idx + size)))
+            idx += size
+        runtime.configure(groups, schedule.prefetch_depth if explicit
+                          else 1, remat, policy)
+        return functools.partial(self.loss_fn, None, zero3=runtime)

@@ -138,7 +138,8 @@ def count_train_flops(engine, micro_batch, rng_seed=0):
     their own devices, so the count computes nothing, touches no device
     memory and syncs nothing. Nothing of the engine's state changes; the
     jitter and dropout draw from a generator of their own, and the MoE
-    routing statistics are not recorded."""
+    routing statistics are not recorded. At ZeRO stage 3 the parameters
+    are fakes of their natural shapes."""
     from ...moe.layer import ROUTING_STATS
     model = engine.module
     had = hasattr(model, "use_kernels")
@@ -154,8 +155,18 @@ def count_train_flops(engine, micro_batch, rng_seed=0):
                 f = mode.from_tensor(t)
                 return f.requires_grad_() if grad and t.requires_grad \
                     else f
-            params = pytree.tree_map(lambda t: fake(t, grad=True),
-                                     model.params_tree())
+            if getattr(engine, "_z3", None) is not None:
+                # ZeRO-3: the module holds no whole leaf; the count runs
+                # the plain path over fakes of the natural shapes (the
+                # gathers and reduce-scatters count no flops)
+                from ...models.gpt_neox import unflatten
+                params = unflatten({
+                    name: torch.empty(shape, dtype=engine.compute_dtype,
+                                      device=engine.device).requires_grad_()
+                    for name, _, _, shape in engine.param_slices})
+            else:
+                params = pytree.tree_map(lambda t: fake(t, grad=True),
+                                         model.params_tree())
             batch = pytree.tree_map(fake, micro_batch)
             leaves = [t for t in pytree.tree_leaves(params)
                       if isinstance(t, torch.Tensor) and t.requires_grad]

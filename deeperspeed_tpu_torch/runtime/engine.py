@@ -6,7 +6,7 @@ The port of the training step of `deeperspeed_tpu/runtime/engine.py`
 `train_batch`, `eval_batch`, and the legacy `forward` / `backward` /
 `step` loop): bf16, fp16 or fp32 compute with fp32 masters or the lean
 state, Adam(W), the LR schedules, gradient clipping and ZeRO stages
-0-2.
+0-3.
 
 State layout. The JAX engine keeps pytrees and lets XLA fuse each
 leaf's update; eager PyTorch fuses nothing, so the port keeps the
@@ -31,7 +31,8 @@ updates the bf16 parameters in place from its fp32 math.
 
 Data parallel (a `torch.distributed` process group, which
 `utils.distributed.init_distributed` forms; one rank a card, NCCL on
-the card, gloo on the CPU). Each rank takes its own micro-batches
+the card, gloo on the CPU, or none: stage 3 then runs at world 1 with
+its collectives as copies). Each rank takes its own micro-batches
 [gas, micro, ...] (the JAX engine's global batch split over its data
 axis), and the gradients are reduced across the ranks as the JAX
 engine's shardings have XLA reduce them:
@@ -46,7 +47,18 @@ engine's shardings have XLA reduce them:
   reduce-scattered once at the boundary;
 - stage 2: each micro-batch's gradient is reduce-scattered as it is
   made into an fp32 accumulator of the rank's partition, so no rank
-  holds a whole fp32 gradient.
+  holds a whole fp32 gradient;
+- stage 3 (`zero/stage3.py`; GPT-NeoX): the compute-dtype parameters
+  are partitioned too, by rows of layers: each rank holds its shard of
+  every row (and the leaves under the persistence threshold whole), the
+  model gathers each layer's row just before the layer runs (and again
+  in the backward's recompute) and each row's gradient is
+  reduce-scattered into the fp32 partition accumulator as soon as that
+  layer's backward ends; the step is one flat Adam launch over the
+  partition, which writes the compute shard. There is no flat
+  gradient buffer and the module's parameters hold no data (the
+  persisted leaves are views of the whole persisted row):
+  `gathered_parameters` and `params_to_natural` gather them.
 
 The sum is divided by the world (with the accumulation steps), in fp32
 where ``allreduce_always_fp32()`` holds (bf16 by default). The global
@@ -186,7 +198,10 @@ from .progressive_layer_drop import ProgressiveLayerDrop
 from .sentinel import (TrainingHealthSentinel, grad_anomaly,
                        init_health_state, probe_update)
 from .utils import GradientNoiseScale, clip_grad_norm_, global_norm
-from .zero.stage1 import all_gather_, flat_partition, reduce_scatter_
+from .zero.partition_parameters import ZeroShardingRules
+from .zero.stage1 import (all_gather_, flat_partition, gather_full,
+                          reduce_scatter_)
+from .zero.stage3 import Zero3Layout, Zero3Runtime
 
 
 # the base seed of the per-micro-step generator (the JAX engine's
@@ -237,7 +252,7 @@ CSR_EMBEDDING_LEAVES = ("embed.wte", "embeddings.word")
 class DeepSpeedEngine:
     """Training engine with the DeepSpeed training API, on one card or
     on each rank of a `torch.distributed` process group (one card a
-    rank; data parallel with ZeRO stages 0-2).
+    rank; data parallel with ZeRO stages 0-3).
 
     ``model`` is a `models.gpt_neox.GPTNeoX`, a `models.gpt2.GPT2` or
     a `models.bert` model (any `torch.nn.Module` with ``loss_fn(params,
@@ -309,6 +324,7 @@ class DeepSpeedEngine:
         self._loss_override = None
         if self._config.rl_params:
             self._apply_rl_loss_override()
+        self._check_zero3()
         # the generator of the gate jitter and the dropout seeds, re-seeded
         # from (1234, micro_steps) before every micro-step
         self._rng = torch.Generator(device=self.device)
@@ -431,14 +447,23 @@ class DeepSpeedEngine:
     def _apply_rl_loss_override(self):
         """Install the configured RL loss (`rl.losses` registry) as
         `loss_fn`, rejecting the engine modes whose loss is tied to the
-        LM objective, with the JAX engine's messages. The pipeline, the
-        explicit ZeRO-3 schedule and ``offload_param``, which it also
-        rejects here, the port's config refuses as not ported; what
-        reaches this check is ``quantization.ffn`` (the delayed-scaling
-        FFN threads an amax history through the model's own loss_fn) and
-        a model without ``apply`` / ``loss_and_logits``. ZeRO stages 0-2
-        compose: they differentiate `loss_fn` like the LM loss."""
+        LM objective, with the JAX engine's messages: the explicit ZeRO-3
+        schedule (its own LM loss program), ``quantization.ffn`` (the
+        delayed-scaling FFN threads an amax history through the model's
+        own loss_fn) and a model without ``apply`` / ``loss_and_logits``.
+        The pipeline and ``offload_param``, which it also rejects here,
+        the port's config refuses as not ported. ZeRO stages 0-2
+        compose: they differentiate `loss_fn` like the LM loss; stage 3
+        under "gspmd" is not ported (the RL losses run the model's
+        ``apply`` over a whole parameter tree)."""
         p = self._config.rl_params
+        if self._config.zero_config.schedule.mode == "explicit":
+            raise DeepSpeedConfigError(
+                "the \"rl\" block cannot ride "
+                "zero_optimization.schedule.mode \"explicit\": the "
+                "explicit ZeRO-3 schedule compiles its own fused LM "
+                "loss-and-grad program and bypasses loss_fn — use GSPMD "
+                "ZeRO (stage 0-3) for the policy engine")
         if (self._config.quantization_config or {}).get("ffn"):
             raise DeepSpeedConfigError(
                 "the \"rl\" block cannot ride quantization.ffn: the "
@@ -452,6 +477,9 @@ class DeepSpeedEngine:
                 "tokens) and loss_and_logits(params, batch) "
                 "(models.gpt_neox.GPTNeoX does); a bare loss_fn "
                 "callable has no logits to score rollouts with")
+        if self._zero3_on:
+            raise _not_ported("the \"rl\" block with ZeRO stage 3",
+                              "ZeRO-3 (A.6)")
         from ..rl.losses import get_rl_loss
         self._loss_override = get_rl_loss(p[c.RL_LOSS])(model, p)
         log_dist(f"rl: loss_fn override -> {p[c.RL_LOSS]}", ranks=[0])
@@ -550,11 +578,12 @@ class DeepSpeedEngine:
         raise DeepSpeedConfigError(f"Unknown optimizer {name!r}")
 
     def _check_partitioned_optimizer(self):
-        """Across ranks at stages 1-2 each rank steps its partition of
-        the flat state: the flat Adam does; Lamb's per-parameter trust
-        ratio and a client's update over the whole flat masters do not
-        run on a partition yet."""
-        if not self._partitioned or isinstance(self.optimizer, FusedAdam):
+        """Across ranks at stages 1-2, and at stage 3 on any world, each
+        rank steps its partition of the flat state: the flat Adam does;
+        Lamb's per-parameter trust ratio and a client's update over the
+        whole flat masters do not run on a partition yet."""
+        if not (self._partitioned or self._zero3_on) or \
+                isinstance(self.optimizer, FusedAdam):
             return
         raise _not_ported(
             f"{type(self.optimizer).__name__} on a ZeRO stage "
@@ -598,6 +627,51 @@ class DeepSpeedEngine:
         self.dp_group = dist.group.WORLD
 
     @property
+    def _zero3_on(self):
+        return self.zero_optimization_stage() == 3
+
+    def _check_zero3(self):
+        """What stage 3 does not carry in this port raises "not ported"
+        (A.6), rather than training without it: a model without
+        `build_zero3_loss` (GPT-2, BERT, client modules), MoE and sparse
+        attention under "gspmd" (under "explicit" the model raises the
+        JAX schedule's own errors), ``quantization.ffn`` under "gspmd"
+        (`_configure_quantization` raises the JAX error under
+        "explicit"), ``sparse_gradients``, the fork features that read a
+        whole gradient (``store_gradients``) and the flops profiler,
+        whose timed step runs the model's parameters in place. The
+        explicit schedule with progressive layer drop raises the JAX
+        engine's error."""
+        if not self._zero3_on:
+            return
+        cfg = self._config
+        explicit = cfg.zero_config.schedule.mode == "explicit"
+
+        def refuse(what):
+            return _not_ported(f"{what} with ZeRO stage 3", "ZeRO-3 (A.6)")
+        if explicit and cfg.pld_enabled:
+            raise DeepSpeedConfigError(
+                "explicit schedule + progressive_layer_drop is "
+                "unsupported (theta is not threaded through the "
+                "scheduled block scan)")
+        if not hasattr(self.module, "build_zero3_loss"):
+            raise refuse(f"{type(self.module).__name__} (the port "
+                         f"partitions GPT-NeoX's layers)")
+        if not explicit:
+            if cfg.moe_enabled:
+                raise refuse("the \"moe\" block")
+            if cfg.sparse_attention:
+                raise refuse("the \"sparse_attention\" block")
+            if (cfg.quantization_config or {}).get("ffn"):
+                raise refuse("quantization.ffn")
+        if self.sparse_gradients_enabled():
+            raise refuse("sparse_gradients")
+        if cfg.store_gradients:
+            raise refuse("store_gradients")
+        if cfg.flops_profiler_config.enabled:
+            raise refuse("the \"flops_profiler\" block")
+
+    @property
     def _partitioned(self):
         """Stages 1-2 under a process group: each rank keeps the fp32
         masters and moments (stage 2: the accumulator too) of one
@@ -620,7 +694,12 @@ class DeepSpeedEngine:
         compute, a view of the parameters' partition); stage 1 keeps a
         whole fp32 accumulator and a partition it is reduce-scattered
         into (``_grad_part``), stage 2 an fp32 accumulator of the
-        partition only."""
+        partition only.
+
+        Stage 3: `_init_zero3_state`."""
+        self._z3 = self._z3_loss = None
+        if self._zero3_on:
+            return self._init_zero3_state()
         named = list(self.module.named_parameters())
         self.param_names = [n for n, _ in named]
         sizes = [p.numel() for _, p in named]
@@ -678,6 +757,69 @@ class DeepSpeedEngine:
                                         self.param_slices])
         else:
             self.opt_state = self.optimizer.init_state(self._master)
+
+    def _init_zero3_state(self):
+        """Stage 3's state (`zero/stage3.py`): the natural fp32 flat
+        buffer of the model's parameters is cut into this rank's
+        partition of the row layout (fp32 masters; the compute shard, the
+        masters themselves in fp32 compute; the moments and the fp32
+        accumulator alike) and the whole persisted row; the module's
+        parameters then hold no data but the persisted leaves (views of
+        the persisted row), and the model's `build_zero3_loss` sets the
+        schedule. ``param_slices`` keep the natural flat order of stage
+        0, which the checkpoints and the whole-model readers use."""
+        named = list(self.module.named_parameters())
+        self.param_names = [n for n, _ in named]
+        sizes = [p.numel() for _, p in named]
+        self.num_params = int(sum(sizes))
+        dev, cdt = self.device, self.compute_dtype
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+        self.param_slices = [(n, lo, hi, tuple(p.shape)) for (n, p), lo, hi
+                             in zip(named, offsets[:-1], offsets[1:])]
+        zconf = self._config.zero_config
+        sched = zconf.schedule
+        rules = ZeroShardingRules(
+            3, self.dp_world_size,
+            param_persistence_threshold=zconf.param_persistence_threshold)
+        itemsize = torch.empty(0, dtype=cdt).element_size()
+        layout = Zero3Layout(
+            self.param_slices, self.dp_world_size, rules,
+            bucket_bytes=sched.bucket_bytes if sched.mode == "explicit"
+            else 0, itemsize=itemsize)
+        natural = torch.empty(self.num_params, dtype=torch.float32,
+                              device=dev)
+        with torch.no_grad():
+            for (_, p), lo, hi in zip(named, offsets[:-1], offsets[1:]):
+                natural[lo:hi].copy_(p.detach().reshape(-1))
+        self._master = layout.to_partition(natural, self.dp_rank)
+        self._params_flat = self._master if cdt == torch.float32 else \
+            self._master.to(cdt)
+        persist = layout.persisted_whole(natural).to(cdt) \
+            if layout.persisted is not None else \
+            torch.empty(0, dtype=cdt, device=dev)
+        del natural
+        self._grads_flat = None
+        self._grad_acc = self._grad_part = torch.zeros(
+            layout.part_size, dtype=torch.float32, device=dev)
+        by_name = {leaf.name: leaf for leaf in layout.persisted.leaves} \
+            if layout.persisted is not None else {}
+        for name, p in named:
+            leaf = by_name.get(name)
+            p.requires_grad_(False)
+            p.grad = None
+            p.data = persist[leaf.offset:leaf.offset + leaf.numel].view(
+                p.shape) if leaf is not None else \
+                torch.empty(0, dtype=cdt, device=dev)
+        self._grad_ptrs = []
+        self._grads_checked = True
+        reduce_dtype = torch.float32 if self.allreduce_always_fp32() \
+            else cdt
+        self._z3 = Zero3Runtime(layout, self.dp_rank, self.dp_group,
+                                self._params_flat, self._grad_acc, persist,
+                                reduce_dtype,
+                                self.module.config.num_layers)
+        self._z3_loss = self.module.build_zero3_loss(self._z3, sched)
+        self.opt_state = self.optimizer.init_state(self._master)
 
     def _configure_observability_pre(self):
         """The flops profiler and the monitor, before the checkpoint
@@ -750,6 +892,14 @@ class DeepSpeedEngine:
                 "quantization + progressive_layer_drop is unsupported "
                 "(theta and the amax state cannot both thread through "
                 "the block scan yet)")
+        if self._z3 is not None and \
+                self._config.zero_config.schedule.mode == "explicit":
+            raise DeepSpeedConfigError(
+                "quantization.ffn with the explicit ZeRO-3 schedule "
+                "is unsupported (the scheduled block scan does not "
+                "thread amax state); use schedule.mode \"gspmd\", "
+                "or drop quantization.ffn and keep "
+                "gradient_compression")
         if not hasattr(self.module, "init_ffn_amax"):
             raise DeepSpeedConfigError(
                 "quantization.ffn needs a model exposing "
@@ -1012,9 +1162,8 @@ class DeepSpeedEngine:
                 kw = self._pld_kwargs()
                 if amax is not None:
                     kw["ffn_amax"] = amax
-                loss = self.loss_fn(self.module.params_tree(),
-                                    self._map(batch, lambda v: v[i]),
-                                    rng=self._rng, **kw)
+                loss = self._loss(self._map(batch, lambda v: v[i]),
+                                  self._rng, **kw)
                 if amax is not None:
                     loss, amax = loss
                     if self.dp_world_size > 1:
@@ -1032,6 +1181,14 @@ class DeepSpeedEngine:
         tel.on_step_end(self, verdict=verdict,
                         flops=self._step_flops.get(gas), tokens=token_stats)
         return mean_loss
+
+    def _loss(self, batch, rng, **kw):
+        """The installed loss of one micro-batch: over the module's
+        parameter tree, or at stage 3 through the model's fetch hook
+        (`GPTNeoX.build_zero3_loss`), which gathers the parameters."""
+        if self._z3_loss is not None:
+            return self._z3_loss(batch, rng=rng, **kw)
+        return self.loss_fn(self.module.params_tree(), batch, rng=rng, **kw)
 
     def _pld_kwargs(self):
         """``pld_theta`` for a model whose ``loss_fn`` declares it:
@@ -1055,6 +1212,13 @@ class DeepSpeedEngine:
         gradient buffer is the accumulator, the earlier micro-batches'
         sum is set aside while autograd runs and added back after, which
         gives the same sum bit for bit (one IEEE add, commutative)."""
+        if self._z3 is not None:
+            # stage 3: each row's backward reduce-scatters into the fp32
+            # partition accumulator (`zero.stage3._FetchRow`)
+            (loss * self.scale_state.cur_scale
+             if self._config.loss_scaling_enabled else loss).backward()
+            self._count_micro(loss)
+            return
         stash = None
         if per_micro is not None and self._grad_acc is self._grads_flat \
                 and self._accum_count:
@@ -1080,6 +1244,10 @@ class DeepSpeedEngine:
         elif self._grad_acc is not self._grads_flat:
             self._grad_acc.add_(self._grads_flat)
             self._grads_flat.zero_()
+        self._count_micro(loss)
+
+    def _count_micro(self, loss):
+        """The micro-batch's loss into the step's sum, and the counts."""
         loss = loss.detach().float()
         self._accum_loss = loss if self._accum_loss is None else \
             self._accum_loss + loss
@@ -1206,16 +1374,18 @@ class DeepSpeedEngine:
             grads.div_(cfg.gradient_predivide_factor)
         # a partition's flag and norm are agreed over the ranks; stage
         # 0's gradients are whole and alike on every rank
-        group = self.dp_group if self._part is not None else None
+        group = self.dp_group \
+            if self._part is not None or self._z3 is not None else None
         overflow = cfg.loss_scaling_enabled and \
             not bool(grads_finite(grads, group))
         skip = overflow
         # the global norm (after unscale and the predivide, before
         # clipping; the clip reuses it) where the probe or the monitor
         # reads it: a 0-d device tensor, read at the monitor's flush
-        grad_norm = global_norm(grads, group) if \
+        grad_norm = self._grad_norm(grads, group) if \
             self._monitor_wants_grad_norm or (
-                group is not None and cfg.gradient_clipping > 0) else None
+                (group is not None or self._z3 is not None) and
+                cfg.gradient_clipping > 0) else None
         self._step_metrics["grad_norm"] = grad_norm
         # the scale this step ran with (the JAX step's metrics.loss_scale)
         self._step_metrics["loss_scale"] = self.scale_state.cur_scale
@@ -1244,6 +1414,8 @@ class DeepSpeedEngine:
                 # every rank's new compute partition into every rank's
                 # flat parameter buffer
                 all_gather_(self._params_flat, self._part, self.dp_group)
+            if self._z3 is not None:
+                self._z3.refresh_persisted()
         if self.dynamic_loss_scale():
             scaler = self.loss_scaler
             self.scale_state = update_loss_scale(
@@ -1257,6 +1429,16 @@ class DeepSpeedEngine:
             self.scale_state = self.scale_state._replace(
                 cur_iter=self.scale_state.cur_iter + 1)
         return overflow
+
+    def _grad_norm(self, grads, group):
+        """The global norm of the (partitioned) gradient. At stage 3 on
+        one rank the partition holds every row in the row layout's
+        order; the norm is taken over the natural order, stage 0's flat
+        layout, so a reduction over the same elements in the same order
+        gives stage 0's norm, and the clip its scale, bit for bit."""
+        if self._z3 is not None and self.dp_world_size == 1:
+            return global_norm(self._z3.layout.to_natural(grads))
+        return global_norm(grads, group)
 
     def _compute_out(self):
         """Where the optimizer writes the new compute-dtype parameters:
@@ -1468,8 +1650,7 @@ class DeepSpeedEngine:
             self._capture_activations(batch)
         if rng is None:
             rng = self._rng.manual_seed(micro_step_seed(self.micro_steps))
-        loss = self.loss_fn(self.module.params_tree(), batch, rng=rng,
-                            **self._pld_kwargs())
+        loss = self._loss(batch, rng, **self._pld_kwargs())
         self._cached_loss = loss
         if self.wall_clock_breakdown():
             self.timers("forward").stop()
@@ -1523,7 +1704,13 @@ class DeepSpeedEngine:
         `hot_swap_weights`), COPIES: one device copy of the flat compute
         buffer, one view a leaf into it. The flat buffer's own views
         (`_natural_tree`) would move with every update, which the serving
-        engine and the RL reference must not."""
+        engine and the RL reference must not. At stage 3 the copy is
+        the gathered rows (`Zero3Runtime.gather_natural`)."""
+        if self._z3 is not None:
+            with torch.no_grad():
+                flat = self._z3.gather_natural(self._params_flat)
+            return {name: flat[lo:hi].view(shape)
+                    for name, lo, hi, shape in self.param_slices}
         flat = self._params_flat.detach().clone()
         return {name: flat[lo:hi].view(shape)
                 for name, lo, hi, shape in self.param_slices}
@@ -1574,7 +1761,9 @@ class DeepSpeedEngine:
         import re
         rng = torch.Generator(device=self.device).manual_seed(
             micro_step_seed(self.micro_steps))
-        outs = hs_fn(self.module.params_tree(), batch, rng)
+        outs = hs_fn(None, batch, rng, zero3=self._z3) \
+            if self._z3 is not None else \
+            hs_fn(self.module.params_tree(), batch, rng)
         names = list(getattr(self.module, "layer_names", lambda: [])()) or \
             [str(i) for i in range(len(outs))]
         wanted = set()
@@ -1593,7 +1782,11 @@ class DeepSpeedEngine:
         """The gradient-noise-scale estimator (`runtime.utils.
         GradientNoiseScale`) at the micro batch size; `backward` feeds
         it each micro-batch's gradients (`train_batch` does not, and
-        warns once)."""
+        warns once). Not ported at stage 3, where no rank holds a whole
+        gradient."""
+        if self._z3 is not None:
+            raise _not_ported("the gradient-noise scale with ZeRO stage 3",
+                              "ZeRO-3 (A.6)")
         self.gradient_noise_scale = GradientNoiseScale(
             batch_size_small=self.train_micro_batch_size_per_gpu(),
             n_batches=n_batches, beta=beta)
@@ -1622,7 +1815,6 @@ class DeepSpeedEngine:
         if rng is None:
             rng = torch.Generator(device=self.device).manual_seed(0)
         batch = self._device_batch(batch)
-        params = self.module.params_tree()
         if return_logits:
             fn = getattr(self.module, "loss_and_logits", None)
             if fn is None:
@@ -1630,9 +1822,103 @@ class DeepSpeedEngine:
                     "eval_batch(return_logits=True) needs a model exposing "
                     "loss_and_logits(params, batch, rng) (models.gpt_neox."
                     "GPTNeoX / models.gpt2.GPT2 do)")
-            loss, logits = fn(params, batch, rng)
+            loss, logits = fn(None, batch, rng, zero3=self._z3) \
+                if self._z3 is not None else \
+                fn(self.module.params_tree(), batch, rng)
             return float(loss), logits
-        return float(self.loss_fn(params, batch, rng=rng))
+        return float(self._loss(batch, rng))
+
+    # ------------------------------------------------------------------
+    # whole-model access to the (partitioned) state
+    # ------------------------------------------------------------------
+
+    def _natural_flat(self, part):
+        """One buffer of the flat state (the masters, or the compute
+        parameters) whole, in the natural flat order: gathered over the
+        ranks where each holds a partition."""
+        if self._z3 is not None:
+            return self._z3.gather_natural(part)
+        if self._part is not None and part.numel() == self._part.size:
+            return gather_full(part, self._part,
+                               self.dp_group)[:self.num_params]
+        return part[:self.num_params]
+
+    def _load_natural(self, natural):
+        """A natural flat fp32 buffer of the whole model into the masters
+        and the compute parameters (this rank's partition of each where
+        it holds one)."""
+        with torch.no_grad():
+            if self._z3 is not None:
+                self._z3.layout.to_partition(natural, self.dp_rank,
+                                             out=self._master)
+                self._z3.load_natural(natural)
+                return
+            if self._part is not None:
+                full = natural.new_zeros(self._part.padded)
+                full[:self.num_params] = natural
+                if self._master.untyped_storage().data_ptr() != \
+                        self._params_flat.untyped_storage().data_ptr():
+                    self._master.copy_(full[self._part.lo:self._part.hi])
+                self._params_flat.copy_(full)
+                return
+            self._params_flat[:self.num_params].copy_(natural)
+            if self._master is not self._params_flat:
+                self._master.copy_(natural)
+
+    def gathered_parameters(self, modifier_rank=0, select=None):
+        """`zero.GatheredParameters` over the LIVE training state: whole,
+        mutable fp32 host copies of the masters (of the parameters in the
+        lean state) as the natural tree; on exit the mutations (rank
+        ``modifier_rank``'s) go back into the state, the masters AND the
+        compute parameters (at stage 3 this rank's shard and the
+        persisted row), so training continues from the edited weights.
+        The optimizer moments are left as they are, as in the reference.
+        ``select`` (a predicate over "a/b/c" tree paths, or a list of
+        path prefixes) hands out and writes back only that sub-tree; the
+        other leaves are yielded as they are."""
+        from ..models.gpt_neox import unflatten
+        from .zero.partition_parameters import GatheredParameters
+        if isinstance(select, (list, tuple, set)):
+            prefixes = tuple(select)
+            select = lambda path: any(  # noqa: E731
+                path.startswith(p) for p in prefixes)
+        with torch.no_grad():
+            natural = self._natural_flat(self._master).float().cpu()
+        tree = unflatten({name: natural[lo:hi].view(shape)
+                          for name, lo, hi, shape in self.param_slices})
+
+        def write_back(view):
+            from .zero.partition_parameters import _tree_map_path
+            new = natural.clone()
+            slots = {name.replace(".", "/"): (lo, hi)
+                     for name, lo, hi, _ in self.param_slices}
+
+            def put(path, v):
+                key = "/".join(str(k) for k in path)
+                if isinstance(v, np.ndarray) and key in slots:
+                    lo, hi = slots[key]
+                    new[lo:hi] = torch.from_numpy(
+                        np.ascontiguousarray(v, np.float32)).reshape(-1)
+                return v
+            _tree_map_path(put, view)
+            self._load_natural(new.to(self.device))
+
+        return GatheredParameters(tree, modifier_rank=modifier_rank,
+                                  on_exit=write_back, select=select,
+                                  group=self.dp_group)
+
+    def _zero3_consolidated_fp16_state_dict(self):
+        """The ZeRO-3 compute parameters gathered into one host natural
+        tree in the compute dtype (the reference's consolidated fp16
+        save; the JAX engine's `_zero3_consolidated_fp16_state_dict`)."""
+        if self.zero_optimization_stage() != 3:
+            raise ValueError(
+                "this function only works for ZeRO-3; use "
+                "engine.state.params / module_state_dict otherwise")
+        from ..models.gpt_neox import unflatten
+        from .zero.stage3 import consolidate_params
+        return consolidate_params(unflatten(self.params_to_natural()),
+                                  dtype=self.compute_dtype)
 
     # ------------------------------------------------------------------
     # checkpointing (the JAX package's layout; see checkpoint/)

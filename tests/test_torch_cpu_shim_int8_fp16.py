@@ -24,9 +24,18 @@ SHIM = (Path(__file__).resolve().parents[1] / "deeperspeed_tpu_torch" /
 REHEARSE = SHIM / "rehearse.py"
 
 
-def _rehearse(*args):
+@pytest.fixture(scope="module", autouse=True)
+def built():
+    """The sources compiled once, before the first case, so no case's
+    time limit pays for g++."""
     if shutil.which("g++") is None:
         pytest.skip("the CPU shim compiles the CUDA sources with g++")
+    res = subprocess.run([sys.executable, str(REHEARSE), "--build-only"],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, (res.stdout[-4000:] + res.stderr[-4000:])
+
+
+def _rehearse(*args):
     res = subprocess.run([sys.executable, str(REHEARSE), *args],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, (res.stdout[-4000:] + res.stderr[-4000:])

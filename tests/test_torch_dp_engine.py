@@ -211,6 +211,8 @@ def test_partitioned_refusals_across_ranks(port):
 @pytest.mark.parametrize("what", ["zero3", "offload", "mpu", "onebit",
                                   "pipeline", "pipeline_module"])
 def test_still_refused(what):
+    """What stays refused everywhere raises "not ported"; ZeRO stage 3,
+    ported since, builds its partitioned engine (one rank here)."""
     conf = _conf(1, "fp32", 2)
     kw = {}
     if what == "zero3":
@@ -227,6 +229,12 @@ def test_still_refused(what):
     model = neox.GPTNeoX(neox.GPTNeoXConfig(**T.SIZE), device="cpu")
     if what == "pipeline_module":
         model = type("PipelineModule", (torch.nn.Module,), {})()
+    if what == "zero3":
+        eng, *_ = dst.initialize(model=model, config_params=conf, **kw)
+        assert eng.zero_optimization_stage() == 3 and eng._z3 is not None
+        assert eng._z3.layout.part_size * eng.dp_world_size >= \
+            eng.num_params
+        return
     with pytest.raises(DeepSpeedConfigError, match="not ported"):
         dst.initialize(model=model, config_params=conf, **kw)
 

@@ -120,10 +120,28 @@ def test_override_refuses_model_without_apply_like_jax():
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
 ], ids=["pipeline", "explicit_schedule", "offload_param"])
 def test_modes_the_config_refuses(jparams, extra):
-    """The JAX override's other refusals: the port's config stops them
-    first, as not ported."""
-    with pytest.raises(DeepSpeedConfigError, match="not ported"):
-        port_engine(jparams, ds_config(**extra))
+    """The JAX override's other refusals: the pipeline and offload_param
+    the port's config stops first, as not ported; the explicit ZeRO-3
+    schedule, ported since, gets the JAX override's own error."""
+    conf = ds_config(**extra)
+    if "schedule" not in extra.get("zero_optimization", {}):
+        with pytest.raises(DeepSpeedConfigError, match="not ported"):
+            port_engine(jparams, conf)
+        return
+    with pytest.raises(DeepSpeedConfigError) as err:
+        port_engine(jparams, conf)
+    fake = types.SimpleNamespace(
+        _config=types.SimpleNamespace(
+            rl_params=jax_parse(conf), pipeline_config=None,
+            zero_config=types.SimpleNamespace(
+                schedule=types.SimpleNamespace(mode="explicit"),
+                offload_param=None),
+            quantization_config=None),
+        module_obj=jax_model())
+    with pytest.raises(JaxConfigError) as want:
+        JaxEngine._apply_rl_loss_override(fake)
+    assert str(err.value) == str(want.value)
+    assert "explicit" in str(err.value)
 
 
 def test_installed_loss_and_zero1_compose(jparams):

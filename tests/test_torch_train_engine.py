@@ -308,9 +308,11 @@ def test_config_values_match_jax(conf):
         np.dtype(ref.precision).name
 
 
-# the observability blocks and "rl", ported since: their cases stay in the
-# list and now hold the port's parse to the JAX package's
+# the observability blocks, "rl" and ZeRO stage 3, ported since: their
+# cases stay in the list and now hold the port's parse to the JAX
+# package's
 RETIRED = ("flops_profiler", "monitor", "rl", "telemetry", "tensorboard")
+RETIRED_ZERO = ({"zero_optimization": {"stage": 3}},)
 UNPORTED = [{k: {"enabled": True}} for k in sorted(
     set(c.NOT_PORTED_BLOCKS) | set(RETIRED))] + [
     {"zero_optimization": {"stage": 3}},
@@ -326,10 +328,11 @@ UNPORTED = [{k: {"enabled": True}} for k in sorted(
 def test_unported_blocks_raise(block):
     """A block the port does not carry raises "not ported"; a retired
     one parses as the JAX package parses it: the same attributes, or the
-    same error (``monitor`` has no "enabled" key in either)."""
+    same error (``monitor`` has no "enabled" key in either; stage 3
+    compares the zero config)."""
     conf = {"train_batch_size": 4, **block}
     key = next(iter(block))
-    if key not in RETIRED:
+    if key not in RETIRED and block not in RETIRED_ZERO:
         with pytest.raises(DeepSpeedConfigError, match="not ported"):
             DeepSpeedConfig(conf)
         return
@@ -341,6 +344,17 @@ def test_unported_blocks_raise(block):
         assert str(err.value) == str(e)
         return
     ours = DeepSpeedConfig(conf)
+    if block in RETIRED_ZERO:
+        theirs = vars(ref.zero_config)
+        for name, value in vars(ours.zero_config).items():
+            if name not in ("offload_param", "offload_optimizer",
+                            "schedule"):
+                assert value == theirs[name], name
+        assert vars(ours.zero_config.schedule) == \
+            vars(ref.zero_config.schedule)
+        assert ours.zero_optimization_stage == \
+            ref.zero_optimization_stage == 3
+        return
     for attr in ("telemetry_config", "tensorboard_enabled",
                  "monitor_export_config", "flops_profiler_config",
                  "rl_params", "rl_enabled"):

@@ -13,10 +13,16 @@ group, each a dict with a ``kind``:
   ``steps`` steps on this rank's columns of ``tokens`` [gas, micro ·
   world, S] (the JAX engine's global batch split over its data axis),
   through `train_batch` or, with ``legacy``, the forward / backward /
-  step loop. Optional: ``load`` (a checkpoint dir to resume from first),
-  ``save`` (dir) and ``save_at`` (after that many steps; the last by
-  default), ``inject_inf`` ({"step", "rank"}: an inf in that rank's
-  reduced gradient at that step, 1-based).
+  step loop. Optional: ``load`` (a checkpoint dir to resume from first;
+  with ``wait_for``, a file to wait for before loading, written by the
+  test process), ``save`` (dir) and ``save_at`` (after that many steps;
+  the last by default), ``inject_inf`` ({"step", "rank"}: an inf in that
+  rank's reduced gradient at that step, 1-based), ``eval`` (the
+  eval_batch loss of the first micro-batch after training), ``hook``
+  (layer indices captured through `set_layers_to_hook` on the first
+  step), ``edit`` ({"leaf", "value"}: a row of that leaf set through
+  `gathered_parameters` before training), ``consolidated`` (the ZeRO-3
+  consolidated state dict after training).
   Reports the losses, each step's host ms (the returned loss syncs the
   device), the masters and the compute parameters (natural
   leaves, fp32, whole: gathered over the ranks), the loss scale, the
@@ -25,8 +31,11 @@ group, each a dict with a ``kind``:
 - "csr": `csr_allreduce` of this rank's row-sparse ``dense[rank]``.
 - "stage1": the standalone stage-1 / stage-2 optimizers on a few tensors.
 - "loader": the `DeepSpeedDataLoader` order at the group's defaults.
-- "refuse": `initialize` with each of ``confs`` (a name → config); the
-  message of the error each raises (None where none is raised).
+- "refuse": `initialize` with each of ``confs`` (a name → config; a
+  config may carry "model": "gpt2" for a tiny GPT-2); the message of the
+  error each raises (None where none is raised).
+- "zero_api": `zero.Init` / `GatheredParameters` standalone over the
+  group: the local shapes, the gathered leaves and the write-back.
 
 The spec's ``device`` ("cpu" by default; "cuda": every rank on the
 current card) and ``backend`` ("gloo" by default) place the ranks.
@@ -49,11 +58,9 @@ def _tree_flat(engine, flat):
 
 
 def _whole(engine, t):
-    from deeperspeed_tpu_torch.runtime.zero.stage1 import gather_full
-    part = engine._part
-    if part is not None and t.numel() == part.size:
-        return gather_full(t.detach(), part, engine.dp_group)
-    return t
+    """A flat buffer of the state whole, in the natural order (gathered
+    over the ranks where each holds a partition)."""
+    return engine._natural_flat(t.detach())
 
 
 def _state_bytes(engine):
@@ -61,9 +68,12 @@ def _state_bytes(engine):
     def nb(t):
         return t.numel() * t.element_size()
     out = {"params": nb(engine._params_flat),
-           "grads": nb(engine._grads_flat),
            "exp_avg": nb(engine.opt_state.exp_avg),
            "exp_avg_sq": nb(engine.opt_state.exp_avg_sq)}
+    if engine._grads_flat is not None:
+        out["grads"] = nb(engine._grads_flat)
+    if engine._z3 is not None:
+        out["persist"] = nb(engine._z3.persist)
     if engine._master.untyped_storage().data_ptr() != \
             engine._params_flat.untyped_storage().data_ptr():
         out["master"] = nb(engine._master)   # not a view of the params
@@ -95,8 +105,21 @@ def run_train(case, rank, world, device="cpu"):
         model.init_params(case["seed"])
     eng, *_ = dst.initialize(model=model, config_params=case["conf"],
                              model_parameters=case.get("weights"))
+    if case.get("wait_for"):
+        deadline = time.monotonic() + 150
+        while not os.path.exists(case["wait_for"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{case['wait_for']} never appeared")
+            time.sleep(0.2)
     if case.get("load"):
         eng.load_checkpoint(case["load"])
+    edit = case.get("edit")
+    if edit:
+        with eng.gathered_parameters(modifier_rank=0) as full:
+            node = full
+            for key in edit["leaf"].split("/")[:-1]:
+                node = node[int(key)] if key.isdigit() else node[key]
+            node[edit["leaf"].split("/")[-1]][0] = edit["value"]
     tokens = np.asarray(case["tokens"])
     micro = tokens.shape[1] // world
     mine = torch.from_numpy(np.ascontiguousarray(
@@ -114,7 +137,10 @@ def run_train(case, rank, world, device="cpu"):
         eng._reduced_grads = poisoned
     losses, masters, step_s = [], [], []
     save_at = case.get("save_at", case["steps"])
+    hooked = None
     for step in range(case["steps"]):
+        if step == 0 and case.get("hook"):
+            eng.set_layers_to_hook(case["hook"])
         t0 = time.perf_counter()
         if case.get("legacy"):
             loss = None
@@ -125,6 +151,9 @@ def run_train(case, rank, world, device="cpu"):
         else:
             losses.append(eng.train_batch(batch=(mine, mine)))
         step_s.append(time.perf_counter() - t0)
+        if step == 0 and case.get("hook"):
+            hooked = {i: a.float().cpu().numpy() for i, a in
+                      eng.get_hooked_activations().items()}
         if case.get("masters_each_step"):
             masters.append(_tree_flat(eng, _whole(eng, eng._master)))
         if case.get("save") and step + 1 == save_at:
@@ -142,9 +171,36 @@ def run_train(case, rank, world, device="cpu"):
            "dp_world_size": eng.dp_world_size}
     if not case.get("light"):
         out["master"] = _tree_flat(eng, _whole(eng, eng._master))
-        out["params"] = _tree_flat(eng, eng._params_flat)
+        out["params"] = _tree_flat(eng, _whole(eng, eng._params_flat))
+    if case.get("eval"):
+        out["eval"] = eng.eval_batch((mine[0], mine[0]))
+    if hooked is not None:
+        out["hooked"] = hooked
+    if case.get("consolidated"):
+        tree = eng._zero3_consolidated_fp16_state_dict()
+        out["consolidated"] = {
+            "/".join(map(str, path)): (str(t.dtype), t.float().numpy())
+            for path, t in _paths(tree)}
+    if eng._z3 is not None:
+        out["collectives"] = {"gathers": eng._z3.gathers,
+                              "reduce_scatters": eng._z3.reduce_scatters}
+        out["layout"] = {"part_size": eng._z3.layout.part_size,
+                         "persisted": eng._z3.layout.persisted_numel,
+                         "persisted_padded":
+                             eng._z3.layout.persisted_padded}
     del eng
     return out
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
 
 
 def run_csr(case, rank, world):
@@ -210,18 +266,62 @@ def run_refuse(case, rank, world):
     from deeperspeed_tpu_torch.models import gpt_neox as neox
     out = {}
     for name, conf in case["confs"].items():
-        model = neox.GPTNeoX(neox.GPTNeoXConfig(**case["size"]),
-                             device="cpu")
+        conf = dict(conf)
+        if conf.pop("model", None) == "gpt2":
+            model = dst.GPT2(dst.GPT2Config.tiny(), device="cpu")
+        else:
+            model = neox.GPTNeoX(neox.GPTNeoXConfig(**case["size"]),
+                                 device="cpu")
         try:
             dst.initialize(model=model, config_params=conf)
             out[name] = None
-        except dst.DeepSpeedConfigError as e:
-            out[name] = str(e)
+        except (dst.DeepSpeedConfigError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def run_zero_api(case, rank, world):
+    """`zero.Init` / `GatheredParameters` over the group, on the leaves
+    of ``case["tree"]`` (numpy)."""
+    import numpy as np
+    import torch
+
+    from deeperspeed_tpu_torch.runtime import zero
+    tree = case["tree"]
+
+    def init_fn():
+        return {k: torch.as_tensor(v) for k, v in tree.items()}
+    out = {}
+    with zero.Init(stage=3, param_persistence_threshold=16) as ctx:
+        out["current"] = zero.current_init_context() is ctx
+        params = ctx.materialize(init_fn)
+    out["after"] = zero.current_init_context() is None
+    out["local"] = {k: (tuple(p.local.shape), p.persisted)
+                    for k, p in params.items()}
+    with zero.Init(stage=3, enabled=False) as ctx:
+        off = ctx.materialize(init_fn)
+    out["disabled_local"] = {k: tuple(p.local.shape) for k, p in off.items()}
+    with zero.GatheredParameters(params) as full:
+        out["gathered"] = {k: np.array(v) for k, v in full.items()}
+        full["w"][:] = 5.0
+    out["read_only_kept"] = bool(np.array_equal(
+        params["w"].full().numpy(), tree["w"]))
+    gp = zero.GatheredParameters(params, modifier_rank=0)
+    with gp as full:
+        full["w"][0, :] = 7.0 + rank      # rank 0's values win
+    out["updated_local"] = tuple(gp.updated["w"].local.shape)
+    out["updated"] = gp.updated["w"].full().numpy()
+    with zero.GatheredParameters(params, enabled=False) as same:
+        out["passthrough"] = same is params
+    module, param = object(), object()
+    zero.register_external_parameter(module, param)
+    zero.unregister_external_parameter(module, param)
     return out
 
 
 RUNNERS = {"train": run_train, "csr": run_csr, "stage1": run_stage1,
-           "loader": run_loader, "refuse": run_refuse}
+           "loader": run_loader, "refuse": run_refuse,
+           "zero_api": run_zero_api}
 
 
 def main():
