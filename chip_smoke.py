@@ -14,6 +14,7 @@
     python3 chip_smoke.py --rl-only [--profile]
     python3 chip_smoke.py --dp-only
     python3 chip_smoke.py --zero3-only [--profile]
+    python3 chip_smoke.py --moe-ep-only
 
 Phases (any failure exits non-zero before the final line):
 
@@ -463,7 +464,7 @@ Phases (any failure exits non-zero before the final line):
    partitions together bit-equal to the whole-buffer step; (d) two
    ranks over gloo on this one card (`tests/torch_dp_worker.py`
    children, micro 8 each, so the global batch is (a)'s), ZeRO 1 and 2,
-   10 steps: losses within rtol 2e-2 of (a)'s (bf16 products at micro 8
+   5 steps: losses within rtol 2e-2 of (a)'s (bf16 products at micro 8
    round apart from micro 16), the ranks' losses equal;
 42. ZeRO stage 3, train-zero3-125M (``--zero3-only`` runs it alone,
    after phase 3's flash and Adam checks at the training shape): (a)
@@ -479,11 +480,36 @@ Phases (any failure exits non-zero before the final line):
    against `torch.cuda.memory_allocated` after the build (32 MiB), and
    `max_memory_allocated` over a step; (c) bench.py row_zero3's
    quantities at world 1 (seq 1024, the first batch of 48, 32 that
-   fits, gas 1, 12 steps after 4): tokens/s and MFU at stage 0, stage 3
+   fits, gas 1, 6 steps after 2): tokens/s and MFU at stage 0, stage 3
    "gspmd" and "explicit" without remat, printed, not gated; (d) two
    gloo ranks on this card (micro 8 each), "gspmd" and "explicit", 3
    steps each: losses within rtol 2e-2 of (a)'s, the ranks' losses
    equal, each rank's bytes at rest the formula at world 2;
+43. MoE across ranks, train-moe-ep-125M (``--moe-ep-only`` runs it
+   alone, after phase 3's flash, Adam and grouped-matmul checks and
+   phase 11): (a) phase 11's model and JSON at ZeRO stage 0, 10 steps
+   on one engine without a process group, then at world 1 over NCCL on
+   a 1-D "expert" `DeviceMesh` (the route over the group, the exchange
+   by all-to-alls, a copy at world 1): losses and fp32 masters bit-equal
+   to the engine without a group, exact launches (24 grouped forward,
+   24 dx and 24 dW a step, all "wgmma"; flash; one Adam), the step's
+   ms beside phase 11's, and each all-to-all shape of that run timed
+   on the device (CUDA events behind a spin kernel that hides the
+   host's enqueue, `a2a_device_ms`) with the host's enqueue beside; (b) `moe_ffn_expert_parallel` at ep 1
+   against `moe_ffn_dense` at phase 11's layer geometry in bf16, both
+   engines, the sort engine's exchange in 1 and 2 chunks: y and the aux
+   loss bit-equal (the gradients' identity printed); (c) two gloo ranks
+   on this card (micro 4 each, so the global batch is (a)'s), 3 steps
+   on the "expert" mesh (4 experts a rank) and 3 on the data-parallel
+   path with replicated experts routing the global micro-batch
+   (capacity factor 1.25, aux loss coefficient 0.01): losses within
+   rtol 1e-3 of (a)'s, the fp32 masters' gap to (a)'s after 3 steps
+   below 0.5 of (a)'s update, experts and dense apart (`master_gap`),
+   the ranks' losses equal, the collectives that went through the host
+   (gloo takes CPU tensors) counted; (d) the grouped
+   matmul on an owner's received buffer at ep 2 (4 experts of 2 ragged
+   spans, an empty expert): forward, dx and dW against the plain
+   version, two calls bit-identical, the forward timed;
 Phase 3 also holds every fp16 variant against its plain version in fp16
 (flash forward and backward at the training shape, at D 128, on ragged
 segments and at BERT's key-bias + dropout shape with its all-masked
@@ -10481,8 +10507,10 @@ def run_rl_phases(fa, da, qm, ad, report, card, profile_step=False):
 DP_STEPS = 10
 DP_STAGES = (0, 1, 2)
 DP_WORLDS = (2, 4, 8)
-# (d): two gloo ranks on the one card, micro 8 each (phase 7's global 16)
+# (d): two gloo ranks on the one card, micro 8 each (phase 7's global 16),
+# 5 steps a stage (10 until phase 43 needed the room)
 DP_CHILD_STAGES = (1, 2)
+DP_CHILD_STEPS = 5
 DP_CHILD_TIMEOUT = 300
 # (d)'s losses against (a)'s: bf16 products at micro 8 round apart from
 # those at micro 16, and the difference grows over the steps
@@ -10728,8 +10756,8 @@ def dp_adam_partitions(ad, gen, n):
 
 def dp_children(tmp, tokens, n_params):
     """(d): two ranks over gloo on the one card, `tests/torch_dp_worker.py`
-    children at micro 8, ZeRO 1 then 2, DP_STEPS steps each. Returns each
-    rank's results."""
+    children at micro 8, ZeRO 1 then 2, DP_CHILD_STEPS steps each. Returns
+    each rank's results."""
     import pickle
     import socket
     root = os.path.dirname(os.path.abspath(__file__))
@@ -10739,7 +10767,7 @@ def dp_children(tmp, tokens, n_params):
     cases = [{"kind": "train", "name": f"zero{stage}", "size": NEOX_125M,
               "seed": 0, "weights": None, "light": True,
               "conf": {**conf, "zero_optimization": {"stage": stage}},
-              "tokens": tokens.cpu().numpy(), "steps": DP_STEPS}
+              "tokens": tokens.cpu().numpy(), "steps": DP_CHILD_STEPS}
              for stage in DP_CHILD_STAGES]
     spec = os.path.join(tmp, "dp_spec.pkl")
     with open(spec, "wb") as f:
@@ -10963,10 +10991,11 @@ Z3_EXPLICIT = {"mode": "explicit", "prefetch_depth": 2, "bucket_mb": 32,
 Z3_RUNS = (("gspmd", {"mode": "gspmd"}),
            ("explicit", {**Z3_EXPLICIT, "remat": True}),
            ("explicit_no_remat", {**Z3_EXPLICIT, "remat": False}))
-# (c): bench.py row_zero3's batch ladder at seq 1024, 12 steps after 4
-# warm-up steps, gas 1, Adam lr 1e-4
+# (c): bench.py row_zero3's batch ladder at seq 1024, 6 steps after 2
+# warm-up steps (the row's 12 after 4 until phase 43 needed the room),
+# gas 1, Adam lr 1e-4
 Z3_ROW_LADDER = (48, 32)
-Z3_ROW_STEPS, Z3_ROW_WARMUP = 12, 4
+Z3_ROW_STEPS, Z3_ROW_WARMUP = 6, 2
 # (d): two gloo ranks on the card, micro 8 each; a stage-3 step stages
 # about 1.5 GB a rank through the host, so 3 steps a mode
 Z3_CHILD_STEPS = 3
@@ -11491,6 +11520,517 @@ def rl_kernel_rows(ft, fb, adm, de, di, q0, entries):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 43: MoE across ranks (train-moe-ep-125M)
+# ---------------------------------------------------------------------------
+
+# phase 11's model and JSON at ZeRO stage 0: the experts of an "expert"
+# mesh train at stage 0, as the JAX engine's do (stages 1-3 map the axis
+# twice there)
+MOE_EP_CONFIG = {**MOE_TRAIN_CONFIG, "zero_optimization": {"stage": 0}}
+MOE_EP_STEPS = 10
+# (c): two gloo ranks on this card, micro 4 each (the global batch is
+# (a)'s), 3 steps a run
+MOE_EP_CHILD_STEPS = 3
+MOE_EP_CHILD_TIMEOUT = 300
+# the losses' relative difference to (a)'s (sound runs: 8.3e-6), and the
+# fp32 masters' gap to (a)'s over (a)'s update, experts and dense apart
+# (`master_gap`)
+TOL_MOE_EP_CHILD = 1e-3
+TOL_MOE_EP_MASTER = 0.5
+# (d): an owner's received buffer at ep 2: its 4 experts, 2 spans of
+# GMM_SPAN rows each (one a source rank), ragged: partial spans, a full
+# one, and an expert no rank sent a row (its dW exact zeros)
+MOE_EP_LUT_SIZES = (1400, 1160, 977, 1583, 2560, 0, 0, 0)
+
+
+class A2ARecorder:
+    """The shape and dtype of every all-to-all of the MoE exchange
+    (`utils.distributed._all_to_all`) while on; each runs as the path
+    issues it (asynchronously where the path asks)."""
+
+    def __init__(self, ds_dist):
+        self.ds_dist, self.calls, self.group = ds_dist, [], None
+        self._orig = ds_dist._all_to_all
+
+    def __enter__(self):
+        orig = self._orig
+
+        def recorded(x, group, async_op=False):
+            self.calls.append((tuple(x.shape), x.dtype))
+            self.group = group
+            return orig(x, group, async_op=async_op)
+        self.ds_dist._all_to_all = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.ds_dist._all_to_all = self._orig
+
+
+def a2a_device_ms(ds_dist, rec, steps, iters=10, spin_ms=2.0):
+    """The device time of each distinct all-to-all ``rec`` saw (shape,
+    dtype), on its group: each of ``iters`` calls (after 2 untimed) is
+    issued behind a spin kernel (`torch.cuda._sleep`) of about
+    ``spin_ms``, so the stream is busy while the host enqueues the
+    collective and the CUDA events around it time the device's work, not
+    the host's; the host's enqueue is timed beside it on the host clock.
+    → {"calls_per_step", "by_shape": {shape dtype: {"calls", "bytes",
+    "device_ms_median", "host_enqueue_ms_median"}}, "device_ms_per_step"
+    (a step's calls at their medians), "spin_ms", "host_hidden" (every
+    enqueue shorter than the spin)}."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    torch.cuda._sleep(10 ** 7)
+    e1.record()
+    torch.cuda.synchronize()
+    spin = int(10 ** 7 * spin_ms / e0.elapsed_time(e1))
+    counts = {}
+    for call in rec.calls:
+        counts[call] = counts.get(call, 0) + 1
+    by, per_step, host_max = {}, 0.0, 0.0
+    for (shape, dtype), n in counts.items():
+        x = torch.randn(shape, device="cuda").to(dtype)
+        dev, host = [], []
+        for i in range(iters + 2):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda._sleep(spin)
+            start.record()
+            t0 = time.perf_counter()
+            ds_dist._all_to_all(x, rec.group)
+            t1 = time.perf_counter()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                dev.append(start.elapsed_time(end))
+                host.append((t1 - t0) * 1e3)
+        med = float(np.median(dev))
+        by[f"{list(shape)} {str(dtype)[6:]}"] = {
+            "calls": n, "bytes": x.numel() * x.element_size(),
+            "device_ms_median": med,
+            "host_enqueue_ms_median": float(np.median(host))}
+        per_step += med * n / steps
+        host_max = max(host_max, max(host))
+        del x
+    return {"calls_per_step": len(rec.calls) / steps, "by_shape": by,
+            "device_ms_per_step": per_step, "spin_ms": spin_ms,
+            "host_hidden": host_max < spin_ms}
+
+
+def master_gap(got, want, init, expert_ranges):
+    """How far the fp32 masters ``got`` are from ``want`` (both whole, in
+    the natural order, trained from ``init``), by part ("experts": the
+    ``expert_ranges`` of the flat; "dense": the rest) → {part: {"rel":
+    ‖got − want‖ / ‖want − init‖ (the gap over the training's update),
+    "max_abs"}}."""
+    experts = torch.zeros(want.numel(), dtype=torch.bool, device=want.device)
+    for lo, hi in expert_ranges:
+        experts[lo:hi] = True
+    out = {}
+    for part, m in (("experts", experts), ("dense", ~experts)):
+        d, u = got[m] - want[m], want[m] - init[m]
+        out[part] = {"rel": float(d.norm() / u.norm()),
+                     "max_abs": float(d.abs().max())}
+        del d, u
+    return out
+
+
+def moe_ep_run(fa, ad, gm, tokens, mesh=None, steps=MOE_EP_STEPS,
+               snap_at=None):
+    """(a): phase 11's model and JSON at stage 0 on this card, with
+    ``mesh`` (a 1-D "expert" `DeviceMesh` over a world-1 NCCL group) or
+    without a group, ``steps`` steps → (result, fp32 masters, snaps):
+    with ``snap_at``, snaps holds the whole fp32 masters in the natural
+    order before training ("init") and after ``snap_at`` steps ("snap"),
+    and the natural flat's expert leaves ("expert_ranges"). Exact
+    launches: phase 11's (two grouped forward and two dx products a
+    layer on the wgmma design, two dW), flash and one Adam a step."""
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.models.gpt_neox import is_expert_leaf
+    model = build_model(torch.float32)
+    eng, *_ = dst.initialize(model=model, config_params=MOE_EP_CONFIG,
+                             mesh=mesh)
+    if eng.num_params != MOE_NUM_PARAMS or \
+            (mesh is not None and not (eng.expert_mesh and eng.ep == 1)):
+        fail(f"phase 43 (a): the engine on {mesh} holds {eng.num_params} "
+             f"parameters, expert mesh {eng.expert_mesh}, ep {eng.ep}")
+    L = model.config.num_layers
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+    fa.reset_design_launches()
+    ad.launches = 0
+    gm.launches = gm.dw_launches = 0
+    gm.reset_design_launches()
+    snaps = {}
+    if snap_at:
+        snaps["init"] = eng._natural_flat(eng._master).detach().clone()
+        snaps["expert_ranges"] = [(lo, hi) for n, lo, hi, _ in
+                                  eng.natural_slices if is_expert_leaf(n)]
+    losses, step_s = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        losses.append(eng.train_batch(batch=(tokens, tokens)))
+        step_s.append(time.perf_counter() - t0)
+        if step + 1 == snap_at:
+            snaps["snap"] = eng._natural_flat(eng._master).detach().clone()
+    launches = {"flash_fwd": fa.launches,
+                "flash_bwd_dkv": fa.bwd_dkv_launches,
+                "flash_bwd_dq": fa.bwd_dq_launches, "adam": ad.launches,
+                "grouped_matmul": gm.launches,
+                "grouped_matmul_dw": gm.dw_launches}
+    want = {"flash_fwd": L * steps, "flash_bwd_dkv": L * steps,
+            "flash_bwd_dq": L * steps, "adam": steps,
+            "grouped_matmul": 4 * L * steps,
+            "grouped_matmul_dw": 2 * L * steps}
+    design = {"grouped_matmul": dict(gm.design_launches),
+              "grouped_matmul_dw": dict(gm.dw_design_launches)}
+    if launches != want or not all(np.isfinite(losses)):
+        fail(f"phase 43 (a): launches {launches} != {want}, or losses "
+             f"{losses} not finite")
+    for name in design:
+        if design[name] != {"wgmma": launches[name], "fma": 0}:
+            fail(f"phase 43 (a): {name} launches by design {design[name]}, "
+                 f"want all {launches[name]} on wgmma")
+    master = eng._master.detach().clone()
+    res = {"losses": losses, "step_ms": [t * 1e3 for t in step_s],
+           "step_ms_median": float(np.median(step_s)) * 1e3,
+           "launches": launches, "design_launches": design,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "num_params": eng.num_params}
+    del eng, model
+    torch.cuda.empty_cache()
+    return res, master, snaps
+
+
+def moe_ep_layer_bits(report):
+    """(b): `moe_ffn_expert_parallel` at ep 1 (the world-1 group) against
+    `moe_ffn_dense` at phase 11's layer geometry (8192 tokens, H 768,
+    I 3072, 8 experts, top 2, capacity factor 1.25, bf16): both engines,
+    the sort engine's exchange in 1 and 2 chunks; outputs and aux bit for
+    bit (gated), the gradients' identity printed."""
+    import torch.distributed as dist
+
+    from deeperspeed_tpu_torch.moe import layer as ml
+    H, I, E, T = 768, 3072, 8, MOE_TRAIN_CONFIG[
+        "train_micro_batch_size_per_gpu"] * TRAIN_SEQ
+    layer = ml.MoELayer(H, I, E, device="cuda", param_dtype=torch.bfloat16)
+    params = layer.init(0)
+    x = torch.randn(T, H, generator=torch.Generator(device="cuda")
+                    .manual_seed(3), device="cuda").to(torch.bfloat16)
+    kw = dict(capacity_factor=MOE_BLOCK["capacity_factor"],
+              top_k=MOE_BLOCK["top_k"])
+    out = {}
+
+    def run(fn, **extra):
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xx = x.clone().requires_grad_()
+        y, aux = fn(p, xx, **kw, **extra)
+        (y.float().square().mean() + aux).backward()
+        return y.detach(), aux.detach(), xx.grad, {k: v.grad for k, v in
+                                                  p.items()}
+    for dispatch in ("einsum", "sort"):
+        dense = run(ml.moe_ffn_dense, dispatch=dispatch)
+        for chunks in ((1, 2) if dispatch == "sort" else (1,)):
+            ep = run(lambda p, xx, **k: ml.moe_ffn_expert_parallel(
+                p, xx, dist.group.WORLD, 1, **k), dispatch=dispatch,
+                a2a_overlap_chunks=chunks)
+            fwd = bool(torch.equal(ep[0], dense[0]) and
+                       torch.equal(ep[1], dense[1]))
+            bwd = bool(torch.equal(ep[2], dense[2]) and all(
+                torch.equal(ep[3][k], dense[3][k]) for k in dense[3]))
+            out[f"{dispatch}_chunks{chunks}"] = {"forward_bit_equal": fwd,
+                                                 "grads_bit_equal": bwd}
+            print(f"  (b) moe_ffn_expert_parallel ep 1, {dispatch}, "
+                  f"{chunks} chunk(s) vs moe_ffn_dense: y and aux bit-equal "
+                  f"{fwd}, gradients bit-equal {bwd}", flush=True)
+            if not fwd:
+                fail(f"phase 43 (b): {dispatch} with {chunks} chunk(s) is "
+                     f"not moe_ffn_dense bit for bit")
+    report["moe_ep_layer_bits"] = out
+    return out
+
+
+def moe_ep_children(tmp, tokens, n_params):
+    """(c): two ranks over gloo on this card (`tests/torch_dp_worker.py`
+    children, micro 4 each): the "expert" mesh (4 experts a rank) and the
+    data-parallel path with replicated experts routing the global
+    micro-batch, MOE_EP_CHILD_STEPS steps each; rank 0 saves each run's
+    whole fp32 masters to ``tmp``/{name}_master.pt. → each rank's
+    results."""
+    import pickle
+    import socket
+    root = os.path.dirname(os.path.abspath(__file__))
+    conf = {**MOE_EP_CONFIG, "train_micro_batch_size_per_gpu":
+            tokens.shape[1] // 2}
+    cases = [{"kind": "train", "name": name, "size": NEOX_125M, "seed": 0,
+              "weights": None, "light": True, "conf": conf,
+              "tokens": tokens.cpu().numpy(), "steps": MOE_EP_CHILD_STEPS,
+              "mesh": mesh,
+              "master_file": os.path.join(tmp, f"{name}_master.pt")}
+             for name, mesh in (("ep2", "expert"), ("dp2", None))]
+    spec = os.path.join(tmp, "moe_ep_spec.pkl")
+    with open(spec, "wb") as f:
+        pickle.dump({"cases": cases, "device": "cuda", "backend": "gloo",
+                     "timeout": MOE_EP_CHILD_TIMEOUT}, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if q])
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(root, "tests",
+                                          "torch_dp_worker.py"), spec, tmp],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    deadline = time.monotonic() + MOE_EP_CHILD_TIMEOUT
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=max(
+                1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 43 (c): a rank did not finish in "
+             f"{MOE_EP_CHILD_TIMEOUT} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode:
+            fail(f"phase 43 (c): rank {rank} exited {proc.returncode}: "
+                 f"{log[-3000:]}")
+    out = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    for name, want_ep, want_n in (("ep2", 2, None), ("dp2", 1, n_params)):
+        r0, r1 = (o[name] for o in out)
+        if r0["losses"] != r1["losses"] or r0["dp_world_size"] != 2 or \
+                r0["ep"] != want_ep or (want_n is not None and
+                                        r0["num_params"] != want_n):
+            fail(f"phase 43 (c): {name}: ranks disagree or the layout is "
+                 f"not the expected one: {r0['losses']} / {r1['losses']}, "
+                 f"ep {r0['ep']}, {r0['num_params']} parameters")
+    return out
+
+
+def moe_ep_lut_case(gm, gen, report):
+    """(d): the grouped matmul on an owner's received buffer at ep 2
+    (MOE_EP_LUT_SIZES: 4 experts of 2 ragged spans each, LUT (0, 0, 1,
+    1, 2, 2, 3, 3)) at both FFN products in bf16: forward, dx and dW
+    against `grouped_matmul_reference` (`gmm_case`: dead rows and the
+    empty expert's dW exact zeros), two calls of each bit-identical; the
+    forward at (768, 3072) timed beside its plain version and torch.bmm
+    over the padded buffer."""
+    W = 4
+    lut = tuple(np.repeat(np.arange(W), 2).tolist())
+    rows = []
+    for K, N in GMM_SHAPES:
+        row, (x, w, dy, sz) = gmm_case(gm, gen, MOE_EP_LUT_SIZES, GMM_SPAN,
+                                       K, N, W, lut, torch.bfloat16)
+        same = bool(
+            torch.equal(gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN, lut),
+                        gm.grouped_matmul_cuda(x, w, sz, GMM_SPAN, lut)) and
+            torch.equal(gm.grouped_matmul_cuda(dy, w, sz, GMM_SPAN, lut,
+                                               transpose_w=True),
+                        gm.grouped_matmul_cuda(dy, w, sz, GMM_SPAN, lut,
+                                               transpose_w=True)) and
+            torch.equal(gm.grouped_matmul_dw_cuda(x, dy, sz, GMM_SPAN, lut,
+                                                  W),
+                        gm.grouped_matmul_dw_cuda(x, dy, sz, GMM_SPAN, lut,
+                                                  W)))
+        row["bit_identical"] = same
+        if not same:
+            fail(f"phase 43 (d): two calls differ on the expert-parallel "
+                 f"LUT: {row}")
+        if (K, N) == GMM_SHAPES[0]:
+            xb = x.view(W, 2 * GMM_SPAN, K)
+            row["ms"] = time_ms(lambda: gm.grouped_matmul_cuda(
+                x, w, sz, GMM_SPAN, lut))
+            row["plain_ms"] = time_ms(lambda: gm.grouped_matmul_reference(
+                x, w, sz, GMM_SPAN, lut), warmup=2, iters=10)
+            row["library_ms"] = time_ms(lambda: torch.bmm(xb, w))
+            live = sum(MOE_EP_LUT_SIZES)
+            esz = x.element_size()
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                live * K * esz + W * K * N * esz + x.shape[0] * N * esz,
+                2 * live * K * N)
+            print(f"  (d) forward on the ep-2 LUT: {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, torch.bmm "
+                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} "
+                  f"ms ({row['bound_by']})", flush=True)
+        rows.append(row)
+        del x, w, dy, sz
+    torch.cuda.empty_cache()
+    report["moe_ep_lut"] = rows
+    return rows
+
+
+def run_moe_ep_phase(fa, ad, gm, report, card, phase11_ms=None):
+    """Phase 43 → its result dict. A world-1 NCCL process group for
+    (a) and (b), destroyed before (c)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.utils import distributed as ds_dist
+    t0 = time.perf_counter()
+    micro = MOE_TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, TRAIN_VOCAB_USED, size=(1, micro, TRAIN_SEQ))).cuda()
+    out = {"steps": MOE_EP_STEPS, "card": card}
+    print(f"moe ep (a): phase 11's engine at stage 0 without a process "
+          f"group, {MOE_EP_STEPS} steps:", flush=True)
+    ref, ref_master, snaps = moe_ep_run(fa, ad, gm, tokens,
+                                        snap_at=MOE_EP_CHILD_STEPS)
+    out["no_group"] = ref
+    if ds_dist.is_initialized():
+        fail("phase 43: a process group exists before init_distributed")
+    with socket_port() as port:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dst.init_distributed(dist_backend="nccl", timeout=300, verbose=False)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("expert",))
+        with A2ARecorder(ds_dist) as rec:
+            res, master, _ = moe_ep_run(fa, ad, gm, tokens, mesh=mesh)
+        res["all_to_all"] = a2a_device_ms(ds_dist, rec, MOE_EP_STEPS)
+        res["bit_equal_no_group"] = {
+            "losses": res["losses"] == ref["losses"],
+            "masters": bool(torch.equal(master, ref_master))}
+        res["phase11_step_ms_median"] = phase11_ms
+        out["expert_mesh"] = res
+        print(f"  train-moe-ep-125M at world 1 over nccl on an \"expert\" "
+              f"mesh: losses {res['losses']}, median step "
+              f"{res['step_ms_median']:.2f} ms (no group "
+              f"{ref['step_ms_median']:.2f}, phase 11 {phase11_ms}), "
+              f"all-to-alls {res['all_to_all']}, launches a step "
+              f"{res['launches_per_step']}, bit-equal "
+              f"{res['bit_equal_no_group']} on {card}", flush=True)
+        if not all(res["bit_equal_no_group"].values()):
+            fail(f"phase 43 (a): the expert mesh at world 1 is not the "
+                 f"engine without a group bit for bit: "
+                 f"{res['bit_equal_no_group']}")
+        del master, ref_master
+        torch.cuda.empty_cache()
+        out["layer_bits"] = moe_ep_layer_bits(report)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"moe ep (c): two gloo ranks on this card, micro "
+          f"{micro // 2} each, {MOE_EP_CHILD_STEPS} steps a run:",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="moe_ep_children_", dir="build")
+    out["two_ranks"] = {}
+    want = ref["losses"][:MOE_EP_CHILD_STEPS]
+    try:
+        kids = moe_ep_children(tmp, tokens, ref["num_params"])
+        for name in ("ep2", "dp2"):
+            got = kids[0][name]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            step_ms = [max(a, b) for a, b in zip(kids[0][name]["step_ms"],
+                                                 kids[1][name]["step_ms"])]
+            kid_master = torch.load(os.path.join(tmp, f"{name}_master.pt"))
+            gap = master_gap(kid_master.cuda(), snaps["snap"],
+                             snaps["init"], snaps["expert_ranges"])
+            del kid_master
+            out["two_ranks"][name] = {
+                "losses": got, "max_rel_diff_to_a": rel,
+                "tol": TOL_MOE_EP_CHILD, "masters_to_a": gap,
+                "masters_tol": TOL_MOE_EP_MASTER, "step_ms": step_ms,
+                "num_params_a_rank": kids[0][name]["num_params"],
+                "host_staged": [k[name]["host_staged"] for k in kids]}
+            print(f"  {name}: losses {got}, max relative difference to "
+                  f"(a) {rel:.3e}; fp32 masters after "
+                  f"{MOE_EP_CHILD_STEPS} steps against (a)'s, gap over "
+                  f"update {gap}; step ms (the slower rank's) {step_ms}, "
+                  f"a rank's parameters {kids[0][name]['num_params']}, "
+                  f"collectives through the host (gloo, explicit) "
+                  f"{out['two_ranks'][name]['host_staged']} on {card}",
+                  flush=True)
+            if not rel < TOL_MOE_EP_CHILD:
+                fail(f"phase 43 (c): {name} two-rank losses {got} are not "
+                     f"within rtol {TOL_MOE_EP_CHILD} of (a)'s {want}")
+            if not all(g["rel"] < TOL_MOE_EP_MASTER for g in gap.values()):
+                fail(f"phase 43 (c): {name} two-rank masters are not "
+                     f"within {TOL_MOE_EP_MASTER} of (a)'s update: {gap}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del snaps
+    torch.cuda.empty_cache()
+    print("moe ep (d): the grouped matmul on the ep-2 LUT:", flush=True)
+    out["lut"] = moe_ep_lut_case(gm, torch.Generator(device="cuda")
+                                 .manual_seed(43), report)
+    out["seconds"] = time.perf_counter() - t0
+    report["moe_ep"] = out
+    print(f"phase 43: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def moe_ep_kernel_entries(me):
+    """What phase 43 adds to the kernels line: each kernel's launches on
+    its runs by path."""
+    runs = {"train_moe_ep_no_group": me["no_group"],
+            "train_moe_ep": me["expert_mesh"]}
+    return {name: {path: r["launches"][count] for path, r in runs.items()}
+            for name, count in (("flash_fwd", "flash_fwd"),
+                                ("flash_bwd", "flash_bwd_dkv"),
+                                ("flash_bwd_dq", "flash_bwd_dq"),
+                                ("adam", "adam"),
+                                ("grouped_matmul", "grouped_matmul"),
+                                ("grouped_matmul_dw", "grouped_matmul_dw"))}
+
+
+def moe_ep_only(card):
+    """Phase 43 alone, after phase 3's training-shape flash, Adam and
+    grouped-matmul checks and phase 11 (the step beside)."""
+    from deeperspeed_tpu_torch import GPTNeoXConfig
+    from deeperspeed_tpu_torch.ops.hopper import _build
+    from deeperspeed_tpu_torch.ops.hopper import adam as ad
+    from deeperspeed_tpu_torch.ops.hopper import flash_attention as fa
+    from deeperspeed_tpu_torch.ops.hopper import grouped_matmul as gm
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {_build.BUILD_INFO['seconds']:.1f} s (built="
+          f"{_build.BUILD_INFO['built']})", flush=True)
+    report = {"card": card, "build_seconds": _build.BUILD_INFO["seconds"]}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print("kernels vs plain versions (the MoE training path's):",
+          flush=True)
+    ft, fb, adm, _ = check_train_kernels(
+        fa, ad, gen, report, GPTNeoXConfig(**NEOX_125M).num_params())
+    gmm = check_grouped_matmul(gm, gen, report)
+    print("MoE training GPT-NeoX-125M (phase 11):", flush=True)
+    tm = train(fa, ad, report, conf=MOE_TRAIN_CONFIG, gm=gm,
+               key="train_moe")
+    print_train("train-moe-125M", tm, card)
+    me = run_moe_ep_phase(fa, ad, gm, report, card,
+                          phase11_ms=tm["step_ms_median"])
+    entries = moe_ep_kernel_entries(me)
+    for name, count in (("flash_fwd", "flash_fwd"),
+                        ("flash_bwd", "flash_bwd_dkv"),
+                        ("flash_bwd_dq", "flash_bwd_dq"), ("adam", "adam"),
+                        ("grouped_matmul", "grouped_matmul"),
+                        ("grouped_matmul_dw", "grouped_matmul_dw")):
+        entries[name]["train_moe"] = tm["launches"][count]
+    kernels = train_kernel_rows(ft, fb, adm, gmm, entries)
+    report["kernels"] = kernels
+    os.makedirs(REPORT_DIR, exist_ok=True)
+    with open(os.path.join(REPORT_DIR, "chip_smoke_moe_ep.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(f"wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}, default=str), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -11541,6 +12081,13 @@ def main():
                          "NCCL, bench.py row_zero3's quantities, two gloo "
                          "ranks on the card), after phase 3's flash and "
                          "Adam checks at the training shape")
+    ap.add_argument("--moe-ep-only", action="store_true",
+                    help="run only phase 43 (MoE across ranks: the "
+                         "\"expert\" mesh at world 1 over NCCL, the layer "
+                         "at ep 1, two gloo ranks on the card, the "
+                         "grouped matmul on the expert-parallel LUT), after "
+                         "phase 3's flash, Adam and grouped-matmul checks "
+                         "and phase 11")
     ap.add_argument("--rl-only", action="store_true",
                     help="run only phase 40 (online RL), after phase 3's "
                          "checks of the kernels it launches (with "
@@ -11583,6 +12130,8 @@ def main():
         return dp_only(card)
     if args.zero3_only:
         return zero3_only(card, args.profile)
+    if args.moe_ep_only:
+        return moe_ep_only(card)
 
     from deeperspeed_tpu_torch import GPTNeoXConfig
     from deeperspeed_tpu_torch.ops.hopper import _build
@@ -11772,6 +12321,8 @@ def main():
     rl = run_rl_phases(fa, da, qm, ad, report, card, args.profile)
     dp = run_dp_phase(fa, ad, report, card, phase7_ms=tr["step_ms_median"])
     z3 = run_zero3_phase(fa, ad, report, card)
+    me = run_moe_ep_phase(fa, ad, gm, report, card,
+                          phase11_ms=tm["step_ms_median"])
     if args.profile:
         print("profile GPT-NeoX-125M (bf16):", flush=True)
         profile(report, card)
@@ -12245,6 +12796,7 @@ def main():
     merge_obs_entries(kernels, rl_kernel_entries(rl))
     merge_obs_entries(kernels, dp_kernel_entries(dp))
     merge_obs_entries(kernels, zero3_kernel_entries(z3))
+    merge_obs_entries(kernels, moe_ep_kernel_entries(me))
     os.makedirs(REPORT_DIR, exist_ok=True)
     report["kernels"] = kernels
     with open(os.path.join(REPORT_DIR, "chip_smoke_report.json"),

@@ -77,7 +77,7 @@ def add_config_arguments(parser):
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None,
                dist_init_required=None, collate_fn=None, config=None,
-               config_params=None):
+               config_params=None, mesh=None):
     """Initialize the training engine (the JAX package's `initialize`).
 
     ``model`` is a `GPTNeoX`, a `GPT2`, a `BertForPreTraining` or a
@@ -90,12 +90,16 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     Under a `torch.distributed` process group (`init_distributed`) each
     rank builds its model on its own card and trains data parallel with
     ZeRO stages 0-3 (stage 3: GPT-NeoX), each taking its own
-    micro-batches.
+    micro-batches; the MoE blocks route the global micro-batch. ``mesh``
+    (a 1-D `torch.distributed.device_mesh.DeviceMesh` over the group's
+    ranks, named "expert" or "data": the JAX ``initialize``'s mesh) with
+    an "expert" axis shards the MoE experts over the ranks (ZeRO stage
+    0, the sort engine): each rank keeps E/world experts and the blocks
+    exchange the tokens with their owners by all-to-alls.
 
     Returns ``(engine, engine.optimizer, engine.training_dataloader,
-    engine.lr_scheduler)``. A pipeline model, an ``mpu`` and expert
-    parallelism are not ported yet and raise
-    `DeepSpeedConfigError` (the MoE layer's mesh: NotImplementedError).
+    engine.lr_scheduler)``. A pipeline model, an ``mpu`` and a 2-D mesh
+    are not ported yet and raise `DeepSpeedConfigError`.
     """
     log_dist(f"DeeperSpeed-torch info: version={__version__}", ranks=[0])
     if type(model).__name__ == "PipelineModule":
@@ -108,7 +112,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              lr_scheduler=lr_scheduler, mpu=mpu,
                              dist_init_required=dist_init_required,
                              collate_fn=collate_fn, config=config,
-                             config_params=config_params)
+                             config_params=config_params, mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 

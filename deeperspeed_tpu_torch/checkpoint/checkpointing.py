@@ -151,6 +151,9 @@ def _host_flats(engine, flats):
         if engine._z3 is not None:
             # every rank's rows, in the natural order
             src = engine._z3.gather_natural(src)
+        elif engine._expert_range is not None:
+            # every rank's experts: the whole model, in the natural order
+            src = engine._ep_whole(src)
         elif part is not None and src.numel() == part.size:
             # a partition: every rank's, in rank order, one role at a
             # time on the device
@@ -167,11 +170,11 @@ def _host_flats(engine, flats):
 
 
 def _natural(engine, flat, prefix=""):
-    """``{path key: numpy view}`` of one host flat buffer, split in
-    `param_names` order."""
+    """``{path key: numpy view}`` of one host flat buffer of the whole
+    model, split in its natural layout (``natural_slices``)."""
     arr = flat.numpy()
     return {prefix + path_key(name): arr[lo:hi].reshape(shape)
-            for name, lo, hi, shape in engine.param_slices}
+            for name, lo, hi, shape in engine.natural_slices}
 
 
 def _client_state_dict(engine, what):
@@ -490,20 +493,27 @@ def _copy_leaves(engine, dst, arrays, prefix=""):
     host fp32 buffer, then one copy into the flat engine tensor ``dst``
     (cast to its dtype), in place: all of it, or this rank's partition
     where ``dst`` is one (at stage 3 its rows; the compute shard's copy
-    also fills the persisted row)."""
+    also fills the persisted row; on an "expert" mesh this rank's rows
+    of each whole expert leaf)."""
     part = engine._part
     z3 = engine._z3
     flat_n = part.padded if part is not None and z3 is None \
         else engine.num_params
     host = torch.zeros(flat_n, dtype=torch.float32)
+    ep_lo = engine._expert_range[0] if engine._expert_range else None
     for name, lo, hi, shape in engine.param_slices:
         key = prefix + path_key(name)
         if key not in arrays:
             raise KeyError(f"checkpoint missing parameter {key!r}")
         leaf = to_tensor(arrays[key])
-        if tuple(leaf.shape) != shape:
+        want = shape if ep_lo is None or lo < ep_lo else \
+            (shape[0] * engine.ep,) + shape[1:]
+        if tuple(leaf.shape) != want:
             raise ValueError(f"checkpoint leaf {key!r} has shape "
-                             f"{tuple(leaf.shape)}, the model's is {shape}")
+                             f"{tuple(leaf.shape)}, the model's is {want}")
+        if want != shape:
+            leaf = leaf[engine.dp_rank * shape[0]:
+                        (engine.dp_rank + 1) * shape[0]]
         host[lo:hi] = leaf.reshape(-1)
     if z3 is not None:
         if dst is engine._params_flat:
@@ -600,6 +610,12 @@ def _apply_checkpoint(engine, load_dir, tag, ckpt_dir, model_state,
         raise _not_ported(f"a checkpoint saved at model-parallel world "
                           f"{saved_mp}")
     saved_dp = model_state.get("dp_world_size")
+    if saved_dp is not None and int(saved_dp) != engine.dp_world_size and \
+            engine.expert_mesh:
+        raise DeepSpeedConfigError(
+            f"an elastic resume of experts sharded over an \"expert\" "
+            f"mesh (saved at world {saved_dp}, resumed at "
+            f"{engine.dp_world_size}) is not ported yet (ROADMAP.md A.6)")
     if saved_dp is not None and int(saved_dp) != engine.dp_world_size:
         log_dist(f"elastic resume: dp world size changed {saved_dp} -> "
                  f"{engine.dp_world_size}; the zero shards merge and each "

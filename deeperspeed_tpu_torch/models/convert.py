@@ -86,3 +86,53 @@ def tiled_linear_from_jax(layer, params):
                              f"differ?)")
     layer.load_state_dict({k: v.to(own[k].dtype) for k, v in sd.items()})
     return layer
+
+
+def _map_experts(tree, fn, path=()):
+    """``tree`` with ``fn(leaf)`` in place of every expert leaf (an MoE
+    block's ``mlp.{w_in,b_in,w_out,b_out}``, dim 0 the experts)."""
+    from .gpt_neox import is_expert_leaf
+    if isinstance(tree, dict):
+        return {k: _map_experts(v, fn, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_experts(v, fn, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(tree) if is_expert_leaf(".".join(path)) else tree
+
+
+def expert_slice(tree, rank, ep):
+    """A rank's share of a whole GPT-NeoX params tree (numpy or tensor
+    leaves, the JAX natural tree) on an "expert" mesh of ``ep`` ranks:
+    rows [rank·E/ep, (rank + 1)·E/ep) of every expert leaf, every other
+    leaf (the gate too) whole."""
+    def cut(leaf):
+        n = leaf.shape[0] // ep
+        return leaf[rank * n:(rank + 1) * n]
+    return _map_experts(tree, cut)
+
+
+def merge_expert_slices(trees):
+    """The whole tree back from every rank's `expert_slice` (rank order):
+    the expert leaves concatenated along the experts, every other leaf
+    rank 0's."""
+    leaves = [_flatten(t, "", {}) for t in trees]
+
+    def whole(path_leaf):
+        name, leaf = path_leaf
+        parts = [lv[name] for lv in leaves]
+        if isinstance(leaf, torch.Tensor):
+            return torch.cat(parts)
+        return np.concatenate([np.asarray(p) for p in parts])
+
+    from .gpt_neox import is_expert_leaf
+
+    def rebuild(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: rebuild(v, f"{prefix}{k}.") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rebuild(v, f"{prefix}{i}.")
+                              for i, v in enumerate(tree))
+        name = prefix[:-1]
+        return whole((name, tree)) if is_expert_leaf(name) else tree
+    return rebuild(trees[0], "")

@@ -247,15 +247,27 @@ def _block_qkv(cfg, params, x, cos, sin, rot_dim, nh_local, backend=None):
     return q, k, v
 
 
+class MoEComm:
+    """Where an MoE block's route and experts live across ranks: the
+    routing ``group`` (the data-parallel group: the route is the global
+    micro-batch's) and ``expert_parallel``, whether the experts are
+    sharded over its ranks (a 1-D "expert" mesh) or replicated."""
+
+    def __init__(self, group, expert_parallel=False):
+        self.group, self.expert_parallel = group, bool(expert_parallel)
+
+
 def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
-                     use_kernels=True, ffn_quant=None):
+                     use_kernels=True, ffn_quant=None, moe_comm=None):
     """Everything after the attention core: out projection, residuals,
     ln2, MLP (dense or MoE). `attn_flat` is the [B, S, h] attention
     output. With MoE the return is (out, aux_load_balance_loss); ``rng``
     (a `torch.Generator`) feeds the gate jitter and ``use_kernels`` the
-    grouped matmul's kernel switch. ``ffn_quant`` = (recipe, margin,
-    amax_row [4, H]) runs the FFN under delayed-scaling quantization and
-    appends the advanced amax row to the return."""
+    grouped matmul's kernel switch; ``moe_comm`` (a `MoEComm`) routes
+    the global micro-batch and exchanges the tokens with the experts'
+    owners. ``ffn_quant`` = (recipe, margin, amax_row [4, H]) runs the
+    FFN under delayed-scaling quantization and appends the advanced amax
+    row to the return."""
     out_b = params["attn"]["out_b"].to(x.dtype)
     attn_partial = _wmat(attn_flat, params["attn"]["out_w"], backend)
     if cfg.use_parallel_residual:
@@ -273,7 +285,11 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
             groups=cfg.moe_num_groups, dispatch=cfg.moe_dispatch,
             renorm_kept_choices=cfg.moe_renorm_kept_choices,
             use_kernels=use_kernels, ffn_quant=ffn_quant,
-            observe=cfg.moe_observability)
+            observe=cfg.moe_observability,
+            group=None if moe_comm is None else moe_comm.group,
+            expert_parallel=moe_comm is not None and
+            moe_comm.expert_parallel,
+            a2a_overlap_chunks=cfg.moe_a2a_overlap_chunks)
         moe_out = y[0].reshape(ln2.shape)
         if cfg.use_parallel_residual:
             out = x + attn_partial + out_b + moe_out
@@ -303,12 +319,13 @@ def _block_post_attn(cfg, params, x, attn_flat, backend=None, rng=None,
 
 
 def block_forward(cfg, params, x, cos_sin, use_kernels=True,
-                  segment_ids=None, rng=None, attn_fn=None, ffn_quant=None):
+                  segment_ids=None, rng=None, attn_fn=None, ffn_quant=None,
+                  moe_comm=None):
     """One GPT-NeoX block: x + attn(ln1(x)) + ffn(ln2(x)); with MoE the
     return is (out, aux_loss), and with ``ffn_quant`` the advanced amax
-    row is appended (`_block_post_attn`). ``attn_fn`` (the sparse engine
-    of `make_sparse_attention`) replaces `causal_attention` as the
-    core."""
+    row is appended (`_block_post_attn`, which takes ``moe_comm``).
+    ``attn_fn`` (the sparse engine of `make_sparse_attention`) replaces
+    `causal_attention` as the core."""
     B, S, h = x.shape
     cos, sin, rot_dim = cos_sin
     q, k, v = _block_qkv(cfg, params, x, cos, sin, rot_dim, cfg.num_heads)
@@ -319,7 +336,8 @@ def block_forward(cfg, params, x, cos_sin, use_kernels=True,
         attn = causal_attention(q, k, v, use_kernels=use_kernels,
                                 segment_ids=segment_ids)
     return _block_post_attn(cfg, params, x, attn.reshape(B, S, h), rng=rng,
-                            use_kernels=use_kernels, ffn_quant=ffn_quant)
+                            use_kernels=use_kernels, ffn_quant=ffn_quant,
+                            moe_comm=moe_comm)
 
 
 def lm_head(params, h):
@@ -358,7 +376,7 @@ def resolve_remat(remat_blocks, remat_policy, number_checkpoints):
 def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
                 attn_fn=None, remat_blocks=False, remat_policy=None,
                 number_checkpoints=None, segment_ids=None, hidden=None,
-                ffn_amax=None, zero3=None):
+                ffn_amax=None, zero3=None, moe_comm=None):
     """The blocks over the embedded ``x`` [B, S, H] → the last block's
     output; with MoE (out, the blocks' aux losses summed). Shared by the
     GPT-NeoX and GPT-2 forwards (the JAX package's
@@ -385,6 +403,10 @@ def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
     as an output, so a span's recompute in the backward reads the same
     row and its second copy of the new row is dropped: the history
     advances once a forward.
+
+    ``moe_comm`` (a `MoEComm`) is every MoE block's (`_block_post_attn`);
+    a span's recompute issues its collectives again, on every rank in
+    the same order.
 
     ``zero3`` (a `runtime.zero.stage3.Zero3Runtime`: ZeRO stage 3) is
     the per-block fetch hook: ``blocks`` then hold each layer's
@@ -422,7 +444,8 @@ def block_stack(cfg, blocks, x, cos_sin, use_kernels=True, rng=None,
             y = block_forward(
                 cfg, bp, x, cos_sin, use_kernels=use_kernels,
                 segment_ids=segment_ids, rng=rng, attn_fn=attn_fn,
-                ffn_quant=None if arow is None else (*quant_args, arow))
+                ffn_quant=None if arow is None else (*quant_args, arow),
+                moe_comm=moe_comm)
             if moe or quant:
                 x = y[0]
                 if moe:
@@ -498,12 +521,12 @@ def _fetched_block_stack(cfg, zero3, x, cos_sin, use_kernels, rng,
 def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
                    attn_fn=None, remat_blocks=False, remat_policy=None,
                    number_checkpoints=None, segment_ids=None, hidden=None,
-                   ffn_amax=None, zero3=None):
+                   ffn_amax=None, zero3=None, moe_comm=None):
     """tokens [B, S] int → final-norm hidden states [B, S, H]; with MoE
     (out, the blocks' aux losses summed); with ``ffn_amax`` [L, 4, H]
     (the quantized FFN's amax histories) the advanced histories are
     appended. The blocks run through `block_stack` (its remat knobs,
-    ``rng``, ``attn_fn``, ``hidden`` and ``ffn_amax``).
+    ``rng``, ``attn_fn``, ``hidden``, ``ffn_amax`` and ``moe_comm``).
 
     ``segment_ids`` [B, S] int (packed ragged batches, 0 = pad — see
     `runtime.packing`): attention becomes intra-document on every block,
@@ -530,7 +553,7 @@ def forward_hidden(cfg, params, tokens, use_kernels=True, rng=None,
                     remat_blocks=remat_blocks, remat_policy=remat_policy,
                     number_checkpoints=number_checkpoints,
                     segment_ids=segment_ids, hidden=hidden,
-                    ffn_amax=ffn_amax, zero3=zero3)
+                    ffn_amax=ffn_amax, zero3=zero3, moe_comm=moe_comm)
     rest = ()
     if cfg.moe_num_experts or ffn_amax is not None:
         x, *rest = x
@@ -718,6 +741,18 @@ def _refuse_unported(cfg):
             f"{cfg.attention_engine!r}")
 
 
+# the leaves an "expert" mesh shards (dim 0, the experts)
+EXPERT_LEAVES = ("w_in", "b_in", "w_out", "b_out")
+
+
+def is_expert_leaf(name):
+    """Whether the parameter ``name`` (``blocks.{i}.mlp.w_in``) is an
+    expert leaf of an MoE block."""
+    parts = name.split(".")
+    return len(parts) == 4 and parts[0] == "blocks" and \
+        parts[2] == "mlp" and parts[3] in EXPERT_LEAVES
+
+
 def _holder(**shapes):
     """A parameter-only submodule, so the dotted names follow the JAX
     pytree paths (``blocks.0.attn.qkv_w``)."""
@@ -844,6 +879,9 @@ class GPTNeoX(LMModule):
         super().__init__(cfg, use_kernels, remat_blocks, scan_blocks,
                          remat_policy, number_checkpoints)
         self._init_seed = 0
+        # the MoE blocks' routing group and expert sharding across ranks
+        # (`MoEComm`; the training engine sets it under a process group)
+        self.moe_comm = None
         # the sparse engine: set by apply_ds_config, or built lazily for
         # attention_engine="sparse" set on the config
         self._attn_fn = None
@@ -973,8 +1011,8 @@ class GPTNeoX(LMModule):
         if self.config.moe_a2a_overlap_chunks > 1:
             logger.warning(
                 "moe.a2a_overlap_chunks > 1 has no effect on the GPT-NeoX "
-                "MoE path on one card; it applies to the expert-parallel "
-                "exchange (moe_ffn_expert_parallel), not ported yet")
+                "MoE path on one card; it pipelines the expert-parallel "
+                "exchange of an \"expert\" mesh")
         device = self.embed.wte.device
         gen = torch.Generator(device=device).manual_seed(self._init_seed)
         for i, blk in enumerate(self.blocks):
@@ -987,13 +1025,50 @@ class GPTNeoX(LMModule):
                             gen)
             blk.mlp = mlp
 
+    def param_specs(self, mesh=None):
+        """{parameter name: `PartitionSpec` entries} of the leaves on
+        ``mesh`` (a `DeviceMesh`): the experts' leaves
+        ``blocks.{i}.mlp.{w_in,b_in,w_out,b_out}`` sharded over
+        ``("expert",)`` where the mesh has an "expert" dimension of more
+        than one rank and the FFN is MoE, every other leaf (the gate
+        too) replicated, ``()`` (the JAX model's ``param_specs``, which
+        its engine reads in ``_compute_shardings``)."""
+        names = getattr(mesh, "mesh_dim_names", None) or ()
+        ep = "expert" in names and \
+            mesh.size(names.index("expert")) > 1 and \
+            bool(self.config.moe_num_experts)
+        return {n: ("expert",) if ep and is_expert_leaf(n) else ()
+                for n, _ in self.named_parameters()}
+
+    @torch.no_grad()
+    def shard_experts(self, rank, ep):
+        """Keep this rank's E/ep experts of every MoE block (rows
+        [rank·E/ep, (rank + 1)·E/ep) of the expert leaves; the gate
+        whole): the model's share on an "expert" mesh of ``ep`` ranks."""
+        E = self.config.moe_num_experts
+        if not E or ep == 1:
+            return self
+        if E % ep:
+            raise DeepSpeedConfigError(
+                f"moe.num_experts {E} must divide over the {ep} ranks of "
+                f"the \"expert\" mesh")
+        n = E // ep
+        for blk in self.blocks:
+            for name, param in list(blk.mlp.named_parameters()):
+                if name == "gate":
+                    continue
+                blk.mlp.register_parameter(name, nn.Parameter(
+                    param[rank * n:(rank + 1) * n].clone()))
+        return self
+
     def apply(self, params, tokens):
         """tokens [B, S] → logits [B, S, V] (fp32) under the parameter
         tree ``params`` (the JAX model's ``apply``), differentiable in
         it: what the RL losses run."""
         return forward(self.config, params, tokens,
                        use_kernels=self.use_kernels,
-                       attn_fn=self._attention_fn(), **self._remat_knobs())
+                       attn_fn=self._attention_fn(), moe_comm=self.moe_comm,
+                       **self._remat_knobs())
 
     def forward(self, tokens):
         """tokens [B, S] → logits [B, S, V] (fp32)."""
@@ -1010,7 +1085,8 @@ class GPTNeoX(LMModule):
                                 use_kernels=self.use_kernels, rng=rng,
                                 attn_fn=self._attention_fn(),
                                 segment_ids=seg, ffn_amax=ffn_amax,
-                                zero3=zero3, **self._remat_knobs())
+                                zero3=zero3, moe_comm=self.moe_comm,
+                                **self._remat_knobs())
         aux = new_amax = None
         if cfg.moe_num_experts and ffn_amax is not None:
             hidden, aux, new_amax = hidden
@@ -1082,7 +1158,7 @@ class GPTNeoX(LMModule):
         forward_hidden(self.config, params, tokens,
                        use_kernels=self.use_kernels, rng=rng,
                        attn_fn=self._attention_fn(), segment_ids=seg,
-                       hidden=hidden, zero3=zero3)
+                       hidden=hidden, zero3=zero3, moe_comm=self.moe_comm)
         return hidden
 
     def build_zero3_loss(self, runtime, schedule):

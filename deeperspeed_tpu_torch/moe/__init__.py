@@ -1,5 +1,5 @@
-from .layer import (DISPATCH_MODES, MoELayer, moe_ffn_dense,
+from .layer import (DISPATCH_MODES, MoELayer, expert_shard, moe_ffn_dense,
                     moe_ffn_expert_parallel)
 
-__all__ = ["DISPATCH_MODES", "MoELayer", "moe_ffn_dense",
+__all__ = ["DISPATCH_MODES", "MoELayer", "expert_shard", "moe_ffn_dense",
            "moe_ffn_expert_parallel"]

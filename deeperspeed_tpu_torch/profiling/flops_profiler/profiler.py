@@ -139,13 +139,19 @@ def count_train_flops(engine, micro_batch, rng_seed=0):
     memory and syncs nothing. Nothing of the engine's state changes; the
     jitter and dropout draw from a generator of their own, and the MoE
     routing statistics are not recorded. At ZeRO stage 3 the parameters
-    are fakes of their natural shapes."""
+    are fakes of their natural shapes. Across ranks the MoE blocks route
+    the rank's tokens alone for the count (no collective runs over
+    fakes): the count is of the rank's share, with the capacity of its
+    own tokens."""
     from ...moe.layer import ROUTING_STATS
     model = engine.module
     had = hasattr(model, "use_kernels")
     prev = getattr(model, "use_kernels", None)
+    comm = getattr(model, "moe_comm", None)
     if had:
         model.use_kernels = False
+    if comm is not None:
+        model.moe_comm = None
     try:
         with FakeTensorMode(allow_non_fake_inputs=True) as mode, \
                 ROUTING_STATS.suspended():
@@ -180,6 +186,8 @@ def count_train_flops(engine, micro_batch, rng_seed=0):
     finally:
         if had:
             model.use_kernels = prev
+        if comm is not None:
+            model.moe_comm = comm
     return flops
 
 

@@ -1,5 +1,6 @@
 """The training engine: `DeepSpeedEngine`, on one card or across
-data-parallel `torch.distributed` ranks.
+data-parallel `torch.distributed` ranks (MoE experts also sharded over
+an "expert" mesh).
 
 The port of the training step of `deeperspeed_tpu/runtime/engine.py`
 (`_init_state`, `_loss_and_grads`, `_train_step_body`, `_apply_update`,
@@ -100,6 +101,20 @@ micro-step from (1234, ``micro_steps``), as the JAX engine folds
 ``micro_steps`` into ``PRNGKey(1234)``: a run resumed from a checkpoint
 (which restores ``micro_steps``) draws the numbers of the run that was
 never stopped.
+
+MoE across ranks: under a process group the model's MoE blocks route
+the global micro-batch of the data-parallel group, as the JAX engine's
+loss sees it (`models.gpt_neox.MoEComm`, `moe.layer._route_plan`). A 1-D
+`DeviceMesh` named "expert" (``mesh=``, the JAX engine's ``mesh``; its
+axis is the data axis too) shards the experts: each rank keeps E/world
+of them (`GPTNeoX.shard_experts`), the blocks send the sort engine's
+buffer to the experts' owners and back by two all-to-alls, and the flat
+buffers hold the expert leaves last, one range (``_expert_range``) that
+stage 0 leaves out of the all-reduce; every leaf takes the same 1 /
+(gas · world) scale, the norm counts each expert once, and checkpoints
+hold every expert leaf whole (gathered at save, sliced at load). ZeRO
+stages 1-3, the einsum engine, quantization.ffn, sparse_gradients and
+the flops count are refused there (`_configure_moe_ranks`).
 
 Checkpoints (`save_checkpoint`, `save_checkpoint_async`,
 `load_checkpoint`; `checkpoint/`) are the JAX package's files: either
@@ -269,7 +284,8 @@ class DeepSpeedEngine:
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
                  lr_scheduler=None, mpu=None, dist_init_required=None,
-                 collate_fn=None, config=None, config_params=None):
+                 collate_fn=None, config=None, config_params=None,
+                 mesh=None):
         if model is None:
             raise DeepSpeedConfigError("deepspeed.initialize requires a model")
         if not (isinstance(model, torch.nn.Module) and
@@ -291,7 +307,7 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
         self.device = next(model.parameters()).device
         self.compute_dtype = self._config.precision
-        self._configure_data_parallel()
+        self._configure_data_parallel(mesh)
 
         # config-drivable model features, applied before the flat state
         # is built: the model builds expert weights, its attention core,
@@ -319,6 +335,7 @@ class DeepSpeedEngine:
             # after apply_ds_config has given the model its final shapes
             with torch.no_grad():
                 model.load_state_dict(state_dict_from_jax(model_parameters))
+        self._configure_moe_ranks()
         # the loss the engine trains (`loss_fn`): the model's own, or the
         # RL loss the "rl" block installs, before anything reads it
         self._loss_override = None
@@ -605,17 +622,45 @@ class DeepSpeedEngine:
                  f"{self._config.scheduler_name}", ranks=[0])
         return sched
 
-    def _configure_data_parallel(self):
+    def _configure_data_parallel(self, mesh=None):
         """The data-parallel world: the `torch.distributed` default
         group when one exists (at any world size, 1 included), else one
         rank and no collectives. Stages 1-2 partition the flat state
-        (``_part``, this rank's range, set by `_init_state`)."""
+        (``_part``, this rank's range, set by `_init_state`).
+
+        ``mesh``: a 1-D `DeviceMesh` over the default group's ranks,
+        named "expert" or "data" (the JAX engine's ``mesh``). Its axis is
+        the data axis, so ``dp_world_size`` is the world either way, as
+        in JAX; an "expert" axis also shards the MoE blocks' experts
+        (``ep``, `_configure_moe_ranks`)."""
         from ..utils import distributed as ds_dist
         self.mp_world_size = 1
         self.dp_world_size = ds_dist.get_world_size()
         self.dp_rank = ds_dist.get_rank()
         self.dp_group = None
         self._part = None
+        self.mesh = mesh
+        self.ep = 1
+        self.expert_mesh = False
+        if mesh is not None:
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            if getattr(mesh, "ndim", len(names)) != 1:
+                raise _not_ported(
+                    f"a {getattr(mesh, 'ndim', len(names))}-D mesh "
+                    f"{names} (the data axis beside an \"expert\" or a "
+                    f"model axis)", "tensor / sequence parallel (A.6)")
+            if names and names[0] not in ("expert", "data"):
+                raise _not_ported(f"a mesh axis named {names[0]!r}",
+                                  "tensor / sequence parallel (A.6)")
+            if not ds_dist.is_initialized() or \
+                    mesh.size() != ds_dist.get_world_size():
+                raise DeepSpeedConfigError(
+                    f"the mesh spans {mesh.size()} ranks; it must span "
+                    f"the default process group's "
+                    f"{ds_dist.get_world_size()} (init_distributed first)")
+            if names and names[0] == "expert":
+                self.expert_mesh = True
+                self.ep = mesh.size()
         if not ds_dist.is_initialized():
             return
         import torch.distributed as dist
@@ -625,6 +670,56 @@ class DeepSpeedEngine:
                 f"{self.device}: build the model on the rank's card, or "
                 f"init_distributed(dist_backend=\"gloo\") for the CPU")
         self.dp_group = dist.group.WORLD
+
+    def _configure_moe_ranks(self):
+        """MoE under a process group: the model's blocks route the global
+        micro-batch of the data-parallel group (`models.gpt_neox.
+        MoEComm`), and on an "expert" mesh the model keeps this rank's
+        E/world experts (`shard_experts`), which the blocks reach through
+        two all-to-alls. What the expert mesh does not carry raises:
+        ZeRO stages 1-3 (the JAX engine maps "expert" twice there and
+        raises DuplicateSpecError), the einsum engine, quantization.ffn,
+        sparse_gradients and the flops count of the telemetry and the
+        flops profiler (A.6). At world 1 (as in JAX, whose specs shard
+        nothing over a 1-device axis) nothing is refused and the
+        exchange is a copy."""
+        cfg = self._config
+        # the model's own config says whether it is MoE (the JSON block
+        # or a config built with experts), as the JAX model's specs read
+        moe = bool(getattr(getattr(self.module, "config", None),
+                           "moe_num_experts", 0))
+        if self.ep > 1 and moe:
+            def refuse(what):
+                return _not_ported(f"{what} on an \"expert\" mesh",
+                                   "ranks (A.6)")
+            if self.zero_optimization_stage() >= 1:
+                raise DeepSpeedConfigError(
+                    f"ZeRO stage {self.zero_optimization_stage()} on an "
+                    f"\"expert\" mesh is unsupported: the JAX engine "
+                    f"shards the expert leaves and the ZeRO state both "
+                    f"over that one axis and raises DuplicateSpecError "
+                    f"(PartitionSpec('expert', 'expert')); train the "
+                    f"experts at stage 0")
+            if self.module.config.moe_dispatch != "sort":
+                raise refuse("moe.dispatch \"einsum\" (the exchange runs "
+                             "the sort engine's grouped matmul)")
+            if (cfg.quantization_config or {}).get("ffn"):
+                raise refuse("quantization.ffn (its amax over the whole "
+                             "buffer needs a max over the owners)")
+            if self.sparse_gradients_enabled():
+                raise refuse("sparse_gradients")
+            if cfg.flops_profiler_config.enabled or \
+                    cfg.telemetry_config.get("enabled"):
+                raise refuse("the flops count (flops_profiler, "
+                             "telemetry)")
+            self.module.shard_experts(self.dp_rank, self.ep)
+        elif not moe:
+            # no experts to shard: data parallel
+            self.ep, self.expert_mesh = 1, False
+        if moe and self.dp_group is not None and \
+                hasattr(self.module, "moe_comm"):
+            from ..models.gpt_neox import MoEComm
+            self.module.moe_comm = MoEComm(self.dp_group, self.expert_mesh)
 
     @property
     def _zero3_on(self):
@@ -696,11 +791,27 @@ class DeepSpeedEngine:
         into (``_grad_part``), stage 2 an fp32 accumulator of the
         partition only.
 
+        On an "expert" mesh (``ep`` > 1, stage 0) the buffers hold this
+        rank's experts, and their leaves come last, one contiguous range
+        (``_expert_range``) that the step does not all-reduce;
+        ``natural_slices`` is the whole model's natural layout
+        (`_natural_flat` gathers a buffer into it).
+
         Stage 3: `_init_zero3_state`."""
         self._z3 = self._z3_loss = None
+        self._expert_range = None
         if self._zero3_on:
-            return self._init_zero3_state()
+            self._init_zero3_state()
+            self.natural_slices = self.param_slices
+            return
         named = list(self.module.named_parameters())
+        if self.ep > 1:
+            from ..models.gpt_neox import is_expert_leaf
+            whole = [(n, (p.shape[0] * self.ep,) + tuple(p.shape[1:])
+                      if is_expert_leaf(n) else tuple(p.shape))
+                     for n, p in named]
+            named = [leaf for leaf in named if not is_expert_leaf(leaf[0])] \
+                + [leaf for leaf in named if is_expert_leaf(leaf[0])]
         self.param_names = [n for n, _ in named]
         sizes = [p.numel() for _, p in named]
         self.num_params = int(sum(sizes))
@@ -709,6 +820,14 @@ class DeepSpeedEngine:
         # (name, lo, hi, shape) of every leaf in the flat buffers
         self.param_slices = [(n, lo, hi, tuple(p.shape)) for (n, p), lo, hi
                              in zip(named, offsets[:-1], offsets[1:])]
+        self.natural_slices = self.param_slices
+        if self.ep > 1:
+            n_exp = sum(p.numel() for n, p in named if is_expert_leaf(n))
+            self._expert_range = (self.num_params - n_exp, self.num_params)
+            wsz = [int(np.prod(shape)) for _, shape in whole]
+            woff = np.concatenate([[0], np.cumsum(wsz)]).tolist()
+            self.natural_slices = [(n, lo, hi, shape) for (n, shape), lo, hi
+                                   in zip(whole, woff[:-1], woff[1:])]
         lean = not self.keep_master and cdt != torch.float32
         part = self._part = flat_partition(
             self.num_params, self.dp_world_size, self.dp_rank) \
@@ -963,8 +1082,9 @@ class DeepSpeedEngine:
     def _check_grad_views(self):
         """After the first backward: autograd added into the flat
         gradient buffer's views and replaced none of them."""
-        for (name, p), ptr in zip(self.module.named_parameters(),
-                                  self._grad_ptrs):
+        params = dict(self.module.named_parameters())
+        for name, ptr in zip(self.param_names, self._grad_ptrs):
+            p = params[name]
             if p.grad is None or p.grad.data_ptr() != ptr:
                 raise RuntimeError(
                     f"autograd replaced the gradient view of {name}: the "
@@ -1321,7 +1441,11 @@ class DeepSpeedEngine:
         sparse = [(lo, hi, shape) for name, lo, hi, shape in
                   self.param_slices if name in CSR_EMBEDDING_LEAVES] \
             if self.sparse_gradients_enabled() else []
-        edges = [0] + [b for lo, hi, _ in sparse for b in (lo, hi)] + \
+        # this rank's experts (an "expert" mesh) are its own: their
+        # gradients stay as they are, scaled like every other leaf
+        skip = sorted([(lo, hi) for lo, hi, _ in sparse] +
+                      ([self._expert_range] if self._expert_range else []))
+        edges = [0] + [b for lo, hi in skip for b in (lo, hi)] + \
             [red.numel()]
         for lo, hi in zip(edges[::2], edges[1::2]):
             if hi > lo:
@@ -1373,9 +1497,11 @@ class DeepSpeedEngine:
         if cfg.prescale_gradients and cfg.gradient_predivide_factor != 1.0:
             grads.div_(cfg.gradient_predivide_factor)
         # a partition's flag and norm are agreed over the ranks; stage
-        # 0's gradients are whole and alike on every rank
-        group = self.dp_group \
-            if self._part is not None or self._z3 is not None else None
+        # 0's gradients are whole and alike on every rank, but for the
+        # experts of an "expert" mesh
+        group = self.dp_group if self._part is not None or \
+            self._z3 is not None or self._expert_range is not None \
+            else None
         overflow = cfg.loss_scaling_enabled and \
             not bool(grads_finite(grads, group))
         skip = overflow
@@ -1435,9 +1561,18 @@ class DeepSpeedEngine:
         one rank the partition holds every row in the row layout's
         order; the norm is taken over the natural order, stage 0's flat
         layout, so a reduction over the same elements in the same order
-        gives stage 0's norm, and the clip its scale, bit for bit."""
+        gives stage 0's norm, and the clip its scale, bit for bit. On an
+        "expert" mesh it is ‖dense‖² + Σ_r ‖experts_r‖²: the dense part,
+        alike on every rank after the all-reduce, counted once, each
+        rank's experts summed over the ranks, so every expert counts
+        once, as in JAX."""
         if self._z3 is not None and self.dp_world_size == 1:
             return global_norm(self._z3.layout.to_natural(grads))
+        if self._expert_range is not None:
+            elo, ehi = self._expert_range
+            dense = torch.linalg.vector_norm(grads[:elo].float()).square()
+            experts = global_norm(grads[elo:ehi], group).square()
+            return (dense + experts).sqrt()
         return global_norm(grads, group)
 
     def _compute_out(self):
@@ -1841,7 +1976,43 @@ class DeepSpeedEngine:
         if self._part is not None and part.numel() == self._part.size:
             return gather_full(part, self._part,
                                self.dp_group)[:self.num_params]
+        if self._expert_range is not None:
+            return self._ep_whole(part[:self.num_params])
         return part[:self.num_params]
+
+    def _ep_whole(self, flat):
+        """A flat buffer of this rank's layout on an "expert" mesh → the
+        whole model's natural flat (``natural_slices``): every rank's
+        expert range all-gathered, each expert leaf's ranks' rows
+        concatenated."""
+        from ..utils import distributed as ds_dist
+        elo, ehi = self._expert_range
+        parts = ds_dist.all_gather(flat[elo:ehi].detach(), self.dp_group)
+        local = {n: (lo, hi) for n, lo, hi, _ in self.param_slices}
+        out = []
+        for name, _, _, _ in self.natural_slices:
+            lo, hi = local[name]
+            if lo >= elo:
+                out.extend(p[lo - elo:hi - elo] for p in parts)
+            else:
+                out.append(flat[lo:hi])
+        return torch.cat(out)
+
+    def _ep_local(self, natural):
+        """The inverse of `_ep_whole`: this rank's layout (its rows of
+        each expert leaf) out of a whole natural flat."""
+        out = torch.empty(self.num_params, dtype=natural.dtype,
+                          device=natural.device)
+        whole = {n: (lo, hi) for n, lo, hi, _ in self.natural_slices}
+        elo = self._expert_range[0]
+        for name, lo, hi, _ in self.param_slices:
+            wlo, whi = whole[name]
+            if lo >= elo:
+                n = hi - lo
+                wlo += self.dp_rank * n
+                whi = wlo + n
+            out[lo:hi] = natural[wlo:whi]
+        return out
 
     def _load_natural(self, natural):
         """A natural flat fp32 buffer of the whole model into the masters
@@ -1861,6 +2032,8 @@ class DeepSpeedEngine:
                     self._master.copy_(full[self._part.lo:self._part.hi])
                 self._params_flat.copy_(full)
                 return
+            if self._expert_range is not None:
+                natural = self._ep_local(natural)
             self._params_flat[:self.num_params].copy_(natural)
             if self._master is not self._params_flat:
                 self._master.copy_(natural)
@@ -1885,13 +2058,13 @@ class DeepSpeedEngine:
         with torch.no_grad():
             natural = self._natural_flat(self._master).float().cpu()
         tree = unflatten({name: natural[lo:hi].view(shape)
-                          for name, lo, hi, shape in self.param_slices})
+                          for name, lo, hi, shape in self.natural_slices})
 
         def write_back(view):
             from .zero.partition_parameters import _tree_map_path
             new = natural.clone()
             slots = {name.replace(".", "/"): (lo, hi)
-                     for name, lo, hi, _ in self.param_slices}
+                     for name, lo, hi, _ in self.natural_slices}
 
             def put(path, v):
                 key = "/".join(str(k) for k in path)

@@ -14,11 +14,22 @@ training engine's data-parallel path runs whenever one exists.
 where the backend can bound the wait (gloo's monitored barrier), and
 `inject_barrier_timeout` arms it to fail without waiting, the
 single-process test seam of the JAX package.
+
+The MoE layer's collectives are differentiable (`all_reduce_sum`,
+`all_gather`: their backward sums the cotangents over the group, as
+`torch.distributed.nn.functional` does; `all_to_all`: its backward is
+the reverse exchange, and it can be issued asynchronously and completed
+by `a2a_wait`). A CUDA tensor on a gloo group goes through an explicit
+host copy (`_staged`, counted in `host_staged`); NCCL takes it as it
+is.
 """
 
 import datetime
 import os
 import time
+
+import torch
+import torch.distributed as dist
 
 from .logging import logger
 
@@ -195,3 +206,147 @@ def mpi_discovery(distributed_port=29500, verbose=True):
         logger.info(f"MPI discovery: rank={rank}, world_size={world_size}, "
                     f"master_addr={master_addr}, master_port="
                     f"{distributed_port}")
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (MoE across ranks: `moe/layer.py`)
+# ---------------------------------------------------------------------------
+
+# how many collectives took the explicit host copy (a CUDA tensor on a
+# gloo group, `_staged`) since the last reset; `chip_smoke.py` reports it
+host_staged = 0
+
+
+def _staged(t, group):
+    """(the tensor the backend is given, whether it is a host copy):
+    gloo's all-to-all takes CPU tensors, so a CUDA tensor on a gloo group
+    goes through an explicit host copy, counted in `host_staged`. NCCL
+    takes the CUDA tensor itself."""
+    global host_staged
+    if t.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        host_staged += 1
+        return t.cpu(), True
+    return t, False
+
+
+def _all_to_all(x, group, async_op=False):
+    """``out[s] = x_of_rank_s[rank]`` along dim 0 (split in world equal
+    blocks) → (out, work or None). ``x`` is made contiguous."""
+    src, host = _staged(x.contiguous(), group)
+    out = torch.empty_like(src)
+    work = dist.all_to_all_single(out, src, group=group, async_op=async_op)
+    if host:
+        # the host copy back needs the data: wait here
+        if work is not None:
+            work.wait()
+        return out.to(x.device), None
+    return out, work
+
+
+def _all_reduce_sum(t, group):
+    src, host = _staged(t.contiguous(), group)
+    out = src.clone() if not host else src
+    dist.all_reduce(out, group=group)
+    return out.to(t.device) if host else out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group; the backward sums the cotangents over the
+    group too (`torch.distributed.nn.functional.all_reduce`): a statistic
+    every rank computes over the whole group sends each rank's gradient
+    back to every contributor."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    """[world, *t.shape], rank-major; the backward sums the cotangents
+    over the group and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        src, host = _staged(t.contiguous(), group)
+        out = [torch.empty_like(src)
+               for _ in range(dist.get_world_size(group))]
+        dist.all_gather(out, src, group=group)
+        out = torch.stack(out)
+        return out.to(t.device) if host else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum(g, ctx.group)[dist.get_rank(ctx.group)], None
+
+
+class A2AHandle:
+    """An all-to-all in flight (`all_to_all(..., async_op=True)`)."""
+    work = None
+
+
+class _AllToAll(torch.autograd.Function):
+    """`_all_to_all` along dim 0; the backward is the reverse all-to-all
+    (the exchange is its own transpose). With ``handle`` (an `A2AHandle`)
+    the exchange is issued asynchronously and `a2a_wait` completes it."""
+
+    @staticmethod
+    def forward(ctx, x, group, handle):
+        ctx.group = group
+        out, work = _all_to_all(x, group, async_op=handle is not None)
+        if handle is not None:
+            handle.work = work
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group)[0], None, None
+
+
+class _Wait(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, handle):
+        if handle.work is not None:
+            handle.work.wait()
+            handle.work = None
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce_sum(t, group=None):
+    """Differentiable sum over ``group``: the backward all-reduces the
+    cotangent, so a group statistic every rank computes and every rank's
+    loss reads gets the sum of their gradients (a data-parallel average
+    then divides by the world)."""
+    return _AllReduceSum.apply(t, group)
+
+
+def all_gather(t, group=None):
+    """Differentiable all-gather → [world, *t.shape] (rank-major); the
+    backward sums the cotangents over the group."""
+    return _AllGather.apply(t, group)
+
+
+def all_to_all(x, group=None, async_op=False):
+    """Differentiable all-to-all along dim 0 (``x`` [world, ...]: block s
+    goes to rank s; the result's block s came from rank s), as
+    `jax.lax.all_to_all(x, axis, 0, 0)`. The backward is the reverse
+    exchange. With ``async_op`` the return is (out, handle): ``out`` is
+    ready once `a2a_wait(out, handle)` returns it."""
+    if not async_op:
+        return _AllToAll.apply(x, group, None)
+    handle = A2AHandle()
+    return _AllToAll.apply(x, group, handle), handle
+
+
+def a2a_wait(x, handle):
+    """Complete the asynchronous all-to-all that made ``x``."""
+    return _Wait.apply(x, handle)

@@ -12,44 +12,25 @@ the inputs a run over every family draws.
   rounded to nearest, once missed the kernel by one fp32 ulp of p.
 """
 
-import shutil
-import subprocess
-import sys
-from pathlib import Path
-
 import pytest
 
-SHIM = (Path(__file__).resolve().parents[1] / "deeperspeed_tpu_torch" /
-        "csrc" / "cpu_shim")
-REHEARSE = SHIM / "rehearse.py"
+from torch_cpu_shim import SHIM, rehearse, shim_build
 
 
 @pytest.fixture(scope="module", autouse=True)
 def built():
-    """The sources compiled once, before the first case, so no case's
-    time limit pays for g++."""
-    if shutil.which("g++") is None:
-        pytest.skip("the CPU shim compiles the CUDA sources with g++")
-    res = subprocess.run([sys.executable, str(REHEARSE), "--build-only"],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, (res.stdout[-4000:] + res.stderr[-4000:])
-
-
-def _rehearse(*args):
-    res = subprocess.run([sys.executable, str(REHEARSE), *args],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, (res.stdout[-4000:] + res.stderr[-4000:])
-    assert res.stdout.strip().splitlines()[-1] == "rehearsal passed"
-    return res.stdout
+    """The sources compiled once a checkout, before the first case, so no
+    case's time limit pays for g++."""
+    shim_build()
 
 
 @pytest.mark.parametrize("family", ("quant_matmul_fp16",
                                     "paged_decode_int8_fp16"))
 def test_int8_fp16_family_rehearses_on_the_cpu(family):
-    _rehearse("--only", family)
+    rehearse("--only", family)
 
 
 def test_adam_family_on_the_full_runs_inputs():
-    out = _rehearse("--only", "adam", "--generator-state",
-                    str(SHIM / "adam_full_run.state"))
+    out = rehearse("--only", "adam", "--generator-state",
+                   str(SHIM / "adam_full_run.state"))
     assert out.count("equal to the plain version bit for bit") == 7

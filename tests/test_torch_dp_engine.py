@@ -239,10 +239,44 @@ def test_still_refused(what):
         dst.initialize(model=model, config_params=conf, **kw)
 
 
-def test_expert_parallel_still_refused():
-    from deeperspeed_tpu_torch.moe.layer import (MoELayer,
-                                                 moe_ffn_expert_parallel)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        moe_ffn_expert_parallel(None, None, "expert", 2)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        MoELayer(8, 16, 2, mesh=object(), device="cpu")
+class _Mesh:
+    """A stand-in `DeviceMesh` (no process group can be formed in the
+    test process): its dim names and sizes."""
+
+    def __init__(self, names, shape):
+        self.mesh_dim_names, self.shape = tuple(names), tuple(shape)
+        self.ndim = len(shape)
+
+    def size(self, dim=None):
+        return int(np.prod(self.shape)) if dim is None else self.shape[dim]
+
+
+@pytest.mark.parametrize("mesh, match", [
+    (_Mesh(("expert",), (2,)), "init_distributed first"),
+    (_Mesh(("data", "expert"), (2, 2)), "2-D mesh"),
+    (_Mesh(("model",), (2,)), "axis named 'model'")])
+def test_engine_mesh_refusals(mesh, match):
+    """Expert parallelism is ported (`test_torch_moe_ep_engine.py` trains
+    it on gloo ranks); a mesh without the process group it spans, a 2-D
+    mesh and a model axis stay refused."""
+    conf = _conf(1, "fp32", 0, moe={"num_experts": 4, "top_k": 2,
+                                    "dispatch": "sort"})
+    model = neox.GPTNeoX(neox.GPTNeoXConfig(**T.SIZE), device="cpu")
+    with pytest.raises(DeepSpeedConfigError, match=match) as e:
+        dst.initialize(model=model, config_params=conf, mesh=mesh)
+    assert "init_distributed" in str(e.value) or "A.6" in str(e.value)
+
+
+def test_moe_layer_without_expert_axis_is_one_card():
+    """`MoELayer` whose mesh has no "expert" dimension (or none) runs the
+    one-card FFN; one with experts that do not divide over the expert
+    ranks raises, as in JAX."""
+    from deeperspeed_tpu_torch.moe.layer import MoELayer
+    layer = MoELayer(8, 16, 4, mesh=_Mesh(("data",), (2,)), device="cpu",
+                     dispatch="sort", top_k=2)
+    assert layer.ep == 1 and layer.group is None
+    params = layer.init(0)
+    y, aux = layer.apply(params, torch.randn(2, 16, 8))
+    assert y.shape == (2, 16, 8) and torch.isfinite(aux)
+    with pytest.raises(ValueError, match="must divide"):
+        MoELayer(8, 16, 3, mesh=_Mesh(("expert",), (2,)), device="cpu")

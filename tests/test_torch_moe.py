@@ -195,9 +195,12 @@ def test_layer_protocol_and_refusals():
         MoELayer(H, I, E, dispatch="scatter", device="cpu")
     with pytest.raises(ValueError, match="dispatch"):
         moe_ffn_dense(params, torch.randn(8, H), dispatch="scatter")
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        MoELayer(H, I, E, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    # a mesh without an "expert" dimension: the one-card layer (expert
+    # parallelism on gloo ranks: test_torch_moe_ep_layer.py)
+    assert MoELayer(H, I, E, mesh=object(), device="cpu").ep == 1
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        moe_ffn_expert_parallel(params, torch.randn(8, H), None, 2)
+    with pytest.raises(TypeError, match="axis name"):
         moe_ffn_expert_parallel(params, torch.randn(8, H), "expert", 2)
     # the quantized FFN runs on the sort engine only (the JAX refusal)
     with pytest.raises(ValueError, match="requires dispatch='sort'"):

@@ -15,19 +15,25 @@ group, each a dict with a ``kind``:
   through `train_batch` or, with ``legacy``, the forward / backward /
   step loop. Optional: ``load`` (a checkpoint dir to resume from first;
   with ``wait_for``, a file to wait for before loading, written by the
-  test process), ``save`` (dir) and ``save_at`` (after that many steps;
+  test process; the masters right after it are reported as
+  ``loaded_master``; with ``load_error`` a refused load reports its
+  message as ``load_error`` and ends the case), ``save`` (dir) and ``save_at`` (after that many steps;
   the last by default), ``inject_inf`` ({"step", "rank"}: an inf in that
   rank's reduced gradient at that step, 1-based), ``eval`` (the
   eval_batch loss of the first micro-batch after training), ``hook``
   (layer indices captured through `set_layers_to_hook` on the first
   step), ``edit`` ({"leaf", "value"}: a row of that leaf set through
   `gathered_parameters` before training), ``consolidated`` (the ZeRO-3
-  consolidated state dict after training).
+  consolidated state dict after training), ``mesh`` ("expert" or
+  "data": a 1-D `DeviceMesh` over the ranks handed to `initialize`),
+  ``master_file`` (rank 0 saves the fp32 masters there after training,
+  whole and in the natural order, with `torch.save`).
   Reports the losses, each step's host ms (the returned loss syncs the
   device), the masters and the compute parameters (natural
   leaves, fp32, whole: gathered over the ranks), the loss scale, the
-  counters, this rank's state bytes by buffer and the files this rank
-  wrote (``light``: no masters or parameters).
+  counters, this rank's state bytes by buffer, the files this rank
+  wrote and the collectives the case staged through the host
+  (``light``: no masters or parameters).
 - "csr": `csr_allreduce` of this rank's row-sparse ``dense[rank]``.
 - "stage1": the standalone stage-1 / stage-2 optimizers on a few tensors.
 - "loader": the `DeepSpeedDataLoader` order at the group's defaults.
@@ -36,6 +42,15 @@ group, each a dict with a ``kind``:
   error each raises (None where none is raised).
 - "zero_api": `zero.Init` / `GatheredParameters` standalone over the
   group: the local shapes, the gathered leaves and the write-back.
+- "moe_fn": the MoE FFN on this rank's rows of ``x`` [T, H] (numpy):
+  ``fn`` "dense" (`moe_ffn_dense` routing the global batch over the
+  group, experts whole), "ep" (`moe_ffn_expert_parallel` over this
+  rank's experts of ``params``) or "layer" (`MoELayer(mesh=)`), for each
+  of ``runs`` (dicts of keyword arguments); reports y, aux, the
+  gradients of sum(y · ``w``'s rows) + aux / world with respect to x
+  and the parameters it holds, and the routing statistics of
+  ``observe``; a run's ``t_local`` takes that many rows a rank, and a
+  refused route reports its message as ``error``.
 
 The spec's ``device`` ("cpu" by default; "cuda": every rank on the
 current card) and ``backend`` ("gloo" by default) place the ranks.
@@ -50,11 +65,23 @@ import time
 
 
 def _tree_flat(engine, flat):
-    """A whole flat buffer → {JAX path key: fp32 numpy leaf}."""
+    """A whole flat buffer (the natural layout) → {JAX path key: fp32
+    numpy leaf}."""
     from deeperspeed_tpu_torch.checkpoint.serialization import path_key
     arr = flat.detach().float().cpu().numpy()
     return {path_key(n): arr[lo:hi].reshape(shape).copy()
-            for n, lo, hi, shape in engine.param_slices}
+            for n, lo, hi, shape in engine.natural_slices}
+
+
+def _mesh(case, world):
+    """The case's ``mesh``: None, an axis name ("expert", "data": 1-D over
+    the ranks) or "data,expert" (2-D, 1 × world)."""
+    if not case.get("mesh"):
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+    names = tuple(case["mesh"].split(","))
+    shape = (1,) * (len(names) - 1) + (world,)
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
 def _whole(engine, t):
@@ -92,8 +119,10 @@ def run_train(case, rank, world, device="cpu"):
     import deeperspeed_tpu_torch as dst
     from deeperspeed_tpu_torch.checkpoint import checkpointing
     from deeperspeed_tpu_torch.models import gpt_neox as neox
+    from deeperspeed_tpu_torch.utils import distributed as ds_dist
 
     written = []
+    ds_dist.host_staged = 0       # this case's collectives through the host
     save_obj = checkpointing.save_obj
 
     def recording(obj, path, *a, **kw):
@@ -104,15 +133,23 @@ def run_train(case, rank, world, device="cpu"):
     if case.get("weights") is None:
         model.init_params(case["seed"])
     eng, *_ = dst.initialize(model=model, config_params=case["conf"],
-                             model_parameters=case.get("weights"))
+                             model_parameters=case.get("weights"),
+                             mesh=_mesh(case, world))
     if case.get("wait_for"):
         deadline = time.monotonic() + 150
         while not os.path.exists(case["wait_for"]):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"{case['wait_for']} never appeared")
             time.sleep(0.2)
+    loaded = None
     if case.get("load"):
-        eng.load_checkpoint(case["load"])
+        try:
+            eng.load_checkpoint(case["load"])
+        except dst.DeepSpeedConfigError as e:
+            if not case.get("load_error"):
+                raise
+            return {"load_error": str(e)}
+        loaded = _tree_flat(eng, _whole(eng, eng._master))
     edit = case.get("edit")
     if edit:
         with eng.gathered_parameters(modifier_rank=0) as full:
@@ -168,7 +205,15 @@ def run_train(case, rank, world, device="cpu"):
            "state_bytes": _state_bytes(eng),
            "num_params": eng.num_params,
            "part": tuple(eng._part) if eng._part is not None else None,
-           "dp_world_size": eng.dp_world_size}
+           "dp_world_size": eng.dp_world_size, "ep": eng.ep,
+           "host_staged": ds_dist.host_staged}
+    if loaded is not None:
+        out["loaded_master"] = loaded
+    if case.get("master_file"):
+        whole = _whole(eng, eng._master)      # a collective on every rank
+        if rank == 0:
+            torch.save(whole.float().cpu(), case["master_file"])
+        del whole
     if not case.get("light"):
         out["master"] = _tree_flat(eng, _whole(eng, eng._master))
         out["params"] = _tree_flat(eng, _whole(eng, eng._params_flat))
@@ -272,11 +317,63 @@ def run_refuse(case, rank, world):
         else:
             model = neox.GPTNeoX(neox.GPTNeoXConfig(**case["size"]),
                                  device="cpu")
+        mesh = conf.pop("mesh", case.get("mesh"))
         try:
-            dst.initialize(model=model, config_params=conf)
+            dst.initialize(model=model, config_params=conf,
+                           mesh=_mesh({"mesh": mesh}, world)
+                           if isinstance(mesh, str) else mesh)
             out[name] = None
         except (dst.DeepSpeedConfigError, NotImplementedError) as e:
             out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def run_moe_fn(case, rank, world):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import deeperspeed_tpu_torch as dst
+    from deeperspeed_tpu_torch.moe import layer as ml
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("expert",))
+    x_all = torch.from_numpy(np.asarray(case["x"]))
+    w_all = torch.from_numpy(np.asarray(case["w"]))
+    out = []
+    for kw in case["runs"]:
+        kw = dict(kw)
+        fn = kw.pop("fn")
+        T = kw.pop("t_local", x_all.shape[0] // world)
+        rows = slice(rank * T, (rank + 1) * T)
+        params = {k: torch.from_numpy(np.asarray(v))
+                  for k, v in case["params"].items()}
+        if fn != "dense":
+            params = ml.expert_shard(params, rank, world)
+        params = {k: v.clone().requires_grad_() for k, v in params.items()}
+        x = x_all[rows].clone().requires_grad_()
+        ml.ROUTING_STATS.drain()
+        if fn == "dense":
+            try:
+                y, aux = ml.moe_ffn_dense(params, x, group=dist.group.WORLD,
+                                          **kw)
+            except dst.DeepSpeedConfigError as e:
+                out.append({"error": str(e)})
+                continue
+        elif fn == "ep":
+            y, aux = ml.moe_ffn_expert_parallel(params, x, mesh, world, **kw)
+        else:
+            layer = ml.MoELayer(x.shape[1], params["w_in"].shape[-1],
+                                params["gate"].shape[1], mesh=mesh,
+                                device="cpu", **kw)
+            y, aux = layer.apply(params, x)
+        ((y * w_all[rows]).sum() + aux / world).backward()
+        stats = ml.ROUTING_STATS.drain()
+        out.append({
+            "y": y.detach().numpy(), "aux": float(aux),
+            "dx": x.grad.numpy(),
+            "grads": {k: v.grad.numpy() for k, v in params.items()},
+            "stats": None if stats is None else
+            {k: float(v) for k, v in stats.items()}})
     return out
 
 
@@ -321,7 +418,7 @@ def run_zero_api(case, rank, world):
 
 RUNNERS = {"train": run_train, "csr": run_csr, "stage1": run_stage1,
            "loader": run_loader, "refuse": run_refuse,
-           "zero_api": run_zero_api}
+           "zero_api": run_zero_api, "moe_fn": run_moe_fn}
 
 
 def main():
